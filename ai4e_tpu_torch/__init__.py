@@ -1,0 +1,10 @@
+"""PyTorch / CUDA port of ``ai4e_tpu`` for an NVIDIA H100.
+
+The package mirrors ``ai4e_tpu``'s layout module for module and imports
+nothing of it, nor JAX. Plain tensor code is PyTorch; each Pallas kernel of
+the JAX package becomes a hand-written CUDA C++ kernel under ``csrc/``,
+built for ``sm_90a`` at first use (``ops/_native.py``), beside a plain
+PyTorch version that CPU tensors take.
+
+Entry point: ``python -m ai4e_tpu_torch worker --models <spec.json>``.
+"""

@@ -1,0 +1,188 @@
+"""Model-family factories — config-driven servable construction.
+
+Counterpart of ``ai4e_tpu/runtime/families.py`` for the families this port
+serves so far: ``echo`` (the transport smoke API) and ``unet`` (land-cover
+segmentation, on the uint8 ``rgb8`` wire). The response contracts are the
+JAX package's, byte for byte. Other families and wires raise ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import io
+
+import numpy as np
+import torch
+from torch import nn
+
+from .ladder import IMAGE_BUCKETS
+from .registry import ServableModel
+
+
+def _finite_narrow_cast(arr: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """Cast a float payload to a narrower float wire dtype, failing loudly:
+    a bare astype maps |x| > dtype-max to inf, which would surface
+    downstream as NaN scores instead of an error for this one task."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        out = arr.astype(dtype, copy=False)
+    if (np.issubdtype(dtype, np.floating)
+            and np.issubdtype(arr.dtype, np.floating)
+            and np.dtype(dtype).itemsize < arr.dtype.itemsize
+            and not np.isfinite(out).all()):
+        if np.isnan(arr).any():
+            raise ValueError("payload contains NaN")
+        raise ValueError(
+            f"payload exceeds {np.dtype(dtype)} range (max |x| "
+            f"{float(np.nanmax(np.abs(arr)))})")
+    return out
+
+
+def _npy_preprocess(shape: tuple, dtype=np.float32):
+    dtype = np.dtype(dtype)
+
+    def preprocess(body: bytes, content_type: str):
+        arr = np.load(io.BytesIO(body))
+        if arr.shape != shape:
+            raise ValueError(f"expected {shape}, got {arr.shape}")
+        return _finite_narrow_cast(arr, dtype)
+    return preprocess
+
+
+def _image_preprocess(shape: tuple, dtype=np.float32):
+    """Payload decoder for (H, W, 3) models: ``image/*`` content types are
+    decoded + resized with PIL; anything else is treated as a raw npy array
+    of the exact input shape. A broken image raises ValueError -> fails
+    that one task, never a batch."""
+    h, w, _ = shape
+
+    def preprocess(body: bytes, content_type: str):
+        if content_type and content_type.startswith("image/"):
+            try:
+                from PIL import Image
+            except ImportError as exc:  # pragma: no cover - PIL is baked in
+                raise ValueError("image payloads need Pillow") from exc
+            try:
+                img = Image.open(io.BytesIO(body))
+                img = img.convert("RGB").resize((w, h), Image.BILINEAR)
+            except Exception as exc:  # noqa: BLE001 — bad image fails one task
+                raise ValueError(f"undecodable image: {exc}") from exc
+            arr = np.asarray(img, np.uint8)
+            if np.dtype(dtype) == np.uint8:
+                return arr
+            return arr.astype(np.float32) / 255.0
+        arr = np.load(io.BytesIO(body))
+        if arr.shape != shape:
+            raise ValueError(f"expected {shape}, got {arr.shape}")
+        return cast_image_payload(arr, dtype)
+
+    return preprocess
+
+
+def cast_image_payload(arr: np.ndarray, dtype) -> np.ndarray:
+    """Cast a decoded payload to the servable's input dtype. Float [0,1]
+    arrays headed for a uint8-ingesting model are SCALED, not truncated;
+    float->narrower-float goes through the finite-cast guard."""
+    if np.dtype(dtype) == np.uint8 and arr.dtype != np.uint8:
+        return np.clip(np.round(arr * 255.0), 0, 255).astype(np.uint8)
+    return _finite_narrow_cast(arr, np.dtype(dtype))
+
+
+def encode_classmap_png(classmap: np.ndarray) -> str:
+    """(H, W) uint8 class ids -> base64 PNG string (grayscale, lossless;
+    pixel value == class id)."""
+    import base64
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(classmap.astype(np.uint8), mode="L").save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+class _Scale(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(()))
+
+
+def build_echo(name: str = "echo", size: int = 16, buckets=(8,),
+               **_) -> ServableModel:
+    """Identity model: proves the full transport without model weight."""
+
+    def apply_fn(module, batch):
+        return batch * module.scale
+
+    return ServableModel(
+        name=name, apply_fn=apply_fn, module=_Scale(),
+        input_shape=(size,), preprocess=_npy_preprocess((size,)),
+        postprocess=lambda out: {"echo": np.asarray(out).tolist()},
+        batch_buckets=tuple(buckets))
+
+
+def build_unet(name: str = "landcover", tile: int = 256,
+               widths=(32, 64, 128), num_classes: int = 8,
+               buckets=IMAGE_BUCKETS, fused_postprocess: bool = True,
+               return_classmap: bool = False, wire: str = "rgb8",
+               **_) -> ServableModel:
+    """Land-cover segmentation on the fused ``rgb8`` path: clients ship
+    uint8 pixels, the card normalises them and reduces the logits to
+    per-class counts (``ops.normalize_image`` -> ``UNet`` ->
+    ``ops.fused_seg_postprocess``), so only B*C int32 counts come back.
+    ``return_classmap`` adds the class map as a base64 PNG (then the uint8
+    map comes back too). The weights are random, drawn from seed 0, until a
+    checkpoint is restored (``cli.restore_checkpoint``)."""
+    from ..convert import unet_state_dict_from_flax
+    from ..models import create_unet
+    from ..ops import fused_seg_postprocess, normalize_image
+
+    if wire not in ("rgb8", "yuv420", "dct"):
+        raise ValueError(f"wire must be rgb8|yuv420|dct, got {wire!r}")
+    if wire != "rgb8":
+        raise ValueError(f"wire={wire!r} is not ported yet (a later slice of "
+                         "the PyTorch port); serve wire='rgb8'")
+    if not fused_postprocess:
+        raise ValueError("fused_postprocess=False is not ported yet (a later "
+                         "slice of the PyTorch port)")
+
+    model = create_unet(generator=torch.Generator().manual_seed(0),
+                        num_classes=num_classes, widths=tuple(widths),
+                        device="cpu")
+
+    def apply_fn(module, batch):
+        return fused_seg_postprocess(module(normalize_image(batch)),
+                                     with_classmap=return_classmap)
+
+    def postprocess(out):
+        counts = np.asarray(out["counts"])
+        result = {"class_histogram":
+                  {int(c): int(n) for c, n in enumerate(counts) if n}}
+        if return_classmap:
+            result["classmap_png"] = encode_classmap_png(
+                np.asarray(out["classmap"]))
+        return result
+
+    return ServableModel(
+        name=name, apply_fn=apply_fn, module=model,
+        input_shape=(tile, tile, 3), input_dtype=np.uint8,
+        preprocess=_image_preprocess((tile, tile, 3), np.uint8),
+        postprocess=postprocess, batch_buckets=tuple(buckets),
+        state_dict_from_flax=unet_state_dict_from_flax)
+
+
+FAMILIES = {
+    "echo": build_echo,
+    "unet": build_unet,
+}
+#: Families of the JAX package this port does not serve yet.
+UNPORTED_FAMILIES = ("resnet", "detector", "vit", "seqformer", "moe",
+                     "seqformer-lm")
+
+
+def build_servable(family: str, **kwargs) -> ServableModel:
+    if family in UNPORTED_FAMILIES:
+        raise ValueError(f"model family {family!r} is not ported yet (a later "
+                         f"slice of the PyTorch port); ported: "
+                         f"{sorted(FAMILIES)}")
+    if family not in FAMILIES:
+        raise ValueError(
+            f"unknown model family {family!r}; valid: {sorted(FAMILIES)}")
+    return FAMILIES[family](**kwargs)

@@ -1,0 +1,168 @@
+"""Where the time goes in the PyTorch port's land-cover batch, on one GPU.
+
+    python3 scripts/torch_profile_landcover.py [--out build/torch_profile_landcover.json]
+
+Builds the land-cover servable of ``deploy/specs/models.json`` (tile 256,
+widths 64..512, random weights from seed 0) on the card and reports, for
+each bucket (1, 16, 64):
+
+- the ``run_batch_phases`` split (h2d / execute / d2h, host clock ended by a
+  synchronize), median of 10 batches;
+- the device time of ``apply_fn`` alone (CUDA events), median of 10;
+
+then, at bucket 64:
+
+- a ``torch.profiler`` trace of 3 batches: device time by operator and by
+  kernel, and the device's busy share of the traced window;
+- the UNet forward with the model's bit-exact bfloat16 gelu chain against
+  ``F.gelu(approximate="tanh")``, timed in turns (chain, F.gelu, F.gelu,
+  chain), to price the chain.
+
+Needs CUDA; exits non-zero without it. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def busy_share(prof) -> tuple[float, float]:
+    """(device-busy ms, traced window ms) from the kernels' intervals."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return 0.0, 0.0
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--out", default=str(
+        ROOT / "build" / "torch_profile_landcover.json"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_profile_landcover: CUDA is not available")
+
+    import torch.nn.functional as F
+
+    from ai4e_tpu_torch.models import unet
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    model = dict(next(m for m in spec["models"] if m["name"] == "landcover"))
+    for key in ("checkpoint", "sync_path", "async_path"):
+        model.pop(key, None)
+    runtime = ModelRuntime(device="cuda")
+    servable = runtime.register(build_servable(model.pop("family"), **model))
+    runtime.warmup()
+    rng = np.random.default_rng(0)
+    report: dict = {"card": card, "buckets": {}}
+
+    for bucket in servable.batch_buckets:
+        batch = rng.integers(0, 256, (bucket, 256, 256, 3), np.uint8)
+        phases = [runtime.run_batch_phases("landcover", batch)[2]
+                  for _ in range(10)]
+        split = {k: statistics.median(p[k] for p in phases) * 1e3
+                 for k in phases[0]}
+        x = torch.from_numpy(batch).cuda()
+        with torch.inference_mode():
+            apply_ms = events_ms(lambda: servable.apply_fn(servable.module, x))
+        report["buckets"][bucket] = {"phases_ms": split, "apply_ms": apply_ms,
+                                     "tiles_per_s": bucket / apply_ms * 1e3}
+        print(f"bucket {bucket}: phases {split} apply {apply_ms:.3f} ms",
+              flush=True)
+
+    x = torch.from_numpy(rng.integers(0, 256, (64, 256, 256, 3),
+                                      np.uint8)).cuda()
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            servable.apply_fn(servable.module, x)
+        torch.cuda.synchronize()
+    busy_ms, window_ms = busy_share(prof)
+    report["profile_bucket64"] = {
+        "device_busy_ms_per_batch": busy_ms / 3,
+        "window_ms_per_batch": window_ms / 3,
+        "busy_share": busy_ms / window_ms if window_ms else None,
+    }
+    print(f"profile bucket 64: busy {busy_ms / 3:.2f} ms of "
+          f"{window_ms / 3:.2f} ms per batch", flush=True)
+    cuda = torch.autograd.DeviceType.CUDA
+    for kind, keep in (("operators", lambda e: e.device_type != cuda),
+                       ("kernels", lambda e: e.device_type == cuda)):
+        rows = sorted(((e.key, e.self_device_time_total / 3e3, e.count // 3)
+                       for e in prof.key_averages()
+                       if keep(e) and e.self_device_time_total > 0),
+                      key=lambda t: -t[1])
+        report["profile_bucket64"][f"{kind}_device_ms_per_batch"] = [
+            {"name": k, "ms": ms, "calls": n} for k, ms, n in rows[:40]]
+        print(f"  by {kind}:", flush=True)
+        for k, ms, n in rows[:15]:
+            print(f"  {ms:9.3f} ms  x{n:<4d} {k[:110]}", flush=True)
+
+    chain = unet.gelu
+    xin = torch.rand((64, 256, 256, 3), device="cuda")
+    times = {"chain": [], "F.gelu": []}
+    with torch.inference_mode():
+        for variant in ("chain", "F.gelu", "F.gelu", "chain"):
+            unet.gelu = chain if variant == "chain" else (
+                lambda t: F.gelu(t, approximate="tanh"))
+            times[variant].append(events_ms(lambda: servable.module(xin), 5))
+    unet.gelu = chain
+    report["gelu_unet_forward_ms_bucket64"] = times
+    print(f"UNet forward at bucket 64: gelu chain {times['chain']} ms, "
+          f"F.gelu {times['F.gelu']} ms", flush=True)
+
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(f"wrote {out}", flush=True)
+
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    main()
+    print(f"done in {time.perf_counter() - t0:.1f}s", flush=True)

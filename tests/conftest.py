@@ -55,3 +55,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "durability: crash-point sweep + disk-fault chaos "
         "(docs/durability.md; runs JAX-free in durability-smoke)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; its `cuda` fixture skips the "
+        "test where torch.cuda.is_available() is false")
