@@ -15,6 +15,14 @@ are created, so for ``UNet(widths)`` with L = len(widths):
 
 Conv kernels go from HWIO to OIHW; GroupNorm ``scale``/``bias`` become
 ``weight``/``bias``. A missing or extra key, or a wrong shape, raises.
+
+For ``SeqFormer`` the names are the modules' own (``embed``, ``pos_emb``,
+``block{i}/attn/qkv|out``, ``block{i}/mlp_up|mlp_down``, ``head``) plus
+flax's auto names for the unnamed LayerNorms: ``block{i}/LayerNorm_0``
+(before attention) and ``LayerNorm_1`` (before the MLP), and a top-level
+``LayerNorm_0`` (after pooling). Dense kernels go from (in, out) to
+Linear's (out, in), ``Embed.embedding`` is ``nn.Embedding.weight`` as it
+is, and ``pos_emb`` keeps its (1, S, dim) shape.
 """
 
 from __future__ import annotations
@@ -124,18 +132,91 @@ def unet_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         _take(head, "bias", f"Conv_{2 * depth - 2}"), np.float32).copy())
     used.add(f"Conv_{2 * depth - 2}/bias")
 
-    extra = sorted(set(flatten_tree(tree)) - used)
-    if extra:
-        raise ValueError(f"flax tree has keys the UNet does not: {extra}")
     with torch.device("meta"):
         expected = UNet(num_classes=int(num_classes), widths=widths,
                         dtype=torch.float32).state_dict()
+    return _checked(sd, expected, set(flatten_tree(tree)) - used, "UNet")
+
+
+def seqformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``SeqFormer`` state_dict (float32) for a flax
+    ``SeqFormer`` tree, token or feature mode (``{"params": {...}}`` or the
+    inner dict)."""
+    from .models.seqformer import SeqFormer
+
+    tree = params.get("params", params)
+    depth = sum(1 for k in tree if k.startswith("block"))
+    pos = np.asarray(_take(tree, "pos_emb", "params"), np.float32)
+    if pos.ndim != 3 or pos.shape[0] != 1:
+        raise ValueError(f"pos_emb must be (1, S, dim), got {pos.shape}")
+    embed = _take(tree, "embed", "params")
+    token_mode = isinstance(embed, dict) and "embedding" in embed
+    sd: dict[str, torch.Tensor] = {"pos_emb": torch.from_numpy(pos.copy())}
+    used = {"pos_emb"}
+
+    def array(node: dict, key: str, where: str) -> torch.Tensor:
+        used.add(f"{where}/{key}")
+        return torch.from_numpy(
+            np.asarray(_take(node, key, where), np.float32).copy())
+
+    def node(path: str) -> dict:
+        here, where = tree, "params"
+        for part in path.split("/"):
+            here, where = _take(here, part, where), f"{where}/{part}"
+        return here
+
+    def dense(path: str, dst: str, bias: bool = True) -> None:
+        kernel = array(node(path), "kernel", path)
+        if kernel.dim() != 2:
+            raise ValueError(f"{path}/kernel: shape {tuple(kernel.shape)} "
+                             "is not a 2-D (in, out) Dense kernel")
+        sd[f"{dst}.weight"] = kernel.T.contiguous()
+        if bias:
+            sd[f"{dst}.bias"] = array(node(path), "bias", path)
+
+    def norm(path: str, dst: str) -> None:
+        sd[f"{dst}.weight"] = array(node(path), "scale", path)
+        sd[f"{dst}.bias"] = array(node(path), "bias", path)
+
+    if token_mode:
+        sd["embed.weight"] = array(embed, "embedding", "embed")
+    else:
+        dense("embed", "embed")
+    for i in range(depth):
+        norm(f"block{i}/LayerNorm_0", f"blocks.{i}.ln1")
+        dense(f"block{i}/attn/qkv", f"blocks.{i}.attn.qkv", bias=False)
+        dense(f"block{i}/attn/out", f"blocks.{i}.attn.out", bias=False)
+        norm(f"block{i}/LayerNorm_1", f"blocks.{i}.ln2")
+        dense(f"block{i}/mlp_up", f"blocks.{i}.mlp_up")
+        dense(f"block{i}/mlp_down", f"blocks.{i}.mlp_down")
+    norm("LayerNorm_0", "norm")
+    dense("head", "head")
+
+    _, seq_len, dim = pos.shape
+    with torch.device("meta"):
+        expected = SeqFormer(
+            seq_len=seq_len, dim=dim, depth=depth, heads=1,
+            input_dim=1 if token_mode else sd["embed.weight"].shape[1],
+            num_classes=sd["head.weight"].shape[0],
+            vocab_size=sd["embed.weight"].shape[0] if token_mode else None,
+            dtype=torch.float32).state_dict()
+    return _checked(sd, expected, set(flatten_tree(tree)) - used, "SeqFormer")
+
+
+def _checked(sd: dict[str, torch.Tensor], expected: dict,
+             extra_flax: set[str], model: str) -> dict[str, torch.Tensor]:
+    """``sd`` if its keys and shapes are ``expected``'s and the flax tree
+    had nothing left over; raises otherwise."""
+    if extra_flax:
+        raise ValueError(f"flax tree has keys the {model} does not: "
+                         f"{sorted(extra_flax)}")
     if set(expected) != set(sd):
-        raise ValueError(f"converted keys differ from the UNet's: missing "
+        raise ValueError(f"converted keys differ from the {model}'s: missing "
                          f"{sorted(set(expected) - set(sd))}, extra "
                          f"{sorted(set(sd) - set(expected))}")
     for key, tensor in sd.items():
         if tuple(tensor.shape) != tuple(expected[key].shape):
             raise ValueError(f"{key}: shape {tuple(tensor.shape)} does not "
-                             f"match the UNet's {tuple(expected[key].shape)}")
+                             f"match the {model}'s "
+                             f"{tuple(expected[key].shape)}")
     return sd

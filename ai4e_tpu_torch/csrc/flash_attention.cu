@@ -1,0 +1,470 @@
+// Flash attention forward for Hopper: online-softmax attention that never
+// writes the (S_q, S_k) score matrix to device memory.
+// q (B, H, S_q, D), k/v (B, H, S_k, D), float32 or bfloat16, any B/H/S
+// strides with unit stride on D -> out in q's dtype, written through its own
+// B/H/S strides, plus the float32 (B, H, S_q) logsumexp when asked for.
+//
+// Replaces the TPU kernel `_flash_kernel` in
+// ai4e_tpu/ops/pallas/flash_attention.py (driven by `_forward_call` and
+// `flash_attention`). Its arithmetic is kept: scores in float32 scaled by
+// D**-0.5, masked entries set to NEG_INF = -1e30 (the running max starts
+// there too), rows rescaled online, out = acc / max(l, 1e-30) cast to the
+// input type, lse = m + log(max(l, 1e-30)). Key tiles wholly above the causal
+// diagonal are skipped, as `_block_relevant` does. The TPU version shrank its
+// blocks to divisors of S (`_dividing_block`); here ragged tails are masked,
+// so a prime S costs no more than its neighbours.
+//
+// Bound on the H100: operations. 4*B*H*S_q*S_k*D flops (halved for causal)
+// against q, k, v and out read or written once: at the served shape
+// (64, 2, 4096, 128) bf16 that is 1.10e12 flop and 0.27 GB, at least 1.11 ms
+// at the 989 TFLOP/s bf16 tensor-core peak and 0.08 ms at 3.35 TB/s.
+//
+// Design for that bound (bfloat16, the served type): one CTA of four warps
+// per (b*h, 64-row query tile). Q is loaded once into mma fragments; K and V
+// stream through shared memory in 64-key tiles, double-buffered with cp.async
+// so the next tile loads while this one computes. Both products run on the
+// tensor cores with mma.sync m16n8k16 (bf16 in, float32 accumulate): a warp
+// owns 16 query rows, S = Q.K^T stays in registers, the softmax statistics
+// stay in registers (a row's max and sum are shared by the 4 lanes that hold
+// it), and P is repacked from S's accumulator layout straight into the A
+// operand of P.V without touching shared memory. Rows are padded by 16 bytes
+// so ldmatrix reads are free of bank conflicts. Each P is rounded to bf16 for
+// the second product; the row sums use the float32 values. D**-0.5 scales
+// the float32 product (a pre-scaled q would not be exact in bf16, and the TPU
+// scaled an exact float32 copy). wgmma, TMA and warp specialisation are later
+// work.
+//
+// float32 inputs take a plain CUDA-core kernel (32-row tiles, one FMA chain
+// per score) that repeats the TPU's float32 products exactly: it is not on the
+// served path.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;  // (B, H, S_q) contiguous, or null
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  int heads, s_q, s_k, causal;
+  float scale;
+};
+
+// -- bfloat16: tensor cores ----------------------------------------------
+
+constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
+constexpr int kBlockN = 64;  // keys per tile
+
+template <int D>
+struct Tiles {
+  static constexpr int kStride = D + 8;              // bf16 per smem row
+  static constexpr int kElems = kBlockM * kStride;   // one 64-row tile
+  static constexpr size_t kBytes = 5 * kElems * 2;   // Q, K x2, V x2
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then unread).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + 64) of one (S, D) bf16 matrix with row stride `ss`
+// into a padded shared tile; rows at or past `rows` are zero-filled, so a
+// masked key multiplies a zero V row and never a stale NaN.
+template <int D>
+__device__ __forceinline__ void load_tile(uint16_t* tile,
+                                          const uint16_t* base, long long ss,
+                                          int row0, int rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool valid = row0 + r < rows;
+    const uint16_t* src = valid ? base + (row0 + r) * ss + col : base;
+    cp_async_16(smem_u32(tile + r * Tiles<D>::kStride + col), src, valid);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment layout of mma m16n8k16, lane = 4 * g + t: an accumulator tile
+// holds (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in
+// c[2..3]; so each thread carries two query rows, g and g + 8.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16(const Params p) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  constexpr int kStride = Tiles<D>::kStride;
+  constexpr int kElems = Tiles<D>::kElems;
+  uint16_t* q_s = smem;
+  uint16_t* k_s = smem + kElems;      // stages 0, 1
+  uint16_t* v_s = smem + 3 * kElems;  // stages 0, 1
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * kBlockM;
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+
+  int n_tiles = (p.s_k + kBlockN - 1) / kBlockN;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+
+  load_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
+  cp_async_commit();
+  load_tile<D>(k_s, k, p.k_ss, 0, p.s_k);
+  load_tile<D>(v_s, v, p.v_ss, 0, p.s_k);
+  cp_async_commit();
+
+  uint32_t q_frag[D / 16][4];
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
+  float m_row[2] = {kNegInf, kNegInf};
+  float l_row[2] = {0.f, 0.f};  // this lane's share until the final reduction
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {  // prefetch into the stage tile it - 1 used
+      load_tile<D>(k_s + (stage ^ 1) * kElems, k, p.k_ss, (it + 1) * kBlockN, p.s_k);
+      load_tile<D>(v_s + (stage ^ 1) * kElems, v, p.v_ss, (it + 1) * kBlockN, p.s_k);
+    }
+    cp_async_commit();  // always, so wait_group 1 covers tile `it`
+    cp_async_wait_1();
+    __syncthreads();
+
+    if (it == 0) {
+      // ldmatrix x4: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15) = a0..a3.
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = kc * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(q_frag[kc], smem_u32(q_s + row * kStride + col));
+      }
+    }
+
+    // S = Q . K^T for this warp's 16 rows and the tile's 64 keys.
+    const uint16_t* ks = k_s + stage * kElems;
+    float s[kBlockN / 8][4];
+#pragma unroll
+    for (int i = 0; i < kBlockN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+      for (int np = 0; np < kBlockN / 16; ++np) {
+        // K rows are the B operand's columns: matrices (keys 0-7 | 8-15) x
+        // (dims 0-7 | 8-15) give b0, b1 of two 8-key tiles.
+        uint32_t kb[4];
+        const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
+        const int col = kc * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(kb, smem_u32(ks + key * kStride + col));
+        mma_bf16(s[2 * np], q_frag[kc], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], q_frag[kc], kb[2], kb[3]);
+      }
+    }
+
+    // Scale, mask (ragged tail, causal diagonal), online softmax.
+    const int k0 = it * kBlockN;
+    const bool mask = k0 + kBlockN > p.s_k ||
+                      (p.causal && k0 + kBlockN - 1 > q0 + warp * 16);
+    float m_new[2] = {m_row[0], m_row[1]};
+#pragma unroll
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * p.scale;
+        if (mask) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          if (key >= p.s_k || (p.causal && key > (e < 2 ? row_a : row_b))) x = kNegInf;
+        }
+        s[nt][e] = x;
+        m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+      corr[r] = exp2f((m_row[r] - m_new[r]) * kLog2e);
+      m_row[r] = m_new[r];
+      l_row[r] *= corr[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f((s[nt][e] - m_row[e >> 1]) * kLog2e);
+        l_row[e >> 1] += s[nt][e];
+      }
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o_acc[dt][0] *= corr[0];
+      o_acc[dt][1] *= corr[0];
+      o_acc[dt][2] *= corr[1];
+      o_acc[dt][3] *= corr[1];
+    }
+
+    // O += P . V: the accumulators of key tiles 2kc, 2kc+1 are exactly the
+    // A fragment of key chunk kc.
+    const uint16_t* vs = v_s + stage * kElems;
+#pragma unroll
+    for (int kc = 0; kc < kBlockN / 16; ++kc) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        // V rows are keys, the B operand's k axis: transposed matrices
+        // (keys 0-7 | 8-15) x (dims 0-7 | 8-15) give b0, b1 of two 8-dim tiles.
+        uint32_t vb[4];
+        const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = dp * 16 + (lane >> 4) * 8;
+        ldmatrix_x4_trans(vb, smem_u32(vs + key * kStride + col));
+        mma_bf16(o_acc[2 * dp], a, vb[0], vb[1]);
+        mma_bf16(o_acc[2 * dp + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+  uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+    const int row = r == 0 ? row_a : row_b;
+    if (row >= p.s_q) continue;
+    const float l = fmaxf(l_row[r], 1e-30f);
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<uint32_t*>(o + row * p.o_ss + dt * 8 + 2 * t) =
+          pack_bf16(o_acc[dt][2 * r] / l, o_acc[dt][2 * r + 1] / l);
+    }
+    if (p.lse != nullptr && t == 0) {
+      p.lse[(long long)bh * p.s_q + row] = m_row[r] + logf(l);
+    }
+  }
+}
+
+// -- float32: CUDA cores -------------------------------------------------
+
+constexpr int kF32Block = 32;  // query rows per CTA and keys per tile
+
+template <int D>
+struct F32Tiles {
+  static constexpr int kStride = D + 1;  // odd: a column falls in 32 banks
+  static constexpr size_t kBytes =
+      (2 * kF32Block * kStride + kF32Block * D + kF32Block * (kF32Block + 1)) * 4;
+};
+
+// Thread (r, quarter): query row r of the tile; scores of keys quarter + 4i;
+// output dims quarter + 4i. The 4 threads of a row are adjacent lanes.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_f32(const Params p) {
+  extern __shared__ __align__(16) float smem_f[];
+  constexpr int kStride = F32Tiles<D>::kStride;
+  float* q_s = smem_f;                     // [32][D+1], pre-scaled
+  float* k_s = q_s + kF32Block * kStride;  // [32][D+1]
+  float* v_s = k_s + kF32Block * kStride;  // [32][D]
+  float* p_s = v_s + kF32Block * D;        // [32][33]
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * kF32Block;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int r = threadIdx.x / 4, quarter = threadIdx.x % 4;
+  const int row = q0 + r;
+
+  for (int i = threadIdx.x; i < kF32Block * D; i += kThreads) {
+    const int rr = i / D, d = i % D;
+    // The TPU kernel scales q before the product: q * scale, then q . k.
+    q_s[rr * kStride + d] = q0 + rr < p.s_q ? q[(q0 + rr) * p.q_ss + d] * p.scale : 0.f;
+  }
+
+  int n_tiles = (p.s_k + kF32Block - 1) / kF32Block;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kF32Block - 1) / kF32Block + 1);
+  float acc[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kF32Block;
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = threadIdx.x; i < kF32Block * D; i += kThreads) {
+      const int j = i / D, d = i % D;
+      const bool valid = k0 + j < p.s_k;
+      k_s[j * kStride + d] = valid ? k[(k0 + j) * p.k_ss + d] : 0.f;
+      v_s[j * D + d] = valid ? v[(k0 + j) * p.v_ss + d] : 0.f;
+    }
+    __syncthreads();
+
+    float s[kF32Block / 4];
+    float m_new = m;
+#pragma unroll
+    for (int i = 0; i < kF32Block / 4; ++i) {
+      const int j = quarter + 4 * i;
+      float x = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) x = fmaf(q_s[r * kStride + d], k_s[j * kStride + d], x);
+      const int key = k0 + j;
+      if (key >= p.s_k || (p.causal && key > row)) x = kNegInf;
+      s[i] = x;
+      m_new = fmaxf(m_new, x);
+    }
+    m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 1));
+    m_new = fmaxf(m_new, __shfl_xor_sync(0xffffffffu, m_new, 2));
+    const float corr = expf(m - m_new);
+    m = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kF32Block / 4; ++i) {
+      s[i] = expf(s[i] - m);
+      sum += s[i];
+      p_s[r * (kF32Block + 1) + quarter + 4 * i] = s[i];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l = l * corr + sum;
+    __syncwarp();  // a row's P is written and read by the same warp
+
+    float pv[D / 4];
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) pv[i] = 0.f;
+    for (int j = 0; j < kF32Block; ++j) {
+      const float pj = p_s[r * (kF32Block + 1) + j];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) pv[i] = fmaf(pj, v_s[j * D + quarter + 4 * i], pv[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) acc[i] = acc[i] * corr + pv[i];
+  }
+
+  if (row < p.s_q) {
+    float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+    const float lc = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) o[quarter + 4 * i] = acc[i] / lc;
+    if (p.lse != nullptr && quarter == 0) {
+      p.lse[(long long)bh * p.s_q + row] = m + logf(lc);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, int block_rows, const Params& p,
+                   int batch_heads, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((p.s_q + block_rows - 1) / block_rows),
+                  (unsigned)batch_heads);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const Params& p, int batch_heads, bool bf16,
+                     cudaStream_t stream) {
+  if (bf16) {
+    return launch(flash_fwd_bf16<D>, Tiles<D>::kBytes, kBlockM, p,
+                  batch_heads, stream);
+  }
+  return launch(flash_fwd_f32<D>, F32Tiles<D>::kBytes, kF32Block, p,
+                batch_heads, stream);
+}
+
+}  // namespace
+
+// C entry point, bound with ctypes. q/k/v/out are device arrays of float32
+// (`bf16` == 0) or bfloat16 (`bf16` == 1) with unit stride on D; `strides`
+// holds 12 element strides: (B, H, S) of q, k, v and out, in that order.
+// Pointers and strides must keep every row 16-byte aligned. `lse` is a
+// contiguous float32 (B, H, S_q) device array or null; `scale` is D**-0.5;
+// `stream` is the caller's cudaStream_t. Returns cudaGetLastError() after
+// the launch.
+extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
+                                        const void* v, void* out, float* lse,
+                                        int batch, int heads, int s_q, int s_k,
+                                        int d, const long long* strides,
+                                        float scale, int causal, int bf16,
+                                        void* stream, int device) {
+  if (batch < 0 || heads < 1 || s_q < 0 || s_k < 1 ||
+      (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (batch == 0 || s_q == 0) return 0;
+  Params p;
+  p.q = q; p.k = k; p.v = v; p.o = out; p.lse = lse;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
+  p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
+  p.heads = heads; p.s_q = s_q; p.s_k = s_k; p.causal = causal;
+  p.scale = scale;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int bh = batch * heads;
+  switch (d) {
+    case 16: return (int)launch_d<16>(p, bh, bf16 != 0, s);
+    case 32: return (int)launch_d<32>(p, bh, bf16 != 0, s);
+    case 64: return (int)launch_d<64>(p, bh, bf16 != 0, s);
+    case 128: return (int)launch_d<128>(p, bh, bf16 != 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

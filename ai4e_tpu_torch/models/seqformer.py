@@ -1,0 +1,175 @@
+"""SeqFormer — the long-context transformer encoder classifier, counterpart
+of ``ai4e_tpu/models/seqformer.py`` with the same arithmetic:
+
+- the body runs in bfloat16: ``nn.Embed(dtype=bf16)`` casts its table to
+  bfloat16 before the gather, and ``pos_emb`` (shape ``(1, S, dim)``) is
+  cast to bfloat16 before the add;
+- ``nn.LayerNorm()`` (``layers.LayerNorm``) returns float32 on a bfloat16
+  input, with epsilon 1e-6 and the variance as E[x^2] - E[x]^2; the next
+  Dense casts it back to bfloat16;
+- each Dense rounds its product to bfloat16 and then adds its bias in
+  bfloat16 (``layers.Dense``); the MLP's gelu is JAX's bfloat16 op chain
+  (``layers.gelu``);
+- pooling ``h.mean(axis=1)`` sums in float32 and returns bfloat16;
+- the head is a float32 Dense with a bias.
+
+Flax keeps float32 params and casts them to bfloat16 on every call; here the
+bfloat16 layers are built in bfloat16, so loading float32 weights rounds
+them once, to the same values.
+
+Attention is injected as a plain function of (q, k, v), each (B, H, S, D):
+``attention_for`` gives the hand-written flash kernel (``ops.flash_attention``)
+or plain full attention. q/k/v are strided views of the fused qkv projection
+and the kernel writes its output in (B, S, H, D) order, so neither side of
+the attention call copies. The causal LM (``SeqFormerLM``) belongs to the
+streaming slice (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Callable
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.flash_attention import flash_attention
+from ..parallel.ring_attention import PARALLEL_PLANE, reference_attention
+from .layers import Dense, LayerNorm, gelu
+
+STRATEGIES = ("auto", "ring", "ulysses", "flash", "full")
+
+
+class SeqAttention(nn.Module):
+    def __init__(self, dim: int, heads: int, attn_fn: Callable,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dim, self.heads, self.attn_fn = dim, heads, attn_fn
+        self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
+        self.out = Dense(dim, dim, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, _ = x.shape
+        qkv = self.qkv(x).view(b, s, 3, self.heads, self.dim // self.heads)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o = self.attn_fn(q, k, v)
+        return self.out(o.transpose(1, 2).reshape(b, s, self.dim))
+
+
+class SeqBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, attn_fn: Callable,
+                 mlp_ratio: int = 4, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.ln1 = LayerNorm(dim)
+        self.attn = SeqAttention(dim, heads, attn_fn, dtype=dtype)
+        self.ln2 = LayerNorm(dim)
+        self.mlp_up = Dense(dim, dim * mlp_ratio, dtype=dtype)
+        self.mlp_down = Dense(dim * mlp_ratio, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp_down(gelu(self.mlp_up(self.ln2(x))))
+
+
+class SeqFormer(nn.Module):
+    """Encoder over (B, S, input_dim) float features — or, with
+    ``vocab_size`` set, over (B, S) integer token ids — to (B, num_classes)
+    float32 logits."""
+
+    def __init__(self, seq_len: int, input_dim: int, dim: int = 128,
+                 depth: int = 2, heads: int = 8, num_classes: int = 16,
+                 attn_fn: Callable | None = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 vocab_size: int | None = None):
+        super().__init__()
+        attn_fn = attn_fn or reference_attention
+        if vocab_size is not None:
+            self.embed = nn.Embedding(vocab_size, dim, dtype=dtype)
+        else:
+            self.embed = Dense(input_dim, dim, dtype=dtype)
+        self.pos_emb = nn.Parameter(torch.zeros((1, seq_len, dim), dtype=dtype))
+        self.blocks = nn.ModuleList(
+            SeqBlock(dim, heads, attn_fn, dtype=dtype) for _ in range(depth))
+        self.norm = LayerNorm(dim)
+        self.head = Dense(dim, num_classes, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.embed(x) + self.pos_emb
+        for block in self.blocks:
+            h = block(h)
+        pooled = h.float().mean(dim=1).to(h.dtype)  # float32 sum, as jnp.mean
+        return self.head(self.norm(pooled))
+
+
+def init_flax_like_(model: SeqFormer, generator: torch.Generator) -> None:
+    """Flax's default init: Dense kernels ``lecun_normal`` (truncated
+    normal, fan-in scaled) and zero biases, ``nn.Embed`` normal with std
+    sqrt(1/dim), ``pos_emb`` normal(0.02), LayerNorm scale one and bias
+    zero."""
+    stddev_fix = 0.87962566103423978  # std of a unit normal cut at +-2
+
+    def draw(param: torch.Tensor, std: float, truncated: bool) -> None:
+        w = torch.empty(param.shape, dtype=torch.float32)
+        if truncated:
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+        else:
+            nn.init.normal_(w, std=std, generator=generator)
+        param.copy_(w)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dense):
+                draw(m.weight, math.sqrt(1.0 / m.in_features) / stddev_fix,
+                     truncated=True)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                draw(m.weight, math.sqrt(1.0 / m.embedding_dim),
+                     truncated=False)
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        draw(model.pos_emb, 0.02, truncated=False)
+
+
+def attention_for(mesh=None, strategy: str = "auto",
+                  causal: bool = False) -> Callable:
+    """The attention function for a strategy: ``auto`` and ``flash`` give
+    the fused flash kernel, ``full`` plain materialised attention (the
+    correctness oracle). ``ring``/``ulysses`` and any device mesh belong to
+    the parallel plane and raise."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown attention strategy {strategy!r}; "
+                         f"valid: {STRATEGIES}")
+    if mesh is not None:
+        raise NotImplementedError(f"serving over a device mesh {PARALLEL_PLANE}")
+    if strategy in ("ring", "ulysses"):
+        raise NotImplementedError(f"{strategy} attention {PARALLEL_PLANE}")
+    if strategy == "full":
+        return partial(reference_attention, causal=causal)
+    return partial(flash_attention, causal=causal)
+
+
+def create_seqformer(generator: torch.Generator | None = None,
+                     seq_len: int = 4096, input_dim: int = 64,
+                     dim: int = 128, depth: int = 2, heads: int = 8,
+                     num_classes: int = 16, mesh=None,
+                     attention: str = "auto", causal: bool = False,
+                     vocab_size: int | None = None,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device=None) -> SeqFormer:
+    """A SeqFormer with flax-like random weights drawn on the CPU from
+    ``generator`` (default: seed 0), then moved to ``device`` (default
+    ``cuda``). ``vocab_size`` switches the input to (B, S) token ids."""
+    attn_fn = attention_for(mesh, attention, causal)
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = SeqFormer(seq_len=seq_len, input_dim=input_dim, dim=dim,
+                      depth=depth, heads=heads, num_classes=num_classes,
+                      attn_fn=attn_fn, dtype=dtype, vocab_size=vocab_size)
+    init_flax_like_(model, generator)
+    return model.to(device).eval()

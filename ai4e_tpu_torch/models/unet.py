@@ -8,7 +8,7 @@
   result cast back to the body dtype;
 - ``gelu`` is the tanh approximation (flax's ``nn.gelu`` default):
   ``F.gelu(approximate="tanh")`` in float32, JAX's own op chain in
-  bfloat16 (see ``gelu``);
+  bfloat16 (``layers.gelu``, shared with the SeqFormer);
 - the body runs in bfloat16 and the head 1x1 conv in float32 with a bias;
 - the decoder upsamples with nearest-neighbour on half-pixel centres, as
   ``jax.image.resize(..., "nearest")`` does (``"nearest-exact"``; at exactly
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from .layers import gelu
 
 NUM_CLASSES = 4
 TILE = 256  # default tile edge (the land-cover API's unit of work)
@@ -68,25 +69,6 @@ class ConvBlock(nn.Module):
                              norm.bias, norm.eps).to(x.dtype)
             x = gelu(x)
         return x
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax's ``nn.gelu``: the tanh approximation.
-
-    In float32 that is ``F.gelu(approximate="tanh")``. In bfloat16,
-    ``jax.nn.gelu`` rounds its constants sqrt(2/pi) and 0.044715 to
-    bfloat16 and rounds after every op; ``F.gelu`` rounds once with exact
-    constants, which moves the served argmax on about 0.3% more pixels.
-    The chain below repeats JAX's ops in its order, in place on one fresh
-    tensor, and gives its values bit for bit (ten elementwise passes where
-    ``F.gelu`` takes one: a fused kernel is later work)."""
-    if x.dtype == torch.float32:
-        return F.gelu(x, approximate="tanh")
-    k = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
-    a = float(torch.tensor(0.044715, dtype=x.dtype))
-    y = x * x
-    return (y.mul_(x).mul_(a).add_(x).mul_(k).tanh_().add_(1.0).mul_(0.5)
-            .mul_(x))
 
 
 class UNet(nn.Module):

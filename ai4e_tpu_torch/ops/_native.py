@@ -30,7 +30,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "ai4e_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("image_preprocess", "seg_postprocess")
+SOURCES = ("image_preprocess", "seg_postprocess", "flash_attention")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's default prefix
 
 _lock = threading.Lock()

@@ -1,9 +1,11 @@
 """Model-family factories — config-driven servable construction.
 
 Counterpart of ``ai4e_tpu/runtime/families.py`` for the families this port
-serves so far: ``echo`` (the transport smoke API) and ``unet`` (land-cover
-segmentation, on the uint8 ``rgb8`` wire). The response contracts are the
-JAX package's, byte for byte. Other families and wires raise ``ValueError``.
+serves so far: ``echo`` (the transport smoke API), ``unet`` (land-cover
+segmentation, on the uint8 ``rgb8`` wire) and ``seqformer`` (long-context
+sequence classification, on the token-id or feature wire). The response
+contracts are the JAX package's, byte for byte. Other families and wires
+raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -168,13 +170,107 @@ def build_unet(name: str = "landcover", tile: int = 256,
         state_dict_from_flax=unet_state_dict_from_flax)
 
 
+def _check_token_ids(arr: np.ndarray, vocab_size: int) -> None:
+    """THE token-id validation: integer dtype (floats would silently
+    truncate fractional ids) and range (an out-of-range id must fail its
+    task, not score silently wrong). Must run on the RAW payload, before
+    any cast: an int64 id >= 2**32 wraps into range under int32."""
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(f"token payload must be integer, got {arr.dtype}")
+    if arr.size and (int(arr.min()) < 0 or int(arr.max()) >= vocab_size):
+        raise ValueError(
+            f"token ids must be in [0, {vocab_size}); got "
+            f"[{int(arr.min())}, {int(arr.max())}]")
+
+
+def _token_preprocess(seq_len: int, vocab_size: int):
+    """Payload decoder for token-id sequences: any integer npy of shape
+    (S,) in ``[0, vocab_size)``. Clients ship the narrowest integer dtype
+    they like (uint16 for vocabs up to 64k: 2 bytes/token on the HTTP
+    wire); the device batch is int32 either way. Out-of-range ids fail that
+    one task at preprocess, never the batch."""
+
+    def preprocess(body: bytes, content_type: str):
+        arr = np.load(io.BytesIO(body))
+        if arr.shape != (seq_len,):
+            raise ValueError(f"expected ({seq_len},), got {arr.shape}")
+        _check_token_ids(arr, vocab_size)
+        return arr.astype(np.int32)
+    return preprocess
+
+
+def _sequence_input_contract(seq_len: int, input_dim: int,
+                             vocab_size: int | None,
+                             feature_dtype=np.float32):
+    """``(input_shape, input_dtype, preprocess)`` of the sequence families'
+    wire: token ids when ``vocab_size`` is set, float feature sequences
+    otherwise. (The JAX package's batch-stack wire, and its stack
+    validator, are not ported: requests arrive one at a time.)"""
+    if vocab_size is not None:
+        return ((seq_len,), np.dtype(np.int32),
+                _token_preprocess(seq_len, vocab_size))
+    fdt = np.dtype(feature_dtype)
+    return ((seq_len, input_dim), fdt,
+            _npy_preprocess((seq_len, input_dim), fdt))
+
+
+def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
+                    input_dim: int = 64, dim: int = 128, depth: int = 2,
+                    heads: int = 8, num_classes: int = 16,
+                    attention: str = "auto", causal: bool = False,
+                    buckets=(1, 8), mesh=None, wire_dtype: str = "float16",
+                    vocab_size: int | None = None, **_) -> ServableModel:
+    """Long-context sequence classification through the hand-written flash
+    attention kernel (``attention`` ``auto``/``flash``; ``full`` serves
+    plain attention). Two input contracts:
+
+    - ``vocab_size=N``, token mode, the production wire: an (S,) integer
+      npy of ids, embedded on the card;
+    - ``vocab_size=None``, feature mode: (S, input_dim) float sequences on
+      a ``wire_dtype`` (float16 default, float32 accepted) wire; the model
+      computes in bfloat16 either way. Payloads outside float16's range
+      fail that task at preprocess.
+
+    The response is ``{"class_id", "confidence"}``. The weights are random,
+    drawn from seed 0, until a checkpoint is restored. A device ``mesh``
+    (ring/Ulysses sequence parallelism) raises: ROADMAP A15."""
+    from ..convert import seqformer_state_dict_from_flax
+    from ..models import create_seqformer
+
+    wdt = np.dtype(wire_dtype)
+    if wdt not in (np.dtype(np.float16), np.dtype(np.float32)):
+        raise ValueError(f"wire_dtype must be float16/float32, got {wire_dtype}")
+
+    model = create_seqformer(
+        generator=torch.Generator().manual_seed(0), seq_len=seq_len,
+        input_dim=input_dim, dim=dim, depth=depth, heads=heads,
+        num_classes=num_classes, mesh=mesh, attention=attention,
+        causal=causal, vocab_size=vocab_size, device="cpu")
+
+    def postprocess(logits):
+        logits = np.asarray(logits, np.float64)
+        probs = np.exp(logits - logits.max())
+        probs /= probs.sum()
+        top = int(np.argmax(probs))
+        return {"class_id": top, "confidence": float(probs[top])}
+
+    input_shape, input_dtype, preprocess = _sequence_input_contract(
+        seq_len, input_dim, vocab_size, feature_dtype=wdt)
+    return ServableModel(
+        name=name, apply_fn=lambda module, batch: module(batch), module=model,
+        input_shape=input_shape, input_dtype=input_dtype,
+        preprocess=preprocess, postprocess=postprocess,
+        batch_buckets=tuple(buckets),
+        state_dict_from_flax=seqformer_state_dict_from_flax)
+
+
 FAMILIES = {
     "echo": build_echo,
     "unet": build_unet,
+    "seqformer": build_seqformer,
 }
 #: Families of the JAX package this port does not serve yet.
-UNPORTED_FAMILIES = ("resnet", "detector", "vit", "seqformer", "moe",
-                     "seqformer-lm")
+UNPORTED_FAMILIES = ("resnet", "detector", "vit", "moe", "seqformer-lm")
 
 
 def build_servable(family: str, **kwargs) -> ServableModel:

@@ -10,7 +10,10 @@ runtime does.
 
 ``cudnn.allow_tf32`` is switched off on the card: the head conv is float32
 in the reference, and cuDNN would otherwise run it in TF32 (about three
-decimal digits), which can flip the argmax of close logits.
+decimal digits), which can flip the argmax of close logits. Likewise for
+cuBLAS: no TF32 for float32 products, and bfloat16 products reduce in
+float32 (PyTorch lets cuBLAS reduce them in bfloat16 by default), as XLA's
+do.
 """
 
 from __future__ import annotations
@@ -89,6 +92,7 @@ class ModelRuntime:
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.models: dict[str, ServableModel] = {}
         # (model, padded-batch-size) shapes this process has run — the
         # first run of each is labelled ``compile`` by run_batch_phases.

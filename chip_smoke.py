@@ -5,8 +5,10 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit; CUDA must be present;
 2. build: every CUDA C++ kernel of the served path, from ``ai4e_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   served shapes and at a ragged one, then timed (kernel, plain version,
-   one-call library yardstick) with CUDA events, median of 25 runs;
+   served shapes and at ragged ones, then timed (kernel, plain version,
+   one-call library yardstick) with CUDA events, median of 25 runs (5 for
+   the flash kernel's plain version, which materialises 8.6 GB of scores
+   at the served shape and runs in batch chunks);
 4. end to end: the land-cover worker of ``deploy/specs/models.json`` (tile
    256, widths 64..512, buckets 1/16/64, random weights from seed 0) built
    and served by the same ``build_worker``/``serve`` code that
@@ -14,7 +16,15 @@ Phases, each of which raises on failure:
    HTTP with sequential sync requests and concurrent async ones. Every
    histogram is checked against the plain ops applied on the card, both
    kernels must equal their plain versions on the served UNet's own logits,
-   and each kernel must have launched during the run.
+   and each kernel must have launched during the run;
+5. end to end: the long-context SeqFormer of ``deploy/specs/models.json``
+   (``longcontext``: S 4096, dim 256, depth 4, heads 2, vocab 32768,
+   buckets 1/16/64, random weights from seed 0) served the same way, driven
+   with sequential sync and concurrent async requests of uint16 token ids.
+   Every answer is checked against the same weights run on the card with
+   plain full attention, the flash kernel against its plain version on the
+   served model's own layer-0 q/k/v, and the kernel must have launched at
+   least depth times per executed batch.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -39,9 +49,16 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 N_SYNC = 8
 N_ASYNC = 192
 COUNT_TOLERANCE = 0.01      # per-class share of a tile's pixels, see phase 4
+FLASH_SERVED = (64, 2, 4096, 128)  # bucket 64 of longcontext, one layer
+PLAIN_CHUNK = 8                    # sequences per plain-version call
+N_LC_SYNC = 4
+N_LC_ASYNC = 64
+LC_GAP = 1e-2    # class must agree where the reference's top-two gap exceeds it
+LC_CONF_ATOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -71,8 +88,9 @@ def device_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -235,6 +253,104 @@ def phase_kernels() -> list[dict]:
     return [norm, seg]
 
 
+def flash_plain_chunked(q, k, v, causal=False, return_lse=False):
+    """The flash kernel's plain version, PLAIN_CHUNK sequences at a time:
+    its float32 scores of the whole served batch would take 8.6 GB."""
+    from ai4e_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    outs = [flash_attention_plain(q[i:i + PLAIN_CHUNK], k[i:i + PLAIN_CHUNK],
+                                  v[i:i + PLAIN_CHUNK], causal, return_lse)
+            for i in range(0, q.shape[0], PLAIN_CHUNK)]
+    if return_lse:
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def flash_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max error in units of the kernel's tolerance,
+    ``ops.flash_attention.tolerance``)."""
+    from ai4e_tpu_torch.ops.flash_attention import tolerance
+
+    err = (got.float() - want.float()).abs()
+    return float(err.max()), float((err / tolerance(want)).max())
+
+
+def check_flash(q, k, v, causal: bool, what: str) -> tuple[float, float]:
+    """The flash kernel against its plain version on the same tensors;
+    returns (output, lse) max abs errors."""
+    from ai4e_tpu_torch.ops.flash_attention import LSE_ATOL, flash_attention
+
+    got, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want, want_lse = flash_plain_chunked(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != q.dtype:
+        raise AssertionError(f"flash {what}: {got.shape} {got.dtype}")
+    err, of_tol = flash_err(got, want)
+    lse_err = float((lse - want_lse).abs().max())
+    if not (of_tol <= 1 and lse_err <= LSE_ATOL):
+        raise AssertionError(f"flash {what}: max abs err {err} ({of_tol:.3g} "
+                             f"of the tolerance), lse {lse_err} (tolerance "
+                             f"{LSE_ATOL})")
+    log(f"  flash {what}: max abs err {err:.3g} ({of_tol:.3g} of the "
+        f"tolerance), lse {lse_err:.3g} (tolerance {LSE_ATOL})")
+    return err, lse_err
+
+
+def phase_flash() -> dict:
+    """Flash attention: parity at the served shape, at ragged and cross
+    shapes in both types, causal and not; then timing at the served
+    shape."""
+    import torch.nn.functional as F
+
+    from ai4e_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def qkv(b, h, s_q, s_k, d, dtype):
+        return tuple(torch.randn((b, h, s, d), generator=gen, device="cuda")
+                     .to(dtype) for s in (s_q, s_k, s_k))
+
+    errs = []
+    b, h, s, d = FLASH_SERVED
+    served = qkv(b, h, s, s, d, torch.bfloat16)
+    errs.append(check_flash(*served, False, f"served {FLASH_SERVED} bf16"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            errs.append(check_flash(
+                *qkv(2, 3, 1000, 1000, 64, dtype), causal,
+                f"(2, 3, 1000, 64) {str(dtype)[6:]} causal={causal}"))
+        errs.append(check_flash(*qkv(2, 3, 192, 320, 64, dtype), False,
+                                f"cross 192x320 d64 {str(dtype)[6:]}"))
+
+    q, k, v = served
+    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read, out written
+    flops = 4 * b * h * s * s * d              # QK^T and PV, non-causal
+    bound, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    flash = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "ai4e_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "ai4e_tpu/ops/pallas/flash_attention.py:73 "
+                    "(_flash_kernel)",
+        "shape": list(FLASH_SERVED),
+        "ms": device_ms(lambda: flash_attention(q, k, v)),
+        "plain_ms": device_ms(lambda: flash_plain_chunked(q, k, v), reps=5),
+        # Yardstick only: the port never calls it.
+        "library_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v)),
+        "bound_ms": bound,
+        "bound_by": by,
+        "bound_peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
+        "max_abs_err": max(e for e, _ in errs),
+        "lse_max_abs_err": max(e for _, e in errs),
+    }
+    log(f"  flash_attention {FLASH_SERVED} bf16: kernel {flash['ms']:.4f} ms "
+        f"({flops / flash['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{flash['plain_ms']:.4f} ms, library (SDPA) "
+        f"{flash['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+    return flash
+
+
 # -- phase 4: end to end -------------------------------------------------
 
 
@@ -316,17 +432,23 @@ def check_histogram(result: dict, want: np.ndarray, pixels: int) -> int:
     return diff
 
 
-async def drive(worker, batcher, port: int, images: np.ndarray) -> dict:
+async def drive(worker, batcher, port: int, bodies: list[bytes], n_sync: int,
+                route: tuple[str, str, str], kernels: dict) -> dict:
+    """Serve ``worker`` on a loopback port and post ``bodies``: the first
+    ``n_sync`` one after another to the sync path, the rest at once to the
+    async path, each polled until its status reads ``done``. ``route`` is
+    (sync path, async path, done); ``kernels`` maps each kernel's name to
+    the module holding its launch count, set to 0 just before the requests
+    and read just after."""
     import aiohttp
 
     from ai4e_tpu_torch.cli import serve
-    from ai4e_tpu_torch.ops import image_preprocess, seg_postprocess
 
+    sync_path, async_path, done = route
     stop = asyncio.Event()
     server = asyncio.create_task(serve(worker, batcher, "127.0.0.1", port, stop))
     base = f"http://127.0.0.1:{port}/{worker.service.prefix.strip('/')}"
     headers = {"Content-Type": "application/octet-stream"}
-    bodies = [npy_bytes(img) for img in images]
     retries = 0
     try:
         async with aiohttp.ClientSession(
@@ -339,12 +461,13 @@ async def drive(worker, batcher, port: int, images: np.ndarray) -> dict:
                 except aiohttp.ClientConnectionError:
                     pass
                 await asyncio.sleep(0.05)
-            image_preprocess.launches = seg_postprocess.launches = 0
+            for module in kernels.values():
+                module.launches = 0
 
             sync_ms, sync_results = [], []
-            for body in bodies[:N_SYNC]:
+            for body in bodies[:n_sync]:
                 t0 = time.perf_counter()
-                async with http.post(base + "/classify", data=body,
+                async with http.post(base + sync_path, data=body,
                                      headers=headers) as r:
                     if r.status != 200:
                         raise AssertionError(f"sync {r.status}: {await r.text()}")
@@ -354,7 +477,7 @@ async def drive(worker, batcher, port: int, images: np.ndarray) -> dict:
             async def one_async(body: bytes) -> str:
                 nonlocal retries
                 while True:
-                    async with http.post(base + "/classify-async", data=body,
+                    async with http.post(base + async_path, data=body,
                                          headers=headers) as r:
                         if r.status == 503:
                             retries += 1
@@ -368,7 +491,7 @@ async def drive(worker, batcher, port: int, images: np.ndarray) -> dict:
                     async with http.get(f"{base}/task/{task_id}") as r:
                         status = (await r.json())["Status"]
                     if status.startswith("completed"):
-                        if status != "completed - class_histogram":
+                        if status != done:
                             raise AssertionError(status)
                         return task_id
                     if status.startswith("failed"):
@@ -377,10 +500,10 @@ async def drive(worker, batcher, port: int, images: np.ndarray) -> dict:
 
             t0 = time.perf_counter()
             task_ids = await asyncio.gather(
-                *(one_async(b) for b in bodies[N_SYNC:]))
+                *(one_async(b) for b in bodies[n_sync:]))
             async_s = time.perf_counter() - t0
-            launches = {"normalize_image": image_preprocess.launches,
-                        "fused_seg_postprocess": seg_postprocess.launches}
+            launches = {name: module.launches
+                        for name, module in kernels.items()}
             async with http.get(base + "/models") as r:
                 listing = await r.json()
             async with http.get(f"http://127.0.0.1:{port}/metrics") as r:
@@ -422,7 +545,13 @@ def phase_end_to_end() -> dict:
     servable = worker.runtime.models["landcover"]
     rng = np.random.default_rng(SEED)
     images = rng.integers(0, 256, (N_SYNC + N_ASYNC, 256, 256, 3), np.uint8)
-    out = asyncio.run(drive(worker, batcher, free_port(), images))
+    from ai4e_tpu_torch.ops import image_preprocess, seg_postprocess
+
+    out = asyncio.run(drive(
+        worker, batcher, free_port(), [npy_bytes(img) for img in images],
+        N_SYNC, ("/classify", "/classify-async", "completed - class_histogram"),
+        {"normalize_image": image_preprocess,
+         "fused_seg_postprocess": seg_postprocess}))
 
     check_served_logits(servable, images)
     want = reference_counts(servable, images)
@@ -456,14 +585,149 @@ def phase_end_to_end() -> dict:
     return e2e
 
 
+# -- phase 5: long-context end to end ------------------------------------
+
+
+def longcontext_spec() -> dict:
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    model = dict(next(m for m in spec["models"] if m["name"] == "longcontext"))
+    model.pop("checkpoint")  # no weights in the repository: seed-0 random
+    return {"service_name": spec["service_name"], "prefix": spec["prefix"],
+            "models": [model]}
+
+
+def reference_logits(servable, config: dict, seqs: np.ndarray) -> np.ndarray:
+    """The served weights on the card with plain full attention, 16
+    sequences at a time."""
+    from ai4e_tpu_torch.models import create_seqformer
+
+    keys = ("seq_len", "input_dim", "dim", "depth", "heads", "num_classes",
+            "vocab_size")
+    ref = create_seqformer(**{k: config[k] for k in keys}, attention="full",
+                           device="cuda")
+    ref.load_state_dict(servable.module.state_dict())
+    with torch.inference_mode():
+        return torch.cat([
+            ref(torch.from_numpy(seqs[i:i + 16].astype(np.int32)).cuda())
+            for i in range(0, len(seqs), 16)]).cpu().numpy()
+
+
+def check_served_attention(servable, seqs: np.ndarray) -> float:
+    """The flash kernel against its plain version on what the served model
+    feeds its first layer for one largest-bucket batch; returns the max abs
+    error."""
+    from ai4e_tpu_torch.ops.flash_attention import flash_attention
+
+    module = servable.module
+    block = module.blocks[0]
+    with torch.inference_mode():
+        x = torch.from_numpy(seqs[:servable.max_bucket].astype(np.int32)).cuda()
+        h = module.embed(x) + module.pos_emb
+        b, s, dim = h.shape
+        heads = block.attn.heads
+        qkv = block.attn.qkv(block.ln1(h)).view(b, s, 3, heads, dim // heads)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        got = flash_attention(q, k, v)
+        want = flash_plain_chunked(q, k, v)
+    err, of_tol = flash_err(got, want)
+    if not of_tol <= 1:
+        raise AssertionError(f"flash on the served layer-0 q/k/v: max abs "
+                             f"err {err} ({of_tol:.3g} of the tolerance)")
+    log(f"lc: flash equals its plain version on the served layer-0 "
+        f"{tuple(q.shape)} q/k/v within {err:.3g} ({of_tol:.3g} of the "
+        f"tolerance)")
+    return err
+
+
+def check_scores(results: list[dict], logits: np.ndarray) -> int:
+    """Served JSON against the full-attention reference: same schema, the
+    same class wherever the reference's top two are more than LC_GAP apart,
+    confidence within LC_CONF_ATOL. Returns how many classes agree."""
+    agree = 0
+    for result, row in zip(results, logits):
+        if set(result) != {"class_id", "confidence"}:
+            raise AssertionError(f"response keys {set(result)}")
+        probs = np.exp(row.astype(np.float64) - row.max())
+        probs /= probs.sum()
+        top, second = np.sort(probs)[::-1][:2]
+        same = result["class_id"] == int(np.argmax(probs))
+        agree += same
+        if not same and top - second > LC_GAP:
+            raise AssertionError(f"class {result['class_id']} vs reference "
+                                 f"{int(np.argmax(probs))} (gap {top - second})")
+        if abs(result["confidence"] - top) > LC_CONF_ATOL:
+            raise AssertionError(f"confidence {result['confidence']} vs "
+                                 f"reference {top}")
+    return agree
+
+
+def phase_longcontext() -> dict:
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.ops import flash_attention
+
+    spec = longcontext_spec()
+    config = spec["models"][0]
+    t0 = time.perf_counter()
+    worker, batcher, _ = build_worker(spec, device="cuda")
+    log(f"lc: worker built and warmed (buckets "
+        f"{'/'.join(map(str, config['buckets']))}) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    servable = worker.runtime.models["longcontext"]
+    rng = np.random.default_rng(SEED)
+    seqs = rng.integers(0, config["vocab_size"],
+                        (N_LC_SYNC + N_LC_ASYNC, config["seq_len"]),
+                        dtype=np.uint16)
+    out = asyncio.run(drive(
+        worker, batcher, free_port(), [npy_bytes(s) for s in seqs], N_LC_SYNC,
+        (config["sync_path"], config["async_path"],
+         "completed - class_id, confidence"),
+        {"flash_attention": flash_attention}))
+
+    served_err = check_served_attention(servable, seqs)
+    agree = check_scores(out["sync_results"] + out["async_results"],
+                         reference_logits(servable, config, seqs))
+    batches = sum(int(float(line.rsplit(" ", 1)[1]))
+                  for line in out["metrics"].splitlines()
+                  if line.startswith("ai4e_batch_size_count"))
+    big = batches_over(out["metrics"], 16)
+    if big < 1:
+        raise AssertionError("no batch reached bucket 64")
+    launches = out["launches"]["flash_attention"]
+    if launches < config["depth"] * batches:
+        raise AssertionError(f"flash launched {launches} times for {batches} "
+                             f"batches of depth {config['depth']}")
+    if [m["name"] for m in out["listing"]["models"]] != ["longcontext"]:
+        raise AssertionError(f"/models: {out['listing']}")
+
+    _, _, phases = worker.runtime.run_batch_phases(
+        "longcontext", np.zeros((64, config["seq_len"]), np.int32))
+    lc = {
+        "sync_p50_ms": statistics.median(out["sync_ms"]),
+        "async_sequences_per_s": N_LC_ASYNC / out["async_s"],
+        "async_requests": N_LC_ASYNC,
+        "retries_503": out["retries_503"],
+        "batches": batches,
+        "batches_in_bucket_64": big,
+        "classes_agree_with_full_attention":
+            f"{agree}/{N_LC_SYNC + N_LC_ASYNC}",
+        "served_layer0_flash_err": served_err,
+        "bucket64_phases_ms": {k: v * 1e3 for k, v in phases.items()},
+        "launches": out["launches"],
+    }
+    log(f"lc: {json.dumps(lc)}")
+    return lc
+
+
 def main() -> None:
     kind = phase_device()
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
     phase_build()
     log("kernels: parity against the plain versions on the card")
-    kernels = phase_kernels()
+    kernels = phase_kernels() + [phase_flash()]
     e2e = phase_end_to_end()
+    lc = phase_longcontext()
     for k in kernels:
-        k["launches"] = e2e["launches"][k["name"]]
+        k["launches"] = {**e2e["launches"], **lc["launches"]}[k["name"]]
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
-"""Where the time goes in the PyTorch port's land-cover batch, on one GPU.
+"""Where the time goes in a batch of the PyTorch port, on one GPU.
 
-    python3 scripts/torch_profile_landcover.py [--out build/torch_profile_landcover.json]
+    python3 scripts/torch_profile.py [--model landcover|longcontext]
+                                     [--out build/torch_profile_<model>.json]
 
-Builds the land-cover servable of ``deploy/specs/models.json`` (tile 256,
-widths 64..512, random weights from seed 0) on the card and reports, for
-each bucket (1, 16, 64):
+Builds the servable of that name in ``deploy/specs/models.json`` (land
+cover: tile 256, widths 64..512; longcontext: the SeqFormer at S 4096, dim
+256, depth 4, heads 2, vocab 32768), with random weights from seed 0, on
+the card, and reports for each bucket (1, 16, 64):
 
 - the ``run_batch_phases`` split (h2d / execute / d2h, host clock ended by a
   synchronize), median of 10 batches;
@@ -14,7 +16,7 @@ then, at bucket 64:
 
 - a ``torch.profiler`` trace of 3 batches: device time by operator and by
   kernel, and the device's busy share of the traced window;
-- the UNet forward with the model's bit-exact bfloat16 gelu chain against
+- the model's forward with its bit-exact bfloat16 gelu chain against
   ``F.gelu(approximate="tanh")``, timed in turns (chain, F.gelu, F.gelu,
   chain), to price the chain.
 
@@ -72,17 +74,28 @@ def busy_share(prof) -> tuple[float, float]:
     return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
 
 
+def batch_of(model: dict, n: int, rng) -> np.ndarray:
+    """n random requests of the model's wire: uint8 tiles or token ids."""
+    if model["family"] == "unet":
+        return rng.integers(0, 256, (n, model["tile"], model["tile"], 3),
+                            np.uint8)
+    return rng.integers(0, model["vocab_size"], (n, model["seq_len"]),
+                        dtype=np.int32)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--out", default=str(
-        ROOT / "build" / "torch_profile_landcover.json"))
+    parser.add_argument("--model", default="landcover",
+                        choices=("landcover", "longcontext"))
+    parser.add_argument("--out", default=None,
+                        help="default build/torch_profile_<model>.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
-        raise SystemExit("torch_profile_landcover: CUDA is not available")
+        raise SystemExit("torch_profile: CUDA is not available")
 
     import torch.nn.functional as F
 
-    from ai4e_tpu_torch.models import unet
+    from ai4e_tpu_torch.models import seqformer, unet
     from ai4e_tpu_torch.runtime.families import build_servable
     from ai4e_tpu_torch.runtime.registry import ModelRuntime
 
@@ -91,18 +104,18 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
-    model = dict(next(m for m in spec["models"] if m["name"] == "landcover"))
+    model = dict(next(m for m in spec["models"] if m["name"] == args.model))
     for key in ("checkpoint", "sync_path", "async_path"):
         model.pop(key, None)
     runtime = ModelRuntime(device="cuda")
-    servable = runtime.register(build_servable(model.pop("family"), **model))
+    servable = runtime.register(build_servable(**model))
     runtime.warmup()
     rng = np.random.default_rng(0)
-    report: dict = {"card": card, "buckets": {}}
+    report: dict = {"card": card, "model": args.model, "buckets": {}}
 
     for bucket in servable.batch_buckets:
-        batch = rng.integers(0, 256, (bucket, 256, 256, 3), np.uint8)
-        phases = [runtime.run_batch_phases("landcover", batch)[2]
+        batch = batch_of(model, bucket, rng)
+        phases = [runtime.run_batch_phases(args.model, batch)[2]
                   for _ in range(10)]
         split = {k: statistics.median(p[k] for p in phases) * 1e3
                  for k in phases[0]}
@@ -110,12 +123,11 @@ def main() -> None:
         with torch.inference_mode():
             apply_ms = events_ms(lambda: servable.apply_fn(servable.module, x))
         report["buckets"][bucket] = {"phases_ms": split, "apply_ms": apply_ms,
-                                     "tiles_per_s": bucket / apply_ms * 1e3}
+                                     "requests_per_s": bucket / apply_ms * 1e3}
         print(f"bucket {bucket}: phases {split} apply {apply_ms:.3f} ms",
               flush=True)
 
-    x = torch.from_numpy(rng.integers(0, 256, (64, 256, 256, 3),
-                                      np.uint8)).cuda()
+    x = torch.from_numpy(batch_of(model, 64, rng)).cuda()
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -143,20 +155,23 @@ def main() -> None:
         for k, ms, n in rows[:15]:
             print(f"  {ms:9.3f} ms  x{n:<4d} {k[:110]}", flush=True)
 
-    chain = unet.gelu
-    xin = torch.rand((64, 256, 256, 3), device="cuda")
+    # The forward reads ``gelu`` from its model module's globals.
+    owner = unet if model["family"] == "unet" else seqformer
+    xin = (torch.rand((64, 256, 256, 3), device="cuda")
+           if model["family"] == "unet" else x)
+    chain = owner.gelu
     times = {"chain": [], "F.gelu": []}
     with torch.inference_mode():
         for variant in ("chain", "F.gelu", "F.gelu", "chain"):
-            unet.gelu = chain if variant == "chain" else (
+            owner.gelu = chain if variant == "chain" else (
                 lambda t: F.gelu(t, approximate="tanh"))
             times[variant].append(events_ms(lambda: servable.module(xin), 5))
-    unet.gelu = chain
-    report["gelu_unet_forward_ms_bucket64"] = times
-    print(f"UNet forward at bucket 64: gelu chain {times['chain']} ms, "
+    owner.gelu = chain
+    report["gelu_forward_ms_bucket64"] = times
+    print(f"forward at bucket 64: gelu chain {times['chain']} ms, "
           f"F.gelu {times['F.gelu']} ms", flush=True)
 
-    out = Path(args.out)
+    out = Path(args.out or ROOT / "build" / f"torch_profile_{args.model}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}", flush=True)

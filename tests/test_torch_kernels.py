@@ -20,6 +20,8 @@ from ai4e_tpu_torch.ops import (
     normalize_image,
     seg_postprocess,
 )
+from ai4e_tpu_torch.ops import flash_attention as flash_module
+from ai4e_tpu_torch.ops.flash_attention import flash_attention
 
 torch.set_num_threads(2)
 
@@ -94,6 +96,53 @@ class TestWrappers:
             assert before == (0, 0)
 
 
+def random_qkv(b, h, s_q, s_k, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (b, h, s, d)).astype(np.float32)) for s in (s_q, s_k, s_k))
+
+
+class TestFlashWrapper:
+    def test_cpu_tensors_never_launch_a_kernel(self):
+        before = flash_module.launches
+        out, lse = flash_attention(*random_qkv(1, 2, 40, 40, 16, 0),
+                                   causal=True, return_lse=True)
+        assert out.shape == (1, 2, 40, 16) and lse.shape == (1, 2, 40)
+        assert flash_module.launches == before
+        if not torch.cuda.is_available():
+            assert before == 0
+
+    @pytest.mark.parametrize("d", [8, 48, 256])
+    def test_rejects_unsupported_head_dim(self, d):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(*random_qkv(1, 1, 8, 8, d, 0))
+
+    def test_rejects_non_unit_d_stride(self):
+        q, k, v = random_qkv(1, 1, 16, 16, 32, 0)
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)  # same values
+        with pytest.raises(ValueError, match="unit stride"):
+            flash_attention(q, k, v)
+
+    @pytest.mark.parametrize("edit,match", [
+        (lambda q, k, v: (q, k, v[:, :, :-1]), "shapes"),
+        (lambda q, k, v: (q, k.double(), v), "dtype"),
+        (lambda q, k, v: (q.half(), k.half(), v.half()), "dtype"),
+        (lambda q, k, v: (q[0], k[0], v[0]), "expected"),
+    ], ids=["kv-length", "mixed-dtype", "float16", "rank"])
+    def test_rejects_bad_operands(self, edit, match):
+        with pytest.raises(ValueError, match=match):
+            flash_attention(*edit(*random_qkv(1, 2, 16, 16, 16, 0)))
+
+
+    def test_tolerance_is_one_bfloat16_ulp_above_1e_2(self):
+        want = torch.tensor([0.0, 0.5, 1.5, -2.0, 3.9, 100.0])
+        assert torch.equal(flash_module.tolerance(want),
+                           torch.full((6,), 2e-5))
+        got = flash_module.tolerance(want.to(torch.bfloat16))
+        assert got.tolist() == pytest.approx(
+            [1e-2, 1e-2, 1e-2, 2 ** -6, 2 ** -6, 0.5])
+
+
 class TestNativeBuild:
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         """No fallback: without a compiler the build raises."""
@@ -154,3 +203,51 @@ class TestKernelsOnCard:
         flat = torch.zeros(4 * 8 * 8 * 4 + 1, device=cuda)
         with pytest.raises(ValueError, match="aligned"):
             fused_seg_postprocess(flat[1:].view(4, 8, 8, 4))
+
+
+@pytest.mark.cuda
+class TestFlashKernelOnCard:
+    @staticmethod
+    def check(q, k, v, causal):
+        before = flash_module.launches
+        got, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        assert flash_module.launches == before + 1
+        want, want_lse = flash_module.flash_attention_plain(
+            q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and got.shape == want.shape
+        # The output lies in (B, S, H, D) memory order.
+        assert got.transpose(1, 2).is_contiguous()
+        err = (got.float() - want.float()).abs()  # see flash_module.tolerance
+        assert bool((err <= flash_module.tolerance(want)).all()), \
+            float(err.max())
+        assert float((lse - want_lse).abs().max()) <= flash_module.LSE_ATOL
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+    @pytest.mark.parametrize("d", [16, 32, 64, 128])
+    def test_ragged_matches_plain(self, cuda, dtype, causal, d):
+        q, k, v = (t.to(dtype).to(cuda) for t in random_qkv(2, 3, 1000, 1000, d, d))
+        self.check(q, k, v, causal)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cross_attention(self, cuda, dtype):
+        q, k, v = (t.to(dtype).to(cuda) for t in random_qkv(2, 2, 192, 320, 64, 1))
+        self.check(q, k, v, causal=False)
+
+    def test_strided_qkv_view_needs_no_copy(self, cuda):
+        """q/k/v as the seqformer hands them over: (B, H, S, D) views of a
+        fused (B, S, 3, H, D) projection."""
+        b, s, h, d = 2, 333, 2, 128
+        qkv = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (b, s, 3 * h * d)).astype(np.float32)).to(torch.bfloat16).to(cuda)
+        parts = qkv.view(b, s, 3, h, d)
+        q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
+        assert not q.is_contiguous()
+        self.check(q, k, v, causal=False)
+
+    def test_unaligned_rows_are_refused(self, cuda):
+        q, k, v = (t.to(cuda) for t in random_qkv(1, 1, 8, 8, 16, 3))
+        flat = torch.zeros(8 * 16 + 1, device=cuda)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(flat[1:].view(1, 1, 8, 16), k, v)

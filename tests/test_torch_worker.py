@@ -281,7 +281,7 @@ class TestServing:
 
 class TestUnported:
     @pytest.mark.parametrize("spec,match", [
-        (landcover_spec(family="seqformer"), "'seqformer' is not ported"),
+        (landcover_spec(family="moe"), "'moe' is not ported"),
         (landcover_spec(wire="yuv420"), "'yuv420' is not ported"),
         (landcover_spec(wire="dct"), "'dct' is not ported"),
         (landcover_spec(pipeline_to={"endpoint": "x"}), "'pipeline_to'"),
