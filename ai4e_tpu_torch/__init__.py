@@ -6,5 +6,7 @@ the JAX package becomes a hand-written CUDA C++ kernel under ``csrc/``,
 built for ``sm_90a`` at first use (``ops/_native.py``), beside a plain
 PyTorch version that CPU tensors take.
 
-Entry point: ``python -m ai4e_tpu_torch worker --models <spec.json>``.
+Entry points: ``python -m ai4e_tpu_torch worker --models <spec.json>``
+serves; ``python -m ai4e_tpu_torch.train.make_checkpoints --out <dir>
+--only longcontext`` trains a checkpoint the worker restores.
 """

@@ -22,7 +22,9 @@ flax's auto names for the unnamed LayerNorms: ``block{i}/LayerNorm_0``
 (before attention) and ``LayerNorm_1`` (before the MLP), and a top-level
 ``LayerNorm_0`` (after pooling). Dense kernels go from (in, out) to
 Linear's (out, in), ``Embed.embedding`` is ``nn.Embedding.weight`` as it
-is, and ``pos_emb`` keeps its (1, S, dim) shape.
+is, and ``pos_emb`` keeps its (1, S, dim) shape. ``seqformer_flax_from_state_dict``
+is the inverse: a trained state_dict becomes the flax tree that ``save_npz``
+writes and a worker restores.
 """
 
 from __future__ import annotations
@@ -201,6 +203,49 @@ def seqformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
             vocab_size=sd["embed.weight"].shape[0] if token_mode else None,
             dtype=torch.float32).state_dict()
     return _checked(sd, expected, set(flatten_tree(tree)) - used, "SeqFormer")
+
+
+def seqformer_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``SeqFormer`` tree (``{"params": {...}}`` of float32 numpy
+    arrays) for the port's state_dict, token or feature mode: the inverse
+    of ``seqformer_state_dict_from_flax``, exact both ways (a bfloat16
+    state_dict widens to float32 without rounding)."""
+
+    def array(key: str) -> np.ndarray:
+        if key not in sd:
+            raise ValueError(f"state_dict is missing {key}")
+        return sd[key].detach().cpu().float().numpy().copy()
+
+    def dense(src: str, bias: bool = True) -> dict:
+        node = {"kernel": np.ascontiguousarray(array(f"{src}.weight").T)}
+        if bias:
+            node["bias"] = array(f"{src}.bias")
+        return node
+
+    def norm(src: str) -> dict:
+        return {"scale": array(f"{src}.weight"), "bias": array(f"{src}.bias")}
+
+    depth = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    tree: dict = {"pos_emb": array("pos_emb")}
+    token_mode = "embed.bias" not in sd
+    tree["embed"] = ({"embedding": array("embed.weight")} if token_mode
+                     else dense("embed"))
+    for i in range(depth):
+        src = f"blocks.{i}"
+        tree[f"block{i}"] = {
+            "LayerNorm_0": norm(f"{src}.ln1"),
+            "attn": {"qkv": dense(f"{src}.attn.qkv", bias=False),
+                     "out": dense(f"{src}.attn.out", bias=False)},
+            "LayerNorm_1": norm(f"{src}.ln2"),
+            "mlp_up": dense(f"{src}.mlp_up"),
+            "mlp_down": dense(f"{src}.mlp_down"),
+        }
+    tree["LayerNorm_0"] = norm("norm")
+    tree["head"] = dense("head")
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    seqformer_state_dict_from_flax(params)
+    return params
 
 
 def _checked(sd: dict[str, torch.Tensor], expected: dict,

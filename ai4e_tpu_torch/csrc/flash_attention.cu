@@ -1,10 +1,11 @@
-// Flash attention forward for Hopper: online-softmax attention that never
-// writes the (S_q, S_k) score matrix to device memory.
+// Flash attention for Hopper, forward and backward: online-softmax attention
+// that never writes the (S_q, S_k) score matrix to device memory, in either
+// pass.
 // q (B, H, S_q, D), k/v (B, H, S_k, D), float32 or bfloat16, any B/H/S
 // strides with unit stride on D -> out in q's dtype, written through its own
 // B/H/S strides, plus the float32 (B, H, S_q) logsumexp when asked for.
 //
-// Replaces the TPU kernel `_flash_kernel` in
+// Forward. Replaces the TPU kernel `_flash_kernel` in
 // ai4e_tpu/ops/pallas/flash_attention.py (driven by `_forward_call` and
 // `flash_attention`). Its arithmetic is kept: scores in float32 scaled by
 // D**-0.5, masked entries set to NEG_INF = -1e30 (the running max starts
@@ -37,6 +38,33 @@
 // float32 inputs take a plain CUDA-core kernel (32-row tiles, one FMA chain
 // per score) that repeats the TPU's float32 products exactly: it is not on the
 // served path.
+//
+// Backward. Replaces `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`
+// (driven by `_flash3_bwd`), the FlashAttention-2 recurrence. Both rebuild
+// P = exp(scale * (q.k^T) - lse) from the forward's logsumexp, with q not
+// pre-scaled (`_bwd_recompute`), and dS = P * (dO.V^T - Delta), where
+// Delta = rowsum(dO * O) comes from the caller in float32. Masked entries
+// (causal, ragged tails, padded query rows, whose lse is not a row's) are set
+// to P = 0 explicitly. Two deterministic kernels, no atomics, as on the TPU:
+// - dK/dV: one CTA of four warps per (b*h, 64-key tile), K and V resident in
+//   shared memory; it loops over query tiles, Q, dO, lse and Delta
+//   double-buffered (cp.async for Q and dO). Each warp rebuilds S^T and P^T
+//   for its 16 key rows, then dP^T = V.dO^T and dS^T = P^T * (dP^T - Delta),
+//   and accumulates dV += P^T.dO and dK += dS^T.Q in float32 registers (P
+//   and dS rounded to bf16 for the tensor-core products); dK is scaled by
+//   D**-0.5 once at the end. Query tiles wholly above the diagonal are
+//   skipped. The query tile is 64 rows: at D = 128 the two accumulators
+//   take 128 registers a thread and the kernel 254 in all, without a spill
+//   (`-Xptxas -v` on sm_90a); a 32-row tile took fewer registers and ran
+//   slower.
+// - dQ: the forward's shape. One CTA per (b*h, 64 query rows), Q and dO
+//   resident, K/V tiles double-buffered; dQ += dS.K in float32 registers,
+//   scaled once at the end.
+// Bound on the H100: operations. dK/dV does four products (S, dP, dV, dK),
+// 8*B*H*S_q*S_k*D flops; dQ three (S, dP, dQ), 6*B*H*S_q*S_k*D: at the
+// training shape (8, 2, 4096, 128) bf16, 0.28 and 0.21 TFLOP, 0.28 and 0.21
+// ms at the bf16 tensor-core peak. Both also take plain float32 CUDA-core
+// kernels for float32 inputs, for the tests.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -90,15 +118,15 @@ __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Rows [row0, row0 + 64) of one (S, D) bf16 matrix with row stride `ss`
+// Rows [row0, row0 + kRows) of one (S, D) bf16 matrix with row stride `ss`
 // into a padded shared tile; rows at or past `rows` are zero-filled, so a
 // masked key multiplies a zero V row and never a stale NaN.
-template <int D>
+template <int D, int kRows = kBlockN>
 __device__ __forceinline__ void load_tile(uint16_t* tile,
                                           const uint16_t* base, long long ss,
                                           int row0, int rows) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
     const bool valid = row0 + r < rows;
     const uint16_t* src = valid ? base + (row0 + r) * ss + col : base;
@@ -405,13 +433,519 @@ flash_fwd_f32(const Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int block_rows, const Params& p,
-                   int batch_heads, cudaStream_t stream) {
+
+// -- backward --------------------------------------------------------------
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // (B, H, S_q) contiguous
+  const float* delta;  // (B, H, S_q) contiguous: rowsum(dO * O)
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long do_sb, do_sh, do_ss;
+  long long dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
+  int heads, s_q, s_k, causal;
+  float scale;
+};
+
+template <int D, int BM>
+struct BwdTiles {
+  static constexpr int kStride = Tiles<D>::kStride;
+  static constexpr int kKV = kBlockN * kStride;  // K or V, 64 keys
+  static constexpr int kQ = BM * kStride;        // Q or dO, BM queries
+  // K, V; Q x2, dO x2 (bf16); lse x2, Delta x2 (float32).
+  static constexpr size_t kBytes = (2 * kKV + 4 * kQ) * 2 + 4 * BM * 4;
+};
+
+// Rows [row0, row0 + n) of a float32 row vector into shared memory, zero
+// past `rows`: plain loads, made visible by the next __syncthreads.
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int rows, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    dst[i] = row0 + i < rows ? src[row0 + i] : 0.f;
+  }
+}
+
+// A warp's 16 rows of `a_tile` (row-major, padded rows) times the rows
+// [0, BN) of `b_tile`, transposed: c[BN/8][4] += A . B^T over D. The A and
+// B operands are both rows of D values, read with ldmatrix as the forward
+// reads Q and K.
+template <int D, int BN>
+__device__ __forceinline__ void mma_rows(float c[][4], const uint16_t* a_tile,
+                                         const uint16_t* b_tile, int warp,
+                                         int lane) {
+  constexpr int kStride = Tiles<D>::kStride;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t a[4];
+    const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(a, smem_u32(a_tile + row * kStride + kc * 16 + (lane >> 4) * 8));
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      uint32_t bb[4];
+      const int brow = np * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int col = kc * 16 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(bb, smem_u32(b_tile + brow * kStride + col));
+      mma_bf16(c[2 * np], a, bb[0], bb[1]);
+      mma_bf16(c[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// acc[D/8][4] += X . T for a warp: X is the 16 x 16 A fragment of k-chunk
+// kc (repacked from an accumulator), T the rows [16 kc, 16 kc + 16) of a
+// (rows, D) shared tile, read transposed as the forward reads V.
+template <int D>
+__device__ __forceinline__ void mma_acc_tile(float acc[][4], const uint32_t x[4],
+                                             const uint16_t* tile, int kc,
+                                             int lane) {
+  constexpr int kStride = Tiles<D>::kStride;
+#pragma unroll
+  for (int dp = 0; dp < D / 16; ++dp) {
+    uint32_t tb[4];
+    const int row = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int col = dp * 16 + (lane >> 4) * 8;
+    ldmatrix_x4_trans(tb, smem_u32(tile + row * kStride + col));
+    mma_bf16(acc[2 * dp], x, tb[0], tb[1]);
+    mma_bf16(acc[2 * dp + 1], x, tb[2], tb[3]);
+  }
+}
+
+// The A fragment of k-chunk kc from the accumulators of n-tiles 2kc, 2kc+1.
+__device__ __forceinline__ void repack(uint32_t a[4], const float c[][4],
+                                       int kc) {
+  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
+  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
+  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
+  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+}
+
+// Rows (g, g + 8) of a warp's 16-row float32 accumulator, scaled, to bf16
+// rows of `out` (row stride `ss`), rows at or past `rows` left out.
+template <int D>
+__device__ __forceinline__ void store_rows(uint16_t* out, long long ss,
+                                           const float acc[][4], int row_a,
+                                           int rows, int t, float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<uint32_t*>(out + row * ss + dt * 8 + 2 * t) =
+          pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
+    }
+  }
+}
+
+// dK/dV, bfloat16. Fragment layout as in the forward, with keys as the rows:
+// a thread carries key rows g and g + 8 of its warp's 16, and in the S^T and
+// dP^T tiles query columns 8 nt + 2t, 8 nt + 2t + 1.
+template <int D, int BM>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_bf16(const BwdParams p) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  using T = BwdTiles<D, BM>;
+  uint16_t* k_s = smem;
+  uint16_t* v_s = k_s + T::kKV;
+  uint16_t* q_s = v_s + T::kKV;     // stages 0, 1
+  uint16_t* do_s = q_s + 2 * T::kQ;  // stages 0, 1
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * T::kQ);  // stages 0, 1
+  float* dl_s = lse_s + 2 * BM;                              // stages 0, 1
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.x * kBlockN;
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* lse = p.lse + (long long)bh * p.s_q;
+  const float* delta = p.delta + (long long)bh * p.s_q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_a = k0 + warp * 16 + g;
+
+  const int n_tiles = (p.s_q + BM - 1) / BM;
+  // Causal: the first query tile that reaches key k0 (`_block_relevant`).
+  const int it0 = p.causal ? k0 / BM : 0;
+
+  load_tile<D>(k_s, k, p.k_ss, k0, p.s_k);
+  load_tile<D>(v_s, v, p.v_ss, k0, p.s_k);
+  if (it0 < n_tiles) {
+    load_tile<D, BM>(q_s, q, p.q_ss, it0 * BM, p.s_q);
+    load_tile<D, BM>(do_s, dout, p.do_ss, it0 * BM, p.s_q);
+    load_rows(lse_s, lse, it0 * BM, p.s_q, BM);
+    load_rows(dl_s, delta, it0 * BM, p.s_q, BM);
+  }
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
+    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
+  }
+
+  for (int it = it0; it < n_tiles; ++it) {
+    const int stage = (it - it0) & 1;
+    if (it + 1 < n_tiles) {  // prefetch into the stage tile it - 1 used
+      const int nxt = stage ^ 1;
+      load_tile<D, BM>(q_s + nxt * T::kQ, q, p.q_ss, (it + 1) * BM, p.s_q);
+      load_tile<D, BM>(do_s + nxt * T::kQ, dout, p.do_ss, (it + 1) * BM, p.s_q);
+      load_rows(lse_s + nxt * BM, lse, (it + 1) * BM, p.s_q, BM);
+      load_rows(dl_s + nxt * BM, delta, (it + 1) * BM, p.s_q, BM);
+    }
+    cp_async_commit();  // always, so wait_group 1 covers tile `it`
+    cp_async_wait_1();
+    __syncthreads();
+
+    const uint16_t* qs = q_s + stage * T::kQ;
+    const uint16_t* dos = do_s + stage * T::kQ;
+    const float* lse_t = lse_s + stage * BM;
+    const float* dl_t = dl_s + stage * BM;
+    const int q0 = it * BM;
+
+    // S^T = K . Q^T, then P^T = exp(scale * S^T - lse), masked to 0.
+    float s[BM / 8][4];
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    mma_rows<D, BM>(s, k_s, qs, warp, lane);
+    const bool mask = q0 + BM > p.s_q ||
+                      (p.causal && k0 + warp * 16 + 15 > q0);
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = nt * 8 + 2 * t + (e & 1);
+        float x = exp2f((s[nt][e] * p.scale - lse_t[qi]) * kLog2e);
+        if (mask) {
+          const int key = key_a + (e >> 1) * 8, row = q0 + qi;
+          if (row >= p.s_q || (p.causal && key > row)) x = 0.f;
+        }
+        s[nt][e] = x;
+      }
+    }
+
+    // dP^T = V . dO^T, then dS^T = P^T * (dP^T - Delta) in place.
+    float ds[BM / 8][4];
+#pragma unroll
+    for (int i = 0; i < BM / 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
+    mma_rows<D, BM>(ds, v_s, dos, warp, lane);
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[nt][e] = s[nt][e] * (ds[nt][e] - dl_t[nt * 8 + 2 * t + (e & 1)]);
+      }
+    }
+
+    // dV += P^T . dO and dK += dS^T . Q: the queries are the k axis.
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      uint32_t a[4];
+      repack(a, s, kc);
+      mma_acc_tile<D>(dv_acc, a, dos, kc, lane);
+      repack(a, ds, kc);
+      mma_acc_tile<D>(dk_acc, a, qs, kc, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+  store_rows<D>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb + h * p.dk_sh,
+                p.dk_ss, dk_acc, key_a, p.s_k, t, p.scale);
+  store_rows<D>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb + h * p.dv_sh,
+                p.dv_ss, dv_acc, key_a, p.s_k, t, 1.f);
+}
+
+// dQ, bfloat16: the forward's grid and layout, a thread carrying query rows
+// g and g + 8 of its warp's 16.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16(const BwdParams p) {
+  extern __shared__ __align__(16) uint16_t smem[];
+  constexpr int kElems = Tiles<D>::kElems;
+  uint16_t* q_s = smem;
+  uint16_t* do_s = smem + kElems;
+  uint16_t* k_s = smem + 2 * kElems;  // stages 0, 1
+  uint16_t* v_s = smem + 4 * kElems;  // stages 0, 1
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * kBlockM;
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_a = q0 + warp * 16 + g;
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const bool valid = row < p.s_q;
+    lse_r[r] = valid ? p.lse[(long long)bh * p.s_q + row] : 0.f;
+    dl_r[r] = valid ? p.delta[(long long)bh * p.s_q + row] : 0.f;
+  }
+
+  int n_tiles = (p.s_k + kBlockN - 1) / kBlockN;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+
+  load_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
+  load_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
+  load_tile<D>(k_s, k, p.k_ss, 0, p.s_k);
+  load_tile<D>(v_s, v, p.v_ss, 0, p.s_k);
+  cp_async_commit();
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      load_tile<D>(k_s + (stage ^ 1) * kElems, k, p.k_ss, (it + 1) * kBlockN, p.s_k);
+      load_tile<D>(v_s + (stage ^ 1) * kElems, v, p.v_ss, (it + 1) * kBlockN, p.s_k);
+    }
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+
+    const uint16_t* ks = k_s + stage * kElems;
+    const uint16_t* vs = v_s + stage * kElems;
+    const int k0 = it * kBlockN;
+
+    // S = Q . K^T, then P = exp(scale * S - lse), masked to 0.
+    float s[kBlockN / 8][4];
+#pragma unroll
+    for (int i = 0; i < kBlockN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    mma_rows<D, kBlockN>(s, q_s, ks, warp, lane);
+    const bool mask = k0 + kBlockN > p.s_k || q0 + warp * 16 + 16 > p.s_q ||
+                      (p.causal && k0 + kBlockN - 1 > q0 + warp * 16);
+#pragma unroll
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = exp2f((s[nt][e] * p.scale - lse_r[e >> 1]) * kLog2e);
+        if (mask) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const int row = row_a + (e >> 1) * 8;
+          if (key >= p.s_k || row >= p.s_q || (p.causal && key > row)) x = 0.f;
+        }
+        s[nt][e] = x;
+      }
+    }
+
+    // dP = dO . V^T, then dS = P * (dP - Delta) in place.
+    float ds[kBlockN / 8][4];
+#pragma unroll
+    for (int i = 0; i < kBlockN / 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
+    mma_rows<D, kBlockN>(ds, do_s, vs, warp, lane);
+#pragma unroll
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[nt][e] = s[nt][e] * (ds[nt][e] - dl_r[e >> 1]);
+    }
+
+    // dQ += dS . K: the keys are the k axis.
+#pragma unroll
+    for (int kc = 0; kc < kBlockN / 16; ++kc) {
+      uint32_t a[4];
+      repack(a, ds, kc);
+      mma_acc_tile<D>(dq_acc, a, ks, kc, lane);
+    }
+    __syncthreads();
+  }
+
+  store_rows<D>(static_cast<uint16_t*>(p.dq) + b * p.dq_sb + h * p.dq_sh,
+                p.dq_ss, dq_acc, row_a, p.s_q, t, p.scale);
+}
+
+// -- backward, float32: CUDA cores -----------------------------------------
+
+template <int D>
+struct F32BwdTiles {
+  static constexpr int kStride = D + 1;
+  static constexpr int kRow = kF32Block * kStride;
+  // Four (32, D) tiles, lse and Delta, two (32, 33) scratch tiles.
+  static constexpr size_t kBytes =
+      (4 * kRow + 2 * kF32Block + 2 * kF32Block * (kF32Block + 1)) * 4;
+};
+
+// Rows [row0, row0 + 32) of one (S, D) float32 matrix into a [32][D+1]
+// shared tile, zero past `rows`.
+template <int D>
+__device__ __forceinline__ void load_f32_tile(float* tile, const float* base,
+                                              long long ss, int row0,
+                                              int rows) {
+  for (int i = threadIdx.x; i < kF32Block * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    tile[r * (D + 1) + d] = row0 + r < rows ? base[(row0 + r) * ss + d] : 0.f;
+  }
+}
+
+// dK/dV, float32. Thread (r, quarter): key row r of the CTA's 32; scores of
+// queries quarter + 4i; output dims quarter + 4i.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_f32(const BwdParams p) {
+  extern __shared__ __align__(16) float smem_f[];
+  using T = F32BwdTiles<D>;
+  constexpr int kS = T::kStride, kP = kF32Block + 1;
+  float* k_s = smem_f;
+  float* v_s = k_s + T::kRow;
+  float* q_s = v_s + T::kRow;
+  float* do_s = q_s + T::kRow;
+  float* lse_s = do_s + T::kRow;
+  float* dl_s = lse_s + kF32Block;
+  float* p_s = dl_s + kF32Block;  // [32][33]: P^T of the tile
+  float* ds_s = p_s + kF32Block * kP;
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.x * kF32Block;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int r = threadIdx.x / 4, quarter = threadIdx.x % 4;
+  const int key = k0 + r;
+
+  load_f32_tile<D>(k_s, k, p.k_ss, k0, p.s_k);
+  load_f32_tile<D>(v_s, v, p.v_ss, k0, p.s_k);
+  float dk[D / 4], dv[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
+
+  const int n_tiles = (p.s_q + kF32Block - 1) / kF32Block;
+  for (int it = p.causal ? k0 / kF32Block : 0; it < n_tiles; ++it) {
+    const int q0 = it * kF32Block;
+    __syncthreads();  // the previous tile's readers are done
+    load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
+    load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
+    load_rows(lse_s, p.lse + (long long)bh * p.s_q, q0, p.s_q, kF32Block);
+    load_rows(dl_s, p.delta + (long long)bh * p.s_q, q0, p.s_q, kF32Block);
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kF32Block / 4; ++i) {
+      const int j = quarter + 4 * i, row = q0 + j;
+      float sc = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        sc = fmaf(k_s[r * kS + d], q_s[j * kS + d], sc);
+        dp = fmaf(v_s[r * kS + d], do_s[j * kS + d], dp);
+      }
+      float pv = expf(sc * p.scale - lse_s[j]);
+      if (row >= p.s_q || (p.causal && key > row)) pv = 0.f;
+      p_s[r * kP + j] = pv;
+      ds_s[r * kP + j] = pv * (dp - dl_s[j]);
+    }
+    __syncwarp();  // a row's P^T and dS^T are written and read by one warp
+
+    for (int j = 0; j < kF32Block; ++j) {
+      const float pj = p_s[r * kP + j], dsj = ds_s[r * kP + j];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) {
+        dv[i] = fmaf(pj, do_s[j * kS + quarter + 4 * i], dv[i]);
+        dk[i] = fmaf(dsj, q_s[j * kS + quarter + 4 * i], dk[i]);
+      }
+    }
+  }
+
+  if (key < p.s_k) {
+    float* dkp = static_cast<float*>(p.dk) + b * p.dk_sb + h * p.dk_sh + key * p.dk_ss;
+    float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + key * p.dv_ss;
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) {
+      dkp[quarter + 4 * i] = dk[i] * p.scale;
+      dvp[quarter + 4 * i] = dv[i];
+    }
+  }
+}
+
+// dQ, float32. Thread (r, quarter): query row r of the CTA's 32; scores of
+// keys quarter + 4i; output dims quarter + 4i.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_f32(const BwdParams p) {
+  extern __shared__ __align__(16) float smem_f[];
+  using T = F32BwdTiles<D>;
+  constexpr int kS = T::kStride, kP = kF32Block + 1;
+  float* q_s = smem_f;
+  float* do_s = q_s + T::kRow;
+  float* k_s = do_s + T::kRow;
+  float* v_s = k_s + T::kRow;
+  float* ds_s = v_s + T::kRow;  // [32][33]: dS of the tile
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * kF32Block;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int r = threadIdx.x / 4, quarter = threadIdx.x % 4;
+  const int row = q0 + r;
+  const bool valid = row < p.s_q;
+  const float lse_r = valid ? p.lse[(long long)bh * p.s_q + row] : 0.f;
+  const float dl_r = valid ? p.delta[(long long)bh * p.s_q + row] : 0.f;
+
+  load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
+  load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
+  float dq[D / 4];
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+
+  int n_tiles = (p.s_k + kF32Block - 1) / kF32Block;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kF32Block - 1) / kF32Block + 1);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kF32Block;
+    __syncthreads();
+    load_f32_tile<D>(k_s, k, p.k_ss, k0, p.s_k);
+    load_f32_tile<D>(v_s, v, p.v_ss, k0, p.s_k);
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < kF32Block / 4; ++i) {
+      const int j = quarter + 4 * i, key = k0 + j;
+      float sc = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        sc = fmaf(q_s[r * kS + d], k_s[j * kS + d], sc);
+        dp = fmaf(do_s[r * kS + d], v_s[j * kS + d], dp);
+      }
+      float pv = expf(sc * p.scale - lse_r);
+      if (!valid || key >= p.s_k || (p.causal && key > row)) pv = 0.f;
+      ds_s[r * kP + j] = pv * (dp - dl_r);
+    }
+    __syncwarp();
+
+    for (int j = 0; j < kF32Block; ++j) {
+      const float dsj = ds_s[r * kP + j];
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) dq[i] = fmaf(dsj, k_s[j * kS + quarter + 4 * i], dq[i]);
+    }
+  }
+
+  if (valid) {
+    float* dqp = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + row * p.dq_ss;
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) dqp[quarter + 4 * i] = dq[i] * p.scale;
+  }
+}
+
+template <typename Kernel, typename P>
+cudaError_t launch(Kernel kernel, size_t smem, int block_rows, int rows,
+                   const P& p, int batch_heads, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((p.s_q + block_rows - 1) / block_rows),
+  const dim3 grid((unsigned)((rows + block_rows - 1) / block_rows),
                   (unsigned)batch_heads);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -421,11 +955,59 @@ template <int D>
 cudaError_t launch_d(const Params& p, int batch_heads, bool bf16,
                      cudaStream_t stream) {
   if (bf16) {
-    return launch(flash_fwd_bf16<D>, Tiles<D>::kBytes, kBlockM, p,
+    return launch(flash_fwd_bf16<D>, Tiles<D>::kBytes, kBlockM, p.s_q, p,
                   batch_heads, stream);
   }
-  return launch(flash_fwd_f32<D>, F32Tiles<D>::kBytes, kF32Block, p,
+  return launch(flash_fwd_f32<D>, F32Tiles<D>::kBytes, kF32Block, p.s_q, p,
                 batch_heads, stream);
+}
+
+// One 64-key (32 for float32) tile a CTA: the grid runs over S_k.
+template <int D>
+cudaError_t launch_dkv(const BwdParams& p, int batch_heads, bool bf16,
+                       cudaStream_t stream) {
+  if (bf16) {
+    return launch(flash_bwd_dkv_bf16<D, kBlockM>, BwdTiles<D, kBlockM>::kBytes,
+                  kBlockN, p.s_k, p, batch_heads, stream);
+  }
+  return launch(flash_bwd_dkv_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
+                p.s_k, p, batch_heads, stream);
+}
+
+// One 64-row (32 for float32) query tile a CTA: the grid runs over S_q.
+template <int D>
+cudaError_t launch_dq(const BwdParams& p, int batch_heads, bool bf16,
+                      cudaStream_t stream) {
+  if (bf16) {
+    return launch(flash_bwd_dq_bf16<D>, 6 * Tiles<D>::kElems * 2, kBlockM,
+                  p.s_q, p, batch_heads, stream);
+  }
+  return launch(flash_bwd_dq_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
+                p.s_q, p, batch_heads, stream);
+}
+
+// The backward's checks and parameters, shared by both entry points.
+// `strides` holds (B, H, S) element strides of q, k, v, do and then of each
+// output in `outs` order.
+cudaError_t bwd_params(BwdParams* p, const void* q, const void* k,
+                       const void* v, const void* dout, const float* lse,
+                       const float* delta, int batch, int heads, int s_q,
+                       int s_k, const long long* strides, float scale,
+                       int causal, int device) {
+  if (batch < 1 || heads < 1 || s_q < 1 || s_k < 1 ||
+      (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  p->q = q; p->k = k; p->v = v; p->dout = dout; p->lse = lse; p->delta = delta;
+  p->q_sb = strides[0]; p->q_sh = strides[1]; p->q_ss = strides[2];
+  p->k_sb = strides[3]; p->k_sh = strides[4]; p->k_ss = strides[5];
+  p->v_sb = strides[6]; p->v_sh = strides[7]; p->v_ss = strides[8];
+  p->do_sb = strides[9]; p->do_sh = strides[10]; p->do_ss = strides[11];
+  p->heads = heads; p->s_q = s_q; p->s_k = s_k; p->causal = causal;
+  p->scale = scale;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -465,6 +1047,60 @@ extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
     case 32: return (int)launch_d<32>(p, bh, bf16 != 0, s);
     case 64: return (int)launch_d<64>(p, bh, bf16 != 0, s);
     case 128: return (int)launch_d<128>(p, bh, bf16 != 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// C entry points of the backward, bound with ctypes. q/k/v/dout and the
+// outputs are device arrays of float32 (`bf16` == 0) or bfloat16 (`bf16` ==
+// 1) with unit stride on D, every row 16-byte aligned; `lse` and `delta` are
+// contiguous float32 (B, H, S_q) device arrays: the forward's logsumexp and
+// rowsum(dout * out). `strides` holds (B, H, S) element strides of q, k, v
+// and dout, then of the outputs: dk and dv (18 in all) for dkv, dq (15) for
+// dq. `scale` is D**-0.5. Return cudaGetLastError() after the launch.
+extern "C" int ai4e_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int batch,
+    int heads, int s_q, int s_k, int d, const long long* strides, float scale,
+    int causal, int bf16, void* stream, int device) {
+  BwdParams p;
+  cudaError_t err = bwd_params(&p, q, k, v, dout, lse, delta, batch, heads,
+                               s_q, s_k, strides, scale, causal, device);
+  if (err != cudaSuccess) return (int)err;
+  p.dq = nullptr; p.dk = dk; p.dv = dv;
+  p.dq_sb = p.dq_sh = p.dq_ss = 0;
+  p.dk_sb = strides[12]; p.dk_sh = strides[13]; p.dk_ss = strides[14];
+  p.dv_sb = strides[15]; p.dv_sh = strides[16]; p.dv_ss = strides[17];
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int bh = batch * heads;
+  switch (d) {
+    case 16: return (int)launch_dkv<16>(p, bh, bf16 != 0, s);
+    case 32: return (int)launch_dkv<32>(p, bh, bf16 != 0, s);
+    case 64: return (int)launch_dkv<64>(p, bh, bf16 != 0, s);
+    case 128: return (int)launch_dkv<128>(p, bh, bf16 != 0, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int ai4e_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int batch, int heads,
+    int s_q, int s_k, int d, const long long* strides, float scale,
+    int causal, int bf16, void* stream, int device) {
+  BwdParams p;
+  cudaError_t err = bwd_params(&p, q, k, v, dout, lse, delta, batch, heads,
+                               s_q, s_k, strides, scale, causal, device);
+  if (err != cudaSuccess) return (int)err;
+  p.dq = dq; p.dk = nullptr; p.dv = nullptr;
+  p.dq_sb = strides[12]; p.dq_sh = strides[13]; p.dq_ss = strides[14];
+  p.dk_sb = p.dk_sh = p.dk_ss = p.dv_sb = p.dv_sh = p.dv_ss = 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int bh = batch * heads;
+  switch (d) {
+    case 16: return (int)launch_dq<16>(p, bh, bf16 != 0, s);
+    case 32: return (int)launch_dq<32>(p, bh, bf16 != 0, s);
+    case 64: return (int)launch_dq<64>(p, bh, bf16 != 0, s);
+    case 128: return (int)launch_dq<128>(p, bh, bf16 != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

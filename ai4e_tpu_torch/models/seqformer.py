@@ -13,9 +13,13 @@ of ``ai4e_tpu/models/seqformer.py`` with the same arithmetic:
 - pooling ``h.mean(axis=1)`` sums in float32 and returns bfloat16;
 - the head is a float32 Dense with a bias.
 
-Flax keeps float32 params and casts them to bfloat16 on every call; here the
-bfloat16 layers are built in bfloat16, so loading float32 weights rounds
-them once, to the same values.
+Flax keeps float32 params and casts them to bfloat16 on every call. Served,
+the bfloat16 layers are built in bfloat16 (``param_dtype`` defaults to the
+compute ``dtype``), so loading float32 weights rounds them once, to the same
+values. For training, ``param_dtype=torch.float32`` keeps float32 masters of
+the bfloat16 layers (``Dense``, ``Embed``, ``pos_emb``) and casts them on
+every call, as flax does; the state_dict keys are the same, so a trained
+float32 state_dict loads into the served model with one rounding.
 
 Attention is injected as a plain function of (q, k, v), each (B, H, S, D):
 ``attention_for`` gives the hand-written flash kernel (``ops.flash_attention``)
@@ -37,18 +41,21 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring_attention import PARALLEL_PLANE, reference_attention
-from .layers import Dense, LayerNorm, gelu
+from .layers import Dense, Embed, LayerNorm, gelu
 
 STRATEGIES = ("auto", "ring", "ulysses", "flash", "full")
 
 
 class SeqAttention(nn.Module):
     def __init__(self, dim: int, heads: int, attn_fn: Callable,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dim, self.heads, self.attn_fn = dim, heads, attn_fn
-        self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
-        self.out = Dense(dim, dim, bias=False, dtype=dtype)
+        self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype,
+                         param_dtype=param_dtype)
+        self.out = Dense(dim, dim, bias=False, dtype=dtype,
+                         param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
@@ -60,13 +67,17 @@ class SeqAttention(nn.Module):
 
 class SeqBlock(nn.Module):
     def __init__(self, dim: int, heads: int, attn_fn: Callable,
-                 mlp_ratio: int = 4, dtype: torch.dtype = torch.bfloat16):
+                 mlp_ratio: int = 4, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.ln1 = LayerNorm(dim)
-        self.attn = SeqAttention(dim, heads, attn_fn, dtype=dtype)
+        self.attn = SeqAttention(dim, heads, attn_fn, dtype=dtype,
+                                 param_dtype=param_dtype)
         self.ln2 = LayerNorm(dim)
-        self.mlp_up = Dense(dim, dim * mlp_ratio, dtype=dtype)
-        self.mlp_down = Dense(dim * mlp_ratio, dim, dtype=dtype)
+        self.mlp_up = Dense(dim, dim * mlp_ratio, dtype=dtype,
+                            param_dtype=param_dtype)
+        self.mlp_down = Dense(dim * mlp_ratio, dim, dtype=dtype,
+                              param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -76,27 +87,34 @@ class SeqBlock(nn.Module):
 class SeqFormer(nn.Module):
     """Encoder over (B, S, input_dim) float features — or, with
     ``vocab_size`` set, over (B, S) integer token ids — to (B, num_classes)
-    float32 logits."""
+    float32 logits. ``param_dtype`` (default: ``dtype``) is the type the
+    bfloat16 layers hold their parameters in."""
 
     def __init__(self, seq_len: int, input_dim: int, dim: int = 128,
                  depth: int = 2, heads: int = 8, num_classes: int = 16,
                  attn_fn: Callable | None = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 vocab_size: int | None = None):
+                 vocab_size: int | None = None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         attn_fn = attn_fn or reference_attention
+        self.dtype = dtype
         if vocab_size is not None:
-            self.embed = nn.Embedding(vocab_size, dim, dtype=dtype)
+            self.embed = Embed(vocab_size, dim, dtype=dtype,
+                               param_dtype=param_dtype)
         else:
-            self.embed = Dense(input_dim, dim, dtype=dtype)
-        self.pos_emb = nn.Parameter(torch.zeros((1, seq_len, dim), dtype=dtype))
+            self.embed = Dense(input_dim, dim, dtype=dtype,
+                               param_dtype=param_dtype)
+        self.pos_emb = nn.Parameter(torch.zeros((1, seq_len, dim),
+                                                dtype=param_dtype or dtype))
         self.blocks = nn.ModuleList(
-            SeqBlock(dim, heads, attn_fn, dtype=dtype) for _ in range(depth))
+            SeqBlock(dim, heads, attn_fn, dtype=dtype,
+                     param_dtype=param_dtype) for _ in range(depth))
         self.norm = LayerNorm(dim)
         self.head = Dense(dim, num_classes, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.embed(x) + self.pos_emb
+        h = self.embed(x) + self.pos_emb.to(self.dtype)
         for block in self.blocks:
             h = block(h)
         pooled = h.float().mean(dim=1).to(h.dtype)  # float32 sum, as jnp.mean
@@ -160,16 +178,19 @@ def create_seqformer(generator: torch.Generator | None = None,
                      attention: str = "auto", causal: bool = False,
                      vocab_size: int | None = None,
                      dtype: torch.dtype = torch.bfloat16,
-                     device=None) -> SeqFormer:
+                     device=None,
+                     param_dtype: torch.dtype | None = None) -> SeqFormer:
     """A SeqFormer with flax-like random weights drawn on the CPU from
     ``generator`` (default: seed 0), then moved to ``device`` (default
-    ``cuda``). ``vocab_size`` switches the input to (B, S) token ids."""
+    ``cuda``). ``vocab_size`` switches the input to (B, S) token ids;
+    ``param_dtype=torch.float32`` keeps float32 masters for training."""
     attn_fn = attention_for(mesh, attention, causal)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = SeqFormer(seq_len=seq_len, input_dim=input_dim, dim=dim,
                       depth=depth, heads=heads, num_classes=num_classes,
-                      attn_fn=attn_fn, dtype=dtype, vocab_size=vocab_size)
+                      attn_fn=attn_fn, dtype=dtype, vocab_size=vocab_size,
+                      param_dtype=param_dtype)
     init_flax_like_(model, generator)
     return model.to(device).eval()

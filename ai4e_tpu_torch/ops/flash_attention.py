@@ -1,13 +1,21 @@
-"""Fused attention forward: online softmax, no (S_q, S_k) score matrix in
-device memory.
+"""Fused attention, forward and backward: online softmax, no (S_q, S_k)
+score matrix in device memory in either pass.
 
-Counterpart of ``ai4e_tpu/ops/pallas/flash_attention.py`` (the forward; the
-backward kernels belong to the training slice). On a CUDA tensor
+Counterpart of ``ai4e_tpu/ops/pallas/flash_attention.py``. On a CUDA tensor
 ``flash_attention`` launches the hand-written kernel in
 ``csrc/flash_attention.cu``; on a CPU tensor it runs
 ``flash_attention_plain``, the TPU kernel's arithmetic written out over a
 materialised score matrix, which the tests hold against the JAX package and
 ``chip_smoke.py`` holds the kernel against.
+
+Where autograd records (grad enabled and an input requires grad),
+``flash_attention`` goes through ``_FlashAttention``, the counterpart of the
+TPU's ``_flash3`` custom VJP: the forward also returns the float32
+logsumexp and saves q, k, v, out and lse; the backward computes
+Delta = rowsum(dO * O) in float32 and launches the two backward kernels,
+dK/dV and dQ, which rebuild P from lse (``flash_attention_bwd``; on the CPU
+``flash_attention_bwd_plain``). Under ``no_grad``/``inference_mode`` the
+served path computes no lse and saves nothing.
 
 The kernel reads q/k/v through their own B/H/S strides, so the
 ``(B, S, 3, H, D)`` view of a fused qkv projection reaches it without a
@@ -24,22 +32,39 @@ import torch
 
 from . import _native
 
-#: Kernel launches on CUDA tensors since import (or since a caller reset it).
+#: Kernel launches on CUDA tensors since import (or since a caller reset
+#: them): the forward, the dK/dV backward and the dQ backward.
 launches = 0
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
 
 NEG_INF = -1e30  # the TPU kernel's mask value and initial running max
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 #: How far the kernel's output may lie from ``flash_attention_plain``'s on
 #: the same inputs (see ``tolerance``), and its logsumexp (abs).
 FLOAT32_ATOL, BFLOAT16_ATOL, LSE_ATOL = 2e-5, 1e-2, 1e-4
+#: How far a backward kernel's gradient may lie from
+#: ``flash_attention_bwd_plain``'s, as a share of that gradient's largest
+#: magnitude (see ``grad_tolerance``).
+GRAD_FLOAT32_RTOL, GRAD_BFLOAT16_RTOL = 1e-5, 2 ** -8
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, return_lse: bool = False):
     """q (B, H, S_q, D), k/v (B, H, S_k, D), float32 or bfloat16 ->
     (B, H, S_q, D) in q's dtype; with ``return_lse`` also the float32
-    (B, H, S_q) logsumexp of each score row. Causal needs S_q == S_k."""
+    (B, H, S_q) logsumexp of each score row. Causal needs S_q == S_k.
+    Differentiable in q, k and v (the lse is not)."""
     _check(q, k, v, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, causal)
+        return (out, lse) if return_lse else out
+    return _flash_forward(q, k, v, causal, return_lse)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, return_lse: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, return_lse)
     if q.device.type != "cuda":
@@ -70,6 +95,96 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """``_flash3`` with ``_flash3_fwd``/``_flash3_bwd`` of the TPU package:
+    the forward keeps q, k, v, out and the float32 lse; the backward
+    rebuilds P from lse in the two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash_forward(q, k, v, causal, True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, causal: bool = False):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)`` for
+    the upstream gradient ``do`` of its output ``out``, whose float32
+    logsumexp is ``lse`` (B, H, S_q). On a CUDA tensor: Delta =
+    rowsum(do * out) in float32 here, then the dK/dV kernel and the dQ
+    kernel. On a CPU tensor: ``flash_attention_bwd_plain``."""
+    _check(q, k, v, causal)
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} and out {tuple(out.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.shape[0] == 0 or q.shape[2] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    do = do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    delta = bwd_delta(out, do)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, lse, delta, do, causal)
+    dq = flash_bwd_dq_cuda(q, k, v, lse, delta, do, causal)
+    return dq, dk, dv
+
+
+def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * O) in float32, (B, H, S_q) contiguous: the
+    softmax Jacobian's correction, computed outside the kernels as the TPU
+    package computes it in XLA."""
+    return (do.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = False,
+                              parts: str = "qkv"):
+    """The plain PyTorch version of the backward, in the TPU backward
+    kernels' arithmetic (``_bwd_recompute``) over materialised float32
+    matrices: s = scale * (q . k^T) with q not pre-scaled (unlike the
+    forward), masked to ``NEG_INF``, p = exp(s - lse), dp = do . v^T,
+    ds = p * (dp - Delta), then dv = p^T . do, dk = scale * ds^T . q,
+    dq = scale * ds . k, each cast to its input's dtype. ``parts`` picks
+    which of (dq, dk, dv) to compute ("q", "kv" or "qkv"); the others come
+    back as None. It materialises four (S_q, S_k) float32 matrices a
+    (batch, head)."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)).mul_(scale)
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones((n, n), dtype=torch.bool, device=s.device).tril_()
+        s.masked_fill_(~keep, NEG_INF)
+    p = torch.exp(s.sub_(lse.unsqueeze(-1)))
+    ds = torch.matmul(dof, vf.transpose(-1, -2))
+    ds.sub_(bwd_delta(out, do).unsqueeze(-1)).mul_(p)
+    dq = dk = dv = None
+    if "q" in parts:
+        dq = (torch.matmul(ds, kf) * scale).to(q.dtype)
+    if "kv" in parts:
+        dv = torch.matmul(p.transpose(-1, -2), dof).to(v.dtype)
+        dk = (torch.matmul(ds.transpose(-1, -2), qf) * scale).to(k.dtype)
+    return dq, dk, dv
+
+
 def tolerance(want: torch.Tensor) -> torch.Tensor:
     """Per-element tolerance of the kernel's output against the plain
     output ``want``. float32: the same float32 products summed in another
@@ -83,6 +198,25 @@ def tolerance(want: torch.Tensor) -> torch.Tensor:
     ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
                       torch.frexp(want.float()).exponent - 8)
     return ulp.clamp_min(BFLOAT16_ATOL)
+
+
+def grad_tolerance(want: torch.Tensor) -> torch.Tensor:
+    """Per-element tolerance of a backward kernel's gradient against the
+    plain gradient ``want``. Each element sums S products (S_q for dK and
+    dV, S_k for dQ), so its error scales with the gradient's largest
+    magnitude, not with its own value, which may be near 0. float32:
+    ``GRAD_FLOAT32_RTOL`` of that magnitude (the same products summed in
+    another order). bfloat16: the kernels round P and dS to bfloat16 for
+    the tensor-core products, ``GRAD_BFLOAT16_RTOL`` of that magnitude, and
+    each side rounds its result on its own, so a value near a rounding
+    boundary may land an ulp apart, in the binade above: two bfloat16 ulps
+    of ``want``."""
+    top = max(float(want.float().abs().max()), 1e-6)
+    if want.dtype == torch.float32:
+        return torch.full_like(want, GRAD_FLOAT32_RTOL * top)
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                      torch.frexp(want.float()).exponent - 8)
+    return 2 * ulp + GRAD_BFLOAT16_RTOL * top
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,6 +244,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q/k/v must be on one device")
 
 
+def _check_rows(tensors) -> None:
+    """Each (name, tensor) must start on 16 bytes with 16-byte B/H/S
+    strides: the kernels copy 16-byte row chunks with cp.async."""
+    for name, t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
+            raise ValueError(f"{name} rows must be 16-byte aligned: pointer "
+                             f"and B/H/S strides")
+
+
+def _bshd_like(t: torch.Tensor, s: int) -> torch.Tensor:
+    """An empty (B, H, s, D) tensor of t's dtype in (B, S, H, D) memory
+    order."""
+    b, h, _, d = t.shape
+    return torch.empty((b, s, h, d), dtype=t.dtype,
+                       device=t.device).permute(0, 2, 1, 3)
+
+
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, return_lse: bool):
     global launches
@@ -117,41 +269,108 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_k = k.shape[2]
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
-    size = q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
-            raise ValueError(f"{name} rows must be 16-byte aligned: pointer "
-                             f"and B/H/S strides")
-    out = torch.empty((b, s_q, h, d), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    _check_rows((("q", q), ("k", k), ("v", v)))
+    out = _bshd_like(q, s_q)
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
            if return_lse else None)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   lse.data_ptr() if lse is not None else None, b, h, s_q,
-                   s_k, d, strides, d ** -0.5, int(causal),
-                   int(q.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(q.device).cuda_stream,
-                   q.device.index or 0)
+    err = _entry("fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(),
+                        lse.data_ptr() if lse is not None else None, b, h,
+                        s_q, s_k, d, strides, d ** -0.5, int(causal),
+                        int(q.dtype == torch.bfloat16),
+                        torch.cuda.current_stream(q.device).cuda_stream,
+                        q.device.index or 0)
     _native.check(err, "flash_attention kernel")
     launches += 1
     return (out, lse) if return_lse else out
 
 
-_fn = None
+def _check_bwd_cuda(q, k, v, lse, delta, do) -> None:
+    b, h, s_q, _ = q.shape
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
+    if do.dtype != q.dtype or do.shape != q.shape or do.stride(3) != 1:
+        raise ValueError(f"do must be {q.dtype} {tuple(q.shape)} with unit "
+                         f"stride on D")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.shape != (b, h, s_q)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{(b, h, s_q)} tensor")
+    _check_rows((("q", q), ("k", k), ("v", v), ("do", do)))
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = _native.load("flash_attention").ai4e_flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int]
+def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lse: torch.Tensor, delta: torch.Tensor,
+                       do: torch.Tensor, causal: bool = False):
+    """The dK/dV kernel on CUDA tensors: (dk, dv) in k's and v's dtype,
+    (B, H, S_k, D) views of (B, S_k, H, D) memory. ``delta`` is
+    ``bwd_delta(out, do)``."""
+    global bwd_dkv_launches
+    _check_bwd_cuda(q, k, v, lse, delta, do)
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    dk, dv = _bshd_like(k, s_k), _bshd_like(v, s_k)
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3])
+    err = _entry("bwd_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        s_q, s_k, d, strides, d ** -0.5, int(causal),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream, q.device.index or 0)
+    _native.check(err, "flash_attention dK/dV kernel")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lse: torch.Tensor, delta: torch.Tensor,
+                      do: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    """The dQ kernel on CUDA tensors: dq in q's dtype, a (B, H, S_q, D)
+    view of (B, S_q, H, D) memory."""
+    global bwd_dq_launches
+    _check_bwd_cuda(q, k, v, lse, delta, do)
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    dq = _bshd_like(q, s_q)
+    strides = (ctypes.c_longlong * 15)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dq.stride()[:3])
+    err = _entry("bwd_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s_q, s_k, d,
+        strides, d ** -0.5, int(causal), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream, q.device.index or 0)
+    _native.check(err, "flash_attention dQ kernel")
+    bwd_dq_launches += 1
+    return dq
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ctypes argument types of each C entry point of csrc/flash_attention.cu.
+_ARGTYPES = {
+    "fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P, _I],
+    "bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P,
+                _I],
+    "bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P,
+               _I],
+}
+_fns: dict = {}
+
+
+def _entry(which: str):
+    fn = _fns.get(which)
+    if fn is None:
+        fn = getattr(_native.load("flash_attention"),
+                     f"ai4e_flash_attention_{which}")
+        fn.argtypes = _ARGTYPES[which]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[which] = fn
+    return fn

@@ -24,7 +24,20 @@ Phases, each of which raises on failure:
    Every answer is checked against the same weights run on the card with
    plain full attention, the flash kernel against its plain version on the
    served model's own layer-0 q/k/v, and the kernel must have launched at
-   least depth times per executed batch.
+   least depth times per executed batch;
+6. train then serve: both flash-attention backward kernels (dK/dV, dQ)
+   against their plain version on the card at the training shape
+   (8, 2, 4096, 128) bf16 and at ragged, causal and cross shapes in both
+   types; the full-width SeqFormer's parameter gradients on one training
+   batch with ``flash`` against ``full`` attention; ``train_longcontext``
+   (S 4096, dim 256, depth 4, heads 2, vocab 32768, batch 8, 200 steps,
+   float32 masters) on the card through the forward and both backward
+   kernels, each launched at least depth x steps times, with loss, step
+   phases, sequences/s and peak memory recorded; ``make_checkpoint``'s
+   ``.npz`` restored by ``build_worker`` and served over HTTP, sync and
+   async, on the trainer's held-out sequences, whose served accuracy must
+   be at least 0.5 and within 2 of 64 sequences of the trainer's eval;
+   then both backward kernels timed at the training shape.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -59,6 +72,14 @@ N_LC_SYNC = 4
 N_LC_ASYNC = 64
 LC_GAP = 1e-2    # class must agree where the reference's top-two gap exceeds it
 LC_CONF_ATOL = 1e-2
+BWD_TRAIN = (8, 2, 4096, 128)  # a longcontext training batch, one layer
+# Largest relative gap, ||g_flash - g_full|| / ||g_full||, allowed between a
+# parameter's gradient through the flash kernels and through plain full
+# attention (which takes its softmax in bf16) on one training batch.
+MODEL_GRAD_RTOL = 5e-2
+N_TRAIN_SYNC = 4
+SERVED_ACC_SLACK = 2  # of 64 held-out sequences: bucket shapes differ
+MIN_SERVED_ACC = 0.5  # eight times chance (1/16)
 
 
 def log(msg: str) -> None:
@@ -718,6 +739,280 @@ def phase_longcontext() -> dict:
     return lc
 
 
+# -- phase 6: train then serve --------------------------------------------
+
+
+def flash_bwd_plain_chunked(q, k, v, out, lse, do, causal=False,
+                            parts="qkv"):
+    """The backward kernels' plain version, PLAIN_CHUNK sequences at a
+    time; (dq, dk, dv), None where ``parts`` leaves one out."""
+    from ai4e_tpu_torch.ops.flash_attention import flash_attention_bwd_plain
+
+    outs = [flash_attention_bwd_plain(
+        q[i:i + PLAIN_CHUNK], k[i:i + PLAIN_CHUNK], v[i:i + PLAIN_CHUNK],
+        out[i:i + PLAIN_CHUNK], lse[i:i + PLAIN_CHUNK], do[i:i + PLAIN_CHUNK],
+        causal, parts) for i in range(0, q.shape[0], PLAIN_CHUNK)]
+    return tuple(None if part[0] is None else torch.cat(part)
+                 for part in zip(*outs))
+
+
+def check_flash_bwd(q, k, v, do, causal: bool,
+                    what: str) -> tuple[float, float]:
+    """Both backward kernels against their plain version on the same
+    tensors (out and lse from the forward kernel); returns the max abs
+    errors of (dK/dV, dQ)."""
+    from ai4e_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_bwd,
+                                                    grad_tolerance)
+
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = flash_bwd_plain_chunked(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    errs, notes = {}, []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"flash bwd {what} {name}: {g.shape} {g.dtype}")
+        err = (g.float() - w.float()).abs()
+        of_tol = float((err / grad_tolerance(w)).max())
+        errs[name] = float(err.max())
+        notes.append(f"{name} {errs[name]:.3g} ({of_tol:.3g} of the tolerance)")
+        if not of_tol <= 1:
+            raise AssertionError(f"flash bwd {what} {name}: max abs err "
+                                 f"{errs[name]} ({of_tol:.3g} of the tolerance)")
+    log(f"  flash bwd {what}: {', '.join(notes)}")
+    return max(errs["dk"], errs["dv"]), errs["dq"]
+
+
+def phase_flash_bwd_parity() -> tuple[float, float]:
+    """The backward kernels at the training shape and at ragged, causal and
+    cross shapes in both types; returns the max abs errors."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def tensors(b, h, s_q, s_k, d, dtype):
+        return tuple(torch.randn((b, h, s, d), generator=gen, device="cuda")
+                     .to(dtype) for s in (s_q, s_k, s_k, s_q))
+
+    b, h, s, d = BWD_TRAIN
+    errs = [check_flash_bwd(*tensors(b, h, s, s, d, torch.bfloat16), False,
+                            f"training {BWD_TRAIN} bf16")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            errs.append(check_flash_bwd(
+                *tensors(2, 3, 1000, 1000, 64, dtype), causal,
+                f"(2, 3, 1000, 64) {str(dtype)[6:]} causal={causal}"))
+        errs.append(check_flash_bwd(*tensors(2, 3, 192, 320, 64, dtype), False,
+                                    f"cross 192x320 d64 {str(dtype)[6:]}"))
+    return max(e for e, _ in errs), max(e for _, e in errs)
+
+
+def longcontext_config() -> dict:
+    keys = ("seq_len", "input_dim", "dim", "depth", "heads", "num_classes",
+            "vocab_size")
+    return {k: longcontext_spec()["models"][0][k] for k in keys}
+
+
+def phase_model_grad() -> dict:
+    """The full-width SeqFormer (float32 masters, bf16 body) on one
+    training batch: every parameter's gradient through the flash kernels
+    against the same through plain full attention."""
+    from ai4e_tpu_torch.models import create_seqformer
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+    from ai4e_tpu_torch.train.step import cross_entropy_loss
+
+    config = longcontext_config()
+    toks, labels = longcontext_batch(np.random.default_rng(SEED), 8,
+                                     config["seq_len"], config["vocab_size"],
+                                     config["num_classes"])
+    x, y = torch.from_numpy(toks).cuda(), torch.from_numpy(labels).cuda()
+    grads, losses = {}, {}
+    for attention in ("flash", "full"):
+        model = create_seqformer(**config, attention=attention,
+                                 param_dtype=torch.float32, device="cuda")
+        params = dict(model.named_parameters())
+        loss = cross_entropy_loss(model(x), y)
+        grads[attention] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        losses[attention] = float(loss.detach())
+        del model, params, loss
+    worst_name, worst = "", 0.0
+    for name, want in grads["full"].items():
+        gap = float((grads["flash"][name] - want).norm()
+                    / want.norm().clamp_min(1e-30))
+        if gap > worst:
+            worst_name, worst = name, gap
+    del grads
+    torch.cuda.empty_cache()
+    if not worst <= MODEL_GRAD_RTOL:
+        raise AssertionError(f"model gradient {worst_name}: flash vs full "
+                             f"relative gap {worst} > {MODEL_GRAD_RTOL}")
+    log(f"train: model gradients, flash against full attention on one "
+        f"batch: worst relative gap {worst:.3g} ({worst_name}; tolerance "
+        f"{MODEL_GRAD_RTOL}), loss {losses['flash']:.6f} vs "
+        f"{losses['full']:.6f}")
+    return {"worst_relative_gap": worst, "worst_param": worst_name,
+            "loss_flash": losses["flash"], "loss_full": losses["full"]}
+
+
+def phase_train() -> dict:
+    """``train_longcontext`` at its defaults on the card; the launch counts
+    are set to 0 just before and read just after."""
+    from ai4e_tpu_torch.ops import flash_attention as fa
+    from ai4e_tpu_torch.train.make_checkpoints import train_longcontext
+
+    config = longcontext_config()
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    result = train_longcontext(device="cuda")
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd_dkv": fa.bwd_dkv_launches,
+                "flash_attention_bwd_dq": fa.bwd_dq_launches}
+    steps = len(result["losses"])
+    for name, n in launches.items():
+        if n < config["depth"] * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps of depth {config['depth']}")
+    losses = result["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training loss is not finite: {losses}")
+    phases = result["phases_ms"][1:]  # the first step pays one-off costs
+    step_ms = [sum(p.values()) for p in phases]
+    median_ms = statistics.median(step_ms)
+    batch = result["batch"]
+    train = {
+        "steps": steps,
+        "batch": batch,
+        "loss_first": losses[0],
+        "loss_last": losses[-1],
+        "loss_every_25": losses[::25],
+        "step_ms_median": median_ms,
+        "phase_ms_median": {k: statistics.median(p[k] for p in phases)
+                            for k in phases[0]},
+        "sequences_per_s": batch * 1e3 / median_ms,
+        "loop_sequences_per_s": steps * batch / result["loop_seconds"],
+        "peak_memory_gib": result["peak_bytes"] / 2 ** 30,
+        "eval_accuracy": result["eval"]["accuracy"],
+        "reached_min_eval_0.85": result["eval"]["accuracy"] >= 0.85,
+        "launches": launches,
+    }
+    log(f"train: {json.dumps(train)}")
+    return {"record": train, "result": result}
+
+
+def phase_serve_trained(result: dict) -> dict:
+    """The trained weights through ``make_checkpoint`` and ``build_worker``,
+    served over HTTP on the trainer's held-out sequences."""
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.ops import flash_attention
+    from ai4e_tpu_torch.train.make_checkpoints import (longcontext_batch,
+                                                       make_checkpoint)
+
+    entry = make_checkpoint("longcontext", str(ROOT / "build" / "chip_smoke"),
+                            min_eval=MIN_SERVED_ACC, result=result)
+    spec = longcontext_spec()
+    config = spec["models"][0]
+    config["checkpoint"] = entry["path"]
+    worker, batcher, _ = build_worker(spec, device="cuda")
+    # The trainer's eval set: 4 batches of 16 drawn from seed + 1.
+    rng = np.random.default_rng(SEED + 1)
+    seqs, labels = zip(*(longcontext_batch(rng, 16, config["seq_len"],
+                                           config["vocab_size"],
+                                           config["num_classes"])
+                         for _ in range(4)))
+    seqs, labels = np.concatenate(seqs), np.concatenate(labels)
+    out = asyncio.run(drive(
+        worker, batcher, free_port(),
+        [npy_bytes(s.astype(np.uint16)) for s in seqs], N_TRAIN_SYNC,
+        (config["sync_path"], config["async_path"],
+         "completed - class_id, confidence"),
+        {"flash_attention": flash_attention}))
+    served = np.array([r["class_id"]
+                       for r in out["sync_results"] + out["async_results"]])
+    if out["launches"]["flash_attention"] < config["depth"]:
+        raise AssertionError(f"flash launched {out['launches']} times "
+                             f"serving the trained weights")
+    hits = int((served == labels).sum())
+    train_hits = round(result["eval"]["accuracy"] * len(labels))
+    if abs(hits - train_hits) > SERVED_ACC_SLACK:
+        raise AssertionError(f"served {hits}/{len(labels)} right, the "
+                             f"trainer's eval {train_hits}")
+    if hits < MIN_SERVED_ACC * len(labels):
+        raise AssertionError(f"served accuracy {hits}/{len(labels)} < "
+                             f"{MIN_SERVED_ACC}")
+    serve = {"served_accuracy": hits / len(labels),
+             "trainer_eval_accuracy": result["eval"]["accuracy"],
+             "sync_p50_ms": statistics.median(out["sync_ms"]),
+             "async_sequences_per_s": (len(seqs) - N_TRAIN_SYNC) / out["async_s"],
+             "launches": out["launches"]}
+    log(f"serve trained: {json.dumps(serve)}")
+    return serve
+
+
+def phase_flash_bwd_timing(errs: tuple[float, float],
+                           launches: dict) -> list[dict]:
+    """Both backward kernels timed at the training shape, beside the plain
+    version and, as a yardstick only, SDPA's backward."""
+    import torch.nn.functional as F
+
+    from ai4e_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    b, h, s, d = BWD_TRAIN
+    q, k, v, do = (torch.randn(BWD_TRAIN, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    delta = fa.bwd_delta(out, do)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+    # Yardstick only, the whole backward (dq, dk, dv): the port never calls it.
+    library = device_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), do, retain_graph=True))
+    elems, rows = b * h * s * d, b * h * s
+    entries = []
+    for name, line, kernel, parts, products, n_mats, err in (
+            ("flash_attention_bwd_dkv", "160 (_flash_bwd_dkv_kernel)",
+             lambda: fa.flash_bwd_dkv_cuda(q, k, v, lse, delta, do), "kv",
+             4, 6, errs[0]),
+            ("flash_attention_bwd_dq", "197 (_flash_bwd_dq_kernel)",
+             lambda: fa.flash_bwd_dq_cuda(q, k, v, lse, delta, do), "q",
+             3, 5, errs[1])):
+        # q, k, v, do and the outputs read or written once in bf16; lse and
+        # Delta in float32. Two flops per multiply-add of each product.
+        bound, by = bound_ms(n_mats * elems * 2 + 2 * rows * 4,
+                            2 * products * b * h * s * s * d, BF16_OPS_PER_S)
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": "ai4e_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"ai4e_tpu/ops/pallas/flash_attention.py:{line}",
+            "shape": list(BWD_TRAIN),
+            "ms": device_ms(kernel),
+            "plain_ms": device_ms(lambda: flash_bwd_plain_chunked(
+                q, k, v, out, lse, do, parts=parts), reps=5),
+            "library_ms": library,
+            "library": "F.scaled_dot_product_attention backward (dq, dk, dv)",
+            "bound_ms": bound,
+            "bound_by": by,
+            "bound_peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
+            "max_abs_err": err,
+            "launches": launches[name],
+        }
+        log(f"  {name} {BWD_TRAIN} bf16: kernel {entry['ms']:.4f} ms "
+            f"({2 * products * b * h * s * s * d / entry['ms'] / 1e9:.1f} "
+            f"TFLOP/s), plain {entry['plain_ms']:.4f} ms, SDPA backward "
+            f"{library:.4f} ms, bound {bound:.4f} ms ({by})")
+        entries.append(entry)
+    return entries
+
+
+def phase_train_then_serve() -> list[dict]:
+    log("train: backward kernels against their plain version on the card")
+    errs = phase_flash_bwd_parity()
+    phase_model_grad()
+    train = phase_train()
+    phase_serve_trained(train["result"])
+    return phase_flash_bwd_timing(errs, train["record"]["launches"])
+
+
 def main() -> None:
     kind = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
@@ -728,6 +1023,8 @@ def main() -> None:
     lc = phase_longcontext()
     for k in kernels:
         k["launches"] = {**e2e["launches"], **lc["launches"]}[k["name"]]
+    kernels += phase_train_then_serve()
+    for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
     print(json.dumps({"kernels": kernels}))

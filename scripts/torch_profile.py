@@ -1,7 +1,7 @@
 """Where the time goes in a batch of the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile.py [--model landcover|longcontext]
-                                     [--out build/torch_profile_<model>.json]
+                                     [--train] [--out build/torch_profile_<model>.json]
 
 Builds the servable of that name in ``deploy/specs/models.json`` (land
 cover: tile 256, widths 64..512; longcontext: the SeqFormer at S 4096, dim
@@ -19,6 +19,12 @@ then, at bucket 64:
 - the model's forward with its bit-exact bfloat16 gelu chain against
   ``F.gelu(approximate="tanh")``, timed in turns (chain, F.gelu, F.gelu,
   chain), to price the chain.
+
+With ``--train`` (longcontext only) it profiles training instead: the
+``Trainer`` of ``train.make_checkpoints.train_longcontext`` (batch 8,
+float32 masters, flash attention and its backward kernels), 3 warm-up
+steps, then a ``torch.profiler`` trace of 3 steps: device time by operator
+and by kernel, and the device's busy share.
 
 Needs CUDA; exits non-zero without it. Imports nothing of JAX.
 """
@@ -74,6 +80,56 @@ def busy_share(prof) -> tuple[float, float]:
     return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
 
 
+def print_profile(prof, n: int, report: dict) -> None:
+    """Busy share and device time by operator and by kernel, per one of
+    the ``n`` traced batches or steps, into ``report`` and the log."""
+    busy_ms, window_ms = busy_share(prof)
+    report.update({"device_busy_ms_per_batch": busy_ms / n,
+                   "window_ms_per_batch": window_ms / n,
+                   "busy_share": busy_ms / window_ms if window_ms else None})
+    print(f"profile: busy {busy_ms / n:.2f} ms of {window_ms / n:.2f} ms "
+          f"per batch", flush=True)
+    cuda = torch.autograd.DeviceType.CUDA
+    for kind, keep in (("operators", lambda e: e.device_type != cuda),
+                       ("kernels", lambda e: e.device_type == cuda)):
+        rows = sorted(((e.key, e.self_device_time_total / n / 1e3,
+                        e.count // n)
+                       for e in prof.key_averages()
+                       if keep(e) and e.self_device_time_total > 0),
+                      key=lambda t: -t[1])
+        report[f"{kind}_device_ms_per_batch"] = [
+            {"name": k, "ms": ms, "calls": c} for k, ms, c in rows[:40]]
+        print(f"  by {kind}:", flush=True)
+        for k, ms, c in rows[:15]:
+            print(f"  {ms:9.3f} ms  x{c:<4d} {k[:110]}", flush=True)
+
+
+def profile_training(model: dict, report: dict) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai4e_tpu_torch.models import create_seqformer
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+    from ai4e_tpu_torch.train.step import Trainer, adamw
+
+    keys = ("seq_len", "input_dim", "dim", "depth", "heads", "num_classes",
+            "vocab_size")
+    net = create_seqformer(**{k: model[k] for k in keys}, attention="flash",
+                           param_dtype=torch.float32, device="cuda")
+    tr = Trainer(net, optimizer=lambda p: adamw(p, 1e-3, weight_decay=1e-5))
+    rng = np.random.default_rng(0)
+    batches = [longcontext_batch(rng, 8, model["seq_len"],
+                                 model["vocab_size"]) for _ in range(6)]
+    for toks, labels in batches[:3]:
+        tr.train_step(toks, labels)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for toks, labels in batches[3:]:
+            tr.train_step(toks, labels)
+        torch.cuda.synchronize()
+    report["profile_train_batch8"] = {}
+    print_profile(prof, 3, report["profile_train_batch8"])
+
+
 def batch_of(model: dict, n: int, rng) -> np.ndarray:
     """n random requests of the model's wire: uint8 tiles or token ids."""
     if model["family"] == "unet":
@@ -87,11 +143,15 @@ def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", default="landcover",
                         choices=("landcover", "longcontext"))
+    parser.add_argument("--train", action="store_true",
+                        help="profile training steps (longcontext)")
     parser.add_argument("--out", default=None,
                         help="default build/torch_profile_<model>.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: CUDA is not available")
+    if args.train and args.model != "longcontext":
+        raise SystemExit("torch_profile: --train needs --model longcontext")
 
     import torch.nn.functional as F
 
@@ -107,11 +167,20 @@ def main() -> None:
     model = dict(next(m for m in spec["models"] if m["name"] == args.model))
     for key in ("checkpoint", "sync_path", "async_path"):
         model.pop(key, None)
+    report: dict = {"card": card, "model": args.model}
+    out = Path(args.out or ROOT / "build" / (
+        f"torch_profile_{args.model}{'_train' if args.train else ''}.json"))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if args.train:
+        profile_training(model, report)
+        out.write_text(json.dumps(report, indent=1))
+        print(f"wrote {out}", flush=True)
+        return
     runtime = ModelRuntime(device="cuda")
     servable = runtime.register(build_servable(**model))
     runtime.warmup()
     rng = np.random.default_rng(0)
-    report: dict = {"card": card, "model": args.model, "buckets": {}}
+    report["buckets"] = {}
 
     for bucket in servable.batch_buckets:
         batch = batch_of(model, bucket, rng)
@@ -134,26 +203,8 @@ def main() -> None:
         for _ in range(3):
             servable.apply_fn(servable.module, x)
         torch.cuda.synchronize()
-    busy_ms, window_ms = busy_share(prof)
-    report["profile_bucket64"] = {
-        "device_busy_ms_per_batch": busy_ms / 3,
-        "window_ms_per_batch": window_ms / 3,
-        "busy_share": busy_ms / window_ms if window_ms else None,
-    }
-    print(f"profile bucket 64: busy {busy_ms / 3:.2f} ms of "
-          f"{window_ms / 3:.2f} ms per batch", flush=True)
-    cuda = torch.autograd.DeviceType.CUDA
-    for kind, keep in (("operators", lambda e: e.device_type != cuda),
-                       ("kernels", lambda e: e.device_type == cuda)):
-        rows = sorted(((e.key, e.self_device_time_total / 3e3, e.count // 3)
-                       for e in prof.key_averages()
-                       if keep(e) and e.self_device_time_total > 0),
-                      key=lambda t: -t[1])
-        report["profile_bucket64"][f"{kind}_device_ms_per_batch"] = [
-            {"name": k, "ms": ms, "calls": n} for k, ms, n in rows[:40]]
-        print(f"  by {kind}:", flush=True)
-        for k, ms, n in rows[:15]:
-            print(f"  {ms:9.3f} ms  x{n:<4d} {k[:110]}", flush=True)
+    report["profile_bucket64"] = {}
+    print_profile(prof, 3, report["profile_bucket64"])
 
     # The forward reads ``gelu`` from its model module's globals.
     owner = unet if model["family"] == "unet" else seqformer
@@ -171,8 +222,6 @@ def main() -> None:
     print(f"forward at bucket 64: gelu chain {times['chain']} ms, "
           f"F.gelu {times['F.gelu']} ms", flush=True)
 
-    out = Path(args.out or ROOT / "build" / f"torch_profile_{args.model}.json")
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     print(f"wrote {out}", flush=True)
 

@@ -251,3 +251,103 @@ class TestFlashKernelOnCard:
         flat = torch.zeros(8 * 16 + 1, device=cuda)
         with pytest.raises(ValueError, match="aligned"):
             flash_attention(flat[1:].view(1, 1, 8, 16), k, v)
+
+
+class TestFlashBackwardWrapper:
+    def test_cpu_tensors_never_launch_a_kernel(self):
+        before = (flash_module.bwd_dkv_launches, flash_module.bwd_dq_launches)
+        q, k, v = (t.requires_grad_(True) for t in random_qkv(1, 2, 40, 40, 16, 0))
+        out = flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out.sum(), (q, k, v))
+        assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+        assert (flash_module.bwd_dkv_launches,
+                flash_module.bwd_dq_launches) == before
+        if not torch.cuda.is_available():
+            assert before == (0, 0)
+
+    def test_grad_tolerance(self):
+        want = torch.tensor([0.0, 0.5, -3.0, 100.0])
+        assert torch.allclose(flash_module.grad_tolerance(want),
+                              torch.full((4,), 1e-3))
+        got = flash_module.grad_tolerance(want.to(torch.bfloat16))
+        top = 100 * 2 ** -8  # GRAD_BFLOAT16_RTOL of the largest magnitude
+        assert got.tolist() == pytest.approx(  # plus two bf16 ulps
+            [top + 2 ** -7, top + 2 ** -7, top + 2 ** -5, top + 1.0])
+
+
+@pytest.mark.cuda
+class TestFlashBackwardOnCard:
+    @staticmethod
+    def check(q, k, v, do, causal):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        before = (flash_module.bwd_dkv_launches, flash_module.bwd_dq_launches)
+        got = flash_module.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        assert (flash_module.bwd_dkv_launches,
+                flash_module.bwd_dq_launches) == (before[0] + 1, before[1] + 1)
+        want = flash_module.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                      causal)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert g.transpose(1, 2).is_contiguous(), name  # (B, S, H, D)
+            err = (g.float() - w.float()).abs()
+            assert bool((err <= flash_module.grad_tolerance(w)).all()), \
+                (name, float(err.max()))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+    @pytest.mark.parametrize("d", [16, 32, 64, 128])
+    def test_ragged_matches_plain(self, cuda, dtype, causal, d):
+        q, k, v, do = (t.to(dtype).to(cuda) for t in
+                       random_qkv(2, 3, 1000, 1000, d, d) + random_qkv(
+                           2, 3, 1000, 1000, d, d + 1)[:1])
+        self.check(q, k, v, do, causal)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cross_attention(self, cuda, dtype):
+        q, k, v = (t.to(dtype).to(cuda) for t in random_qkv(2, 2, 192, 320, 64, 1))
+        do = random_qkv(2, 2, 192, 320, 64, 2)[0].to(dtype).to(cuda)
+        self.check(q, k, v, do, causal=False)
+
+    def test_strided_qkv_and_do_need_no_copy(self, cuda, monkeypatch):
+        """Through autograd as the seqformer runs it: q/k/v are views of a
+        fused (B, S, 3, H, D) projection and the upstream gradient of the
+        (B, S, H, D)-ordered output arrives as a strided (B, H, S, D) view;
+        both kernels read them as they lie, and the gradients match the
+        plain version's."""
+        b, s, h, d = 2, 333, 2, 128
+        rng = np.random.default_rng(2)
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(
+            np.float32)).to(torch.bfloat16).to(cuda).requires_grad_(True)
+        parts = qkv.view(b, s, 3, h, d)
+        q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
+        up = torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(
+            np.float32)).to(torch.bfloat16).to(cuda)
+        seen = []
+        for name in ("flash_bwd_dkv_cuda", "flash_bwd_dq_cuda"):
+            real = getattr(flash_module, name)
+            monkeypatch.setattr(flash_module, name, lambda *a, real=real: (
+                seen.append([t.data_ptr() for t in a[:3] + a[5:6]]), real(*a))[1])
+        out = flash_attention(q, k, v)
+        (grad,) = torch.autograd.grad(out.transpose(1, 2).reshape(b, s, h * d),
+                                      qkv, up)
+        do = up.view(b, s, h, d).transpose(1, 2)
+        assert not do.is_contiguous()
+        assert seen == [[q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         do.data_ptr()]] * 2
+        out2, lse = flash_attention(q.detach(), k.detach(), v.detach(),
+                                    return_lse=True)
+        want = flash_module.flash_attention_bwd_plain(
+            q.detach(), k.detach(), v.detach(), out2, lse, do)
+        got = grad.view(b, s, 3, h, d)
+        for i, w in enumerate(want):
+            err = (got[:, :, i].transpose(1, 2).float() - w.float()).abs()
+            assert bool((err <= flash_module.grad_tolerance(w)).all()), i
+
+    def test_unaligned_do_is_refused(self, cuda):
+        q, k, v = (t.to(cuda) for t in random_qkv(1, 1, 8, 8, 16, 3))
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        flat = torch.zeros(8 * 16 + 1, device=cuda)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_module.flash_attention_bwd(q, k, v, out, lse,
+                                             flat[1:].view(1, 1, 8, 16))
