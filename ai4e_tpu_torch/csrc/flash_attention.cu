@@ -6,7 +6,7 @@
 // B/H/S strides, plus the float32 (B, H, S_q) logsumexp when asked for.
 //
 // Forward. Replaces the TPU kernel `_flash_kernel` in
-// ai4e_tpu/ops/pallas/flash_attention.py (driven by `_forward_call` and
+// ai4e_tpu/ops/pallas/flash_attention.py:73 (driven by `_forward_call` and
 // `flash_attention`). Its arithmetic is kept: scores in float32 scaled by
 // D**-0.5, masked entries set to NEG_INF = -1e30 (the running max starts
 // there too), rows rescaled online, out = acc / max(l, 1e-30) cast to the
@@ -17,23 +17,38 @@
 //
 // Bound on the H100: operations. 4*B*H*S_q*S_k*D flops (halved for causal)
 // against q, k, v and out read or written once: at the served shape
-// (64, 2, 4096, 128) bf16 that is 1.10e12 flop and 0.27 GB, at least 1.11 ms
-// at the 989 TFLOP/s bf16 tensor-core peak and 0.08 ms at 3.35 TB/s.
+// (64, 2, 4096, 128) bf16 that is 1.10e12 flop and 0.27 GB, at least 1.112
+// ms at the 989 TFLOP/s bf16 tensor-core peak and 0.08 ms at 3.35 TB/s.
 //
-// Design for that bound (bfloat16, the served type): one CTA of four warps
-// per (b*h, 64-row query tile). Q is loaded once into mma fragments; K and V
-// stream through shared memory in 64-key tiles, double-buffered with cp.async
-// so the next tile loads while this one computes. Both products run on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, float32 accumulate): a warp
-// owns 16 query rows, S = Q.K^T stays in registers, the softmax statistics
-// stay in registers (a row's max and sum are shared by the 4 lanes that hold
-// it), and P is repacked from S's accumulator layout straight into the A
-// operand of P.V without touching shared memory. Rows are padded by 16 bytes
-// so ldmatrix reads are free of bank conflicts. Each P is rounded to bf16 for
-// the second product; the row sums use the float32 values. D**-0.5 scales
-// the float32 product (a pre-scaled q would not be exact in bf16, and the TPU
-// scaled an exact float32 copy). wgmma, TMA and warp specialisation are later
-// work.
+// Design for that bound (bfloat16, the served type; Hopper's wgmma is the
+// only way to the tensor cores' full rate, and TMA moves tiles without
+// spending the computing threads' registers or instructions): one CTA of
+// three warpgroups per (b*h, 128 query rows). Warpgroup 0 is the producer:
+// one thread issues TMA loads, Q once, then K and V tiles of 128 keys into a
+// two-stage ring in shared memory, each stage with a "full" mbarrier (TMA
+// bytes landed) and an "empty" one (both consumers done with it), and the
+// warpgroup gives up its registers (setmaxnreg) to the two consumer
+// warpgroups, each of which owns 64 query rows. A consumer computes
+// S = Q.K^T with wgmma m64n128k16 (Q and K K-major in shared memory, bf16
+// in, float32 accumulate), keeps S in registers, runs the online softmax
+// there (a row's max and sum are shared by the 4 lanes that hold it), packs
+// P to bf16 straight from S's accumulator layout into wgmma's register A
+// operand and adds O += P.V with V read MN-major from shared memory; O stays
+// in float32 registers. The tensor cores are kept busy two ways: inside a
+// consumer, S(i) = Q.K(i)^T and P(i-1).V(i-1) are issued together and the
+// softmax of tile i runs while P.V does; and the two consumers take turns
+// to issue (named barriers), so one's softmax runs while the other's
+// products do. Tiles are swizzled by TMA at 128 bytes (64 bf16: D = 128 is
+// two boxes a row; D = 32 and 16 swizzle at 64 and 32 bytes) and the wgmma
+// descriptors match. The epilogue divides by l, rounds to bf16 through a
+// padded shared tile, and stores 16-byte row chunks through the output's
+// strides. Each P is rounded to bf16 for the second product; the row sums
+// use the float32 values. D**-0.5 scales the float32 product inside the
+// exponent's FMA, 2^(score * D**-0.5 * log2(e) - m) with m the row maximum
+// in that base-2 domain (converted back to the natural log for lse); a
+// pre-scaled q would not be exact in bf16, and the TPU scaled an exact
+// float32 copy. TMA zero-fills rows past S, so keys past S_k are still
+// masked explicitly. Not yet done: a persistent grid.
 //
 // float32 inputs take a plain CUDA-core kernel (32-row tiles, one FMA chain
 // per score) that repeats the TPU's float32 products exactly: it is not on the
@@ -70,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the TPU kernel
@@ -89,16 +106,15 @@ struct Params {
   float scale;
 };
 
-// -- bfloat16: tensor cores ----------------------------------------------
+// -- bfloat16 backward: mma.sync tiles -----------------------------------
 
-constexpr int kBlockM = 64;  // query rows per CTA, 16 per warp
+constexpr int kBlockM = 64;  // query rows per tile, 16 per warp
 constexpr int kBlockN = 64;  // keys per tile
 
 template <int D>
 struct Tiles {
   static constexpr int kStride = D + 8;              // bf16 per smem row
   static constexpr int kElems = kBlockM * kStride;   // one 64-row tile
-  static constexpr size_t kBytes = 5 * kElems * 2;   // Q, K x2, V x2
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -162,166 +178,337 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Fragment layout of mma m16n8k16, lane = 4 * g + t: an accumulator tile
-// holds (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in
-// c[2..3]; so each thread carries two query rows, g and g + 8.
+// -- bfloat16 forward: TMA, wgmma, warp specialisation ----------------------
+
+constexpr int kFwdBlockM = 128;  // query rows per CTA, 64 per consumer
+constexpr int kFwdBlockN = 128;  // keys per tile
+constexpr int kFwdStages = 2;    // K/V ring depth
+constexpr int kFwdThreads = 384; // producer warpgroup + two consumers
+// setmaxnreg: 128 * 40 + 256 * 232 = 65536, the SM's register file.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// Named barriers: 1 + c, consumer c's epilogue; kTurn + c, consumer c's
+// turn to issue its products (see the consumer loop).
+constexpr int kTurn = 3;
+
+// The CTA's shared memory, in bytes from a 1024-aligned base: Q, the K and
+// V rings (each tile as TMA boxes, see hopper.cuh), two 64-row output
+// staging tiles padded by 16 bytes a row, then the mbarriers.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const Params p) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  constexpr int kStride = Tiles<D>::kStride;
-  constexpr int kElems = Tiles<D>::kElems;
-  uint16_t* q_s = smem;
-  uint16_t* k_s = smem + kElems;      // stages 0, 1
-  uint16_t* v_s = smem + 3 * kElems;  // stages 0, 1
+struct FwdSmem {
+  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;  // bytes a row
+  static constexpr int kBoxCols = kSwizzle / 2;
+  static constexpr int kLayout = hopper::layout_type(kSwizzle);
+  static constexpr int kQBytes = kFwdBlockM * D * 2;
+  static constexpr int kKVBytes = kFwdBlockN * D * 2;  // one stage of K or V
+  static constexpr int kOStride = D + 8;                // bf16 a staging row
+  static constexpr int kOBytes = 64 * kOStride * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kFwdStages * kKVBytes;
+  static constexpr int kO = kV + kFwdStages * kKVBytes;
+  static constexpr int kBar = kO + 2 * kOBytes;
+  // q_full, then k_full, v_full, k_empty, v_empty for each stage.
+  static constexpr int kBars = 1 + 4 * kFwdStages;
+  static constexpr size_t kBytes = kBar + kBars * 8 + 1024;  // + alignment
+};
 
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kBlockM;
-  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+// The TMA maps of q, k and v, and which coordinate (s, h, b) each map's
+// dimensions 1..3 take (hopper::make_operand_map).
+struct FwdMaps {
+  CUtensorMap q, k, v;
+  int q_sel, k_sel, v_sel;
+};
 
-  int n_tiles = (p.s_k + kBlockN - 1) / kBlockN;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+// K-major descriptor of rows [row0, row0 + 8n) of a tile of `rows` rows at
+// `tile`, 16-column step kc.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
+                                                int row0, int kc) {
+  using S = FwdSmem<D>;
+  const int col = kc * 16;
+  return hopper::smem_desc(tile + (col / S::kBoxCols) * rows * S::kSwizzle +
+                               row0 * S::kSwizzle + (col % S::kBoxCols) * 2,
+                           16, 8 * S::kSwizzle, S::kLayout);
+}
 
-  load_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
-  cp_async_commit();
-  load_tile<D>(k_s, k, p.k_ss, 0, p.s_k);
-  load_tile<D>(v_s, v, p.v_ss, 0, p.s_k);
-  cp_async_commit();
+// MN-major descriptor of V's keys [16 kc, 16 kc + 16), all D columns.
+template <int D>
+__device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kc) {
+  using S = FwdSmem<D>;
+  return hopper::smem_desc(tile + kc * 16 * S::kSwizzle,
+                           kFwdBlockN * S::kSwizzle, 8 * S::kSwizzle,
+                           S::kLayout);
+}
 
-  uint32_t q_frag[D / 16][4];
-  float o_acc[D / 8][4];
+// One tile (all D columns, `rows` rows from row `row0` of S) of a q, k or v
+// map into shared memory at `dst`, as D / kBoxCols boxes.
+template <int D>
+__device__ __forceinline__ void load_boxes(uint32_t dst, const CUtensorMap* map,
+                                           int sel, uint32_t bar, int rows,
+                                           int row0, int h, int b) {
+  using S = FwdSmem<D>;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o_acc[i][0] = o_acc[i][1] = o_acc[i][2] = o_acc[i][3] = 0.f;
-  float m_row[2] = {kNegInf, kNegInf};
-  float l_row[2] = {0.f, 0.f};  // this lane's share until the final reduction
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {  // prefetch into the stage tile it - 1 used
-      load_tile<D>(k_s + (stage ^ 1) * kElems, k, p.k_ss, (it + 1) * kBlockN, p.s_k);
-      load_tile<D>(v_s + (stage ^ 1) * kElems, v, p.v_ss, (it + 1) * kBlockN, p.s_k);
-    }
-    cp_async_commit();  // always, so wait_group 1 covers tile `it`
-    cp_async_wait_1();
-    __syncthreads();
-
-    if (it == 0) {
-      // ldmatrix x4: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15) = a0..a3.
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = kc * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(q_frag[kc], smem_u32(q_s + row * kStride + col));
-      }
-    }
-
-    // S = Q . K^T for this warp's 16 rows and the tile's 64 keys.
-    const uint16_t* ks = k_s + stage * kElems;
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBlockN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int np = 0; np < kBlockN / 16; ++np) {
-        // K rows are the B operand's columns: matrices (keys 0-7 | 8-15) x
-        // (dims 0-7 | 8-15) give b0, b1 of two 8-key tiles.
-        uint32_t kb[4];
-        const int key = np * 16 + (lane & 7) + (lane >> 4) * 8;
-        const int col = kc * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(kb, smem_u32(ks + key * kStride + col));
-        mma_bf16(s[2 * np], q_frag[kc], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], q_frag[kc], kb[2], kb[3]);
-      }
-    }
-
-    // Scale, mask (ragged tail, causal diagonal), online softmax.
-    const int k0 = it * kBlockN;
-    const bool mask = k0 + kBlockN > p.s_k ||
-                      (p.causal && k0 + kBlockN - 1 > q0 + warp * 16);
-    float m_new[2] = {m_row[0], m_row[1]};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale;
-        if (mask) {
-          const int key = k0 + nt * 8 + 2 * t + (e & 1);
-          if (key >= p.s_k || (p.causal && key > (e < 2 ? row_a : row_b))) x = kNegInf;
-        }
-        s[nt][e] = x;
-        m_new[e >> 1] = fmaxf(m_new[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-      corr[r] = exp2f((m_row[r] - m_new[r]) * kLog2e);
-      m_row[r] = m_new[r];
-      l_row[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f((s[nt][e] - m_row[e >> 1]) * kLog2e);
-        l_row[e >> 1] += s[nt][e];
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o_acc[dt][0] *= corr[0];
-      o_acc[dt][1] *= corr[0];
-      o_acc[dt][2] *= corr[1];
-      o_acc[dt][3] *= corr[1];
-    }
-
-    // O += P . V: the accumulators of key tiles 2kc, 2kc+1 are exactly the
-    // A fragment of key chunk kc.
-    const uint16_t* vs = v_s + stage * kElems;
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                             pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                             pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                             pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // V rows are keys, the B operand's k axis: transposed matrices
-        // (keys 0-7 | 8-15) x (dims 0-7 | 8-15) give b0, b1 of two 8-dim tiles.
-        uint32_t vb[4];
-        const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = dp * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vb, smem_u32(vs + key * kStride + col));
-        mma_bf16(o_acc[2 * dp], a, vb[0], vb[1]);
-        mma_bf16(o_acc[2 * dp + 1], a, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
+  for (int j = 0; j < D / S::kBoxCols; ++j) {
+    hopper::tma_load_4d(dst + j * rows * S::kSwizzle, map, bar,
+                        j * S::kBoxCols, hopper::coord(sel, 1, row0, h, b),
+                        hopper::coord(sel, 2, row0, h, b),
+                        hopper::coord(sel, 3, row0, h, b));
   }
+}
 
-  uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh;
+// S = Q.K^T for one consumer's 64 rows (from row0 of the Q tile) and the
+// 128 keys of a K tile, issued and committed as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kFwdBlockN / 2],
+                                         uint32_t q_tile, int row0,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    hopper::wgmma_ss<0, 0>(s, kmajor_desc<D>(q_tile, kFwdBlockM, row0, kc),
+                           kmajor_desc<D>(k_tile, kFwdBlockN, 0, kc), kc > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P.V, P (bf16) from registers, V MN-major from shared memory, issued
+// and committed as one wgmma group.
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&a)[kFwdBlockN / 16][4],
+    uint32_t v_tile) {
+#pragma unroll
+  for (int kc = 0; kc < kFwdBlockN / 16; ++kc) {
+    hopper::wgmma_rs<1>(o, a[kc], v_desc<D>(v_tile, kc), 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// Online softmax of one S tile in place (s becomes P in float32) for this
+// thread's rows row_a and row_a + 8, keys from k0. Entries past S_k or
+// above the causal diagonal are set to NEG_INF first where `mask`. Row
+// maxima m2 are kept in the base-2 domain, max(score) * scale * log2(e), so
+// P = 2^(score * scale2 - m2) is one FMA and one ex2; corr is the factor
+// the running sums (done here) and O (done by the caller) are scaled by.
+__device__ __forceinline__ void online_softmax(float (&s)[kFwdBlockN / 2],
+                                               float (&m2)[2], float (&l)[2],
+                                               float (&corr)[2], float scale2,
+                                               bool mask, int k0, int s_k,
+                                               int causal, int row_a, int t) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < kFwdBlockN / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      if (key >= s_k || (causal && key > row_a + 8 * ((i >> 1) & 1))) {
+        s[i] = kNegInf;
+      }
+    }
+  }
+  // The row maximum of the raw scores, scaled once: scale2 > 0, so this is
+  // exactly the maximum of the scaled ones.
+  float m_new[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < kFwdBlockN / 2; ++i) {
+    m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s[i]);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
-    l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
-    const int row = r == 0 ? row_a : row_b;
-    if (row >= p.s_q) continue;
-    const float l = fmaxf(l_row[r], 1e-30f);
+    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+    m_new[r] = fmaxf(m2[r], m_new[r] * scale2);
+    corr[r] = hopper::ex2(m2[r] - m_new[r]);
+    m2[r] = m_new[r];
+    l[r] *= corr[r];
+  }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(o + row * p.o_ss + dt * 8 + 2 * t) =
-          pack_bf16(o_acc[dt][2 * r] / l, o_acc[dt][2 * r + 1] / l);
+  for (int i = 0; i < kFwdBlockN / 2; ++i) {
+    s[i] = hopper::ex2(fmaf(s[i], scale2, -m2[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// P in float32 (an S accumulator) -> the bf16 register A fragments of P.V.
+__device__ __forceinline__ void pack_p(uint32_t (&a)[kFwdBlockN / 16][4],
+                                       const float (&s)[kFwdBlockN / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < kFwdBlockN / 16; ++kc) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kc][r] = pack_bf16(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1]);
     }
-    if (p.lse != nullptr && t == 0) {
-      p.lse[(long long)bh * p.s_q + row] = m_row[r] + logf(l);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ Params p,
+                const __grid_constant__ FwdMaps maps) {
+  using S = FwdSmem<D>;
+  extern __shared__ __align__(16) uint8_t fwd_smem[];
+  const uint32_t raw = hopper::smem_addr(fwd_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem = fwd_smem + (base - raw);
+  const uint32_t bars = base + S::kBar, q_full = bars;
+  auto k_full = [=](int st) { return bars + 8 * (1 + st); };
+  auto v_full = [=](int st) { return bars + 8 * (1 + kFwdStages + st); };
+  auto k_empty = [=](int st) { return bars + 8 * (1 + 2 * kFwdStages + st); };
+  auto v_empty = [=](int st) { return bars + 8 * (1 + 3 * kFwdStages + st); };
+  // Tile it's K and V in the ring.
+  auto k_tile = [=](int it) {
+    return base + S::kK + (it % kFwdStages) * S::kKVBytes;
+  };
+  auto v_tile = [=](int it) {
+    return base + S::kV + (it % kFwdStages) * S::kKVBytes;
+  };
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = blockIdx.x * kFwdBlockM;
+  int n_tiles = (p.s_k + kFwdBlockN - 1) / kFwdBlockN;
+  if (p.causal) {
+    n_tiles = min(n_tiles, (q0 + kFwdBlockM - 1) / kFwdBlockN + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kFwdStages; ++st) {
+      hopper::mbar_init(k_full(st), 1);
+      hopper::mbar_init(v_full(st), 1);
+      hopper::mbar_init(k_empty(st), 8);  // lane 0 of each consumer warp
+      hopper::mbar_init(v_empty(st), 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_full, S::kQBytes);
+      load_boxes<D>(base + S::kQ, &maps.q, maps.q_sel, q_full, kFwdBlockM,
+                    q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kFwdStages;
+        const uint32_t parity = ((it / kFwdStages) & 1) ^ 1;
+        hopper::mbar_wait(k_empty(st), parity);
+        hopper::mbar_expect_tx(k_full(st), S::kKVBytes);
+        load_boxes<D>(k_tile(it), &maps.k, maps.k_sel, k_full(st),
+                      kFwdBlockN, it * kFwdBlockN, h, b);
+        hopper::mbar_wait(v_empty(st), parity);
+        hopper::mbar_expect_tx(v_full(st), S::kKVBytes);
+        load_boxes<D>(v_tile(it), &maps.v, maps.v_sel, v_full(st),
+                      kFwdBlockN, it * kFwdBlockN, h, b);
+      }
+    }
+  } else {
+    // Consumer c: query rows [q0 + 64c, q0 + 64c + 64). Accumulator layout
+    // in hopper.cuh: this thread holds rows row_a and row_a + 8. Tile it's
+    // softmax overlaps the product P(it-1).V(it-1) on the tensor cores:
+    // S(it) = Q.K(it)^T and O += P(it-1).V(it-1) are issued together, the
+    // softmax starts when S is in, and O is rescaled once P.V is done. The
+    // two consumers take turns to issue (ping-pong on named barriers), so
+    // one's softmax runs while the other's products do.
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row_a = q0 + 64 * c + 16 * warp + g;
+    const uint32_t q_tile = base + S::kQ;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    const float scale2 = p.scale * kLog2e;  // see online_softmax
+    float m2[2] = {kNegInf, kNegInf};
+    float l_row[2] = {0.f, 0.f};  // this lane's share until the epilogue
+    float s[kFwdBlockN / 2];
+    uint32_t a[kFwdBlockN / 16][4];  // P of the previous tile, bf16
+    float corr[2];
+    auto mask = [&](int it) {
+      return (it + 1) * kFwdBlockN > p.s_k ||
+             (p.causal && (it + 1) * kFwdBlockN - 1 > q0 + 64 * c);
+    };
+
+    const int other = 1 - c;
+    if (c == 1) hopper::named_barrier_arrive(kTurn, 256);  // consumer 0 first
+    hopper::mbar_wait(q_full, 0);
+    hopper::mbar_wait(k_full(0), 0);
+    hopper::named_barrier_sync(kTurn + c, 256);
+    hopper::wgmma_fence();
+    issue_qk<D>(s, q_tile, 64 * c, k_tile(0));
+    hopper::named_barrier_arrive(kTurn + other, 256);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(s);
+    if (lane == 0) hopper::mbar_arrive(k_empty(0));
+    online_softmax(s, m2, l_row, corr, scale2, mask(0), 0, p.s_k, p.causal,
+                   row_a, t);
+    pack_p(a, s);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % kFwdStages, prev = (it - 1) % kFwdStages;
+      hopper::mbar_wait(k_full(st), (it / kFwdStages) & 1);
+      hopper::mbar_wait(v_full(prev), ((it - 1) / kFwdStages) & 1);
+      hopper::named_barrier_sync(kTurn + c, 256);
+      hopper::wgmma_fence();
+      issue_qk<D>(s, q_tile, 64 * c, k_tile(it));
+      issue_pv<D>(o, a, v_tile(it - 1));
+      hopper::named_barrier_arrive(kTurn + other, 256);
+      hopper::wgmma_wait<1>();  // S(it) is in; P(it-1).V(it-1) may run on
+      hopper::fence_operand(s);
+      if (lane == 0) hopper::mbar_arrive(k_empty(st));
+      online_softmax(s, m2, l_row, corr, scale2, mask(it), it * kFwdBlockN,
+                     p.s_k, p.causal, row_a, t);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(o);
+      hopper::fence_operand(a);
+      if (lane == 0) hopper::mbar_arrive(v_empty(prev));
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      pack_p(a, s);
+    }
+    const int last = n_tiles - 1;
+    hopper::mbar_wait(v_full(last % kFwdStages), (last / kFwdStages) & 1);
+    hopper::named_barrier_sync(kTurn + c, 256);
+    hopper::wgmma_fence();
+    issue_pv<D>(o, a, v_tile(last));
+    // Consumer 1's last turn is handed to nobody: consumer 0 has issued
+    // everything by then, and each barrier sees as many arrivals as syncs.
+    if (c == 0) hopper::named_barrier_arrive(kTurn + other, 256);
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(o);
+    if (lane == 0) hopper::mbar_arrive(v_empty(last % kFwdStages));
+    const float m_row[2] = {m2[0] / kLog2e, m2[1] / kLog2e};  // natural log
+
+    // Epilogue: out = O / max(l, 1e-30) in bf16 through this warpgroup's
+    // staging tile, then 16-byte row chunks to global memory.
+    uint16_t* stage =
+        reinterpret_cast<uint16_t*>(smem + S::kO + c * S::kOBytes);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
+      l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 2);
+      const float l = fmaxf(l_row[r], 1e-30f);
+      const int local = 16 * warp + g + 8 * r;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        uint16_t* pair = stage + local * S::kOStride + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(pair) =
+            pack_bf16(o[4 * j + 2 * r] / l, o[4 * j + 2 * r + 1] / l);
+      }
+      const int row = row_a + 8 * r;
+      if (p.lse != nullptr && t == 0 && row < p.s_q) {
+        p.lse[(long long)bh * p.s_q + row] = m_row[r] + logf(l);
+      }
+    }
+    hopper::named_barrier_sync(1 + c, 128);
+    uint16_t* out = static_cast<uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh;
+    constexpr int kChunks = D / 8;
+    for (int i = tid; i < 64 * kChunks; i += 128) {
+      const int local = i / kChunks, chunk = i % kChunks;
+      const int row = q0 + 64 * c + local;
+      if (row < p.s_q) {
+        const uint16_t* from = stage + local * S::kOStride + chunk * 8;
+        *reinterpret_cast<uint4*>(out + row * p.o_ss + chunk * 8) =
+            *reinterpret_cast<const uint4*>(from);
+      }
     }
   }
 }
@@ -951,13 +1138,41 @@ cudaError_t launch(Kernel kernel, size_t smem, int block_rows, int rows,
   return cudaGetLastError();
 }
 
+// The bf16 forward: q/k/v tensor maps built here, per call, from the
+// pointers and strides in `p`; 384 threads and FwdSmem<D> bytes a CTA.
 template <int D>
-cudaError_t launch_d(const Params& p, int batch_heads, bool bf16,
-                     cudaStream_t stream) {
-  if (bf16) {
-    return launch(flash_fwd_bf16<D>, Tiles<D>::kBytes, kBlockM, p.s_q, p,
-                  batch_heads, stream);
+cudaError_t launch_fwd_bf16(const Params& p, int batch, int batch_heads,
+                            cudaStream_t stream) {
+  FwdMaps maps;
+  cudaError_t err = hopper::make_operand_map(
+      &maps.q, p.q, D, p.s_q, p.heads, batch, p.q_sb, p.q_sh, p.q_ss,
+      kFwdBlockM, &maps.q_sel);
+  if (err == cudaSuccess) {
+    err = hopper::make_operand_map(&maps.k, p.k, D, p.s_k, p.heads, batch,
+                                   p.k_sb, p.k_sh, p.k_ss, kFwdBlockN,
+                                   &maps.k_sel);
   }
+  if (err == cudaSuccess) {
+    err = hopper::make_operand_map(&maps.v, p.v, D, p.s_k, p.heads, batch,
+                                   p.v_sb, p.v_sh, p.v_ss, kFwdBlockN,
+                                   &maps.v_sel);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = FwdSmem<D>::kBytes;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((p.s_q + kFwdBlockM - 1) / kFwdBlockM),
+                  (unsigned)batch_heads);
+  flash_fwd_wgmma<D><<<grid, kFwdThreads, smem, stream>>>(p, maps);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const Params& p, int batch, int batch_heads, bool bf16,
+                     cudaStream_t stream) {
+  if (bf16) return launch_fwd_bf16<D>(p, batch, batch_heads, stream);
   return launch(flash_fwd_f32<D>, F32Tiles<D>::kBytes, kF32Block, p.s_q, p,
                 batch_heads, stream);
 }
@@ -1018,7 +1233,8 @@ cudaError_t bwd_params(BwdParams* p, const void* q, const void* k,
 // Pointers and strides must keep every row 16-byte aligned. `lse` is a
 // contiguous float32 (B, H, S_q) device array or null; `scale` is D**-0.5;
 // `stream` is the caller's cudaStream_t. Returns cudaGetLastError() after
-// the launch.
+// the launch, or cudaErrorInvalidValue if the driver refuses a bf16
+// operand's tensor map.
 extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* out, float* lse,
                                         int batch, int heads, int s_q, int s_k,
@@ -1043,11 +1259,23 @@ extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
   const cudaStream_t s = (cudaStream_t)stream;
   const int bh = batch * heads;
   switch (d) {
-    case 16: return (int)launch_d<16>(p, bh, bf16 != 0, s);
-    case 32: return (int)launch_d<32>(p, bh, bf16 != 0, s);
-    case 64: return (int)launch_d<64>(p, bh, bf16 != 0, s);
-    case 128: return (int)launch_d<128>(p, bh, bf16 != 0, s);
+    case 16: return (int)launch_d<16>(p, batch, bh, bf16 != 0, s);
+    case 32: return (int)launch_d<32>(p, batch, bh, bf16 != 0, s);
+    case 64: return (int)launch_d<64>(p, batch, bh, bf16 != 0, s);
+    case 128: return (int)launch_d<128>(p, batch, bh, bf16 != 0, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of one CTA of the bf16 forward at head dim `d`, in
+// bytes (0 for a head dim it does not take): for reports.
+extern "C" int ai4e_flash_attention_fwd_smem(int d) {
+  switch (d) {
+    case 16: return (int)FwdSmem<16>::kBytes;
+    case 32: return (int)FwdSmem<32>::kBytes;
+    case 64: return (int)FwdSmem<64>::kBytes;
+    case 128: return (int)FwdSmem<128>::kBytes;
+    default: return 0;
   }
 }
 

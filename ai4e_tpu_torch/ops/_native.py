@@ -7,8 +7,9 @@ interface, loaded with ``ctypes``::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
         -Xcompiler -fPIC -o build/ai4e_tpu_torch/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and a built one is reused. ``nvcc`` is found from
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
+and a built one is reused. ``nvcc`` is found from
 ``CUDA_HOME``, then ``PATH``, then the toolkit's default prefix
 ``/usr/local/cuda``. There is no fallback: a missing compiler, a failed
 build or a failed load raises, and the caller's CUDA tensor never reaches
@@ -52,8 +53,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
+    header in ``csrc/`` (``*.cuh``, which a source may include) and the
+    flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -8,7 +8,11 @@ Phases, each of which raises on failure:
    served shapes and at ragged ones, then timed (kernel, plain version,
    one-call library yardstick) with CUDA events, median of 25 runs (5 for
    the flash kernel's plain version, which materialises 8.6 GB of scores
-   at the served shape and runs in batch chunks);
+   at the served shape and runs in batch chunks). The flash forward is
+   also held and timed on the served model's own layout, strided views of
+   a fused (B, S, 3, H, D) projection, and timed with lse at the training
+   shape; its registers, spills and shared memory come from the build
+   log;
 4. end to end: the land-cover worker of ``deploy/specs/models.json`` (tile
    256, widths 64..512, buckets 1/16/64, random weights from seed 0) built
    and served by the same ``build_worker``/``serve`` code that
@@ -317,10 +321,42 @@ def check_flash(q, k, v, causal: bool, what: str) -> tuple[float, float]:
     return err, lse_err
 
 
+def flash_kernel_report() -> dict:
+    """The bf16 forward kernel at each head dim, from ``nvcc -Xptxas -v``:
+    registers a thread (the launch bound's cap; the consumer warpgroups
+    raise theirs to 232 with setmaxnreg) and spill bytes, beside its
+    dynamic shared memory a CTA."""
+    import ctypes
+    import re
+
+    from ai4e_tpu_torch.ops import _native
+
+    smem = _native.load("flash_attention").ai4e_flash_attention_fwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    report, d = {}, None
+    for line in _native.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
+            d = int(found.group(1)) if found else None
+            if d is not None:
+                report[d] = {"smem_bytes": smem(d)}
+        elif d is not None and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            report[d]["spill_bytes"] = int(stores) + int(loads)
+        elif d is not None and "registers" in line:
+            report[d]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+    if sorted(report) != [16, 32, 64, 128]:
+        raise AssertionError(f"flash_fwd_wgmma missing from the build log: "
+                             f"{sorted(report)}")
+    return report
+
+
 def phase_flash() -> dict:
-    """Flash attention: parity at the served shape, at ragged and cross
-    shapes in both types, causal and not; then timing at the served
-    shape."""
+    """Flash attention: parity at the served shape (contiguous and as the
+    served model's strided view of its fused projection), at ragged and
+    cross shapes in both types, causal and not; then timing at the served
+    shape in both layouts and, with lse, at the training shape."""
     import torch.nn.functional as F
 
     from ai4e_tpu_torch.ops.flash_attention import flash_attention
@@ -335,6 +371,11 @@ def phase_flash() -> dict:
     b, h, s, d = FLASH_SERVED
     served = qkv(b, h, s, s, d, torch.bfloat16)
     errs.append(check_flash(*served, False, f"served {FLASH_SERVED} bf16"))
+    fused = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    strided = tuple(fused[:, :, i].transpose(1, 2) for i in range(3))
+    errs.append(check_flash(*strided, False,
+                            f"served {FLASH_SERVED} bf16, (B, S, 3, H, D) view"))
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             errs.append(check_flash(
@@ -347,6 +388,7 @@ def phase_flash() -> dict:
     nbytes = 4 * q.numel() * q.element_size()  # q, k, v read, out written
     flops = 4 * b * h * s * s * d              # QK^T and PV, non-causal
     bound, by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+    b8 = BWD_TRAIN[0]
     flash = {
         "name": "flash_attention",
         "route": "cuda",
@@ -364,11 +406,28 @@ def phase_flash() -> dict:
         "bound_peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
         "max_abs_err": max(e for e, _ in errs),
         "lse_max_abs_err": max(e for _, e in errs),
+        # The served model's own layout, and the training step's call.
+        "strided_ms": device_ms(lambda: flash_attention(*strided)),
+        "lse_train_shape": list(BWD_TRAIN),
+        "lse_train_ms": device_ms(lambda: flash_attention(
+            q[:b8], k[:b8], v[:b8], return_lse=True)),
+        "ptxas": flash_kernel_report(),
     }
+    flash["tflops"] = flops / flash["ms"] / 1e9
+    flash["strided_tflops"] = flops / flash["strided_ms"] / 1e9
+    flash["lse_train_tflops"] = flops * b8 / b / flash["lse_train_ms"] / 1e9
     log(f"  flash_attention {FLASH_SERVED} bf16: kernel {flash['ms']:.4f} ms "
-        f"({flops / flash['ms'] / 1e9:.1f} TFLOP/s), plain "
-        f"{flash['plain_ms']:.4f} ms, library (SDPA) "
+        f"({flash['tflops']:.1f} TFLOP/s), (B, S, 3, H, D) view "
+        f"{flash['strided_ms']:.4f} ms ({flash['strided_tflops']:.1f} "
+        f"TFLOP/s), plain {flash['plain_ms']:.4f} ms, library (SDPA) "
         f"{flash['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+    log(f"  flash_attention {BWD_TRAIN} bf16 with lse: "
+        f"{flash['lse_train_ms']:.4f} ms ({flash['lse_train_tflops']:.1f} "
+        f"TFLOP/s)")
+    for dd, rep in sorted(flash["ptxas"].items()):
+        log(f"  flash_fwd_wgmma D={dd}: {rep['registers']} registers, "
+            f"{rep['spill_bytes']} spill bytes, {rep['smem_bytes']} bytes "
+            f"of shared memory a CTA")
     return flash
 
 

@@ -161,6 +161,25 @@ class TestNativeBuild:
             assert path.parent == _native.BUILD_DIR
             assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
 
+    @pytest.mark.parametrize("edit", ["changed", "added"])
+    def test_library_name_is_keyed_by_headers(self, monkeypatch, tmp_path,
+                                              edit):
+        """A source that includes a shared header is rebuilt when a header
+        in csrc/ changes or appears, though the source itself did not."""
+        (tmp_path / "kernel.cu").write_text('#include "shared.cuh"\n')
+        header = tmp_path / "shared.cuh"
+        header.write_text("// one\n")
+        monkeypatch.setattr(_native, "CSRC_DIR", tmp_path)
+        before = _native.library_path("kernel")
+        if edit == "changed":
+            header.write_text("// two\n")
+        else:
+            (tmp_path / "other.cuh").write_text("// new\n")
+        after = _native.library_path("kernel")
+        assert after != before and after.parent == before.parent
+        assert after.name.startswith("libkernel-")
+        assert _native.library_path("kernel") == after
+
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
@@ -251,6 +270,57 @@ class TestFlashKernelOnCard:
         flat = torch.zeros(8 * 16 + 1, device=cuda)
         with pytest.raises(ValueError, match="aligned"):
             flash_attention(flat[1:].view(1, 1, 8, 16), k, v)
+
+    # The bf16 kernel's edges: a CTA owns 128 query rows (64 for each of two
+    # consumer warpgroups), keys come in TMA tiles of 128 that are
+    # zero-filled past S_k, and D = 16 and 32 swizzle at 32 and 64 bytes.
+
+    @pytest.mark.parametrize("s_q", [50, 127, 129, 255, 257])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_query_rows_around_the_cta_tile(self, cuda, s_q, d):
+        """S_q below one CTA tile, or one row off a multiple of it: the
+        last tile's second warpgroup (or both) holds no real row."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 3, s_q, 300, d, s_q))
+        self.check(q, k, v, causal=False)
+
+    @pytest.mark.parametrize("s_k", [1, 200, 383])
+    def test_keys_off_the_key_tile(self, cuda, s_k):
+        """One key, and S_k that is not a multiple of the 128-key tile."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 2, 130, s_k, 128, s_k))
+        self.check(q, k, v, causal=False)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_causal_one_row_past_two_tiles(self, cuda, d):
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 2, 257, 257, d, 7))
+        self.check(q, k, v, causal=True)
+
+    @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+    @pytest.mark.parametrize("d", [16, 32])
+    def test_narrow_heads(self, cuda, d, causal):
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(1, 2, 300, 300, d, d + 2))
+        self.check(q, k, v, causal)
+
+    def test_strided_qkv_view_at_the_served_length(self, cuda):
+        """The fused (B, S, 3, H, D) projection at S = 4096, D = 128: the
+        tensor maps take H before S in stride order."""
+        b, s, h, d = 2, 4096, 2, 128
+        qkv = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            (b, s, 3 * h * d)).astype(np.float32)).to(torch.bfloat16).to(cuda)
+        parts = qkv.view(b, s, 3, h, d)
+        q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
+        assert q.stride(1) < q.stride(2)
+        self.check(q, k, v, causal=False)
+
+    def test_lse_at_the_training_shape(self, cuda):
+        """The forward with lse as a training step runs it, (8, 2, 4096,
+        128) bf16: output and lse within their tolerances."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(8, 2, 4096, 4096, 128, 9))
+        self.check(q, k, v, causal=False)
 
 
 class TestFlashBackwardWrapper:
