@@ -54,32 +54,64 @@
 // per score) that repeats the TPU's float32 products exactly: it is not on the
 // served path.
 //
-// Backward. Replaces `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`
-// (driven by `_flash3_bwd`), the FlashAttention-2 recurrence. Both rebuild
-// P = exp(scale * (q.k^T) - lse) from the forward's logsumexp, with q not
-// pre-scaled (`_bwd_recompute`), and dS = P * (dO.V^T - Delta), where
-// Delta = rowsum(dO * O) comes from the caller in float32. Masked entries
-// (causal, ragged tails, padded query rows, whose lse is not a row's) are set
-// to P = 0 explicitly. Two deterministic kernels, no atomics, as on the TPU:
-// - dK/dV: one CTA of four warps per (b*h, 64-key tile), K and V resident in
-//   shared memory; it loops over query tiles, Q, dO, lse and Delta
-//   double-buffered (cp.async for Q and dO). Each warp rebuilds S^T and P^T
-//   for its 16 key rows, then dP^T = V.dO^T and dS^T = P^T * (dP^T - Delta),
-//   and accumulates dV += P^T.dO and dK += dS^T.Q in float32 registers (P
-//   and dS rounded to bf16 for the tensor-core products); dK is scaled by
-//   D**-0.5 once at the end. Query tiles wholly above the diagonal are
-//   skipped. The query tile is 64 rows: at D = 128 the two accumulators
-//   take 128 registers a thread and the kernel 254 in all, without a spill
-//   (`-Xptxas -v` on sm_90a); a 32-row tile took fewer registers and ran
-//   slower.
-// - dQ: the forward's shape. One CTA per (b*h, 64 query rows), Q and dO
-//   resident, K/V tiles double-buffered; dQ += dS.K in float32 registers,
-//   scaled once at the end.
-// Bound on the H100: operations. dK/dV does four products (S, dP, dV, dK),
-// 8*B*H*S_q*S_k*D flops; dQ three (S, dP, dQ), 6*B*H*S_q*S_k*D: at the
-// training shape (8, 2, 4096, 128) bf16, 0.28 and 0.21 TFLOP, 0.28 and 0.21
-// ms at the bf16 tensor-core peak. Both also take plain float32 CUDA-core
-// kernels for float32 inputs, for the tests.
+// Backward. Replaces `_flash_bwd_dkv_kernel` (flash_attention.py:160) and
+// `_flash_bwd_dq_kernel` (:197), driven by `_flash3_bwd`: the
+// FlashAttention-2 recurrence. P = exp(scale * (q.k^T) - lse) is rebuilt
+// from the forward's logsumexp, with q not pre-scaled (`_bwd_recompute`),
+// dS = P * (dO.V^T - Delta) with Delta = rowsum(dO * O) in float32, then
+// dV = P^T.dO, dK = scale * dS^T.Q and dQ = scale * dS.K. Masked entries
+// (causal, keys past S_k, padded query rows, whose lse is not a row's) are
+// set to P = 0 explicitly.
+//
+// Bound on the H100: operations. Five products (S, dP, dV, dK, dQ), 10 *
+// B*H*S_q*S_k*D flops (about half under causal): at the training shape
+// (8, 2, 4096, 128) bf16, 0.344 TFLOP, 0.347 ms at the bf16 tensor-core
+// peak, against 0.1 GB of q, k, v, dO, O and gradients (0.03 ms).
+//
+// bfloat16: one fused kernel, `flash_bwd_wgmma` (FlashAttention-3's shape),
+// between two small passes. One CTA of 384 threads per (b*h, 128 keys);
+// under causal the key tiles that own the most query tiles start first.
+// Warpgroup 0 is the producer (24 registers after setmaxnreg): one thread
+// TMA-loads the CTA's K and V once, then walks the query tiles (from the
+// diagonal under causal), loading each tile's 64 rows of Q and dO and, by
+// bulk copies, their 64 lse and Delta values into a two-stage mbarrier ring.
+// Warpgroups 1 and 2 are consumers (240 registers), each owning 64 of the
+// keys, so that keys are the M dimension of their products. S^T = K.Q^T and
+// dP^T = V.dO^T come from wgmma m64n64k16 (K, V, Q and dO K-major in shared
+// memory); P^T and dS^T are computed in float32 in the accumulator layout
+// and, packed to bf16, are exactly the register A operands of
+// dV += P^T.dO and dK += dS^T.Q (dO and Q read MN-major). dK and dV stay in
+// float32 registers for the whole loop and are stored once, dK scaled by
+// D**-0.5: deterministic. For dQ the two consumers write their dS^T (bf16)
+// into one shared tile of 128 keys x 64 queries, swizzled as TMA would store
+// it, meet on a named barrier, and compute dQ = dS.K with A = dS read
+// MN-major from that tile (tnspA) and B = K MN-major: at D = 128 each
+// consumer takes 64 columns over all 128 keys, at a narrower D all columns
+// over its own 64 keys. Both consumers run the same code: a wgmma that only
+// one of them reaches made ptxas serialise every wgmma of the kernel
+// (warning C7520) and spill 180 bytes at D = 128: 1.23 ms against 0.68 at
+// the training shape.
+// Each stores its float32 dQ tile to shared memory in register order
+// (conflict-free) and one thread adds it into a float32 accumulator in
+// device memory with one bulk reduce-add (cp.reduce.async.bulk .add.f32,
+// done in L2). The accumulator is padded to s_pad = 64 * ceil(S_q / 64)
+// rows, so padded rows need no guard. The dS^T tile is double-buffered, so
+// one barrier per query tile orders both its reuse and the dQ tile's. dQ is
+// therefore not bitwise deterministic from run to run: its float32 adds
+// land in L2 in whatever order the CTAs reach them. P and dS are rounded to
+// bf16 for the tensor cores, with float32 accumulation. The passes around
+// it: `flash_bwd_prep` (Delta in float32, lse * log2(e), both padded to
+// s_pad, and the accumulator zeroed: one read of dO and O) and
+// `flash_bwd_dq_convert` (dq = D**-0.5 * accumulator, rounded to bf16 and
+// written through dq's strides). `-Xptxas -v`: 168 registers at entry (the
+// launch bound's cap; the consumers raise theirs to 240), 0 spill bytes at
+// every D; 198,696 bytes of shared memory a CTA at D = 128 (59,432 /
+// 84,008 / 133,160 at D = 16 / 32 / 64). scripts/flash_backward_variants.py
+// times it in turns against other csrc/ copies and ablated ones.
+//
+// float32 inputs take the same preparation pass, then plain CUDA-core
+// kernels (dK/dV over 32-key CTAs, dQ over 32-row CTAs) that repeat the
+// TPU's float32 products: for the tests, not on the trained path.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -106,77 +138,19 @@ struct Params {
   float scale;
 };
 
-// -- bfloat16 backward: mma.sync tiles -----------------------------------
-
-constexpr int kBlockM = 64;  // query rows per tile, 16 per warp
-constexpr int kBlockN = 64;  // keys per tile
-
-template <int D>
-struct Tiles {
-  static constexpr int kStride = D + 8;              // bf16 per smem row
-  static constexpr int kElems = kBlockM * kStride;   // one 64-row tile
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src is then unread).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + kRows) of one (S, D) bf16 matrix with row stride `ss`
-// into a padded shared tile; rows at or past `rows` are zero-filled, so a
-// masked key multiplies a zero V row and never a stale NaN.
-template <int D, int kRows = kBlockN>
-__device__ __forceinline__ void load_tile(uint16_t* tile,
-                                          const uint16_t* base, long long ss,
-                                          int row0, int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool valid = row0 + r < rows;
-    const uint16_t* src = valid ? base + (row0 + r) * ss + col : base;
-    cp_async_16(smem_u32(tile + r * Tiles<D>::kStride + col), src, valid);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr) : "memory");
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// A bf16 tile of D columns as TMA loads it (hopper.cuh): boxes of kBoxCols
+// columns, rows kSwizzle bytes apart and swizzled at kSwizzle bytes.
+template <int D>
+struct Swizzled {
+  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;  // bytes a row
+  static constexpr int kBoxCols = kSwizzle / 2;
+  static constexpr int kLayout = hopper::layout_type(kSwizzle);
+};
 
 // -- bfloat16 forward: TMA, wgmma, warp specialisation ----------------------
 
@@ -195,9 +169,6 @@ constexpr int kTurn = 3;
 // staging tiles padded by 16 bytes a row, then the mbarriers.
 template <int D>
 struct FwdSmem {
-  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;  // bytes a row
-  static constexpr int kBoxCols = kSwizzle / 2;
-  static constexpr int kLayout = hopper::layout_type(kSwizzle);
   static constexpr int kQBytes = kFwdBlockM * D * 2;
   static constexpr int kKVBytes = kFwdBlockN * D * 2;  // one stage of K or V
   static constexpr int kOStride = D + 8;                // bf16 a staging row
@@ -224,29 +195,30 @@ struct FwdMaps {
 template <int D>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
                                                 int row0, int kc) {
-  using S = FwdSmem<D>;
+  using S = Swizzled<D>;
   const int col = kc * 16;
   return hopper::smem_desc(tile + (col / S::kBoxCols) * rows * S::kSwizzle +
                                row0 * S::kSwizzle + (col % S::kBoxCols) * 2,
                            16, 8 * S::kSwizzle, S::kLayout);
 }
 
-// MN-major descriptor of V's keys [16 kc, 16 kc + 16), all D columns.
+// MN-major descriptor of rows [16 kc, 16 kc + 16) of a tile of `rows` rows
+// at `tile`, all its columns from the box at `tile` on (V in P.V).
 template <int D>
-__device__ __forceinline__ uint64_t v_desc(uint32_t tile, int kc) {
-  using S = FwdSmem<D>;
-  return hopper::smem_desc(tile + kc * 16 * S::kSwizzle,
-                           kFwdBlockN * S::kSwizzle, 8 * S::kSwizzle,
-                           S::kLayout);
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows,
+                                                 int kc) {
+  using S = Swizzled<D>;
+  return hopper::smem_desc(tile + kc * 16 * S::kSwizzle, rows * S::kSwizzle,
+                           8 * S::kSwizzle, S::kLayout);
 }
 
-// One tile (all D columns, `rows` rows from row `row0` of S) of a q, k or v
+// One tile (all D columns, `rows` rows from row `row0` of S) of an operand
 // map into shared memory at `dst`, as D / kBoxCols boxes.
 template <int D>
 __device__ __forceinline__ void load_boxes(uint32_t dst, const CUtensorMap* map,
                                            int sel, uint32_t bar, int rows,
                                            int row0, int h, int b) {
-  using S = FwdSmem<D>;
+  using S = Swizzled<D>;
 #pragma unroll
   for (int j = 0; j < D / S::kBoxCols; ++j) {
     hopper::tma_load_4d(dst + j * rows * S::kSwizzle, map, bar,
@@ -278,7 +250,7 @@ __device__ __forceinline__ void issue_pv(
     uint32_t v_tile) {
 #pragma unroll
   for (int kc = 0; kc < kFwdBlockN / 16; ++kc) {
-    hopper::wgmma_rs<1>(o, a[kc], v_desc<D>(v_tile, kc), 1);
+    hopper::wgmma_rs<1>(o, a[kc], mnmajor_desc<D>(v_tile, kFwdBlockN, kc), 1);
   }
   hopper::wgmma_commit();
 }
@@ -326,11 +298,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[kFwdBlockN / 2],
   }
 }
 
-// P in float32 (an S accumulator) -> the bf16 register A fragments of P.V.
-__device__ __forceinline__ void pack_p(uint32_t (&a)[kFwdBlockN / 16][4],
-                                       const float (&s)[kFwdBlockN / 2]) {
+// A float32 m64nN accumulator -> the bf16 register A fragments of a
+// product whose k runs over its N columns (P in P.V).
+template <int N>
+__device__ __forceinline__ void pack_frag(uint32_t (&a)[N / 16][4],
+                                          const float (&s)[N / 2]) {
 #pragma unroll
-  for (int kc = 0; kc < kFwdBlockN / 16; ++kc) {
+  for (int kc = 0; kc < N / 16; ++kc) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       a[kc][r] = pack_bf16(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1]);
@@ -441,7 +415,7 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     if (lane == 0) hopper::mbar_arrive(k_empty(0));
     online_softmax(s, m2, l_row, corr, scale2, mask(0), 0, p.s_k, p.causal,
                    row_a, t);
-    pack_p(a, s);
+    pack_frag<kFwdBlockN>(a, s);
     for (int it = 1; it < n_tiles; ++it) {
       const int st = it % kFwdStages, prev = (it - 1) % kFwdStages;
       hopper::mbar_wait(k_full(st), (it / kFwdStages) & 1);
@@ -462,7 +436,7 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
       if (lane == 0) hopper::mbar_arrive(v_empty(prev));
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-      pack_p(a, s);
+      pack_frag<kFwdBlockN>(a, s);
     }
     const int last = n_tiles - 1;
     hopper::mbar_wait(v_full(last % kFwdStages), (last / kFwdStages) & 1);
@@ -627,26 +601,21 @@ struct BwdParams {
   const void* q;
   const void* k;
   const void* v;
+  const void* out;
   const void* dout;
-  const float* lse;    // (B, H, S_q) contiguous
-  const float* delta;  // (B, H, S_q) contiguous: rowsum(dO * O)
+  const float* lse;  // (B, H, S_q) contiguous: the forward's logsumexp
+  // Written by flash_bwd_prep, each (B*H, s_pad) and zero past S_q:
+  float* lse2;    // lse * log2(e)
+  float* delta;   // rowsum(dO * O)
+  float* dq_acc;  // bf16 only (else null): the float32 dQ accumulator
   void* dq;
   void* dk;
   void* dv;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
-  long long do_sb, do_sh, do_ss;
+  long long do_sb, do_sh, do_ss, o_sb, o_sh, o_ss;
   long long dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-  int heads, s_q, s_k, causal;
+  int batch, heads, s_q, s_k, s_pad, causal;
   float scale;
-};
-
-template <int D, int BM>
-struct BwdTiles {
-  static constexpr int kStride = Tiles<D>::kStride;
-  static constexpr int kKV = kBlockN * kStride;  // K or V, 64 keys
-  static constexpr int kQ = BM * kStride;        // Q or dO, BM queries
-  // K, V; Q x2, dO x2 (bf16); lse x2, Delta x2 (float32).
-  static constexpr size_t kBytes = (2 * kKV + 4 * kQ) * 2 + 4 * BM * 4;
 };
 
 // Rows [row0, row0 + n) of a float32 row vector into shared memory, zero
@@ -658,300 +627,428 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// A warp's 16 rows of `a_tile` (row-major, padded rows) times the rows
-// [0, BN) of `b_tile`, transposed: c[BN/8][4] += A . B^T over D. The A and
-// B operands are both rows of D values, read with ldmatrix as the forward
-// reads Q and K.
-template <int D, int BN>
-__device__ __forceinline__ void mma_rows(float c[][4], const uint16_t* a_tile,
-                                         const uint16_t* b_tile, int warp,
-                                         int lane) {
-  constexpr int kStride = Tiles<D>::kStride;
+// rowsum(x * y) of one 16-byte chunk of each, in float32.
+template <bool kBf16>
+__device__ __forceinline__ float dot16(uint4 x, uint4 y) {
+  const uint32_t a[4] = {x.x, x.y, x.z, x.w}, c[4] = {y.x, y.y, y.z, y.w};
+  float acc = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldmatrix_x4(a, smem_u32(a_tile + row * kStride + kc * 16 + (lane >> 4) * 8));
+  for (int i = 0; i < 4; ++i) {
+    if (kBf16) {  // two bf16 a word: the low half, then the high one
+      acc = fmaf(__uint_as_float(a[i] << 16), __uint_as_float(c[i] << 16),
+                 acc);
+      acc = fmaf(__uint_as_float(a[i] & 0xffff0000u),
+                 __uint_as_float(c[i] & 0xffff0000u), acc);
+    } else {
+      acc = fmaf(__uint_as_float(a[i]), __uint_as_float(c[i]), acc);
+    }
+  }
+  return acc;
+}
+
+constexpr int kBwdBlockM = 64;    // query rows a tile of the loop; s_pad's unit
+constexpr int kBwdBlockN = 128;   // keys a CTA, 64 per consumer warpgroup
+constexpr int kBwdStages = 2;     // Q/dO ring depth
+constexpr int kBwdThreads = 384;  // producer warpgroup + two consumers
+// setmaxnreg: 128 * 24 + 256 * 240 = 64512, what the launch bound leaves.
+constexpr int kBwdProducerRegs = 24, kBwdConsumerRegs = 240;
+// Named barriers: kDsReady, both consumers' dS^T are in the shared tile;
+// kDqReady + c, consumer c's dQ tile is in shared memory.
+constexpr int kDsReady = 1, kDqReady = 2;
+
+// The input pass of the backward, one CTA of 128 threads per (b*h, 64-row
+// tile): Delta = rowsum(dO * O) in float32 (as `bwd_delta`) and lse *
+// log2(e), zero past S_q, and for bf16 the tile of the dQ accumulator set to
+// zero. A row is read in 16-byte chunks by kLanes adjacent lanes.
+template <bool kBf16, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep(const BwdParams p) {
+  constexpr int kElem = kBf16 ? 2 : 4;  // bytes an element
+  constexpr int kLanes = D * kElem / 16;
+  constexpr int kRows = 32 / kLanes;    // rows a warp reads at once
+  const int n_qt = p.s_pad / kBwdBlockM;
+  const int bh = blockIdx.x / n_qt, it = blockIdx.x % n_qt;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long col = (lane % kLanes) * (16 / kElem);
+  const char* dout = static_cast<const char*>(p.dout) +
+                     (b * p.do_sb + h * p.do_sh + col) * kElem;
+  const char* out = static_cast<const char*>(p.out) +
+                    (b * p.o_sb + h * p.o_sh + col) * kElem;
+  // 64 is a multiple of kWarps * kRows: every lane runs the same rounds.
+  for (int r = warp * kRows + lane / kLanes; r < kBwdBlockM;
+       r += kWarps * kRows) {
+    const int row = it * kBwdBlockM + r;
+    float acc = 0.f;
+    if (row < p.s_q) {
+      acc = dot16<kBf16>(
+          *reinterpret_cast<const uint4*>(dout + row * p.do_ss * kElem),
+          *reinterpret_cast<const uint4*>(out + row * p.o_ss * kElem));
+    }
 #pragma unroll
-    for (int np = 0; np < BN / 16; ++np) {
-      uint32_t bb[4];
-      const int brow = np * 16 + (lane & 7) + (lane >> 4) * 8;
-      const int col = kc * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(bb, smem_u32(b_tile + brow * kStride + col));
-      mma_bf16(c[2 * np], a, bb[0], bb[1]);
-      mma_bf16(c[2 * np + 1], a, bb[2], bb[3]);
+    for (int off = kLanes / 2; off > 0; off /= 2) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    }
+    if (lane % kLanes == 0) {
+      const long long i = (long long)bh * p.s_pad + row;
+      p.delta[i] = acc;
+      p.lse2[i] = row < p.s_q ? p.lse[(long long)bh * p.s_q + row] * kLog2e
+                              : 0.f;
+    }
+  }
+  if (p.dq_acc != nullptr) {
+    float4* tile = reinterpret_cast<float4*>(
+        p.dq_acc + ((long long)bh * p.s_pad + it * kBwdBlockM) * D);
+    for (int i = threadIdx.x; i < kBwdBlockM * D / 4; i += kThreads) {
+      tile[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-// acc[D/8][4] += X . T for a warp: X is the 16 x 16 A fragment of k-chunk
-// kc (repacked from an accumulator), T the rows [16 kc, 16 kc + 16) of a
-// (rows, D) shared tile, read transposed as the forward reads V.
+// The fused bf16 kernel's shared memory, in bytes from a 1024-aligned base:
+// K and V (128 keys), the Q and dO rings (64 rows a stage; all four as TMA
+// boxes, see hopper.cuh), two dS^T tiles (128 keys x 64 queries, 128-byte
+// rows swizzled at 128 bytes), each consumer's float32 dQ tile, the lse and
+// Delta ring, then the mbarriers.
 template <int D>
-__device__ __forceinline__ void mma_acc_tile(float acc[][4], const uint32_t x[4],
-                                             const uint16_t* tile, int kc,
-                                             int lane) {
-  constexpr int kStride = Tiles<D>::kStride;
+struct BwdSmem : Swizzled<D> {
+  // dQ = dS.K of a query tile. At D = 128 the two consumers split its
+  // columns, 64 each (a whole swizzle atom of K), summing over all 128
+  // keys; at a narrower D each takes all D columns over its own 64 keys,
+  // and both add into the same accumulator tile. Either way both run the
+  // same code: a wgmma in a branch that only one of them takes would make
+  // ptxas serialise every wgmma of the kernel.
+  static constexpr int kDqSplit = D == 128 ? 2 : 1;
+  static constexpr int kDqCols = D / kDqSplit;
+  static constexpr int kDqKeys = 64 * kDqSplit;  // keys a consumer sums
+  static constexpr int kKVBytes = kBwdBlockN * D * 2;           // K or V
+  static constexpr int kQBytes = kBwdBlockM * D * 2;            // Q or dO
+  static constexpr int kDsBytes = kBwdBlockN * kBwdBlockM * 2;  // dS^T
+  static constexpr int kDqBytes = kBwdBlockM * kDqCols * 4;     // one dQ tile
+  static constexpr int kRowBytes = kBwdBlockM * 4;              // lse or Delta
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKVBytes;
+  static constexpr int kQ = kV + kKVBytes;
+  static constexpr int kDO = kQ + kBwdStages * kQBytes;
+  static constexpr int kDS = kDO + kBwdStages * kQBytes;
+  static constexpr int kDQ = kDS + 2 * kDsBytes;
+  static constexpr int kLse = kDQ + 2 * kDqBytes;
+  static constexpr int kDelta = kLse + kBwdStages * kRowBytes;
+  static constexpr int kBar = kDelta + kBwdStages * kRowBytes;
+  // kv_full, then full and empty for each stage.
+  static constexpr int kBars = 1 + 2 * kBwdStages;
+  static constexpr size_t kBytes = kBar + kBars * 8 + 1024;  // + alignment
+};
+
+// The TMA maps of q, k, v and dout, and their coordinate selectors.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+  int q_sel, k_sel, v_sel, do_sel;
+};
+
+// One consumer's dS^T (its 64 keys x the tile's 64 queries), packed as
+// wgmma's register A operand, into a shared dS^T tile: 128 key rows of 64
+// queries, 128 bytes a row, swizzled at 128 bytes as TMA would store it
+// (row r's 16-byte chunk j at chunk j ^ (r % 8)), so that dQ's wgmma reads
+// dS from it MN-major. A warp's 32 lanes store into 32 distinct banks.
+__device__ __forceinline__ void store_ds(uint8_t* tile,
+                                         const uint32_t (&a)[4][4], int row_a,
+                                         int g, int t) {
 #pragma unroll
-  for (int dp = 0; dp < D / 16; ++dp) {
-    uint32_t tb[4];
-    const int row = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int col = dp * 16 + (lane >> 4) * 8;
-    ldmatrix_x4_trans(tb, smem_u32(tile + row * kStride + col));
-    mma_bf16(acc[2 * dp], x, tb[0], tb[1]);
-    mma_bf16(acc[2 * dp + 1], x, tb[2], tb[3]);
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      *reinterpret_cast<uint32_t*>(tile + (row_a + 8 * rr) * 128 +
+                                   ((j ^ g) << 4) + 4 * t) =
+          a[j / 2][2 * (j % 2) + rr];
+    }
   }
 }
 
-// The A fragment of k-chunk kc from the accumulators of n-tiles 2kc, 2kc+1.
-__device__ __forceinline__ void repack(uint32_t a[4], const float c[][4],
-                                       int kc) {
-  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
+// MN-major descriptor (A of dQ = dS.K, tnspA) of keys [16 kc, 16 kc + 16)
+// of a dS^T tile: its 64 queries are one 128-byte swizzle atom.
+__device__ __forceinline__ uint64_t ds_desc(uint32_t tile, int kc) {
+  return hopper::smem_desc(tile + kc * 16 * 128, kBwdBlockN * 128, 8 * 128,
+                           hopper::layout_type(128));
 }
 
-// Rows (g, g + 8) of a warp's 16-row float32 accumulator, scaled, to bf16
-// rows of `out` (row stride `ss`), rows at or past `rows` left out.
+// Rows row_a and row_a + 8 of a consumer's m64nD float32 accumulator
+// (hopper.cuh's layout), times `scale`, as bf16 into rows of `out` (row
+// stride `ss`); rows at or past `rows` are left out.
 template <int D>
 __device__ __forceinline__ void store_rows(uint16_t* out, long long ss,
-                                           const float acc[][4], int row_a,
-                                           int rows, int t, float scale) {
+                                           const float (&acc)[D / 2],
+                                           int row_a, int rows, int t,
+                                           float scale) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row_a + 8 * rr;
     if (row >= rows) continue;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(out + row * ss + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out + row * ss + 8 * j + 2 * t) =
+          pack_bf16(acc[4 * j + 2 * rr] * scale,
+                    acc[4 * j + 2 * rr + 1] * scale);
     }
   }
 }
 
-// dK/dV, bfloat16. Fragment layout as in the forward, with keys as the rows:
-// a thread carries key rows g and g + 8 of its warp's 16, and in the S^T and
-// dP^T tiles query columns 8 nt + 2t, 8 nt + 2t + 1.
-template <int D, int BM>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16(const BwdParams p) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  using T = BwdTiles<D, BM>;
-  uint16_t* k_s = smem;
-  uint16_t* v_s = k_s + T::kKV;
-  uint16_t* q_s = v_s + T::kKV;     // stages 0, 1
-  uint16_t* do_s = q_s + 2 * T::kQ;  // stages 0, 1
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * T::kQ);  // stages 0, 1
-  float* dl_s = lse_s + 2 * BM;                              // stages 0, 1
-
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int k0 = blockIdx.x * kBlockN;
-  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const uint16_t* dout =
-      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* lse = p.lse + (long long)bh * p.s_q;
-  const float* delta = p.delta + (long long)bh * p.s_q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int key_a = k0 + warp * 16 + g;
-
-  const int n_tiles = (p.s_q + BM - 1) / BM;
-  // Causal: the first query tile that reaches key k0 (`_block_relevant`).
-  const int it0 = p.causal ? k0 / BM : 0;
-
-  load_tile<D>(k_s, k, p.k_ss, k0, p.s_k);
-  load_tile<D>(v_s, v, p.v_ss, k0, p.s_k);
-  if (it0 < n_tiles) {
-    load_tile<D, BM>(q_s, q, p.q_ss, it0 * BM, p.s_q);
-    load_tile<D, BM>(do_s, dout, p.do_ss, it0 * BM, p.s_q);
-    load_rows(lse_s, lse, it0 * BM, p.s_q, BM);
-    load_rows(dl_s, delta, it0 * BM, p.s_q, BM);
-  }
-  cp_async_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-
-  for (int it = it0; it < n_tiles; ++it) {
-    const int stage = (it - it0) & 1;
-    if (it + 1 < n_tiles) {  // prefetch into the stage tile it - 1 used
-      const int nxt = stage ^ 1;
-      load_tile<D, BM>(q_s + nxt * T::kQ, q, p.q_ss, (it + 1) * BM, p.s_q);
-      load_tile<D, BM>(do_s + nxt * T::kQ, dout, p.do_ss, (it + 1) * BM, p.s_q);
-      load_rows(lse_s + nxt * BM, lse, (it + 1) * BM, p.s_q, BM);
-      load_rows(dl_s + nxt * BM, delta, (it + 1) * BM, p.s_q, BM);
-    }
-    cp_async_commit();  // always, so wait_group 1 covers tile `it`
-    cp_async_wait_1();
-    __syncthreads();
-
-    const uint16_t* qs = q_s + stage * T::kQ;
-    const uint16_t* dos = do_s + stage * T::kQ;
-    const float* lse_t = lse_s + stage * BM;
-    const float* dl_t = dl_s + stage * BM;
-    const int q0 = it * BM;
-
-    // S^T = K . Q^T, then P^T = exp(scale * S^T - lse), masked to 0.
-    float s[BM / 8][4];
-#pragma unroll
-    for (int i = 0; i < BM / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    mma_rows<D, BM>(s, k_s, qs, warp, lane);
-    const bool mask = q0 + BM > p.s_q ||
-                      (p.causal && k0 + warp * 16 + 15 > q0);
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t + (e & 1);
-        float x = exp2f((s[nt][e] * p.scale - lse_t[qi]) * kLog2e);
-        if (mask) {
-          const int key = key_a + (e >> 1) * 8, row = q0 + qi;
-          if (row >= p.s_q || (p.causal && key > row)) x = 0.f;
-        }
-        s[nt][e] = x;
-      }
-    }
-
-    // dP^T = V . dO^T, then dS^T = P^T * (dP^T - Delta) in place.
-    float ds[BM / 8][4];
-#pragma unroll
-    for (int i = 0; i < BM / 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
-    mma_rows<D, BM>(ds, v_s, dos, warp, lane);
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[nt][e] = s[nt][e] * (ds[nt][e] - dl_t[nt * 8 + 2 * t + (e & 1)]);
-      }
-    }
-
-    // dV += P^T . dO and dK += dS^T . Q: the queries are the k axis.
-#pragma unroll
-    for (int kc = 0; kc < BM / 16; ++kc) {
-      uint32_t a[4];
-      repack(a, s, kc);
-      mma_acc_tile<D>(dv_acc, a, dos, kc, lane);
-      repack(a, ds, kc);
-      mma_acc_tile<D>(dk_acc, a, qs, kc, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
-
-  store_rows<D>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb + h * p.dk_sh,
-                p.dk_ss, dk_acc, key_a, p.s_k, t, p.scale);
-  store_rows<D>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb + h * p.dv_sh,
-                p.dv_ss, dv_acc, key_a, p.s_k, t, 1.f);
-}
-
-// dQ, bfloat16: the forward's grid and layout, a thread carrying query rows
-// g and g + 8 of its warp's 16.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const BwdParams p) {
-  extern __shared__ __align__(16) uint16_t smem[];
-  constexpr int kElems = Tiles<D>::kElems;
-  uint16_t* q_s = smem;
-  uint16_t* do_s = smem + kElems;
-  uint16_t* k_s = smem + 2 * kElems;  // stages 0, 1
-  uint16_t* v_s = smem + 4 * kElems;  // stages 0, 1
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_wgmma(const __grid_constant__ BwdParams p,
+                const __grid_constant__ BwdMaps maps) {
+  using S = BwdSmem<D>;
+  extern __shared__ __align__(16) uint8_t bwd_smem[];
+  const uint32_t raw = hopper::smem_addr(bwd_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem = bwd_smem + (base - raw);
+  const uint32_t bars = base + S::kBar, kv_full = bars;
+  auto full = [=](int st) { return bars + 8 * (1 + st); };
+  auto empty = [=](int st) { return bars + 8 * (1 + kBwdStages + st); };
 
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kBlockM;
-  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const uint16_t* dout =
-      static_cast<const uint16_t*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row_a = q0 + warp * 16 + g;
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    const bool valid = row < p.s_q;
-    lse_r[r] = valid ? p.lse[(long long)bh * p.s_q + row] : 0.f;
-    dl_r[r] = valid ? p.delta[(long long)bh * p.s_q + row] : 0.f;
-  }
+  // This CTA's (b*h, key tile). Under causal the key tile is the outer
+  // index, so the tiles that own the most query tiles start first.
+  const int n_kt = (p.s_k + kBwdBlockN - 1) / kBwdBlockN;
+  const int n_bh = p.batch * p.heads;
+  const int kt = p.causal ? blockIdx.x / n_bh : blockIdx.x % n_kt;
+  const int bh = p.causal ? blockIdx.x % n_bh : blockIdx.x / n_kt;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int k0 = kt * kBwdBlockN;
+  const int n_qt = p.s_pad / kBwdBlockM;
+  // Causal: the first query tile that reaches key k0 (`_block_relevant`).
+  const int it0 = p.causal ? k0 / kBwdBlockM : 0;
 
-  int n_tiles = (p.s_k + kBlockN - 1) / kBlockN;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
-
-  load_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
-  load_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
-  load_tile<D>(k_s, k, p.k_ss, 0, p.s_k);
-  load_tile<D>(v_s, v, p.v_ss, 0, p.s_k);
-  cp_async_commit();
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dq_acc[i][0] = dq_acc[i][1] = dq_acc[i][2] = dq_acc[i][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      load_tile<D>(k_s + (stage ^ 1) * kElems, k, p.k_ss, (it + 1) * kBlockN, p.s_k);
-      load_tile<D>(v_s + (stage ^ 1) * kElems, v, p.v_ss, (it + 1) * kBlockN, p.s_k);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      hopper::mbar_init(full(st), 1);
+      hopper::mbar_init(empty(st), 8);  // lane 0 of each consumer warp
     }
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-    const uint16_t* ks = k_s + stage * kElems;
-    const uint16_t* vs = v_s + stage * kElems;
-    const int k0 = it * kBlockN;
-
-    // S = Q . K^T, then P = exp(scale * S - lse), masked to 0.
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBlockN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    mma_rows<D, kBlockN>(s, q_s, ks, warp, lane);
-    const bool mask = k0 + kBlockN > p.s_k || q0 + warp * 16 + 16 > p.s_q ||
-                      (p.causal && k0 + kBlockN - 1 > q0 + warp * 16);
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = exp2f((s[nt][e] * p.scale - lse_r[e >> 1]) * kLog2e);
-        if (mask) {
-          const int key = k0 + nt * 8 + 2 * t + (e & 1);
-          const int row = row_a + (e >> 1) * 8;
-          if (key >= p.s_k || row >= p.s_q || (p.causal && key > row)) x = 0.f;
-        }
-        s[nt][e] = x;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread loads K and V, then keeps the Q/dO ring full.
+    hopper::setmaxnreg_dec<kBwdProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * S::kKVBytes);
+      load_boxes<D>(base + S::kK, &maps.k, maps.k_sel, kv_full, kBwdBlockN,
+                    k0, h, b);
+      load_boxes<D>(base + S::kV, &maps.v, maps.v_sel, kv_full, kBwdBlockN,
+                    k0, h, b);
+      for (int it = it0; it < n_qt; ++it) {
+        const int n = it - it0, st = n % kBwdStages;
+        hopper::mbar_wait(empty(st), ((n / kBwdStages) & 1) ^ 1);
+        const int q0 = it * kBwdBlockM;
+        hopper::mbar_expect_tx(full(st),
+                               2 * S::kQBytes + 2 * S::kRowBytes);
+        load_boxes<D>(base + S::kQ + st * S::kQBytes, &maps.q, maps.q_sel,
+                      full(st), kBwdBlockM, q0, h, b);
+        load_boxes<D>(base + S::kDO + st * S::kQBytes, &maps.dout,
+                      maps.do_sel, full(st), kBwdBlockM, q0, h, b);
+        const long long row = (long long)bh * p.s_pad + q0;
+        hopper::bulk_load(base + S::kLse + st * S::kRowBytes, p.lse2 + row,
+                          S::kRowBytes, full(st));
+        hopper::bulk_load(base + S::kDelta + st * S::kRowBytes,
+                          p.delta + row, S::kRowBytes, full(st));
       }
     }
+  } else {
+    // Consumer c: keys [k0 + 64c, k0 + 64c + 64), the M dimension of its
+    // products; this thread holds keys key_a and key_a + 8 and, of each
+    // query tile, the queries 8j + 2t and 8j + 2t + 1 (hopper.cuh).
+    hopper::setmaxnreg_inc<kBwdConsumerRegs>();
+    const int c = wg - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int local_a = 64 * c + 16 * warp + g;  // row in the K/V/dS^T tiles
+    const int key_a = k0 + local_a;
+    const uint32_t k_tile = base + S::kK, v_tile = base + S::kV;
+    const float scale2 = p.scale * kLog2e;  // P = 2^(s * scale2 - lse2)
+    // dQ: this consumer's column block of K and first key (see BwdSmem).
+    const int dq_box = S::kDqSplit == 2 ? c : 0;
+    const int dq_key0 = S::kDqSplit == 2 ? 0 : 64 * c;
 
-    // dP = dO . V^T, then dS = P * (dP - Delta) in place.
-    float ds[kBlockN / 8][4];
+    float dv[D / 2], dk[D / 2];
 #pragma unroll
-    for (int i = 0; i < kBlockN / 8; ++i) ds[i][0] = ds[i][1] = ds[i][2] = ds[i][3] = 0.f;
-    mma_rows<D, kBlockN>(ds, do_s, vs, warp, lane);
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[nt][e] = s[nt][e] * (ds[nt][e] - dl_r[e >> 1]);
-    }
+    for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
 
-    // dQ += dS . K: the keys are the k axis.
+    hopper::mbar_wait(kv_full, 0);
+    for (int it = it0; it < n_qt; ++it) {
+      const int n = it - it0, st = n % kBwdStages;
+      const int q0 = it * kBwdBlockM;
+      const uint32_t q_tile = base + S::kQ + st * S::kQBytes;
+      const uint32_t do_tile = base + S::kDO + st * S::kQBytes;
+      const uint32_t ds_tile = base + S::kDS + (n & 1) * S::kDsBytes;
+      hopper::mbar_wait(full(st), (n / kBwdStages) & 1);
+      // Declared here, each tile's first product overwrites (scale_d = 0)
+      // registers that carry nothing from the tile before.
+      float s[kBwdBlockM / 2], dp[kBwdBlockM / 2], dq[S::kDqCols / 2];
+      uint32_t a_p[kBwdBlockM / 16][4], a_ds[kBwdBlockM / 16][4];
+
+      // S^T = K.Q^T and dP^T = V.dO^T, keys as rows, as two wgmma groups:
+      // P^T is computed while dP^T is in the tensor cores, dS^T while
+      // dV += P^T.dO is, and dK += dS^T.Q runs through the dS barrier.
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t a[4];
-      repack(a, ds, kc);
-      mma_acc_tile<D>(dq_acc, a, ks, kc, lane);
+      for (int kc = 0; kc < D / 16; ++kc) {
+        hopper::wgmma_ss<0, 0>(
+            s, kmajor_desc<D>(k_tile, kBwdBlockN, 64 * c, kc),
+            kmajor_desc<D>(q_tile, kBwdBlockM, 0, kc), kc > 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        hopper::wgmma_ss<0, 0>(
+            dp, kmajor_desc<D>(v_tile, kBwdBlockN, 64 * c, kc),
+            kmajor_desc<D>(do_tile, kBwdBlockM, 0, kc), kc > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_operand(s);
+
+      // P^T = 2^(s * scale2 - lse2), masked to 0.
+      const float* lse2 = reinterpret_cast<const float*>(
+          smem + S::kLse + st * S::kRowBytes);
+      const float* delta = reinterpret_cast<const float*>(
+          smem + S::kDelta + st * S::kRowBytes);
+      const bool mask = q0 + kBwdBlockM > p.s_q || k0 + kBwdBlockN > p.s_k ||
+                        (p.causal && k0 + 64 * c + 63 > q0);
+#pragma unroll
+      for (int j = 0; j < kBwdBlockM / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float x = hopper::ex2(fmaf(s[i], scale2, (e & 1) ? -l2.y : -l2.x));
+          if (mask) {
+            const int key = key_a + 8 * (e >> 1);
+            const int row = q0 + 8 * j + 2 * t + (e & 1);
+            if (row >= p.s_q || key >= p.s_k || (p.causal && key > row)) {
+              x = 0.f;
+            }
+          }
+          s[i] = x;
+        }
+      }
+      pack_frag<kBwdBlockM>(a_p, s);
+
+      // dV += P^T.dO, the queries as k, P^T from registers.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBwdBlockM / 16; ++kc) {
+        hopper::wgmma_rs<1>(dv, a_p[kc],
+                            mnmajor_desc<D>(do_tile, kBwdBlockM, kc), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // dP^T is in; dV may run on
+      hopper::fence_operand(dp);
+
+      // dS^T = P^T (dP^T - Delta), to registers and the shared dS^T tile.
+#pragma unroll
+      for (int j = 0; j < kBwdBlockM / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dp[i] = s[i] * (dp[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      pack_frag<kBwdBlockM>(a_ds, dp);
+      store_ds(smem + S::kDS + (n & 1) * S::kDsBytes, a_ds, local_a, g, t);
+      hopper::fence_proxy_async();
+
+      // dK += dS^T.Q, dS^T from registers.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBwdBlockM / 16; ++kc) {
+        hopper::wgmma_rs<1>(dk, a_ds[kc],
+                            mnmajor_desc<D>(q_tile, kBwdBlockM, kc), 1);
+      }
+      hopper::wgmma_commit();
+
+      // Both dS^T are in; this consumer's last dQ reduce has read its tile.
+      if (tid == 0) hopper::bulk_wait_read<0>();
+      hopper::named_barrier_sync(kDsReady, 256);
+      // dQ (64 queries x kDqCols from column dq_box * kDqCols) += dS.K over
+      // keys [dq_key0, dq_key0 + kDqKeys) of the tile (see BwdSmem).
+#pragma unroll
+      for (int kc = 0; kc < S::kDqKeys / 16; ++kc) {
+        hopper::wgmma_ss<1, 1>(
+            dq, ds_desc(ds_tile, dq_key0 / 16 + kc),
+            mnmajor_desc<D>(k_tile + dq_box * kBwdBlockN * S::kSwizzle,
+                            kBwdBlockN, dq_key0 / 16 + kc),
+            kc > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dv);
+      hopper::fence_operand(dk);
+      hopper::fence_operand(a_p);
+      hopper::fence_operand(a_ds);
+      hopper::fence_operand(dq);
+      if (lane == 0) hopper::mbar_arrive(empty(st));
+      // The tile in register order, float4 j * 128 + tid = dq[4j .. 4j+3],
+      // then one bulk reduce-add into the accumulator's tile.
+      float4* tile = reinterpret_cast<float4*>(smem + S::kDQ + c * S::kDqBytes);
+#pragma unroll
+      for (int j = 0; j < S::kDqCols / 8; ++j) {
+        tile[j * 128 + tid] =
+            make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
+      }
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(kDqReady + c, 128);
+      if (tid == 0) {
+        hopper::bulk_reduce_add(
+            p.dq_acc + ((long long)bh * p.s_pad + q0) * D +
+                dq_box * kBwdBlockM * S::kDqCols,
+            base + S::kDQ + c * S::kDqBytes, S::kDqBytes);
+        hopper::bulk_commit();
+      }
     }
-    __syncthreads();
+    // The shared dQ tile must outlive the last reduce.
+    if (tid == 0) hopper::bulk_wait<0>();
+
+    store_rows<D>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb + h * p.dk_sh,
+                  p.dk_ss, dk, key_a, p.s_k, t, p.scale);
+    store_rows<D>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb + h * p.dv_sh,
+                  p.dv_ss, dv, key_a, p.s_k, t, 1.f);
   }
+}
 
-  store_rows<D>(static_cast<uint16_t*>(p.dq) + b * p.dq_sb + h * p.dq_sh,
-                p.dq_ss, dq_acc, row_a, p.s_q, t, p.scale);
+// dq = D**-0.5 * the accumulator, rounded to bf16 and written through dq's
+// strides, one thread per 8 columns of a row (one 16-byte store). For each
+// (b*h, 64-row tile) the accumulator holds kDqSplit column blocks of
+// kDqCols, each as its consumer stored it: float4 j * 128 + thread is that
+// thread's dq[4j .. 4j + 3] (rows 16w + g and 16w + g + 8, columns 8j + 2t
+// and 8j + 2t + 1; hopper.cuh).
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_convert(const BwdParams p) {
+  using S = BwdSmem<D>;
+  constexpr int kChunks = D / 8;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)p.batch * p.heads * p.s_q * kChunks) return;
+  const int col = (int)(i % kChunks) * 8;
+  const long long rows = i / kChunks;
+  const int row = (int)(rows % p.s_q), bh = (int)(rows / p.s_q);
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int r = row % kBwdBlockM;
+  const int c = col / S::kDqCols, j = (col % S::kDqCols) / 8;
+  const int thread = (r / 16) * 32 + (r % 8) * 4;  // lane t = 0 of the row
+  const float* from = p.dq_acc + ((long long)bh * p.s_pad + row - r) * D +
+                      c * kBwdBlockM * S::kDqCols + (j * 128 + thread) * 4 +
+                      (r % 16) / 8 * 2;
+  uint4 packed;
+  uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float2 x = *reinterpret_cast<const float2*>(from + 4 * t);
+    words[t] = pack_bf16(x.x * p.scale, x.y * p.scale);
+  }
+  *reinterpret_cast<uint4*>(static_cast<uint16_t*>(p.dq) + b * p.dq_sb +
+                            h * p.dq_sh + row * p.dq_ss + col) = packed;
 }
 
 // -- backward, float32: CUDA cores -----------------------------------------
@@ -1016,7 +1113,7 @@ flash_bwd_dkv_f32(const BwdParams p) {
     load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
     load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
     load_rows(lse_s, p.lse + (long long)bh * p.s_q, q0, p.s_q, kF32Block);
-    load_rows(dl_s, p.delta + (long long)bh * p.s_q, q0, p.s_q, kF32Block);
+    load_rows(dl_s, p.delta + (long long)bh * p.s_pad, q0, p.s_q, kF32Block);
     __syncthreads();
 
 #pragma unroll
@@ -1080,7 +1177,7 @@ flash_bwd_dq_f32(const BwdParams p) {
   const int row = q0 + r;
   const bool valid = row < p.s_q;
   const float lse_r = valid ? p.lse[(long long)bh * p.s_q + row] : 0.f;
-  const float dl_r = valid ? p.delta[(long long)bh * p.s_q + row] : 0.f;
+  const float dl_r = valid ? p.delta[(long long)bh * p.s_pad + row] : 0.f;
 
   load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
   load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
@@ -1177,52 +1274,63 @@ cudaError_t launch_d(const Params& p, int batch, int batch_heads, bool bf16,
                 batch_heads, stream);
 }
 
-// One 64-key (32 for float32) tile a CTA: the grid runs over S_k.
+// The backward: flash_bwd_prep, then for bf16 the fused kernel (q/k/v/dout
+// tensor maps built here, per call, from the pointers and strides in `p`;
+// 384 threads and BwdSmem<D> bytes a CTA, one CTA per (b*h, 128 keys)) and
+// the dQ conversion; for float32 the two CUDA-core kernels (32 keys, then
+// 32 query rows a CTA).
 template <int D>
-cudaError_t launch_dkv(const BwdParams& p, int batch_heads, bool bf16,
-                       cudaStream_t stream) {
+cudaError_t launch_bwd(const BwdParams& p, bool bf16, cudaStream_t stream) {
+  const int n_bh = p.batch * p.heads;
+  const unsigned prep_grid = (unsigned)n_bh * (unsigned)(p.s_pad / kBwdBlockM);
   if (bf16) {
-    return launch(flash_bwd_dkv_bf16<D, kBlockM>, BwdTiles<D, kBlockM>::kBytes,
-                  kBlockN, p.s_k, p, batch_heads, stream);
+    flash_bwd_prep<true, D><<<prep_grid, kThreads, 0, stream>>>(p);
+  } else {
+    flash_bwd_prep<false, D><<<prep_grid, kThreads, 0, stream>>>(p);
   }
-  return launch(flash_bwd_dkv_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
-                p.s_k, p, batch_heads, stream);
-}
-
-// One 64-row (32 for float32) query tile a CTA: the grid runs over S_q.
-template <int D>
-cudaError_t launch_dq(const BwdParams& p, int batch_heads, bool bf16,
-                      cudaStream_t stream) {
-  if (bf16) {
-    return launch(flash_bwd_dq_bf16<D>, 6 * Tiles<D>::kElems * 2, kBlockM,
-                  p.s_q, p, batch_heads, stream);
-  }
-  return launch(flash_bwd_dq_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
-                p.s_q, p, batch_heads, stream);
-}
-
-// The backward's checks and parameters, shared by both entry points.
-// `strides` holds (B, H, S) element strides of q, k, v, do and then of each
-// output in `outs` order.
-cudaError_t bwd_params(BwdParams* p, const void* q, const void* k,
-                       const void* v, const void* dout, const float* lse,
-                       const float* delta, int batch, int heads, int s_q,
-                       int s_k, const long long* strides, float scale,
-                       int causal, int device) {
-  if (batch < 1 || heads < 1 || s_q < 1 || s_k < 1 ||
-      (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
-    return cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  p->q = q; p->k = k; p->v = v; p->dout = dout; p->lse = lse; p->delta = delta;
-  p->q_sb = strides[0]; p->q_sh = strides[1]; p->q_ss = strides[2];
-  p->k_sb = strides[3]; p->k_sh = strides[4]; p->k_ss = strides[5];
-  p->v_sb = strides[6]; p->v_sh = strides[7]; p->v_ss = strides[8];
-  p->do_sb = strides[9]; p->do_sh = strides[10]; p->do_ss = strides[11];
-  p->heads = heads; p->s_q = s_q; p->s_k = s_k; p->causal = causal;
-  p->scale = scale;
-  return cudaSuccess;
+  if (!bf16) {
+    err = launch(flash_bwd_dkv_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
+                 p.s_k, p, n_bh, stream);
+    if (err != cudaSuccess) return err;
+    return launch(flash_bwd_dq_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
+                  p.s_q, p, n_bh, stream);
+  }
+  BwdMaps maps;
+  err = hopper::make_operand_map(&maps.q, p.q, D, p.s_q, p.heads, p.batch,
+                                 p.q_sb, p.q_sh, p.q_ss, kBwdBlockM,
+                                 &maps.q_sel);
+  if (err == cudaSuccess) {
+    err = hopper::make_operand_map(&maps.dout, p.dout, D, p.s_q, p.heads,
+                                   p.batch, p.do_sb, p.do_sh, p.do_ss,
+                                   kBwdBlockM, &maps.do_sel);
+  }
+  if (err == cudaSuccess) {
+    err = hopper::make_operand_map(&maps.k, p.k, D, p.s_k, p.heads, p.batch,
+                                   p.k_sb, p.k_sh, p.k_ss, kBwdBlockN,
+                                   &maps.k_sel);
+  }
+  if (err == cudaSuccess) {
+    err = hopper::make_operand_map(&maps.v, p.v, D, p.s_k, p.heads, p.batch,
+                                   p.v_sb, p.v_sh, p.v_ss, kBwdBlockN,
+                                   &maps.v_sel);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = BwdSmem<D>::kBytes;
+  err = cudaFuncSetAttribute(flash_bwd_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid =
+      (unsigned)n_bh * (unsigned)((p.s_k + kBwdBlockN - 1) / kBwdBlockN);
+  flash_bwd_wgmma<D><<<grid, kBwdThreads, smem, stream>>>(p, maps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long threads = (long long)n_bh * p.s_q * (D / 8);
+  flash_bwd_dq_convert<D><<<(unsigned)((threads + 255) / 256), 256, 0,
+                            stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1279,56 +1387,64 @@ extern "C" int ai4e_flash_attention_fwd_smem(int d) {
   }
 }
 
-// C entry points of the backward, bound with ctypes. q/k/v/dout and the
-// outputs are device arrays of float32 (`bf16` == 0) or bfloat16 (`bf16` ==
-// 1) with unit stride on D, every row 16-byte aligned; `lse` and `delta` are
-// contiguous float32 (B, H, S_q) device arrays: the forward's logsumexp and
-// rowsum(dout * out). `strides` holds (B, H, S) element strides of q, k, v
-// and dout, then of the outputs: dk and dv (18 in all) for dkv, dq (15) for
-// dq. `scale` is D**-0.5. Return cudaGetLastError() after the launch.
-extern "C" int ai4e_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv, int batch,
-    int heads, int s_q, int s_k, int d, const long long* strides, float scale,
-    int causal, int bf16, void* stream, int device) {
-  BwdParams p;
-  cudaError_t err = bwd_params(&p, q, k, v, dout, lse, delta, batch, heads,
-                               s_q, s_k, strides, scale, causal, device);
+// C entry point of the backward, bound with ctypes. q/k/v/out/dout and the
+// gradients dq/dk/dv are device arrays of float32 (`bf16` == 0) or bfloat16
+// (`bf16` == 1) with unit stride on D, every row 16-byte aligned; `lse` is
+// the forward's contiguous float32 (B, H, S_q) logsumexp. `strides` holds
+// 24 element strides: (B, H, S) of q, k, v, dout, out, dq, dk and dv, in that
+// order. `work` is float32 device scratch that the kernels fill: B * H *
+// s_pad * (2 + D) floats for bf16, B * H * s_pad * 2 for float32, s_pad =
+// S_q rounded up to a multiple of 64. `scale` is D**-0.5. Returns
+// cudaGetLastError() after the last launch, or cudaErrorInvalidValue for a
+// shape the kernels do not take or a tensor map the driver refuses.
+extern "C" int ai4e_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const float* lse, float* work, void* dq, void* dk,
+    void* dv, int batch, int heads, int s_q, int s_k, int d,
+    const long long* strides, float scale, int causal, int bf16, void* stream,
+    int device) {
+  if (batch < 1 || heads < 1 || s_q < 1 || s_k < 1 ||
+      (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  p.dq = nullptr; p.dk = dk; p.dv = dv;
-  p.dq_sb = p.dq_sh = p.dq_ss = 0;
-  p.dk_sb = strides[12]; p.dk_sh = strides[13]; p.dk_ss = strides[14];
-  p.dv_sb = strides[15]; p.dv_sh = strides[16]; p.dv_ss = strides[17];
+  BwdParams p;
+  p.q = q; p.k = k; p.v = v; p.out = out; p.dout = dout; p.lse = lse;
+  p.dq = dq; p.dk = dk; p.dv = dv;
+  p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
+  p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
+  p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
+  p.do_sb = strides[9]; p.do_sh = strides[10]; p.do_ss = strides[11];
+  p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_ss = strides[14];
+  p.dq_sb = strides[15]; p.dq_sh = strides[16]; p.dq_ss = strides[17];
+  p.dk_sb = strides[18]; p.dk_sh = strides[19]; p.dk_ss = strides[20];
+  p.dv_sb = strides[21]; p.dv_sh = strides[22]; p.dv_ss = strides[23];
+  p.batch = batch; p.heads = heads; p.s_q = s_q; p.s_k = s_k;
+  p.s_pad = (s_q + kBwdBlockM - 1) / kBwdBlockM * kBwdBlockM;
+  p.causal = causal; p.scale = scale;
+  const long long rows = (long long)batch * heads * p.s_pad;
+  p.lse2 = work;
+  p.delta = work + rows;
+  p.dq_acc = bf16 ? work + 2 * rows : nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int bh = batch * heads;
   switch (d) {
-    case 16: return (int)launch_dkv<16>(p, bh, bf16 != 0, s);
-    case 32: return (int)launch_dkv<32>(p, bh, bf16 != 0, s);
-    case 64: return (int)launch_dkv<64>(p, bh, bf16 != 0, s);
-    case 128: return (int)launch_dkv<128>(p, bh, bf16 != 0, s);
+    case 16: return (int)launch_bwd<16>(p, bf16 != 0, s);
+    case 32: return (int)launch_bwd<32>(p, bf16 != 0, s);
+    case 64: return (int)launch_bwd<64>(p, bf16 != 0, s);
+    case 128: return (int)launch_bwd<128>(p, bf16 != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int ai4e_flash_attention_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, int batch, int heads,
-    int s_q, int s_k, int d, const long long* strides, float scale,
-    int causal, int bf16, void* stream, int device) {
-  BwdParams p;
-  cudaError_t err = bwd_params(&p, q, k, v, dout, lse, delta, batch, heads,
-                               s_q, s_k, strides, scale, causal, device);
-  if (err != cudaSuccess) return (int)err;
-  p.dq = dq; p.dk = nullptr; p.dv = nullptr;
-  p.dq_sb = strides[12]; p.dq_sh = strides[13]; p.dq_ss = strides[14];
-  p.dk_sb = p.dk_sh = p.dk_ss = p.dv_sb = p.dv_sh = p.dv_ss = 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int bh = batch * heads;
+// Dynamic shared memory of one CTA of the fused bf16 backward at head dim
+// `d`, in bytes (0 for a head dim it does not take): for reports.
+extern "C" int ai4e_flash_attention_bwd_smem(int d) {
   switch (d) {
-    case 16: return (int)launch_dq<16>(p, bh, bf16 != 0, s);
-    case 32: return (int)launch_dq<32>(p, bh, bf16 != 0, s);
-    case 64: return (int)launch_dq<64>(p, bh, bf16 != 0, s);
-    case 128: return (int)launch_dq<128>(p, bh, bf16 != 0, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 16: return (int)BwdSmem<16>::kBytes;
+    case 32: return (int)BwdSmem<32>::kBytes;
+    case 64: return (int)BwdSmem<64>::kBytes;
+    case 128: return (int)BwdSmem<128>::kBytes;
+    default: return 0;
   }
 }

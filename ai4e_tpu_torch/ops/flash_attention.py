@@ -11,9 +11,9 @@ materialised score matrix, which the tests hold against the JAX package and
 Where autograd records (grad enabled and an input requires grad),
 ``flash_attention`` goes through ``_FlashAttention``, the counterpart of the
 TPU's ``_flash3`` custom VJP: the forward also returns the float32
-logsumexp and saves q, k, v, out and lse; the backward computes
-Delta = rowsum(dO * O) in float32 and launches the two backward kernels,
-dK/dV and dQ, which rebuild P from lse (``flash_attention_bwd``; on the CPU
+logsumexp and saves q, k, v, out and lse; the backward launches the
+hand-written backward, which computes Delta = rowsum(dO * O) in float32 and
+rebuilds P from lse (``flash_attention_bwd``; on the CPU
 ``flash_attention_bwd_plain``). Under ``no_grad``/``inference_mode`` the
 served path computes no lse and saves nothing.
 
@@ -33,13 +33,15 @@ import torch
 from . import _native
 
 #: Kernel launches on CUDA tensors since import (or since a caller reset
-#: them): the forward, the dK/dV backward and the dQ backward.
+#: them): the forward, and the backward (one per ``flash_bwd_cuda`` call,
+#: which launches its preparation pass, the fused kernel and the dQ
+#: conversion).
 launches = 0
-bwd_dkv_launches = 0
-bwd_dq_launches = 0
+bwd_launches = 0
 
 NEG_INF = -1e30  # the TPU kernel's mask value and initial running max
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+BWD_BLOCK_M = 64  # the backward's query tile: its scratch rows are padded to it
 #: How far the kernel's output may lie from ``flash_attention_plain``'s on
 #: the same inputs (see ``tolerance``), and its logsumexp (abs).
 FLOAT32_ATOL, BFLOAT16_ATOL, LSE_ATOL = 2e-5, 1e-2, 1e-4
@@ -98,7 +100,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     """``_flash3`` with ``_flash3_fwd``/``_flash3_bwd`` of the TPU package:
     the forward keeps q, k, v, out and the float32 lse; the backward
-    rebuilds P from lse in the two backward kernels."""
+    rebuilds P from lse in the backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -120,9 +122,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, causal: bool = False):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)`` for
     the upstream gradient ``do`` of its output ``out``, whose float32
-    logsumexp is ``lse`` (B, H, S_q). On a CUDA tensor: Delta =
-    rowsum(do * out) in float32 here, then the dK/dV kernel and the dQ
-    kernel. On a CPU tensor: ``flash_attention_bwd_plain``."""
+    logsumexp is ``lse`` (B, H, S_q). On a CUDA tensor:
+    ``flash_bwd_cuda``. On a CPU tensor: ``flash_attention_bwd_plain``."""
     _check(q, k, v, causal)
     if do.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} and out {tuple(out.shape)} "
@@ -136,19 +137,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     if q.shape[0] == 0 or q.shape[2] == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    do = do.to(q.dtype)
+    do, out = do.to(q.dtype), out.to(q.dtype)
     if do.stride(3) != 1:
         do = do.contiguous()
-    delta = bwd_delta(out, do)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, lse, delta, do, causal)
-    dq = flash_bwd_dq_cuda(q, k, v, lse, delta, do, causal)
-    return dq, dk, dv
+    if out.stride(3) != 1:
+        out = out.contiguous()
+    return flash_bwd_cuda(q, k, v, out, lse, do, causal)
 
 
 def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """Delta = rowsum(dO * O) in float32, (B, H, S_q) contiguous: the
-    softmax Jacobian's correction, computed outside the kernels as the TPU
-    package computes it in XLA."""
+    softmax Jacobian's correction, which the TPU package computes in XLA
+    outside its kernels. The plain backward's; on the card
+    ``flash_bwd_cuda``'s preparation pass computes it."""
     return (do.float() * out.float()).sum(dim=-1).contiguous()
 
 
@@ -246,7 +247,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_rows(tensors) -> None:
     """Each (name, tensor) must start on 16 bytes with 16-byte B/H/S
-    strides: the kernels copy 16-byte row chunks with cp.async."""
+    strides: the kernels move rows as TMA boxes and 16-byte chunks."""
     for name, t in tensors:
         size = t.element_size()
         if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
@@ -287,67 +288,56 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def _check_bwd_cuda(q, k, v, lse, delta, do) -> None:
+def _check_bwd_cuda(q, k, v, out, lse, do) -> None:
     b, h, s_q, _ = q.shape
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
-    if do.dtype != q.dtype or do.shape != q.shape or do.stride(3) != 1:
-        raise ValueError(f"do must be {q.dtype} {tuple(q.shape)} with unit "
-                         f"stride on D")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (t.dtype != torch.float32 or t.shape != (b, h, s_q)
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 "
-                             f"{(b, h, s_q)} tensor")
-    _check_rows((("q", q), ("k", k), ("v", v), ("do", do)))
+    for name, t in (("do", do), ("out", out)):
+        if t.dtype != q.dtype or t.shape != q.shape or t.stride(3) != 1:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} "
+                             f"with unit stride on D")
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, s_q)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(b, h, s_q)} "
+                         f"tensor")
+    _check_rows((("q", q), ("k", k), ("v", v), ("do", do), ("out", out)))
 
 
-def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       lse: torch.Tensor, delta: torch.Tensor,
-                       do: torch.Tensor, causal: bool = False):
-    """The dK/dV kernel on CUDA tensors: (dk, dv) in k's and v's dtype,
-    (B, H, S_k, D) views of (B, S_k, H, D) memory. ``delta`` is
-    ``bwd_delta(out, do)``."""
-    global bwd_dkv_launches
-    _check_bwd_cuda(q, k, v, lse, delta, do)
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   causal: bool = False):
+    """The backward on CUDA tensors: (dq, dk, dv) in q's dtype, (B, H, S,
+    D) views of (B, S, H, D) memory. One C call launches the preparation
+    pass (Delta = rowsum(do * out) in float32, lse * log2(e), both padded to
+    a multiple of ``BWD_BLOCK_M`` rows) and then, for bfloat16, the fused
+    kernel (dK and dV in registers, dQ added into a float32 accumulator
+    that the preparation pass zeroed) and the dQ conversion; for float32,
+    the dK/dV and dQ CUDA-core kernels. The scratch (``work``) is allocated
+    here."""
+    global bwd_launches
+    _check_bwd_cuda(q, k, v, out, lse, do)
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
-    dk, dv = _bshd_like(k, s_k), _bshd_like(v, s_k)
-    strides = (ctypes.c_longlong * 18)(
+    bf16 = q.dtype == torch.bfloat16
+    s_pad = -(-s_q // BWD_BLOCK_M) * BWD_BLOCK_M
+    # lse * log2(e) and Delta; for bf16 also the (B, H, s_pad, D) dQ
+    # accumulator.
+    work = torch.empty(b * h * s_pad * (2 + (d if bf16 else 0)),
+                       dtype=torch.float32, device=q.device)
+    dq, dk, dv = _bshd_like(q, s_q), _bshd_like(k, s_k), _bshd_like(v, s_k)
+    strides = (ctypes.c_longlong * 24)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *dk.stride()[:3], *dv.stride()[:3])
-    err = _entry("bwd_dkv")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
-        s_q, s_k, d, strides, d ** -0.5, int(causal),
-        int(q.dtype == torch.bfloat16),
+        *out.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+        *dv.stride()[:3])
+    err = _entry("bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k, d, strides, d ** -0.5,
+        int(causal), int(bf16),
         torch.cuda.current_stream(q.device).cuda_stream, q.device.index or 0)
-    _native.check(err, "flash_attention dK/dV kernel")
-    bwd_dkv_launches += 1
-    return dk, dv
-
-
-def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lse: torch.Tensor, delta: torch.Tensor,
-                      do: torch.Tensor, causal: bool = False) -> torch.Tensor:
-    """The dQ kernel on CUDA tensors: dq in q's dtype, a (B, H, S_q, D)
-    view of (B, S_q, H, D) memory."""
-    global bwd_dq_launches
-    _check_bwd_cuda(q, k, v, lse, delta, do)
-    b, h, s_q, d = q.shape
-    s_k = k.shape[2]
-    dq = _bshd_like(q, s_q)
-    strides = (ctypes.c_longlong * 15)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *dq.stride()[:3])
-    err = _entry("bwd_dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, s_q, s_k, d,
-        strides, d ** -0.5, int(causal), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index or 0)
-    _native.check(err, "flash_attention dQ kernel")
-    bwd_dq_launches += 1
-    return dq
+    _native.check(err, "flash_attention backward kernels")
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -355,12 +345,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P, _I],
-    "bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P,
-                _I],
-    "bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-               ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P,
-               _I],
+    "bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P, _I],
 }
 _fns: dict = {}
 

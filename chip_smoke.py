@@ -29,19 +29,23 @@ Phases, each of which raises on failure:
    plain full attention, the flash kernel against its plain version on the
    served model's own layer-0 q/k/v, and the kernel must have launched at
    least depth times per executed batch;
-6. train then serve: both flash-attention backward kernels (dK/dV, dQ)
-   against their plain version on the card at the training shape
-   (8, 2, 4096, 128) bf16 and at ragged, causal and cross shapes in both
-   types; the full-width SeqFormer's parameter gradients on one training
-   batch with ``flash`` against ``full`` attention; ``train_longcontext``
-   (S 4096, dim 256, depth 4, heads 2, vocab 32768, batch 8, 200 steps,
-   float32 masters) on the card through the forward and both backward
-   kernels, each launched at least depth x steps times, with loss, step
-   phases, sequences/s and peak memory recorded; ``make_checkpoint``'s
-   ``.npz`` restored by ``build_worker`` and served over HTTP, sync and
-   async, on the trainer's held-out sequences, whose served accuracy must
-   be at least 0.5 and within 2 of 64 sequences of the trainer's eval;
-   then both backward kernels timed at the training shape.
+6. train then serve: the flash-attention backward (one C call: the
+   preparation pass, the fused bf16 kernel ``flash_bwd_wgmma`` and the dQ
+   conversion; CUDA-core kernels for float32) against its plain version on
+   the card at the training shape (8, 2, 4096, 128) bf16, at S_q = 129
+   and at ragged, causal and cross shapes in both types; the full-width
+   SeqFormer's parameter gradients on one training batch with ``flash``
+   against ``full`` attention; ``train_longcontext`` (S 4096, dim 256,
+   depth 4, heads 2, vocab 32768, batch 8, 200 steps, float32 masters) on
+   the card through the forward and the backward, each launched at least
+   depth x steps times, with loss, step phases, sequences/s and peak
+   memory recorded; ``make_checkpoint``'s ``.npz`` restored by
+   ``build_worker`` and served over HTTP, sync and async, on the trainer's
+   held-out sequences, whose served accuracy must be at least 0.5 and
+   within 2 of 64 sequences of the trainer's eval; then the backward timed
+   at the training shape: the whole call by CUDA events, each of its three
+   kernels by ``torch.profiler``, with the fused kernel's registers,
+   spills and shared memory from the build log.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -321,22 +325,24 @@ def check_flash(q, k, v, causal: bool, what: str) -> tuple[float, float]:
     return err, lse_err
 
 
-def flash_kernel_report() -> dict:
-    """The bf16 forward kernel at each head dim, from ``nvcc -Xptxas -v``:
-    registers a thread (the launch bound's cap; the consumer warpgroups
-    raise theirs to 232 with setmaxnreg) and spill bytes, beside its
-    dynamic shared memory a CTA."""
+def flash_kernel_report(kernel: str = "flash_fwd_wgmma",
+                        smem_entry: str = "fwd_smem") -> dict:
+    """A Hopper flash kernel (``kernel``) at each head dim, from ``nvcc
+    -Xptxas -v``: registers a thread (the launch bound's cap; the consumer
+    warpgroups raise theirs with setmaxnreg) and spill bytes, beside its
+    dynamic shared memory a CTA (``ai4e_flash_attention_<smem_entry>``)."""
     import ctypes
     import re
 
     from ai4e_tpu_torch.ops import _native
 
-    smem = _native.load("flash_attention").ai4e_flash_attention_fwd_smem
+    smem = getattr(_native.load("flash_attention"),
+                   f"ai4e_flash_attention_{smem_entry}")
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     report, d = {}, None
     for line in _native.build_log("flash_attention").splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
+            found = re.search(kernel + r"ILi(\d+)E", line)
             d = int(found.group(1)) if found else None
             if d is not None:
                 report[d] = {"smem_bytes": smem(d)}
@@ -347,7 +353,7 @@ def flash_kernel_report() -> dict:
             report[d]["registers"] = int(re.search(r"Used (\d+) registers",
                                                    line).group(1))
     if sorted(report) != [16, 32, 64, 128]:
-        raise AssertionError(f"flash_fwd_wgmma missing from the build log: "
+        raise AssertionError(f"{kernel} missing from the build log: "
                              f"{sorted(report)}")
     return report
 
@@ -817,9 +823,9 @@ def flash_bwd_plain_chunked(q, k, v, out, lse, do, causal=False,
 
 def check_flash_bwd(q, k, v, do, causal: bool,
                     what: str) -> tuple[float, float]:
-    """Both backward kernels against their plain version on the same
-    tensors (out and lse from the forward kernel); returns the max abs
-    errors of (dK/dV, dQ)."""
+    """The backward against its plain version on the same tensors (out and
+    lse from the forward kernel); returns the max abs errors of (dK/dV,
+    dQ)."""
     from ai4e_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_bwd,
                                                     grad_tolerance)
@@ -844,7 +850,8 @@ def check_flash_bwd(q, k, v, do, causal: bool,
 
 
 def phase_flash_bwd_parity() -> tuple[float, float]:
-    """The backward kernels at the training shape and at ragged, causal and
+    """The backward at the training shape, at S_q = 129 (one row past two
+    of the fused kernel's 64-row query tiles) and at ragged, causal and
     cross shapes in both types; returns the max abs errors."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
 
@@ -854,7 +861,9 @@ def phase_flash_bwd_parity() -> tuple[float, float]:
 
     b, h, s, d = BWD_TRAIN
     errs = [check_flash_bwd(*tensors(b, h, s, s, d, torch.bfloat16), False,
-                            f"training {BWD_TRAIN} bf16")]
+                            f"training {BWD_TRAIN} bf16"),
+            check_flash_bwd(*tensors(2, 3, 129, 200, d, torch.bfloat16),
+                            False, "S_q 129 x S_k 200 d128 bf16")]
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             errs.append(check_flash_bwd(
@@ -920,11 +929,10 @@ def phase_train() -> dict:
     from ai4e_tpu_torch.train.make_checkpoints import train_longcontext
 
     config = longcontext_config()
-    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.launches = fa.bwd_launches = 0
     result = train_longcontext(device="cuda")
     launches = {"flash_attention": fa.launches,
-                "flash_attention_bwd_dkv": fa.bwd_dkv_launches,
-                "flash_attention_bwd_dq": fa.bwd_dq_launches}
+                "flash_attention_bwd": fa.bwd_launches}
     steps = len(result["losses"])
     for name, n in launches.items():
         if n < config["depth"] * steps:
@@ -1006,10 +1014,36 @@ def phase_serve_trained(result: dict) -> dict:
     return serve
 
 
+def kernel_device_ms(fn, names: tuple[str, ...], reps: int = 25) -> dict:
+    """Mean device time a call of ``fn`` spends in the kernels whose names
+    contain each of ``names``, in ms, from a ``torch.profiler`` trace of
+    ``reps`` calls after warm-up. Raises if one of them did not run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = dict.fromkeys(names, 0.0)
+    for event in prof.key_averages():
+        for name in names:
+            if name in event.key:
+                times[name] += event.self_device_time_total / reps / 1e3
+    missing = [name for name, ms in times.items() if ms <= 0]
+    if missing:
+        raise AssertionError(f"no device time for {missing} in the trace")
+    return times
+
+
 def phase_flash_bwd_timing(errs: tuple[float, float],
                            launches: dict) -> list[dict]:
-    """Both backward kernels timed at the training shape, beside the plain
-    version and, as a yardstick only, SDPA's backward."""
+    """The backward timed at the training shape: the whole call
+    (``flash_attention_bwd``) by CUDA events, each of its kernels by
+    ``torch.profiler``, beside the plain version and, as a yardstick only,
+    SDPA's backward."""
     import torch.nn.functional as F
 
     from ai4e_tpu_torch.ops import flash_attention as fa
@@ -1019,48 +1053,60 @@ def phase_flash_bwd_timing(errs: tuple[float, float],
     q, k, v, do = (torch.randn(BWD_TRAIN, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
     out, lse = fa.flash_attention(q, k, v, return_lse=True)
-    delta = fa.bwd_delta(out, do)
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
     # Yardstick only, the whole backward (dq, dk, dv): the port never calls it.
     library = device_ms(lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do, retain_graph=True))
-    elems, rows = b * h * s * d, b * h * s
-    entries = []
-    for name, line, kernel, parts, products, n_mats, err in (
-            ("flash_attention_bwd_dkv", "160 (_flash_bwd_dkv_kernel)",
-             lambda: fa.flash_bwd_dkv_cuda(q, k, v, lse, delta, do), "kv",
-             4, 6, errs[0]),
-            ("flash_attention_bwd_dq", "197 (_flash_bwd_dq_kernel)",
-             lambda: fa.flash_bwd_dq_cuda(q, k, v, lse, delta, do), "q",
-             3, 5, errs[1])):
-        # q, k, v, do and the outputs read or written once in bf16; lse and
-        # Delta in float32. Two flops per multiply-add of each product.
-        bound, by = bound_ms(n_mats * elems * 2 + 2 * rows * 4,
-                            2 * products * b * h * s * s * d, BF16_OPS_PER_S)
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": "ai4e_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"ai4e_tpu/ops/pallas/flash_attention.py:{line}",
-            "shape": list(BWD_TRAIN),
-            "ms": device_ms(kernel),
-            "plain_ms": device_ms(lambda: flash_bwd_plain_chunked(
-                q, k, v, out, lse, do, parts=parts), reps=5),
-            "library_ms": library,
-            "library": "F.scaled_dot_product_attention backward (dq, dk, dv)",
-            "bound_ms": bound,
-            "bound_by": by,
-            "bound_peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
-            "max_abs_err": err,
-            "launches": launches[name],
-        }
-        log(f"  {name} {BWD_TRAIN} bf16: kernel {entry['ms']:.4f} ms "
-            f"({2 * products * b * h * s * s * d / entry['ms'] / 1e9:.1f} "
-            f"TFLOP/s), plain {entry['plain_ms']:.4f} ms, SDPA backward "
-            f"{library:.4f} ms, bound {bound:.4f} ms ({by})")
-        entries.append(entry)
-    return entries
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, out, lse, do)
+
+    parts = kernel_device_ms(call, ("flash_bwd_prep", "flash_bwd_wgmma",
+                                    "flash_bwd_dq_convert"))
+    # q, k, v, out, do read and dq, dk, dv written once in bf16, lse read in
+    # float32; five products (S, dP, dV, dK, dQ), two flops a multiply-add.
+    flops = 2 * 5 * b * h * s * s * d
+    bound, by = bound_ms(8 * b * h * s * d * 2 + b * h * s * 4, flops,
+                         BF16_OPS_PER_S)
+    entry = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "ai4e_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "ai4e_tpu/ops/pallas/flash_attention.py:160 "
+                    "(_flash_bwd_dkv_kernel) and :197 (_flash_bwd_dq_kernel)",
+        "shape": list(BWD_TRAIN),
+        # The whole call: preparation pass, fused kernel, dQ conversion.
+        "ms": device_ms(call),
+        "fused_kernel_ms": parts["flash_bwd_wgmma"],
+        "prep_ms": parts["flash_bwd_prep"],
+        "convert_ms": parts["flash_bwd_dq_convert"],
+        "plain_ms": device_ms(lambda: flash_bwd_plain_chunked(
+            q, k, v, out, lse, do), reps=5),
+        "library_ms": library,
+        "library": "F.scaled_dot_product_attention backward (dq, dk, dv)",
+        "bound_ms": bound,
+        "bound_by": by,
+        "bound_peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
+        "max_abs_err": max(errs),
+        "dkv_max_abs_err": errs[0],
+        "dq_max_abs_err": errs[1],
+        "launches": launches["flash_attention_bwd"],
+        "ptxas": flash_kernel_report("flash_bwd_wgmma", "bwd_smem"),
+    }
+    entry["tflops"] = flops / entry["ms"] / 1e9
+    entry["fused_kernel_tflops"] = flops / entry["fused_kernel_ms"] / 1e9
+    log(f"  flash_attention_bwd {BWD_TRAIN} bf16: whole call "
+        f"{entry['ms']:.4f} ms ({entry['tflops']:.1f} TFLOP/s; fused kernel "
+        f"{entry['fused_kernel_ms']:.4f} ms, {entry['fused_kernel_tflops']:.1f}"
+        f" TFLOP/s; prep {entry['prep_ms']:.4f}, convert "
+        f"{entry['convert_ms']:.4f}), plain {entry['plain_ms']:.4f} ms, SDPA "
+        f"backward {library:.4f} ms, bound {bound:.4f} ms ({by})")
+    for dd, rep in sorted(entry["ptxas"].items()):
+        log(f"  flash_bwd_wgmma D={dd}: {rep['registers']} registers, "
+            f"{rep['spill_bytes']} spill bytes, {rep['smem_bytes']} bytes of "
+            f"shared memory a CTA")
+    return [entry]
 
 
 def phase_train_then_serve() -> list[dict]:

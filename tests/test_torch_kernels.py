@@ -9,6 +9,8 @@ that has none:
 The same wrappers are held against the JAX package's Pallas kernels in
 ``test_torch_ops.py``."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -325,15 +327,42 @@ class TestFlashKernelOnCard:
 
 class TestFlashBackwardWrapper:
     def test_cpu_tensors_never_launch_a_kernel(self):
-        before = (flash_module.bwd_dkv_launches, flash_module.bwd_dq_launches)
+        before = flash_module.bwd_launches
         q, k, v = (t.requires_grad_(True) for t in random_qkv(1, 2, 40, 40, 16, 0))
         out = flash_attention(q, k, v, causal=True)
         grads = torch.autograd.grad(out.sum(), (q, k, v))
         assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
-        assert (flash_module.bwd_dkv_launches,
-                flash_module.bwd_dq_launches) == before
+        assert flash_module.bwd_launches == before
         if not torch.cuda.is_available():
-            assert before == (0, 0)
+            assert before == 0
+
+    @pytest.mark.parametrize("edit,match", [
+        (lambda t: dict(t, lse=t["lse"].transpose(1, 2).contiguous()
+                        .transpose(1, 2)), "lse must be a contiguous"),
+        (lambda t: dict(t, out=t["out"].double()), "out must be"),
+        (lambda t: dict(t, do=t["do"].transpose(2, 3).contiguous()
+                        .transpose(2, 3)), "do must be"),
+        (lambda t: dict(t, do=t["flat"][1:].view(1, 2, 8, 16)), "aligned"),
+    ], ids=["lse-strided", "out-dtype", "do-d-stride", "do-unaligned"])
+    def test_kernel_wrapper_refuses_before_launching(self, edit, match):
+        """``flash_bwd_cuda`` checks every operand before it allocates or
+        launches anything, so a bad one raises here without a card."""
+        q, k, v = random_qkv(1, 2, 8, 8, 16, 0)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        t = edit({"out": out, "lse": lse, "do": out.clone(),
+                  "flat": torch.zeros(2 * 8 * 16 + 1)})
+        before = flash_module.bwd_launches
+        with pytest.raises(ValueError, match=match):
+            flash_module.flash_bwd_cuda(q, k, v, t["out"], t["lse"], t["do"])
+        assert flash_module.bwd_launches == before
+
+    def test_one_backward_entry(self):
+        """One C entry returns dq, dk and dv: ten pointers (q, k, v, out,
+        do, lse, the scratch, dq, dk, dv), five ints, 24 strides."""
+        types = flash_module._ARGTYPES["bwd"]
+        assert set(flash_module._ARGTYPES) == {"fwd", "bwd"}
+        assert types[:10] == [ctypes.c_void_p] * 10
+        assert types[10:15] == [ctypes.c_int] * 5
 
     def test_grad_tolerance(self):
         want = torch.tensor([0.0, 0.5, -3.0, 100.0])
@@ -350,10 +379,9 @@ class TestFlashBackwardOnCard:
     @staticmethod
     def check(q, k, v, do, causal):
         out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
-        before = (flash_module.bwd_dkv_launches, flash_module.bwd_dq_launches)
+        before = flash_module.bwd_launches
         got = flash_module.flash_attention_bwd(q, k, v, out, lse, do, causal)
-        assert (flash_module.bwd_dkv_launches,
-                flash_module.bwd_dq_launches) == (before[0] + 1, before[1] + 1)
+        assert flash_module.bwd_launches == before + 1
         want = flash_module.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                       causal)
         torch.cuda.synchronize()
@@ -394,17 +422,16 @@ class TestFlashBackwardOnCard:
         up = torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(
             np.float32)).to(torch.bfloat16).to(cuda)
         seen = []
-        for name in ("flash_bwd_dkv_cuda", "flash_bwd_dq_cuda"):
-            real = getattr(flash_module, name)
-            monkeypatch.setattr(flash_module, name, lambda *a, real=real: (
-                seen.append([t.data_ptr() for t in a[:3] + a[5:6]]), real(*a))[1])
+        real = flash_module.flash_bwd_cuda
+        monkeypatch.setattr(flash_module, "flash_bwd_cuda", lambda *a: (
+            seen.append([t.data_ptr() for t in a[:3] + a[5:6]]), real(*a))[1])
         out = flash_attention(q, k, v)
         (grad,) = torch.autograd.grad(out.transpose(1, 2).reshape(b, s, h * d),
                                       qkv, up)
         do = up.view(b, s, h, d).transpose(1, 2)
         assert not do.is_contiguous()
         assert seen == [[q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         do.data_ptr()]] * 2
+                         do.data_ptr()]]
         out2, lse = flash_attention(q.detach(), k.detach(), v.detach(),
                                     return_lse=True)
         want = flash_module.flash_attention_bwd_plain(
@@ -421,3 +448,85 @@ class TestFlashBackwardOnCard:
         with pytest.raises(ValueError, match="aligned"):
             flash_module.flash_attention_bwd(q, k, v, out, lse,
                                              flat[1:].view(1, 1, 8, 16))
+
+    # The fused bf16 kernel's edges: a CTA owns 128 keys (64 for each of two
+    # consumer warpgroups) and walks query tiles of 64 rows, both loaded by
+    # TMA and zero-filled past S; dQ lands in an accumulator padded to a
+    # multiple of 64 rows.
+
+    @pytest.mark.parametrize("s_q", [63, 65, 127, 129])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_query_rows_around_the_query_tile(self, cuda, s_q, d):
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 3, s_q, 200, d, s_q))
+        do = random_qkv(2, 3, s_q, 200, d, s_q + 1)[0].to(torch.bfloat16)
+        self.check(q, k, v, do.to(cuda), causal=False)
+
+    @pytest.mark.parametrize("s_k", [127, 129, 200])
+    def test_keys_around_the_key_tile(self, cuda, s_k):
+        """S_k one off the 128-key tile, and a second tile's worth of
+        keys past it: the tile's last keys are TMA's zero rows."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 2, 130, s_k, 128, s_k))
+        do = random_qkv(2, 2, 130, s_k, 128, s_k + 1)[0].to(torch.bfloat16)
+        self.check(q, k, v, do.to(cuda), causal=False)
+
+    def test_one_key(self, cuda):
+        """S_k = 1: the other 127 keys of the CTA's tile are masked, P = 1
+        for the one key, so dv = do; the softmax over one key is constant,
+        so dq and dk are zero but for rounding (dP and Delta cancel), on
+        both sides, and are held below the bf16 tolerance's share of dv's
+        largest magnitude instead of against the plain version's noise."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 2, 130, 1, 128, 1))
+        do = random_qkv(2, 2, 130, 1, 128, 2)[0].to(torch.bfloat16).to(cuda)
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        before = flash_module.bwd_launches
+        dq, dk, dv = flash_module.flash_attention_bwd(q, k, v, out, lse, do)
+        assert flash_module.bwd_launches == before + 1
+        want = flash_module.flash_attention_bwd_plain(q, k, v, out, lse, do)[2]
+        torch.cuda.synchronize()
+        err = (dv.float() - want.float()).abs()
+        assert bool((err <= flash_module.grad_tolerance(want)).all())
+        top = float(dv.float().abs().max())
+        for g in (dq, dk):
+            assert float(g.float().abs().max()) <= (
+                flash_module.GRAD_BFLOAT16_RTOL * top)
+
+    @pytest.mark.parametrize("s", [129, 257])
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_causal_one_row_past_the_tiles(self, cuda, s, d):
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(2, 2, s, s, d, s))
+        do = random_qkv(2, 2, s, s, d, s + 1)[0].to(torch.bfloat16)
+        self.check(q, k, v, do.to(cuda), causal=True)
+
+    def test_fused_qkv_view_at_the_training_length(self, cuda):
+        """q/k/v as (B, H, S, D) views of a fused (B, S, 3, H, D)
+        projection and dO as the (B, S, H, D)-ordered view, at S = 4096."""
+        b, s, h, d = 2, 4096, 2, 128
+        rng = np.random.default_rng(11)
+        parts = torch.from_numpy(rng.standard_normal(
+            (b, s, 3, h, d)).astype(np.float32)).to(torch.bfloat16).to(cuda)
+        q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+            np.float32)).to(torch.bfloat16).to(cuda).transpose(1, 2)
+        assert q.stride(1) < q.stride(2) and not do.is_contiguous()
+        self.check(q, k, v, do, causal=False)
+
+    @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+    def test_repeat_calls(self, cuda, causal):
+        """dQ's float32 adds land in L2 in any order, so two calls on the
+        same inputs agree within the tolerance; dK and dV are summed in
+        registers and agree bit for bit."""
+        q, k, v, do = (t.to(torch.bfloat16).to(cuda) for t in
+                       random_qkv(2, 2, 1000, 1000, 128, 12)
+                       + random_qkv(2, 2, 1000, 1000, 128, 13)[:1])
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        first = flash_module.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        second = flash_module.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        err = (first[0].float() - second[0].float()).abs()
+        assert bool((err <= flash_module.grad_tolerance(second[0])).all())
+        assert torch.equal(first[1], second[1])
+        assert torch.equal(first[2], second[2])
