@@ -96,9 +96,23 @@
 // device memory with one bulk reduce-add (cp.reduce.async.bulk .add.f32,
 // done in L2). The accumulator is padded to s_pad = 64 * ceil(S_q / 64)
 // rows, so padded rows need no guard. The dS^T tile is double-buffered, so
-// one barrier per query tile orders both its reuse and the dQ tile's. dQ is
-// therefore not bitwise deterministic from run to run: its float32 adds
-// land in L2 in whatever order the CTAs reach them. P and dS are rounded to
+// one barrier per query tile orders both its reuse and the dQ tile's. By
+// default dQ is therefore not bitwise deterministic from run to run: its
+// float32 adds land in L2 in whatever order the CTAs reach them. Ordered
+// (`kOrdered`, what the wrapper asks for under PyTorch's
+// deterministic-algorithms flag), FlashAttention-3's deterministic mode: a
+// counter per (b*h, query tile, dQ column block) in device memory, zeroed
+// by the preparation pass, admits the adds in ascending key-tile order (at
+// D < 128 consumer 0 before consumer 1). A writer warp of the producer
+// warpgroup issues them, so the consumers only hand it their dQ tiles in
+// shared memory: it spins on the counter with an acquire load, and
+// increments it with release semantics once its adds are complete in L2
+// (not only their tiles read), which it checks after the next tile's adds
+// are issued. Ordered, the key tile is the grid's outer index, as under
+// causal, and under causal each CTA walks its query tiles from the last
+// one down. The
+// reference's `_flash_bwd_dq_kernel` sums each dQ tile in one program, so
+// its dQ is repeatable too. P and dS are rounded to
 // bf16 for the tensor cores, with float32 accumulation. The passes around
 // it: `flash_bwd_prep` (Delta in float32, lse * log2(e), both padded to
 // s_pad, and the accumulator zeroed: one read of dO and O) and
@@ -608,6 +622,9 @@ struct BwdParams {
   float* lse2;    // lse * log2(e)
   float* delta;   // rowsum(dO * O)
   float* dq_acc;  // bf16 only (else null): the float32 dQ accumulator
+  // Ordered dQ only (else null): kSemsPerTile counters per (b*h, 64-row
+  // query tile), zeroed by flash_bwd_prep; see flash_bwd_wgmma.
+  int* dq_sem;
   void* dq;
   void* dk;
   void* dv;
@@ -653,13 +670,19 @@ constexpr int kBwdThreads = 384;  // producer warpgroup + two consumers
 // setmaxnreg: 128 * 24 + 256 * 240 = 64512, what the launch bound leaves.
 constexpr int kBwdProducerRegs = 24, kBwdConsumerRegs = 240;
 // Named barriers: kDsReady, both consumers' dS^T are in the shared tile;
-// kDqReady + c, consumer c's dQ tile is in shared memory.
-constexpr int kDsReady = 1, kDqReady = 2;
+// kDqReady + c, consumer c's dQ tile is in shared memory. Ordered dQ:
+// kDqFull + c, consumer c's dQ tile is in shared memory for the writer
+// warp; kDqEmpty + c, the writer's add has read it.
+constexpr int kDsReady = 1, kDqReady = 2, kDqFull = 4, kDqEmpty = 6;
+// Counters of the ordered dQ a query tile: one per column block of dQ
+// (BwdSmem::kDqSplit, at most 2).
+constexpr int kSemsPerTile = 2;
 
 // The input pass of the backward, one CTA of 128 threads per (b*h, 64-row
 // tile): Delta = rowsum(dO * O) in float32 (as `bwd_delta`) and lse *
 // log2(e), zero past S_q, and for bf16 the tile of the dQ accumulator set to
-// zero. A row is read in 16-byte chunks by kLanes adjacent lanes.
+// zero, with its counters when dQ is ordered. A row is read in 16-byte
+// chunks by kLanes adjacent lanes.
 template <bool kBf16, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_prep(const BwdParams p) {
@@ -702,6 +725,9 @@ flash_bwd_prep(const BwdParams p) {
     for (int i = threadIdx.x; i < kBwdBlockM * D / 4; i += kThreads) {
       tile[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
+  }
+  if (p.dq_sem != nullptr && threadIdx.x < kSemsPerTile) {
+    p.dq_sem[((long long)bh * n_qt + it) * kSemsPerTile + threadIdx.x] = 0;
   }
 }
 
@@ -793,7 +819,9 @@ __device__ __forceinline__ void store_rows(uint16_t* out, long long ss,
   }
 }
 
-template <int D>
+// kOrdered: each dQ tile's reduce-adds land in one fixed order, so dQ is the
+// same bit for bit from call to call (see the file's header).
+template <int D, bool kOrdered>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_wgmma(const __grid_constant__ BwdParams p,
                 const __grid_constant__ BwdMaps maps) {
@@ -807,16 +835,29 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
   auto empty = [=](int st) { return bars + 8 * (1 + kBwdStages + st); };
 
   // This CTA's (b*h, key tile). Under causal the key tile is the outer
-  // index, so the tiles that own the most query tiles start first.
+  // index, so the tiles that own the most query tiles start first. Ordered,
+  // too: key tile kt's adds wait for key tile kt - 1's, so a wave that
+  // held all key tiles of a few b*h would start as a staircase of that
+  // many steps; with the key tile outer, a wave holds a few key tiles of
+  // every b*h, and the key tiles of the next wave find their turn come.
   const int n_kt = (p.s_k + kBwdBlockN - 1) / kBwdBlockN;
   const int n_bh = p.batch * p.heads;
-  const int kt = p.causal ? blockIdx.x / n_bh : blockIdx.x % n_kt;
-  const int bh = p.causal ? blockIdx.x % n_bh : blockIdx.x / n_kt;
+  const bool kt_outer = p.causal || kOrdered;
+  const int kt = kt_outer ? blockIdx.x / n_bh : blockIdx.x % n_kt;
+  const int bh = kt_outer ? blockIdx.x % n_bh : blockIdx.x / n_kt;
   const int b = bh / p.heads, h = bh % p.heads;
   const int k0 = kt * kBwdBlockN;
   const int n_qt = p.s_pad / kBwdBlockM;
   // Causal: the first query tile that reaches key k0 (`_block_relevant`).
   const int it0 = p.causal ? k0 / kBwdBlockM : 0;
+  // The n-th query tile this CTA walks. Ordered and causal, from the last
+  // down to it0: every key tile then starts on the last query tile, each
+  // one add behind the key tile before it, and a key tile with fewer query
+  // tiles ends sooner, so the lags do not add up along the diagonal as
+  // they would from it0 = 2 kt upwards.
+  const bool descend = kOrdered && p.causal;
+  const int n_tiles = n_qt - it0;
+  auto tile_of = [=](int n) { return descend ? n_qt - 1 - n : it0 + n; };
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -838,8 +879,8 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
                     k0, h, b);
       load_boxes<D>(base + S::kV, &maps.v, maps.v_sel, kv_full, kBwdBlockN,
                     k0, h, b);
-      for (int it = it0; it < n_qt; ++it) {
-        const int n = it - it0, st = n % kBwdStages;
+      for (int n = 0; n < n_tiles; ++n) {
+        const int it = tile_of(n), st = n % kBwdStages;
         hopper::mbar_wait(empty(st), ((n / kBwdStages) & 1) ^ 1);
         const int q0 = it * kBwdBlockM;
         hopper::mbar_expect_tx(full(st),
@@ -853,6 +894,61 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
                           S::kRowBytes, full(st));
         hopper::bulk_load(base + S::kDelta + st * S::kRowBytes,
                           p.delta + row, S::kRowBytes, full(st));
+      }
+    } else if (kOrdered && threadIdx.x / 32 == 1) {
+      // Ordered dQ writer (warp 1), off the consumers' path: per query tile
+      // it takes each consumer's dQ tile from shared memory and adds it
+      // into the accumulator once the tile's counter reads kt (every key
+      // tile below kt reaches query tile `it`: under causal key tile j
+      // starts at query tile 2j <= 2kt <= it); at D < 128 consumer 0's add
+      // is done before consumer 1's is issued. It then hands the shared
+      // tiles back, and releases a tile's counters once its adds are done
+      // in L2, checked after the next tile's are issued. A CTA waits only
+      // on lower key tiles of its b*h, which with the key tile as the
+      // grid's outer index are CTAs launched before it, resident or done:
+      // no deadlock.
+      const int lane = threadIdx.x % 32;
+      int* prev = nullptr;
+      for (int n = 0; n < n_tiles; ++n) {
+        const int it = tile_of(n);
+        int* const sem = p.dq_sem + ((long long)bh * n_qt + it) * kSemsPerTile;
+        float* const acc = p.dq_acc + ((long long)bh * p.s_pad +
+                                       it * kBwdBlockM) * D;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          hopper::named_barrier_sync(kDqFull + c, 160);
+          if (lane == 0) {
+            const int blk = S::kDqSplit == 2 ? c : 0;
+            if (c == 0 || S::kDqSplit == 2) {
+              hopper::sem_wait_eq(sem + blk, kt);
+            } else {
+              hopper::bulk_wait<0>();  // same tile: consumer 0's add first
+            }
+            hopper::bulk_reduce_add(acc + blk * kBwdBlockM * S::kDqCols,
+                                    base + S::kDQ + c * S::kDqBytes,
+                                    S::kDqBytes);
+            hopper::bulk_commit();
+          }
+        }
+        if (lane == 0) hopper::bulk_wait_read<0>();
+        __syncwarp();
+        if (n + 1 < n_tiles) {
+          hopper::named_barrier_arrive(kDqEmpty, 160);
+          hopper::named_barrier_arrive(kDqEmpty + 1, 160);
+        }
+        if (lane == 0 && prev != nullptr) {
+          hopper::bulk_wait<S::kDqSplit>();  // this tile's adds may pend
+          for (int blk = 0; blk < S::kDqSplit; ++blk) {
+            hopper::sem_release_inc(prev + blk);
+          }
+        }
+        prev = sem;
+      }
+      if (lane == 0 && prev != nullptr) {
+        hopper::bulk_wait<0>();
+        for (int blk = 0; blk < S::kDqSplit; ++blk) {
+          hopper::sem_release_inc(prev + blk);
+        }
       }
     }
   } else {
@@ -875,8 +971,8 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
     for (int i = 0; i < D / 2; ++i) dv[i] = dk[i] = 0.f;
 
     hopper::mbar_wait(kv_full, 0);
-    for (int it = it0; it < n_qt; ++it) {
-      const int n = it - it0, st = n % kBwdStages;
+    for (int n = 0; n < n_tiles; ++n) {
+      const int it = tile_of(n), st = n % kBwdStages;
       const int q0 = it * kBwdBlockM;
       const uint32_t q_tile = base + S::kQ + st * S::kQBytes;
       const uint32_t do_tile = base + S::kDO + st * S::kQBytes;
@@ -968,8 +1064,9 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
       }
       hopper::wgmma_commit();
 
-      // Both dS^T are in; this consumer's last dQ reduce has read its tile.
-      if (tid == 0) hopper::bulk_wait_read<0>();
+      // Both dS^T are in; this consumer's last dQ reduce has read its tile
+      // (ordered: the writer warp's, waited for below).
+      if (!kOrdered && tid == 0) hopper::bulk_wait_read<0>();
       hopper::named_barrier_sync(kDsReady, 256);
       // dQ (64 queries x kDqCols from column dq_box * kDqCols) += dS.K over
       // keys [dq_key0, dq_key0 + kDqKeys) of the tile (see BwdSmem).
@@ -990,7 +1087,9 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
       hopper::fence_operand(dq);
       if (lane == 0) hopper::mbar_arrive(empty(st));
       // The tile in register order, float4 j * 128 + tid = dq[4j .. 4j+3],
-      // then one bulk reduce-add into the accumulator's tile.
+      // then one bulk reduce-add into the accumulator's tile (ordered: by
+      // the writer warp, once it has read the tile before).
+      if (kOrdered && n > 0) hopper::named_barrier_sync(kDqEmpty + c, 160);
       float4* tile = reinterpret_cast<float4*>(smem + S::kDQ + c * S::kDqBytes);
 #pragma unroll
       for (int j = 0; j < S::kDqCols / 8; ++j) {
@@ -998,13 +1097,17 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
             make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
       }
       hopper::fence_proxy_async();
-      hopper::named_barrier_sync(kDqReady + c, 128);
-      if (tid == 0) {
-        hopper::bulk_reduce_add(
-            p.dq_acc + ((long long)bh * p.s_pad + q0) * D +
-                dq_box * kBwdBlockM * S::kDqCols,
-            base + S::kDQ + c * S::kDqBytes, S::kDqBytes);
-        hopper::bulk_commit();
+      if constexpr (kOrdered) {
+        hopper::named_barrier_arrive(kDqFull + c, 160);
+      } else {
+        hopper::named_barrier_sync(kDqReady + c, 128);
+        if (tid == 0) {
+          hopper::bulk_reduce_add(
+              p.dq_acc + ((long long)bh * p.s_pad + q0) * D +
+                  dq_box * kBwdBlockM * S::kDqCols,
+              base + S::kDQ + c * S::kDqBytes, S::kDqBytes);
+          hopper::bulk_commit();
+        }
       }
     }
     // The shared dQ tile must outlive the last reduce.
@@ -1318,13 +1421,15 @@ cudaError_t launch_bwd(const BwdParams& p, bool bf16, cudaStream_t stream) {
   }
   if (err != cudaSuccess) return err;
   const size_t smem = BwdSmem<D>::kBytes;
-  err = cudaFuncSetAttribute(flash_bwd_wgmma<D>,
+  auto* const kernel = p.dq_sem != nullptr ? flash_bwd_wgmma<D, true>
+                                           : flash_bwd_wgmma<D, false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid =
       (unsigned)n_bh * (unsigned)((p.s_k + kBwdBlockN - 1) / kBwdBlockN);
-  flash_bwd_wgmma<D><<<grid, kBwdThreads, smem, stream>>>(p, maps);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(p, maps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long threads = (long long)n_bh * p.s_q * (D / 8);
@@ -1394,15 +1499,17 @@ extern "C" int ai4e_flash_attention_fwd_smem(int d) {
 // 24 element strides: (B, H, S) of q, k, v, dout, out, dq, dk and dv, in that
 // order. `work` is float32 device scratch that the kernels fill: B * H *
 // s_pad * (2 + D) floats for bf16, B * H * s_pad * 2 for float32, s_pad =
-// S_q rounded up to a multiple of 64. `scale` is D**-0.5. Returns
+// S_q rounded up to a multiple of 64; `ordered` (bf16 only) adds the dQ
+// adds' counters, B * H * s_pad / 32 int32 after those, and makes dq the
+// same bit for bit from call to call. `scale` is D**-0.5. Returns
 // cudaGetLastError() after the last launch, or cudaErrorInvalidValue for a
 // shape the kernels do not take or a tensor map the driver refuses.
 extern "C" int ai4e_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* work, void* dq, void* dk,
     void* dv, int batch, int heads, int s_q, int s_k, int d,
-    const long long* strides, float scale, int causal, int bf16, void* stream,
-    int device) {
+    const long long* strides, float scale, int causal, int bf16, int ordered,
+    void* stream, int device) {
   if (batch < 1 || heads < 1 || s_q < 1 || s_k < 1 ||
       (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
     return (int)cudaErrorInvalidValue;
@@ -1427,6 +1534,9 @@ extern "C" int ai4e_flash_attention_bwd(
   p.lse2 = work;
   p.delta = work + rows;
   p.dq_acc = bf16 ? work + 2 * rows : nullptr;
+  p.dq_sem = bf16 && ordered
+                 ? reinterpret_cast<int*>(work + (2 + (long long)d) * rows)
+                 : nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (d) {
     case 16: return (int)launch_bwd<16>(p, bf16 != 0, s);

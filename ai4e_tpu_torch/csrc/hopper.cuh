@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: TMA tensor
 // maps and loads, mbarrier rings, wgmma shared-memory descriptors and the
-// wgmma instructions themselves, the fences around them, setmaxnreg and
-// named barriers. Inline PTX only, no CUTLASS.
+// wgmma instructions themselves, the fences around them, setmaxnreg,
+// named barriers and counters that order work across CTAs. Inline PTX
+// only, no CUTLASS.
 //
 // Conventions the kernels rely on:
 // - A bf16 tile of R rows and C columns is loaded by TMA as C / W boxes of
@@ -224,6 +225,35 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A counter in device memory that orders work across CTAs. One thread
+// spins until `*sem == value` (an acquire load at GPU scope; traps after
+// about 2^35 clocks, as mbar_wait does, instead of hanging the card), and
+// after its own work is complete adds one with release semantics. The proxy
+// fences order the counter against this thread's bulk copies, which run in
+// the async proxy: the wait before the copies it guards are issued, and the
+// copies' completion (bulk_wait) before the release.
+__device__ __forceinline__ void sem_wait_eq(const int* sem, int value) {
+  long long start = 0;
+  while (true) {
+    int seen;
+    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
+                 : "=r"(seen) : "l"(sem) : "memory");
+    if (seen == value) break;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void sem_release_inc(int* sem) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], 1;\n"
+               :: "l"(sem) : "memory");
 }
 
 // Orders this thread's ordinary writes to shared memory before later reads

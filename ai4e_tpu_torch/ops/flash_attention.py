@@ -42,6 +42,7 @@ bwd_launches = 0
 NEG_INF = -1e30  # the TPU kernel's mask value and initial running max
 HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
 BWD_BLOCK_M = 64  # the backward's query tile: its scratch rows are padded to it
+BWD_SEMS_PER_TILE = 2  # int32 counters of the ordered dQ a query tile
 #: How far the kernel's output may lie from ``flash_attention_plain``'s on
 #: the same inputs (see ``tolerance``), and its logsumexp (abs).
 FLOAT32_ATOL, BFLOAT16_ATOL, LSE_ATOL = 2e-5, 1e-2, 1e-4
@@ -313,16 +314,20 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel (dK and dV in registers, dQ added into a float32 accumulator
     that the preparation pass zeroed) and the dQ conversion; for float32,
     the dK/dV and dQ CUDA-core kernels. The scratch (``work``) is allocated
-    here."""
+    here. Under ``torch.use_deterministic_algorithms(True)`` the fused
+    kernel orders its dQ adds (``ordered_dq``), so dq, like dk and dv, is
+    the same bit for bit from call to call."""
     global bwd_launches
     _check_bwd_cuda(q, k, v, out, lse, do)
     b, h, s_q, d = q.shape
     s_k = k.shape[2]
     bf16 = q.dtype == torch.bfloat16
+    ordered = ordered_dq(q.dtype, torch.are_deterministic_algorithms_enabled())
     s_pad = -(-s_q // BWD_BLOCK_M) * BWD_BLOCK_M
     # lse * log2(e) and Delta; for bf16 also the (B, H, s_pad, D) dQ
-    # accumulator.
-    work = torch.empty(b * h * s_pad * (2 + (d if bf16 else 0)),
+    # accumulator, and when ordered its int32 counters.
+    sems = b * h * (s_pad // BWD_BLOCK_M) * BWD_SEMS_PER_TILE if ordered else 0
+    work = torch.empty(b * h * s_pad * (2 + (d if bf16 else 0)) + sems,
                        dtype=torch.float32, device=q.device)
     dq, dk, dv = _bshd_like(q, s_q), _bshd_like(k, s_k), _bshd_like(v, s_k)
     strides = (ctypes.c_longlong * 24)(
@@ -333,11 +338,22 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k, d, strides, d ** -0.5,
-        int(causal), int(bf16),
+        int(causal), int(bf16), int(ordered),
         torch.cuda.current_stream(q.device).cuda_stream, q.device.index or 0)
     _native.check(err, "flash_attention backward kernels")
     bwd_launches += 1
     return dq, dk, dv
+
+
+def ordered_dq(dtype: torch.dtype, deterministic: bool) -> bool:
+    """Whether the backward on the card orders its dQ adds, given PyTorch's
+    deterministic-algorithms flag (``deterministic``). Only the bfloat16
+    fused kernel needs to: its dQ tiles are float32 reduce-adds into L2,
+    which by default land in whatever order the CTAs reach them. The
+    float32 kernels (``flash_bwd_dkv_f32``, ``flash_bwd_dq_f32``) sum every
+    gradient in registers in a fixed order and are deterministic already,
+    as is the plain version on the CPU."""
+    return deterministic and dtype == torch.bfloat16
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -346,7 +362,8 @@ _ARGTYPES = {
     "fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P, _I],
     "bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _P, _I],
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I, _I, _P,
+            _I],
 }
 _fns: dict = {}
 

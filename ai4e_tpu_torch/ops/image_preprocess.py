@@ -21,6 +21,7 @@ from . import _native
 launches = 0
 
 _MAX_CHANNELS = 8  # kMaxChannels in csrc/image_preprocess.cu
+THREADS = 256  # kThreads: threads of a CTA
 
 
 def channel_affine(mean, std, c: int) -> tuple[np.ndarray, np.ndarray]:
@@ -59,6 +60,22 @@ def normalize_image_plain(images: torch.Tensor, scale: np.ndarray,
     return images.to(torch.float32) * s + b
 
 
+def launch_plan(n: int, c: int, resident: int) -> tuple[int, int, int]:
+    """The kernel's launch for ``n`` uint8 elements of ``c`` channels:
+    ``(grid, n_words, n_tail)``. The kernel walks the input as ``n_words``
+    4-byte words (word w to the float4 at element 4w); thread g of the
+    ``grid * THREADS`` takes words g, g + stride, g + 2 stride, ... (stride
+    = grid * THREADS), and threads g < ``n_tail`` the elements
+    ``4 * n_words + g`` past the last whole word. The grid is persistent:
+    one CTA per ``THREADS`` words, at most ``resident`` (those the card
+    holds at once), at least one, rounded up to a multiple of ``c``, so
+    the stride is a multiple of ``c`` and a thread's channel phase
+    (4 w mod c) is the same for all its words."""
+    n_words = n // 4
+    grid = max(1, min(-(-n_words // THREADS), resident))
+    return -(-grid // c) * c, n_words, n % 4
+
+
 def _normalize_cuda(images: torch.Tensor, scale: np.ndarray,
                     bias: np.ndarray) -> torch.Tensor:
     global launches
@@ -70,17 +87,21 @@ def _normalize_cuda(images: torch.Tensor, scale: np.ndarray,
     if images.data_ptr() % 16:
         images = images.clone()  # fresh allocations are 16-byte aligned
     out = torch.empty(images.shape, dtype=torch.float32, device=images.device)
+    device = images.device.index or 0
+    grid, _, _ = launch_plan(images.numel(), c, _resident(device))
     scale_c = (ctypes.c_float * c)(*scale.tolist())
     bias_c = (ctypes.c_float * c)(*bias.tolist())
     err = _entry()(images.data_ptr(), out.data_ptr(), images.numel(), c,
-                   scale_c, bias_c, torch.cuda.current_stream(images.device).cuda_stream,
-                   images.device.index or 0)
+                   scale_c, bias_c, grid,
+                   torch.cuda.current_stream(images.device).cuda_stream,
+                   device)
     _native.check(err, "normalize_image kernel")
     launches += 1
     return out
 
 
 _fn = None
+_resident_ctas: dict[int, int] = {}
 
 
 def _entry():
@@ -89,8 +110,21 @@ def _entry():
         fn = _native.load("image_preprocess").ai4e_normalize_u8
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_int, ctypes.POINTER(ctypes.c_float),
-                       ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
-                       ctypes.c_int]
+                       ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _resident(device: int) -> int:
+    """CTAs of the kernel the card ``device`` holds at once, asked once."""
+    ctas = _resident_ctas.get(device)
+    if ctas is None:
+        fn = _native.load("image_preprocess").ai4e_normalize_u8_resident
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        _native.check(fn(device, ctypes.byref(out)), "normalize_image occupancy")
+        ctas = _resident_ctas[device] = out.value
+    return ctas

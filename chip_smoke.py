@@ -5,8 +5,11 @@ Phases, each of which raises on failure:
 1. device: the card's name and power limit; CUDA must be present;
 2. build: every CUDA C++ kernel of the served path, from ``ai4e_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   served shapes and at ragged ones, then timed (kernel, plain version,
-   one-call library yardstick) with CUDA events, median of 25 runs (5 for
+   served shapes and at ragged ones (normalize bit for bit at buckets 1,
+   16 and 64, ragged, misaligned and C in {1, 3, 4, 8}), then timed
+   (kernel, plain version, one-call library yardstick; for normalize also
+   ``torch.empty(..., float32).copy_(x)``, a bandwidth yardstick of
+   another function) with CUDA events, median of 25 runs (5 for
    the flash kernel's plain version, which materialises 8.6 GB of scores
    at the served shape and runs in batch chunks). The flash forward is
    also held and timed on the served model's own layout, strided views of
@@ -33,7 +36,11 @@ Phases, each of which raises on failure:
    preparation pass, the fused bf16 kernel ``flash_bwd_wgmma`` and the dQ
    conversion; CUDA-core kernels for float32) against its plain version on
    the card at the training shape (8, 2, 4096, 128) bf16, at S_q = 129
-   and at ragged, causal and cross shapes in both types; the full-width
+   and at ragged, causal and cross shapes in both types; under
+   ``torch.use_deterministic_algorithms(True)`` (dQ's adds ordered) two
+   calls must give bit-equal dq, dk and dv, within the tolerance of the
+   plain version, at the training shape and at S = 1000 for every head
+   dim, causal and not; the full-width
    SeqFormer's parameter gradients on one training batch with ``flash``
    against ``full`` attention; ``train_longcontext`` (S 4096, dim 256,
    depth 4, heads 2, vocab 32768, batch 8, 200 steps, float32 masters) on
@@ -45,7 +52,9 @@ Phases, each of which raises on failure:
    within 2 of 64 sequences of the trainer's eval; then the backward timed
    at the training shape: the whole call by CUDA events, each of its three
    kernels by ``torch.profiler``, with the fused kernel's registers,
-   spills and shared memory from the build log.
+   spills and shared memory from the build log, and the whole call and
+   the fused kernel again under the deterministic flag
+   (``deterministic_ms``).
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -54,6 +63,7 @@ The last two lines of output are the kernels' JSON record and
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import io
 import json
 import socket
@@ -160,22 +170,27 @@ def phase_build() -> None:
 # -- phase 3: kernels ----------------------------------------------------
 
 
-def check_normalize(shape, mean, std, gen) -> float:
+def check_normalize(shape, mean, std, gen, misaligned=False) -> float:
+    """The kernel equals the plain version bit for bit (``torch.equal``);
+    ``misaligned`` takes a view one byte into its storage."""
     from ai4e_tpu_torch.ops import image_preprocess as ip
 
-    x = torch.randint(0, 256, shape, dtype=torch.uint8, generator=gen)
-    x = x.cuda()
+    n = int(np.prod(shape))
+    flat = torch.randint(0, 256, (n + int(misaligned),), dtype=torch.uint8,
+                         generator=gen).cuda()
+    x = flat[int(misaligned):].view(shape)
     got = ip.normalize_image(x, mean, std)
     scale, bias = ip.channel_affine(mean, std, shape[-1])
     want = ip.normalize_image_plain(x, scale, bias)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != torch.float32:
         raise AssertionError(f"normalize {shape}: {got.shape} {got.dtype}")
-    err = float((got - want).abs().max())
-    if not err <= 1e-6:
-        raise AssertionError(f"normalize {shape}: max abs err {err} > 1e-6")
-    log(f"  normalize {tuple(shape)}: max abs err {err}")
-    return err
+    if not torch.equal(got, want):
+        raise AssertionError(f"normalize {shape}: {int((got != want).sum())} "
+                             f"of {n} differ from the plain version")
+    log(f"  normalize {tuple(shape)}{' misaligned' if misaligned else ''}: "
+        f"exact")
+    return float((got - want).abs().max())
 
 
 def plant_ties_and_nans(logits: torch.Tensor, gen) -> torch.Tensor:
@@ -221,8 +236,16 @@ def phase_kernels() -> list[dict]:
 
     gen = torch.Generator().manual_seed(SEED)
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
-    norm_err = max(check_normalize((64, 256, 256, 3), None, None, gen),
-                   check_normalize((3, 250, 250, 3), mean, std, gen))
+    norm_err = max(
+        [check_normalize((b, 256, 256, 3), None, None, gen)
+         for b in (1, 16, 64)]
+        + [check_normalize((64, 256, 256, 3), mean, std, gen),
+           check_normalize((3, 250, 250, 3), mean, std, gen),
+           check_normalize((1, 7, 5, 3), mean, std, gen),  # n % 16 != 0
+           check_normalize((2, 31, 29, 3), mean, std, gen, misaligned=True)]
+        + [check_normalize((2, 33, 17, c), tuple(np.linspace(0.1, 0.8, c)),
+                           tuple(np.linspace(0.2, 0.9, c)), gen)
+           for c in (1, 4, 8)])
     seg_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for with_map in (False, True):
@@ -249,6 +272,10 @@ def phase_kernels() -> list[dict]:
         # No single PyTorch call widens uint8 and applies a per-channel
         # affine: the plain version is already the shortest library form.
         "library_ms": None,
+        # Bandwidth yardstick, another function: one PyTorch call that
+        # widens the same uint8 tensor and moves the same bytes, no affine.
+        "copy_yardstick_ms": device_ms(lambda: torch.empty(
+            x.shape, dtype=torch.float32, device=x.device).copy_(x)),
         "bound_ms": norm_bound,
         "bound_by": norm_by,
         "max_abs_err": norm_err,
@@ -279,6 +306,7 @@ def phase_kernels() -> list[dict]:
         log(f"  {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
             f"ms, library {k['library_ms']} ms, bound {k['bound_ms']:.4f} ms "
             f"({k['bound_by']})")
+    log(f"  normalize_image: copy_ yardstick {norm['copy_yardstick_ms']:.4f} ms")
     return [norm, seg]
 
 
@@ -330,7 +358,9 @@ def flash_kernel_report(kernel: str = "flash_fwd_wgmma",
     """A Hopper flash kernel (``kernel``) at each head dim, from ``nvcc
     -Xptxas -v``: registers a thread (the launch bound's cap; the consumer
     warpgroups raise theirs with setmaxnreg) and spill bytes, beside its
-    dynamic shared memory a CTA (``ai4e_flash_attention_<smem_entry>``)."""
+    dynamic shared memory a CTA (``ai4e_flash_attention_<smem_entry>``).
+    A second instantiation on a bool (the backward's ordered dQ) reports
+    under its head dim's ``"ordered"``."""
     import ctypes
     import re
 
@@ -339,19 +369,24 @@ def flash_kernel_report(kernel: str = "flash_fwd_wgmma",
     smem = getattr(_native.load("flash_attention"),
                    f"ai4e_flash_attention_{smem_entry}")
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    report, d = {}, None
+    report, cur = {}, None
     for line in _native.build_log("flash_attention").splitlines():
         if "Compiling entry function" in line:
-            found = re.search(kernel + r"ILi(\d+)E", line)
-            d = int(found.group(1)) if found else None
-            if d is not None:
-                report[d] = {"smem_bytes": smem(d)}
-        elif d is not None and "spill stores" in line:
+            found = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", line)
+            cur = None
+            if found:
+                d = int(found.group(1))
+                cur = report.setdefault(d, {})
+                if found.group(2) == "1":
+                    cur = cur.setdefault("ordered", {})
+                else:
+                    cur["smem_bytes"] = smem(d)
+        elif cur is not None and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill", line)
-            report[d]["spill_bytes"] = int(stores) + int(loads)
-        elif d is not None and "registers" in line:
-            report[d]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                   line).group(1))
+            cur["spill_bytes"] = int(stores) + int(loads)
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
     if sorted(report) != [16, 32, 64, 128]:
         raise AssertionError(f"{kernel} missing from the build log: "
                              f"{sorted(report)}")
@@ -874,6 +909,67 @@ def phase_flash_bwd_parity() -> tuple[float, float]:
     return max(e for e, _ in errs), max(e for _, e in errs)
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` inside, the caller's
+    setting restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def check_flash_bwd_ordered(q, k, v, do, causal: bool, what: str) -> None:
+    """Under PyTorch's deterministic flag the bf16 backward orders its dQ
+    adds: two calls must give bit-equal dq, dk and dv, each within
+    ``grad_tolerance`` of the plain version (computed outside the flag,
+    whose cuBLAS products would refuse to run under it)."""
+    from ai4e_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_bwd,
+                                                    grad_tolerance)
+
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = flash_bwd_plain_chunked(q, k, v, out, lse, do, causal)
+    with deterministic_algorithms():
+        first = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        second = flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+    notes = []
+    for name, a, b, w in zip(("dq", "dk", "dv"), first, second, want):
+        if not torch.equal(a, b):
+            bad = int((a != b).sum())
+            raise AssertionError(f"flash bwd ordered {what} {name}: {bad} of "
+                                 f"{a.numel()} differ between two calls")
+        of_tol = float(((a.float() - w.float()).abs() / grad_tolerance(w))
+                       .max())
+        notes.append(f"{name} {of_tol:.3g}")
+        if not of_tol <= 1:
+            raise AssertionError(f"flash bwd ordered {what} {name}: "
+                                 f"{of_tol:.3g} of the tolerance")
+    log(f"  flash bwd ordered {what}: two calls bit-equal; of the tolerance "
+        f"{', '.join(notes)}")
+
+
+def phase_flash_bwd_ordered() -> None:
+    """The deterministic bf16 backward at the training shape and at a
+    ragged S for every head dim, causal and not."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def tensors(b, h, s, d):
+        return tuple(torch.randn((b, h, s, d), generator=gen, device="cuda")
+                     .to(torch.bfloat16) for _ in range(4))
+
+    for causal in (False, True):
+        check_flash_bwd_ordered(*tensors(*BWD_TRAIN), causal,
+                                f"training {BWD_TRAIN} causal={causal}")
+        for d in (16, 32, 64, 128):
+            check_flash_bwd_ordered(*tensors(2, 2, 1000, d), causal,
+                                    f"(2, 2, 1000, {d}) causal={causal}")
+
+
 def longcontext_config() -> dict:
     keys = ("seq_len", "input_dim", "dim", "depth", "heads", "num_classes",
             "vocab_size")
@@ -1064,6 +1160,16 @@ def phase_flash_bwd_timing(errs: tuple[float, float],
 
     parts = kernel_device_ms(call, ("flash_bwd_prep", "flash_bwd_wgmma",
                                     "flash_bwd_dq_convert"))
+    c_out, c_lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+
+    def causal_call():
+        return fa.flash_attention_bwd(q, k, v, c_out, c_lse, do, True)
+
+    causal_ms = device_ms(causal_call)
+    with deterministic_algorithms():  # dQ's adds ordered
+        ordered_ms = device_ms(call)
+        ordered_parts = kernel_device_ms(call, ("flash_bwd_wgmma",))
+        ordered_causal_ms = device_ms(causal_call)
     # q, k, v, out, do read and dq, dk, dv written once in bf16, lse read in
     # float32; five products (S, dP, dV, dK, dQ), two flops a multiply-add.
     flops = 2 * 5 * b * h * s * s * d
@@ -1079,6 +1185,14 @@ def phase_flash_bwd_timing(errs: tuple[float, float],
         # The whole call: preparation pass, fused kernel, dQ conversion.
         "ms": device_ms(call),
         "fused_kernel_ms": parts["flash_bwd_wgmma"],
+        "causal_ms": causal_ms,
+        # Under torch.use_deterministic_algorithms(True): the whole call
+        # (with PyTorch's NaN fill of the fresh outputs and scratch, which
+        # the flag turns on) and its fused kernel; bit-equal from call to
+        # call.
+        "deterministic_ms": ordered_ms,
+        "deterministic_fused_kernel_ms": ordered_parts["flash_bwd_wgmma"],
+        "deterministic_causal_ms": ordered_causal_ms,
         "prep_ms": parts["flash_bwd_prep"],
         "convert_ms": parts["flash_bwd_dq_convert"],
         "plain_ms": device_ms(lambda: flash_bwd_plain_chunked(
@@ -1101,17 +1215,20 @@ def phase_flash_bwd_timing(errs: tuple[float, float],
         f"{entry['fused_kernel_ms']:.4f} ms, {entry['fused_kernel_tflops']:.1f}"
         f" TFLOP/s; prep {entry['prep_ms']:.4f}, convert "
         f"{entry['convert_ms']:.4f}), plain {entry['plain_ms']:.4f} ms, SDPA "
-        f"backward {library:.4f} ms, bound {bound:.4f} ms ({by})")
+        f"backward {library:.4f} ms, bound {bound:.4f} ms ({by}); "
+        f"deterministic: whole call {ordered_ms:.4f} ms, fused kernel "
+        f"{entry['deterministic_fused_kernel_ms']:.4f} ms")
     for dd, rep in sorted(entry["ptxas"].items()):
         log(f"  flash_bwd_wgmma D={dd}: {rep['registers']} registers, "
             f"{rep['spill_bytes']} spill bytes, {rep['smem_bytes']} bytes of "
-            f"shared memory a CTA")
+            f"shared memory a CTA; ordered: {rep.get('ordered')}")
     return [entry]
 
 
 def phase_train_then_serve() -> list[dict]:
     log("train: backward kernels against their plain version on the card")
     errs = phase_flash_bwd_parity()
+    phase_flash_bwd_ordered()
     phase_model_grad()
     train = phase_train()
     phase_serve_trained(train["result"])

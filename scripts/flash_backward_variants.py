@@ -1,7 +1,8 @@
 """Time the bf16 flash-attention backward against variants of itself, in
 turns, on one GPU.
 
-    python3 scripts/flash_backward_variants.py [--ablate] [--out PATH] [DIR ...]
+    python3 scripts/flash_backward_variants.py [--ablate] [--ordered]
+        [--out PATH] [DIR ...]
 
 Each DIR holds a ``flash_attention.cu`` (and the headers it includes) with
 the port's C entry points: either one backward entry
@@ -18,6 +19,10 @@ git-ignored directory::
         build/parent/ai4e_tpu_torch/csrc
 
 This checkout's kernel (``ai4e_tpu_torch/csrc``) is always included.
+A fused entry from before its ``ordered`` argument is called without
+it. ``--ordered`` adds each variant that has that argument once
+more (``<name>_ordered``), run under
+``torch.use_deterministic_algorithms(True)``: dQ's adds in a fixed order.
 ``--ablate`` adds copies of it with one part taken out, which give wrong
 gradients and serve only to price that part:
 
@@ -137,8 +142,8 @@ def ablated(name: str, out_dir: Path) -> Path:
 
 
 def ptxas_summary() -> dict:
-    """The loaded library's fused backward at D = 128 from ``nvcc -Xptxas
-    -v``: registers, spill bytes, and how many of ptxas's warnings say that
+    """The loaded library's fused backward at D = 128 (its default
+    instantiation, dQ unordered) from ``nvcc -Xptxas -v``: registers, spill bytes, and how many of ptxas's warnings say that
     wgmma instructions were serialised (C7520)."""
     import re
 
@@ -146,7 +151,8 @@ def ptxas_summary() -> dict:
     summary = {"wgmma_serialised_warnings": log.count("C7520")}
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "flash_bwd_wgmmaILi128E" in line:
+        if ("Compiling entry function" in line
+                and "flash_bwd_wgmmaILi128E" in line and "Lb1E" not in line):
             for follow in lines[i + 1:i + 4]:
                 if "spill stores" in follow:
                     stores, loads = re.findall(r"(\d+) bytes spill", follow)
@@ -196,10 +202,41 @@ def two_kernel_call(lib: ctypes.CDLL):
     return call
 
 
+def legacy_fused_call(lib: ctypes.CDLL):
+    """``flash_bwd_cuda`` on a fused entry that predates the ``ordered``
+    argument: the wrapper's call, with that argument left out."""
+    fn = lib.ai4e_flash_attention_bwd
+    types = fa._ARGTYPES["bwd"]
+    fn.argtypes, fn.restype = types[:19] + types[20:], ctypes.c_int
+
+    def call(*args, **kwargs):
+        fa._fns["bwd"] = lambda *a: fn(*a[:19], *a[20:])
+        return fa.flash_bwd_cuda(*args, **kwargs)
+    return call
+
+
+def ordered_call(*args, **kwargs):
+    """``flash_bwd_cuda`` under PyTorch's deterministic-algorithms flag."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fa.flash_bwd_cuda(*args, **kwargs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def fused_call(lib: ctypes.CDLL, csrc: Path):
+    if not hasattr(lib, "ai4e_flash_attention_bwd"):
+        return two_kernel_call(lib)
+    if "int ordered" not in (csrc / "flash_attention.cu").read_text():
+        return legacy_fused_call(lib)
+    return fa.flash_bwd_cuda
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("dirs", nargs="*", type=Path)
     parser.add_argument("--ablate", action="store_true")
+    parser.add_argument("--ordered", action="store_true")
     parser.add_argument("--out", type=Path,
                         default=ROOT / "build" / "flash_backward_variants.json")
     args = parser.parse_args()
@@ -213,15 +250,19 @@ def main() -> None:
 
     variants = {"checkout": CSRC}
     variants.update({str(d): d for d in args.dirs})
+    if args.ordered:
+        variants.update({f"{name}_ordered": csrc
+                         for name, csrc in list(variants.items())
+                         if "int ordered" in
+                         (csrc / "flash_attention.cu").read_text()})
     if args.ablate:
         work = ROOT / "build" / "flash_backward_variants"
         variants.update({n: ablated(n, work) for n in ABLATIONS})
     calls, ptxas = {}, {}
     for name, csrc in variants.items():  # build all before timing any
         lib = use(csrc)
-        calls[name] = (fa.flash_bwd_cuda
-                       if hasattr(lib, "ai4e_flash_attention_bwd")
-                       else two_kernel_call(lib))
+        calls[name] = (ordered_call if name.endswith("_ordered")
+                       else fused_call(lib, csrc))
         ptxas[name] = ptxas_summary()
         print(json.dumps({"variant": name, "ptxas": ptxas[name]}), flush=True)
 

@@ -37,6 +37,17 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the test, the
+    setting before it restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
 def planted_logits(shape, seed):
     """Random logits with ties between classes 0/1 and 2/3, NaN at class 0
     (it wins) and NaN at later classes (they never win)."""
@@ -96,6 +107,39 @@ class TestWrappers:
         assert (image_preprocess.launches, seg_postprocess.launches) == before
         if not torch.cuda.is_available():
             assert before == (0, 0)
+
+
+class TestNormalizeLaunchPlan:
+    """``launch_plan`` against the kernel's index arithmetic, written out
+    here: thread g of ``grid * THREADS`` takes words g, g + stride, ...
+    (word w is elements 4w .. 4w + 3) and threads g < n_tail the elements
+    past the last whole word."""
+
+    @pytest.mark.parametrize("n,c,resident", [
+        (64 * 256 * 256 * 3, 3, 1056),  # bucket 64: a persistent grid
+        (256 * 256 * 3, 3, 1056),       # bucket 1: one word a thread
+        (7 * 5 * 3, 3, 1056),           # ragged, under one CTA's words
+        (2 * 45 * 29 * 8 + 3, 8, 40),   # n % 4 == 3, a small cap
+        (3 * 61 * 67 * 4, 4, 7),
+        (100 * 103 * 5, 5, 13),
+        (1, 1, 1056), (3, 1, 1056), (5, 7, 1),
+    ])
+    def test_every_element_once_in_its_channel_phase(self, n, c, resident):
+        grid, n_words, n_tail = image_preprocess.launch_plan(n, c, resident)
+        threads = grid * image_preprocess.THREADS
+        assert grid % c == 0 and grid >= 1
+        assert grid <= max(resident, 1) + c - 1
+        assert 4 * n_words + n_tail == n and 0 <= n_tail < 4
+        seen = np.zeros(n, np.uint8)
+        g = np.arange(threads)
+        for w0 in range(0, n_words, threads):  # the kernel's stride loop
+            w = w0 + g[w0 + g < n_words]
+            for k in range(4):
+                seen[4 * w + k] += 1
+            # A thread's channel phase is the one of its first word.
+            assert np.array_equal((4 * w) % c, (4 * (w - w0)) % c)
+        seen[4 * n_words + g[g < n_tail]] += 1
+        assert np.all(seen == 1)
 
 
 def random_qkv(b, h, s_q, s_k, d, seed):
@@ -187,9 +231,20 @@ class TestNativeBuild:
 class TestKernelsOnCard:
     @pytest.mark.parametrize("shape,mean_std", [
         ((64, 256, 256, 3), (None, None)),
+        ((16, 256, 256, 3), (None, None)),
+        ((1, 256, 256, 3), (None, None)),
+        ((64, 256, 256, 3), IMAGENET),
         ((3, 250, 250, 3), IMAGENET),
+        ((1, 7, 5, 3), IMAGENET),  # n % 16 != 0, under one CTA's words
+        ((2, 33, 17, 1), ((0.5,), (0.25,))),
+        ((3, 61, 67, 4), ((0.1, 0.2, 0.3, 0.4), (0.2, 0.3, 0.4, 0.5))),
+        ((2, 45, 29, 8), (tuple(np.linspace(0.1, 0.8, 8)),
+                          tuple(np.linspace(0.2, 0.9, 8)))),
+        ((1, 1, 1, 1), (None, None)),
     ])
     def test_normalize_kernel_matches_plain(self, cuda, shape, mean_std):
+        """Bit for bit: the kernel rounds the multiply and the add
+        separately, as the plain version does."""
         x = torch.from_numpy(np.random.default_rng(3).integers(
             0, 256, shape, np.uint8)).to(cuda)
         before = image_preprocess.launches
@@ -197,7 +252,22 @@ class TestKernelsOnCard:
         assert image_preprocess.launches == before + 1
         scale, bias = image_preprocess.channel_affine(*mean_std, shape[-1])
         want = image_preprocess.normalize_image_plain(x, scale, bias)
-        assert float((got - want).abs().max()) <= 1e-6
+        assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("c", [1, 3, 4, 8])
+    def test_normalize_misaligned_view(self, cuda, c):
+        """A view one byte into its storage: the wrapper copies it to an
+        aligned tensor first."""
+        shape = (2, 31, 29, c)
+        flat = torch.from_numpy(np.random.default_rng(c).integers(
+            0, 256, int(np.prod(shape)) + 1, np.uint8)).to(cuda)
+        x = flat[1:].view(shape)
+        assert x.data_ptr() % 16
+        got = normalize_image(x, *IMAGENET) if c == 3 else normalize_image(x)
+        mean_std = IMAGENET if c == 3 else (None, None)
+        scale, bias = image_preprocess.channel_affine(*mean_std, c)
+        assert torch.equal(
+            got, image_preprocess.normalize_image_plain(x, scale, bias))
 
     @pytest.mark.parametrize("shape", [(64, 256, 256, 4), (3, 250, 250, 4)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -363,6 +433,34 @@ class TestFlashBackwardWrapper:
         assert set(flash_module._ARGTYPES) == {"fwd", "bwd"}
         assert types[:10] == [ctypes.c_void_p] * 10
         assert types[10:15] == [ctypes.c_int] * 5
+
+    def test_ordered_dq_follows_the_flag(self):
+        """Only the bf16 kernel orders its dQ adds, and only under PyTorch's
+        deterministic flag: the float32 kernels are deterministic as they
+        are."""
+        assert flash_module.ordered_dq(torch.bfloat16, True)
+        assert not flash_module.ordered_dq(torch.bfloat16, False)
+        assert not flash_module.ordered_dq(torch.float32, True)
+        assert not flash_module.ordered_dq(torch.float32, False)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+    def test_cpu_backward_under_the_deterministic_flag(self, deterministic,
+                                                       dtype, causal):
+        """With the flag set, a CPU tensor still takes the plain backward,
+        launches nothing, and gives the unflagged result bit for bit."""
+        q, k, v, do = (t.to(dtype) for t in random_qkv(1, 2, 70, 70, 32, 3)
+                       + random_qkv(1, 2, 70, 70, 32, 4)[:1])
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        before = flash_module.bwd_launches
+        flagged = flash_module.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   causal)
+        torch.use_deterministic_algorithms(False)
+        unflagged = flash_module.flash_attention_bwd(q, k, v, out, lse, do,
+                                                     causal)
+        assert flash_module.bwd_launches == before
+        for a, b in zip(flagged, unflagged):
+            assert torch.equal(a, b)
 
     def test_grad_tolerance(self):
         want = torch.tensor([0.0, 0.5, -3.0, 100.0])
@@ -530,3 +628,36 @@ class TestFlashBackwardOnCard:
         assert bool((err <= flash_module.grad_tolerance(second[0])).all())
         assert torch.equal(first[1], second[1])
         assert torch.equal(first[2], second[2])
+
+    @pytest.mark.parametrize("shape", [
+        (8, 2, 4096, 4096, 128),  # the training shape
+        (2, 2, 1000, 1000, 16), (2, 2, 1000, 1000, 32),
+        (2, 2, 1000, 1000, 64), (2, 2, 1000, 1000, 128),
+    ], ids=["train", "d16", "d32", "d64", "d128"])
+    @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+    def test_deterministic_repeat_calls(self, cuda, deterministic, shape,
+                                        causal):
+        """Under ``torch.use_deterministic_algorithms(True)`` the fused
+        kernel adds each dQ tile in one fixed order (key tiles ascending),
+        so two calls give dq, dk and dv bit for bit, as the reference's
+        one-program-a-tile dQ does; each within the tolerance of the plain
+        version."""
+        b, h, s_q, s_k, d = shape
+        q, k, v, do = (t.to(torch.bfloat16).to(cuda) for t in
+                       random_qkv(b, h, s_q, s_k, d, 14)
+                       + random_qkv(b, h, s_q, s_k, d, 15)[:1])
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        first = flash_module.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        second = flash_module.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        for a, b2 in zip(first, second):
+            assert torch.equal(a, b2)
+        torch.use_deterministic_algorithms(False)  # cuBLAS in the plain version
+        parts = [flash_module.flash_attention_bwd_plain(  # two sequences a call
+            q[i:i + 2], k[i:i + 2], v[i:i + 2], out[i:i + 2], lse[i:i + 2],
+            do[i:i + 2], causal) for i in range(0, b, 2)]
+        for name, g, w in zip(("dq", "dk", "dv"), first,
+                              (torch.cat(p) for p in zip(*parts))):
+            err = (g.float() - w.float()).abs()
+            assert bool((err <= flash_module.grad_tolerance(w)).all()), \
+                (name, float(err.max()))

@@ -115,10 +115,14 @@ class TestFloat32Masters:
     def test_trained_state_dict_loads_into_the_served_model(self):
         """float32 masters cast on every call give the same logits as the
         served model built in bfloat16 from the same weights (one rounding
-        either way), bit for bit."""
+        either way), bit for bit. Both models draw from their own
+        generators, so no other test's use of the global RNG reaches them;
+        a mismatch reports the process-wide settings that could steer
+        PyTorch's CPU kernels."""
         masters = create_seqformer(seq_len=64, dim=32, depth=2, heads=2,
                                    vocab_size=VOCAB, device="cpu",
-                                   param_dtype=torch.float32)
+                                   param_dtype=torch.float32,
+                                   generator=torch.Generator().manual_seed(0))
         served = create_seqformer(seq_len=64, dim=32, depth=2, heads=2,
                                   vocab_size=VOCAB, device="cpu",
                                   generator=torch.Generator().manual_seed(9))
@@ -126,7 +130,17 @@ class TestFloat32Masters:
         x = torch.from_numpy(np.random.default_rng(3).integers(
             0, VOCAB, (4, 64)))
         with torch.inference_mode():
-            assert torch.equal(masters(x), served(x))
+            got, want = masters(x), served(x)
+        assert torch.equal(got, want), {
+            "max_abs_diff": float((got - want).abs().max()),
+            "differ": int((got != want).sum()),
+            "threads": torch.get_num_threads(),
+            "mkldnn": torch.backends.mkldnn.enabled,
+            "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "default_dtype": str(torch.get_default_dtype()),
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "autocast_cpu": torch.is_autocast_enabled("cpu"),
+        }
 
 
 def jax_trainer_run(params, batches, dtype):
