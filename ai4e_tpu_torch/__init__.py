@@ -7,6 +7,9 @@ built for ``sm_90a`` at first use (``ops/_native.py``), beside a plain
 PyTorch version that CPU tensors take.
 
 Entry points: ``python -m ai4e_tpu_torch worker --models <spec.json>``
-serves; ``python -m ai4e_tpu_torch.train.make_checkpoints --out <dir>
---only longcontext`` trains a checkpoint the worker restores.
+serves; ``python -m ai4e_tpu_torch control-plane --routes <routes.json>``
+runs the gateway, task store, broker and dispatchers in front of workers
+(this half imports neither torch nor JAX);
+``python -m ai4e_tpu_torch.train.make_checkpoints --out <dir> --only
+longcontext`` trains a checkpoint the worker restores.
 """

@@ -1,0 +1,219 @@
+"""Dispatcher — drains endpoint queues and pushes tasks to backend services;
+a copy of ``ai4e_tpu/broker/dispatcher.py`` for one backend per route:
+
+- backend 429 or 503 (the backend is at its cap) — the task reads
+  "Awaiting service availability", the message goes back to the broker
+  after a jittered exponential delay from ``retry_delay``, and is
+  redelivered;
+- backend unreachable — the same, bounded by the broker's patience;
+- any other failure — the message completes and the task fails;
+- success — the message completes; the backend drives the task from there.
+
+Every status write that could land on a finished task is preceded by a
+terminal probe, so a redelivery never reopens a completed task. Not ported
+(ROADMAP A18): the result cache, admission deadlines, resilience and
+orchestration, weighted backends, tenancy accounting and the hop-ledger
+stamps.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from urllib.parse import urlparse
+
+import aiohttp
+
+from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from ..resilience.retry import backoff_s
+from ..service.task_manager import TaskManagerBase
+from ..taskstore import TaskStatus
+from ..utils.http import SessionHolder
+from .queue import InMemoryBroker, Message, base_queue_name
+
+log = logging.getLogger("ai4e_tpu_torch.dispatcher")
+
+# Backend saturation signals: 429 and the service shell's 503.
+BACKPRESSURE_CODES = (429, 503)
+AWAITING_STATUS = "Awaiting service availability"
+REQUEST_TIMEOUT_S = 300.0  # one backend POST
+
+
+def rebase_endpoint(endpoint: str, base_path: str, backend_uri: str) -> str:
+    """Graft ``endpoint``'s operation tail and query onto ``backend_uri``, so
+    the dispatch reproduces the exact call the client made against the
+    registered backend."""
+    parsed = urlparse(endpoint)  # handles bare paths too
+    path = parsed.path
+    base = base_path.rstrip("/")
+    target = backend_uri
+    if path != base and path.startswith(base + "/"):
+        target = backend_uri.rstrip("/") + path[len(base):]
+    if parsed.query:
+        target += "?" + parsed.query
+    return target
+
+
+class Dispatcher:
+    """Drains one endpoint queue, POSTing each task to ``backend_uri`` with
+    a ``taskId`` header."""
+
+    def __init__(self, broker: InMemoryBroker, queue_name: str,
+                 backend_uri: str, task_manager: TaskManagerBase,
+                 retry_delay: float = 60.0, concurrency: int = 1,
+                 metrics: MetricsRegistry | None = None):
+        self.broker = broker
+        self.queue_name = queue_name
+        self.route_path = base_queue_name(queue_name)
+        self.backend_uri = backend_uri
+        self.task_manager = task_manager
+        self.retry_delay = retry_delay
+        self.concurrency = concurrency
+        self.metrics = metrics or DEFAULT_REGISTRY
+        self._dispatched = self.metrics.counter(
+            "ai4e_dispatch_total", "Dispatch attempts by outcome")
+        self._stop = asyncio.Event()
+        self._workers: list[asyncio.Task] = []
+        # In-flight POSTs are bounded by the delivery loops.
+        self._sessions = SessionHolder(timeout=REQUEST_TIMEOUT_S, limit=0)
+
+    async def start(self) -> None:
+        self._stop.clear()
+        self._workers = [w for w in self._workers if not w.done()]
+        loop = asyncio.get_running_loop()
+        while len(self._workers) < self.concurrency:
+            self._workers.append(loop.create_task(self._run()))
+
+    async def stop(self) -> None:
+        self._stop.set()
+        for w in self._workers:
+            w.cancel()
+        await asyncio.gather(*self._workers, return_exceptions=True)
+        self._workers = []
+        await self._sessions.close()
+
+    async def _run(self) -> None:
+        while not self._stop.is_set():
+            msg = await self.broker.receive(self.queue_name, timeout=1.0)
+            if msg is None:
+                continue
+            try:
+                await self._dispatch_one(msg)
+            except asyncio.CancelledError:
+                # Shutdown mid-dispatch: hand the message back now.
+                self.broker.abandon(msg)
+                raise
+            except Exception:  # noqa: BLE001 — a dispatcher must never die
+                log.exception("dispatch of task %s crashed; redelivering",
+                              msg.task_id)
+                if not self.broker.abandon(msg):
+                    self._dispatched.inc(outcome="dead_letter",
+                                         queue=self.queue_name, backend="")
+                    if not await self.task_manager.is_terminal(msg.task_id):
+                        await self._try_update(
+                            msg.task_id, TaskStatus.DEAD_LETTER,
+                            TaskStatus.FAILED)
+
+    async def _dispatch_one(self, msg: Message) -> None:
+        target = rebase_endpoint(msg.endpoint, self.route_path,
+                                 self.backend_uri)
+        backend = urlparse(target).netloc
+        session = await self._sessions.get()
+        try:
+            async with session.post(
+                    target, data=msg.body,
+                    headers={"taskId": msg.task_id,
+                             "Content-Type": msg.content_type}) as resp:
+                status = resp.status
+                await resp.read()
+        except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
+            # Unreachable backend: the pod may be restarting; the broker's
+            # patience bounds the retries.
+            log.warning("backend %s unreachable (%s); will redeliver",
+                        target, exc)
+            await self._backpressure(msg, backend=backend)
+            return
+        if 200 <= status < 300:
+            self.broker.complete(msg)
+            self._dispatched.inc(outcome="delivered", queue=self.queue_name,
+                                 backend=backend)
+            return
+        if status in BACKPRESSURE_CODES:
+            await self._backpressure(msg, backend=backend)
+            return
+        # Permanent failure: complete the message and fail the task, unless
+        # a concurrent delivery finished it while this one was in flight.
+        self.broker.complete(msg)
+        if await self.task_manager.is_terminal(msg.task_id):
+            self._dispatched.inc(outcome="duplicate", queue=self.queue_name,
+                                 backend=backend)
+            return
+        self._dispatched.inc(outcome="failed", queue=self.queue_name,
+                             backend=backend)
+        await self._try_update(msg.task_id,
+                               f"failed - backend returned {status}",
+                               TaskStatus.FAILED)
+
+    def _redelivery_delay(self, msg: Message) -> float:
+        """Jittered exponential backoff from the message's delivery count
+        (base ``retry_delay``), capped at half the lease so a retry never
+        outlives its own lease."""
+        lease = float(getattr(self.broker, "lease_seconds", 300.0) or 300.0)
+        return backoff_s(msg.delivery_count, self.retry_delay, lease / 2.0)
+
+    async def _backpressure(self, msg: Message, backend: str) -> None:
+        self._dispatched.inc(outcome="backpressure", queue=self.queue_name,
+                             backend=backend)
+        await self._try_update(msg.task_id, AWAITING_STATUS,
+                               TaskStatus.CREATED)
+        await asyncio.sleep(self._redelivery_delay(msg))
+        if not self.broker.abandon(msg):
+            # Out of delivery budget. Re-check after the sleep: the backend
+            # may have completed the task meanwhile.
+            if await self.task_manager.is_terminal(msg.task_id):
+                self._dispatched.inc(outcome="duplicate",
+                                     queue=self.queue_name, backend=backend)
+                return
+            self._dispatched.inc(outcome="dead_letter", queue=self.queue_name,
+                                 backend=backend)
+            await self._try_update(msg.task_id, TaskStatus.DEAD_LETTER,
+                                   TaskStatus.FAILED)
+
+    async def _try_update(self, task_id: str, status: str, backend: str) -> None:
+        try:
+            await self.task_manager.update_task_status(task_id, status,
+                                                       backend_status=backend)
+        except Exception:  # noqa: BLE001 — logged; the delivery goes on
+            log.exception("could not update task %s to %r", task_id, status)
+
+
+class DispatcherPool:
+    """One dispatcher per registered endpoint queue."""
+
+    def __init__(self, broker: InMemoryBroker, task_manager: TaskManagerBase,
+                 retry_delay: float = 60.0, concurrency: int = 1,
+                 metrics: MetricsRegistry | None = None):
+        self.broker = broker
+        self.task_manager = task_manager
+        self.retry_delay = retry_delay
+        self.concurrency = concurrency
+        self.metrics = metrics
+        self.dispatchers: dict[str, Dispatcher] = {}
+
+    def register(self, queue_name: str, backend_uri: str,
+                 retry_delay: float | None = None,
+                 concurrency: int | None = None) -> Dispatcher:
+        d = Dispatcher(
+            self.broker, queue_name, backend_uri, self.task_manager,
+            retry_delay=self.retry_delay if retry_delay is None else retry_delay,
+            concurrency=self.concurrency if concurrency is None else concurrency,
+            metrics=self.metrics)
+        self.dispatchers[queue_name] = d
+        return d
+
+    async def start(self) -> None:
+        for d in self.dispatchers.values():
+            await d.start()
+
+    async def stop(self) -> None:
+        await asyncio.gather(*(d.stop() for d in self.dispatchers.values()))

@@ -1,11 +1,24 @@
-"""Command line: ``python -m ai4e_tpu_torch worker --models <spec.json>``.
+"""Command line: ``python -m ai4e_tpu_torch control-plane|worker``.
 
-Counterpart of the worker half of ``ai4e_tpu/cli.py``. It reads the same
-models.json schema (``service_name``, ``prefix``, ``models`` with
-``family`` plus the family's keyword arguments, ``sync_path``,
-``async_path``, ``maximum_concurrent_requests`` and ``checkpoint``) and
-serves on the card unless ``--device cpu`` is given. A spec key this port
-does not serve yet raises and names itself.
+Counterpart of ``ai4e_tpu/cli.py``; both read the same spec files and the
+same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
+
+- ``control-plane --routes routes.json [--port P]`` — gateway, task store
+  (its HTTP surface on the same port), broker and dispatchers in one
+  process. It imports neither torch nor JAX. routes.json is
+  ``{"apis": [{"prefix", "backend", "mode": "async"|"sync",
+  "concurrency", "retry_delay", "max_body_bytes", "internal"}]}``.
+- ``worker --models models.json [--port P] [--device cuda|cpu]`` — model
+  runtime, micro-batcher and service shell, on the card unless
+  ``--device cpu``. models.json has ``service_name``, ``prefix``,
+  ``models`` (``family`` plus the family's keyword arguments,
+  ``sync_path``, ``async_path``, ``maximum_concurrent_requests`` and
+  ``checkpoint``) and optionally ``taskstore``: the control plane's URL (a
+  comma-separated value is its replica set), whose task store then holds
+  the worker's tasks and results.
+
+A spec key, route key or ``AI4E_*`` knob the JAX package would honour and
+this port does not serve yet raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -14,18 +27,23 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 import signal
+
+from .config import ConfigError, FrameworkConfig
 
 log = logging.getLogger("ai4e_tpu_torch.cli")
 
-#: Spec keys of the JAX worker that this port does not serve yet.
-_UNPORTED_SPEC_KEYS = {
-    "taskstore": "serving behind the control plane's task store "
-                 "(HttpTaskManager/HttpResultStore)",
-}
 _UNPORTED_MODEL_KEYS = {
-    "pipeline_to": "pipeline handoffs",
-    "batch": "the batch API (serve_batch)",
+    "pipeline_to": "pipeline handoffs (ROADMAP A6.3)",
+    "batch": "the batch API, serve_batch (ROADMAP A6.3)",
+}
+_UNPORTED_ROUTE_KEYS = {
+    "backends": "weighted canary backends (ROADMAP A18.8)",
+    "autoscale": "the autoscaler (ROADMAP A18.8)",
+}
+_UNPORTED_ROUTES_SPEC_KEYS = {
+    "definitions": "typed API definitions (ROADMAP A18.8)",
 }
 
 
@@ -34,39 +52,123 @@ def load_spec(path: str) -> dict:
         return json.load(f)
 
 
-def restore_checkpoint(servable, path: str) -> None:
+# -- control plane -----------------------------------------------------------
+
+
+def build_control_plane(config: FrameworkConfig, routes: dict):
+    """Assemble the control-plane process; returns the wired platform, whose
+    gateway app also carries the task store's HTTP surface."""
+    from .platform_assembly import LocalPlatform
+    from .taskstore.http import make_app as make_taskstore_app
+
+    for key, what in _UNPORTED_ROUTES_SPEC_KEYS.items():
+        if routes.get(key):
+            raise ValueError(f"routes key {key!r} ({what}) is not ported yet")
+    platform = LocalPlatform(config.to_platform_config())
+    platform.gateway.max_body_bytes = config.gateway.max_body_bytes
+    make_taskstore_app(platform.store, app=platform.gateway.app,
+                       max_body_bytes=config.gateway.max_body_bytes,
+                       max_result_bytes=config.gateway.max_result_bytes)
+    for api in routes.get("apis", []):
+        for key, what in _UNPORTED_ROUTE_KEYS.items():
+            if key in api:
+                raise ValueError(f"route key {key!r} ({what}) is not ported "
+                                 "yet")
+        mode = api.get("mode", "async")
+        if mode == "sync":
+            platform.publish_sync_api(api["prefix"], api["backend"],
+                                      max_body_bytes=api.get("max_body_bytes"))
+        elif mode != "async":
+            raise ValueError(f"route mode {mode!r}: expected async or sync")
+        elif api.get("internal"):
+            platform.register_internal_route(
+                api["backend"], retry_delay=api.get("retry_delay"),
+                concurrency=api.get("concurrency"))
+        else:
+            platform.publish_async_api(
+                api["prefix"], api["backend"],
+                retry_delay=api.get("retry_delay"),
+                concurrency=api.get("concurrency"),
+                max_body_bytes=api.get("max_body_bytes"))
+    return platform
+
+
+async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
+    from aiohttp import web
+
+    platform = build_control_plane(config, routes)
+    runner = web.AppRunner(platform.gateway.app)
+    await runner.setup()
+    await web.TCPSite(runner, config.gateway.host, config.gateway.port).start()
+    await platform.start()
+    log.info("control plane on %s:%s (%d routes)", config.gateway.host,
+             config.gateway.port, len(platform.gateway.routes))
+    try:
+        await _wait_for_termination()
+    finally:
+        await platform.stop()
+        await runner.cleanup()
+
+
+# -- worker ------------------------------------------------------------------
+
+
+def restore_checkpoint(servable, path: str,
+                       checkpoint_dir: str | None = None) -> None:
     """Load a flax params tree saved flat with ``convert.save_npz`` into
-    ``servable.module``. An orbax checkpoint directory raises: reading it
-    needs JAX, so convert it first."""
+    ``servable.module``; a relative path resolves under ``checkpoint_dir``
+    (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working directory. An orbax
+    checkpoint directory raises: reading it needs JAX (ROADMAP A7)."""
     from .convert import load_npz
 
     if not path.endswith(".npz"):
         raise ValueError(
             f"checkpoint {path!r}: the port reads .npz trees written by "
-            "ai4e_tpu_torch.convert.save_npz; orbax restore is not ported yet")
+            "ai4e_tpu_torch.convert.save_npz; orbax restore is not ported "
+            "yet (ROADMAP A7)")
     if servable.state_dict_from_flax is None:
         raise ValueError(f"model {servable.name!r} has no weights to restore")
+    if not os.path.isabs(path):
+        path = os.path.abspath(os.path.join(checkpoint_dir or ".", path))
     servable.module.load_state_dict(
         servable.state_dict_from_flax(load_npz(path)))
     servable.checkpoint_path = path
     log.info("restored %s params from %s", servable.name, path)
 
 
-def build_worker(models: dict, device=None, max_wait_ms: float = 5.0,
-                 max_pending: int = 256):
+def _stores(models: dict, config: FrameworkConfig):
+    """``(task_manager, result_store)``: on the control plane's task store
+    when the spec (or ``AI4E_GATEWAY_TASKSTORE_GET_URI``) names it, else a
+    store of the worker's own."""
+    from .service.task_manager import (HttpResultStore, HttpTaskManager,
+                                       LocalTaskManager)
+    from .taskstore import InMemoryTaskStore
+
+    base = models.get("taskstore") or config.gateway.taskstore_get_uri
+    if not base:
+        store = InMemoryTaskStore()
+        return LocalTaskManager(store), store
+    if isinstance(base, str) and "," in base:
+        # The control plane's replica set, primary first.
+        base = [u.strip() for u in base.split(",") if u.strip()]
+    return HttpTaskManager(base), HttpResultStore(base)
+
+
+def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
+                 max_pending: int | None = None,
+                 config: FrameworkConfig | None = None):
     """Assemble a worker from a models spec; returns ``(worker, batcher,
-    task_manager)``. ``device`` defaults to ``cuda``."""
+    task_manager)``. ``device`` defaults to ``cuda``; ``config`` (default:
+    every section at its defaults) supplies the batcher's window and
+    capacity unless ``max_wait_ms``/``max_pending`` are given."""
     from .metrics import MetricsRegistry
     from .runtime.batcher import MicroBatcher
     from .runtime.families import build_servable
     from .runtime.registry import ModelRuntime
     from .runtime.worker import InferenceWorker
-    from .service.task_manager import LocalTaskManager
-    from .taskstore import InMemoryTaskStore
 
-    for key, what in _UNPORTED_SPEC_KEYS.items():
-        if key in models:
-            raise ValueError(f"spec key {key!r} ({what}) is not ported yet")
+    config = config or FrameworkConfig()
+    rt = config.runtime
     runtime = ModelRuntime(device=device)
     to_serve = []
     for spec in models.get("models", []):
@@ -83,19 +185,22 @@ def build_worker(models: dict, device=None, max_wait_ms: float = 5.0,
         checkpoint = spec.pop("checkpoint", None)
         servable = build_servable(family, **spec)
         if checkpoint:
-            restore_checkpoint(servable, checkpoint)
+            restore_checkpoint(servable, checkpoint, rt.checkpoint_dir)
         runtime.register(servable)
         to_serve.append((servable, sync_path, async_path, cap))
 
+    task_manager, store = _stores(models, config)
     metrics = MetricsRegistry()
-    store = InMemoryTaskStore()
-    task_manager = LocalTaskManager(store)
-    batcher = MicroBatcher(runtime, max_wait_ms=max_wait_ms,
-                           max_pending=max_pending, metrics=metrics)
+    batcher = MicroBatcher(
+        runtime,
+        max_wait_ms=rt.batch_max_wait_ms if max_wait_ms is None else max_wait_ms,
+        max_pending=rt.batch_max_pending if max_pending is None else max_pending,
+        metrics=metrics)
     worker = InferenceWorker(models.get("service_name", "gpu-worker"), runtime,
                              batcher, task_manager=task_manager,
                              prefix=models.get("prefix", "v1"),
-                             metrics=metrics, store=store)
+                             metrics=metrics, store=store,
+                             executor_workers=config.service.executor_workers)
     for servable, sync_path, async_path, cap in to_serve:
         worker.serve_model(servable, sync_path=sync_path,
                            async_path=async_path,
@@ -104,15 +209,26 @@ def build_worker(models: dict, device=None, max_wait_ms: float = 5.0,
     return worker, batcher, task_manager
 
 
+def kernel_launches() -> dict[str, int]:
+    """Each hand-written kernel's launch count in this process."""
+    from .ops import flash_attention, image_preprocess, seg_postprocess
+
+    return {"normalize_image": image_preprocess.launches,
+            "fused_seg_postprocess": seg_postprocess.launches,
+            "flash_attention": flash_attention.launches}
+
+
 async def serve(worker, batcher, host: str, port: int,
                 stop: asyncio.Event, drain_timeout: float = 30.0) -> None:
     """Serve ``worker`` on ``host:port`` until ``stop`` is set, then drain
-    in-flight async tasks and stop the batcher."""
+    in-flight async tasks, stop the batcher, close the store clients and
+    log each kernel's launches while serving (warmup excluded)."""
     from aiohttp import web
 
     await batcher.start()
     runner = web.AppRunner(worker.service.app)
     await runner.setup()
+    before = kernel_launches()
     try:
         await web.TCPSite(runner, host, port).start()
         log.info("worker on %s:%s serving %s on %s", host, port,
@@ -121,16 +237,32 @@ async def serve(worker, batcher, host: str, port: int,
     finally:
         await worker.service.drain(timeout=drain_timeout)
         await batcher.stop()
+        for client in (worker.service.task_manager, worker.store):
+            if hasattr(client, "close"):
+                await client.close()
         await runner.cleanup()
+        log.info("kernel launches while serving %s", json.dumps(
+            {k: n - before[k] for k, n in kernel_launches().items()}))
 
 
-async def run_worker(models: dict, host: str, port: int, device=None) -> None:
-    worker, batcher, _ = build_worker(models, device=device)
+async def run_worker(config: FrameworkConfig, models: dict,
+                     device=None) -> None:
+    worker, batcher, _ = build_worker(models, device=device, config=config)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    await serve(worker, batcher, host, port, stop)
+    await serve(worker, batcher, config.service.host, config.service.port,
+                stop, drain_timeout=config.service.drain_timeout)
+
+
+async def _wait_for_termination() -> None:
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    log.info("termination signal; draining")
 
 
 def main(argv=None) -> None:
@@ -139,15 +271,31 @@ def main(argv=None) -> None:
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     parser = argparse.ArgumentParser(prog="ai4e_tpu_torch")
     sub = parser.add_subparsers(dest="component", required=True)
+    cp = sub.add_parser("control-plane",
+                        help="gateway + task store + broker + dispatchers")
+    cp.add_argument("--routes", required=True, help="routes.json path")
+    cp.add_argument("--port", type=int, default=None)
     wk = sub.add_parser("worker", help="GPU inference worker")
     wk.add_argument("--models", required=True, help="models.json path")
-    wk.add_argument("--host", default="0.0.0.0")
-    wk.add_argument("--port", type=int, default=8081)
+    wk.add_argument("--host", default=None)
+    wk.add_argument("--port", type=int, default=None)
     wk.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
-    if args.component == "worker":
-        asyncio.run(run_worker(load_spec(args.models), args.host, args.port,
+    try:
+        config = FrameworkConfig.from_env()
+    except ConfigError as exc:
+        raise SystemExit(f"ai4e_tpu_torch: {exc}")
+    if args.component == "control-plane":
+        if args.port is not None:
+            config.gateway.port = args.port
+        asyncio.run(run_control_plane(config, load_spec(args.routes)))
+    elif args.component == "worker":
+        if args.host is not None:
+            config.service.host = args.host
+        if args.port is not None:
+            config.service.port = args.port
+        asyncio.run(run_worker(config, load_spec(args.models),
                                device=args.device))
 
 

@@ -1,0 +1,224 @@
+"""Gateway — the platform's front door; a copy of
+``ai4e_tpu/gateway/router.py`` cut to this slice.
+
+Routes:
+
+- ``POST {route.prefix}/…`` (async) -> a task {Status: created, Endpoint,
+  Body, publish} in the store, which hands it to the broker; the task JSON
+  comes back at once;
+- ``ANY  {route.prefix}/…`` (sync) -> a reverse proxy to the backend;
+- ``GET  /v1/taskmanagement/task/{taskId}`` -> the task record (404 when
+  unknown); ``?wait=SECONDS`` long-polls until it is terminal;
+- ``GET  /metrics``, ``GET /healthz``.
+
+Not ported (ROADMAP A18): subscription keys, rate limits and quotas,
+tenancy, the result cache, admission, orchestration and resilient proxying,
+event streams, the flight recorder and weighted backends.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from dataclasses import dataclass
+
+import aiohttp
+from aiohttp import web
+
+from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from ..taskstore import APITask, InMemoryTaskStore, TaskNotFound, TaskStatus
+from ..utils.http import SessionHolder, read_body_limited
+
+
+@dataclass
+class Route:
+    """One published API: ``prefix`` is the public path; async routes
+    create tasks addressed to ``backend_uri``, sync routes proxy to it."""
+
+    prefix: str
+    mode: str  # "sync" | "async"
+    backend_uri: str = ""
+    # None = the gateway's cap at request time; 0 = explicitly unlimited.
+    max_body_bytes: int | None = None
+
+
+class Gateway:
+    MAX_LONG_POLL = 60.0
+
+    def __init__(self, store: InMemoryTaskStore,
+                 metrics: MetricsRegistry | None = None,
+                 max_body_bytes: int = 128 * 1024 * 1024):
+        # Edge payload cap: an async POST over it is refused with 413 before
+        # a task exists.
+        self.max_body_bytes = max_body_bytes
+        self.store = store
+        self.metrics = metrics or DEFAULT_REGISTRY
+        self.routes: list[Route] = []
+        self._requests = self.metrics.counter(
+            "ai4e_gateway_requests_total", "Gateway requests by route/outcome")
+        # Proxy fan-out is bounded by inbound connections, not the pool.
+        self._sessions = SessionHolder(limit=0)
+        # Long-poll waiters: task_id -> [(loop, future)], woken by the
+        # store's listener with the terminal record.
+        self._waiters: dict[str, list] = {}
+        store.add_listener(self._on_transition)
+        # aiohttp's own cap is disabled: the edge cap is enforced per route,
+        # incrementally, and 0 must mean unlimited.
+        self.app = web.Application(client_max_size=1024**4)
+        self.app.router.add_get("/v1/taskmanagement/task/{task_id}", self._task)
+        self.app.router.add_get("/healthz", self._health)
+        self.app.router.add_get("/metrics", self._metrics)
+        self.app.on_cleanup.append(self._cleanup)
+
+    def add_async_route(self, prefix: str, task_endpoint: str,
+                        max_body_bytes: int | None = None) -> None:
+        """Register an async API: requests become tasks addressed to
+        ``task_endpoint``, the backend route the dispatcher POSTs to."""
+        route = Route(prefix=prefix.rstrip("/"), mode="async",
+                      backend_uri=task_endpoint,
+                      max_body_bytes=max_body_bytes)
+        self.routes.append(route)
+        handler = self._make_async_handler(route)
+        self.app.router.add_post(route.prefix, handler)
+        self.app.router.add_post(route.prefix + "/{tail:.*}", handler)
+
+    def add_sync_route(self, prefix: str, backend_uri: str,
+                       max_body_bytes: int | None = None) -> None:
+        route = Route(prefix=prefix.rstrip("/"), mode="sync",
+                      backend_uri=backend_uri.rstrip("/"),
+                      max_body_bytes=max_body_bytes)
+        self.routes.append(route)
+        handler = self._make_sync_handler(route)
+        for pattern in (route.prefix, route.prefix + "/{tail:.*}"):
+            self.app.router.add_route("*", pattern, handler)
+
+    def _route_limit(self, route: Route) -> int:
+        return (self.max_body_bytes if route.max_body_bytes is None
+                else route.max_body_bytes)
+
+    def _payload_too_large(self, route: Route) -> web.Response:
+        self._requests.inc(route=route.prefix, outcome="413")
+        return web.Response(
+            status=413,
+            text=f"Payload exceeds {self._route_limit(route)} bytes.")
+
+    # -- async: task created at the edge -----------------------------------
+
+    def _make_async_handler(self, route: Route):
+        async def handler(request: web.Request) -> web.Response:
+            body = await read_body_limited(request, self._route_limit(route))
+            if body is None:
+                return self._payload_too_large(route)
+            # Record the full target (backend + operation tail + query) so
+            # the dispatcher reproduces the exact call.
+            endpoint = route.backend_uri
+            tail = request.match_info.get("tail", "")
+            if tail:
+                endpoint = endpoint.rstrip("/") + "/" + tail
+            if request.query_string:
+                endpoint += "?" + request.query_string
+            task = self.store.upsert(APITask(
+                endpoint=endpoint, body=body,
+                content_type=request.content_type or "application/json",
+                publish=True))
+            stored = self.store.get(task.task_id)
+            outcome = ("failed" if stored.canonical_status == "failed"
+                       else "created")
+            self._requests.inc(route=route.prefix, outcome=outcome)
+            return web.json_response(stored.to_dict())
+
+        return handler
+
+    # -- sync: reverse proxy -------------------------------------------------
+
+    def _make_sync_handler(self, route: Route):
+        async def handler(request: web.Request) -> web.Response:
+            tail = request.match_info.get("tail", "")
+            body = await read_body_limited(request, self._route_limit(route))
+            if body is None:
+                return self._payload_too_large(route)
+            # Hop headers and the gateway credential never reach a backend.
+            headers = {k: v for k, v in request.headers.items()
+                       if k.lower() not in ("host", "content-length",
+                                            "ocp-apim-subscription-key",
+                                            "x-api-key")}
+            target = route.backend_uri + (("/" + tail) if tail else "")
+            if request.query_string:
+                target += "?" + request.query_string
+            session = await self._sessions.get()
+            try:
+                async with session.request(request.method, target, data=body,
+                                           headers=headers) as resp:
+                    payload = await resp.read()
+                    self._requests.inc(route=route.prefix,
+                                       outcome=str(resp.status))
+                    return web.Response(status=resp.status, body=payload,
+                                        content_type=resp.content_type)
+            except aiohttp.ClientError as exc:
+                self._requests.inc(route=route.prefix, outcome="unreachable")
+                return web.Response(status=502,
+                                    text=f"Backend unreachable: {exc}")
+
+        return handler
+
+    # -- task polling --------------------------------------------------------
+
+    def _on_transition(self, task: APITask) -> None:
+        """Store listener (any thread): wake the long-polls of a task that
+        turned terminal, with its record."""
+        if task.canonical_status not in TaskStatus.TERMINAL:
+            return
+        for loop, fut in self._waiters.pop(task.task_id, ()):
+            loop.call_soon_threadsafe(_resolve, fut, task)
+
+    async def _task(self, request: web.Request) -> web.Response:
+        """Task status; ``?wait=SECONDS`` (at most 60) long-polls until the
+        task is terminal or the wait expires."""
+        task_id = request.match_info["task_id"]
+        try:
+            task = self.store.get(task_id)
+        except TaskNotFound:
+            return web.Response(status=404, text="Task not found.")
+        wait = 0.0
+        if "wait" in request.query:
+            try:
+                wait = min(float(request.query["wait"]), self.MAX_LONG_POLL)
+            except ValueError:
+                return web.Response(status=400, text="Bad wait parameter.")
+        if wait > 0 and task.canonical_status not in TaskStatus.TERMINAL:
+            loop = asyncio.get_running_loop()
+            entry = (loop, loop.create_future())
+            self._waiters.setdefault(task_id, []).append(entry)
+            try:
+                # Re-read after registering: a transition between the first
+                # read and the registration would otherwise be missed.
+                task = self.store.get(task_id)
+                if task.canonical_status not in TaskStatus.TERMINAL:
+                    task = await asyncio.wait_for(entry[1], wait)
+            except asyncio.TimeoutError:
+                try:
+                    task = self.store.get(task_id)
+                except TaskNotFound:
+                    return web.Response(status=404, text="Task not found.")
+            finally:
+                waiters = self._waiters.get(task_id)
+                if waiters and entry in waiters:
+                    waiters.remove(entry)
+                    if not waiters:
+                        del self._waiters[task_id]
+        return web.json_response(task.to_dict())
+
+    async def _health(self, _: web.Request) -> web.Response:
+        return web.json_response({"status": "healthy",
+                                  "routes": len(self.routes)})
+
+    async def _metrics(self, _: web.Request) -> web.Response:
+        return web.Response(text=self.metrics.render_prometheus(),
+                            content_type="text/plain")
+
+    async def _cleanup(self, _app) -> None:
+        await self._sessions.close()
+
+
+def _resolve(fut: asyncio.Future, task: APITask) -> None:
+    if not fut.done():
+        fut.set_result(task)

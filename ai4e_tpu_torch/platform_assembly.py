@@ -1,0 +1,134 @@
+"""Control-plane assembly — store + broker + dispatchers + gateway in one
+event loop; ``PlatformConfig`` and ``LocalPlatform`` of
+``ai4e_tpu/platform_assembly.py``, with the in-memory store, the in-memory
+broker (transport ``"queue"``) and the reaper's terminal retention only.
+
+``PlatformConfig`` holds the fields ``LocalPlatform`` reads, with the JAX
+package's defaults; ``PlatformSection.to_platform_config`` fills it, after
+``config.check_ported`` has refused every knob this port does not serve.
+Imports neither torch nor JAX: the control-plane process never touches the
+card.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from dataclasses import dataclass
+
+from .broker import DispatcherPool, InMemoryBroker
+from .gateway import Gateway
+from .metrics import DEFAULT_REGISTRY, MetricsRegistry
+from .service import LocalTaskManager
+from .taskstore import InMemoryTaskStore, TaskStatus, endpoint_path
+from .taskstore.reaper import TaskReaper
+
+log = logging.getLogger("ai4e_tpu_torch.platform")
+
+# Terminal retention when ``reaper_terminal_retention`` is None, as in the
+# JAX package's Python store.
+DEFAULT_TERMINAL_RETENTION_S = 900.0
+
+
+@dataclass
+class PlatformConfig:
+    retry_delay: float = 60.0       # dispatcher backoff on 429/503
+    max_delivery_count: int = 1440  # broker patience
+    dispatcher_concurrency: int = 1
+    lease_seconds: float = 300.0
+    reaper_interval: float = 30.0
+    # Seconds a completed/failed task is kept: None = 900, < 0 = forever.
+    reaper_terminal_retention: float | None = None
+
+
+class LocalPlatform:
+    """Everything the async path needs, in one event loop: the task store
+    (whose HTTP surface ``taskstore.http.make_app`` adds to the gateway
+    app), the broker, one dispatcher per async route and the gateway."""
+
+    def __init__(self, config: PlatformConfig | None = None,
+                 metrics: MetricsRegistry | None = None):
+        self.config = config or PlatformConfig()
+        self.metrics = metrics or DEFAULT_REGISTRY
+        self.store = InMemoryTaskStore()
+        self.task_manager = LocalTaskManager(self.store)
+        self.broker = InMemoryBroker(
+            max_delivery_count=self.config.max_delivery_count,
+            lease_seconds=self.config.lease_seconds, metrics=self.metrics)
+        self.store.set_publisher(self.broker.publish)
+        self.dispatchers = DispatcherPool(
+            self.broker, self.task_manager,
+            retry_delay=self.config.retry_delay,
+            concurrency=self.config.dispatcher_concurrency,
+            metrics=self.metrics)
+        self.gateway = Gateway(self.store, metrics=self.metrics)
+        retention = self.config.reaper_terminal_retention
+        if retention is None:
+            retention = DEFAULT_TERMINAL_RETENTION_S
+        self.reaper = None if retention < 0 else TaskReaper(
+            self.store, retention, interval=self.config.reaper_interval,
+            metrics=self.metrics)
+        self._started = False
+        # Strong refs to fire-and-forget terminal transitions: the event
+        # loop holds tasks weakly.
+        self._bg_tasks: set[asyncio.Task] = set()
+
+    def publish_async_api(self, public_prefix: str, backend_uri: str,
+                          retry_delay: float | None = None,
+                          concurrency: int | None = None,
+                          max_body_bytes: int | None = None) -> None:
+        """Register an async API end to end: gateway route + a dispatcher
+        for its queue."""
+        self.gateway.add_async_route(public_prefix, backend_uri,
+                                     max_body_bytes=max_body_bytes)
+        self.register_internal_route(backend_uri, retry_delay=retry_delay,
+                                     concurrency=concurrency)
+
+    def register_internal_route(self, backend_uri: str,
+                                retry_delay: float | None = None,
+                                concurrency: int | None = None) -> None:
+        """A transport consumer for a backend without a public route,
+        reached only by republished tasks."""
+        queue_name = endpoint_path(backend_uri)
+        self.broker.register_queue(queue_name)
+        self.dispatchers.register(queue_name, backend_uri,
+                                  retry_delay=retry_delay,
+                                  concurrency=concurrency)
+
+    def publish_sync_api(self, public_prefix: str, backend_uri: str,
+                         max_body_bytes: int | None = None) -> None:
+        self.gateway.add_sync_route(public_prefix, backend_uri,
+                                    max_body_bytes=max_body_bytes)
+
+    async def start(self) -> None:
+        loop = asyncio.get_running_loop()
+        self.broker.bind_loop(loop)
+
+        def on_dead_letter(msg) -> None:
+            # Fail the task so it never sits non-terminal once its message
+            # is gone.
+            task = loop.create_task(self._fail_dead_letter(msg.task_id))
+            self._bg_tasks.add(task)
+            task.add_done_callback(self._bg_tasks.discard)
+
+        self.broker.set_dead_letter_handler(on_dead_letter)
+        await self.dispatchers.start()
+        if self.reaper is not None:
+            await self.reaper.start()
+        self._started = True
+
+    async def _fail_dead_letter(self, task_id: str) -> None:
+        try:
+            task = self.store.get(task_id)
+            if task.canonical_status not in TaskStatus.TERMINAL:
+                await self.task_manager.fail_task(task_id,
+                                                  TaskStatus.DEAD_LETTER)
+        except Exception:  # noqa: BLE001 — best-effort terminal transition
+            log.exception("could not fail dead-lettered task %s", task_id)
+
+    async def stop(self) -> None:
+        if self._started:
+            if self.reaper is not None:
+                await self.reaper.stop()
+            await self.dispatchers.stop()
+            self._started = False

@@ -2,13 +2,19 @@
 Counterpart of ``ai4e_tpu/runtime/worker.py``.
 
 One APIService with a sync and an async endpoint per servable, both feeding
-the shared micro-batcher. Sync returns the result inline; async drives the
-task created -> running -> completed/failed and stores the result in the
-worker's task store.
+the shared micro-batcher. Sync returns the result inline; async adopts the
+task a dispatcher created (its ``taskId`` header) or creates one, drives it
+running -> completed/failed and stores the result in the worker's task
+store: its own, or the control plane's over HTTP. A saturated batcher
+answers 503 with ``Retry-After`` before a task is adopted, so a dispatcher
+redelivers it; one saturated after adoption goes back to the broker, or
+fails where no broker is behind the store. The status strings are the JAX
+worker's.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 
@@ -30,12 +36,13 @@ class InferenceWorker:
     def __init__(self, name: str, runtime: ModelRuntime, batcher: MicroBatcher,
                  task_manager: TaskManagerBase | None = None,
                  prefix: str = "v1", metrics: MetricsRegistry | None = None,
-                 store=None):
+                 store=None, executor_workers: int = 8):
         self.runtime = runtime
         self.batcher = batcher
         self.store = store
         self.service = APIService(name, prefix=prefix,
-                                  task_manager=task_manager, metrics=metrics)
+                                  task_manager=task_manager, metrics=metrics,
+                                  executor_workers=executor_workers)
         self._served: dict[str, dict] = {}  # model -> endpoint listing
         self.service.app.router.add_get(self.service.prefix + "/models",
                                         self._list_models)
@@ -97,14 +104,32 @@ class InferenceWorker:
             except Exception as exc:  # noqa: BLE001 — recorded on the task (failed - bad input)
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
-            # BatcherSaturated or a device error propagates: the service
-            # shell fails the task. (There is no broker in front of this
-            # worker yet to redeliver it.)
-            result = await self.batcher.submit(_name, np.asarray(example))
-            if self.store is not None:
-                self.store.set_result(taskId,
-                                      json.dumps(_jsonable(result)).encode())
+            try:
+                result = await self.batcher.submit(_name, np.asarray(example))
+            except BatcherSaturated:
+                # Saturated between admission and submit: hand the task back
+                # to the broker (a republish with an empty body replays the
+                # original one) instead of failing it. With no broker behind
+                # the store, or on a device error, the exception propagates
+                # and the service shell fails the task.
+                if not tm.redelivers:
+                    raise
+                current = await tm.get_task_status(taskId)
+                endpoint = (current or {}).get("Endpoint", async_path)
+                await tm.add_pipeline_task(taskId, endpoint)
+                return
+            await self._store_result(
+                taskId, json.dumps(_jsonable(result)).encode())
             await tm.complete_task(taskId, f"completed - {_summarise(result)}")
+
+    async def _store_result(self, task_id: str, payload: bytes) -> None:
+        """Store a result in the in-process store (``set_result`` returns
+        None) or on the control plane (``HttpResultStore``, a coroutine)."""
+        if self.store is None:
+            return
+        res = self.store.set_result(task_id, payload)
+        if inspect.isawaitable(res):
+            await res
 
 
 def _jsonable(obj):

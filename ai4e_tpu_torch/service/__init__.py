@@ -1,5 +1,8 @@
 from .app import TASK_ID_HEADER, APIService, EndpointSpec
-from .task_manager import LocalTaskManager, TaskManagerBase
+from .task_manager import (HttpResultStore, HttpTaskManager,
+                           LocalTaskManager, StoreRefusalError,
+                           TaskManagerBase)
 
 __all__ = ["APIService", "EndpointSpec", "TASK_ID_HEADER",
-           "LocalTaskManager", "TaskManagerBase"]
+           "HttpResultStore", "HttpTaskManager", "LocalTaskManager",
+           "StoreRefusalError", "TaskManagerBase"]

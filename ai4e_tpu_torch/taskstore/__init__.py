@@ -1,5 +1,5 @@
 from .store import InMemoryTaskStore, TaskNotFound
-from .task import APITask, TaskStatus, new_task_id
+from .task import APITask, TaskStatus, endpoint_path, new_task_id
 
 __all__ = ["APITask", "InMemoryTaskStore", "TaskNotFound", "TaskStatus",
-           "new_task_id"]
+           "endpoint_path", "new_task_id"]

@@ -1,11 +1,18 @@
-"""Task record and status model — a copy of ``ai4e_tpu/taskstore/task.py``
-with the fields this port uses (no cache, deadline or tenant state)."""
+"""Task record and status model — a copy of ``ai4e_tpu/taskstore/task.py``.
+
+The record's wire shape (``to_dict``/``from_dict``) and the status
+canonicalisation are the JAX package's exactly, so a port worker and a JAX
+control plane (or the other way round) read each other's records. The
+admission, cache and tenant fields are carried on the record and the wire
+unchanged; nothing in the port acts on them yet (ROADMAP A18).
+"""
 
 from __future__ import annotations
 
 import time
 import uuid
 from dataclasses import dataclass, field, replace
+from urllib.parse import urlparse
 
 
 class TaskStatus:
@@ -19,6 +26,11 @@ class TaskStatus:
 
     ALL = (CREATED, RUNNING, COMPLETED, FAILED, EXPIRED)
     TERMINAL = (COMPLETED, FAILED, EXPIRED)
+
+    # The exact prose written when a task's transport message exhausts its
+    # delivery budget.
+    DEAD_LETTER_PROSE = "delivery attempts exhausted"
+    DEAD_LETTER = FAILED + " - " + DEAD_LETTER_PROSE
 
     @staticmethod
     def canonical(status: str) -> str:
@@ -37,6 +49,22 @@ def new_task_id() -> str:
     return str(uuid.uuid4())
 
 
+# Separator between a pipeline root TaskId and a stage name in stage
+# sub-task ids; the store's HTTP surface refuses to create such ids.
+SUB_TASK_SEP = "~"
+
+
+def endpoint_path(endpoint: str) -> str:
+    """Derived endpoint path, e.g. ``http://host/v1/landcover/classify`` ->
+    ``/v1/landcover/classify``, without query or fragment."""
+    if not endpoint:
+        return ""
+    if "://" in endpoint:
+        return urlparse(endpoint).path or "/"
+    path = endpoint if endpoint.startswith("/") else "/" + endpoint
+    return path.split("?", 1)[0].split("#", 1)[0] or "/"
+
+
 @dataclass
 class APITask:
     """A single unit of asynchronous work."""
@@ -48,14 +76,24 @@ class APITask:
     endpoint: str = ""
     body: bytes = b""
     content_type: str = "application/json"
+    publish: bool = False  # enqueue onto the transport on upsert
+    cache_key: str = ""
+    deadline_at: float = 0.0
+    priority: int = 1
+    tenant: str = ""
+
+    @property
+    def endpoint_path(self) -> str:
+        return endpoint_path(self.endpoint)
 
     @property
     def canonical_status(self) -> str:
         return TaskStatus.canonical(self.status)
 
     def to_dict(self) -> dict:
-        """Wire shape returned to clients polling ``GET /task/{taskId}``."""
-        return {
+        """Wire shape returned to clients polling ``GET /task/{taskId}``;
+        the optional fields appear only when set."""
+        d = {
             "TaskId": self.task_id,
             "Timestamp": self.timestamp,
             "Status": self.status,
@@ -63,6 +101,37 @@ class APITask:
             "Endpoint": self.endpoint,
             "ContentType": self.content_type,
         }
+        if self.cache_key:
+            d["CacheKey"] = self.cache_key
+        if self.deadline_at:
+            d["DeadlineAt"] = self.deadline_at
+        if self.priority != 1:
+            d["Priority"] = self.priority
+        if self.tenant:
+            d["Tenant"] = self.tenant
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "APITask":
+        body = d.get("Body", b"")
+        if isinstance(body, str):
+            # Inverse of the client's surrogateescape decode: binary bodies
+            # survive the JSON round trip.
+            body = body.encode("utf-8", errors="surrogateescape")
+        return cls(
+            task_id=d.get("TaskId") or d.get("Uuid") or new_task_id(),
+            timestamp=float(d.get("Timestamp") or time.time()),
+            status=d.get("Status", TaskStatus.CREATED),
+            backend_status=d.get("BackendStatus", TaskStatus.CREATED),
+            endpoint=d.get("Endpoint", ""),
+            body=body,
+            content_type=d.get("ContentType", "application/json"),
+            publish=bool(d.get("PublishToGrid", False)),
+            cache_key=d.get("CacheKey", ""),
+            deadline_at=float(d.get("DeadlineAt") or 0.0),
+            priority=int(d.get("Priority") or 1),
+            tenant=d.get("Tenant", ""),
+        )
 
     def with_status(self, status: str, backend_status: str | None = None) -> "APITask":
         return replace(

@@ -32,6 +32,19 @@ Phases, each of which raises on failure:
    plain full attention, the flash kernel against its plain version on the
    served model's own layer-0 q/k/v, and the kernel must have launched at
    least depth times per executed batch;
+5b. separate processes: the port's control plane (``python -m ai4e_tpu_torch
+   control-plane``: gateway, task store over HTTP, broker, dispatchers) and
+   its worker (``worker --device cuda`` with ``"taskstore"``) as two child
+   processes serving land cover and longcontext as in phases 4 and 5, with
+   ``deploy/specs/routes.json``'s routes (without ``autoscale``). This
+   process drives 4 sync and 64 async requests a model through the gateway
+   only, long-polls each task to ``completed`` and reads its result from
+   the task store; every answer is checked as in phases 4 and 5, no
+   delivery may fail, the worker must log ``cuda``, exit 0 on SIGTERM and
+   report each served kernel launched at least once while serving. It
+   prints each model's async requests/s, task p50/p95 and sync p50 (as
+   the client sees them), 503 redeliveries and batch sizes beside the
+   card's name and power limit;
 6. train then serve: the flash-attention backward (one C call: the
    preparation pass, the fused bf16 kernel ``flash_bwd_wgmma`` and the dQ
    conversion; CUDA-core kernels for float32) against its plain version on
@@ -88,6 +101,10 @@ FLASH_SERVED = (64, 2, 4096, 128)  # bucket 64 of longcontext, one layer
 PLAIN_CHUNK = 8                    # sequences per plain-version call
 N_LC_SYNC = 4
 N_LC_ASYNC = 64
+N_TOPO_SYNC = 4
+N_TOPO_ASYNC = 64
+TOPOLOGY_MODELS = ("landcover", "longcontext")  # routes /v1/<model>/...
+TOPOLOGY_RETRY_DELAY = 0.05  # s; the platform's default of 60 s is for a fleet
 LC_GAP = 1e-2    # class must agree where the reference's top-two gap exceeds it
 LC_CONF_ATOL = 1e-2
 BWD_TRAIN = (8, 2, 4096, 128)  # a longcontext training batch, one layer
@@ -98,6 +115,9 @@ MODEL_GRAD_RTOL = 5e-2
 N_TRAIN_SYNC = 4
 SERVED_ACC_SLACK = 2  # of 64 held-out sequences: bucket shapes differ
 MIN_SERVED_ACC = 0.5  # eight times chance (1/16)
+
+
+CARD: dict = {}  # the card's nvidia-smi name and power limit (phase 1)
 
 
 def log(msg: str) -> None:
@@ -145,6 +165,7 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    CARD["smi"] = smi
     log(smi)
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -839,6 +860,324 @@ def phase_longcontext() -> dict:
     return lc
 
 
+# -- phase 5b: the async main path as separate processes -------------------
+
+
+def topology_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
+    """deploy/specs' landcover and longcontext at full width and depth
+    (random weights from seed 0) behind the control plane at ``store_url``,
+    and their routes (without ``autoscale``, an unported item) to the worker
+    at ``worker_url``."""
+    from urllib.parse import urlparse
+
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    models = []
+    for model in spec["models"]:
+        if model["name"] in TOPOLOGY_MODELS:
+            model = dict(model)
+            model.pop("checkpoint")
+            models.append(model)
+    routes = json.loads((ROOT / "deploy/specs/routes.json").read_text())
+    apis = []
+    for api in routes["apis"]:
+        if api.get("prefix", "").startswith(
+                tuple(f"/v1/{m}/" for m in TOPOLOGY_MODELS)):
+            api = {k: v for k, v in api.items() if k != "autoscale"}
+            api["backend"] = worker_url + urlparse(api["backend"]).path
+            apis.append(api)
+    return ({"service_name": spec["service_name"], "prefix": spec["prefix"],
+             "taskstore": store_url, "models": models}, {"apis": apis})
+
+
+def start_child(args: list[str], log_path: Path, env: dict) -> subprocess.Popen:
+    with open(log_path, "wb") as out:
+        return subprocess.Popen([sys.executable, "-m", "ai4e_tpu_torch", *args],
+                                cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
+def tail(path: Path, n: int = 4000) -> str:
+    return path.read_text(errors="replace")[-n:]
+
+
+async def wait_healthy(http, url: str, proc: subprocess.Popen, log_path: Path,
+                       timeout: float = 300.0) -> None:
+    import aiohttp
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"{url}: the process exited "
+                                 f"{proc.returncode}:\n{tail(log_path)}")
+        try:
+            async with http.get(url) as r:
+                if r.status == 200:
+                    return
+        except aiohttp.ClientConnectionError:
+            pass
+        await asyncio.sleep(0.1)
+    raise AssertionError(f"{url} never came up:\n{tail(log_path)}")
+
+
+async def drive_gateway(http, gateway: str, route: str, bodies: list[bytes],
+                        n_sync: int, done: str, worker: str) -> dict:
+    """Through the gateway only: the first ``n_sync`` bodies one after
+    another to the sync route, the rest at once to the async route, each
+    task long-polled to ``done`` and its result read from the task store.
+    The worker's /metrics is read just before and just after the async
+    requests."""
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    headers = {"Content-Type": "application/octet-stream"}
+    sync_ms, results = [], []
+    for body in bodies[:n_sync]:
+        t0 = time.perf_counter()
+        async with http.post(gateway + route, data=body, headers=headers) as r:
+            if r.status != 200:
+                raise AssertionError(f"sync {route} {r.status}: {await r.text()}")
+            results.append(await r.json())
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+
+    async def one(body: bytes) -> tuple[float, float, str]:
+        t0 = time.perf_counter()
+        async with http.post(gateway + route + "-async", data=body,
+                             headers=headers) as r:
+            if r.status != 200:
+                raise AssertionError(f"async {route} {r.status}: "
+                                     f"{await r.text()}")
+            task_id = (await r.json())["TaskId"]
+        while True:
+            async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
+                                params={"wait": "60"}) as r:
+                record = await r.json()
+            if TaskStatus.canonical(record["Status"]) in TaskStatus.TERMINAL:
+                break
+        t1 = time.perf_counter()
+        if record["Status"] != done:
+            raise AssertionError(f"task {task_id}: {record}")
+        return t0, t1, task_id
+
+    async with http.get(worker + "/metrics") as r:
+        metrics_before = await r.text()
+    runs = await asyncio.gather(*(one(b) for b in bodies[n_sync:]))
+    async with http.get(worker + "/metrics") as r:
+        metrics_after = await r.text()
+    for _, _, task_id in runs:
+        async with http.get(gateway + "/v1/taskstore/result",
+                            params={"taskId": task_id}) as r:
+            if r.status != 200:
+                raise AssertionError(f"result of {task_id}: {r.status}")
+            results.append(json.loads(await r.read()))
+    latency_ms = sorted((t1 - t0) * 1e3 for t0, t1, _ in runs)
+    span = max(t1 for _, t1, _ in runs) - min(t0 for t0, _, _ in runs)
+    return {"sync_ms": sync_ms, "results": results, "async_s": span,
+            "metrics": (metrics_before, metrics_after),
+            "async_requests_per_s": len(runs) / span,
+            "task_p50_ms": statistics.median(latency_ms),
+            "task_p95_ms": float(np.percentile(latency_ms, 95)),
+            "sync_p50_ms": statistics.median(sync_ms)}
+
+
+def metric_sum(metrics_text: str, name: str, **labels: str) -> float:
+    """Sum of the ``name`` series whose labels include ``labels``."""
+    total = 0.0
+    for line in metrics_text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            if all(f'{k}="{v}"' in line for k, v in labels.items()):
+                total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def metric_delta(texts: tuple[str, str], name: str, **labels: str) -> float:
+    return metric_sum(texts[1], name, **labels) - metric_sum(texts[0], name,
+                                                             **labels)
+
+
+def batch_sizes(metrics_text: str, model: str) -> dict:
+    """Executed batches per size bucket (``le``) for ``model``, from the
+    worker's ``ai4e_batch_size`` histogram."""
+    cum = {}
+    for line in metrics_text.splitlines():
+        if (line.startswith("ai4e_batch_size_bucket")
+                and f'model="{model}"' in line):
+            le = line.split('le="')[1].split('"')[0]
+            cum[le] = int(float(line.rsplit(" ", 1)[1]))
+    out, prev = {}, 0
+    for le, n in cum.items():
+        if n - prev:
+            out[le] = n - prev
+        prev = n
+    return out
+
+
+async def drive_topology(gateway: str, worker: str, procs: dict,
+                         logs: dict, work: dict) -> dict:
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        t0 = time.perf_counter()
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        log(f"topology: worker up in {time.perf_counter() - t0:.1f}s")
+        out = {}
+        for model, (route, bodies, n_sync, done) in work.items():
+            out[model] = await drive_gateway(http, gateway, route, bodies,
+                                             n_sync, done, worker)
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics"] = await r.text()
+        async with http.get(worker + "/metrics") as r:
+            out["wk_metrics"] = await r.text()
+    return out
+
+
+def stop_child(proc: subprocess.Popen, log_path: Path, what: str) -> None:
+    """SIGTERM, then the exit code must be 0."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        code = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{what} did not stop:\n{tail(log_path)}")
+    if code != 0:
+        raise AssertionError(f"{what} exited {code}:\n{tail(log_path)}")
+
+
+def served_launches(log_text: str) -> dict:
+    marker = "kernel launches while serving "
+    lines = [line for line in log_text.splitlines() if marker in line]
+    if not lines:
+        raise AssertionError("the worker logged no kernel launches")
+    return json.loads(lines[-1].split(marker, 1)[1])
+
+
+def phase_topology() -> dict:
+    """The port's control plane and its worker (``--device cuda``) as two
+    child processes joined by HTTP; this process is the client, through the
+    gateway only."""
+    import gc
+    import os
+
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = topology_specs(gateway, worker)
+    (out_dir / "topology_models.json").write_text(json.dumps(models))
+    (out_dir / "topology_routes.json").write_text(json.dumps(routes))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AI4E_")}
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""),
+               AI4E_PLATFORM_RETRY_DELAY=str(TOPOLOGY_RETRY_DELAY))
+    logs = {"cp": out_dir / "control_plane.log", "wk": out_dir / "worker.log"}
+    config = {m["name"]: m for m in models["models"]}
+    rng = np.random.default_rng(SEED)
+    n = N_TOPO_SYNC + N_TOPO_ASYNC
+    images = rng.integers(0, 256, (n, 256, 256, 3), np.uint8)
+    seqs = rng.integers(0, config["longcontext"]["vocab_size"],
+                        (n, config["longcontext"]["seq_len"]), dtype=np.uint16)
+    work = {
+        "landcover": ("/v1/landcover/classify", [npy_bytes(x) for x in images],
+                      N_TOPO_SYNC, "completed - class_histogram"),
+        "longcontext": ("/v1/longcontext/score", [npy_bytes(x) for x in seqs],
+                        N_TOPO_SYNC, "completed - class_id, confidence"),
+    }
+    procs = {}
+    try:
+        procs["cp"] = start_child(
+            ["control-plane", "--routes", str(out_dir / "topology_routes.json"),
+             "--port", str(cp_port)], logs["cp"], env)
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / "topology_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             "cuda"], logs["wk"], env)
+        out = asyncio.run(drive_topology(gateway, worker, procs, logs, work))
+        stop_child(procs["wk"], logs["wk"], "worker")
+        stop_child(procs["cp"], logs["cp"], "control plane")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    wk_log = logs["wk"].read_text(errors="replace")
+    if "serving ['landcover', 'longcontext'] on cuda" not in wk_log:
+        raise AssertionError(f"the worker did not serve on cuda:\n{wk_log[-4000:]}")
+    launches = served_launches(wk_log)
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"kernel {name} never launched in the worker")
+    failed = metric_sum(out["cp_metrics"], "ai4e_dispatch_total",
+                        outcome="failed") + metric_sum(
+        out["cp_metrics"], "ai4e_dispatch_total", outcome="dead_letter")
+    if failed:
+        raise AssertionError(f"{failed} deliveries failed")
+
+    # Every answer against the same seed-0 weights on the card, with the
+    # limits of phases 4 and 5.
+    runtime = ModelRuntime(device="cuda")
+    lc_spec = {k: v for k, v in config["longcontext"].items()
+               if k not in ("family", "sync_path", "async_path")}
+    unet_spec = {k: v for k, v in config["landcover"].items()
+                 if k not in ("family", "sync_path", "async_path")}
+    unet = runtime.register(build_servable("unet", **unet_spec))
+    want = reference_counts(unet, images)
+    diffs = [check_histogram(r, want[i], 256 * 256)
+             for i, r in enumerate(out["landcover"]["results"])]
+    seqformer = runtime.register(build_servable("seqformer", **lc_spec))
+    agree = check_scores(out["longcontext"]["results"],
+                         reference_logits(seqformer, config["longcontext"], seqs))
+    del unet, seqformer, runtime
+
+    report = {"card": CARD["smi"], "clients": "another process",
+              "launches_while_serving": launches}
+    for model, (route, _, _, _) in work.items():
+        queue = "/v1/models/" + route.rsplit("/", 1)[1] + "-async"
+        got = out[model]
+        report[model] = {
+            "async_requests_per_s": got["async_requests_per_s"],
+            "task_p50_ms": got["task_p50_ms"],
+            "task_p95_ms": got["task_p95_ms"],
+            "sync_p50_ms": got["sync_p50_ms"],
+            "redeliveries_503": metric_sum(
+                out["cp_metrics"], "ai4e_dispatch_total",
+                outcome="backpressure", queue=queue),
+            "async_requests": N_TOPO_ASYNC,
+            "route_concurrency": next(
+                a.get("concurrency") for a in routes["apis"]
+                if a["backend"].endswith(queue)),
+            "batch_sizes": batch_sizes(out["wk_metrics"], model),
+        }
+        # The async requests' share of the worker: its batches' execute
+        # time (host clock around each batch, to the results on the host)
+        # over the async span, and the mean wait for a batch.
+        texts = got["metrics"]
+        exec_s = metric_delta(texts, "ai4e_batch_exec_seconds_sum",
+                              model=model)
+        waits = metric_delta(texts, "ai4e_batch_queue_wait_seconds_count",
+                             model=model)
+        report[model].update(
+            async_batches=metric_delta(texts, "ai4e_batch_size_count",
+                                       model=model),
+            async_batch_exec_s=exec_s,
+            async_batch_exec_share=exec_s / got["async_s"],
+            async_mean_queue_wait_ms=1e3 * metric_delta(
+                texts, "ai4e_batch_queue_wait_seconds_sum",
+                model=model) / max(waits, 1))
+    report["landcover"]["max_count_diff_px"] = max(diffs)
+    report["longcontext"]["classes_agree_with_full_attention"] = (
+        f"{agree}/{len(out['longcontext']['results'])}")
+    log(f"topology: {json.dumps(report)}")
+    return report
+
+
 # -- phase 6: train then serve --------------------------------------------
 
 
@@ -1245,6 +1584,10 @@ def main() -> None:
     lc = phase_longcontext()
     for k in kernels:
         k["launches"] = {**e2e["launches"], **lc["launches"]}[k["name"]]
+    topology = phase_topology()
+    for k in kernels:
+        k["launches_separate_processes"] = (
+            topology["launches_while_serving"][k["name"]])
     kernels += phase_train_then_serve()
     for k in kernels:
         # The same numbers under the names the port's docs use.

@@ -1,0 +1,144 @@
+"""The port's ``FrameworkConfig.from_env`` against the JAX package's on the
+same environment dicts: the same section values, the same ``ConfigError``
+for a misspelled or malformed ``AI4E_*`` variable, and, for every knob
+whose feature the port does not serve yet, a ``ConfigError`` that names the
+variable and its ROADMAP item (the JAX package accepts the same value)."""
+
+import dataclasses
+import typing
+
+import pytest
+
+from ai4e_tpu import config as jax_config
+from ai4e_tpu_torch import config as port_config
+from ai4e_tpu_torch.platform_assembly import PlatformConfig
+
+SAME = [
+    {},
+    {"AI4E_PLATFORM_RETRY_DELAY": "0.05",
+     "AI4E_PLATFORM_MAX_DELIVERY_COUNT": "3",
+     "AI4E_PLATFORM_DISPATCHER_CONCURRENCY": "4",
+     "AI4E_PLATFORM_LEASE_SECONDS": "30"},
+    {"AI4E_SERVICE_HOST": "127.0.0.1", "AI4E_SERVICE_PORT": "9000",
+     "AI4E_SERVICE_EXECUTOR_WORKERS": "2", "AI4E_SERVICE_DRAIN_TIMEOUT": "5"},
+    {"AI4E_RUNTIME_BATCH_MAX_WAIT_MS": "2.5",
+     "AI4E_RUNTIME_BATCH_MAX_PENDING": "64",
+     "AI4E_RUNTIME_CHECKPOINT_DIR": "/ckpts",
+     "AI4E_RUNTIME_BUCKETS": "1, 16,64"},
+    {"AI4E_GATEWAY_HOST": "127.0.0.1", "AI4E_GATEWAY_PORT": "18080",
+     "AI4E_GATEWAY_MAX_BODY_BYTES": "0",
+     "AI4E_GATEWAY_MAX_RESULT_BYTES": "1024",
+     "AI4E_GATEWAY_TASKSTORE_GET_URI": "http://cp:8080,http://standby:8080",
+     "AI4E_GATEWAY_TASKSTORE_UPSERT_URI": "http://cp:8080"},
+    {"AI4E_FAULT_FETCH_FAIL_NTHS": "3", "AI4E_TASKSTORE_FSYNC": "always",
+     "OTHER": "1"},
+    {"AI4E_PLATFORM_REAPER_INTERVAL": "5",
+     "AI4E_PLATFORM_REAPER_TERMINAL_RETENTION": "60"},
+]
+ERRORS = [
+    {"AI4E_PLATFORM_RETRY_DELEY": "1"},
+    {"AI4E_OBSERVABILTY_TRACE_ENABLED": "0"},
+    {"AI4E_PLATFORM_RETRY_DELAY": "soon"},
+    {"AI4E_SERVICE_PORT": "80.5"},
+    {"AI4E_RUNTIME_BATCH_MAX_WAIT_MS": ""},
+    {"AI4E_RUNTIME_BUCKETS": "1,x"},
+]
+
+
+def off_default(field: dataclasses.Field, hint) -> str:
+    """An env value that parses to something other than the default."""
+    default = field.default
+    base = typing.get_args(hint)[0] if typing.get_origin(hint) is typing.Union \
+        else hint
+    if base is bool:
+        return "0" if default else "1"
+    if base is int:
+        return str(default + 1)
+    if base is float:
+        return str((default or 0.0) + 1.5)
+    if typing.get_origin(base) is tuple:
+        return "3,5"
+    return "x"
+
+
+def unported_cases():
+    for section in typing.get_type_hints(port_config.FrameworkConfig).values():
+        hints = typing.get_type_hints(section)
+        for f in dataclasses.fields(section):
+            key = (section._env_prefix, f.name)
+            if key in port_config.UNPORTED:
+                var = key[0] + f.name.upper()
+                yield pytest.param(
+                    "unported", {var: off_default(f, hints[f.name])},
+                    port_config.UNPORTED[key], id=var)
+
+
+CASES = ([pytest.param("same", env, None, id=f"same-{i}")
+          for i, env in enumerate(SAME)]
+         + [pytest.param("error", env, None, id=next(iter(env)))
+            for env in ERRORS]
+         + list(unported_cases()))
+
+
+@pytest.mark.parametrize("kind,env,item", CASES)
+def test_from_env_matches_jax(kind, env, item):
+    if kind == "error":
+        with pytest.raises(jax_config.ConfigError) as want:
+            jax_config.FrameworkConfig.from_env(env)
+        with pytest.raises(port_config.ConfigError) as got:
+            port_config.FrameworkConfig.from_env(env)
+        assert str(got.value) == str(want.value)
+        return
+    want = jax_config.FrameworkConfig.from_env(env).to_dict()
+    if kind == "same":
+        assert port_config.FrameworkConfig.from_env(env).to_dict() == want
+        return
+    # An unported knob: JAX takes the value; the port refuses it, naming
+    # the variable and its ROADMAP item.
+    (var, raw), = env.items()
+    section = next(s for s in want if var.startswith(
+        f"AI4E_{s.upper()}_"))
+    field = var[len(f"AI4E_{section.upper()}_"):].lower()
+    default = getattr(jax_config.FrameworkConfig(), section)
+    assert want[section][field] != getattr(default, field)
+    assert "ROADMAP" in item or "--device" in item
+    with pytest.raises(port_config.ConfigError) as got:
+        port_config.FrameworkConfig.from_env(env)
+    assert str(got.value).startswith(f"{var}=")
+    assert f"{item} is not ported yet" in str(got.value)
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    {"AI4E_PLATFORM_RETRY_DELAY": "0.05"},
+    {"AI4E_PLATFORM_MAX_DELIVERY_COUNT": "3"},
+    {"AI4E_PLATFORM_DISPATCHER_CONCURRENCY": "4"},
+    {"AI4E_PLATFORM_LEASE_SECONDS": "30"},
+    {"AI4E_PLATFORM_REAPER_INTERVAL": "0.5"},
+    {"AI4E_PLATFORM_REAPER_TERMINAL_RETENTION": "0"},
+    {"AI4E_PLATFORM_REAPER_TERMINAL_RETENTION": "-1"},
+    {"AI4E_PLATFORM_TRANSPORT": "queue"},
+], ids=lambda env: next(iter(env), "defaults"))
+def test_platform_config_is_jax_s(env):
+    """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
+    package's gives its own, for every field the port's reads."""
+    port = port_config.FrameworkConfig.from_env(env).to_platform_config()
+    want = jax_config.FrameworkConfig.from_env(env).to_platform_config()
+    assert isinstance(port, PlatformConfig)
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(want, f.name), f.name
+
+
+def test_sections_and_fields_are_the_jax_package_s():
+    jax_sections = typing.get_type_hints(jax_config.FrameworkConfig)
+    port_sections = typing.get_type_hints(port_config.FrameworkConfig)
+    assert list(port_sections) == list(jax_sections)
+    for name, section in port_sections.items():
+        want = jax_sections[name]
+        assert section._env_prefix == want._env_prefix
+        assert ([(f.name, str(f.type), f.default)
+                 for f in dataclasses.fields(section)]
+                == [(f.name, str(f.type), f.default)
+                    for f in dataclasses.fields(want)])
+    assert (port_config.OUT_OF_BAND_ENV_PREFIXES
+            == jax_config.OUT_OF_BAND_ENV_PREFIXES)

@@ -27,7 +27,8 @@ from aiohttp.test_utils import TestClient, TestServer
 
 from ai4e_tpu.runtime.families import build_unet as jax_build_unet
 from ai4e_tpu_torch import convert
-from ai4e_tpu_torch.cli import build_worker
+from ai4e_tpu_torch.cli import build_control_plane, build_worker
+from ai4e_tpu_torch.config import FrameworkConfig
 from ai4e_tpu_torch.models import create_unet
 from ai4e_tpu_torch.runtime.registry import ModelRuntime
 
@@ -279,18 +280,51 @@ class TestServing:
         assert "ai4e_device_phase_seconds" in metrics
 
 
+def worker_of(spec: dict, **env):
+    """A builder of the port's worker from ``spec`` under the ``AI4E_*``
+    variables ``env``."""
+    return lambda: build_worker(copy.deepcopy(spec), device="cpu",
+                                config=FrameworkConfig.from_env(env))
+
+
+def control_plane_of(api: dict, **env):
+    """A builder of the port's control plane serving one route ``api``
+    under the ``AI4E_*`` variables ``env``."""
+    route = {"prefix": "/v1/pub/x", "backend": "http://w/v1/models/x", **api}
+    return lambda: build_control_plane(FrameworkConfig.from_env(env),
+                                       {"apis": [route]})
+
+
 class TestUnported:
-    @pytest.mark.parametrize("spec,match", [
-        (landcover_spec(family="moe"), "'moe' is not ported"),
-        (landcover_spec(wire="yuv420"), "'yuv420' is not ported"),
-        (landcover_spec(wire="dct"), "'dct' is not ported"),
-        (landcover_spec(pipeline_to={"endpoint": "x"}), "'pipeline_to'"),
-        (dict(landcover_spec(), taskstore="http://cp"), "'taskstore'"),
-        (landcover_spec(checkpoint="landcover"), "orbax restore"),
-    ], ids=["family", "yuv420", "dct", "pipeline", "taskstore", "orbax"])
-    def test_raises_and_names_itself(self, spec, match):
+    @pytest.mark.parametrize("build,match", [
+        (worker_of(landcover_spec(family="moe")), "'moe' is not ported"),
+        (worker_of(landcover_spec(wire="yuv420")), "'yuv420' is not ported"),
+        (worker_of(landcover_spec(wire="dct")), "'dct' is not ported"),
+        (worker_of(landcover_spec(pipeline_to={"endpoint": "x"})),
+         r"'pipeline_to' \(pipeline handoffs \(ROADMAP A6.3"),
+        (worker_of(landcover_spec(batch={"max_items": 8})),
+         r"'batch' \(the batch API, serve_batch \(ROADMAP A6.3"),
+        (worker_of(landcover_spec(checkpoint="landcover")),
+         r"orbax restore is not ported yet \(ROADMAP A7"),
+        (control_plane_of({"autoscale": {"max_replicas": 8}}),
+         r"'autoscale' \(the autoscaler \(ROADMAP A18.8"),
+        (control_plane_of({"backends": [{"uri": "http://w/v1/x",
+                                         "weight": 1}]}),
+         r"'backends' \(weighted canary backends \(ROADMAP A18.8"),
+        (control_plane_of({}, AI4E_PLATFORM_TRANSPORT="push"),
+         r"AI4E_PLATFORM_TRANSPORT='push': the push transport \(ROADMAP "
+         r"A18.3"),
+        (control_plane_of({}, AI4E_PLATFORM_JOURNAL_PATH="/j.jsonl"),
+         r"AI4E_PLATFORM_JOURNAL_PATH='/j.jsonl': the journaled and "
+         r"replicated task store \(ROADMAP A18.1"),
+        (worker_of(landcover_spec(), AI4E_RUNTIME_BATCH_DOUBLE_BUFFER="1"),
+         r"AI4E_RUNTIME_BATCH_DOUBLE_BUFFER=True: the batcher's double "
+         r"buffer \(ROADMAP A6.3"),
+    ], ids=["family", "yuv420", "dct", "pipeline", "batch", "orbax",
+            "autoscale", "backends", "push", "journal", "double-buffer"])
+    def test_raises_and_names_itself(self, build, match):
         with pytest.raises(ValueError, match=match):
-            build_worker(copy.deepcopy(spec), device="cpu")
+            build()
 
 
 def port_sources() -> list[Path]:
