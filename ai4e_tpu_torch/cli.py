@@ -117,21 +117,17 @@ def restore_checkpoint(servable, path: str,
                        checkpoint_dir: str | None = None) -> None:
     """Load a flax params tree saved flat with ``convert.save_npz`` into
     ``servable.module``; a relative path resolves under ``checkpoint_dir``
-    (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working directory. An orbax
-    checkpoint directory raises: reading it needs JAX (ROADMAP A7)."""
-    from .convert import load_npz
+    (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working directory. Any other
+    path raises, naming ``scripts/orbax_to_npz.py``, which converts an
+    orbax checkpoint where JAX is installed."""
+    from .checkpoint import load_params
 
-    if not path.endswith(".npz"):
-        raise ValueError(
-            f"checkpoint {path!r}: the port reads .npz trees written by "
-            "ai4e_tpu_torch.convert.save_npz; orbax restore is not ported "
-            "yet (ROADMAP A7)")
     if servable.state_dict_from_flax is None:
         raise ValueError(f"model {servable.name!r} has no weights to restore")
     if not os.path.isabs(path):
         path = os.path.abspath(os.path.join(checkpoint_dir or ".", path))
     servable.module.load_state_dict(
-        servable.state_dict_from_flax(load_npz(path)))
+        servable.state_dict_from_flax(load_params(path)))
     servable.checkpoint_path = path
     log.info("restored %s params from %s", servable.name, path)
 
@@ -156,14 +152,23 @@ def _stores(models: dict, config: FrameworkConfig):
 
 def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                  max_pending: int | None = None,
-                 config: FrameworkConfig | None = None):
+                 config: FrameworkConfig | None = None,
+                 measure_phases: bool = False):
     """Assemble a worker from a models spec; returns ``(worker, batcher,
     task_manager)``. ``device`` defaults to ``cuda``; ``config`` (default:
     every section at its defaults) supplies the batcher's window and
-    capacity unless ``max_wait_ms``/``max_pending`` are given."""
+    capacity unless ``max_wait_ms``/``max_pending`` are given, its pipeline
+    depth and double buffer, the ladder deriver's knobs, the reload's
+    checkpoint root and the drain budget. In the JAX package's order: every
+    model is registered, the persisted ladders are restored, every bucket
+    is warmed (on the card: run and captured as a CUDA graph), then the
+    batcher is built. ``measure_phases`` turns on the batcher's device-phase,
+    overlap and pad metrics; off by default, as in the JAX package, whose
+    switch for them (``AI4E_OBSERVABILITY_HOP_LEDGER``) is not ported."""
     from .metrics import MetricsRegistry
     from .runtime.batcher import MicroBatcher
     from .runtime.families import build_servable
+    from .runtime.ladder import LadderManager
     from .runtime.registry import ModelRuntime
     from .runtime.worker import InferenceWorker
 
@@ -191,31 +196,48 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
 
     task_manager, store = _stores(models, config)
     metrics = MetricsRegistry()
+    ladders = None
+    if rt.ladder_derive:
+        ladders = LadderManager(
+            runtime, window_s=rt.ladder_window_s,
+            max_programs=rt.ladder_max_programs, period_s=rt.ladder_period_s,
+            dwell_s=rt.ladder_dwell_s, metrics=metrics,
+            persist_path=(rt.ladder_path or os.path.join(
+                rt.compile_cache_dir, "ladders.json")))
+        restored = ladders.restore()
+        if restored:
+            log.info("restored derived ladders for %s", sorted(restored))
+    runtime.warmup()
     batcher = MicroBatcher(
         runtime,
         max_wait_ms=rt.batch_max_wait_ms if max_wait_ms is None else max_wait_ms,
         max_pending=rt.batch_max_pending if max_pending is None else max_pending,
-        metrics=metrics)
+        metrics=metrics, pipeline_depth=rt.batch_pipeline_depth,
+        measure_phases=measure_phases, ladder_manager=ladders,
+        double_buffer=rt.batch_double_buffer)
     worker = InferenceWorker(models.get("service_name", "gpu-worker"), runtime,
                              batcher, task_manager=task_manager,
                              prefix=models.get("prefix", "v1"),
                              metrics=metrics, store=store,
-                             executor_workers=config.service.executor_workers)
+                             executor_workers=config.service.executor_workers,
+                             checkpoint_root=rt.checkpoint_dir,
+                             drain_timeout_s=(config.rollout.drain_timeout_ms
+                                              / 1000.0))
     for servable, sync_path, async_path, cap in to_serve:
         worker.serve_model(servable, sync_path=sync_path,
                            async_path=async_path,
                            maximum_concurrent_requests=cap)
-    runtime.warmup()
     return worker, batcher, task_manager
 
 
 def kernel_launches() -> dict[str, int]:
-    """Each hand-written kernel's launch count in this process."""
-    from .ops import flash_attention, image_preprocess, seg_postprocess
+    """Each serving kernel's launch count in this process, graph replays
+    included."""
+    from .ops import launch_counts
 
-    return {"normalize_image": image_preprocess.launches,
-            "fused_seg_postprocess": seg_postprocess.launches,
-            "flash_attention": flash_attention.launches}
+    counts = launch_counts()
+    return {k: counts[k] for k in ("normalize_image", "fused_seg_postprocess",
+                                   "flash_attention")}
 
 
 async def serve(worker, batcher, host: str, port: int,

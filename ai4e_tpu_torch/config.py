@@ -45,8 +45,9 @@ _OBSERVABILITY = "observability: tracing, hop ledger, SLOs (ROADMAP A18.11)"
 _PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
 _NATIVE = "the native cores and result offload (ROADMAP A18.13)"
 _REPORTER = "the request reporter (ROADMAP A18.14)"
-_WORKER = "the worker's drain, rollout and priority classes (ROADMAP A6.3)"
-_RUNTIME = "the runtime's split phases, ladders and donation (ROADMAP A4)"
+_WORKER = ("the worker's rollout generations and priority classes "
+           "(ROADMAP A6.3)")
+_DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
 _DECODE = "streaming decode (ROADMAP A13)"
 _MESH = "the parallel plane (ROADMAP A15)"
 
@@ -94,15 +95,9 @@ UNPORTED: dict[tuple[str, str], str] = {
     ("AI4E_SERVICE_", "result_offload_threshold"): _NATIVE,
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
-    ("AI4E_RUNTIME_", "batch_pipeline_depth"): _RUNTIME,
     ("AI4E_RUNTIME_", "batch_interactive_reserve"): _WORKER,
     ("AI4E_RUNTIME_", "batch_priority_aging_s"): _WORKER,
-    ("AI4E_RUNTIME_", "batch_double_buffer"):
-        "the batcher's double buffer (ROADMAP A6.3)",
-    **{("AI4E_RUNTIME_", f): _RUNTIME for f in (
-        "ladder_derive", "ladder_window_s", "ladder_max_programs",
-        "ladder_period_s", "ladder_dwell_s", "ladder_path",
-        "compile_cache_dir", "donate_batch")},
+    ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
     **{("AI4E_RUNTIME_", f): _DECODE for f in (
         "decode_enable", "decode_max_pending", "decode_prompt_buckets",
         "kv_slots", "kv_max_len")},
@@ -121,8 +116,8 @@ UNPORTED: dict[tuple[str, str], str] = {
         "enabled", "tenants", "default_weight", "default_rps",
         "default_burst", "label_top_n", "goodput_target", "min_quantum")},
     **{("AI4E_ROLLOUT_", f): _WORKER for f in (
-        "drain_timeout_ms", "canary_steps", "step_hold_s", "guard_tick_s",
-        "burn_fast_max", "burn_slow_max", "generation")},
+        "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
+        "burn_slow_max", "generation")},
     ("AI4E_ROLLOUT_", "drain_eject_ttl_s"): _RESILIENCE,
 }
 

@@ -22,9 +22,12 @@ flax's auto names for the unnamed LayerNorms: ``block{i}/LayerNorm_0``
 (before attention) and ``LayerNorm_1`` (before the MLP), and a top-level
 ``LayerNorm_0`` (after pooling). Dense kernels go from (in, out) to
 Linear's (out, in), ``Embed.embedding`` is ``nn.Embedding.weight`` as it
-is, and ``pos_emb`` keeps its (1, S, dim) shape. ``seqformer_flax_from_state_dict``
-is the inverse: a trained state_dict becomes the flax tree that ``save_npz``
-writes and a worker restores.
+is, and ``pos_emb`` keeps its (1, S, dim) shape.
+
+``unet_flax_from_state_dict`` and ``seqformer_flax_from_state_dict`` are the
+inverses: a trained state_dict becomes the flax tree that ``save_npz``
+writes and a worker restores, and a served model's tree is what a reload's
+tree is compared with.
 """
 
 from __future__ import annotations
@@ -138,6 +141,44 @@ def unet_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         expected = UNet(num_classes=int(num_classes), widths=widths,
                         dtype=torch.float32).state_dict()
     return _checked(sd, expected, set(flatten_tree(tree)) - used, "UNet")
+
+
+def unet_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``UNet`` tree (``{"params": {...}}`` of float32 numpy
+    arrays) for the port's state_dict: the inverse of
+    ``unet_state_dict_from_flax``, exact both ways (a bfloat16 state_dict
+    widens to float32 without rounding)."""
+
+    def array(key: str) -> np.ndarray:
+        if key not in sd:
+            raise ValueError(f"state_dict is missing {key}")
+        return sd[key].detach().cpu().float().numpy().copy()
+
+    def kernel(key: str) -> np.ndarray:  # OIHW -> HWIO
+        return np.ascontiguousarray(array(key).transpose(2, 3, 1, 0))
+
+    def block(src: str) -> dict:
+        node = {}
+        for k in range(2):
+            node[f"Conv_{k}"] = {"kernel": kernel(f"{src}.convs.{k}.weight")}
+            node[f"GroupNorm_{k}"] = {"scale": array(f"{src}.norms.{k}.weight"),
+                                      "bias": array(f"{src}.norms.{k}.bias")}
+        return node
+
+    depth = len({k.split(".")[1] for k in sd if k.startswith("encoder.")})
+    tree: dict = {}
+    for i in range(depth):
+        tree[f"ConvBlock_{i}"] = block(f"encoder.{i}")
+    for i in range(depth - 1):
+        tree[f"Conv_{i}"] = {"kernel": kernel(f"down.{i}.weight")}
+        tree[f"Conv_{depth - 1 + i}"] = {"kernel": kernel(f"up.{i}.weight")}
+        tree[f"ConvBlock_{depth + i}"] = block(f"decoder.{i}")
+    tree[f"Conv_{2 * depth - 2}"] = {"kernel": kernel("head.weight"),
+                                     "bias": array("head.bias")}
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    unet_state_dict_from_flax(params)
+    return params
 
 
 def seqformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:

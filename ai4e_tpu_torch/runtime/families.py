@@ -106,9 +106,20 @@ class _Scale(nn.Module):
         self.register_buffer("scale", torch.ones(()))
 
 
+def _echo_state_dict(params: dict) -> dict[str, torch.Tensor]:
+    return {"scale": torch.from_numpy(
+        np.asarray(params["scale"], np.float32).copy())}
+
+
+def _echo_params(sd: dict[str, torch.Tensor]) -> dict:
+    return {"scale": np.float32(sd["scale"].item())}
+
+
 def build_echo(name: str = "echo", size: int = 16, buckets=(8,),
                **_) -> ServableModel:
-    """Identity model: proves the full transport without model weight."""
+    """Identity model: proves the full transport without model weight. Its
+    one weight, ``{"scale": 1.0}``, is a params tree like the JAX
+    package's echo, so it reloads as that one does."""
 
     def apply_fn(module, batch):
         return batch * module.scale
@@ -117,7 +128,9 @@ def build_echo(name: str = "echo", size: int = 16, buckets=(8,),
         name=name, apply_fn=apply_fn, module=_Scale(),
         input_shape=(size,), preprocess=_npy_preprocess((size,)),
         postprocess=lambda out: {"echo": np.asarray(out).tolist()},
-        batch_buckets=tuple(buckets))
+        batch_buckets=tuple(buckets),
+        state_dict_from_flax=_echo_state_dict,
+        flax_from_state_dict=_echo_params)
 
 
 def build_unet(name: str = "landcover", tile: int = 256,
@@ -132,7 +145,7 @@ def build_unet(name: str = "landcover", tile: int = 256,
     ``return_classmap`` adds the class map as a base64 PNG (then the uint8
     map comes back too). The weights are random, drawn from seed 0, until a
     checkpoint is restored (``cli.restore_checkpoint``)."""
-    from ..convert import unet_state_dict_from_flax
+    from ..convert import unet_flax_from_state_dict, unet_state_dict_from_flax
     from ..models import create_unet
     from ..ops import fused_seg_postprocess, normalize_image
 
@@ -167,7 +180,8 @@ def build_unet(name: str = "landcover", tile: int = 256,
         input_shape=(tile, tile, 3), input_dtype=np.uint8,
         preprocess=_image_preprocess((tile, tile, 3), np.uint8),
         postprocess=postprocess, batch_buckets=tuple(buckets),
-        state_dict_from_flax=unet_state_dict_from_flax)
+        state_dict_from_flax=unet_state_dict_from_flax,
+        flax_from_state_dict=unet_flax_from_state_dict)
 
 
 def _check_token_ids(arr: np.ndarray, vocab_size: int) -> None:
@@ -234,7 +248,8 @@ def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
     The response is ``{"class_id", "confidence"}``. The weights are random,
     drawn from seed 0, until a checkpoint is restored. A device ``mesh``
     (ring/Ulysses sequence parallelism) raises: ROADMAP A15."""
-    from ..convert import seqformer_state_dict_from_flax
+    from ..convert import (seqformer_flax_from_state_dict,
+                           seqformer_state_dict_from_flax)
     from ..models import create_seqformer
 
     wdt = np.dtype(wire_dtype)
@@ -261,7 +276,8 @@ def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
         input_shape=input_shape, input_dtype=input_dtype,
         preprocess=preprocess, postprocess=postprocess,
         batch_buckets=tuple(buckets),
-        state_dict_from_flax=seqformer_state_dict_from_flax)
+        state_dict_from_flax=seqformer_state_dict_from_flax,
+        flax_from_state_dict=seqformer_flax_from_state_dict)
 
 
 FAMILIES = {

@@ -1,12 +1,33 @@
-"""Model registry — servable PyTorch modules on one device.
+"""Model registry — servable PyTorch modules on one device, one CUDA graph
+per (model, bucket).
 
 Counterpart of ``ai4e_tpu/runtime/registry.py``. A servable is a module plus
 pure pre/postprocess functions; the runtime moves the module to its device
-and runs one padded batch at a time. There is no compile step to manage:
-PyTorch runs eagerly, but the first run of a (model, bucket) shape still
-pays one-off costs (cuDNN algorithm choice, the hand-written kernels' build
-at first use), so ``run_batch_phases`` labels it ``compile`` as the JAX
-runtime does.
+and runs one padded batch at a time. Where JAX jits one executable per
+(model, bucket), the runtime on the card captures one CUDA graph per (model,
+bucket): ``warmup`` (and ``prepare_buckets`` for a derived ladder) runs the
+bucket eagerly on the execute stream (kernel builds, cuDNN's algorithm
+choice), then captures ``apply_fn`` into a static input and static outputs;
+serving copies the padded batch into the static input and replays. All
+graphs of a runtime share one memory pool and are never replayed at once: a
+lock makes the card run one batch, one capture or one weight copy at a time.
+A capture that fails raises; nothing serves that bucket eagerly instead. On
+the CPU the runtime runs ``apply_fn`` eagerly.
+
+The first run of a (model, bucket) shape is labelled ``compile`` by
+``run_batch_phases`` and ``execute_resident``, as the JAX runtime does;
+``warmup`` and ``prepare_buckets`` take those runs, so a warmed worker's
+serving path reads ``execute``.
+
+A replay launches the hand-written kernels without calling their wrappers,
+so each graph keeps what its capture launched and adds it to the kernels'
+counters on every replay (``ops.add_launches``).
+
+``reload_params`` swaps a servable's weights in place: the new tensors are
+staged on the device, then copied into the module's own tensors under the
+lock, so every batch runs wholly on the old weights or wholly on the new
+ones, and the graphs, which captured the tensors' addresses, replay the new
+values.
 
 ``cudnn.allow_tf32`` is switched off on the card: the head conv is float32
 in the reference, and cuDNN would otherwise run it in TF32 (about three
@@ -18,7 +39,9 @@ do.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -27,6 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import ops
 from ..device import resolve_device
 from .ladder import DEFAULT_BUCKETS
 
@@ -42,7 +66,8 @@ class ServableModel:
 
     - ``apply_fn(module, batch) -> outputs``: a function of a dense batch
       tensor on the runtime's device; outputs are a tensor or a dict of
-      tensors with the batch as their first axis;
+      tensors with the batch as their first axis. On the card it is
+      captured in a CUDA graph, so it must not synchronise with the host;
     - ``preprocess(body, content_type) -> example``: request payload -> one
       example array of ``input_shape`` (raises ValueError on bad input —
       that fails one task, never a batch);
@@ -51,7 +76,12 @@ class ServableModel:
     - ``batch_buckets``: allowed batch sizes, ascending; a batch is padded
       up to the smallest that fits.
     - ``state_dict_from_flax``: converts the JAX package's params tree for
-      this servable to ``module``'s state_dict (None: no conversion).
+      this servable to ``module``'s state_dict, and
+      ``flax_from_state_dict`` back (None: no weights to restore or
+      reload).
+    - ``checkpoint_path`` and ``params_version``: where the weights came
+      from and how many times they were swapped in (1 = as built);
+      ``generation``: the rollout generation a reload names.
     """
 
     name: str
@@ -65,7 +95,9 @@ class ServableModel:
     version: str = "1.0"
     checkpoint_path: str | None = None
     params_version: int = 1
+    generation: int = 1
     state_dict_from_flax: Callable | None = None
+    flax_from_state_dict: Callable | None = None
 
     def bucket_for(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -78,25 +110,85 @@ class ServableModel:
         return self.batch_buckets[-1]
 
 
-def _to_host(out):
+@dataclass
+class BucketGraph:
+    """One captured (model, bucket) program: the graph, the static input it
+    reads, the static outputs it writes, and the kernel launches of one
+    replay."""
+
+    graph: Any
+    static_in: torch.Tensor
+    static_out: Any
+    launches: dict[str, int]
+
+
+def _to_pinned(out):
+    """Start copying a tensor (or dict of tensors) on the card into fresh
+    pinned host tensors on the current stream; the caller synchronises."""
     if isinstance(out, dict):
-        return {k: _to_host(v) for k, v in out.items()}
-    return out.cpu().numpy()
+        return {k: _to_pinned(v) for k, v in out.items()}
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    return host.copy_(out, non_blocking=True)
+
+
+def _numpy(out):
+    if isinstance(out, dict):
+        return {k: _numpy(v) for k, v in out.items()}
+    return out.numpy()
+
+
+def _clone(out):
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    return out.clone()
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+#: 64-bit leaves as JAX sees them without x64: its 32-bit types.
+_CANONICAL = {"float64": "float32", "int64": "int32", "uint64": "uint32",
+              "complex128": "complex64"}
+
+
+def flax_spec(tree):
+    """``(shape, dtype name)`` of every leaf of a nested-dict params tree,
+    64-bit types named as their 32-bit ones: the tree the JAX runtime's
+    ``reload_params`` compares (``jnp.result_type`` without x64)."""
+    if isinstance(tree, dict):
+        return {k: flax_spec(tree[k]) for k in sorted(tree)}
+    arr = np.asarray(tree)
+    return (tuple(arr.shape), _CANONICAL.get(arr.dtype.name, arr.dtype.name))
 
 
 class ModelRuntime:
-    """Owns the device and the registered modules; runs padded batches."""
+    """Owns the device, the registered modules and their graphs; runs padded
+    batches."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+            # Batches execute (and graphs are captured) on one stream; the
+            # split-phase path's copies each way run on one of their own.
+            self.exec_stream = torch.cuda.Stream(self.device)
+            self._h2d_stream = torch.cuda.Stream(self.device)
+            self._d2h_stream = torch.cuda.Stream(self.device)
+            self.graph_pool = torch.cuda.graph_pool_handle()
         self.models: dict[str, ServableModel] = {}
+        self.graphs: dict[tuple[str, int], BucketGraph] = {}
         # (model, padded-batch-size) shapes this process has run — the
-        # first run of each is labelled ``compile`` by run_batch_phases.
+        # first run of each is labelled ``compile``. Append-only: an old
+        # ladder's buckets stay warm after a swap.
         self._executed_shapes: set[tuple[str, int]] = set()
+        # The card runs one batch, one capture or one weight copy at a time.
+        self._device_lock = threading.Lock()
+        # Each servable's params-tree spec, computed at its first reload.
+        self._flax_specs: dict[str, dict] = {}
 
     def register(self, servable: ServableModel) -> ServableModel:
         """Move the module to the device, channels-last, inference mode."""
@@ -107,20 +199,94 @@ class ModelRuntime:
         return servable
 
     def warmup(self, names: list[str] | None = None) -> dict[str, float]:
-        """Run every bucket of every model once on zeros, so the first
-        served request pays no one-off cost. Returns seconds per model."""
+        """Run every bucket of every model once (on the card: run it
+        eagerly, capture its graph and replay it), so the first served
+        request pays no one-off cost. Returns seconds per model."""
         times: dict[str, float] = {}
         for name, servable in self.models.items():
             if names is not None and name not in names:
                 continue
             t0 = time.perf_counter()
             for bucket in servable.batch_buckets:
-                self.run_batch(name, np.zeros((bucket, *servable.input_shape),
-                                              servable.input_dtype))
+                self._prepare(name, bucket)
             times[name] = time.perf_counter() - t0
-            log.info("warmup %s: %d buckets in %.1fs", name,
-                     len(servable.batch_buckets), times[name])
+            log.info("warmup %s: %d buckets in %.1fs%s", name,
+                     len(servable.batch_buckets), times[name],
+                     " (CUDA graphs captured)" if self._cuda else "")
         return times
+
+    def _prepare(self, name: str, bucket: int) -> None:
+        """Capture (on the card) and run one bucket not run before."""
+        if (name, bucket) in self._executed_shapes:
+            return
+        servable = self.models[name]
+        self.run_batch(name, np.zeros((bucket, *servable.input_shape),
+                                      servable.input_dtype))
+
+    def prepare_buckets(self, name: str, buckets) -> tuple[int, ...]:
+        """Run (on the card: capture and replay) every bucket of a candidate
+        ladder not run before, WITHOUT swapping it in — the ladder
+        deriver's background step. Returns the sorted tuple to pass to
+        ``apply_ladder``."""
+        if name not in self.models:
+            raise KeyError(name)
+        aligned = tuple(sorted({int(b) for b in buckets}))
+        if not aligned:
+            raise ValueError(f"empty ladder for {name}")
+        for bucket in aligned:
+            self._prepare(name, bucket)
+        return aligned
+
+    def apply_ladder(self, name: str, buckets) -> tuple[int, ...]:
+        """Swap ``name``'s serving ladder to ``buckets`` (the tuple
+        ``prepare_buckets`` returned) in one attribute assignment. Refuses
+        any bucket that has not been executed; old buckets keep their
+        graphs, so a batch cut against the old ladder still replays."""
+        servable = self.models[name]
+        aligned = tuple(sorted({int(b) for b in buckets}))
+        missing = [b for b in aligned
+                   if (name, b) not in self._executed_shapes]
+        if missing:
+            raise RuntimeError(
+                f"apply_ladder({name}): buckets {missing} have no "
+                f"executed program — call prepare_buckets first")
+        servable.batch_buckets = aligned
+        return aligned
+
+    def reload_params(self, name: str, new_params) -> ServableModel:
+        """Swap a registered servable's weights for the flax-shaped tree
+        ``new_params`` (as ``convert.load_npz`` reads it). The tree must
+        match the served one exactly — structure, shapes and dtypes, as
+        the JAX runtime requires — or ``ValueError`` is raised and serving
+        is unchanged. The new weights are staged on the device, then
+        copied into the module's own tensors between batches, and
+        ``params_version`` goes up by one."""
+        servable = self.models[name]  # KeyError -> the caller's 404
+        if servable.flax_from_state_dict is None:
+            raise ValueError(f"model {name!r} has no weights to reload")
+        module_sd = servable.module.state_dict()
+        served = self._flax_specs.get(name)
+        if served is None:
+            served = self._flax_specs[name] = flax_spec(
+                servable.flax_from_state_dict(module_sd))
+        offered = flax_spec(new_params)
+        if served != offered:
+            raise ValueError(
+                f"checkpoint tree does not match the served model: "
+                f"served {served} vs reload {offered}")
+        new_sd = servable.state_dict_from_flax(new_params)
+        staged = {k: new_sd[k].to(device=self.device, dtype=t.dtype)
+                  for k, t in module_sd.items()}
+        if self._cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        with self._device_lock, self._on_exec_stream(), torch.no_grad():
+            for key, tensor in module_sd.items():
+                tensor.copy_(staged[key])
+            self._sync()
+            servable.params_version += 1
+        return servable
+
+    # -- the fused path ------------------------------------------------------
 
     def run_batch(self, name: str, batch: np.ndarray):
         """Execute one padded batch; blocking (call from an executor)."""
@@ -135,38 +301,195 @@ class ModelRuntime:
     def run_batch_phases(self, name: str, batch: np.ndarray
                          ) -> tuple[object, frozenset, dict[str, float]]:
         """``run_batch_report`` with the device boundary split into
-        measured phases, each ended by a device synchronize:
+        measured phases, each ended by a synchronize of the execute stream:
 
-        - ``h2d``: the padded batch copied from pinned host memory;
-        - ``execute`` (``compile`` on the first run of this shape):
-          ``apply_fn`` on the resident batch;
+        - ``h2d``: the padded batch copied from pinned host memory (on the
+          card, into the bucket graph's static input);
+        - ``execute`` (``compile`` on the first run of this shape, which on
+          the card includes the eager run and the capture): the graph's
+          replay, or ``apply_fn`` on the CPU;
         - ``d2h``: the outputs copied back (counts-only land-cover: B*C
           int32).
 
         Returns ``(host_outputs, poisoned_rows, {phase: seconds})``."""
         servable = self.models[name]
-        cuda = self.device.type == "cuda"
-        phases: dict[str, float] = {}
-        t0 = time.perf_counter()
-        host = torch.from_numpy(batch)
-        if cuda:
-            host = host.pin_memory()
-        device_batch = host.to(self.device, non_blocking=True)
-        self._sync()
-        phases["h2d"] = time.perf_counter() - t0
         key = (name, int(batch.shape[0]))
-        first = key not in self._executed_shapes
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            out = servable.apply_fn(servable.module, device_batch)
-        self._sync()
-        phases["compile" if first else "execute"] = time.perf_counter() - t0
-        self._executed_shapes.add(key)
-        t0 = time.perf_counter()
-        host_out = _to_host(out)
-        phases["d2h"] = time.perf_counter() - t0
+        phases: dict[str, float] = {}
+        with self._device_lock, self._on_exec_stream():
+            first = key not in self._executed_shapes
+            t0 = time.perf_counter()
+            if self._cuda:
+                graph = self.graphs.get(key)
+                dest = (graph.static_in if graph is not None else
+                        torch.empty(batch.shape,
+                                    dtype=_torch_dtype(batch.dtype),
+                                    device=self.device))
+                dest.copy_(torch.from_numpy(batch).pin_memory(),
+                           non_blocking=True)
+                self._sync()
+            else:
+                dest = torch.from_numpy(batch)
+            phases["h2d"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if self._cuda:
+                if graph is None:
+                    graph = self._capture(servable, dest)
+                out = self._replay(graph)
+            else:
+                with torch.inference_mode():
+                    out = servable.apply_fn(servable.module, dest)
+            self._sync()
+            phases["compile" if first else "execute"] = (
+                time.perf_counter() - t0)
+            self._executed_shapes.add(key)
+            t0 = time.perf_counter()
+            host_out = self._fetch(out)
+            phases["d2h"] = time.perf_counter() - t0
         return host_out, frozenset(), phases
 
+    # -- split-phase surface (the double-buffered batcher) -------------------
+    #
+    # The three steps of run_batch_phases as separate blocking calls, each
+    # returning its (perf-counter start, end) wall window. The batcher's
+    # double-buffered path runs them on three single-thread executors, so
+    # batch N+1's h2d (its own device buffer, on the h2d stream) overlaps
+    # batch N's replay, and batch N's fetch overlaps batch N+1's replay.
+
+    def supports_split_phases(self) -> bool:
+        return True
+
+    def host_buffer(self, shape: tuple[int, ...], dtype) -> np.ndarray:
+        """A host array for staging batches: on the card in pinned memory,
+        so ``h2d_resident`` copies from it directly."""
+        if not self._cuda:
+            return np.zeros(shape, dtype)
+        return torch.zeros(shape, dtype=_torch_dtype(dtype),
+                           pin_memory=True).numpy()
+
+    def h2d_resident(self, name: str, batch: np.ndarray):
+        """Copy the padded batch (a ``host_buffer``: pinned on the card) to
+        a device buffer of its own on the h2d stream, blocked until
+        resident, so the caller may reuse ``batch`` on return. Returns
+        ``(device_batch, (t0, t1))``."""
+        t0 = time.perf_counter()
+        if not self._cuda:
+            return torch.from_numpy(batch.copy()), (t0, time.perf_counter())
+        with torch.cuda.stream(self._h2d_stream):
+            dev = torch.empty(batch.shape, dtype=_torch_dtype(batch.dtype),
+                              device=self.device)
+            dev.copy_(torch.from_numpy(batch), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._h2d_stream)
+            done.synchronize()
+        dev.record_stream(self.exec_stream)
+        return (dev, done), (t0, time.perf_counter())
+
+    def execute_resident(self, name: str, device_batch):
+        """Run the bucket's program on an already-resident batch, blocked
+        until the outputs are on the device: on the card the execute stream
+        waits for the h2d event, copies the batch into the graph's static
+        input, replays, and copies the static outputs out (so the next
+        replay of the bucket cannot overwrite them before they are
+        fetched). Returns ``(device_outputs, label, (t0, t1))``, label
+        ``compile`` on the first run of the (model, bucket) shape."""
+        servable = self.models[name]
+        with self._device_lock, self._on_exec_stream():
+            if self._cuda:
+                dev, ready = device_batch
+            else:
+                dev = device_batch
+            key = (name, int(dev.shape[0]))
+            first = key not in self._executed_shapes
+            t0 = time.perf_counter()
+            if self._cuda:
+                self.exec_stream.wait_event(ready)
+                graph = self.graphs.get(key)
+                if graph is None:
+                    graph = self._capture(servable, dev)
+                else:
+                    graph.static_in.copy_(dev)
+                out = _clone(self._replay(graph))
+            else:
+                with torch.inference_mode():
+                    out = servable.apply_fn(servable.module, dev)
+            self._sync()
+            self._executed_shapes.add(key)
+        return out, ("compile" if first else "execute"), (
+            t0, time.perf_counter())
+
+    def fetch_resident(self, out):
+        """Copy the outputs (on the card: ``execute_resident``'s copies of
+        the static outputs) to pinned host memory on the d2h stream.
+        Returns ``(host_outputs, (t0, t1))``."""
+        t0 = time.perf_counter()
+        if self._cuda:
+            with torch.cuda.stream(self._d2h_stream):
+                host = self._fetch(out, self._d2h_stream)
+        else:
+            host = self._fetch(out)
+        return host, (t0, time.perf_counter())
+
+    # -- graphs --------------------------------------------------------------
+
+    def _capture(self, servable: ServableModel,
+                 batch: torch.Tensor) -> BucketGraph:
+        """Capture ``servable.apply_fn`` on a static copy of ``batch`` (the
+        lock held, on the execute stream), after running it eagerly there
+        once, and register the graph. Nothing has replayed it yet."""
+        static_in = batch.clone()
+        with torch.inference_mode():
+            servable.apply_fn(servable.module, static_in)
+        self._sync()
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        try:
+            with torch.inference_mode(), torch.cuda.graph(
+                    graph, pool=self.graph_pool, stream=self.exec_stream,
+                    capture_error_mode="thread_local"):
+                static_out = servable.apply_fn(servable.module, static_in)
+        finally:
+            launched = {k: n - before[k]
+                        for k, n in ops.launch_counts().items()
+                        if n != before[k]}
+            # A capture launches nothing, failed or not; the counters count
+            # replays.
+            ops.add_launches({k: -n for k, n in launched.items()})
+        bg = BucketGraph(graph, static_in, static_out, launched)
+        self.graphs[(servable.name, int(batch.shape[0]))] = bg
+        log.info("captured %s bucket %d (kernel launches a replay: %s)",
+                 servable.name, batch.shape[0], launched)
+        return bg
+
+    def _replay(self, graph: BucketGraph):
+        graph.graph.replay()
+        ops.add_launches(graph.launches)
+        return graph.static_out
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes the caching allocator has reserved for the graphs' shared
+        pool (0 on the CPU)."""
+        if not self._cuda:
+            return 0
+        pool = tuple(self.graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    # -- helpers -------------------------------------------------------------
+
+    def _fetch(self, out, stream=None):
+        """Outputs as numpy arrays: on the card copied to pinned host
+        memory on ``stream`` (default: the execute stream), waited for."""
+        if not self._cuda:
+            return _numpy(out)
+        host = _to_pinned(out)
+        (stream or self.exec_stream).synchronize()
+        return _numpy(host)
+
+    def _on_exec_stream(self):
+        if self._cuda:
+            return torch.cuda.stream(self.exec_stream)
+        return contextlib.nullcontext()
+
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._cuda:
+            self.exec_stream.synchronize()

@@ -10,24 +10,53 @@ answers 503 with ``Retry-After`` before a task is adopted, so a dispatcher
 redelivers it; one saturated after adoption goes back to the broker, or
 fails where no broker is behind the store. The status strings are the JAX
 worker's.
+
+The operator's surface is the JAX worker's too:
+
+- ``POST {prefix}/models/{name}/reload`` swaps a model's weights from a
+  ``.npz`` checkpoint between batches (``ModelRuntime.reload_params``):
+  404 unknown model, 400 no checkpoint known, a bad body, a checkpoint that
+  is not a ``.npz`` (the answer names ``scripts/orbax_to_npz.py``) or one
+  that fails to load, 403 a path outside ``checkpoint_root``, 409 a tree
+  that does not match the served one (serving unchanged) or a worker that
+  is draining, 200 with the new ``params_version``;
+- ``POST {prefix}/worker/drain`` stops admitting (503 + ``Retry-After`` +
+  ``X-Draining``), retires uncut requests (an async task goes back to the
+  broker) and waits, at most the drain budget, for the batches on the card
+  and any reload; ``GET`` reports the state and ``POST
+  {prefix}/worker/resume`` serves again.
+
+The admin key gate and result-cache invalidation are not ported (ROADMAP
+A18.4, A18.6).
 """
 
 from __future__ import annotations
 
+import asyncio
 import inspect
 import json
 import logging
+import os
 
 import numpy as np
 from aiohttp import web
 
+from ..checkpoint import CONVERTER_HINT, is_npz, load_params
 from ..metrics import MetricsRegistry
+from ..rollout.drain import DRAINING_HEADER, DrainingError, DrainState, \
+    drain_worker
 from ..service import APIService
 from ..service.task_manager import TaskManagerBase
 from .batcher import BatcherSaturated, MicroBatcher
 from .registry import ModelRuntime, ServableModel
 
 log = logging.getLogger("ai4e_tpu_torch.worker")
+
+#: ``X-Shed-Reason`` of a draining worker's refusals, as the JAX worker's.
+SHED_REASON_HEADER = "X-Shed-Reason"
+DRAINING_REFUSAL = (503, "Worker draining; retry a peer.",
+                    {"Retry-After": "1", DRAINING_HEADER: "1",
+                     SHED_REASON_HEADER: "draining at worker"})
 
 
 class InferenceWorker:
@@ -36,21 +65,155 @@ class InferenceWorker:
     def __init__(self, name: str, runtime: ModelRuntime, batcher: MicroBatcher,
                  task_manager: TaskManagerBase | None = None,
                  prefix: str = "v1", metrics: MetricsRegistry | None = None,
-                 store=None, executor_workers: int = 8):
+                 store=None, executor_workers: int = 8,
+                 checkpoint_root: str | None = None,
+                 drain_timeout_s: float = 30.0):
         self.runtime = runtime
         self.batcher = batcher
         self.store = store
+        # Reload confinement: checkpoints must resolve (symlinks included)
+        # under this directory, else 403. None keeps reload open.
+        self._checkpoint_root = (os.path.realpath(checkpoint_root)
+                                 if checkpoint_root else None)
         self.service = APIService(name, prefix=prefix,
                                   task_manager=task_manager, metrics=metrics,
                                   executor_workers=executor_workers)
         self._served: dict[str, dict] = {}  # model -> endpoint listing
-        self.service.app.router.add_get(self.service.prefix + "/models",
-                                        self._list_models)
+        # Concurrent swaps would leave checkpoint_path/params_version
+        # naming other weights than the ones serving.
+        self._reload_lock = asyncio.Lock()
+        # One drain state for the batcher, the reload verb and admission.
+        self.drain_state = DrainState()
+        self._drain_timeout_s = drain_timeout_s
+        self._drain_gauge = self.service.metrics.gauge(
+            "ai4e_rollout_drain_state",
+            "Worker drain state (0 active, 1 draining, 2 drained)")
+        router, base = self.service.app.router, self.service.prefix
+        router.add_get(base + "/models", self._list_models)
+        router.add_post(base + "/models/{name}/reload", self._reload_model)
+        router.add_post(base + "/worker/drain", self._drain_worker)
+        router.add_get(base + "/worker/drain", self._drain_status)
+        router.add_post(base + "/worker/resume", self._resume_worker)
+
+    async def _drain_worker(self, request) -> web.Response:
+        """POST {prefix}/worker/drain — stop admitting, retire uncut work,
+        finish the batches on the card and any reload within the budget.
+        Idempotent. Body (optional): ``{"timeout_ms": N}`` overrides the
+        budget."""
+        timeout_s = self._drain_timeout_s
+        try:
+            payload = json.loads(await request.read() or b"{}")
+            if isinstance(payload, dict) and "timeout_ms" in payload:
+                timeout_s = max(0.0, float(payload["timeout_ms"])) / 1000.0
+        except (json.JSONDecodeError, TypeError, ValueError):
+            return web.json_response({"error": "invalid JSON"}, status=400)
+        summary = await drain_worker(self.drain_state, batchers=[self.batcher],
+                                     timeout_s=timeout_s)
+        self._drain_gauge.set(self.drain_state.state_code)
+        log.warning("worker drained: %s", summary)
+        return web.json_response(summary)
+
+    async def _drain_status(self, _request) -> web.Response:
+        return web.json_response({
+            "state": self.drain_state.state,
+            "reloads_in_flight": self.drain_state.reloads_in_flight,
+            "batcher_pending": self.batcher.pending_count})
+
+    async def _resume_worker(self, _request) -> web.Response:
+        """POST {prefix}/worker/resume — serve again after a drain."""
+        self.drain_state.resume()
+        self.batcher.resume_from_drain()
+        self._drain_gauge.set(self.drain_state.state_code)
+        log.warning("worker resumed from drain")
+        return web.json_response({"state": self.drain_state.state})
+
+    async def _reload_model(self, request) -> web.Response:
+        """POST {prefix}/models/{name}/reload — swap the model's weights for
+        its recorded checkpoint's, or the ``.npz`` the JSON body names
+        (``{"checkpoint": path, "generation": n}``; a relative path resolves
+        against the recorded checkpoint's directory), between batches."""
+        name = request.match_info["name"]
+        servable = self.runtime.models.get(name)
+        if servable is None:
+            return web.json_response({"error": "unknown model"}, status=404)
+        try:
+            payload = json.loads(await request.read() or b"{}")
+        except json.JSONDecodeError:
+            return web.json_response({"error": "invalid JSON"}, status=400)
+        if not isinstance(payload, dict):
+            return web.json_response(
+                {"error": "body must be a JSON object"}, status=400)
+        path = payload.get("checkpoint") or servable.checkpoint_path
+        if not path:
+            return web.json_response(
+                {"error": "model has no checkpoint to reload; pass "
+                          '{"checkpoint": ...}'}, status=400)
+        if not isinstance(path, str):
+            return web.json_response(
+                {"error": "checkpoint must be a string path"}, status=400)
+        if not os.path.isabs(path):
+            if not servable.checkpoint_path:
+                return web.json_response(
+                    {"error": "relative checkpoint path but the model has "
+                              "no recorded checkpoint directory; pass an "
+                              "absolute path"}, status=400)
+            path = os.path.abspath(os.path.join(
+                os.path.dirname(servable.checkpoint_path), path))
+        if self._checkpoint_root is not None:
+            real = os.path.realpath(path)
+            if not (real == self._checkpoint_root
+                    or real.startswith(self._checkpoint_root + os.sep)):
+                return web.json_response(
+                    {"error": "checkpoint path escapes the configured "
+                              "checkpoint directory"}, status=403)
+            path = real
+        if not is_npz(path):
+            return web.json_response(
+                {"error": f"checkpoint {path!r} is not a .npz: "
+                          f"{CONVERTER_HINT}"}, status=400)
+        generation = payload.get("generation")
+        if generation is not None and not isinstance(generation, int):
+            return web.json_response(
+                {"error": "generation must be an integer"}, status=400)
+
+        def load_and_swap():
+            return self.runtime.reload_params(name, load_params(path))
+
+        # Check and register in one synchronous step: a reload racing a
+        # drain either lands before the drain (which waits for it) or is
+        # refused here.
+        if not self.drain_state.try_begin_reload():
+            return web.json_response(
+                {"error": "worker is draining; reload refused — the "
+                          "rollout path owns this replica now"},
+                status=409, headers={DRAINING_HEADER: "1"})
+        try:
+            async with self._reload_lock:
+                try:
+                    await asyncio.to_thread(load_and_swap)
+                except ValueError as exc:
+                    return web.json_response({"error": str(exc)}, status=409)
+                except Exception as exc:  # noqa: BLE001 — returned to the caller as the 400 body
+                    return web.json_response(
+                        {"error": f"reload failed: {type(exc).__name__}: "
+                                  f"{exc}"}, status=400)
+                servable.checkpoint_path = path
+                if generation is not None:
+                    servable.generation = generation
+                log.info("reloaded %s from %s (params_version %d)", name,
+                         path, servable.params_version)
+                return web.json_response(
+                    {"model": name, "checkpoint": path,
+                     "params_version": servable.params_version,
+                     "generation": servable.generation})
+        finally:
+            self.drain_state.end_reload()
 
     async def _list_models(self, _request) -> web.Response:
         out = [{
             "name": name, "version": s.version,
             "params_version": s.params_version,
+            "generation": s.generation,
             "checkpoint": s.checkpoint_path,
             "input_shape": list(s.input_shape),
             "input_dtype": str(np.dtype(s.input_dtype)),
@@ -73,7 +236,9 @@ class InferenceWorker:
 
         def _saturation_check():
             # Refuse before adopting a task, so a dispatcher's 503 handling
-            # (delay and redeliver) engages.
+            # (delay and redeliver) engages; a draining worker first.
+            if self.drain_state.is_draining:
+                return DRAINING_REFUSAL
             if self.batcher.pending_count >= self.batcher.max_pending:
                 return 503, "Inference queue saturated; retry later.", {
                     "Retry-After": "1"}
@@ -90,6 +255,12 @@ class InferenceWorker:
                 return web.Response(status=503,
                                     text="Inference queue saturated; retry.",
                                     headers={"Retry-After": "1"})
+            except DrainingError:
+                # Raced the drain between admission and submit, or retired
+                # by it before the cut: retryable at a peer.
+                return web.Response(
+                    status=503, text="Worker draining; retry a peer.",
+                    headers={"Retry-After": "1", DRAINING_HEADER: "1"})
             return _jsonable(result)
 
         @self.service.api_async_func(
@@ -106,12 +277,13 @@ class InferenceWorker:
                 return
             try:
                 result = await self.batcher.submit(_name, np.asarray(example))
-            except BatcherSaturated:
-                # Saturated between admission and submit: hand the task back
-                # to the broker (a republish with an empty body replays the
-                # original one) instead of failing it. With no broker behind
-                # the store, or on a device error, the exception propagates
-                # and the service shell fails the task.
+            except (BatcherSaturated, DrainingError):
+                # Saturated, or retired by a drain, between admission and
+                # the cut: hand the task back to the broker (a republish
+                # with an empty body replays the original one) instead of
+                # failing it. With no broker behind the store, or on a
+                # device error, the exception propagates and the service
+                # shell fails the task.
                 if not tm.redelivers:
                     raise
                 current = await tm.get_task_status(taskId)

@@ -67,7 +67,18 @@ Phases, each of which raises on failure:
    kernels by ``torch.profiler``, with the fused kernel's registers,
    spills and shared memory from the build log, and the whole call and
    the fused kernel again under the deterministic flag
-   (``deterministic_ms``).
+   (``deterministic_ms``);
+7. the runtime (phases 4 to 6 already serve through its CUDA graphs, one
+   per (model, bucket)): (a) each bucket's replay against an eager call on
+   the same batch, with the port's kernels one replay runs counted in a
+   ``torch.profiler`` trace and held against the launches the graph adds
+   to the counters, and eager against replay ms; (b) land cover with
+   pipeline depth 2 and the double buffer under phase 4's requests over
+   HTTP, then the async examples submitted to the batcher at once
+   (overlap ratio > 0); (c) longcontext reloaded to phase 6's ``.npz`` in
+   the middle of an async burst, with the 409 and 403 refusals; (d) a
+   derived ladder; (e) a drain under a burst, then resume. It prints a
+   ``runtime: {...}`` line.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -79,6 +90,7 @@ import asyncio
 import contextlib
 import io
 import json
+import os
 import socket
 import statistics
 import subprocess
@@ -574,24 +586,20 @@ def check_histogram(result: dict, want: np.ndarray, pixels: int) -> int:
     return diff
 
 
-async def drive(worker, batcher, port: int, bodies: list[bytes], n_sync: int,
-                route: tuple[str, str, str], kernels: dict) -> dict:
-    """Serve ``worker`` on a loopback port and post ``bodies``: the first
-    ``n_sync`` one after another to the sync path, the rest at once to the
-    async path, each polled until its status reads ``done``. ``route`` is
-    (sync path, async path, done); ``kernels`` maps each kernel's name to
-    the module holding its launch count, set to 0 just before the requests
-    and read just after."""
+OCTET = {"Content-Type": "application/octet-stream"}
+
+
+@contextlib.asynccontextmanager
+async def serving(worker, batcher, port: int):
+    """``serve`` ``worker`` on a loopback port until the block ends; yields
+    an HTTP session and the service's base URL, once it answers."""
     import aiohttp
 
     from ai4e_tpu_torch.cli import serve
 
-    sync_path, async_path, done = route
     stop = asyncio.Event()
     server = asyncio.create_task(serve(worker, batcher, "127.0.0.1", port, stop))
     base = f"http://127.0.0.1:{port}/{worker.service.prefix.strip('/')}"
-    headers = {"Content-Type": "application/octet-stream"}
-    retries = 0
     try:
         async with aiohttp.ClientSession(
                 connector=aiohttp.TCPConnector(limit=0)) as http:
@@ -603,61 +611,95 @@ async def drive(worker, batcher, port: int, bodies: list[bytes], n_sync: int,
                 except aiohttp.ClientConnectionError:
                     pass
                 await asyncio.sleep(0.05)
-            for module in kernels.values():
-                module.launches = 0
-
-            sync_ms, sync_results = [], []
-            for body in bodies[:n_sync]:
-                t0 = time.perf_counter()
-                async with http.post(base + sync_path, data=body,
-                                     headers=headers) as r:
-                    if r.status != 200:
-                        raise AssertionError(f"sync {r.status}: {await r.text()}")
-                    sync_results.append(await r.json())
-                sync_ms.append((time.perf_counter() - t0) * 1e3)
-
-            async def one_async(body: bytes) -> str:
-                nonlocal retries
-                while True:
-                    async with http.post(base + async_path, data=body,
-                                         headers=headers) as r:
-                        if r.status == 503:
-                            retries += 1
-                            await asyncio.sleep(0.02)
-                            continue
-                        if r.status != 200:
-                            raise AssertionError(f"async {r.status}")
-                        task_id = (await r.json())["TaskId"]
-                        break
-                while True:
-                    async with http.get(f"{base}/task/{task_id}") as r:
-                        status = (await r.json())["Status"]
-                    if status.startswith("completed"):
-                        if status != done:
-                            raise AssertionError(status)
-                        return task_id
-                    if status.startswith("failed"):
-                        raise AssertionError(f"task {task_id}: {status}")
-                    await asyncio.sleep(0.01)
-
-            t0 = time.perf_counter()
-            task_ids = await asyncio.gather(
-                *(one_async(b) for b in bodies[n_sync:]))
-            async_s = time.perf_counter() - t0
-            launches = {name: module.launches
-                        for name, module in kernels.items()}
-            async with http.get(base + "/models") as r:
-                listing = await r.json()
-            async with http.get(f"http://127.0.0.1:{port}/metrics") as r:
-                metrics_text = await r.text()
+            yield http, base
     finally:
         stop.set()
         await server
+
+
+async def submit_task(http, url: str, body: bytes) -> tuple[str, int]:
+    """POST ``body`` to an async path, again after each 503; returns the
+    task id and the 503s met."""
+    retries = 0
+    while True:
+        async with http.post(url, data=body, headers=OCTET) as r:
+            if r.status == 503:
+                retries += 1
+                await asyncio.sleep(0.02)
+                continue
+            if r.status != 200:
+                raise AssertionError(f"async {r.status}: {await r.text()}")
+            return (await r.json())["TaskId"], retries
+
+
+async def await_task(http, base: str, task_id: str, done: str) -> str:
+    """Poll a task until it completes (its status must be ``done``);
+    raises if it fails."""
+    while True:
+        async with http.get(f"{base}/task/{task_id}") as r:
+            status = (await r.json())["Status"]
+        if status.startswith("completed"):
+            if status != done:
+                raise AssertionError(status)
+            return task_id
+        if status.startswith("failed"):
+            raise AssertionError(f"task {task_id}: {status}")
+        await asyncio.sleep(0.01)
+
+
+async def post_sync(http, url: str, body: bytes) -> dict:
+    async with http.post(url, data=body, headers=OCTET) as r:
+        if r.status != 200:
+            raise AssertionError(f"sync {r.status}: {await r.text()}")
+        return await r.json()
+
+
+async def drive(worker, batcher, port: int, bodies: list[bytes], n_sync: int,
+                route: tuple[str, str, str], kernels: dict) -> dict:
+    """Serve ``worker`` on a loopback port and post ``bodies`` to it
+    (``post_requests``)."""
+    async with serving(worker, batcher, port) as (http, base):
+        return await post_requests(http, base, worker, bodies, n_sync, route,
+                                   kernels)
+
+
+async def post_requests(http, base: str, worker, bodies: list[bytes],
+                        n_sync: int, route: tuple[str, str, str],
+                        kernels: dict) -> dict:
+    """Post ``bodies`` to the served ``worker`` at ``base``: the first
+    ``n_sync`` one after another to the sync path, the rest at once to the
+    async path, each polled until its status reads ``done``. ``route`` is
+    (sync path, async path, done); ``kernels`` maps each kernel's name to
+    the module holding its launch count, set to 0 just before the requests
+    and read just after."""
+    sync_path, async_path, done = route
+    for module in kernels.values():
+        module.launches = 0
+    sync_ms, sync_results = [], []
+    for body in bodies[:n_sync]:
+        t0 = time.perf_counter()
+        sync_results.append(await post_sync(http, base + sync_path, body))
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+
+    async def one_async(body: bytes) -> tuple[str, int]:
+        task_id, retries = await submit_task(http, base + async_path, body)
+        await await_task(http, base, task_id, done)
+        return task_id, retries
+
+    t0 = time.perf_counter()
+    tasks = await asyncio.gather(*(one_async(b) for b in bodies[n_sync:]))
+    async_s = time.perf_counter() - t0
+    launches = {name: module.launches for name, module in kernels.items()}
+    async with http.get(base + "/models") as r:
+        listing = await r.json()
+    async with http.get(base[:base.index("/", len("http://"))]
+                        + "/metrics") as r:
+        metrics_text = await r.text()
     async_results = [json.loads(worker.store.get_result(t)[0])
-                     for t in task_ids]
+                     for t, _ in tasks]
     return {"sync_ms": sync_ms, "sync_results": sync_results,
             "async_results": async_results, "async_s": async_s,
-            "retries_503": retries, "launches": launches,
+            "retries_503": sum(r for _, r in tasks), "launches": launches,
             "listing": listing, "metrics": metrics_text}
 
 
@@ -1440,7 +1482,8 @@ def phase_serve_trained(result: dict) -> dict:
     if hits < MIN_SERVED_ACC * len(labels):
         raise AssertionError(f"served accuracy {hits}/{len(labels)} < "
                              f"{MIN_SERVED_ACC}")
-    serve = {"served_accuracy": hits / len(labels),
+    serve = {"npz": entry["path"],
+             "served_accuracy": hits / len(labels),
              "trainer_eval_accuracy": result["eval"]["accuracy"],
              "sync_p50_ms": statistics.median(out["sync_ms"]),
              "async_sequences_per_s": (len(seqs) - N_TRAIN_SYNC) / out["async_s"],
@@ -1564,14 +1607,537 @@ def phase_flash_bwd_timing(errs: tuple[float, float],
     return [entry]
 
 
-def phase_train_then_serve() -> list[dict]:
+def phase_train_then_serve() -> tuple[list[dict], str]:
     log("train: backward kernels against their plain version on the card")
     errs = phase_flash_bwd_parity()
     phase_flash_bwd_ordered()
     phase_model_grad()
     train = phase_train()
-    phase_serve_trained(train["result"])
-    return phase_flash_bwd_timing(errs, train["record"]["launches"])
+    served = phase_serve_trained(train["result"])
+    return (phase_flash_bwd_timing(errs, train["record"]["launches"]),
+            served["npz"])
+
+
+# -- phase 7: the runtime ---------------------------------------------------
+
+N_TIMING = 10          # CUDA-event timings per bucket, median taken
+RELOAD_WAVES = 8       # phase 7c's async burst in waves; the reload after half
+LADDER_SIZE = 24       # phase 7d's demand, outside the factory ladder 1/16/64
+
+
+def stream_ms(fn, reps: int = N_TIMING) -> float:
+    """Median time of one ``fn()`` call between two CUDA events recorded
+    around it on the current stream, in ms: the host's launches are inside
+    the window (no spin kernel ahead), as a served batch sees them."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+#: Each launch counter's kernel, by the name a profiler trace gives it.
+KERNEL_NAMES = {"normalize_image": "normalize_u8_kernel",
+                "fused_seg_postprocess": "seg_postprocess_kernel",
+                "flash_attention": "flash_fwd_"}
+
+
+def trace_replay(graph) -> dict[str, int]:
+    """The port's kernels one replay of ``graph`` runs, counted by name in a
+    ``torch.profiler`` trace of the card (the launch counters are left
+    alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for event in prof.key_averages():
+        for counter, kernel in KERNEL_NAMES.items():
+            if kernel in event.key:
+                counts[counter] += event.count
+    return {k: n for k, n in counts.items() if n}
+
+
+def replay_kernels(graph, label: str,
+                   tries: int = 3) -> tuple[dict[str, int], int]:
+    """``trace_replay`` held against the launches ``graph`` adds to the
+    counters; returns the traced counts and the traces taken. A trace has
+    lost a kernel's record now and then (a replay's outputs still equal
+    eager's), so up to ``tries`` replays are traced and one must hold
+    exactly the graph's launches; a kernel traced more often than the
+    graph adds fails at once."""
+    for attempt in range(1, tries + 1):
+        traced = trace_replay(graph)
+        if any(n > graph.launches.get(k, 0) for k, n in traced.items()):
+            break
+        if traced == graph.launches:
+            return traced, attempt
+    raise AssertionError(f"{label}: a replay ran {traced} of the port's "
+                         f"kernels (trace {attempt}); its graph adds "
+                         f"{graph.launches}")
+
+
+def model_kwargs(spec: dict) -> dict:
+    model = dict(spec["models"][0])
+    for key in ("family", "sync_path", "async_path",
+                "maximum_concurrent_requests"):
+        model.pop(key, None)
+    return model
+
+
+def same_outputs(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) for k in got)
+
+
+def phase_graphs() -> dict:
+    """7a: each bucket's replay against an eager ``apply_fn`` on the same
+    batch, for land cover (counts, and class map on a second servable) and
+    longcontext (logits), and their execute times."""
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    runtime = ModelRuntime("cuda")
+    lc = model_kwargs(landcover_spec())
+    seq = model_kwargs(longcontext_spec())
+    runtime.register(build_servable("unet", **lc))
+    runtime.register(build_servable("unet", **{
+        **lc, "name": "landcover_classmap", "return_classmap": True}))
+    runtime.register(build_servable("seqformer", **seq))
+    t0 = time.perf_counter()
+    runtime.warmup()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 70)
+    record: dict = {"warmup_and_capture_s": warm_s, "buckets": {}}
+    cudnn_differs = []
+    for name, servable in runtime.models.items():
+        for bucket in servable.batch_buckets:
+            if servable.input_dtype == np.uint8:
+                x = rng.integers(0, 256, (bucket, *servable.input_shape),
+                                 np.uint8)
+            else:
+                x = rng.integers(0, seq["vocab_size"],
+                                 (bucket, *servable.input_shape)).astype(np.int32)
+            graph = runtime.graphs[(name, bucket)]
+            want_launches = ({"normalize_image": 1, "fused_seg_postprocess": 1}
+                             if servable.input_dtype == np.uint8 else
+                             {"flash_attention": seq["depth"]})
+            if graph.launches != want_launches:
+                raise AssertionError(f"{name} bucket {bucket} captured "
+                                     f"{graph.launches}, not {want_launches}")
+            traced, traces = replay_kernels(graph, f"{name} bucket {bucket}")
+            got = runtime.run_batch(name, x)
+            dev = torch.from_numpy(x).cuda()
+            with torch.inference_mode():
+                eager_out = servable.apply_fn(servable.module, dev)
+            if not isinstance(eager_out, dict):
+                got, eager_out = {"logits": got}, {"logits": eager_out}
+            want = {k: v.cpu().numpy() for k, v in eager_out.items()}
+            if not same_outputs(got, want):
+                if servable.input_dtype != np.uint8:
+                    raise AssertionError(f"{name} bucket {bucket}: replay "
+                                         "logits differ from eager")
+                # cuDNN chose another algorithm under capture: phase 4's
+                # tolerance, per class.
+                diff = int(np.abs(got["counts"].astype(np.int64)
+                                  - want["counts"]).max())
+                pixels = int(np.prod(servable.input_shape[:2]))
+                if diff > COUNT_TOLERANCE * pixels:
+                    raise AssertionError(f"{name} bucket {bucket}: replay "
+                                         f"counts off by {diff} px")
+                cudnn_differs.append(f"{name}/{bucket}: {diff} px")
+            graph.static_in.copy_(dev)
+
+            def eager():
+                with torch.inference_mode():
+                    servable.apply_fn(servable.module, dev)
+
+            record["buckets"][f"{name}/{bucket}"] = {
+                "eager_ms": stream_ms(eager),
+                "replay_ms": stream_ms(graph.graph.replay),
+                "replay_kernels": traced,
+                "traces": traces,
+            }
+    # The other design against two batches of one bucket in flight: a
+    # graph per staging-ring slot. What a second graph of land cover's
+    # largest bucket adds to the shared pool (the runtime copies each
+    # batch into one static input instead).
+    servable = runtime.models["landcover"]
+    largest = runtime.graphs[("landcover", servable.max_bucket)]
+    before = runtime.graph_pool_bytes()
+    second = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(
+            second, pool=runtime.graph_pool, stream=runtime.exec_stream):
+        servable.apply_fn(servable.module, largest.static_in.clone())
+    record["second_slot_graph_mib"] = (
+        runtime.graph_pool_bytes() - before) / 2 ** 20
+    record["static_input_mib"] = largest.static_in.nbytes / 2 ** 20
+    del second
+    record["replay_equals_eager"] = (
+        "bit for bit" if not cudnn_differs else
+        "bit for bit but land cover within phase 4's 1%: " +
+        ", ".join(cudnn_differs))
+    record["graph_pool_mib"] = runtime.graph_pool_bytes() / 2 ** 20
+    record["memory_reserved_mib"] = torch.cuda.memory_reserved() / 2 ** 20
+    record["graphs"] = len(runtime.graphs)
+    log(f"runtime 7a: graphs against eager: {json.dumps(record)}")
+    del runtime
+    torch.cuda.empty_cache()
+    return record
+
+
+def lc_answers(logits: np.ndarray) -> list[tuple[int, float, float]]:
+    """(class, confidence, top-two gap) of each row of logits."""
+    out = []
+    for row in logits:
+        p = np.exp(row.astype(np.float64) - row.max())
+        p /= p.sum()
+        top, second = np.sort(p)[::-1][:2]
+        out.append((int(np.argmax(p)), float(top), float(top - second)))
+    return out
+
+
+def answer_matches(result: dict, ref: tuple[int, float, float]) -> bool:
+    """Phase 5's rule: the class wherever the reference's top two are more
+    than LC_GAP apart, the confidence within LC_CONF_ATOL."""
+    cls, conf, gap = ref
+    return ((result["class_id"] == cls or gap <= LC_GAP)
+            and abs(result["confidence"] - conf) <= LC_CONF_ATOL)
+
+
+def eager_logits(module, seqs: np.ndarray) -> np.ndarray:
+    with torch.inference_mode():
+        return torch.cat([module(torch.from_numpy(
+            seqs[i:i + 16].astype(np.int32)).cuda())
+            for i in range(0, len(seqs), 16)]).cpu().numpy()
+
+
+def phase_reload(trained_npz: str) -> dict:
+    """7c: a longcontext worker on random seed-0 weights, its checkpoint
+    directory ``build/chip_smoke``, under the trainer's held-out sequences
+    (4 sync, then 64 async in waves) with phase 6's ``.npz`` reloaded in
+    the middle of the burst."""
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.config import FrameworkConfig
+    from ai4e_tpu_torch.convert import (load_npz, save_npz,
+                                        unet_flax_from_state_dict)
+    from ai4e_tpu_torch.models import create_seqformer, create_unet
+    from ai4e_tpu_torch.ops import flash_attention
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+
+    ckpt_dir = ROOT / "build" / "chip_smoke"
+    config = FrameworkConfig.from_env(
+        {"AI4E_RUNTIME_CHECKPOINT_DIR": str(ckpt_dir)})
+    spec = longcontext_spec()
+    model = spec["models"][0]
+    worker, batcher, _ = build_worker(spec, device="cuda", config=config)
+    servable = worker.runtime.models["longcontext"]
+    rng = np.random.default_rng(SEED + 1)  # phase 6's held-out sequences
+    seqs, labels = zip(*(longcontext_batch(rng, 16, model["seq_len"],
+                                           model["vocab_size"],
+                                           model["num_classes"])
+                         for _ in range(4)))
+    seqs, labels = np.concatenate(seqs), np.concatenate(labels)
+    old = lc_answers(eager_logits(servable.module, seqs))
+    trained = create_seqformer(**longcontext_config(), attention="flash",
+                               device="cuda")
+    trained.load_state_dict(servable.state_dict_from_flax(
+        load_npz(trained_npz)))
+    new = lc_answers(eager_logits(trained, seqs))
+    del trained
+    wrong = str(ckpt_dir / "landcover_small.npz")
+    save_npz(unet_flax_from_state_dict(create_unet(
+        widths=(8, 16), device="cpu").state_dict()), wrong)
+    done = "completed - class_id, confidence"
+    per_wave = len(seqs) // RELOAD_WAVES
+
+    async def burst():
+        async with serving(worker, batcher, free_port()) as (http, base):
+            url = base + "/models/longcontext/reload"
+            flash_attention.launches = 0
+            sync = [await post_sync(http, base + model["sync_path"],
+                                    npy_bytes(s.astype(np.uint16)))
+                    for s in seqs[:N_LC_SYNC]]
+            tasks, t_reload = [], {}
+            for wave in range(RELOAD_WAVES):
+                if wave == RELOAD_WAVES // 2:
+                    t_reload["post"] = time.perf_counter()
+                    async with http.post(url, json={
+                            "checkpoint": trained_npz}) as r:
+                        t_reload["answer"] = time.perf_counter()
+                        reload = (r.status, await r.json())
+                    t_reload["pending_at_answer"] = batcher.pending_count
+                for i in range(wave * per_wave, (wave + 1) * per_wave):
+                    task_id, _ = await submit_task(
+                        http, base + model["async_path"],
+                        npy_bytes(seqs[i].astype(np.uint16)))
+                    tasks.append((i, wave, task_id))
+                await asyncio.sleep(0.01)
+            await asyncio.gather(*(await_task(http, base, t, done)
+                                   for _, _, t in tasks))
+            launches = flash_attention.launches
+            batches = metric_sum(worker.service.metrics.render_prometheus(),
+                                 "ai4e_batch_size_count")
+            async with http.post(url, json={"checkpoint": wrong}) as r:
+                mismatch = (r.status, await r.json())
+            async with http.post(url, json={
+                    "checkpoint": str(ROOT / "outside.npz")}) as r:
+                outside = r.status
+            after = await post_sync(http, base + model["sync_path"],
+                                    npy_bytes(seqs[0].astype(np.uint16)))
+            async with http.get(base + "/models") as r:
+                listing = await r.json()
+        return sync, tasks, reload, t_reload, (launches, batches), \
+            mismatch, outside, after, listing
+
+    (sync, tasks, reload, t_reload, (launches, batches), mismatch, outside,
+     after, listing) = asyncio.run(burst())
+    if reload != (200, {"model": "longcontext",
+                        "checkpoint": os.path.realpath(trained_npz),
+                        "params_version": 2, "generation": 1}):
+        raise AssertionError(f"reload answered {reload}")
+    for i, result in enumerate(sync):
+        if not answer_matches(result, old[i]):
+            raise AssertionError(f"sync {i} before the reload: {result} vs "
+                                 f"{old[i]}")
+    on_old = on_new = 0
+    after_hits = after_n = 0
+    for i, wave, task_id in tasks:
+        result = json.loads(worker.store.get_result(task_id)[0])
+        is_new, is_old = answer_matches(result, new[i]), answer_matches(
+            result, old[i])
+        if not (is_new or is_old):
+            raise AssertionError(f"sequence {i}: {result} is neither "
+                                 f"weights' answer ({old[i]}, {new[i]})")
+        on_new += is_new and not is_old
+        on_old += is_old and not is_new
+        if wave >= RELOAD_WAVES // 2:  # submitted after the 200
+            if not is_new:
+                raise AssertionError(f"sequence {i}, submitted after the "
+                                     f"reload, got the old weights' answer")
+            after_n += 1
+            after_hits += result["class_id"] == labels[i]
+    if after_hits < MIN_SERVED_ACC * after_n:
+        raise AssertionError(f"accuracy after the reload {after_hits}/"
+                             f"{after_n} < {MIN_SERVED_ACC}")
+    if mismatch[0] != 409 or not mismatch[1]["error"].startswith(
+            "checkpoint tree does not match the served model"):
+        raise AssertionError(f"land-cover .npz on longcontext: {mismatch}")
+    if not answer_matches(after, new[0]):
+        raise AssertionError("serving changed after the refused reload")
+    if listing["models"][0]["params_version"] != 2:
+        raise AssertionError(f"/models after the 409: {listing}")
+    if outside != 403:
+        raise AssertionError(f"a path outside the checkpoint directory: "
+                             f"{outside}")
+    if launches < model["depth"] * batches:
+        raise AssertionError(f"flash launched {launches} times in "
+                             f"{batches} batches")
+    record = {
+        "reload_ms": (t_reload["answer"] - t_reload["post"]) * 1e3,
+        "pending_at_answer": t_reload["pending_at_answer"],
+        "answers_only_old_weights": on_old,
+        "answers_only_new_weights": on_new,
+        "accuracy_after_reload": after_hits / after_n,
+        "refusals": {"tree_mismatch": mismatch[0], "outside_root": outside},
+        "launches": {"flash_attention": launches},
+    }
+    log(f"runtime 7c: reload under load: {json.dumps(record)}")
+    return record
+
+
+def phase_served_runtime(e2e: dict) -> dict:
+    """7b, 7d and 7e on one land-cover worker, served once: depth 2 and the
+    double buffer under phase 4's requests, then under the async examples
+    submitted to the batcher at once, then a derived ladder, then a drain
+    under a burst. Over HTTP in this process the host, not the card, sets
+    the pace (the card idles between batches, so no copy need overlap an
+    execution); submitted at once, the examples queue and each bucket-64
+    batch's copy runs while the one before it executes."""
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.config import FrameworkConfig
+    from ai4e_tpu_torch.ops import image_preprocess, seg_postprocess
+
+    config = FrameworkConfig.from_env({
+        "AI4E_RUNTIME_BATCH_PIPELINE_DEPTH": "2",
+        "AI4E_RUNTIME_BATCH_DOUBLE_BUFFER": "1"})
+    worker, batcher, _ = build_worker(landcover_spec(), device="cuda",
+                                      config=config, measure_phases=True)
+    if not (batcher._double and batcher.pipeline_depth == 2):
+        raise AssertionError("the batcher is not double-buffered at depth 2")
+    servable = worker.runtime.models["landcover"]
+    overlap_gauge = batcher.metrics.gauge("ai4e_batch_overlap_ratio", "")
+    rng = np.random.default_rng(SEED + 71)
+    images = rng.integers(0, 256, (N_SYNC + N_ASYNC, 256, 256, 3), np.uint8)
+    burst = rng.integers(0, 256, (N_LC_ASYNC, 256, 256, 3), np.uint8)
+    want, want_burst = (reference_counts(servable, x) for x in (images, burst))
+
+    async def main():
+        async with serving(worker, batcher, free_port()) as (http, base):
+            out = await post_requests(
+                http, base, worker, [npy_bytes(img) for img in images],
+                N_SYNC, ("/classify", "/classify-async",
+                         "completed - class_histogram"),
+                {"normalize_image": image_preprocess,
+                 "fused_seg_postprocess": seg_postprocess})
+            http_ratio = overlap_gauge.value()
+            t0 = time.perf_counter()
+            queued = await asyncio.gather(*(
+                batcher.submit("landcover", img) for img in images[N_SYNC:]))
+            out["queued_s"] = time.perf_counter() - t0
+            out["queued_results"] = list(queued)
+            out["http_overlap_ratio"] = http_ratio
+            ladder = await asyncio.to_thread(derive_ladder_at, worker)
+            drain = await drain_under_burst(http, base, worker, batcher,
+                                            burst)
+        return out, ladder, drain
+
+    out, ladder, drain = asyncio.run(main())
+    diffs = [check_histogram(r, want[i], 256 * 256)
+             for i, r in enumerate(out["sync_results"] + out["async_results"])]
+    diffs += [check_histogram(r, want[N_SYNC + i], 256 * 256)
+              for i, r in enumerate(out["queued_results"])]
+    for name, n in out["launches"].items():
+        if n < 1:
+            raise AssertionError(f"kernel {name} never launched (7b)")
+    ratio = overlap_gauge.value()
+    if not ratio > 0:
+        raise AssertionError(f"ai4e_batch_overlap_ratio {ratio}: no h2d "
+                             "overlapped an execution")
+    pipelined = {
+        "async_tiles_per_s": N_ASYNC / out["async_s"],
+        "phase4_async_tiles_per_s": e2e["async_tiles_per_s"],
+        "sync_p50_ms": statistics.median(out["sync_ms"]),
+        "phase4_sync_p50_ms": e2e["sync_p50_ms"],
+        "overlap_ratio": ratio,
+        "overlap_ratio_after_http": out["http_overlap_ratio"],
+        "queued_tiles_per_s": N_ASYNC / out["queued_s"],
+        "batches_in_bucket_64": batches_over(out["metrics"], 16),
+        "retries_503": out["retries_503"],
+        "max_count_diff_px": max(diffs),
+        "launches": out["launches"],
+    }
+    log(f"runtime 7b: pipelined, double-buffered: {json.dumps(pipelined)}")
+    log(f"runtime 7d: ladder: {json.dumps(ladder)}")
+    (drained, drain_ms, refused, status, resumed, served, results,
+     in_flight) = drain
+    if drained[0] != 200 or drained[1]["state"] != "drained" or \
+            not drained[1]["clean"]:
+        raise AssertionError(f"drain answered {drained}")
+    if refused != [(503, "1"), (503, "1")]:
+        raise AssertionError(f"while drained: {refused}")
+    if status["state"] != "drained" or resumed != {"state": "active"}:
+        raise AssertionError(f"drain status {status}, resume {resumed}")
+    if in_flight < 1:
+        raise AssertionError("no batch was on the card when the drain began")
+    for i, r in enumerate(results):
+        check_histogram(r, want_burst[i], 256 * 256)
+    check_histogram(served, want_burst[0], 256 * 256)
+    drain_record = {"drain_ms": drain_ms, "retired": drained[1]["retired"],
+                    "batches_in_flight_at_drain": in_flight,
+                    "tasks_completed": len(results)}
+    log(f"runtime 7e: drain: {json.dumps(drain_record)}")
+    return {"pipelined": pipelined, "ladder": ladder, "drain": drain_record}
+
+
+def derive_ladder_at(worker) -> dict:
+    """7d: a demand concentrated at LADDER_SIZE, outside land cover's factory
+    ladder, through the ladder manager: the new bucket's graph is captured
+    before the swap and serves as ``execute``, equal to eager."""
+    from ai4e_tpu_torch.runtime.ladder import LadderManager
+
+    runtime = worker.runtime
+    manager = LadderManager(runtime, min_observations=4, dwell_s=0.0,
+                            period_s=1e9, metrics=worker.service.metrics,
+                            persist_path=str(ROOT / "build" / "chip_smoke"
+                                             / "ladders.json"))
+    for _ in range(16):
+        manager.observe_cut("landcover", LADDER_SIZE)
+    t0 = time.perf_counter()
+    outcome = manager.derive_now("landcover")
+    derive_s = time.perf_counter() - t0
+    servable = runtime.models["landcover"]
+    if outcome != "swapped" or LADDER_SIZE not in servable.batch_buckets:
+        raise AssertionError(f"derive: {outcome}, {servable.batch_buckets}")
+    if ("landcover", LADDER_SIZE) not in runtime.graphs:
+        raise AssertionError("the derived bucket has no graph")
+    x = np.random.default_rng(SEED + 72).integers(
+        0, 256, (LADDER_SIZE, 256, 256, 3), np.uint8)
+    got, _, phases = runtime.run_batch_phases("landcover", x)
+    if "execute" not in phases:
+        raise AssertionError(f"the derived bucket ran as {phases}")
+    with torch.inference_mode():
+        want = servable.apply_fn(servable.module, torch.from_numpy(x).cuda())
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    exact = same_outputs(got, want)
+    if not exact and (np.abs(got["counts"].astype(np.int64) - want["counts"])
+                      .max() > COUNT_TOLERANCE * 256 * 256):
+        raise AssertionError("the derived bucket's counts differ from eager")
+    return {"ladder": list(servable.batch_buckets), "derive_s": derive_s,
+            "execute_ms": phases["execute"] * 1e3,
+            "equal_to_eager": "bit for bit" if exact else "within 1%"}
+
+
+async def drain_under_burst(http, base: str, worker, batcher,
+                            images: np.ndarray) -> tuple:
+    """7e: ``POST /worker/drain`` once an async burst is all cut and a batch
+    is on the card; then a sync and an async request (refused), ``GET``
+    (drained), the burst's tasks (completed), ``POST /worker/resume`` and
+    one sync request."""
+    done = "completed - class_histogram"
+    tasks = [t for t, _ in await asyncio.gather(*(
+        submit_task(http, base + "/classify-async", npy_bytes(img))
+        for img in images))]
+    # Every request is in the batcher once its task reads running (the
+    # submit follows with no await between); once none is pending, the
+    # last cut has just gone to the card.
+    deadline = time.perf_counter() + 60
+    while (batcher.pending_count
+           or any(worker.store.get(t).status == "created" for t in tasks)):
+        if time.perf_counter() > deadline:
+            raise AssertionError("the burst never left the queue")
+        await asyncio.sleep(0.001)
+    in_flight = len(batcher._inflight_execs)
+    t0 = time.perf_counter()
+    async with http.post(base + "/worker/drain") as r:
+        drained = (r.status, await r.json())
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    refused = []
+    for path in ("/classify", "/classify-async"):
+        async with http.post(base + path, data=npy_bytes(images[0]),
+                             headers=OCTET) as r:
+            refused.append((r.status, r.headers.get("X-Draining")))
+    async with http.get(base + "/worker/drain") as r:
+        status = await r.json()
+    await asyncio.gather(*(await_task(http, base, t, done) for t in tasks))
+    async with http.post(base + "/worker/resume") as r:
+        resumed = await r.json()
+    served = await post_sync(http, base + "/classify", npy_bytes(images[0]))
+    results = [json.loads(worker.store.get_result(t)[0]) for t in tasks]
+    return (drained, drain_ms, refused, status, resumed, served, results,
+            in_flight)
+
+
+def phase_runtime(e2e: dict, trained_npz: str) -> dict:
+    log("runtime: CUDA graphs, pipelining, reload, ladder, drain")
+    graphs = phase_graphs()
+    served = phase_served_runtime(e2e)
+    torch.cuda.empty_cache()
+    reload = phase_reload(trained_npz)
+    record = {"card": CARD["smi"], "graphs": graphs, **served,
+              "reload": reload}
+    print(f"runtime: {json.dumps(record)}", flush=True)
+    return record
 
 
 def main() -> None:
@@ -1588,7 +2154,9 @@ def main() -> None:
     for k in kernels:
         k["launches_separate_processes"] = (
             topology["launches_while_serving"][k["name"]])
-    kernels += phase_train_then_serve()
+    bwd, trained_npz = phase_train_then_serve()
+    kernels += bwd
+    phase_runtime(e2e, trained_npz)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -61,23 +61,37 @@ def off_default(field: dataclasses.Field, hint) -> str:
     return "x"
 
 
-def unported_cases():
+#: The runtime's pipeline, double-buffer, ladder and drain knobs: the port
+#: serves them, so each set away from its default parses as JAX's does.
+SERVED_RUNTIME_KNOBS = [
+    ("AI4E_RUNTIME_", f) for f in (
+        "batch_pipeline_depth", "batch_double_buffer", "ladder_derive",
+        "ladder_window_s", "ladder_max_programs", "ladder_period_s",
+        "ladder_dwell_s", "ladder_path", "compile_cache_dir")] + [
+    ("AI4E_ROLLOUT_", "drain_timeout_ms")]
+
+
+def off_default_cases(keys, kind: str):
+    """A ``kind`` case for each field in ``keys`` (``(env prefix,
+    field)``), set away from its default, id'd by its variable; an
+    unported field's case carries its ROADMAP item."""
     for section in typing.get_type_hints(port_config.FrameworkConfig).values():
         hints = typing.get_type_hints(section)
         for f in dataclasses.fields(section):
             key = (section._env_prefix, f.name)
-            if key in port_config.UNPORTED:
+            if key in keys:
                 var = key[0] + f.name.upper()
                 yield pytest.param(
-                    "unported", {var: off_default(f, hints[f.name])},
-                    port_config.UNPORTED[key], id=var)
+                    kind, {var: off_default(f, hints[f.name])},
+                    port_config.UNPORTED.get(key), id=var)
 
 
 CASES = ([pytest.param("same", env, None, id=f"same-{i}")
           for i, env in enumerate(SAME)]
          + [pytest.param("error", env, None, id=next(iter(env)))
             for env in ERRORS]
-         + list(unported_cases()))
+         + list(off_default_cases(port_config.UNPORTED, "unported"))
+         + list(off_default_cases(SERVED_RUNTIME_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)

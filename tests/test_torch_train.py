@@ -8,6 +8,9 @@ Then the longcontext recipe end to end at the JAX package's toy geometry:
 trained, saved as ``.npz``, restored by ``cli.build_worker`` and served."""
 
 import json
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,7 @@ from ai4e_tpu_torch.train import make_checkpoints as mc
 
 torch.set_num_threads(2)
 
+ROOT = Path(__file__).resolve().parent.parent
 SMALL = dict(seq_len=256, input_dim=24, dim=64, depth=2, heads=2)
 VOCAB = 512
 # tests/test_make_checkpoints.py's toy longcontext geometry.
@@ -115,10 +119,14 @@ class TestFloat32Masters:
     def test_trained_state_dict_loads_into_the_served_model(self):
         """float32 masters cast on every call give the same logits as the
         served model built in bfloat16 from the same weights (one rounding
-        either way), bit for bit. Both models draw from their own
-        generators, so no other test's use of the global RNG reaches them;
-        a mismatch reports the process-wide settings that could steer
-        PyTorch's CPU kernels."""
+        either way), bit for bit, in this test process whatever ran in it
+        before. Both models draw from their own generators, so no other
+        test's use of the global RNG reaches them; ``create_seqformer``
+        resolves the CPU device, whose set-up makes the process's first
+        call into MKL's vector math alone (see ``test_torch_device.py``: the
+        masters' first ``exp`` could otherwise be less exact). A mismatch
+        reports the process-wide settings that could steer PyTorch's CPU
+        kernels."""
         masters = create_seqformer(seq_len=64, dim=32, depth=2, heads=2,
                                    vocab_size=VOCAB, device="cpu",
                                    param_dtype=torch.float32,
@@ -141,6 +149,53 @@ class TestFloat32Masters:
             "deterministic": torch.are_deterministic_algorithms_enabled(),
             "autocast_cpu": torch.is_autocast_enabled("cpu"),
         }
+
+    def test_trained_state_dict_loads_in_a_fresh_interpreter(self):
+        """The same comparison in a fresh interpreter (``MASTERS_CHECK``),
+        where the models' forwards make the process's first CPU math
+        calls; a mismatch reports the child's settings and whether each
+        model repeats itself."""
+        out = subprocess.run([sys.executable, "-c", MASTERS_CHECK],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr
+        report = json.loads(out.stdout.strip().splitlines()[-1])
+        assert report.pop("equal"), report
+
+
+#: The body of ``test_trained_state_dict_loads_into_the_served_model``,
+#: run by a fresh interpreter by its second witness; prints one JSON line.
+MASTERS_CHECK = f"""
+import json
+import numpy as np
+import torch
+from ai4e_tpu_torch.models import create_seqformer
+
+torch.set_num_threads(2)
+masters = create_seqformer(seq_len=64, dim=32, depth=2, heads=2,
+                           vocab_size={VOCAB}, device="cpu",
+                           param_dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0))
+served = create_seqformer(seq_len=64, dim=32, depth=2, heads=2,
+                          vocab_size={VOCAB}, device="cpu",
+                          generator=torch.Generator().manual_seed(9))
+served.load_state_dict(masters.state_dict())
+x = torch.from_numpy(np.random.default_rng(3).integers(0, {VOCAB}, (4, 64)))
+with torch.inference_mode():
+    got, want = masters(x), served(x)
+    again = (torch.equal(masters(x), got), torch.equal(served(x), want))
+print(json.dumps({{
+    "equal": torch.equal(got, want),
+    "max_abs_diff": float((got - want).abs().max()),
+    "differ": int((got != want).sum()),
+    "repeatable": again,
+    "threads": torch.get_num_threads(),
+    "mkldnn": torch.backends.mkldnn.enabled,
+    "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+    "default_dtype": str(torch.get_default_dtype()),
+    "deterministic": torch.are_deterministic_algorithms_enabled(),
+}}))
+"""
 
 
 def jax_trainer_run(params, batches, dtype):

@@ -277,7 +277,65 @@ class TestServing:
         assert {str(c): int(n) for c, n in zip(*np.unique(
             classmap, return_counts=True))} == result["class_histogram"]
         assert 'ai4e_batch_size_count{model="landcover"} 1' in metrics
-        assert "ai4e_device_phase_seconds" in metrics
+        # Off by default, as in the JAX package's worker.
+        assert "ai4e_device_phase_seconds" not in metrics
+
+
+#: Metric families of the JAX worker whose features the port lacks:
+#: admission's deadline drops (ROADMAP A18.5) and the per-generation
+#: rollout series (A6.3's rollout generation).
+UNPORTED_METRICS = {"ai4e_admission_expired_total",
+                    "ai4e_rollout_outcomes_total",
+                    "ai4e_rollout_request_seconds"}
+ECHO_SPEC = {"service_name": "w", "prefix": "v1/models", "models": [
+    {"family": "echo", "name": "echo", "sync_path": "/e",
+     "async_path": "/e-async"}]}
+
+#: JAX's ``build_worker`` of ``ECHO_SPEC`` in a fresh interpreter (its
+#: registry is the process-wide one, which other tests fill), with
+#: ``AI4E_OBSERVABILITY_HOP_LEDGER`` off and then on; prints the metric
+#: families registered after each.
+JAX_WORKER_METRICS = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from ai4e_tpu.cli import build_worker
+from ai4e_tpu.config import FrameworkConfig
+families = {}
+for on in ("0", "1"):
+    _, batcher, _ = build_worker(FrameworkConfig.from_env({
+        "AI4E_OBSERVABILITY_HOP_LEDGER": on,
+        "AI4E_RUNTIME_COMPILE_CACHE_DIR": sys.argv[2]}),
+        json.loads(sys.argv[1]))
+    families[on] = sorted(batcher.metrics._metrics)
+print(json.dumps(families))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_worker_metrics(tmp_path_factory) -> dict[str, set[str]]:
+    out = subprocess.run(
+        [sys.executable, "-c", JAX_WORKER_METRICS, json.dumps(ECHO_SPEC),
+         str(tmp_path_factory.mktemp("xla_cache"))],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return {k: set(v) for k, v in
+            json.loads(out.stdout.strip().splitlines()[-1]).items()}
+
+
+class TestMetricSet:
+    @pytest.mark.parametrize("phases", [False, True])
+    def test_build_worker_registers_jax_s_families(self, phases,
+                                                   jax_worker_metrics):
+        """The worker ``build_worker`` assembles registers the JAX worker's
+        metric families, but for unported features: by default, and with
+        the device phases measured (JAX: ``AI4E_OBSERVABILITY_HOP_LEDGER``;
+        the port: ``measure_phases``)."""
+        _, batcher, _ = build_worker(copy.deepcopy(ECHO_SPEC), device="cpu",
+                                     measure_phases=phases)
+        assert batcher.measure_phases is phases
+        assert set(batcher.metrics._metrics) == \
+            jax_worker_metrics[str(int(phases))] - UNPORTED_METRICS
 
 
 def worker_of(spec: dict, **env):
@@ -305,7 +363,7 @@ class TestUnported:
         (worker_of(landcover_spec(batch={"max_items": 8})),
          r"'batch' \(the batch API, serve_batch \(ROADMAP A6.3"),
         (worker_of(landcover_spec(checkpoint="landcover")),
-         r"orbax restore is not ported yet \(ROADMAP A7"),
+         r"is not a \.npz: .*scripts/orbax_to_npz\.py SRC DST\.npz"),
         (control_plane_of({"autoscale": {"max_replicas": 8}}),
          r"'autoscale' \(the autoscaler \(ROADMAP A18.8"),
         (control_plane_of({"backends": [{"uri": "http://w/v1/x",
@@ -317,11 +375,11 @@ class TestUnported:
         (control_plane_of({}, AI4E_PLATFORM_JOURNAL_PATH="/j.jsonl"),
          r"AI4E_PLATFORM_JOURNAL_PATH='/j.jsonl': the journaled and "
          r"replicated task store \(ROADMAP A18.1"),
-        (worker_of(landcover_spec(), AI4E_RUNTIME_BATCH_DOUBLE_BUFFER="1"),
-         r"AI4E_RUNTIME_BATCH_DOUBLE_BUFFER=True: the batcher's double "
-         r"buffer \(ROADMAP A6.3"),
+        (worker_of(landcover_spec(), AI4E_RUNTIME_DONATE_BATCH="1"),
+         r"AI4E_RUNTIME_DONATE_BATCH=True: batch donation, an XLA buffer "
+         r"option \(ROADMAP A4"),
     ], ids=["family", "yuv420", "dct", "pipeline", "batch", "orbax",
-            "autoscale", "backends", "push", "journal", "double-buffer"])
+            "autoscale", "backends", "push", "journal", "donate"])
     def test_raises_and_names_itself(self, build, match):
         with pytest.raises(ValueError, match=match):
             build()
