@@ -12,10 +12,12 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   runtime, micro-batcher and service shell, on the card unless
   ``--device cpu``. models.json has ``service_name``, ``prefix``,
   ``models`` (``family`` plus the family's keyword arguments,
-  ``sync_path``, ``async_path``, ``maximum_concurrent_requests`` and
-  ``checkpoint``) and optionally ``taskstore``: the control plane's URL (a
-  comma-separated value is its replica set), whose task store then holds
-  the worker's tasks and results.
+  ``sync_path``, ``async_path``, ``maximum_concurrent_requests``,
+  ``checkpoint``, ``pipeline_to`` (a pipeline stage's handoff, see
+  ``_declarative_handoff``) and ``batch`` (``true``, or ``serve_batch``'s
+  keyword arguments: the model's batch API)) and optionally ``taskstore``:
+  the control plane's URL (a comma-separated value is its replica set),
+  whose task store then holds the worker's tasks and results.
 
 A spec key, route key or ``AI4E_*`` knob the JAX package would honour and
 this port does not serve yet raises and names its ROADMAP item.
@@ -34,10 +36,6 @@ from .config import ConfigError, FrameworkConfig
 
 log = logging.getLogger("ai4e_tpu_torch.cli")
 
-_UNPORTED_MODEL_KEYS = {
-    "pipeline_to": "pipeline handoffs (ROADMAP A6.3)",
-    "batch": "the batch API, serve_batch (ROADMAP A6.3)",
-}
 _UNPORTED_ROUTE_KEYS = {
     "backends": "weighted canary backends (ROADMAP A18.8)",
     "autoscale": "the autoscaler (ROADMAP A18.8)",
@@ -132,6 +130,40 @@ def restore_checkpoint(servable, path: str,
     log.info("restored %s params from %s", servable.name, path)
 
 
+def _declarative_handoff(spec: dict | None):
+    """A model spec's ``pipeline_to`` as a handoff callable: composite APIs
+    as deployment data.
+
+    ``{"endpoint": "/v1/models/classify-async", "when_nonempty":
+    "detections"}`` hands the task on with an empty body, which makes the
+    store replay the task's ORIGINAL payload to the next stage; when the
+    gate field of the result is empty or absent the stage completes the
+    task itself.
+
+    ``{"endpoint": ".../classify-species-batch-async", "payload": "crops",
+    "crop_size": 224, "max_crops": 16}`` ships the detector's crops to the
+    next stage's batch endpoint instead (``runtime.handoffs.crops_handoff``,
+    tuned with ``crop_size``, ``max_crops`` and ``min_score``)."""
+    if not spec:
+        return None
+    endpoint = spec["endpoint"]
+    if spec.get("payload") == "crops":
+        from .runtime.handoffs import crops_handoff
+        return crops_handoff(endpoint, crop_size=spec.get("crop_size", 224),
+                             max_crops=spec.get("max_crops", 16),
+                             min_score=spec.get("min_score"))
+    gate = spec.get("when_nonempty")
+
+    def pipeline_to(result):
+        if gate is not None:
+            value = result.get(gate) if isinstance(result, dict) else None
+            if not value:
+                return None  # nothing to hand off: the stage completes it
+        return endpoint, b""  # an empty body replays the original one
+
+    return pipeline_to
+
+
 def _stores(models: dict, config: FrameworkConfig):
     """``(task_manager, result_store)``: on the control plane's task store
     when the spec (or ``AI4E_GATEWAY_TASKSTORE_GET_URI``) names it, else a
@@ -179,20 +211,18 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     for spec in models.get("models", []):
         spec = dict(spec)
         family = spec.pop("family")
-        for key, what in _UNPORTED_MODEL_KEYS.items():
-            if key in spec:
-                raise ValueError(
-                    f"model {spec.get('name', family)!r}: {key!r} ({what}) is "
-                    "not ported yet")
         sync_path = spec.pop("sync_path", None)
         async_path = spec.pop("async_path", None)
         cap = spec.pop("maximum_concurrent_requests", 64)
+        batch = spec.pop("batch", None)  # true | {serve_batch kwargs}
         checkpoint = spec.pop("checkpoint", None)
+        pipeline_spec = spec.pop("pipeline_to", None)
         servable = build_servable(family, **spec)
         if checkpoint:
             restore_checkpoint(servable, checkpoint, rt.checkpoint_dir)
         runtime.register(servable)
-        to_serve.append((servable, sync_path, async_path, cap))
+        to_serve.append((servable, sync_path, async_path, cap,
+                         _declarative_handoff(pipeline_spec), batch))
 
     task_manager, store = _stores(models, config)
     metrics = MetricsRegistry()
@@ -213,6 +243,8 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
         max_wait_ms=rt.batch_max_wait_ms if max_wait_ms is None else max_wait_ms,
         max_pending=rt.batch_max_pending if max_pending is None else max_pending,
         metrics=metrics, pipeline_depth=rt.batch_pipeline_depth,
+        interactive_reserve=rt.batch_interactive_reserve,
+        priority_aging_s=rt.batch_priority_aging_s,
         measure_phases=measure_phases, ladder_manager=ladders,
         double_buffer=rt.batch_double_buffer)
     worker = InferenceWorker(models.get("service_name", "gpu-worker"), runtime,
@@ -223,10 +255,14 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                              checkpoint_root=rt.checkpoint_dir,
                              drain_timeout_s=(config.rollout.drain_timeout_ms
                                               / 1000.0))
-    for servable, sync_path, async_path, cap in to_serve:
+    for servable, sync_path, async_path, cap, handoff, batch in to_serve:
         worker.serve_model(servable, sync_path=sync_path,
                            async_path=async_path,
-                           maximum_concurrent_requests=cap)
+                           maximum_concurrent_requests=cap,
+                           pipeline_to=handoff)
+        if batch:
+            worker.serve_batch(servable,
+                               **(batch if isinstance(batch, dict) else {}))
     return worker, batcher, task_manager
 
 
@@ -240,6 +276,15 @@ def kernel_launches() -> dict[str, int]:
                                    "flash_attention")}
 
 
+def _launches_by_model(runtime, before: dict | None = None) -> dict:
+    """Each model's kernel launches through its graphs' replays, less
+    ``before`` (an earlier result of this function)."""
+    before = before or {}
+    return {model: {k: n - before.get(model, {}).get(k, 0)
+                    for k, n in counts.items()}
+            for model, counts in runtime.model_launches.items()}
+
+
 async def serve(worker, batcher, host: str, port: int,
                 stop: asyncio.Event, drain_timeout: float = 30.0) -> None:
     """Serve ``worker`` on ``host:port`` until ``stop`` is set, then drain
@@ -251,6 +296,7 @@ async def serve(worker, batcher, host: str, port: int,
     runner = web.AppRunner(worker.service.app)
     await runner.setup()
     before = kernel_launches()
+    before_by_model = _launches_by_model(worker.runtime)
     try:
         await web.TCPSite(runner, host, port).start()
         log.info("worker on %s:%s serving %s on %s", host, port,
@@ -265,6 +311,8 @@ async def serve(worker, batcher, host: str, port: int,
         await runner.cleanup()
         log.info("kernel launches while serving %s", json.dumps(
             {k: n - before[k] for k, n in kernel_launches().items()}))
+        log.info("kernel launches by model while serving %s", json.dumps(
+            _launches_by_model(worker.runtime, before_by_model)))
 
 
 async def run_worker(config: FrameworkConfig, models: dict,

@@ -45,8 +45,7 @@ _OBSERVABILITY = "observability: tracing, hop ledger, SLOs (ROADMAP A18.11)"
 _PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
 _NATIVE = "the native cores and result offload (ROADMAP A18.13)"
 _REPORTER = "the request reporter (ROADMAP A18.14)"
-_WORKER = ("the worker's rollout generations and priority classes "
-           "(ROADMAP A6.3)")
+_WORKER = "the worker's rollout generations (ROADMAP A6.3)"
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
 _DECODE = "streaming decode (ROADMAP A13)"
 _MESH = "the parallel plane (ROADMAP A15)"
@@ -95,8 +94,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     ("AI4E_SERVICE_", "result_offload_threshold"): _NATIVE,
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
-    ("AI4E_RUNTIME_", "batch_interactive_reserve"): _WORKER,
-    ("AI4E_RUNTIME_", "batch_priority_aging_s"): _WORKER,
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
     **{("AI4E_RUNTIME_", f): _DECODE for f in (
         "decode_enable", "decode_max_pending", "decode_prompt_buckets",

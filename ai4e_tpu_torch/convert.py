@@ -24,10 +24,20 @@ flax's auto names for the unnamed LayerNorms: ``block{i}/LayerNorm_0``
 Linear's (out, in), ``Embed.embedding`` is ``nn.Embedding.weight`` as it
 is, and ``pos_emb`` keeps its (1, S, dim) shape.
 
-``unet_flax_from_state_dict`` and ``seqformer_flax_from_state_dict`` are the
-inverses: a trained state_dict becomes the flax tree that ``save_npz``
-writes and a worker restores, and a served model's tree is what a reload's
-tree is compared with.
+For ``ResNet`` the tree has two collections, ``params`` and
+``batch_stats``: the stem is ``Conv_0``/``BatchNorm_0``, the bottlenecks
+``Bottleneck_0..N-1`` (inside: ``Conv_k``/``BatchNorm_k``, k = 3 the
+shortcut's projection where there is one) and the classifier ``Dense_0``.
+A BatchNorm's ``scale``/``bias`` become ``weight``/``bias`` and its
+``batch_stats`` ``mean``/``var`` the ``running_mean``/``running_var``
+buffers. For ``CenterNetDetector`` the stages are ``_Stage_0..2`` (laid out
+as a UNet block) and the feature conv and the heatmap, wh and offset heads
+``Conv_0..3``, each with a bias.
+
+Each ``*_flax_from_state_dict`` is the inverse of its
+``*_state_dict_from_flax``: a trained state_dict becomes the flax tree that
+``save_npz`` writes and a worker restores, and a served model's tree is what
+a reload's tree is compared with.
 """
 
 from __future__ import annotations
@@ -286,6 +296,182 @@ def seqformer_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     params = {"params": tree}
     # The forward conversion checks keys and shapes against the model.
     seqformer_state_dict_from_flax(params)
+    return params
+
+
+def _tensor(node: dict, key: str, where: str) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(_take(node, key, where),
+                                       np.float32).copy())
+
+
+def _state_array(sd: dict[str, torch.Tensor], key: str) -> np.ndarray:
+    if key not in sd:
+        raise ValueError(f"state_dict is missing {key}")
+    return sd[key].detach().cpu().float().numpy().copy()
+
+
+def _state_kernel(sd: dict[str, torch.Tensor], key: str) -> np.ndarray:
+    """A torch OIHW conv weight as a flax HWIO kernel."""
+    return np.ascontiguousarray(_state_array(sd, key).transpose(2, 3, 1, 0))
+
+
+def resnet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """The port's ``ResNet`` state_dict (float32), BatchNorm running
+    statistics included, for a flax ``ResNet``'s variables
+    (``{"params": {...}, "batch_stats": {...}}``)."""
+    from .models.resnet import ResNet
+
+    params = _take(variables, "params", "variables")
+    stats = _take(variables, "batch_stats", "variables")
+    sd: dict[str, torch.Tensor] = {}
+    used: set[str] = set()
+
+    def node(tree: dict, path: str, where: str) -> dict:
+        for part in path.split("/"):
+            tree, where = _take(tree, part, where), f"{where}/{part}"
+        return tree
+
+    def conv(path: str, dst: str) -> None:
+        sd[f"{dst}.weight"] = _conv_weight(
+            _take(node(params, path, "params"), "kernel", path))
+        used.add(f"params/{path}/kernel")
+
+    def norm(path: str, dst: str) -> None:
+        p, s = node(params, path, "params"), node(stats, path, "batch_stats")
+        for tree, col, src, name in ((p, "params", "scale", "weight"),
+                                     (p, "params", "bias", "bias"),
+                                     (s, "batch_stats", "mean", "running_mean"),
+                                     (s, "batch_stats", "var", "running_var")):
+            sd[f"{dst}.{name}"] = _tensor(tree, src, f"{col}/{path}")
+            used.add(f"{col}/{path}/{src}")
+
+    conv("Conv_0", "stem")
+    norm("BatchNorm_0", "stem_norm")
+    n_blocks = sum(1 for k in params if k.startswith("Bottleneck_"))
+    blocks = []
+    for i in range(n_blocks):
+        block = _take(params, f"Bottleneck_{i}", "params")
+        n_convs = sum(1 for k in block if k.startswith("Conv_"))
+        if n_convs not in (3, 4):
+            raise ValueError(f"Bottleneck_{i} has {n_convs} convs, not 3 or 4")
+        for k in range(n_convs):
+            conv(f"Bottleneck_{i}/Conv_{k}", f"blocks.{i}.convs.{k}")
+            norm(f"Bottleneck_{i}/BatchNorm_{k}", f"blocks.{i}.norms.{k}")
+        blocks.append(np.shape(_take(block["Conv_0"], "kernel",
+                                     f"Bottleneck_{i}/Conv_0"))[-1])
+    dense = _take(params, "Dense_0", "params")
+    kernel = _tensor(dense, "kernel", "params/Dense_0")
+    sd["head.weight"] = kernel.T.contiguous()
+    sd["head.bias"] = _tensor(dense, "bias", "params/Dense_0")
+    used.update(("params/Dense_0/kernel", "params/Dense_0/bias"))
+
+    # The stage sizes from the block widths: a stage is a run of one width.
+    width = sd["stem.weight"].shape[0]
+    stage_sizes = [sum(1 for f in blocks if f == width * 2 ** i)
+                   for i in range(len(set(blocks)))]
+    with torch.device("meta"):
+        expected = ResNet(stage_sizes=tuple(stage_sizes),
+                          num_classes=kernel.shape[1], width=width,
+                          dtype=torch.float32).state_dict()
+    return _checked(sd, expected, set(flatten_tree(variables)) - used,
+                    "ResNet")
+
+
+def resnet_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``ResNet`` variables (``{"params", "batch_stats"}`` of
+    float32 numpy arrays) for the port's state_dict: the inverse of
+    ``resnet_state_dict_from_flax``, exact both ways."""
+    params: dict = {"Conv_0": {"kernel": _state_kernel(sd, "stem.weight")}}
+    stats: dict = {}
+
+    def norm(src: str, p: dict, s: dict, name: str) -> None:
+        p[name] = {"scale": _state_array(sd, f"{src}.weight"),
+                   "bias": _state_array(sd, f"{src}.bias")}
+        s[name] = {"mean": _state_array(sd, f"{src}.running_mean"),
+                   "var": _state_array(sd, f"{src}.running_var")}
+
+    norm("stem_norm", params, stats, "BatchNorm_0")
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    for i in range(n_blocks):
+        p, s = {}, {}
+        n_convs = len({k.split(".")[3] for k in sd
+                       if k.startswith(f"blocks.{i}.convs.")})
+        for k in range(n_convs):
+            p[f"Conv_{k}"] = {"kernel": _state_kernel(
+                sd, f"blocks.{i}.convs.{k}.weight")}
+            norm(f"blocks.{i}.norms.{k}", p, s, f"BatchNorm_{k}")
+        params[f"Bottleneck_{i}"], stats[f"Bottleneck_{i}"] = p, s
+    params["Dense_0"] = {
+        "kernel": np.ascontiguousarray(_state_array(sd, "head.weight").T),
+        "bias": _state_array(sd, "head.bias")}
+    variables = {"params": params, "batch_stats": stats}
+    # The forward conversion checks keys and shapes against the model.
+    resnet_state_dict_from_flax(variables)
+    return variables
+
+
+#: The detector's flax convs after its stages -> the port's module names.
+_DETECTOR_HEADS = ("feat", "heatmap", "wh", "offset")
+
+
+def detector_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``CenterNetDetector`` state_dict (float32) for a flax
+    ``CenterNetDetector`` tree (``{"params": {...}}`` or the inner dict)."""
+    from .models.detector import CenterNetDetector
+
+    tree = params.get("params", params)
+    n_stages = sum(1 for k in tree if k.startswith("_Stage_"))
+    sd: dict[str, torch.Tensor] = {}
+    used: set[str] = set()
+    widths = []
+    for i in range(n_stages):
+        stage = _take(tree, f"_Stage_{i}", "params")
+        for k in range(2):
+            where = f"_Stage_{i}/Conv_{k}"
+            sd[f"stages.{i}.convs.{k}.weight"] = _conv_weight(
+                _take(_take(stage, f"Conv_{k}", f"_Stage_{i}"), "kernel",
+                      where))
+            norm = _take(stage, f"GroupNorm_{k}", f"_Stage_{i}")
+            for src, dst in (("scale", "weight"), ("bias", "bias")):
+                sd[f"stages.{i}.norms.{k}.{dst}"] = _tensor(
+                    norm, src, f"_Stage_{i}/GroupNorm_{k}")
+                used.add(f"_Stage_{i}/GroupNorm_{k}/{src}")
+            used.add(f"{where}/kernel")
+        widths.append(sd[f"stages.{i}.convs.0.weight"].shape[0])
+    for k, name in enumerate(_DETECTOR_HEADS):
+        conv = _take(tree, f"Conv_{k}", "params")
+        sd[f"{name}.weight"] = _conv_weight(_take(conv, "kernel", f"Conv_{k}"))
+        sd[f"{name}.bias"] = _tensor(conv, "bias", f"Conv_{k}")
+        used.update((f"Conv_{k}/kernel", f"Conv_{k}/bias"))
+    with torch.device("meta"):
+        expected = CenterNetDetector(
+            num_classes=sd["heatmap.weight"].shape[0], widths=tuple(widths),
+            dtype=torch.float32).state_dict()
+    return _checked(sd, expected, set(flatten_tree(tree)) - used,
+                    "CenterNetDetector")
+
+
+def detector_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``CenterNetDetector`` tree (``{"params": {...}}`` of float32
+    numpy arrays) for the port's state_dict: the inverse of
+    ``detector_state_dict_from_flax``, exact both ways."""
+    tree: dict = {}
+    n_stages = len({k.split(".")[1] for k in sd if k.startswith("stages.")})
+    for i in range(n_stages):
+        src = f"stages.{i}"
+        tree[f"_Stage_{i}"] = {}
+        for k in range(2):
+            tree[f"_Stage_{i}"][f"Conv_{k}"] = {
+                "kernel": _state_kernel(sd, f"{src}.convs.{k}.weight")}
+            tree[f"_Stage_{i}"][f"GroupNorm_{k}"] = {
+                "scale": _state_array(sd, f"{src}.norms.{k}.weight"),
+                "bias": _state_array(sd, f"{src}.norms.{k}.bias")}
+    for k, name in enumerate(_DETECTOR_HEADS):
+        tree[f"Conv_{k}"] = {"kernel": _state_kernel(sd, f"{name}.weight"),
+                             "bias": _state_array(sd, f"{name}.bias")}
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    detector_state_dict_from_flax(params)
     return params
 
 

@@ -49,13 +49,25 @@ def same_pads(size: int, kernel: int = 3, stride: int = 2) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class ConvBlock(nn.Module):
-    """Two (3x3 conv -> GroupNorm -> gelu) stages."""
+def same_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (built with ``padding=0``) with flax's ``SAME`` padding of
+    its kernel and stride on ``x``'s spatial axes."""
+    (k, _), (s, _) = conv.kernel_size, conv.stride
+    (top, bottom), (left, right) = (same_pads(x.shape[2], k, s),
+                                    same_pads(x.shape[3], k, s))
+    return conv(F.pad(x, (left, right, top, bottom)))
 
-    def __init__(self, in_features: int, features: int):
+
+class ConvBlock(nn.Module):
+    """Two (3x3 conv -> GroupNorm -> gelu) stages; the first conv takes
+    ``stride`` with flax's ``SAME`` padding (the detector's stages
+    downsample there)."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
         super().__init__()
         self.convs = nn.ModuleList([
-            nn.Conv2d(in_features, features, 3, padding=1, bias=False),
+            nn.Conv2d(in_features, features, 3, stride=stride,
+                      padding=1 if stride == 1 else 0, bias=False),
             nn.Conv2d(features, features, 3, padding=1, bias=False)])
         self.norms = nn.ModuleList([
             nn.GroupNorm(min(32, features), features, eps=GROUPNORM_EPS)
@@ -63,7 +75,7 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, norm in zip(self.convs, self.norms):
-            x = conv(x)
+            x = conv(x) if conv.stride == (1, 1) else same_conv(conv, x)
             # Statistics and affine in float32, as flax's GroupNorm does.
             x = F.group_norm(x.float(), norm.num_groups, norm.weight,
                              norm.bias, norm.eps).to(x.dtype)
@@ -108,9 +120,7 @@ class UNet(nn.Module):
             x = block(x)
             if i < len(self.down):
                 skips.append(x)
-                (top, bottom), (left, right) = (same_pads(x.shape[2]),
-                                                same_pads(x.shape[3]))
-                x = self.down[i](F.pad(x, (left, right, top, bottom)))
+                x = same_conv(self.down[i], x)
         for up, block, skip in zip(self.up, self.decoder, reversed(skips)):
             x = F.interpolate(x, size=skip.shape[2:], mode="nearest-exact")
             x = torch.cat([up(x), skip], dim=1)

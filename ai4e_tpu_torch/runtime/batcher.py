@@ -18,6 +18,14 @@ for the card. Counterpart of ``ai4e_tpu/runtime/batcher.py``.
 - outputs fan back out to per-request futures; postprocess runs on the
   executor, and an error there fails only that request.
 
+Priority classes: ``submit(..., priority=0)`` is interactive, higher
+values are background (the batch API submits at 1). Background submits
+saturate at ``max_pending * (1 - interactive_reserve)``, so a stack never
+takes the whole queue from interactive requests; a batch that cannot take
+every pending request is filled interactive-first on the aged key
+``priority - waited / priority_aging_s`` (oldest first within a class; 0
+means strict priority), so a background request waits boundedly.
+
 Backpressure: with ``max_pending`` requests queued, ``submit`` raises
 ``BatcherSaturated`` and the service answers 503. While draining
 (``begin_drain``), ``submit`` raises ``DrainingError``, uncut requests are
@@ -28,7 +36,7 @@ demand and derives the servables' ladders in the background.
 ``measure_phases`` records the device phases of every batch, the h2d time
 that overlapped another batch's execution (``ai4e_batch_overlap_ratio``)
 and, with a ladder manager too, the padding spent (``ai4e_batch_pad_*``).
-Priorities and deadlines are not ported (ROADMAP A6.3, A18.5).
+Deadlines are not ported (ROADMAP A18.5).
 """
 
 from __future__ import annotations
@@ -60,17 +68,22 @@ class _Pending:
     example: np.ndarray
     future: asyncio.Future
     enqueued: float = field(default_factory=time.perf_counter)
+    priority: int = 0  # 0 = interactive, higher = background
 
 
 class MicroBatcher:
     def __init__(self, runtime: ModelRuntime, max_wait_ms: float = 5.0,
                  max_pending: int = 256,
                  metrics: MetricsRegistry | None = None,
-                 pipeline_depth: int = 2, measure_phases: bool = False,
+                 pipeline_depth: int = 2, interactive_reserve: float = 0.25,
+                 priority_aging_s: float = 2.0, measure_phases: bool = False,
                  ladder_manager=None, double_buffer: bool = False):
         self.runtime = runtime
         self.max_wait = max_wait_ms / 1000.0
         self.max_pending = max_pending
+        self._background_cap = max(1, int(max_pending
+                                          * (1.0 - interactive_reserve)))
+        self.priority_aging_s = priority_aging_s
         self.metrics = metrics or DEFAULT_REGISTRY
         self._pending: dict[str, list[_Pending]] = {}
         self._wakeup = asyncio.Event()
@@ -166,21 +179,26 @@ class MicroBatcher:
     def pending_count(self) -> int:
         return sum(len(v) for v in self._pending.values())
 
-    async def submit(self, model_name: str, example: np.ndarray):
-        """Queue one example; resolves to its postprocessed result."""
+    async def submit(self, model_name: str, example: np.ndarray,
+                     priority: int = 0):
+        """Queue one example; resolves to its postprocessed result.
+        ``priority`` 0 is interactive, higher values background."""
         if self._stop:
             raise RuntimeError("batcher stopped")
         if self._draining:
             raise DrainingError("batcher draining; submit refused")
-        if self.pending_count >= self.max_pending:
+        cap = self.max_pending if priority <= 0 else self._background_cap
+        if self.pending_count >= cap:
             raise BatcherSaturated(
-                f"batcher at {self.pending_count}/{self.max_pending} pending")
+                f"batcher at {self.pending_count}/{cap} pending "
+                f"(priority {priority})")
         expected = tuple(self.runtime.models[model_name].input_shape)
         if tuple(example.shape) != expected:
             raise ValueError(
                 f"bad input shape {example.shape}, expected {expected}")
         fut = asyncio.get_running_loop().create_future()
-        self._pending.setdefault(model_name, []).append(_Pending(example, fut))
+        self._pending.setdefault(model_name, []).append(
+            _Pending(example, fut, priority=priority))
         self._pending_gauge.set(self.pending_count)
         self._wakeup.set()
         return await fut
@@ -312,6 +330,17 @@ class MicroBatcher:
             # let a ladder that shrank never grow back.
             self._ladders.observe_cut(model_name, len(queue))
         take = min(len(queue), ladder[-1])
+        if take < len(queue):
+            # Interactive first; waiting ages a class away every
+            # priority_aging_s, oldest first within a class.
+            now, aging = time.perf_counter(), self.priority_aging_s
+
+            def effective(p: _Pending) -> float:
+                if aging <= 0:
+                    return float(p.priority)
+                return p.priority - (now - p.enqueued) / aging
+
+            queue = sorted(queue, key=effective)
         batch, self._pending[model_name] = queue[:take], queue[take:]
         self._pending_gauge.set(self.pending_count)
         bucket = next((b for b in ladder if b >= take), ladder[-1])

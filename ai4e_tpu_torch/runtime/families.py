@@ -2,10 +2,12 @@
 
 Counterpart of ``ai4e_tpu/runtime/families.py`` for the families this port
 serves so far: ``echo`` (the transport smoke API), ``unet`` (land-cover
-segmentation, on the uint8 ``rgb8`` wire) and ``seqformer`` (long-context
-sequence classification, on the token-id or feature wire). The response
-contracts are the JAX package's, byte for byte. Other families and wires
-raise ``ValueError``.
+segmentation), ``resnet`` (species classification), ``detector`` (the
+camera-trap MegaDetector slot), each image family on the uint8 ``rgb8``
+wire, and ``seqformer`` (long-context sequence classification, on the
+token-id or feature wire). The response contracts are the JAX package's,
+byte for byte. The other families and the compressed wires raise
+``ValueError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .ladder import IMAGE_BUCKETS
+from .ladder import DETECTOR_BUCKETS, IMAGE_BUCKETS
 from .registry import ServableModel
 
 
@@ -149,11 +151,7 @@ def build_unet(name: str = "landcover", tile: int = 256,
     from ..models import create_unet
     from ..ops import fused_seg_postprocess, normalize_image
 
-    if wire not in ("rgb8", "yuv420", "dct"):
-        raise ValueError(f"wire must be rgb8|yuv420|dct, got {wire!r}")
-    if wire != "rgb8":
-        raise ValueError(f"wire={wire!r} is not ported yet (a later slice of "
-                         "the PyTorch port); serve wire='rgb8'")
+    _check_wire(wire, fused_postprocess, "fused_postprocess")
     if not fused_postprocess:
         raise ValueError("fused_postprocess=False is not ported yet (a later "
                          "slice of the PyTorch port)")
@@ -182,6 +180,118 @@ def build_unet(name: str = "landcover", tile: int = 256,
         postprocess=postprocess, batch_buckets=tuple(buckets),
         state_dict_from_flax=unet_state_dict_from_flax,
         flax_from_state_dict=unet_flax_from_state_dict)
+
+
+def _check_wire(wire: str, fused: bool, fused_flag: str) -> None:
+    """The JAX package's wire validation for the image families (an
+    unknown wire, or a compressed wire without the fused ingestion it
+    needs, fails at build time), then the port's refusal of the
+    compressed wires."""
+    if wire not in ("rgb8", "yuv420", "dct"):
+        raise ValueError(f"wire must be rgb8|yuv420|dct, got {wire!r}")
+    if wire in ("yuv420", "dct") and not fused:
+        raise ValueError(f"wire={wire!r} requires {fused_flag}=True")
+    if wire != "rgb8":
+        raise ValueError(f"wire={wire!r} is not ported yet (ROADMAP A9); "
+                         "serve wire='rgb8'")
+
+
+def _maybe_fused_uint8(apply_fn, fused: bool):
+    """uint8 ingestion: the card normalises the batch to [0, 1]
+    (``ops.normalize_image``, the hand-written kernel) before the model.
+    Returns ``(apply_fn, input_dtype)``; without ``fused`` the model takes
+    float32 [0, 1] pixels as they come."""
+    if not fused:
+        return apply_fn, np.float32
+    from ..ops import normalize_image
+
+    def fused_apply(module, batch):
+        return apply_fn(module, normalize_image(batch))
+
+    return fused_apply, np.uint8
+
+
+def build_resnet(name: str = "classifier", image_size: int = 224,
+                 num_classes: int = 1000, stage_sizes=(3, 4, 6, 3),
+                 width: int = 64, labels: list | None = None,
+                 buckets=IMAGE_BUCKETS, fused_normalize: bool = True,
+                 wire: str = "rgb8", **_) -> ServableModel:
+    """Batched species classification. With ``fused_normalize`` (the
+    default) clients ship uint8 pixels and the card scales them to [0, 1]
+    before the ResNet. The response is ``{"class_id", "label",
+    "confidence"}``, the label ``str(class_id)`` without ``labels``. The
+    weights are random, drawn from seed 0, until a checkpoint is
+    restored."""
+    from ..convert import resnet_flax_from_state_dict, \
+        resnet_state_dict_from_flax
+    from ..models import create_resnet
+
+    _check_wire(wire, fused_normalize, "fused_normalize")
+    model = create_resnet(generator=torch.Generator().manual_seed(0),
+                          stage_sizes=tuple(stage_sizes),
+                          num_classes=num_classes, width=width, device="cpu")
+
+    def postprocess(logits):
+        logits = np.asarray(logits, np.float64)
+        probs = np.exp(logits - logits.max())
+        probs /= probs.sum()
+        top = int(np.argmax(probs))
+        return {"class_id": top,
+                "label": labels[top] if labels else str(top),
+                "confidence": float(probs[top])}
+
+    apply_fn, input_dtype = _maybe_fused_uint8(
+        lambda module, batch: module(batch), fused_normalize)
+    return ServableModel(
+        name=name, apply_fn=apply_fn, module=model,
+        input_shape=(image_size, image_size, 3), input_dtype=input_dtype,
+        preprocess=_image_preprocess((image_size, image_size, 3),
+                                     input_dtype),
+        postprocess=postprocess, batch_buckets=tuple(buckets),
+        state_dict_from_flax=resnet_state_dict_from_flax,
+        flax_from_state_dict=resnet_flax_from_state_dict)
+
+
+def build_detector(name: str = "megadetector", image_size: int = 512,
+                   widths=(64, 128, 256), max_detections: int = 64,
+                   score_threshold: float = 0.2, buckets=DETECTOR_BUCKETS,
+                   fused_normalize: bool = True, wire: str = "rgb8",
+                   **_) -> ServableModel:
+    """Camera-trap detection. The card runs normalize (with
+    ``fused_normalize``), the CenterNet and its decode to
+    ``max_detections`` rows; the response lists the rows scoring at least
+    ``score_threshold``, best first: ``{"detections": [{"box": [y0, x0,
+    y1, x1], "score", "class_id"}, ...]}``. The weights are random, drawn
+    from seed 0, until a checkpoint is restored."""
+    from ..convert import detector_flax_from_state_dict, \
+        detector_state_dict_from_flax
+    from ..models import create_detector, decode_detections
+
+    _check_wire(wire, fused_normalize, "fused_normalize")
+    model = create_detector(generator=torch.Generator().manual_seed(0),
+                            widths=tuple(widths), device="cpu")
+
+    def raw_apply(module, batch):
+        return decode_detections(module(batch), max_detections=max_detections)
+
+    def postprocess(out):
+        scores = np.asarray(out["scores"])
+        keep = scores >= score_threshold
+        return {"detections": [
+            {"box": np.asarray(out["boxes"])[i].tolist(),
+             "score": float(scores[i]),
+             "class_id": int(np.asarray(out["classes"])[i])}
+            for i in np.nonzero(keep)[0]]}
+
+    apply_fn, input_dtype = _maybe_fused_uint8(raw_apply, fused_normalize)
+    return ServableModel(
+        name=name, apply_fn=apply_fn, module=model,
+        input_shape=(image_size, image_size, 3), input_dtype=input_dtype,
+        preprocess=_image_preprocess((image_size, image_size, 3),
+                                     input_dtype),
+        postprocess=postprocess, batch_buckets=tuple(buckets),
+        state_dict_from_flax=detector_state_dict_from_flax,
+        flax_from_state_dict=detector_flax_from_state_dict)
 
 
 def _check_token_ids(arr: np.ndarray, vocab_size: int) -> None:
@@ -216,16 +326,20 @@ def _token_preprocess(seq_len: int, vocab_size: int):
 def _sequence_input_contract(seq_len: int, input_dim: int,
                              vocab_size: int | None,
                              feature_dtype=np.float32):
-    """``(input_shape, input_dtype, preprocess)`` of the sequence families'
-    wire: token ids when ``vocab_size`` is set, float feature sequences
-    otherwise. (The JAX package's batch-stack wire, and its stack
-    validator, are not ported: requests arrive one at a time.)"""
+    """``(input_shape, input_dtype, preprocess, stack_kwargs)`` of the
+    sequence families' wire: token ids when ``vocab_size`` is set, float
+    feature sequences otherwise. Token mode's ``stack_kwargs`` install
+    ``_check_token_ids`` as the batch API's stack validator, which runs on
+    the RAW stack before the cast to the device type (a check after it
+    would pass ids that wrapped into range)."""
     if vocab_size is not None:
         return ((seq_len,), np.dtype(np.int32),
-                _token_preprocess(seq_len, vocab_size))
+                _token_preprocess(seq_len, vocab_size),
+                {"stack_validator":
+                 lambda arr: _check_token_ids(arr, vocab_size)})
     fdt = np.dtype(feature_dtype)
     return ((seq_len, input_dim), fdt,
-            _npy_preprocess((seq_len, input_dim), fdt))
+            _npy_preprocess((seq_len, input_dim), fdt), {})
 
 
 def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
@@ -269,30 +383,35 @@ def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
         top = int(np.argmax(probs))
         return {"class_id": top, "confidence": float(probs[top])}
 
-    input_shape, input_dtype, preprocess = _sequence_input_contract(
-        seq_len, input_dim, vocab_size, feature_dtype=wdt)
+    input_shape, input_dtype, preprocess, stack_kwargs = \
+        _sequence_input_contract(seq_len, input_dim, vocab_size,
+                                 feature_dtype=wdt)
     return ServableModel(
         name=name, apply_fn=lambda module, batch: module(batch), module=model,
         input_shape=input_shape, input_dtype=input_dtype,
         preprocess=preprocess, postprocess=postprocess,
         batch_buckets=tuple(buckets),
         state_dict_from_flax=seqformer_state_dict_from_flax,
-        flax_from_state_dict=seqformer_flax_from_state_dict)
+        flax_from_state_dict=seqformer_flax_from_state_dict,
+        **stack_kwargs)
 
 
 FAMILIES = {
     "echo": build_echo,
     "unet": build_unet,
+    "resnet": build_resnet,
+    "detector": build_detector,
     "seqformer": build_seqformer,
 }
-#: Families of the JAX package this port does not serve yet.
-UNPORTED_FAMILIES = ("resnet", "detector", "vit", "moe", "seqformer-lm")
+#: Families of the JAX package this port does not serve yet, with their
+#: ROADMAP items.
+UNPORTED_FAMILIES = {"vit": "A11", "moe": "A14", "seqformer-lm": "A13"}
 
 
 def build_servable(family: str, **kwargs) -> ServableModel:
     if family in UNPORTED_FAMILIES:
-        raise ValueError(f"model family {family!r} is not ported yet (a later "
-                         f"slice of the PyTorch port); ported: "
+        raise ValueError(f"model family {family!r} is not ported yet (ROADMAP "
+                         f"{UNPORTED_FAMILIES[family]}); ported: "
                          f"{sorted(FAMILIES)}")
     if family not in FAMILIES:
         raise ValueError(

@@ -48,6 +48,8 @@ log = logging.getLogger("ai4e_tpu_torch.ladder")
 DEFAULT_BUCKETS = (1, 2, 4, 8)
 #: Image-classifier family default (landcover/species/imagenet-class).
 IMAGE_BUCKETS = (1, 16, 64)
+#: Detector family default (4x the pixels per example of the classifiers).
+DETECTOR_BUCKETS = (1, 8, 16)
 #: The static ``ai4e_batch_size`` exposition ladder of a batcher without
 #: ladder derivation.
 EXPOSITION_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)

@@ -82,6 +82,15 @@ class ServableModel:
     - ``checkpoint_path`` and ``params_version``: where the weights came
       from and how many times they were swapped in (1 = as built);
       ``generation``: the rollout generation a reload names.
+    - the batch API's stack contract (``InferenceWorker.serve_batch``):
+      stacks arrive as (N, *``stack_item_shape``) in ``stack_item_dtype``
+      (None: ``input_shape`` and ``input_dtype``), each item passed through
+      ``stack_adapter`` to become an example; ``stack_validator`` checks
+      the RAW decoded stack before any cast (token servables reject floats
+      and out-of-range ids there); ``example_decoder`` turns a
+      preprocessed example back into the natural image for host consumers
+      such as a crops handoff. The adapter and decoder belong to the
+      compressed wires (ROADMAP A9) and stay None until they are ported.
     """
 
     name: str
@@ -98,6 +107,11 @@ class ServableModel:
     generation: int = 1
     state_dict_from_flax: Callable | None = None
     flax_from_state_dict: Callable | None = None
+    stack_item_shape: tuple[int, ...] | None = None
+    stack_item_dtype: Any = None
+    stack_adapter: Callable | None = None
+    stack_validator: Callable | None = None
+    example_decoder: Callable | None = None
 
     def bucket_for(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -113,13 +127,14 @@ class ServableModel:
 @dataclass
 class BucketGraph:
     """One captured (model, bucket) program: the graph, the static input it
-    reads, the static outputs it writes, and the kernel launches of one
-    replay."""
+    reads, the static outputs it writes, the kernel launches of one replay
+    and the model it serves."""
 
     graph: Any
     static_in: torch.Tensor
     static_out: Any
     launches: dict[str, int]
+    model: str = ""
 
 
 def _to_pinned(out):
@@ -189,6 +204,8 @@ class ModelRuntime:
         self._device_lock = threading.Lock()
         # Each servable's params-tree spec, computed at its first reload.
         self._flax_specs: dict[str, dict] = {}
+        # model -> kernel -> launches its graphs' replays made.
+        self.model_launches: dict[str, dict[str, int]] = {}
 
     def register(self, servable: ServableModel) -> ServableModel:
         """Move the module to the device, channels-last, inference mode."""
@@ -454,7 +471,8 @@ class ModelRuntime:
             # A capture launches nothing, failed or not; the counters count
             # replays.
             ops.add_launches({k: -n for k, n in launched.items()})
-        bg = BucketGraph(graph, static_in, static_out, launched)
+        bg = BucketGraph(graph, static_in, static_out, launched,
+                         servable.name)
         self.graphs[(servable.name, int(batch.shape[0]))] = bg
         log.info("captured %s bucket %d (kernel launches a replay: %s)",
                  servable.name, batch.shape[0], launched)
@@ -463,6 +481,9 @@ class ModelRuntime:
     def _replay(self, graph: BucketGraph):
         graph.graph.replay()
         ops.add_launches(graph.launches)
+        counts = self.model_launches.setdefault(graph.model, {})
+        for kernel, n in graph.launches.items():
+            counts[kernel] = counts.get(kernel, 0) + n
         return graph.static_out
 
     def graph_pool_bytes(self) -> int:

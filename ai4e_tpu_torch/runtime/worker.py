@@ -11,6 +11,13 @@ redelivers it; one saturated after adoption goes back to the broker, or
 fails where no broker is behind the store. The status strings are the JAX
 worker's.
 
+A servable served with ``pipeline_to`` is a pipeline stage: after its
+inference the handoff hands the task, under the same TaskId, to the next
+API (the detector's crops to the species classifier's batch endpoint,
+``handoffs.crops_handoff``). ``serve_batch`` adds a batch API: one request
+carries a stack of examples, fanned into the batcher at background
+priority, with per-item failure isolation.
+
 The operator's surface is the JAX worker's too:
 
 - ``POST {prefix}/models/{name}/reload`` swaps a model's weights from a
@@ -34,9 +41,11 @@ from __future__ import annotations
 
 import asyncio
 import inspect
+import io
 import json
 import logging
 import os
+import time
 
 import numpy as np
 from aiohttp import web
@@ -225,8 +234,25 @@ class InferenceWorker:
     def serve_model(self, servable: ServableModel,
                     sync_path: str | None = None,
                     async_path: str | None = None,
-                    maximum_concurrent_requests: int = 64) -> None:
-        """Expose a servable on a sync and an async endpoint."""
+                    maximum_concurrent_requests: int = 64,
+                    pipeline_to=None) -> None:
+        """Expose a servable on a sync and an async endpoint.
+
+        ``pipeline_to`` makes the servable a pipeline stage: a callable
+        ``(result) -> (next_endpoint, body_bytes) | None`` evaluated after
+        inference on the async path; a two-argument callable also gets the
+        stage's decoded input example (a crops handoff needs the image). A
+        tuple stores the stage's result under ``?stage=<name>`` and hands
+        the task, same TaskId, to the next API (``add_pipeline_task``; an
+        empty body replays the original one); ``None`` means nothing to
+        hand off, and the stage completes the task itself."""
+        if pipeline_to is not None:
+            params = [
+                p for p in inspect.signature(pipeline_to).parameters.values()
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+            handoff_wants_example = len(params) >= 2
+        else:
+            handoff_wants_example = False
         name = servable.name
         sync_path = sync_path or f"/{name}"
         async_path = async_path or f"/{name}-async"
@@ -290,16 +316,164 @@ class InferenceWorker:
                 endpoint = (current or {}).get("Endpoint", async_path)
                 await tm.add_pipeline_task(taskId, endpoint)
                 return
+            if pipeline_to is not None:
+                if handoff_wants_example:
+                    # Handoffs consume the natural image; a wire-encoded
+                    # servable decodes it back first.
+                    img = (_servable.example_decoder(example)
+                           if _servable.example_decoder is not None
+                           else example)
+                    handoff = pipeline_to(result, img)
+                else:
+                    handoff = pipeline_to(result)
+                if handoff is not None:
+                    next_endpoint, next_body = handoff
+                    # The stage's own result stays readable under the same
+                    # TaskId while the task moves on.
+                    await self._store_result(
+                        taskId, json.dumps(_jsonable(result)).encode(),
+                        stage=_name)
+                    await tm.update_task_status(
+                        taskId, f"running - {_name} handing off to "
+                                f"{next_endpoint}")
+                    await tm.add_pipeline_task(taskId, next_endpoint,
+                                               body=next_body)
+                    return
             await self._store_result(
                 taskId, json.dumps(_jsonable(result)).encode())
             await tm.complete_task(taskId, f"completed - {_summarise(result)}")
 
-    async def _store_result(self, task_id: str, payload: bytes) -> None:
-        """Store a result in the in-process store (``set_result`` returns
-        None) or on the control plane (``HttpResultStore``, a coroutine)."""
+    def serve_batch(self, servable: ServableModel,
+                    sync_path: str | None = None,
+                    async_path: str | None = None,
+                    max_items: int = 1024,
+                    submit_concurrency: int = 64,
+                    progress_every: float = 2.0,
+                    maximum_concurrent_requests: int = 8) -> None:
+        """Expose a batch API for a servable: one request carries a stack
+        of N examples, an npy array of shape ``(N, *stack_item_shape)``
+        (``input_shape`` unless the servable declares another), which the
+        worker fans into the micro-batcher at background priority (1) and
+        gathers back in order: ``{"count", "failed", "items": [{"index",
+        "result"} | {"index", "error"}]}``. A bad item gets an ``error``
+        entry and never fails the stack. The async path reports progress
+        (``running - {name} batch k/N``) and completes with ``completed -
+        N images, M errors``."""
+        name = servable.name
+        sync_path = sync_path or f"/{name}-batch"
+        async_path = async_path or f"/{name}-batch-async"
+        self._served.setdefault(name, {}).update(
+            batch_sync=self.service.prefix + sync_path,
+            batch_async=self.service.prefix + async_path)
+        item_shape = tuple(servable.stack_item_shape
+                           or servable.input_shape)
+        item_dtype = (servable.stack_item_dtype
+                      if servable.stack_item_dtype is not None
+                      else servable.input_dtype)
+
+        def _decode_stack(body: bytes) -> np.ndarray:
+            arr = np.load(io.BytesIO(body))
+            if (arr.ndim != len(item_shape) + 1
+                    or tuple(arr.shape[1:]) != item_shape):
+                raise ValueError(
+                    f"expected stack (N, {', '.join(map(str, item_shape))}), "
+                    f"got {arr.shape}")
+            if len(arr) == 0:
+                raise ValueError("empty batch")
+            if len(arr) > max_items:
+                raise ValueError(f"batch of {len(arr)} exceeds max {max_items}")
+            if servable.stack_validator is not None:
+                # On the raw values, before the cast (see ServableModel).
+                servable.stack_validator(arr)
+            from .families import cast_image_payload
+            arr = cast_image_payload(arr, item_dtype)
+            if servable.stack_adapter is not None:
+                arr = np.stack([servable.stack_adapter(x) for x in arr])
+            return arr
+
+        async def _run_stack(stack: np.ndarray, on_progress=None) -> list:
+            results: list = [None] * len(stack)
+            done = 0
+            queue: asyncio.Queue[int] = asyncio.Queue()
+            for i in range(len(stack)):
+                queue.put_nowait(i)
+
+            async def _puller():
+                nonlocal done
+                while True:
+                    try:
+                        i = queue.get_nowait()
+                    except asyncio.QueueEmpty:
+                        return
+                    while True:
+                        try:
+                            # Background priority: the stack shares batches
+                            # with interactive requests, never ahead of them.
+                            out = await self.batcher.submit(
+                                name, np.asarray(stack[i]), priority=1)
+                            results[i] = {"index": i, "result": _jsonable(out)}
+                            break
+                        except BatcherSaturated:
+                            await asyncio.sleep(0.05)  # throttle, not fail
+                        except Exception as exc:  # noqa: BLE001 — reported at this index of the batch result
+                            results[i] = {"index": i, "error": str(exc)}
+                            break
+                    done += 1
+                    if on_progress is not None:
+                        await on_progress(done, len(stack))
+
+            pullers = min(submit_concurrency, len(stack))
+            await asyncio.gather(*(_puller() for _ in range(pullers)))
+            return results
+
+        @self.service.api_sync_func(
+            sync_path, maximum_concurrent_requests=maximum_concurrent_requests)
+        async def _sync_batch(body, content_type):
+            # Off the event loop: decoding a large stack is numpy work that
+            # must not stall the interactive requests.
+            stack = await asyncio.to_thread(_decode_stack, body)
+            results = await _run_stack(stack)
+            failed = sum(1 for r in results if "error" in r)
+            return {"count": len(results), "failed": failed, "items": results}
+
+        @self.service.api_async_func(
+            async_path, maximum_concurrent_requests=maximum_concurrent_requests)
+        async def _async_batch(taskId, body, content_type):
+            tm = self.service.task_manager
+            try:
+                stack = await asyncio.to_thread(_decode_stack, body)
+            except Exception as exc:  # noqa: BLE001 — recorded on the task (failed - bad input)
+                await tm.fail_task(taskId, f"failed - bad input: {exc}")
+                return
+            total = len(stack)
+            await tm.update_task_status(
+                taskId, f"running - {name} batch 0/{total}")
+            last = {"t": 0.0}
+
+            async def on_progress(k, n):
+                now = time.monotonic()
+                if now - last["t"] >= progress_every or k == n:
+                    last["t"] = now
+                    await tm.update_task_status(
+                        taskId, f"running - {name} batch {k}/{n}")
+
+            results = await _run_stack(stack, on_progress)
+            failed = sum(1 for r in results if "error" in r)
+            await self._store_result(taskId, json.dumps(
+                {"count": total, "failed": failed, "items": results}).encode())
+            # Never the word "failed" in this terminal status: canonical
+            # bucketing tests for "failed" first.
+            await tm.complete_task(
+                taskId, f"completed - {total} images, {failed} errors")
+
+    async def _store_result(self, task_id: str, payload: bytes,
+                            stage: str | None = None) -> None:
+        """Store a result (``stage``: a pipeline stage's own, under
+        ``?stage=``) in the in-process store (``set_result`` returns None)
+        or on the control plane (``HttpResultStore``, a coroutine)."""
         if self.store is None:
             return
-        res = self.store.set_result(task_id, payload)
+        res = self.store.set_result(task_id, payload, stage=stage)
         if inspect.isawaitable(res):
             await res
 

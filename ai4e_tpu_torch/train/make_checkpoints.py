@@ -145,9 +145,12 @@ RECIPES = {
         "ROADMAP A16: the UNet's backward, its bf16 GroupNorm and gelu"),
     "landcover128": _unported(
         "ROADMAP A16: the UNet's backward, its bf16 GroupNorm and gelu"),
-    "megadetector": _unported("ROADMAP A10: models/detector.py"),
-    "species": _unported("ROADMAP A10: models/resnet.py"),
-    "species_fine": _unported("ROADMAP A10: models/resnet.py"),
+    "megadetector": _unported(
+        "ROADMAP A16.4: the detector's training; its model, A10, is ported"),
+    "species": _unported(
+        "ROADMAP A16.4: the ResNet's training; its model, A10, is ported"),
+    "species_fine": _unported(
+        "ROADMAP A16.4: the ResNet's training; its model, A10, is ported"),
     "longcontext": train_longcontext,
     "moe": _unported("ROADMAP A14: models/moe.py"),
 }

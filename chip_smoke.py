@@ -78,7 +78,28 @@ Phases, each of which raises on failure:
    (overlap ratio > 0); (c) longcontext reloaded to phase 6's ``.npz`` in
    the middle of an async burst, with the 409 and 403 refusals; (d) a
    derived ladder; (e) a drain under a burst, then resume. It prints a
-   ``runtime: {...}`` line.
+   ``runtime: {...}`` line;
+8. the camera-trap ensemble of ``deploy/specs/models.json``
+   (``megadetector``: CenterNet at 512 px, widths 64/128/256, buckets 1/8,
+   its crops handed under the same TaskId to ``species``: ResNet at 224
+   px, stages 2/2/2, width 32, buckets 1/16/64; random weights from seed
+   0): (a) normalize bit for bit at the two models' bucket shapes and a
+   5-crop stack, timed at (8, 512, 512, 3) and (64, 224, 224, 3) beside
+   its bound and the ``copy_`` yardstick; (b) each bucket's replay
+   against eager, with eager and replay ms and the graphs' pool; (c) the
+   port's control plane and worker as two child processes with
+   routes.json's three camera-trap routes and the spec's ``pipeline_to``
+   pointed at the child worker: 32 async ``/detect-async`` requests of
+   512 px scenes long-polled to ``completed``, each final result the
+   species batch of min(16, detections) crops with no failure, the
+   ``?stage=megadetector`` detections held to a recompute on the card with
+   the plain normalize (``tests/test_torch_detector.py``'s rule) and every
+   species class to a recompute on the port's own crops wherever the
+   top-two gap exceeds 1e-2, normalize launched for both models in the
+   worker; then a sync batch of 64 crops timed alone and again beside an
+   async 64-item stack and 16 interactive species requests (their p50
+   printed, checked for completion only). It prints a ``camera_trap:
+   {...}`` line.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1650,22 +1671,29 @@ KERNEL_NAMES = {"normalize_image": "normalize_u8_kernel",
                 "flash_attention": "flash_fwd_"}
 
 
-def trace_replay(graph) -> dict[str, int]:
+def trace_replay(graph) -> tuple[dict[str, int], int]:
     """The port's kernels one replay of ``graph`` runs, counted by name in a
     ``torch.profiler`` trace of the card (the launch counters are left
-    alone)."""
+    alone), and the kernel records the trace holds in all."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # The first kernels after a trace starts have gone unrecorded now
+        # and then (a replay's first node, normalize, most often): a spin
+        # kernel takes that place.
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
         graph.graph.replay()
         torch.cuda.synchronize()
     counts = dict.fromkeys(KERNEL_NAMES, 0)
+    records = 0
     for event in prof.key_averages():
+        records += event.count
         for counter, kernel in KERNEL_NAMES.items():
             if kernel in event.key:
                 counts[counter] += event.count
-    return {k: n for k, n in counts.items() if n}
+    return {k: n for k, n in counts.items() if n}, records
 
 
 def replay_kernels(graph, label: str,
@@ -1677,14 +1705,14 @@ def replay_kernels(graph, label: str,
     exactly the graph's launches; a kernel traced more often than the
     graph adds fails at once."""
     for attempt in range(1, tries + 1):
-        traced = trace_replay(graph)
+        traced, records = trace_replay(graph)
         if any(n > graph.launches.get(k, 0) for k, n in traced.items()):
             break
         if traced == graph.launches:
             return traced, attempt
     raise AssertionError(f"{label}: a replay ran {traced} of the port's "
-                         f"kernels (trace {attempt}); its graph adds "
-                         f"{graph.launches}")
+                         f"kernels (trace {attempt}, {records} records in "
+                         f"all); its graph adds {graph.launches}")
 
 
 def model_kwargs(spec: dict) -> dict:
@@ -2140,6 +2168,552 @@ def phase_runtime(e2e: dict, trained_npz: str) -> dict:
     return record
 
 
+# -- phase 8: the camera-trap ensemble ---------------------------------------
+
+CT_MODELS = ("megadetector", "species")
+N_CT_TASKS = 32        # async /detect-async requests, 512 px scenes
+N_CT_INTERACTIVE = 16  # interactive species requests beside the batch API
+CT_SHAPES = {"megadetector": (1, 8), "species": (1, 16, 64)}
+# tests/test_torch_detector.py's rule: scores within SCORE_TOL and boxes
+# within BOX_TOL px, except where the reference's own decision (threshold,
+# top-k cut, 3x3 peak NMS) lies within SCORE_TOL.
+CT_SCORE_TOL = 0.0125
+CT_BOX_TOL = 0.6
+CT_THRESHOLD = 0.2
+CT_GAP = 1e-2        # species class must agree where the top-two gap exceeds it
+CT_CONF_ATOL = 1e-2
+CT_LOGIT_ATOL = 5e-3  # a species logit, replay against eager (cuDNN's choice)
+
+
+def scenes(n: int, seed: int, size: int = 512) -> np.ndarray:
+    """uint8 camera-trap-like images made from ``seed``: a smooth
+    background with 2-5 coloured rectangles, so detections vary."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    out = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        img = np.empty((size, size, 3), np.float32)
+        for c in range(3):
+            fy, fx, phase = rng.uniform(0.5, 2), rng.uniform(0.5, 2), \
+                rng.uniform(0, 6)
+            img[..., c] = 80 + 60 * np.sin(2 * np.pi * (fy * yy + fx * xx)
+                                           + phase)
+        for _ in range(rng.integers(2, 6)):
+            h, w = rng.integers(size // 16, size // 3, 2)
+            y, x = rng.integers(0, size - h), rng.integers(0, size - w)
+            img[y:y + h, x:x + w] = rng.integers(0, 256, 3)
+        out[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
+
+
+def camera_trap_models() -> list[dict]:
+    """deploy/specs/models.json's megadetector and species entries, without
+    their checkpoints (seed-0 random weights)."""
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    models = []
+    for model in spec["models"]:
+        if model["name"] in CT_MODELS:
+            model = json.loads(json.dumps(model))
+            model.pop("checkpoint")
+            models.append(model)
+    return models
+
+
+def check_normalize_camera_trap() -> dict:
+    """8a: normalize bit for bit at the camera-trap shapes (the detector's
+    buckets 1 and 8 at 512 px, the species' buckets 1, 16 and 64 at 224 px,
+    a 16-crop stack being bucket 16), timed at the largest of each beside
+    its bound and the ``copy_`` yardstick."""
+    from ai4e_tpu_torch.ops import image_preprocess as ip
+
+    gen = torch.Generator().manual_seed(SEED + 80)
+    for b in CT_SHAPES["megadetector"]:
+        check_normalize((b, 512, 512, 3), None, None, gen)
+    for b in CT_SHAPES["species"] + (5,):
+        check_normalize((b, 224, 224, 3), None, None, gen)
+    scale, bias = ip.channel_affine(None, None, 3)
+    out = {}
+    for shape in ((8, 512, 512, 3), (64, 224, 224, 3)):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8,
+                          generator=gen).cuda()
+        n = x.numel()
+        bound, by = bound_ms(n * 1 + n * 4, 2 * n)
+        out["x".join(map(str, shape))] = {
+            "ms": device_ms(lambda: ip.normalize_image(x)),
+            "plain_ms": device_ms(
+                lambda: ip.normalize_image_plain(x, scale, bias)),
+            "copy_yardstick_ms": device_ms(lambda: torch.empty(
+                x.shape, dtype=torch.float32, device=x.device).copy_(x)),
+            "bound_ms": bound, "bound_by": by}
+    log(f"camera_trap 8a: normalize {json.dumps(out)}")
+    return out
+
+
+def same_detector_or_species(name: str, got, want) -> str:
+    """A replay's outputs against eager's: ``"exact"``, or within the
+    tests' rules (cuDNN may pick another algorithm under capture); raises
+    otherwise."""
+    if not isinstance(got, dict):
+        got, want = {"logits": got}, {"logits": want}
+    if same_outputs(got, want):
+        return "exact"
+    if "logits" in got:
+        diff = float(np.abs(got["logits"] - want["logits"]).max())
+        if diff > CT_LOGIT_ATOL:
+            raise AssertionError(f"{name}: replay logits off by {diff}")
+        return f"logits within {diff}"
+    diff = float(np.abs(np.sort(got["scores"], axis=1)
+                        - np.sort(want["scores"], axis=1)).max())
+    if diff > CT_SCORE_TOL:
+        raise AssertionError(f"{name}: replay scores off by {diff}")
+    return f"scores within {diff}"
+
+
+def phase_camera_trap_graphs() -> dict:
+    """8b: each camera-trap bucket's replay against eager on the same
+    batch, deployed widths, seed-0 weights; eager and replay ms."""
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    runtime = ModelRuntime("cuda")
+    for model in camera_trap_models():
+        kwargs = {k: v for k, v in model.items() if k not in (
+            "family", "async_path", "pipeline_to", "batch")}
+        runtime.register(build_servable(model["family"], **kwargs))
+    t0 = time.perf_counter()
+    runtime.warmup()
+    record: dict = {"warmup_and_capture_s": time.perf_counter() - t0,
+                    "buckets": {}}
+    rng = np.random.default_rng(SEED + 81)
+    for name, servable in runtime.models.items():
+        if servable.batch_buckets != CT_SHAPES[name]:
+            raise AssertionError(f"{name} buckets {servable.batch_buckets}")
+        for bucket in servable.batch_buckets:
+            graph = runtime.graphs[(name, bucket)]
+            if graph.launches != {"normalize_image": 1}:
+                raise AssertionError(f"{name} bucket {bucket} captured "
+                                     f"{graph.launches}")
+            traced, traces = replay_kernels(graph, f"{name} bucket {bucket}")
+            size = servable.input_shape[0]
+            x = (scenes(bucket, SEED + bucket) if size == 512 else
+                 rng.integers(0, 256, (bucket, size, size, 3), np.uint8))
+            got = runtime.run_batch(name, x)
+            dev = torch.from_numpy(x).cuda()
+            with torch.inference_mode():
+                eager_out = servable.apply_fn(servable.module, dev)
+            want = ({k: v.cpu().numpy() for k, v in eager_out.items()}
+                    if isinstance(eager_out, dict) else eager_out.cpu().numpy())
+            same = same_detector_or_species(f"{name}/{bucket}", got, want)
+            graph.static_in.copy_(dev)
+
+            def eager():
+                with torch.inference_mode():
+                    servable.apply_fn(servable.module, dev)
+
+            record["buckets"][f"{name}/{bucket}"] = {
+                "eager_ms": stream_ms(eager),
+                "replay_ms": stream_ms(graph.graph.replay),
+                "replay_equals_eager": same,
+                "replay_kernels": traced, "traces": traces}
+    record["graph_pool_mib"] = runtime.graph_pool_bytes() / 2 ** 20
+    record["graphs"] = len(runtime.graphs)
+    log(f"camera_trap 8b: graphs against eager: {json.dumps(record)}")
+    del runtime
+    torch.cuda.empty_cache()
+    return record
+
+
+def camera_trap_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
+    """The two models behind the control plane at ``store_url``, the
+    detector's crops handed to the species batch endpoint of the worker at
+    ``worker_url``, and routes.json's three camera-trap routes to it
+    (without ``autoscale``, an unported item)."""
+    from urllib.parse import urlparse
+
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    models = camera_trap_models()
+    for model in models:
+        if "pipeline_to" in model:
+            handoff = model["pipeline_to"]
+            handoff["endpoint"] = worker_url + urlparse(
+                handoff["endpoint"]).path
+    routes = json.loads((ROOT / "deploy/specs/routes.json").read_text())
+    apis = []
+    for api in routes["apis"]:
+        path = urlparse(api["backend"]).path
+        if (api.get("prefix", "").startswith("/v1/camera-trap/")
+                or path.endswith("/classify-species-batch-async")):
+            api = {k: v for k, v in api.items()
+                   if k not in ("autoscale", "_comment")}
+            api["backend"] = worker_url + path
+            apis.append(api)
+    return ({"service_name": spec["service_name"], "prefix": spec["prefix"],
+             "taskstore": store_url, "models": models}, {"apis": apis})
+
+
+def sigmoid_np(x: np.ndarray) -> np.ndarray:
+    return 1.0 / (1.0 + np.exp(-x.astype(np.float64)))
+
+
+def detector_reference(servable, images: np.ndarray) -> list[dict]:
+    """Each image's detections recomputed on the card with the plain
+    normalize and the same weights, eagerly, in batches of 8, with what
+    the comparison needs: each row's peak (row, col, class), the sigmoid
+    heatmap, the offsets and the top-k cut's score."""
+    from ai4e_tpu_torch.models import decode_detections
+    from ai4e_tpu_torch.ops.image_preprocess import (channel_affine,
+                                                     normalize_image_plain)
+
+    scale, bias = channel_affine(None, None, 3)
+    out = []
+    with torch.inference_mode():
+        for i in range(0, len(images), 8):
+            x = normalize_image_plain(torch.from_numpy(images[i:i + 8]).cuda(),
+                                      scale, bias)
+            heads = servable.module(x)
+            dec = decode_detections(heads)
+            zeros = torch.zeros_like(heads["wh"])
+            peaks = decode_detections({"heatmap": heads["heatmap"],
+                                       "wh": zeros, "offset": zeros})
+            host = {k: v.cpu().numpy() for k, v in dec.items()}
+            boxes = peaks["boxes"].cpu().numpy()
+            pix = np.stack([boxes[..., 0] / 8, boxes[..., 1] / 8,
+                            peaks["classes"].cpu().numpy()],
+                           axis=-1).round().astype(int)
+            heat = sigmoid_np(heads["heatmap"].cpu().numpy())
+            offset = heads["offset"].cpu().numpy()
+            for j in range(len(host["scores"])):
+                result = servable.postprocess(
+                    {k: v[j] for k, v in host.items()})
+                out.append({"detections": result["detections"],
+                            "pixels": pix[j], "heat": heat[j],
+                            "offset": offset[j],
+                            "cut": float(host["scores"][j, -1])})
+    return out
+
+
+def ct_ambiguous(ref: dict, pixel) -> bool:
+    """Whether the reference's decisions on a peak are within
+    ``CT_SCORE_TOL``: its score against the threshold or the top-k cut,
+    or against a 3x3 neighbour's (the NMS)."""
+    y, x, c = pixel
+    heat = ref["heat"]
+    s = heat[y, x, c]
+    if (abs(s - CT_THRESHOLD) <= CT_SCORE_TOL
+            or abs(s - ref["cut"]) <= CT_SCORE_TOL):
+        return True
+    window = heat[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2, c]
+    return bool((np.sort(np.abs(window - s).ravel())[1:]
+                 <= CT_SCORE_TOL).any())
+
+
+def served_pixel(ref: dict, det: dict):
+    """The peak a served detection decodes: the pixel of its class whose
+    reference offset puts the box's centre within ``CT_BOX_TOL``."""
+    y0, x0, y1, x1 = det["box"]
+    cy, cx = (y0 + y1) / 16, (x0 + x1) / 16
+    h, w = ref["offset"].shape[:2]
+    rows, cols = np.mgrid[0:h, 0:w]
+    near = ((np.abs(cy - rows - ref["offset"][..., 0]) <= CT_BOX_TOL / 8)
+            & (np.abs(cx - cols - ref["offset"][..., 1]) <= CT_BOX_TOL / 8))
+    hits = np.argwhere(near)
+    if len(hits) == 0:
+        raise AssertionError(f"served detection {det} decodes no peak")
+    best = min(hits, key=lambda p: abs(
+        ref["heat"][p[0], p[1], det["class_id"]] - det["score"]))
+    return (int(best[0]), int(best[1]), det["class_id"])
+
+
+def check_detections(served: list[dict], ref: dict) -> int:
+    """The served list against the reference under the tests' rule;
+    returns the detections held."""
+    index = {tuple(int(v) for v in ref["pixels"][k]): k
+             for k in range(len(ref["detections"]))}
+    held = 0
+    for det in served:
+        pixel = served_pixel(ref, det)
+        if ct_ambiguous(ref, pixel):
+            continue
+        if pixel not in index:
+            raise AssertionError(f"served {det} at {pixel}: not in the "
+                                 "reference's list")
+        want = ref["detections"][index[pixel]]
+        if (abs(want["score"] - det["score"]) > CT_SCORE_TOL
+                or np.abs(np.subtract(want["box"], det["box"])).max()
+                > CT_BOX_TOL):
+            raise AssertionError(f"served {det} vs reference {want}")
+        held += 1
+    served_pixels = {served_pixel(ref, d) for d in served}
+    for k, want in enumerate(ref["detections"]):
+        pixel = tuple(int(v) for v in ref["pixels"][k])
+        if not ct_ambiguous(ref, pixel) and pixel not in served_pixels:
+            raise AssertionError(f"reference {want} at {pixel} not served")
+    return held
+
+
+def species_reference(servable, stacks: list[np.ndarray]) -> list[np.ndarray]:
+    """Logits of each crop stack on the card, plain normalize, eager."""
+    from ai4e_tpu_torch.ops.image_preprocess import (channel_affine,
+                                                     normalize_image_plain)
+
+    scale, bias = channel_affine(None, None, 3)
+    with torch.inference_mode():
+        return [servable.module(normalize_image_plain(
+            torch.from_numpy(s).cuda(), scale, bias)).cpu().numpy()
+            for s in stacks]
+
+
+async def await_terminal(http, gateway: str, task_id: str) -> dict:
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    while True:
+        async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
+                            params={"wait": "60"}) as r:
+            record = await r.json()
+        if TaskStatus.canonical(record["Status"]) in TaskStatus.TERMINAL:
+            return record
+
+
+async def task_result(http, gateway: str, task_id: str,
+                      stage: str | None = None):
+    params = {"taskId": task_id, **({"stage": stage} if stage else {})}
+    async with http.get(gateway + "/v1/taskstore/result",
+                        params=params) as r:
+        if r.status != 200:
+            raise AssertionError(f"result of {task_id} ({stage}): {r.status}")
+        return json.loads(await r.read())
+
+
+async def species_interactive(http, worker: str, crops: np.ndarray) -> list:
+    """``N_CT_INTERACTIVE`` sync species requests at once to the worker;
+    each one's ms."""
+    async def one(crop) -> float:
+        t0 = time.perf_counter()
+        await post_sync(http, worker + "/v1/models/species", npy_bytes(crop))
+        return (time.perf_counter() - t0) * 1e3
+
+    return list(await asyncio.gather(*(one(c) for c in crops)))
+
+
+async def drive_camera_trap(gateway: str, worker: str, procs: dict,
+                            logs: dict, images: np.ndarray,
+                            crops: np.ndarray) -> dict:
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        t0 = time.perf_counter()
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        log(f"camera_trap: worker up in {time.perf_counter() - t0:.1f}s")
+
+        async def one(img: np.ndarray) -> tuple[float, float, str, dict]:
+            t0 = time.perf_counter()
+            async with http.post(gateway + "/v1/camera-trap/detect-async",
+                                 data=npy_bytes(img), headers=OCTET) as r:
+                if r.status != 200:
+                    raise AssertionError(f"detect-async {r.status}: "
+                                         f"{await r.text()}")
+                task_id = (await r.json())["TaskId"]
+            record = await await_terminal(http, gateway, task_id)
+            return t0, time.perf_counter(), task_id, record
+
+        runs = await asyncio.gather(*(one(img) for img in images))
+        out = {"runs": runs, "stage": [], "final": []}
+        for _, _, task_id, _ in runs:
+            out["stage"].append(await task_result(http, gateway, task_id,
+                                                  "megadetector"))
+            out["final"].append(await task_result(http, gateway, task_id))
+
+        # The batch API beside interactive requests: a sync stack of 64
+        # crops alone, then again with an async 64-item stack and
+        # N_CT_INTERACTIVE interactive requests running beside it.
+        batch_url = worker + "/v1/models/species-batch"
+        body = npy_bytes(crops)
+        out["interactive_alone_ms"] = await species_interactive(
+            http, worker, crops[:N_CT_INTERACTIVE])
+        t0 = time.perf_counter()
+        alone = await post_sync(http, batch_url, body)
+        out["batch_alone_ms"] = (time.perf_counter() - t0) * 1e3
+        async with http.post(
+                worker + "/v1/models/classify-species-batch-async",
+                data=body, headers=OCTET) as r:
+            if r.status != 200:
+                raise AssertionError(f"batch-async {r.status}")
+            stack_task = (await r.json())["TaskId"]
+        t0 = time.perf_counter()
+        beside, interactive = await asyncio.gather(
+            post_sync(http, batch_url, body),
+            species_interactive(http, worker, crops[:N_CT_INTERACTIVE]))
+        out["batch_beside_ms"] = (time.perf_counter() - t0) * 1e3
+        out["interactive_beside_ms"] = interactive
+        out["stack_task"] = await await_terminal(http, gateway, stack_task)
+        for got in (alone, beside):
+            if got["count"] != len(crops) or got["failed"]:
+                raise AssertionError(f"species batch: {got['count']} items, "
+                                     f"{got['failed']} failed")
+        out["batch_alone"] = alone
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics"] = await r.text()
+        async with http.get(worker + "/metrics") as r:
+            out["wk_metrics"] = await r.text()
+    return out
+
+
+def launches_by_model(log_text: str) -> dict:
+    marker = "kernel launches by model while serving "
+    lines = [line for line in log_text.splitlines() if marker in line]
+    if not lines:
+        raise AssertionError("the worker logged no per-model launches")
+    return json.loads(lines[-1].split(marker, 1)[1])
+
+
+def phase_camera_trap(kernels: list[dict]) -> dict:
+    """Phase 8: normalize at the camera-trap shapes (a), each bucket's
+    graph against eager (b), then the ensemble as separate processes (c):
+    the port's control plane and worker serving megadetector -> crops ->
+    species under one TaskId; this process is the client, through the
+    gateway for the pipeline."""
+    import gc
+
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.handoffs import crops_handoff
+
+    norm = next(k for k in kernels if k["name"] == "normalize_image")
+    norm["camera_trap_shapes"] = check_normalize_camera_trap()
+    graphs = phase_camera_trap_graphs()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = camera_trap_specs(gateway, worker)
+    (out_dir / "camera_trap_models.json").write_text(json.dumps(models))
+    (out_dir / "camera_trap_routes.json").write_text(json.dumps(routes))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AI4E_")}
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""),
+               AI4E_PLATFORM_RETRY_DELAY=str(TOPOLOGY_RETRY_DELAY))
+    logs = {"cp": out_dir / "camera_trap_control_plane.log",
+            "wk": out_dir / "camera_trap_worker.log"}
+    images = scenes(N_CT_TASKS, SEED + 82)
+    crops = np.random.default_rng(SEED + 83).integers(
+        0, 256, (64, 224, 224, 3), np.uint8)
+    procs = {}
+    try:
+        procs["cp"] = start_child(
+            ["control-plane", "--routes",
+             str(out_dir / "camera_trap_routes.json"), "--port",
+             str(cp_port)], logs["cp"], env)
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / "camera_trap_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             "cuda"], logs["wk"], env)
+        out = asyncio.run(drive_camera_trap(gateway, worker, procs, logs,
+                                            images, crops))
+        stop_child(procs["wk"], logs["wk"], "camera-trap worker")
+        stop_child(procs["cp"], logs["cp"], "camera-trap control plane")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    wk_log = logs["wk"].read_text(errors="replace")
+    if "serving ['megadetector', 'species'] on cuda" not in wk_log:
+        raise AssertionError(f"the worker did not serve on cuda:\n"
+                             f"{wk_log[-4000:]}")
+    by_model = launches_by_model(wk_log)
+    for model in CT_MODELS:
+        if by_model.get(model, {}).get("normalize_image", 0) < 1:
+            raise AssertionError(f"normalize never launched for {model}: "
+                                 f"{by_model}")
+    launches = served_launches(wk_log)
+    failed = metric_sum(out["cp_metrics"], "ai4e_dispatch_total",
+                        outcome="failed") + metric_sum(
+        out["cp_metrics"], "ai4e_dispatch_total", outcome="dead_letter")
+    if failed:
+        raise AssertionError(f"{failed} deliveries failed")
+    if not out["stack_task"]["Status"].startswith("completed - 64 images, 0"):
+        raise AssertionError(f"async stack: {out['stack_task']}")
+
+    # Every answer against the same seed-0 weights on the card.
+    kwargs = {m["name"]: {k: v for k, v in m.items() if k not in (
+        "family", "async_path", "pipeline_to", "batch")}
+        for m in models["models"]}
+    detector = build_servable("detector", **kwargs["megadetector"])
+    detector.module.cuda()
+    species = build_servable("resnet", **kwargs["species"])
+    species.module.cuda()
+    refs = detector_reference(detector, images)
+    handoff = crops_handoff("x", crop_size=224, max_crops=16)
+    held = classes_held = 0
+    counts = []
+    for i, ((_, _, task_id, record), stage, final) in enumerate(
+            zip(out["runs"], out["stage"], out["final"])):
+        dets = stage["detections"]
+        if not dets:
+            raise AssertionError(f"task {task_id}: no detection >= 0.2")
+        want_count = min(16, len(dets))
+        if record["Status"] != f"completed - {want_count} images, 0 errors":
+            raise AssertionError(f"task {task_id}: {record}")
+        if final["count"] != want_count or final["failed"]:
+            raise AssertionError(f"task {task_id}: final {final['count']} "
+                                 f"items, {final['failed']} failed")
+        held += check_detections(dets, refs[i])
+        _, body = handoff(stage, images[i])
+        logits, = species_reference(species, [np.load(io.BytesIO(body))])
+        for item, row in zip(final["items"], logits):
+            top2 = np.sort(row)[-2:]
+            probs = np.exp(row - row.max()) / np.exp(row - row.max()).sum()
+            result = item["result"]
+            if abs(result["confidence"] - probs.max()) > CT_CONF_ATOL:
+                raise AssertionError(f"task {task_id} item {item['index']}: "
+                                     f"{result} vs {probs}")
+            if top2[1] - top2[0] > CT_GAP:
+                if result["class_id"] != int(row.argmax()):
+                    raise AssertionError(f"task {task_id} item "
+                                         f"{item['index']}: {result}")
+                classes_held += 1
+        counts.append(final["count"])
+    del detector, species
+    torch.cuda.empty_cache()
+
+    latency = sorted((t1 - t0) * 1e3 for t0, t1, _, _ in out["runs"])
+    span = (max(t1 for _, t1, _, _ in out["runs"])
+            - min(t0 for t0, _, _, _ in out["runs"]))
+    report = {
+        "card": CARD["smi"], "clients": "another process",
+        "detect_tasks": N_CT_TASKS,
+        "detect_tasks_per_s": N_CT_TASKS / span,
+        "task_p50_ms": statistics.median(latency),
+        "task_p95_ms": float(np.percentile(latency, 95)),
+        "crops_per_task": statistics.mean(counts),
+        "batch_sizes": {m: batch_sizes(out["wk_metrics"], m)
+                        for m in CT_MODELS},
+        "graph_pool_mib": graphs["graph_pool_mib"],
+        "redeliveries_503": metric_sum(out["cp_metrics"],
+                                       "ai4e_dispatch_total",
+                                       outcome="backpressure"),
+        "detections_held": held, "species_classes_held": classes_held,
+        "species_batch64_alone_ms": out["batch_alone_ms"],
+        "species_batch_images_per_s": 64e3 / out["batch_alone_ms"],
+        "species_batch64_beside_ms": out["batch_beside_ms"],
+        "interactive_p50_alone_ms": statistics.median(
+            out["interactive_alone_ms"]),
+        "interactive_p50_beside_stack_ms": statistics.median(
+            out["interactive_beside_ms"]),
+        "launches_while_serving": launches,
+        "launches_by_model": by_model,
+    }
+    norm["launches_camera_trap"] = by_model
+    log(f"camera_trap: {json.dumps(report)}")
+    return {"graphs": graphs, "served": report}
+
+
 def main() -> None:
     kind = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
@@ -2157,6 +2731,7 @@ def main() -> None:
     bwd, trained_npz = phase_train_then_serve()
     kernels += bwd
     phase_runtime(e2e, trained_npz)
+    phase_camera_trap(kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -61,11 +61,13 @@ def off_default(field: dataclasses.Field, hint) -> str:
     return "x"
 
 
-#: The runtime's pipeline, double-buffer, ladder and drain knobs: the port
-#: serves them, so each set away from its default parses as JAX's does.
+#: The runtime's pipeline, double-buffer, priority-class, ladder and drain
+#: knobs: the port serves them, so each set away from its default parses as
+#: JAX's does.
 SERVED_RUNTIME_KNOBS = [
     ("AI4E_RUNTIME_", f) for f in (
-        "batch_pipeline_depth", "batch_double_buffer", "ladder_derive",
+        "batch_pipeline_depth", "batch_double_buffer",
+        "batch_interactive_reserve", "batch_priority_aging_s", "ladder_derive",
         "ladder_window_s", "ladder_max_programs", "ladder_period_s",
         "ladder_dwell_s", "ladder_path", "compile_cache_dir")] + [
     ("AI4E_ROLLOUT_", "drain_timeout_ms")]

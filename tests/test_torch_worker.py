@@ -355,13 +355,16 @@ def control_plane_of(api: dict, **env):
 
 class TestUnported:
     @pytest.mark.parametrize("build,match", [
-        (worker_of(landcover_spec(family="moe")), "'moe' is not ported"),
-        (worker_of(landcover_spec(wire="yuv420")), "'yuv420' is not ported"),
-        (worker_of(landcover_spec(wire="dct")), "'dct' is not ported"),
-        (worker_of(landcover_spec(pipeline_to={"endpoint": "x"})),
-         r"'pipeline_to' \(pipeline handoffs \(ROADMAP A6.3"),
-        (worker_of(landcover_spec(batch={"max_items": 8})),
-         r"'batch' \(the batch API, serve_batch \(ROADMAP A6.3"),
+        (worker_of(landcover_spec(family="moe")),
+         r"'moe' is not ported yet \(ROADMAP A14"),
+        (worker_of(landcover_spec(family="vit")),
+         r"'vit' is not ported yet \(ROADMAP A11"),
+        (worker_of(landcover_spec(family="seqformer-lm")),
+         r"'seqformer-lm' is not ported yet \(ROADMAP A13"),
+        (worker_of(landcover_spec(wire="yuv420")),
+         r"'yuv420' is not ported yet \(ROADMAP A9"),
+        (worker_of(landcover_spec(wire="dct")),
+         r"'dct' is not ported yet \(ROADMAP A9"),
         (worker_of(landcover_spec(checkpoint="landcover")),
          r"is not a \.npz: .*scripts/orbax_to_npz\.py SRC DST\.npz"),
         (control_plane_of({"autoscale": {"max_replicas": 8}}),
@@ -378,11 +381,124 @@ class TestUnported:
         (worker_of(landcover_spec(), AI4E_RUNTIME_DONATE_BATCH="1"),
          r"AI4E_RUNTIME_DONATE_BATCH=True: batch donation, an XLA buffer "
          r"option \(ROADMAP A4"),
-    ], ids=["family", "yuv420", "dct", "pipeline", "batch", "orbax",
+    ], ids=["family", "vit", "seqformer-lm", "yuv420", "dct", "orbax",
             "autoscale", "backends", "push", "journal", "donate"])
     def test_raises_and_names_itself(self, build, match):
         with pytest.raises(ValueError, match=match):
             build()
+
+
+class TestServedKeys:
+    """The ``pipeline_to`` and ``batch`` model keys, which earlier slices
+    refused, served as the JAX worker serves them."""
+
+    @pytest.mark.parametrize("gate,handed_off", [
+        ("class_histogram", True), ("classmap_png", False)],
+        ids=["gate-open", "gate-closed"])
+    def test_pipeline_to_hands_off_or_completes(self, gate, handed_off):
+        """An open ``when_nonempty`` gate stores the stage's result under
+        ``?stage=landcover`` and republishes the task, same TaskId, to the
+        next endpoint; a closed one completes it at this stage."""
+        worker, batcher, _ = build_worker(landcover_spec(pipeline_to={
+            "endpoint": "/v1/next-async", "when_nonempty": gate}),
+            device="cpu")
+        statuses = []
+        store = worker.store
+        update = store.update_status
+
+        def spy(task_id, status, backend_status=None):
+            statuses.append(status)
+            return update(task_id, status, backend_status)
+
+        store.update_status = spy
+        image = tiles(1, seed=5)[0]
+
+        async def main():
+            async with serving(worker, batcher) as client:
+                resp = await client.post(f"{PREFIX}/classify-async",
+                                         data=npy(image), headers=NPY)
+                task_id = (await resp.json())["TaskId"]
+                for _ in range(500):
+                    record = store.get(task_id).to_dict()
+                    if record["Endpoint"] == "/v1/next-async" or \
+                            record["Status"].startswith("completed"):
+                        break
+                    await asyncio.sleep(0.01)
+                answer = await (await client.post(
+                    f"{PREFIX}/classify", data=npy(image),
+                    headers=NPY)).json()
+                return task_id, record, answer
+
+        task_id, record, answer = asyncio.run(main())
+        staged = store.get_result(task_id, stage="landcover")
+        if handed_off:
+            assert record["Endpoint"] == "/v1/next-async"
+            assert record["Status"] == "created"
+            assert statuses[:2] == [
+                "running - landcover inference",
+                "running - landcover handing off to /v1/next-async"]
+            assert json.loads(staged[0]) == answer
+            assert store.get_result(task_id) is None
+        else:
+            assert record["Status"] == "completed - class_histogram"
+            assert staged is None
+            assert json.loads(store.get_result(task_id)[0]) == answer
+
+    def test_batch_key_serves_the_batch_api(self):
+        """``"batch": {"max_items": 8}``: a stack of tiles answered in
+        order, each item the sync answer to the served limit; a stack over
+        ``max_items`` refused."""
+        worker, batcher, _ = build_worker(
+            landcover_spec(batch={"max_items": 8}), device="cpu")
+        stack = tiles(3, seed=6)
+
+        async def main():
+            async with serving(worker, batcher) as client:
+                resp = await client.post(f"{PREFIX}/landcover-batch",
+                                         data=npy(stack), headers=NPY)
+                batch = await resp.json()
+                singles = [await (await client.post(
+                    f"{PREFIX}/classify", data=npy(x), headers=NPY)).json()
+                    for x in stack]
+                over = await client.post(f"{PREFIX}/landcover-batch",
+                                         data=npy(tiles(9)), headers=NPY)
+                listing = await (await client.get(f"{PREFIX}/models")).json()
+                return batch, singles, over.status, await over.text(), listing
+
+        batch, singles, status, text, listing = asyncio.run(main())
+        assert batch["count"] == 3 and batch["failed"] == 0
+        # Other bucket shapes than the single requests' (bfloat16 convs
+        # round by batch shape): test_sync_matches_jax_servable's 1%.
+        for item, single in zip(batch["items"], singles):
+            diff = np.abs(histogram(item["result"]) - histogram(single)).max()
+            assert diff <= 0.01 * PIXELS, (item, single)
+        assert status == 500 and "exceeds max 8" in text
+        endpoints = listing["models"][0]["endpoints"]
+        assert endpoints["batch_sync"] == f"{PREFIX}/landcover-batch"
+        assert endpoints["batch_async"] == f"{PREFIX}/landcover-batch-async"
+
+    def test_camera_trap_entries_of_the_deploy_spec_build(self):
+        """deploy/specs/models.json's ``megadetector`` (with
+        ``pipeline_to`` and ``batch``) and ``species`` (with ``batch``)
+        entries, less ``checkpoint``, build at the deployed widths."""
+        spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+        models = [dict(m) for m in spec["models"]
+                  if m["name"] in ("megadetector", "species")]
+        for model in models:
+            model.pop("checkpoint")
+        worker, _, _ = build_worker({"service_name": "w",
+                                     "prefix": spec["prefix"],
+                                     "models": models}, device="cpu")
+        served = worker._served
+        assert served["megadetector"]["async"] == "/v1/models/detect-async"
+        assert served["species"]["async"] == \
+            "/v1/models/classify-species-async"
+        assert served["species"]["batch_async"] == \
+            "/v1/models/classify-species-batch-async"
+        runtime = worker.runtime
+        assert runtime.models["megadetector"].batch_buckets == (1, 8)
+        assert runtime.models["species"].input_shape == (224, 224, 3)
+        assert runtime.models["species"].input_dtype == np.uint8
 
 
 def port_sources() -> list[Path]:
