@@ -11,5 +11,5 @@ serves; ``python -m ai4e_tpu_torch control-plane --routes <routes.json>``
 runs the gateway, task store, broker and dispatchers in front of workers
 (this half imports neither torch nor JAX);
 ``python -m ai4e_tpu_torch.train.make_checkpoints --out <dir> --only
-longcontext`` trains a checkpoint the worker restores.
+longcontext moe`` trains the checkpoints the worker restores.
 """

@@ -34,6 +34,13 @@ buffers. For ``CenterNetDetector`` the stages are ``_Stage_0..2`` (laid out
 as a UNet block) and the feature conv and the heatmap, wh and offset heads
 ``Conv_0..3``, each with a bias.
 
+For ``MoEClassifier`` the tree is the SeqFormer's with ``block{i}/moe``
+(``router`` a Dense with a bias, the experts' raw ``up`` (E, D, H) and
+``down`` (E, H, D), kept in that layout) where the MLP was. For ``ViT`` the
+patch conv ``embed`` (an HWIO kernel and a bias), ``pos_embed`` and
+``block{i}/attn/{qkv,out}`` (only ``out`` with a bias) and
+``block{i}/mlp/{up,down}``, with the LayerNorms named as the SeqFormer's.
+
 Each ``*_flax_from_state_dict`` is the inverse of its
 ``*_state_dict_from_flax``: a trained state_dict becomes the flax tree that
 ``save_npz`` writes and a worker restores, and a served model's tree is what
@@ -41,6 +48,8 @@ a reload's tree is compared with.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -191,114 +200,6 @@ def unet_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     return params
 
 
-def seqformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """The port's ``SeqFormer`` state_dict (float32) for a flax
-    ``SeqFormer`` tree, token or feature mode (``{"params": {...}}`` or the
-    inner dict)."""
-    from .models.seqformer import SeqFormer
-
-    tree = params.get("params", params)
-    depth = sum(1 for k in tree if k.startswith("block"))
-    pos = np.asarray(_take(tree, "pos_emb", "params"), np.float32)
-    if pos.ndim != 3 or pos.shape[0] != 1:
-        raise ValueError(f"pos_emb must be (1, S, dim), got {pos.shape}")
-    embed = _take(tree, "embed", "params")
-    token_mode = isinstance(embed, dict) and "embedding" in embed
-    sd: dict[str, torch.Tensor] = {"pos_emb": torch.from_numpy(pos.copy())}
-    used = {"pos_emb"}
-
-    def array(node: dict, key: str, where: str) -> torch.Tensor:
-        used.add(f"{where}/{key}")
-        return torch.from_numpy(
-            np.asarray(_take(node, key, where), np.float32).copy())
-
-    def node(path: str) -> dict:
-        here, where = tree, "params"
-        for part in path.split("/"):
-            here, where = _take(here, part, where), f"{where}/{part}"
-        return here
-
-    def dense(path: str, dst: str, bias: bool = True) -> None:
-        kernel = array(node(path), "kernel", path)
-        if kernel.dim() != 2:
-            raise ValueError(f"{path}/kernel: shape {tuple(kernel.shape)} "
-                             "is not a 2-D (in, out) Dense kernel")
-        sd[f"{dst}.weight"] = kernel.T.contiguous()
-        if bias:
-            sd[f"{dst}.bias"] = array(node(path), "bias", path)
-
-    def norm(path: str, dst: str) -> None:
-        sd[f"{dst}.weight"] = array(node(path), "scale", path)
-        sd[f"{dst}.bias"] = array(node(path), "bias", path)
-
-    if token_mode:
-        sd["embed.weight"] = array(embed, "embedding", "embed")
-    else:
-        dense("embed", "embed")
-    for i in range(depth):
-        norm(f"block{i}/LayerNorm_0", f"blocks.{i}.ln1")
-        dense(f"block{i}/attn/qkv", f"blocks.{i}.attn.qkv", bias=False)
-        dense(f"block{i}/attn/out", f"blocks.{i}.attn.out", bias=False)
-        norm(f"block{i}/LayerNorm_1", f"blocks.{i}.ln2")
-        dense(f"block{i}/mlp_up", f"blocks.{i}.mlp_up")
-        dense(f"block{i}/mlp_down", f"blocks.{i}.mlp_down")
-    norm("LayerNorm_0", "norm")
-    dense("head", "head")
-
-    _, seq_len, dim = pos.shape
-    with torch.device("meta"):
-        expected = SeqFormer(
-            seq_len=seq_len, dim=dim, depth=depth, heads=1,
-            input_dim=1 if token_mode else sd["embed.weight"].shape[1],
-            num_classes=sd["head.weight"].shape[0],
-            vocab_size=sd["embed.weight"].shape[0] if token_mode else None,
-            dtype=torch.float32).state_dict()
-    return _checked(sd, expected, set(flatten_tree(tree)) - used, "SeqFormer")
-
-
-def seqformer_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
-    """The flax ``SeqFormer`` tree (``{"params": {...}}`` of float32 numpy
-    arrays) for the port's state_dict, token or feature mode: the inverse
-    of ``seqformer_state_dict_from_flax``, exact both ways (a bfloat16
-    state_dict widens to float32 without rounding)."""
-
-    def array(key: str) -> np.ndarray:
-        if key not in sd:
-            raise ValueError(f"state_dict is missing {key}")
-        return sd[key].detach().cpu().float().numpy().copy()
-
-    def dense(src: str, bias: bool = True) -> dict:
-        node = {"kernel": np.ascontiguousarray(array(f"{src}.weight").T)}
-        if bias:
-            node["bias"] = array(f"{src}.bias")
-        return node
-
-    def norm(src: str) -> dict:
-        return {"scale": array(f"{src}.weight"), "bias": array(f"{src}.bias")}
-
-    depth = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
-    tree: dict = {"pos_emb": array("pos_emb")}
-    token_mode = "embed.bias" not in sd
-    tree["embed"] = ({"embedding": array("embed.weight")} if token_mode
-                     else dense("embed"))
-    for i in range(depth):
-        src = f"blocks.{i}"
-        tree[f"block{i}"] = {
-            "LayerNorm_0": norm(f"{src}.ln1"),
-            "attn": {"qkv": dense(f"{src}.attn.qkv", bias=False),
-                     "out": dense(f"{src}.attn.out", bias=False)},
-            "LayerNorm_1": norm(f"{src}.ln2"),
-            "mlp_up": dense(f"{src}.mlp_up"),
-            "mlp_down": dense(f"{src}.mlp_down"),
-        }
-    tree["LayerNorm_0"] = norm("norm")
-    tree["head"] = dense("head")
-    params = {"params": tree}
-    # The forward conversion checks keys and shapes against the model.
-    seqformer_state_dict_from_flax(params)
-    return params
-
-
 def _tensor(node: dict, key: str, where: str) -> torch.Tensor:
     return torch.from_numpy(np.asarray(_take(node, key, where),
                                        np.float32).copy())
@@ -313,6 +214,122 @@ def _state_array(sd: dict[str, torch.Tensor], key: str) -> np.ndarray:
 def _state_kernel(sd: dict[str, torch.Tensor], key: str) -> np.ndarray:
     """A torch OIHW conv weight as a flax HWIO kernel."""
     return np.ascontiguousarray(_state_array(sd, key).transpose(2, 3, 1, 0))
+
+
+class _FlaxReader:
+    """Reads leaves of a flax tree by ``/``-joined path as float32 tensors
+    and remembers which it read, so ``_checked`` can name the rest."""
+
+    def __init__(self, tree: dict):
+        self.tree, self.used = tree, set()
+
+    def tensor(self, path: str) -> torch.Tensor:
+        *parents, leaf = path.split("/")
+        node, where = self.tree, "params"
+        for part in parents:
+            node, where = _take(node, part, where), f"{where}/{part}"
+        self.used.add(path)
+        return _tensor(node, leaf, where)
+
+    def dense(self, sd: dict, path: str, dst: str, bias: bool = True) -> None:
+        kernel = self.tensor(f"{path}/kernel")
+        if kernel.dim() != 2:
+            raise ValueError(f"{path}/kernel: shape {tuple(kernel.shape)} "
+                             "is not a 2-D (in, out) Dense kernel")
+        sd[f"{dst}.weight"] = kernel.T.contiguous()
+        if bias:
+            sd[f"{dst}.bias"] = self.tensor(f"{path}/bias")
+
+    def norm(self, sd: dict, path: str, dst: str) -> None:
+        sd[f"{dst}.weight"] = self.tensor(f"{path}/scale")
+        sd[f"{dst}.bias"] = self.tensor(f"{path}/bias")
+
+    def leftover(self) -> set[str]:
+        return set(flatten_tree(self.tree)) - self.used
+
+
+def _flax_dense(sd: dict[str, torch.Tensor], src: str,
+                bias: bool = True) -> dict:
+    node = {"kernel": np.ascontiguousarray(_state_array(sd, f"{src}.weight").T)}
+    if bias:
+        node["bias"] = _state_array(sd, f"{src}.bias")
+    return node
+
+
+def _flax_norm(sd: dict[str, torch.Tensor], src: str) -> dict:
+    return {"scale": _state_array(sd, f"{src}.weight"),
+            "bias": _state_array(sd, f"{src}.bias")}
+
+
+def _depth(sd: dict[str, torch.Tensor]) -> int:
+    return len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+
+
+def seqformer_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``SeqFormer`` state_dict (float32) for a flax
+    ``SeqFormer`` tree, token or feature mode (``{"params": {...}}`` or the
+    inner dict)."""
+    from .models.seqformer import SeqFormer
+
+    tree = params.get("params", params)
+    read = _FlaxReader(tree)
+    depth = sum(1 for k in tree if k.startswith("block"))
+    pos = read.tensor("pos_emb")
+    if pos.dim() != 3 or pos.shape[0] != 1:
+        raise ValueError(f"pos_emb must be (1, S, dim), got {tuple(pos.shape)}")
+    embed = _take(tree, "embed", "params")
+    token_mode = isinstance(embed, dict) and "embedding" in embed
+    sd: dict[str, torch.Tensor] = {"pos_emb": pos}
+    if token_mode:
+        sd["embed.weight"] = read.tensor("embed/embedding")
+    else:
+        read.dense(sd, "embed", "embed")
+    for i in range(depth):
+        b, dst = f"block{i}", f"blocks.{i}"
+        read.norm(sd, f"{b}/LayerNorm_0", f"{dst}.ln1")
+        read.dense(sd, f"{b}/attn/qkv", f"{dst}.attn.qkv", bias=False)
+        read.dense(sd, f"{b}/attn/out", f"{dst}.attn.out", bias=False)
+        read.norm(sd, f"{b}/LayerNorm_1", f"{dst}.ln2")
+        read.dense(sd, f"{b}/mlp_up", f"{dst}.mlp_up")
+        read.dense(sd, f"{b}/mlp_down", f"{dst}.mlp_down")
+    read.norm(sd, "LayerNorm_0", "norm")
+    read.dense(sd, "head", "head")
+
+    _, seq_len, dim = pos.shape
+    with torch.device("meta"):
+        expected = SeqFormer(
+            seq_len=seq_len, dim=dim, depth=depth, heads=1,
+            input_dim=1 if token_mode else sd["embed.weight"].shape[1],
+            num_classes=sd["head.weight"].shape[0],
+            vocab_size=sd["embed.weight"].shape[0] if token_mode else None,
+            dtype=torch.float32).state_dict()
+    return _checked(sd, expected, read.leftover(), "SeqFormer")
+
+
+def seqformer_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``SeqFormer`` tree (``{"params": {...}}`` of float32 numpy
+    arrays) for the port's state_dict, token or feature mode: the inverse
+    of ``seqformer_state_dict_from_flax``, exact both ways (a bfloat16
+    state_dict widens to float32 without rounding)."""
+    tree: dict = {"pos_emb": _state_array(sd, "pos_emb")}
+    tree["embed"] = ({"embedding": _state_array(sd, "embed.weight")}
+                     if "embed.bias" not in sd else _flax_dense(sd, "embed"))
+    for i in range(_depth(sd)):
+        src = f"blocks.{i}"
+        tree[f"block{i}"] = {
+            "LayerNorm_0": _flax_norm(sd, f"{src}.ln1"),
+            "attn": {"qkv": _flax_dense(sd, f"{src}.attn.qkv", bias=False),
+                     "out": _flax_dense(sd, f"{src}.attn.out", bias=False)},
+            "LayerNorm_1": _flax_norm(sd, f"{src}.ln2"),
+            "mlp_up": _flax_dense(sd, f"{src}.mlp_up"),
+            "mlp_down": _flax_dense(sd, f"{src}.mlp_down"),
+        }
+    tree["LayerNorm_0"] = _flax_norm(sd, "norm")
+    tree["head"] = _flax_dense(sd, "head")
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    seqformer_state_dict_from_flax(params)
+    return params
 
 
 def resnet_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
@@ -472,6 +489,147 @@ def detector_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     params = {"params": tree}
     # The forward conversion checks keys and shapes against the model.
     detector_state_dict_from_flax(params)
+    return params
+
+
+def moe_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``MoEClassifier`` state_dict (float32) for a flax
+    ``MoEClassifier`` tree, token or feature mode (``{"params": {...}}`` or
+    the inner dict). The tree is the SeqFormer's with ``block{i}/moe``
+    (``router/{kernel,bias}``, ``up`` (E, D, H), ``down`` (E, H, D)) in
+    place of the MLP; the experts keep their layout."""
+    from .models.moe import MoEClassifier
+
+    tree = params.get("params", params)
+    read = _FlaxReader(tree)
+    depth = sum(1 for k in tree if k.startswith("block"))
+    pos = read.tensor("pos_emb")
+    if pos.dim() != 3 or pos.shape[0] != 1:
+        raise ValueError(f"pos_emb must be (1, S, dim), got {tuple(pos.shape)}")
+    embed = _take(tree, "embed", "params")
+    token_mode = isinstance(embed, dict) and "embedding" in embed
+    sd: dict[str, torch.Tensor] = {"pos_emb": pos}
+    if token_mode:
+        sd["embed.weight"] = read.tensor("embed/embedding")
+    else:
+        read.dense(sd, "embed", "embed")
+    for i in range(depth):
+        b, dst = f"block{i}", f"blocks.{i}"
+        read.norm(sd, f"{b}/LayerNorm_0", f"{dst}.ln1")
+        read.dense(sd, f"{b}/attn/qkv", f"{dst}.attn.qkv", bias=False)
+        read.dense(sd, f"{b}/attn/out", f"{dst}.attn.out", bias=False)
+        read.norm(sd, f"{b}/LayerNorm_1", f"{dst}.ln2")
+        read.dense(sd, f"{b}/moe/router", f"{dst}.moe.router")
+        sd[f"{dst}.moe.up"] = read.tensor(f"{b}/moe/up")
+        sd[f"{dst}.moe.down"] = read.tensor(f"{b}/moe/down")
+    read.norm(sd, "LayerNorm_0", "norm")
+    read.dense(sd, "head", "head")
+
+    _, seq_len, dim = pos.shape
+    up = sd["blocks.0.moe.up"] if depth else torch.zeros(1, dim, 4 * dim)
+    with torch.device("meta"):
+        expected = MoEClassifier(
+            seq_len=seq_len, dim=dim, depth=depth, heads=1,
+            num_experts=up.shape[0],
+            input_dim=1 if token_mode else sd["embed.weight"].shape[1],
+            num_classes=sd["head.weight"].shape[0],
+            vocab_size=sd["embed.weight"].shape[0] if token_mode else None,
+            dtype=torch.float32).state_dict()
+    return _checked(sd, expected, read.leftover(), "MoEClassifier")
+
+
+def moe_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``MoEClassifier`` tree (``{"params": {...}}`` of float32
+    numpy arrays) for the port's state_dict: the inverse of
+    ``moe_state_dict_from_flax``, exact both ways."""
+    tree: dict = {"pos_emb": _state_array(sd, "pos_emb")}
+    tree["embed"] = ({"embedding": _state_array(sd, "embed.weight")}
+                     if "embed.bias" not in sd else _flax_dense(sd, "embed"))
+    for i in range(_depth(sd)):
+        src = f"blocks.{i}"
+        tree[f"block{i}"] = {
+            "LayerNorm_0": _flax_norm(sd, f"{src}.ln1"),
+            "attn": {"qkv": _flax_dense(sd, f"{src}.attn.qkv", bias=False),
+                     "out": _flax_dense(sd, f"{src}.attn.out", bias=False)},
+            "LayerNorm_1": _flax_norm(sd, f"{src}.ln2"),
+            "moe": {"router": _flax_dense(sd, f"{src}.moe.router"),
+                    "up": _state_array(sd, f"{src}.moe.up"),
+                    "down": _state_array(sd, f"{src}.moe.down")},
+        }
+    tree["LayerNorm_0"] = _flax_norm(sd, "norm")
+    tree["head"] = _flax_dense(sd, "head")
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    moe_state_dict_from_flax(params)
+    return params
+
+
+def vit_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The port's ``ViT`` state_dict (float32) for a flax ``ViT`` tree
+    (``{"params": {...}}`` or the inner dict): the patch conv's HWIO kernel
+    becomes OIHW, Dense kernels (in, out) become (out, in), ``pos_embed``
+    keeps its (1, N, dim) shape, and flax's auto names map as the
+    SeqFormer's (``block{i}/LayerNorm_0`` before attention, ``LayerNorm_1``
+    before the MLP, a top-level ``LayerNorm_0`` before pooling)."""
+    from .models.vit import ViT
+
+    tree = params.get("params", params)
+    read = _FlaxReader(tree)
+    depth = sum(1 for k in tree if k.startswith("block"))
+    kernel = read.tensor("embed/kernel")
+    if kernel.dim() != 4 or kernel.shape[0] != kernel.shape[1]:
+        raise ValueError(f"embed/kernel must be a square HWIO patch kernel, "
+                         f"got {tuple(kernel.shape)}")
+    sd: dict[str, torch.Tensor] = {
+        "embed.weight": kernel.permute(3, 2, 0, 1).contiguous(),
+        "embed.bias": read.tensor("embed/bias"),
+        "pos_embed": read.tensor("pos_embed")}
+    if sd["pos_embed"].dim() != 3 or sd["pos_embed"].shape[0] != 1:
+        raise ValueError(f"pos_embed must be (1, N, dim), got "
+                         f"{tuple(sd['pos_embed'].shape)}")
+    for i in range(depth):
+        b, dst = f"block{i}", f"blocks.{i}"
+        read.norm(sd, f"{b}/LayerNorm_0", f"{dst}.ln1")
+        read.dense(sd, f"{b}/attn/qkv", f"{dst}.attn.qkv", bias=False)
+        read.dense(sd, f"{b}/attn/out", f"{dst}.attn.out")
+        read.norm(sd, f"{b}/LayerNorm_1", f"{dst}.ln2")
+        read.dense(sd, f"{b}/mlp/up", f"{dst}.mlp.up")
+        read.dense(sd, f"{b}/mlp/down", f"{dst}.mlp.down")
+    read.norm(sd, "LayerNorm_0", "norm")
+    read.dense(sd, "head", "head")
+
+    patch, dim = kernel.shape[0], kernel.shape[3]
+    grid = math.isqrt(sd["pos_embed"].shape[1])
+    with torch.device("meta"):
+        expected = ViT(num_classes=sd["head.weight"].shape[0], patch=patch,
+                       dim=dim, depth=depth, heads=1,
+                       image_size=grid * patch, dtype=torch.float32
+                       ).state_dict()
+    return _checked(sd, expected, read.leftover(), "ViT")
+
+
+def vit_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``ViT`` tree (``{"params": {...}}`` of float32 numpy arrays)
+    for the port's state_dict: the inverse of ``vit_state_dict_from_flax``,
+    exact both ways."""
+    tree: dict = {"embed": {"kernel": _state_kernel(sd, "embed.weight"),
+                            "bias": _state_array(sd, "embed.bias")},
+                  "pos_embed": _state_array(sd, "pos_embed")}
+    for i in range(_depth(sd)):
+        src = f"blocks.{i}"
+        tree[f"block{i}"] = {
+            "LayerNorm_0": _flax_norm(sd, f"{src}.ln1"),
+            "attn": {"qkv": _flax_dense(sd, f"{src}.attn.qkv", bias=False),
+                     "out": _flax_dense(sd, f"{src}.attn.out")},
+            "LayerNorm_1": _flax_norm(sd, f"{src}.ln2"),
+            "mlp": {"up": _flax_dense(sd, f"{src}.mlp.up"),
+                    "down": _flax_dense(sd, f"{src}.mlp.down")},
+        }
+    tree["LayerNorm_0"] = _flax_norm(sd, "norm")
+    tree["head"] = _flax_dense(sd, "head")
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    vit_state_dict_from_flax(params)
     return params
 
 

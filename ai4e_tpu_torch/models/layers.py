@@ -4,6 +4,8 @@
 - ``LayerNorm``: ``nn.LayerNorm()`` with its defaults: epsilon 1e-6 (torch's
   default is 1e-5), statistics in float32 with the variance taken as
   E[x^2] - E[x]^2, and a float32 result whatever the input's type;
+  ``LayerNorm(dtype=...)`` is ``nn.LayerNorm(dtype=...)``: the same
+  float32 arithmetic, the result cast to ``dtype`` once;
 - ``Dense``: ``nn.Dense(dtype=...)``: the input and the weight in the
   layer's type, the product rounded to it, then the bias added in it
   (``F.linear(x, w, b)`` would add the bias before rounding on cuBLAS);
@@ -28,6 +30,23 @@ import torch.nn.functional as F
 from torch import nn
 
 LAYERNORM_EPS = 1e-6  # flax's default
+TRUNCATED_STD = 0.87962566103423978  # std of a unit normal cut at +-2
+
+
+def flax_normal_(param: torch.Tensor, std: float,
+                 generator: torch.Generator, truncated: bool) -> None:
+    """Fill ``param`` from ``generator`` as flax's initializers draw: a
+    normal of ``std``, cut at +-2 std when ``truncated`` (flax's
+    ``lecun_normal`` passes std / ``TRUNCATED_STD``). Drawn in float32 on
+    the CPU, then copied into ``param`` whatever its type and device."""
+    w = torch.empty(param.shape, dtype=torch.float32)
+    if truncated:
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+    else:
+        nn.init.normal_(w, std=std, generator=generator)
+    with torch.no_grad():
+        param.copy_(w)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -92,12 +111,14 @@ class _GeluBF16(torch.autograd.Function):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm()`` over the last axis; float32 params and a
-    float32 result."""
+    """flax ``nn.LayerNorm(dtype=dtype)`` over the last axis: float32 params
+    and arithmetic, the result in ``dtype`` (default float32, flax's
+    result for ``nn.LayerNorm()`` on any input)."""
 
-    def __init__(self, features: int, eps: float = LAYERNORM_EPS):
+    def __init__(self, features: int, eps: float = LAYERNORM_EPS,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dtype = eps, dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -105,7 +126,8 @@ class LayerNorm(nn.Module):
         x = x.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp_min_(0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
 
 
 class Dense(nn.Linear):

@@ -41,7 +41,8 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring_attention import PARALLEL_PLANE, reference_attention
-from .layers import Dense, Embed, LayerNorm, gelu
+from .layers import (TRUNCATED_STD, Dense, Embed, LayerNorm, flax_normal_,
+                     gelu)
 
 STRATEGIES = ("auto", "ring", "ulysses", "flash", "full")
 
@@ -126,31 +127,21 @@ def init_flax_like_(model: SeqFormer, generator: torch.Generator) -> None:
     normal, fan-in scaled) and zero biases, ``nn.Embed`` normal with std
     sqrt(1/dim), ``pos_emb`` normal(0.02), LayerNorm scale one and bias
     zero."""
-    stddev_fix = 0.87962566103423978  # std of a unit normal cut at +-2
-
-    def draw(param: torch.Tensor, std: float, truncated: bool) -> None:
-        w = torch.empty(param.shape, dtype=torch.float32)
-        if truncated:
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
-        else:
-            nn.init.normal_(w, std=std, generator=generator)
-        param.copy_(w)
-
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, Dense):
-                draw(m.weight, math.sqrt(1.0 / m.in_features) / stddev_fix,
-                     truncated=True)
+                flax_normal_(m.weight,
+                             math.sqrt(1.0 / m.in_features) / TRUNCATED_STD,
+                             generator, truncated=True)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.Embedding):
-                draw(m.weight, math.sqrt(1.0 / m.embedding_dim),
-                     truncated=False)
+                flax_normal_(m.weight, math.sqrt(1.0 / m.embedding_dim),
+                             generator, truncated=False)
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        draw(model.pos_emb, 0.02, truncated=False)
+        flax_normal_(model.pos_emb, 0.02, generator, truncated=False)
 
 
 def attention_for(mesh=None, strategy: str = "auto",

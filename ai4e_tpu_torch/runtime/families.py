@@ -4,10 +4,11 @@ Counterpart of ``ai4e_tpu/runtime/families.py`` for the families this port
 serves so far: ``echo`` (the transport smoke API), ``unet`` (land-cover
 segmentation), ``resnet`` (species classification), ``detector`` (the
 camera-trap MegaDetector slot), each image family on the uint8 ``rgb8``
-wire, and ``seqformer`` (long-context sequence classification, on the
-token-id or feature wire). The response contracts are the JAX package's,
-byte for byte. The other families and the compressed wires raise
-``ValueError`` naming their ROADMAP item.
+wire, ``vit`` (image classification on float32 pixels), and ``seqformer``
+and ``moe`` (sequence classification, on the token-id or feature wire).
+The response contracts are the JAX package's, byte for byte. The streaming
+LM family and the compressed wires raise ``ValueError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -294,6 +295,18 @@ def build_detector(name: str = "megadetector", image_size: int = 512,
         flax_from_state_dict=detector_flax_from_state_dict)
 
 
+def _classification_postprocess():
+    """Softmax and argmax -> ``{"class_id", "confidence"}``, in float64 on
+    the host."""
+    def postprocess(logits):
+        logits = np.asarray(logits, np.float64)
+        probs = np.exp(logits - logits.max())
+        probs /= probs.sum()
+        top = int(np.argmax(probs))
+        return {"class_id": top, "confidence": float(probs[top])}
+    return postprocess
+
+
 def _check_token_ids(arr: np.ndarray, vocab_size: int) -> None:
     """THE token-id validation: integer dtype (floats would silently
     truncate fractional ids) and range (an out-of-range id must fail its
@@ -376,24 +389,81 @@ def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
         num_classes=num_classes, mesh=mesh, attention=attention,
         causal=causal, vocab_size=vocab_size, device="cpu")
 
-    def postprocess(logits):
-        logits = np.asarray(logits, np.float64)
-        probs = np.exp(logits - logits.max())
-        probs /= probs.sum()
-        top = int(np.argmax(probs))
-        return {"class_id": top, "confidence": float(probs[top])}
-
     input_shape, input_dtype, preprocess, stack_kwargs = \
         _sequence_input_contract(seq_len, input_dim, vocab_size,
                                  feature_dtype=wdt)
     return ServableModel(
         name=name, apply_fn=lambda module, batch: module(batch), module=model,
         input_shape=input_shape, input_dtype=input_dtype,
-        preprocess=preprocess, postprocess=postprocess,
+        preprocess=preprocess, postprocess=_classification_postprocess(),
         batch_buckets=tuple(buckets),
         state_dict_from_flax=seqformer_state_dict_from_flax,
         flax_from_state_dict=seqformer_flax_from_state_dict,
         **stack_kwargs)
+
+
+def build_moe(name: str = "moe", seq_len: int = 1024, input_dim: int = 64,
+              dim: int = 128, depth: int = 2, heads: int = 8,
+              num_experts: int = 8, num_classes: int = 16,
+              attention: str = "flash", dispatch: str = "dense",
+              capacity_factor: float = 1.25, buckets=(1, 8), mesh=None,
+              vocab_size: int | None = None, **_) -> ServableModel:
+    """Mixture-of-Experts sequence classification through the hand-written
+    flash attention kernel, on the seqformer family's wire (``vocab_size``:
+    (S,) integer token ids; else (S, input_dim) float32 features).
+    ``dispatch="capacity"`` serves the GShard-style static-capacity path.
+    The response is ``{"class_id", "confidence"}``. The weights are random,
+    drawn from seed 0, until a checkpoint is restored. A device ``mesh``
+    (expert sharding) raises: ROADMAP A15."""
+    from ..convert import moe_flax_from_state_dict, moe_state_dict_from_flax
+    from ..models import create_moe
+
+    model = create_moe(
+        generator=torch.Generator().manual_seed(0), seq_len=seq_len,
+        input_dim=input_dim, dim=dim, depth=depth, heads=heads,
+        num_experts=num_experts, num_classes=num_classes, mesh=mesh,
+        attention=attention, dispatch=dispatch,
+        capacity_factor=capacity_factor, vocab_size=vocab_size, device="cpu")
+
+    input_shape, input_dtype, preprocess, stack_kwargs = \
+        _sequence_input_contract(seq_len, input_dim, vocab_size)
+    return ServableModel(
+        name=name, apply_fn=lambda module, batch: module(batch), module=model,
+        input_shape=input_shape, input_dtype=input_dtype,
+        preprocess=preprocess, postprocess=_classification_postprocess(),
+        batch_buckets=tuple(buckets),
+        state_dict_from_flax=moe_state_dict_from_flax,
+        flax_from_state_dict=moe_flax_from_state_dict,
+        **stack_kwargs)
+
+
+def build_vit(name: str = "vit", image_size: int = 224, patch: int = 16,
+              dim: int = 384, depth: int = 12, heads: int = 6,
+              num_classes: int = 1000, buckets=IMAGE_BUCKETS, **_
+              ) -> ServableModel:
+    """Image classification with a ViT on float32 (H, W, 3) npy images in
+    [0, 1] (or ``image/*`` bodies, decoded and resized): the JAX package
+    builds no uint8 path for this family. The response is ``{"class_id"}``.
+    The weights are random, drawn from seed 0, until a checkpoint is
+    restored."""
+    from ..convert import vit_flax_from_state_dict, vit_state_dict_from_flax
+    from ..models import create_vit
+
+    model = create_vit(generator=torch.Generator().manual_seed(0),
+                       num_classes=num_classes, image_size=image_size,
+                       patch=patch, dim=dim, depth=depth, heads=heads,
+                       device="cpu")
+
+    def postprocess(logits):
+        return {"class_id": int(np.argmax(np.asarray(logits)))}
+
+    return ServableModel(
+        name=name, apply_fn=lambda module, batch: module(batch), module=model,
+        input_shape=(image_size, image_size, 3),
+        preprocess=_image_preprocess((image_size, image_size, 3)),
+        postprocess=postprocess, batch_buckets=tuple(buckets),
+        state_dict_from_flax=vit_state_dict_from_flax,
+        flax_from_state_dict=vit_flax_from_state_dict)
 
 
 FAMILIES = {
@@ -401,11 +471,13 @@ FAMILIES = {
     "unet": build_unet,
     "resnet": build_resnet,
     "detector": build_detector,
+    "vit": build_vit,
     "seqformer": build_seqformer,
+    "moe": build_moe,
 }
 #: Families of the JAX package this port does not serve yet, with their
 #: ROADMAP items.
-UNPORTED_FAMILIES = {"vit": "A11", "moe": "A14", "seqformer-lm": "A13"}
+UNPORTED_FAMILIES = {"seqformer-lm": "A13"}
 
 
 def build_servable(family: str, **kwargs) -> ServableModel:

@@ -1,17 +1,19 @@
 """Deterministic checkpoint factory — counterpart of
-``ai4e_tpu/train/make_checkpoints.py``, the long-context recipe.
+``ai4e_tpu/train/make_checkpoints.py``, the sequence recipes.
 
-``train_longcontext`` trains the ``longcontext`` SeqFormer (token mode) on
-the seeded marker task at the serving geometry, with float32 master weights
-and optax's ``adamw(lr, weight_decay=1e-5)``, and measures its held-out
-accuracy; ``make_checkpoint`` refuses weights below the gate and saves the
-rest as the ``.npz`` flax tree the port's worker restores
-(``cli.restore_checkpoint``), with a ``MANIFEST.json`` entry in the JAX
-package's shape. The other recipes of the JAX package stay in ``RECIPES``
-and raise, naming their ROADMAP items.
+``train_longcontext`` trains the ``longcontext`` SeqFormer and
+``train_moe`` the ``moe`` MoEClassifier (both token mode) on the seeded
+marker task at the serving geometry, with float32 master weights and
+optax's ``adamw(lr, weight_decay=1e-5)``, and measure their held-out
+accuracy (the MoE with the capacity dispatch it serves);
+``make_checkpoint`` refuses weights below the gate and saves the rest,
+through the family's converter, as the ``.npz`` flax tree the port's worker
+restores (``cli.restore_checkpoint``), with a ``MANIFEST.json`` entry in
+the JAX package's shape. The image recipes of the JAX package stay in
+``RECIPES`` and raise, naming their ROADMAP items.
 
 CLI: ``python -m ai4e_tpu_torch.train.make_checkpoints --out DIR --only
-longcontext [--fast] [--device cpu]`` (default device: ``cuda``).
+longcontext moe [--fast] [--device cpu]`` (default device: ``cuda``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import time
 import numpy as np
 import torch
 
+from ..convert import (moe_flax_from_state_dict, save_npz,
+                       seqformer_flax_from_state_dict)
 from ..device import resolve_device
 
 log = logging.getLogger("ai4e_tpu_torch.make_checkpoints")
@@ -75,30 +79,16 @@ def resolve_train_attention(attention: str, device=None) -> str:
     return resolved
 
 
-def train_longcontext(steps: int = 200, seq_len: int = 4096, batch: int = 8,
-                      seed: int = 0, dim: int = 256, depth: int = 4,
-                      heads: int = 2, vocab_size: int = 32768,
-                      num_classes: int = 16, attention: str = "train-auto",
-                      serve_attention: str = "flash", lr: float = 1e-3,
-                      device=None) -> dict:
-    """SeqFormer (token mode) on the marker task at the serving geometry:
-    seq_len and vocab are baked into the parameter tree (pos_emb, Embed),
-    so the trained shape is the serving shape. The body computes in
-    bfloat16 on float32 masters. Returns the float32 ``state_dict``, the
-    ``eval`` accuracy, ``family``/``kwargs`` for the manifest, and the run's
-    record: ``losses`` and ``phases_ms`` per step (forward, backward,
-    optimizer), ``loop_seconds`` of the step loop on the host clock and
-    ``peak_bytes`` of device memory (0 on the CPU)."""
-    from ..models import create_seqformer
+def _train_marker_task(model, name: str, steps: int, batch: int,
+                       seq_len: int, vocab_size: int, num_classes: int,
+                       seed: int, lr: float, device) -> dict:
+    """``steps`` AdamW steps of ``model`` on marker batches drawn from
+    ``seed``, the model left in eval mode; returns the run's record:
+    ``losses`` and ``phases_ms`` per step (forward, backward, optimizer),
+    ``loop_seconds`` of the step loop on the host clock and ``peak_bytes``
+    of device memory (0 on the CPU)."""
     from .step import Trainer, adamw, cross_entropy_loss
 
-    device = resolve_device(device)
-    attention = resolve_train_attention(attention, device)
-    model = create_seqformer(
-        generator=torch.Generator().manual_seed(seed), seq_len=seq_len,
-        input_dim=64, dim=dim, depth=depth, heads=heads,
-        num_classes=num_classes, attention=attention, vocab_size=vocab_size,
-        param_dtype=torch.float32, device=device)
     tr = Trainer(model, cross_entropy_loss,
                  optimizer=lambda p: adamw(p, lr, weight_decay=1e-5),
                  device=device)
@@ -114,11 +104,41 @@ def train_longcontext(steps: int = 200, seq_len: int = 4096, batch: int = 8,
         losses.append(loss)
         phases.append(ms)
         if step % 25 == 0:
-            log.info("longcontext step %d loss %.4f", step, loss)
+            log.info("%s step %d loss %.4f", name, step, loss)
     loop_seconds = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     model.eval()
+    return {"losses": losses, "phases_ms": phases,
+            "loop_seconds": loop_seconds, "peak_bytes": peak}
+
+
+def train_longcontext(steps: int = 200, seq_len: int = 4096, batch: int = 8,
+                      seed: int = 0, dim: int = 256, depth: int = 4,
+                      heads: int = 2, vocab_size: int = 32768,
+                      num_classes: int = 16, attention: str = "train-auto",
+                      serve_attention: str = "flash", lr: float = 1e-3,
+                      device=None) -> dict:
+    """SeqFormer (token mode) on the marker task at the serving geometry:
+    seq_len and vocab are baked into the parameter tree (pos_emb, Embed),
+    so the trained shape is the serving shape. The body computes in
+    bfloat16 on float32 masters. Returns the float32 ``state_dict``, the
+    ``eval`` accuracy, ``family``/``kwargs`` for the manifest, and the run's
+    record: ``losses`` and ``phases_ms`` per step (forward, backward,
+    optimizer), ``loop_seconds`` of the step loop on the host clock and
+    ``peak_bytes`` of device memory (0 on the CPU)."""
+    from ..models import create_seqformer
+
+    device = resolve_device(device)
+    attention = resolve_train_attention(attention, device)
+    model = create_seqformer(
+        generator=torch.Generator().manual_seed(seed), seq_len=seq_len,
+        input_dim=64, dim=dim, depth=depth, heads=heads,
+        num_classes=num_classes, attention=attention, vocab_size=vocab_size,
+        param_dtype=torch.float32, device=device)
+    record = _train_marker_task(model, "longcontext", steps, batch,
+                                seq_len, vocab_size, num_classes, seed, lr,
+                                device)
     acc = _eval_marker_task(model, seq_len, vocab_size, num_classes, seed)
     log.info("longcontext eval acc %.3f", acc)
     return {"state_dict": {k: v.detach().cpu()
@@ -130,8 +150,49 @@ def train_longcontext(steps: int = 200, seq_len: int = 4096, batch: int = 8,
                        "depth": depth, "heads": heads,
                        "num_classes": num_classes, "vocab_size": vocab_size,
                        "attention": serve_attention},
-            "batch": batch, "losses": losses, "phases_ms": phases,
-            "loop_seconds": loop_seconds, "peak_bytes": peak}
+            "batch": batch, **record}
+
+
+def train_moe(steps: int = 200, seq_len: int = 1024, batch: int = 16,
+              seed: int = 0, dim: int = 128, depth: int = 2, heads: int = 1,
+              num_experts: int = 8, vocab_size: int = 8192,
+              num_classes: int = 16, capacity_factor: float = 1.25,
+              attention: str = "train-auto", serve_attention: str = "flash",
+              lr: float = 1e-3, device=None) -> dict:
+    """MoEClassifier (token mode) on the longcontext marker task. It
+    trains with dense dispatch (every expert on every token) and evaluates
+    with the capacity dispatch it will serve, on the same modules (their
+    ``dispatch`` switched, no re-init): overflow drops make capacity the
+    stricter eval. float32 masters, optax's ``adamw(lr,
+    weight_decay=1e-5)``. Returns what ``train_longcontext`` returns, with
+    JAX's ``kwargs`` (capacity dispatch)."""
+    from ..models import create_moe
+
+    device = resolve_device(device)
+    attention = resolve_train_attention(attention, device)
+    model = create_moe(
+        generator=torch.Generator().manual_seed(seed), seq_len=seq_len,
+        input_dim=64, dim=dim, depth=depth, heads=heads,
+        num_experts=num_experts, num_classes=num_classes,
+        attention=attention, dispatch="dense", vocab_size=vocab_size,
+        param_dtype=torch.float32, device=device)
+    record = _train_marker_task(model, "moe", steps, batch, seq_len,
+                                vocab_size, num_classes, seed, lr, device)
+    model.set_dispatch("capacity", capacity_factor)
+    acc = _eval_marker_task(model, seq_len, vocab_size, num_classes, seed)
+    log.info("moe eval (capacity dispatch) acc %.3f", acc)
+    return {"state_dict": {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()},
+            "eval": {"accuracy": round(acc, 4)},
+            "family": "moe",
+            "kwargs": {"seq_len": seq_len, "input_dim": 64, "dim": dim,
+                       "depth": depth, "heads": heads,
+                       "num_experts": num_experts,
+                       "num_classes": num_classes, "vocab_size": vocab_size,
+                       "dispatch": "capacity",
+                       "capacity_factor": capacity_factor,
+                       "attention": serve_attention},
+            "batch": batch, **record}
 
 
 def _unported(item: str):
@@ -152,12 +213,18 @@ RECIPES = {
     "species_fine": _unported(
         "ROADMAP A16.4: the ResNet's training; its model, A10, is ported"),
     "longcontext": train_longcontext,
-    "moe": _unported("ROADMAP A14: models/moe.py"),
+    "moe": train_moe,
 }
 
 # Eval floor every produced checkpoint must clear (chance on the marker
 # task: 1/16).
 MIN_EVAL = 0.85
+
+
+#: Each trained family's state_dict -> its flax tree (what ``save_npz``
+#: writes and JAX's ``load_params`` and the port's ``reload_params`` read).
+TO_FLAX = {"seqformer": seqformer_flax_from_state_dict,
+           "moe": moe_flax_from_state_dict}
 
 
 def make_checkpoint(name: str, out_dir: str, min_eval: float = MIN_EVAL,
@@ -166,8 +233,6 @@ def make_checkpoint(name: str, out_dir: str, min_eval: float = MIN_EVAL,
     below ``min_eval``, save ``out_dir/<name>.npz`` and record it in
     ``out_dir/MANIFEST.json``; returns the manifest entry (family, kwargs,
     eval, path)."""
-    from ..convert import save_npz, seqformer_flax_from_state_dict
-
     if result is None:
         result = RECIPES[name](**overrides)
     (metric_name, value), = result["eval"].items()
@@ -177,7 +242,7 @@ def make_checkpoint(name: str, out_dir: str, min_eval: float = MIN_EVAL,
             "not converge; refusing to ship untrained weights")
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.abspath(os.path.join(out_dir, f"{name}.npz"))
-    save_npz(seqformer_flax_from_state_dict(result["state_dict"]), path)
+    save_npz(TO_FLAX[result["family"]](result["state_dict"]), path)
     entry = {"family": result["family"], "kwargs": result["kwargs"],
              "eval": result["eval"], "path": path}
     manifest_path = os.path.join(out_dir, "MANIFEST.json")
@@ -194,7 +259,9 @@ def make_checkpoint(name: str, out_dir: str, min_eval: float = MIN_EVAL,
 
 #: --fast: the JAX package's small CI geometry.
 FAST = {"longcontext": {"steps": 160, "seq_len": 256, "dim": 32, "depth": 2,
-                        "heads": 2, "vocab_size": 512, "batch": 16}}
+                        "heads": 2, "vocab_size": 512, "batch": 16},
+        "moe": {"steps": 160, "seq_len": 128, "dim": 32, "heads": 1,
+                "num_experts": 4, "vocab_size": 256, "batch": 16}}
 
 
 def main(argv=None) -> None:
@@ -204,7 +271,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default="checkpoints")
     parser.add_argument("--only", nargs="+", choices=sorted(RECIPES),
-                        default=["longcontext"])
+                        default=["longcontext", "moe"])
     parser.add_argument("--fast", action="store_true",
                         help="the small CI geometry")
     parser.add_argument("--device", default="cuda",

@@ -99,7 +99,29 @@ Phases, each of which raises on failure:
    worker; then a sync batch of 64 crops timed alone and again beside an
    async 64-item stack and 16 interactive species requests (their p50
    printed, checked for completion only). It prints a ``camera_trap:
-   {...}`` line.
+   {...}`` line;
+9. the MoE and ViT families: (a) the flash forward at the moe buckets'
+   shapes (1/16/64, 1, 1024, 128) and the backward at its training shape
+   (16, 1, 1024, 128) bf16 against their plain versions (phases 3 and 6's
+   tolerances; the backward twice under the deterministic flag,
+   bit-equal), timed beside SDPA and the bound; (b) ``train_moe`` at JAX's
+   recipe geometry (the deployed ``moe`` entry: S 1024, dim 128, depth 2,
+   one head, 8 experts, vocab 8192; batch 16, 200 steps, dense dispatch)
+   through the flash forward with lse and the backward (each launched at
+   least depth x steps times), evaluated with the capacity dispatch and
+   saved by ``make_checkpoint`` as ``build/chip_smoke/moe.npz``; (c) that
+   ``.npz`` restored into the deployed entry: each bucket's replay against
+   eager bit for bit, then served by the port's control plane and worker
+   as two child processes with routes.json's two moe routes (without
+   ``autoscale``): 4 sync and 64 async requests of the trainer's held-out
+   sequences, every answer held to the plain ops on the card (full
+   attention) as in phase 5, served accuracy at least 0.5 and within 2 of
+   64 of the trainer's eval, no failed delivery, at least depth flash
+   launches a batch in the worker; it prints a ``moe: {...}`` line; (d)
+   ViT-S/16 at ``build_vit``'s defaults (seed-0 weights) through the
+   port's worker in process, 4 sync and 64 async float32 images, each class
+   held to an eager apply where its top-two gap exceeds 1e-2, each
+   bucket's replay bit-equal to eager, timed.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2714,6 +2736,432 @@ def phase_camera_trap(kernels: list[dict]) -> dict:
     return {"graphs": graphs, "served": report}
 
 
+# -- phase 9: the MoE and ViT families -----------------------------------------
+
+MOE_BUCKETS = (1, 16, 64)          # deploy/specs/models.json's moe buckets
+MOE_HEAD = (1, 1024, 128)          # (H, S, D) of its attention
+MOE_TRAIN = (16, *MOE_HEAD)        # train_moe's batch, one layer
+N_MOE_SYNC = 4
+N_MOE_ASYNC = 64
+VIT_ROUTE = ("/classify", "/classify-async", "completed - class_id")
+
+
+def moe_model() -> dict:
+    """deploy/specs/models.json's moe entry, as it is."""
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    return json.loads(json.dumps(next(m for m in spec["models"]
+                                      if m["name"] == "moe")))
+
+
+def phase_moe_kernels(kernels: list[dict]) -> None:
+    """9a: the flash forward at the moe buckets' shapes and the backward
+    at its training shape against their plain versions (phases 3 and 6's
+    tolerances; the backward twice under the deterministic flag,
+    bit-equal), each timed by CUDA events beside SDPA and its bound. The
+    records land on the two flash rows of the kernels line."""
+    import torch.nn.functional as F
+
+    from ai4e_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    fwd = {}
+    for b in MOE_BUCKETS:
+        shape = (b, *MOE_HEAD)
+        q, k, v = (rand(shape) for _ in range(3))
+        err, lse_err = check_flash(q, k, v, False, f"moe {shape} bf16")
+        flops = 4 * b * MOE_HEAD[0] * MOE_HEAD[1] ** 2 * MOE_HEAD[2]
+        bound, by = bound_ms(4 * q.numel() * q.element_size(), flops,
+                             BF16_OPS_PER_S)
+        rec = {"ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+               "plain_ms": device_ms(lambda: flash_plain_chunked(q, k, v),
+                                     reps=5),
+               "library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v)),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+               "lse_max_abs_err": lse_err,
+               # One CTA per (b*h, 128 query rows), against 132 SMs.
+               "ctas": b * MOE_HEAD[0] * MOE_HEAD[1] // 128}
+        if shape == MOE_TRAIN:
+            rec["lse_ms"] = device_ms(lambda: fa.flash_attention(
+                q, k, v, return_lse=True))
+        fwd["x".join(map(str, shape))] = rec
+    q, k, v, do = (rand(MOE_TRAIN) for _ in range(4))
+    errs = check_flash_bwd(q, k, v, do, False, f"moe training {MOE_TRAIN}")
+    check_flash_bwd_ordered(q, k, v, do, False, f"moe training {MOE_TRAIN}")
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+    b, h, s, d = MOE_TRAIN
+    bound, by = bound_ms(8 * b * h * s * d * 2 + b * h * s * 4,
+                         2 * 5 * b * h * s * s * d, BF16_OPS_PER_S)
+    bwd = {"ms": device_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse,
+                                                         do)),
+           "plain_ms": device_ms(lambda: flash_bwd_plain_chunked(
+               q, k, v, out, lse, do), reps=5),
+           "library_ms": device_ms(lambda: torch.autograd.grad(
+               sdpa_out, (qg, kg, vg), do, retain_graph=True)),
+           "bound_ms": bound, "bound_by": by,
+           "dkv_max_abs_err": errs[0], "dq_max_abs_err": errs[1]}
+    with deterministic_algorithms():
+        bwd["deterministic_ms"] = device_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do))
+    rows = {k["name"]: k for k in kernels}
+    rows["flash_attention"]["moe_shapes"] = fwd
+    rows["flash_attention_bwd"]["moe_training_shape"] = {
+        "x".join(map(str, MOE_TRAIN)): bwd}
+    log(f"moe 9a: flash forward {json.dumps(fwd)}")
+    log(f"moe 9a: flash backward {json.dumps(bwd)}")
+
+
+def phase_moe_train() -> dict:
+    """9b: ``train_moe`` at its defaults (JAX's recipe geometry, the
+    deployed entry's widths) on the card, dense dispatch through the flash
+    forward with lse and the backward; the launch counts are set to 0 just
+    before and read just after. Evaluated with the capacity dispatch;
+    saved by ``make_checkpoint`` as ``build/chip_smoke/moe.npz``."""
+    from ai4e_tpu_torch.ops import flash_attention as fa
+    from ai4e_tpu_torch.train.make_checkpoints import (MIN_EVAL,
+                                                       make_checkpoint,
+                                                       train_moe)
+
+    deployed = moe_model()
+    fa.launches = fa.bwd_launches = 0
+    result = train_moe(device="cuda")
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
+    kwargs, losses = result["kwargs"], result["losses"]
+    for key, value in kwargs.items():
+        if deployed.get(key, value) != value:
+            raise AssertionError(f"train_moe's {key}={value}, the deployed "
+                                 f"entry's {deployed[key]}")
+    steps, depth = len(losses), kwargs["depth"]
+    for name, n in launches.items():
+        if n < depth * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps of depth {depth}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training loss is not finite: {losses}")
+    entry = make_checkpoint("moe", str(ROOT / "build" / "chip_smoke"),
+                            min_eval=MIN_SERVED_ACC, result=result)
+    phases = result["phases_ms"][1:]  # the first step pays one-off costs
+    median_ms = statistics.median(sum(p.values()) for p in phases)
+    record = {
+        "steps": steps, "batch": result["batch"],
+        "loss_every_25": losses[::25], "loss_last": losses[-1],
+        "step_ms_median": median_ms,
+        "phase_ms_median": {k: statistics.median(p[k] for p in phases)
+                            for k in phases[0]},
+        "sequences_per_s": result["batch"] * 1e3 / median_ms,
+        "loop_sequences_per_s": steps * result["batch"]
+        / result["loop_seconds"],
+        "peak_memory_gib": result["peak_bytes"] / 2 ** 30,
+        "eval_accuracy_capacity_dispatch": result["eval"]["accuracy"],
+        f"reached_min_eval_{MIN_EVAL}": result["eval"]["accuracy"] >= MIN_EVAL,
+        "launches": launches, "npz": entry["path"]}
+    log(f"moe 9b: train {json.dumps(record)}")
+    return record
+
+
+def moe_held_out(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first ``n`` sequences (and labels) drawn as ``train_moe``'s
+    eval draws them (batches of 16 from seed + 1): the first 64 are its
+    eval set."""
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+
+    model = moe_model()
+    rng = np.random.default_rng(SEED + 1)
+    draws = [longcontext_batch(rng, 16, model["seq_len"], model["vocab_size"],
+                               model["num_classes"])
+             for _ in range(-(-n // 16))]
+    seqs, labels = (np.concatenate(x)[:n] for x in zip(*draws))
+    return seqs, labels
+
+
+def phase_moe_graphs(npz: str) -> dict:
+    """9c, in process: the deployed entry with 9b's ``.npz`` in a
+    ``ModelRuntime``; each bucket's replay against an eager apply on the
+    same held-out batch (``torch.equal``), the graph's launches (depth flash
+    calls) checked by a profiler trace of one replay, eager and replay
+    ms."""
+    from ai4e_tpu_torch.cli import restore_checkpoint
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    model = moe_model()
+    kwargs = {k: v for k, v in model.items() if k not in (
+        "family", "sync_path", "async_path", "checkpoint")}
+    runtime = ModelRuntime("cuda")
+    servable = build_servable("moe", **kwargs)
+    restore_checkpoint(servable, npz)
+    runtime.register(servable)
+    t0 = time.perf_counter()
+    runtime.warmup()
+    record: dict = {"warmup_and_capture_s": time.perf_counter() - t0,
+                    "buckets": {}}
+    seqs, _ = moe_held_out(max(MOE_BUCKETS))
+    for bucket in servable.batch_buckets:
+        graph = runtime.graphs[("moe", bucket)]
+        if graph.launches != {"flash_attention": model["depth"]}:
+            raise AssertionError(f"moe bucket {bucket} captured "
+                                 f"{graph.launches}")
+        traced, traces = replay_kernels(graph, f"moe bucket {bucket}")
+        x = seqs[:bucket]
+        got = runtime.run_batch("moe", x)
+        dev = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            want = servable.apply_fn(servable.module, dev).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"moe bucket {bucket}: replay logits differ "
+                                 "from eager")
+        graph.static_in.copy_(dev)
+
+        def eager():
+            with torch.inference_mode():
+                servable.apply_fn(servable.module, dev)
+
+        record["buckets"][str(bucket)] = {
+            "eager_ms": stream_ms(eager),
+            "replay_ms": stream_ms(graph.graph.replay),
+            "replay_kernels": traced, "traces": traces}
+    record["replay_equals_eager"] = "bit for bit"
+    record["graph_pool_mib"] = runtime.graph_pool_bytes() / 2 ** 20
+    log(f"moe 9c: graphs against eager: {json.dumps(record)}")
+    del runtime, servable
+    torch.cuda.empty_cache()
+    return record
+
+
+def moe_reference_logits(npz: str, seqs: np.ndarray) -> np.ndarray:
+    """The trained weights on the card with the plain ops (full attention,
+    capacity dispatch), 16 sequences at a time."""
+    from ai4e_tpu_torch.checkpoint import load_params
+    from ai4e_tpu_torch.convert import moe_state_dict_from_flax
+    from ai4e_tpu_torch.models import create_moe
+
+    model = moe_model()
+    keys = ("seq_len", "input_dim", "dim", "depth", "heads", "num_experts",
+            "num_classes", "vocab_size", "dispatch", "capacity_factor")
+    ref = create_moe(**{k: model[k] for k in keys}, attention="full",
+                     device="cuda")
+    ref.load_state_dict(moe_state_dict_from_flax(load_params(npz)))
+    with torch.inference_mode():
+        out = torch.cat([ref(torch.from_numpy(seqs[i:i + 16].astype(
+            np.int32)).cuda()) for i in range(0, len(seqs), 16)])
+    return out.cpu().numpy()
+
+
+def moe_specs(store_url: str, worker_url: str,
+              npz: str) -> tuple[dict, dict]:
+    """The deployed moe entry with 9b's checkpoint behind the control plane
+    at ``store_url``, and routes.json's two moe routes (without
+    ``autoscale``) to the worker at ``worker_url``."""
+    from urllib.parse import urlparse
+
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    model = moe_model()
+    model["checkpoint"] = npz
+    routes = json.loads((ROOT / "deploy/specs/routes.json").read_text())
+    apis = []
+    for api in routes["apis"]:
+        if api.get("prefix", "").startswith("/v1/moe/"):
+            api = {k: v for k, v in api.items() if k != "autoscale"}
+            api["backend"] = worker_url + urlparse(api["backend"]).path
+            apis.append(api)
+    return ({"service_name": spec["service_name"], "prefix": spec["prefix"],
+             "taskstore": store_url, "models": [model]}, {"apis": apis})
+
+
+def phase_moe_served(npz: str, train_eval: float) -> dict:
+    """9c, as the platform serves it: the port's control plane and worker
+    (``--device cuda``) as two child processes, the deployed entry
+    restored from 9b's ``.npz``; this process sends 4 sync requests, then
+    64 async at once, of the trainer's held-out sequences as uint16 ids,
+    through the gateway only."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "chip_smoke"
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = moe_specs(gateway, worker, npz)
+    (out_dir / "moe_models.json").write_text(json.dumps(models))
+    (out_dir / "moe_routes.json").write_text(json.dumps(routes))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AI4E_")}
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""),
+               AI4E_PLATFORM_RETRY_DELAY=str(TOPOLOGY_RETRY_DELAY))
+    logs = {"cp": out_dir / "moe_control_plane.log",
+            "wk": out_dir / "moe_worker.log"}
+    seqs, labels = moe_held_out(N_MOE_SYNC + N_MOE_ASYNC)
+    work = {"moe": ("/v1/moe/route",
+                    [npy_bytes(s.astype(np.uint16)) for s in seqs],
+                    N_MOE_SYNC, "completed - class_id, confidence")}
+    procs = {}
+    try:
+        procs["cp"] = start_child(
+            ["control-plane", "--routes", str(out_dir / "moe_routes.json"),
+             "--port", str(cp_port)], logs["cp"], env)
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / "moe_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             "cuda"], logs["wk"], env)
+        out = asyncio.run(drive_topology(gateway, worker, procs, logs, work))
+        stop_child(procs["wk"], logs["wk"], "moe worker")
+        stop_child(procs["cp"], logs["cp"], "moe control plane")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    wk_log = logs["wk"].read_text(errors="replace")
+    if "serving ['moe'] on cuda" not in wk_log:
+        raise AssertionError(f"the moe worker did not serve on cuda:\n"
+                             f"{wk_log[-4000:]}")
+    if f"restored moe params from {npz}" not in wk_log:
+        raise AssertionError(f"the moe worker did not restore {npz}")
+    failed = metric_sum(out["cp_metrics"], "ai4e_dispatch_total",
+                        outcome="failed") + metric_sum(
+        out["cp_metrics"], "ai4e_dispatch_total", outcome="dead_letter")
+    if failed:
+        raise AssertionError(f"{failed} deliveries failed")
+    got = out["moe"]
+    batches = metric_sum(out["wk_metrics"], "ai4e_batch_size_count",
+                         model="moe")
+    launches = served_launches(wk_log)["flash_attention"]
+    depth = moe_model()["depth"]
+    if launches < depth * batches:
+        raise AssertionError(f"flash launched {launches} times in the worker "
+                             f"for {batches} batches of depth {depth}")
+    agree = check_scores(got["results"], moe_reference_logits(npz, seqs))
+    served = np.array([r["class_id"] for r in got["results"]])
+    hits = int((served[:64] == labels[:64]).sum())
+    train_hits = round(train_eval * 64)
+    if abs(hits - train_hits) > SERVED_ACC_SLACK:
+        raise AssertionError(f"served {hits}/64 right, the trainer's eval "
+                             f"{train_hits}/64")
+    if hits < MIN_SERVED_ACC * 64:
+        raise AssertionError(f"served accuracy {hits}/64 < {MIN_SERVED_ACC}")
+    queue = "/v1/models/route-async"
+    report = {
+        "card": CARD["smi"], "clients": "another process",
+        "async_requests_per_s": got["async_requests_per_s"],
+        "task_p50_ms": got["task_p50_ms"], "task_p95_ms": got["task_p95_ms"],
+        "sync_p50_ms": got["sync_p50_ms"],
+        "redeliveries_503": metric_sum(out["cp_metrics"],
+                                       "ai4e_dispatch_total",
+                                       outcome="backpressure", queue=queue),
+        "route_concurrency": next(a.get("concurrency") for a in routes["apis"]
+                                  if a["backend"].endswith(queue)),
+        "batch_sizes": batch_sizes(out["wk_metrics"], "moe"),
+        "batches": batches, "flash_launches_while_serving": launches,
+        "served_accuracy": hits / 64, "trainer_eval_accuracy": train_eval,
+        "classes_agree_with_plain_ops": f"{agree}/{len(seqs)}"}
+    return report
+
+
+def phase_vit() -> dict:
+    """9d: ViT-S/16 at ``build_vit``'s defaults (224 px, patch 16, dim 384,
+    depth 12, 6 heads, 1000 classes, buckets 1/16/64; seed-0 weights)
+    through the port's worker on a loopback port: 4 sync and 64 async float32
+    images, each class held to an eager apply on the card wherever its
+    top-two gap exceeds 1e-2; each bucket's replay against eager, timed."""
+    from ai4e_tpu_torch.cli import build_worker
+
+    spec = {"service_name": "vit-worker", "prefix": "v1/models", "models": [
+        {"family": "vit", "name": "vit", "sync_path": VIT_ROUTE[0],
+         "async_path": VIT_ROUTE[1]}]}
+    t0 = time.perf_counter()
+    worker, batcher, _ = build_worker(spec, device="cuda")
+    warm_s = time.perf_counter() - t0
+    runtime = worker.runtime
+    servable = runtime.models["vit"]
+    if servable.batch_buckets != (1, 16, 64) or servable.input_shape != (
+            224, 224, 3):
+        raise AssertionError(f"vit: {servable.batch_buckets} "
+                             f"{servable.input_shape}")
+    rng = np.random.default_rng(SEED + 91)
+    images = rng.random((N_MOE_SYNC + N_MOE_ASYNC, 224, 224, 3),
+                        dtype=np.float32)
+    out = asyncio.run(drive(worker, batcher, free_port(),
+                            [npy_bytes(x) for x in images], N_MOE_SYNC,
+                            VIT_ROUTE, {}))
+    results = out["sync_results"] + out["async_results"]
+    with torch.inference_mode():
+        logits = torch.cat([servable.apply_fn(
+            servable.module, torch.from_numpy(images[i:i + 16]).cuda())
+            for i in range(0, len(images), 16)]).cpu().numpy()
+    held = 0
+    for result, row in zip(results, logits):
+        if set(result) != {"class_id"}:
+            raise AssertionError(f"vit response keys {set(result)}")
+        top2 = np.sort(row)[-2:]
+        if top2[1] - top2[0] > LC_GAP:
+            if result["class_id"] != int(row.argmax()):
+                raise AssertionError(f"vit class {result} vs {row.argmax()}")
+            held += 1
+    record: dict = {"warmup_and_capture_s": warm_s, "buckets": {}}
+    for bucket in servable.batch_buckets:
+        graph = runtime.graphs[("vit", bucket)]
+        x = images[:bucket]
+        got = runtime.run_batch("vit", x)
+        dev = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            want = servable.apply_fn(servable.module, dev).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"vit bucket {bucket}: replay logits differ "
+                                 "from eager")
+        graph.static_in.copy_(dev)
+
+        def eager():
+            with torch.inference_mode():
+                servable.apply_fn(servable.module, dev)
+
+        record["buckets"][str(bucket)] = {
+            "eager_ms": stream_ms(eager),
+            "replay_ms": stream_ms(graph.graph.replay)}
+    record.update(
+        card=CARD["smi"], replay_equals_eager="bit for bit",
+        classes_held=f"{held}/{len(results)}",
+        sync_p50_ms=statistics.median(out["sync_ms"]),
+        async_images_per_s=N_MOE_ASYNC / out["async_s"],
+        retries_503=out["retries_503"],
+        graph_pool_mib=runtime.graph_pool_bytes() / 2 ** 20)
+    log(f"vit 9d: {json.dumps(record)}")
+    del worker, batcher, runtime, servable
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_moe_vit(kernels: list[dict]) -> dict:
+    """Phase 9: 9a kernels at the moe shapes, 9b training, 9c serving the
+    trained ``.npz`` (graphs in process, then the platform as two child
+    processes), 9d ViT-S/16."""
+    log("moe: flash kernels at the moe shapes, train, serve; then vit")
+    phase_moe_kernels(kernels)
+    train = phase_moe_train()
+    graphs = phase_moe_graphs(train["npz"])
+    served = phase_moe_served(train["npz"],
+                              train["eval_accuracy_capacity_dispatch"])
+    served["buckets"] = graphs["buckets"]
+    served["graph_pool_mib"] = graphs["graph_pool_mib"]
+    rows = {k["name"]: k for k in kernels}
+    rows["flash_attention"]["launches_moe_training"] = \
+        train["launches"]["flash_attention"]
+    rows["flash_attention"]["launches_moe_served"] = \
+        served["flash_launches_while_serving"]
+    rows["flash_attention_bwd"]["launches_moe_training"] = \
+        train["launches"]["flash_attention_bwd"]
+    log(f"moe: {json.dumps(served)}")
+    vit = phase_vit()
+    return {"train": train, "served": served, "vit": vit}
+
+
 def main() -> None:
     kind = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
@@ -2732,6 +3180,7 @@ def main() -> None:
     kernels += bwd
     phase_runtime(e2e, trained_npz)
     phase_camera_trap(kernels)
+    phase_moe_vit(kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

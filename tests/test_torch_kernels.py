@@ -394,6 +394,14 @@ class TestFlashKernelOnCard:
                    for t in random_qkv(8, 2, 4096, 4096, 128, 9))
         self.check(q, k, v, causal=False)
 
+    @pytest.mark.parametrize("b", [1, 16, 64])
+    def test_moe_served_shapes(self, cuda, b):
+        """The deployed moe model's attention, one head of 128 at S = 1024,
+        at its buckets 1, 16 and 64 (16 is also its training batch)."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(b, 1, 1024, 1024, 128, 10 + b))
+        self.check(q, k, v, causal=False)
+
 
 class TestFlashBackwardWrapper:
     def test_cpu_tensors_never_launch_a_kernel(self):
@@ -539,6 +547,13 @@ class TestFlashBackwardOnCard:
             err = (got[:, :, i].transpose(1, 2).float() - w.float()).abs()
             assert bool((err <= flash_module.grad_tolerance(w)).all()), i
 
+    def test_moe_training_shape(self, cuda):
+        """``train_moe``'s backward, (16, 1, 1024, 128) bf16."""
+        q, k, v, do = (t.to(torch.bfloat16).to(cuda) for t in
+                       random_qkv(16, 1, 1024, 1024, 128, 11)
+                       + random_qkv(16, 1, 1024, 1024, 128, 12)[:1])
+        self.check(q, k, v, do, causal=False)
+
     def test_unaligned_do_is_refused(self, cuda):
         q, k, v = (t.to(cuda) for t in random_qkv(1, 1, 8, 8, 16, 3))
         out, lse = flash_attention(q, k, v, return_lse=True)
@@ -661,3 +676,36 @@ class TestFlashBackwardOnCard:
             err = (g.float() - w.float()).abs()
             assert bool((err <= flash_module.grad_tolerance(w)).all()), \
                 (name, float(err.max()))
+
+
+@pytest.mark.cuda
+class TestMoELayerOnCard:
+    def test_capacity_dispatch_captures_in_a_cuda_graph(self, cuda):
+        """The capacity dispatch (router, slots, scatter, expert products,
+        gather) at the deployed widths synchronises with no host, so it
+        captures in a CUDA graph, whose replay equals eager bit for bit;
+        and the routing reaches every expert."""
+        from ai4e_tpu_torch.models.moe import MoEFFN
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        layer = MoEFFN(128, 8, dispatch="capacity").to(cuda)
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        x = torch.randn((16, 1024, 128), generator=gen).to(cuda)
+        stream = torch.cuda.Stream()
+        with torch.inference_mode():
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                want_y, want_top = layer(x)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got_y, got_top = layer(x)
+            graph.replay()
+            torch.cuda.synchronize()
+        assert torch.equal(got_top, want_top)
+        assert torch.equal(got_y, want_y)
+        assert set(want_top.unique().tolist()) == set(range(8))
+        assert bool((want_y == 0).all(-1).any())  # some tokens dropped

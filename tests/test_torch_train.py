@@ -309,8 +309,7 @@ class TestRecipe:
 
     @pytest.mark.parametrize("name,item", [
         ("landcover", "A16"), ("landcover128", "A16"),
-        ("megadetector", "A10"), ("species", "A10"), ("species_fine", "A10"),
-        ("moe", "A14")])
+        ("megadetector", "A10"), ("species", "A10"), ("species_fine", "A10")])
     def test_unported_recipes_name_their_roadmap_item(self, tmp_path, name,
                                                       item):
         with pytest.raises(NotImplementedError, match=item):
