@@ -74,17 +74,26 @@ class Dispatcher:
             "ai4e_dispatch_total", "Dispatch attempts by outcome")
         self._stop = asyncio.Event()
         self._workers: list[asyncio.Task] = []
+        # Graceful scale-down debt (set_concurrency): how many delivery
+        # loops exit at their next idle point instead of being cancelled
+        # mid-POST. Event-loop-only state, like _workers.
+        self._excess = 0
+        # Resizes before start() (or after stop()) only record the level.
+        self._started = False
         # In-flight POSTs are bounded by the delivery loops.
         self._sessions = SessionHolder(timeout=REQUEST_TIMEOUT_S, limit=0)
 
     async def start(self) -> None:
         self._stop.clear()
+        self._started = True
         self._workers = [w for w in self._workers if not w.done()]
+        self._excess = 0
         loop = asyncio.get_running_loop()
         while len(self._workers) < self.concurrency:
             self._workers.append(loop.create_task(self._run()))
 
     async def stop(self) -> None:
+        self._started = False
         self._stop.set()
         for w in self._workers:
             w.cancel()
@@ -92,8 +101,39 @@ class Dispatcher:
         self._workers = []
         await self._sessions.close()
 
+    def set_concurrency(self, n: int) -> None:
+        """Resize the delivery loops live: the autoscaler's actuator.
+        Before ``start()`` it records the level, which ``start()`` spawns
+        to. Growing spawns loops (cancelling outstanding exit debt first);
+        shrinking is graceful: a surplus loop finishes its delivery and
+        exits at its next idle point (within the 1 s receive poll), never
+        mid-POST, so a step down causes no redelivery. ``stop()`` still
+        cancels outright."""
+        n = max(0, n)
+        if not self._started:
+            self.concurrency = n
+            self._excess = 0
+            return
+        loop = asyncio.get_running_loop()
+        # Drop loops that already exited, so the live count is what moves.
+        self._workers = [w for w in self._workers if not w.done()]
+        live = len(self._workers) - self._excess
+        if n > live:
+            absorbed = min(self._excess, n - live)
+            self._excess -= absorbed
+            while len(self._workers) - self._excess < n:
+                self._workers.append(loop.create_task(self._run()))
+        elif n < live:
+            self._excess += live - n
+        self.concurrency = n
+
     async def _run(self) -> None:
         while not self._stop.is_set():
+            if self._excess > 0:
+                # Graceful scale-down: retire this loop at an idle point
+                # (one event loop, so the decrement cannot race).
+                self._excess -= 1
+                return
             msg = await self.broker.receive(self.queue_name, timeout=1.0)
             if msg is None:
                 continue

@@ -7,7 +7,9 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   (its HTTP surface on the same port), broker and dispatchers in one
   process. It imports neither torch nor JAX. routes.json is
   ``{"apis": [{"prefix", "backend", "mode": "async"|"sync",
-  "concurrency", "retry_delay", "max_body_bytes", "internal"}]}``.
+  "concurrency", "retry_delay", "max_body_bytes", "internal",
+  "autoscale"}]}``, ``autoscale`` being ``scaling.AutoscalePolicy``'s
+  fields.
 - ``worker --models models.json [--port P] [--device cuda|cpu]`` — model
   runtime, micro-batcher and service shell, on the card unless
   ``--device cpu``. models.json has ``service_name``, ``prefix``,
@@ -38,7 +40,6 @@ log = logging.getLogger("ai4e_tpu_torch.cli")
 
 _UNPORTED_ROUTE_KEYS = {
     "backends": "weighted canary backends (ROADMAP A18.8)",
-    "autoscale": "the autoscaler (ROADMAP A18.8)",
 }
 _UNPORTED_ROUTES_SPEC_KEYS = {
     "definitions": "typed API definitions (ROADMAP A18.8)",
@@ -57,6 +58,7 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
     """Assemble the control-plane process; returns the wired platform, whose
     gateway app also carries the task store's HTTP surface."""
     from .platform_assembly import LocalPlatform
+    from .scaling import AutoscalePolicy
     from .taskstore.http import make_app as make_taskstore_app
 
     for key, what in _UNPORTED_ROUTES_SPEC_KEYS.items():
@@ -73,6 +75,8 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
                 raise ValueError(f"route key {key!r} ({what}) is not ported "
                                  "yet")
         mode = api.get("mode", "async")
+        autoscale = api.get("autoscale")
+        autoscale = AutoscalePolicy(**autoscale) if autoscale else None
         if mode == "sync":
             platform.publish_sync_api(api["prefix"], api["backend"],
                                       max_body_bytes=api.get("max_body_bytes"))
@@ -81,12 +85,12 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
         elif api.get("internal"):
             platform.register_internal_route(
                 api["backend"], retry_delay=api.get("retry_delay"),
-                concurrency=api.get("concurrency"))
+                concurrency=api.get("concurrency"), autoscale=autoscale)
         else:
             platform.publish_async_api(
                 api["prefix"], api["backend"],
                 retry_delay=api.get("retry_delay"),
-                concurrency=api.get("concurrency"),
+                concurrency=api.get("concurrency"), autoscale=autoscale,
                 max_body_bytes=api.get("max_body_bytes"))
     return platform
 
@@ -115,15 +119,17 @@ def restore_checkpoint(servable, path: str,
                        checkpoint_dir: str | None = None) -> None:
     """Load a flax params tree saved flat with ``convert.save_npz`` into
     ``servable.module``; a relative path resolves under ``checkpoint_dir``
-    (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working directory. Any other
-    path raises, naming ``scripts/orbax_to_npz.py``, which converts an
-    orbax checkpoint where JAX is installed."""
-    from .checkpoint import load_params
+    (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working directory, and a bare
+    name to ``<name>.npz`` there when that file exists. Any other path
+    raises, naming ``scripts/orbax_to_npz.py``, which converts an orbax
+    checkpoint where JAX is installed."""
+    from .checkpoint import load_params, resolve_npz
 
     if servable.state_dict_from_flax is None:
         raise ValueError(f"model {servable.name!r} has no weights to restore")
     if not os.path.isabs(path):
         path = os.path.abspath(os.path.join(checkpoint_dir or ".", path))
+    path = resolve_npz(path)
     servable.module.load_state_dict(
         servable.state_dict_from_flax(load_params(path)))
     servable.checkpoint_path = path

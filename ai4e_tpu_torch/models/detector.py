@@ -28,6 +28,9 @@ equal scores straddle the cut: the -inf fill rows of a heatmap with fewer
 than ``max_detections`` peaks, whose scores become 0 and which
 postprocess drops.
 
+A training build (``param_dtype=torch.float32``) keeps float32 masters
+for the bfloat16 body, cast on every call, as the UNet's does.
+
 Classes follow MegaDetector: animal / person / vehicle.
 """
 
@@ -38,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .layers import gelu
+from .layers import Conv2d, gelu
 from .unet import ConvBlock, init_flax_like_
 
 NUM_CLASSES = 3  # animal, person, vehicle
@@ -49,11 +52,13 @@ FEATURES = 256
 
 class CenterNetDetector(nn.Module):
     """(B, H, W, 3) float in [0, 1] -> ``{"heatmap": (B, H/8, W/8, C),
-    "wh": (..., 2), "offset": (..., 2)}`` float32, NHWC."""
+    "wh": (..., 2), "offset": (..., 2)}`` float32, NHWC. The body's conv
+    weights are held in ``param_dtype`` (default: ``dtype``)."""
 
     def __init__(self, num_classes: int = NUM_CLASSES,
                  widths: tuple = (64, 128, 256),
-                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         stages, cin = [], in_channels
@@ -61,21 +66,21 @@ class CenterNetDetector(nn.Module):
             stages.append(ConvBlock(cin, w, stride=2))
             cin = w
         self.stages = nn.ModuleList(stages)
-        self.feat = nn.Conv2d(cin, FEATURES, 3, padding=1)
-        self.heatmap = nn.Conv2d(FEATURES, num_classes, 1)
-        self.wh = nn.Conv2d(FEATURES, 2, 1)
-        self.offset = nn.Conv2d(FEATURES, 2, 1)
+        self.feat = Conv2d(cin, FEATURES, 3, padding=1)
+        self.heatmap = Conv2d(FEATURES, num_classes, 1)
+        self.wh = Conv2d(FEATURES, 2, 1)
+        self.offset = Conv2d(FEATURES, 2, 1)
         for m in (self.stages, self.feat):
             for conv in m.modules():
                 if isinstance(conv, nn.Conv2d):
-                    conv.to(dtype)
+                    conv.to(param_dtype or dtype)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         for stage in self.stages:
             x = stage(x)
-        feat = F.conv2d(x, self.feat.weight, padding=1)
-        feat = gelu(feat + self.feat.bias[:, None, None])
+        feat = F.conv2d(x, self.feat.weight.to(self.dtype), padding=1)
+        feat = gelu(feat + self.feat.bias.to(self.dtype)[:, None, None])
         feat = feat.float()
         return {name: head(feat).permute(0, 2, 3, 1)
                 for name, head in (("heatmap", self.heatmap), ("wh", self.wh),
@@ -126,15 +131,17 @@ def create_detector(generator: torch.Generator | None = None,
                     num_classes: int = NUM_CLASSES,
                     widths: tuple = (64, 128, 256),
                     dtype: torch.dtype = torch.bfloat16,
-                    device=None) -> CenterNetDetector:
+                    device=None, param_dtype: torch.dtype | None = None
+                    ) -> CenterNetDetector:
     """A detector with flax-like random weights drawn on the CPU from
     ``generator`` (default: seed 0; the heatmap's bias at -2.19), then
-    moved to ``device`` (default ``cuda``)."""
+    moved to ``device`` (default ``cuda``). Train with
+    ``param_dtype=torch.float32``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = CenterNetDetector(num_classes=num_classes, widths=tuple(widths),
-                              dtype=dtype)
+                              dtype=dtype, param_dtype=param_dtype)
     init_flax_like_(model, generator)
     with torch.no_grad():
         model.heatmap.bias.fill_(HEATMAP_BIAS)

@@ -10,9 +10,13 @@
   layer's type, the product rounded to it, then the bias added in it
   (``F.linear(x, w, b)`` would add the bias before rounding on cuBLAS);
 - ``Embed``: ``nn.Embed(dtype=...)``: the table cast to the layer's type
-  before the gather.
+  before the gather;
+- ``Conv2d``: ``nn.Conv(dtype=...)`` for the image models: the weight and
+  bias cast to the input's type on each call (the models cast their input
+  to the body type first).
 
-``Dense`` and ``Embed`` take a ``param_dtype``, as flax's modules do. By
+``Dense`` and ``Embed`` take a ``param_dtype``, as flax's modules do (the
+image models take one for their ``Conv2d`` layers). By
 default it is the compute ``dtype``: a served bfloat16 layer holds bfloat16
 weights, rounded once when loaded, which gives the values of flax's cast on
 every call. For training, ``param_dtype=torch.float32`` keeps float32
@@ -144,6 +148,18 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's type: the weight and bias are
+    cast to it on each call, as flax casts ``param_dtype`` params to
+    ``dtype``. A served model holds its weights in the body type, where the
+    casts return the same tensors; a training build holds float32
+    masters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class Embed(nn.Embedding):

@@ -16,6 +16,13 @@
 - the pooled features are ``jnp.mean`` of a bfloat16 tensor: a float32
   mean rounded to bfloat16; the classifier ``Dense`` runs in float32 on
   them and returns float32 logits.
+
+As the UNet, the served build casts the conv weights to bfloat16 once and a
+training build (``param_dtype=torch.float32``) keeps float32 masters, cast
+on every call. Training never updates the running statistics: they are
+buffers, outside the optimizer and its weight decay, as the JAX package's
+``freeze_batch_stats`` (``optax.set_to_zero`` on ``batch_stats``) leaves
+them, and BatchNorm reads them in training as in serving.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from .layers import Conv2d
 from .unet import same_conv, same_pads
 
 BATCHNORM_EPS = 1e-5  # flax's default
@@ -59,13 +67,13 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_features: int, features: int, stride: int = 1):
         super().__init__()
-        convs = [nn.Conv2d(in_features, features, 1, bias=False),
-                 nn.Conv2d(features, features, 3, stride=stride,
-                           padding=1 if stride == 1 else 0, bias=False),
-                 nn.Conv2d(features, 4 * features, 1, bias=False)]
+        convs = [Conv2d(in_features, features, 1, bias=False),
+                 Conv2d(features, features, 3, stride=stride,
+                        padding=1 if stride == 1 else 0, bias=False),
+                 Conv2d(features, 4 * features, 1, bias=False)]
         if stride != 1 or in_features != 4 * features:
-            convs.append(nn.Conv2d(in_features, 4 * features, 1,
-                                   stride=stride, bias=False))
+            convs.append(Conv2d(in_features, 4 * features, 1,
+                                stride=stride, bias=False))
         self.convs = nn.ModuleList(convs)
         self.norms = nn.ModuleList(
             BatchNorm(c.out_channels) for c in convs)
@@ -92,15 +100,18 @@ def max_pool_same(x: torch.Tensor, kernel: int = 3,
 
 
 class ResNet(nn.Module):
-    """(B, H, W, 3) float in, (B, num_classes) float32 logits out."""
+    """(B, H, W, 3) float in, (B, num_classes) float32 logits out. The body
+    computes in ``dtype``; its conv weights are held in ``param_dtype``
+    (default: ``dtype``)."""
 
     def __init__(self, stage_sizes: tuple = (3, 4, 6, 3),
                  num_classes: int = 1000, width: int = 64,
-                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
-        self.stem = nn.Conv2d(in_channels, width, 7, stride=2, padding=3,
-                              bias=False)
+        self.stem = Conv2d(in_channels, width, 7, stride=2, padding=3,
+                           bias=False)
         self.stem_norm = BatchNorm(width)
         blocks, cin = [], width
         for i, count in enumerate(stage_sizes):
@@ -113,7 +124,7 @@ class ResNet(nn.Module):
         self.head = nn.Linear(cin, num_classes)
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                m.to(dtype)
+                m.to(param_dtype or dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)
@@ -155,14 +166,16 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> None:
 def create_resnet(generator: torch.Generator | None = None,
                   stage_sizes: tuple = (3, 4, 6, 3), num_classes: int = 1000,
                   width: int = 64, dtype: torch.dtype = torch.bfloat16,
-                  device=None) -> ResNet:
+                  device=None, param_dtype: torch.dtype | None = None
+                  ) -> ResNet:
     """A ResNet with flax-like random weights drawn on the CPU from
     ``generator`` (default: seed 0), then moved to ``device`` (default
-    ``cuda``), so a seed gives the same weights on every device."""
+    ``cuda``), so a seed gives the same weights on every device. Train
+    with ``param_dtype=torch.float32``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = ResNet(stage_sizes=tuple(stage_sizes), num_classes=num_classes,
-                   width=width, dtype=dtype)
+                   width=width, dtype=dtype, param_dtype=param_dtype)
     init_flax_like_(model, generator)
     return model.to(device=device, memory_format=torch.channels_last).eval()

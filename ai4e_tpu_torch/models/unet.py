@@ -21,9 +21,14 @@ NCHW tensor with no copy, and the head's output permuted back is NHWC in
 memory, so the argmax kernel reads it as it lies (``.contiguous()`` there
 copies only if a layer handed back another layout).
 
-Flax keeps float32 params and casts them to bfloat16 on every call; here the
-body convs' weights are cast once when the model is built, which gives the
-same values. GroupNorm params and the head stay float32.
+Flax keeps float32 params and casts them to bfloat16 on every call. The
+served build (``param_dtype`` None) casts the body convs' weights once when
+the model is built, which gives the same values; a training build
+(``param_dtype=torch.float32``) keeps float32 masters, which each
+``layers.Conv2d`` casts on every call, so AdamW's small steps are not
+rounded away. GroupNorm params and the head stay float32 either way, and
+GroupNorm's float32 statistics and the bf16 gelu's VJP (``layers.gelu``)
+carry JAX's rounding under autograd too.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .layers import gelu
+from .layers import Conv2d, gelu
 
 NUM_CLASSES = 4
 TILE = 256  # default tile edge (the land-cover API's unit of work)
@@ -66,9 +71,9 @@ class ConvBlock(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1):
         super().__init__()
         self.convs = nn.ModuleList([
-            nn.Conv2d(in_features, features, 3, stride=stride,
-                      padding=1 if stride == 1 else 0, bias=False),
-            nn.Conv2d(features, features, 3, padding=1, bias=False)])
+            Conv2d(in_features, features, 3, stride=stride,
+                   padding=1 if stride == 1 else 0, bias=False),
+            Conv2d(features, features, 3, padding=1, bias=False)])
         self.norms = nn.ModuleList([
             nn.GroupNorm(min(32, features), features, eps=GROUPNORM_EPS)
             for _ in range(2)])
@@ -85,11 +90,14 @@ class ConvBlock(nn.Module):
 
 class UNet(nn.Module):
     """Encoder-decoder with skip connections: (B, H, W, 3) float32 in,
-    (B, H, W, num_classes) float32 logits out."""
+    (B, H, W, num_classes) float32 logits out. The body computes in
+    ``dtype``; its conv weights are held in ``param_dtype`` (default:
+    ``dtype``)."""
 
     def __init__(self, num_classes: int = NUM_CLASSES,
                  widths: tuple = (64, 128, 256, 512),
-                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3):
+                 dtype: torch.dtype = torch.bfloat16, in_channels: int = 3,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         widths = tuple(widths)
         self.dtype = dtype
@@ -99,19 +107,19 @@ class UNet(nn.Module):
             self.encoder.append(ConvBlock(cin, w))
             cin = w
         self.down = nn.ModuleList(
-            nn.Conv2d(w, w, 3, stride=2, padding=0, bias=False)
+            Conv2d(w, w, 3, stride=2, padding=0, bias=False)
             for w in widths[:-1])
         self.up = nn.ModuleList()
         self.decoder = nn.ModuleList()
         for w in reversed(widths[:-1]):
-            self.up.append(nn.Conv2d(cin, w, 1, bias=False))
+            self.up.append(Conv2d(cin, w, 1, bias=False))
             self.decoder.append(ConvBlock(2 * w, w))
             cin = w
-        self.head = nn.Conv2d(widths[0], num_classes, 1, bias=True)
+        self.head = Conv2d(widths[0], num_classes, 1, bias=True)
         for body in (self.encoder, self.down, self.up, self.decoder):
             for m in body.modules():
                 if isinstance(m, nn.Conv2d):
-                    m.to(dtype)
+                    m.to(param_dtype or dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype)
@@ -152,14 +160,17 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> None:
 def create_unet(generator: torch.Generator | None = None,
                 num_classes: int = NUM_CLASSES,
                 widths: tuple = (64, 128, 256, 512),
-                dtype: torch.dtype = torch.bfloat16, device=None) -> UNet:
+                dtype: torch.dtype = torch.bfloat16, device=None,
+                param_dtype: torch.dtype | None = None) -> UNet:
     """A UNet with flax-like random weights drawn on the CPU from
     ``generator`` (default: seed 0), then moved to ``device`` (default
-    ``cuda``), so a seed gives the same weights on every device."""
+    ``cuda``), so a seed gives the same weights on every device. Train
+    with ``param_dtype=torch.float32``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = UNet(num_classes=num_classes, widths=widths, dtype=dtype)
+    model = UNet(num_classes=num_classes, widths=widths, dtype=dtype,
+                 param_dtype=param_dtype)
     init_flax_like_(model, generator)
     return model.to(device=device, memory_format=torch.channels_last).eval()
 

@@ -1,7 +1,11 @@
 """Control-plane assembly — store + broker + dispatchers + gateway in one
 event loop; ``PlatformConfig`` and ``LocalPlatform`` of
 ``ai4e_tpu/platform_assembly.py``, with the in-memory store, the in-memory
-broker (transport ``"queue"``) and the reaper's terminal retention only.
+broker (transport ``"queue"``), the reaper's terminal retention and the
+autoscaler on a route's one dispatcher (``scaling.AutoscaleController``).
+The sharded store and orchestration, under which the JAX package scales a
+route's shards or on a predictive signal, are refused by
+``config.check_ported`` (ROADMAP A18.2, A18.9).
 
 ``PlatformConfig`` holds the fields ``LocalPlatform`` reads, with the JAX
 package's defaults; ``PlatformSection.to_platform_config`` fills it, after
@@ -68,6 +72,7 @@ class LocalPlatform:
         self.reaper = None if retention < 0 else TaskReaper(
             self.store, retention, interval=self.config.reaper_interval,
             metrics=self.metrics)
+        self.autoscalers: list = []
         self._started = False
         # Strong refs to fire-and-forget terminal transitions: the event
         # loop holds tasks weakly.
@@ -76,24 +81,44 @@ class LocalPlatform:
     def publish_async_api(self, public_prefix: str, backend_uri: str,
                           retry_delay: float | None = None,
                           concurrency: int | None = None,
+                          autoscale=None,
+                          autoscale_interval: float = 5.0,
                           max_body_bytes: int | None = None) -> None:
         """Register an async API end to end: gateway route + a dispatcher
-        for its queue."""
+        for its queue. An ``AutoscalePolicy`` as ``autoscale`` attaches the
+        HPA-style control loop to the dispatcher's delivery fan-out."""
         self.gateway.add_async_route(public_prefix, backend_uri,
                                      max_body_bytes=max_body_bytes)
         self.register_internal_route(backend_uri, retry_delay=retry_delay,
-                                     concurrency=concurrency)
+                                     concurrency=concurrency,
+                                     autoscale=autoscale,
+                                     autoscale_interval=autoscale_interval)
 
     def register_internal_route(self, backend_uri: str,
                                 retry_delay: float | None = None,
-                                concurrency: int | None = None) -> None:
+                                concurrency: int | None = None,
+                                autoscale=None,
+                                autoscale_interval: float = 5.0) -> None:
         """A transport consumer for a backend without a public route,
         reached only by republished tasks."""
         queue_name = endpoint_path(backend_uri)
         self.broker.register_queue(queue_name)
-        self.dispatchers.register(queue_name, backend_uri,
-                                  retry_delay=retry_delay,
-                                  concurrency=concurrency)
+        dispatcher = self.dispatchers.register(queue_name, backend_uri,
+                                               retry_delay=retry_delay,
+                                               concurrency=concurrency)
+        if autoscale is not None:
+            self._attach_autoscaler(queue_name, dispatcher, autoscale,
+                                    autoscale_interval)
+
+    def _attach_autoscaler(self, queue_name: str, dispatcher, policy,
+                           interval: float) -> None:
+        """HPA-style scaling of one route's dispatcher on its queue
+        pressure (``created`` + ``running`` in the task store)."""
+        from .scaling import AutoscaleController, DispatcherScaleTarget
+
+        self.autoscalers.append(AutoscaleController(
+            self.store, queue_name, DispatcherScaleTarget(dispatcher),
+            policy=policy, interval=interval, metrics=self.metrics))
 
     def publish_sync_api(self, public_prefix: str, backend_uri: str,
                          max_body_bytes: int | None = None) -> None:
@@ -115,6 +140,8 @@ class LocalPlatform:
         await self.dispatchers.start()
         if self.reaper is not None:
             await self.reaper.start()
+        for scaler in self.autoscalers:
+            await scaler.start()
         self._started = True
 
     async def _fail_dead_letter(self, task_id: str) -> None:
@@ -128,6 +155,8 @@ class LocalPlatform:
 
     async def stop(self) -> None:
         if self._started:
+            for scaler in self.autoscalers:
+                await scaler.stop()
             if self.reaper is not None:
                 await self.reaper.stop()
             await self.dispatchers.stop()

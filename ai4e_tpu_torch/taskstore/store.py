@@ -11,7 +11,9 @@ HTTP surface, gateway and dispatcher share.
   after the lock is released; a publish failure fails the task;
 - listeners (the gateway's long-poll waiters) hear every transition;
 - ``evict_terminal_older_than`` forgets finished tasks (record, body and
-  results), the terminal retention ``taskstore.reaper.TaskReaper`` runs.
+  results), the terminal retention ``taskstore.reaper.TaskReaper`` runs;
+- ``set_len`` and ``depths`` count an endpoint's tasks by status (the
+  autoscaler's signal).
 
 No journal, replication, sharding or result offload: those are ROADMAP A18.
 """
@@ -201,6 +203,12 @@ class InMemoryTaskStore:
         return len(victims)
 
     # -- status-set queries --------------------------------------------------
+
+    def set_len(self, endpoint_path: str, status: str) -> int:
+        """Tasks of ``endpoint_path`` in canonical ``status`` (the
+        autoscaler's signal)."""
+        with self._lock:
+            return len(self._sets.get((endpoint_path, status), {}))
 
     def depths(self) -> dict[str, dict[str, int]]:
         """Per-endpoint per-status depths (the autoscaling signal)."""

@@ -50,7 +50,11 @@ def adamw(params, lr: float = 1e-4, weight_decay: float = 1e-4
 
 class Trainer:
     """Owns ``model`` on ``device`` (default ``cuda``) and one optimizer
-    step. ``loss_fn(logits, labels)`` is scalar. ``optimizer`` maps the
+    step. ``loss_fn(logits, labels)`` is scalar; ``labels`` is one array or
+    a dict of arrays (the CenterNet's targets), each moved to the device.
+    Only ``model.parameters()`` train: buffers, as the ResNet's BatchNorm
+    running statistics, stay as they are, as the JAX package's
+    ``freeze_batch_stats`` leaves ``batch_stats``. ``optimizer`` maps the
     parameters to a ``torch.optim`` optimizer (default: optax's
     ``adamw(1e-4, weight_decay=1e-4)``). ``remat`` recomputes the whole
     forward in the backward (``torch.utils.checkpoint``), as
@@ -89,8 +93,9 @@ class Trainer:
         """``train_step`` with its phases timed, in ms: ``forward`` (with
         the loss), ``backward`` and ``optimizer``; by CUDA events on the
         card, by the host clock on the CPU."""
-        x = torch.as_tensor(np.asarray(inputs)).to(self.device)
-        y = torch.as_tensor(np.asarray(labels)).to(self.device)
+        x = self._to_device(inputs)
+        y = ({k: self._to_device(v) for k, v in labels.items()}
+             if isinstance(labels, dict) else self._to_device(labels))
         marks = [self._mark()]
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(self._apply(x), y)
@@ -102,6 +107,9 @@ class Trainer:
         value = float(loss.detach())  # waits for the step's device work
         return value, {name: self._elapsed_ms(a, b) for name, a, b in zip(
             ("forward", "backward", "optimizer"), marks, marks[1:])}
+
+    def _to_device(self, array) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array)).to(self.device)
 
     def _mark(self):
         if self.device.type == "cuda":

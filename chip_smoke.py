@@ -36,7 +36,7 @@ Phases, each of which raises on failure:
    control-plane``: gateway, task store over HTTP, broker, dispatchers) and
    its worker (``worker --device cuda`` with ``"taskstore"``) as two child
    processes serving land cover and longcontext as in phases 4 and 5, with
-   ``deploy/specs/routes.json``'s routes (without ``autoscale``). This
+   ``deploy/specs/routes.json``'s routes (``autoscale`` included). This
    process drives 4 sync and 64 async requests a model through the gateway
    only, long-polls each task to ``completed`` and reads its result from
    the task store; every answer is checked as in phases 4 and 5, no
@@ -112,8 +112,8 @@ Phases, each of which raises on failure:
    saved by ``make_checkpoint`` as ``build/chip_smoke/moe.npz``; (c) that
    ``.npz`` restored into the deployed entry: each bucket's replay against
    eager bit for bit, then served by the port's control plane and worker
-   as two child processes with routes.json's two moe routes (without
-   ``autoscale``): 4 sync and 64 async requests of the trainer's held-out
+   as two child processes with routes.json's two moe routes: 4 sync and
+   64 async requests of the trainer's held-out
    sequences, every answer held to the plain ops on the card (full
    attention) as in phase 5, served accuracy at least 0.5 and within 2 of
    64 of the trainer's eval, no failed delivery, at least depth flash
@@ -121,7 +121,34 @@ Phases, each of which raises on failure:
    ViT-S/16 at ``build_vit``'s defaults (seed-0 weights) through the
    port's worker in process, 4 sync and 64 async float32 images, each class
    held to an eager apply where its top-two gap exceeds 1e-2, each
-   bucket's replay bit-equal to eager, timed.
+   bucket's replay bit-equal to eager, timed;
+10. the deploy spec as written, from the port's own checkpoints: (a) the
+   five image recipes (``landcover``: UNet 64/128/256/512 at tile 64;
+   ``landcover128``; ``megadetector`` at 512 px, 300 steps; ``species`` at
+   224 px; ``species_fine`` at 64 px, 500 steps) trained on the card, each to
+   ``make_checkpoints.MIN_EVAL`` (0.85) or the phase raises, with its step
+   ms split into forward, backward and optimizer, its peak memory, eval
+   and the host's share of the loop spent drawing batches, saved by
+   ``make_checkpoint`` into ``build/chip_smoke`` beside phases 6 and 9's
+   ``.npz`` (the manifest's kwargs held to deploy/specs/models.json's),
+   and one land-cover step's device time by kernel (layout copies,
+   GroupNorm); (b) the port's control plane and worker as two child
+   processes fed deploy/specs/routes.json and models.json as written but
+   for the hosts (loopback), ``AI4E_RUNTIME_CHECKPOINT_DIR`` naming that
+   directory, so every ``"checkpoint"`` resolves to a trained ``.npz``:
+   4 sync and 64 async held-out land-cover tiles at 256 (histograms within
+   phase 4's 1% of the plain ops on the trained weights, pixel accuracy at
+   least 0.85, both kernels equal to their plain versions on those tiles
+   and logits), 64 held-out species images through the async route and
+   the batch API (accuracy at least 0.85 and within 2 of 64 of the
+   trainer's eval), the trainer's 32 eval scenes through ``detect-async``
+   (served detection accuracy within 2 objects of the trainer's, the
+   crops handed to species under one TaskId), then a backlog of 3,000
+   land-cover tasks, during which the control plane's
+   ``ai4e_autoscale_replicas`` for the route must rise above its starting
+   4 with decisions counted and no task failed; normalize must launch in
+   the worker for all three image models and argmax+histogram for land
+   cover. It prints a ``deploy: {...}`` line.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -951,8 +978,8 @@ def phase_longcontext() -> dict:
 def topology_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
     """deploy/specs' landcover and longcontext at full width and depth
     (random weights from seed 0) behind the control plane at ``store_url``,
-    and their routes (without ``autoscale``, an unported item) to the worker
-    at ``worker_url``."""
+    and their routes, ``autoscale`` included, to the worker at
+    ``worker_url``."""
     from urllib.parse import urlparse
 
     spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
@@ -967,7 +994,6 @@ def topology_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
     for api in routes["apis"]:
         if api.get("prefix", "").startswith(
                 tuple(f"/v1/{m}/" for m in TOPOLOGY_MODELS)):
-            api = {k: v for k, v in api.items() if k != "autoscale"}
             api["backend"] = worker_url + urlparse(api["backend"]).path
             apis.append(api)
     return ({"service_name": spec["service_name"], "prefix": spec["prefix"],
@@ -1060,7 +1086,7 @@ async def drive_gateway(http, gateway: str, route: str, bodies: list[bytes],
             "async_requests_per_s": len(runs) / span,
             "task_p50_ms": statistics.median(latency_ms),
             "task_p95_ms": float(np.percentile(latency_ms, 95)),
-            "sync_p50_ms": statistics.median(sync_ms)}
+            "sync_p50_ms": statistics.median(sync_ms) if sync_ms else None}
 
 
 def metric_sum(metrics_text: str, name: str, **labels: str) -> float:
@@ -2348,8 +2374,8 @@ def phase_camera_trap_graphs() -> dict:
 def camera_trap_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
     """The two models behind the control plane at ``store_url``, the
     detector's crops handed to the species batch endpoint of the worker at
-    ``worker_url``, and routes.json's three camera-trap routes to it
-    (without ``autoscale``, an unported item)."""
+    ``worker_url``, and routes.json's three camera-trap routes to it, as
+    written but for the host."""
     from urllib.parse import urlparse
 
     spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
@@ -2365,8 +2391,6 @@ def camera_trap_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
         path = urlparse(api["backend"]).path
         if (api.get("prefix", "").startswith("/v1/camera-trap/")
                 or path.endswith("/classify-species-batch-async")):
-            api = {k: v for k, v in api.items()
-                   if k not in ("autoscale", "_comment")}
             api["backend"] = worker_url + path
             apis.append(api)
     return ({"service_name": spec["service_name"], "prefix": spec["prefix"],
@@ -2958,8 +2982,8 @@ def moe_reference_logits(npz: str, seqs: np.ndarray) -> np.ndarray:
 def moe_specs(store_url: str, worker_url: str,
               npz: str) -> tuple[dict, dict]:
     """The deployed moe entry with 9b's checkpoint behind the control plane
-    at ``store_url``, and routes.json's two moe routes (without
-    ``autoscale``) to the worker at ``worker_url``."""
+    at ``store_url``, and routes.json's two moe routes, ``autoscale``
+    included, to the worker at ``worker_url``."""
     from urllib.parse import urlparse
 
     spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
@@ -2969,7 +2993,6 @@ def moe_specs(store_url: str, worker_url: str,
     apis = []
     for api in routes["apis"]:
         if api.get("prefix", "").startswith("/v1/moe/"):
-            api = {k: v for k, v in api.items() if k != "autoscale"}
             api["backend"] = worker_url + urlparse(api["backend"]).path
             apis.append(api)
     return ({"service_name": spec["service_name"], "prefix": spec["prefix"],
@@ -3162,6 +3185,560 @@ def phase_moe_vit(kernels: list[dict]) -> dict:
     return {"train": train, "served": served, "vit": vit}
 
 
+# -- phase 10: the deploy spec as written, from the port's own checkpoints --
+
+IMAGE_RECIPES = ("landcover", "landcover128", "megadetector", "species",
+                 "species_fine")
+N_DEPLOY_SYNC = 4       # land-cover sync requests before the async ones
+N_DEPLOY_ASYNC = 64     # held-out land-cover tiles and species images
+N_BACKLOG = 3000        # land-cover tasks: two autoscaler ticks' backlog
+BACKLOG_SUBMITTERS = 128
+BACKLOG_TILES = 16      # distinct tiles the backlog cycles through
+DEPLOY_SLACK = 2        # of 64 images, or objects: served against trained
+LC_QUEUE = "/v1/models/classify-async"
+LC_START_REPLICAS = 4   # routes.json's land-cover concurrency
+
+
+def train_step_copies(steps: int = 3) -> dict:
+    """One land-cover training step's device time by kernel (tile 64,
+    batch 8, full widths, float32 masters), from a ``torch.profiler`` trace
+    of ``steps`` steps after two warm-up steps: the total, the layout and
+    type copies (kernels named ``copy``, GroupNorm's float32 NCHW copies
+    among them), GroupNorm's own kernels and the ten largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ai4e_tpu_torch.models import create_unet
+    from ai4e_tpu_torch.train import Trainer, segmentation_loss
+    from ai4e_tpu_torch.train.make_checkpoints import landcover_batch
+    from ai4e_tpu_torch.train.step import adamw
+
+    model = create_unet(param_dtype=torch.float32, device="cuda")
+    tr = Trainer(model, segmentation_loss,
+                 optimizer=lambda p: adamw(p, 1e-3, weight_decay=1e-5),
+                 device="cuda")
+    rng = np.random.default_rng(SEED + 100)
+    batches = [landcover_batch(rng, 8, 64) for _ in range(steps + 2)]
+    for x, y in batches[:2]:
+        tr.train_step(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, y in batches[2:]:
+            tr.train_step(x, y)
+        torch.cuda.synchronize()
+    kernels = {}
+    for event in prof.key_averages():
+        ms = event.self_device_time_total / steps / 1e3
+        if ms > 0:
+            kernels[event.key] = kernels.get(event.key, 0.0) + ms
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    total = sum(kernels.values())
+    copies = sum(ms for k, ms in kernels.items() if "copy" in k.lower())
+    norm = sum(ms for k, ms in kernels.items()
+               if any(s in k for s in ("GroupNorm", "RowwiseMoments",
+                                       "ComputeFusedParams",
+                                       "Compute1dBackward",
+                                       "ComputeInternalGradients")))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    del tr, model
+    torch.cuda.empty_cache()
+    return {"step_device_ms": total, "copy_kernels_ms": copies,
+            "copy_share": copies / total, "groupnorm_kernels_ms": norm,
+            "top_kernels_ms": {k[:90]: ms for k, ms in top}}
+
+
+def check_manifest_against_spec(out_dir: Path) -> dict:
+    """Every ``"checkpoint"`` of deploy/specs/models.json has a manifest
+    entry whose kwargs agree with the spec's keys; ``image_size`` must be
+    in both and equal (species and megadetector serve at their trained
+    size only)."""
+    manifest = json.loads((out_dir / "MANIFEST.json").read_text())
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    checked = {}
+    for model in spec["models"]:
+        entry = manifest[model["checkpoint"]]
+        kwargs = entry["kwargs"]
+        if "image_size" in kwargs and "image_size" not in model:
+            raise AssertionError(f"{model['name']}: trained at "
+                                 f"{kwargs['image_size']}, spec silent")
+        for key, value in kwargs.items():
+            if key in model and model[key] != value:
+                raise AssertionError(f"{model['name']}: {key} {model[key]} "
+                                     f"in the spec, {value} trained")
+        checked[model["name"]] = entry["eval"]
+    return checked
+
+
+def phase_deploy_train() -> dict:
+    """10a: the five image recipes on the card at their production sizes
+    (``FULL_OVERRIDES``, else the recipe defaults), each held to
+    ``MIN_EVAL`` by ``make_checkpoint`` and saved into
+    ``build/chip_smoke`` beside phases 6 and 9's ``.npz`` with its
+    ``MANIFEST.json``; then one land-cover step's device time by kernel."""
+    import gc
+
+    from ai4e_tpu_torch.train import make_checkpoints as mc
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report, results = {}, {}
+    for name in IMAGE_RECIPES:
+        overrides = mc.FULL_OVERRIDES.get(name, {})
+        t0 = time.perf_counter()
+        result = mc.RECIPES[name](device="cuda", **overrides)
+        wall_s = time.perf_counter() - t0
+        losses = result["losses"]
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: training loss is not finite")
+        (metric, value), = result["eval"].items()
+        record = {"card": CARD["smi"], "steps": len(losses),
+                  "batch": result["batch"], "overrides": overrides,
+                  "eval": result["eval"],
+                  "reached_min_eval": value >= mc.MIN_EVAL}
+        phases = result["phases_ms"][1:]  # the first step pays one-off costs
+        record.update(
+            loss_first=losses[0], loss_last=losses[-1],
+            step_ms_median=statistics.median(sum(p.values())
+                                             for p in phases),
+            phase_ms_median={k: statistics.median(p[k] for p in phases)
+                             for k in phases[0]},
+            peak_memory_gib=result["peak_bytes"] / 2 ** 30,
+            loop_s=result["loop_seconds"], data_s=result["data_seconds"],
+            host_data_share=result["data_seconds"] / result["loop_seconds"],
+            recipe_wall_s=wall_s)
+        if "eval_objects" in result:
+            record["eval_objects"] = result["eval_objects"]
+        log(f"deploy 10a: {name} {json.dumps(record)}")
+        # Raises below MIN_EVAL: the gate is not lowered.
+        entry = mc.make_checkpoint(name, str(out_dir), result=result)
+        record["path"] = entry["path"]
+        report[name] = record
+        results[name] = {k: v for k, v in result.items()
+                         if k != "state_dict"}
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["manifest_evals"] = check_manifest_against_spec(out_dir)
+    report["landcover_step_kernels"] = train_step_copies()
+    log(f"deploy 10a: landcover step by kernel "
+        f"{json.dumps(report['landcover_step_kernels'])}")
+    return {"report": report, "results": results, "dir": out_dir}
+
+
+def deploy_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
+    """deploy/specs/models.json and routes.json as written, but for the
+    hosts: the task store, every backend and the detector's handoff point
+    at the control plane and the worker on loopback. The ``"checkpoint"``
+    values stay: they name ``.npz`` files under the worker's
+    ``AI4E_RUNTIME_CHECKPOINT_DIR``."""
+    from urllib.parse import urlparse
+
+    models = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    models["taskstore"] = store_url
+    for model in models["models"]:
+        if "pipeline_to" in model:
+            handoff = model["pipeline_to"]
+            handoff["endpoint"] = worker_url + urlparse(
+                handoff["endpoint"]).path
+    routes = json.loads((ROOT / "deploy/specs/routes.json").read_text())
+    for api in routes["apis"]:
+        api["backend"] = worker_url + urlparse(api["backend"]).path
+    return models, routes
+
+
+def uint8_images(images: np.ndarray) -> np.ndarray:
+    """[0, 1] float images as the uint8 pixels a client ships."""
+    return np.clip(np.round(images * 255), 0, 255).astype(np.uint8)
+
+
+def autoscale_replicas(metrics_text: str) -> float | None:
+    for line in metrics_text.splitlines():
+        if (line.startswith("ai4e_autoscale_replicas{")
+                and f'endpoint="{LC_QUEUE}"' in line):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+async def drive_backlog(http, gateway: str, bodies: list[bytes]) -> dict:
+    """``N_BACKLOG`` land-cover tasks through the gateway, submitted by
+    ``BACKLOG_SUBMITTERS`` at a time, waited for on the task store's depths;
+    the control plane's replica gauge for the route sampled meanwhile."""
+    async def depths() -> dict:
+        async with http.get(gateway + "/v1/taskstore/depths") as r:
+            return (await r.json()).get(LC_QUEUE, {})
+
+    async def metrics() -> str:
+        async with http.get(gateway + "/metrics") as r:
+            return await r.text()
+
+    before = await depths()
+    done_before = sum(before.get(s, 0) for s in ("completed", "failed",
+                                                 "expired"))
+    samples = []
+    queue = asyncio.Queue()
+    for i in range(N_BACKLOG):
+        queue.put_nowait(bodies[i % len(bodies)])
+
+    async def submitter() -> None:
+        while not queue.empty():
+            body = queue.get_nowait()
+            async with http.post(gateway + "/v1/landcover/classify-async",
+                                 data=body, headers=OCTET) as r:
+                if r.status != 200:
+                    raise AssertionError(f"backlog submit {r.status}: "
+                                         f"{await r.text()}")
+                await r.read()
+
+    t0 = time.perf_counter()
+    submit = asyncio.gather(*(submitter() for _ in range(BACKLOG_SUBMITTERS)))
+    submitted_s = None
+    while True:
+        await asyncio.sleep(0.5)
+        if submitted_s is None and submit.done():
+            await submit
+            submitted_s = time.perf_counter() - t0
+        now = await depths()
+        replicas = autoscale_replicas(await metrics())
+        samples.append((round(time.perf_counter() - t0, 2), replicas,
+                        now.get("created", 0) + now.get("running", 0)))
+        done = sum(now.get(s, 0) for s in ("completed", "failed", "expired"))
+        if done - done_before >= N_BACKLOG and submitted_s is not None:
+            break
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError(f"backlog not drained: {now}")
+    span = time.perf_counter() - t0
+    return {"span_s": span, "submitted_s": submitted_s,
+            "tasks_per_s": N_BACKLOG / span, "depths": now,
+            "failed": now.get("failed", 0) - before.get("failed", 0)
+            + now.get("expired", 0) - before.get("expired", 0),
+            "samples": samples}
+
+
+async def drive_deploy(gateway: str, worker: str, procs: dict, logs: dict,
+                       work: dict) -> dict:
+    """10b's client: land cover (4 sync, 64 async), species (64 async,
+    then the 64 as one batch), megadetector (32 async scenes, stage and
+    final results), then the land-cover backlog."""
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=900)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        t0 = time.perf_counter()
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        out = {"worker_up_s": time.perf_counter() - t0}
+        log(f"deploy 10b: worker up in {out['worker_up_s']:.1f}s")
+        out["landcover"] = await drive_gateway(
+            http, gateway, "/v1/landcover/classify", work["landcover"], 4,
+            "completed - class_histogram", worker)
+        out["species"] = await drive_gateway(
+            http, gateway, "/v1/camera-trap/classify-species",
+            work["species"], 0, "completed - class_id, label, confidence",
+            worker)
+        t1 = time.perf_counter()
+        out["species_batch"] = await post_sync(
+            http, worker + "/v1/models/species-batch", work["species_stack"])
+        out["species_batch_ms"] = (time.perf_counter() - t1) * 1e3
+
+        async def detect(body: bytes) -> tuple[float, float, str, dict]:
+            t0 = time.perf_counter()
+            async with http.post(gateway + "/v1/camera-trap/detect-async",
+                                 data=body, headers=OCTET) as r:
+                if r.status != 200:
+                    raise AssertionError(f"detect-async {r.status}: "
+                                         f"{await r.text()}")
+                task_id = (await r.json())["TaskId"]
+            record = await await_terminal(http, gateway, task_id)
+            return t0, time.perf_counter(), task_id, record
+
+        runs = await asyncio.gather(*(detect(b) for b in work["scenes"]))
+        out["detect"] = {"runs": runs, "stage": [], "final": []}
+        for _, _, task_id, record in runs:
+            out["detect"]["stage"].append(await task_result(
+                http, gateway, task_id, "megadetector"))
+            out["detect"]["final"].append(await task_result(
+                http, gateway, task_id))
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics_before_backlog"] = await r.text()
+        out["backlog"] = await drive_backlog(http, gateway,
+                                             work["backlog"])
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics"] = await r.text()
+        async with http.get(worker + "/metrics") as r:
+            out["wk_metrics"] = await r.text()
+    return out
+
+
+def served_detection_accuracy(stage: list[dict], targets: dict) -> tuple:
+    """``detection_accuracy`` of the served detection lists (score >= 0.2,
+    the served threshold) against the scenes' targets."""
+    from ai4e_tpu_torch.train.make_checkpoints import detection_accuracy
+
+    out = {"boxes": [], "classes": [], "scores": []}
+    for result in stage:
+        dets = result["detections"]
+        out["boxes"].append(np.array([d["box"] for d in dets],
+                                     np.float32).reshape(-1, 4))
+        out["classes"].append(np.array([d["class_id"] for d in dets]))
+        out["scores"].append(np.array([d["score"] for d in dets],
+                                      np.float32))
+    return detection_accuracy(out, targets)
+
+
+def check_normalize_on(images: np.ndarray, what: str) -> None:
+    """The normalize kernel equals its plain version on ``images``."""
+    from ai4e_tpu_torch.ops import image_preprocess as ip
+
+    scale, bias = ip.channel_affine(None, None, 3)
+    for i in range(0, len(images), 16):
+        x = torch.from_numpy(images[i:i + 16]).cuda()
+        if not torch.equal(ip.normalize_image(x),
+                           ip.normalize_image_plain(x, scale, bias)):
+            raise AssertionError(f"normalize differs on the {what}")
+
+
+def phase_deploy_serve(train: dict, kernels: list[dict]) -> dict:
+    """10b: the port's control plane and worker as two child processes fed
+    deploy/specs/routes.json and models.json as written (``autoscale``
+    included) but for the hosts, the worker restoring every model from the
+    checkpoint directory of 10a (and phases 6 and 9); every answer checked
+    against the trained weights on the card."""
+    import gc
+
+    from ai4e_tpu_torch.cli import restore_checkpoint
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.train import make_checkpoints as mc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = train["dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = deploy_specs(gateway, worker)
+    (out_dir / "deploy_models.json").write_text(json.dumps(models))
+    (out_dir / "deploy_routes.json").write_text(json.dumps(routes))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AI4E_")}
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""),
+               AI4E_PLATFORM_RETRY_DELAY=str(TOPOLOGY_RETRY_DELAY),
+               AI4E_RUNTIME_CHECKPOINT_DIR=str(out_dir))
+    logs = {"cp": out_dir / "deploy_control_plane.log",
+            "wk": out_dir / "deploy_worker.log"}
+
+    # Held-out data from the recipes' generators, as uint8 pixels.
+    n_lc = N_DEPLOY_SYNC + N_DEPLOY_ASYNC
+    lc_img, lc_lab = mc.landcover_batch(np.random.default_rng(SEED + 1),
+                                        n_lc, 256)
+    lc_img = uint8_images(lc_img)
+    sp_img, sp_lab = mc.species_batch(np.random.default_rng(SEED + 1),
+                                      N_DEPLOY_ASYNC, 224)
+    sp_img = uint8_images(sp_img)
+    eval_rng = np.random.default_rng(SEED + 1)  # the trainer's eval scenes
+    det_batches = [mc.detector_batch(eval_rng, 8, 512) for _ in range(4)]
+    det_img = uint8_images(np.concatenate([b[0] for b in det_batches]))
+    det_targets = {k: np.concatenate([b[1][k] for b in det_batches])
+                   for k in det_batches[0][1]}
+    work = {"landcover": [npy_bytes(x) for x in lc_img],
+            "species": [npy_bytes(x) for x in sp_img],
+            "species_stack": npy_bytes(sp_img),
+            "scenes": [npy_bytes(x) for x in det_img],
+            "backlog": [npy_bytes(x) for x in lc_img[:BACKLOG_TILES]]}
+    procs = {}
+    try:
+        procs["cp"] = start_child(
+            ["control-plane", "--routes", str(out_dir / "deploy_routes.json"),
+             "--port", str(cp_port)], logs["cp"], env)
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / "deploy_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             "cuda"], logs["wk"], env)
+        out = asyncio.run(drive_deploy(gateway, worker, procs, logs, work))
+        stop_child(procs["wk"], logs["wk"], "deploy worker")
+        stop_child(procs["cp"], logs["cp"], "deploy control plane")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    wk_log = logs["wk"].read_text(errors="replace")
+    names = [m["name"] for m in models["models"]]
+    if f"serving {names} on cuda" not in wk_log:
+        raise AssertionError(f"the deploy worker did not serve {names} on "
+                             f"cuda:\n{wk_log[-4000:]}")
+    for m in models["models"]:
+        path = out_dir / (m["checkpoint"] + ".npz")
+        if f"restored {m['name']} params from {path}" not in wk_log:
+            raise AssertionError(f"{m['name']} was not restored from {path}")
+    cp_log = logs["cp"].read_text(errors="replace")
+    by_model = launches_by_model(wk_log)
+    for model in ("landcover", "megadetector", "species"):
+        if by_model.get(model, {}).get("normalize_image", 0) < 1:
+            raise AssertionError(f"normalize never launched for {model}: "
+                                 f"{by_model}")
+    if by_model["landcover"].get("fused_seg_postprocess", 0) < 1:
+        raise AssertionError(f"argmax+histogram never launched: {by_model}")
+    failed = metric_sum(out["cp_metrics"], "ai4e_dispatch_total",
+                        outcome="failed") + metric_sum(
+        out["cp_metrics"], "ai4e_dispatch_total", outcome="dead_letter")
+    if failed or out["backlog"]["failed"]:
+        raise AssertionError(f"{failed} deliveries failed, "
+                             f"{out['backlog']['failed']} backlog tasks")
+
+    # The autoscaler: the route's replicas above the starting 4, decisions
+    # counted.
+    peak = max((r for _, r, _ in out["backlog"]["samples"] if r is not None),
+               default=None)
+    decisions = {d: metric_sum(out["cp_metrics"],
+                               "ai4e_autoscale_decisions_total",
+                               endpoint=LC_QUEUE, direction=d)
+                 for d in ("up", "down")}
+    if peak is None or peak <= LC_START_REPLICAS or decisions["up"] < 1:
+        raise AssertionError(f"land-cover replicas peaked at {peak} with "
+                             f"decisions {decisions}: "
+                             f"{out['backlog']['samples']}")
+
+    # Land cover against the trained weights on the card.
+    lc_kwargs = {k: v for k, v in next(
+        m for m in models["models"] if m["name"] == "landcover").items()
+        if k not in ("family", "sync_path", "async_path", "checkpoint",
+                     "name")}
+    unet = build_servable("unet", name="landcover", **lc_kwargs)
+    restore_checkpoint(unet, "landcover", str(out_dir))
+    unet.module.cuda()
+    check_served_logits(unet, lc_img)
+    want = reference_counts(unet, lc_img)
+    lc_results = out["landcover"]["results"]
+    diffs = [check_histogram(r, want[i], 256 * 256)
+             for i, r in enumerate(lc_results)]
+    from ai4e_tpu_torch.ops.image_preprocess import (channel_affine,
+                                                     normalize_image_plain)
+    scale, bias = channel_affine(None, None, 3)
+    hits = 0
+    with torch.inference_mode():
+        for i in range(0, n_lc, 16):
+            x = normalize_image_plain(torch.from_numpy(
+                lc_img[i:i + 16]).cuda(), scale, bias)
+            pred = unet.module(x).argmax(-1).cpu().numpy()
+            hits += int((pred == lc_lab[i:i + 16]).sum())
+    pixel_acc = hits / lc_lab.size
+    if pixel_acc < mc.MIN_EVAL:
+        raise AssertionError(f"land-cover pixel accuracy {pixel_acc} at 256")
+    true_counts = np.stack([np.bincount(lab.ravel(), minlength=4)
+                            for lab in lc_lab])
+    served = np.stack([[r["class_histogram"].get(str(c), 0)
+                        for c in range(4)] for r in lc_results])
+    label_gap = np.abs(served - true_counts).sum(1) / (2 * 256 * 256)
+    del unet
+
+    # Species: served accuracy, async and batch, against the trainer's.
+    sp_served = np.array([r["class_id"] for r in out["species"]["results"]])
+    batch = out["species_batch"]
+    if batch["count"] != N_DEPLOY_ASYNC or batch["failed"]:
+        raise AssertionError(f"species batch: {batch['count']} items, "
+                             f"{batch['failed']} failed")
+    sp_batch = np.array([item["result"]["class_id"]
+                         for item in batch["items"]])
+    trained_hits = train["results"]["species"]["eval"]["accuracy"] * 64
+    species = {}
+    for what, got in (("async", sp_served), ("batch", sp_batch)):
+        n = int((got == sp_lab).sum())
+        if n < mc.MIN_EVAL * 64 or abs(n - trained_hits) > DEPLOY_SLACK:
+            raise AssertionError(f"species {what}: {n}/64 right, the "
+                                 f"trainer's eval {trained_hits}/64")
+        species[what] = n / 64
+    check_normalize_on(sp_img, "species images")
+
+    # Megadetector: served detection accuracy against the trainer's eval,
+    # and the crops handed to species under one TaskId.
+    det = out["detect"]
+    served_hits, total = served_detection_accuracy(det["stage"], det_targets)
+    want_hits = train["results"]["megadetector"]["eval_objects"]["hits"]
+    if abs(served_hits - want_hits) > DEPLOY_SLACK:
+        raise AssertionError(f"megadetector served {served_hits}/{total} "
+                             f"objects, the trainer {want_hits}")
+    handed = 0
+    for (_, _, task_id, record), stage, final in zip(
+            det["runs"], det["stage"], det["final"]):
+        n = min(16, len(stage["detections"]))
+        if n == 0:
+            if record["Status"] != "completed - detections":
+                raise AssertionError(f"task {task_id}: {record}")
+            continue
+        if record["Status"] != f"completed - {n} images, 0 errors":
+            raise AssertionError(f"task {task_id}: {record}")
+        if final["count"] != n or final["failed"]:
+            raise AssertionError(f"task {task_id}: final {final['count']} "
+                                 f"items, {final['failed']} failed")
+        handed += 1
+    check_normalize_on(det_img, "detector scenes")
+    latency = sorted((t1 - t0) * 1e3 for t0, t1, _, _ in det["runs"])
+
+    backlog = out["backlog"]
+    report = {
+        "card": CARD["smi"], "clients": "another process",
+        "checkpoints": str(out_dir), "worker_up_s": out["worker_up_s"],
+        "landcover": {
+            "async_requests_per_s": out["landcover"]["async_requests_per_s"],
+            "task_p50_ms": out["landcover"]["task_p50_ms"],
+            "task_p95_ms": out["landcover"]["task_p95_ms"],
+            "sync_p50_ms": out["landcover"]["sync_p50_ms"],
+            "pixel_accuracy_256": pixel_acc,
+            "max_count_diff_px": max(diffs),
+            "histogram_gap_from_labels_mean": float(label_gap.mean()),
+            "histogram_gap_from_labels_max": float(label_gap.max())},
+        "species": {"served_accuracy": species,
+                    "trainer_eval_accuracy":
+                        train["results"]["species"]["eval"]["accuracy"],
+                    "async_requests_per_s":
+                        out["species"]["async_requests_per_s"],
+                    "task_p50_ms": out["species"]["task_p50_ms"],
+                    "batch64_ms": out["species_batch_ms"]},
+        "megadetector": {"served_objects": f"{served_hits}/{total}",
+                         "trainer_objects": f"{want_hits}/"
+                         f"{train['results']['megadetector']['eval_objects']['total']}",
+                         "tasks_handed_to_species": handed,
+                         "task_p50_ms": statistics.median(latency),
+                         "task_p95_ms": float(np.percentile(latency, 95))},
+        "autoscaler": {
+            "route": "/v1/landcover/classify-async", "queue": LC_QUEUE,
+            "starting_replicas": LC_START_REPLICAS, "replicas_peak": peak,
+            "decisions": decisions,
+            "replicas_before_backlog": autoscale_replicas(
+                out["cp_metrics_before_backlog"]),
+            "backlog_tasks": N_BACKLOG, "backlog_span_s": backlog["span_s"],
+            "backlog_submitted_s": backlog["submitted_s"],
+            "backlog_tasks_per_s": backlog["tasks_per_s"],
+            "samples_s_replicas_depth": backlog["samples"][::4],
+            "redeliveries_503": metric_sum(
+                out["cp_metrics"], "ai4e_dispatch_total",
+                outcome="backpressure", queue=LC_QUEUE),
+            "autoscale_log_lines": sum(
+                "autoscale " in line for line in cp_log.splitlines())},
+        "batch_sizes": {m: batch_sizes(out["wk_metrics"], m)
+                        for m in ("landcover", "megadetector", "species")},
+        "launches_by_model": by_model,
+    }
+    rows = {k["name"]: k for k in kernels}
+    rows["normalize_image"]["launches_deploy_spec"] = {
+        m: by_model[m]["normalize_image"]
+        for m in ("landcover", "megadetector", "species")}
+    rows["fused_seg_postprocess"]["launches_deploy_spec"] = \
+        by_model["landcover"]["fused_seg_postprocess"]
+    log(f"deploy: {json.dumps(report)}")
+    return report
+
+
+def phase_deploy(kernels: list[dict]) -> dict:
+    """Phase 10: train the image recipes (a), then serve the deploy spec as
+    written from the port's checkpoints (b)."""
+    log("deploy: the image recipes on the card, then the deploy spec")
+    train = phase_deploy_train()
+    served = phase_deploy_serve(train, kernels)
+    return {"train": train["report"], "served": served}
+
+
 def main() -> None:
     kind = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
@@ -3181,6 +3758,7 @@ def main() -> None:
     phase_runtime(e2e, trained_npz)
     phase_camera_trap(kernels)
     phase_moe_vit(kernels)
+    phase_deploy(kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -599,18 +599,19 @@ class TestSaturation:
 
 class TestControlPlaneSpec:
     def test_deployed_routes_give_jax_s_routes_and_queues(self):
-        """deploy/specs/routes.json without its ``autoscale`` keys (an
-        unported item): the same published routes, modes and edge caps,
-        and the same dispatcher queues with their concurrency and retry
-        delay, internal route included."""
+        """deploy/specs/routes.json as written: the same published routes,
+        modes and edge caps, the same dispatcher queues with their
+        concurrency and retry delay, internal route included, and one
+        autoscaler for each of the four ``autoscale`` routes with the same
+        endpoint, policy fields, interval and starting replicas."""
+        import dataclasses
+
         from ai4e_tpu.cli import build_control_plane as jax_build
         from ai4e_tpu.config import FrameworkConfig as JaxConfig
         from ai4e_tpu_torch.cli import build_control_plane as port_build
         from ai4e_tpu_torch.config import FrameworkConfig as PortConfig
 
-        routes = json.loads((ROOT / "deploy/specs/routes.json").read_text())
-        for api in routes["apis"]:
-            api.pop("autoscale", None)
+        text = (ROOT / "deploy/specs/routes.json").read_text()
         env = {"AI4E_PLATFORM_RETRY_DELAY": "0.5",
                "AI4E_GATEWAY_MAX_BODY_BYTES": "1024"}
 
@@ -620,13 +621,18 @@ class TestControlPlaneSpec:
                  for r in platform.gateway.routes],
                 platform.gateway.max_body_bytes,
                 sorted((q, d.backend_uri, d.concurrency, d.retry_delay)
-                       for q, d in platform.dispatchers.dispatchers.items()))
+                       for q, d in platform.dispatchers.dispatchers.items()),
+                sorted((a.endpoint_path, dataclasses.astuple(a.policy),
+                        a.interval, a.target.replicas)
+                       for a in platform.autoscalers))
 
-        want = layout(jax_build(JaxConfig.from_env(env), routes))
-        got = layout(port_build(PortConfig.from_env(env), routes))
+        want = layout(jax_build(JaxConfig.from_env(env), json.loads(text)))
+        got = layout(port_build(PortConfig.from_env(env), json.loads(text)))
         assert got == want
         assert "/v1/models/classify-species-batch-async" in [
             q for q, *_ in want[2]]
+        assert len(want[3]) == sum(
+            "autoscale" in a for a in json.loads(text)["apis"]) == 4
 
 
 class TestIsolation:
@@ -640,7 +646,7 @@ class TestIsolation:
             "        'taskstore.reaper',\n"
             "        'service', 'service.task_manager', 'broker',\n"
             "        'broker.dispatcher', 'gateway', 'resilience.retry',\n"
-            "        'platform_assembly', 'cli']\n"
+            "        'scaling', 'platform_assembly', 'cli']\n"
             "for m in mods:\n"
             "    importlib.import_module('ai4e_tpu_torch.' + m)\n"
             "from ai4e_tpu_torch.cli import build_control_plane\n"
@@ -653,4 +659,4 @@ class TestIsolation:
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert out.stdout.split() == ["2", "13"]
+        assert out.stdout.split() == ["2", "14"]

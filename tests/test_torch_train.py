@@ -307,17 +307,6 @@ class TestRecipe:
         assert mc.MIN_EVAL == jax_mc.MIN_EVAL
         assert set(mc.RECIPES) == set(jax_mc.RECIPES)
 
-    @pytest.mark.parametrize("name,item", [
-        ("landcover", "A16"), ("landcover128", "A16"),
-        ("megadetector", "A10"), ("species", "A10"), ("species_fine", "A10")])
-    def test_unported_recipes_name_their_roadmap_item(self, tmp_path, name,
-                                                      item):
-        with pytest.raises(NotImplementedError, match=item):
-            mc.make_checkpoint(name, str(tmp_path))
-        with pytest.raises(NotImplementedError, match=item):
-            mc.main(["--out", str(tmp_path), "--only", name, "--device",
-                     "cpu"])
-
     def test_trains_saves_and_serves(self, tmp_path):
         """JAX's toy longcontext test (100 steps, gate 0.5) through the
         port: trained above 0.5 (measured 0.77), saved as ``.npz`` with a

@@ -363,8 +363,6 @@ class TestUnported:
          r"'dct' is not ported yet \(ROADMAP A9"),
         (worker_of(landcover_spec(checkpoint="landcover")),
          r"is not a \.npz: .*scripts/orbax_to_npz\.py SRC DST\.npz"),
-        (control_plane_of({"autoscale": {"max_replicas": 8}}),
-         r"'autoscale' \(the autoscaler \(ROADMAP A18.8"),
         (control_plane_of({"backends": [{"uri": "http://w/v1/x",
                                          "weight": 1}]}),
          r"'backends' \(weighted canary backends \(ROADMAP A18.8"),
@@ -378,7 +376,7 @@ class TestUnported:
          r"AI4E_RUNTIME_DONATE_BATCH=True: batch donation, an XLA buffer "
          r"option \(ROADMAP A4"),
     ], ids=["seqformer-lm", "yuv420", "dct", "orbax",
-            "autoscale", "backends", "push", "journal", "donate"])
+            "backends", "push", "journal", "donate"])
     def test_raises_and_names_itself(self, build, match):
         with pytest.raises(ValueError, match=match):
             build()
