@@ -10,10 +10,17 @@ a copy of ``ai4e_tpu/broker/dispatcher.py`` for one backend per route:
 - success — the message completes; the backend drives the task from there.
 
 Every status write that could land on a finished task is preceded by a
-terminal probe, so a redelivery never reopens a completed task. Not ported
-(ROADMAP A18): the result cache, admission deadlines, resilience and
-orchestration, weighted backends, tenancy accounting and the hop-ledger
-stamps.
+terminal probe, so a redelivery never reopens a completed task.
+
+Each delivery attempt is a ``dispatch`` span keyed by TaskId, the child
+of the span that published the task (the message's ``trace_headers``);
+its B3 headers go on the backend POST, so the worker's endpoint span is
+its child. With the observability hub it stamps the hop ledger where JAX's
+does on this path: ``popped``, ``delivered``, ``backpressure`` and
+``dead_letter``. Not ported (ROADMAP A18): the result cache, admission
+deadlines (and their ``expired`` stamp), resilience and orchestration
+(their ``duplicate``, ``retry``, ``failover``, ``placed`` and ``probe``
+stamps), weighted backends and tenancy accounting.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from urllib.parse import urlparse
 import aiohttp
 
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from ..observability import Tracer
+from ..observability import ledger as hop
 from ..resilience.retry import backoff_s
 from ..service.task_manager import TaskManagerBase
 from ..taskstore import TaskStatus
@@ -61,6 +70,7 @@ class Dispatcher:
     def __init__(self, broker: InMemoryBroker, queue_name: str,
                  backend_uri: str, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
+                 observability=None,
                  metrics: MetricsRegistry | None = None):
         self.broker = broker
         self.queue_name = queue_name
@@ -70,6 +80,11 @@ class Dispatcher:
         self.retry_delay = retry_delay
         self.concurrency = concurrency
         self.metrics = metrics or DEFAULT_REGISTRY
+        # Request-observability hub: None stamps nothing.
+        self.observability = observability
+        # Spans land in this dispatcher's registry; exporter and sampling
+        # follow configure_tracer live.
+        self.tracer = Tracer("dispatcher", metrics=self.metrics)
         self._dispatched = self.metrics.counter(
             "ai4e_dispatch_total", "Dispatch attempts by outcome")
         self._stop = asyncio.Event()
@@ -154,18 +169,41 @@ class Dispatcher:
                             msg.task_id, TaskStatus.DEAD_LETTER,
                             TaskStatus.FAILED)
 
+    def _stamp(self, task_id: str, event: str,
+               reason: str | None = None) -> None:
+        """Hop-ledger stamp; a no-op without the hub, which is fail-open."""
+        if self.observability is not None:
+            self.observability.stamp(
+                task_id, hop.ledger_event(event, "dispatcher", reason=reason))
+
     async def _dispatch_one(self, msg: Message) -> None:
+        self._stamp(msg.task_id, hop.POPPED,
+                    reason=f"delivery {msg.delivery_count}")
         target = rebase_endpoint(msg.endpoint, self.route_path,
                                  self.backend_uri)
         backend = urlparse(target).netloc
         session = await self._sessions.get()
         try:
-            async with session.post(
-                    target, data=msg.body,
-                    headers={"taskId": msg.task_id,
-                             "Content-Type": msg.content_type}) as resp:
-                status = resp.status
-                await resp.read()
+            # One span per delivery attempt, the child of the publisher's
+            # span (the message's B3 headers); its own B3 headers parent
+            # the backend's endpoint span, so gateway -> dispatch ->
+            # execution is one trace.
+            with self.tracer.span("dispatch", task_id=msg.task_id,
+                                  headers=msg.trace_headers or None,
+                                  queue=self.queue_name,
+                                  attempt=msg.delivery_count) as span:
+                async with session.post(
+                        target, data=msg.body,
+                        headers={"taskId": msg.task_id,
+                                 "Content-Type": msg.content_type,
+                                 **self.tracer.headers()}) as resp:
+                    status = resp.status
+                    await resp.read()
+                span.attrs["http_status"] = status
+                if not (200 <= status < 300
+                        or status in BACKPRESSURE_CODES):
+                    span.status = "error"
+                    span.error = f"backend returned {status}"
         except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
             # Unreachable backend: the pod may be restarting; the broker's
             # patience bounds the retries.
@@ -175,6 +213,7 @@ class Dispatcher:
             return
         if 200 <= status < 300:
             self.broker.complete(msg)
+            self._stamp(msg.task_id, hop.DELIVERED, reason=backend)
             self._dispatched.inc(outcome="delivered", queue=self.queue_name,
                                  backend=backend)
             return
@@ -202,6 +241,7 @@ class Dispatcher:
         return backoff_s(msg.delivery_count, self.retry_delay, lease / 2.0)
 
     async def _backpressure(self, msg: Message, backend: str) -> None:
+        self._stamp(msg.task_id, hop.BACKPRESSURE, reason=backend)
         self._dispatched.inc(outcome="backpressure", queue=self.queue_name,
                              backend=backend)
         await self._try_update(msg.task_id, AWAITING_STATUS,
@@ -214,6 +254,8 @@ class Dispatcher:
                 self._dispatched.inc(outcome="duplicate",
                                      queue=self.queue_name, backend=backend)
                 return
+            self._stamp(msg.task_id, hop.DEAD_LETTER,
+                        reason=f"after {msg.delivery_count} deliveries")
             self._dispatched.inc(outcome="dead_letter", queue=self.queue_name,
                                  backend=backend)
             await self._try_update(msg.task_id, TaskStatus.DEAD_LETTER,
@@ -232,11 +274,13 @@ class DispatcherPool:
 
     def __init__(self, broker: InMemoryBroker, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
+                 observability=None,
                  metrics: MetricsRegistry | None = None):
         self.broker = broker
         self.task_manager = task_manager
         self.retry_delay = retry_delay
         self.concurrency = concurrency
+        self.observability = observability
         self.metrics = metrics
         self.dispatchers: dict[str, Dispatcher] = {}
 
@@ -247,7 +291,7 @@ class DispatcherPool:
             self.broker, queue_name, backend_uri, self.task_manager,
             retry_delay=self.retry_delay if retry_delay is None else retry_delay,
             concurrency=self.concurrency if concurrency is None else concurrency,
-            metrics=self.metrics)
+            observability=self.observability, metrics=self.metrics)
         self.dispatchers[queue_name] = d
         return d
 

@@ -7,7 +7,10 @@ lanes (ROADMAP A18.2, A18.10):
   ``complete``s it or ``abandon``s it for redelivery;
 - a lease that expires without either is redelivered too;
 - past ``max_delivery_count`` deliveries a message is dead-lettered and a
-  callback can fail its task.
+  callback can fail its task;
+- a message carries the B3 headers of the span its publisher ran in (the
+  gateway's ``create_task``), which JAX's messages do not: the port's
+  dispatch span continues the gateway's trace instead of starting one.
 
 Event-loop only, except ``publish``, which any thread may call.
 """
@@ -24,6 +27,7 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 from ..metrics import DEFAULT_REGISTRY
+from ..observability import get_tracer
 from ..taskstore import endpoint_path as canonical_path
 
 log = logging.getLogger("ai4e_tpu_torch.broker")
@@ -49,6 +53,10 @@ class Message:
     seq: int = 0
     lease_expires: float = 0.0
     queue_name: str = ""  # resolved by the broker at publish time
+    # B3 headers of the span active where the task was published (the
+    # gateway's create_task): the dispatch span's parent, so gateway ->
+    # dispatcher -> worker is one trace. Empty outside any span.
+    trace_headers: dict = field(default_factory=dict)
 
 
 DeadLetterHandler = Callable[[Message], None]
@@ -225,7 +233,8 @@ class InMemoryBroker:
         msg = Message(task_id=task.task_id, endpoint=task.endpoint,
                       body=task.body, content_type=task.content_type,
                       seq=next(self._seq),
-                      queue_name=self.resolve_queue_name(task.endpoint))
+                      queue_name=self.resolve_queue_name(task.endpoint),
+                      trace_headers=get_tracer().headers())
         loop = self._loop
         try:
             running = asyncio.get_running_loop()

@@ -1,4 +1,4 @@
-"""Command line: ``python -m ai4e_tpu_torch control-plane|worker``.
+"""Command line: ``python -m ai4e_tpu_torch control-plane|worker|trace``.
 
 Counterpart of ``ai4e_tpu/cli.py``; both read the same spec files and the
 same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
@@ -20,6 +20,16 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   keyword arguments: the model's batch API)) and optionally ``taskstore``:
   the control plane's URL (a comma-separated value is its replica set),
   whose task store then holds the worker's tasks and results.
+- ``trace --task-id ID --url CONTROL_PLANE`` — the task's hop ledger,
+  fetched live (``GET /v1/taskmanagement/task/{id}?ledger=1``) and rendered
+  with per-hop deltas; ``trace [--task-id ID | --trace-id ID] [--list]
+  [--export LOG]`` — span trees from the JSONL span log (default:
+  ``AI4E_OBSERVABILITY_TRACE_EXPORT_PATH``). Neither imports torch.
+
+Both services install ``AI4E_OBSERVABILITY_*``'s tracer settings at start
+(every span an INFO log line unless an export path or OTLP endpoint is
+set, as in JAX) and, with ``AI4E_OBSERVABILITY_VITALS``, sample their own
+vitals into their ``/metrics``.
 
 A spec key, route key or ``AI4E_*`` knob the JAX package would honour and
 this port does not serve yet raises and names its ROADMAP item.
@@ -95,6 +105,19 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
     return platform
 
 
+async def start_vitals(config: FrameworkConfig, metrics):
+    """A started ``VitalsSampler`` into ``metrics`` when
+    ``AI4E_OBSERVABILITY_VITALS`` is set, else None."""
+    if not config.observability.vitals:
+        return None
+    from .observability.vitals import VitalsSampler
+
+    vitals = VitalsSampler(metrics,
+                           interval_s=config.observability.vitals_interval)
+    await vitals.start()
+    return vitals
+
+
 async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     from aiohttp import web
 
@@ -103,11 +126,19 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     await runner.setup()
     await web.TCPSite(runner, config.gateway.host, config.gateway.port).start()
     await platform.start()
-    log.info("control plane on %s:%s (%d routes)", config.gateway.host,
-             config.gateway.port, len(platform.gateway.routes))
+    vitals = await start_vitals(config, platform.metrics)
+    posture = "".join([
+        ", observability ON" if platform.observability is not None else "",
+        (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
+         if platform.slo is not None else ""),
+        ", vitals ON" if vitals is not None else ""])
+    log.info("control plane on %s:%s (%d routes%s)", config.gateway.host,
+             config.gateway.port, len(platform.gateway.routes), posture)
     try:
         await _wait_for_termination()
     finally:
+        if vitals is not None:
+            await vitals.stop()
         await platform.stop()
         await runner.cleanup()
 
@@ -191,7 +222,7 @@ def _stores(models: dict, config: FrameworkConfig):
 def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                  max_pending: int | None = None,
                  config: FrameworkConfig | None = None,
-                 measure_phases: bool = False):
+                 measure_phases: bool | None = None):
     """Assemble a worker from a models spec; returns ``(worker, batcher,
     task_manager)``. ``device`` defaults to ``cuda``; ``config`` (default:
     every section at its defaults) supplies the batcher's window and
@@ -200,9 +231,11 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     checkpoint root and the drain budget. In the JAX package's order: every
     model is registered, the persisted ladders are restored, every bucket
     is warmed (on the card: run and captured as a CUDA graph), then the
-    batcher is built. ``measure_phases`` turns on the batcher's device-phase,
-    overlap and pad metrics; off by default, as in the JAX package, whose
-    switch for them (``AI4E_OBSERVABILITY_HOP_LEDGER``) is not ported."""
+    batcher is built. ``AI4E_OBSERVABILITY_HOP_LEDGER`` makes the worker
+    flush each request's hop ledger and turns on the batcher's
+    device-phase, overlap and pad metrics, as in the JAX package;
+    ``measure_phases`` set to True or False overrides the config for the
+    metrics alone."""
     from .metrics import MetricsRegistry
     from .runtime.batcher import MicroBatcher
     from .runtime.families import build_servable
@@ -251,7 +284,9 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
         metrics=metrics, pipeline_depth=rt.batch_pipeline_depth,
         interactive_reserve=rt.batch_interactive_reserve,
         priority_aging_s=rt.batch_priority_aging_s,
-        measure_phases=measure_phases, ladder_manager=ladders,
+        measure_phases=(config.observability.hop_ledger
+                        if measure_phases is None else measure_phases),
+        ladder_manager=ladders,
         double_buffer=rt.batch_double_buffer)
     worker = InferenceWorker(models.get("service_name", "gpu-worker"), runtime,
                              batcher, task_manager=task_manager,
@@ -259,6 +294,7 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                              metrics=metrics, store=store,
                              executor_workers=config.service.executor_workers,
                              checkpoint_root=rt.checkpoint_dir,
+                             hop_ledger=config.observability.hop_ledger,
                              drain_timeout_s=(config.rollout.drain_timeout_ms
                                               / 1000.0))
     for servable, sync_path, async_path, cap, handoff, batch in to_serve:
@@ -292,10 +328,13 @@ def _launches_by_model(runtime, before: dict | None = None) -> dict:
 
 
 async def serve(worker, batcher, host: str, port: int,
-                stop: asyncio.Event, drain_timeout: float = 30.0) -> None:
+                stop: asyncio.Event, drain_timeout: float = 30.0,
+                config: FrameworkConfig | None = None) -> None:
     """Serve ``worker`` on ``host:port`` until ``stop`` is set, then drain
     in-flight async tasks, stop the batcher, close the store clients and
-    log each kernel's launches while serving (warmup excluded)."""
+    log each kernel's launches while serving (warmup excluded). ``config``
+    (default: every section at its defaults) may start the vitals
+    sampler."""
     from aiohttp import web
 
     await batcher.start()
@@ -303,12 +342,19 @@ async def serve(worker, batcher, host: str, port: int,
     await runner.setup()
     before = kernel_launches()
     before_by_model = _launches_by_model(worker.runtime)
+    vitals = None
     try:
         await web.TCPSite(runner, host, port).start()
-        log.info("worker on %s:%s serving %s on %s", host, port,
-                 list(worker.runtime.models), worker.runtime.device)
+        vitals = await start_vitals(config or FrameworkConfig(),
+                                    worker.service.metrics)
+        log.info("worker on %s:%s serving %s on %s%s%s", host, port,
+                 list(worker.runtime.models), worker.runtime.device,
+                 ", vitals ON" if vitals is not None else "",
+                 ", hop ledger ON" if worker.hop_ledger else "")
         await stop.wait()
     finally:
+        if vitals is not None:
+            await vitals.stop()
         await worker.service.drain(timeout=drain_timeout)
         await batcher.stop()
         for client in (worker.service.task_manager, worker.store):
@@ -329,7 +375,59 @@ async def run_worker(config: FrameworkConfig, models: dict,
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
     await serve(worker, batcher, config.service.host, config.service.port,
-                stop, drain_timeout=config.service.drain_timeout)
+                stop, drain_timeout=config.service.drain_timeout,
+                config=config)
+
+
+def run_trace(args) -> None:
+    """The ``trace`` verb: an HTTP client or a log reader, no assembly."""
+    if args.url:
+        if not args.task_id:
+            raise SystemExit("--url mode requires --task-id")
+        import urllib.error
+        import urllib.request
+
+        from .observability.ledger import render_ledger
+        req = urllib.request.Request(
+            args.url.rstrip("/")
+            + f"/v1/taskmanagement/task/{args.task_id}?ledger=1",
+            headers=({"Ocp-Apim-Subscription-Key": args.api_key}
+                     if args.api_key else {}))
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                record = json.loads(resp.read())
+        except urllib.error.HTTPError as exc:
+            raise SystemExit(
+                f"task fetch failed: HTTP {exc.code} "
+                f"{exc.read().decode(errors='replace')[:200]}")
+        except OSError as exc:
+            raise SystemExit(f"cannot reach {args.url}: {exc}")
+        print(render_ledger(args.task_id, record.get("Ledger") or [],
+                            status=record.get("Status")))
+        return
+    from .observability.traceview import (load_spans, render_list,
+                                          render_trace, select_traces)
+    path = args.export
+    if path is None:
+        path = FrameworkConfig.from_env().observability.trace_export_path
+    if not path:
+        raise SystemExit(
+            "no span log: pass --export or set "
+            "AI4E_OBSERVABILITY_TRACE_EXPORT_PATH on the services")
+    try:
+        spans = load_spans(path)
+    except OSError as exc:
+        raise SystemExit(f"cannot read span log {path}: {exc}")
+    selected = select_traces(spans, task_id=args.task_id,
+                             trace_id=args.trace_id)
+    if not selected and (args.task_id or args.trace_id):
+        raise SystemExit("no matching spans")
+    if args.list_traces:
+        print(render_list(selected, limit=args.limit))
+        return
+    if not selected:
+        raise SystemExit("no matching spans")
+    print(render_trace(selected))
 
 
 async def _wait_for_termination() -> None:
@@ -357,11 +455,38 @@ def main(argv=None) -> None:
     wk.add_argument("--port", type=int, default=None)
     wk.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu")
+    tr = sub.add_parser(
+        "trace",
+        help="a task's hop ledger fetched live from the control plane "
+             "(--url), or span trees from the JSONL span log")
+    tr.add_argument("--export", default=None,
+                    help="span log path (default: the configured "
+                         "AI4E_OBSERVABILITY_TRACE_EXPORT_PATH)")
+    tr.add_argument("--url", default=None,
+                    help="control-plane base URL: fetch the task's hop "
+                         "ledger (GET /v1/taskmanagement/task/{id}"
+                         "?ledger=1) instead of reading a span log; "
+                         "requires --task-id")
+    tr.add_argument("--api-key", default=None,
+                    help="subscription key, for a control plane that "
+                         "checks one (--url mode)")
+    tr_sel = tr.add_mutually_exclusive_group()
+    tr_sel.add_argument("--task-id", default=None,
+                        help="render every trace this task traversed")
+    tr_sel.add_argument("--trace-id", default=None, help="render one trace")
+    tr.add_argument("--list", action="store_true", dest="list_traces",
+                    help="summarise recent traces instead of rendering")
+    tr.add_argument("--limit", type=int, default=20,
+                    help="--list: how many recent traces")
     args = parser.parse_args(argv)
+    if args.component == "trace":
+        run_trace(args)
+        return
     try:
         config = FrameworkConfig.from_env()
     except ConfigError as exc:
         raise SystemExit(f"ai4e_tpu_torch: {exc}")
+    config.observability.apply()
     if args.component == "control-plane":
         if args.port is not None:
             config.gateway.port = args.port

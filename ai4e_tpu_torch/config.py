@@ -41,7 +41,8 @@ _CACHE = "the result cache (ROADMAP A18.6)"
 _REAPER = "the task reaper's stuck-task rescue (ROADMAP A18.7)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
 _TENANCY = "tenancy (ROADMAP A18.10)"
-_OBSERVABILITY = "observability: tracing, hop ledger, SLOs (ROADMAP A18.11)"
+_SLO_LADDER = ("the SLO burn feed to the degradation ladder, which needs "
+               "orchestration (ROADMAP A18.9)")
 _PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
 _NATIVE = "the native cores and result offload (ROADMAP A18.13)"
 _REPORTER = "the request reporter (ROADMAP A18.14)"
@@ -80,10 +81,7 @@ UNPORTED: dict[tuple[str, str], str] = {
         "orchestration_horizon_s", "orchestration_costs",
         "orchestration_ladder_up", "orchestration_ladder_down",
         "orchestration_ladder_hold_s", "orchestration_scale_horizon_s")},
-    **{("AI4E_PLATFORM_", f): _OBSERVABILITY for f in (
-        "observability", "flight_capacity", "flight_sample",
-        "flight_slow_ms", "slo_objectives", "slo_tick_s",
-        "slo_fast_window_s", "slo_slow_window_s", "slo_ladder")},
+    ("AI4E_PLATFORM_", "slo_ladder"): _SLO_LADDER,
     **{("AI4E_PLATFORM_", f): _PIPELINE for f in (
         "pipeline", "pipeline_event_replay", "pipeline_stream_max_s",
         "pipeline_chunk_replay")},
@@ -104,11 +102,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     **{("AI4E_GATEWAY_", f): _AUTH for f in (
         "api_keys", "rate_limit_rps", "rate_limit_burst", "rate_limits",
         "quota", "quotas")},
-    **{("AI4E_OBSERVABILITY_", f): _OBSERVABILITY for f in (
-        "trace_enabled", "trace_sample_rate", "trace_export_path",
-        "trace_otlp_endpoint", "queue_depth_interval",
-        "process_depth_interval", "vitals", "vitals_interval",
-        "hop_ledger")},
     **{("AI4E_TENANCY_", f): _TENANCY for f in (
         "enabled", "tenants", "default_weight", "default_rps",
         "default_burst", "label_top_n", "goodput_target", "min_quantum")},
@@ -352,7 +345,11 @@ class GatewaySection:
 
 @_env_section("AI4E_OBSERVABILITY_")
 class ObservabilitySection:
-    """Tracing/metrics knobs."""
+    """Tracing/metrics knobs: tracing is on at rate 1.0 with every span an
+    INFO log line unless an export path or OTLP endpoint is set; the depth
+    intervals feed the control plane's ``DepthLogger``; ``vitals`` starts
+    the ``VitalsSampler`` in both launchers; ``hop_ledger`` makes the
+    worker measure device phases and flush each request's timeline."""
     trace_enabled: bool = True
     trace_sample_rate: float = 1.0
     trace_export_path: typing.Optional[str] = None
@@ -362,6 +359,30 @@ class ObservabilitySection:
     vitals: bool = False
     vitals_interval: float = 1.0
     hop_ledger: bool = False
+
+    def apply(self) -> None:
+        """Install these settings on the process tracer (components without
+        explicit tracer settings follow it live)."""
+        from .observability import (FanoutExporter, JsonlExporter,
+                                    configure_tracer)
+        rate = self.trace_sample_rate if self.trace_enabled else 0.0
+        exporters = []
+        if self.trace_export_path:
+            exporters.append(JsonlExporter(self.trace_export_path))
+        if self.trace_otlp_endpoint:
+            from .observability.otlp import OtlpHttpExporter
+            exporters.append(OtlpHttpExporter(self.trace_otlp_endpoint))
+        exporter = None
+        if len(exporters) == 1:
+            exporter = exporters[0]
+        elif exporters:
+            exporter = FanoutExporter(exporters)
+        if exporter is not None:
+            # Flush buffered spans at exit (the OTLP exporter holds up to
+            # its flush interval of them).
+            import atexit
+            atexit.register(exporter.close)
+        configure_tracer(exporter=exporter, sample_rate=rate)
 
 
 @_env_section("AI4E_TENANCY_")
@@ -421,8 +442,13 @@ class FrameworkConfig:
                       for name, sec in sections.items()})
 
     def to_platform_config(self):
-        """The ``PlatformConfig`` the control plane assembles from."""
-        return self.platform.to_platform_config()
+        """The ``PlatformConfig`` the control plane assembles from: the
+        platform section's fields, the depth logger's intervals from the
+        observability section."""
+        pc = self.platform.to_platform_config()
+        pc.queue_depth_interval = self.observability.queue_depth_interval
+        pc.process_depth_interval = self.observability.process_depth_interval
+        return pc
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -9,23 +9,35 @@ Routes:
 - ``ANY  {route.prefix}/…`` (sync) -> a reverse proxy to the backend;
 - ``GET  /v1/taskmanagement/task/{taskId}`` -> the task record (404 when
   unknown); ``?wait=SECONDS`` long-polls until it is terminal;
+  ``?ledger=1`` adds the task's hop-ledger timeline as ``Ledger`` (opt-in:
+  without it the answer is byte-identical);
+- ``GET  /v1/debug/flight`` -> the flight recorder's dump, once
+  ``set_observability`` attached the hub;
 - ``GET  /metrics``, ``GET /healthz``.
 
-Not ported (ROADMAP A18): subscription keys, rate limits and quotas,
-tenancy, the result cache, admission, orchestration and resilient proxying,
-event streams, the flight recorder and weighted backends.
+Every async request runs in a ``create_task`` span (parented by inbound B3
+headers); with the hub it gets ``admitted`` (stamped at its arrival time)
+and ``published`` ledger events, and each sync POST's round trip is
+observed for the SLO engine. Not ported (ROADMAP A18): subscription keys,
+rate limits and quotas, tenancy, the result cache, admission and its
+refusals, orchestration and resilient proxying, event streams and
+weighted backends.
 """
 
 from __future__ import annotations
 
 import asyncio
+import time
 from dataclasses import dataclass
 
 import aiohttp
 from aiohttp import web
 
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
-from ..taskstore import APITask, InMemoryTaskStore, TaskNotFound, TaskStatus
+from ..observability import Tracer
+from ..observability.ledger import ADMITTED, PUBLISHED, ledger_event
+from ..taskstore import (APITask, InMemoryTaskStore, TaskNotFound, TaskStatus,
+                         endpoint_path)
 from ..utils.http import SessionHolder, read_body_limited
 
 
@@ -55,6 +67,12 @@ class Gateway:
         self.routes: list[Route] = []
         self._requests = self.metrics.counter(
             "ai4e_gateway_requests_total", "Gateway requests by route/outcome")
+        # Spans land in this gateway's registry; exporter and sampling
+        # follow configure_tracer live.
+        self.tracer = Tracer("gateway", metrics=self.metrics)
+        # Request-observability hub (set_observability); None: no ledger
+        # stamps, no flight recorder, no per-route e2e telemetry.
+        self._observability = None
         # Proxy fan-out is bounded by inbound connections, not the pool.
         self._sessions = SessionHolder(limit=0)
         # Long-poll waiters: task_id -> [(loop, future)], woken by the
@@ -69,6 +87,22 @@ class Gateway:
         self.app.router.add_get("/metrics", self._metrics)
         self.app.on_cleanup.append(self._cleanup)
 
+    def set_observability(self, hub) -> None:
+        """Attach the request-observability hub: accepted async requests
+        get ``admitted``/``published`` ledger stamps, sync POSTs feed the
+        per-route e2e telemetry, async tasks count under their published
+        prefix (the hub maps each route's backend path onto it), and ``GET
+        /v1/debug/flight`` serves the flight recorder."""
+        first = self._observability is None
+        self._observability = hub
+        for route in self.routes:
+            if route.mode == "async":
+                hub.map_route(endpoint_path(route.backend_uri), route.prefix)
+        if first:
+            # Added only with the hub, so a default gateway's route table
+            # stays as it was.
+            self.app.router.add_get("/v1/debug/flight", self._flight_dump)
+
     def add_async_route(self, prefix: str, task_endpoint: str,
                         max_body_bytes: int | None = None) -> None:
         """Register an async API: requests become tasks addressed to
@@ -77,6 +111,9 @@ class Gateway:
                       backend_uri=task_endpoint,
                       max_body_bytes=max_body_bytes)
         self.routes.append(route)
+        if self._observability is not None:
+            self._observability.map_route(endpoint_path(route.backend_uri),
+                                          route.prefix)
         handler = self._make_async_handler(route)
         self.app.router.add_post(route.prefix, handler)
         self.app.router.add_post(route.prefix + "/{tail:.*}", handler)
@@ -105,6 +142,9 @@ class Gateway:
 
     def _make_async_handler(self, route: Route):
         async def handler(request: web.Request) -> web.Response:
+            # The ledger's ``admitted`` carries the ARRIVAL time, so the
+            # gateway's own time is the admitted -> published delta.
+            arrival = time.time() if self._observability is not None else 0.0
             body = await read_body_limited(request, self._route_limit(route))
             if body is None:
                 return self._payload_too_large(route)
@@ -116,11 +156,22 @@ class Gateway:
                 endpoint = endpoint.rstrip("/") + "/" + tail
             if request.query_string:
                 endpoint += "?" + request.query_string
-            task = self.store.upsert(APITask(
-                endpoint=endpoint, body=body,
-                content_type=request.content_type or "application/json",
-                publish=True))
+            with self.tracer.span("create_task", route=route.prefix,
+                                  headers=request.headers) as span:
+                task = self.store.upsert(APITask(
+                    endpoint=endpoint, body=body,
+                    content_type=request.content_type or "application/json",
+                    publish=True))
+                span.task_id = task.task_id
             stored = self.store.get(task.task_id)
+            if self._observability is not None:
+                # The store published the task inside upsert, so it is on
+                # the transport by now.
+                self._observability.stamp(
+                    task.task_id,
+                    ledger_event(ADMITTED, "gateway", t=arrival,
+                                 reason=route.prefix),
+                    ledger_event(PUBLISHED, "gateway"))
             outcome = ("failed" if stored.canonical_status == "failed"
                        else "created")
             self._requests.inc(route=route.prefix, outcome=outcome)
@@ -145,16 +196,27 @@ class Gateway:
             if request.query_string:
                 target += "?" + request.query_string
             session = await self._sessions.get()
+            # Sync POSTs (inference requests, not health probes) feed the
+            # hub's per-route e2e latency and outcome.
+            observe = (self._observability.observe_sync
+                       if self._observability is not None
+                       and request.method == "POST" else None)
+            t0 = time.perf_counter()
             try:
                 async with session.request(request.method, target, data=body,
                                            headers=headers) as resp:
                     payload = await resp.read()
                     self._requests.inc(route=route.prefix,
                                        outcome=str(resp.status))
+                    if observe is not None:
+                        observe(route.prefix, time.perf_counter() - t0,
+                                resp.status)
                     return web.Response(status=resp.status, body=payload,
                                         content_type=resp.content_type)
             except aiohttp.ClientError as exc:
                 self._requests.inc(route=route.prefix, outcome="unreachable")
+                if observe is not None:
+                    observe(route.prefix, time.perf_counter() - t0, 502)
                 return web.Response(status=502,
                                     text=f"Backend unreachable: {exc}")
 
@@ -172,7 +234,8 @@ class Gateway:
 
     async def _task(self, request: web.Request) -> web.Response:
         """Task status; ``?wait=SECONDS`` (at most 60) long-polls until the
-        task is terminal or the wait expires."""
+        task is terminal or the wait expires; ``?ledger=1`` adds the task's
+        hop-ledger timeline."""
         task_id = request.match_info["task_id"]
         try:
             task = self.store.get(task_id)
@@ -205,7 +268,17 @@ class Gateway:
                     waiters.remove(entry)
                     if not waiters:
                         del self._waiters[task_id]
-        return web.json_response(task.to_dict())
+        payload = task.to_dict()
+        if request.query.get("ledger", "") not in ("", "0", "false"):
+            payload["Ledger"] = self.store.get_ledger(task_id)
+        return web.json_response(payload)
+
+    async def _flight_dump(self, _: web.Request) -> web.Response:
+        hub = self._observability
+        if hub is None or hub.flight is None:
+            return web.json_response(
+                {"error": "flight recorder not enabled"}, status=404)
+        return web.json_response(hub.flight.dump())
 
     async def _health(self, _: web.Request) -> web.Response:
         return web.json_response({"status": "healthy",

@@ -1,11 +1,11 @@
 """Metrics registry — counters, gauges, histograms with label dims,
 exported in Prometheus text format. A copy of ``ai4e_tpu/metrics/
-registry.py`` (without exemplars), so the port imports nothing of the JAX
-package."""
+registry.py``, so the port imports nothing of the JAX package."""
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
 
 LabelKey = tuple[tuple[str, str], ...]
@@ -71,24 +71,39 @@ class Histogram:
         self.buckets = tuple(buckets)
         self._counts: dict[LabelKey, list[int]] = {}
         self._sums: dict[LabelKey, float] = defaultdict(float)
+        # Exemplars: (labelkey, bucket index) -> the LAST observation that
+        # landed there carrying one, so a bucket in /metrics links to a
+        # task id the trace verb or the flight recorder takes. Only
+        # callers that pass one populate it; without them the exposition
+        # is byte-identical.
+        self._exemplars: dict[LabelKey, dict[int, tuple[dict, float, float]]] = {}
         self._lock = threading.Lock()
 
-    def observe(self, value: float, **labels: str) -> None:
+    def observe(self, value: float, exemplar: dict | None = None,
+                **labels: str) -> None:
         key = _label_key(labels)
         with self._lock:
             counts = self._counts.setdefault(key, [0] * len(self.buckets))
             for i, b in enumerate(self.buckets):
                 if value <= b:
                     counts[i] += 1
+                    if exemplar:
+                        self._exemplars.setdefault(key, {})[i] = (
+                            dict(exemplar), value, time.time())
                     break
             self._sums[key] += value
 
     def collect(self):
         with self._lock:
-            return [("histogram", self.name, dict(key),
-                     {"buckets": list(zip(self.buckets, counts)),
-                      "sum": self._sums[key], "count": sum(counts)})
-                    for key, counts in self._counts.items()]
+            out = []
+            for key, counts in self._counts.items():
+                data = {"buckets": list(zip(self.buckets, counts)),
+                        "sum": self._sums[key], "count": sum(counts)}
+                exemplars = self._exemplars.get(key)
+                if exemplars:
+                    data["exemplars"] = dict(exemplars)
+                out.append(("histogram", self.name, dict(key), data))
+            return out
 
 
 class MetricsRegistry:
@@ -132,12 +147,25 @@ class MetricsRegistry:
                 label_s = "{" + label_s + "}" if label_s else ""
                 if kind == "histogram":
                     cum = 0
-                    for edge, c in value["buckets"]:
+                    exemplars = value.get("exemplars") or {}
+                    for i, (edge, c) in enumerate(value["buckets"]):
                         cum += c
                         le = "+Inf" if edge == float("inf") else repr(edge)
                         inner = dict(labels, le=le)
                         ls = ",".join(f'{k}="{v}"' for k, v in sorted(inner.items()))
                         lines.append(f"{name}_bucket{{{ls}}} {cum}")
+                        if i in exemplars:
+                            # A standalone comment line under its bucket:
+                            # the classic text format has no exemplar
+                            # syntax, and OpenMetrics' trailing `# {...}`
+                            # would fail a classic scrape; every classic
+                            # parser skips a full-line comment.
+                            ex_labels, ex_value, ex_ts = exemplars[i]
+                            exs = ",".join(f'{k}="{v}"' for k, v
+                                           in sorted(ex_labels.items()))
+                            lines.append(
+                                f"# exemplar {name}_bucket{{{ls}}} "
+                                f"{{{exs}}} {ex_value} {ex_ts}")
                     lines.append(f"{name}_sum{label_s} {value['sum']}")
                     lines.append(f"{name}_count{label_s} {value['count']}")
                 else:

@@ -1,0 +1,184 @@
+"""Per-task hop ledger — a compact monotonic event timeline; a copy of
+``ai4e_tpu/observability/ledger.py``.
+
+Every hop a task traverses (gateway admission, broker publish,
+dispatcher pop, backend delivery, batch cut, device phases, terminal
+transition, and every backpressure, retry or dead-letter decision with
+its reason) stamps one small event onto the task's timeline. The
+timeline rides the task record in the control plane's store, and
+``python -m ai4e_tpu_torch trace --task-id … --url <control-plane>``
+renders it with per-hop deltas.
+
+Event shape (compact keys — a task carries dozens of these):
+
+- ``e``: event name (the vocabulary below);
+- ``h``: hop that stamped it (``gateway``, ``dispatcher``, ``worker``,
+  ``batcher``, ``device``, ``store``);
+- ``t``: epoch seconds (wall clock; across processes as good as the
+  hosts' clocks);
+- ``r``: optional reason/detail (HTTP status, backend host, batch size);
+- ``ms``: optional duration in milliseconds for the device phases (h2d,
+  execute, d2h), which are intervals, not instants.
+
+The ledger is observability state, not durable truth: it lives beside
+the record in store memory and is dropped with the record at retention
+eviction.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+# -- event vocabulary: the JAX package's whole; the port's hops stamp a part
+# of it (no placement, shedding, rollout or streaming yet), and its store
+# keeps whatever a JAX worker sends.
+
+ADMITTED = "admitted"        # gateway accepted the request (task exists)
+PUBLISHED = "published"      # task handed to the transport
+POPPED = "popped"            # dispatcher received the queue message
+PLACED = "placed"            # placement decision (r="outcome backend-host")
+DELIVERED = "delivered"      # backend POST answered 2xx
+BATCHED = "batched"          # batch cut: example left the pending queue
+H2D = "h2d"                  # host→device transfer phase (ms=duration)
+COMPILE = "compile"          # first-execution compile phase (ms=duration)
+EXECUTE = "execute"          # device execute phase (ms=duration)
+D2H = "d2h"                  # device→host fetch phase (ms=duration)
+COMPLETED = "completed"      # terminal transition (r=canonical status)
+SHED = "shed"                # refused under pressure/brownout (r=reason)
+EXPIRED = "expired"          # deadline ran out (r=hop that dropped it)
+RETRY = "retry"              # in-delivery retry, same backend (r=cause)
+FAILOVER = "failover"        # retry switched backend (r=excluded backend)
+PROBE = "probe"              # placement chose a recovery probe (r=backend)
+BACKPRESSURE = "backpressure"  # backend saturated; message redelivers
+DUPLICATE = "duplicate"      # redelivery suppressed (task already terminal)
+DEAD_LETTER = "dead_letter"  # delivery budget exhausted
+STAGE = "stage"              # pipeline stage boundary (r="name event" or
+                             # "old-path -> new-path" on hop-to-hop handoff)
+CHUNK = "chunk"              # streaming first token (ms=TTFT; one stamp
+                             # per request — a 512-token stream must not
+                             # eat the event cap)
+ROLLOUT = "rollout"          # rollout transition (r="worker -> gen" /
+                             # "canary weight N%")
+ROLLBACK = "rollback"        # rollout aborted (r=breach reason; the
+                             # canary burn/breaker trigger is in r)
+
+# Hard cap on events per task: a pathological retry loop must not grow
+# a record without bound. The overflow marker is itself an event, once.
+MAX_EVENTS = 128
+TRUNCATED = "truncated"
+
+
+def ledger_event(event: str, hop: str, t: float | None = None,
+                 reason: str | None = None,
+                 ms: float | None = None) -> dict:
+    """One timeline event. ``t`` defaults to now; pass an earlier stamp
+    for events whose moment precedes the append (e.g. ``admitted`` is
+    the request's arrival time, appended after the record exists)."""
+    ev: dict = {"e": event, "h": hop,
+                "t": time.time() if t is None else t}
+    if reason is not None:
+        ev["r"] = str(reason)
+    if ms is not None:
+        ev["ms"] = round(float(ms), 3)
+    return ev
+
+
+class HopLedger:
+    """A per-request event buffer for hops that cannot reach the store
+    mid-flight (the worker's batcher stamps the batch cut and the device
+    phases into one of these; the worker flushes it to the store in a
+    single call at the end). Thread-safe."""
+
+    __slots__ = ("_events", "_lock")
+
+    def __init__(self):
+        self._events: list[dict] = []
+        self._lock = threading.Lock()
+
+    def stamp(self, event: str, hop: str, t: float | None = None,
+              reason: str | None = None, ms: float | None = None) -> None:
+        ev = ledger_event(event, hop, t=t, reason=reason, ms=ms)
+        with self._lock:
+            if len(self._events) < MAX_EVENTS:
+                self._events.append(ev)
+
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def drain(self) -> list[dict]:
+        """Take the buffered events, leaving the buffer empty — the
+        flush primitive: a second flush (e.g. a finally backstop after
+        the success path already flushed) becomes a no-op instead of a
+        duplicate timeline."""
+        with self._lock:
+            events, self._events = self._events, []
+            return events
+
+
+def validate_events(events) -> list[dict]:
+    """Sanitize externally-supplied events (the HTTP append surface):
+    keep only dicts with a string ``e``/``h`` and a numeric ``t``; the
+    optional fields are coerced. Anything else is dropped, not an error
+    — a malformed observability event must never fail a task write."""
+    out: list[dict] = []
+    for ev in events or ():
+        if not isinstance(ev, dict):
+            continue
+        e, h, t = ev.get("e"), ev.get("h"), ev.get("t")
+        if not (isinstance(e, str) and isinstance(h, str)
+                and isinstance(t, (int, float))):
+            continue
+        clean: dict = {"e": e, "h": h, "t": float(t)}
+        if "r" in ev:
+            clean["r"] = str(ev["r"])
+        if "ms" in ev:
+            try:
+                clean["ms"] = float(ev["ms"])
+            except (TypeError, ValueError):
+                pass
+        out.append(clean)
+    return out
+
+
+def render_ledger(task_id: str, events: list[dict],
+                  status: str | None = None) -> str:
+    """Terminal rendering: header, then one line per event in time order
+    with the offset from the first event and the delta from the previous
+    one — the "where did the time go" column.
+
+    ::
+
+        task 3f… completed  9 events  412.7ms end-to-end
+          +0.0ms               admitted        [gateway]
+          +0.3ms    (+0.3ms)   published       [gateway]
+          +1.9ms    (+1.6ms)   popped          [dispatcher]
+          ...
+    """
+    if not events:
+        return (f"task {task_id}: no ledger events "
+                "(observability off, or the timeline was lost to a "
+                "control-plane restart)")
+    events = sorted(events, key=lambda ev: ev.get("t", 0.0))
+    t0 = events[0].get("t", 0.0)
+    t_end = max(ev.get("t", 0.0) + ev.get("ms", 0.0) / 1e3
+                for ev in events)
+    head = (f"task {task_id}"
+            + (f"  {status}" if status else "")
+            + f"  {len(events)} events"
+            + f"  {(t_end - t0) * 1e3:.1f}ms end-to-end")
+    lines = [head]
+    prev = t0
+    for ev in events:
+        t = ev.get("t", 0.0)
+        off = f"+{(t - t0) * 1e3:.1f}ms"
+        delta = f"(+{(t - prev) * 1e3:.1f}ms)" if t > prev else ""
+        prev = max(prev, t)
+        label = ev.get("e", "?")
+        if "ms" in ev:
+            label += f" {ev['ms']:.1f}ms"
+        if ev.get("r"):
+            label += f"  {ev['r']}"
+        lines.append(f"  {off:<12} {delta:<12} {label}  [{ev.get('h', '?')}]")
+    return "\n".join(lines)

@@ -1,8 +1,12 @@
 """Control-plane assembly — store + broker + dispatchers + gateway in one
 event loop; ``PlatformConfig`` and ``LocalPlatform`` of
 ``ai4e_tpu/platform_assembly.py``, with the in-memory store, the in-memory
-broker (transport ``"queue"``), the reaper's terminal retention and the
-autoscaler on a route's one dispatcher (``scaling.AutoscaleController``).
+broker (transport ``"queue"``), the reaper's terminal retention, the
+autoscaler on a route's one dispatcher (``scaling.AutoscaleController``),
+the queue-depth gauges (``observability.DepthLogger``, always on, as in
+JAX) and, with ``observability``, the hop ledger and flight recorder
+(``observability.RequestObservability``, shared by the gateway and the
+dispatchers) and the SLO burn-rate engine on ``slo_objectives``.
 The sharded store and orchestration, under which the JAX package scales a
 route's shards or on a predictive signal, are refused by
 ``config.check_ported`` (ROADMAP A18.2, A18.9).
@@ -23,6 +27,9 @@ from dataclasses import dataclass
 from .broker import DispatcherPool, InMemoryBroker
 from .gateway import Gateway
 from .metrics import DEFAULT_REGISTRY, MetricsRegistry
+from .observability import (DepthLogger, FlightRecorder,
+                            RequestObservability, SloEngine,
+                            parse_objectives)
 from .service import LocalTaskManager
 from .taskstore import InMemoryTaskStore, TaskStatus, endpoint_path
 from .taskstore.reaper import TaskReaper
@@ -43,6 +50,18 @@ class PlatformConfig:
     reaper_interval: float = 30.0
     # Seconds a completed/failed task is kept: None = 900, < 0 = forever.
     reaper_terminal_retention: float | None = None
+    queue_depth_interval: float = 30.0
+    process_depth_interval: float = 300.0
+    # Request observability: the hop ledger, the flight recorder and the
+    # per-route e2e telemetry; with objectives, the SLO burn-rate engine.
+    observability: bool = False
+    flight_capacity: int = 512
+    flight_sample: float = 0.05
+    flight_slow_ms: float = 1000.0
+    slo_objectives: str | None = None
+    slo_tick_s: float = 5.0
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
 
 
 class LocalPlatform:
@@ -60,18 +79,46 @@ class LocalPlatform:
             max_delivery_count=self.config.max_delivery_count,
             lease_seconds=self.config.lease_seconds, metrics=self.metrics)
         self.store.set_publisher(self.broker.publish)
+        self.observability = None
+        self.slo = None
+        if self.config.observability:
+            self.observability = RequestObservability(
+                self.store, metrics=self.metrics,
+                flight=FlightRecorder(
+                    capacity=self.config.flight_capacity,
+                    sample=self.config.flight_sample,
+                    slow_ms=self.config.flight_slow_ms,
+                    metrics=self.metrics))
+        if self.config.slo_objectives:
+            if self.observability is None:
+                raise ValueError(
+                    "slo_objectives requires observability=True — the SLO "
+                    "engine reads the e2e histograms the observability "
+                    "layer maintains")
+            self.slo = SloEngine(
+                parse_objectives(self.config.slo_objectives),
+                metrics=self.metrics,
+                fast_window_s=self.config.slo_fast_window_s,
+                slow_window_s=self.config.slo_slow_window_s,
+                tick_s=self.config.slo_tick_s)
         self.dispatchers = DispatcherPool(
             self.broker, self.task_manager,
             retry_delay=self.config.retry_delay,
             concurrency=self.config.dispatcher_concurrency,
-            metrics=self.metrics)
+            observability=self.observability, metrics=self.metrics)
         self.gateway = Gateway(self.store, metrics=self.metrics)
+        if self.observability is not None:
+            self.gateway.set_observability(self.observability)
         retention = self.config.reaper_terminal_retention
         if retention is None:
             retention = DEFAULT_TERMINAL_RETENTION_S
         self.reaper = None if retention < 0 else TaskReaper(
             self.store, retention, interval=self.config.reaper_interval,
             metrics=self.metrics)
+        self.depth_logger = DepthLogger(
+            self.store, metrics=self.metrics,
+            queue_interval=self.config.queue_depth_interval,
+            process_interval=self.config.process_depth_interval)
         self.autoscalers: list = []
         self._started = False
         # Strong refs to fire-and-forget terminal transitions: the event
@@ -138,8 +185,11 @@ class LocalPlatform:
 
         self.broker.set_dead_letter_handler(on_dead_letter)
         await self.dispatchers.start()
+        await self.depth_logger.start()
         if self.reaper is not None:
             await self.reaper.start()
+        if self.slo is not None:
+            await self.slo.start()
         for scaler in self.autoscalers:
             await scaler.start()
         self._started = True
@@ -159,5 +209,8 @@ class LocalPlatform:
                 await scaler.stop()
             if self.reaper is not None:
                 await self.reaper.stop()
+            if self.slo is not None:
+                await self.slo.stop()
+            await self.depth_logger.stop()
             await self.dispatchers.stop()
             self._started = False

@@ -36,6 +36,17 @@ demand and derives the servables' ladders in the background.
 ``measure_phases`` records the device phases of every batch, the h2d time
 that overlapped another batch's execution (``ai4e_batch_overlap_ratio``)
 and, with a ladder manager too, the padding spent (``ai4e_batch_pad_*``).
+
+Hop ledger: a request submitted with ``ledger=`` (an
+``observability.HopLedger``) gets ``batched`` at the cut and, with
+``measure_phases``, one ``h2d`` / ``execute`` (``compile``) / ``d2h`` event
+each with its ``ms``, ``t`` being the phase's start mapped from
+``perf_counter`` onto the epoch clock. The windows are the ones the
+runtime measured, each ended by a synchronize of the stream it ran on, so
+they are device intervals; on the double-buffered path each batch stamps
+its own windows (batch N+1's h2d may start before batch N's d2h). A ledger
+that several requests of one batch share (a batch-API stack) gets that
+batch's events once. Nothing of this runs inside a captured graph.
 Deadlines are not ported (ROADMAP A18.5).
 """
 
@@ -69,6 +80,8 @@ class _Pending:
     future: asyncio.Future
     enqueued: float = field(default_factory=time.perf_counter)
     priority: int = 0  # 0 = interactive, higher = background
+    # observability.HopLedger the worker passed; None stamps nothing.
+    ledger: object = None
 
 
 class MicroBatcher:
@@ -180,9 +193,11 @@ class MicroBatcher:
         return sum(len(v) for v in self._pending.values())
 
     async def submit(self, model_name: str, example: np.ndarray,
-                     priority: int = 0):
+                     priority: int = 0, ledger=None):
         """Queue one example; resolves to its postprocessed result.
-        ``priority`` 0 is interactive, higher values background."""
+        ``priority`` 0 is interactive, higher values background. ``ledger``
+        (an ``observability.HopLedger``) gets the batch cut and the device
+        phases this example rides."""
         if self._stop:
             raise RuntimeError("batcher stopped")
         if self._draining:
@@ -198,7 +213,7 @@ class MicroBatcher:
                 f"bad input shape {example.shape}, expected {expected}")
         fut = asyncio.get_running_loop().create_future()
         self._pending.setdefault(model_name, []).append(
-            _Pending(example, fut, priority=priority))
+            _Pending(example, fut, priority=priority, ledger=ledger))
         self._pending_gauge.set(self.pending_count)
         self._wakeup.set()
         return await fut
@@ -348,26 +363,29 @@ class MicroBatcher:
 
     # -- accounting --------------------------------------------------------
 
-    def _note_phases(self, model_name: str, t_call: float,
-                     phases: dict, token: int) -> None:
+    def _note_phases(self, model_name: str, t_return: float,
+                     phases: dict, batch: list[_Pending], token: int) -> None:
         """Account one fused-path batch (``run_batch_phases`` measures
-        durations): back-to-back windows from the call start."""
+        durations): back-to-back windows ending where the call returned in
+        its executor thread. JAX lays them from the call's start; the
+        port's executor threads may wait there for the runtime's device
+        lock, while the three phases run back to back once it is held."""
         windows: dict[str, tuple[float, float]] = {}
-        cursor = t_call
-        for phase in ("h2d", "compile", "execute", "d2h"):
+        cursor = t_return
+        for phase in ("d2h", "execute", "compile", "h2d"):
             dur = phases.get(phase)
             if dur is None:
                 continue
-            windows[phase] = (cursor, cursor + dur)
-            cursor += dur
-        self._note_phase_windows(model_name, windows, token)
+            windows[phase] = (cursor - dur, cursor)
+            cursor -= dur
+        self._note_phase_windows(model_name, windows, batch, token)
 
     def _note_phase_windows(self, model_name: str,
                             windows: dict[str, tuple[float, float]],
-                            token: int) -> None:
-        """Phase histograms, and the h2d window's overlap with OTHER
-        batches' execute windows (``token`` is this batch's own entry in
-        ``_exec_pending``)."""
+                            batch: list[_Pending], token: int) -> None:
+        """Phase histograms, the h2d window's overlap with OTHER batches'
+        execute windows (``token`` is this batch's own entry in
+        ``_exec_pending``), and the device events of the batch's ledgers."""
         now = time.perf_counter()
         for phase, (w0, w1) in windows.items():
             self._phase_hist.observe(w1 - w0, phase=phase, model=model_name)
@@ -389,6 +407,16 @@ class MicroBatcher:
                     self._h2d_overlap_seconds / self._h2d_seconds)
             if exec_w is not None:
                 self._exec_windows.append(exec_w)
+        ledgers = _batch_ledgers(batch)
+        if ledgers:
+            epoch_off = time.time() - now
+            for phase in ("h2d", "compile", "execute", "d2h"):
+                w = windows.get(phase)
+                if w is None:
+                    continue
+                for ledger in ledgers:
+                    ledger.stamp(phase, "device", t=epoch_off + w[0],
+                                 ms=(w[1] - w[0]) * 1e3)
 
     def _note_pad(self, model_name: str, n: int, bucket: int,
                   example_nbytes: int) -> None:
@@ -447,16 +475,21 @@ class MicroBatcher:
         padded = np.zeros((bucket, *servable.input_shape), servable.input_dtype)
         for i, p in enumerate(batch):
             padded[i] = p.example
+        _stamp_batched(batch, n, bucket)
         self._note_pad(model_name, n, bucket, padded.nbytes // bucket)
         token = id(batch)
         t0 = time.perf_counter()
         if self.measure_phases:
             with self._phase_lock:
                 self._exec_pending[token] = t0
+
+        def run():
+            out = self.runtime.run_batch_phases(model_name, padded)
+            return out, time.perf_counter()
+
         try:
-            outputs, _, phases = await loop.run_in_executor(
-                self._executor, self.runtime.run_batch_phases, model_name,
-                padded)
+            (outputs, _, phases), t_return = await loop.run_in_executor(
+                self._executor, run)
         except Exception as exc:  # noqa: BLE001 — a device failure fails the batch
             log.exception("batch execution failed for %s", model_name)
             for p in batch:
@@ -468,7 +501,7 @@ class MicroBatcher:
                 with self._phase_lock:
                     self._exec_pending.pop(token, None)
         if self.measure_phases:
-            self._note_phases(model_name, t0, phases, token)
+            self._note_phases(model_name, t_return, phases, batch, token)
         self._batch_latency.observe(time.perf_counter() - t0, model=model_name)
         self._batch_size_hist.observe(n, model=model_name)
         self._h2d_bytes.inc(padded.nbytes, model=model_name)
@@ -485,6 +518,7 @@ class MicroBatcher:
         buf = self._staging_buffer(model_name, bucket, servable)
         for i, p in enumerate(batch):
             buf[i] = p.example
+        _stamp_batched(batch, n, bucket)
         if n < bucket:
             buf[n:] = 0  # the previous batch's rows must not ride as padding
         self._note_pad(model_name, n, bucket, buf.nbytes // bucket)
@@ -514,7 +548,8 @@ class MicroBatcher:
             return
         if self.measure_phases:
             self._note_phase_windows(
-                model_name, {"h2d": h2d_w, label: exec_w, "d2h": d2h_w}, token)
+                model_name, {"h2d": h2d_w, label: exec_w, "d2h": d2h_w},
+                batch, token)
         self._batch_latency.observe(d2h_w[1] - t0, model=model_name)
         self._batch_size_hist.observe(n, model=model_name)
         self._h2d_bytes.inc(buf.nbytes, model=model_name)
@@ -547,6 +582,21 @@ class MicroBatcher:
                 fut.set_result(value)
             else:
                 fut.set_exception(value)
+
+
+def _batch_ledgers(batch: list[_Pending]) -> list:
+    """The distinct ledgers of a batch's requests, in batch order."""
+    seen: dict[int, object] = {}
+    for p in batch:
+        if p.ledger is not None:
+            seen.setdefault(id(p.ledger), p.ledger)
+    return list(seen.values())
+
+
+def _stamp_batched(batch: list[_Pending], n: int, bucket: int) -> None:
+    """``batched`` at the cut, once a ledger."""
+    for ledger in _batch_ledgers(batch):
+        ledger.stamp("batched", "batcher", reason=f"size {n} bucket {bucket}")
 
 
 def _tree_index(outputs, i: int):

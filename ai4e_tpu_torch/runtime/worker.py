@@ -33,6 +33,16 @@ The operator's surface is the JAX worker's too:
   and any reload; ``GET`` reports the state and ``POST
   {prefix}/worker/resume`` serves again.
 
+With ``hop_ledger`` (``AI4E_OBSERVABILITY_HOP_LEDGER``) every async
+request carries an ``observability.HopLedger`` through the batcher (the
+batch cut and the device phases) and flushes it to the task store in one
+call before its terminal transition (a pipeline stage before its handoff;
+a request the drain retires with a ``retry`` event first), so the control
+plane's timeline of the task is whole across the process boundary. A
+batch-API stack shares one ledger across its items, which the batcher
+stamps once a batch (JAX's batch API stamps nothing). A flush that fails
+is dropped: a timeline is lost, never a task.
+
 The admin key gate and result-cache invalidation are not ported (ROADMAP
 A18.4, A18.6).
 """
@@ -52,6 +62,7 @@ from aiohttp import web
 
 from ..checkpoint import CONVERTER_HINT, is_npz, load_params
 from ..metrics import MetricsRegistry
+from ..observability.ledger import RETRY, HopLedger
 from ..rollout.drain import DRAINING_HEADER, DrainingError, DrainState, \
     drain_worker
 from ..service import APIService
@@ -76,10 +87,13 @@ class InferenceWorker:
                  prefix: str = "v1", metrics: MetricsRegistry | None = None,
                  store=None, executor_workers: int = 8,
                  checkpoint_root: str | None = None,
+                 hop_ledger: bool = False,
                  drain_timeout_s: float = 30.0):
         self.runtime = runtime
         self.batcher = batcher
         self.store = store
+        # Off: no ledger is allocated and no extra store call made.
+        self.hop_ledger = hop_ledger
         # Reload confinement: checkpoints must resolve (symlinks included)
         # under this directory, else 403. None keeps reload open.
         self._checkpoint_root = (os.path.realpath(checkpoint_root)
@@ -295,6 +309,7 @@ class InferenceWorker:
         async def _async(taskId, body, content_type, _name=name,
                          _servable=servable):
             tm = self.service.task_manager
+            buf = HopLedger() if self.hop_ledger else None
             await tm.update_task_status(taskId, f"running - {_name} inference")
             try:
                 example = _servable.preprocess(body, content_type)
@@ -302,20 +317,31 @@ class InferenceWorker:
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
             try:
-                result = await self.batcher.submit(_name, np.asarray(example))
-            except (BatcherSaturated, DrainingError):
+                result = await self.batcher.submit(_name, np.asarray(example),
+                                                   **_ledger_kw(buf))
+            except (BatcherSaturated, DrainingError) as exc:
                 # Saturated, or retired by a drain, between admission and
                 # the cut: hand the task back to the broker (a republish
                 # with an empty body replays the original one) instead of
                 # failing it. With no broker behind the store, or on a
                 # device error, the exception propagates and the service
                 # shell fails the task.
+                if isinstance(exc, DrainingError):
+                    if buf is not None:
+                        buf.stamp(RETRY, "worker", reason="draining")
+                    await self._flush_ledger(tm, taskId, buf)
                 if not tm.redelivers:
                     raise
                 current = await tm.get_task_status(taskId)
                 endpoint = (current or {}).get("Endpoint", async_path)
                 await tm.add_pipeline_task(taskId, endpoint)
                 return
+            except Exception:
+                # The shell fails the task after this re-raise: flush first,
+                # while the task is live, so a failed request keeps its
+                # worker-side timeline.
+                await self._flush_ledger(tm, taskId, buf)
+                raise
             if pipeline_to is not None:
                 if handoff_wants_example:
                     # Handoffs consume the natural image; a wire-encoded
@@ -328,6 +354,10 @@ class InferenceWorker:
                     handoff = pipeline_to(result)
                 if handoff is not None:
                     next_endpoint, next_body = handoff
+                    # This stage's events flush now; the next stage's
+                    # worker keeps a ledger of its own under the same
+                    # TaskId.
+                    await self._flush_ledger(tm, taskId, buf)
                     # The stage's own result stays readable under the same
                     # TaskId while the task moves on.
                     await self._store_result(
@@ -339,9 +369,27 @@ class InferenceWorker:
                     await tm.add_pipeline_task(taskId, next_endpoint,
                                                body=next_body)
                     return
+            # Before the result write and the terminal transition: the task
+            # is live (retention cannot have evicted it).
+            await self._flush_ledger(tm, taskId, buf)
             await self._store_result(
                 taskId, json.dumps(_jsonable(result)).encode())
             await tm.complete_task(taskId, f"completed - {_summarise(result)}")
+
+    async def _flush_ledger(self, tm, task_id: str, buf) -> None:
+        """Ship a request's buffered hop-ledger events to the store in one
+        call. Drains the buffer, so a second flush is a no-op; a failure is
+        dropped with a debug log, as in JAX: fail-open telemetry."""
+        if buf is None:
+            return
+        events = buf.drain()
+        if not events:
+            return
+        try:
+            await tm.append_ledger(task_id, events)
+        except Exception:  # noqa: BLE001 — a dropped flush loses a timeline, not a task
+            log.debug("hop-ledger flush dropped for task %s", task_id,
+                      exc_info=True)
 
     def serve_batch(self, servable: ServableModel,
                     sync_path: str | None = None,
@@ -391,7 +439,8 @@ class InferenceWorker:
                 arr = np.stack([servable.stack_adapter(x) for x in arr])
             return arr
 
-        async def _run_stack(stack: np.ndarray, on_progress=None) -> list:
+        async def _run_stack(stack: np.ndarray, on_progress=None,
+                             ledger=None) -> list:
             results: list = [None] * len(stack)
             done = 0
             queue: asyncio.Queue[int] = asyncio.Queue()
@@ -410,7 +459,8 @@ class InferenceWorker:
                             # Background priority: the stack shares batches
                             # with interactive requests, never ahead of them.
                             out = await self.batcher.submit(
-                                name, np.asarray(stack[i]), priority=1)
+                                name, np.asarray(stack[i]), priority=1,
+                                **_ledger_kw(ledger))
                             results[i] = {"index": i, "result": _jsonable(out)}
                             break
                         except BatcherSaturated:
@@ -457,8 +507,10 @@ class InferenceWorker:
                     await tm.update_task_status(
                         taskId, f"running - {name} batch {k}/{n}")
 
-            results = await _run_stack(stack, on_progress)
+            buf = HopLedger() if self.hop_ledger else None
+            results = await _run_stack(stack, on_progress, ledger=buf)
             failed = sum(1 for r in results if "error" in r)
+            await self._flush_ledger(tm, taskId, buf)
             await self._store_result(taskId, json.dumps(
                 {"count": total, "failed": failed, "items": results}).encode())
             # Never the word "failed" in this terminal status: canonical
@@ -476,6 +528,12 @@ class InferenceWorker:
         res = self.store.set_result(task_id, payload, stage=stage)
         if inspect.isawaitable(res):
             await res
+
+
+def _ledger_kw(ledger) -> dict:
+    """``submit``'s ``ledger`` keyword, passed only with a ledger: with the
+    hop ledger off the batcher is called exactly as before."""
+    return {} if ledger is None else {"ledger": ledger}
 
 
 def _jsonable(obj):

@@ -1,5 +1,5 @@
 """APIService — the in-container service shell, a copy of
-``ai4e_tpu/service/app.py`` without tracing or cross-replica reporting.
+``ai4e_tpu/service/app.py`` without cross-replica reporting.
 
 - ``api_sync_func`` / ``api_async_func`` register endpoints with
   per-endpoint concurrency caps and content-type and max-length limits;
@@ -11,7 +11,11 @@
 - any exception of a user function fails its task, unless the task is
   already terminal;
 - ``GET {prefix}/`` is the health check, ``GET {prefix}/task/{id}`` the
-  task status, ``GET /metrics`` the Prometheus exposition.
+  task status, ``GET /metrics`` the Prometheus exposition;
+- every sync request runs in a span parented by its inbound B3 headers,
+  every async task's background execution in one keyed by its TaskId and
+  parented by the headers of the request that delivered it (the
+  dispatcher's ``dispatch`` span).
 
 Sync user functions run in a thread-pool executor; coroutine functions run
 on the event loop.
@@ -29,6 +33,8 @@ from typing import Any, Callable
 from aiohttp import web
 
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from ..observability import (PARENT_HEADER, SAMPLED_HEADER, SPAN_HEADER,
+                             TRACE_HEADER, Tracer)
 from ..taskstore import InMemoryTaskStore, TaskStatus
 from .task_manager import LocalTaskManager, TaskManagerBase
 
@@ -66,6 +72,9 @@ class APIService:
             task_manager = LocalTaskManager(InMemoryTaskStore())
         self.task_manager = task_manager
         self.metrics = metrics or DEFAULT_REGISTRY
+        # Spans (named by endpoint path) land in this service's registry;
+        # exporter and sampling follow configure_tracer live.
+        self.tracer = Tracer(name, metrics=self.metrics)
         self.is_terminating = False
         self.endpoints: dict[str, EndpointSpec] = {}
         self.executor = ThreadPoolExecutor(max_workers=executor_workers,
@@ -167,7 +176,7 @@ class APIService:
                     resp = await self._run_async(spec, request, kwargs)
                     released_to_background = True  # _execute_async releases
                     return resp
-                return await self._run_sync(spec, kwargs)
+                return await self._run_sync(spec, request, kwargs)
             finally:
                 if not released_to_background:
                     self._release(spec)
@@ -176,10 +185,13 @@ class APIService:
 
     # -- sync path ---------------------------------------------------------
 
-    async def _run_sync(self, spec: EndpointSpec, kwargs: dict) -> web.Response:
+    async def _run_sync(self, spec: EndpointSpec, request: web.Request,
+                        kwargs: dict) -> web.Response:
         t0 = time.perf_counter()
         try:
-            result = await self._invoke(spec.func, **kwargs)
+            with self.tracer.span(spec.api_path, headers=request.headers,
+                                  path=spec.api_path):
+                result = await self._invoke(spec.func, **kwargs)
             resp = self._to_response(result)
             self._http_total.inc(code=str(resp.status), path=spec.api_path)
             return resp
@@ -211,8 +223,12 @@ class APIService:
 
         # The reserved slot is held until the background execution ends:
         # the cap covers running tasks, not just open connections.
+        parent_headers = {
+            k: request.headers[k]
+            for k in (TRACE_HEADER, SPAN_HEADER, PARENT_HEADER, SAMPLED_HEADER)
+            if k in request.headers}
         bg = asyncio.get_running_loop().create_task(
-            self._execute_async(spec, task_id, kwargs))
+            self._execute_async(spec, task_id, kwargs, parent_headers))
         self._background.add(bg)
         bg.add_done_callback(self._background.discard)
 
@@ -221,10 +237,14 @@ class APIService:
                                   "Status": task.get("Status", "created")})
 
     async def _execute_async(self, spec: EndpointSpec, task_id: str,
-                             kwargs: dict) -> None:
+                             kwargs: dict,
+                             parent_headers: dict) -> None:
         t0 = time.perf_counter()
         try:
-            await self._invoke(spec.func, taskId=task_id, **kwargs)
+            # One span keyed by TaskId covers the whole background run.
+            with self.tracer.span(spec.api_path, task_id=task_id,
+                                  headers=parent_headers, path=spec.api_path):
+                await self._invoke(spec.func, taskId=task_id, **kwargs)
         except Exception as exc:  # noqa: BLE001 — the task records the failure
             log.exception("async endpoint %s task %s failed", spec.api_path,
                           task_id)

@@ -101,6 +101,13 @@ class TaskManagerBase:
     async def get_task_status(self, task_id: str) -> dict | None:
         raise NotImplementedError
 
+    async def append_ledger(self, task_id: str, events: list[dict]) -> int:
+        """Append hop-ledger events to the task's timeline on the store
+        (``observability/ledger.py``); returns the events kept. A no-op
+        here, so a duck-typed task manager keeps working; callers treat
+        failures as droppable."""
+        return 0
+
     async def is_terminal(self, task_id: str) -> bool:
         """Terminal-status probe before writes that could clobber a
         completed task. A failed probe answers False and is logged."""
@@ -151,6 +158,9 @@ class LocalTaskManager(TaskManagerBase):
         task = self.store.update_status_if(task_id, expected_status, status,
                                            backend_status)
         return None if task is None else task.to_dict()
+
+    async def append_ledger(self, task_id: str, events: list[dict]) -> int:
+        return self.store.append_ledger(task_id, events)
 
 
 # A request to a replica set gives it FAILOVER_CYCLES x FAILOVER_DELAY_S
@@ -279,6 +289,20 @@ class HttpTaskManager(_HttpStoreClient, TaskManagerBase):
             return None
         resp.raise_for_status()
         return json.loads(body)
+
+    async def append_ledger(self, task_id: str, events: list[dict]) -> int:
+        """Ship the worker's buffered hop-ledger events to the control
+        plane in one POST. Any answer but 200 (an unknown task, a refusal,
+        a store without the route) counts as zero kept, never an error."""
+        resp, body = await self._request(
+            "POST", "/v1/taskstore/ledger",
+            data=json.dumps({"TaskId": task_id, "Events": events}))
+        if resp.status != 200:
+            return 0
+        try:
+            return int(json.loads(body).get("appended", 0))
+        except (json.JSONDecodeError, ValueError, AttributeError):
+            return 0
 
 
 class HttpResultStore(_HttpStoreClient):

@@ -10,11 +10,15 @@ control plane uses:
   the task (204 if absent);
 - ``GET  /v1/taskstore/depths`` — per-endpoint status-set depths;
 - ``POST /v1/taskstore/result?taskId=…`` and ``GET`` the same — a task's
-  result payload.
+  result payload;
+- ``POST /v1/taskstore/ledger`` (``{"TaskId", "Events"}``) appends a
+  worker's buffered hop-ledger events to the task's timeline (sanitised
+  by ``validate_events``; 404 for an unknown task), and ``GET
+  /v1/taskstore/ledger?taskId=…`` reads it (``{"TaskId", "Events"}``).
 
-The journal, promote, demote, role, redrive, result-ref, ledger and shards
-routes are not served (ROADMAP A18): a request for them gets 404, as from
-a JAX store that does not serve them. The in-memory store has no fencing
+The journal, promote, demote, role, redrive, result-ref and shards routes
+are not served (ROADMAP A18): a request for them gets 404, as from a JAX
+store that does not serve them. The in-memory store has no fencing
 epoch, so no response carries ``X-Store-Epoch``.
 """
 
@@ -24,6 +28,7 @@ import json
 
 from aiohttp import web
 
+from ..observability.ledger import validate_events
 from ..utils.http import read_body_limited
 from .store import InMemoryTaskStore, TaskNotFound
 from .task import SUB_TASK_SEP, APITask
@@ -151,6 +156,30 @@ def make_app(store: InMemoryTaskStore,
         body, content_type = found
         return web.Response(body=body, headers={"Content-Type": content_type})
 
+    async def append_ledger(request: web.Request) -> web.Response:
+        payload, err = await read_json(request)
+        if err is not None:
+            return err
+        task_id = payload.get("TaskId", "")
+        if not task_id:
+            return web.json_response({"error": "TaskId required"},
+                                     status=400)
+        try:
+            kept = store.append_ledger(
+                task_id, validate_events(payload.get("Events")))
+        except TaskNotFound:
+            return web.json_response({"error": f"unknown task {task_id}"},
+                                     status=404)
+        return web.json_response({"ok": True, "appended": kept})
+
+    async def get_ledger(request: web.Request) -> web.Response:
+        task_id = request.query.get("taskId", "")
+        if not task_id:
+            return web.json_response({"error": "taskId required"},
+                                     status=400)
+        return web.json_response({"TaskId": task_id,
+                                  "Events": store.get_ledger(task_id)})
+
     app.router.add_post("/v1/taskstore/upsert", upsert)
     app.router.add_post("/v1/taskstore/update", update)
     app.router.add_get("/v1/taskstore/task", get_task)
@@ -158,4 +187,6 @@ def make_app(store: InMemoryTaskStore,
     app.router.add_get("/v1/taskstore/depths", depths)
     app.router.add_post("/v1/taskstore/result", put_result)
     app.router.add_get("/v1/taskstore/result", get_result)
+    app.router.add_post("/v1/taskstore/ledger", append_ledger)
+    app.router.add_get("/v1/taskstore/ledger", get_ledger)
     return app

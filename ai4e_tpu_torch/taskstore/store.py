@@ -10,12 +10,17 @@ HTTP surface, gateway and dispatcher share.
 - a task upserted with ``publish=True`` goes to the publisher (the broker)
   after the lock is released; a publish failure fails the task;
 - listeners (the gateway's long-poll waiters) hear every transition;
-- ``evict_terminal_older_than`` forgets finished tasks (record, body and
-  results), the terminal retention ``taskstore.reaper.TaskReaper`` runs;
+- ``append_ledger`` / ``get_ledger`` keep each task's hop-ledger timeline
+  (``observability/ledger.py``) beside its record: observability state,
+  capped at ``MAX_EVENTS`` with one ``truncated`` marker;
+- ``evict_terminal_older_than`` forgets finished tasks (record, body,
+  results and timeline), the terminal retention
+  ``taskstore.reaper.TaskReaper`` runs;
 - ``set_len`` and ``depths`` count an endpoint's tasks by status (the
   autoscaler's signal).
 
 No journal, replication, sharding or result offload: those are ROADMAP A18.
+``dump_ledgers``, the rig's collection surface, waits for the rig.
 """
 
 from __future__ import annotations
@@ -53,6 +58,9 @@ class InMemoryTaskStore:
         self._publisher: Publisher | None = None
         # Called outside the lock after every transition, from any thread.
         self._listeners: list[Callable[[APITask], None]] = []
+        # task_id -> hop-ledger events; never journaled, dropped with the
+        # record at eviction.
+        self._ledgers: dict[str, list[dict]] = {}
 
     def set_publisher(self, publisher: Publisher | None) -> None:
         self._publisher = publisher
@@ -161,6 +169,36 @@ class InMemoryTaskStore:
                 raise TaskNotFound(task_id)
             return task
 
+    # -- hop ledger (observability/ledger.py) --------------------------------
+
+    def append_ledger(self, task_id: str, events: list[dict]) -> int:
+        """Append hop-ledger events to a known task's timeline; returns the
+        events kept. Past ``MAX_EVENTS`` the overflow is dropped behind a
+        single ``truncated`` marker. Raises ``TaskNotFound`` for an unknown
+        id; callers (the observability hub, the HTTP surface) drop the
+        stamp, as the ledger is fail-open telemetry."""
+        # Imported here: the observability package imports the task store.
+        from ..observability.ledger import MAX_EVENTS, TRUNCATED, ledger_event
+        with self._lock:
+            if task_id not in self._tasks:
+                raise TaskNotFound(task_id)
+            timeline = self._ledgers.setdefault(task_id, [])
+            kept = 0
+            for ev in events:
+                if len(timeline) >= MAX_EVENTS:
+                    if timeline[-1].get("e") != TRUNCATED:
+                        timeline.append(ledger_event(TRUNCATED, "store"))
+                    break
+                timeline.append(ev)
+                kept += 1
+            return kept
+
+    def get_ledger(self, task_id: str) -> list[dict]:
+        """The task's timeline; empty for an unknown task or one nothing
+        stamped (reads never raise)."""
+        with self._lock:
+            return list(self._ledgers.get(task_id, ()))
+
     # -- results -----------------------------------------------------------
 
     def set_result(self, task_id: str, result: bytes,
@@ -186,7 +224,7 @@ class InMemoryTaskStore:
     def evict_terminal_older_than(self, age_s: float) -> int:
         """Forget terminal (completed/failed) tasks whose last transition
         is older than ``age_s`` seconds: record, status-set entry, original
-        body and results. Returns the number evicted; costs O(terminal
+        body, results and timeline. Returns the number evicted; costs O(terminal
         history), which the eviction itself keeps bounded."""
         cutoff = time.time() - age_s
         with self._lock:
@@ -198,6 +236,7 @@ class InMemoryTaskStore:
                 task = self._tasks.pop(task_id)
                 self._remove_from_set(task)
                 self._orig_bodies.pop(task_id, None)
+                self._ledgers.pop(task_id, None)
                 for key in self._result_keys.pop(task_id, ()):
                     self._results.pop(key, None)
         return len(victims)

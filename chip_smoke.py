@@ -148,7 +148,30 @@ Phases, each of which raises on failure:
    ``ai4e_autoscale_replicas`` for the route must rise above its starting
    4 with decisions counted and no task failed; normalize must launch in
    the worker for all three image models and argmax+histogram for land
-   cover. It prints a ``deploy: {...}`` line.
+   cover. It prints a ``deploy: {...}`` line;
+11. observability on the card: phase 10b's control plane and worker again,
+   from the same checkpoints, with ``AI4E_PLATFORM_OBSERVABILITY``,
+   ``AI4E_OBSERVABILITY_HOP_LEDGER``, ``_VITALS``, spans to a JSONL file
+   (``_TRACE_EXPORT_PATH``) and a latency and a goodput SLO on the
+   land-cover routes: 4 sync + 64 async land-cover tiles and longcontext
+   sequences, 64 async moe sequences, 16 camera-trap scenes. Every task's
+   ``?ledger=1`` timeline must hold its hops in order (``admitted`` ...
+   ``d2h``, ``completed``; a camera-trap task its ``stage`` handoff and
+   the species stage's device events), each device event inside its
+   ``batched`` -> ``completed`` span within ``CLOCK_SLACK_S``, ``t`` never
+   falling within a hop; the ledgers' backpressure events must equal the
+   control plane's ``ai4e_dispatch_total{outcome="backpressure"}`` delta;
+   ``trace --url`` must exit 0 and print every hop; a land-cover task's
+   gateway, dispatcher and worker spans must share one trace id, each
+   the parent of the next; the flight dump, the e2e exemplar, both burn
+   rates, the depth gauges and both processes' vitals must be there;
+   every answer is checked as in phases 5b, 9c and 10b and each kernel of
+   the path must launch in the worker. It prints each model's per-hop
+   p50/p95 and an ``observability: {...}`` line with the sync split
+   (gateway against the worker's span) and the land-cover async rate with
+   spans to the JSONL file, then with JAX's tracing defaults (a log line a
+   span) and with tracing off in turns (defaults, off, off, defaults),
+   each from its own control plane and worker.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -893,6 +916,25 @@ def check_served_attention(servable, seqs: np.ndarray) -> float:
     return err
 
 
+def check_classes(results: list[dict],
+                  logits: np.ndarray) -> tuple[int, float]:
+    """Served classes against a reference's logits: the same class wherever
+    the reference's top two are more than LC_GAP apart. Returns how many
+    agree and the largest confidence gap."""
+    agree, gap = 0, 0.0
+    for result, row in zip(results, logits):
+        probs = np.exp(row.astype(np.float64) - row.max())
+        probs /= probs.sum()
+        top, second = np.sort(probs)[::-1][:2]
+        same = result["class_id"] == int(np.argmax(probs))
+        agree += same
+        if not same and top - second > LC_GAP:
+            raise AssertionError(f"class {result['class_id']} vs reference "
+                                 f"{int(np.argmax(probs))} (gap {top - second})")
+        gap = max(gap, abs(result["confidence"] - top))
+    return agree, gap
+
+
 def check_scores(results: list[dict], logits: np.ndarray) -> int:
     """Served JSON against the full-attention reference: same schema, the
     same class wherever the reference's top two are more than LC_GAP apart,
@@ -1082,6 +1124,7 @@ async def drive_gateway(http, gateway: str, route: str, bodies: list[bytes],
     latency_ms = sorted((t1 - t0) * 1e3 for t0, t1, _ in runs)
     span = max(t1 for _, t1, _ in runs) - min(t0 for t0, _, _ in runs)
     return {"sync_ms": sync_ms, "results": results, "async_s": span,
+            "task_ids": [task_id for _, _, task_id in runs],
             "metrics": (metrics_before, metrics_after),
             "async_requests_per_s": len(runs) / span,
             "task_p50_ms": statistics.median(latency_ms),
@@ -3727,16 +3770,534 @@ def phase_deploy_serve(train: dict, kernels: list[dict]) -> dict:
     rows["fused_seg_postprocess"]["launches_deploy_spec"] = \
         by_model["landcover"]["fused_seg_postprocess"]
     log(f"deploy: {json.dumps(report)}")
-    return report
+    # Phase 11 serves the same checkpoints on the same inputs.
+    first = slice(0, N_OBS_DETECT)
+    handoff = {"out_dir": out_dir, "models": models, "routes": routes,
+               "env": env, "landcover": (work["landcover"], want),
+               "scenes": work["scenes"][first],
+               "scene_targets": {k: v[first] for k, v in det_targets.items()},
+               "scene_hits_10b": served_detection_accuracy(
+                   det["stage"][first],
+                   {k: v[first] for k, v in det_targets.items()})[0]}
+    return report, handoff
 
 
-def phase_deploy(kernels: list[dict]) -> dict:
+def phase_deploy(kernels: list[dict]) -> tuple[dict, dict]:
     """Phase 10: train the image recipes (a), then serve the deploy spec as
     written from the port's checkpoints (b)."""
     log("deploy: the image recipes on the card, then the deploy spec")
     train = phase_deploy_train()
-    served = phase_deploy_serve(train, kernels)
-    return {"train": train["report"], "served": served}
+    served, handoff = phase_deploy_serve(train, kernels)
+    return {"train": train["report"], "served": served}, handoff
+
+
+# -- phase 11: observability on the card ------------------------------------
+
+N_OBS_SYNC = 4      # land-cover and longcontext sync requests
+N_OBS_ASYNC = 64    # async tasks each of land cover, longcontext and moe
+N_OBS_DETECT = 16   # camera-trap scenes through detect-async
+N_OBS_BURSTS = 2    # further 64-task land-cover bursts, timed only
+SLO_OBJECTIVES = ("/v1/landcover/classify-async=1000:99,"
+                  "/v1/landcover/classify=goodput:99")
+# The device events' epoch times are perf_counter windows mapped through
+# one (time.time(), perf_counter()) pair read at stamping; the two reads
+# are microseconds apart.
+CLOCK_SLACK_S = 1e-3
+SPAN_LOGGER = "ai4e_tpu_torch.trace"  # LogExporter's logger
+RATE_TURNS = ("jax_defaults", "tracing_off", "tracing_off", "jax_defaults")
+STAGE_EVENTS = ("admitted", "published", "popped", "delivered", "batched",
+                "h2d", "execute", "d2h")
+ONE_STAGE = STAGE_EVENTS + ("completed",)
+TWO_STAGES = STAGE_EVENTS + ("stage", "popped", "delivered", "batched", "h2d",
+                             "execute", "d2h", "completed")
+DEVICE_EVENTS = ("h2d", "compile", "execute", "d2h")
+
+
+def in_order(want: tuple, names: list[str]) -> bool:
+    """Whether ``want`` is a subsequence of ``names``."""
+    it = iter(names)
+    return all(any(n == w for n in it) for w in want)
+
+
+def check_timeline(task_id: str, events: list[dict], want: tuple) -> None:
+    """A task's ledger, in the order the store kept it: ``want`` in order;
+    each device event inside its batch's ``batched`` -> ``completed``
+    span (``CLOCK_SLACK_S``); ``t`` never falling within a hop."""
+    names = [e["e"] for e in events]
+    if not in_order(want, names):
+        raise AssertionError(f"task {task_id}: ledger {names} lacks {want}")
+    completed = next(e["t"] for e in events if e["e"] == "completed")
+    batched = None
+    for e in events:
+        if e["e"] == "batched":
+            batched = e["t"]
+        if e["e"] in DEVICE_EVENTS:
+            if (batched is None or e["t"] < batched - CLOCK_SLACK_S
+                    or e["t"] + e["ms"] / 1e3 > completed + CLOCK_SLACK_S):
+                raise AssertionError(f"task {task_id}: {e} outside "
+                                     f"batched {batched} -> {completed}")
+    for hop in {e["h"] for e in events}:
+        ts = [e["t"] for e in events if e["h"] == hop]
+        if any(b < a for a, b in zip(ts, ts[1:])):
+            raise AssertionError(f"task {task_id}: hop {hop} goes back in "
+                                 f"time: {ts}")
+
+
+def stage_deltas(events: list[dict], start: int, out: dict,
+                 suffix: str = "") -> int:
+    """The ms of one stage's hops from ``events[start]`` on (its
+    ``popped``-> ... -> ``d2h``; the device phases summed over the stage's
+    batches) into ``out``; returns the index after the stage's last device
+    event."""
+    def at(name: str, i: int) -> int:
+        return next(j for j in range(i, len(events))
+                    if events[j]["e"] == name)
+
+    pop = at("popped", start)
+    dlv = at("delivered", pop)
+    pop = max(j for j in range(pop, dlv) if events[j]["e"] == "popped")
+    bat = at("batched", dlv)
+    end = bat
+    while end < len(events) and events[end]["e"] in (
+            ("batched",) + DEVICE_EVENTS):
+        end += 1
+    device = events[bat:end]
+    t = [e["t"] for e in events]
+    out["popped->delivered" + suffix] = (t[dlv] - t[pop]) * 1e3
+    out["delivered->batched" + suffix] = (t[bat] - t[dlv]) * 1e3
+    for phase in ("h2d", "execute", "d2h"):
+        out[phase + suffix] = sum(e.get("ms", 0.0) for e in device
+                                  if e["e"] == phase)
+    last = device[-1]
+    out["_end"] = last["t"] + last["ms"] / 1e3
+    return end
+
+
+def hop_deltas(events: list[dict]) -> dict:
+    """One task's hop deltas in ms: admitted -> published -> popped ->
+    delivered -> batched, h2d/execute/d2h, d2h -> completed; a camera-trap
+    task adds its ``stage`` handoff and the species stage's hops."""
+    t = {e["e"]: e["t"] for e in reversed(events)}  # each event's first t
+    out = {"admitted->published": (t["published"] - t["admitted"]) * 1e3,
+           "published->popped": (t["popped"] - t["published"]) * 1e3}
+    i = stage_deltas(events, 0, out)
+    stage = next((e for e in events[i:] if e["e"] == "stage"), None)
+    if stage is not None:
+        out["d2h->stage"] = (stage["t"] - out["_end"]) * 1e3
+        j = events.index(stage)
+        nxt = next(e for e in events[j:] if e["e"] == "popped")
+        out["stage->popped"] = (nxt["t"] - stage["t"]) * 1e3
+        stage_deltas(events, j, out, suffix=" (species)")
+    completed = next(e for e in events if e["e"] == "completed")
+    out["d2h->completed"] = (completed["t"] - out.pop("_end")) * 1e3
+    out["end_to_end"] = (completed["t"] - t["admitted"]) * 1e3
+    return out
+
+
+def deltas_summary(timelines: list[list[dict]]) -> dict:
+    """Median and p95 of each hop delta over a model's tasks."""
+    per = [hop_deltas(evs) for evs in timelines]
+    return {k: {"p50": statistics.median(d[k] for d in per),
+                "p95": float(np.percentile([d[k] for d in per], 95))}
+            for k in per[0]}
+
+
+def check_span_tree(spans: list[dict], task_id: str, service: str) -> dict:
+    """A task's spans in the JSONL log: the gateway's ``create_task``,
+    the dispatcher's ``dispatch`` and the worker's endpoint span under one
+    trace id, each the parent of the next."""
+    from ai4e_tpu_torch.observability.traceview import select_traces
+
+    mine = select_traces(spans, task_id=task_id)
+    by_id = {s["span_id"]: s for s in mine}
+    worker = [s for s in mine if s["service"] == service
+              and s.get("task_id") == task_id]
+    if len(worker) != 1:
+        raise AssertionError(f"task {task_id}: worker spans {worker}")
+    dispatch = by_id.get(worker[0].get("parent_id"))
+    gateway = dispatch and by_id.get(dispatch.get("parent_id"))
+    if (dispatch is None or dispatch["name"] != "dispatch"
+            or gateway is None or gateway["name"] != "create_task"
+            or gateway["service"] != "gateway"
+            or gateway.get("parent_id")
+            or len({worker[0]["trace_id"], dispatch["trace_id"],
+                    gateway["trace_id"]}) != 1):
+        raise AssertionError(f"task {task_id}: spans not linked: {mine}")
+    return {s["service"]: s["duration"] * 1e3
+            for s in (gateway, dispatch, worker[0])}
+
+
+async def drive_observability(gateway: str, worker: str, procs: dict,
+                              logs: dict, work: dict, checked: bool) -> dict:
+    """11's client. ``checked``: land cover (4 sync + 64 async),
+    longcontext (4 + 64), moe (64 async), 16 camera-trap scenes, each
+    task's ``?ledger=1`` record, the flight dump and both /metrics; then
+    ``N_OBS_BURSTS`` more land-cover bursts. Else land cover only: the
+    checked drive's first burst and as many more."""
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=900)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+
+        async def metrics(url: str) -> str:
+            async with http.get(url + "/metrics") as r:
+                return await r.text()
+
+        out = {"cp_before": await metrics(gateway)}
+        lc_route = "/v1/landcover/classify"
+        lc_done = "completed - class_histogram"
+        out["landcover"] = await drive_gateway(
+            http, gateway, lc_route, work["landcover"], N_OBS_SYNC, lc_done,
+            worker)
+        if checked:
+            scores = "completed - class_id, confidence"
+            out["longcontext"] = await drive_gateway(
+                http, gateway, "/v1/longcontext/score", work["longcontext"],
+                N_OBS_SYNC, scores, worker)
+            out["moe"] = await drive_gateway(
+                http, gateway, "/v1/moe/route", work["moe"], 0, scores,
+                worker)
+
+            async def detect(body: bytes) -> str:
+                async with http.post(gateway + "/v1/camera-trap/detect-async",
+                                     data=body, headers=OCTET) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"detect-async {r.status}: "
+                                             f"{await r.text()}")
+                    return (await r.json())["TaskId"]
+
+            ids = await asyncio.gather(*(detect(b) for b in work["scenes"]))
+            out["detect"] = {"task_ids": ids, "records": [
+                await await_terminal(http, gateway, t) for t in ids]}
+            out["detect"]["stage"] = [
+                await task_result(http, gateway, t, "megadetector")
+                for t in ids]
+            out["detect"]["final"] = [await task_result(http, gateway, t)
+                                      for t in ids]
+            out["cp_after"] = await metrics(gateway)
+            out["records"] = {}
+            for model in ("landcover", "longcontext", "moe"):
+                ids = out[model]["task_ids"]
+                out["records"][model] = [await fetch_record(http, gateway, t)
+                                         for t in ids]
+            out["records"]["camera_trap"] = [
+                await fetch_record(http, gateway, t)
+                for t in out["detect"]["task_ids"]]
+            async with http.get(gateway + "/v1/debug/flight") as r:
+                if r.status != 200:
+                    raise AssertionError(f"/v1/debug/flight {r.status}")
+                out["flight"] = await r.json()
+        out["bursts"] = [
+            (await drive_gateway(http, gateway, lc_route,
+                                 work["landcover"][N_OBS_SYNC:], 0, lc_done,
+                                 worker))["async_requests_per_s"]
+            for _ in range(N_OBS_BURSTS)]
+        out["cp_metrics"] = await metrics(gateway)
+        out["wk_metrics"] = await metrics(worker)
+    return out
+
+
+async def fetch_record(http, gateway: str, task_id: str) -> dict:
+    async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
+                        params={"ledger": "1"}) as r:
+        return await r.json()
+
+
+def serve_observed(handoff: dict, env: dict, work: dict, tag: str,
+                   checked: bool) -> tuple[dict, str, str]:
+    """The deploy spec's control plane and worker as child processes under
+    ``env``, driven by ``drive_observability``; returns its output and the
+    two logs."""
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = deploy_specs(gateway, worker)
+    (out_dir / f"{tag}_models.json").write_text(json.dumps(models))
+    (out_dir / f"{tag}_routes.json").write_text(json.dumps(routes))
+    logs = {"cp": out_dir / f"{tag}_control_plane.log",
+            "wk": out_dir / f"{tag}_worker.log"}
+    procs = {}
+    try:
+        procs["cp"] = start_child(
+            ["control-plane", "--routes", str(out_dir / f"{tag}_routes.json"),
+             "--port", str(cp_port)], logs["cp"], env)
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / f"{tag}_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             "cuda"], logs["wk"], env)
+        out = asyncio.run(drive_observability(gateway, worker, procs, logs,
+                                              work, checked))
+        out["gateway"] = gateway
+        if checked:
+            out["trace_verb"] = trace_verb(
+                ["--task-id", out["landcover"]["task_ids"][0], "--url",
+                 gateway], env)
+        stop_child(procs["wk"], logs["wk"], f"{tag} worker")
+        stop_child(procs["cp"], logs["cp"], f"{tag} control plane")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    return (out, logs["cp"].read_text(errors="replace"),
+            logs["wk"].read_text(errors="replace"))
+
+
+def trace_verb(args: list[str], env: dict) -> str:
+    """``python -m ai4e_tpu_torch trace ...`` as a child process; raises
+    unless it exits 0."""
+    done = subprocess.run([sys.executable, "-m", "ai4e_tpu_torch", "trace",
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    if done.returncode != 0:
+        raise AssertionError(f"trace {args} exited {done.returncode}: "
+                             f"{done.stderr[-2000:]}")
+    return done.stdout
+
+
+def served_references(handoff: dict, work: dict, out: dict) -> dict:
+    """Every answer of the checked drive against the trained weights on the
+    card, as phases 5b, 9c and 10b check them."""
+    from ai4e_tpu_torch.cli import restore_checkpoint
+    from ai4e_tpu_torch.runtime.families import build_servable
+
+    out_dir = handoff["out_dir"]
+    _, want = handoff["landcover"]
+    diffs = [check_histogram(r, want[i], 256 * 256)
+             for i, r in enumerate(out["landcover"]["results"])]
+    entry = next(m for m in handoff["models"]["models"]
+                 if m["name"] == "longcontext")
+    kwargs = {k: v for k, v in entry.items()
+              if k not in ("family", "sync_path", "async_path", "checkpoint",
+                           "name")}
+    lc = build_servable("seqformer", name="longcontext", **kwargs)
+    restore_checkpoint(lc, "longcontext", str(out_dir))
+    # As phase 6 holds the trained weights: accuracy on the trainer's
+    # held-out sequences, and the class of plain full attention wherever
+    # its top-two gap exceeds LC_GAP. Its confidence is not held to
+    # LC_CONF_ATOL here: on trained weights full attention's bf16 softmax
+    # over 4,096 keys moves a confidence by more (0.026 on the H100).
+    lc_results = out["longcontext"]["results"]
+    lc_agree, lc_conf_gap = check_classes(
+        lc_results, reference_logits(lc, entry, work["lc_seqs"]))
+    del lc
+    lc_hits = sum(r["class_id"] == y
+                  for r, y in zip(lc_results, work["lc_labels"]))
+    if lc_hits < MIN_SERVED_ACC * len(lc_results):
+        raise AssertionError(f"longcontext served {lc_hits}/"
+                             f"{len(lc_results)} held-out sequences right")
+    moe_agree = check_scores(out["moe"]["results"], moe_reference_logits(
+        str(out_dir / "moe.npz"), work["moe_seqs"]))
+    hits, total = served_detection_accuracy(out["detect"]["stage"],
+                                            handoff["scene_targets"])
+    if abs(hits - handoff["scene_hits_10b"]) > DEPLOY_SLACK:
+        raise AssertionError(f"megadetector served {hits}/{total} objects, "
+                             f"phase 10b {handoff['scene_hits_10b']}")
+    for record, stage, final in zip(out["detect"]["records"],
+                                    out["detect"]["stage"],
+                                    out["detect"]["final"]):
+        n = min(16, len(stage["detections"]))
+        want_status = (f"completed - {n} images, 0 errors" if n
+                       else "completed - detections")
+        if record["Status"] != want_status or (n and (
+                final["count"] != n or final["failed"])):
+            raise AssertionError(f"camera trap: {record} {final}")
+    return {"landcover_max_count_diff_px": max(diffs),
+            "longcontext_classes_agree": f"{lc_agree}/{len(work['lc_seqs'])}",
+            "longcontext_held_out_right": f"{lc_hits}/{len(lc_results)}",
+            "longcontext_max_confidence_gap_to_full_attention": lc_conf_gap,
+            "moe_classes_agree": f"{moe_agree}/{len(work['moe_seqs'])}",
+            "megadetector_objects": f"{hits}/{total}",
+            "megadetector_objects_10b": handoff["scene_hits_10b"]}
+
+
+def phase_observability(handoff: dict, kernels: list[dict]) -> dict:
+    """Phase 11: the deploy spec served from phase 10's checkpoints with the
+    observability layer on (ledger, spans to a JSONL log, flight recorder,
+    SLOs, vitals, depth gauges), every task's timeline and the debug
+    surfaces checked; then land cover again with tracing off."""
+    import gc
+    import tempfile
+
+    from ai4e_tpu_torch.observability.traceview import load_spans
+
+    log("observability: the deploy spec with the layer on")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lc_bodies, _ = handoff["landcover"]
+    entry = next(m for m in handoff["models"]["models"]
+                 if m["name"] == "longcontext")
+    # The trainer's held-out draws (seed + 1, batches of 16), as phase 6.
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+    rng = np.random.default_rng(SEED + 1)
+    draws = [longcontext_batch(rng, 16, entry["seq_len"], entry["vocab_size"],
+                               entry["num_classes"]) for _ in range(5)]
+    n_lc = N_OBS_SYNC + N_OBS_ASYNC
+    lc_seqs, lc_labels = (np.concatenate(x)[:n_lc] for x in zip(*draws))
+    lc_seqs = lc_seqs.astype(np.uint16)
+    moe_seqs, _ = moe_held_out(N_OBS_ASYNC)
+    work = {"landcover": lc_bodies, "lc_seqs": lc_seqs, "moe_seqs": moe_seqs,
+            "lc_labels": lc_labels,
+            "longcontext": [npy_bytes(s) for s in lc_seqs],
+            "moe": [npy_bytes(s.astype(np.uint16)) for s in moe_seqs],
+            "scenes": handoff["scenes"]}
+    tmp = Path(tempfile.mkdtemp(prefix="ai4e_spans_"))
+    spans_path = tmp / "spans.jsonl"
+    env = dict(handoff["env"])
+    env.update(AI4E_PLATFORM_OBSERVABILITY="1",
+               AI4E_OBSERVABILITY_HOP_LEDGER="1",
+               AI4E_OBSERVABILITY_VITALS="1",
+               AI4E_OBSERVABILITY_TRACE_EXPORT_PATH=str(spans_path),
+               AI4E_PLATFORM_SLO_OBJECTIVES=SLO_OBJECTIVES,
+               # Ticks short against the phase, so every series exists
+               # before /metrics is read.
+               AI4E_PLATFORM_SLO_TICK_S="1",
+               AI4E_OBSERVABILITY_VITALS_INTERVAL="0.25",
+               AI4E_OBSERVABILITY_QUEUE_DEPTH_INTERVAL="1",
+               AI4E_OBSERVABILITY_PROCESS_DEPTH_INTERVAL="1")
+    out, cp_log, wk_log = serve_observed(handoff, env, work, "observed", True)
+    if "observability ON, SLO engine ON (2 objectives), vitals ON" \
+            not in cp_log or "vitals ON, hop ledger ON" not in wk_log:
+        raise AssertionError(f"posture lines:\n{cp_log[-2000:]}\n"
+                             f"{wk_log[-2000:]}")
+
+    # Whole timelines, and the backpressure events all counted.
+    timelines, backpressure = {}, 0
+    for model, records in out["records"].items():
+        want = TWO_STAGES if model == "camera_trap" else ONE_STAGE
+        timelines[model] = []
+        for record in records:
+            events = record["Ledger"]
+            check_timeline(record["TaskId"], events, want)
+            backpressure += sum(e["e"] == "backpressure" for e in events)
+            timelines[model].append(events)
+    counted = (metric_sum(out["cp_after"], "ai4e_dispatch_total",
+                          outcome="backpressure")
+               - metric_sum(out["cp_before"], "ai4e_dispatch_total",
+                            outcome="backpressure"))
+    if backpressure != counted:
+        raise AssertionError(f"{backpressure} backpressure events in the "
+                             f"ledgers, {counted} counted")
+    hops = {model: deltas_summary(evs) for model, evs in timelines.items()}
+
+    # The trace verb printed every hop of its task.
+    lc_task = out["landcover"]["task_ids"][0]
+    for e in out["records"]["landcover"][0]["Ledger"]:
+        if e["e"] not in out["trace_verb"]:
+            raise AssertionError(f"trace verb lacks {e['e']}:\n"
+                                 f"{out['trace_verb']}")
+
+    # The span log: a land-cover task's spans linked; the sync split.
+    spans = load_spans(str(spans_path))
+    service = handoff["models"]["service_name"]
+    span_ms = check_span_tree(spans, lc_task, service)
+    log_tree = trace_verb(["--export", str(spans_path), "--task-id",
+                           lc_task], env)
+    if "create_task" not in log_tree or "dispatch" not in log_tree:
+        raise AssertionError(f"trace over the span log:\n{log_tree}")
+    sync = {}
+    for model, route, path in (
+            ("landcover", "/v1/landcover/classify", "/classify"),
+            ("longcontext", "/v1/longcontext/score", "/score")):
+        worker_ms = [s["duration"] * 1e3 for s in spans
+                     if s["service"] == service and s["name"] == path]
+        gw_count = metric_sum(out["cp_metrics"],
+                              "ai4e_request_e2e_seconds_count", route=route)
+        gw_sum = metric_sum(out["cp_metrics"], "ai4e_request_e2e_seconds_sum",
+                            route=route)
+        if len(worker_ms) != N_OBS_SYNC or gw_count != N_OBS_SYNC:
+            raise AssertionError(f"{model}: {len(worker_ms)} worker sync "
+                                 f"spans, {gw_count} gateway observations")
+        sync[model] = {"client_p50_ms": out[model]["sync_p50_ms"],
+                       "gateway_mean_ms": gw_sum / gw_count * 1e3,
+                       "worker_span_p50_ms": statistics.median(worker_ms)}
+
+    # The debug surfaces.
+    entries = out["flight"]["entries"]
+    if not entries or not all(e.get("reason") for e in entries):
+        raise AssertionError(f"flight dump: {out['flight']}")
+    cp_text, wk_text = out["cp_metrics"], out["wk_metrics"]
+    needed = {
+        "an e2e exemplar": "# exemplar ai4e_request_e2e_seconds_bucket",
+        "the latency burn rate": 'ai4e_slo_burn_rate{kind="latency",'
+                                 'route="/v1/landcover/classify-async"',
+        "the goodput burn rate": 'ai4e_slo_burn_rate{kind="goodput",'
+                                 'route="/v1/landcover/classify"',
+        "the depth gauges": "ai4e_task_depth{",
+        "the control plane's vitals": "ai4e_process_loop_lag_seconds_count",
+        "the span metrics": 'ai4e_span_seconds_count{name="dispatch"'}
+    for what, text in needed.items():
+        if text not in cp_text:
+            raise AssertionError(f"control-plane /metrics lacks {what}")
+    for what in ("ai4e_process_loop_lag_seconds_count",
+                 "ai4e_process_rss_bytes", "ai4e_device_phase_seconds"):
+        if what not in wk_text:
+            raise AssertionError(f"worker /metrics lacks {what}")
+
+    # Every answer, and every kernel of the path launched in the worker.
+    answers = served_references(handoff, work, out)
+    by_model = launches_by_model(wk_log)
+    need = {("landcover", "normalize_image"),
+            ("landcover", "fused_seg_postprocess"),
+            ("megadetector", "normalize_image"),
+            ("species", "normalize_image"),
+            ("longcontext", "flash_attention"), ("moe", "flash_attention")}
+    for model, kernel in need:
+        if by_model.get(model, {}).get(kernel, 0) < 1:
+            raise AssertionError(f"{kernel} never launched for {model}: "
+                                 f"{by_model}")
+
+    # Land cover again, the rest of the layer unchanged: with JAX's
+    # tracing defaults (rate 1.0, every span an INFO log line) and with
+    # tracing off, in turns (defaults, off, off, defaults), so a drift of
+    # the host's load over the phase falls on both sides alike.
+    rates = {"spans_to_jsonl": [out["landcover"]["async_requests_per_s"]]
+             + out["bursts"], "jax_defaults": [], "tracing_off": []}
+    envs = {"jax_defaults": {k: v for k, v in env.items()
+                             if k != "AI4E_OBSERVABILITY_TRACE_EXPORT_PATH"},
+            "tracing_off": dict(env, AI4E_OBSERVABILITY_TRACE_ENABLED="0")}
+    span_lines = 0
+    for turn, tag in enumerate(RATE_TURNS):
+        again, cp_text_, wk_text_ = serve_observed(
+            handoff, envs[tag], work, f"{tag}_{turn}", False)
+        rates[tag] += ([again["landcover"]["async_requests_per_s"]]
+                       + again["bursts"])
+        lines = sum(f"{SPAN_LOGGER} INFO span " in line
+                    for text in (cp_text_, wk_text_)
+                    for line in text.splitlines())
+        if (lines > 0) != (tag == "jax_defaults"):
+            raise AssertionError(f"{lines} span log lines with {tag}")
+        span_lines += lines
+
+    rows = {k["name"]: k for k in kernels}
+    rows["normalize_image"]["launches_observability"] = {
+        m: by_model[m]["normalize_image"]
+        for m in ("landcover", "megadetector", "species")}
+    rows["fused_seg_postprocess"]["launches_observability"] = \
+        by_model["landcover"]["fused_seg_postprocess"]
+    rows["flash_attention"]["launches_observability"] = {
+        m: by_model[m]["flash_attention"] for m in ("longcontext", "moe")}
+    for model, summary in hops.items():
+        log(f"observability hops {model} (ms): {json.dumps(summary)}")
+    report = {
+        "card": CARD["smi"], "clients": "another process",
+        "tasks": {m: len(t) for m, t in timelines.items()},
+        "backpressure_events": backpressure,
+        "sync_split": sync, "landcover_task_span_ms": span_ms,
+        "landcover_async_requests_per_s": rates,
+        "span_log_lines": sum(1 for _ in spans_path.open()),
+        "span_info_log_lines_jax_defaults": span_lines,
+        "rate_medians": {k: statistics.median(v) for k, v in rates.items()},
+        "flight": {"entries": len(entries),
+                   "by_reason": out["flight"]["by_reason"]},
+        "answers": answers, "launches_by_model": by_model}
+    log(f"observability: {json.dumps(report)}")
+    return report
 
 
 def main() -> None:
@@ -3758,7 +4319,8 @@ def main() -> None:
     phase_runtime(e2e, trained_npz)
     phase_camera_trap(kernels)
     phase_moe_vit(kernels)
-    phase_deploy(kernels)
+    _, deployed = phase_deploy(kernels)
+    phase_observability(deployed, kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -73,6 +73,21 @@ SERVED_RUNTIME_KNOBS = [
     ("AI4E_ROLLOUT_", "drain_timeout_ms")]
 
 
+#: The observability knobs (ROADMAP A18.11): the port serves them, so each
+#: set away from its default parses as JAX's does. ``slo_ladder`` stays an
+#: unported case (it feeds the orchestration ladder, A18.9).
+SERVED_OBSERVABILITY_KNOBS = [
+    ("AI4E_OBSERVABILITY_", f) for f in (
+        "trace_enabled", "trace_sample_rate", "trace_export_path",
+        "trace_otlp_endpoint", "queue_depth_interval",
+        "process_depth_interval", "vitals", "vitals_interval",
+        "hop_ledger")] + [
+    ("AI4E_PLATFORM_", f) for f in (
+        "observability", "flight_capacity", "flight_sample",
+        "flight_slow_ms", "slo_objectives", "slo_tick_s",
+        "slo_fast_window_s", "slo_slow_window_s")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -93,7 +108,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + [pytest.param("error", env, None, id=next(iter(env)))
             for env in ERRORS]
          + list(off_default_cases(port_config.UNPORTED, "unported"))
-         + list(off_default_cases(SERVED_RUNTIME_KNOBS, "same")))
+         + list(off_default_cases(SERVED_RUNTIME_KNOBS, "same"))
+         + list(off_default_cases(SERVED_OBSERVABILITY_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -134,6 +150,11 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_REAPER_TERMINAL_RETENTION": "0"},
     {"AI4E_PLATFORM_REAPER_TERMINAL_RETENTION": "-1"},
     {"AI4E_PLATFORM_TRANSPORT": "queue"},
+    {"AI4E_PLATFORM_OBSERVABILITY": "1"},
+    {"AI4E_PLATFORM_FLIGHT_CAPACITY": "8"},
+    {"AI4E_PLATFORM_SLO_OBJECTIVES": "/v1/a=250:99,/v1/a=goodput:99.9"},
+    {"AI4E_OBSERVABILITY_QUEUE_DEPTH_INTERVAL": "0.5"},
+    {"AI4E_OBSERVABILITY_PROCESS_DEPTH_INTERVAL": "2"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -143,6 +164,18 @@ def test_platform_config_is_jax_s(env):
     assert isinstance(port, PlatformConfig)
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(want, f.name), f.name
+
+
+def test_seventeen_observability_knobs_left_the_unported_set():
+    """The served observability knobs are out of ``UNPORTED``; the SLO
+    ladder stays there, naming orchestration's item."""
+    assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
+    assert len(SERVED_OBSERVABILITY_KNOBS) == 17
+    assert len(port_config.UNPORTED) == 92
+    assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
+    with pytest.raises(port_config.ConfigError, match="A18.9"):
+        port_config.FrameworkConfig.from_env(
+            {"AI4E_PLATFORM_SLO_LADDER": "1"})
 
 
 def test_sections_and_fields_are_the_jax_package_s():

@@ -116,8 +116,7 @@ class TestTaskStoreSurface:
         assert jax_out[4][0] == 409 and jax_out[6][0] == 200  # sanity
 
     @pytest.mark.parametrize("path", [
-        "/v1/taskstore/role", "/v1/taskstore/journal", "/v1/taskstore/shards",
-        "/v1/taskstore/ledger"])
+        "/v1/taskstore/role", "/v1/taskstore/journal", "/v1/taskstore/shards"])
     def test_unported_routes_are_404(self, path):
         async def run():
             async with TestClient(TestServer(port_make_app(PortStore()))) as c:

@@ -337,6 +337,19 @@ class TestMetricSet:
         assert set(batcher.metrics._metrics) == \
             jax_worker_metrics[str(int(phases))] - UNPORTED_METRICS
 
+    @pytest.mark.parametrize("on", ["0", "1"])
+    def test_hop_ledger_switch_registers_jax_s_families(
+            self, on, jax_worker_metrics):
+        """The same through JAX's own switch,
+        ``AI4E_OBSERVABILITY_HOP_LEDGER``, which also makes the worker
+        flush each request's hop ledger."""
+        worker, batcher, _ = worker_of(
+            ECHO_SPEC, AI4E_OBSERVABILITY_HOP_LEDGER=on)()
+        assert batcher.measure_phases is (on == "1")
+        assert worker.hop_ledger is (on == "1")
+        assert set(batcher.metrics._metrics) == \
+            jax_worker_metrics[on] - UNPORTED_METRICS
+
 
 def worker_of(spec: dict, **env):
     """A builder of the port's worker from ``spec`` under the ``AI4E_*``
