@@ -19,7 +19,12 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   ``_declarative_handoff``) and ``batch`` (``true``, or ``serve_batch``'s
   keyword arguments: the model's batch API)) and optionally ``taskstore``:
   the control plane's URL (a comma-separated value is its replica set),
-  whose task store then holds the worker's tasks and results.
+  whose task store then holds the worker's tasks and results. A
+  ``seqformer-lm`` model is served on ``{prefix}/{name}-stream-async`` by
+  a continuous-batching decode engine when ``AI4E_RUNTIME_DECODE_ENABLE``
+  is on (``AI4E_RUNTIME_KV_SLOTS``, ``_KV_MAX_LEN``,
+  ``_DECODE_PROMPT_BUCKETS``, ``_DECODE_MAX_PENDING``), and skipped with a
+  warning when it is off.
 - ``trace --task-id ID --url CONTROL_PLANE`` — the task's hop ledger,
   fetched live (``GET /v1/taskmanagement/task/{id}?ledger=1``) and rendered
   with per-hop deltas; ``trace [--task-id ID | --trace-id ID] [--list]
@@ -147,22 +152,24 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
 
 
 def restore_checkpoint(servable, path: str,
-                       checkpoint_dir: str | None = None) -> None:
+                       checkpoint_dir: str | None = None,
+                       state_dict_from_flax=None) -> None:
     """Load a flax params tree saved flat with ``convert.save_npz`` into
-    ``servable.module``; a relative path resolves under ``checkpoint_dir``
-    (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working directory, and a bare
-    name to ``<name>.npz`` there when that file exists. Any other path
-    raises, naming ``scripts/orbax_to_npz.py``, which converts an orbax
-    checkpoint where JAX is installed."""
+    ``servable.module``, converted by ``state_dict_from_flax`` (default:
+    the servable's own converter); a relative path resolves under
+    ``checkpoint_dir`` (``AI4E_RUNTIME_CHECKPOINT_DIR``) or the working
+    directory, and a bare name to ``<name>.npz`` there when that file
+    exists. Any other path raises, naming ``scripts/orbax_to_npz.py``,
+    which converts an orbax checkpoint where JAX is installed."""
     from .checkpoint import load_params, resolve_npz
 
-    if servable.state_dict_from_flax is None:
+    convert = state_dict_from_flax or servable.state_dict_from_flax
+    if convert is None:
         raise ValueError(f"model {servable.name!r} has no weights to restore")
     if not os.path.isabs(path):
         path = os.path.abspath(os.path.join(checkpoint_dir or ".", path))
     path = resolve_npz(path)
-    servable.module.load_state_dict(
-        servable.state_dict_from_flax(load_params(path)))
+    servable.module.load_state_dict(convert(load_params(path)))
     servable.checkpoint_path = path
     log.info("restored %s params from %s", servable.name, path)
 
@@ -235,7 +242,11 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     flush each request's hop ledger and turns on the batcher's
     device-phase, overlap and pad metrics, as in the JAX package;
     ``measure_phases`` set to True or False overrides the config for the
-    metrics alone."""
+    metrics alone. ``seqformer-lm`` specs are collected apart and, with
+    ``AI4E_RUNTIME_DECODE_ENABLE``, each gets a ``PagedDecodeRuntime`` on
+    the model runtime's device, lock, stream and graph pool, warmed (its
+    graphs captured) at boot, and a ``DecodeEngine`` behind
+    ``worker.serve_stream``."""
     from .metrics import MetricsRegistry
     from .runtime.batcher import MicroBatcher
     from .runtime.families import build_servable
@@ -247,9 +258,15 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     rt = config.runtime
     runtime = ModelRuntime(device=device)
     to_serve = []
+    lm_specs = []
     for spec in models.get("models", []):
         spec = dict(spec)
         family = spec.pop("family")
+        if family == "seqformer-lm":
+            # Served by the decode engine, not the batcher: wired once the
+            # worker exists.
+            lm_specs.append(spec)
+            continue
         sync_path = spec.pop("sync_path", None)
         async_path = spec.pop("async_path", None)
         cap = spec.pop("maximum_concurrent_requests", 64)
@@ -305,7 +322,44 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
         if batch:
             worker.serve_batch(servable,
                                **(batch if isinstance(batch, dict) else {}))
+    if lm_specs and not rt.decode_enable:
+        log.warning("models spec names %d seqformer-lm servable(s) but "
+                    "AI4E_RUNTIME_DECODE_ENABLE is off — not serving them",
+                    len(lm_specs))
+    elif lm_specs:
+        _serve_lms(worker, runtime, lm_specs, rt, metrics)
     return worker, batcher, task_manager
+
+
+def _serve_lms(worker, runtime, lm_specs: list[dict], rt, metrics) -> None:
+    """One warmed ``PagedDecodeRuntime`` and ``DecodeEngine`` per
+    ``seqformer-lm`` spec, served on the worker; ``kv_max_len`` is the
+    default ``max_len``."""
+    from .convert import seqformer_lm_state_dict_from_flax
+    from .runtime.decode import DecodeEngine
+    from .runtime.kvcache import PagedDecodeRuntime, build_lm_servable
+
+    for spec in lm_specs:
+        async_path = spec.pop("async_path", None)
+        cap = spec.pop("maximum_concurrent_requests", 64)
+        checkpoint = spec.pop("checkpoint", None)
+        spec.setdefault("max_len", rt.kv_max_len)
+        lm = build_lm_servable(**spec)
+        if checkpoint:
+            restore_checkpoint(lm, checkpoint, rt.checkpoint_dir,
+                               seqformer_lm_state_dict_from_flax)
+        backend = PagedDecodeRuntime(
+            lm, runtime, slots=rt.kv_slots,
+            prompt_buckets=rt.decode_prompt_buckets or None)
+        backend.warm()
+        engine = DecodeEngine(backend, max_pending=rt.decode_max_pending,
+                              metrics=metrics)
+        worker.serve_stream(engine, async_path=async_path,
+                            maximum_concurrent_requests=cap)
+        log.info("decode engine %s: %d slots, max_len %d, prompt buckets "
+                 "%s, cache %.1f MB", lm.name, backend.slots,
+                 backend.max_len, backend.prompt_buckets,
+                 backend.cache_nbytes() / 1e6)
 
 
 def kernel_launches() -> dict[str, int]:
@@ -331,13 +385,15 @@ async def serve(worker, batcher, host: str, port: int,
                 stop: asyncio.Event, drain_timeout: float = 30.0,
                 config: FrameworkConfig | None = None) -> None:
     """Serve ``worker`` on ``host:port`` until ``stop`` is set, then drain
-    in-flight async tasks, stop the batcher, close the store clients and
-    log each kernel's launches while serving (warmup excluded). ``config``
-    (default: every section at its defaults) may start the vitals
-    sampler."""
+    in-flight async tasks, stop the batcher and the decode engines, close
+    the store clients and log each kernel's launches while serving (warmup
+    excluded). ``config`` (default: every section at its defaults) may
+    start the vitals sampler."""
     from aiohttp import web
 
     await batcher.start()
+    for engine in worker.decode_engines:
+        await engine.start()
     runner = web.AppRunner(worker.service.app)
     await runner.setup()
     before = kernel_launches()
@@ -347,16 +403,21 @@ async def serve(worker, batcher, host: str, port: int,
         await web.TCPSite(runner, host, port).start()
         vitals = await start_vitals(config or FrameworkConfig(),
                                     worker.service.metrics)
-        log.info("worker on %s:%s serving %s on %s%s%s", host, port,
+        log.info("worker on %s:%s serving %s on %s%s%s%s", host, port,
                  list(worker.runtime.models), worker.runtime.device,
                  ", vitals ON" if vitals is not None else "",
-                 ", hop ledger ON" if worker.hop_ledger else "")
+                 ", hop ledger ON" if worker.hop_ledger else "",
+                 (", streaming decode ON (%s)" % ", ".join(
+                     e.backend.name for e in worker.decode_engines)
+                  if worker.decode_engines else ""))
         await stop.wait()
     finally:
         if vitals is not None:
             await vitals.stop()
         await worker.service.drain(timeout=drain_timeout)
         await batcher.stop()
+        for engine in worker.decode_engines:
+            await engine.stop()
         for client in (worker.service.task_manager, worker.store):
             if hasattr(client, "close"):
                 await client.close()

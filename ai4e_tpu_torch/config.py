@@ -48,7 +48,6 @@ _NATIVE = "the native cores and result offload (ROADMAP A18.13)"
 _REPORTER = "the request reporter (ROADMAP A18.14)"
 _WORKER = "the worker's rollout generations (ROADMAP A6.3)"
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
-_DECODE = "streaming decode (ROADMAP A13)"
 _MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
@@ -93,9 +92,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
-    **{("AI4E_RUNTIME_", f): _DECODE for f in (
-        "decode_enable", "decode_max_pending", "decode_prompt_buckets",
-        "kv_slots", "kv_max_len")},
     **{("AI4E_RUNTIME_", f): _MESH for f in (
         "dp", "fsdp", "tp", "sp", "ep", "mesh_spec",
         "mesh_unhealthy_after")},

@@ -41,6 +41,11 @@ patch conv ``embed`` (an HWIO kernel and a bias), ``pos_embed`` and
 ``block{i}/attn/{qkv,out}`` (only ``out`` with a bias) and
 ``block{i}/mlp/{up,down}``, with the LayerNorms named as the SeqFormer's.
 
+For ``SeqFormerLM`` the names are the modules' own too (``embed``,
+``pos_emb`` of shape (max_len, dim), ``block{i}/ln1|qkv|proj|ln2|mlp_up|
+mlp_down``, ``ln_f``); ``qkv`` and ``proj`` have no bias, and the head is
+the embedding table, tied.
+
 Each ``*_flax_from_state_dict`` is the inverse of its
 ``*_state_dict_from_flax``: a trained state_dict becomes the flax tree that
 ``save_npz`` writes and a worker restores, and a served model's tree is what
@@ -329,6 +334,63 @@ def seqformer_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
     params = {"params": tree}
     # The forward conversion checks keys and shapes against the model.
     seqformer_state_dict_from_flax(params)
+    return params
+
+
+def seqformer_lm_state_dict_from_flax(params: dict
+                                      ) -> dict[str, torch.Tensor]:
+    """The port's ``SeqFormerLM`` state_dict (float32) for a flax
+    ``SeqFormerLM`` tree (``{"params": {...}}`` or the inner dict)."""
+    from .models.seqformer import SeqFormerLM
+
+    tree = params.get("params", params)
+    read = _FlaxReader(tree)
+    depth = sum(1 for k in tree if k.startswith("block"))
+    pos = read.tensor("pos_emb")
+    if pos.dim() != 2:
+        raise ValueError(f"pos_emb must be (max_len, dim), got "
+                         f"{tuple(pos.shape)}")
+    sd: dict[str, torch.Tensor] = {"pos_emb": pos,
+                                   "embed.weight": read.tensor(
+                                       "embed/embedding")}
+    for i in range(depth):
+        b, dst = f"block{i}", f"blocks.{i}"
+        read.norm(sd, f"{b}/ln1", f"{dst}.ln1")
+        read.dense(sd, f"{b}/qkv", f"{dst}.qkv", bias=False)
+        read.dense(sd, f"{b}/proj", f"{dst}.proj", bias=False)
+        read.norm(sd, f"{b}/ln2", f"{dst}.ln2")
+        read.dense(sd, f"{b}/mlp_up", f"{dst}.mlp_up")
+        read.dense(sd, f"{b}/mlp_down", f"{dst}.mlp_down")
+    read.norm(sd, "ln_f", "ln_f")
+
+    max_len, dim = pos.shape
+    with torch.device("meta"):
+        expected = SeqFormerLM(vocab_size=sd["embed.weight"].shape[0],
+                               max_len=max_len, dim=dim, depth=depth,
+                               heads=1).state_dict()
+    return _checked(sd, expected, read.leftover(), "SeqFormerLM")
+
+
+def seqformer_lm_flax_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """The flax ``SeqFormerLM`` tree (``{"params": {...}}`` of float32 numpy
+    arrays) for the port's state_dict: the inverse of
+    ``seqformer_lm_state_dict_from_flax``, exact both ways."""
+    tree: dict = {"pos_emb": _state_array(sd, "pos_emb"),
+                  "embed": {"embedding": _state_array(sd, "embed.weight")}}
+    for i in range(_depth(sd)):
+        src = f"blocks.{i}"
+        tree[f"block{i}"] = {
+            "ln1": _flax_norm(sd, f"{src}.ln1"),
+            "qkv": _flax_dense(sd, f"{src}.qkv", bias=False),
+            "proj": _flax_dense(sd, f"{src}.proj", bias=False),
+            "ln2": _flax_norm(sd, f"{src}.ln2"),
+            "mlp_up": _flax_dense(sd, f"{src}.mlp_up"),
+            "mlp_down": _flax_dense(sd, f"{src}.mlp_down"),
+        }
+    tree["ln_f"] = _flax_norm(sd, "ln_f")
+    params = {"params": tree}
+    # The forward conversion checks keys and shapes against the model.
+    seqformer_lm_state_dict_from_flax(params)
     return params
 
 

@@ -25,8 +25,17 @@ Attention is injected as a plain function of (q, k, v), each (B, H, S, D):
 ``attention_for`` gives the hand-written flash kernel (``ops.flash_attention``)
 or plain full attention. q/k/v are strided views of the fused qkv projection
 and the kernel writes its output in (B, S, H, D) order, so neither side of
-the attention call copies. The causal LM (``SeqFormerLM``) belongs to the
-streaming slice (ROADMAP A13).
+the attention call copies.
+
+``SeqFormerLM`` is the causal token LM of the streaming path
+(``runtime/kvcache.py``), in float32 as in JAX, with two entry points:
+``prefill`` (full causal attention over a padded prompt, returning the K/V
+it computed) and ``decode_step`` (one token per slot of a pooled K/V
+cache). Its attention over the cache is a masked product and softmax, as
+JAX's (no kernel of ``ops``), and the step writes the new token's K/V into
+the cache in place at ``position``, where JAX blends a one-hot over the
+whole cache: for finite values the two give the same cache bit for bit
+(``k * 1 + k_new * 0 = k``, ``k * 0 + k_new * 1 = k_new``).
 """
 
 from __future__ import annotations
@@ -122,7 +131,7 @@ class SeqFormer(nn.Module):
         return self.head(self.norm(pooled))
 
 
-def init_flax_like_(model: SeqFormer, generator: torch.Generator) -> None:
+def init_flax_like_(model: nn.Module, generator: torch.Generator) -> None:
     """Flax's default init: Dense kernels ``lecun_normal`` (truncated
     normal, fan-in scaled) and zero biases, ``nn.Embed`` normal with std
     sqrt(1/dim), ``pos_emb`` normal(0.02), LayerNorm scale one and bias
@@ -183,5 +192,137 @@ def create_seqformer(generator: torch.Generator | None = None,
                       depth=depth, heads=heads, num_classes=num_classes,
                       attn_fn=attn_fn, dtype=dtype, vocab_size=vocab_size,
                       param_dtype=param_dtype)
+    init_flax_like_(model, generator)
+    return model.to(device).eval()
+
+
+class _LMBlock(nn.Module):
+    """One causal decoder block in float32, with the two attention entry
+    points of the serving runtime over the same parameters: ``prefill``
+    (causal attention over the prompt, returning its K/V) and ``step`` (one
+    token a slot against the K/V cache, written in place)."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.dim, self.heads = dim, heads
+        self.ln1 = LayerNorm(dim)
+        self.qkv = Dense(dim, 3 * dim, bias=False, dtype=torch.float32)
+        self.proj = Dense(dim, dim, bias=False, dtype=torch.float32)
+        self.ln2 = LayerNorm(dim)
+        self.mlp_up = Dense(dim, dim * 4, dtype=torch.float32)
+        self.mlp_down = Dense(dim * 4, dim, dtype=torch.float32)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.mlp_down(gelu(self.mlp_up(self.ln2(x))))
+
+    def prefill(self, x: torch.Tensor, mask: torch.Tensor):
+        """x: (B, S, D); mask: (B, S), True on real tokens. Returns ``(y,
+        k, v)``, k and v of shape (B, H, S, hd)."""
+        b, s, _ = x.shape
+        hd = self.dim // self.heads
+        qkv = self.qkv(self.ln1(x)).view(b, s, 3, self.heads, hd)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        causal = torch.ones((s, s), dtype=torch.bool,
+                            device=x.device).tril_()
+        keep = causal[None, None] & mask[:, None, None, :]
+        scores = scores.masked_fill(~keep, -1e30)
+        o = torch.matmul(torch.softmax(scores, dim=-1), v)
+        x = x + self.proj(o.transpose(1, 2).reshape(b, s, self.dim))
+        return self._mlp(x), k, v
+
+    def step(self, x: torch.Tensor, k_cache: torch.Tensor,
+             v_cache: torch.Tensor, position: torch.Tensor) -> torch.Tensor:
+        """One decode step over the slot pool. x: (S, D), one new token a
+        slot; k_cache/v_cache: (S, H, L, hd), written in place with the new
+        token's K/V at ``position`` (S,). Attention spans all L keys,
+        masked to those at or before ``position``."""
+        s, _ = x.shape
+        hd = self.dim // self.heads
+        length = k_cache.shape[2]
+        qkv = self.qkv(self.ln1(x)).view(s, 3, self.heads, hd)
+        q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # (S, H, hd)
+        rows = torch.arange(s, device=x.device)
+        k_cache[rows, :, position] = k_new
+        v_cache[rows, :, position] = v_new
+        scores = torch.matmul(q.unsqueeze(2),
+                              k_cache.transpose(-1, -2)).squeeze(2)
+        scores = scores / math.sqrt(hd)  # (S, H, L)
+        valid = (torch.arange(length, device=x.device)[None, :]
+                 <= position[:, None])
+        scores = scores.masked_fill(~valid[:, None, :], -1e30)
+        o = torch.matmul(torch.softmax(scores, dim=-1).unsqueeze(2),
+                         v_cache).squeeze(2)
+        x = x + self.proj(o.reshape(s, self.dim))
+        return self._mlp(x)
+
+
+class SeqFormerLM(nn.Module):
+    """Causal token LM over ``_LMBlock``s, float32 throughout:
+
+    - ``prefill(tokens (B, P), length (B,))`` -> ``(next-token ids (B,),
+      k, v)``, k/v of shape (depth, B, H, P, hd): the prompt's K/V block,
+      inserted into a slot of the pooled cache by the decode runtime;
+    - ``decode_step(tokens (S,), k (depth, S, H, L, hd), v, position
+      (S,))`` -> ``(next-token ids (S,), k, v)``: one token for every slot
+      of the pool, k and v the caches given, written in place.
+
+    Greedy decoding happens on the device: the tied head (``ln_f(h)``
+    against the embedding table, in float32) and an argmax that takes the
+    first index on ties, as ``jnp.argmax``. ``pos_emb`` is (max_len,
+    dim)."""
+
+    def __init__(self, vocab_size: int, max_len: int, dim: int = 64,
+                 depth: int = 2, heads: int = 4):
+        super().__init__()
+        self.vocab_size, self.max_len = vocab_size, max_len
+        self.dim, self.depth, self.heads = dim, depth, heads
+        self.embed = Embed(vocab_size, dim, dtype=torch.float32)
+        self.pos_emb = nn.Parameter(torch.zeros((max_len, dim)))
+        self.blocks = nn.ModuleList(_LMBlock(dim, heads)
+                                    for _ in range(depth))
+        self.ln_f = LayerNorm(dim)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The tied head: ``ln_f(h)`` against the embedding table."""
+        return torch.matmul(self.ln_f(h), self.embed.weight.t())
+
+    def prefill(self, tokens: torch.Tensor, length: torch.Tensor):
+        b, p = tokens.shape
+        h = self.embed(tokens) + self.pos_emb[None, :p]
+        mask = (torch.arange(p, device=tokens.device)[None, :]
+                < length[:, None])
+        ks, vs = [], []
+        for block in self.blocks:
+            h, k, v = block.prefill(h, mask)
+            ks.append(k)
+            vs.append(v)
+        last = h[torch.arange(b, device=tokens.device), length - 1]
+        next_token = torch.argmax(self.logits(last), dim=-1)
+        return next_token, torch.stack(ks), torch.stack(vs)
+
+    def decode_step(self, tokens: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, position: torch.Tensor):
+        h = self.embed(tokens) + self.pos_emb[position]  # (S, D)
+        for i, block in enumerate(self.blocks):
+            h = block.step(h, k_cache[i], v_cache[i], position)
+        return torch.argmax(self.logits(h), dim=-1), k_cache, v_cache
+
+
+def create_seqformer_lm(generator: torch.Generator | None = None,
+                        vocab_size: int = 512, max_len: int = 256,
+                        dim: int = 64, depth: int = 2, heads: int = 4,
+                        device=None) -> SeqFormerLM:
+    """A ``SeqFormerLM`` with flax-like random weights drawn on the CPU from
+    ``generator`` (default: seed 0), then moved to ``device`` (default
+    ``cuda``). ``max_len`` is the K/V cache depth a slot holds: prompt and
+    generated tokens must fit under it."""
+    if dim % heads:
+        raise ValueError(f"dim {dim} not divisible by heads {heads}")
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = SeqFormerLM(vocab_size=vocab_size, max_len=max_len, dim=dim,
+                        depth=depth, heads=heads)
     init_flax_like_(model, generator)
     return model.to(device).eval()

@@ -1,0 +1,570 @@
+"""Continuous-batching decode engine — iteration-level scheduling; a copy
+of ``ai4e_tpu/runtime/decode.py`` over the port's backend
+(``runtime/kvcache.py``).
+
+The MicroBatcher's contract is whole-batch-in/whole-batch-out: a batch
+is cut, runs to completion, fans out. Autoregressive decoding under that
+contract holds a batch of 8-token completions hostage to one 512-token
+sequence. This engine is the second serving path, beside the batcher,
+where scheduling happens *inside* the device loop:
+
+- new requests join the running batch BETWEEN decode steps: a prefill is
+  admitted into a free KV-cache slot the moment one exists (padded to
+  the prompt-bucket ladder, ``ladder.DECODE_PROMPT_BUCKETS``);
+- every decode step advances EVERY active sequence by one token; each
+  token is handed to the request's ``on_token`` callback the moment it
+  exists;
+- finished sequences (EOS / ``max_new_tokens`` / KV-cache slot full)
+  leave between steps and free their slot immediately;
+- a per-step deadline sweep frees an EXPIRED sequence's slot mid-decode
+  instead of completing it late, and a cancelled waiter (client gone) is
+  retired the same way;
+- a hot weight reload (``params_version`` bump) invalidates the pooled
+  KV cache, and active sequences are re-prefilled from their token
+  history under the new weights, keeping their slots.
+
+Slot conservation is THE invariant: a slot is never double-assigned,
+never leaked, and freed exactly once. Every release funnels through
+``_retire`` — a single-segment method (docs/concurrency.md): the ``done``
+guard and the slot release share one atomicity segment, and every
+post-``await`` consumer re-checks ``done`` before acting on a sequence
+(the step/prefill awaits are the suspension windows a cancel or expiry
+sweep can slot into).
+
+Backpressure: ``pending_count`` at ``max_pending`` → ``submit`` raises
+``DecodeSaturated`` and the worker answers 503 through its admission
+check, exactly like ``BatcherSaturated``.
+
+This module imports neither torch nor numpy: the device work lives behind
+the backend interface, so the interleaving explorer runs the real engine
+over fake backends.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import inspect
+import logging
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from functools import partial
+
+from ..admission.deadline import DeadlineExceeded, priority_name
+from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from ..rollout.drain import DrainingError
+
+log = logging.getLogger("ai4e_tpu_torch.decode")
+
+
+class DecodeSaturated(RuntimeError):
+    """No pending capacity — the worker's admission path answers 503."""
+
+
+class SlotError(RuntimeError):
+    """A slot-conservation violation (double release / foreign release /
+    double assignment) — raised immediately so the interleaving explorer
+    and the chaos invariants see the exact violating step."""
+
+
+class SlotPool:
+    """KV-cache slot accounting. Pure bookkeeping — the device-side
+    buffers live in ``runtime/kvcache.py``; this object is the single
+    source of truth for which slots are free, and it RAISES on any
+    conservation violation instead of silently absorbing it."""
+
+    def __init__(self, slots: int):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        self.slots = slots
+        self._free = list(range(slots - 1, -1, -1))  # LIFO: slot 0 first
+        self._busy: set[int] = set()
+
+    def acquire(self) -> int | None:
+        """A free slot, or None when the pool is full."""
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        if slot in self._busy:
+            raise SlotError(f"slot {slot} double-assigned")
+        self._busy.add(slot)
+        return slot
+
+    def release(self, slot: int) -> None:
+        if slot not in self._busy:
+            raise SlotError(
+                f"slot {slot} released while not held (double free or "
+                f"foreign free); busy={sorted(self._busy)}")
+        self._busy.remove(slot)
+        self._free.append(slot)
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def busy_count(self) -> int:
+        return len(self._busy)
+
+    def check_conservation(self) -> None:
+        """Every slot is exactly one of free/busy — the post-run check
+        the race regressions assert."""
+        free = set(self._free)
+        if len(free) != len(self._free):
+            raise SlotError(f"free list holds duplicates: {self._free}")
+        if free & self._busy:
+            raise SlotError(
+                f"slots both free and busy: {sorted(free & self._busy)}")
+        if len(free) + len(self._busy) != self.slots:
+            raise SlotError(
+                f"slot leak: {len(free)} free + {len(self._busy)} busy "
+                f"!= {self.slots}")
+
+
+@dataclass
+class _Sequence:
+    """One streaming request's decode state."""
+
+    prompt: tuple  # int token ids
+    future: asyncio.Future
+    max_new_tokens: int
+    on_token: object = None       # callable (index, token) -> None
+    priority: int = 0
+    deadline_at: float = 0.0      # absolute unix seconds; 0.0 = none
+    ledger: object = None         # observability.ledger.HopLedger | None
+    tokens: list = field(default_factory=list)  # generated ids
+    slot: int | None = None
+    position: int = 0             # next KV write index (= prompt + generated)
+    done: bool = False
+    enqueued: float = field(default_factory=time.perf_counter)
+    last_token_at: float = 0.0
+
+
+class DecodeEngine:
+    """The iteration-level scheduling loop over a decode-step backend.
+
+    ``backend`` (``runtime/kvcache.py`` for the real device; tests
+    inject fakes) exposes:
+
+    - ``slots`` / ``max_len`` / ``eos_id`` / ``name``;
+    - ``params_version`` (property): bumped by hot reload — the pooled
+      cache key, checked every tick;
+    - ``reset_cache()``: clear the pooled cache (reload invalidation);
+    - ``prefill_into(slot, tokens) -> first generated token id``;
+    - ``step(tokens, positions, active) -> next token id per slot``
+      (plain int lists — the backend owns array conversion).
+
+    Backend methods may be sync (run on the engine's single device
+    executor thread — the device is the serial resource, same discipline
+    as the batcher) or async (the race tests' fakes, explored under the
+    virtual loop).
+
+    ``continuous=False`` is the whole-batch baseline the bench A/Bs
+    against: admission only when the pool is EMPTY, so a running batch
+    drains completely before anyone joins — the old contract, kept
+    measurable.
+    """
+
+    def __init__(self, backend, max_pending: int = 64,
+                 continuous: bool = True,
+                 metrics: MetricsRegistry | None = None):
+        self.backend = backend
+        self.max_pending = max_pending
+        self.continuous = continuous
+        self.pool = SlotPool(backend.slots)
+        self._queue: deque[_Sequence] = deque()
+        self._active: dict[int, _Sequence] = {}
+        self._wakeup = asyncio.Event()
+        self._stop = False
+        # Rollout drain (rollout/drain.py): stop admitting prefills but
+        # let ACTIVE sequences decode to completion — bounded by the
+        # caller's drain budget, after which ``force_drain`` retires the
+        # stragglers (each redelivers through the broker per task).
+        self._draining = False
+        self._loop_task: asyncio.Task | None = None
+        self._executor = None
+        self._cache_version = None
+        self.metrics = metrics or DEFAULT_REGISTRY
+        name = getattr(backend, "name", "lm")
+        self._model = name
+        self._ttft = self.metrics.histogram(
+            "ai4e_decode_ttft_seconds",
+            "Submit-to-first-token latency per streaming request")
+        self._intertoken = self.metrics.histogram(
+            "ai4e_decode_intertoken_seconds",
+            "Gap between consecutive tokens of one sequence")
+        self._step_hist = self.metrics.histogram(
+            "ai4e_decode_step_seconds",
+            "Device time per engine step, by phase (prefill/decode)")
+        self._occupancy = self.metrics.gauge(
+            "ai4e_decode_slot_occupancy",
+            "Occupied KV-cache slots / total slots per model")
+        self._pending_gauge = self.metrics.gauge(
+            "ai4e_decode_pending",
+            "Streaming requests waiting for a KV-cache slot")
+        self._tokens_total = self.metrics.counter(
+            "ai4e_decode_tokens_total", "Generated tokens per model")
+        self._sequences_total = self.metrics.counter(
+            "ai4e_decode_sequences_total",
+            "Finished sequences by model and outcome")
+        self._reprefills_total = self.metrics.counter(
+            "ai4e_decode_reprefills_total",
+            "Active sequences re-prefilled after a hot-reload "
+            "KV-cache invalidation")
+        self._expired_total = self.metrics.counter(
+            "ai4e_admission_expired_total",
+            "Requests dropped on deadline expiry, by hop/priority")
+
+    # -- request side ------------------------------------------------------
+
+    @property
+    def pending_count(self) -> int:
+        return len(self._queue)
+
+    @property
+    def active_count(self) -> int:
+        return len(self._active)
+
+    async def submit(self, prompt, max_new_tokens: int, on_token=None,
+                     priority: int = 0, deadline_at: float = 0.0,
+                     ledger=None) -> list:
+        """Queue one streaming generation; resolves to the generated
+        token ids. ``on_token(index, token_id)`` fires on the engine
+        loop the moment each token exists — the worker publishes chunks
+        from it. Cancelling the await retires the sequence and frees its
+        slot at the next sweep."""
+        if self._stop:
+            raise RuntimeError("decode engine stopped")
+        if self._draining:
+            raise DrainingError("decode engine draining; submit refused")
+        if self.pending_count >= self.max_pending:
+            raise DecodeSaturated(
+                f"decode queue at {self.pending_count}/{self.max_pending} "
+                f"pending")
+        prompt = tuple(int(t) for t in prompt)
+        if not prompt:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if len(prompt) >= self.backend.max_len:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens leaves no room to "
+                f"generate under the KV-cache length {self.backend.max_len}")
+        fut = asyncio.get_running_loop().create_future()
+        seq = _Sequence(prompt=prompt, future=fut,
+                        max_new_tokens=max_new_tokens, on_token=on_token,
+                        priority=priority, deadline_at=deadline_at,
+                        ledger=ledger)
+        self._queue.append(seq)
+        self._pending_gauge.set(self.pending_count, model=self._model)
+        self._wakeup.set()
+        return await fut
+
+    def cancel(self, future: asyncio.Future) -> None:
+        """Retire the sequence awaiting ``future`` (client gone). The
+        sweep also catches cancelled futures; this frees the slot
+        without waiting for the next tick."""
+        for seq in list(self._active.values()) + list(self._queue):
+            if seq.future is future:
+                self._retire(seq, "cancelled")
+                return
+
+    # -- drain (rollout/drain.py drives these; docs/deployment.md) ---------
+
+    def begin_drain(self) -> int:
+        """Stop admitting prefills and retire every QUEUED sequence with
+        ``DrainingError`` (each redelivers through the broker per task);
+        active sequences keep decoding — ``drain_complete`` turns true
+        when the last one finishes. Flip + retire are one synchronous
+        step, so a concurrently scheduled ``_admit`` cannot prefill a
+        sequence this sweep already failed."""
+        self._draining = True
+        retired = 0
+        for seq in list(self._queue):
+            if not seq.done:
+                self._retire(seq, "cancelled",
+                             error=DrainingError(
+                                 "decode engine draining; redeliver"))
+                retired += 1
+        self._wakeup.set()
+        return retired
+
+    @property
+    def drain_complete(self) -> bool:
+        """Draining AND quiesced: no queued, no active sequences."""
+        return self._draining and not self._active and not self._queue
+
+    def force_drain(self) -> int:
+        """Retire the ACTIVE stragglers past the drain budget with
+        ``DrainingError`` — each redelivers through the broker per task."""
+        forced = 0
+        for seq in list(self._active.values()):
+            if not seq.done:
+                self._retire(seq, "cancelled",
+                             error=DrainingError(
+                                 "decode drain budget exhausted; "
+                                 "redeliver"))
+                forced += 1
+        return forced
+
+    def resume_from_drain(self) -> None:
+        """Re-arm after an aborted drain (rollback re-weights the worker
+        back into service without a process restart)."""
+        self._draining = False
+        self._wakeup.set()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def start(self) -> None:
+        self._stop = False
+        self._loop_task = asyncio.get_running_loop().create_task(self._run())
+
+    async def stop(self) -> None:
+        self._stop = True
+        self._wakeup.set()
+        if self._loop_task is not None:
+            await self._loop_task
+            self._loop_task = None
+        for seq in list(self._active.values()) + list(self._queue):
+            self._retire(seq, "cancelled",
+                         error=RuntimeError("decode engine stopped"))
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+
+    # -- engine loop -------------------------------------------------------
+
+    async def _run(self) -> None:
+        while not self._stop:
+            if not self._active and not self._queue:
+                self._wakeup.clear()
+                try:
+                    await asyncio.wait_for(self._wakeup.wait(), timeout=0.5)
+                except asyncio.TimeoutError:
+                    continue
+            if self._stop:
+                return
+            try:
+                await self._tick()
+            except Exception:  # noqa: BLE001 — a backend crash fails the affected sequences below, never the loop
+                log.exception("decode tick failed; failing active sequences")
+                for seq in list(self._active.values()):
+                    self._retire(seq, "failed",
+                                 error=RuntimeError("decode step failed"))
+
+    async def _tick(self) -> None:
+        """One scheduling iteration: reload check → expiry/cancel sweep →
+        admission (prefill into free slots) → one decode step."""
+        await self._check_reload()
+        self._sweep()
+        await self._admit()
+        await self._step()
+
+    async def _check_reload(self) -> None:
+        """Hot-reload invalidation: a ``params_version`` bump makes the
+        pooled cache stale (it was computed under the old weights — the
+        rescache contract). Re-prefill every active sequence from its
+        token history under the new weights; slots are kept, never
+        re-acquired, so conservation holds across the invalidation."""
+        version = self.backend.params_version
+        if version == self._cache_version:
+            return
+        first_attach = self._cache_version is None
+        self._cache_version = version
+        if first_attach and not self._active:
+            return  # engine's first tick ever: nothing to invalidate
+        reset = self.backend.reset_cache()
+        if inspect.isawaitable(reset):
+            await reset
+        for seq in list(self._active.values()):
+            if seq.done:
+                continue
+            history = seq.prompt + tuple(seq.tokens)
+            if len(history) >= self.backend.max_len:
+                # No room to re-derive the next token's KV: the sequence
+                # was about to hit the context bound anyway.
+                self._retire(seq, "completed")
+                continue
+            t0 = time.perf_counter()
+            try:
+                token = await self._call(self.backend.prefill_into,
+                                         seq.slot, list(history))
+            except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — delivered to the sequence's waiter as its failure
+                self._retire(seq, "failed", error=exc)
+                continue
+            self._step_hist.observe(time.perf_counter() - t0,
+                                    phase="prefill", model=self._model)
+            if seq.done:
+                continue  # retired (cancel/expiry) while re-prefilling
+            seq.position = len(history)
+            self._reprefills_total.inc(model=self._model)
+            self._note_token(seq, int(token))
+
+    def _sweep(self) -> None:
+        """Expiry + cancellation sweep, every iteration — single
+        segment, no suspension points: the decision and the slot release
+        cannot interleave with anything (docs/concurrency.md)."""
+        now = time.time()
+        for seq in list(self._active.values()) + list(self._queue):
+            if seq.done:
+                continue
+            if seq.future.done():
+                # Waiter cancelled (client disconnected): nothing to
+                # deliver tokens to — free the slot now.
+                self._retire(seq, "cancelled")
+            elif seq.deadline_at and seq.deadline_at <= now:
+                self._expired_total.inc(hop="decode",
+                                        priority=priority_name(seq.priority))
+                self._retire(seq, "expired",
+                             error=DeadlineExceeded("decode",
+                                                    seq.deadline_at))
+
+    async def _admit(self) -> None:
+        """Prefill queued requests into free KV-cache slots — BETWEEN
+        decode steps, the continuous-batching join. Whole-batch mode
+        (``continuous=False``) gates admission on an EMPTY pool (checked
+        once at entry), then fills every slot it can: the old whole-
+        batch-in/whole-batch-out contract, kept measurable as the bench
+        baseline."""
+        if self._draining:
+            # Anything that raced past the submit-side refusal is retired
+            # here rather than prefilled onto a leaving worker.
+            for seq in list(self._queue):
+                if not seq.done:
+                    self._retire(seq, "cancelled",
+                                 error=DrainingError(
+                                     "decode engine draining; redeliver"))
+            return
+        if not self.continuous and self._active:
+            return
+        while self._queue:
+            slot = self.pool.acquire()
+            if slot is None:
+                return
+            seq = self._queue.popleft()
+            self._pending_gauge.set(self.pending_count, model=self._model)
+            if seq.done or seq.future.done():
+                # Swept/cancelled while queued: the slot was never its.
+                self.pool.release(slot)
+                if not seq.done:
+                    self._retire(seq, "cancelled")
+                continue
+            seq.slot = slot
+            self._active[slot] = seq
+            self._occupancy.set(self.pool.busy_count / self.pool.slots,
+                                model=self._model)
+            t0 = time.perf_counter()
+            try:
+                token = await self._call(self.backend.prefill_into,
+                                         slot, list(seq.prompt))
+            except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — delivered to the sequence's waiter as its failure
+                self._retire(seq, "failed", error=exc)
+                continue
+            self._step_hist.observe(time.perf_counter() - t0,
+                                    phase="prefill", model=self._model)
+            if seq.done:
+                continue  # re-check after the await: retired mid-prefill
+            seq.position = len(seq.prompt)
+            self._note_token(seq, int(token))
+
+    async def _step(self) -> None:
+        """One decode step over the whole slot pool: every active
+        sequence advances one token; inactive slots ride along masked."""
+        if not self._active:
+            return
+        snapshot = [(slot, seq, seq.position)
+                    for slot, seq in sorted(self._active.items())
+                    if not seq.done]
+        if not snapshot:
+            return
+        tokens = [0] * self.pool.slots
+        positions = [0] * self.pool.slots
+        active = [False] * self.pool.slots
+        for slot, seq, position in snapshot:
+            tokens[slot] = seq.tokens[-1]
+            positions[slot] = position
+            active[slot] = True
+        t0 = time.perf_counter()
+        out = await self._call(self.backend.step, tokens, positions, active)
+        self._step_hist.observe(time.perf_counter() - t0, phase="decode",
+                                model=self._model)
+        for slot, seq, position in snapshot:
+            if seq.done or seq.slot != slot:
+                continue  # re-check after the await: retired mid-step
+            seq.position = position + 1
+            self._note_token(seq, int(out[slot]))
+
+    # -- bookkeeping (single-segment: no suspension points below) ---------
+
+    def _note_token(self, seq: _Sequence, token: int) -> None:
+        """Account one generated token: callback (chunk emission), TTFT /
+        inter-token latency, and the finish decision (EOS, token budget,
+        KV-cache slot full)."""
+        now = time.perf_counter()
+        first = not seq.tokens
+        seq.tokens.append(token)
+        self._tokens_total.inc(model=self._model)
+        if first:
+            ttft = now - seq.enqueued
+            self._ttft.observe(ttft, model=self._model)
+            if seq.ledger is not None:
+                # ONE chunk stamp per request (the ledger caps at 128
+                # events — a 512-token stream must not eat the budget):
+                # the first token, with TTFT as the duration.
+                seq.ledger.stamp("chunk", "decode", ms=ttft * 1e3,
+                                 reason="first token")
+        else:
+            self._intertoken.observe(now - seq.last_token_at,
+                                     model=self._model)
+        seq.last_token_at = now
+        if seq.on_token is not None:
+            try:
+                seq.on_token(len(seq.tokens) - 1, token)
+            except Exception:  # noqa: BLE001 — chunk fan-out is fail-open telemetry, never a decode error
+                log.debug("on_token callback failed", exc_info=True)
+        eos = getattr(self.backend, "eos_id", None)
+        if (len(seq.tokens) >= seq.max_new_tokens
+                or (eos is not None and token == eos)
+                or seq.position >= self.backend.max_len):
+            self._retire(seq, "completed")
+
+    def _retire(self, seq: _Sequence, outcome: str, error=None) -> None:
+        """THE slot-release funnel — single segment (no awaits), so the
+        ``done`` guard and the release are atomic; idempotent, so every
+        path (finish, expiry, cancel, failure, shutdown) may call it and
+        the slot is still freed exactly once."""
+        if seq.done:
+            return
+        seq.done = True
+        if seq.slot is not None:
+            self._active.pop(seq.slot, None)
+            self.pool.release(seq.slot)
+            seq.slot = None
+            self._occupancy.set(self.pool.busy_count / self.pool.slots,
+                                model=self._model)
+        else:
+            try:
+                self._queue.remove(seq)
+            except ValueError:
+                pass  # already popped by admission
+            self._pending_gauge.set(self.pending_count, model=self._model)
+        self._sequences_total.inc(model=self._model, outcome=outcome)
+        if not seq.future.done():
+            if error is not None:
+                seq.future.set_exception(error)
+            else:
+                seq.future.set_result(list(seq.tokens))
+
+    async def _call(self, fn, /, *args):
+        """Invoke a backend method: async backends (race-test fakes)
+        await inline; sync backends (the CUDA-graph runtime) run on the
+        single device executor thread — the device is the serial
+        resource."""
+        if inspect.iscoroutinefunction(fn):
+            return await fn(*args)
+        if self._executor is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="decode")
+        return await asyncio.get_running_loop().run_in_executor(
+            self._executor, partial(fn, *args))

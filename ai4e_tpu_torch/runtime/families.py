@@ -6,9 +6,10 @@ segmentation), ``resnet`` (species classification), ``detector`` (the
 camera-trap MegaDetector slot), each image family on the uint8 ``rgb8``
 wire, ``vit`` (image classification on float32 pixels), and ``seqformer``
 and ``moe`` (sequence classification, on the token-id or feature wire).
-The response contracts are the JAX package's, byte for byte. The streaming
-LM family and the compressed wires raise ``ValueError`` naming their
-ROADMAP item.
+The response contracts are the JAX package's, byte for byte. The
+compressed wires raise ``ValueError`` naming their ROADMAP item. The
+streaming LM (``seqformer-lm``) is not a batch family: ``cli.build_worker``
+serves it through ``runtime/kvcache.py`` and ``runtime/decode.py``.
 """
 
 from __future__ import annotations
@@ -476,8 +477,9 @@ FAMILIES = {
     "moe": build_moe,
 }
 #: Families of the JAX package this port does not serve yet, with their
-#: ROADMAP items.
-UNPORTED_FAMILIES = {"seqformer-lm": "A13"}
+#: ROADMAP items: none. (``seqformer-lm`` is served by the decode engine,
+#: ``cli.build_worker``, never by ``build_servable``.)
+UNPORTED_FAMILIES: dict[str, str] = {}
 
 
 def build_servable(family: str, **kwargs) -> ServableModel:

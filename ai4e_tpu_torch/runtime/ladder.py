@@ -53,6 +53,12 @@ DETECTOR_BUCKETS = (1, 8, 16)
 #: The static ``ai4e_batch_size`` exposition ladder of a batcher without
 #: ladder derivation.
 EXPOSITION_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+#: Decode-path prompt buckets (``runtime/kvcache.py``): a streaming prompt
+#: pads to the smallest fitting bucket before prefill, so the card holds
+#: one prefill graph a bucket, not one a prompt length. The decode runtime
+#: always adds the K/V cache length as the covering top bucket.
+#: ``AI4E_RUNTIME_DECODE_PROMPT_BUCKETS`` overrides it.
+DECODE_PROMPT_BUCKETS = (1, 16, 64)
 
 
 def _align_up(n: int, multiple: int) -> int:

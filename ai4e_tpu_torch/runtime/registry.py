@@ -207,6 +207,13 @@ class ModelRuntime:
         # model -> kernel -> launches its graphs' replays made.
         self.model_launches: dict[str, dict[str, int]] = {}
 
+    @property
+    def device_lock(self) -> threading.Lock:
+        """The lock under which the card runs one batch, capture or weight
+        copy at a time; the decode runtime (``runtime/kvcache.py``) takes
+        it for its own prefills, steps, captures and copies."""
+        return self._device_lock
+
     def register(self, servable: ServableModel) -> ServableModel:
         """Move the module to the device, channels-last, inference mode."""
         servable.module = servable.module.to(

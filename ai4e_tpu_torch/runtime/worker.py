@@ -16,7 +16,11 @@ inference the handoff hands the task, under the same TaskId, to the next
 API (the detector's crops to the species classifier's batch endpoint,
 ``handoffs.crops_handoff``). ``serve_batch`` adds a batch API: one request
 carries a stack of examples, fanned into the batcher at background
-priority, with per-item failure isolation.
+priority, with per-item failure isolation. ``serve_stream`` serves an
+autoregressive LM through a continuous-batching ``DecodeEngine``
+(``runtime/decode.py``) on ``{prefix}/{name}-stream-async``: a prompt of
+token ids in, ``{"tokens", "count"}`` out, each token handed on as it is
+generated.
 
 The operator's surface is the JAX worker's too:
 
@@ -26,11 +30,14 @@ The operator's surface is the JAX worker's too:
   is not a ``.npz`` (the answer names ``scripts/orbax_to_npz.py``) or one
   that fails to load, 403 a path outside ``checkpoint_root``, 409 a tree
   that does not match the served one (serving unchanged) or a worker that
-  is draining, 200 with the new ``params_version``;
+  is draining, 200 with the new ``params_version``; a streaming LM's
+  reload also invalidates its K/V cache, and its engine re-prefills the
+  active sequences;
 - ``POST {prefix}/worker/drain`` stops admitting (503 + ``Retry-After`` +
   ``X-Draining``), retires uncut requests (an async task goes back to the
-  broker) and waits, at most the drain budget, for the batches on the card
-  and any reload; ``GET`` reports the state and ``POST
+  broker) and waits, at most the drain budget, for the batches on the card,
+  the active decode sequences and any reload; ``GET`` reports the state
+  (``decode_active`` among it) and ``POST
   {prefix}/worker/resume`` serves again.
 
 With ``hop_ledger`` (``AI4E_OBSERVABILITY_HOP_LEDGER``) every async
@@ -62,12 +69,13 @@ from aiohttp import web
 
 from ..checkpoint import CONVERTER_HINT, is_npz, load_params
 from ..metrics import MetricsRegistry
-from ..observability.ledger import RETRY, HopLedger
+from ..observability.ledger import CHUNK, RETRY, HopLedger
 from ..rollout.drain import DRAINING_HEADER, DrainingError, DrainState, \
     drain_worker
 from ..service import APIService
 from ..service.task_manager import TaskManagerBase
 from .batcher import BatcherSaturated, MicroBatcher
+from .decode import DecodeSaturated
 from .registry import ModelRuntime, ServableModel
 
 log = logging.getLogger("ai4e_tpu_torch.worker")
@@ -102,6 +110,10 @@ class InferenceWorker:
                                   task_manager=task_manager, metrics=metrics,
                                   executor_workers=executor_workers)
         self._served: dict[str, dict] = {}  # model -> endpoint listing
+        # The decode engines ``serve_stream`` serves: the reload verb finds
+        # LMs here (they never enter runtime.models), the drain and resume
+        # verbs reach them, and ``cli.serve`` starts and stops them.
+        self.decode_engines: list = []
         # Concurrent swaps would leave checkpoint_path/params_version
         # naming other weights than the ones serving.
         self._reload_lock = asyncio.Lock()
@@ -131,6 +143,7 @@ class InferenceWorker:
         except (json.JSONDecodeError, TypeError, ValueError):
             return web.json_response({"error": "invalid JSON"}, status=400)
         summary = await drain_worker(self.drain_state, batchers=[self.batcher],
+                                     engines=self.decode_engines,
                                      timeout_s=timeout_s)
         self._drain_gauge.set(self.drain_state.state_code)
         log.warning("worker drained: %s", summary)
@@ -140,12 +153,16 @@ class InferenceWorker:
         return web.json_response({
             "state": self.drain_state.state,
             "reloads_in_flight": self.drain_state.reloads_in_flight,
-            "batcher_pending": self.batcher.pending_count})
+            "batcher_pending": self.batcher.pending_count,
+            "decode_active": sum(e.active_count
+                                 for e in self.decode_engines)})
 
     async def _resume_worker(self, _request) -> web.Response:
         """POST {prefix}/worker/resume — serve again after a drain."""
         self.drain_state.resume()
         self.batcher.resume_from_drain()
+        for engine in self.decode_engines:
+            engine.resume_from_drain()
         self._drain_gauge.set(self.drain_state.state_code)
         log.warning("worker resumed from drain")
         return web.json_response({"state": self.drain_state.state})
@@ -157,8 +174,18 @@ class InferenceWorker:
         against the recorded checkpoint's directory), between batches."""
         name = request.match_info["name"]
         servable = self.runtime.models.get(name)
+        lm_backend = None
         if servable is None:
-            return web.json_response({"error": "unknown model"}, status=404)
+            # A streaming LM lives on its decode engine; the version bump
+            # of its reload makes the engine clear the K/V cache and
+            # re-prefill the active sequences.
+            lm_backend = next(
+                (e.backend for e in self.decode_engines
+                 if getattr(e.backend, "name", None) == name), None)
+            if lm_backend is None:
+                return web.json_response({"error": "unknown model"},
+                                         status=404)
+            servable = lm_backend.servable
         try:
             payload = json.loads(await request.read() or b"{}")
         except json.JSONDecodeError:
@@ -200,6 +227,8 @@ class InferenceWorker:
                 {"error": "generation must be an integer"}, status=400)
 
         def load_and_swap():
+            if lm_backend is not None:
+                return lm_backend.reload_params(load_params(path))
             return self.runtime.reload_params(name, load_params(path))
 
         # Check and register in one synchronous step: a reload racing a
@@ -517,6 +546,112 @@ class InferenceWorker:
             # bucketing tests for "failed" first.
             await tm.complete_task(
                 taskId, f"completed - {total} images, {failed} errors")
+
+    def serve_stream(self, engine, async_path: str | None = None,
+                     maximum_concurrent_requests: int = 64,
+                     event_hub=None) -> None:
+        """Expose a streaming autoregressive endpoint over a
+        ``DecodeEngine``: the request joins the running decode batch
+        between steps, and each generated token goes to ``event_hub``
+        (any object with ``track(task_id)`` and ``publish(task_id, event,
+        data)``) as a ``chunk`` event under the request's TaskId, the
+        moment it exists. With ``event_hub=None``, as the CLI runs it,
+        the tokens are only stored at the end.
+
+        Request body (JSON): ``{"prompt": [token ids], "max_new_tokens":
+        N}`` (``"tokens"`` in place of ``"prompt"`` takes an upstream
+        stage's stored result); a bad body, an id outside the vocabulary
+        or a prompt that leaves no room under the cache length fails the
+        task as ``failed - bad input``. The stored result is ``{"tokens":
+        [...], "count": N}`` and the status ``completed - N tokens``. A
+        draining worker or a full pending queue answers 503 before a task
+        is adopted; an engine saturated or drained after adoption hands
+        the task back to the broker (a standalone worker fails it)."""
+        name = engine.backend.name
+        async_path = async_path or f"/{name}-stream-async"
+        self._served.setdefault(name, {}).update(
+            stream_async=self.service.prefix + async_path)
+        self.decode_engines.append(engine)
+        servable = getattr(engine.backend, "servable", None)
+        vocab = getattr(servable, "vocab_size", None)
+        max_len = engine.backend.max_len
+
+        def _saturation_check():
+            if self.drain_state.is_draining:
+                return DRAINING_REFUSAL
+            if engine.pending_count >= engine.max_pending:
+                return 503, "Decode queue saturated; retry later.", {
+                    "Retry-After": "1"}
+            return None
+
+        def _parse(body: bytes) -> tuple[list[int], int]:
+            payload = json.loads(body)
+            if not isinstance(payload, dict):
+                raise ValueError("body must be a JSON object")
+            prompt = payload.get("prompt", payload.get("tokens"))
+            if (not isinstance(prompt, list) or not prompt
+                    or not all(isinstance(t, int) for t in prompt)):
+                raise ValueError('"prompt" must be a non-empty list of '
+                                 'token ids')
+            if vocab is not None and any(not 0 <= t < vocab for t in prompt):
+                raise ValueError(f"token ids must be in [0, {vocab})")
+            if len(prompt) >= max_len:
+                raise ValueError(
+                    f"prompt of {len(prompt)} tokens leaves no room to "
+                    f"generate under the KV-cache length {max_len}")
+            max_new = payload.get("max_new_tokens", 64)
+            if not isinstance(max_new, int) or max_new < 1:
+                raise ValueError('"max_new_tokens" must be a positive int')
+            return prompt, max_new
+
+        @self.service.api_async_func(
+            async_path, maximum_concurrent_requests=maximum_concurrent_requests,
+            admission_check=_saturation_check)
+        async def _stream(taskId, body, content_type, _name=name):
+            tm = self.service.task_manager
+            buf = HopLedger() if self.hop_ledger else None
+            try:
+                prompt, max_new = _parse(body)
+            except (ValueError, json.JSONDecodeError) as exc:
+                await tm.fail_task(taskId, f"failed - bad input: {exc}")
+                return
+            if event_hub is not None:
+                # Chunks are kept before any subscriber attaches, so one
+                # that connects mid-stream replays the tokens so far.
+                event_hub.track(taskId)
+            await tm.update_task_status(taskId, f"running - {_name} decode")
+
+            def on_token(index: int, token: int) -> None:
+                if event_hub is not None:
+                    event_hub.publish(taskId, CHUNK,
+                                      {"stage": _name, "index": index,
+                                       "data": {"token": token}})
+
+            try:
+                tokens = await engine.submit(prompt, max_new,
+                                             on_token=on_token, ledger=buf)
+            except (DecodeSaturated, DrainingError) as exc:
+                # Saturated between admission and submit, or retired by a
+                # drain: hand the task back to the broker; a peer decodes
+                # it again from the prompt.
+                if isinstance(exc, DrainingError):
+                    if buf is not None:
+                        buf.stamp(RETRY, "worker", reason="draining")
+                    await self._flush_ledger(tm, taskId, buf)
+                if not tm.redelivers:
+                    raise
+                current = await tm.get_task_status(taskId)
+                endpoint = (current or {}).get("Endpoint", async_path)
+                await tm.add_pipeline_task(taskId, endpoint)
+                return
+            except Exception:
+                await self._flush_ledger(tm, taskId, buf)
+                raise
+            await self._flush_ledger(tm, taskId, buf)
+            await self._store_result(taskId, json.dumps(
+                {"tokens": tokens, "count": len(tokens)}).encode())
+            await tm.complete_task(taskId,
+                                   f"completed - {len(tokens)} tokens")
 
     async def _store_result(self, task_id: str, payload: bytes,
                             stage: str | None = None) -> None:

@@ -40,6 +40,7 @@ import torch
 from ..convert import (detector_flax_from_state_dict,
                        moe_flax_from_state_dict, resnet_flax_from_state_dict,
                        save_npz, seqformer_flax_from_state_dict,
+                       seqformer_lm_flax_from_state_dict,
                        unet_flax_from_state_dict)
 from ..device import resolve_device
 
@@ -579,13 +580,16 @@ RECIPES = {
 MIN_EVAL = 0.85
 
 
-#: Each trained family's state_dict -> its flax tree (what ``save_npz``
-#: writes and JAX's ``load_params`` and the port's ``reload_params`` read).
+#: Each family's state_dict -> its flax tree (what ``save_npz`` writes and
+#: JAX's ``load_params`` and the port's ``reload_params`` read). The
+#: streaming LM has no training recipe, as in JAX; its entry saves seed or
+#: converted weights.
 TO_FLAX = {"unet": unet_flax_from_state_dict,
            "detector": detector_flax_from_state_dict,
            "resnet": resnet_flax_from_state_dict,
            "seqformer": seqformer_flax_from_state_dict,
-           "moe": moe_flax_from_state_dict}
+           "moe": moe_flax_from_state_dict,
+           "seqformer-lm": seqformer_lm_flax_from_state_dict}
 
 
 def make_checkpoint(name: str, out_dir: str, min_eval: float = MIN_EVAL,

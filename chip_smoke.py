@@ -171,7 +171,28 @@ Phases, each of which raises on failure:
    (gateway against the worker's span) and the land-cover async rate with
    spans to the JSONL file, then with JAX's tracing defaults (a log line a
    span) and with tracing off in turns (defaults, off, off, defaults),
-   each from its own control plane and worker.
+   each from its own control plane and worker;
+12. the streaming LM (``seqformer-lm``) at the widths of the deployed
+   SeqFormer (vocab 32768, dim 256, depth 4, 2 heads; ``kv_max_len`` its
+   4,096, 64 slots, prompt buckets 1/16/64 and 4,096; seed-0 weights):
+   (a) each prefill bucket's CUDA graph and the whole-pool step's against
+   an eager run of the module, tokens and caches ``torch.equal``, at that
+   geometry and at JAX's verify geometry (vocab 64, max_len 48, dim 32),
+   with eager and replay ms; (b) 128 streams (30% of 256 new tokens, the
+   rest 8; prompts of 4-1,024 tokens) offered at once to a
+   ``DecodeEngine``, continuous and ``continuous=False``: tokens/s, TTFT
+   and inter-token p50/p95, step and prefill ms, occupancy and each
+   graph's replays, every sequence equal to a plain eager greedy decode
+   on the card up to its first top-two logit gap below 1e-3; (c)
+   ``build_worker`` serving it over HTTP in process: a ``.npz`` reload
+   while 16 streams decode (each re-prefilled, its tokens the old
+   weights' before and the new weights' after), then a drain that lets 8
+   streams finish, answers 503 and serves again after resume; (d) the
+   port's control plane and an LM worker as child processes, 4 stream
+   tasks one after another and 64 at once through the gateway, each
+   ``completed - N tokens`` with the plain decode's tokens, one ``chunk``
+   stamp in its hop ledger, rendered by ``trace``, no failed delivery.
+   It prints ``lm 12a``, ``lm 12c``, ``lm 12d`` and ``lm: {...}`` lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -4300,6 +4321,821 @@ def phase_observability(handoff: dict, kernels: list[dict]) -> dict:
     return report
 
 
+# -- phase 12: the streaming LM ---------------------------------------------
+
+LM_SLOTS = 64                    # the longcontext entry's top batch bucket
+LM_PROMPT_BUCKETS = (1, 16, 64)  # ladder.DECODE_PROMPT_BUCKETS; + max_len
+LM_SMALL = {"vocab_size": 64, "max_len": 48, "dim": 32, "depth": 2,
+            "heads": 2, "eos_id": 63}  # JAX's verify geometry
+LM_SMALL_SLOTS, LM_SMALL_BUCKETS = 2, (8,)
+N_LM_STREAMS = 128      # 12b's load, offered at once to the 64 slots
+LM_SHORT_NEW, LM_LONG_NEW, LM_LONG_SHARE = 8, 256, 0.3
+LM_PROMPT_RANGE = (4, 1024)
+LM_TIE_GAP = 1e-3       # ids agree up to the plain decode's first gap below it
+N_LM_REF, LM_REF_PROMPT, LM_REF_NEW = 8, 512, 32  # 12b's float64 check
+N_LM_RELOAD = 16        # 12c: long streams active across the reload
+LM_RUNWAY_NEW = 2048    # 12c: their tokens, seconds of decode on the card
+N_LM_AFTER = 8          # 12c: streams sent after it
+N_LM_DRAIN = 8          # 12c: long streams active across the drain
+N_LM_SEQ, N_LM_ASYNC = 4, 64  # 12d: one after another, then at once
+LM_ROUTE = "/v1/lm/stream-async"
+LM_BACKEND = "/v1/lm/lm-stream-async"
+
+
+def lm_geometry() -> dict:
+    """The streaming LM at the widths of the SeqFormer that
+    deploy/specs/models.json deploys (``longcontext``): its vocabulary,
+    width, depth and heads, and its sequence length as the cache length."""
+    spec = json.loads((ROOT / "deploy/specs/models.json").read_text())
+    lc = next(m for m in spec["models"] if m["name"] == "longcontext")
+    return {"vocab_size": lc["vocab_size"], "max_len": lc["seq_len"],
+            "dim": lc["dim"], "depth": lc["depth"], "heads": lc["heads"],
+            "eos_id": lc["vocab_size"] - 1}
+
+
+def lm_streams(n: int, seed: int, vocab: int,
+               long_share: float = LM_LONG_SHARE,
+               long_new: int | None = None) -> list[tuple]:
+    """``n`` (prompt, max_new_tokens) pairs of the bench's mix: a
+    ``long_share`` of ``long_new`` (default ``LM_LONG_NEW``) tokens, the
+    rest ``LM_SHORT_NEW``; prompt lengths log-uniform over
+    ``LM_PROMPT_RANGE``."""
+    long_new = long_new or LM_LONG_NEW
+    rng = np.random.default_rng(seed)
+    long = set(rng.choice(n, int(round(long_share * n)),
+                          replace=False).tolist())
+    lo, hi = np.log(LM_PROMPT_RANGE[0]), np.log(LM_PROMPT_RANGE[1])
+    out = []
+    for i in range(n):
+        length = int(np.exp(rng.uniform(lo, hi)))
+        out.append((rng.integers(0, vocab, length).tolist(),
+                    long_new if i in long else LM_SHORT_NEW))
+    return out
+
+
+def lm_plain_greedy(module, streams, eos_id, max_len: int,
+                    chunk: int = 64) -> list[tuple[list[int], list[float]]]:
+    """A plain greedy decode of each (prompt, max_new) on the module's
+    device, eagerly: each prompt prefilled unpadded through the blocks,
+    then ``chunk`` sequences stepped together over a cache of their own,
+    under the engine's stop rule (EOS, the token budget, a full cache).
+    Returns each sequence's tokens and each token's top-two logit gap."""
+    dev = module.pos_emb.device
+    hd = module.dim // module.heads
+    out = []
+    with torch.inference_mode():
+        for c in range(0, len(streams), chunk):
+            batch = streams[c:c + chunk]
+            length = min(max_len, max(len(p) + n for p, n in batch))
+            shape = (module.depth, len(batch), module.heads, length, hd)
+            k = torch.zeros(shape, device=dev)
+            v = torch.zeros(shape, device=dev)
+            toks: list[list[int]] = [[] for _ in batch]
+            gaps: list[list[float]] = [[] for _ in batch]
+            done = [False] * len(batch)
+            pos = [len(p) for p, _ in batch]
+
+            def take(rows, logits):
+                """Each row's argmax (first index on ties) and top-two
+                gap, read to the host in one transfer."""
+                top = torch.topk(logits, 2, dim=-1).values
+                ids = torch.argmax(logits, dim=-1).tolist()
+                gap = (top[:, 0] - top[:, 1]).tolist()
+                for i in rows:
+                    toks[i].append(ids[i])
+                    gaps[i].append(gap[i])
+                    if (len(toks[i]) >= batch[i][1] or ids[i] == eos_id
+                            or pos[i] >= max_len):
+                        done[i] = True
+
+            last = []
+            for i, (prompt, _) in enumerate(batch):
+                x = torch.tensor([prompt], device=dev)
+                h = module.embed(x) + module.pos_emb[None, :len(prompt)]
+                mask = torch.ones_like(x, dtype=torch.bool)
+                for layer, block in enumerate(module.blocks):
+                    h, kb, vb = block.prefill(h, mask)
+                    k[layer, i, :, :len(prompt)] = kb[0]
+                    v[layer, i, :, :len(prompt)] = vb[0]
+                last.append(h[0, -1])
+            take(range(len(batch)), module.logits(torch.stack(last)))
+            while not all(done):
+                live = [i for i in range(len(batch)) if not done[i]]
+                x = torch.tensor([toks[i][-1] if not done[i] else 0
+                                  for i in range(len(batch))], device=dev)
+                p = torch.tensor([pos[i] if not done[i] else 0
+                                  for i in range(len(batch))], device=dev)
+                h = module.embed(x) + module.pos_emb[p]
+                for layer, block in enumerate(module.blocks):
+                    h = block.step(h, k[layer], v[layer], p)
+                for i in live:
+                    pos[i] += 1
+                take(live, module.logits(h))
+            out += list(zip(toks, gaps))
+    return out
+
+
+def lm_reference_greedy(module, streams, eos_id, max_len: int,
+                        n_new: int) -> list[tuple[list[int], list[float]]]:
+    """A greedy decode that shares no code with the module: its weights in
+    float64 on the CPU, each token from a full causal forward over the
+    whole sequence so far, written out here from the state dict (flax's
+    LayerNorm eps, the tanh gelu, the tied head). At most ``n_new`` tokens
+    a stream, under the engine's stop rule. Returns each sequence's tokens
+    and each token's top-two logit gap."""
+    import math
+
+    import torch.nn.functional as F
+
+    w = {k: t.detach().to("cpu", torch.float64)
+         for k, t in module.state_dict().items()}
+    dim, heads = w["pos_emb"].shape[1], module.heads
+    hd = dim // heads
+
+    def norm(x, name):
+        return F.layer_norm(x, (dim,), w[name + ".weight"],
+                            w[name + ".bias"], 1e-6)
+
+    def last_logits(ids: list[int]) -> torch.Tensor:
+        t = len(ids)
+        h = w["embed.weight"][torch.tensor(ids)] + w["pos_emb"][:t]
+        causal = torch.ones((t, t), dtype=torch.bool).tril()
+        for i in range(module.depth):
+            b = f"blocks.{i}."
+            qkv = (norm(h, b + "ln1") @ w[b + "qkv.weight"].T).view(
+                t, 3, heads, hd)
+            q, k, v = (qkv[:, j].transpose(0, 1) for j in range(3))
+            s = (q @ k.transpose(1, 2) / math.sqrt(hd)).masked_fill(
+                ~causal, float("-inf"))
+            o = (torch.softmax(s, dim=-1) @ v).transpose(0, 1)
+            h = h + o.reshape(t, dim) @ w[b + "proj.weight"].T
+            u = (norm(h, b + "ln2") @ w[b + "mlp_up.weight"].T
+                 + w[b + "mlp_up.bias"])
+            h = h + (F.gelu(u, approximate="tanh") @ w[b + "mlp_down.weight"].T
+                     + w[b + "mlp_down.bias"])
+        return norm(h[-1], "ln_f") @ w["embed.weight"].T
+
+    out = []
+    with torch.inference_mode():
+        for prompt, max_new in streams:
+            ids, toks, gaps = list(prompt), [], []
+            while True:
+                logits = last_logits(ids)
+                top = torch.topk(logits, 2).values
+                toks.append(int(torch.argmax(logits)))
+                gaps.append(float(top[0] - top[1]))
+                if (len(toks) >= min(max_new, n_new) or toks[-1] == eos_id
+                        or len(ids) >= max_len):
+                    break
+                ids.append(toks[-1])
+            out.append((toks, gaps))
+    return out
+
+
+def lm_agrees(got: list[int], want: list[int], gaps: list[float],
+              what: str) -> bool:
+    """``got`` equals the plain decode's ``want`` up to its first token
+    whose top-two gap is below ``LM_TIE_GAP`` (past it the two may fork),
+    else raises; True when they are equal all the way."""
+    close = [i for i, g in enumerate(gaps) if g < LM_TIE_GAP]
+    upto = close[0] if close else len(want)
+    if got[:upto] != want[:upto]:
+        first = next(i for i in range(upto)
+                     if i >= len(got) or got[i] != want[i])
+        raise AssertionError(
+            f"{what}: token {first} is {got[first:first + 3]}, the plain "
+            f"decode's {want[first:first + 3]} (gap {gaps[first]:.3g})")
+    if not close and got != want:
+        raise AssertionError(f"{what}: {len(got)} tokens, the plain decode "
+                             f"{len(want)}")
+    return got == want
+
+
+def lm_program_ms(rt) -> dict:
+    """Each captured program's replay against an eager run of the module
+    on the same static inputs, in ms (``stream_ms``)."""
+    out = {}
+    with torch.inference_mode():
+        for key, graph in rt.graphs.items():
+            if key[0] == "prefill":
+                def fn(g=graph):
+                    rt.module.prefill(*g.inputs)
+            else:
+                k, v = rt.k_cache.clone(), rt.v_cache.clone()
+
+                def fn(g=graph, k=k, v=v):
+                    rt.module.decode_step(g.inputs[0], k, v, g.inputs[1])
+            out[lm_program(key)] = {"eager_ms": stream_ms(fn),
+                                    "replay_ms": stream_ms(graph.graph.replay)}
+    return out
+
+
+def lm_program(key: tuple) -> str:
+    return "step" if key[0] == "step" else f"prefill_{key[1]}"
+
+
+def lm_graphs_equal_eager(rt, seed: int) -> dict:
+    """12a: each prefill bucket's replay (through ``prefill_into``) and the
+    step's (through ``step``, one slot idle at position 0) against an eager
+    run of the module on the same inputs: the tokens and the caches
+    ``torch.equal``."""
+    rng = np.random.default_rng(seed)
+    vocab, dev = rt.servable.vocab_size, rt.device
+    with torch.inference_mode():
+        for bucket in rt.prompt_buckets:
+            n = min(bucket, rt.max_len - 1)
+            slot = bucket % rt.slots
+            prompt = rng.integers(0, vocab, n).tolist()
+            got = rt.prefill_into(slot, prompt)
+            padded = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+            padded[0, :n] = torch.tensor(prompt, device=dev)
+            want, k, v = rt.module.prefill(padded,
+                                           torch.tensor([n], device=dev))
+            if (got != int(want[0])
+                    or not torch.equal(rt.k_cache[:, slot, :, :bucket],
+                                       k[:, 0])
+                    or not torch.equal(rt.v_cache[:, slot, :, :bucket],
+                                       v[:, 0])):
+                raise AssertionError(f"prefill bucket {bucket} of "
+                                     f"{rt.max_len}: replay differs from "
+                                     "eager")
+        tokens = rng.integers(0, vocab, rt.slots).tolist()
+        positions = rng.integers(1, rt.max_len, rt.slots).tolist()
+        positions[0] = 0
+        k, v = rt.k_cache.clone(), rt.v_cache.clone()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()  # the clones before the step's writes
+        got = rt.step(tokens, positions, [False] + [True] * (rt.slots - 1))
+        want, _, _ = rt.module.decode_step(
+            torch.tensor(tokens, device=dev), k, v,
+            torch.tensor(positions, device=dev))
+        if (got != want.tolist() or not torch.equal(rt.k_cache, k)
+                or not torch.equal(rt.v_cache, v)):
+            raise AssertionError(f"step over {rt.slots} slots of "
+                                 f"{rt.max_len}: replay differs from eager")
+    rt.reset_cache()
+    return {"programs": [lm_program(k) for k in rt.graphs], "equal": True}
+
+
+class LMRecorder:
+    """Wraps a runtime's ``prefill_into``, ``step`` and ``reset_cache``
+    (the engine calls them on its executor thread): host ms of each call,
+    to its tokens on the host; each prefill's bucket, tokens and the
+    weights' version after it; each step's active slots."""
+
+    def __init__(self, rt):
+        self.rt = rt
+        self.prefills: list[tuple[int, float]] = []
+        self.steps: list[tuple[int, float]] = []
+        self.histories: list[tuple[int, list[int]]] = []
+        self.resets = 0
+        self._wrapped = (rt.prefill_into, rt.step, rt.reset_cache)
+        rt.prefill_into, rt.step, rt.reset_cache = (
+            self.prefill_into, self.step, self.reset_cache)
+
+    def restore(self) -> None:
+        (self.rt.prefill_into, self.rt.step,
+         self.rt.reset_cache) = self._wrapped
+
+    def prefill_into(self, slot, tokens):
+        t0 = time.perf_counter()
+        out = self._wrapped[0](slot, tokens)
+        self.prefills.append((self.rt.bucket_for(len(tokens)),
+                              (time.perf_counter() - t0) * 1e3))
+        self.histories.append((self.rt.params_version, list(tokens)))
+        return out
+
+    def step(self, tokens, positions, active):
+        t0 = time.perf_counter()
+        out = self._wrapped[1](tokens, positions, active)
+        self.steps.append((sum(active), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def reset_cache(self):
+        self.resets += 1
+        return self._wrapped[2]()
+
+    def summary(self) -> dict:
+        step_ms = [ms for _, ms in self.steps]
+        by_bucket: dict = {}
+        for bucket, ms in self.prefills:
+            by_bucket.setdefault(bucket, []).append(ms)
+        return {
+            "steps": len(self.steps),
+            "step_ms_p50": statistics.median(step_ms),
+            "step_ms_p95": pct(step_ms, 95),
+            "prefill_ms_p50_by_bucket": {
+                str(b): statistics.median(v)
+                for b, v in sorted(by_bucket.items())},
+            "prefills_by_bucket": {str(b): len(v)
+                                   for b, v in sorted(by_bucket.items())},
+            "occupancy": (statistics.mean(n for n, _ in self.steps)
+                          / self.rt.slots)}
+
+
+def pct(values: list[float], q: float) -> float:
+    return float(np.percentile(values, q))
+
+
+async def lm_engine_run(rt, streams, continuous: bool) -> dict:
+    """12b: every stream submitted at once to a fresh engine over ``rt``;
+    returns each stream's tokens and the client-side timings."""
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.runtime.decode import DecodeEngine
+
+    engine = DecodeEngine(rt, max_pending=len(streams),
+                          continuous=continuous, metrics=MetricsRegistry())
+    await engine.start()
+    stamps: list[list[float]] = [[] for _ in streams]
+
+    async def one(i, prompt, max_new):
+        t0 = time.perf_counter()
+        tokens = await engine.submit(
+            prompt, max_new,
+            on_token=lambda _, __, s=stamps[i]: s.append(time.perf_counter()))
+        return t0, tokens
+
+    t0 = time.perf_counter()
+    try:
+        runs = await asyncio.gather(*(one(i, p, n)
+                                      for i, (p, n) in enumerate(streams)))
+    finally:
+        await engine.stop()
+    wall = time.perf_counter() - t0
+    engine.pool.check_conservation()
+    ttft = [(s[0] - t) * 1e3 for (t, _), s in zip(runs, stamps)]
+    gaps = [(b - a) * 1e3 for s in stamps for a, b in zip(s, s[1:])]
+    n_tokens = sum(len(t) for _, t in runs)
+    return {"tokens": [t for _, t in runs], "report": {
+        "continuous": continuous, "streams": len(streams),
+        "tokens": n_tokens, "wall_s": wall, "tokens_per_s": n_tokens / wall,
+        "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p95": pct(ttft, 95),
+        "intertoken_ms_p50": pct(gaps, 50),
+        "intertoken_ms_p95": pct(gaps, 95)}}
+
+
+def lm_module(geo: dict, seed: int, device):
+    """The LM of ``build_lm_servable`` on seed ``seed``, on ``device``."""
+    from ai4e_tpu_torch.runtime.kvcache import build_lm_servable
+
+    return build_lm_servable(
+        name="lm", generator=torch.Generator().manual_seed(seed),
+        **geo).module.to(device)
+
+
+def lm_runtime(geo: dict, slots: int, buckets, device) -> tuple:
+    """A warmed ``PagedDecodeRuntime`` on seed-0 weights over a
+    ``ModelRuntime`` of its own, as the worker builds it (its lock,
+    execute stream and graph pool), and its warm seconds."""
+    from ai4e_tpu_torch.runtime.kvcache import (PagedDecodeRuntime,
+                                                build_lm_servable)
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    lm = build_lm_servable(name="lm", generator=torch.Generator()
+                           .manual_seed(SEED), **geo)
+    rt = PagedDecodeRuntime(lm, ModelRuntime(device), slots=slots,
+                            prompt_buckets=buckets)
+    t0 = time.perf_counter()
+    rt.warm()
+    return rt, time.perf_counter() - t0
+
+
+def phase_lm_in_process(geo: dict, device: str = "cuda") -> dict:
+    """12a at JAX's verify geometry and at ``geo``, then 12b on the wide
+    runtime."""
+    small, warm_s = lm_runtime(LM_SMALL, LM_SMALL_SLOTS, LM_SMALL_BUCKETS,
+                               device)
+    report = {"12a_small": {**lm_graphs_equal_eager(small, SEED),
+                            "warm_s": warm_s}}
+    del small
+    rt, warm_s = lm_runtime(geo, LM_SLOTS, LM_PROMPT_BUCKETS, device)
+    want_bytes = (2 * geo["depth"] * LM_SLOTS * geo["max_len"] * geo["dim"]
+                  * 4)
+    if rt.cache_nbytes() != want_bytes:
+        raise AssertionError(f"cache_nbytes {rt.cache_nbytes()} != "
+                             f"{want_bytes}")
+    report["12a_wide"] = {**lm_graphs_equal_eager(rt, SEED + 1),
+                          "warm_s": warm_s, "cache_bytes": rt.cache_nbytes()}
+    if device == "cuda":
+        report["12a_wide"]["programs_ms"] = lm_program_ms(rt)
+        rt.reset_cache()
+    log(f"lm 12a: {json.dumps(report)}")
+
+    streams = lm_streams(N_LM_STREAMS, SEED, geo["vocab_size"])
+    runs = {}
+    for continuous in (True, False):
+        before = {k: g.replays for k, g in rt.graphs.items()}
+        recorder = LMRecorder(rt)
+        try:
+            run = asyncio.run(lm_engine_run(rt, streams, continuous))
+        finally:
+            recorder.restore()
+        rt.reset_cache()
+        run["report"].update(recorder.summary())
+        run["report"]["replays"] = {
+            lm_program(k): g.replays - before[k] for k, g in rt.graphs.items()}
+        if device == "cuda" and not run["report"]["replays"]["step"]:
+            raise AssertionError("12b: the step's graph never replayed")
+        runs["continuous" if continuous else "whole_batch"] = run
+    t0 = time.perf_counter()
+    plain = lm_plain_greedy(rt.module, streams, geo["eos_id"], rt.max_len)
+    report["plain_decode_s"] = time.perf_counter() - t0
+    for mode, run in runs.items():
+        equal = sum(lm_agrees(got, want, gaps, f"12b {mode} stream {i}")
+                    for i, (got, (want, gaps)) in enumerate(
+                        zip(run["tokens"], plain)))
+        report[f"12b_{mode}"] = {**run["report"],
+                                 "equal_all_the_way": f"{equal}/"
+                                                      f"{len(streams)}"}
+    report["12b_near_ties"] = sum(g < LM_TIE_GAP for _, gaps in plain
+                                  for g in gaps)
+    # The plain decode runs the module's own blocks; the LM's arithmetic at
+    # this geometry is held against a float64 forward written apart.
+    picks = [i for i, (p, _) in enumerate(streams)
+             if len(p) <= LM_REF_PROMPT][:N_LM_REF]
+    t0 = time.perf_counter()
+    ref = lm_reference_greedy(rt.module, [streams[i] for i in picks],
+                              geo["eos_id"], rt.max_len, LM_REF_NEW)
+    report["reference_decode_s"] = time.perf_counter() - t0
+    for mode, run in runs.items():
+        equal = sum(lm_agrees(run["tokens"][i][:len(want)], want, gaps,
+                              f"12b {mode} stream {i} against float64")
+                    for i, (want, gaps) in zip(picks, ref))
+        report[f"12b_{mode}"]["float64_equal_all_the_way"] = (
+            f"{equal}/{len(picks)}")
+    del rt
+    return report
+
+
+# -- 12c: the worker in process, a reload and a drain mid-stream
+
+
+def lm_worker_env(geo: dict) -> dict:
+    """The decode knobs of the worker that serves ``geo``."""
+    return {"AI4E_RUNTIME_DECODE_ENABLE": "1",
+            "AI4E_RUNTIME_KV_SLOTS": str(LM_SLOTS),
+            "AI4E_RUNTIME_KV_MAX_LEN": str(geo["max_len"]),
+            "AI4E_RUNTIME_DECODE_PROMPT_BUCKETS": ",".join(
+                map(str, LM_PROMPT_BUCKETS)),
+            "AI4E_RUNTIME_DECODE_MAX_PENDING": str(N_LM_STREAMS)}
+
+
+def lm_worker_spec(geo: dict, taskstore: str | None = None) -> dict:
+    """One ``seqformer-lm`` model at ``geo`` (its ``max_len`` from
+    ``AI4E_RUNTIME_KV_MAX_LEN``), seed-0 weights."""
+    model = {"family": "seqformer-lm", "name": "lm",
+             **{k: v for k, v in geo.items() if k != "max_len"}}
+    spec = {"service_name": "lm-worker", "prefix": "v1/lm",
+            "models": [model]}
+    if taskstore:
+        spec["taskstore"] = taskstore
+    return spec
+
+
+async def until(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+async def lm_submit(http, url: str, prompt: list[int],
+                    max_new: int) -> tuple[str, int]:
+    """POST one stream request, again after each 503; its task id and the
+    503s met."""
+    retries = 0
+    while True:
+        async with http.post(url, json={"prompt": prompt,
+                                        "max_new_tokens": max_new}) as r:
+            if r.status == 503:
+                retries += 1
+                await asyncio.sleep(0.02)
+                continue
+            if r.status != 200:
+                raise AssertionError(f"stream {r.status}: {await r.text()}")
+            return (await r.json())["TaskId"], retries
+
+
+async def lm_finish(http, base: str, worker, task_id: str) -> list[int]:
+    """Poll the task to ``completed - N tokens``; its stored tokens."""
+    while True:
+        async with http.get(f"{base}/task/{task_id}") as r:
+            status = (await r.json())["Status"]
+        if not status.startswith(("created", "running")):
+            break
+        await asyncio.sleep(0.01)
+    result = json.loads(worker.store.get_result(task_id)[0])
+    if status != f"completed - {result['count']} tokens":
+        raise AssertionError(f"task {task_id}: {status}")
+    return result["tokens"]
+
+
+async def drive_lm_worker(worker, batcher, port: int, npz: str,
+                          geo: dict) -> dict:
+    engine, = worker.decode_engines
+    counter = worker.service.metrics.counter
+    tokens_total = counter("ai4e_decode_tokens_total")
+    reprefills = counter("ai4e_decode_reprefills_total")
+    vocab = geo["vocab_size"]
+    pre = lm_streams(N_LM_RELOAD, SEED + 2, vocab, 1.0, LM_RUNWAY_NEW)
+    after = lm_streams(N_LM_AFTER, SEED + 3, vocab)
+    drained = lm_streams(N_LM_DRAIN, SEED + 4, vocab, 1.0, LM_RUNWAY_NEW)
+    resumed = lm_streams(1, SEED + 5, vocab)
+    out: dict = {}
+    async with serving(worker, batcher, port) as (http, base):
+        url = base + "/lm-stream-async"
+        pre_ids = [(await lm_submit(http, url, p, n))[0] for p, n in pre]
+        await until(lambda: engine.active_count == N_LM_RELOAD
+                    and not engine.pending_count
+                    and tokens_total.value(model="lm") >= 8 * N_LM_RELOAD,
+                    "the streams before the reload")
+        before = reprefills.value(model="lm")
+        async with http.post(base + "/models/lm/reload",
+                             json={"checkpoint": npz}) as r:
+            out["reload"] = (r.status, await r.json())
+        if out["reload"][0] != 200 or out["reload"][1][
+                "params_version"] != 2:
+            raise AssertionError(f"12c reload: {out['reload']}")
+        await until(lambda: reprefills.value(model="lm") - before
+                    >= N_LM_RELOAD, "the re-prefills")
+        after_ids = [(await lm_submit(http, url, p, n))[0] for p, n in after]
+        out["pre"] = [await lm_finish(http, base, worker, t) for t in pre_ids]
+        out["after"] = [await lm_finish(http, base, worker, t)
+                        for t in after_ids]
+        out["reprefills"] = reprefills.value(model="lm") - before
+
+        drain_ids = [(await lm_submit(http, url, p, n))[0]
+                     for p, n in drained]
+        await until(lambda: engine.active_count == N_LM_DRAIN,
+                    "the streams before the drain")
+
+        async def post_drain() -> dict:
+            async with http.post(base + "/worker/drain",
+                                 json={"timeout_ms": 120000}) as r:
+                return await r.json()
+
+        drain = asyncio.create_task(post_drain())
+        await until(lambda: worker.drain_state.is_draining, "draining")
+        async with http.post(url, json={"prompt": [1]}) as r:
+            out["refused"] = (r.status, r.headers.get("X-Draining"))
+        out["drain"] = await drain
+        out["drained"] = [await lm_finish(http, base, worker, t)
+                          for t in drain_ids]
+        async with http.post(base + "/worker/resume") as r:
+            out["resume"] = (await r.json())["state"]
+        task_id, _ = await lm_submit(http, url, *resumed[0])
+        out["resumed"] = [await lm_finish(http, base, worker, task_id)]
+        async with http.get(base.rsplit("/v1", 1)[0] + "/metrics") as r:
+            out["metrics"] = await r.text()
+    out["streams"] = {"pre": pre, "after": after, "drained": drained,
+                      "resumed": resumed}
+    return out
+
+
+def phase_lm_worker(geo: dict, device: str = "cuda") -> dict:
+    """12c: ``build_worker`` serving the LM at ``geo`` in process over
+    HTTP: a ``.npz`` reload while streams decode, then a drain."""
+    import gc
+
+    from ai4e_tpu_torch import convert
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.config import FrameworkConfig
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    new = lm_module(geo, SEED + 1, "cpu")
+    npz = str(out_dir / "lm_seed1.npz")
+    convert.save_npz(convert.seqformer_lm_flax_from_state_dict(
+        new.state_dict()), npz)
+    config = FrameworkConfig.from_env({
+        **lm_worker_env(geo), "AI4E_RUNTIME_CHECKPOINT_DIR": str(out_dir)})
+    t0 = time.perf_counter()
+    worker, batcher, _ = build_worker(lm_worker_spec(geo), device=device,
+                                      config=config)
+    boot_s = time.perf_counter() - t0
+    backend = worker.decode_engines[0].backend
+    recorder = LMRecorder(backend)
+    try:
+        out = asyncio.run(drive_lm_worker(worker, batcher, free_port(), npz,
+                                          geo))
+    finally:
+        recorder.restore()
+    del worker, batcher, backend
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    if out["refused"] != (503, "1"):
+        raise AssertionError(f"12c: a stream while draining got "
+                             f"{out['refused']}")
+    drain = out["drain"]
+    if not (drain["clean"] and drain["forced"] == 0
+            and drain["state"] == "drained" and out["resume"] == "active"):
+        raise AssertionError(f"12c drain: {drain}, resume {out['resume']}")
+    failed = metric_sum(out["metrics"], "ai4e_decode_sequences_total",
+                        outcome="failed")
+    if failed or out["reprefills"] < N_LM_RELOAD or recorder.resets < 1:
+        raise AssertionError(f"12c: {failed} failed, {out['reprefills']} "
+                             f"re-prefills, {recorder.resets} cache resets")
+
+    # Tokens: before its re-prefill a stream decodes on the old weights
+    # (seed 0), after it on the new (seed 1) from the history it had. The
+    # step just before the re-prefill may have run on the new weights over
+    # the old cache (the swap lands between two ticks), so that one token
+    # is checked only as part of the history.
+    old, new = lm_module(geo, SEED, device), new.to(device)
+    eos, max_len = geo["eos_id"], geo["max_len"]
+    old_ref = lm_plain_greedy(old, out["streams"]["pre"], eos, max_len)
+    tails, equal, n = [], 0, 0
+    for i, ((prompt, max_new), got) in enumerate(zip(out["streams"]["pre"],
+                                                     out["pre"])):
+        history = next((h for v, h in recorder.histories
+                        if v == 2 and len(h) > len(prompt)
+                        and h[:len(prompt)] == prompt), None)
+        if history is None:
+            raise AssertionError(f"12c stream {i} was not re-prefilled")
+        cut = len(history) - len(prompt)
+        if history[len(prompt):] != got[:cut]:
+            raise AssertionError(f"12c stream {i}: re-prefill history is "
+                                 "not its tokens")
+        want, gaps = old_ref[i]
+        lm_agrees(got[:cut - 1], want[:cut - 1], gaps[:cut - 1],
+                  f"12c stream {i} before the reload")
+        tails.append(((history, max_new - cut), got[cut:]))
+    checks = tails + [
+        ((p, m), got) for key in ("after", "drained", "resumed")
+        for (p, m), got in zip(out["streams"][key], out[key])]
+    new_ref = lm_plain_greedy(new, [s for s, _ in checks], eos, max_len)
+    for ((_, _), got), (want, gaps) in zip(checks, new_ref):
+        equal += lm_agrees(got, want, gaps, "12c on the new weights")
+        n += 1
+    report = {"boot_s": boot_s, "reload": out["reload"][1],
+              "reprefills": out["reprefills"], "cache_resets": recorder.resets,
+              "refused_while_draining": out["refused"][0],
+              "drain": drain, "failed": failed,
+              "equal_all_the_way_new_weights": f"{equal}/{n}"}
+    log(f"lm 12c: {json.dumps(report)}")
+    return report
+
+
+# -- 12d: behind the control plane
+
+
+async def drive_lm_gateway(gateway: str, worker: str, procs: dict,
+                           logs: dict, streams) -> dict:
+    import aiohttp
+
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        t0 = time.perf_counter()
+        await wait_healthy(http, worker + "/v1/lm/", procs["wk"], logs["wk"])
+        boot_s = time.perf_counter() - t0
+
+        async def one(prompt, max_new) -> tuple:
+            t0 = time.perf_counter()
+            async with http.post(gateway + LM_ROUTE,
+                                 json={"prompt": prompt,
+                                       "max_new_tokens": max_new}) as r:
+                if r.status != 200:
+                    raise AssertionError(f"{LM_ROUTE} {r.status}: "
+                                         f"{await r.text()}")
+                task_id = (await r.json())["TaskId"]
+            while True:
+                async with http.get(
+                        f"{gateway}/v1/taskmanagement/task/{task_id}",
+                        params={"wait": "60"}) as r:
+                    record = await r.json()
+                if TaskStatus.canonical(record["Status"]) in \
+                        TaskStatus.TERMINAL:
+                    break
+            t1 = time.perf_counter()
+            result = await task_result(http, gateway, task_id)
+            if record["Status"] != f"completed - {result['count']} tokens":
+                raise AssertionError(f"task {task_id}: {record['Status']}")
+            return t0, t1, task_id, result["tokens"]
+
+        seq = [await one(p, n) for p, n in streams[:N_LM_SEQ]]
+        runs = await asyncio.gather(*(one(p, n)
+                                      for p, n in streams[N_LM_SEQ:]))
+        ledgers = [await fetch_record(http, gateway, t)
+                   for _, _, t, _ in seq + list(runs)]
+        async with http.get(gateway + "/metrics") as r:
+            cp_metrics = await r.text()
+    latency = [(t1 - t0) * 1e3 for t0, t1, _, _ in runs]
+    span = max(t1 for _, t1, _, _ in runs) - min(t0 for t0, _, _, _ in runs)
+    return {"boot_s": boot_s, "tokens": [t for *_, t in seq + list(runs)],
+            "task_ids": [t for _, _, t, _ in seq + list(runs)],
+            "ledgers": ledgers, "cp_metrics": cp_metrics,
+            "seq_ms": [(t1 - t0) * 1e3 for t0, t1, _, _ in seq],
+            "task_p50_ms": statistics.median(latency),
+            "task_p95_ms": pct(latency, 95),
+            "tasks_per_s": len(runs) / span}
+
+
+def dispatch_outcomes(metrics_text: str) -> dict:
+    out: dict = {}
+    for line in metrics_text.splitlines():
+        if line.startswith("ai4e_dispatch_total{"):
+            outcome = line.split('outcome="')[1].split('"')[0]
+            out[outcome] = out.get(outcome, 0) + float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def phase_lm_control_plane(geo: dict, device: str = "cuda") -> dict:
+    """12d: the port's control plane and an LM worker as child processes;
+    this process is the client, through the gateway only."""
+    import os
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    (out_dir / "lm_models.json").write_text(json.dumps(
+        lm_worker_spec(geo, taskstore=gateway)))
+    (out_dir / "lm_routes.json").write_text(json.dumps({"apis": [
+        {"prefix": LM_ROUTE, "backend": worker + LM_BACKEND,
+         "mode": "async", "concurrency": 8}]}))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AI4E_")}
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""),
+               AI4E_PLATFORM_RETRY_DELAY=str(TOPOLOGY_RETRY_DELAY),
+               AI4E_PLATFORM_OBSERVABILITY="1",
+               AI4E_OBSERVABILITY_HOP_LEDGER="1", **lm_worker_env(geo))
+    logs = {"cp": out_dir / "lm_control_plane.log",
+            "wk": out_dir / "lm_worker.log"}
+    streams = lm_streams(N_LM_SEQ + N_LM_ASYNC, SEED + 6, geo["vocab_size"])
+    procs = {}
+    try:
+        procs["cp"] = start_child(
+            ["control-plane", "--routes", str(out_dir / "lm_routes.json"),
+             "--port", str(cp_port)], logs["cp"], env)
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / "lm_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             device], logs["wk"], env)
+        out = asyncio.run(drive_lm_gateway(gateway, worker, procs, logs,
+                                           streams))
+        trace = trace_verb(["--task-id", out["task_ids"][0], "--url",
+                            gateway], env)
+        stop_child(procs["wk"], logs["wk"], "lm worker")
+        stop_child(procs["cp"], logs["cp"], "lm control plane")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    wk_log = logs["wk"].read_text(errors="replace")
+    if f"on {device}, hop ledger ON, streaming decode ON (lm)" not in wk_log:
+        raise AssertionError(f"the worker did not serve the LM on {device}:"
+                             f"\n{wk_log[-4000:]}")
+    outcomes = dispatch_outcomes(out["cp_metrics"])
+    if outcomes.get("failed") or outcomes.get("dead_letter"):
+        raise AssertionError(f"12d deliveries: {outcomes}")
+    for record in out["ledgers"]:
+        chunks = [e for e in record.get("Ledger") or [] if e["e"] == "chunk"]
+        if len(chunks) != 1 or chunks[0]["h"] != "decode":
+            raise AssertionError(f"task {record['TaskId']}: chunk stamps "
+                                 f"{chunks}")
+    if "chunk" not in trace:
+        raise AssertionError(f"trace shows no chunk:\n{trace}")
+    ttft = [next(e["ms"] for e in r["Ledger"] if e["e"] == "chunk")
+            for r in out["ledgers"]]
+    ref = lm_plain_greedy(lm_module(geo, SEED, device), streams,
+                          geo["eos_id"], geo["max_len"])
+    equal = sum(lm_agrees(got, want, gaps, f"12d task {i}")
+                for i, (got, (want, gaps)) in enumerate(zip(out["tokens"],
+                                                            ref)))
+    report = {"card": CARD.get("smi"), "worker_boot_s": out["boot_s"],
+              "sequential_ms": out["seq_ms"],
+              "tasks": N_LM_ASYNC, "tasks_per_s": out["tasks_per_s"],
+              "task_p50_ms": out["task_p50_ms"],
+              "task_p95_ms": out["task_p95_ms"],
+              "ledger_ttft_ms_p50": statistics.median(ttft),
+              "ledger_ttft_ms_p95": pct(ttft, 95),
+              "dispatch_outcomes": outcomes,
+              "equal_all_the_way": f"{equal}/{len(streams)}"}
+    log(f"lm 12d: {json.dumps(report)}")
+    return report
+
+
+def phase_lm(device: str = "cuda") -> dict:
+    """Phase 12: the streaming LM at the deployed SeqFormer's widths."""
+    geo = lm_geometry()
+    t0 = time.perf_counter()
+    report = {"card": CARD.get("smi"), "geometry": geo,
+              "slots": LM_SLOTS, "prompt_buckets": LM_PROMPT_BUCKETS,
+              **phase_lm_in_process(geo, device)}
+    report["12c"] = phase_lm_worker(geo, device)
+    report["12d"] = phase_lm_control_plane(geo, device)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"lm: {json.dumps(report)}")
+    return report
+
+
 def main() -> None:
     kind = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
@@ -4321,6 +5157,7 @@ def main() -> None:
     phase_moe_vit(kernels)
     _, deployed = phase_deploy(kernels)
     phase_observability(deployed, kernels)
+    phase_lm()
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

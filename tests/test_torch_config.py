@@ -88,6 +88,14 @@ SERVED_OBSERVABILITY_KNOBS = [
         "slo_fast_window_s", "slo_slow_window_s")]
 
 
+#: The streaming decode knobs (ROADMAP A13): the port serves them, so each
+#: set away from its default parses as JAX's does.
+SERVED_DECODE_KNOBS = [
+    ("AI4E_RUNTIME_", f) for f in (
+        "decode_enable", "decode_max_pending", "decode_prompt_buckets",
+        "kv_slots", "kv_max_len")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -109,7 +117,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
             for env in ERRORS]
          + list(off_default_cases(port_config.UNPORTED, "unported"))
          + list(off_default_cases(SERVED_RUNTIME_KNOBS, "same"))
-         + list(off_default_cases(SERVED_OBSERVABILITY_KNOBS, "same")))
+         + list(off_default_cases(SERVED_OBSERVABILITY_KNOBS, "same"))
+         + list(off_default_cases(SERVED_DECODE_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -170,8 +179,9 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     """The served observability knobs are out of ``UNPORTED``; the SLO
     ladder stays there, naming orchestration's item."""
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
-    assert len(port_config.UNPORTED) == 92
+    assert len(port_config.UNPORTED) == 87
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(

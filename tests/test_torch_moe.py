@@ -471,7 +471,8 @@ class TestServable:
 
 class TestDeploySpec:
     def test_every_family_is_ported_but_the_streaming_lm(self):
-        assert UNPORTED_FAMILIES == {"seqformer-lm": "A13"}
+        """Since the streaming slice, the streaming LM is ported too."""
+        assert UNPORTED_FAMILIES == {}
 
     def test_a_worker_builds_every_entry_of_the_deploy_spec(self):
         """deploy/specs/models.json whole, widths and depths cut, without

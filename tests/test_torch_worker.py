@@ -368,8 +368,6 @@ def control_plane_of(api: dict, **env):
 
 class TestUnported:
     @pytest.mark.parametrize("build,match", [
-        (worker_of(landcover_spec(family="seqformer-lm")),
-         r"'seqformer-lm' is not ported yet \(ROADMAP A13"),
         (worker_of(landcover_spec(wire="yuv420")),
          r"'yuv420' is not ported yet \(ROADMAP A9"),
         (worker_of(landcover_spec(wire="dct")),
@@ -388,7 +386,7 @@ class TestUnported:
         (worker_of(landcover_spec(), AI4E_RUNTIME_DONATE_BATCH="1"),
          r"AI4E_RUNTIME_DONATE_BATCH=True: batch donation, an XLA buffer "
          r"option \(ROADMAP A4"),
-    ], ids=["seqformer-lm", "yuv420", "dct", "orbax",
+    ], ids=["yuv420", "dct", "orbax",
             "backends", "push", "journal", "donate"])
     def test_raises_and_names_itself(self, build, match):
         with pytest.raises(ValueError, match=match):
