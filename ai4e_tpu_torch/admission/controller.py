@@ -1,0 +1,338 @@
+"""Adaptive concurrency control; a copy of
+``ai4e_tpu/admission/controller.py`` without the degradation ladder
+(``set_ladder``, ``brownout_refusal``: orchestration, ROADMAP A18.9) and
+the per-route rate estimators the predictive scaler reads.
+
+``GradientLimiter`` is a latency-gradient AIMD limiter: it tracks the
+smallest observed RTT as the no-load baseline, compares the recent median
+RTT against it and resizes the limit —
+
+- sample near the baseline (headroom): additive increase, about
+  ``sqrt(limit)`` per update;
+- sample far above it (queueing): multiplicative decrease by the gradient
+  ``baseline * tolerance / sample``;
+- Little's law: the limit never grows past twice the concurrency actually
+  observed in flight, so an idle scope cannot ratchet to the maximum.
+
+``AdmissionController`` owns one limiter per SCOPE (the gateway's sync
+proxy; each dispatcher queue), applies limit changes to their targets (the
+proxy's cap, ``Dispatcher.set_concurrency``), estimates the platform's
+drain rate from the task store's terminal transitions (the Retry-After of
+every shed) and exports the ``ai4e_admission_*`` metrics, goodput among
+them.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import threading
+import time
+
+from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from .deadline import drain_retry_after, priority_name, remaining_s
+from .shedder import PriorityShedder
+
+log = logging.getLogger("ai4e_tpu_torch.admission")
+
+
+class DecayingRate:
+    """Exponentially decayed event rate (events a second): at a steady
+    arrival rate r the estimate converges to r. Thread-safe: terminal
+    transitions arrive from whichever thread wrote the store."""
+
+    def __init__(self, tau_s: float = 10.0):
+        self.tau = tau_s
+        self._rate = 0.0
+        self._t: float | None = None
+        self._lock = threading.Lock()
+
+    def on_event(self, n: float = 1.0, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if self._t is not None:
+                self._rate *= math.exp(-(now - self._t) / self.tau)
+            self._t = now
+            self._rate += n / self.tau
+
+    def rate(self, now: float | None = None) -> float:
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if self._t is None:
+                return 0.0
+            return self._rate * math.exp(-(now - self._t) / self.tau)
+
+
+class GradientLimiter:
+    """Latency-gradient AIMD concurrency limit (see the module docstring).
+    Updates are driven by sample windows (every ``window`` observations),
+    so a quiet scope keeps its last limit: no timer, no task."""
+
+    def __init__(self, initial: int = 8, min_limit: int = 1,
+                 max_limit: int = 256, window: int = 16,
+                 tolerance: float = 2.0, smoothing: float = 0.3):
+        if not (0 < min_limit <= initial <= max_limit):
+            raise ValueError(
+                f"need min <= initial <= max, got {min_limit}/{initial}/"
+                f"{max_limit}")
+        self.min_limit = min_limit
+        self.max_limit = max_limit
+        self.window = max(1, window)
+        self.tolerance = tolerance
+        self.smoothing = smoothing
+        self._limit = float(initial)
+        self._samples: list[float] = []
+        self._peak_inflight = 0
+        # No-load RTT baseline: the smallest sample seen, aged 2% an
+        # update so a regime change (a new model, a new link) re-learns.
+        self._min_rtt: float | None = None
+
+    @property
+    def limit(self) -> int:
+        return max(self.min_limit, int(self._limit))
+
+    def observe(self, rtt_s: float, inflight: int) -> bool:
+        """Record one completed request's RTT at ``inflight`` concurrency.
+        True when the limit changed (callers re-apply targets only then)."""
+        if rtt_s < 0:
+            return False
+        self._samples.append(rtt_s)
+        self._peak_inflight = max(self._peak_inflight, inflight)
+        if len(self._samples) < self.window:
+            return False
+        return self._update()
+
+    def backoff(self, factor: float = 0.8) -> bool:
+        """Out-of-band multiplicative decrease: explicit backpressure (a
+        backend's 429/503) does not wait out a sample window."""
+        before = self.limit
+        self._limit = max(float(self.min_limit), self._limit * factor)
+        return self.limit != before
+
+    def _update(self) -> bool:
+        samples = sorted(self._samples)
+        self._samples.clear()
+        peak, self._peak_inflight = self._peak_inflight, 0
+        sample_rtt = samples[len(samples) // 2]  # the median: spike-robust
+        if self._min_rtt is None:
+            self._min_rtt = sample_rtt
+        else:
+            self._min_rtt = min(self._min_rtt * 1.02, sample_rtt)
+        before = self.limit
+        allowance = math.sqrt(self._limit)
+        target = self._min_rtt * self.tolerance
+        if sample_rtt <= target or sample_rtt <= 0:
+            new = self._limit + allowance  # headroom: additive increase
+        else:
+            # Queueing: shrink toward gradient x limit, keeping the
+            # allowance so the limit can probe again.
+            gradient = max(0.25, target / sample_rtt)
+            new = self._limit * gradient + allowance
+        # Little's law: concurrency beyond what the load uses is latency
+        # headroom for the next burst to burn.
+        if peak > 0:
+            new = min(new, 2.0 * peak + allowance)
+        self._limit = min(float(self.max_limit),
+                          max(float(self.min_limit),
+                              (1 - self.smoothing) * self._limit
+                              + self.smoothing * new))
+        return self.limit != before
+
+
+class AdmissionScope:
+    """One limited surface (the gateway's sync proxy, one dispatcher
+    queue): a limiter, its in-flight count and the targets its limit
+    drives."""
+
+    def __init__(self, name: str, controller: "AdmissionController",
+                 limiter: GradientLimiter):
+        self.name = name
+        self._controller = controller
+        self.limiter = limiter
+        self.inflight = 0
+        self._targets: list = []
+
+    @property
+    def limit(self) -> int:
+        return self.limiter.limit
+
+    def add_target(self, apply_fn) -> None:
+        """``apply_fn(limit)`` runs on every limit change, and once now, so
+        a target never runs at a stale constant."""
+        self._targets.append(apply_fn)
+        self._apply(apply_fn)
+
+    def try_acquire(self, priority: int) -> float | None:
+        """Admit one request at ``priority``: None, and the caller MUST
+        ``release()``; or the Retry-After seconds when the shedder refuses
+        the class at the current occupancy."""
+        retry_after = self._controller.shedder.check(
+            priority, self.inflight, self.limit,
+            drain_rate=self._controller.drain_rate())
+        if retry_after is not None:
+            return retry_after
+        self.inflight += 1
+        return None
+
+    def release(self) -> None:
+        self.inflight = max(0, self.inflight - 1)
+
+    def observe(self, rtt_s: float, inflight: int | None = None) -> None:
+        changed = self.limiter.observe(
+            rtt_s, self.inflight if inflight is None else inflight)
+        if changed:
+            self._apply_all()
+        self._controller._limit_gauge.set(self.limit, scope=self.name)
+
+    def backoff(self) -> None:
+        if self.limiter.backoff():
+            self._apply_all()
+            self._controller._limit_gauge.set(self.limit, scope=self.name)
+
+    def _apply_all(self) -> None:
+        for fn in self._targets:
+            self._apply(fn)
+
+    def _apply(self, fn) -> None:
+        try:
+            fn(self.limit)
+        except Exception:  # noqa: BLE001 — a target must not kill admission
+            log.exception("admission target for scope %s failed", self.name)
+
+
+class AdmissionController:
+    """The platform's admission control, one per control plane
+    (``PlatformConfig(admission=True)``)."""
+
+    SYNC_SCOPE = "gateway_sync"
+
+    def __init__(self, metrics: MetricsRegistry | None = None,
+                 min_limit: int = 1, max_limit: int = 256,
+                 initial_limit: int = 8, max_backlog: int = 1024,
+                 shedder: PriorityShedder | None = None,
+                 drain_tau_s: float = 10.0):
+        self.metrics = metrics or DEFAULT_REGISTRY
+        if not (0 < min_limit <= initial_limit <= max_limit):
+            # Scopes are made on first use: an inconsistent triple fails
+            # here, at assembly, not inside the first request.
+            raise ValueError(
+                f"admission limits need 0 < min <= initial <= max, got "
+                f"min={min_limit} initial={initial_limit} max={max_limit}")
+        self.min_limit = min_limit
+        self.max_limit = max_limit
+        self.initial_limit = initial_limit
+        self.max_backlog = max_backlog
+        self.shedder = shedder or PriorityShedder()
+        self._scopes: dict[str, AdmissionScope] = {}
+        self._drain = DecayingRate(tau_s=drain_tau_s)
+        self._arrivals = DecayingRate(tau_s=drain_tau_s)
+        self._shed_total = self.metrics.counter(
+            "ai4e_admission_shed_total",
+            "Requests refused under pressure, by hop/priority")
+        self._expired_total = self.metrics.counter(
+            "ai4e_admission_expired_total",
+            "Requests dropped on deadline expiry, by hop/priority")
+        self._limit_gauge = self.metrics.gauge(
+            "ai4e_admission_limit", "Current adaptive concurrency limit")
+        self._goodput_total = self.metrics.counter(
+            "ai4e_admission_goodput_total",
+            "Terminal completions by deadline outcome")
+        self._drain_gauge = self.metrics.gauge(
+            "ai4e_admission_drain_rate",
+            "Estimated terminal transitions per second")
+        self._arrival_gauge = self.metrics.gauge(
+            "ai4e_admission_arrival_rate",
+            "Estimated task creations per second")
+
+    # -- scopes ------------------------------------------------------------
+
+    def scope(self, name: str) -> AdmissionScope:
+        sc = self._scopes.get(name)
+        if sc is None:
+            sc = self._scopes[name] = AdmissionScope(
+                name, self,
+                GradientLimiter(initial=self.initial_limit,
+                                min_limit=self.min_limit,
+                                max_limit=self.max_limit))
+            self._limit_gauge.set(sc.limit, scope=name)
+        return sc
+
+    def add_target(self, scope_name: str, apply_fn) -> None:
+        self.scope(scope_name).add_target(apply_fn)
+
+    # -- shed and expiry accounting (every hop funnels through these) ------
+
+    def note_shed(self, hop: str, priority: int) -> None:
+        self._shed_total.inc(hop=hop, priority=priority_name(priority))
+
+    def note_expired(self, hop: str, priority: int) -> None:
+        self._expired_total.inc(hop=hop, priority=priority_name(priority))
+
+    # -- drain rate and Retry-After -----------------------------------------
+
+    def on_drain_event(self, n: float = 1.0) -> None:
+        self._drain.on_event(n)
+
+    def drain_rate(self) -> float:
+        rate = self._drain.rate()
+        self._drain_gauge.set(rate)
+        return rate
+
+    def retry_after_s(self, excess: float = 1.0) -> float:
+        """Seconds until about ``excess`` units of backlog should have
+        drained (``drain_retry_after``)."""
+        return drain_retry_after(excess, self.drain_rate())
+
+    # -- the async edge -----------------------------------------------------
+
+    def shed_async(self, priority: int, backlog: int,
+                   deadline_at: float = 0.0) -> tuple[float, str] | None:
+        """The async edge's decision: None to admit, else
+        ``(retry_after_s, why)``.
+
+        - class pressure: the route's created backlog against this class's
+          share of ``max_backlog``, lowest priority refused first;
+        - deadline feasibility: with a deadline and an established drain
+          rate, a predicted queue wait beyond the remaining budget means
+          the task would expire in the queue, so it is refused now."""
+        retry_after = self.shedder.check(priority, backlog, self.max_backlog,
+                                         drain_rate=self.drain_rate())
+        if retry_after is not None:
+            return retry_after, "pressure"
+        if deadline_at and backlog >= 8:
+            rate = self.drain_rate()
+            if rate > 1e-9 and backlog / rate > remaining_s(deadline_at):
+                return self.retry_after_s(), "deadline"
+        return None
+
+    # -- goodput ---------------------------------------------------------------
+
+    def attach_store(self, store) -> None:
+        """Subscribe to the task store's change feed: every terminal
+        transition is a drain event for the Retry-After estimator, each
+        creation an arrival, and a completed task scores goodput by
+        whether it beat its deadline (``no_deadline`` apart)."""
+        from ..taskstore import TaskStatus
+
+        def on_task_change(task) -> None:
+            status = task.canonical_status
+            if status not in TaskStatus.TERMINAL:
+                if task.status == TaskStatus.CREATED:
+                    # The raw "created" status is stamped once, at
+                    # creation (requeues carry other prose).
+                    self._arrivals.on_event()
+                    self._arrival_gauge.set(self._arrivals.rate())
+                return
+            self.on_drain_event()
+            if status != TaskStatus.COMPLETED:
+                return
+            deadline_at = getattr(task, "deadline_at", 0.0)
+            if not deadline_at:
+                outcome = "no_deadline"
+            elif time.time() <= deadline_at:
+                outcome = "in_deadline"
+            else:
+                outcome = "late"
+            self._goodput_total.inc(outcome=outcome)
+
+        store.add_listener(on_task_change)

@@ -12,25 +12,34 @@ a copy of ``ai4e_tpu/broker/dispatcher.py`` for one backend per route:
 Every status write that could land on a finished task is preceded by a
 terminal probe, so a redelivery never reopens a completed task.
 
+Deadlines: a message whose deadline passed while it queued is completed
+off the broker at pop time and its task turns terminal ``expired`` (it
+never reaches the worker); a live one carries ``X-Deadline-At`` and
+``X-Priority`` on its backend POST. With an admission controller the
+delivered round trips feed the queue's limiter, whose limit drives
+``set_concurrency``, and a backend's 429/503 backs it off at once.
+
 Each delivery attempt is a ``dispatch`` span keyed by TaskId, the child
 of the span that published the task (the message's ``trace_headers``);
 its B3 headers go on the backend POST, so the worker's endpoint span is
 its child. With the observability hub it stamps the hop ledger where JAX's
-does on this path: ``popped``, ``delivered``, ``backpressure`` and
-``dead_letter``. Not ported (ROADMAP A18): the result cache, admission
-deadlines (and their ``expired`` stamp), resilience and orchestration
-(their ``duplicate``, ``retry``, ``failover``, ``placed`` and ``probe``
-stamps), weighted backends and tenancy accounting.
+does on this path: ``popped``, ``expired``, ``delivered``,
+``backpressure`` and ``dead_letter``. Not ported (ROADMAP A18): the result
+cache, resilience and orchestration (their ``duplicate``, ``retry``,
+``failover``, ``placed`` and ``probe`` stamps, and the breaker's backoff
+of the admission limiter), weighted backends and tenancy accounting.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from urllib.parse import urlparse
 
 import aiohttp
 
+from ..admission.deadline import expired_status, propagation_headers
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
 from ..observability import Tracer
 from ..observability import ledger as hop
@@ -70,7 +79,7 @@ class Dispatcher:
     def __init__(self, broker: InMemoryBroker, queue_name: str,
                  backend_uri: str, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
-                 observability=None,
+                 observability=None, admission=None,
                  metrics: MetricsRegistry | None = None):
         self.broker = broker
         self.queue_name = queue_name
@@ -82,6 +91,9 @@ class Dispatcher:
         self.metrics = metrics or DEFAULT_REGISTRY
         # Request-observability hub: None stamps nothing.
         self.observability = observability
+        # Admission controller: None feeds no limiter. Deadline drops need
+        # none: any message carrying a deadline is honoured.
+        self.admission = admission
         # Spans land in this dispatcher's registry; exporter and sampling
         # follow configure_tracer live.
         self.tracer = Tracer("dispatcher", metrics=self.metrics)
@@ -95,6 +107,9 @@ class Dispatcher:
         self._excess = 0
         # Resizes before start() (or after stop()) only record the level.
         self._started = False
+        # Delivery loops mid-delivery: the concurrency in use, which the
+        # admission limiter's Little's-law clamp compares its limit with.
+        self._busy = 0
         # In-flight POSTs are bounded by the delivery loops.
         self._sessions = SessionHolder(timeout=REQUEST_TIMEOUT_S, limit=0)
 
@@ -152,6 +167,7 @@ class Dispatcher:
             msg = await self.broker.receive(self.queue_name, timeout=1.0)
             if msg is None:
                 continue
+            self._busy += 1
             try:
                 await self._dispatch_one(msg)
             except asyncio.CancelledError:
@@ -168,6 +184,8 @@ class Dispatcher:
                         await self._try_update(
                             msg.task_id, TaskStatus.DEAD_LETTER,
                             TaskStatus.FAILED)
+            finally:
+                self._busy -= 1
 
     def _stamp(self, task_id: str, event: str,
                reason: str | None = None) -> None:
@@ -179,10 +197,13 @@ class Dispatcher:
     async def _dispatch_one(self, msg: Message) -> None:
         self._stamp(msg.task_id, hop.POPPED,
                     reason=f"delivery {msg.delivery_count}")
+        if await self._drop_expired(msg):
+            return
         target = rebase_endpoint(msg.endpoint, self.route_path,
                                  self.backend_uri)
         backend = urlparse(target).netloc
         session = await self._sessions.get()
+        t0 = time.perf_counter()
         try:
             # One span per delivery attempt, the child of the publisher's
             # span (the message's B3 headers); its own B3 headers parent
@@ -196,6 +217,7 @@ class Dispatcher:
                         target, data=msg.body,
                         headers={"taskId": msg.task_id,
                                  "Content-Type": msg.content_type,
+                                 **self._admission_headers(msg),
                                  **self.tracer.headers()}) as resp:
                     status = resp.status
                     await resp.read()
@@ -216,8 +238,17 @@ class Dispatcher:
             self._stamp(msg.task_id, hop.DELIVERED, reason=backend)
             self._dispatched.inc(outcome="delivered", queue=self.queue_name,
                                  backend=backend)
+            if self.admission is not None:
+                # The delivered round trip feeds this queue's limiter:
+                # when the worker congests these stretch, and the fan-out
+                # narrows before the worker has to refuse.
+                self.admission.scope("dispatch:" + self.queue_name).observe(
+                    time.perf_counter() - t0, inflight=self._busy)
             return
         if status in BACKPRESSURE_CODES:
+            if self.admission is not None:
+                # Explicit saturation outranks latency: shrink now.
+                self.admission.scope("dispatch:" + self.queue_name).backoff()
             await self._backpressure(msg, backend=backend)
             return
         # Permanent failure: complete the message and fail the task, unless
@@ -232,6 +263,38 @@ class Dispatcher:
         await self._try_update(msg.task_id,
                                f"failed - backend returned {status}",
                                TaskStatus.FAILED)
+
+    def _admission_headers(self, msg: Message) -> dict:
+        """The deadline and class onto the backend POST, for the worker's
+        own expiry check and priority-classed batching. The absolute
+        deadline, so time in the queue never re-extends the budget. With
+        admission off and nothing stamped, none."""
+        if (self.admission is None and not msg.deadline_at
+                and msg.priority == 1):
+            return {}
+        return propagation_headers(msg.deadline_at, msg.priority)
+
+    async def _drop_expired(self, msg: Message) -> bool:
+        """Pop-time deadline check: work whose budget ran out while it
+        queued is completed off the broker and its task turns terminal
+        ``expired``; it never reaches the backend. True when dropped."""
+        if not msg.deadline_at or time.time() < msg.deadline_at:
+            return False
+        self.broker.complete(msg)
+        # Terminal probe before any accounting: a lease-expiry redelivery
+        # of a task that already completed is a duplicate, not an expiry.
+        if await self.task_manager.is_terminal(msg.task_id):
+            self._dispatched.inc(outcome="duplicate", queue=self.queue_name,
+                                 backend="")
+            return True
+        self._stamp(msg.task_id, hop.EXPIRED, reason="pop-time deadline")
+        self._dispatched.inc(outcome="expired", queue=self.queue_name,
+                             backend="")
+        if self.admission is not None:
+            self.admission.note_expired("dispatcher", msg.priority)
+        await self._try_update(msg.task_id, expired_status("dispatcher"),
+                               TaskStatus.EXPIRED)
+        return True
 
     def _redelivery_delay(self, msg: Message) -> float:
         """Jittered exponential backoff from the message's delivery count
@@ -274,7 +337,7 @@ class DispatcherPool:
 
     def __init__(self, broker: InMemoryBroker, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
-                 observability=None,
+                 observability=None, admission=None,
                  metrics: MetricsRegistry | None = None):
         self.broker = broker
         self.task_manager = task_manager
@@ -282,6 +345,7 @@ class DispatcherPool:
         self.concurrency = concurrency
         self.observability = observability
         self.metrics = metrics
+        self.admission = admission
         self.dispatchers: dict[str, Dispatcher] = {}
 
     def register(self, queue_name: str, backend_uri: str,
@@ -291,7 +355,8 @@ class DispatcherPool:
             self.broker, queue_name, backend_uri, self.task_manager,
             retry_delay=self.retry_delay if retry_delay is None else retry_delay,
             concurrency=self.concurrency if concurrency is None else concurrency,
-            observability=self.observability, metrics=self.metrics)
+            observability=self.observability, admission=self.admission,
+            metrics=self.metrics)
         self.dispatchers[queue_name] = d
         return d
 

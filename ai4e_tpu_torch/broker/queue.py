@@ -10,7 +10,8 @@ lanes (ROADMAP A18.2, A18.10):
   callback can fail its task;
 - a message carries the B3 headers of the span its publisher ran in (the
   gateway's ``create_task``), which JAX's messages do not: the port's
-  dispatch span continues the gateway's trace instead of starting one.
+  dispatch span continues the gateway's trace instead of starting one;
+- a message carries its task's deadline and priority class, as JAX's do.
 
 Event-loop only, except ``publish``, which any thread may call.
 """
@@ -57,6 +58,12 @@ class Message:
     # gateway's create_task): the dispatch span's parent, so gateway ->
     # dispatcher -> worker is one trace. Empty outside any span.
     trace_headers: dict = field(default_factory=dict)
+    # Admission state copied from the task: the absolute deadline (unix
+    # seconds; 0.0 = none) and the priority class, so the dispatcher drops
+    # expired work at pop time without a store round trip and labels its
+    # backend POST for the worker's own shedding.
+    deadline_at: float = 0.0
+    priority: int = 1
 
 
 DeadLetterHandler = Callable[[Message], None]
@@ -234,7 +241,9 @@ class InMemoryBroker:
                       body=task.body, content_type=task.content_type,
                       seq=next(self._seq),
                       queue_name=self.resolve_queue_name(task.endpoint),
-                      trace_headers=get_tracer().headers())
+                      trace_headers=get_tracer().headers(),
+                      deadline_at=getattr(task, "deadline_at", 0.0),
+                      priority=getattr(task, "priority", 1))
         loop = self._loop
         try:
             running = asyncio.get_running_loop()

@@ -132,7 +132,10 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     await web.TCPSite(runner, config.gateway.host, config.gateway.port).start()
     await platform.start()
     vitals = await start_vitals(config, platform.metrics)
+    # Operators grep the startup line for posture: admission changes the
+    # public contract (sheds, expiry, computed Retry-After).
     posture = "".join([
+        ", admission control ON" if platform.admission is not None else "",
         ", observability ON" if platform.observability is not None else "",
         (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
          if platform.slo is not None else ""),

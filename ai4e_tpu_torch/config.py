@@ -36,7 +36,6 @@ _HA = "the journaled and replicated task store (ROADMAP A18.1)"
 _SHARDS = "the sharded task store (ROADMAP A18.2)"
 _PUSH = "the push transport (ROADMAP A18.3)"
 _AUTH = "subscription keys, rate limits and quotas (ROADMAP A18.4)"
-_ADMISSION = "admission control (ROADMAP A18.5)"
 _CACHE = "the result cache (ROADMAP A18.6)"
 _REAPER = "the task reaper's stuck-task rescue (ROADMAP A18.7)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
@@ -68,9 +67,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     **{("AI4E_PLATFORM_", f): _CACHE for f in (
         "result_cache", "cache_max_entries", "cache_max_bytes",
         "cache_ttl_seconds")},
-    **{("AI4E_PLATFORM_", f): _ADMISSION for f in (
-        "admission", "admission_min_limit", "admission_max_limit",
-        "admission_initial_limit", "admission_max_backlog")},
     **{("AI4E_PLATFORM_", f): _RESILIENCE for f in (
         "resilience", "resilience_failure_threshold", "resilience_window",
         "resilience_error_rate", "resilience_recovery_seconds",

@@ -18,21 +18,33 @@ Routes:
 Every async request runs in a ``create_task`` span (parented by inbound B3
 headers); with the hub it gets ``admitted`` (stamped at its arrival time)
 and ``published`` ledger events, and each sync POST's round trip is
-observed for the SLO engine. Not ported (ROADMAP A18): subscription keys,
-rate limits and quotas, tenancy, the result cache, admission and its
-refusals, orchestration and resilient proxying, event streams and
+observed for the SLO engine.
+
+With admission (``set_admission``) a request carries ``X-Deadline-Ms`` and
+``X-Priority``: already-expired work answers 504 with ``X-Shed-Reason``
+before any task exists; the async edge anchors the deadline on the task
+(stream routes too) and sheds lowest priority first against the route's
+created backlog, 429 with a Retry-After computed from the drain rate; the
+sync proxy runs under the controller's adaptive in-flight cap (503 when
+the class is shed) and forwards the absolute deadline. Not ported (ROADMAP
+A18): subscription keys, rate limits and quotas, tenancy, the result
+cache, orchestration's brownout and resilient proxying, event streams and
 weighted backends.
 """
 
 from __future__ import annotations
 
 import asyncio
+import math
 import time
 from dataclasses import dataclass
 
 import aiohttp
 from aiohttp import web
 
+from ..admission.deadline import (SHED_REASON_HEADER, expired,
+                                  parse_deadline_at, parse_priority,
+                                  propagation_headers, shed_reason)
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
 from ..observability import Tracer
 from ..observability.ledger import ADMITTED, PUBLISHED, ledger_event
@@ -73,6 +85,9 @@ class Gateway:
         # Request-observability hub (set_observability); None: no ledger
         # stamps, no flight recorder, no per-route e2e telemetry.
         self._observability = None
+        # Admission controller (set_admission); None: no deadlines, no
+        # shedding, an unbounded sync proxy.
+        self._admission = None
         # Proxy fan-out is bounded by inbound connections, not the pool.
         self._sessions = SessionHolder(limit=0)
         # Long-poll waiters: task_id -> [(loop, future)], woken by the
@@ -102,6 +117,14 @@ class Gateway:
             # Added only with the hub, so a default gateway's route table
             # stays as it was.
             self.app.router.add_get("/v1/debug/flight", self._flight_dump)
+
+    def set_admission(self, controller) -> None:
+        """Enable (or clear with None) admission control on the published
+        surface: deadlines and priorities parsed at the edge, expired work
+        answered 504, the async edge shed lowest priority first against
+        the backlog, the sync proxy run under the adaptive in-flight cap,
+        and every Retry-After computed from the observed drain rate."""
+        self._admission = controller
 
     def add_async_route(self, prefix: str, task_endpoint: str,
                         max_body_bytes: int | None = None) -> None:
@@ -156,12 +179,27 @@ class Gateway:
                 endpoint = endpoint.rstrip("/") + "/" + tail
             if request.query_string:
                 endpoint += "?" + request.query_string
+            # Admission: anchor the caller's relative budget, classify,
+            # and refuse dead or shed work before any task exists. Off:
+            # nothing parsed, nothing stamped.
+            deadline_at = 0.0
+            task_priority = 1
+            if self._admission is not None:
+                deadline_at = parse_deadline_at(request.headers)
+                task_priority = parse_priority(request.headers)
+                refusal = (self._admission_expired(route, task_priority,
+                                                   deadline_at)
+                           or self._admission_pressure(route, task_priority,
+                                                       deadline_at))
+                if refusal is not None:
+                    return refusal
             with self.tracer.span("create_task", route=route.prefix,
                                   headers=request.headers) as span:
                 task = self.store.upsert(APITask(
                     endpoint=endpoint, body=body,
                     content_type=request.content_type or "application/json",
-                    publish=True))
+                    publish=True, deadline_at=deadline_at,
+                    priority=task_priority))
                 span.task_id = task.task_id
             stored = self.store.get(task.task_id)
             if self._observability is not None:
@@ -179,6 +217,45 @@ class Gateway:
 
         return handler
 
+    def _admission_expired(self, route: Route, priority: int,
+                           deadline_at: float) -> web.Response | None:
+        """504 for async work whose budget is already spent: a task would
+        only carry it through the broker."""
+        if not expired(deadline_at):
+            return None
+        self._admission.note_expired("gateway", priority)
+        self._requests.inc(route=route.prefix, outcome="expired")
+        if self._observability is not None:
+            self._observability.record_refusal(route.prefix, "expired",
+                                               priority=priority)
+        return web.Response(
+            status=504, text="Deadline already expired.",
+            headers={SHED_REASON_HEADER: shed_reason("gateway", "deadline")})
+
+    def _admission_pressure(self, route: Route, priority: int,
+                            deadline_at: float) -> web.Response | None:
+        """429, lowest priority first, when the route's created backlog
+        says new work would queue past its class's share (or past its own
+        deadline), with a Retry-After from the observed drain rate and
+        ``X-Shed-Reason``."""
+        adm = self._admission
+        backlog = self.store.set_len(endpoint_path(route.backend_uri),
+                                     TaskStatus.CREATED)
+        decision = adm.shed_async(priority, backlog, deadline_at)
+        if decision is None:
+            return None
+        retry_after, why = decision
+        adm.note_shed("gateway", priority)
+        self._requests.inc(route=route.prefix, outcome="shed")
+        if self._observability is not None:
+            self._observability.record_refusal(route.prefix, why,
+                                               priority=priority)
+        return web.json_response(
+            {"error": f"request shed ({why}); retry later"},
+            status=429,
+            headers={"Retry-After": str(max(1, math.ceil(retry_after))),
+                     SHED_REASON_HEADER: shed_reason("gateway", why)})
+
     # -- sync: reverse proxy -------------------------------------------------
 
     def _make_sync_handler(self, route: Route):
@@ -187,23 +264,70 @@ class Gateway:
             body = await read_body_limited(request, self._route_limit(route))
             if body is None:
                 return self._payload_too_large(route)
-            # Hop headers and the gateway credential never reach a backend.
+            # Admission on POSTs (the inference requests): an expired one
+            # answers 504 before the backend sees it; the others run under
+            # the adaptive in-flight cap, acquired inside the try below.
+            adm = self._admission if request.method == "POST" else None
+            sync_scope = None
+            priority = 1
+            deadline_at = 0.0
+            if adm is not None:
+                deadline_at = parse_deadline_at(request.headers)
+                priority = parse_priority(request.headers)
+                if expired(deadline_at):
+                    adm.note_expired("gateway_sync", priority)
+                    self._requests.inc(route=route.prefix, outcome="expired")
+                    if self._observability is not None:
+                        self._observability.record_refusal(
+                            route.prefix, "expired", priority=priority)
+                    return web.Response(
+                        status=504, text="Deadline already expired.",
+                        headers={SHED_REASON_HEADER:
+                                 shed_reason("gateway_sync", "deadline")})
+                sync_scope = adm.scope(adm.SYNC_SCOPE)
+            # Hop headers and the gateway credential never reach a backend;
+            # under admission the relative deadline is replaced by the
+            # absolute one (re-anchoring it at the worker would extend the
+            # budget by the proxy's own time).
+            dropped = ("host", "content-length", "ocp-apim-subscription-key",
+                       "x-api-key")
+            if sync_scope is not None:
+                dropped += ("x-deadline-ms", "x-deadline-at", "x-priority")
             headers = {k: v for k, v in request.headers.items()
-                       if k.lower() not in ("host", "content-length",
-                                            "ocp-apim-subscription-key",
-                                            "x-api-key")}
+                       if k.lower() not in dropped}
+            if sync_scope is not None:
+                headers.update(propagation_headers(deadline_at, priority))
             target = route.backend_uri + (("/" + tail) if tail else "")
             if request.query_string:
                 target += "?" + request.query_string
-            session = await self._sessions.get()
             # Sync POSTs (inference requests, not health probes) feed the
             # hub's per-route e2e latency and outcome.
             observe = (self._observability.observe_sync
                        if self._observability is not None
                        and request.method == "POST" else None)
+            acquired = False
             t0 = time.perf_counter()
             try:
-                async with session.request(request.method, target, data=body,
+                if sync_scope is not None:
+                    retry_after = sync_scope.try_acquire(priority)
+                    if retry_after is not None:
+                        adm.note_shed("gateway_sync", priority)
+                        self._requests.inc(route=route.prefix,
+                                           outcome="shed")
+                        if self._observability is not None:
+                            self._observability.record_refusal(
+                                route.prefix, "pressure", priority=priority)
+                        return web.Response(
+                            status=503, text="Sync capacity exhausted.",
+                            headers={"Retry-After":
+                                     str(max(1, math.ceil(retry_after))),
+                                     SHED_REASON_HEADER:
+                                     shed_reason("gateway_sync",
+                                                 "pressure")})
+                    acquired = True
+                session = await self._sessions.get()
+                async with session.request(request.method, target,
+                                           data=body,
                                            headers=headers) as resp:
                     payload = await resp.read()
                     self._requests.inc(route=route.prefix,
@@ -219,6 +343,13 @@ class Gateway:
                     observe(route.prefix, time.perf_counter() - t0, 502)
                 return web.Response(status=502,
                                     text=f"Backend unreachable: {exc}")
+            finally:
+                if acquired:
+                    # Observe before the release, so the limiter's
+                    # Little's-law clamp counts this request in flight;
+                    # only requests that held a slot teach it an RTT.
+                    sync_scope.observe(time.perf_counter() - t0)
+                    sync_scope.release()
 
         return handler
 

@@ -1,0 +1,266 @@
+"""DCT-truncation host->device wire codec — JPEG-grade compression whose
+decode is two small matrix products per block. Counterpart of
+``ai4e_tpu/ops/dct.py``.
+
+After an 8x8 block transform, camera imagery keeps its energy in the
+low-frequency corner, and coarse quantisation of the rest is visually
+lossless. JPEG spends that on Huffman coding, which is sequential; this
+codec spends it on a fixed-rate layout, so the card decodes with dense
+linear algebra:
+
+- host (``rgb_to_dct``): RGB -> JPEG-convention YCbCr (chroma 2x2
+  subsampled, as the yuv420 wire) -> per-plane 8x8 orthonormal DCT-II ->
+  the top-left KxK coefficients (K = 4 by default) -> quantised by a
+  JPEG-style table -> int8: K^2/64 bytes a luma pixel plus chroma at a
+  quarter of the resolution, 0.375 B/px at K = 4 (a quarter of yuv420's,
+  an eighth of raw RGB's); the C++ encoder (``native/dct_codec.cpp``) when
+  it builds, numpy otherwise;
+- device (``dct_to_rgb``): int8 -> dequantise (a table multiply) -> the
+  inverse DCT as two Kx8 products per block -> nearest chroma upsample ->
+  YCbCr -> RGB -> [0, 1] float32, plain PyTorch ops inside the servable's
+  CUDA graph, before the model. The JAX package leaves this decode to
+  XLA, not to a Pallas kernel. The products are float32: the runtime
+  switches TF32 off on the card (``runtime/registry.py``).
+
+The quant tables and the basis become float32 tensors on the decoding
+device once (``device_tables``), not on each call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .yuv import upsample2x, ycbcr_to_unit_rgb
+
+# JPEG Annex K base quantization tables (quality 50), top-left 8x8. Scaled
+# to the quality below, then clamped so every kept coefficient of a
+# level-shifted uint8 plane fits int8 (|DC| <= 1024 => quant >= 8).
+_JPEG_LUMA_Q50 = np.array([
+    [16, 11, 10, 16, 24, 40, 51, 61],
+    [12, 12, 14, 19, 26, 58, 60, 55],
+    [14, 13, 16, 24, 40, 57, 69, 56],
+    [14, 17, 22, 29, 51, 87, 80, 62],
+    [18, 22, 37, 56, 68, 109, 103, 77],
+    [24, 35, 55, 64, 81, 104, 113, 92],
+    [49, 64, 78, 87, 103, 121, 120, 101],
+    [72, 92, 95, 98, 112, 100, 103, 99]], np.float32)
+_JPEG_CHROMA_Q50 = np.array([
+    [17, 18, 24, 47, 99, 99, 99, 99],
+    [18, 21, 26, 66, 99, 99, 99, 99],
+    [24, 26, 56, 99, 99, 99, 99, 99],
+    [47, 66, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99],
+    [99, 99, 99, 99, 99, 99, 99, 99]], np.float32)
+
+DEFAULT_K = 4
+DEFAULT_QUALITY = 75
+
+
+def quant_tables(k: int = DEFAULT_K, quality: int = DEFAULT_QUALITY
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(luma, chroma) KxK quant tables at ``quality`` (JPEG's scaling
+    formula), clamped to [8, 255] so quantised coefficients fit int8."""
+    if not 1 <= quality <= 100:
+        raise ValueError(f"quality must be 1..100, got {quality}")
+    scale = (5000.0 / quality if quality < 50 else 200.0 - 2.0 * quality) / 100.0
+    out = []
+    for base in (_JPEG_LUMA_Q50, _JPEG_CHROMA_Q50):
+        t = np.clip(np.round(base[:k, :k] * scale), 8.0, 255.0)
+        out.append(t.astype(np.float32))
+    return out[0], out[1]
+
+
+def dct_matrix() -> np.ndarray:
+    """(8, 8) orthonormal DCT-II basis: ``coef = B @ block @ B.T``."""
+    n = np.arange(8, dtype=np.float64)
+    basis = np.cos(np.pi * (2 * n[None, :] + 1) * n[:, None] / 16.0)
+    basis *= np.sqrt(2.0 / 8.0)
+    basis[0] /= np.sqrt(2.0)
+    return basis.astype(np.float32)
+
+
+def dct_nbytes(h: int, w: int, k: int = DEFAULT_K) -> int:
+    """Wire bytes for an (h, w) frame: K^2 int8 per 8x8 luma block, chroma
+    blocks at a quarter of the resolution."""
+    return (h // 8) * (w // 8) * k * k + 2 * (h // 16) * (w // 16) * k * k
+
+
+def _check_dims(h: int, w: int) -> None:
+    if h % 16 or w % 16:
+        # 8 for the luma block grid x 2 for chroma subsampling.
+        raise ValueError(f"dct wire needs dims divisible by 16, got {h}x{w}")
+
+
+def _plane_to_coeffs(plane: np.ndarray, k: int, qtable: np.ndarray,
+                     basis: np.ndarray) -> np.ndarray:
+    """(H, W) float (level-shifted) -> (H/8, W/8, k, k) int8."""
+    hb, wb = plane.shape[0] // 8, plane.shape[1] // 8
+    blocks = plane.reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3)
+    coef = np.einsum("ka,nmab,lb->nmkl", basis[:k], blocks, basis[:k],
+                     optimize=True)
+    return np.clip(np.round(coef / qtable), -127, 127).astype(np.int8)
+
+
+_native_encode = None
+_native_tried = False
+
+
+def _get_native_encode():
+    """The C++ encoder (``native/dct_codec.cpp``, built on first use), or
+    None when it cannot be built."""
+    global _native_encode, _native_tried
+    if _native_tried:
+        return _native_encode
+    _native_tried = True
+    from ..utils.native_build import load_native_function
+    _native_encode = load_native_function(
+        "dct_codec.cpp", "libdct_codec.so", "dct_encode",
+        restype=ctypes.c_int,
+        argtypes=[ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int,
+                  ctypes.POINTER(ctypes.c_float),
+                  ctypes.POINTER(ctypes.c_float),
+                  ctypes.POINTER(ctypes.c_int8)])
+    return _native_encode
+
+
+def encoder() -> str:
+    """The host encoder ``rgb_to_dct`` runs: ``"cpp"`` or ``"numpy"``."""
+    return "cpp" if _get_native_encode() is not None else "numpy"
+
+
+def rgb_to_dct(arr: np.ndarray, k: int = DEFAULT_K,
+               quality: int = DEFAULT_QUALITY) -> np.ndarray:
+    """(H, W, 3) uint8 RGB -> flat int8 [Y coeffs | Cb | Cr], each plane in
+    (blocks_y, blocks_x, k, k) row-major order. The C++ encoder when it is
+    available (the numpy version's contract within 1 quant LSB: float
+    association differs); numpy otherwise."""
+    if arr.ndim != 3 or arr.shape[-1] != 3 or arr.dtype != np.uint8:
+        raise ValueError(
+            f"expected (H, W, 3) uint8, got {arr.shape} {arr.dtype}")
+    h, w, _ = arr.shape
+    _check_dims(h, w)
+    encode = _get_native_encode()
+    if encode is not None:
+        arr_c = np.ascontiguousarray(arr)
+        luma_q, chroma_q = quant_tables(k, quality)
+        luma_q = np.ascontiguousarray(luma_q)
+        chroma_q = np.ascontiguousarray(chroma_q)
+        out = np.empty(dct_nbytes(h, w, k), np.int8)
+        rc = encode(arr_c.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                    h, w, k,
+                    luma_q.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    chroma_q.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    out.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)))
+        if rc == 0:
+            return out
+    return _rgb_to_dct_numpy(arr, k, quality)
+
+
+def _rgb_to_dct_numpy(arr: np.ndarray, k: int = DEFAULT_K,
+                      quality: int = DEFAULT_QUALITY) -> np.ndarray:
+    h, w, _ = arr.shape
+    f = arr.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    cb = cb.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+    cr = cr.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+    luma_q, chroma_q = quant_tables(k, quality)
+    basis = dct_matrix()
+    parts = [
+        _plane_to_coeffs(y - 128.0, k, luma_q, basis).reshape(-1),
+        _plane_to_coeffs(cb - 128.0, k, chroma_q, basis).reshape(-1),
+        _plane_to_coeffs(cr - 128.0, k, chroma_q, basis).reshape(-1),
+    ]
+    return np.concatenate(parts).view(np.int8)
+
+
+@functools.lru_cache(maxsize=None)
+def device_tables(device: torch.device, k: int = DEFAULT_K,
+                  quality: int = DEFAULT_QUALITY
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(luma_q, chroma_q, basis_k)`` as float32 tensors on ``device``:
+    the KxK tables and the basis's first K rows, (K, 8). Made once per
+    device; the servable's eager run before its graph capture makes them,
+    so the capture copies nothing from the host."""
+    luma_q, chroma_q = quant_tables(k, quality)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (luma_q, chroma_q, dct_matrix()[:k]))
+
+
+def coeffs_to_plane(coef: torch.Tensor, hb: int, wb: int,
+                    qtable: torch.Tensor, basis_k: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, hb, wb, k, k) int8 -> (B, 8 hb, 8 wb) float32: dequantise, then
+    the inverse DCT ``block = B[:k].T @ coef @ B[:k]`` as two products,
+    the sum over the coefficient's row first, as JAX's ``einsum`` writes
+    it."""
+    bsz = coef.shape[0]
+    deq = coef.to(torch.float32) * qtable
+    # t[.., l, a] = sum_k deq[.., k, l] B[k, a]
+    t = torch.matmul(deq.transpose(-1, -2), basis_k)
+    # block[.., a, c] = sum_l t[.., l, a] B[l, c]
+    blocks = torch.matmul(t.transpose(-1, -2), basis_k)
+    return blocks.permute(0, 1, 3, 2, 4).reshape(bsz, hb * 8, wb * 8)
+
+
+def dct_to_rgb(flat: torch.Tensor, h: int, w: int, k: int = DEFAULT_K,
+               quality: int = DEFAULT_QUALITY) -> torch.Tensor:
+    """Device decode: (B, dct_nbytes) int8 -> (B, H, W, 3) float32 in
+    [0, 1]: dequantise, per-block inverse DCT products, nearest chroma
+    upsample, the 3x3 colour transform. Captured in the servable's CUDA
+    graph with the model."""
+    _check_dims(h, w)
+    hb, wb = h // 8, w // 8
+    hcb, wcb = h // 16, w // 16
+    n_y = hb * wb * k * k
+    n_c = hcb * wcb * k * k
+    luma_q, chroma_q, basis_k = device_tables(flat.device, k, quality)
+    bsz = flat.shape[0]
+    coefs = flat.to(torch.int8)
+    y = coeffs_to_plane(coefs[:, :n_y].reshape(bsz, hb, wb, k, k),
+                        hb, wb, luma_q, basis_k) + 128.0
+    cb = coeffs_to_plane(coefs[:, n_y:n_y + n_c].reshape(bsz, hcb, wcb, k, k),
+                         hcb, wcb, chroma_q, basis_k)
+    cr = coeffs_to_plane(coefs[:, n_y + n_c:].reshape(bsz, hcb, wcb, k, k),
+                         hcb, wcb, chroma_q, basis_k)
+    return ycbcr_to_unit_rgb(y, upsample2x(cb), upsample2x(cr))
+
+
+def dct_to_rgb_numpy(flat: np.ndarray, h: int, w: int, k: int = DEFAULT_K,
+                     quality: int = DEFAULT_QUALITY) -> np.ndarray:
+    """Host inverse for consumers needing the image back on the host
+    (crops handoffs): the device decode's arithmetic, uint8 out."""
+    _check_dims(h, w)
+    hb, wb = h // 8, w // 8
+    hcb, wcb = h // 16, w // 16
+    n_y = hb * wb * k * k
+    n_c = hcb * wcb * k * k
+    luma_q, chroma_q = quant_tables(k, quality)
+    basis = dct_matrix()
+    flat = np.asarray(flat).view(np.int8)
+
+    def plane(coef, nb_h, nb_w, qtable):
+        deq = coef.reshape(nb_h, nb_w, k, k).astype(np.float32) * qtable
+        blocks = np.einsum("ak,nmkl,lc->nmac", basis[:k].T, deq, basis[:k],
+                           optimize=True)
+        return blocks.transpose(0, 2, 1, 3).reshape(nb_h * 8, nb_w * 8)
+
+    y = plane(flat[:n_y], hb, wb, luma_q) + 128.0
+    cb = plane(flat[n_y:n_y + n_c], hcb, wcb, chroma_q)
+    cr = plane(flat[n_y + n_c:], hcb, wcb, chroma_q)
+    cb = np.repeat(np.repeat(cb, 2, axis=0), 2, axis=1)
+    cr = np.repeat(np.repeat(cr, 2, axis=0), 2, axis=1)
+    r = y + 1.402 * cr
+    g = y - 0.344136 * cb - 0.714136 * cr
+    b = y + 1.772 * cb
+    rgb = np.stack([r, g, b], axis=-1)
+    return np.clip(np.round(rgb), 0, 255).astype(np.uint8)

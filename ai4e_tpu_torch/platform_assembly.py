@@ -6,7 +6,11 @@ autoscaler on a route's one dispatcher (``scaling.AutoscaleController``),
 the queue-depth gauges (``observability.DepthLogger``, always on, as in
 JAX) and, with ``observability``, the hop ledger and flight recorder
 (``observability.RequestObservability``, shared by the gateway and the
-dispatchers) and the SLO burn-rate engine on ``slo_objectives``.
+dispatchers), the SLO burn-rate engine on ``slo_objectives`` and, with
+``admission``, the admission controller (``admission.AdmissionController``:
+deadlines and priority shedding at the gateway, the sync proxy's adaptive
+cap, each dispatcher's fan-out on its own limiter unless an autoscaler
+owns it, the drain rate and goodput from the store's change feed).
 The sharded store and orchestration, under which the JAX package scales a
 route's shards or on a predictive signal, are refused by
 ``config.check_ported`` (ROADMAP A18.2, A18.9).
@@ -62,6 +66,19 @@ class PlatformConfig:
     slo_tick_s: float = 5.0
     slo_fast_window_s: float = 300.0
     slo_slow_window_s: float = 3600.0
+    # Admission control: deadlines (X-Deadline-Ms / X-Priority /
+    # X-Shed-Reason), priority shedding with a drain-rate Retry-After, and
+    # an adaptive concurrency limit for the sync proxy and each
+    # dispatcher's fan-out. Off by default: on, the platform may refuse or
+    # expire work (terminal `expired`) instead of carrying every request
+    # to completion however late.
+    admission: bool = False
+    admission_min_limit: int = 1
+    admission_max_limit: int = 256
+    admission_initial_limit: int = 8
+    # The async edge's backlog capacity the shedder's fractions divide
+    # (created tasks per route; background sheds first, at 60%).
+    admission_max_backlog: int = 1024
 
 
 class LocalPlatform:
@@ -101,14 +118,30 @@ class LocalPlatform:
                 fast_window_s=self.config.slo_fast_window_s,
                 slow_window_s=self.config.slo_slow_window_s,
                 tick_s=self.config.slo_tick_s)
+        self.admission = None
+        if self.config.admission:
+            from .admission import AdmissionController
+
+            self.admission = AdmissionController(
+                metrics=self.metrics,
+                min_limit=self.config.admission_min_limit,
+                max_limit=self.config.admission_max_limit,
+                initial_limit=self.config.admission_initial_limit,
+                max_backlog=self.config.admission_max_backlog)
+            # Terminal transitions feed the drain rate (every shed's
+            # Retry-After) and score goodput.
+            self.admission.attach_store(self.store)
         self.dispatchers = DispatcherPool(
             self.broker, self.task_manager,
             retry_delay=self.config.retry_delay,
             concurrency=self.config.dispatcher_concurrency,
-            observability=self.observability, metrics=self.metrics)
+            observability=self.observability, admission=self.admission,
+            metrics=self.metrics)
         self.gateway = Gateway(self.store, metrics=self.metrics)
         if self.observability is not None:
             self.gateway.set_observability(self.observability)
+        if self.admission is not None:
+            self.gateway.set_admission(self.admission)
         retention = self.config.reaper_terminal_retention
         if retention is None:
             retention = DEFAULT_TERMINAL_RETENTION_S
@@ -156,6 +189,12 @@ class LocalPlatform:
         if autoscale is not None:
             self._attach_autoscaler(queue_name, dispatcher, autoscale,
                                     autoscale_interval)
+        elif self.admission is not None:
+            # The queue's limiter (delivery RTTs, backpressure backoffs)
+            # owns the fan-out. An autoscale policy wins: two control
+            # loops on one actuator would fight.
+            self.admission.add_target("dispatch:" + queue_name,
+                                      dispatcher.set_concurrency)
 
     def _attach_autoscaler(self, queue_name: str, dispatcher, policy,
                            interval: float) -> None:

@@ -47,7 +47,13 @@ they are device intervals; on the double-buffered path each batch stamps
 its own windows (batch N+1's h2d may start before batch N's d2h). A ledger
 that several requests of one batch share (a batch-API stack) gets that
 batch's events once. Nothing of this runs inside a captured graph.
-Deadlines are not ported (ROADMAP A18.5).
+
+Deadlines: ``submit(..., deadline_at=)`` (absolute unix seconds; 0.0 =
+none). An entry whose deadline passes while it waits is dropped at the
+batch cut, the last gate before the card: its await raises
+``DeadlineExceeded`` (hop ``batcher``, counted in
+``ai4e_admission_expired_total``) and the example is never padded into a
+batch.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..admission.deadline import DeadlineExceeded, priority_name
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
 from ..rollout.drain import DrainingError, retire_pending
 from .ladder import EXPOSITION_BUCKETS, exposition_buckets
@@ -80,6 +87,9 @@ class _Pending:
     future: asyncio.Future
     enqueued: float = field(default_factory=time.perf_counter)
     priority: int = 0  # 0 = interactive, higher = background
+    # Absolute deadline (unix seconds; 0.0 = none): past it the entry is
+    # dropped at the cut with DeadlineExceeded instead of batched.
+    deadline_at: float = 0.0
     # observability.HopLedger the worker passed; None stamps nothing.
     ledger: object = None
 
@@ -134,6 +144,9 @@ class MicroBatcher:
         self._d2h_bytes = self.metrics.counter(
             "ai4e_batch_d2h_bytes_total",
             "Device-to-host bytes fetched (batch outputs)")
+        self._expired_total = self.metrics.counter(
+            "ai4e_admission_expired_total",
+            "Requests dropped on deadline expiry, by hop/priority")
         self.measure_phases = measure_phases
         if measure_phases:
             self._phase_hist = self.metrics.histogram(
@@ -193,10 +206,14 @@ class MicroBatcher:
         return sum(len(v) for v in self._pending.values())
 
     async def submit(self, model_name: str, example: np.ndarray,
-                     priority: int = 0, ledger=None):
+                     priority: int = 0, deadline_at: float = 0.0,
+                     ledger=None):
         """Queue one example; resolves to its postprocessed result.
-        ``priority`` 0 is interactive, higher values background. ``ledger``
-        (an ``observability.HopLedger``) gets the batch cut and the device
+        ``priority`` 0 is interactive, higher values background.
+        ``deadline_at`` (absolute unix seconds, 0.0 none): still pending
+        when it passes, the await raises ``DeadlineExceeded`` at the next
+        cut and the example never reaches the card. ``ledger`` (an
+        ``observability.HopLedger``) gets the batch cut and the device
         phases this example rides."""
         if self._stop:
             raise RuntimeError("batcher stopped")
@@ -213,7 +230,8 @@ class MicroBatcher:
                 f"bad input shape {example.shape}, expected {expected}")
         fut = asyncio.get_running_loop().create_future()
         self._pending.setdefault(model_name, []).append(
-            _Pending(example, fut, priority=priority, ledger=ledger))
+            _Pending(example, fut, priority=priority,
+                     deadline_at=deadline_at, ledger=ledger))
         self._pending_gauge.set(self.pending_count)
         self._wakeup.set()
         return await fut
@@ -339,6 +357,9 @@ class MicroBatcher:
         queue = self._pending.get(model_name, [])
         if not queue:
             return [], 0
+        queue = self._sweep_expired(model_name, queue)
+        if not queue:
+            return [], 0
         ladder = tuple(self.runtime.models[model_name].batch_buckets)
         if self._ladders is not None:
             # The demand before clamping: observing the clamped cut would
@@ -360,6 +381,29 @@ class MicroBatcher:
         self._pending_gauge.set(self.pending_count)
         bucket = next((b for b in ladder if b >= take), ladder[-1])
         return batch, bucket
+
+    def _sweep_expired(self, model_name: str,
+                       queue: list[_Pending]) -> list[_Pending]:
+        """Drop the pending entries whose deadline passed while they
+        waited: their futures get ``DeadlineExceeded("batcher")``, so no
+        expired example reaches the card. Without an expired entry the
+        queue comes back as it was."""
+        now = time.time()
+        if not any(p.deadline_at and p.deadline_at <= now for p in queue):
+            return queue
+        live: list[_Pending] = []
+        for p in queue:
+            if (p.deadline_at and p.deadline_at <= now
+                    and not p.future.done()):
+                p.future.set_exception(
+                    DeadlineExceeded("batcher", p.deadline_at))
+                self._expired_total.inc(hop="batcher",
+                                        priority=priority_name(p.priority))
+            else:
+                live.append(p)
+        self._pending[model_name] = live
+        self._pending_gauge.set(self.pending_count)
+        return live
 
     # -- accounting --------------------------------------------------------
 

@@ -4,11 +4,11 @@ Counterpart of ``ai4e_tpu/runtime/families.py`` for the families this port
 serves so far: ``echo`` (the transport smoke API), ``unet`` (land-cover
 segmentation), ``resnet`` (species classification), ``detector`` (the
 camera-trap MegaDetector slot), each image family on the uint8 ``rgb8``
-wire, ``vit`` (image classification on float32 pixels), and ``seqformer``
-and ``moe`` (sequence classification, on the token-id or feature wire).
-The response contracts are the JAX package's, byte for byte. The
-compressed wires raise ``ValueError`` naming their ROADMAP item. The
-streaming LM (``seqformer-lm``) is not a batch family: ``cli.build_worker``
+wire or a compressed one (``yuv420``, ``dct``: ``ops/yuv.py``,
+``ops/dct.py``), ``vit`` (image classification on float32 pixels), and
+``seqformer`` and ``moe`` (sequence classification, on the token-id or
+feature wire). The response contracts are the JAX package's, byte for
+byte. The streaming LM (``seqformer-lm``) is not a batch family: ``cli.build_worker``
 serves it through ``runtime/kvcache.py`` and ``runtime/decode.py``.
 """
 
@@ -142,13 +142,17 @@ def build_unet(name: str = "landcover", tile: int = 256,
                buckets=IMAGE_BUCKETS, fused_postprocess: bool = True,
                return_classmap: bool = False, wire: str = "rgb8",
                **_) -> ServableModel:
-    """Land-cover segmentation on the fused ``rgb8`` path: clients ship
-    uint8 pixels, the card normalises them and reduces the logits to
-    per-class counts (``ops.normalize_image`` -> ``UNet`` ->
+    """Land-cover segmentation on the fused path: clients ship uint8
+    pixels, the card normalises them and reduces the logits to per-class
+    counts (``ops.normalize_image`` -> ``UNet`` ->
     ``ops.fused_seg_postprocess``), so only B*C int32 counts come back.
     ``return_classmap`` adds the class map as a base64 PNG (then the uint8
-    map comes back too). The weights are random, drawn from seed 0, until a
-    checkpoint is restored (``cli.restore_checkpoint``)."""
+    map comes back too). ``wire`` is the host->device encoding: ``rgb8``
+    (raw uint8 pixels, 3 B/px), ``yuv420`` (1.5 B/px) or ``dct`` (0.375
+    B/px), decoded on the card before the UNet in place of the normalise;
+    clients ship the same payloads on every wire. The weights are random,
+    drawn from seed 0, until a checkpoint is restored
+    (``cli.restore_checkpoint``)."""
     from ..convert import unet_flax_from_state_dict, unet_state_dict_from_flax
     from ..models import create_unet
     from ..ops import fused_seg_postprocess, normalize_image
@@ -161,10 +165,8 @@ def build_unet(name: str = "landcover", tile: int = 256,
     model = create_unet(generator=torch.Generator().manual_seed(0),
                         num_classes=num_classes, widths=tuple(widths),
                         device="cpu")
-
-    def apply_fn(module, batch):
-        return fused_seg_postprocess(module(normalize_image(batch)),
-                                     with_classmap=return_classmap)
+    converters = dict(state_dict_from_flax=unet_state_dict_from_flax,
+                      flax_from_state_dict=unet_flax_from_state_dict)
 
     def postprocess(out):
         counts = np.asarray(out["counts"])
@@ -175,27 +177,105 @@ def build_unet(name: str = "landcover", tile: int = 256,
                 np.asarray(out["classmap"]))
         return result
 
+    def on_normalized(module, x):
+        return fused_seg_postprocess(module(x), with_classmap=return_classmap)
+
+    if wire != "rgb8":
+        return _WIRES[wire](name, model, on_normalized, tile, tile,
+                            postprocess, buckets, converters)
+
     return ServableModel(
-        name=name, apply_fn=apply_fn, module=model,
-        input_shape=(tile, tile, 3), input_dtype=np.uint8,
+        name=name,
+        apply_fn=lambda module, batch: on_normalized(module,
+                                                     normalize_image(batch)),
+        module=model, input_shape=(tile, tile, 3), input_dtype=np.uint8,
         preprocess=_image_preprocess((tile, tile, 3), np.uint8),
-        postprocess=postprocess, batch_buckets=tuple(buckets),
-        state_dict_from_flax=unet_state_dict_from_flax,
-        flax_from_state_dict=unet_flax_from_state_dict)
+        postprocess=postprocess, batch_buckets=tuple(buckets), **converters)
 
 
 def _check_wire(wire: str, fused: bool, fused_flag: str) -> None:
-    """The JAX package's wire validation for the image families (an
+    """The JAX package's wire validation for the image families: an
     unknown wire, or a compressed wire without the fused ingestion it
-    needs, fails at build time), then the port's refusal of the
-    compressed wires."""
+    replaces (the wire's decode IS the fused ingestion), fails at build
+    time."""
     if wire not in ("rgb8", "yuv420", "dct"):
         raise ValueError(f"wire must be rgb8|yuv420|dct, got {wire!r}")
     if wire in ("yuv420", "dct") and not fused:
         raise ValueError(f"wire={wire!r} requires {fused_flag}=True")
-    if wire != "rgb8":
-        raise ValueError(f"wire={wire!r} is not ported yet (ROADMAP A9); "
-                         "serve wire='rgb8'")
+
+
+def _yuv_servable(name: str, module, apply_on_normalized, h: int, w: int,
+                  postprocess, buckets, converters: dict) -> ServableModel:
+    """YUV 4:2:0 wire servable for an (H, W, 3) model whose
+    ``apply_on_normalized(module, x)`` takes [0, 1] float32 RGB: clients
+    ship the usual image/npy payloads, the host converts them to planar
+    4:2:0 (half the bytes of raw uint8 RGB), the card decodes them inside
+    the bucket's CUDA graph before the model (``ops/yuv.py``)."""
+    from ..ops.yuv import (rgb_to_yuv420, yuv420_nbytes, yuv420_to_rgb,
+                           yuv420_to_rgb_numpy)
+
+    if h % 2 or w % 2:
+        # At build time: an odd size would build and then fail every
+        # request in preprocess.
+        raise ValueError(f"wire='yuv420' needs even dims, got {h}x{w}")
+    rgb_pre = _image_preprocess((h, w, 3), np.uint8)
+
+    def preprocess(body: bytes, content_type: str):
+        return rgb_to_yuv420(rgb_pre(body, content_type))
+
+    def apply_fn(module, batch):
+        return apply_on_normalized(module, yuv420_to_rgb(batch, h, w))
+
+    return ServableModel(
+        name=name, apply_fn=apply_fn, module=module,
+        input_shape=(yuv420_nbytes(h, w),), input_dtype=np.uint8,
+        preprocess=preprocess, postprocess=postprocess,
+        batch_buckets=tuple(buckets),
+        # Batch stacks keep shipping (N, H, W, 3); each item becomes planes
+        # at ingestion (serve_batch).
+        stack_item_shape=(h, w, 3), stack_item_dtype=np.uint8,
+        stack_adapter=rgb_to_yuv420,
+        # Host consumers of the preprocessed example (a crops handoff
+        # cropping this stage's input) get the RGB image back.
+        example_decoder=lambda flat: yuv420_to_rgb_numpy(flat, h, w),
+        **converters)
+
+
+def _dct_servable(name: str, module, apply_on_normalized, h: int, w: int,
+                  postprocess, buckets, converters: dict) -> ServableModel:
+    """DCT-truncation wire servable (``ops/dct.py``): the host packs
+    quantised KxK DCT coefficients (int8, 0.375 B/px), the card
+    dequantises and inverts them inside the bucket's CUDA graph before the
+    model. Its products are float32 because ``ModelRuntime`` switches TF32
+    off on the card; in TF32 (about three decimal digits) the decoded
+    pixels would drift by whole levels. Same construction contract as
+    ``_yuv_servable``."""
+    from ..ops.dct import dct_nbytes, dct_to_rgb, dct_to_rgb_numpy, rgb_to_dct
+
+    if h % 16 or w % 16:
+        # At build time (8-px luma blocks x 2x chroma subsampling).
+        raise ValueError(f"wire='dct' needs dims divisible by 16, "
+                         f"got {h}x{w}")
+    rgb_pre = _image_preprocess((h, w, 3), np.uint8)
+
+    def preprocess(body: bytes, content_type: str):
+        return rgb_to_dct(rgb_pre(body, content_type))
+
+    def apply_fn(module, batch):
+        return apply_on_normalized(module, dct_to_rgb(batch, h, w))
+
+    return ServableModel(
+        name=name, apply_fn=apply_fn, module=module,
+        input_shape=(dct_nbytes(h, w),), input_dtype=np.int8,
+        preprocess=preprocess, postprocess=postprocess,
+        batch_buckets=tuple(buckets),
+        stack_item_shape=(h, w, 3), stack_item_dtype=np.uint8,
+        stack_adapter=rgb_to_dct,
+        example_decoder=lambda flat: dct_to_rgb_numpy(flat, h, w),
+        **converters)
+
+
+_WIRES = {"yuv420": _yuv_servable, "dct": _dct_servable}
 
 
 def _maybe_fused_uint8(apply_fn, fused: bool):
@@ -220,7 +300,9 @@ def build_resnet(name: str = "classifier", image_size: int = 224,
                  wire: str = "rgb8", **_) -> ServableModel:
     """Batched species classification. With ``fused_normalize`` (the
     default) clients ship uint8 pixels and the card scales them to [0, 1]
-    before the ResNet. The response is ``{"class_id", "label",
+    before the ResNet; a compressed ``wire`` (``yuv420``, ``dct``) decodes
+    to [0, 1] on the card instead, and batch stacks and crops handoffs
+    keep shipping (N, H, W, 3), each item encoded at ingestion. The response is ``{"class_id", "label",
     "confidence"}``, the label ``str(class_id)`` without ``labels``. The
     weights are random, drawn from seed 0, until a checkpoint is
     restored."""
@@ -242,6 +324,13 @@ def build_resnet(name: str = "classifier", image_size: int = 224,
                 "label": labels[top] if labels else str(top),
                 "confidence": float(probs[top])}
 
+    converters = dict(state_dict_from_flax=resnet_state_dict_from_flax,
+                      flax_from_state_dict=resnet_flax_from_state_dict)
+    if wire != "rgb8":
+        return _WIRES[wire](name, model, lambda module, x: module(x),
+                            image_size, image_size, postprocess, buckets,
+                            converters)
+
     apply_fn, input_dtype = _maybe_fused_uint8(
         lambda module, batch: module(batch), fused_normalize)
     return ServableModel(
@@ -249,9 +338,7 @@ def build_resnet(name: str = "classifier", image_size: int = 224,
         input_shape=(image_size, image_size, 3), input_dtype=input_dtype,
         preprocess=_image_preprocess((image_size, image_size, 3),
                                      input_dtype),
-        postprocess=postprocess, batch_buckets=tuple(buckets),
-        state_dict_from_flax=resnet_state_dict_from_flax,
-        flax_from_state_dict=resnet_flax_from_state_dict)
+        postprocess=postprocess, batch_buckets=tuple(buckets), **converters)
 
 
 def build_detector(name: str = "megadetector", image_size: int = 512,
@@ -260,8 +347,8 @@ def build_detector(name: str = "megadetector", image_size: int = 512,
                    fused_normalize: bool = True, wire: str = "rgb8",
                    **_) -> ServableModel:
     """Camera-trap detection. The card runs normalize (with
-    ``fused_normalize``), the CenterNet and its decode to
-    ``max_detections`` rows; the response lists the rows scoring at least
+    ``fused_normalize``; a compressed ``wire``'s decode in its place), the
+    CenterNet and its decode to ``max_detections`` rows; the response lists the rows scoring at least
     ``score_threshold``, best first: ``{"detections": [{"box": [y0, x0,
     y1, x1], "score", "class_id"}, ...]}``. The weights are random, drawn
     from seed 0, until a checkpoint is restored."""
@@ -285,15 +372,19 @@ def build_detector(name: str = "megadetector", image_size: int = 512,
              "class_id": int(np.asarray(out["classes"])[i])}
             for i in np.nonzero(keep)[0]]}
 
+    converters = dict(state_dict_from_flax=detector_state_dict_from_flax,
+                      flax_from_state_dict=detector_flax_from_state_dict)
+    if wire != "rgb8":
+        return _WIRES[wire](name, model, raw_apply, image_size, image_size,
+                            postprocess, buckets, converters)
+
     apply_fn, input_dtype = _maybe_fused_uint8(raw_apply, fused_normalize)
     return ServableModel(
         name=name, apply_fn=apply_fn, module=model,
         input_shape=(image_size, image_size, 3), input_dtype=input_dtype,
         preprocess=_image_preprocess((image_size, image_size, 3),
                                      input_dtype),
-        postprocess=postprocess, batch_buckets=tuple(buckets),
-        state_dict_from_flax=detector_state_dict_from_flax,
-        flax_from_state_dict=detector_flax_from_state_dict)
+        postprocess=postprocess, batch_buckets=tuple(buckets), **converters)
 
 
 def _classification_postprocess():

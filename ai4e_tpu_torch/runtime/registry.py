@@ -34,7 +34,8 @@ in the reference, and cuDNN would otherwise run it in TF32 (about three
 decimal digits), which can flip the argmax of close logits. Likewise for
 cuBLAS: no TF32 for float32 products, and bfloat16 products reduce in
 float32 (PyTorch lets cuBLAS reduce them in bfloat16 by default), as XLA's
-do.
+do. The dct wire's inverse DCT (two float32 products per block, inside the
+bucket's graph) relies on this: in TF32 its pixels would drift.
 """
 
 from __future__ import annotations
@@ -90,7 +91,8 @@ class ServableModel:
       and out-of-range ids there); ``example_decoder`` turns a
       preprocessed example back into the natural image for host consumers
       such as a crops handoff. The adapter and decoder belong to the
-      compressed wires (ROADMAP A9) and stay None until they are ported.
+      compressed wires (``yuv420``, ``dct``); the rgb8 wire leaves them
+      None.
     """
 
     name: str
@@ -186,6 +188,8 @@ class ModelRuntime:
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             torch.backends.cudnn.allow_tf32 = False
+            # Load-bearing beyond the head conv: the dct wire's IDCT
+            # products are float32 matmuls captured in the bucket graphs.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
             # Batches execute (and graphs are captured) on one stream; the

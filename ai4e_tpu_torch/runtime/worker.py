@@ -50,6 +50,16 @@ batch-API stack shares one ledger across its items, which the batcher
 stamps once a batch (JAX's batch API stamps nothing). A flush that fails
 is dropped: a timeline is lost, never a task.
 
+Deadlines (admission, as in JAX): a request's ``X-Deadline-At`` (stamped
+by the dispatcher or the sync proxy) or ``X-Deadline-Ms`` (a direct
+caller) and ``X-Priority`` ride into the batcher or the decode engine. The
+worker is the last hop before the card: work already expired answers 504
+on the sync path and turns terminal ``expired`` on the async and stream
+paths without being queued, and work that expires while queued is dropped
+there (``DeadlineExceeded``) and ends the same way; each drop counts in
+``ai4e_admission_expired_total{hop}``. An unlabelled direct request is
+interactive, as it always was.
+
 The admin key gate and result-cache invalidation are not ported (ROADMAP
 A18.4, A18.6).
 """
@@ -67,6 +77,9 @@ import time
 import numpy as np
 from aiohttp import web
 
+from ..admission.deadline import (SHED_REASON_HEADER, DeadlineExceeded,
+                                  expired, expired_status, priority_name,
+                                  shed_reason, worker_admission_kwargs)
 from ..checkpoint import CONVERTER_HINT, is_npz, load_params
 from ..metrics import MetricsRegistry
 from ..observability.ledger import CHUNK, RETRY, HopLedger
@@ -74,17 +87,25 @@ from ..rollout.drain import DRAINING_HEADER, DrainingError, DrainState, \
     drain_worker
 from ..service import APIService
 from ..service.task_manager import TaskManagerBase
+from ..taskstore import TaskStatus
 from .batcher import BatcherSaturated, MicroBatcher
 from .decode import DecodeSaturated
 from .registry import ModelRuntime, ServableModel
 
 log = logging.getLogger("ai4e_tpu_torch.worker")
 
-#: ``X-Shed-Reason`` of a draining worker's refusals, as the JAX worker's.
-SHED_REASON_HEADER = "X-Shed-Reason"
+#: A draining worker's refusal, as the JAX worker's.
 DRAINING_REFUSAL = (503, "Worker draining; retry a peer.",
                     {"Retry-After": "1", DRAINING_HEADER: "1",
-                     SHED_REASON_HEADER: "draining at worker"})
+                     SHED_REASON_HEADER: shed_reason("worker", "draining")})
+
+
+async def _request_kwargs(request) -> dict:
+    """The endpoints' keyword arguments: the body, its content type and
+    the request's deadline and class (``worker_admission_kwargs``)."""
+    return {"body": await request.read(),
+            "content_type": request.content_type,
+            **worker_admission_kwargs(request.headers)}
 
 
 class InferenceWorker:
@@ -123,6 +144,11 @@ class InferenceWorker:
         self._drain_gauge = self.service.metrics.gauge(
             "ai4e_rollout_drain_state",
             "Worker drain state (0 active, 1 draining, 2 drained)")
+        # Deadline drops at the submit hop; the batcher and the decode
+        # engine count theirs in the same family.
+        self._expired_total = self.service.metrics.counter(
+            "ai4e_admission_expired_total",
+            "Requests dropped on deadline expiry, by hop/priority")
         router, base = self.service.app.router, self.service.prefix
         router.add_get(base + "/models", self._list_models)
         router.add_post(base + "/models/{name}/reload", self._reload_model)
@@ -315,11 +341,23 @@ class InferenceWorker:
 
         @self.service.api_sync_func(
             sync_path, maximum_concurrent_requests=maximum_concurrent_requests,
-            admission_check=_saturation_check)
-        async def _sync(body, content_type, _name=name, _servable=servable):
+            admission_check=_saturation_check,
+            request_processing_function=_request_kwargs)
+        async def _sync(body, content_type, deadline_at=0.0, priority=0,
+                        _name=name, _servable=servable):
+            if expired(deadline_at):
+                # The budget is already spent: 504 now, no result the
+                # caller stopped waiting for.
+                self._note_expired(priority)
+                return web.Response(
+                    status=504, text="Deadline exceeded before execution.",
+                    headers={SHED_REASON_HEADER:
+                             shed_reason("worker", "deadline")})
             example = _servable.preprocess(body, content_type)
             try:
-                result = await self.batcher.submit(_name, np.asarray(example))
+                result = await self.batcher.submit(
+                    _name, np.asarray(example), priority=priority,
+                    deadline_at=deadline_at)
             except BatcherSaturated:
                 return web.Response(status=503,
                                     text="Inference queue saturated; retry.",
@@ -330,15 +368,28 @@ class InferenceWorker:
                 return web.Response(
                     status=503, text="Worker draining; retry a peer.",
                     headers={"Retry-After": "1", DRAINING_HEADER: "1"})
+            except DeadlineExceeded as exc:
+                return web.Response(
+                    status=504, text="Deadline exceeded while queued.",
+                    headers={SHED_REASON_HEADER:
+                             shed_reason(exc.hop, "deadline")})
             return _jsonable(result)
 
         @self.service.api_async_func(
             async_path, maximum_concurrent_requests=maximum_concurrent_requests,
-            admission_check=_saturation_check)
-        async def _async(taskId, body, content_type, _name=name,
-                         _servable=servable):
+            admission_check=_saturation_check,
+            request_processing_function=_request_kwargs)
+        async def _async(taskId, body, content_type, deadline_at=0.0,
+                         priority=0, _name=name, _servable=servable):
             tm = self.service.task_manager
             buf = HopLedger() if self.hop_ledger else None
+            if expired(deadline_at):
+                # Terminal ``expired``, never queued; the dispatcher takes
+                # the 200 as delivered.
+                self._note_expired(priority)
+                await tm.update_task_status(
+                    taskId, expired_status("worker"), TaskStatus.EXPIRED)
+                return
             await tm.update_task_status(taskId, f"running - {_name} inference")
             try:
                 example = _servable.preprocess(body, content_type)
@@ -346,8 +397,16 @@ class InferenceWorker:
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
             try:
-                result = await self.batcher.submit(_name, np.asarray(example),
-                                                   **_ledger_kw(buf))
+                result = await self.batcher.submit(
+                    _name, np.asarray(example), priority=priority,
+                    deadline_at=deadline_at, **_ledger_kw(buf))
+            except DeadlineExceeded as exc:
+                # Expired while queued (the batcher counted it): the
+                # terminal transition only.
+                await self._flush_ledger(tm, taskId, buf)
+                await tm.update_task_status(
+                    taskId, expired_status(exc.hop), TaskStatus.EXPIRED)
+                return
             except (BatcherSaturated, DrainingError) as exc:
                 # Saturated, or retired by a drain, between admission and
                 # the cut: hand the task back to the broker (a republish
@@ -404,6 +463,9 @@ class InferenceWorker:
             await self._store_result(
                 taskId, json.dumps(_jsonable(result)).encode())
             await tm.complete_task(taskId, f"completed - {_summarise(result)}")
+
+    def _note_expired(self, priority: int) -> None:
+        self._expired_total.inc(hop="worker", priority=priority_name(priority))
 
     async def _flush_ledger(self, tm, task_id: str, buf) -> None:
         """Ship a request's buffered hop-ledger events to the store in one
@@ -606,10 +668,17 @@ class InferenceWorker:
 
         @self.service.api_async_func(
             async_path, maximum_concurrent_requests=maximum_concurrent_requests,
-            admission_check=_saturation_check)
-        async def _stream(taskId, body, content_type, _name=name):
+            admission_check=_saturation_check,
+            request_processing_function=_request_kwargs)
+        async def _stream(taskId, body, content_type, deadline_at=0.0,
+                          priority=0, _name=name):
             tm = self.service.task_manager
             buf = HopLedger() if self.hop_ledger else None
+            if expired(deadline_at):
+                self._note_expired(priority)
+                await tm.update_task_status(
+                    taskId, expired_status("worker"), TaskStatus.EXPIRED)
+                return
             try:
                 prompt, max_new = _parse(body)
             except (ValueError, json.JSONDecodeError) as exc:
@@ -629,7 +698,16 @@ class InferenceWorker:
 
             try:
                 tokens = await engine.submit(prompt, max_new,
-                                             on_token=on_token, ledger=buf)
+                                             on_token=on_token,
+                                             priority=priority,
+                                             deadline_at=deadline_at,
+                                             ledger=buf)
+            except DeadlineExceeded as exc:
+                # Retired by the engine's sweep (which counted it).
+                await self._flush_ledger(tm, taskId, buf)
+                await tm.update_task_status(
+                    taskId, expired_status(exc.hop), TaskStatus.EXPIRED)
+                return
             except (DecodeSaturated, DrainingError) as exc:
                 # Saturated between admission and submit, or retired by a
                 # drain: hand the task back to the broker; a peer decodes

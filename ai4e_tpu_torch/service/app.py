@@ -2,7 +2,10 @@
 ``ai4e_tpu/service/app.py`` without cross-replica reporting.
 
 - ``api_sync_func`` / ``api_async_func`` register endpoints with
-  per-endpoint concurrency caps and content-type and max-length limits;
+  per-endpoint concurrency caps and content-type and max-length limits; a
+  ``request_processing_function(request)`` turns the request into the
+  user function's keyword arguments (by default ``body`` and
+  ``content_type``; None answers 400);
 - a request over the endpoint's cap gets **503** with ``Retry-After``, so a
   dispatcher backs off and redelivers;
 - async endpoints create or adopt a task (reusing the ``taskId`` header
@@ -56,6 +59,9 @@ class EndpointSpec:
     # headers]) to refuse the request, None to admit. The worker uses it to
     # 503 when the batcher is saturated, before a task is adopted.
     admission_check: Callable | None = None
+    # request -> the user function's keyword arguments (may be a
+    # coroutine); None: body and content_type.
+    request_processing_function: Callable | None = None
     # Mutated only from the event loop with no await between check and
     # increment: that single-threadedness is the synchronization.
     in_flight: int = 0
@@ -107,7 +113,7 @@ class APIService:
     def _api_func(self, api_path: str, methods, is_async: bool,
                   maximum_concurrent_requests: int = 8,
                   content_types=(), content_max_length: int = 0,
-                  admission_check=None):
+                  admission_check=None, request_processing_function=None):
         def deco(func):
             spec = EndpointSpec(
                 func=func,
@@ -118,6 +124,7 @@ class APIService:
                 content_types=tuple(content_types),
                 content_max_length=content_max_length,
                 admission_check=admission_check,
+                request_processing_function=request_processing_function,
             )
             self.endpoints[spec.api_path] = spec
             for method in spec.methods:
@@ -170,8 +177,17 @@ class APIService:
 
             released_to_background = False
             try:
-                kwargs = {"body": await request.read(),
-                          "content_type": request.content_type}
+                if spec.request_processing_function is not None:
+                    kwargs = spec.request_processing_function(request)
+                    if asyncio.iscoroutine(kwargs):
+                        kwargs = await kwargs
+                    if kwargs is None:
+                        self._http_total.inc(code="400", path=spec.api_path)
+                        return web.Response(
+                            status=400, text="Unable to process request data.")
+                else:
+                    kwargs = {"body": await request.read(),
+                              "content_type": request.content_type}
                 if spec.is_async:
                     resp = await self._run_async(spec, request, kwargs)
                     released_to_background = True  # _execute_async releases

@@ -96,6 +96,14 @@ SERVED_DECODE_KNOBS = [
         "kv_slots", "kv_max_len")]
 
 
+#: Admission control's knobs (ROADMAP A18.5): the port serves them, so
+#: each set away from its default parses as JAX's does.
+SERVED_ADMISSION_KNOBS = [
+    ("AI4E_PLATFORM_", f) for f in (
+        "admission", "admission_min_limit", "admission_max_limit",
+        "admission_initial_limit", "admission_max_backlog")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -118,7 +126,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(port_config.UNPORTED, "unported"))
          + list(off_default_cases(SERVED_RUNTIME_KNOBS, "same"))
          + list(off_default_cases(SERVED_OBSERVABILITY_KNOBS, "same"))
-         + list(off_default_cases(SERVED_DECODE_KNOBS, "same")))
+         + list(off_default_cases(SERVED_DECODE_KNOBS, "same"))
+         + list(off_default_cases(SERVED_ADMISSION_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -164,6 +173,9 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_SLO_OBJECTIVES": "/v1/a=250:99,/v1/a=goodput:99.9"},
     {"AI4E_OBSERVABILITY_QUEUE_DEPTH_INTERVAL": "0.5"},
     {"AI4E_OBSERVABILITY_PROCESS_DEPTH_INTERVAL": "2"},
+    {"AI4E_PLATFORM_ADMISSION": "1"},
+    {"AI4E_PLATFORM_ADMISSION_INITIAL_LIMIT": "4"},
+    {"AI4E_PLATFORM_ADMISSION_MAX_BACKLOG": "64"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -180,8 +192,9 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     ladder stays there, naming orchestration's item."""
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
-    assert len(port_config.UNPORTED) == 87
+    assert len(port_config.UNPORTED) == 82
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(

@@ -564,7 +564,7 @@ class TestSaturation:
             headers["taskId"] = worker.store.upsert(PortTask(
                 task_id="", endpoint="/v1/echo/run-async", body=body)).task_id
 
-        async def saturated(*_args):
+        async def saturated(*_args, **_kwargs):
             raise BatcherSaturated("full")
 
         batcher.submit = saturated

@@ -317,5 +317,16 @@ class TestServable:
 
     @pytest.mark.parametrize("wire", ["yuv420", "dct"])
     def test_compressed_wires_name_their_item(self, wire):
-        with pytest.raises(ValueError, match=f"{wire}.*ROADMAP A9"):
-            build_servable("detector", image_size=64, widths=SMALL, wire=wire)
+        """The compressed wires (ROADMAP A9) serve: the wire's bytes are
+        the input, and a size the wire cannot encode is refused at build
+        time, naming the wire."""
+        from ai4e_tpu_torch.ops.dct import dct_nbytes
+        from ai4e_tpu_torch.ops.yuv import yuv420_nbytes
+
+        servable = build_servable("detector", image_size=64, widths=SMALL,
+                                  wire=wire)
+        nbytes = yuv420_nbytes if wire == "yuv420" else dct_nbytes
+        assert servable.input_shape == (nbytes(64, 64),)
+        with pytest.raises(ValueError, match=f"wire='{wire}' needs"):
+            build_servable("detector", image_size=63 if wire == "yuv420"
+                           else 72, widths=SMALL, wire=wire)

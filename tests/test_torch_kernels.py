@@ -709,3 +709,71 @@ class TestMoELayerOnCard:
         assert torch.equal(got_y, want_y)
         assert set(want_top.unique().tolist()) == set(range(8))
         assert bool((want_y == 0).all(-1).any())  # some tokens dropped
+
+
+@pytest.mark.cuda
+class TestWireDecodeOnCard:
+    @pytest.mark.parametrize("wire,size", [("yuv420", 256), ("dct", 256),
+                                           ("yuv420", 512), ("dct", 224)])
+    def test_decode_in_a_cuda_graph_equals_eager(self, cuda, wire, size):
+        """The compressed wires' decode (plain PyTorch ops, no kernel of
+        its own) captured in a CUDA graph: the replay equals an eager run
+        bit for bit, on the card's own tables."""
+        from ai4e_tpu_torch.ops import dct, yuv
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rng = np.random.default_rng(size)
+        imgs = rng.integers(0, 256, (4, size, size, 3), np.uint8)
+        encode, decode = {"yuv420": (yuv.rgb_to_yuv420, yuv.yuv420_to_rgb),
+                          "dct": (dct.rgb_to_dct, dct.dct_to_rgb)}[wire]
+        flat = torch.from_numpy(np.stack([encode(x) for x in imgs])).to(cuda)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            want = decode(flat, size, size)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = decode(flat, size, size)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert got.shape == (4, size, size, 3) and got.dtype == torch.float32
+        assert torch.equal(got, want)
+        # And against the same decode on the CPU: float32 throughout (no
+        # TF32 in the inverse DCT's products).
+        host = decode(flat.cpu(), size, size)
+        assert float((got.cpu() - host).abs().max()) <= 1e-5
+
+    @pytest.mark.parametrize("wire", ["yuv420", "dct"])
+    def test_wire_servable_replay_counts_the_argmax_kernel(self, cuda, wire):
+        """A land-cover wire servable on the runtime: the bucket's graph
+        (decode, UNet, the argmax kernel) replays what an eager apply
+        gives (each class within 1% of the tile's pixels, as
+        ``chip_smoke.py`` phase 4 holds land cover: cuDNN may pick another
+        algorithm under capture), and each replay adds the argmax kernel's
+        launch."""
+        from ai4e_tpu_torch import ops
+        from ai4e_tpu_torch.ops import dct, yuv
+        from ai4e_tpu_torch.runtime.families import build_servable
+        from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+        runtime = ModelRuntime(device="cuda")
+        servable = runtime.register(build_servable(
+            "unet", name="lc", tile=64, widths=[8, 16], num_classes=4,
+            buckets=(2,), wire=wire))
+        encode = {"yuv420": yuv.rgb_to_yuv420, "dct": dct.rgb_to_dct}[wire]
+        imgs = np.random.default_rng(1).integers(0, 256, (2, 64, 64, 3),
+                                                 np.uint8)
+        batch = np.stack([encode(x) for x in imgs])
+        runtime.warmup()
+        before = ops.launch_counts()["fused_seg_postprocess"]
+        got = runtime.run_batch("lc", batch)
+        assert ops.launch_counts()["fused_seg_postprocess"] == before + 1
+        with torch.inference_mode():
+            want = servable.apply_fn(servable.module,
+                                     torch.from_numpy(batch).to(cuda))
+        diff = np.abs(got["counts"].astype(np.int64)
+                      - want["counts"].cpu().numpy().astype(np.int64))
+        assert diff.max() <= 0.01 * 64 * 64, diff
+        assert (got["counts"].sum(-1) == 64 * 64).all()
+        assert "normalize_image" not in runtime.graphs[("lc", 2)].launches

@@ -295,6 +295,18 @@ class TestServable:
 
     @pytest.mark.parametrize("wire,item", [("yuv420", "A9"), ("dct", "A9")])
     def test_compressed_wires_name_their_item(self, wire, item):
-        with pytest.raises(ValueError, match=f"{wire}.*ROADMAP {item}"):
-            build_servable("resnet", image_size=32, stage_sizes=(1,),
-                           width=8, num_classes=4, wire=wire)
+        """The compressed wires, ported under ROADMAP ``item``, build as
+        JAX's do: the wire's byte layout as the input, uint8 stacks, and a
+        size the wire cannot encode refused at build time, naming it."""
+        servable = build_servable("resnet", image_size=32, stage_sizes=(1,),
+                                  width=8, num_classes=4, wire=wire)
+        want = jax_build_resnet(image_size=32, stage_sizes=(1,), width=8,
+                                num_classes=4, wire=wire)
+        assert servable.input_shape == want.input_shape
+        assert np.dtype(servable.input_dtype) == np.dtype(want.input_dtype)
+        assert servable.stack_item_shape == want.stack_item_shape == (32, 32,
+                                                                      3)
+        with pytest.raises(ValueError, match=f"wire='{wire}' needs"):
+            build_servable("resnet", image_size=30 if wire == "dct" else 31,
+                           stage_sizes=(1,), width=8, num_classes=4,
+                           wire=wire)

@@ -131,13 +131,12 @@ def submit_many(batcher, n, size=4):
 
 class TestBatcher:
     def test_default_metric_set_is_jax_s(self):
-        """The default batcher registers JAX's default set, but for the
-        deadline counter: admission (ROADMAP A18.5) is not ported."""
+        """The default batcher registers JAX's default set, the deadline
+        counter of admission's batch-cut drops among it."""
         port, ref = MetricsRegistry(), JaxMetrics()
         b = MicroBatcher(port_runtime("echo", **ECHO)[0], metrics=port)
         JaxBatcher(jax_runtime("echo", **ECHO)[0], metrics=ref)
-        assert set(port._metrics) == \
-            set(ref._metrics) - {"ai4e_admission_expired_total"}
+        assert set(port._metrics) == set(ref._metrics)
         assert b.pipeline_depth == 2 and len(b._executor._threads) == 0
         assert b._executor._max_workers == 2
 

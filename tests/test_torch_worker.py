@@ -281,11 +281,9 @@ class TestServing:
         assert "ai4e_device_phase_seconds" not in metrics
 
 
-#: Metric families of the JAX worker whose features the port lacks:
-#: admission's deadline drops (ROADMAP A18.5) and the per-generation
-#: rollout series (A6.3's rollout generation).
-UNPORTED_METRICS = {"ai4e_admission_expired_total",
-                    "ai4e_rollout_outcomes_total",
+#: Metric families of the JAX worker whose features the port lacks: the
+#: per-generation rollout series (A6.3's rollout generation).
+UNPORTED_METRICS = {"ai4e_rollout_outcomes_total",
                     "ai4e_rollout_request_seconds"}
 ECHO_SPEC = {"service_name": "w", "prefix": "v1/models", "models": [
     {"family": "echo", "name": "echo", "sync_path": "/e",
@@ -368,10 +366,12 @@ def control_plane_of(api: dict, **env):
 
 class TestUnported:
     @pytest.mark.parametrize("build,match", [
-        (worker_of(landcover_spec(wire="yuv420")),
-         r"'yuv420' is not ported yet \(ROADMAP A9"),
-        (worker_of(landcover_spec(wire="dct")),
-         r"'dct' is not ported yet \(ROADMAP A9"),
+        # The compressed wires serve (ROADMAP A9); a tile they cannot
+        # encode raises at build time, naming the wire.
+        (worker_of(landcover_spec(wire="yuv420", tile=33)),
+         r"wire='yuv420' needs even dims, got 33x33"),
+        (worker_of(landcover_spec(wire="dct", tile=40)),
+         r"wire='dct' needs dims divisible by 16, got 40x40"),
         (worker_of(landcover_spec(checkpoint="landcover")),
          r"is not a \.npz: .*scripts/orbax_to_npz\.py SRC DST\.npz"),
         (control_plane_of({"backends": [{"uri": "http://w/v1/x",
