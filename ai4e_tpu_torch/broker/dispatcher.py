@@ -24,15 +24,24 @@ of the span that published the task (the message's ``trace_headers``);
 its B3 headers go on the backend POST, so the worker's endpoint span is
 its child. With the observability hub it stamps the hop ledger where JAX's
 does on this path: ``popped``, ``expired``, ``delivered``,
-``backpressure`` and ``dead_letter``. Not ported (ROADMAP A18): the result
-cache, resilience and orchestration (their ``duplicate``, ``retry``,
-``failover``, ``placed`` and ``probe`` stamps, and the breaker's backoff
-of the admission limiter), weighted backends and tenancy accounting.
+``backpressure`` and ``dead_letter``.
+
+With a result cache (and a ``result_store`` to put the payload in), a
+message whose task carries a cache key is checked against the cache before
+the backend POST: a redelivery or requeue whose identical request already
+completed finishes here, ``completed - served from cache``, without
+reaching the card (``dispatch_total{outcome="cache_hit"}``).
+
+Not ported (ROADMAP A18): resilience and orchestration (their
+``duplicate``, ``retry``, ``failover``, ``placed`` and ``probe`` stamps,
+and the breaker's backoff of the admission limiter), weighted backends and
+tenancy accounting.
 """
 
 from __future__ import annotations
 
 import asyncio
+import inspect
 import logging
 import time
 from urllib.parse import urlparse
@@ -80,7 +89,8 @@ class Dispatcher:
                  backend_uri: str, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
                  observability=None, admission=None,
-                 metrics: MetricsRegistry | None = None):
+                 metrics: MetricsRegistry | None = None,
+                 result_cache=None, result_store=None):
         self.broker = broker
         self.queue_name = queue_name
         self.route_path = base_queue_name(queue_name)
@@ -94,6 +104,12 @@ class Dispatcher:
         # Admission controller: None feeds no limiter. Deadline drops need
         # none: any message carrying a deadline is honoured.
         self.admission = admission
+        # Result cache (rescache/): a message with a cache key whose
+        # identical request already completed finishes from the cache; its
+        # payload goes to ``result_store`` (anything with ``set_result``),
+        # so the client's result fetch works as on the execute path.
+        self.result_cache = result_cache
+        self.result_store = result_store
         # Spans land in this dispatcher's registry; exporter and sampling
         # follow configure_tracer live.
         self.tracer = Tracer("dispatcher", metrics=self.metrics)
@@ -199,6 +215,8 @@ class Dispatcher:
                     reason=f"delivery {msg.delivery_count}")
         if await self._drop_expired(msg):
             return
+        if await self._complete_from_cache(msg):
+            return
         target = rebase_endpoint(msg.endpoint, self.route_path,
                                  self.backend_uri)
         backend = urlparse(target).netloc
@@ -296,6 +314,58 @@ class Dispatcher:
                                TaskStatus.EXPIRED)
         return True
 
+    async def _complete_from_cache(self, msg: Message) -> bool:
+        """Serve the task from the result cache instead of dispatching, when
+        its identical request already completed: the redeliveries and
+        requeues the gateway's own lookup cannot see. A bypassed request
+        carries no key and always dispatches. True when served (or found a
+        duplicate of a finished task)."""
+        key = msg.cache_key
+        if self.result_cache is None or not key:
+            return False
+        # count=False: the gateway counted this request's outcome; this
+        # path counts as dispatch_total{outcome="cache_hit"}.
+        found = self.result_cache.get(key, count=False)
+        if found is None:
+            return False
+        # task_manager is None only in tests of the result path.
+        if (self.task_manager is not None
+                and await self.task_manager.is_terminal(msg.task_id)):
+            # A redelivery of a finished task must not write a second
+            # completion over the first.
+            self.broker.complete(msg)
+            self._dispatched.inc(outcome="duplicate", queue=self.queue_name,
+                                 backend="")
+            return True
+        if self.result_store is None:
+            # Nowhere to put the payload: a terminal task whose result
+            # fetch returns nothing would be a lost output. Dispatch.
+            return False
+        payload, ctype = found
+        try:
+            res = self.result_store.set_result(msg.task_id, payload,
+                                               content_type=ctype)
+            if inspect.isawaitable(res):
+                await res
+        except Exception:  # noqa: BLE001 — a lost result is a failed serve
+            log.exception("could not store cached result for task %s; "
+                          "dispatching instead", msg.task_id)
+            return False
+        self.broker.complete(msg)
+        if (self.task_manager is not None
+                and await self.task_manager.is_terminal(msg.task_id)):
+            # Re-check after the result write's suspension: another path
+            # may have finished the task meanwhile; the status write is not
+            # idempotent.
+            self._dispatched.inc(outcome="duplicate", queue=self.queue_name,
+                                 backend="")
+            return True
+        self._dispatched.inc(outcome="cache_hit", queue=self.queue_name,
+                             backend="")
+        await self._try_update(msg.task_id, "completed - served from cache",
+                               TaskStatus.COMPLETED)
+        return True
+
     def _redelivery_delay(self, msg: Message) -> float:
         """Jittered exponential backoff from the message's delivery count
         (base ``retry_delay``), capped at half the lease so a retry never
@@ -338,7 +408,8 @@ class DispatcherPool:
     def __init__(self, broker: InMemoryBroker, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
                  observability=None, admission=None,
-                 metrics: MetricsRegistry | None = None):
+                 metrics: MetricsRegistry | None = None,
+                 result_cache=None, result_store=None):
         self.broker = broker
         self.task_manager = task_manager
         self.retry_delay = retry_delay
@@ -346,6 +417,8 @@ class DispatcherPool:
         self.observability = observability
         self.metrics = metrics
         self.admission = admission
+        self.result_cache = result_cache
+        self.result_store = result_store
         self.dispatchers: dict[str, Dispatcher] = {}
 
     def register(self, queue_name: str, backend_uri: str,
@@ -356,7 +429,8 @@ class DispatcherPool:
             retry_delay=self.retry_delay if retry_delay is None else retry_delay,
             concurrency=self.concurrency if concurrency is None else concurrency,
             observability=self.observability, admission=self.admission,
-            metrics=self.metrics)
+            metrics=self.metrics, result_cache=self.result_cache,
+            result_store=self.result_store)
         self.dispatchers[queue_name] = d
         return d
 

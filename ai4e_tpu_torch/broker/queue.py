@@ -11,7 +11,8 @@ lanes (ROADMAP A18.2, A18.10):
 - a message carries the B3 headers of the span its publisher ran in (the
   gateway's ``create_task``), which JAX's messages do not: the port's
   dispatch span continues the gateway's trace instead of starting one;
-- a message carries its task's deadline and priority class, as JAX's do.
+- a message carries its task's deadline, priority class and result-cache
+  key, as JAX's do.
 
 Event-loop only, except ``publish``, which any thread may call.
 """
@@ -64,6 +65,9 @@ class Message:
     # backend POST for the worker's own shedding.
     deadline_at: float = 0.0
     priority: int = 1
+    # The task's result-cache key ("" when it has none or bypassed the
+    # cache): the dispatcher completes a redelivery from the cache with it.
+    cache_key: str = ""
 
 
 DeadLetterHandler = Callable[[Message], None]
@@ -242,6 +246,7 @@ class InMemoryBroker:
                       seq=next(self._seq),
                       queue_name=self.resolve_queue_name(task.endpoint),
                       trace_headers=get_tracer().headers(),
+                      cache_key=getattr(task, "cache_key", ""),
                       deadline_at=getattr(task, "deadline_at", 0.0),
                       priority=getattr(task, "priority", 1))
         loop = self._loop

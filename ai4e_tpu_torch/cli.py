@@ -36,6 +36,14 @@ Both services install ``AI4E_OBSERVABILITY_*``'s tracer settings at start
 set, as in JAX) and, with ``AI4E_OBSERVABILITY_VITALS``, sample their own
 vitals into their ``/metrics``.
 
+``AI4E_GATEWAY_API_KEYS`` keys the control plane (its task-store surface
+included; set but empty, it raises) and the worker's admin verbs;
+``AI4E_GATEWAY_RATE_LIMIT_RPS``/``_BURST``, ``_RATE_LIMITS``, ``_QUOTA``
+and ``_QUOTAS`` throttle it; a worker reaches a keyed control plane with
+``AI4E_SERVICE_TASKSTORE_API_KEY``; ``AI4E_PLATFORM_RESULT_CACHE`` turns
+on the result cache (``_CACHE_MAX_ENTRIES``, ``_CACHE_MAX_BYTES``,
+``_CACHE_TTL_SECONDS``).
+
 A spec key, route key or ``AI4E_*`` knob the JAX package would honour and
 this port does not serve yet raises and names its ROADMAP item.
 """
@@ -66,6 +74,24 @@ def load_spec(path: str) -> dict:
         return json.load(f)
 
 
+def _key_list(value: str | None) -> list[str]:
+    """A comma-separated key list's non-empty keys, in order."""
+    return [k.strip() for k in (value or "").split(",") if k.strip()]
+
+
+def gateway_api_keys(config: FrameworkConfig) -> set[str] | None:
+    """``AI4E_GATEWAY_API_KEYS`` as a set: the control plane's subscription
+    keys and the worker's admin keys. None when unset (open); set but
+    empty raises, on both sides: the operator wanted auth, so fail
+    closed."""
+    if config.gateway.api_keys is None:
+        return None
+    keys = set(_key_list(config.gateway.api_keys))
+    if not keys:
+        raise ConfigError("AI4E_GATEWAY_API_KEYS is set but contains no keys")
+    return keys
+
+
 # -- control plane -----------------------------------------------------------
 
 
@@ -79,8 +105,33 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
     for key, what in _UNPORTED_ROUTES_SPEC_KEYS.items():
         if routes.get(key):
             raise ValueError(f"routes key {key!r} ({what}) is not ported yet")
+    keys = gateway_api_keys(config)
     platform = LocalPlatform(config.to_platform_config())
+    if keys is not None:
+        # The APIM front door: published APIs need a subscription key.
+        platform.gateway.set_api_keys(keys)
     platform.gateway.max_body_bytes = config.gateway.max_body_bytes
+    if config.gateway.rate_limit_rps or config.gateway.rate_limits:
+        from .gateway.ratelimit import (RateLimit, RateLimiter,
+                                        parse_rate_limits)
+        per_key = parse_rate_limits(config.gateway.rate_limits or "")
+        if config.gateway.rate_limit_rps:
+            default = RateLimit(rps=config.gateway.rate_limit_rps,
+                                burst=config.gateway.rate_limit_burst)
+        else:
+            # Per-key limits alone: keys without one stay unlimited.
+            default = RateLimit(rps=1e9)
+        platform.gateway.set_rate_limiter(RateLimiter(default,
+                                                      per_key=per_key))
+    if config.gateway.quota or config.gateway.quotas:
+        from .gateway.ratelimit import (QuotaTracker, parse_quota,
+                                        parse_quotas)
+        per_key_q = parse_quotas(config.gateway.quotas or "")
+        # None: keys without a per-key quota are unlimited and untracked.
+        default_q = (parse_quota(config.gateway.quota)
+                     if config.gateway.quota else None)
+        platform.gateway.set_quota_tracker(QuotaTracker(default_q,
+                                                        per_key=per_key_q))
     make_taskstore_app(platform.store, app=platform.gateway.app,
                        max_body_bytes=config.gateway.max_body_bytes,
                        max_result_bytes=config.gateway.max_result_bytes)
@@ -213,8 +264,10 @@ def _declarative_handoff(spec: dict | None):
 
 def _stores(models: dict, config: FrameworkConfig):
     """``(task_manager, result_store)``: on the control plane's task store
-    when the spec (or ``AI4E_GATEWAY_TASKSTORE_GET_URI``) names it, else a
-    store of the worker's own."""
+    when the spec (or ``AI4E_GATEWAY_TASKSTORE_GET_URI``) names it, with
+    the first non-empty key of ``AI4E_SERVICE_TASKSTORE_API_KEY`` (a keyed
+    control plane keys its store surface too), else a store of the
+    worker's own."""
     from .service.task_manager import (HttpResultStore, HttpTaskManager,
                                        LocalTaskManager)
     from .taskstore import InMemoryTaskStore
@@ -223,10 +276,14 @@ def _stores(models: dict, config: FrameworkConfig):
     if not base:
         store = InMemoryTaskStore()
         return LocalTaskManager(store), store
+    # The gateway's comma-separated key list may be mounted as it is: a
+    # leading comma must not leave the worker keyless.
+    key = next(iter(_key_list(config.service.taskstore_api_key)), None)
     if isinstance(base, str) and "," in base:
         # The control plane's replica set, primary first.
         base = [u.strip() for u in base.split(",") if u.strip()]
-    return HttpTaskManager(base), HttpResultStore(base)
+    return (HttpTaskManager(base, api_key=key),
+            HttpResultStore(base, api_key=key))
 
 
 def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
@@ -238,7 +295,8 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     every section at its defaults) supplies the batcher's window and
     capacity unless ``max_wait_ms``/``max_pending`` are given, its pipeline
     depth and double buffer, the ladder deriver's knobs, the reload's
-    checkpoint root and the drain budget. In the JAX package's order: every
+    checkpoint root, the admin verbs' keys (``AI4E_GATEWAY_API_KEYS``), the
+    task-store key and the drain budget. In the JAX package's order: every
     model is registered, the persisted ladders are restored, every bucket
     is warmed (on the card: run and captured as a CUDA graph), then the
     batcher is built. ``AI4E_OBSERVABILITY_HOP_LEDGER`` makes the worker
@@ -258,6 +316,8 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     from .runtime.worker import InferenceWorker
 
     config = config or FrameworkConfig()
+    # The admin verbs are an operator's: the front door's keys gate them.
+    admin_keys = gateway_api_keys(config)
     rt = config.runtime
     runtime = ModelRuntime(device=device)
     to_serve = []
@@ -316,7 +376,8 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                              checkpoint_root=rt.checkpoint_dir,
                              hop_ledger=config.observability.hop_ledger,
                              drain_timeout_s=(config.rollout.drain_timeout_ms
-                                              / 1000.0))
+                                              / 1000.0),
+                             admin_api_keys=admin_keys)
     for servable, sync_path, async_path, cap, handoff, batch in to_serve:
         worker.serve_model(servable, sync_path=sync_path,
                            async_path=async_path,

@@ -35,8 +35,6 @@ OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
 _HA = "the journaled and replicated task store (ROADMAP A18.1)"
 _SHARDS = "the sharded task store (ROADMAP A18.2)"
 _PUSH = "the push transport (ROADMAP A18.3)"
-_AUTH = "subscription keys, rate limits and quotas (ROADMAP A18.4)"
-_CACHE = "the result cache (ROADMAP A18.6)"
 _REAPER = "the task reaper's stuck-task rescue (ROADMAP A18.7)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
 _TENANCY = "tenancy (ROADMAP A18.10)"
@@ -64,9 +62,6 @@ UNPORTED: dict[tuple[str, str], str] = {
         "result_offload_threshold")},
     **{("AI4E_PLATFORM_", f): _REAPER for f in (
         "reaper_running_timeout", "reaper_max_requeues")},
-    **{("AI4E_PLATFORM_", f): _CACHE for f in (
-        "result_cache", "cache_max_entries", "cache_max_bytes",
-        "cache_ttl_seconds")},
     **{("AI4E_PLATFORM_", f): _RESILIENCE for f in (
         "resilience", "resilience_failure_threshold", "resilience_window",
         "resilience_error_rate", "resilience_recovery_seconds",
@@ -82,7 +77,6 @@ UNPORTED: dict[tuple[str, str], str] = {
         "pipeline_chunk_replay")},
     ("AI4E_SERVICE_", "reporter_uri"): _REPORTER,
     ("AI4E_SERVICE_", "cluster"): _REPORTER,
-    ("AI4E_SERVICE_", "taskstore_api_key"): _AUTH,
     ("AI4E_SERVICE_", "result_dir"): _NATIVE,
     ("AI4E_SERVICE_", "result_offload_threshold"): _NATIVE,
     ("AI4E_RUNTIME_", "platform"):
@@ -91,9 +85,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     **{("AI4E_RUNTIME_", f): _MESH for f in (
         "dp", "fsdp", "tp", "sp", "ep", "mesh_spec",
         "mesh_unhealthy_after")},
-    **{("AI4E_GATEWAY_", f): _AUTH for f in (
-        "api_keys", "rate_limit_rps", "rate_limit_burst", "rate_limits",
-        "quota", "quotas")},
     **{("AI4E_TENANCY_", f): _TENANCY for f in (
         "enabled", "tenants", "default_weight", "default_rps",
         "default_burst", "label_top_n", "goodput_target", "min_quantum")},

@@ -15,6 +15,28 @@ Routes:
   ``set_observability`` attached the hub;
 - ``GET  /metrics``, ``GET /healthz``.
 
+With subscription keys (``set_api_keys``) every request but ``/healthz``
+and ``/metrics`` needs ``Ocp-Apim-Subscription-Key`` or ``X-Api-Key``
+(401 under the constant ``route="unauthorized"`` label), the task-store
+surface riding this app included. A rate limiter and a quota tracker
+(``set_rate_limiter``, ``set_quota_tracker``; ``gateway/ratelimit.py``)
+throttle everything but ``/v1/taskstore/*``, by the key when auth
+validated it and by the caller's address otherwise: the quota is peeked
+first (403 with the window's ``Retry-After``), then the rate (429 with
+``Retry-After``), then the quota unit is consumed.
+
+With the result cache (``set_result_cache``, ``rescache/``) an async
+request is looked up before a task exists: a hit is a real task record
+created already terminal (``completed - served from cache``, memory-only)
+with the cached result; an identical request in flight gets the leader's
+task record (single flight); a miss stamps the key on the task and
+registers it as the key's leader, and the store listener fills the cache
+when it completes. The sync proxy does the same for POSTs, the waiters
+awaiting the leader's answer. Every answer of a cached route carries
+``X-Cache: hit|miss|coalesced|bypass`` (``X-Cache-Bypass: 1`` or
+``Cache-Control: no-cache`` opts out); each outcome is counted once, at
+this edge.
+
 Every async request runs in a ``create_task`` span (parented by inbound B3
 headers); with the hub it gets ``admitted`` (stamped at its arrival time)
 and ``published`` ledger events, and each sync POST's round trip is
@@ -26,10 +48,12 @@ before any task exists; the async edge anchors the deadline on the task
 (stream routes too) and sheds lowest priority first against the route's
 created backlog, 429 with a Retry-After computed from the drain rate; the
 sync proxy runs under the controller's adaptive in-flight cap (503 when
-the class is shed) and forwards the absolute deadline. Not ported (ROADMAP
-A18): subscription keys, rate limits and quotas, tenancy, the result
-cache, orchestration's brownout and resilient proxying, event streams and
-weighted backends.
+the class is shed) and forwards the absolute deadline. The expiry 504
+comes before the cache lookup, the pressure shed after it, so a free answer
+is never shed. Not ported (ROADMAP A18): tenancy (the middleware's tenant
+branch, A18.10), orchestration's brownout and resilient proxying, event
+streams and weighted backends (so every route is cacheable; JAX's canary
+routes are not).
 """
 
 from __future__ import annotations
@@ -48,6 +72,8 @@ from ..admission.deadline import (SHED_REASON_HEADER, expired,
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
 from ..observability import Tracer
 from ..observability.ledger import ADMITTED, PUBLISHED, ledger_event
+from ..rescache.keys import (CACHE_STATUS_HEADER, cache_bypass_requested,
+                             request_key)
 from ..taskstore import (APITask, InMemoryTaskStore, TaskNotFound, TaskStatus,
                          endpoint_path)
 from ..utils.http import SessionHolder, read_body_limited
@@ -88,6 +114,17 @@ class Gateway:
         # Admission controller (set_admission); None: no deadlines, no
         # shedding, an unbounded sync proxy.
         self._admission = None
+        # Subscription keys (set_api_keys); None: open.
+        self._api_keys = None
+        # Per-key rate limiter and quota tracker; None: unlimited.
+        self._rate_limiter = None
+        self._quota_tracker = None
+        # Result cache (set_result_cache); None: every request executes.
+        self._result_cache = None
+        # Sync single flight: key -> (future of the leader's (status,
+        # payload, content_type), or None when it errored; the family
+        # generation the leader captured). Event-loop objects.
+        self._sync_inflight: dict = {}
         # Proxy fan-out is bounded by inbound connections, not the pool.
         self._sessions = SessionHolder(limit=0)
         # Long-poll waiters: task_id -> [(loop, future)], woken by the
@@ -96,7 +133,8 @@ class Gateway:
         store.add_listener(self._on_transition)
         # aiohttp's own cap is disabled: the edge cap is enforced per route,
         # incrementally, and 0 must mean unlimited.
-        self.app = web.Application(client_max_size=1024**4)
+        self.app = web.Application(client_max_size=1024**4,
+                                   middlewares=[self._auth_middleware])
         self.app.router.add_get("/v1/taskmanagement/task/{task_id}", self._task)
         self.app.router.add_get("/healthz", self._health)
         self.app.router.add_get("/metrics", self._metrics)
@@ -117,6 +155,78 @@ class Gateway:
             # Added only with the hub, so a default gateway's route table
             # stays as it was.
             self.app.router.add_get("/v1/debug/flight", self._flight_dump)
+
+    def set_api_keys(self, keys: set[str] | None) -> None:
+        """Enable (or clear) subscription-key auth on this app."""
+        self._api_keys = set(keys) if keys else None
+
+    def set_rate_limiter(self, limiter) -> None:
+        """Enable (or clear with None) per-key request-rate throttling
+        (``gateway/ratelimit.RateLimiter``) on published APIs and task
+        polling, never on the task-store surface riding this app
+        (throttling workers' status writes would stall the data plane)."""
+        self._rate_limiter = limiter
+
+    def set_quota_tracker(self, tracker) -> None:
+        """Enable (or clear with None) per-key request quotas
+        (``gateway/ratelimit.QuotaTracker``), with the rate limiter's
+        scope; exhaustion answers 403 with the window's reset as
+        ``Retry-After``."""
+        self._quota_tracker = tracker
+
+    def set_result_cache(self, cache) -> None:
+        """Enable (or clear with None) the result cache and single-flight
+        coalescing on published APIs (``rescache.ResultCache``)."""
+        self._result_cache = cache
+
+    @web.middleware
+    async def _auth_middleware(self, request: web.Request, handler):
+        """The APIM front door: with keys set, everything but health and
+        metrics needs one, the task-store surface on this port included;
+        then the quota peek, the rate limit and the quota unit, except on
+        ``/v1/taskstore/*``. A no-op while nothing is set."""
+        exempt = request.path in ("/healthz", "/metrics")
+        key = (request.headers.get("Ocp-Apim-Subscription-Key")
+               or request.headers.get("X-Api-Key"))
+        if self._api_keys is not None and not exempt:
+            if key not in self._api_keys:
+                # Constant label: the path is the caller's to choose.
+                self._requests.inc(route="unauthorized", outcome="401")
+                return web.json_response(
+                    {"error": "missing or invalid subscription key"},
+                    status=401)
+        throttled = ((self._rate_limiter is not None
+                      or self._quota_tracker is not None)
+                     and not exempt
+                     and not request.path.startswith("/v1/taskstore/"))
+        if throttled:
+            # The key is the identity only when auth validated it: with
+            # auth off the header is the caller's to rotate.
+            identity = (key if self._api_keys is not None
+                        else (request.remote or "anonymous"))
+            # Peek the quota first, so a 403 spends no rate token.
+            if self._quota_tracker is not None:
+                allowed, retry_after = self._quota_tracker.would_allow(
+                    identity)
+                if not allowed:
+                    self._requests.inc(route="throttled", outcome="403")
+                    return web.json_response(
+                        {"error": "quota exceeded"}, status=403,
+                        headers={"Retry-After":
+                                 str(max(1, math.ceil(retry_after)))})
+            if self._rate_limiter is not None:
+                allowed, retry_after = self._rate_limiter.allow(identity)
+                if not allowed:
+                    # No quota consumed: the peek above counts nothing.
+                    self._requests.inc(route="throttled", outcome="429")
+                    return web.json_response(
+                        {"error": "rate limit exceeded"}, status=429,
+                        # RFC 7231 delta-seconds: integer, at least 1.
+                        headers={"Retry-After":
+                                 str(max(1, math.ceil(retry_after)))})
+            if self._quota_tracker is not None:
+                self._quota_tracker.allow(identity)  # consume the unit
+        return await handler(request)
 
     def set_admission(self, controller) -> None:
         """Enable (or clear with None) admission control on the published
@@ -179,28 +289,77 @@ class Gateway:
                 endpoint = endpoint.rstrip("/") + "/" + tail
             if request.query_string:
                 endpoint += "?" + request.query_string
-            # Admission: anchor the caller's relative budget, classify,
-            # and refuse dead or shed work before any task exists. Off:
-            # nothing parsed, nothing stamped.
+            content_type = request.content_type or "application/json"
+            # Admission: anchor the caller's relative budget, classify, and
+            # refuse dead work before any task exists. The pressure shed
+            # waits until the cache had its chance: a cached or coalesced
+            # answer adds no backlog. Off: nothing parsed, nothing stamped.
             deadline_at = 0.0
             task_priority = 1
             if self._admission is not None:
                 deadline_at = parse_deadline_at(request.headers)
                 task_priority = parse_priority(request.headers)
-                refusal = (self._admission_expired(route, task_priority,
+                refusal = self._admission_expired(route, task_priority,
+                                                  deadline_at)
+                if refusal is not None:
+                    return refusal
+            # Result cache: a hit is served by a terminal task; an identical
+            # request in flight gets the leader's record; a miss stamps the
+            # key on the task, whose completion fills the cache.
+            cache = self._result_cache
+            cache_key = ""
+            xcache = None
+            if cache is not None:
+                if cache_bypass_requested(request.headers):
+                    xcache = "bypass"
+                else:
+                    key = self._derive_cache_key(route, request, body,
+                                                 content_type)
+                    with self.tracer.span("cache_lookup", route=route.prefix,
+                                          headers=request.headers) as span:
+                        # count=False: the outcome is counted once, below,
+                        # when it is known (a coalesced lookup is no miss).
+                        found = cache.get(key, count=False)
+                        leader = None if found else cache.leader_for(key)
+                        span.attrs["outcome"] = ("hit" if found
+                                                 else "coalesced" if leader
+                                                 else "miss")
+                    if found is not None:
+                        cache.count_hit()
+                        return self._serve_cached_task(
+                            route, endpoint, body, content_type, key, found)
+                    if leader is not None:
+                        try:
+                            record = self.store.get(leader)
+                        except TaskNotFound:
+                            # Leader evicted mid-flight: execute fresh.
+                            cache.release_inflight(key, leader)
+                        else:
+                            cache.count_coalesced()
+                            self._requests.inc(route=route.prefix,
+                                               outcome="coalesced")
+                            return web.json_response(
+                                record.to_dict(),
+                                headers={CACHE_STATUS_HEADER: "coalesced"})
+                    cache_key = key
+                    xcache = "miss"
+            if self._admission is not None:
+                refusal = self._admission_pressure(route, task_priority,
                                                    deadline_at)
-                           or self._admission_pressure(route, task_priority,
-                                                       deadline_at))
                 if refusal is not None:
                     return refusal
             with self.tracer.span("create_task", route=route.prefix,
                                   headers=request.headers) as span:
                 task = self.store.upsert(APITask(
-                    endpoint=endpoint, body=body,
-                    content_type=request.content_type or "application/json",
-                    publish=True, deadline_at=deadline_at,
-                    priority=task_priority))
+                    endpoint=endpoint, body=body, content_type=content_type,
+                    publish=True, cache_key=cache_key,
+                    deadline_at=deadline_at, priority=task_priority))
                 span.task_id = task.task_id
+            if xcache is not None:
+                # Counted once the record exists (hit and coalesced
+                # returned above).
+                (cache.count_miss if xcache == "miss"
+                 else cache.count_bypass)()
             stored = self.store.get(task.task_id)
             if self._observability is not None:
                 # The store published the task inside upsert, so it is on
@@ -210,12 +369,53 @@ class Gateway:
                     ledger_event(ADMITTED, "gateway", t=arrival,
                                  reason=route.prefix),
                     ledger_event(PUBLISHED, "gateway"))
+            if (cache_key
+                    and stored.canonical_status not in TaskStatus.TERMINAL):
+                # This task now owns the key; the store listener releases
+                # it on the terminal transition (``rescache/wiring.py``).
+                # Nothing awaited since the lookup, so no identical request
+                # slipped in between. A publish failure registers nothing.
+                cache.register_inflight(cache_key, task.task_id)
             outcome = ("failed" if stored.canonical_status == "failed"
                        else "created")
             self._requests.inc(route=route.prefix, outcome=outcome)
-            return web.json_response(stored.to_dict())
+            return web.json_response(
+                stored.to_dict(),
+                headers={CACHE_STATUS_HEADER: xcache} if xcache else None)
 
         return handler
+
+    def _derive_cache_key(self, route: Route, request: web.Request,
+                          body: bytes, content_type: str) -> str:
+        """The result-cache key of a gateway request, one derivation for
+        the async and the sync handler: family the backend's endpoint path,
+        ``extra`` the operation tail and query."""
+        tail = request.match_info.get("tail", "")
+        return request_key(
+            endpoint_path(route.backend_uri), body, content_type,
+            extra=(tail + "?" + request.query_string
+                   if request.query_string else tail))
+
+    def _serve_cached_task(self, route: Route, endpoint: str, body: bytes,
+                           content_type: str, key: str,
+                           found: tuple) -> web.Response:
+        """Answer an async cache hit with a real task record, already
+        terminal and never published, whose result is the cached payload:
+        the client polls and fetches as for a miss. ``durable=False``: the
+        answer already carries the terminal record."""
+        payload, ctype = found
+        task = self.store.upsert(APITask(
+            endpoint=endpoint, body=body, content_type=content_type,
+            status="completed - served from cache",
+            backend_status=TaskStatus.COMPLETED,
+            publish=False, cache_key=key, durable=False))
+        try:
+            self.store.set_result(task.task_id, payload, ctype)
+        except TaskNotFound:
+            pass  # reaped already (zero retention); the record answered
+        self._requests.inc(route=route.prefix, outcome="cache_hit")
+        return web.json_response(task.to_dict(),
+                                 headers={CACHE_STATUS_HEADER: "hit"})
 
     def _admission_expired(self, route: Route, priority: int,
                            deadline_at: float) -> web.Response | None:
@@ -265,8 +465,9 @@ class Gateway:
             if body is None:
                 return self._payload_too_large(route)
             # Admission on POSTs (the inference requests): an expired one
-            # answers 504 before the backend sees it; the others run under
-            # the adaptive in-flight cap, acquired inside the try below.
+            # answers 504 before the cache or the backend see it; the
+            # others run under the adaptive in-flight cap, acquired inside
+            # the try below.
             adm = self._admission if request.method == "POST" else None
             sync_scope = None
             priority = 1
@@ -285,6 +486,54 @@ class Gateway:
                         headers={SHED_REASON_HEADER:
                                  shed_reason("gateway_sync", "deadline")})
                 sync_scope = adm.scope(adm.SYNC_SCOPE)
+            # Result cache on POSTs: a hit answers here; an identical
+            # request already proxying makes this one its waiter.
+            cache = self._result_cache
+            key = None
+            fut = None  # set when THIS request is the single-flight leader
+            gen = 0  # the family's generation captured at leadership
+            bypassed = False
+            # A miss or bypass is counted only once admitted: a request
+            # shed below never executed.
+            miss_pending = False
+            if cache is not None and request.method == "POST":
+                if cache_bypass_requested(request.headers):
+                    bypassed = True
+                else:
+                    key = self._derive_cache_key(route, request, body,
+                                                 request.content_type or "")
+                    found = cache.get(key, count=False)
+                    if found is not None:
+                        cache.count_hit()
+                        self._requests.inc(route=route.prefix,
+                                           outcome="cache_hit")
+                        return web.Response(
+                            body=found[0], content_type=found[1],
+                            headers={CACHE_STATUS_HEADER: "hit"})
+                    waiting = self._sync_inflight.get(key)
+                    if waiting is not None:
+                        leader_fut, leader_gen = waiting
+                        settled = await leader_fut
+                        if (settled is not None
+                                and cache.generation(key) == leader_gen):
+                            status, payload, ctype = settled
+                            cache.count_coalesced()
+                            self._requests.inc(route=route.prefix,
+                                               outcome="coalesced")
+                            return web.Response(
+                                status=status, body=payload,
+                                content_type=ctype,
+                                headers={CACHE_STATUS_HEADER: "coalesced"})
+                        # The leader errored, or a reload invalidated the
+                        # family after it began: its answer is the old
+                        # weights'. Proxy alone, unregistered.
+                        miss_pending = True
+                        key = None
+                    else:
+                        fut = asyncio.get_running_loop().create_future()
+                        gen = cache.generation(key)
+                        self._sync_inflight[key] = (fut, gen)
+                        miss_pending = True
             # Hop headers and the gateway credential never reach a backend;
             # under admission the relative deadline is replaced by the
             # absolute one (re-anchoring it at the worker would extend the
@@ -307,6 +556,9 @@ class Gateway:
                        and request.method == "POST" else None)
             acquired = False
             t0 = time.perf_counter()
+            # From the leader's registration on, every exit (an error, the
+            # client going away) runs the finally, or the unresolved future
+            # would wedge every later identical request.
             try:
                 if sync_scope is not None:
                     retry_after = sync_scope.try_acquire(priority)
@@ -325,7 +577,12 @@ class Gateway:
                                      shed_reason("gateway_sync",
                                                  "pressure")})
                     acquired = True
-                session = await self._sessions.get()
+                if cache is not None:
+                    if miss_pending:
+                        cache.count_miss()
+                    elif bypassed:
+                        cache.count_bypass()
+                session = await self._get_session()
                 async with session.request(request.method, target,
                                            data=body,
                                            headers=headers) as resp:
@@ -335,8 +592,25 @@ class Gateway:
                     if observe is not None:
                         observe(route.prefix, time.perf_counter() - t0,
                                 resp.status)
-                    return web.Response(status=resp.status, body=payload,
-                                        content_type=resp.content_type)
+                    if fut is not None:
+                        # Only a success fills, and only while the family's
+                        # generation is the one captured at leadership (a
+                        # reload mid-proxy makes this the old weights'
+                        # answer); the waiters get whatever it is.
+                        if resp.status == 200:
+                            cache.put(key, payload, resp.content_type,
+                                      if_generation=gen)
+                        fut.set_result((resp.status, payload,
+                                        resp.content_type))
+                    return web.Response(
+                        status=resp.status, body=payload,
+                        content_type=resp.content_type,
+                        # Leader: miss; opted out: bypass; a waiter whose
+                        # leader failed: none.
+                        headers=({CACHE_STATUS_HEADER: "miss"}
+                                 if fut is not None
+                                 else {CACHE_STATUS_HEADER: "bypass"}
+                                 if bypassed else None))
             except aiohttp.ClientError as exc:
                 self._requests.inc(route=route.prefix, outcome="unreachable")
                 if observe is not None:
@@ -350,8 +624,15 @@ class Gateway:
                     # only requests that held a slot teach it an RTT.
                     sync_scope.observe(time.perf_counter() - t0)
                     sync_scope.release()
+                if fut is not None:
+                    self._sync_inflight.pop(key, None)
+                    if not fut.done():
+                        fut.set_result(None)  # the waiters proxy alone
 
         return handler
+
+    async def _get_session(self) -> aiohttp.ClientSession:
+        return await self._sessions.get()
 
     # -- task polling --------------------------------------------------------
 

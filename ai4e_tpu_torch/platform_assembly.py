@@ -10,7 +10,13 @@ dispatchers), the SLO burn-rate engine on ``slo_objectives`` and, with
 ``admission``, the admission controller (``admission.AdmissionController``:
 deadlines and priority shedding at the gateway, the sync proxy's adaptive
 cap, each dispatcher's fan-out on its own limiter unless an autoscaler
-owns it, the drain rate and goodput from the store's change feed).
+owns it, the drain rate and goodput from the store's change feed) and,
+with ``result_cache``, the inference result cache
+(``rescache.ResultCache``: the gateway answers repeat requests without
+dispatching and coalesces identical ones onto one execution, the
+dispatchers complete redeliveries from it, the store's change feed fills
+it; a worker in the same process takes it as ``result_cache``, so that
+its reloads invalidate it).
 The sharded store and orchestration, under which the JAX package scales a
 route's shards or on a predictive signal, are refused by
 ``config.check_ported`` (ROADMAP A18.2, A18.9).
@@ -79,6 +85,15 @@ class PlatformConfig:
     # The async edge's backlog capacity the shedder's fractions divide
     # (created tasks per route; background sheds first, at 60%).
     admission_max_backlog: int = 1024
+    # Inference result cache and single-flight coalescing. Off by default:
+    # on, identical payloads may share results (per-request opt-out:
+    # X-Cache-Bypass).
+    result_cache: bool = False
+    cache_max_entries: int = 4096
+    cache_max_bytes: int = 256 * 1024 * 1024
+    # Entry lifetime: the staleness bound for a cache that a remote
+    # worker's reload cannot reach. None = no TTL.
+    cache_ttl_seconds: float | None = 300.0
 
 
 class LocalPlatform:
@@ -96,6 +111,18 @@ class LocalPlatform:
             max_delivery_count=self.config.max_delivery_count,
             lease_seconds=self.config.lease_seconds, metrics=self.metrics)
         self.store.set_publisher(self.broker.publish)
+        self.result_cache = None
+        if self.config.result_cache:
+            from .rescache import ResultCache, attach_store
+
+            self.result_cache = ResultCache(
+                max_entries=self.config.cache_max_entries,
+                max_bytes=self.config.cache_max_bytes,
+                ttl_s=self.config.cache_ttl_seconds,
+                metrics=self.metrics)
+            # The async path's fill point: terminal transitions copy
+            # results in and release single-flight leaders.
+            attach_store(self.store, self.result_cache)
         self.observability = None
         self.slo = None
         if self.config.observability:
@@ -136,8 +163,12 @@ class LocalPlatform:
             retry_delay=self.config.retry_delay,
             concurrency=self.config.dispatcher_concurrency,
             observability=self.observability, admission=self.admission,
-            metrics=self.metrics)
+            metrics=self.metrics, result_cache=self.result_cache,
+            result_store=(self.store if self.result_cache is not None
+                          else None))
         self.gateway = Gateway(self.store, metrics=self.metrics)
+        if self.result_cache is not None:
+            self.gateway.set_result_cache(self.result_cache)
         if self.observability is not None:
             self.gateway.set_observability(self.observability)
         if self.admission is not None:

@@ -60,8 +60,17 @@ there (``DeadlineExceeded``) and ends the same way; each drop counts in
 ``ai4e_admission_expired_total{hop}``. An unlabelled direct request is
 interactive, as it always was.
 
-The admin key gate and result-cache invalidation are not ported (ROADMAP
-A18.4, A18.6).
+With ``admin_api_keys`` (``AI4E_GATEWAY_API_KEYS``, the gateway's keys)
+the reload, drain (POST) and resume verbs answer 401 without
+``Ocp-Apim-Subscription-Key`` or ``X-Api-Key`` naming one; ``GET
+/models``, the drain status and the inference routes stay open, as in JAX.
+
+With a ``result_cache`` (``rescache.ResultCache``, the caching gateway's
+in the same process) a reload invalidates every endpoint path the model
+serves (the gateway's and dispatcher's key namespace) once the swap
+lands, so no answer of the old weights is served after it.
+The worker answers nothing from the cache itself: the gateway in front
+of it does.
 """
 
 from __future__ import annotations
@@ -117,10 +126,16 @@ class InferenceWorker:
                  store=None, executor_workers: int = 8,
                  checkpoint_root: str | None = None,
                  hop_ledger: bool = False,
-                 drain_timeout_s: float = 30.0):
+                 drain_timeout_s: float = 30.0,
+                 result_cache=None, admin_api_keys=None):
         self.runtime = runtime
         self.batcher = batcher
         self.store = store
+        # The caching gateway's result cache, for the reload's
+        # invalidation.
+        self.result_cache = result_cache
+        # The admin verbs' key gate: the gateway's keys; None: open.
+        self._admin_keys = set(admin_api_keys) if admin_api_keys else None
         # Off: no ledger is allocated and no extra store call made.
         self.hop_ledger = hop_ledger
         # Reload confinement: checkpoints must resolve (symlinks included)
@@ -156,11 +171,27 @@ class InferenceWorker:
         router.add_get(base + "/worker/drain", self._drain_status)
         router.add_post(base + "/worker/resume", self._resume_worker)
 
+    def _admin_denied(self, request) -> web.Response | None:
+        """The admin verbs' key gate, with the gateway middleware's header
+        contract: a 401, or None to pass."""
+        if self._admin_keys is None:
+            return None
+        key = (request.headers.get("Ocp-Apim-Subscription-Key")
+               or request.headers.get("X-Api-Key"))
+        if key not in self._admin_keys:
+            return web.json_response(
+                {"error": "missing or invalid subscription key"},
+                status=401)
+        return None
+
     async def _drain_worker(self, request) -> web.Response:
         """POST {prefix}/worker/drain — stop admitting, retire uncut work,
         finish the batches on the card and any reload within the budget.
         Idempotent. Body (optional): ``{"timeout_ms": N}`` overrides the
         budget."""
+        denied = self._admin_denied(request)
+        if denied is not None:
+            return denied
         timeout_s = self._drain_timeout_s
         try:
             payload = json.loads(await request.read() or b"{}")
@@ -183,8 +214,11 @@ class InferenceWorker:
             "decode_active": sum(e.active_count
                                  for e in self.decode_engines)})
 
-    async def _resume_worker(self, _request) -> web.Response:
+    async def _resume_worker(self, request) -> web.Response:
         """POST {prefix}/worker/resume — serve again after a drain."""
+        denied = self._admin_denied(request)
+        if denied is not None:
+            return denied
         self.drain_state.resume()
         self.batcher.resume_from_drain()
         for engine in self.decode_engines:
@@ -198,6 +232,9 @@ class InferenceWorker:
         its recorded checkpoint's, or the ``.npz`` the JSON body names
         (``{"checkpoint": path, "generation": n}``; a relative path resolves
         against the recorded checkpoint's directory), between batches."""
+        denied = self._admin_denied(request)
+        if denied is not None:
+            return denied
         name = request.match_info["name"]
         servable = self.runtime.models.get(name)
         lm_backend = None
@@ -278,6 +315,12 @@ class InferenceWorker:
                 servable.checkpoint_path = path
                 if generation is not None:
                     servable.generation = generation
+                if self.result_cache is not None:
+                    # Every answer this model could have given goes: each
+                    # endpoint path it serves is a family of the gateway's
+                    # and dispatcher's keys.
+                    for family in self._served.get(name, {}).values():
+                        self.result_cache.invalidate_family(family)
                 log.info("reloaded %s from %s (params_version %d)", name,
                          path, servable.params_version)
                 return web.json_response(

@@ -178,15 +178,21 @@ class _HttpStoreClient:
     sticking with whichever answered, for ``FAILOVER_CYCLES`` passes over
     the set ``FAILOVER_DELAY_S`` apart. A plain 503 goes back to the
     caller. The highest ``X-Store-Epoch`` seen is echoed on every
-    request."""
+    request. ``api_key`` rides as a default ``Ocp-Apim-Subscription-Key``
+    header on every request: a control plane with subscription keys keys
+    its task-store surface too (``AI4E_SERVICE_TASKSTORE_API_KEY`` on
+    workers)."""
 
-    def __init__(self, base_url: str | list[str]):
+    def __init__(self, base_url: str | list[str],
+                 api_key: str | None = None):
         urls = [base_url] if isinstance(base_url, str) else list(base_url)
         if not urls:
             raise ValueError("at least one task-store URL is required")
         self._endpoints = [u.rstrip("/") for u in urls]
         self.base_url = self._endpoints[0]
-        self._holder = SessionHolder()
+        self._holder = SessionHolder(
+            headers={"Ocp-Apim-Subscription-Key": api_key} if api_key
+            else None)
         self.store_epoch = 0
 
     async def _request(self, method: str, path: str, **kwargs

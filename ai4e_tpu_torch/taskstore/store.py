@@ -113,6 +113,11 @@ class InMemoryTaskStore:
                 task.deadline_at = task.deadline_at or prev.deadline_at
                 if task.priority == 1 and prev.priority != 1:
                     task.priority = prev.priority
+                if not prev.durable:
+                    # Memory-only stays memory-only: a full upsert (the
+                    # HTTP surface's records are durable by default) must
+                    # not promote a cache hit's record.
+                    task.durable = False
                 if not task.body and task.publish:
                     # A republish: replay the original body and its type.
                     task.body, task.content_type = self._orig_bodies.get(

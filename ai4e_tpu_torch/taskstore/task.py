@@ -4,7 +4,8 @@ The record's wire shape (``to_dict``/``from_dict``) and the status
 canonicalisation are the JAX package's exactly, so a port worker and a JAX
 control plane (or the other way round) read each other's records. The
 admission, cache and tenant fields are carried on the record and the wire
-unchanged; nothing in the port acts on them yet (ROADMAP A18).
+unchanged; the port acts on the admission fields and the cache key, not yet
+on the tenant (ROADMAP A18.10).
 """
 
 from __future__ import annotations
@@ -81,6 +82,13 @@ class APITask:
     deadline_at: float = 0.0
     priority: int = 1
     tenant: str = ""
+    # False for a record whose loss on restart is acceptable: a cache hit's,
+    # whose terminal record was already in the submit answer. Process-local
+    # like ``publish``, never on the wire. The port's store keeps every
+    # record in memory only; the flag is what a journal or a result offload
+    # (ROADMAP A18.1, A18.13) will skip, so a high duplicate rate cannot
+    # turn "served from cache" into payload-sized writes.
+    durable: bool = True
 
     @property
     def endpoint_path(self) -> str:

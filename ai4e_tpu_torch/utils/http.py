@@ -35,12 +35,15 @@ class SessionHolder:
     so concurrent first calls can't leak an extra session."""
 
     def __init__(self, timeout: float | None = None,
-                 limit: int | None = None):
+                 limit: int | None = None,
+                 headers: dict[str, str] | None = None):
         """``limit``: max concurrent connections of the lazily-created
-        session (0 = unbounded; None keeps aiohttp's default of 100)."""
+        session (0 = unbounded; None keeps aiohttp's default of 100);
+        ``headers``: default headers sent on every request."""
         self._session: aiohttp.ClientSession | None = None
         self._timeout = timeout
         self._limit = limit
+        self._headers = headers
         self._create_lock: asyncio.Lock | None = None
 
     async def get(self) -> aiohttp.ClientSession:
@@ -55,6 +58,8 @@ class SessionHolder:
                     kw["timeout"] = aiohttp.ClientTimeout(total=self._timeout)
                 if self._limit is not None:
                     kw["connector"] = aiohttp.TCPConnector(limit=self._limit)
+                if self._headers:
+                    kw["headers"] = dict(self._headers)
                 self._session = aiohttp.ClientSession(**kw)
         return self._session
 

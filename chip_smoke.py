@@ -216,7 +216,39 @@ Phases, each of which raises on failure:
    Retry-After, expiries by hop, the limit's path, goodput; every
    admitted task terminal, the card's rows plus the batcher's drops
    equal to the examples that entered it, background shed before
-   interactive. It prints ``wires 13a``, ``13b``, ``13c`` lines.
+   interactive. It prints ``wires 13a``, ``13b``, ``13c`` lines;
+14. subscription keys, rate limits and quotas, and the result cache, from
+   phases 9 and 10's checkpoints: (a) land cover behind the control plane
+   with ``AI4E_GATEWAY_API_KEYS=k-open,k-rate,k-quota``, ``k-rate=20:10``
+   and ``k-quota=16/3600``, its worker keyed to the task store with
+   ``k-open`` (two child processes): requests without a key and with a
+   wrong one all 401, a burst of 64 async tiles under each key (polled
+   and fetched under ``k-open``), ``k-open`` never refused, ``k-rate``
+   admitted at most its burst plus its refill over the burst plus one,
+   ``k-quota`` exactly 16 and 403 after, the card's rows equal to the
+   admitted tiles, each key's batches times one replay's launches
+   summing to the worker's own count, the worker's reload, drain and
+   resume 401 without the key and 200 with it; (b) land cover and moe behind a
+   control plane with ``AI4E_PLATFORM_RESULT_CACHE=1`` (a child process)
+   and the worker in this process: 8 tiles and 8 sequences, 8 copies
+   each, sent at once three times (the third with ``X-Cache-Bypass``),
+   then rounds of 16 sync POSTs: the first wave executes exactly 8
+   examples a model, the second is all hits with no row and no kernel
+   launch, the third executes all 128, the first sync round 8 examples
+   and every later one only hits, every hit's and coalesced request's
+   result the executed answer byte for byte, no task failed; task
+   p50/p95 by ``X-Cache`` outcome, this process's GC pauses and event
+   loop stalls a round (the client shares it with the worker), one more
+   hit round with a full collection forced in this process as it goes
+   out and that collection's ms, the ``ai4e_rescache_*`` series and
+   ``request_key``'s ms on a 256 px and a 512 px body; (c)
+   ``LocalPlatform(result_cache=True)`` and a worker given its cache in
+   this process (reload keyed): the 8 tiles' answers cached under seed-0 weights, land cover reloaded to phase
+   10's ``.npz`` (401 without the key): its entries gone, moe's kept, the
+   tiles executed again with the trained answers (equal to a bypass
+   request's, at least one changed), then a burst across a reload back
+   to seed 0 in which no request sent after the 200 gets the old answer.
+   It prints ``cache 14a``, ``14b``, ``14c`` lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2597,12 +2629,16 @@ def species_reference(servable, stacks: list[np.ndarray]) -> list[np.ndarray]:
             for s in stacks]
 
 
-async def await_terminal(http, gateway: str, task_id: str) -> dict:
+async def await_terminal(http, gateway: str, task_id: str,
+                         headers: dict | None = None) -> dict:
     from ai4e_tpu_torch.taskstore import TaskStatus
 
     while True:
         async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
-                            params={"wait": "60"}) as r:
+                            params={"wait": "60"}, headers=headers) as r:
+            if r.status != 200:
+                raise AssertionError(f"poll of {task_id}: {r.status} "
+                                     f"{await r.text()}")
             record = await r.json()
         if TaskStatus.canonical(record["Status"]) in TaskStatus.TERMINAL:
             return record
@@ -5897,6 +5933,796 @@ def phase_wires(handoff: dict, kernels: list[dict],
     return report
 
 
+# -- phase 14: subscription keys, rate limits and quotas; the result cache ---
+
+KEYS = ("k-open", "k-rate", "k-quota")
+RATE_RPS, RATE_BURST = 20.0, 10.0  # AI4E_GATEWAY_RATE_LIMITS=k-rate=20:10
+QUOTA_REQUESTS = 16                # AI4E_GATEWAY_QUOTAS=k-quota=16/3600
+N_KEY_BURST = 64      # 14a: land-cover async requests sent at once a key
+N_BAD_KEY = 4         # 14a: requests of each route without a key, and wrong
+ADMIN_KEY = "k-admin"  # 14c: the in-process worker's admin key
+N_CACHE_TILES = 8     # 14b/14c: distinct land-cover tiles and moe sequences
+N_CACHE_COPIES = 8    # 14b: copies of each in one wave
+N_HASH = 50           # request_key timings a body size, median taken
+N_SYNC_HIT_ROUNDS = 4  # 14b: sync rounds of 16 hits after the first round
+N_AFTER_RELOAD = 16   # 14c: requests the straddling burst sends after the 200
+STRADDLE_GAP_S = 0.01  # 14c: between the burst's requests
+LC_ASYNC, LC_SYNC = "/v1/landcover/classify-async", "/v1/landcover/classify"
+MOE_ASYNC = "/v1/moe/route-async"
+CACHE_MODELS = ("landcover", "moe")
+
+
+def keyed(key: str | None) -> dict:
+    return {"Ocp-Apim-Subscription-Key": key} if key else {}
+
+
+def cache_specs(gateway: str, worker: str,
+                names: tuple[str, ...]) -> tuple[dict, dict]:
+    """Phase 10's deploy spec cut to ``names`` and their public routes."""
+    models, routes = deploy_specs(gateway, worker)
+    models["models"] = [m for m in models["models"] if m["name"] in names]
+    prefixes = tuple(f"/v1/{n}/" for n in names)
+    routes["apis"] = [a for a in routes["apis"]
+                      if a.get("prefix", "").startswith(prefixes)]
+    return models, routes
+
+
+async def result_bytes(http, gateway: str, task_id: str,
+                       headers: dict | None = None) -> bytes:
+    async with http.get(gateway + "/v1/taskstore/result",
+                        params={"taskId": task_id}, headers=headers) as r:
+        if r.status != 200:
+            raise AssertionError(f"result of {task_id}: {r.status}")
+        return await r.read()
+
+
+def class_counts(body: bytes, num_classes: int) -> np.ndarray:
+    counts = np.zeros(num_classes, np.int64)
+    for cls, n in json.loads(body)["class_histogram"].items():
+        counts[int(cls)] = n
+    return counts
+
+
+def pcts(values: list[float]) -> dict:
+    return ({"n": len(values), "p50_ms": pct(values, 50),
+             "p95_ms": pct(values, 95)} if values else {"n": 0})
+
+
+async def keys_run(gateway: str, worker: str, procs: dict, logs: dict,
+                   bodies: list[bytes]) -> dict:
+    """14a's client: requests without a key and with a wrong one, then a
+    burst of ``N_KEY_BURST`` land-cover tasks under each key in turn, each
+    admitted task polled and fetched under ``k-open``, the worker's rows
+    read before and after each burst; then the worker's admin verbs with
+    no key, a wrong one and a right one."""
+    import aiohttp
+
+    out: dict = {"refused": [], "keys": {}}
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        for headers in ({}, keyed("k-wrong")):
+            for i in range(N_BAD_KEY):
+                for method, path in (("POST", LC_ASYNC), ("POST", LC_SYNC),
+                                     ("GET", "/v1/taskmanagement/task/x")):
+                    async with http.request(
+                            method, gateway + path, headers={**OCTET,
+                                                             **headers},
+                            data=bodies[i] if method == "POST" else None) as r:
+                        out["refused"].append(r.status)
+        for key in KEYS:
+            async with http.get(worker + "/metrics") as r:
+                before = await r.text()
+            t0 = time.perf_counter()
+
+            async def submit(i: int, key: str = key) -> dict:
+                async with http.post(gateway + LC_ASYNC,
+                                     data=bodies[i % len(bodies)],
+                                     headers={**OCTET, **keyed(key)}) as r:
+                    answer = {"status": r.status,
+                              "retry_after": r.headers.get("Retry-After"),
+                              "s": time.perf_counter() - t0}
+                    if r.status == 200:
+                        answer["task_id"] = (await r.json())["TaskId"]
+                    return answer
+
+            answers = await asyncio.gather(*(submit(i)
+                                             for i in range(N_KEY_BURST)))
+            ids = [a["task_id"] for a in answers if "task_id" in a]
+            records = await asyncio.gather(*(
+                await_terminal(http, gateway, t, keyed("k-open"))
+                for t in ids))
+            for t in ids:
+                await result_bytes(http, gateway, t, keyed("k-open"))
+            async with http.get(worker + "/metrics") as r:
+                after = await r.text()
+            out["keys"][key] = {
+                "answers": answers, "span_s": max(a["s"] for a in answers),
+                "finals": [rec["Status"] for rec in records],
+                "wk_metrics": (before, after)}
+        out["admin"] = {}
+        for verb, path, body in (
+                ("reload", "/v1/models/models/landcover/reload", {}),
+                ("drain", "/v1/models/worker/drain", {}),
+                ("resume", "/v1/models/worker/resume", {})):
+            codes = []
+            for headers in ({}, keyed("k-wrong"), keyed("k-quota")):
+                async with http.post(worker + path, json=body,
+                                     headers=headers) as r:
+                    codes.append(r.status)
+            out["admin"][verb] = codes
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics"] = await r.text()
+    return out
+
+
+def replay_launches(log_text: str, model: str) -> dict:
+    """The kernel launches one replay of each of ``model``'s captured
+    buckets makes, from the worker's capture log lines."""
+    import ast
+
+    marker = f"captured {model} bucket "
+    out = {}
+    for line in log_text.splitlines():
+        if marker in line:
+            rest = line.split(marker, 1)[1]
+            bucket = int(rest.split(" ", 1)[0])
+            out[bucket] = ast.literal_eval(
+                rest.split("kernel launches a replay: ", 1)[1].rstrip(")"))
+    if not out:
+        raise AssertionError(f"the worker logged no {model} capture")
+    return out
+
+
+def check_keys(run: dict, wk_log: str, device: str) -> dict:
+    """14a's gates and per-key report. The worker is a child process, so
+    its launch counter is read once, at its exit; a key's share is its
+    batches (counted around its burst) times one replay's launches (the
+    same for every land-cover bucket, from the worker's capture lines),
+    and the shares must sum to the worker's own count."""
+    refused = run["refused"]
+    if set(refused) != {401}:
+        raise AssertionError(f"without a valid key: {refused}")
+    per_batch = {}
+    if device == "cuda":
+        per_replay = replay_launches(wk_log, "landcover")
+        if len({json.dumps(v, sort_keys=True)
+                for v in per_replay.values()}) != 1:
+            raise AssertionError(f"buckets launch differently: {per_replay}")
+        per_batch = next(iter(per_replay.values()))
+    report = {}
+    for key, burst in run["keys"].items():
+        answers = burst["answers"]
+        status = {s: sum(a["status"] == s for a in answers)
+                  for s in sorted({a["status"] for a in answers})}
+        admitted = status.get(200, 0)
+        texts = burst["wk_metrics"]
+        rows = metric_delta(texts, "ai4e_batch_size_sum", model="landcover")
+        batches = metric_delta(texts, "ai4e_batch_size_count",
+                               model="landcover")
+        report[key] = {
+            "status": status, "tasks_created": admitted,
+            "retry_after": sorted({a["retry_after"] for a in answers
+                                   if a["retry_after"]}, key=int),
+            "burst_span_s": burst["span_s"], "rows_on_card": rows,
+            "batches": batches,
+            "kernel_launches_from_batches": {k: n * batches
+                                             for k, n in per_batch.items()}}
+        if any(not f.startswith("completed") for f in burst["finals"]):
+            raise AssertionError(f"{key}: {burst['finals']}")
+        if rows != admitted:
+            raise AssertionError(f"{key}: {rows} rows on the card for "
+                                 f"{admitted} admitted")
+    if report["k-open"]["status"] != {200: N_KEY_BURST}:
+        raise AssertionError(f"k-open refused: {report['k-open']}")
+    rate = report["k-rate"]
+    most = RATE_BURST + RATE_RPS * rate["burst_span_s"] + 1
+    if not (set(rate["status"]) <= {200, 429}
+            and rate["tasks_created"] <= most and 429 in rate["status"]):
+        raise AssertionError(f"k-rate admitted {rate['status']}, at most "
+                             f"{most:.1f}")
+    quota = report["k-quota"]
+    if quota["status"] != {200: QUOTA_REQUESTS,
+                           403: N_KEY_BURST - QUOTA_REQUESTS}:
+        raise AssertionError(f"k-quota: {quota['status']}")
+    if not all(3500 <= int(v) <= 3600 for v in quota["retry_after"]):
+        raise AssertionError(f"k-quota Retry-After: {quota['retry_after']}")
+    # The worker's store calls carried k-open: every 401 the control plane
+    # counted is one of this process's.
+    unauthorized = metric_sum(run["cp_metrics"],
+                              "ai4e_gateway_requests_total",
+                              route="unauthorized")
+    if unauthorized != len(refused):
+        raise AssertionError(f"{unauthorized} refusals counted for "
+                             f"{len(refused)} sent without a valid key")
+    for verb, codes in run["admin"].items():
+        if codes != [401, 401, 200]:
+            raise AssertionError(f"worker {verb}: {codes}")
+    served = launches_by_model(wk_log).get("landcover", {})
+    summed = {k: sum(r["kernel_launches_from_batches"][k]
+                     for r in report.values()) for k in per_batch}
+    if summed != {k: served.get(k, 0) for k in per_batch}:
+        raise AssertionError(f"launches by key {summed} against the "
+                             f"worker's {served}")
+    return {"by_key": report, "refused_401": len(refused),
+            "admin": run["admin"], "launches_while_serving": served}
+
+
+def phase_keys(handoff: dict, device: str = "cuda") -> dict:
+    """14a: the control plane with subscription keys, a rate limit and a
+    quota, its worker keyed to its task store, as two child processes."""
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = cache_specs(gateway, worker, ("landcover",))
+    env = {**handoff["env"],
+           "AI4E_GATEWAY_API_KEYS": ",".join(KEYS),
+           "AI4E_GATEWAY_RATE_LIMITS":
+               f"k-rate={RATE_RPS:g}:{RATE_BURST:g}",
+           "AI4E_GATEWAY_QUOTAS": f"k-quota={QUOTA_REQUESTS}/3600",
+           "AI4E_SERVICE_TASKSTORE_API_KEY": "k-open"}
+    bodies = handoff["landcover"][0][:16]
+    with control_plane_and_worker(out_dir, "keys", models, routes, env,
+                                  cp_port, wk_port, device) as (procs, logs):
+        run = asyncio.run(keys_run(gateway, worker, procs, logs, bodies))
+    report = check_keys(run, logs["wk"].read_text(errors="replace"),
+                        device)
+    log(f"cache 14a: {json.dumps({'card': CARD.get('smi'), **report})}")
+    return report
+
+
+def hash_ms() -> dict:
+    """The gateway's ``request_key`` on a land-cover tile's body (256 px)
+    and a megadetector scene's (512 px), on this host's CPU."""
+    from ai4e_tpu_torch.rescache import request_key
+
+    out = {}
+    for size in (256, 512):
+        body = npy_bytes(np.random.default_rng(SEED).integers(
+            0, 256, (size, size, 3), np.uint8))
+        times = []
+        for _ in range(N_HASH):
+            t0 = time.perf_counter()
+            request_key("/v1/models/classify-async", body,
+                        "application/octet-stream")
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{size}px"] = {"bytes": len(body),
+                            "ms": statistics.median(times)}
+    return out
+
+
+@contextlib.contextmanager
+def gc_pauses(out: dict):
+    """Record this process's garbage-collector pauses while the block runs
+    into ``out``: collections, their total and longest ms, and how many
+    were of the oldest generation (the client and an in-process worker
+    share them)."""
+    import gc
+
+    pauses: list[list] = []
+
+    def on_gc(phase: str, info: dict) -> None:
+        if phase == "start":
+            pauses.append([info["generation"], -time.perf_counter()])
+        elif pauses:
+            pauses[-1][1] += time.perf_counter()
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(on_gc)
+        ms = [p[1] * 1e3 for p in pauses if p[1] > 0]
+        out.update(n=len(ms), ms=sum(ms), max_ms=max(ms, default=0.0),
+                   gen2=sum(p[0] == 2 for p in pauses))
+
+
+@contextlib.asynccontextmanager
+async def loop_stalls(out: dict):
+    """Record into ``out`` how long this process's event loop went without
+    running a 1 ms ticker while the block ran: the longest gap past the
+    tick and the gaps over 50 ms (a GC pause, or a thread holding the
+    GIL, shows here)."""
+    gaps: list[float] = []
+
+    async def tick() -> None:
+        while True:
+            t0 = time.perf_counter()
+            await asyncio.sleep(0.001)
+            gaps.append((time.perf_counter() - t0 - 0.001) * 1e3)
+
+    ticker = asyncio.create_task(tick())
+    try:
+        yield
+    finally:
+        ticker.cancel()
+        out.update(max_ms=max(gaps, default=0.0),
+                   over_50ms=sum(g > 50 for g in gaps))
+
+
+def worker_counts(worker) -> dict:
+    """Rows each model ran and each kernel's launches so far, in this
+    process."""
+    from ai4e_tpu_torch import ops
+
+    text = worker.service.metrics.render_prometheus()
+    return {"rows": {m: metric_sum(text, "ai4e_batch_size_sum", model=m)
+                     for m in CACHE_MODELS},
+            "launches": dict(ops.launch_counts())}
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    return {part: {k: after[part][k] - before[part].get(k, 0)
+                   for k in after[part]} for part in after}
+
+
+async def cache_wave(http, gateway: str, work: list[tuple],
+                     headers: dict | None = None) -> list[dict]:
+    """Every ``(model, route, tile, body)`` of ``work`` posted at once, each
+    task long-polled to its end and its result fetched."""
+    async def one(model: str, route: str, i: int, body: bytes) -> dict:
+        t0 = time.perf_counter()
+        async with http.post(gateway + route, data=body,
+                             headers={**OCTET, **(headers or {})}) as r:
+            if r.status != 200:
+                raise AssertionError(f"{route}: {r.status} {await r.text()}")
+            xcache = r.headers.get("X-Cache")
+            task_id = (await r.json())["TaskId"]
+        record = await await_terminal(http, gateway, task_id)
+        ms = (time.perf_counter() - t0) * 1e3
+        return {"model": model, "i": i, "x": xcache, "task_id": task_id,
+                "status": record["Status"], "ms": ms,
+                "result": await result_bytes(http, gateway, task_id)}
+
+    return list(await asyncio.gather(*(one(*w) for w in work)))
+
+
+async def sync_round(http, gateway: str, bodies: list[bytes]) -> list[dict]:
+    """Each body posted twice, all at once, to the land-cover sync route."""
+    async def one(i: int) -> dict:
+        t0 = time.perf_counter()
+        async with http.post(gateway + LC_SYNC, data=bodies[i % len(bodies)],
+                             headers=OCTET) as r:
+            if r.status != 200:
+                raise AssertionError(f"sync {r.status}: {await r.text()}")
+            return {"i": i % len(bodies), "x": r.headers.get("X-Cache"),
+                    "body": await r.read(),
+                    "ms": (time.perf_counter() - t0) * 1e3}
+
+    return list(await asyncio.gather(*(one(i)
+                                       for i in range(2 * len(bodies)))))
+
+
+async def cache_run(gateway: str, cp, cp_log: Path, worker, batcher,
+                    wk_port: int, bodies: dict) -> dict:
+    """14b's client, with the worker served from this process: waves 1-3
+    and the two sync rounds, the worker's rows and this process's kernel
+    launches read around each."""
+    import aiohttp
+
+    work = [(m, route, i, bodies[m][i]) for _ in range(N_CACHE_COPIES)
+            for i in range(N_CACHE_TILES)
+            for m, route in (("landcover", LC_ASYNC), ("moe", MOE_ASYNC))]
+    out: dict = {}
+    async with serving(worker, batcher, wk_port):
+        async with aiohttp.ClientSession(
+                connector=aiohttp.TCPConnector(limit=0),
+                timeout=aiohttp.ClientTimeout(total=600)) as http:
+            await wait_healthy(http, gateway + "/healthz", cp, cp_log)
+            async def timed(name: str, round_) -> None:
+                before, gcs, stalls = worker_counts(worker), {}, {}
+                t0 = time.perf_counter()
+                with gc_pauses(gcs):
+                    async with loop_stalls(stalls):
+                        answers = await round_
+                out[name] = {"answers": answers,
+                             "s": time.perf_counter() - t0, "client_gc": gcs,
+                             "loop_stalls": stalls,
+                             "counts": counts_delta(before,
+                                                    worker_counts(worker))}
+
+            for name, headers in (("wave1", None), ("wave2", None),
+                                  ("wave3", {"X-Cache-Bypass": "1"})):
+                await timed(name, cache_wave(http, gateway, work, headers))
+            tiles = bodies["landcover"][:N_CACHE_TILES]
+            for n in range(1 + N_SYNC_HIT_ROUNDS):
+                await timed(f"sync{n + 1}", sync_round(http, gateway, tiles))
+
+            async def with_full_collection() -> list[dict]:
+                # A hit round with a full collection of this process's
+                # heap started once its requests are out: what a pause of
+                # the client's process alone does to a hit's time.
+                import gc
+
+                round_ = asyncio.ensure_future(
+                    sync_round(http, gateway, tiles))
+                await asyncio.sleep(0.002)
+                t0 = time.perf_counter()
+                gc.collect()
+                out["full_collection_ms"] = (time.perf_counter() - t0) * 1e3
+                return await round_
+
+            await timed("sync_collected", with_full_collection())
+            async with http.get(gateway + "/metrics") as r:
+                out["cp_metrics"] = await r.text()
+    return out
+
+
+def check_cache(run: dict, device: str) -> dict:
+    """14b's gates and report."""
+    per = N_CACHE_TILES * N_CACHE_COPIES
+    report: dict = {"waves": {}}
+    executed: dict = {}
+    for answer in run["wave1"]["answers"]:
+        if answer["x"] == "miss":
+            executed.setdefault(answer["model"], {})[answer["i"]] = \
+                answer["result"]
+    for name in ("wave1", "wave2", "wave3"):
+        wave = run[name]
+        answers = wave["answers"]
+        bad = [a for a in answers if not a["status"].startswith("completed")]
+        if bad:
+            raise AssertionError(f"{name}: {bad[0]['status']}")
+        outcomes = {m: {x: sum(a["x"] == x for a in answers
+                               if a["model"] == m)
+                        for x in sorted({a["x"] for a in answers
+                                         if a["model"] == m})}
+                    for m in CACHE_MODELS}
+        report["waves"][name] = {
+            "x_cache": outcomes, "s": wave["s"], **wave["counts"],
+            "client_gc": wave["client_gc"], "loop_stalls": wave["loop_stalls"],
+            "task_ms": {x: pcts([a["ms"] for a in answers if a["x"] == x])
+                        for x in sorted({a["x"] for a in answers})}}
+        rows = wave["counts"]["rows"]
+        launches = wave["counts"]["launches"]
+        if name == "wave1":
+            for m in CACHE_MODELS:
+                if (rows[m] != N_CACHE_TILES
+                        or outcomes[m].get("miss") != N_CACHE_TILES
+                        or set(outcomes[m]) - {"miss", "coalesced", "hit"}):
+                    raise AssertionError(f"wave 1 {m}: {outcomes[m]}, "
+                                         f"{rows[m]} rows")
+        elif name == "wave2":
+            if (any(set(o) != {"hit"} for o in outcomes.values())
+                    or any(rows.values()) or any(launches.values())):
+                raise AssertionError(f"wave 2: {outcomes}, {rows}, "
+                                     f"{launches}")
+        else:
+            if (any(set(o) != {"bypass"} for o in outcomes.values())
+                    or any(rows[m] != per for m in CACHE_MODELS)):
+                raise AssertionError(f"wave 3: {outcomes}, {rows}")
+            if device == "cuda" and not all(
+                    launches[k] > 0 for k in ("normalize_image",
+                                              "fused_seg_postprocess",
+                                              "flash_attention")):
+                raise AssertionError(f"wave 3 launched {launches}")
+        if name != "wave3":
+            for a in answers:
+                if a["result"] != executed[a["model"]][a["i"]]:
+                    raise AssertionError(
+                        f"{name}: a {a['x']} {a['model']} answer differs "
+                        f"from the executed one for its input {a['i']}")
+    wave3 = run["wave3"]["answers"]
+    report["waves"]["wave3"]["same_bytes_as_wave1"] = sum(
+        a["result"] == executed[a["model"]][a["i"]] for a in wave3)
+    first = run["sync1"]
+    misses = {a["i"]: a["body"] for a in first["answers"] if a["x"] == "miss"}
+    if (len(misses) != N_CACHE_TILES
+            or first["counts"]["rows"]["landcover"] != N_CACHE_TILES
+            or any(a["body"] != misses[a["i"]] for a in first["answers"])):
+        raise AssertionError(f"sync 1: {[a['x'] for a in first['answers']]}, "
+                             f"{first['counts']}")
+    hit_rounds = [f"sync{n + 2}" for n in range(N_SYNC_HIT_ROUNDS)]
+    for name in hit_rounds + ["sync_collected"]:
+        hits = run[name]
+        if (any(a["x"] != "hit" or a["body"] != misses[a["i"]]
+                for a in hits["answers"])
+                or any(hits["counts"]["rows"].values())
+                or any(hits["counts"]["launches"].values())):
+            raise AssertionError(f"{name}: "
+                                 f"{[a['x'] for a in hits['answers']]}, "
+                                 f"{hits['counts']}")
+    for name in ["sync1"] + hit_rounds + ["sync_collected"]:
+        answers = run[name]["answers"]
+        report[name] = {
+            "x_cache": {x: sum(a["x"] == x for a in answers)
+                        for x in sorted({a["x"] for a in answers})},
+            **run[name]["counts"], "client_gc": run[name]["client_gc"],
+            "loop_stalls": run[name]["loop_stalls"],
+            "ms": pcts([a["ms"] for a in answers])}
+    report["sync_collected"]["full_collection_ms"] = \
+        run["full_collection_ms"]
+    cp = run["cp_metrics"]
+    report["rescache"] = {
+        **{f"requests_{o}": metric_sum(cp, "ai4e_rescache_requests_total",
+                                       outcome=o)
+           for o in ("hit", "miss", "coalesced", "bypass")},
+        "entries": metric_sum(cp, "ai4e_rescache_entries"),
+        "bytes": metric_sum(cp, "ai4e_rescache_bytes"),
+        "dispatch_cache_hit": metric_sum(cp, "ai4e_dispatch_total",
+                                         outcome="cache_hit")}
+    return report
+
+
+def phase_cache_served(handoff: dict, device: str = "cuda"):
+    """14b: the control plane with ``AI4E_PLATFORM_RESULT_CACHE=1`` as a
+    child process, land cover and moe served by ``build_worker`` in this
+    process (so each wave's kernel launches are read here). Returns the
+    report, the worker and the inputs for 14c."""
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.config import FrameworkConfig
+
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker_url = (f"http://127.0.0.1:{cp_port}",
+                           f"http://127.0.0.1:{wk_port}")
+    models, routes = cache_specs(gateway, worker_url, CACHE_MODELS)
+    (out_dir / "cache_routes.json").write_text(json.dumps(routes))
+    seqs, _ = moe_held_out(N_CACHE_TILES)
+    bodies = {"landcover": handoff["landcover"][0][:N_CACHE_TILES],
+              "moe": [npy_bytes(s.astype(np.uint16)) for s in seqs]}
+    cp_log = out_dir / "cache_control_plane.log"
+    cp = start_child(["control-plane", "--routes",
+                      str(out_dir / "cache_routes.json"), "--port",
+                      str(cp_port)], cp_log,
+                     {**handoff["env"], "AI4E_PLATFORM_RESULT_CACHE": "1"})
+    try:
+        t0 = time.perf_counter()
+        worker, batcher, _ = build_worker(
+            models, device=device, config=FrameworkConfig.from_env(
+                {"AI4E_RUNTIME_CHECKPOINT_DIR": str(out_dir)}))
+        build_s = time.perf_counter() - t0
+        run = asyncio.run(cache_run(gateway, cp, cp_log, worker, batcher,
+                                    wk_port, bodies))
+        stop_child(cp, cp_log, "cache control plane")
+    finally:
+        if cp.poll() is None:
+            cp.kill()
+            cp.wait(timeout=30)
+    report = {"card": CARD.get("smi"), "worker_build_s": build_s,
+              **check_cache(run, device), "hash": hash_ms()}
+    log(f"cache 14b: {json.dumps(report)}")
+    return report, worker, bodies
+
+
+async def invalidation_run(platform, worker, batcher, ports: tuple,
+                           bodies: dict, npz: dict) -> dict:
+    """14c's client against the in-process platform and worker."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai4e_tpu_torch.rescache import request_key
+
+    cp_port, wk_port = ports
+    gateway = f"http://127.0.0.1:{cp_port}"
+    runner = web.AppRunner(platform.gateway.app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", cp_port).start()
+    await platform.start()
+    cache = platform.result_cache
+    out: dict = {}
+
+    def keys(model: str, backend: str) -> list[str]:
+        return [request_key(backend, b, "application/octet-stream")
+                for b in bodies[model]]
+
+    lc_keys = keys("landcover", "/v1/models/classify-async")
+    moe_keys = keys("moe", "/v1/models/route-async")
+
+    async def one_by_one(headers=None) -> list[dict]:
+        answers = []
+        for i, body in enumerate(bodies["landcover"]):
+            answers += await cache_wave(http, gateway,
+                                        [("landcover", LC_ASYNC, i, body)],
+                                        headers)
+        return answers
+
+    try:
+        async with serving(worker, batcher, wk_port) as (_, base), \
+                aiohttp.ClientSession(
+                    connector=aiohttp.TCPConnector(limit=0),
+                    timeout=aiohttp.ClientTimeout(total=600)) as http:
+            async def reload(path: str, key: str | None) -> int:
+                async with http.post(base + "/models/landcover/reload",
+                                     json={"checkpoint": path},
+                                     headers=keyed(key)) as r:
+                    return r.status
+
+            if await reload(npz["seed0"], ADMIN_KEY) != 200:
+                raise AssertionError("reload to the seed-0 weights failed")
+            out["seed0"] = await one_by_one()
+            await cache_wave(http, gateway,
+                             [("moe", MOE_ASYNC, i, b)
+                              for i, b in enumerate(bodies["moe"])])
+            out["cached_before"] = {
+                "landcover": sum(map(cache.peek, lc_keys)),
+                "moe": sum(map(cache.peek, moe_keys))}
+            out["reload_codes"] = [await reload(npz["trained"], None),
+                                   await reload(npz["trained"], "k-wrong"),
+                                   await reload(npz["trained"], ADMIN_KEY)]
+            out["cached_after"] = {
+                "landcover": sum(map(cache.peek, lc_keys)),
+                "moe": sum(map(cache.peek, moe_keys))}
+            before = worker_counts(worker)
+            out["trained"] = await one_by_one()
+            out["trained_counts"] = counts_delta(before, worker_counts(worker))
+            out["bypass"] = await one_by_one({"X-Cache-Bypass": "1"})
+
+            # The straddling burst: requests every STRADDLE_GAP_S, the reload
+            # back to the seed-0 weights issued a third of the way in, until
+            # N_AFTER_RELOAD requests went out after its 200.
+            done: dict = {}
+
+            async def reloader() -> None:
+                await asyncio.sleep(N_AFTER_RELOAD * STRADDLE_GAP_S)
+                status = await reload(npz["seed0"], ADMIN_KEY)
+                done.update(status=status, t=time.perf_counter())
+
+            async def one(j: int) -> dict:
+                i = j % len(bodies["landcover"])
+                sent = time.perf_counter()
+                answer, = await cache_wave(
+                    http, gateway,
+                    [("landcover", LC_ASYNC, i, bodies["landcover"][i])])
+                return {**answer, "after_200": "t" in done
+                        and sent > done["t"]}
+
+            reload_task = asyncio.create_task(reloader())
+            sends, after = [], 0
+            while after < N_AFTER_RELOAD and len(sends) < 4096:
+                after += "t" in done
+                sends.append(asyncio.create_task(one(len(sends))))
+                await asyncio.sleep(STRADDLE_GAP_S)
+            await reload_task
+            out["straddle"] = list(await asyncio.gather(*sends))
+            out["straddle_reload"] = done["status"]
+    finally:
+        await platform.stop()
+        await runner.cleanup()
+    return out
+
+
+def check_invalidation(run: dict, num_classes: int, pixels: int) -> dict:
+    """14c's gates."""
+    report = {"reload_codes": run["reload_codes"],
+              "cached_before": run["cached_before"],
+              "cached_after": run["cached_after"],
+              "trained_x_cache": sorted({a["x"] for a in run["trained"]}),
+              "trained_counts": run["trained_counts"]}
+    want = {"landcover": N_CACHE_TILES, "moe": N_CACHE_TILES}
+    if run["reload_codes"] != [401, 401, 200] or run["cached_before"] != want:
+        raise AssertionError(f"14c: {report}")
+    if run["cached_after"] != {"landcover": 0, "moe": N_CACHE_TILES}:
+        raise AssertionError(f"the reload left {run['cached_after']} cached")
+    if (report["trained_x_cache"] != ["miss"]
+            or run["trained_counts"]["rows"]["landcover"] != N_CACHE_TILES):
+        raise AssertionError(f"after the reload: {report}")
+    trained = [a["result"] for a in run["trained"]]
+    if trained != [a["result"] for a in run["bypass"]]:
+        raise AssertionError("after the reload a tile's answer differs from "
+                             "a bypass request's")
+    seed0 = [a["result"] for a in run["seed0"]]
+    changed = sum(a != b for a, b in zip(seed0, trained))
+    if not changed:
+        raise AssertionError("no tile's answer changed with the reload: the "
+                             "phase proves nothing")
+    # The burst: an answer is stale when it is nearer the trained weights'
+    # answer (before the reload) than the seed-0 weights' (after it). Only
+    # tiles whose two answers differ tell them apart.
+    old = [class_counts(b, num_classes) for b in trained]
+    new = [class_counts(b, num_classes) for b in seed0]
+    telling = {i for i in range(len(old))
+               if np.abs(old[i] - new[i]).sum() > 4 * COUNT_TOLERANCE
+               * pixels}
+    if not telling:
+        raise AssertionError("no tile tells the two weights apart")
+    stale = {"before_200": 0, "after_200": 0}
+    sent = {"before_200": 0, "after_200": 0}
+    for a in run["straddle"]:
+        side = "after_200" if a["after_200"] else "before_200"
+        sent[side] += 1
+        if not a["status"].startswith("completed"):
+            raise AssertionError(f"straddle: {a['status']}")
+        if a["i"] in telling:
+            got = class_counts(a["result"], num_classes)
+            stale[side] += int(np.abs(got - old[a["i"]]).sum()
+                               <= np.abs(got - new[a["i"]]).sum())
+    report.update(changed_tiles=changed, telling_tiles=len(telling),
+                  straddle_sent=sent, straddle_stale=stale,
+                  straddle_reload=run["straddle_reload"])
+    if run["straddle_reload"] != 200 or sent["after_200"] < N_AFTER_RELOAD:
+        raise AssertionError(f"straddle: {report}")
+    if stale["after_200"]:
+        raise AssertionError(f"{stale['after_200']} requests sent after the "
+                             f"reload's 200 got a pre-reload answer")
+    return report
+
+
+def phase_invalidation(handoff: dict, worker, bodies: dict,
+                       device: str = "cuda") -> dict:
+    """14c: ``LocalPlatform(result_cache=True)`` and a worker in this
+    process given its cache (so its reloads invalidate it), on 14b's
+    runtime (its graphs), its reload gated by a key."""
+    from ai4e_tpu_torch.convert import save_npz
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.platform_assembly import LocalPlatform, PlatformConfig
+    from ai4e_tpu_torch.runtime.batcher import MicroBatcher
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.worker import InferenceWorker
+    from ai4e_tpu_torch.taskstore.http import make_app
+
+    out_dir = handoff["out_dir"]
+    runtime = worker.runtime
+    lc = runtime.models["landcover"]
+    spec = next(m for m in cache_specs("", "", ("landcover",))[0]["models"])
+    fresh = build_servable("unet", **model_kwargs({"models": [
+        {k: v for k, v in spec.items() if k != "checkpoint"}]}))
+    npz = {"seed0": str(out_dir / "landcover_seed0.npz"),
+           "trained": str(out_dir / (spec["checkpoint"] + ".npz"))}
+    save_npz(fresh.flax_from_state_dict(fresh.module.state_dict()),
+             npz["seed0"])
+    del fresh
+    metrics = MetricsRegistry()
+    platform = LocalPlatform(PlatformConfig(
+        retry_delay=TOPOLOGY_RETRY_DELAY, result_cache=True), metrics=metrics)
+    make_app(platform.store, app=platform.gateway.app)  # the result reads
+    cp_port, wk_port = free_port(), free_port()
+    batcher = MicroBatcher(runtime, metrics=metrics)
+    inproc = InferenceWorker(
+        "gpu-worker", runtime, batcher, task_manager=platform.task_manager,
+        prefix="v1/models", metrics=metrics, store=platform.store,
+        checkpoint_root=str(out_dir), result_cache=platform.result_cache,
+        admin_api_keys={ADMIN_KEY})
+    inproc.serve_model(lc, sync_path="/classify", async_path="/classify-async")
+    inproc.serve_model(runtime.models["moe"], sync_path="/route",
+                       async_path="/route-async")
+    wk = f"http://127.0.0.1:{wk_port}"
+    platform.publish_async_api(LC_ASYNC, wk + "/v1/models/classify-async")
+    platform.publish_async_api(MOE_ASYNC, wk + "/v1/models/route-async")
+    run = asyncio.run(invalidation_run(platform, inproc, batcher,
+                                       (cp_port, wk_port), bodies, npz))
+    report = check_invalidation(run, spec["num_classes"],
+                                spec["tile"] ** 2)
+    log(f"cache 14c: {json.dumps({'card': CARD.get('smi'), **report})}")
+    return report
+
+
+def phase_cache(handoff: dict, kernels: list[dict],
+                device: str = "cuda") -> dict:
+    """Phase 14: keys, rate limits and quotas (a), the result cache through
+    the control plane (b), invalidation on reload in one process (c)."""
+    import gc
+
+    log("cache: subscription keys, limits and quotas, then the result cache")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report = {"14a": phase_keys(handoff, device)}
+    report["14b"], worker, bodies = phase_cache_served(handoff, device)
+    report["14c"] = phase_invalidation(handoff, worker, bodies, device)
+    del worker
+    report["seconds"] = time.perf_counter() - t0
+    rows = {k["name"]: k for k in kernels}
+    waves = report["14b"]["waves"]
+    for name in ("normalize_image", "fused_seg_postprocess",
+                 "flash_attention"):
+        if name in rows:
+            rows[name]["launches_cache_waves"] = {
+                w: waves[w]["launches"][name] for w in waves}
+    for name in ("normalize_image", "fused_seg_postprocess"):
+        if name in rows:
+            # The worker's own count over 14a (its exit line).
+            rows[name]["launches_keys_14a"] = (
+                report["14a"]["launches_while_serving"].get(name, 0))
+    log(f"cache: {json.dumps({'seconds': report['seconds']})}")
+    return report
+
+
 def detector_dct_sweep(trainings: int) -> None:
     """``python3 chip_smoke.py --detector-dct-sweep N``: the megadetector
     recipe trained N times on the card (seed 0 each time; cuDNN's
@@ -5959,6 +6785,7 @@ def main() -> None:
     phase_observability(deployed, kernels)
     phase_lm()
     phase_wires(deployed, kernels)
+    phase_cache(deployed, kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -104,6 +104,19 @@ SERVED_ADMISSION_KNOBS = [
         "admission_initial_limit", "admission_max_backlog")]
 
 
+#: Subscription keys, rate limits and quotas (ROADMAP A18.4) and the result
+#: cache (A18.6): the port serves them, so each set away from its default
+#: parses as JAX's does.
+SERVED_AUTH_CACHE_KNOBS = [
+    ("AI4E_GATEWAY_", f) for f in (
+        "api_keys", "rate_limit_rps", "rate_limit_burst", "rate_limits",
+        "quota", "quotas")] + [
+    ("AI4E_SERVICE_", "taskstore_api_key")] + [
+    ("AI4E_PLATFORM_", f) for f in (
+        "result_cache", "cache_max_entries", "cache_max_bytes",
+        "cache_ttl_seconds")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -127,7 +140,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_RUNTIME_KNOBS, "same"))
          + list(off_default_cases(SERVED_OBSERVABILITY_KNOBS, "same"))
          + list(off_default_cases(SERVED_DECODE_KNOBS, "same"))
-         + list(off_default_cases(SERVED_ADMISSION_KNOBS, "same")))
+         + list(off_default_cases(SERVED_ADMISSION_KNOBS, "same"))
+         + list(off_default_cases(SERVED_AUTH_CACHE_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -176,6 +190,10 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_ADMISSION": "1"},
     {"AI4E_PLATFORM_ADMISSION_INITIAL_LIMIT": "4"},
     {"AI4E_PLATFORM_ADMISSION_MAX_BACKLOG": "64"},
+    {"AI4E_PLATFORM_RESULT_CACHE": "1"},
+    {"AI4E_PLATFORM_CACHE_MAX_ENTRIES": "7"},
+    {"AI4E_PLATFORM_CACHE_MAX_BYTES": "1024"},
+    {"AI4E_PLATFORM_CACHE_TTL_SECONDS": ""},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -193,8 +211,10 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_AUTH_CACHE_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
-    assert len(port_config.UNPORTED) == 82
+    assert len(SERVED_AUTH_CACHE_KNOBS) == 11
+    assert len(port_config.UNPORTED) == 71
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(
