@@ -1,4 +1,5 @@
-"""Command line: ``python -m ai4e_tpu_torch control-plane|worker|trace``.
+"""Command line: ``python -m ai4e_tpu_torch
+control-plane|worker|redrive|trace``.
 
 Counterpart of ``ai4e_tpu/cli.py``; both read the same spec files and the
 same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
@@ -25,6 +26,11 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   is on (``AI4E_RUNTIME_KV_SLOTS``, ``_KV_MAX_LEN``,
   ``_DECODE_PROMPT_BUCKETS``, ``_DECODE_MAX_PENDING``), and skipped with a
   warning when it is off.
+- ``redrive --store CONTROL_PLANE [--task-id ID | --contains TEXT]
+  [--api-key KEY]`` — republish failed tasks with their original bodies
+  (``POST /v1/taskstore/redrive``): one task, or every failed task whose
+  status contains TEXT (default: the dead-letter prose; ``''``: all).
+  It imports neither torch nor JAX.
 - ``trace --task-id ID --url CONTROL_PLANE`` — the task's hop ledger,
   fetched live (``GET /v1/taskmanagement/task/{id}?ledger=1``) and rendered
   with per-hop deltas; ``trace [--task-id ID | --trace-id ID] [--list]
@@ -42,7 +48,13 @@ included; set but empty, it raises) and the worker's admin verbs;
 and ``_QUOTAS`` throttle it; a worker reaches a keyed control plane with
 ``AI4E_SERVICE_TASKSTORE_API_KEY``; ``AI4E_PLATFORM_RESULT_CACHE`` turns
 on the result cache (``_CACHE_MAX_ENTRIES``, ``_CACHE_MAX_BYTES``,
-``_CACHE_TTL_SECONDS``).
+``_CACHE_TTL_SECONDS``). ``AI4E_PLATFORM_RESULT_DIR`` offloads results of
+``_RESULT_OFFLOAD_THRESHOLD`` bytes or more to files there, and a worker
+with ``AI4E_SERVICE_RESULT_DIR`` on the same directory writes them itself
+and registers a pointer; ``AI4E_PLATFORM_NATIVE_STORE`` and
+``_NATIVE_BROKER`` run the C++ cores; ``AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT``
+turns on the reaper's rescue of tasks stuck in running
+(``_REAPER_MAX_REQUEUES`` rescues, then failed).
 
 A spec key, route key or ``AI4E_*`` knob the JAX package would honour and
 this port does not serve yet raises and names its ROADMAP item.
@@ -58,6 +70,7 @@ import os
 import signal
 
 from .config import ConfigError, FrameworkConfig
+from .taskstore.task import TaskStatus
 
 log = logging.getLogger("ai4e_tpu_torch.cli")
 
@@ -267,23 +280,41 @@ def _stores(models: dict, config: FrameworkConfig):
     when the spec (or ``AI4E_GATEWAY_TASKSTORE_GET_URI``) names it, with
     the first non-empty key of ``AI4E_SERVICE_TASKSTORE_API_KEY`` (a keyed
     control plane keys its store surface too), else a store of the
-    worker's own."""
-    from .service.task_manager import (HttpResultStore, HttpTaskManager,
-                                       LocalTaskManager)
+    worker's own. ``AI4E_SERVICE_RESULT_DIR`` offloads results of
+    ``AI4E_SERVICE_RESULT_OFFLOAD_THRESHOLD`` bytes or more to files."""
+    from .service.task_manager import (DirectResultStore, HttpResultStore,
+                                       HttpTaskManager, LocalTaskManager)
     from .taskstore import InMemoryTaskStore
 
+    service = config.service
     base = models.get("taskstore") or config.gateway.taskstore_get_uri
     if not base:
-        store = InMemoryTaskStore()
+        # A standalone worker: ``AI4E_SERVICE_RESULT_DIR`` becomes its own
+        # store's offload backend (there is no control plane to register
+        # pointers with).
+        backend = None
+        if service.result_dir:
+            from .taskstore.results import FileResultBackend
+
+            backend = FileResultBackend(service.result_dir)
+        store = InMemoryTaskStore(
+            result_backend=backend,
+            result_offload_threshold=(service.result_offload_threshold
+                                      if backend else None))
         return LocalTaskManager(store), store
     # The gateway's comma-separated key list may be mounted as it is: a
     # leading comma must not leave the worker keyless.
-    key = next(iter(_key_list(config.service.taskstore_api_key)), None)
+    key = next(iter(_key_list(service.taskstore_api_key)), None)
     if isinstance(base, str) and "," in base:
         # The control plane's replica set, primary first.
         base = [u.strip() for u in base.split(",") if u.strip()]
-    return (HttpTaskManager(base, api_key=key),
-            HttpResultStore(base, api_key=key))
+    results = HttpResultStore(base, api_key=key)
+    if service.result_dir:
+        # Large results go to the result directory the control plane
+        # serves (AI4E_PLATFORM_RESULT_DIR); only a pointer crosses HTTP.
+        results = DirectResultStore(service.result_dir, results,
+                                    threshold=service.result_offload_threshold)
+    return HttpTaskManager(base, api_key=key), results
 
 
 def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
@@ -504,6 +535,45 @@ async def run_worker(config: FrameworkConfig, models: dict,
                 config=config)
 
 
+def run_redrive(args) -> None:
+    """The ``redrive`` verb: an HTTP client of the control plane's
+    ``POST /v1/taskstore/redrive``, no assembly."""
+    import sys
+    import urllib.error
+    import urllib.request
+
+    if args.task_id:
+        payload: dict = {"TaskId": args.task_id}
+    else:
+        payload = {"Contains": args.contains}
+    req = urllib.request.Request(
+        args.store.rstrip("/") + "/v1/taskstore/redrive",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json",
+                 **({"Ocp-Apim-Subscription-Key": args.api_key}
+                    if args.api_key else {})},
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            print(resp.read().decode())
+    except urllib.error.HTTPError as exc:
+        detail = exc.read().decode()
+        if exc.code == 409:
+            # The store refused: the task is not failed.
+            print("redrive refused (409): task is not in a "
+                  "redrivable status", file=sys.stderr)
+        elif exc.code == 503:
+            after = exc.headers.get("Retry-After") if exc.headers else None
+            print("store refused the redrive (503"
+                  + (f", retry after {after}s" if after else "")
+                  + ") — standby or degraded; retry against the "
+                  "primary", file=sys.stderr)
+        print(detail)
+        raise SystemExit(1)
+    except OSError as exc:  # URLError and TimeoutError are OSErrors
+        raise SystemExit(f"cannot reach {args.store}: {exc}")
+
+
 def run_trace(args) -> None:
     """The ``trace`` verb: an HTTP client or a log reader, no assembly."""
     if args.url:
@@ -580,6 +650,20 @@ def main(argv=None) -> None:
     wk.add_argument("--port", type=int, default=None)
     wk.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu")
+    rd = sub.add_parser(
+        "redrive",
+        help="republish dead-lettered (or otherwise failed) tasks with "
+             "their original bodies")
+    rd.add_argument("--store", default="http://127.0.0.1:8080",
+                    help="control-plane URL (the task-store surface)")
+    rd.add_argument("--task-id", default=None,
+                    help="redrive ONE task (any failed state)")
+    rd.add_argument("--contains", default=TaskStatus.DEAD_LETTER_PROSE,
+                    help="sweep filter on the failed Status prose; '' "
+                         "redrives every failed task")
+    rd.add_argument("--api-key", default=None,
+                    help="subscription key when the control plane runs "
+                         "with gateway keys")
     tr = sub.add_parser(
         "trace",
         help="a task's hop ledger fetched live from the control plane "
@@ -606,6 +690,9 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.component == "trace":
         run_trace(args)
+        return
+    if args.component == "redrive":
+        run_redrive(args)
         return
     try:
         config = FrameworkConfig.from_env()

@@ -35,13 +35,11 @@ OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
 _HA = "the journaled and replicated task store (ROADMAP A18.1)"
 _SHARDS = "the sharded task store (ROADMAP A18.2)"
 _PUSH = "the push transport (ROADMAP A18.3)"
-_REAPER = "the task reaper's stuck-task rescue (ROADMAP A18.7)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
 _TENANCY = "tenancy (ROADMAP A18.10)"
 _SLO_LADDER = ("the SLO burn feed to the degradation ladder, which needs "
                "orchestration (ROADMAP A18.9)")
 _PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
-_NATIVE = "the native cores and result offload (ROADMAP A18.13)"
 _REPORTER = "the request reporter (ROADMAP A18.14)"
 _WORKER = "the worker's rollout generations (ROADMAP A6.3)"
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
@@ -57,11 +55,6 @@ UNPORTED: dict[tuple[str, str], str] = {
         "shard_tail_interval", "shard_feed_recent")},
     **{("AI4E_PLATFORM_", f): _PUSH for f in (
         "transport", "push_ttl_seconds", "push_max_attempts", "push_window")},
-    **{("AI4E_PLATFORM_", f): _NATIVE for f in (
-        "native_broker", "native_store", "result_dir",
-        "result_offload_threshold")},
-    **{("AI4E_PLATFORM_", f): _REAPER for f in (
-        "reaper_running_timeout", "reaper_max_requeues")},
     **{("AI4E_PLATFORM_", f): _RESILIENCE for f in (
         "resilience", "resilience_failure_threshold", "resilience_window",
         "resilience_error_rate", "resilience_recovery_seconds",
@@ -77,8 +70,6 @@ UNPORTED: dict[tuple[str, str], str] = {
         "pipeline_chunk_replay")},
     ("AI4E_SERVICE_", "reporter_uri"): _REPORTER,
     ("AI4E_SERVICE_", "cluster"): _REPORTER,
-    ("AI4E_SERVICE_", "result_dir"): _NATIVE,
-    ("AI4E_SERVICE_", "result_offload_threshold"): _NATIVE,
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,

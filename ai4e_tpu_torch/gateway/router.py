@@ -682,7 +682,9 @@ class Gateway:
                         del self._waiters[task_id]
         payload = task.to_dict()
         if request.query.get("ledger", "") not in ("", "0", "false"):
-            payload["Ledger"] = self.store.get_ledger(task_id)
+            # The native store carries no timeline.
+            getter = getattr(self.store, "get_ledger", None)
+            payload["Ledger"] = getter(task_id) if getter else []
         return web.json_response(payload)
 
     async def _flight_dump(self, _: web.Request) -> web.Response:

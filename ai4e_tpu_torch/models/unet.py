@@ -81,10 +81,16 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, norm in zip(self.convs, self.norms):
             x = conv(x) if conv.stride == (1, 1) else same_conv(conv, x)
-            # Statistics and affine in float32, as flax's GroupNorm does.
-            x = F.group_norm(x.float(), norm.num_groups, norm.weight,
-                             norm.bias, norm.eps).to(x.dtype)
-            x = gelu(x)
+            # Statistics and affine in float32, as flax's GroupNorm does, on
+            # an NCHW-contiguous copy: ATen's CPU GroupNorm on a
+            # channels_last input splits its reduction by batch and thread,
+            # so a row's answer would depend on the batch it rides in
+            # (ROADMAP C8). The result goes back to channels_last for gelu
+            # and the next convolution.
+            y = F.group_norm(
+                x.to(torch.float32, memory_format=torch.contiguous_format),
+                norm.num_groups, norm.weight, norm.bias, norm.eps)
+            x = gelu(y.to(x.dtype, memory_format=torch.channels_last))
         return x
 
 

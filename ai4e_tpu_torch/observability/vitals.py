@@ -175,8 +175,7 @@ class VitalsSampler:
         if pause < 0:
             return
         self._m_gc_pause.observe(pause)
-        # CPython's GC generations: 0, 1 and 2, a bounded label set.
-        self._m_gc_total.inc(generation=str(info.get("generation", "?")))
+        self._m_gc_total.inc(generation=str(info.get("generation", "?")))  # ai4e: noqa[AIL013] — CPython GC generations are 0/1/2 (plus "?"), inherently bounded; not a rollout generation
         with self._gc_lock:
             self._gc_accum += pause
 

@@ -1,7 +1,10 @@
 """Control-plane assembly — store + broker + dispatchers + gateway in one
 event loop; ``PlatformConfig`` and ``LocalPlatform`` of
-``ai4e_tpu/platform_assembly.py``, with the in-memory store, the in-memory
-broker (transport ``"queue"``), the reaper's terminal retention, the
+``ai4e_tpu/platform_assembly.py``, with the in-memory store (with
+``result_dir``, large results offloaded to files) or the native C++ store
+(``native_store``), the in-memory broker (transport ``"queue"``) or the
+native one (``native_broker``), the reaper's terminal retention and, with
+``reaper_running_timeout``, its stuck-task rescue, the
 autoscaler on a route's one dispatcher (``scaling.AutoscaleController``),
 the queue-depth gauges (``observability.DepthLogger``, always on, as in
 JAX) and, with ``observability``, the hop ledger and flight recorder
@@ -19,7 +22,10 @@ it; a worker in the same process takes it as ``result_cache``, so that
 its reloads invalidate it).
 The sharded store and orchestration, under which the JAX package scales a
 route's shards or on a predictive signal, are refused by
-``config.check_ported`` (ROADMAP A18.2, A18.9).
+``config.check_ported`` (ROADMAP A18.2, A18.9). As in JAX, the native store
+refuses ``result_dir``, an explicit ``reaper_terminal_retention`` and
+observability, and either native core refuses admission, each with JAX's
+text.
 
 ``PlatformConfig`` holds the fields ``LocalPlatform`` reads, with the JAX
 package's defaults; ``PlatformSection.to_platform_config`` fills it, after
@@ -57,9 +63,22 @@ class PlatformConfig:
     max_delivery_count: int = 1440  # broker patience
     dispatcher_concurrency: int = 1
     lease_seconds: float = 300.0
+    native_broker: bool = False     # C++ broker core (native/broker_core.cpp)
+    native_store: bool = False      # C++ task-store core (native/taskstore_core.cpp)
+    # Seconds a task may sit in running before the reaper republishes it;
+    # None: no rescue.
+    reaper_running_timeout: float | None = None
     reaper_interval: float = 30.0
-    # Seconds a completed/failed task is kept: None = 900, < 0 = forever.
+    reaper_max_requeues: int = 3
+    # Seconds a completed/failed task is kept: None = 900 on the Python
+    # store and forever on the native one (it has no eviction), < 0 =
+    # forever.
     reaper_terminal_retention: float | None = None
+    # Result offload: results of result_offload_threshold bytes or more are
+    # written under result_dir (a directory every process mounts) and the
+    # store keeps a pointer. Python store only.
+    result_dir: str | None = None
+    result_offload_threshold: int = 1024 * 1024
     queue_depth_interval: float = 30.0
     process_depth_interval: float = 300.0
     # Request observability: the hop ledger, the flight recorder and the
@@ -105,12 +124,8 @@ class LocalPlatform:
                  metrics: MetricsRegistry | None = None):
         self.config = config or PlatformConfig()
         self.metrics = metrics or DEFAULT_REGISTRY
-        self.store = InMemoryTaskStore()
+        self.store = self._build_store()
         self.task_manager = LocalTaskManager(self.store)
-        self.broker = InMemoryBroker(
-            max_delivery_count=self.config.max_delivery_count,
-            lease_seconds=self.config.lease_seconds, metrics=self.metrics)
-        self.store.set_publisher(self.broker.publish)
         self.result_cache = None
         if self.config.result_cache:
             from .rescache import ResultCache, attach_store
@@ -126,6 +141,11 @@ class LocalPlatform:
         self.observability = None
         self.slo = None
         if self.config.observability:
+            if self.config.native_store:
+                # The C store has no ledger slot.
+                raise ValueError(
+                    "observability=True requires the Python store "
+                    "(the native core carries no hop-ledger state)")
             self.observability = RequestObservability(
                 self.store, metrics=self.metrics,
                 flight=FlightRecorder(
@@ -147,6 +167,14 @@ class LocalPlatform:
                 tick_s=self.config.slo_tick_s)
         self.admission = None
         if self.config.admission:
+            if self.config.native_store or self.config.native_broker:
+                # The C cores have no deadline or priority slots and no
+                # expired bucket: admission there would drop the very
+                # state it enforces.
+                raise ValueError(
+                    "admission control requires the Python store and "
+                    "broker (the native cores carry no deadline/priority "
+                    "state)")
             from .admission import AdmissionController
 
             self.admission = AdmissionController(
@@ -158,6 +186,18 @@ class LocalPlatform:
             # Terminal transitions feed the drain rate (every shed's
             # Retry-After) and score goodput.
             self.admission.attach_store(self.store)
+        if self.config.native_broker:
+            from .broker.native import NativeBroker
+
+            self.broker = NativeBroker(
+                max_delivery_count=self.config.max_delivery_count,
+                lease_seconds=self.config.lease_seconds)
+        else:
+            self.broker = InMemoryBroker(
+                max_delivery_count=self.config.max_delivery_count,
+                lease_seconds=self.config.lease_seconds,
+                metrics=self.metrics)
+        self.store.set_publisher(self.broker.publish)
         self.dispatchers = DispatcherPool(
             self.broker, self.task_manager,
             retry_delay=self.config.retry_delay,
@@ -173,12 +213,23 @@ class LocalPlatform:
             self.gateway.set_observability(self.observability)
         if self.admission is not None:
             self.gateway.set_admission(self.admission)
+        # None = AUTO: 15 minutes on the Python store, no eviction on the
+        # native one (it has none); negative opts out.
         retention = self.config.reaper_terminal_retention
-        if retention is None:
+        if retention is None and not self.config.native_store:
             retention = DEFAULT_TERMINAL_RETENTION_S
-        self.reaper = None if retention < 0 else TaskReaper(
-            self.store, retention, interval=self.config.reaper_interval,
-            metrics=self.metrics)
+        if retention is not None and retention < 0:
+            retention = None
+        self.reaper = None
+        if (self.config.reaper_running_timeout is not None
+                or retention is not None):
+            self.reaper = TaskReaper(
+                self.store,
+                running_timeout=self.config.reaper_running_timeout,
+                interval=self.config.reaper_interval,
+                max_requeues=self.config.reaper_max_requeues,
+                terminal_retention=retention,
+                metrics=self.metrics)
         self.depth_logger = DepthLogger(
             self.store, metrics=self.metrics,
             queue_interval=self.config.queue_depth_interval,
@@ -188,6 +239,35 @@ class LocalPlatform:
         # Strong refs to fire-and-forget terminal transitions: the event
         # loop holds tasks weakly.
         self._bg_tasks: set[asyncio.Task] = set()
+
+    def _build_store(self):
+        """The Python store, with the result backend when ``result_dir`` is
+        set, or the native one, which refuses the options it cannot
+        honour."""
+        if not self.config.native_store:
+            backend = None
+            if self.config.result_dir:
+                from .taskstore.results import FileResultBackend
+
+                backend = FileResultBackend(self.config.result_dir)
+            return InMemoryTaskStore(
+                result_backend=backend,
+                result_offload_threshold=(
+                    self.config.result_offload_threshold if backend else None))
+        if self.config.result_dir:
+            raise ValueError(
+                "result_dir offload requires the Python store "
+                "(the native store keeps results in its own memory)")
+        ret = self.config.reaper_terminal_retention
+        if ret is not None and ret >= 0:
+            # An explicit retention that never evicts would be the very
+            # growth it exists to bound.
+            raise ValueError(
+                "reaper_terminal_retention requires the Python store "
+                "(the native store has no eviction)")
+        from .taskstore.native import NativeTaskStore
+
+        return NativeTaskStore()
 
     def publish_async_api(self, public_prefix: str, backend_uri: str,
                           retry_delay: float | None = None,
@@ -284,3 +364,5 @@ class LocalPlatform:
             await self.depth_logger.stop()
             await self.dispatchers.stop()
             self._started = False
+        if hasattr(self.broker, "close"):
+            self.broker.close()

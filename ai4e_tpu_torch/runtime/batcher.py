@@ -613,7 +613,7 @@ class MicroBatcher:
                 try:
                     results.append(
                         (True, servable.postprocess(_tree_index(outputs, i))))
-                except Exception as exc:  # noqa: BLE001 — delivered to that request's future
+                except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — the exception is delivered to the example's future below, not dropped
                     results.append((False, exc))
             return results
 

@@ -308,7 +308,7 @@ class InferenceWorker:
                     await asyncio.to_thread(load_and_swap)
                 except ValueError as exc:
                     return web.json_response({"error": str(exc)}, status=409)
-                except Exception as exc:  # noqa: BLE001 — returned to the caller as the 400 body
+                except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — the error is returned to the caller as the 400 body
                     return web.json_response(
                         {"error": f"reload failed: {type(exc).__name__}: "
                                   f"{exc}"}, status=400)
@@ -436,7 +436,7 @@ class InferenceWorker:
             await tm.update_task_status(taskId, f"running - {_name} inference")
             try:
                 example = _servable.preprocess(body, content_type)
-            except Exception as exc:  # noqa: BLE001 — recorded on the task (failed - bad input)
+            except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — the error is recorded on the task record (failed - bad input)
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
             try:
@@ -450,22 +450,25 @@ class InferenceWorker:
                 await tm.update_task_status(
                     taskId, expired_status(exc.hop), TaskStatus.EXPIRED)
                 return
-            except (BatcherSaturated, DrainingError) as exc:
-                # Saturated, or retired by a drain, between admission and
-                # the cut: hand the task back to the broker (a republish
-                # with an empty body replays the original one) instead of
-                # failing it. With no broker behind the store, or on a
-                # device error, the exception propagates and the service
-                # shell fails the task.
-                if isinstance(exc, DrainingError):
-                    if buf is not None:
-                        buf.stamp(RETRY, "worker", reason="draining")
-                    await self._flush_ledger(tm, taskId, buf)
+            except BatcherSaturated:
+                # Saturated between admission and the cut: hand the task
+                # back to the broker (a republish with an empty body
+                # replays the original one) instead of failing it. With no
+                # broker behind the store the exception propagates and the
+                # service shell fails the task.
                 if not tm.redelivers:
                     raise
-                current = await tm.get_task_status(taskId)
-                endpoint = (current or {}).get("Endpoint", async_path)
-                await tm.add_pipeline_task(taskId, endpoint)
+                await _hand_back(tm, taskId, async_path)
+                return
+            except DrainingError:
+                # Retired by a drain before the cut: the same hand-back,
+                # with the retry stamped and flushed while the task is live.
+                if buf is not None:
+                    buf.stamp(RETRY, "worker", reason="draining")
+                await self._flush_ledger(tm, taskId, buf)
+                if not tm.redelivers:
+                    raise
+                await _hand_back(tm, taskId, async_path)
                 return
             except Exception:
                 # The shell fails the task after this re-raise: flush first,
@@ -599,7 +602,7 @@ class InferenceWorker:
                             break
                         except BatcherSaturated:
                             await asyncio.sleep(0.05)  # throttle, not fail
-                        except Exception as exc:  # noqa: BLE001 — reported at this index of the batch result
+                        except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — the error is reported in the batch result payload for this index
                             results[i] = {"index": i, "error": str(exc)}
                             break
                     done += 1
@@ -626,7 +629,7 @@ class InferenceWorker:
             tm = self.service.task_manager
             try:
                 stack = await asyncio.to_thread(_decode_stack, body)
-            except Exception as exc:  # noqa: BLE001 — recorded on the task (failed - bad input)
+            except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — the error is recorded on the task record (failed - bad input)
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
             total = len(stack)
@@ -751,19 +754,23 @@ class InferenceWorker:
                 await tm.update_task_status(
                     taskId, expired_status(exc.hop), TaskStatus.EXPIRED)
                 return
-            except (DecodeSaturated, DrainingError) as exc:
-                # Saturated between admission and submit, or retired by a
-                # drain: hand the task back to the broker; a peer decodes
-                # it again from the prompt.
-                if isinstance(exc, DrainingError):
-                    if buf is not None:
-                        buf.stamp(RETRY, "worker", reason="draining")
-                    await self._flush_ledger(tm, taskId, buf)
+            except DecodeSaturated:
+                # Saturated between admission and submit: hand the task
+                # back to the broker; a peer decodes it again from the
+                # prompt.
                 if not tm.redelivers:
                     raise
-                current = await tm.get_task_status(taskId)
-                endpoint = (current or {}).get("Endpoint", async_path)
-                await tm.add_pipeline_task(taskId, endpoint)
+                await _hand_back(tm, taskId, async_path)
+                return
+            except DrainingError:
+                # Retired by a drain: the same hand-back, the retry stamped
+                # and flushed first.
+                if buf is not None:
+                    buf.stamp(RETRY, "worker", reason="draining")
+                await self._flush_ledger(tm, taskId, buf)
+                if not tm.redelivers:
+                    raise
+                await _hand_back(tm, taskId, async_path)
                 return
             except Exception:
                 await self._flush_ledger(tm, taskId, buf)
@@ -784,6 +791,14 @@ class InferenceWorker:
         res = self.store.set_result(task_id, payload, stage=stage)
         if inspect.isawaitable(res):
             await res
+
+
+async def _hand_back(tm, task_id: str, async_path: str) -> None:
+    """Republish a task to its own endpoint with an empty body (the store
+    replays the original one), so the broker redelivers it to a peer."""
+    current = await tm.get_task_status(task_id)
+    endpoint = (current or {}).get("Endpoint", async_path)
+    await tm.add_pipeline_task(task_id, endpoint)
 
 
 def _ledger_kw(ledger) -> dict:

@@ -5,7 +5,9 @@
   ``InMemoryTaskStore`` (a standalone worker, tests);
 - ``HttpTaskManager`` — an aiohttp client of the control plane's task-store
   surface (``taskstore/http.py``, or the JAX package's), with
-  ``HttpResultStore`` beside it for results.
+  ``HttpResultStore`` beside it for results and ``DirectResultStore``,
+  which writes large results to a shared result directory and registers
+  only a pointer.
 
 Both are async; sync user code goes through the service shell's executor.
 """
@@ -13,6 +15,7 @@ Both are async; sync user code goes through the service shell's executor.
 from __future__ import annotations
 
 import asyncio
+import inspect
 import json
 import logging
 
@@ -333,6 +336,25 @@ class HttpResultStore(_HttpStoreClient):
             return
         resp.raise_for_status()
 
+    async def set_result_ref(self, task_id: str,
+                             content_type: str = "application/json",
+                             stage: str | None = None) -> bool:
+        """Register a blob already written to the shared result backend (a
+        small JSON instead of the payload). False when the store no longer
+        knows the task: the caller reaps the blob."""
+        payload = {"TaskId": task_id, "ContentType": content_type}
+        if stage:
+            payload["Stage"] = stage
+        resp, _body = await self._request("POST", "/v1/taskstore/result-ref",
+                                          data=json.dumps(payload))
+        _raise_refusal(resp)
+        if resp.status == 404:
+            log.warning("result ref for unknown task %s dropped by store",
+                        task_id)
+            return False
+        resp.raise_for_status()
+        return True
+
     async def get_result(self, task_id: str,
                          stage: str | None = None
                          ) -> tuple[bytes, str] | None:
@@ -344,3 +366,56 @@ class HttpResultStore(_HttpStoreClient):
         if resp.status != 200:
             return None
         return body, resp.content_type
+
+
+class DirectResultStore:
+    """A worker's results straight to storage: a payload of ``threshold``
+    bytes or more is written to the shared result directory ``root`` under
+    its key, off the event loop, and only a pointer is registered with the
+    store ``inner`` (``set_result_ref``); a smaller one goes to ``inner``
+    as it is. ``root`` must be the directory the control plane serves
+    (``AI4E_PLATFORM_RESULT_DIR``): a worker that mounts another one gets
+    a 409 at registration, never a dangling pointer. A blob whose
+    registration fails, or that the store drops, is deleted again."""
+
+    def __init__(self, root: str, inner, threshold: int = 1024 * 1024):
+        from ..taskstore.results import FileResultBackend
+
+        self.backend = FileResultBackend(root)
+        self.inner = inner
+        self.threshold = threshold
+
+    async def set_result(self, task_id: str, result: bytes,
+                         content_type: str = "application/json",
+                         stage: str | None = None) -> None:
+        if len(result) >= self.threshold:
+            key = task_id if stage is None else f"{task_id}:{stage}"
+            # The blob first, so the pointer never precedes it.
+            await asyncio.to_thread(self.backend.put, key, result,
+                                    content_type)
+            try:
+                res = self.inner.set_result_ref(task_id, content_type,
+                                                stage=stage)
+                if inspect.isawaitable(res):
+                    res = await res
+            except Exception:
+                await asyncio.to_thread(self.backend.delete, key)
+                raise
+            if res is False:  # the store dropped the ref (unknown task)
+                await asyncio.to_thread(self.backend.delete, key)
+            return
+        res = self.inner.set_result(task_id, result, content_type,
+                                    stage=stage)
+        if inspect.isawaitable(res):
+            await res
+
+    async def get_result(self, task_id: str, stage: str | None = None):
+        res = self.inner.get_result(task_id, stage=stage)
+        return await res if inspect.isawaitable(res) else res
+
+    async def close(self) -> None:
+        close = getattr(self.inner, "close", None)
+        if close is not None:
+            res = close()
+            if inspect.isawaitable(res):
+                await res

@@ -10,20 +10,33 @@ control plane uses:
   the task (204 if absent);
 - ``GET  /v1/taskstore/depths`` — per-endpoint status-set depths;
 - ``POST /v1/taskstore/result?taskId=…`` and ``GET`` the same — a task's
-  result payload;
+  result payload (``&stage=`` for a pipeline stage's); the ``GET``
+  streams it from the store's ``open_result`` where the store has one (an
+  offloaded result is read from its file in chunks), and buffers it
+  otherwise (the native store);
+- ``POST /v1/taskstore/result-ref`` (``{"TaskId", "ContentType",
+  "Stage"}``) registers a result a worker wrote to the shared result
+  directory itself: 400 without a TaskId or a result backend, 404 for an
+  unknown task, 409 when the blob is not there;
+- ``POST /v1/taskstore/redrive`` republishes failed tasks with their
+  original bodies: ``{"TaskId"}`` one task (404 unknown, 409 not failed,
+  with its ``Status``), an empty body every failed task whose status
+  contains ``Contains`` (default: the dead-letter prose; ``""``: all);
 - ``POST /v1/taskstore/ledger`` (``{"TaskId", "Events"}``) appends a
   worker's buffered hop-ledger events to the task's timeline (sanitised
   by ``validate_events``; 404 for an unknown task), and ``GET
   /v1/taskstore/ledger?taskId=…`` reads it (``{"TaskId", "Events"}``).
 
-The journal, promote, demote, role, redrive, result-ref and shards routes
-are not served (ROADMAP A18): a request for them gets 404, as from a JAX
-store that does not serve them. The in-memory store has no fencing
-epoch, so no response carries ``X-Store-Epoch``.
+The journal, promote, demote, role and shards routes are not served
+(ROADMAP A18.1, A18.2): a request for them gets 404, as from a JAX store
+that does not serve them; for the same reason redrive has no follower
+refusal. The in-memory store has no fencing epoch, so no response
+carries ``X-Store-Epoch``.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 
 from aiohttp import web
@@ -31,7 +44,7 @@ from aiohttp import web
 from ..observability.ledger import validate_events
 from ..utils.http import read_body_limited
 from .store import InMemoryTaskStore, TaskNotFound
-from .task import SUB_TASK_SEP, APITask
+from .task import SUB_TASK_SEP, APITask, TaskStatus
 
 
 def make_app(store: InMemoryTaskStore,
@@ -145,16 +158,116 @@ def make_app(store: InMemoryTaskStore,
                                      status=404)
         return web.json_response({"ok": True})
 
-    async def get_result(request: web.Request) -> web.Response:
+    async def get_result(request: web.Request) -> web.StreamResponse:
         task_id = request.query.get("taskId", "")
         if not task_id:
             return web.json_response({"error": "taskId required"}, status=400)
-        found = store.get_result(task_id,
-                                 stage=request.query.get("stage") or None)
+        stage = request.query.get("stage") or None
+        opener = getattr(store, "open_result", None)
+        if opener is None:  # a store without streaming (native): buffer
+            found = store.get_result(task_id, stage=stage)
+            if found is None:
+                return web.Response(status=204)
+            body, content_type = found
+            return web.Response(body=body,
+                                headers={"Content-Type": content_type})
+        found = opener(task_id, stage=stage)
         if found is None:
             return web.Response(status=204)
-        body, content_type = found
-        return web.Response(body=body, headers={"Content-Type": content_type})
+        fh, content_type, size = found
+        # In chunks: a multi-MB offloaded result must not be held whole in
+        # memory per concurrent download.
+        resp = web.StreamResponse(
+            headers={"Content-Type": content_type,
+                     "Content-Length": str(size)})
+        try:
+            # Inside the try: a client that drops here must not leak the
+            # blob's file handle.
+            await resp.prepare(request)
+            loop = asyncio.get_running_loop()
+            while True:
+                # Off the event loop: a read from a network mount blocks.
+                chunk = await loop.run_in_executor(None, fh.read, 256 * 1024)
+                if not chunk:
+                    break
+                await resp.write(chunk)
+        finally:
+            fh.close()
+        await resp.write_eof()
+        return resp
+
+    async def put_result_ref(request: web.Request) -> web.Response:
+        """Register a result the worker wrote to the shared backend itself:
+        only this small pointer crosses the control network."""
+        payload, err = await read_json(request)
+        if err is not None:
+            return err
+        task_id = payload.get("TaskId", "")
+        if not task_id:
+            return web.json_response({"error": "TaskId required"}, status=400)
+        register = getattr(store, "set_result_ref", None)
+        if register is None:  # the native store: no ref support
+            return web.json_response(
+                {"error": "store does not support result refs"}, status=400)
+        try:
+            register(task_id,
+                     content_type=payload.get("ContentType")
+                     or "application/json",
+                     stage=payload.get("Stage") or None)
+        except TaskNotFound:
+            return web.json_response({"error": f"unknown task {task_id}"},
+                                     status=404)
+        except FileNotFoundError as exc:
+            # The pointer before its blob (a race or a worker that mounts
+            # another directory): 409, so the worker fails loudly instead
+            # of leaving a dangling pointer.
+            return web.json_response({"error": str(exc)}, status=409)
+        except RuntimeError as exc:  # the store has no backend configured
+            return web.json_response({"error": str(exc)}, status=400)
+        return web.json_response({"ok": True})
+
+    async def redrive(request: web.Request) -> web.Response:
+        """Republish failed tasks: a redrive is ``requeue_if(task_id,
+        "failed")``, which flips the task back to created and publishes its
+        original body. ``{"TaskId": ...}`` redrives one task (409 unless it
+        is failed: completed and running tasks are never run again); an
+        empty body sweeps every failed task whose status contains
+        ``Contains`` (default: the prose a task gets when its message
+        exhausts its delivery budget); ``{"Contains": ""}`` redrives every
+        failed task, those that failed in model code too."""
+        payload, err = await read_json(request)
+        if err is not None:
+            return err
+        if not isinstance(payload, dict):
+            return web.json_response(
+                {"error": "body must be a JSON object"}, status=400)
+        task_id = payload.get("TaskId")
+        if task_id:
+            task = store.requeue_if(task_id, "failed")
+            if task is None:
+                try:
+                    current = store.get(task_id)
+                except TaskNotFound:
+                    return web.json_response(
+                        {"error": "unknown task"}, status=404)
+                return web.json_response(
+                    {"error": "task is not failed",
+                     "Status": current.status}, status=409)
+            return web.json_response(task.to_dict())
+        contains = payload.get("Contains", TaskStatus.DEAD_LETTER_PROSE)
+        redriven = []
+        for ep in store.endpoints():
+            for tid in store.set_members(ep, "failed"):
+                try:
+                    current = store.get(tid)
+                except TaskNotFound:
+                    continue  # evicted between the scan and the fetch
+                if contains and contains not in current.status:
+                    continue
+                if store.requeue_if(tid, "failed") is not None:
+                    redriven.append(tid)
+        return web.json_response(
+            {"redriven": len(redriven), "task_ids": redriven})
 
     async def append_ledger(request: web.Request) -> web.Response:
         payload, err = await read_json(request)
@@ -164,9 +277,13 @@ def make_app(store: InMemoryTaskStore,
         if not task_id:
             return web.json_response({"error": "TaskId required"},
                                      status=400)
+        append = getattr(store, "append_ledger", None)
+        if append is None:  # the native store: no ledger
+            return web.json_response(
+                {"error": "store does not support the hop ledger"},
+                status=404)
         try:
-            kept = store.append_ledger(
-                task_id, validate_events(payload.get("Events")))
+            kept = append(task_id, validate_events(payload.get("Events")))
         except TaskNotFound:
             return web.json_response({"error": f"unknown task {task_id}"},
                                      status=404)
@@ -177,15 +294,19 @@ def make_app(store: InMemoryTaskStore,
         if not task_id:
             return web.json_response({"error": "taskId required"},
                                      status=400)
-        return web.json_response({"TaskId": task_id,
-                                  "Events": store.get_ledger(task_id)})
+        getter = getattr(store, "get_ledger", None)
+        return web.json_response({
+            "TaskId": task_id,
+            "Events": getter(task_id) if getter is not None else []})
 
     app.router.add_post("/v1/taskstore/upsert", upsert)
     app.router.add_post("/v1/taskstore/update", update)
+    app.router.add_post("/v1/taskstore/redrive", redrive)
     app.router.add_get("/v1/taskstore/task", get_task)
     app.router.add_get("/v1/taskstore/task/{task_id}", get_task)
     app.router.add_get("/v1/taskstore/depths", depths)
     app.router.add_post("/v1/taskstore/result", put_result)
+    app.router.add_post("/v1/taskstore/result-ref", put_result_ref)
     app.router.add_get("/v1/taskstore/result", get_result)
     app.router.add_post("/v1/taskstore/ledger", append_ledger)
     app.router.add_get("/v1/taskstore/ledger", get_ledger)

@@ -1,34 +1,57 @@
-"""Terminal retention — the eviction half of ``TaskReaper`` in
-``ai4e_tpu/taskstore/reaper.py``.
+"""Task reaper — ``TaskReaper`` of ``ai4e_tpu/taskstore/reaper.py``:
+the stuck-task rescue and the terminal retention.
 
-Every ``interval`` seconds the reaper evicts completed/failed tasks older
-than ``terminal_retention`` from the store (record, original body,
-results), so a long-running control plane's memory stays bounded at about
-completion rate x retention. The stuck-task rescue (republishing a task
-left ``running`` by a dead worker) is not ported: ROADMAP A18.7.
+Every ``interval`` seconds the reaper:
+
+- evicts completed/failed tasks older than ``terminal_retention`` from the
+  store (record, original body, results, offloaded blobs), so a
+  long-running control plane's memory stays bounded at about completion
+  rate x retention (None keeps history forever);
+- republishes a task left in ``running`` longer than ``running_timeout``
+  (its worker died after adopting it): an empty body, so the store
+  replays the original one, and the broker redelivers it under the same
+  TaskId (None disables the rescue);
+- fails such a task instead after ``max_requeues`` rescues (``failed - no
+  progress after {n} rescues``), so a task that keeps killing workers
+  ends; its budget is released only on a terminal outcome;
+- leaves ``created`` tasks alone: their redelivery is the broker's.
+
+Both actions are conditional (``requeue_if``, ``update_status_if``): a
+task that completed between the scan and the action is never touched.
+JAX's shard-ownership filter (``owns``) and per-shard scan are left out
+with the sharded store (ROADMAP A18.2).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
 from .store import InMemoryTaskStore
+from .task import TaskStatus
 
 log = logging.getLogger("ai4e_tpu_torch.reaper")
 
 
 class TaskReaper:
-    def __init__(self, store: InMemoryTaskStore, terminal_retention: float,
+    def __init__(self, store: InMemoryTaskStore,
+                 running_timeout: float | None = 600.0,
                  interval: float = 30.0,
+                 max_requeues: int = 3,
+                 terminal_retention: float | None = None,
                  metrics: MetricsRegistry | None = None):
         self.store = store
-        self.terminal_retention = terminal_retention
+        self.running_timeout = running_timeout
         self.interval = interval
+        self.max_requeues = max_requeues
+        self.terminal_retention = terminal_retention
         self.metrics = metrics or DEFAULT_REGISTRY
         self._reaped = self.metrics.counter(
             "ai4e_reaper_actions_total", "Stuck-task rescues by outcome")
+        # task_id -> rescues so far.
+        self._requeues: dict[str, int] = {}
         self._task: asyncio.Task | None = None
         self._stop = asyncio.Event()
 
@@ -55,10 +78,72 @@ class TaskReaper:
                 log.exception("reaper sweep failed")
 
     async def sweep(self) -> int:
-        """One eviction pass; returns the number of tasks evicted."""
-        evicted = self.store.evict_terminal_older_than(self.terminal_retention)
-        if evicted:
-            log.info("evicted %d terminal tasks older than %.0fs", evicted,
-                     self.terminal_retention)
-            self._reaped.inc(evicted, outcome="evicted")
-        return evicted
+        """One scan; returns the number of tasks acted on. The rescue costs
+        O(running tasks), through the per-endpoint ``running`` sets; the
+        eviction O(terminal history), which it keeps bounded."""
+        now = time.time()
+        acted = 0
+        if self.terminal_retention is not None:
+            evict = getattr(self.store, "evict_terminal_older_than", None)
+            if evict is not None:
+                evicted = evict(self.terminal_retention)
+                if evicted:
+                    log.info("evicted %d terminal tasks older than %.0fs",
+                             evicted, self.terminal_retention)
+                    self._reaped.inc(evicted, outcome="evicted")
+                    acted += evicted
+        if self.running_timeout is None:
+            return acted
+        running = self._collect_running()
+        running_ids = {t.task_id for t in running}
+        # Budgets are released only on terminal outcomes: a rescued task
+        # waiting in created keeps its count, or a poison task would cycle
+        # forever.
+        for tid in list(self._requeues):
+            if tid in running_ids:
+                continue
+            try:
+                status = self.store.get(tid).canonical_status
+            except KeyError:
+                del self._requeues[tid]
+                continue
+            if status in TaskStatus.TERMINAL:
+                del self._requeues[tid]
+        for task in running:
+            age = now - task.timestamp
+            if age < self.running_timeout:
+                continue
+            count = self._requeues.get(task.task_id, 0)
+            if count >= self.max_requeues:
+                done = self.store.update_status_if(
+                    task.task_id, TaskStatus.RUNNING,
+                    f"failed - no progress after {count} rescues",
+                    backend_status=TaskStatus.FAILED)
+                if done is None:
+                    continue
+                log.warning("task %s stuck running after %d rescues; failed",
+                            task.task_id, count)
+                self._reaped.inc(outcome="failed")
+            else:
+                requeued = self.store.requeue_if(task.task_id,
+                                                 TaskStatus.RUNNING)
+                if requeued is None:
+                    continue
+                log.warning("task %s running %.0fs with no progress; "
+                            "republished (rescue %d/%d)", task.task_id, age,
+                            count + 1, self.max_requeues)
+                self._requeues[task.task_id] = count + 1
+                self._reaped.inc(outcome="requeued")
+            acted += 1
+        return acted
+
+    def _collect_running(self) -> list:
+        """A snapshot of every task in ``running``."""
+        running: list = []
+        for path in self.store.endpoints():
+            for task_id in self.store.set_members(path, TaskStatus.RUNNING):
+                try:
+                    running.append(self.store.get(task_id))
+                except KeyError:
+                    continue
+        return running

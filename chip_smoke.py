@@ -248,7 +248,36 @@ Phases, each of which raises on failure:
    tiles executed again with the trained answers (equal to a bypass
    request's, at least one changed), then a burst across a reload back
    to seed 0 in which no request sent after the 200 gets the old answer.
-   It prints ``cache 14a``, ``14b``, ``14c`` lines.
+   It prints ``cache 14a``, ``14b``, ``14c`` lines;
+15. C8, result offload, the native cores and the rescue, from phase 10's
+   checkpoints: (a) 64 held-out land-cover tiles through
+   ``ModelRuntime.run_batch`` at bucket 64, as 4 x 16 and one at a time,
+   with the repaired GroupNorm and with the form before it on the same
+   weights: tiles whose counts differ between each pair of buckets and
+   the largest difference (held to 0.1% of a tile's pixels, ROADMAP C8's
+   bound on the card; the first convolution input or output that differs,
+   when one does), and
+   the bucket-64 replay of both timed in turns beside phase 7a's; (b)
+   the three image models of the deploy spec behind the control plane
+   (two child processes, the observability layer on), without a result
+   directory, with ``AI4E_PLATFORM_RESULT_DIR`` and
+   ``AI4E_SERVICE_RESULT_DIR`` on one directory at the default 1 MiB
+   threshold, and at 96 B with a 15 s terminal retention: 64 async
+   land-cover tiles and 16 camera-trap scenes each turn, answers as phase
+   10b, one ``.bin`` per result at or over the threshold (none for land
+   cover) holding the bytes ``GET /v1/taskstore/result`` serves, the
+   ledger's per-hop p50/p95 by turn, and the blobs gone after eviction;
+   (c) land cover (4 sync + 64 async) and longcontext (64 async) behind a
+   control plane on the C++ store and broker, then on the Python ones:
+   answers as phases 10b and 11, requests/s and task p50/p95, each
+   kernel launched; (d) land cover behind a control plane whose reaper
+   rescues tasks running 3 s and whose broker dead-letters after 3
+   deliveries: the worker SIGKILLed while every unfinished task is
+   running, 8 tasks sent while it is down, its restart on the same port,
+   ``python -m ai4e_tpu_torch redrive``, every task completed with phase
+   10's answer and at least one ``requeued`` rescue a task running at the
+   kill. It prints ``c8 15a``, ``offload 15b``, ``cores 15c`` and ``rescue
+   15d`` lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -6723,6 +6752,733 @@ def phase_cache(handoff: dict, kernels: list[dict],
     return report
 
 
+# -- phase 15: C8 on the card, result offload, the native cores, the rescue --
+
+N_C8_TILES = 64            # 15a: held-out land-cover tiles
+C8_SIZES = (64, 16, 1)     # 15a: batch sizes, each its own bucket
+# 15a: ROADMAP C8's bound on the card. cuDNN picks a convolution algorithm
+# per batch shape (a strided convolution's output differs for equal
+# inputs), so a tile's per-class counts may move between buckets by at
+# most this share of its pixels (phase 4's 1% is ten times looser).
+C8_CARD_BOUND = 0.001
+# 15b: bytes; over a camera-trap result with one detection or more (112 B
+# for one), never a land-cover histogram (69 B at most).
+OFFLOAD_LOW = 96
+OFFLOAD_RETENTION_S = 15   # 15b: the low-threshold turn's terminal retention
+RESCUE_TIMEOUT_S = 3       # 15d: AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT
+RESCUE_MAX_DELIVERY = 3    # 15d: AI4E_PLATFORM_MAX_DELIVERY_COUNT
+N_DEAD_LETTER = 8          # 15d: tasks sent while the worker is down
+RESCUE_TRIES = 8           # 15d: bursts tried until one is caught all running
+LC_DONE = "completed - class_histogram"
+SCORE_DONE = "completed - class_id, confidence"
+
+
+def decode_npy(body: bytes) -> np.ndarray:
+    return np.load(io.BytesIO(body))
+
+
+def groupnorm_before_c8(block, x):
+    """``models.unet.ConvBlock.forward`` as it was before ROADMAP C8's
+    repair: GroupNorm on the float32 copy of the ``channels_last`` conv
+    output, its bf16 result left in the layout GroupNorm gives. Kept here
+    only to time and count the old form beside the new in one run."""
+    import torch.nn.functional as F
+
+    from ai4e_tpu_torch.models.layers import gelu
+    from ai4e_tpu_torch.models.unet import same_conv
+
+    for conv, norm in zip(block.convs, block.norms):
+        x = conv(x) if conv.stride == (1, 1) else same_conv(conv, x)
+        x = F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias,
+                         norm.eps).to(x.dtype)
+        x = gelu(x)
+    return x
+
+
+def landcover_entry(handoff: dict) -> dict:
+    entry = next(m for m in handoff["models"]["models"]
+                 if m["name"] == "landcover")
+    return {k: v for k, v in entry.items()
+            if k not in ("family", "sync_path", "async_path", "checkpoint")}
+
+
+def lc_pixels(handoff: dict) -> int:
+    return landcover_entry(handoff)["tile"] ** 2
+
+
+def c8_counts(runtime, name: str, tiles: np.ndarray) -> tuple[dict, dict]:
+    """Each tile's counts run in batches of each size of ``C8_SIZES`` (a
+    bucket each), and for each pair of sizes the tiles whose counts differ
+    and the largest count difference."""
+    by = {size: np.concatenate([
+        np.asarray(runtime.run_batch(name, tiles[i:i + size])["counts"])
+        for i in range(0, len(tiles), size)]).astype(np.int64)
+        for size in C8_SIZES}
+    pairs = {}
+    for i, a in enumerate(C8_SIZES):
+        for b in C8_SIZES[i + 1:]:
+            d = np.abs(by[a] - by[b])
+            pairs[f"{a} vs {b}"] = {
+                "tiles_differ": int((d.max(axis=1) > 0).sum()),
+                "max_count_diff": int(d.max())}
+    return by, pairs
+
+
+def localize_batch_dependence(servable, tiles: np.ndarray, row: int) -> dict:
+    """Where a tile's answer first depends on its batch: every convolution's
+    input and output for ``tiles[row]`` eagerly in the batch of all the
+    tiles and alone, in execution order; the first tensor that differs and
+    by how much."""
+    seen: dict[str, list] = {}
+    handles = []
+
+    def keep(name):
+        def pre(_m, inputs):
+            seen.setdefault(name + " in", []).append(
+                inputs[0][row_of[0]:row_of[0] + 1].float().clone())
+
+        def post(_m, _inputs, out):
+            seen.setdefault(name + " out", []).append(
+                out[row_of[0]:row_of[0] + 1].float().clone())
+        return pre, post
+
+    row_of = [row]
+    dev = next(servable.module.parameters()).device
+    for name, mod in servable.module.named_modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            pre, post = keep(name)
+            handles.append(mod.register_forward_pre_hook(pre))
+            handles.append(mod.register_forward_hook(post))
+    try:
+        with torch.inference_mode():
+            servable.apply_fn(servable.module,
+                              torch.from_numpy(tiles).to(dev))
+            row_of[0] = 0
+            servable.apply_fn(servable.module,
+                              torch.from_numpy(tiles[row:row + 1]).to(dev))
+    finally:
+        for h in handles:
+            h.remove()
+    last_equal = None
+    for name, (batched, alone) in seen.items():
+        diff = float((batched - alone).abs().max())
+        if diff > 0:
+            # Between ``last_equal`` and ``name`` lies the op at fault: the
+            # convolution itself (its "in" equal, its "out" not), or what
+            # runs between two convolutions (GroupNorm, gelu, the skips).
+            return {"first_differs": name, "last_equal": last_equal,
+                    "max_abs_diff": diff, "tensors_checked": len(seen)}
+        last_equal = name
+    return {"first_differs": None, "tensors_checked": len(seen)}
+
+
+def phase_c8(handoff: dict, replay_7a_ms: float | None,
+             device: str = "cuda") -> dict:
+    """15a: land cover's answer against the batch it rides in, on the
+    trained ``.npz``: 64 held-out tiles through ``ModelRuntime.run_batch``
+    in one batch of 64, as 4 x 16 and one at a time, with the repaired
+    GroupNorm and with the form before the repair (``groupnorm_before_c8``
+    on a second servable of the same weights); the bucket-64 replay of
+    each timed in turns (new, old, old, new)."""
+    import types
+
+    from ai4e_tpu_torch.cli import restore_checkpoint
+    from ai4e_tpu_torch.models.unet import ConvBlock
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+
+    bodies, _ = handoff["landcover"]
+    tiles = np.stack([decode_npy(b) for b in bodies[-N_C8_TILES:]])
+    kwargs = landcover_entry(handoff)
+    runtime = ModelRuntime(device)
+    for name in ("landcover", "landcover_before_c8"):
+        servable = build_servable("unet", **{**kwargs, "name": name})
+        restore_checkpoint(servable, "landcover", str(handoff["out_dir"]))
+        if name != "landcover":
+            for mod in servable.module.modules():
+                if isinstance(mod, ConvBlock):
+                    mod.forward = types.MethodType(groupnorm_before_c8, mod)
+        runtime.register(servable)
+    runtime.warmup()
+    pixels = int(np.prod(runtime.models["landcover"].input_shape[:2]))
+    report: dict = {"card": CARD.get("smi"), "tiles": len(tiles)}
+    counts = {}
+    for name, tag in (("landcover", "after"), ("landcover_before_c8",
+                                               "before")):
+        counts[tag], report[tag] = c8_counts(runtime, name, tiles)
+    if device == "cuda":
+        ms = {"after": [], "before": []}
+        for tag in ("after", "before", "before", "after"):
+            name = "landcover" if tag == "after" else "landcover_before_c8"
+            ms[tag].append(stream_ms(runtime.graphs[(name, 64)].graph.replay))
+        report["replay_64_ms"] = ms
+        report["replay_64_ms_phase_7a"] = replay_7a_ms
+        report["after_over_before"] = (statistics.median(ms["after"])
+                                       / statistics.median(ms["before"]))
+    worst = max(p["max_count_diff"] for p in report["after"].values())
+    if worst:
+        d = np.abs(counts["after"][64] - counts["after"][1]).max(axis=1)
+        row = int(np.argmax(d))
+        if d[row]:
+            report["localized"] = localize_batch_dependence(
+                runtime.models["landcover"], tiles, row)
+    report["bound_px"] = C8_CARD_BOUND * pixels
+    log(f"c8 15a: {json.dumps(report)}")
+    if worst > C8_CARD_BOUND * pixels:
+        raise AssertionError(f"15a: a tile's counts moved by {worst} px "
+                             f"between buckets: {report}")
+    del runtime
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def ledger_hops(records: list[dict], want: tuple) -> dict:
+    timelines = []
+    for record in records:
+        check_timeline(record["TaskId"], record["Ledger"], want)
+        timelines.append(record["Ledger"])
+    return deltas_summary(timelines)
+
+
+async def offload_drive(gateway: str, worker: str, procs: dict, logs: dict,
+                        work: dict, result_dir: Path | None) -> dict:
+    """15b's client: 64 async land-cover tiles, then the camera-trap scenes
+    at once through detect-async; each task's stage and final results (the
+    raw bytes too), its ``?ledger=1`` record, and what lies on disk."""
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        out = {"landcover": await drive_gateway(
+            http, gateway, "/v1/landcover/classify", work["landcover"], 0,
+            LC_DONE, worker)}
+
+        async def detect(body: bytes) -> tuple:
+            t0 = time.perf_counter()
+            async with http.post(gateway + "/v1/camera-trap/detect-async",
+                                 data=body, headers=OCTET) as r:
+                if r.status != 200:
+                    raise AssertionError(f"detect-async {r.status}: "
+                                         f"{await r.text()}")
+                task_id = (await r.json())["TaskId"]
+            record = await await_terminal(http, gateway, task_id)
+            return t0, time.perf_counter(), task_id, record
+
+        async def raw(task_id: str, stage: str | None = None) -> bytes:
+            params = {"taskId": task_id, **({"stage": stage} if stage
+                                            else {})}
+            async with http.get(gateway + "/v1/taskstore/result",
+                                params=params) as r:
+                if r.status != 200:
+                    raise AssertionError(f"result of {task_id} ({stage}): "
+                                         f"{r.status}")
+                return await r.read()
+
+        runs = await asyncio.gather(*(detect(b) for b in work["scenes"]))
+        det = {"runs": runs, "stage_raw": [], "final_raw": []}
+        for _, _, task_id, record in runs:
+            det["final_raw"].append(await raw(task_id))
+            det["stage_raw"].append(
+                det["final_raw"][-1]
+                if record["Status"] == "completed - detections"
+                else await raw(task_id, "megadetector"))
+        det["stage"] = [json.loads(b) for b in det["stage_raw"]]
+        det["final"] = [json.loads(b) for b in det["final_raw"]]
+        latency = sorted((t1 - t0) * 1e3 for t0, t1, _, _ in runs)
+        det["task_p50_ms"] = statistics.median(latency)
+        det["task_p95_ms"] = float(np.percentile(latency, 95))
+        out["detect"] = det
+        out["lc_results_raw"] = [await raw(t)
+                                 for t in out["landcover"]["task_ids"]]
+        out["records"] = {
+            "landcover": [await fetch_record(http, gateway, t)
+                          for t in out["landcover"]["task_ids"]],
+            "camera_trap": [await fetch_record(http, gateway, t)
+                            for _, _, t, _ in runs]}
+        if result_dir is not None:
+            out["files"] = {p.name: p.read_bytes()
+                            for p in sorted(result_dir.iterdir())}
+    return out
+
+
+def offload_turn(handoff: dict, tag: str, extra: dict, result_dir,
+                 device: str) -> dict:
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = wire_deploy_specs(gateway, worker, None)
+    env = {**handoff["env"], "AI4E_PLATFORM_OBSERVABILITY": "1",
+           "AI4E_OBSERVABILITY_HOP_LEDGER": "1", **extra}
+    bodies, _ = handoff["landcover"]
+    work = {"landcover": bodies[-N_DEPLOY_ASYNC:],
+            "scenes": handoff["scenes"]}
+    with control_plane_and_worker(out_dir, tag, models, routes, env,
+                                  cp_port, wk_port, device) as (procs, logs):
+        out = asyncio.run(offload_drive(gateway, worker, procs, logs, work,
+                                        result_dir))
+        if extra.get("AI4E_PLATFORM_REAPER_TERMINAL_RETENTION"):
+            # Eviction deletes the blobs with the records.
+            deadline = time.monotonic() + 3 * OFFLOAD_RETENTION_S
+            while any(result_dir.iterdir()):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"15b: blobs left after eviction: "
+                        f"{sorted(p.name for p in result_dir.iterdir())}")
+                time.sleep(0.5)
+            out["evicted_after_s"] = time.monotonic() - (
+                deadline - 3 * OFFLOAD_RETENTION_S)
+    out["by_model"] = launches_by_model(logs["wk"].read_text(
+        errors="replace"))
+    return out
+
+
+def check_offload_answers(handoff: dict, out: dict, tag: str) -> None:
+    """Land cover's histograms against phase 10's plain ops, each camera
+    trap task completed under its TaskId with its species stack, and the
+    megadetector's objects within phase 10b's slack."""
+    _, want = handoff["landcover"]
+    for i, result in enumerate(out["landcover"]["results"]):
+        check_histogram(result, want[len(want) - N_DEPLOY_ASYNC + i],
+                        lc_pixels(handoff))
+    det = out["detect"]
+    check_handoffs(det)
+    hits, total = served_detection_accuracy(det["stage"],
+                                            handoff["scene_targets"])
+    if abs(hits - handoff["scene_hits_10b"]) > DEPLOY_SLACK:
+        raise AssertionError(f"15b {tag}: megadetector served {hits}/{total} "
+                             f"objects, phase 10b {handoff['scene_hits_10b']}")
+
+
+def phase_offload(handoff: dict, device: str = "cuda") -> dict:
+    """15b: the three image models of the deploy spec behind the control
+    plane (two child processes, the observability layer on) without a
+    result directory, with one at the default 1 MiB threshold, and with one
+    at ``OFFLOAD_LOW`` bytes and a short terminal retention; the same 64
+    land-cover tiles and 16 camera-trap scenes each turn."""
+    from urllib.parse import quote
+
+    root = handoff["out_dir"] / "results"
+    turns = {"off": ({}, None)}
+    for tag, threshold, extra in (
+            ("default", None, {}),
+            ("low", OFFLOAD_LOW, {
+                "AI4E_PLATFORM_REAPER_TERMINAL_RETENTION":
+                    str(OFFLOAD_RETENTION_S),
+                "AI4E_PLATFORM_REAPER_INTERVAL": "1"})):
+        result_dir = root / tag
+        result_dir.mkdir(parents=True, exist_ok=True)
+        for p in result_dir.iterdir():
+            p.unlink()
+        env = {"AI4E_PLATFORM_RESULT_DIR": str(result_dir),
+               "AI4E_SERVICE_RESULT_DIR": str(result_dir), **extra}
+        if threshold is not None:
+            env["AI4E_PLATFORM_RESULT_OFFLOAD_THRESHOLD"] = str(threshold)
+            env["AI4E_SERVICE_RESULT_OFFLOAD_THRESHOLD"] = str(threshold)
+        turns[tag] = (env, result_dir)
+    outs = {tag: offload_turn(handoff, f"offload_{tag}", env, result_dir,
+                              device)
+            for tag, (env, result_dir) in turns.items()}
+    report: dict = {"card": CARD.get("smi"), "turns": {}}
+    for tag, out in outs.items():
+        check_offload_answers(handoff, out, tag)
+        det = out["detect"]
+        sizes = ([len(b) for b in det["stage_raw"]]
+                 + [len(b) for b in det["final_raw"]])
+        lc_sizes = [len(b) for b in out["lc_results_raw"]]
+        row = {"camera_trap_result_bytes": [min(sizes), max(sizes)],
+               "landcover_result_bytes": [min(lc_sizes), max(lc_sizes)],
+               "landcover_requests_per_s":
+                   out["landcover"]["async_requests_per_s"],
+               "landcover_task_p50_ms": out["landcover"]["task_p50_ms"],
+               "landcover_task_p95_ms": out["landcover"]["task_p95_ms"],
+               "detect_task_p50_ms": det["task_p50_ms"],
+               "detect_task_p95_ms": det["task_p95_ms"],
+               "hops_camera_trap": ledger_hops(out["records"]["camera_trap"],
+                                               TWO_STAGES),
+               "hops_landcover": ledger_hops(out["records"]["landcover"],
+                                             ONE_STAGE)}
+        files = out.get("files")
+        if files is not None:
+            bins = {n: b for n, b in files.items() if n.endswith(".bin")}
+            row["files"] = len(files)
+            row["bin_bytes"] = sorted(len(b) for b in bins.values())
+            threshold = OFFLOAD_LOW if tag == "low" else 1024 * 1024
+            # One blob per camera-trap result at or over the threshold,
+            # none for land cover, each the bytes the store serves.
+            want = {}
+            for (_, _, task_id, record), stage, final in zip(
+                    det["runs"], det["stage_raw"], det["final_raw"]):
+                if record["Status"] == "completed - detections":
+                    keys = [(task_id, final)]
+                else:
+                    keys = [(f"{task_id}:megadetector", stage),
+                            (task_id, final)]
+                for key, body in keys:
+                    if len(body) >= threshold:
+                        want[quote(key, safe="") + ".bin"] = body
+            if bins != want:
+                raise AssertionError(
+                    f"15b {tag}: {len(bins)} blobs on disk, {len(want)} "
+                    f"results at or over {threshold} B; names "
+                    f"{sorted(set(bins) ^ set(want))[:4]}")
+            if tag == "low" and not bins:
+                raise AssertionError("15b low: nothing was offloaded")
+            if "evicted_after_s" in out:
+                row["blobs_gone_after_s"] = out["evicted_after_s"]
+        report["turns"][tag] = row
+        log(f"offload 15b {tag} hops camera trap (ms): "
+            f"{json.dumps(row['hops_camera_trap'])}")
+    report["launches_by_model"] = {t: o["by_model"] for t, o in outs.items()}
+    for tag, out in outs.items():
+        if device != "cuda":
+            break  # the CPU runs the plain versions
+        for model, kernel in (("landcover", "normalize_image"),
+                              ("landcover", "fused_seg_postprocess"),
+                              ("megadetector", "normalize_image"),
+                              ("species", "normalize_image")):
+            if out["by_model"].get(model, {}).get(kernel, 0) < 1:
+                raise AssertionError(f"15b {tag}: {kernel} never launched "
+                                     f"for {model}")
+    log(f"offload 15b: {json.dumps({t: {k: v for k, v in r.items() if not k.startswith('hops')} for t, r in report['turns'].items()})}")
+    return report
+
+
+def longcontext_held_out(handoff: dict, n: int) -> tuple:
+    """The trainer's held-out draws (seed + 1, batches of 16), as phases 6
+    and 11 take them."""
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+
+    entry = next(m for m in handoff["models"]["models"]
+                 if m["name"] == "longcontext")
+    rng = np.random.default_rng(SEED + 1)
+    draws = [longcontext_batch(rng, 16, entry["seq_len"], entry["vocab_size"],
+                               entry["num_classes"])
+             for _ in range(-(-n // 16))]
+    seqs, labels = (np.concatenate(x)[:n] for x in zip(*draws))
+    return seqs.astype(np.uint16), labels, entry
+
+
+async def native_drive(gateway: str, worker: str, procs: dict, logs: dict,
+                       work: dict) -> dict:
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        # Which store answers: the native one has no result refs.
+        async with http.post(gateway + "/v1/taskstore/result-ref",
+                             json={"TaskId": "probe"}) as r:
+            probe = (r.status, (await r.json()).get("error"))
+        out = {"store_probe": probe}
+        out["landcover"] = await drive_gateway(
+            http, gateway, "/v1/landcover/classify", work["landcover"],
+            N_DEPLOY_SYNC, LC_DONE, worker)
+        out["longcontext"] = await drive_gateway(
+            http, gateway, "/v1/longcontext/score", work["longcontext"], 0,
+            SCORE_DONE, worker)
+    return out
+
+
+def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
+    """15c: land cover (4 sync + 64 async) and longcontext (64 async)
+    behind a control plane on the C++ store and broker, then on the Python
+    ones (two child processes each time), answers checked as phases 10b
+    and 11 check them."""
+    from ai4e_tpu_torch.broker import native as broker_native
+    from ai4e_tpu_torch.cli import restore_checkpoint
+    from ai4e_tpu_torch.runtime.families import build_servable
+    from ai4e_tpu_torch.taskstore import native as store_native
+
+    t0 = time.perf_counter()
+    built = [store_native.build_library(), broker_native.build_library()]
+    build_s = time.perf_counter() - t0
+    bodies, want = handoff["landcover"]
+    seqs, labels, entry = longcontext_held_out(handoff, N_DEPLOY_ASYNC)
+    work = {"landcover": bodies, "longcontext": [npy_bytes(s) for s in seqs]}
+    outs = {}
+    for tag, extra in (("native", {"AI4E_PLATFORM_NATIVE_STORE": "1",
+                                   "AI4E_PLATFORM_NATIVE_BROKER": "1"}),
+                       ("python", {})):
+        cp_port, wk_port = free_port(), free_port()
+        gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                           f"http://127.0.0.1:{wk_port}")
+        models, routes = cache_specs(gateway, worker,
+                                     ("landcover", "longcontext"))
+        with control_plane_and_worker(
+                handoff["out_dir"], f"cores_{tag}", models, routes,
+                {**handoff["env"], **extra}, cp_port, wk_port,
+                device) as (procs, logs):
+            outs[tag] = asyncio.run(native_drive(gateway, worker, procs,
+                                                 logs, work))
+        outs[tag]["by_model"] = launches_by_model(
+            logs["wk"].read_text(errors="replace"))
+    kwargs = {k: v for k, v in entry.items()
+              if k not in ("family", "sync_path", "async_path", "checkpoint",
+                           "name")}
+    lc = build_servable("seqformer", name="longcontext", **kwargs)
+    restore_checkpoint(lc, "longcontext", str(handoff["out_dir"]))
+    logits = reference_logits(lc, entry, seqs)
+    del lc
+    report: dict = {"card": CARD.get("smi"), "build_s": build_s,
+                    "libraries": [Path(p).name for p in built]}
+    for tag, out in outs.items():
+        probe_native = out["store_probe"] == (
+            400, "store does not support result refs")
+        if probe_native != (tag == "native"):
+            raise AssertionError(f"15c {tag}: the store answered "
+                                 f"{out['store_probe']}")
+        for i, result in enumerate(out["landcover"]["results"]):
+            check_histogram(result, want[i], lc_pixels(handoff))
+        agree, _ = check_classes(out["longcontext"]["results"], logits)
+        hits = sum(r["class_id"] == y
+                   for r, y in zip(out["longcontext"]["results"], labels))
+        if hits < MIN_SERVED_ACC * len(labels):
+            raise AssertionError(f"15c {tag}: longcontext {hits}/"
+                                 f"{len(labels)} held-out right")
+        for model, kernel in (("landcover", "normalize_image"),
+                              ("landcover", "fused_seg_postprocess"),
+                              ("longcontext", "flash_attention")):
+            if device == "cuda" and out["by_model"].get(model, {}).get(kernel, 0) < 1:
+                raise AssertionError(f"15c {tag}: {kernel} never launched "
+                                     f"for {model}")
+        report[tag] = {
+            m: {"requests_per_s": out[m]["async_requests_per_s"],
+                "task_p50_ms": out[m]["task_p50_ms"],
+                "task_p95_ms": out[m]["task_p95_ms"]}
+            for m in ("landcover", "longcontext")}
+        report[tag]["landcover"]["sync_p50_ms"] = \
+            out["landcover"]["sync_p50_ms"]
+        report[tag]["longcontext"]["classes_agree"] = \
+            f"{agree}/{len(labels)}"
+        report[tag]["longcontext"]["held_out_right"] = \
+            f"{hits}/{len(labels)}"
+        report[tag]["launches_by_model"] = out["by_model"]
+    log(f"cores 15c: {json.dumps(report)}")
+    return report
+
+
+async def http_json(http, method: str, url: str, **kw) -> tuple[int, dict]:
+    async with http.request(method, url, **kw) as r:
+        return r.status, (await r.json() if r.content_type ==
+                          "application/json" else await r.text())
+
+
+async def rescue_drive(gateway: str, worker: str, procs: dict, logs: dict,
+                       restart, bodies: list[bytes], env: dict) -> dict:
+    """15d's client: land-cover bursts until one is caught with every
+    unfinished task in ``running``; then the worker is killed, tasks are
+    sent while it is down (dead-lettered), the reaper's rescues counted,
+    the worker restarted on its port, the dead letters redriven with the
+    ``redrive`` verb, and every task awaited to ``completed``."""
+    import aiohttp
+    import signal
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+
+        async def submit(body: bytes) -> str:
+            async with http.post(gateway + LC_ASYNC, data=body,
+                                 headers=OCTET) as r:
+                if r.status != 200:
+                    raise AssertionError(f"{LC_ASYNC} {r.status}: "
+                                         f"{await r.text()}")
+                return (await r.json())["TaskId"]
+
+        async def depths() -> dict:
+            _, d = await http_json(http, "GET",
+                                   gateway + "/v1/taskstore/depths")
+            return d.get(LC_QUEUE, {})
+
+        sent: list[tuple[str, int]] = []
+        caught = None
+        for attempt in range(RESCUE_TRIES):
+            ids = await asyncio.gather(*(submit(b) for b in bodies))
+            sent += [(t, i) for i, t in enumerate(ids)]
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                d = await depths()
+                if d.get("created", 0) == 0 and d.get("running", 0) > 0:
+                    # Every unfinished task is running in the worker, none
+                    # in a delivery: kill it now.
+                    procs["wk"].send_signal(signal.SIGKILL)
+                    procs["wk"].wait(timeout=30)
+                    caught = {"attempt": attempt,
+                              "running_at_kill": (await depths())["running"]}
+                    break
+                if d.get("created", 0) == 0 and d.get("running", 0) == 0:
+                    break  # the burst finished before it was caught
+                await asyncio.sleep(0.002)
+            if caught:
+                break
+        if not caught:
+            raise AssertionError(f"15d: no burst of {RESCUE_TRIES} was caught "
+                                 "with tasks running")
+        t_kill = time.monotonic()
+        # Sent while the worker is down: each exhausts its deliveries.
+        down = await asyncio.gather(*(submit(b)
+                                      for b in bodies[:N_DEAD_LETTER]))
+        sent += [(t, i) for i, t in enumerate(down)]
+        requeued = 0.0
+        deadline = t_kill + 60
+        while time.monotonic() < deadline:
+            async with http.get(gateway + "/metrics") as r:
+                requeued = metric_sum(await r.text(),
+                                      "ai4e_reaper_actions_total",
+                                      outcome="requeued")
+            if requeued >= caught["running_at_kill"]:
+                break
+            await asyncio.sleep(0.25)
+        caught["rescued_after_s"] = time.monotonic() - t_kill
+        # The rescued tasks, redelivered to no worker, and the tasks sent
+        # while it was down: all dead-lettered before it comes back.
+        deadline = time.monotonic() + 60
+        while (await depths()).get("created", 0) or (
+                await depths()).get("running", 0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"15d: tasks never left created/"
+                                     f"running: {await depths()}")
+            await asyncio.sleep(0.25)
+        caught["dead_lettered"] = (await depths()).get("failed", 0)
+        t0 = time.monotonic()
+        procs["wk"] = restart()
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        caught["worker_back_s"] = time.monotonic() - t0
+        caught["redrive"] = await asyncio.to_thread(redrive_verb, gateway,
+                                                    env)
+        finals = {}
+        for task_id, i in sent:
+            finals[task_id] = (i, await await_terminal(http, gateway,
+                                                       task_id))
+        results = {}
+        for task_id, (i, record) in finals.items():
+            if record["Status"] != LC_DONE:
+                raise AssertionError(f"15d: task {task_id} ended "
+                                     f"{record['Status']}")
+            results[task_id] = (i, json.loads(await result_bytes(
+                http, gateway, task_id)))
+        async with http.get(gateway + "/metrics") as r:
+            caught["cp_metrics"] = await r.text()
+        caught["requeued"] = metric_sum(caught["cp_metrics"],
+                                        "ai4e_reaper_actions_total",
+                                        outcome="requeued")
+        caught["results"] = results
+        caught["tasks"] = len(sent)
+    return caught
+
+
+def redrive_verb(gateway: str, env: dict) -> dict:
+    """``python -m ai4e_tpu_torch redrive --store GATEWAY`` as a child
+    process; its JSON answer."""
+    done = subprocess.run([sys.executable, "-m", "ai4e_tpu_torch", "redrive",
+                           "--store", gateway], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    if done.returncode != 0:
+        raise AssertionError(f"redrive exited {done.returncode}: "
+                             f"{done.stdout[-1000:]} {done.stderr[-1000:]}")
+    return json.loads(done.stdout)
+
+
+def phase_rescue(handoff: dict, device: str = "cuda") -> dict:
+    """15d: land cover behind a control plane whose reaper rescues tasks
+    left ``running`` for ``RESCUE_TIMEOUT_S`` (sweeps every second) and
+    whose broker dead-letters after ``RESCUE_MAX_DELIVERY`` deliveries;
+    the worker SIGKILLed holding running tasks, and restarted."""
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = cache_specs(gateway, worker, ("landcover",))
+    env = {**handoff["env"],
+           "AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT": str(RESCUE_TIMEOUT_S),
+           "AI4E_PLATFORM_REAPER_INTERVAL": "1",
+           "AI4E_PLATFORM_MAX_DELIVERY_COUNT": str(RESCUE_MAX_DELIVERY)}
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    restarted_log = out_dir / "rescue_worker_restarted.log"
+    with control_plane_and_worker(out_dir, "rescue", models, routes, env,
+                                  cp_port, wk_port, device) as (procs, logs):
+        def restart():
+            # The control-plane-and-worker block stops whichever worker
+            # ``procs`` holds, with its log.
+            logs["wk"] = restarted_log
+            return start_child(
+                ["worker", "--models", str(out_dir / "rescue_models.json"),
+                 "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+                 device], restarted_log, env)
+
+        run = asyncio.run(rescue_drive(gateway, worker, procs, logs, restart,
+                                       bodies, env))
+    for task_id, (i, result) in run.pop("results").items():
+        check_histogram(result, want[i], lc_pixels(handoff))
+    redriven = run.pop("redrive")["redriven"]
+    if redriven != run["dead_lettered"]:
+        raise AssertionError(f"15d: redrove {redriven} of "
+                             f"{run['dead_lettered']} dead letters")
+    run["redriven"] = redriven
+    if run["requeued"] < run["running_at_kill"]:
+        raise AssertionError(f"15d: {run['requeued']} rescues for "
+                             f"{run['running_at_kill']} running tasks")
+    by_model = launches_by_model(restarted_log.read_text(errors="replace"))
+    run.pop("cp_metrics")
+    run["launches_by_model_after_restart"] = by_model
+    run["card"] = CARD.get("smi")
+    log(f"rescue 15d: {json.dumps(run)}")
+    return run
+
+
+def phase_15(handoff: dict, kernels: list[dict], replay_7a_ms=None,
+             device: str = "cuda") -> dict:
+    """Phase 15: C8 on the card (a), result offload through the camera
+    trap (b), the native cores on the main path (c), the reaper's rescue
+    and the redrive verb (d)."""
+    import gc
+
+    from ai4e_tpu_torch import ops
+
+    log("phase 15: C8, result offload, the native cores, the rescue")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches()
+    report = {"15a": phase_c8(handoff, replay_7a_ms, device)}
+    in_process = ops.launch_counts()
+    report["15b"] = phase_offload(handoff, device)
+    report["15c"] = phase_native_cores(handoff, device)
+    report["15d"] = phase_rescue(handoff, device)
+    report["seconds"] = time.perf_counter() - t0
+    by_run = {"15b " + tag: counts
+              for tag, counts in report["15b"]["launches_by_model"].items()}
+    for tag in ("native", "python"):
+        by_run["15c " + tag] = report["15c"][tag]["launches_by_model"]
+    by_run["15d after restart"] = \
+        report["15d"]["launches_by_model_after_restart"]
+    rows = {k["name"]: k for k in kernels}
+    for name in ("normalize_image", "fused_seg_postprocess",
+                 "flash_attention"):
+        if name in rows:
+            rows[name]["launches_phase15"] = {
+                "15a in process": in_process.get(name, 0),
+                **{run: sum(m.get(name, 0) for m in counts.values())
+                   for run, counts in by_run.items()}}
+    log(f"phase 15: {json.dumps({'seconds': report['seconds'], 'card': CARD.get('smi')})}")
+    return report
+
+
 def detector_dct_sweep(trainings: int) -> None:
     """``python3 chip_smoke.py --detector-dct-sweep N``: the megadetector
     recipe trained N times on the card (seed 0 each time; cuDNN's
@@ -6778,7 +7534,7 @@ def main() -> None:
             topology["launches_while_serving"][k["name"]])
     bwd, trained_npz = phase_train_then_serve()
     kernels += bwd
-    phase_runtime(e2e, trained_npz)
+    runtime = phase_runtime(e2e, trained_npz)
     phase_camera_trap(kernels)
     phase_moe_vit(kernels)
     _, deployed = phase_deploy(kernels)
@@ -6786,6 +7542,8 @@ def main() -> None:
     phase_lm()
     phase_wires(deployed, kernels)
     phase_cache(deployed, kernels)
+    phase_15(deployed, kernels, runtime["graphs"]["buckets"]
+             .get("landcover/64", {}).get("replay_ms"))
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -117,6 +117,17 @@ SERVED_AUTH_CACHE_KNOBS = [
         "cache_ttl_seconds")]
 
 
+#: Result offload, the native cores (ROADMAP A18.13) and the reaper's
+#: stuck-task rescue (A18.7): the port serves them, so each set away from
+#: its default parses as JAX's does.
+SERVED_NATIVE_REAPER_KNOBS = [
+    ("AI4E_PLATFORM_", f) for f in (
+        "native_broker", "native_store", "result_dir",
+        "result_offload_threshold", "reaper_running_timeout",
+        "reaper_max_requeues")] + [
+    ("AI4E_SERVICE_", f) for f in ("result_dir", "result_offload_threshold")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -141,7 +152,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_OBSERVABILITY_KNOBS, "same"))
          + list(off_default_cases(SERVED_DECODE_KNOBS, "same"))
          + list(off_default_cases(SERVED_ADMISSION_KNOBS, "same"))
-         + list(off_default_cases(SERVED_AUTH_CACHE_KNOBS, "same")))
+         + list(off_default_cases(SERVED_AUTH_CACHE_KNOBS, "same"))
+         + list(off_default_cases(SERVED_NATIVE_REAPER_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -194,6 +206,12 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_CACHE_MAX_ENTRIES": "7"},
     {"AI4E_PLATFORM_CACHE_MAX_BYTES": "1024"},
     {"AI4E_PLATFORM_CACHE_TTL_SECONDS": ""},
+    {"AI4E_PLATFORM_NATIVE_STORE": "1"},
+    {"AI4E_PLATFORM_NATIVE_BROKER": "1"},
+    {"AI4E_PLATFORM_RESULT_DIR": "/results"},
+    {"AI4E_PLATFORM_RESULT_OFFLOAD_THRESHOLD": "4096"},
+    {"AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT": "5"},
+    {"AI4E_PLATFORM_REAPER_MAX_REQUEUES": "1"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -212,9 +230,11 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_AUTH_CACHE_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_NATIVE_REAPER_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
-    assert len(port_config.UNPORTED) == 71
+    assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
+    assert len(port_config.UNPORTED) == 63
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(

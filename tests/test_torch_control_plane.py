@@ -642,9 +642,11 @@ class TestIsolation:
             "'ai4e_tpu'):\n"
             "    sys.modules[name] = None\n"
             "mods = ['config', 'utils.http', 'taskstore', 'taskstore.http',\n"
-            "        'taskstore.reaper',\n"
+            "        'taskstore.reaper', 'taskstore.results',\n"
+            "        'taskstore.native',\n"
             "        'service', 'service.task_manager', 'broker',\n"
-            "        'broker.dispatcher', 'gateway', 'resilience.retry',\n"
+            "        'broker.dispatcher', 'broker.native', 'gateway',\n"
+            "        'resilience.retry',\n"
             "        'scaling', 'platform_assembly', 'cli']\n"
             "for m in mods:\n"
             "    importlib.import_module('ai4e_tpu_torch.' + m)\n"
@@ -658,4 +660,4 @@ class TestIsolation:
         out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert out.stdout.split() == ["2", "14"]
+        assert out.stdout.split() == ["2", "17"]

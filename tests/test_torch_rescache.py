@@ -1126,11 +1126,11 @@ class TestLandCoverSmall:
             runtime = ModelRuntime(device="cpu")
             servable = build_servable("unet", name="landcover", tile=TILE,
                                       widths=WIDTHS, num_classes=4,
-                                      buckets=(1, 4))
+                                      buckets=(1, 4, 8))
             restore_checkpoint(servable, seed0)
             runtime.register(servable)
             runtime.warmup()
-            batcher = MicroBatcher(runtime, max_wait_ms=1.0, metrics=reg)
+            batcher = MicroBatcher(runtime, max_wait_ms=50.0, metrics=reg)
             worker = InferenceWorker(
                 "w", runtime, batcher, task_manager=platform.task_manager,
                 prefix="v1/models", metrics=reg, store=platform.store,
@@ -1142,29 +1142,33 @@ class TestLandCoverSmall:
             svc = await serve(worker.service.app)
             platform.publish_async_api(
                 "/v1/landcover/classify-async",
-                str(svc.make_url("/v1/models/classify-async")))
+                str(svc.make_url("/v1/models/classify-async")),
+                concurrency=2 * N_TILES)
             platform.publish_sync_api(
                 "/v1/landcover/classify",
                 str(svc.make_url("/v1/models/classify")))
             gw = await serve(platform.gateway.app)
             await platform.start()
 
-            async def wave(headers=None) -> tuple[list, list]:
-                # One tile at a time: each runs alone in bucket 1, so two
-                # executions of a tile are byte-equal (a tile's bfloat16
-                # answer may differ between buckets).
-                outcomes, results = [], []
-                for b in bodies:
-                    resp = await gw.post(
-                        "/v1/landcover/classify-async", data=b,
-                        headers={"Content-Type": "application/octet-stream",
-                                 **(headers or {})})
-                    outcomes.append(resp.headers.get("X-Cache"))
-                    tid = (await resp.json())["TaskId"]
-                    final = await poll_until(gw, tid, completed)
+            async def wave(headers=None, copies=1) -> tuple[list, list]:
+                # The whole wave at once, so the dispatcher delivers it
+                # together and the batcher cuts it into one bucket (4 for
+                # the tiles once, 8 for them twice): two executions of a
+                # tile land in different buckets and batch rows, and must
+                # agree byte for byte (ROADMAP C8).
+                resps = await asyncio.gather(*(
+                    gw.post("/v1/landcover/classify-async", data=b,
+                            headers={"Content-Type":
+                                     "application/octet-stream",
+                                     **(headers or {})})
+                    for b in bodies * copies))
+                outcomes = [resp.headers.get("X-Cache") for resp in resps]
+                tids = [(await resp.json())["TaskId"] for resp in resps]
+                for final in await asyncio.gather(*(
+                        poll_until(gw, tid, completed) for tid in tids)):
                     assert completed(final), final
-                    results.append(platform.store.get_result(tid)[0])
-                return outcomes, results
+                return outcomes, [platform.store.get_result(tid)[0]
+                                  for tid in tids]
 
             try:
                 outcomes, executed = await wave()
@@ -1200,10 +1204,10 @@ class TestLandCoverSmall:
                 assert platform.result_cache.stats()["entries"] == 0
                 outcomes, after = await wave()
                 assert outcomes == ["miss"] * N_TILES
-                _, bypassed = await wave({"X-Cache-Bypass": "1"})
-                assert after == bypassed
+                _, bypassed = await wave({"X-Cache-Bypass": "1"}, copies=2)
+                assert after == bypassed[:N_TILES] == bypassed[N_TILES:]
                 assert after != executed
-                assert executed_examples(reg) == rows + 3 * N_TILES
+                assert executed_examples(reg) == rows + 4 * N_TILES
             finally:
                 await platform.stop()
                 await batcher.stop()
