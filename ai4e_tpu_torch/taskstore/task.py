@@ -84,10 +84,9 @@ class APITask:
     tenant: str = ""
     # False for a record whose loss on restart is acceptable: a cache hit's,
     # whose terminal record was already in the submit answer. Process-local
-    # like ``publish``, never on the wire. The port's store keeps every
-    # record in memory only; the flag is what a journal or a result offload
-    # (ROADMAP A18.1, A18.13) will skip, so a high duplicate rate cannot
-    # turn "served from cache" into payload-sized writes.
+    # like ``publish``, never on the wire. The store's result offload skips
+    # such a record, as a journal (ROADMAP A18.1) will, so a high duplicate
+    # rate cannot turn "served from cache" into payload-sized writes.
     durable: bool = True
 
     @property

@@ -7,9 +7,13 @@ straight to the result directory behind the port's and JAX's control
 planes alike."""
 
 import asyncio
+import io
 import json
 import os
+import socket
+from urllib.parse import quote
 
+import numpy as np
 import pytest
 from aiohttp import web
 from aiohttp.test_utils import TestClient, TestServer
@@ -20,7 +24,7 @@ from ai4e_tpu.taskstore import APITask as JaxTask
 from ai4e_tpu.taskstore import InMemoryTaskStore as JaxStore
 from ai4e_tpu.taskstore.http import make_app as jax_make_app
 from ai4e_tpu.taskstore.results import FileResultBackend as JaxBackend
-from ai4e_tpu_torch.cli import _stores
+from ai4e_tpu_torch.cli import _stores, build_control_plane, build_worker
 from ai4e_tpu_torch.config import FrameworkConfig
 from ai4e_tpu_torch.service.task_manager import (DirectResultStore,
                                                  HttpResultStore)
@@ -342,6 +346,123 @@ def test_worker_stores_follow_the_service_result_dir(tmp_path):
     _, plain = _stores({"taskstore": "http://127.0.0.1:1"},
                        FrameworkConfig.from_env({}))
     assert isinstance(plain, HttpResultStore)
+
+
+# -- the deploy spec's results against the threshold ---------------------------
+
+#: The deploy spec's camera trap with its 16 crops of 224 px (a 2,408,576
+#: byte npy stack, the species stage's task body), at a small detector and
+#: a one-stage species ResNet; land cover at a small tile.
+TRAP = [
+    {"family": "detector", "name": "det", "image_size": 64,
+     "widths": [8, 8, 8], "score_threshold": 0.0, "max_detections": 16,
+     "buckets": [1], "async_path": "/detect-async",
+     "pipeline_to": {"endpoint": "/v1/trap/cls-batch-async",
+                     "payload": "crops", "crop_size": 224, "max_crops": 16}},
+    {"family": "resnet", "name": "cls", "image_size": 224,
+     "stage_sizes": [1], "width": 8, "num_classes": 4, "buckets": [16],
+     "batch": {"async_path": "/cls-batch-async", "max_items": 16}},
+    {"family": "unet", "name": "lc", "tile": 32, "widths": [8, 16],
+     "num_classes": 4, "buckets": [1], "async_path": "/lc-async"}]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def npy(arr) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+async def drive_trap(root, threshold) -> tuple:
+    """Two scenes through detect and two tiles through land cover behind
+    the port's control plane, worker and control plane on one result
+    directory; ``(results by store key, the species stage's task bodies,
+    the files in the directory)``."""
+    cp_port, wk_port = free_port(), free_port()
+    worker_url = f"http://127.0.0.1:{wk_port}/v1/trap"
+    env = {"AI4E_PLATFORM_RETRY_DELAY": "0.05",
+           "AI4E_PLATFORM_RESULT_DIR": str(root),
+           "AI4E_SERVICE_RESULT_DIR": str(root)}
+    if threshold is not None:
+        env["AI4E_PLATFORM_RESULT_OFFLOAD_THRESHOLD"] = str(threshold)
+        env["AI4E_SERVICE_RESULT_OFFLOAD_THRESHOLD"] = str(threshold)
+    config = FrameworkConfig.from_env(env)
+    platform = build_control_plane(config, {"apis": [
+        {"prefix": "/v1/public/detect", "mode": "async",
+         "backend": worker_url + "/detect-async"},
+        {"prefix": "/v1/public/lc", "mode": "async",
+         "backend": worker_url + "/lc-async"},
+        {"backend": worker_url + "/cls-batch-async", "mode": "async",
+         "internal": True}]})
+    worker, batcher, _ = build_worker(
+        {"service_name": "trap", "prefix": "v1/trap",
+         "taskstore": f"http://127.0.0.1:{cp_port}", "models": TRAP},
+        device="cpu", config=config)
+    gw = TestClient(TestServer(platform.gateway.app, port=cp_port))
+    await gw.start_server()
+    await platform.start()
+    await batcher.start()
+    svc = TestServer(worker.service.app, port=wk_port)
+    await svc.start_server()
+    results, bodies = {}, []
+    try:
+        for i in range(2):
+            rng = np.random.default_rng(i)
+            for route, size in (("detect", 64), ("lc", 32)):
+                img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                resp = await gw.post(f"/v1/public/{route}", data=npy(img))
+                assert resp.status == 200, await resp.text()
+                tid = (await resp.json())["TaskId"]
+                resp = await gw.get(f"/v1/taskmanagement/task/{tid}",
+                                    params={"wait": "30"})
+                status = (await resp.json())["Status"]
+                assert status.startswith("completed"), status
+                for stage in ((None, "det") if route == "detect"
+                              else (None,)):
+                    params = {"taskId": tid,
+                              **({"stage": stage} if stage else {})}
+                    resp = await gw.get("/v1/taskstore/result",
+                                        params=params)
+                    assert resp.status == 200, (tid, stage, resp.status)
+                    key = f"{tid}:{stage}" if stage else tid
+                    results[key] = await resp.read()
+                if route == "detect":
+                    bodies.append(platform.store.get(tid).body)
+    finally:
+        await platform.stop()
+        await batcher.stop()
+        for client in (worker.service.task_manager, worker.store):
+            await client.close()
+        await svc.close()
+        await gw.close()
+    return results, bodies, files(root)
+
+
+@pytest.mark.parametrize("threshold", [None, 96], ids=["default-1MiB", "96B"])
+def test_deploy_spec_results_reach_the_directory_by_size(threshold,
+                                                         tmp_path):
+    """At the default 1 MiB no file is written: the 2.4 MB crops stack is
+    the species stage's task body, and every result is a small JSON. At
+    96 B each result of 96 B or more is one ``.bin`` of the bytes the
+    store serves, and no other result has a file."""
+    root = tmp_path / "results"
+    root.mkdir()
+    results, bodies, on_disk = run(drive_trap(root, threshold))
+    assert len(results) == 6
+    assert all(len(body) >= 16 * 224 * 224 * 3 > 1024 * 1024
+               for body in bodies)
+    assert max(len(r) for r in results.values()) < 1024 * 1024
+    want = {quote(key, safe="") + ".bin": body
+            for key, body in results.items()
+            if threshold is not None and len(body) >= threshold}
+    assert {n: b for n, b in on_disk.items() if n.endswith(".bin")} == want
+    if threshold is not None:
+        assert want and len(want) < len(results)
 
 
 def test_unknown_task_result_is_refused_without_offload_too():
