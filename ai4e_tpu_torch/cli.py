@@ -55,6 +55,13 @@ and registers a pointer; ``AI4E_PLATFORM_NATIVE_STORE`` and
 ``_NATIVE_BROKER`` run the C++ cores; ``AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT``
 turns on the reaper's rescue of tasks stuck in running
 (``_REAPER_MAX_REQUEUES`` rescues, then failed).
+``AI4E_PLATFORM_JOURNAL_PATH`` journals the control plane's task store
+(``AI4E_TASKSTORE_FSYNC``: ``never``, ``always`` or ``group:<ms>``), so a
+restart keeps every task and publishes the unfinished ones again; with
+``AI4E_PLATFORM_REPLICATE_FROM`` (the primary's URL) as well the control
+plane is the HA pair's standby (``_FAILOVER_INTERVAL``,
+``_FAILOVER_DOWN_AFTER``, ``_REPLICATE_API_KEY``; ``_ADVERTISE_URL`` on
+both). Workers list the pair as ``"taskstore": "primary,standby"``.
 
 A spec key, route key or ``AI4E_*`` knob the JAX package would honour and
 this port does not serve yet raises and names its ROADMAP item.
@@ -64,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import inspect
 import json
 import logging
 import os
@@ -145,9 +153,12 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
                      if config.gateway.quota else None)
         platform.gateway.set_quota_tracker(QuotaTracker(default_q,
                                                         per_key=per_key_q))
+    # Role flips over HTTP run the platform's whole sequence, not a bare
+    # store flip.
     make_taskstore_app(platform.store, app=platform.gateway.app,
                        max_body_bytes=config.gateway.max_body_bytes,
-                       max_result_bytes=config.gateway.max_result_bytes)
+                       max_result_bytes=config.gateway.max_result_bytes,
+                       lifecycle=platform)
     for api in routes.get("apis", []):
         for key, what in _UNPORTED_ROUTE_KEYS.items():
             if key in api:
@@ -197,13 +208,19 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     await platform.start()
     vitals = await start_vitals(config, platform.metrics)
     # Operators grep the startup line for posture: admission changes the
-    # public contract (sheds, expiry, computed Retry-After).
+    # public contract (sheds, expiry, computed Retry-After); the journal's
+    # fsync policy what an acknowledgment means against a machine crash.
+    stats = getattr(platform.store, "journal_stats", None)
     posture = "".join([
         ", admission control ON" if platform.admission is not None else "",
         ", observability ON" if platform.observability is not None else "",
         (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
          if platform.slo is not None else ""),
-        ", vitals ON" if vitals is not None else ""])
+        ", vitals ON" if vitals is not None else "",
+        (f", journal {config.platform.journal_path} "
+         f"fsync={stats()['fsync_policy']}" if stats is not None else ""),
+        (f", standby of {config.platform.replicate_from}"
+         if config.platform.replicate_from else "")])
     log.info("control plane on %s:%s (%d routes%s)", config.gateway.host,
              config.gateway.port, len(platform.gateway.routes), posture)
     try:
@@ -213,6 +230,11 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
             await vitals.stop()
         await platform.stop()
         await runner.cleanup()
+        if stats is not None:
+            log.info("journal stats %s", json.dumps(stats()))
+            # A clean stop owes the disk nothing: the group policy's
+            # pending fsync runs here.
+            platform.store.close()
 
 
 # -- worker ------------------------------------------------------------------
@@ -514,8 +536,11 @@ async def serve(worker, batcher, host: str, port: int,
         for engine in worker.decode_engines:
             await engine.stop()
         for client in (worker.service.task_manager, worker.store):
-            if hasattr(client, "close"):
-                await client.close()
+            # The HTTP clients close a session; a standalone worker's own
+            # store closes synchronously.
+            close = getattr(client, "close", None)
+            if close is not None and inspect.isawaitable(done := close()):
+                await done
         await runner.cleanup()
         log.info("kernel launches while serving %s", json.dumps(
             {k: n - before[k] for k, n in kernel_launches().items()}))

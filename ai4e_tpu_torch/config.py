@@ -32,7 +32,6 @@ _FALSE = frozenset({"0", "false", "no", "off", ""})
 OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
                             "AI4E_TASKSTORE_", "AI4E_RIG_")
 
-_HA = "the journaled and replicated task store (ROADMAP A18.1)"
 _SHARDS = "the sharded task store (ROADMAP A18.2)"
 _PUSH = "the push transport (ROADMAP A18.3)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
@@ -47,9 +46,6 @@ _MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
 UNPORTED: dict[tuple[str, str], str] = {
-    **{("AI4E_PLATFORM_", f): _HA for f in (
-        "journal_path", "replicate_from", "failover_interval",
-        "failover_down_after", "replicate_api_key", "advertise_url")},
     **{("AI4E_PLATFORM_", f): _SHARDS for f in (
         "task_shards", "task_shard_slots", "task_shard_replicas",
         "shard_tail_interval", "shard_feed_recent")},
@@ -244,12 +240,17 @@ class PlatformSection:
     pipeline_chunk_replay: int = 128
 
     def to_platform_config(self):
-        """The fields of this section that ``LocalPlatform`` reads."""
+        """The fields of this section that ``LocalPlatform`` reads;
+        ``replicate_api_key`` as its first non-empty comma-separated key,
+        as in JAX."""
         from .platform_assembly import PlatformConfig
         pc_fields = {f.name for f in fields(PlatformConfig)}
-        return PlatformConfig(**{f.name: getattr(self, f.name)
-                                 for f in fields(self)
-                                 if f.name in pc_fields})
+        values = {f.name: getattr(self, f.name) for f in fields(self)
+                  if f.name in pc_fields}
+        values["replicate_api_key"] = next(
+            (k.strip() for k in (self.replicate_api_key or "").split(",")
+             if k.strip()), None)
+        return PlatformConfig(**values)
 
 
 @_env_section("AI4E_SERVICE_")

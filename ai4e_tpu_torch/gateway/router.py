@@ -50,7 +50,14 @@ created backlog, 429 with a Retry-After computed from the drain rate; the
 sync proxy runs under the controller's adaptive in-flight cap (503 when
 the class is shed) and forwards the absolute deadline. The expiry 504
 comes before the cache lookup, the pressure shed after it, so a free answer
-is never shed. Not ported (ROADMAP A18): tenancy (the middleware's tenant
+is never shed.
+
+On a standby control plane (a follower store) the async edge answers 503
+with ``X-Not-Primary`` and a Retry-After (the drain rate's with
+admission, else 2 s): task creation belongs to the primary; a
+journal-degraded store answers 503 with ``X-Shed-Reason:
+journal-degraded``. A cache hit on either falls through to that answer.
+Not ported (ROADMAP A18): tenancy (the middleware's tenant
 branch, A18.10), orchestration's brownout and resilient proxying, event
 streams and weighted backends (so every route is cacheable; JAX's canary
 routes are not).
@@ -74,7 +81,8 @@ from ..observability import Tracer
 from ..observability.ledger import ADMITTED, PUBLISHED, ledger_event
 from ..rescache.keys import (CACHE_STATUS_HEADER, cache_bypass_requested,
                              request_key)
-from ..taskstore import (APITask, InMemoryTaskStore, TaskNotFound, TaskStatus,
+from ..taskstore import (APITask, InMemoryTaskStore, JournalDegradedError,
+                         NotPrimaryError, TaskNotFound, TaskStatus,
                          endpoint_path)
 from ..utils.http import SessionHolder, read_body_limited
 
@@ -325,9 +333,11 @@ class Gateway:
                                                  else "coalesced" if leader
                                                  else "miss")
                     if found is not None:
-                        cache.count_hit()
-                        return self._serve_cached_task(
+                        answer = self._serve_cached_task(
                             route, endpoint, body, content_type, key, found)
+                        if answer is not None:
+                            cache.count_hit()
+                            return answer
                     if leader is not None:
                         try:
                             record = self.store.get(leader)
@@ -350,10 +360,37 @@ class Gateway:
                     return refusal
             with self.tracer.span("create_task", route=route.prefix,
                                   headers=request.headers) as span:
-                task = self.store.upsert(APITask(
-                    endpoint=endpoint, body=body, content_type=content_type,
-                    publish=True, cache_key=cache_key,
-                    deadline_at=deadline_at, priority=task_priority))
+                try:
+                    task = self.store.upsert(APITask(
+                        endpoint=endpoint, body=body,
+                        content_type=content_type, publish=True,
+                        cache_key=cache_key, deadline_at=deadline_at,
+                        priority=task_priority))
+                except NotPrimaryError:
+                    # A standby: task creation is on the primary. Clients
+                    # with a replica list rotate on this header only.
+                    self._requests.inc(route=route.prefix,
+                                       outcome="not_primary")
+                    return web.json_response(
+                        {"error": "standby replica; task creation is on "
+                                  "the primary"},
+                        status=503,
+                        headers={"Retry-After": self._standby_retry_after(),
+                                 "X-Not-Primary": "1"})
+                except JournalDegradedError as exc:
+                    # Nothing was created or published; reads still serve
+                    # here, so no X-Not-Primary.
+                    self._requests.inc(route=route.prefix,
+                                       outcome="journal_degraded")
+                    if self._observability is not None:
+                        self._observability.record_refusal(
+                            route.prefix, "journal-degraded",
+                            priority=task_priority)
+                    return web.json_response(
+                        {"error": f"journal degraded: {exc}"},
+                        status=503,
+                        headers={"Retry-After": self._standby_retry_after(),
+                                 SHED_REASON_HEADER: "journal-degraded"})
                 span.task_id = task.task_id
             if xcache is not None:
                 # Counted once the record exists (hit and coalesced
@@ -396,23 +433,37 @@ class Gateway:
             extra=(tail + "?" + request.query_string
                    if request.query_string else tail))
 
+    def _standby_retry_after(self) -> str:
+        """Retry-After of the standby and journal-degraded 503s: the drain
+        rate's estimate with admission, else 2 s."""
+        if self._admission is None:
+            return "2"
+        return str(max(1, math.ceil(self._admission.retry_after_s())))
+
     def _serve_cached_task(self, route: Route, endpoint: str, body: bytes,
                            content_type: str, key: str,
-                           found: tuple) -> web.Response:
+                           found: tuple) -> web.Response | None:
         """Answer an async cache hit with a real task record, already
         terminal and never published, whose result is the cached payload:
         the client polls and fetches as for a miss. ``durable=False``: the
-        answer already carries the terminal record."""
+        answer already carries the terminal record, so a journal never
+        holds it. None when this replica cannot create records (a standby,
+        a degraded journal): the create path answers their 503."""
         payload, ctype = found
-        task = self.store.upsert(APITask(
-            endpoint=endpoint, body=body, content_type=content_type,
-            status="completed - served from cache",
-            backend_status=TaskStatus.COMPLETED,
-            publish=False, cache_key=key, durable=False))
+        try:
+            task = self.store.upsert(APITask(
+                endpoint=endpoint, body=body, content_type=content_type,
+                status="completed - served from cache",
+                backend_status=TaskStatus.COMPLETED,
+                publish=False, cache_key=key, durable=False))
+        except (NotPrimaryError, JournalDegradedError):
+            return None
         try:
             self.store.set_result(task.task_id, payload, ctype)
         except TaskNotFound:
             pass  # reaped already (zero retention); the record answered
+        except JournalDegradedError:
+            return None  # degraded in between: the create path's 503
         self._requests.inc(route=route.prefix, outcome="cache_hit")
         return web.json_response(task.to_dict(),
                                  headers={CACHE_STATUS_HEADER: "hit"})

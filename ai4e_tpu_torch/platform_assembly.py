@@ -20,6 +20,22 @@ dispatching and coalesces identical ones onto one execution, the
 dispatchers complete redeliveries from it, the store's change feed fills
 it; a worker in the same process takes it as ``result_cache``, so that
 its reloads invalidate it).
+
+With ``journal_path`` the store is journaled (``taskstore/store.py``,
+fsync policy ``AI4E_TASKSTORE_FSYNC``): a restart replays it and publishes
+the replayed unfinished tasks again. It is a born-primary
+``FollowerTaskStore``, so a promoted standby can depose it. With
+``replicate_from`` as well, the platform is the HA pair's standby: it
+tails the primary's journal (``replication.JournalReplicator``), serves
+reads, refuses writes, starts no transport and no reaper, and its
+``FailoverWatchdog`` promotes it after ``failover_down_after`` failed
+probes ``failover_interval`` apart, once it has synced. Promoted
+(``_on_promoted``), it starts the transport, publishes every unfinished
+task and runs a ``FencingProber`` against the old primary. A demoted
+primary (``demote_now``, ``POST /v1/taskstore/demote``) stops its
+transport and, given the new primary's URL, rejoins it as a standby.
+``advertise_url`` marks an HA pair: only then may an ``X-Store-Epoch``
+header demote a primary, and the prober offers it for the rejoin.
 The sharded store and orchestration, under which the JAX package scales a
 route's shards or on a predictive signal, are refused by
 ``config.check_ported`` (ROADMAP A18.2, A18.9). As in JAX, the native store
@@ -113,6 +129,19 @@ class PlatformConfig:
     # Entry lifetime: the staleness bound for a cache that a remote
     # worker's reload cannot reach. None = no TTL.
     cache_ttl_seconds: float | None = 300.0
+    # The journaled store and its HA pair. None: the in-memory store.
+    journal_path: str | None = None
+    # The primary's URL, on the standby (needs journal_path).
+    replicate_from: str | None = None
+    failover_interval: float = 2.0
+    failover_down_after: int = 3
+    # Subscription key for the standby's calls to a keyed primary.
+    replicate_api_key: str | None = None
+    # This control plane's own URL: the HA-pair marker, offered to a
+    # deposed primary for its rejoin.
+    advertise_url: str | None = None
+    # None: AI4E_TASKSTORE_FSYNC (never | always | group:<ms>).
+    taskstore_fsync: str | None = None
 
 
 class LocalPlatform:
@@ -236,25 +265,55 @@ class LocalPlatform:
             process_interval=self.config.process_depth_interval)
         self.autoscalers: list = []
         self._started = False
+        self._transport_running = False
+        # The HA machinery: the standby's replicator and watchdog, the
+        # promoted standby's prober.
+        self.replicator = None
+        self.watchdog = None
+        self.prober = None
         # Strong refs to fire-and-forget terminal transitions: the event
         # loop holds tasks weakly.
         self._bg_tasks: set[asyncio.Task] = set()
 
     def _build_store(self):
-        """The Python store, with the result backend when ``result_dir`` is
-        set, or the native one, which refuses the options it cannot
-        honour."""
-        if not self.config.native_store:
+        """The Python store (journaled with ``journal_path``, a standby
+        with ``replicate_from`` too), with the result backend when
+        ``result_dir`` is set, or the native one, which refuses the options
+        it cannot honour, each with JAX's text."""
+        config = self.config
+        if config.replicate_from and not config.journal_path:
+            raise ValueError(
+                "replicate_from (standby mode) requires journal_path — "
+                "the follower journals the absorbed stream")
+        if config.journal_path and config.native_store:
+            if config.replicate_from:
+                raise ValueError("standby mode requires the Python store")
+            raise ValueError(
+                "native_store has no journal; use journal_path with the "
+                "Python store or native_store without durability")
+        if not config.native_store:
             backend = None
-            if self.config.result_dir:
+            if config.result_dir:
                 from .taskstore.results import FileResultBackend
 
-                backend = FileResultBackend(self.config.result_dir)
-            return InMemoryTaskStore(
+                backend = FileResultBackend(config.result_dir)
+            result_kwargs = dict(
                 result_backend=backend,
                 result_offload_threshold=(
-                    self.config.result_offload_threshold if backend else None))
-        if self.config.result_dir:
+                    config.result_offload_threshold if backend else None))
+            if not config.journal_path:
+                return InMemoryTaskStore(**result_kwargs)
+            from .taskstore.store import FollowerTaskStore
+
+            # The journal's metrics land in this platform's registry. A
+            # journaled primary is a born-primary follower store, which a
+            # promoted standby can depose.
+            return FollowerTaskStore(
+                config.journal_path,
+                start_as_primary=not config.replicate_from,
+                fsync=config.taskstore_fsync, metrics=self.metrics,
+                **result_kwargs)
+        if config.result_dir:
             raise ValueError(
                 "result_dir offload requires the Python store "
                 "(the native store keeps results in its own memory)")
@@ -323,7 +382,40 @@ class LocalPlatform:
                                     max_body_bytes=max_body_bytes)
 
     async def start(self) -> None:
+        if self.config.replicate_from:
+            # The standby: tail the primary, serve reads, refuse writes.
+            # The transport starts only at promotion, so a standby never
+            # delivers tasks the primary delivers.
+            self._start_standby(self.config.replicate_from)
+            await self.depth_logger.start()
+            self._started = True
+            return
+        if hasattr(self.store, "passive_fencing"):
+            # Without an HA peer a forged or stale X-Store-Epoch header
+            # would only take the sole primary out of service.
+            self.store.passive_fencing = bool(self.config.advertise_url)
+        await self._start_transport()
+        await self.depth_logger.start()
+        await self._start_primary_loops()
+        self._reseed_unfinished()
+        self._started = True
+
+    def _start_standby(self, primary_url: str) -> None:
+        from .taskstore.replication import FailoverWatchdog, JournalReplicator
+
+        self.replicator = JournalReplicator(
+            self.store, primary_url, api_key=self.config.replicate_api_key,
+            metrics=self.metrics)
+        self.replicator.start()
+        self.watchdog = FailoverWatchdog(
+            self.replicator, interval=self.config.failover_interval,
+            down_after=self.config.failover_down_after,
+            on_promote=self._on_promoted)
+        self.watchdog.start()
+
+    async def _start_transport(self) -> None:
         loop = asyncio.get_running_loop()
+        self._transport_running = True
         self.broker.bind_loop(loop)
 
         def on_dead_letter(msg) -> None:
@@ -335,14 +427,100 @@ class LocalPlatform:
 
         self.broker.set_dead_letter_handler(on_dead_letter)
         await self.dispatchers.start()
-        await self.depth_logger.start()
+
+    async def _start_primary_loops(self) -> None:
+        """The loops only a primary runs beside its transport."""
         if self.reaper is not None:
             await self.reaper.start()
         if self.slo is not None:
             await self.slo.start()
         for scaler in self.autoscalers:
             await scaler.start()
-        self._started = True
+
+    def _reseed_unfinished(self) -> None:
+        """Publish the unfinished tasks a journal replay restored: their
+        broker messages died with the previous process. Tasks created in
+        this process already have theirs."""
+        restored = getattr(self.store, "replayed_task_ids", None)
+        if not restored:
+            return
+        reseeded = 0
+        for task in self.store.unfinished_tasks():
+            if task.task_id in restored:
+                self.broker.publish(task)
+                reseeded += 1
+        log.info("journal replayed %d tasks; re-seeded %d unfinished",
+                 len(restored), reseeded)
+
+    async def _on_promoted(self) -> None:
+        """This standby is the primary now: start the transport and the
+        primary's loops, publish every unfinished task (replicated, so none
+        has a broker message here) and fence the old primary."""
+        log.warning("promoted to primary; starting transport and "
+                    "re-seeding %d unfinished tasks",
+                    len(self.store.unfinished_tasks()))
+        # Cleared, not only stopped: demote_now rejoins only without one,
+        # and /role reports "replicating" from it.
+        if self.replicator is not None:
+            await self.replicator.aclose()
+            self.replicator = None
+        await self._start_transport()
+        await self._start_primary_loops()
+        for task in self.store.unfinished_tasks():
+            self.broker.publish(task)
+        if self.config.replicate_from:
+            from .taskstore.replication import FencingProber
+
+            self.prober = FencingProber(
+                self.store, self.config.replicate_from,
+                advertise_url=self.config.advertise_url,
+                api_key=self.config.replicate_api_key,
+                interval=self.config.failover_interval)
+            self.prober.start()
+
+    async def promote_now(self) -> None:
+        """Manual failover (``POST /v1/taskstore/promote``): the watchdog's
+        sequence, replication torn down before the flip, so a racing poll
+        can never resync-wipe the new primary."""
+        if self.watchdog is not None:
+            await self.watchdog.stop()
+            self.watchdog = None
+        if self.replicator is not None:
+            await self.replicator.aclose()
+            self.replicator = None
+        if getattr(self.store, "role", "primary") == "primary":
+            return
+        self.store.promote()
+        await self._on_promoted()
+
+    async def demote_now(self, epoch: int,
+                         primary_url: str | None = None) -> None:
+        """Fence this node out of the primary role (``POST
+        /v1/taskstore/demote``): the store flips first, so writes refuse
+        before this returns (``StaleEpochError`` when ``epoch`` is not
+        newer). Then the primary's machinery stops, and with
+        ``primary_url`` the node rejoins the new primary as its standby,
+        watchdog armed."""
+        self.store.demote(epoch)
+        # Keyed on the transport, not the role: a passive demotion (a
+        # client's epoch header) flipped the bare store and left it running.
+        if self._transport_running:
+            log.warning("demoted at epoch %d (new primary: %s); stopping "
+                        "transport", epoch, primary_url or "unknown")
+            self._transport_running = False
+            if self.prober is not None:
+                await self.prober.aclose()
+                self.prober = None
+            for scaler in self.autoscalers:
+                await scaler.stop()
+            if self.reaper is not None:
+                await self.reaper.stop()
+            if self.slo is not None:
+                await self.slo.stop()
+            await self.dispatchers.stop()
+        if primary_url and self.replicator is None:
+            self.config.replicate_from = primary_url
+            self._start_standby(primary_url)
 
     async def _fail_dead_letter(self, task_id: str) -> None:
         try:
@@ -354,6 +532,15 @@ class LocalPlatform:
             log.exception("could not fail dead-lettered task %s", task_id)
 
     async def stop(self) -> None:
+        if self.watchdog is not None:
+            await self.watchdog.stop()
+            self.watchdog = None
+        if self.replicator is not None:
+            await self.replicator.aclose()
+            self.replicator = None
+        if self.prober is not None:
+            await self.prober.aclose()
+            self.prober = None
         if self._started:
             for scaler in self.autoscalers:
                 await scaler.stop()
@@ -363,6 +550,7 @@ class LocalPlatform:
                 await self.slo.stop()
             await self.depth_logger.stop()
             await self.dispatchers.stop()
+            self._transport_running = False
             self._started = False
         if hasattr(self.broker, "close"):
             self.broker.close()

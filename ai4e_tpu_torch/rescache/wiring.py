@@ -9,6 +9,11 @@ long-polls ride), copies the result into the cache and releases the
 registration the moment the task turns terminal. One fill point covers
 every producer (the worker, the dispatcher serving from the cache). A
 failed leader releases its key, so the next identical request executes.
+A journal replay fires no listeners, and a standby's replicated
+completions find no registration of their own (its gateway creates no
+tasks): a restarted or promoted control plane starts with a cold cache,
+never a stale one, and a request cached before the restart executes
+again.
 
 The pipeline hop bookkeeping (``hop_gens``) is JAX's fill rule for a
 composite task keyed under stage 1 whose later stages may reload

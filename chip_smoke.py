@@ -277,7 +277,28 @@ Phases, each of which raises on failure:
    ``python -m ai4e_tpu_torch redrive``, every task completed with phase
    10's answer and at least one ``requeued`` rescue a task running at the
    kill. It prints ``c8 15a``, ``offload 15b``, ``cores 15c`` and ``rescue
-   15d`` lines.
+   15d`` lines;
+16. the journaled control plane and its HA pair, land cover from phase
+   10's checkpoint: (a) behind one control plane journaled with
+   ``AI4E_TASKSTORE_FSYNC=always``, 64 async tiles, the control plane
+   SIGKILLed once some tasks are completed and some are not, restarted
+   on the same journal: every result read before the kill reads back
+   byte-equal, the unfinished tasks are re-seeded (as many as the journal
+   holds, read offline) and every task completes with phase 10's answer;
+   the kill to the first completion after the restart, the journal's
+   stats and fsyncs; (b) a primary and a standby (``replicate_from``,
+   failover every 0.5 s, down after 3) with the worker's ``taskstore``
+   the pair: 64 tiles, the primary SIGKILLed mid-burst, the standby
+   promoted and the worker's store client rotated to it without a
+   restart, every task completed with phase 10's answer and each task
+   the standby never received (404 there) counted and resubmitted; the
+   kill to the promotion and to the first completion, the replication
+   lag before the kill; then the old primary restarted from its stale
+   config: fenced to the new epoch by the new primary's prober, rejoined
+   as its follower, its writes 503 with ``X-Not-Primary``, its journal
+   caught up with the new primary's. Normalize and argmax launched in
+   each worker. It prints ``restart 16a``, ``failover 16b`` and ``phase
+   16`` lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -7448,6 +7469,567 @@ def phase_15(handoff: dict, kernels: list[dict], replay_7a_ms=None,
     return report
 
 
+# -- phase 16: the journaled control plane and its HA pair ------------------
+
+HA_FSYNC = "always"          # 16a: AI4E_TASKSTORE_FSYNC
+FAILOVER_INTERVAL_S = 0.5    # 16b: AI4E_PLATFORM_FAILOVER_INTERVAL
+FAILOVER_DOWN_AFTER = 3      # 16b: AI4E_PLATFORM_FAILOVER_DOWN_AFTER
+HA_TRIES = 4                 # bursts tried until one is caught mid-way
+HA_DEADLINE_S = 120          # a part's tasks all terminal within this
+# Each client request's bound. One request to a SIGKILLed control plane
+# hung for 63 s on the card (the sum of a connect's SYN retransmits),
+# which held the whole failover behind one client.
+HA_CONNECT_S = 2.0
+
+
+async def ha_submit(http, base: str, body: bytes, deadline: float) -> str:
+    """One tile to ``base``'s async route; a standby's 503 +
+    ``X-Not-Primary`` or a refused connection is retried until
+    ``deadline``."""
+    import aiohttp
+
+    timeout = aiohttp.ClientTimeout(total=30, sock_connect=HA_CONNECT_S)
+    while True:
+        try:
+            async with http.post(base + LC_ASYNC, data=body, headers=OCTET,
+                                 timeout=timeout) as r:
+                if r.status == 200:
+                    return (await r.json())["TaskId"]
+                if not (r.status == 503 and r.headers.get("X-Not-Primary")):
+                    raise AssertionError(f"{base}{LC_ASYNC} {r.status}: "
+                                         f"{await r.text()}")
+        except (aiohttp.ClientConnectionError, asyncio.TimeoutError):
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{base}: no primary took the task")
+        await asyncio.sleep(0.05)
+
+
+async def ha_watch(http, bases: list[str], task: dict,
+                   deadline: float) -> None:
+    """Long-poll ``task["id"]`` at ``bases[0]`` to terminal, moving down
+    ``bases`` when one refuses the connection (a single base is retried:
+    it restarts); on completion its result is read at once. A 404 marks
+    the task ``lost`` (the replica that answers never received it)."""
+    import aiohttp
+
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    poll = aiohttp.ClientTimeout(total=15, sock_connect=HA_CONNECT_S)
+    at = 0
+    while time.monotonic() < deadline:
+        base = bases[min(at, len(bases) - 1)]
+        try:
+            async with http.get(f"{base}/v1/taskmanagement/task/"
+                                f"{task['id']}", params={"wait": "10"},
+                                timeout=poll) as r:
+                if r.status == 404:
+                    task["lost"] = True
+                    return
+                if r.status != 200:
+                    await asyncio.sleep(0.05)
+                    continue
+                record = await r.json()
+            if TaskStatus.canonical(record["Status"]) not in \
+                    TaskStatus.TERMINAL:
+                continue
+            task["status"] = record["Status"]
+            async with http.get(base + "/v1/taskstore/result",
+                                params={"taskId": task["id"]},
+                                timeout=poll) as r:
+                if r.status != 200:
+                    raise AssertionError(f"result of {task['id']} at "
+                                         f"{base}: {r.status}")
+                task["raw"] = await r.read()
+            task["done_at"] = time.monotonic()
+            task["base"] = base
+            return
+        except (aiohttp.ClientConnectionError, aiohttp.ClientPayloadError,
+                asyncio.TimeoutError):
+            at += 1
+            await asyncio.sleep(0.05)
+    raise AssertionError(f"task {task['id']} never finished: {task}")
+
+
+async def ha_burst(http, base: str, bodies: list[bytes], first: int,
+                   bases: list[str], deadline: float):
+    """The bodies at once to ``base``; returns each task's dict and the
+    watchers polling them."""
+    ids = await asyncio.gather(*(ha_submit(http, base, b, deadline)
+                                 for b in bodies))
+    tasks = [{"id": t, "i": first + i} for i, t in enumerate(ids)]
+    watchers = [asyncio.create_task(ha_watch(http, bases, t, deadline))
+                for t in tasks]
+    return tasks, watchers
+
+
+HA_UNFINISHED = 4   # unfinished tasks a kill needs: the last batch may land
+
+
+async def ha_catch(http, base: str, tasks: list[dict]) -> bool:
+    """Wait until some task's result is read; then True when the store at
+    ``base`` still holds ``HA_UNFINISHED`` unfinished tasks, False when
+    the burst got too far first."""
+    while True:
+        if any("raw" in t for t in tasks):
+            _, d = await http_json(http, "GET", base + "/v1/taskstore/depths")
+            d = d.get(LC_QUEUE, {})
+            return d.get("created", 0) + d.get("running", 0) >= HA_UNFINISHED
+        await asyncio.sleep(0.002)
+
+
+def journal_offline(path: Path, scratch: Path) -> dict:
+    """What a restart replays from a copy of the journal at ``path``."""
+    import shutil
+
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.taskstore.store import JournaledTaskStore
+
+    copy = scratch / (path.name + ".offline")
+    shutil.copyfile(path, copy)
+    store = JournaledTaskStore(str(copy), metrics=MetricsRegistry())
+    try:
+        return {"unfinished": {t.task_id for t in store.unfinished_tasks()},
+                "results": {t: store.get_result(t)
+                            for t in store.replayed_task_ids},
+                "salvages": store.journal_stats()["salvages"]}
+    finally:
+        store.close()
+        copy.unlink()
+
+
+def logged_json(log_text: str, marker: str) -> dict:
+    lines = [line for line in log_text.splitlines() if marker in line]
+    if not lines:
+        raise AssertionError(f"no {marker!r} line in the log")
+    return json.loads(lines[-1].split(marker, 1)[1])
+
+
+async def restart_drive(gateway: str, worker: str, procs: dict, logs: dict,
+                        restart, bodies: list[bytes], journal: Path) -> dict:
+    """16a's client: bursts until one is caught with tasks completed and
+    others not; the control plane SIGKILLed and restarted on its journal;
+    every task awaited through the restart."""
+    import aiohttp
+    import signal
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"], logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        deadline = time.monotonic() + HA_DEADLINE_S
+        tasks, watchers = [], []
+        for attempt in range(HA_TRIES):
+            burst, ws = await ha_burst(http, gateway, bodies, 0, [gateway],
+                                       deadline)
+            tasks += burst
+            watchers += ws
+            if await ha_catch(http, gateway, burst):
+                break
+            await asyncio.gather(*ws)
+        else:
+            raise AssertionError(f"16a: no burst of {HA_TRIES} was caught "
+                                 "mid-way")
+        procs["cp"].send_signal(signal.SIGKILL)
+        procs["cp"].wait(timeout=30)
+        t_kill = time.monotonic()
+        before = {t["id"]: t["raw"] for t in tasks if "raw" in t}
+        offline = await asyncio.to_thread(journal_offline, journal,
+                                          journal.parent)
+        procs["cp"] = restart()
+        await wait_healthy(http, gateway + "/healthz", procs["cp"],
+                           logs["cp"])
+        back_s = time.monotonic() - t_kill
+        await asyncio.gather(*watchers)
+        reread = {t: await result_bytes(http, gateway, t) for t in before}
+        async with http.get(gateway + "/metrics") as r:
+            cp_metrics = await r.text()
+    after = [t["done_at"] - t_kill for t in tasks if t["done_at"] > t_kill]
+    return {"tasks": tasks, "before": before, "reread": reread,
+            "offline": offline, "attempt": attempt,
+            "kill_to_healthy_s": back_s,
+            "kill_to_first_completion_s": min(after) if after else None,
+            "cp_metrics": cp_metrics}
+
+
+def phase_restart(handoff: dict, device: str = "cuda") -> dict:
+    """16a: land cover behind one control plane journaled with
+    ``HA_FSYNC``, SIGKILLed mid-burst and restarted on its journal."""
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway, worker = (f"http://127.0.0.1:{cp_port}",
+                       f"http://127.0.0.1:{wk_port}")
+    models, routes = cache_specs(gateway, worker, ("landcover",))
+    journal = out_dir / "restart_journal.jsonl"
+    for p in (journal, out_dir / "restart_journal.jsonl.salvage.json"):
+        p.unlink(missing_ok=True)
+    env = {**handoff["env"], "AI4E_PLATFORM_JOURNAL_PATH": str(journal),
+           "AI4E_TASKSTORE_FSYNC": HA_FSYNC}
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    restarted_log = out_dir / "restart_control_plane_restarted.log"
+    with control_plane_and_worker(out_dir, "restart", models, routes, env,
+                                  cp_port, wk_port, device) as (procs, logs):
+        first_log = logs["cp"]
+
+        def restart():
+            logs["cp"] = restarted_log
+            return start_child(
+                ["control-plane", "--routes",
+                 str(out_dir / "restart_routes.json"), "--port",
+                 str(cp_port)], restarted_log, env)
+
+        run = asyncio.run(restart_drive(gateway, worker, procs, logs,
+                                        restart, bodies, journal))
+    cp_log = restarted_log.read_text(errors="replace")
+    tasks = run.pop("tasks")
+    for t in tasks:
+        if t.get("status") != LC_DONE:
+            raise AssertionError(f"16a: task {t['id']} ended {t}")
+        check_histogram(json.loads(t["raw"]), want[t["i"]],
+                        lc_pixels(handoff))
+    before, reread = run.pop("before"), run.pop("reread")
+    offline = run.pop("offline")
+    if not before:
+        raise AssertionError("16a: no result was read before the kill")
+    for task_id, raw in before.items():
+        if reread[task_id] != raw:
+            raise AssertionError(f"16a: {task_id}'s result changed across "
+                                 "the restart")
+        if offline["results"].get(task_id, (None,))[0] != raw:
+            raise AssertionError(f"16a: the journal lacks {task_id}'s "
+                                 "acknowledged result")
+    reseed = [line for line in cp_log.splitlines()
+              if "re-seeded" in line and "unfinished" in line]
+    if not reseed:
+        raise AssertionError("16a: the restarted control plane logged no "
+                             "re-seed")
+    reseeded = int(reseed[-1].split("re-seeded ", 1)[1].split()[0])
+    if reseeded != len(offline["unfinished"]) or reseeded < 1:
+        raise AssertionError(f"16a: re-seeded {reseeded}, the journal holds "
+                             f"{len(offline['unfinished'])} unfinished")
+    stats = logged_json(cp_log, "journal stats ")
+    cp_metrics = run.pop("cp_metrics")
+    run.update({
+        "tasks": len(tasks), "read_before_kill": len(before),
+        "unfinished_at_kill": len(offline["unfinished"]),
+        "reseeded": reseeded, "salvaged_at_restart": offline["salvages"],
+        "journal_stats_restarted": stats,
+        "fsyncs_restarted": metric_sum(cp_metrics,
+                                       "ai4e_journal_fsyncs_total",
+                                       policy=HA_FSYNC),
+        "appends_restarted": metric_sum(cp_metrics,
+                                        "ai4e_journal_append_seconds_count"),
+        "posture": next((line.split("control plane on ", 1)[1]
+                         for line in first_log.read_text(
+                             errors="replace").splitlines()
+                         if "control plane on " in line), None),
+        "launches_by_model": launches_by_model(
+            logs["wk"].read_text(errors="replace")),
+        "card": CARD.get("smi")})
+    # The worker's store client gives a replica set this long before a
+    # write fails.
+    from ai4e_tpu_torch.service.task_manager import (FAILOVER_CYCLES,
+                                                     FAILOVER_DELAY_S)
+
+    window = FAILOVER_CYCLES * FAILOVER_DELAY_S
+    slow = run["kill_to_first_completion_s"]
+    run["over_store_window"] = slow is not None and slow > window
+    log(f"restart 16a: {json.dumps(run)}")
+    return run
+
+
+@contextlib.contextmanager
+def ha_pair_and_worker(out_dir: Path, models: dict, routes: dict, envs: dict,
+                       wk_port: int, device: str):
+    """The HA pair's two control planes and the worker as child processes;
+    every one still running stopped when the block ends (SIGTERM, exit 0),
+    any that did not stop killed."""
+    (out_dir / "ha_models.json").write_text(json.dumps(models))
+    (out_dir / "ha_routes.json").write_text(json.dumps(routes))
+    logs = {name: out_dir / f"ha_{name}.log"
+            for name in ("primary", "standby", "wk")}
+    procs = {}
+    try:
+        for name in ("primary", "standby"):
+            procs[name] = start_child(
+                ["control-plane", "--routes", str(out_dir / "ha_routes.json"),
+                 "--port", envs[name]["port"]], logs[name], envs[name]["env"])
+        procs["wk"] = start_child(
+            ["worker", "--models", str(out_dir / "ha_models.json"),
+             "--host", "127.0.0.1", "--port", str(wk_port), "--device",
+             device], logs["wk"], envs["wk"]["env"])
+        yield procs, logs
+        for name in ("wk", "old", "standby"):
+            if name in procs and procs[name].poll() is None:
+                stop_child(procs[name], logs[name], f"16b {name}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+async def role_of(http, base: str) -> dict:
+    _, role = await http_json(http, "GET", base + "/v1/taskstore/role")
+    return role
+
+
+async def failover_drive(primary: str, standby: str, worker: str,
+                         procs: dict, logs: dict, restart_old,
+                         bodies: list[bytes]) -> dict:
+    """16b's client: a burst to the primary, the primary SIGKILLed
+    mid-burst, every task awaited at the standby (resubmitted there when it
+    never arrived), then the old primary restarted and fenced."""
+    import aiohttp
+    import signal
+
+    out: dict = {}
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        for name, url in (("primary", primary), ("standby", standby)):
+            await wait_healthy(http, url + "/healthz", procs[name],
+                               logs[name])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        deadline = time.monotonic() + HA_DEADLINE_S
+        # One task first, and the standby caught up with it: a standby
+        # that never synced does not promote (its first long poll of an
+        # empty journal returns only with the first record).
+        tasks, _ = await ha_burst(http, primary, bodies[:1], 0, [primary],
+                                  deadline)
+        await asyncio.gather(*_)
+        while True:
+            async with http.get(standby + "/metrics") as r:
+                text = await r.text()
+            if (metric_sum(text, "ai4e_replication_offset_bytes") > 0
+                    and metric_sum(text, "ai4e_replication_lag_bytes") == 0):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("16b: the standby never synced:\n"
+                                     + tail(logs["standby"]))
+            await asyncio.sleep(0.05)
+        watchers = []
+        for attempt in range(HA_TRIES):
+            burst, ws = await ha_burst(http, primary, bodies, 0,
+                                       [primary, standby], deadline)
+            tasks += burst
+            watchers += ws
+            if await ha_catch(http, primary, burst):
+                break
+            await asyncio.gather(*ws)
+        else:
+            raise AssertionError(f"16b: no burst of {HA_TRIES} was caught "
+                                 "mid-way")
+        async with http.get(standby + "/metrics") as r:
+            standby_metrics = await r.text()
+        # The gauge moves only when a poll returns; the primary's journal
+        # size says what the standby has not seen.
+        async with http.get(primary + "/v1/taskstore/journal",
+                            params={"offset": "0", "wait": "0",
+                                    "limit": "1"}) as r:
+            out["primary_journal_bytes_at_kill"] = int(
+                r.headers["X-Journal-Size"])
+        procs["primary"].send_signal(signal.SIGKILL)
+        procs["primary"].wait(timeout=30)
+        t_kill = time.monotonic()
+        out["lag_bytes_before_kill"] = metric_sum(
+            standby_metrics, "ai4e_replication_lag_bytes")
+        out["offset_bytes_before_kill"] = metric_sum(
+            standby_metrics, "ai4e_replication_offset_bytes")
+        out["completed_before_kill"] = sum("raw" in t for t in tasks)
+        while (await role_of(http, standby)).get("role") != "primary":
+            if time.monotonic() > deadline:
+                raise AssertionError("16b: the standby never promoted:\n"
+                                     + tail(logs["standby"]))
+            await asyncio.sleep(0.02)
+        out["kill_to_promotion_s"] = time.monotonic() - t_kill
+        await asyncio.gather(*watchers)
+        # Tasks the standby never received: the client sends them again.
+        lost = [t for t in tasks if t.get("lost")]
+        again = []
+        for t in lost:
+            new_id = await ha_submit(http, standby, bodies[t["i"]], deadline)
+            again.append({"id": new_id, "i": t["i"], "was": t["id"]})
+        await asyncio.gather(*(ha_watch(http, [standby], t, deadline)
+                               for t in again))
+        out["lost_to_lag"] = len(lost)
+        out["tasks"] = [t for t in tasks if not t.get("lost")] + again
+        after = [t["done_at"] - t_kill for t in out["tasks"]
+                 if t["done_at"] > t_kill]
+        out["kill_to_first_completion_s"] = min(after) if after else None
+        out["completed_after_kill"] = len(after)
+        out["worker_restarted"] = procs["wk"].poll() is not None
+        # The old primary, from its stale config, on its old port.
+        t0 = time.monotonic()
+        procs["old"] = restart_old()
+        await wait_healthy(http, primary + "/healthz", procs["old"],
+                           logs["old"])
+        out["old_healthy_s"] = time.monotonic() - t0
+        new_role = await role_of(http, standby)
+        while True:
+            role = await role_of(http, primary)
+            if role.get("role") == "follower" and role.get("replicating"):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"16b: the old primary was never "
+                                     f"fenced: {role}\n{tail(logs['old'])}")
+            await asyncio.sleep(0.02)
+        out["restart_to_fenced_s"] = time.monotonic() - t0
+        out["old_epoch"] = role["epoch"]
+        out["new_epoch"] = new_role["epoch"]
+        writes = {}
+        for path, kw in (("/v1/taskstore/upsert",
+                          {"json": {"TaskId": "stale", "Endpoint": "/v1/x"}}),
+                         (LC_ASYNC, {"data": bodies[0], "headers": OCTET})):
+            async with http.post(primary + path, **kw) as r:
+                writes[path] = (r.status, r.headers.get("X-Not-Primary"),
+                                r.headers.get("X-Store-Epoch"))
+        out["old_writes"] = writes
+        # Caught up: the old primary's replica head is the new primary's
+        # journal head and its lag is 0.
+        while True:
+            role = await role_of(http, primary)
+            new_role = await role_of(http, standby)
+            async with http.get(primary + "/metrics") as r:
+                old_metrics = await r.text()
+            lag = metric_sum(old_metrics, "ai4e_replication_lag_bytes")
+            if (role.get("replica_chain_head") == new_role["chain_head"]
+                    and lag == 0):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"16b: the old primary never caught "
+                                     f"up: {role} {new_role} lag {lag}")
+            await asyncio.sleep(0.05)
+        out["restart_to_caught_up_s"] = time.monotonic() - t0
+        out["old_offset_bytes"] = metric_sum(old_metrics,
+                                             "ai4e_replication_offset_bytes")
+        async with http.get(standby + "/v1/taskstore/journal",
+                            params={"offset": "0", "wait": "0",
+                                    "limit": "1"}) as r:
+            out["new_primary_journal_bytes"] = int(
+                r.headers["X-Journal-Size"])
+        # Deliveries the stale primary made before its fence landed.
+        out["stale_deliveries"] = metric_sum(old_metrics,
+                                             "ai4e_dispatch_total")
+        # Every task terminal again (a stale delivery runs a task once
+        # more), each result read from the new primary.
+        deadline = time.monotonic() + 60
+        while True:
+            _, d = await http_json(http, "GET",
+                                   standby + "/v1/taskstore/depths")
+            d = d.get(LC_QUEUE, {})
+            if d.get("created", 0) + d.get("running", 0) == 0:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"16b: tasks left unfinished: {d}")
+            await asyncio.sleep(0.1)
+        out["final"] = {t["id"]: (t["i"], await http_json(
+            http, "GET", f"{standby}/v1/taskmanagement/task/{t['id']}"))
+            for t in out["tasks"]}
+        out["final_raw"] = {t["id"]: await result_bytes(http, standby,
+                                                        t["id"])
+                            for t in out["tasks"]}
+        out["attempt"] = attempt
+    return out
+
+
+def phase_failover(handoff: dict, device: str = "cuda") -> dict:
+    """16b: land cover behind a primary and a standby control plane, the
+    worker's ``taskstore`` the pair; the primary SIGKILLed mid-burst, then
+    restarted from its stale config."""
+    out_dir = handoff["out_dir"]
+    ports = {name: free_port() for name in ("primary", "standby", "wk")}
+    urls = {name: f"http://127.0.0.1:{port}" for name, port in ports.items()}
+    models, routes = cache_specs(urls["primary"], urls["wk"], ("landcover",))
+    models["taskstore"] = f"{urls['primary']},{urls['standby']}"
+    envs = {}
+    for name in ("primary", "standby"):
+        journal = out_dir / f"ha_{name}.jsonl"
+        journal.unlink(missing_ok=True)
+        env = {**handoff["env"],
+               "AI4E_PLATFORM_JOURNAL_PATH": str(journal),
+               "AI4E_PLATFORM_ADVERTISE_URL": urls[name],
+               "AI4E_PLATFORM_FAILOVER_INTERVAL": str(FAILOVER_INTERVAL_S),
+               "AI4E_PLATFORM_FAILOVER_DOWN_AFTER": str(FAILOVER_DOWN_AFTER)}
+        if name == "standby":
+            env["AI4E_PLATFORM_REPLICATE_FROM"] = urls["primary"]
+        envs[name] = {"env": env, "port": str(ports[name])}
+    envs["wk"] = {"env": handoff["env"]}
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    with ha_pair_and_worker(out_dir, models, routes, envs, ports["wk"],
+                            device) as (procs, logs):
+        def restart_old():
+            logs["old"] = out_dir / "ha_primary_restarted.log"
+            return start_child(
+                ["control-plane", "--routes", str(out_dir / "ha_routes.json"),
+                 "--port", str(ports["primary"])], logs["old"],
+                envs["primary"]["env"])
+
+        run = asyncio.run(failover_drive(urls["primary"], urls["standby"],
+                                         urls["wk"], procs, logs,
+                                         restart_old, bodies))
+    pixels = lc_pixels(handoff)
+    for task_id, (i, (status, record)) in run.pop("final").items():
+        if status != 200 or record["Status"] != LC_DONE:
+            raise AssertionError(f"16b: task {task_id} ended {record}")
+        check_histogram(json.loads(run["final_raw"][task_id]), want[i],
+                        pixels)
+    for t in run["tasks"]:
+        check_histogram(json.loads(t["raw"]), want[t["i"]], pixels)
+    run.pop("final_raw")
+    run["tasks"] = len(run["tasks"])
+    if run["worker_restarted"]:
+        raise AssertionError("16b: the worker exited during the failover")
+    if run["completed_after_kill"] < 1:
+        raise AssertionError("16b: no task completed after the kill")
+    if run["old_epoch"] != run["new_epoch"] or run["new_epoch"] < 1:
+        raise AssertionError(f"16b: old primary at epoch {run['old_epoch']},"
+                             f" the new primary at {run['new_epoch']}")
+    for path, (status, not_primary, _) in run["old_writes"].items():
+        if status != 503 or not_primary != "1":
+            raise AssertionError(f"16b: the fenced primary answered {path} "
+                                 f"{status} (X-Not-Primary {not_primary})")
+    standby_log = logs["standby"].read_text(errors="replace")
+    if "promoted to primary" not in standby_log:
+        raise AssertionError("16b: the standby logged no promotion")
+    run["launches_by_model"] = launches_by_model(
+        logs["wk"].read_text(errors="replace"))
+    run["card"] = CARD.get("smi")
+    log(f"failover 16b: {json.dumps(run)}")
+    return run
+
+
+def phase_16(handoff: dict, kernels: list[dict],
+             device: str = "cuda") -> dict:
+    """Phase 16: the journaled control plane's restart (a), the HA pair's
+    failover and fencing (b)."""
+    log("phase 16: the journaled control plane and its HA pair")
+    t0 = time.perf_counter()
+    report: dict = {"seconds_by_part": {}}
+    for part, run in (("16a", lambda: phase_restart(handoff, device)),
+                      ("16b", lambda: phase_failover(handoff, device))):
+        t = time.perf_counter()
+        report[part] = run()
+        report["seconds_by_part"][part] = time.perf_counter() - t
+    report["seconds"] = time.perf_counter() - t0
+    rows = {k["name"]: k for k in kernels}
+    for name in ("normalize_image", "fused_seg_postprocess"):
+        counts = {part: report[part]["launches_by_model"].get(
+            "landcover", {}).get(name, 0) for part in ("16a", "16b")}
+        if device == "cuda" and min(counts.values()) < 1:
+            raise AssertionError(f"phase 16: {name} never launched in a "
+                                 f"worker: {counts}")
+        if name in rows:
+            rows[name]["launches_phase16"] = counts
+    log(f"phase 16: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'card': CARD.get('smi')})}")
+    return report
+
+
 def detector_dct_sweep(trainings: int) -> None:
     """``python3 chip_smoke.py --detector-dct-sweep N``: the megadetector
     recipe trained N times on the card (seed 0 each time; cuDNN's
@@ -7513,6 +8095,7 @@ def main() -> None:
     phase_cache(deployed, kernels)
     phase_15(deployed, kernels, runtime["graphs"]["buckets"]
              .get("landcover/64", {}).get("replay_ms"))
+    phase_16(deployed, kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

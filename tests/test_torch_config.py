@@ -128,6 +128,14 @@ SERVED_NATIVE_REAPER_KNOBS = [
     ("AI4E_SERVICE_", f) for f in ("result_dir", "result_offload_threshold")]
 
 
+#: The journaled store and its HA pair (ROADMAP A18.1): the port serves
+#: them, so each set away from its default parses as JAX's does.
+SERVED_HA_KNOBS = [
+    ("AI4E_PLATFORM_", f) for f in (
+        "journal_path", "replicate_from", "failover_interval",
+        "failover_down_after", "replicate_api_key", "advertise_url")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -153,7 +161,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_DECODE_KNOBS, "same"))
          + list(off_default_cases(SERVED_ADMISSION_KNOBS, "same"))
          + list(off_default_cases(SERVED_AUTH_CACHE_KNOBS, "same"))
-         + list(off_default_cases(SERVED_NATIVE_REAPER_KNOBS, "same")))
+         + list(off_default_cases(SERVED_NATIVE_REAPER_KNOBS, "same"))
+         + list(off_default_cases(SERVED_HA_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -212,6 +221,12 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_RESULT_OFFLOAD_THRESHOLD": "4096"},
     {"AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT": "5"},
     {"AI4E_PLATFORM_REAPER_MAX_REQUEUES": "1"},
+    {"AI4E_PLATFORM_JOURNAL_PATH": "/j/store.jsonl"},
+    {"AI4E_PLATFORM_REPLICATE_FROM": "http://primary:8080"},
+    {"AI4E_PLATFORM_FAILOVER_INTERVAL": "0.5"},
+    {"AI4E_PLATFORM_FAILOVER_DOWN_AFTER": "5"},
+    {"AI4E_PLATFORM_REPLICATE_API_KEY": " ,k1, k2"},
+    {"AI4E_PLATFORM_ADVERTISE_URL": "http://standby:8080"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -231,10 +246,11 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_AUTH_CACHE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_NATIVE_REAPER_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_HA_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
     assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
-    assert len(port_config.UNPORTED) == 63
+    assert len(port_config.UNPORTED) == 57
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(

@@ -380,9 +380,12 @@ class TestUnported:
         (control_plane_of({}, AI4E_PLATFORM_TRANSPORT="push"),
          r"AI4E_PLATFORM_TRANSPORT='push': the push transport \(ROADMAP "
          r"A18.3"),
-        (control_plane_of({}, AI4E_PLATFORM_JOURNAL_PATH="/j.jsonl"),
-         r"AI4E_PLATFORM_JOURNAL_PATH='/j.jsonl': the journaled and "
-         r"replicated task store \(ROADMAP A18.1"),
+        # The journal serves (ROADMAP A18.1); the native store, which
+        # has none, refuses it with JAX's text.
+        (control_plane_of({}, AI4E_PLATFORM_JOURNAL_PATH="/j.jsonl",
+                          AI4E_PLATFORM_NATIVE_STORE="1"),
+         r"native_store has no journal; use journal_path with the Python "
+         r"store or native_store without durability"),
         (worker_of(landcover_spec(), AI4E_RUNTIME_DONATE_BATCH="1"),
          r"AI4E_RUNTIME_DONATE_BATCH=True: batch donation, an XLA buffer "
          r"option \(ROADMAP A4"),
