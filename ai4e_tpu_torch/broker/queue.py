@@ -1,8 +1,9 @@
 """Per-endpoint message queues with lease/redelivery semantics — a copy of
-``ai4e_tpu/broker/queue.py`` without the shard sub-queues and the tenant
-lanes (ROADMAP A18.2, A18.10):
+``ai4e_tpu/broker/queue.py`` without the tenant lanes (ROADMAP A18.10):
 
-- one logical queue per endpoint path;
+- one logical queue per endpoint path; with a sharded task store
+  (``shard_router``), one physical sub-queue per shard,
+  ``{path}#s{shard}``, so each shard's dispatchers drain on their own;
 - at-least-once delivery: a consumer leases a message (``receive``), then
   ``complete``s it or ``abandon``s it for redelivery;
 - a lease that expires without either is redelivered too;
@@ -34,13 +35,18 @@ from ..taskstore import endpoint_path as canonical_path
 
 log = logging.getLogger("ai4e_tpu_torch.broker")
 
-# Shard sub-queue separator of the JAX package ("{path}#s{shard}"); the port
-# has no shards, so every queue name is its own base.
+# Shard sub-queue naming ("{path}#s{shard}"): '#' never appears in a queue
+# path (``endpoint_path`` strips fragments), so the separator cannot collide.
 SHARD_QUEUE_SEP = "#s"
 
 
+def shard_queue_name(base: str, shard: int) -> str:
+    return f"{base}{SHARD_QUEUE_SEP}{shard}"
+
+
 def base_queue_name(name: str) -> str:
-    """The endpoint path a (possibly shard-suffixed) queue name serves."""
+    """The endpoint path a (possibly shard-suffixed) queue name serves:
+    what dispatch-target rebasing and depth attribution key on."""
     return name.split(SHARD_QUEUE_SEP, 1)[0]
 
 
@@ -192,13 +198,21 @@ class InMemoryBroker:
     is locked and the enqueue itself is handed to the broker's event loop.
     A task whose endpoint path extends a registered queue's path lands on
     the longest-prefix-matching queue.
+
+    ``shard_router(task_id) -> shard index`` (a sharded store's
+    ``shard_for``) puts each message on its task's sub-queue
+    (``shard_queue_name``); a redelivery returns a message to the sub-queue
+    it lives on. A message whose task was rebalanced in flight drains from
+    the old shard's sub-queue once more: its store writes route by ring.
     """
 
     def __init__(self, max_delivery_count: int = 1440,
-                 lease_seconds: float = 300.0, metrics=None):
+                 lease_seconds: float = 300.0, metrics=None,
+                 shard_router=None):
         self.max_delivery_count = max_delivery_count
         self.lease_seconds = lease_seconds
         self._metrics = metrics
+        self._shard_router = shard_router
         self._queues: dict[str, EndpointQueue] = {}
         self._queues_lock = threading.Lock()
         self._seq = itertools.count(1)
@@ -231,20 +245,27 @@ class InMemoryBroker:
 
     def resolve_queue_name(self, endpoint: str) -> str:
         """Longest registered queue path that prefixes the endpoint path;
-        falls back to the exact path (a queue is created on demand)."""
+        falls back to the exact path (a queue is created on demand). Shard
+        sub-queues never match: ``publish`` appends the suffix itself."""
         path = canonical_path(endpoint)
         with self._queues_lock:
             candidates = [n for n in self._queues
-                          if path == n or path.startswith(n.rstrip("/") + "/")]
+                          if SHARD_QUEUE_SEP not in n
+                          and (path == n
+                               or path.startswith(n.rstrip("/") + "/"))]
         return max(candidates, key=len) if candidates else path
 
     def publish(self, task) -> None:
         """Store publisher hook: enqueue a dispatch message for the task.
         Callable from any thread; the enqueue runs on the broker's loop."""
+        queue_name = self.resolve_queue_name(task.endpoint)
+        if self._shard_router is not None:
+            queue_name = shard_queue_name(queue_name,
+                                          self._shard_router(task.task_id))
         msg = Message(task_id=task.task_id, endpoint=task.endpoint,
                       body=task.body, content_type=task.content_type,
                       seq=next(self._seq),
-                      queue_name=self.resolve_queue_name(task.endpoint),
+                      queue_name=queue_name,
                       trace_headers=get_tracer().headers(),
                       cache_key=getattr(task, "cache_key", ""),
                       deadline_at=getattr(task, "deadline_at", 0.0),

@@ -201,6 +201,8 @@ async def start_vitals(config: FrameworkConfig, metrics):
 async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     from aiohttp import web
 
+    from .taskstore.journal import crc32c_impl
+
     platform = build_control_plane(config, routes)
     runner = web.AppRunner(platform.gateway.app)
     await runner.setup()
@@ -208,17 +210,23 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     await platform.start()
     vitals = await start_vitals(config, platform.metrics)
     # Operators grep the startup line for posture: admission changes the
-    # public contract (sheds, expiry, computed Retry-After); the journal's
-    # fsync policy what an acknowledgment means against a machine crash.
+    # public contract (sheds, expiry, computed Retry-After); sharding the
+    # durability and availability topology (per-shard journals and
+    # failover); the journal's fsync policy what an acknowledgment means
+    # against a machine crash, and its checksum what a replay costs.
     stats = getattr(platform.store, "journal_stats", None)
+    journal = stats() if stats is not None else {}
     posture = "".join([
         ", admission control ON" if platform.admission is not None else "",
         ", observability ON" if platform.observability is not None else "",
         (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
          if platform.slo is not None else ""),
         ", vitals ON" if vitals is not None else "",
+        (f", task store sharded x{platform.config.task_shards}"
+         if platform.config.task_shards > 1 else ""),
         (f", journal {config.platform.journal_path} "
-         f"fsync={stats()['fsync_policy']}" if stats is not None else ""),
+         f"fsync={journal['fsync_policy']} crc32c={crc32c_impl()}"
+         if journal else ""),
         (f", standby of {config.platform.replicate_from}"
          if config.platform.replicate_from else "")])
     log.info("control plane on %s:%s (%d routes%s)", config.gateway.host,
@@ -230,7 +238,7 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
             await vitals.stop()
         await platform.stop()
         await runner.cleanup()
-        if stats is not None:
+        if journal:
             log.info("journal stats %s", json.dumps(stats()))
             # A clean stop owes the disk nothing: the group policy's
             # pending fsync runs here.

@@ -32,7 +32,6 @@ _FALSE = frozenset({"0", "false", "no", "off", ""})
 OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
                             "AI4E_TASKSTORE_", "AI4E_RIG_")
 
-_SHARDS = "the sharded task store (ROADMAP A18.2)"
 _PUSH = "the push transport (ROADMAP A18.3)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
 _TENANCY = "tenancy (ROADMAP A18.10)"
@@ -46,9 +45,6 @@ _MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
 UNPORTED: dict[tuple[str, str], str] = {
-    **{("AI4E_PLATFORM_", f): _SHARDS for f in (
-        "task_shards", "task_shard_slots", "task_shard_replicas",
-        "shard_tail_interval", "shard_feed_recent")},
     **{("AI4E_PLATFORM_", f): _PUSH for f in (
         "transport", "push_ttl_seconds", "push_max_attempts", "push_window")},
     **{("AI4E_PLATFORM_", f): _RESILIENCE for f in (

@@ -8,9 +8,12 @@ Routes:
   comes back at once;
 - ``ANY  {route.prefix}/…`` (sync) -> a reverse proxy to the backend;
 - ``GET  /v1/taskmanagement/task/{taskId}`` -> the task record (404 when
-  unknown); ``?wait=SECONDS`` long-polls until it is terminal;
-  ``?ledger=1`` adds the task's hop-ledger timeline as ``Ledger`` (opt-in:
-  without it the answer is byte-identical);
+  unknown); ``?wait=SECONDS`` long-polls until it is terminal, parked on
+  the task's change feed (``taskstore/feed.py``: the owning shard's on a
+  sharded store, else one feed on the store's listeners), which wakes it
+  with the terminal record; ``?ledger=1`` adds the task's hop-ledger
+  timeline as ``Ledger`` (opt-in: without it the answer is
+  byte-identical);
 - ``GET  /v1/debug/flight`` -> the flight recorder's dump, once
   ``set_observability`` attached the hub;
 - ``GET  /metrics``, ``GET /healthz``.
@@ -84,6 +87,7 @@ from ..rescache.keys import (CACHE_STATUS_HEADER, cache_bypass_requested,
 from ..taskstore import (APITask, InMemoryTaskStore, JournalDegradedError,
                          NotPrimaryError, TaskNotFound, TaskStatus,
                          endpoint_path)
+from ..taskstore.feed import ShardChangeFeed
 from ..utils.http import SessionHolder, read_body_limited
 
 
@@ -135,10 +139,14 @@ class Gateway:
         self._sync_inflight: dict = {}
         # Proxy fan-out is bounded by inbound connections, not the pool.
         self._sessions = SessionHolder(limit=0)
-        # Long-poll waiters: task_id -> [(loop, future)], woken by the
-        # store's listener with the terminal record.
-        self._waiters: dict[str, list] = {}
-        store.add_listener(self._on_transition)
+        # The long polls' change feed (``_feed_for``) when the store has
+        # none of its own (a sharded store has one a shard): one feed on
+        # the store's listeners, attached here so that no transition
+        # before the first long poll is missed.
+        self._fallback_feed = None
+        if getattr(store, "feed_for", None) is None:
+            self._fallback_feed = ShardChangeFeed(0)
+            store.add_listener(self._fallback_feed.publish)
         # aiohttp's own cap is disabled: the edge cap is enforced per route,
         # incrementally, and 0 must mean unlimited.
         self.app = web.Application(client_max_size=1024**4,
@@ -687,14 +695,6 @@ class Gateway:
 
     # -- task polling --------------------------------------------------------
 
-    def _on_transition(self, task: APITask) -> None:
-        """Store listener (any thread): wake the long-polls of a task that
-        turned terminal, with its record."""
-        if task.canonical_status not in TaskStatus.TERMINAL:
-            return
-        for loop, fut in self._waiters.pop(task.task_id, ()):
-            loop.call_soon_threadsafe(_resolve, fut, task)
-
     async def _task(self, request: web.Request) -> web.Response:
         """Task status; ``?wait=SECONDS`` (at most 60) long-polls until the
         task is terminal or the wait expires; ``?ledger=1`` adds the task's
@@ -711,32 +711,36 @@ class Gateway:
             except ValueError:
                 return web.Response(status=400, text="Bad wait parameter.")
         if wait > 0 and task.canonical_status not in TaskStatus.TERMINAL:
-            loop = asyncio.get_running_loop()
-            entry = (loop, loop.create_future())
-            self._waiters.setdefault(task_id, []).append(entry)
-            try:
-                # Re-read after registering: a transition between the first
-                # read and the registration would otherwise be missed.
-                task = self.store.get(task_id)
-                if task.canonical_status not in TaskStatus.TERMINAL:
-                    task = await asyncio.wait_for(entry[1], wait)
-            except asyncio.TimeoutError:
+            # Park on the task's change feed, which wakes with the terminal
+            # record itself; its replay map closes the race between the
+            # read above and the attach. Only the timeout reads the store
+            # again, where a task evicted mid-wait answers 404.
+            record = await self._feed_for(task_id).wait_terminal(task_id,
+                                                                 wait)
+            if record is not None:
+                task = record
+            else:
                 try:
                     task = self.store.get(task_id)
                 except TaskNotFound:
                     return web.Response(status=404, text="Task not found.")
-            finally:
-                waiters = self._waiters.get(task_id)
-                if waiters and entry in waiters:
-                    waiters.remove(entry)
-                    if not waiters:
-                        del self._waiters[task_id]
         payload = task.to_dict()
         if request.query.get("ledger", "") not in ("", "0", "false"):
             # The native store carries no timeline.
             getter = getattr(self.store, "get_ledger", None)
             payload["Ledger"] = getter(task_id) if getter else []
         return web.json_response(payload)
+
+    def _feed_for(self, task_id: str) -> ShardChangeFeed:
+        """The change feed a long poll of ``task_id`` parks on: the store's
+        own (the owning shard's, on a sharded store), else the gateway's
+        one feed on the store's listeners. Either wakes alike whether the
+        transition came from this gateway's dispatch, another gateway or a
+        replication absorb."""
+        feed_for = getattr(self.store, "feed_for", None)
+        if feed_for is not None:
+            return feed_for(task_id)
+        return self._fallback_feed
 
     async def _flight_dump(self, _: web.Request) -> web.Response:
         hub = self._observability
@@ -755,8 +759,3 @@ class Gateway:
 
     async def _cleanup(self, _app) -> None:
         await self._sessions.close()
-
-
-def _resolve(fut: asyncio.Future, task: APITask) -> None:
-    if not fut.done():
-        fut.set_result(task)

@@ -36,10 +36,22 @@ primary (``demote_now``, ``POST /v1/taskstore/demote``) stops its
 transport and, given the new primary's URL, rejoins it as a standby.
 ``advertise_url`` marks an HA pair: only then may an ``X-Store-Epoch``
 header demote a primary, and the prober offers it for the rejoin.
-The sharded store and orchestration, under which the JAX package scales a
-route's shards or on a predictive signal, are refused by
-``config.check_ported`` (ROADMAP A18.2, A18.9). As in JAX, the native store
-refuses ``result_dir``, an explicit ``reaper_terminal_retention`` and
+
+With ``task_shards`` > 1 the store is the sharded facade
+(``taskstore/sharding.py``): ``task_shards`` shards over a ring of
+``task_shard_slots`` hash slots, each with ``task_shard_replicas`` passive
+replicas tailing its journal every ``shard_tail_interval`` s when
+``journal_path`` is set (``{journal_path}.shard{i}``), and a change feed
+keeping ``shard_feed_recent`` terminal records for the long polls. The
+broker puts each task on its shard's sub-queue (``{path}#s{i}``), and
+every route gets a dispatcher for each sub-queue, each with its own
+admission limiter. The replica tails start and stop with the platform; a
+restart re-seeds the unfinished tasks every shard's journal restored. As
+in JAX, the sharded store refuses the native cores, ``replicate_from`` and
+an ``autoscale`` route (which needs orchestration's sharded scaler,
+ROADMAP A18.9), and orchestration itself is refused by
+``config.check_ported``. As in JAX, the native store refuses
+``result_dir``, an explicit ``reaper_terminal_retention`` and
 observability, and either native core refuses admission, each with JAX's
 text.
 
@@ -57,6 +69,7 @@ import logging
 from dataclasses import dataclass
 
 from .broker import DispatcherPool, InMemoryBroker
+from .broker.queue import shard_queue_name
 from .gateway import Gateway
 from .metrics import DEFAULT_REGISTRY, MetricsRegistry
 from .observability import (DepthLogger, FlightRecorder,
@@ -142,6 +155,14 @@ class PlatformConfig:
     advertise_url: str | None = None
     # None: AI4E_TASKSTORE_FSYNC (never | always | group:<ms>).
     taskstore_fsync: str | None = None
+    # The sharded task store: shards over a ring of hash slots (>= shards),
+    # passive replicas a shard (with journal_path), their journal-tail
+    # period, and each shard feed's replay window.
+    task_shards: int = 1
+    task_shard_slots: int = 64
+    task_shard_replicas: int = 1
+    shard_tail_interval: float = 0.25
+    shard_feed_recent: int = 4096
 
 
 class LocalPlatform:
@@ -225,7 +246,11 @@ class LocalPlatform:
             self.broker = InMemoryBroker(
                 max_delivery_count=self.config.max_delivery_count,
                 lease_seconds=self.config.lease_seconds,
-                metrics=self.metrics)
+                metrics=self.metrics,
+                # A sharded store: per-shard sub-queues, each drained by
+                # its own dispatchers.
+                shard_router=(self.store.shard_for
+                              if self.config.task_shards > 1 else None))
         self.store.set_publisher(self.broker.publish)
         self.dispatchers = DispatcherPool(
             self.broker, self.task_manager,
@@ -276,11 +301,33 @@ class LocalPlatform:
         self._bg_tasks: set[asyncio.Task] = set()
 
     def _build_store(self):
-        """The Python store (journaled with ``journal_path``, a standby
-        with ``replicate_from`` too), with the result backend when
-        ``result_dir`` is set, or the native one, which refuses the options
-        it cannot honour, each with JAX's text."""
+        """The sharded facade (``task_shards`` > 1), the Python store
+        (journaled with ``journal_path``, a standby with ``replicate_from``
+        too), with the result backend when ``result_dir`` is set, or the
+        native one; each refuses the options it cannot honour, with JAX's
+        text."""
         config = self.config
+        if config.task_shards > 1:
+            if config.native_store or config.native_broker:
+                raise ValueError(
+                    "task_shards > 1 requires the Python store and broker "
+                    "(the native cores hold no ring/fence state)")
+            if config.replicate_from:
+                raise ValueError(
+                    "task_shards > 1 is exclusive with replicate_from: "
+                    "per-shard replicas are the sharded availability "
+                    "story (docs/sharding.md)")
+            from .taskstore.sharding import ShardedTaskStore
+
+            return ShardedTaskStore(
+                config.task_shards, slots=config.task_shard_slots,
+                journal_path=config.journal_path,
+                replicas=(config.task_shard_replicas
+                          if config.journal_path else 0),
+                tail_interval=config.shard_tail_interval,
+                feed_recent=config.shard_feed_recent,
+                fsync=config.taskstore_fsync, metrics=self.metrics,
+                **self._result_kwargs())
         if config.replicate_from and not config.journal_path:
             raise ValueError(
                 "replicate_from (standby mode) requires journal_path — "
@@ -292,15 +339,7 @@ class LocalPlatform:
                 "native_store has no journal; use journal_path with the "
                 "Python store or native_store without durability")
         if not config.native_store:
-            backend = None
-            if config.result_dir:
-                from .taskstore.results import FileResultBackend
-
-                backend = FileResultBackend(config.result_dir)
-            result_kwargs = dict(
-                result_backend=backend,
-                result_offload_threshold=(
-                    config.result_offload_threshold if backend else None))
+            result_kwargs = self._result_kwargs()
             if not config.journal_path:
                 return InMemoryTaskStore(**result_kwargs)
             from .taskstore.store import FollowerTaskStore
@@ -328,6 +367,18 @@ class LocalPlatform:
 
         return NativeTaskStore()
 
+    def _result_kwargs(self) -> dict:
+        """The Python store's result backend and offload threshold."""
+        backend = None
+        if self.config.result_dir:
+            from .taskstore.results import FileResultBackend
+
+            backend = FileResultBackend(self.config.result_dir)
+        return dict(result_backend=backend,
+                    result_offload_threshold=(
+                        self.config.result_offload_threshold
+                        if backend else None))
+
     def publish_async_api(self, public_prefix: str, backend_uri: str,
                           retry_delay: float | None = None,
                           concurrency: int | None = None,
@@ -350,21 +401,40 @@ class LocalPlatform:
                                 autoscale=None,
                                 autoscale_interval: float = 5.0) -> None:
         """A transport consumer for a backend without a public route,
-        reached only by republished tasks."""
+        reached only by republished tasks; on a sharded store, one
+        dispatcher for each shard's sub-queue."""
         queue_name = endpoint_path(backend_uri)
         self.broker.register_queue(queue_name)
-        dispatcher = self.dispatchers.register(queue_name, backend_uri,
-                                               retry_delay=retry_delay,
-                                               concurrency=concurrency)
+        if self.config.task_shards > 1:
+            if autoscale is not None:
+                # Orchestration's sharded scaler routes per-shard decisions
+                # through one actuator; without it, one autoscaler a
+                # sub-queue would be two control loops on one route.
+                raise ValueError(
+                    "autoscale policies are per-dispatcher; with "
+                    "task_shards > 1 use admission's adaptive control "
+                    "(one limiter per shard sub-queue) instead — or "
+                    "enable orchestration, whose predictive scaler "
+                    "routes per-shard decisions through one actuator "
+                    "(docs/orchestration.md)")
+            queue_names = [shard_queue_name(queue_name, i)
+                           for i in range(self.config.task_shards)]
+        else:
+            queue_names = [queue_name]
+        dispatchers = [self.dispatchers.register(qn, backend_uri,
+                                                 retry_delay=retry_delay,
+                                                 concurrency=concurrency)
+                       for qn in queue_names]
         if autoscale is not None:
-            self._attach_autoscaler(queue_name, dispatcher, autoscale,
+            self._attach_autoscaler(queue_name, dispatchers[0], autoscale,
                                     autoscale_interval)
         elif self.admission is not None:
-            # The queue's limiter (delivery RTTs, backpressure backoffs)
-            # owns the fan-out. An autoscale policy wins: two control
+            # Each queue's limiter (delivery RTTs, backpressure backoffs)
+            # owns its fan-out. An autoscale policy wins: two control
             # loops on one actuator would fight.
-            self.admission.add_target("dispatch:" + queue_name,
-                                      dispatcher.set_concurrency)
+            for qn, dispatcher in zip(queue_names, dispatchers):
+                self.admission.add_target("dispatch:" + qn,
+                                          dispatcher.set_concurrency)
 
     def _attach_autoscaler(self, queue_name: str, dispatcher, policy,
                            interval: float) -> None:
@@ -394,6 +464,9 @@ class LocalPlatform:
             # Without an HA peer a forged or stale X-Store-Epoch header
             # would only take the sole primary out of service.
             self.store.passive_fencing = bool(self.config.advertise_url)
+        if hasattr(self.store, "start_replication"):
+            # The sharded store's replica journal tails, on this loop.
+            await self.store.start_replication()
         await self._start_transport()
         await self.depth_logger.start()
         await self._start_primary_loops()
@@ -550,6 +623,8 @@ class LocalPlatform:
                 await self.slo.stop()
             await self.depth_logger.stop()
             await self.dispatchers.stop()
+            if hasattr(self.store, "stop_replication"):
+                await self.store.stop_replication()
             self._transport_running = False
             self._started = False
         if hasattr(self.broker, "close"):

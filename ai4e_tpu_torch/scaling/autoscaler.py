@@ -6,8 +6,8 @@ tasks ``running``; the decision rule is the k8s HPA's (proportional, with
 a tolerance dead-band and a scale-down stabilisation window); the actuator
 is a ``ScaleTarget``, here the dispatcher's delivery-loop fan-out. Not
 ported: ``predictive_signal``, which reads orchestration's arrival and
-drain estimators (ROADMAP A18.9), and the sharded controller (ROADMAP
-A18.2).
+drain estimators, and the sharded controller with its ``ShardScaleTarget``,
+which runs only under orchestration (both ROADMAP A18.9).
 """
 
 from __future__ import annotations

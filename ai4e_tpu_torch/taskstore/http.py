@@ -52,8 +52,15 @@ front. A journal-degraded store answers mutations 503 with
 serves reads. Every response of a journaled store carries its fencing
 epoch in ``X-Store-Epoch``; a request may carry one back, and a primary
 that sees a newer epoch demotes itself before the handler runs. The
-in-memory and native stores have no epoch and send none. The shards route
-stays with ROADMAP A18.2.
+in-memory and native stores have no epoch and send none.
+
+A mutation refused by a shard store's write fence (``NotOwnerError``: a
+live slot move took the TaskId's slot) answers 409 with ``X-Not-Owner:
+1``, on which a ring client re-routes. A sharded store
+(``sharding.ShardedTaskStore``) also serves ``GET /v1/taskstore/shards``:
+the ring's slot table and version and, per shard, its epoch, whether it is
+dead, its replicas, journal, chain head beside each replica's, degraded
+or not, and its change feed's position and watchers.
 """
 
 from __future__ import annotations
@@ -67,8 +74,8 @@ from aiohttp import web
 
 from ..observability.ledger import validate_events
 from ..utils.http import read_body_limited
-from .store import (InMemoryTaskStore, JournalDegradedError, NotPrimaryError,
-                    StaleEpochError, TaskNotFound)
+from .store import (InMemoryTaskStore, JournalDegradedError, NotOwnerError,
+                    NotPrimaryError, StaleEpochError, TaskNotFound)
 from .task import SUB_TASK_SEP, APITask, TaskStatus
 
 
@@ -123,9 +130,19 @@ def make_app(store: InMemoryTaskStore,
             headers={"X-Shed-Reason": "journal-degraded",
                      "Retry-After": "5"})
 
-    def refused(exc: NotPrimaryError | JournalDegradedError) -> web.Response:
-        """The answer to a mutation a follower or a degraded store
-        refused."""
+    def not_owner(exc: NotOwnerError) -> web.Response:
+        # The verb is valid, this store no longer owns the TaskId's slot: a
+        # ring client re-reads the slot table and re-routes.
+        return web.json_response({"error": f"not owner: {exc}"},
+                                 status=409,
+                                 headers={"X-Not-Owner": "1"})
+
+    def refused(exc: NotOwnerError | NotPrimaryError
+                | JournalDegradedError) -> web.Response:
+        """The answer to a mutation a stale shard owner, a follower or a
+        degraded store refused."""
+        if isinstance(exc, NotOwnerError):
+            return not_owner(exc)
         if isinstance(exc, NotPrimaryError):
             return not_primary()
         return journal_degraded(exc)
@@ -164,7 +181,7 @@ def make_app(store: InMemoryTaskStore,
             task = store.upsert(task)
         except ValueError as exc:  # reserved characters in a supplied TaskId
             return web.json_response({"error": str(exc)}, status=400)
-        except (NotPrimaryError, JournalDegradedError) as exc:
+        except (NotOwnerError, NotPrimaryError, JournalDegradedError) as exc:
             return refused(exc)
         return web.json_response(store.get(task.task_id).to_dict())
 
@@ -195,7 +212,7 @@ def make_app(store: InMemoryTaskStore,
                                            payload.get("BackendStatus"))
         except TaskNotFound:
             return web.Response(status=204)
-        except (NotPrimaryError, JournalDegradedError) as exc:
+        except (NotOwnerError, NotPrimaryError, JournalDegradedError) as exc:
             return refused(exc)
         return web.json_response(task.to_dict())
 
@@ -229,7 +246,7 @@ def make_app(store: InMemoryTaskStore,
             # An error, not a silent 204: the worker treats 2xx as stored.
             return web.json_response({"error": f"unknown task {task_id}"},
                                      status=404)
-        except (NotPrimaryError, JournalDegradedError) as exc:
+        except (NotOwnerError, NotPrimaryError, JournalDegradedError) as exc:
             return refused(exc)
         return web.json_response({"ok": True})
 
@@ -297,7 +314,7 @@ def make_app(store: InMemoryTaskStore,
             # another directory): 409, so the worker fails loudly instead
             # of leaving a dangling pointer.
             return web.json_response({"error": str(exc)}, status=409)
-        except (NotPrimaryError, JournalDegradedError) as exc:
+        except (NotOwnerError, NotPrimaryError, JournalDegradedError) as exc:
             return refused(exc)
         except RuntimeError as exc:  # the store has no backend configured
             return web.json_response({"error": str(exc)}, status=400)
@@ -348,7 +365,7 @@ def make_app(store: InMemoryTaskStore,
                         continue
                     if store.requeue_if(tid, "failed") is not None:
                         redriven.append(tid)
-        except (NotPrimaryError, JournalDegradedError) as exc:
+        except (NotOwnerError, NotPrimaryError, JournalDegradedError) as exc:
             return refused(exc)
         return web.json_response(
             {"redriven": len(redriven), "task_ids": redriven})
@@ -371,7 +388,7 @@ def make_app(store: InMemoryTaskStore,
         except TaskNotFound:
             return web.json_response({"error": f"unknown task {task_id}"},
                                      status=404)
-        except (NotPrimaryError, JournalDegradedError) as exc:
+        except (NotOwnerError, NotPrimaryError, JournalDegradedError) as exc:
             return refused(exc)
         return web.json_response({"ok": True, "appended": kept})
 
@@ -396,6 +413,14 @@ def make_app(store: InMemoryTaskStore,
     app.router.add_get("/v1/taskstore/result", stamped(get_result))
     app.router.add_post("/v1/taskstore/ledger", stamped(append_ledger))
     app.router.add_get("/v1/taskstore/ledger", stamped(get_ledger))
+    if getattr(store, "ring", None) is not None:
+        async def shards(_: web.Request) -> web.Response:
+            """The ring's layout and each shard's epoch, role and feed
+            state: where the keyspace lives and which fencing epoch each
+            shard is on."""
+            return web.json_response(store.topology())
+
+        app.router.add_get("/v1/taskstore/shards", stamped(shards))
     if getattr(store, "_journal_path", None) is not None:
         _add_replication_routes(app, store, stamped, read_json, lifecycle)
     return app

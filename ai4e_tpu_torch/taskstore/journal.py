@@ -87,6 +87,15 @@ def crc32c(data: bytes) -> int:
     return fn(data, len(data))
 
 
+def crc32c_impl() -> str:
+    """Which checksum runs in this process, ``"native"`` or ``"python
+    loop"`` (the build is tried here if it was not yet): the control plane's
+    startup line names it, since the loop is about a hundred times slower
+    at replay."""
+    crc32c(b"")
+    return "native" if _NATIVE[0] is not None else "python loop"
+
+
 def chain_next(prev_chain: str, crc_hex: str) -> str:
     """Advance the chain over one record: digest of the previous chain
     value concatenated with this record's checksum. Any dropped,

@@ -18,8 +18,14 @@ Every ``interval`` seconds the reaper:
 
 Both actions are conditional (``requeue_if``, ``update_status_if``): a
 task that completed between the scan and the action is never touched.
-JAX's shard-ownership filter (``owns``) and per-shard scan are left out
-with the sharded store (ROADMAP A18.2).
+
+On a sharded store (``taskstore/sharding.py``) the scan runs shard by
+shard (``shard_stores``), each over its own 1/N of the keyspace, and every
+action routes through the facade. ``owns(task_id)`` (optional) is the
+ownership filter of a reaper that serves one shard: a task whose slot
+moved away between the scan and the rescue belongs to the new owner's
+reaper and is skipped; the store's write fence (``NotOwnerError``) backs
+it up.
 """
 
 from __future__ import annotations
@@ -41,12 +47,14 @@ class TaskReaper:
                  interval: float = 30.0,
                  max_requeues: int = 3,
                  terminal_retention: float | None = None,
+                 owns=None,
                  metrics: MetricsRegistry | None = None):
         self.store = store
         self.running_timeout = running_timeout
         self.interval = interval
         self.max_requeues = max_requeues
         self.terminal_retention = terminal_retention
+        self.owns = owns
         self.metrics = metrics or DEFAULT_REGISTRY
         self._reaped = self.metrics.counter(
             "ai4e_reaper_actions_total", "Stuck-task rescues by outcome")
@@ -113,6 +121,10 @@ class TaskReaper:
             age = now - task.timestamp
             if age < self.running_timeout:
                 continue
+            if not self._owned(task.task_id):
+                # A rebalance moved the task's slot after the scan: the new
+                # owner's sweep rescues it.
+                continue
             count = self._requeues.get(task.task_id, 0)
             if count >= self.max_requeues:
                 done = self.store.update_status_if(
@@ -138,12 +150,26 @@ class TaskReaper:
         return acted
 
     def _collect_running(self) -> list:
-        """A snapshot of every task in ``running``."""
+        """A snapshot of every task in ``running``, shard by shard on a
+        sharded store."""
+        shards_fn = getattr(self.store, "shard_stores", None)
+        sources = shards_fn() if shards_fn is not None else [self.store]
         running: list = []
-        for path in self.store.endpoints():
-            for task_id in self.store.set_members(path, TaskStatus.RUNNING):
-                try:
-                    running.append(self.store.get(task_id))
-                except KeyError:
-                    continue
+        for source in sources:
+            for path in source.endpoints():
+                for task_id in source.set_members(path, TaskStatus.RUNNING):
+                    try:
+                        running.append(source.get(task_id))
+                    except KeyError:
+                        continue
         return running
+
+    def _owned(self, task_id: str) -> bool:
+        if self.owns is None:
+            return True
+        try:
+            return bool(self.owns(task_id))
+        except Exception:  # noqa: BLE001 — an ownership-probe fault must not kill the sweep
+            log.exception("shard ownership probe failed for %s; skipping "
+                          "rescue this sweep", task_id)
+            return False

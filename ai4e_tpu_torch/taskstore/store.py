@@ -39,8 +39,18 @@ the primary's journal stream (``taskstore/replication.py``) into its own
 journal and refuses writes with ``NotPrimaryError`` until ``promote()``
 mints the next fencing epoch; a primary that learns of a newer epoch
 demotes itself. Journal files are byte-compatible with the JAX package's
-both ways. The sharded store's write fence stays with ROADMAP A18.2, and
-``dump_ledgers``, the rig's collection surface, with the rig.
+both ways.
+
+For the sharded store (``taskstore/sharding.py``) every store takes a write
+fence (``set_write_fence``): each task or result mutation checks, under the
+store lock, that the hash ring still assigns the TaskId here, and a stale
+owner raises ``NotOwnerError``. ``export_task_records`` and
+``import_task_records`` carry a slot's range between shards in the
+journal's full-record shape (journaled on the importer), and
+``forget_tasks`` drops it from the old owner, journaled as ``Evict``
+records with ``KeepBlobs``, so no replay deletes blobs the new owner's
+pointers hold. ``dump_ledgers``, the rig's collection surface, stays with
+the rig.
 """
 
 from __future__ import annotations
@@ -72,6 +82,15 @@ class NotPrimaryError(RuntimeError):
 
 class StoreClosedError(RuntimeError):
     """A mutation reached a closed store."""
+
+
+class NotOwnerError(RuntimeError):
+    """A mutation reached a shard store for a TaskId the hash ring no longer
+    assigns to it: the caller raced a rebalance handoff and holds the stale
+    owner (``taskstore/sharding.py``). Checked under the store lock, which
+    the ring flip also holds, so a stale write never slips through; the
+    sharded facade re-routes through a fresh ring lookup (the HTTP surface
+    answers 409 + ``X-Not-Owner``)."""
 
 
 class StaleEpochError(ValueError):
@@ -168,6 +187,9 @@ class InMemoryTaskStore(StoreSideEffects):
         # task_id -> hop-ledger events; never journaled, dropped with the
         # record at eviction.
         self._ledgers: dict[str, list[dict]] = {}
+        # The shard ownership fence (``set_write_fence``); None, as on every
+        # unsharded store, checks nothing.
+        self._write_fence: Callable[[str], bool] | None = None
 
     # -- core state machine ------------------------------------------------
 
@@ -190,10 +212,33 @@ class InMemoryTaskStore(StoreSideEffects):
         history, which must apply as it was accepted."""
         return not self._absorbing
 
+    def set_write_fence(self, fence: Callable[[str], bool] | None) -> None:
+        """Install (or clear) the shard ownership fence: ``fence(task_id)``
+        answers whether this store owns the id now. It runs under the store
+        lock on every mutation, so it must be cheap and take no other
+        lock."""
+        self._write_fence = fence
+
+    def _check_owner(self, task_id: str) -> None:
+        """The fence's gate for task and result mutations. Skipped while
+        absorbing (history applies verbatim, and a rebalance import is the
+        new owner receiving its range) and for an empty id (minted below,
+        by a store that owns a fresh GUID). Eviction is not fenced: it can
+        neither resurrect nor clobber a task, and a move's own cleanup
+        runs as the non-owner."""
+        fence = self._write_fence
+        if fence is None or self._absorbing or not task_id:
+            return
+        if not fence(task_id):
+            raise NotOwnerError(
+                f"task {task_id} is no longer owned by this shard "
+                "(rebalance moved its hash slot); route via the ring")
+
     def _apply_upsert(self, task: APITask) -> APITask:
         """The state mutation of ``upsert``. Caller holds ``self._lock``;
         the journaled store extends it."""
         self._check_open()
+        self._check_owner(task.task_id)
         prev = self._tasks.get(task.task_id)
         if prev is None:
             if not task.task_id:
@@ -271,6 +316,7 @@ class InMemoryTaskStore(StoreSideEffects):
     def _apply_update(self, task_id: str, status: str,
                       backend_status: str | None) -> APITask:
         self._check_open()
+        self._check_owner(task_id)
         prev = self._tasks.get(task_id)
         if prev is None:
             raise TaskNotFound(task_id)
@@ -288,6 +334,11 @@ class InMemoryTaskStore(StoreSideEffects):
                 raise TaskNotFound(task_id)
             return task
 
+    def get_original_body(self, task_id: str) -> bytes:
+        """The body a republish replays; empty when there is none."""
+        with self._lock:
+            return self._orig_bodies.get(task_id, (b"", ""))[0]
+
     # -- hop ledger (observability/ledger.py) --------------------------------
 
     def append_ledger(self, task_id: str, events: list[dict]) -> int:
@@ -303,6 +354,7 @@ class InMemoryTaskStore(StoreSideEffects):
             self._check_open()
             if check_writable is not None:
                 check_writable()
+            self._check_owner(task_id)
             if task_id not in self._tasks:
                 raise TaskNotFound(task_id)
             timeline = self._ledgers.setdefault(task_id, [])
@@ -362,6 +414,7 @@ class InMemoryTaskStore(StoreSideEffects):
         """The result mutation (``result is None``: an offloaded pointer).
         Caller holds ``self._lock``; the journaled store extends it."""
         self._check_open()
+        self._check_owner(key.split(":", 1)[0])
         self._set_result_in_memory(key, result, content_type)
 
     def _set_result_in_memory(self, key: str, result: bytes | None,
@@ -520,6 +573,10 @@ class InMemoryTaskStore(StoreSideEffects):
         if members is not None:
             members.pop(task.task_id, None)
 
+    def snapshot(self) -> list[APITask]:
+        with self._lock:
+            return list(self._tasks.values())
+
     def unfinished_tasks(self) -> list[APITask]:
         """Tasks not yet terminal, each with its original body: what a
         restarted or promoted control plane publishes again."""
@@ -558,6 +615,108 @@ class InMemoryTaskStore(StoreSideEffects):
         else:
             rec["ResultHex"] = body.hex()
         return rec
+
+    # -- the rebalance handoff (``taskstore/sharding.py`` move_slot) --------
+
+    def export_task_records(self, task_ids) -> list[dict]:
+        """Full journal-shaped records (task with its original body, then
+        its results) for the given ids: what the new owner imports. Task
+        records come first, as in a compacted journal. Memory-only records
+        (cache hits) are skipped: they are lost to a handoff as to a
+        restart."""
+        with self._lock:
+            recs: list[dict] = []
+            wanted = []
+            for tid in task_ids:
+                task = self._tasks.get(tid)
+                if task is None or not task.durable:
+                    continue
+                wanted.append(tid)
+                recs.append(self._full_record(task))
+            for tid in wanted:
+                for key in self._result_keys.get(tid, ()):
+                    found = self._results.get(key)
+                    if found is not None:
+                        recs.append(self._result_record(key, found[0],
+                                                        found[1]))
+            return recs
+
+    def import_task_records(self, recs: list[dict]) -> int:
+        """Absorb a range migrated from another shard, as a replay applies
+        history: no id validation, no publish, no listener (every
+        transition notified on the exporting shard), and on a journaled
+        store appended to this store's journal, so a restart keeps the
+        range. Idempotent: the move's delta pass imports records again.
+        Returns the records applied."""
+        applied = 0
+        with self._lock:
+            self._check_open()
+            prev_absorbing = self._absorbing
+            self._absorbing = True
+            # No auto-compaction inside the import: the delta pass runs
+            # under the source shard's lock, and an O(all tasks) rewrite
+            # here would stall the source's keyspace. The next ordinary
+            # append compacts.
+            prev_compact_at = getattr(self, "_next_compact_at", None)
+            if prev_compact_at is not None:
+                self._next_compact_at = float("inf")
+            try:
+                for rec in recs:
+                    if self._apply_import(rec):
+                        applied += 1
+            finally:
+                self._absorbing = prev_absorbing
+                if prev_compact_at is not None:
+                    self._next_compact_at = prev_compact_at
+        return applied
+
+    def _apply_import(self, rec: dict) -> bool:
+        """Apply one migrated record. Caller holds ``self._lock`` with
+        ``_absorbing`` set. Epoch markers are skipped: an epoch belongs to
+        the exporting shard's lineage."""
+        if "Epoch" in rec or rec.get("Evict") or rec.get("Slim"):
+            return False  # a migration exports full state only
+        if rec.get("Result"):
+            body = (None if rec.get("Offloaded")
+                    else bytes.fromhex(rec.get("ResultHex", "")))
+            self._apply_set_result(rec["Key"], body,
+                                   rec.get("ContentType",
+                                           "application/json"))
+            return True
+        task = APITask.from_dict(rec)
+        task.body = bytes.fromhex(rec.get("BodyHex", ""))
+        # Never published again: the task's broker message exists already,
+        # and the ring routes its writes here.
+        task.publish = False
+        self._apply_upsert(task)  # absorbing: the timestamp is kept
+        orig = rec.get("OrigHex")
+        if orig:
+            self._orig_bodies[task.task_id] = (
+                bytes.fromhex(orig),
+                rec.get("OrigContentType", "application/json"))
+        return True
+
+    # True while ``forget_tasks`` drops a migrated range: the journaled
+    # store's Evict records then carry KeepBlobs, so neither the drop nor a
+    # later replay of it deletes blobs the importing shard's pointers own
+    # (the shards share one result backend). Flipped only under the lock.
+    _forgetting = False
+
+    def forget_tasks(self, task_ids) -> int:
+        """Drop the given tasks entirely: the old owner's cleanup after a
+        rebalance handoff. Unlike eviction, their offloaded result blobs
+        are kept (``_forgetting``). Returns the tasks dropped."""
+        with self._lock:
+            dropped = 0
+            self._forgetting = True
+            try:
+                for tid in list(task_ids):
+                    if tid in self._tasks:
+                        self._apply_evict(tid)  # the blob keys stay unused
+                        dropped += 1
+            finally:
+                self._forgetting = False
+            return dropped
 
     def _check_open(self) -> None:
         if self._closed:
@@ -714,7 +873,7 @@ class JournaledTaskStore(InMemoryTaskStore):
             # and the deletes leaked them. A rebalance's KeepBlobs record
             # leaves them to the new owner.
             keys = self._apply_evict(rec["TaskId"])
-            if not rec.get("KeepBlobs"):  # ai4e: noqa[AIL021] — the JAX package's sharded store writes it, and its journals replay here
+            if not rec.get("KeepBlobs"):
                 for key in keys:
                     self._delete_blob(key)
             return None
@@ -1042,7 +1201,9 @@ class JournaledTaskStore(InMemoryTaskStore):
         # superseded blob, which must never happen for a record the journal
         # refused.
         self._check_open()
-        owner = self._tasks.get(key.split(":", 1)[0])
+        tid = key.split(":", 1)[0]
+        self._check_owner(tid)
+        owner = self._tasks.get(tid)
         if owner is None or owner.durable:
             try:
                 self._append(self._result_record(key, result, content_type))
@@ -1070,8 +1231,13 @@ class JournaledTaskStore(InMemoryTaskStore):
                    if key in self._results}
         blob_keys = super()._apply_evict(task_id)
         if durable:
+            rec = {"Evict": True, "TaskId": task_id}
+            if self._forgetting:
+                # A rebalance's forget: the blobs moved with the range, and
+                # a replay of this record must not delete them.
+                rec["KeepBlobs"] = True
             try:
-                self._append({"Evict": True, "TaskId": task_id})
+                self._append(rec)
             except JournalDegradedError as exc:
                 if exc.rollback:
                     self._tasks[task_id] = task

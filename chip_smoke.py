@@ -298,7 +298,31 @@ Phases, each of which raises on failure:
    as its follower, its writes 503 with ``X-Not-Primary``, its journal
    caught up with the new primary's. Normalize and argmax launched in
    each worker. It prints ``restart 16a``, ``failover 16b`` and ``phase
-   16`` lines.
+   16`` lines;
+17. the sharded task store, land cover from phase 10's checkpoint on one
+   worker (a child process, the hop ledger on): (a) behind a control
+   plane (a child process, the observability layer on) journaled with
+   ``AI4E_PLATFORM_TASK_SHARDS=4`` and one replica a shard (the route at
+   routes.json's concurrency, an ``autoscale`` route being refused
+   there), behind a 1-shard one, and behind a 4-shard one without
+   replicas, in turns 4, 1, 4 without, 4 without, 1, 4: 64 async tiles
+   with long polls each turn, every answer phase 10's, every task's
+   ledger whole, the startup line naming the native CRC-32C; on 4 shards
+   ``GET /v1/taskstore/shards`` with every shard at epoch 0, a task on
+   every shard and each replica at its primary's chain head after the
+   burst; tasks/s, task p50/p95, ``published``->``popped`` p50/p95 and
+   backpressure redeliveries by turn and their medians by arm;
+   (b) a 4-shard journaled control plane served on its own loop in a
+   thread of this process: mid-burst, one shard primary killed (on the
+   control plane's loop) and a slot holding unfinished tasks moved to a
+   third shard (from another thread, under load): every task completed
+   with phase 10's answer, none lost, each result read before the kill
+   byte-equal after it, the killed shard promoted at the next epoch, the
+   moved tasks held by their new owner alone, other shards' tasks
+   completing after the kill; the kill to the promotion and to the first
+   completion on the killed shard. Normalize and argmax launched in the
+   worker. It prints ``shards 17a turn``, ``shards 17b`` and ``phase 17``
+   lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -8030,6 +8054,512 @@ def phase_16(handoff: dict, kernels: list[dict],
     return report
 
 
+# -- phase 17: the sharded task store ----------------------------------------
+
+SHARDS = 4
+# 17a's turns in mirrored order, (shards, replicas a shard): 4 shards with
+# their replicas, 1 shard, and 4 shards without replicas, which parts what
+# the sharding costs from what the replicas' absorbs cost.
+SHARD_TURNS = ((SHARDS, 1), (1, 0), (SHARDS, 0), (SHARDS, 0), (1, 0),
+               (SHARDS, 1))
+SHARD_DEADLINE_S = 120       # a part's tasks all terminal within this
+SHARD_CAUGHT_UP_S = 30       # 17a: replicas at their primaries' heads
+# 17b's long polls: a poll parked on a shard's feed when its slot moves
+# hears the terminal event on the new owner's feed only after it times out
+# and reads the store again.
+SHARD_POLL_S = "2"
+
+
+def shard_specs(gateway: str, worker: str) -> tuple[dict, dict]:
+    """Land cover of the deploy spec behind ``gateway``, its async route at
+    routes.json's fixed concurrency: an ``autoscale`` route is refused on a
+    sharded platform without orchestration."""
+    models, routes = cache_specs(gateway, worker, ("landcover",))
+    for api in routes["apis"]:
+        api.pop("autoscale", None)
+    return models, routes
+
+
+def shard_owners(task_ids: list[str], slots: list[int]) -> dict:
+    """Each task's shard under the ring's slot table."""
+    from ai4e_tpu_torch.taskstore.sharding import stable_hash
+
+    return {t: slots[stable_hash(t) % len(slots)] for t in task_ids}
+
+
+def posture_line(log_text: str) -> str:
+    line = next((x for x in log_text.splitlines()
+                 if "control plane on " in x), None)
+    if line is None:
+        raise AssertionError("the control plane logged no startup line")
+    return line.split("control plane on ", 1)[1]
+
+
+async def shard_turn_drive(gateway: str, worker: str, procs: dict,
+                           logs: dict, bodies: list[bytes],
+                           shards: int) -> dict:
+    """17a's client for one turn: the 64 tiles at once with long polls, each
+    task's ledger; on a sharded store the topology once every replica (if
+    any) reached its primary's chain head."""
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"],
+                           logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        out = await drive_gateway(http, gateway, LC_SYNC, bodies, 0, LC_DONE,
+                                  worker)
+        t_done = time.monotonic()
+        out["records"] = [await fetch_record(http, gateway, t)
+                          for t in out["task_ids"]]
+        if shards > 1:
+            while True:
+                _, topo = await http_json(http, "GET",
+                                          gateway + "/v1/taskstore/shards")
+                if all(set(g["replica_chain_heads"]) <= {g["chain_head"]}
+                       for g in topo["groups"]):
+                    break
+                if time.monotonic() > t_done + SHARD_CAUGHT_UP_S:
+                    raise AssertionError(f"17a: replicas never caught up: "
+                                         f"{topo}")
+                await asyncio.sleep(0.05)
+            out["replicas_caught_up_s"] = time.monotonic() - t_done
+            out["topology"] = topo
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics"] = await r.text()
+    return out
+
+
+def check_shard_turn(handoff: dict, run: dict, cp_log: str, shards: int,
+                     replicas: int, want: np.ndarray) -> dict:
+    """17a's gates for one turn; returns its record."""
+    pixels = lc_pixels(handoff)
+    for i, result in enumerate(run["results"]):
+        check_histogram(result, want[i], pixels)
+    hops = ledger_hops(run["records"], ONE_STAGE)
+    posture = posture_line(cp_log)
+    if "crc32c=native" not in posture:
+        raise AssertionError(f"17a: the journal checksum is not the native "
+                             f"one: {posture}")
+    if (shards > 1) != (f"task store sharded x{shards}" in posture):
+        raise AssertionError(f"17a: startup line {posture!r} for {shards} "
+                             "shards")
+    outcomes = dispatch_outcomes(run["cp_metrics"])
+    if outcomes.get("failed") or outcomes.get("dead_letter"):
+        raise AssertionError(f"17a: deliveries {outcomes}")
+    out = {"shards": shards, "replicas": replicas,
+           "tasks": len(run["results"]),
+           "tasks_per_s": run["async_requests_per_s"],
+           "task_p50_ms": run["task_p50_ms"],
+           "task_p95_ms": run["task_p95_ms"],
+           "published_popped_ms": hops["published->popped"],
+           "hops": hops, "backpressure": outcomes.get("backpressure", 0.0),
+           "deliveries": outcomes}
+    if shards > 1:
+        topo = run["topology"]
+        groups = topo["groups"]
+        if topo["shards"] != shards or len(groups) != shards:
+            raise AssertionError(f"17a: topology {topo}")
+        for g in groups:
+            if (g["epoch"] != 0 or g["dead"] or g["replicas"] != replicas
+                    or not g["chain_head"]):
+                raise AssertionError(f"17a: shard {g}")
+        owners = shard_owners(run["task_ids"], topo["slots"])
+        by_shard = [sum(o == s for o in owners.values())
+                    for s in range(shards)]
+        if min(by_shard) < 1:
+            raise AssertionError(f"17a: a shard holds no task: {by_shard}")
+        out.update({"tasks_by_shard": by_shard,
+                    "feed_seq": [g["feed_seq"] for g in groups],
+                    "chain_heads": [g["chain_head"] for g in groups],
+                    "replicas_caught_up_s": run["replicas_caught_up_s"]})
+    return out
+
+
+def phase_shard_pair(handoff: dict, wk: dict, cp_port: int) -> dict:
+    """17a: land cover behind journaled control planes (the observability
+    layer on) of 4 shards with one replica each, of 1 shard, and of 4
+    shards without replicas, in turns ``SHARD_TURNS`` on one worker, each a
+    child process."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    turns = []
+    for k, (shards, replicas) in enumerate(SHARD_TURNS):
+        t0 = time.perf_counter()
+        journal = out_dir / f"shards_{k}.journal"
+        for p in out_dir.glob(journal.name + "*"):
+            p.unlink()
+        env = {**handoff["env"], "AI4E_PLATFORM_TASK_SHARDS": str(shards),
+               "AI4E_PLATFORM_TASK_SHARD_REPLICAS": str(replicas),
+               "AI4E_PLATFORM_JOURNAL_PATH": str(journal),
+               "AI4E_PLATFORM_OBSERVABILITY": "1"}
+        logs = {"cp": out_dir / f"shards_{k}_control_plane.log",
+                "wk": wk["log"]}
+        procs = {"cp": start_child(
+            ["control-plane", "--routes", str(wk["routes"]), "--port",
+             str(cp_port)], logs["cp"], env), "wk": wk["proc"]}
+        try:
+            run = asyncio.run(shard_turn_drive(
+                wk["gateway"], wk["url"], procs, logs, bodies, shards))
+            stop_child(procs["cp"], logs["cp"], f"17a turn {k}")
+        finally:
+            if procs["cp"].poll() is None:
+                procs["cp"].kill()
+                procs["cp"].wait(timeout=30)
+        turn = check_shard_turn(handoff, run,
+                                logs["cp"].read_text(errors="replace"),
+                                shards, replicas, want)
+        turn["seconds"] = time.perf_counter() - t0
+        log(f"shards 17a turn {k}: {json.dumps({x: y for x, y in turn.items() if x != 'hops'})}")
+        turns.append(turn)
+
+    def arm(turn: dict) -> str:
+        return (str(turn["shards"]) if turn["shards"] == 1 or turn["replicas"]
+                else f"{turn['shards']} without replicas")
+
+    pair = {}
+    for key, q in (("tasks_per_s", None), ("task_p50_ms", None),
+                   ("task_p95_ms", None), ("published_popped_ms", "p50"),
+                   ("published_popped_ms", "p95"), ("backpressure", None)):
+        by_arm: dict = {}
+        for t in turns:
+            by_arm.setdefault(arm(t), []).append(t[key][q] if q else t[key])
+        med = {a: statistics.median(v) for a, v in by_arm.items()}
+        one = med["1"]
+        pair[key if q is None else f"{key}_{q}"] = {
+            a: {"median": m, "vs_1": m / one if one else None}
+            for a, m in med.items()}
+    return {"turns": turns, "pair": pair}
+
+
+class ThreadedControlPlane:
+    """The port's control plane, built by its own ``build_control_plane``
+    from ``env`` and ``routes``, served on an event loop of its own in a
+    thread of this process (17b reaches into its store); started on entry,
+    stopped and its store closed on exit."""
+
+    def __init__(self, env: dict, routes: dict, port: int):
+        import threading
+
+        from ai4e_tpu_torch.cli import build_control_plane
+        from ai4e_tpu_torch.config import FrameworkConfig
+
+        config = FrameworkConfig.from_env(env)
+        config.gateway.host, config.gateway.port = "127.0.0.1", port
+        self.platform = build_control_plane(config, routes)
+        self.port = port
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.runner = None
+
+    def call(self, fn, *args):
+        """``fn(*args)`` on the control plane's loop, as its handlers run."""
+        async def on_loop():
+            return fn(*args)
+        return asyncio.run_coroutine_threadsafe(on_loop(),
+                                                self.loop).result(60)
+
+    async def _start(self) -> None:
+        from aiohttp import web
+
+        self.runner = web.AppRunner(self.platform.gateway.app)
+        await self.runner.setup()
+        await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
+        await self.platform.start()
+
+    async def _stop(self) -> None:
+        await self.platform.stop()
+        if self.runner is not None:
+            await self.runner.cleanup()
+        self.platform.store.close()
+
+    def __enter__(self):
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self._start(),
+                                         self.loop).result(60)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        try:
+            asyncio.run_coroutine_threadsafe(self._stop(),
+                                             self.loop).result(60)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(timeout=30)
+            self.loop.close()
+
+
+async def shard_watch(http, gateway: str, task: dict,
+                      deadline: float) -> None:
+    """Long-poll one task to terminal in ``SHARD_POLL_S`` s polls, then
+    read its result; a 404 is a lost task."""
+    import aiohttp
+
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    poll = aiohttp.ClientTimeout(total=15, sock_connect=HA_CONNECT_S)
+    while time.monotonic() < deadline:
+        try:
+            async with http.get(f"{gateway}/v1/taskmanagement/task/"
+                                f"{task['id']}", params={"wait": SHARD_POLL_S},
+                                timeout=poll) as r:
+                if r.status != 200:
+                    raise AssertionError(f"17b: task {task['id']} answered "
+                                         f"{r.status}: {await r.text()}")
+                record = await r.json()
+            if TaskStatus.canonical(record["Status"]) not in \
+                    TaskStatus.TERMINAL:
+                continue
+            task["done_at"] = time.monotonic()
+            task["status"] = record["Status"]
+            task["raw"] = await result_bytes(http, gateway, task["id"])
+            return
+        except (aiohttp.ClientConnectionError, asyncio.TimeoutError):
+            await asyncio.sleep(0.05)
+    raise AssertionError(f"17b: task {task['id']} never finished: {task}")
+
+
+def shard_target(store, tasks: list[dict]):
+    """``(victim, slot, src, dest)`` once some task's result was read while
+    one shard holds ``HA_UNFINISHED`` unfinished tasks of the burst and a
+    slot of another shard at least one; else None."""
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    unfinished = []
+    for t in tasks:
+        try:
+            rec = store.get(t["id"])
+        except KeyError:
+            continue
+        if rec.canonical_status not in TaskStatus.TERMINAL:
+            unfinished.append(t["id"])
+    by_shard = {}
+    for tid in unfinished:
+        by_shard.setdefault(store.shard_for(tid), []).append(tid)
+    if not by_shard:
+        return None
+    victim = max(by_shard, key=lambda s: len(by_shard[s]))
+    if len(by_shard[victim]) < HA_UNFINISHED:
+        return None
+    slots = {}
+    for tid in unfinished:
+        slot = store.ring.slot_for(tid)
+        if store.ring.shard_of_slot(slot) != victim:
+            slots[slot] = slots.get(slot, 0) + 1
+    if not slots:
+        return None
+    slot = max(slots, key=slots.get)
+    src = store.ring.shard_of_slot(slot)
+    dest = next(s for s in range(store.ring.shards) if s not in (src, victim))
+    return victim, slot, src, dest
+
+
+async def shard_chaos_drive(cp: ThreadedControlPlane, worker: str, wk: dict,
+                            bodies: list[bytes]) -> dict:
+    """17b's client: bursts until one is caught mid-way, then a shard
+    primary killed (on the control plane's loop, as a SIGKILL between two
+    requests) and a slot holding unfinished tasks moved to a third shard
+    (from another thread, under load); every task awaited."""
+    import aiohttp
+
+    store = cp.platform.store
+    gateway = f"http://127.0.0.1:{cp.port}"
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", wk["proc"],
+                           wk["log"])
+        deadline = time.monotonic() + SHARD_DEADLINE_S
+        tasks, watchers, target = [], [], None
+        for attempt in range(HA_TRIES):
+            ids = await asyncio.gather(*(ha_submit(http, gateway, b, deadline)
+                                         for b in bodies))
+            burst = [{"id": t, "i": i} for i, t in enumerate(ids)]
+            ws = [asyncio.create_task(shard_watch(http, gateway, t,
+                                                  deadline)) for t in burst]
+            tasks += burst
+            watchers += ws
+            while not any("raw" in t for t in burst):
+                await asyncio.sleep(0.002)
+            target = shard_target(store, burst)
+            if target is not None:
+                break
+            await asyncio.gather(*ws)
+        else:
+            raise AssertionError(f"17b: no burst of {HA_TRIES} was caught "
+                                 "mid-way")
+        victim, slot, src, dest = target
+        before = {t["id"]: t["raw"] for t in tasks if "raw" in t}
+        old = store.groups[victim].active
+        pre_epoch = store.groups[victim].epoch
+        in_slot = [t["id"] for t in tasks
+                   if store.ring.slot_for(t["id"]) == slot]
+        async def promoted() -> float:
+            # The next write routed to the dead shard promotes inline.
+            while (store.groups[victim].active is old
+                   or store.groups[victim].dead):
+                if time.monotonic() > deadline:
+                    raise AssertionError("17b: the killed shard never "
+                                         "promoted")
+                await asyncio.sleep(0.001)
+            return time.monotonic()
+
+        t_kill = time.monotonic()
+        cp.call(store.kill_shard_primary, victim)
+        promotion = asyncio.create_task(promoted())
+        moved = await asyncio.to_thread(store.move_slot, slot, dest)
+        t_moved = time.monotonic()
+        t_promoted = await promotion
+        await asyncio.gather(*watchers)
+        reread = {t: await result_bytes(http, gateway, t) for t in before}
+        _, topo = await http_json(http, "GET",
+                                  gateway + "/v1/taskstore/shards")
+    owner = {t["id"]: store.shard_for(t["id"]) for t in tasks}
+    on_victim = [t["done_at"] - t_kill for t in tasks
+                 if owner[t["id"]] == victim and t["done_at"] > t_kill]
+    others = [t["done_at"] for t in tasks
+              if owner[t["id"]] != victim and t["done_at"] > t_kill]
+    return {"tasks": tasks, "before": before, "reread": reread,
+            "attempt": attempt, "victim": victim, "slot": slot, "src": src,
+            "dest": dest, "moved": moved, "in_slot": in_slot,
+            "epochs": (pre_epoch, store.groups[victim].epoch),
+            "promoted_role": store.groups[victim].active.role,
+            "topology": topo,
+            "kill_to_moved_s": t_moved - t_kill,
+            "kill_to_promotion_s": t_promoted - t_kill,
+            "kill_to_first_completion_on_victim_s":
+                min(on_victim) if on_victim else None,
+            "other_shards_completed_after_kill": len(others),
+            "other_shards_completed_during_promotion": sum(
+                d <= t_promoted for d in others),
+            "unfinished_at_kill": len(tasks) - len(before)}
+
+
+def phase_shard_chaos(handoff: dict, wk: dict, cp_port: int) -> dict:
+    """17b: a 4-shard journaled platform in this process, the worker a
+    child: a shard primary killed and a slot moved mid-burst."""
+    from ai4e_tpu_torch.taskstore.journal import crc32c_impl
+
+    out_dir = handoff["out_dir"]
+    journal = out_dir / "shards_chaos.journal"
+    for p in out_dir.glob(journal.name + "*"):
+        p.unlink()
+    env = {**handoff["env"], "AI4E_PLATFORM_TASK_SHARDS": str(SHARDS),
+           "AI4E_PLATFORM_JOURNAL_PATH": str(journal)}
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    routes = json.loads(wk["routes"].read_text())
+    with ThreadedControlPlane(env, routes, cp_port) as cp:
+        if crc32c_impl() != "native":
+            raise AssertionError("17b: the journal checksum is the Python "
+                                 "loop")
+        run = asyncio.run(shard_chaos_drive(cp, wk["url"], wk, bodies))
+        store = cp.platform.store
+        lost = []
+        for t in run["tasks"]:
+            try:
+                store.get(t["id"])
+            except KeyError:
+                lost.append(t["id"])
+        new_owner = {t: (store.shard_for(t),
+                         t in store.groups[run["dest"]].active._tasks,
+                         t in store.groups[run["src"]].active._tasks)
+                     for t in run["in_slot"]}
+    pixels = lc_pixels(handoff)
+    tasks = run.pop("tasks")
+    for t in tasks:
+        if t.get("status") != LC_DONE:
+            raise AssertionError(f"17b: task {t['id']} ended {t}")
+        check_histogram(json.loads(t["raw"]), want[t["i"]], pixels)
+    before, reread = run.pop("before"), run.pop("reread")
+    if not before:
+        raise AssertionError("17b: no result was read before the kill")
+    for task_id, raw in before.items():
+        if reread[task_id] != raw:
+            raise AssertionError(f"17b: {task_id}'s result changed across "
+                                 "the kill")
+    if lost:
+        raise AssertionError(f"17b: tasks lost at the kill: {lost}")
+    pre, post = run["epochs"]
+    if post != pre + 1 or run["promoted_role"] != "primary":
+        raise AssertionError(f"17b: the killed shard at epoch {pre} -> "
+                             f"{post}, role {run['promoted_role']}")
+    group = run["topology"]["groups"][run["victim"]]
+    if group["epoch"] != post or group["dead"]:
+        raise AssertionError(f"17b: topology of the killed shard {group}")
+    if not run["in_slot"] or run["moved"] < 1:
+        raise AssertionError(f"17b: the moved slot held {run['in_slot']}")
+    for t, (shard, on_dest, on_src) in new_owner.items():
+        if shard != run["dest"] or not on_dest or on_src:
+            raise AssertionError(f"17b: moved task {t} on shard {shard} "
+                                 f"(dest {on_dest}, src {on_src})")
+    if run["other_shards_completed_after_kill"] < 1:
+        raise AssertionError("17b: no other shard's task completed after "
+                             "the kill")
+    if run["kill_to_first_completion_on_victim_s"] is None:
+        raise AssertionError("17b: no task of the killed shard completed "
+                             "after the kill")
+    run.pop("topology")
+    run.update({"tasks": len(tasks), "read_before_kill": len(before),
+                "moved_slot_tasks": len(run.pop("in_slot")),
+                "crc32c": "native", "card": CARD.get("smi")})
+    log(f"shards 17b: {json.dumps(run)}")
+    return run
+
+
+def phase_17(handoff: dict, kernels: list[dict],
+             device: str = "cuda") -> dict:
+    """Phase 17: land cover behind the sharded task store: the 4-shard
+    and 1-shard turns (a), a shard primary killed and a slot moved
+    mid-burst (b); one worker, a child process, serves both."""
+    log("phase 17: the sharded task store")
+    t0 = time.perf_counter()
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    wk = {"gateway": f"http://127.0.0.1:{cp_port}",
+          "url": f"http://127.0.0.1:{wk_port}",
+          "log": out_dir / "shards_worker.log",
+          "routes": out_dir / "shards_routes.json"}
+    models, routes = shard_specs(wk["gateway"], wk["url"])
+    (out_dir / "shards_models.json").write_text(json.dumps(models))
+    wk["routes"].write_text(json.dumps(routes))
+    wk["proc"] = start_child(
+        ["worker", "--models", str(out_dir / "shards_models.json"),
+         "--host", "127.0.0.1", "--port", str(wk_port), "--device", device],
+        wk["log"], {**handoff["env"], "AI4E_OBSERVABILITY_HOP_LEDGER": "1"})
+    report: dict = {"seconds_by_part": {}}
+    try:
+        for part, run in (("17a", lambda: phase_shard_pair(handoff, wk,
+                                                           cp_port)),
+                          ("17b", lambda: phase_shard_chaos(handoff, wk,
+                                                            cp_port))):
+            t = time.perf_counter()
+            report[part] = run()
+            report["seconds_by_part"][part] = time.perf_counter() - t
+        stop_child(wk["proc"], wk["log"], "17 worker")
+    finally:
+        if wk["proc"].poll() is None:
+            wk["proc"].kill()
+            wk["proc"].wait(timeout=30)
+    report["seconds"] = time.perf_counter() - t0
+    by_model = launches_by_model(wk["log"].read_text(errors="replace"))
+    rows = {k["name"]: k for k in kernels}
+    for name in ("normalize_image", "fused_seg_postprocess"):
+        count = by_model.get("landcover", {}).get(name, 0)
+        if device == "cuda" and count < 1:
+            raise AssertionError(f"phase 17: {name} never launched in the "
+                                 f"worker: {by_model}")
+        if name in rows:
+            rows[name]["launches_phase17"] = count
+    log(f"phase 17: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'pair': report['17a']['pair'], 'launches': by_model.get('landcover'), 'card': CARD.get('smi')})}")
+    return report
+
+
 def detector_dct_sweep(trainings: int) -> None:
     """``python3 chip_smoke.py --detector-dct-sweep N``: the megadetector
     recipe trained N times on the card (seed 0 each time; cuDNN's
@@ -8096,6 +8626,7 @@ def main() -> None:
     phase_15(deployed, kernels, runtime["graphs"]["buckets"]
              .get("landcover/64", {}).get("replay_ms"))
     phase_16(deployed, kernels)
+    phase_17(deployed, kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

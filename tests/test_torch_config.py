@@ -136,6 +136,14 @@ SERVED_HA_KNOBS = [
         "failover_down_after", "replicate_api_key", "advertise_url")]
 
 
+#: The sharded task store (ROADMAP A18.2): the port serves it, so each set
+#: away from its default parses as JAX's does.
+SERVED_SHARD_KNOBS = [
+    ("AI4E_PLATFORM_", f) for f in (
+        "task_shards", "task_shard_slots", "task_shard_replicas",
+        "shard_tail_interval", "shard_feed_recent")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -162,7 +170,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_ADMISSION_KNOBS, "same"))
          + list(off_default_cases(SERVED_AUTH_CACHE_KNOBS, "same"))
          + list(off_default_cases(SERVED_NATIVE_REAPER_KNOBS, "same"))
-         + list(off_default_cases(SERVED_HA_KNOBS, "same")))
+         + list(off_default_cases(SERVED_HA_KNOBS, "same"))
+         + list(off_default_cases(SERVED_SHARD_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -227,6 +236,11 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_FAILOVER_DOWN_AFTER": "5"},
     {"AI4E_PLATFORM_REPLICATE_API_KEY": " ,k1, k2"},
     {"AI4E_PLATFORM_ADVERTISE_URL": "http://standby:8080"},
+    {"AI4E_PLATFORM_TASK_SHARDS": "4"},
+    {"AI4E_PLATFORM_TASK_SHARD_SLOTS": "128"},
+    {"AI4E_PLATFORM_TASK_SHARD_REPLICAS": "2"},
+    {"AI4E_PLATFORM_SHARD_TAIL_INTERVAL": "0.05"},
+    {"AI4E_PLATFORM_SHARD_FEED_RECENT": "512"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -247,10 +261,11 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_AUTH_CACHE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_NATIVE_REAPER_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_HA_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_SHARD_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
     assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
-    assert len(port_config.UNPORTED) == 57
+    assert len(port_config.UNPORTED) == 52
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(
