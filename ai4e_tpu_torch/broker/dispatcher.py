@@ -1,5 +1,7 @@
 """Dispatcher — drains endpoint queues and pushes tasks to backend services;
-a copy of ``ai4e_tpu/broker/dispatcher.py`` for one backend per route:
+a copy of ``ai4e_tpu/broker/dispatcher.py``. A route names one backend or
+a weighted set (``utils/backends.py``, a canary split), and each delivery
+picks its own backend from the set:
 
 - backend 429 or 503 (the backend is at its cap) — the task reads
   "Awaiting service availability", the message goes back to the broker
@@ -34,8 +36,8 @@ reaching the card (``dispatch_total{outcome="cache_hit"}``).
 
 Not ported (ROADMAP A18): resilience and orchestration (their
 ``duplicate``, ``retry``, ``failover``, ``placed`` and ``probe`` stamps,
-and the breaker's backoff of the admission limiter), weighted backends and
-tenancy accounting.
+and the breaker's backoff of the admission limiter) and tenancy
+accounting.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from ..observability import ledger as hop
 from ..resilience.retry import backoff_s
 from ..service.task_manager import TaskManagerBase
 from ..taskstore import TaskStatus
+from ..utils.backends import normalize_backends, pick_backend
 from ..utils.http import SessionHolder
 from .queue import InMemoryBroker, Message, base_queue_name
 
@@ -82,11 +85,13 @@ def rebase_endpoint(endpoint: str, base_path: str, backend_uri: str) -> str:
 
 
 class Dispatcher:
-    """Drains one endpoint queue, POSTing each task to ``backend_uri`` with
-    a ``taskId`` header."""
+    """Drains one endpoint queue, POSTing each task with a ``taskId`` header
+    to ``backend_uri``, or, given a weighted backend list, to a backend
+    picked from it for each delivery (a redelivered task may land on the
+    other version: a canary that 503s does not strand its tasks)."""
 
     def __init__(self, broker: InMemoryBroker, queue_name: str,
-                 backend_uri: str, task_manager: TaskManagerBase,
+                 backend_uri, task_manager: TaskManagerBase,
                  retry_delay: float = 60.0, concurrency: int = 1,
                  observability=None, admission=None,
                  metrics: MetricsRegistry | None = None,
@@ -94,7 +99,10 @@ class Dispatcher:
         self.broker = broker
         self.queue_name = queue_name
         self.route_path = base_queue_name(queue_name)
-        self.backend_uri = backend_uri
+        self.backends = normalize_backends(backend_uri)
+        # The primary backend, what single-backend readers see; the picks
+        # use the whole set.
+        self.backend_uri = self.backends[0][0]
         self.task_manager = task_manager
         self.retry_delay = retry_delay
         self.concurrency = concurrency
@@ -218,7 +226,9 @@ class Dispatcher:
         if await self._complete_from_cache(msg):
             return
         target = rebase_endpoint(msg.endpoint, self.route_path,
-                                 self.backend_uri)
+                                 pick_backend(self.backends))
+        # The backend label splits each outcome by host, so a canary's
+        # failures do not vanish into the fleet's counter.
         backend = urlparse(target).netloc
         session = await self._sessions.get()
         t0 = time.perf_counter()
@@ -421,7 +431,7 @@ class DispatcherPool:
         self.result_store = result_store
         self.dispatchers: dict[str, Dispatcher] = {}
 
-    def register(self, queue_name: str, backend_uri: str,
+    def register(self, queue_name: str, backend_uri,
                  retry_delay: float | None = None,
                  concurrency: int | None = None) -> Dispatcher:
         d = Dispatcher(

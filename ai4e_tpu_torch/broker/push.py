@@ -1,0 +1,495 @@
+"""Push (webhook) transport: the Event Grid half of the pluggable
+transport. A copy of ``ai4e_tpu/broker/push.py``.
+
+- ``PushTopic`` — the topic: accepts published tasks and pushes them to
+  HTTP subscribers concurrently (at most ``window`` POSTs in flight), with
+  the retry, backoff and TTL policy and the subscription-validation
+  handshake. Task events ship in **binary content mode** (metadata in
+  ``X-AI4E-Event-*`` headers, the task body raw as the HTTP body);
+- ``WebhookDispatcher`` — the BackendWebhook function: an aiohttp app that
+  answers the handshake, rebases each event's subject onto the backend
+  registered for its path (a weighted pick over a canary set), POSTs the
+  body with the ``taskId`` header, and maps backend saturation (429/503)
+  back to 429 so the topic retries.
+
+Both sides speak plain HTTP, so topic and webhook could run in separate
+processes. Imports neither torch nor JAX.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import secrets
+import threading
+import time
+from dataclasses import dataclass, field
+
+import aiohttp
+from aiohttp import web
+
+from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
+from ..taskstore import TaskStatus, endpoint_path
+from ..utils.backends import normalize_backends, pick_backend
+from ..utils.http import SessionHolder
+from .dispatcher import AWAITING_STATUS, BACKPRESSURE_CODES, rebase_endpoint
+
+log = logging.getLogger("ai4e_tpu_torch.broker.push")
+
+TASK_EVENT = "ai4e.task.created"
+VALIDATION_EVENT = "ai4e.subscription.validation"
+
+# Binary content mode (the CloudEvents "binary" HTTP mode): event metadata
+# rides headers, the task body rides the HTTP body raw. The structured JSON
+# envelope decodes the body surrogateescape and escapes it into a JSON
+# string, which for the image models' 100-200 kB binary bodies is
+# megabytes of (de)escaping per hop. Task events use binary mode; the
+# validation handshake and any external publisher keep the structured
+# envelope (the webhook accepts both).
+HDR_EVENT_ID = "X-AI4E-Event-Id"
+HDR_EVENT_SUBJECT = "X-AI4E-Event-Subject"
+HDR_EVENT_TYPE = "X-AI4E-Event-Type"
+HDR_EVENT_TIME = "X-AI4E-Event-Time"
+# Delivery-attempt ordinal (1-based). Lets the webhook treat a RETRY
+# differently from a first delivery: a retry can trail an execution whose
+# response was lost, so the webhook probes task terminality before
+# re-forwarding (the queue dispatcher's duplicate-suppression analogue)
+# while first deliveries stay probe-free on the hot path.
+HDR_EVENT_ATTEMPT = "X-AI4E-Event-Attempt"
+
+
+@dataclass
+class PushEvent:
+    """Event envelope: ``{Id: taskId, Subject: endpoint, Data: body}``."""
+
+    id: str                    # task id
+    subject: str               # the task's endpoint (original request URI)
+    data: bytes
+    content_type: str = "application/json"
+    event_type: str = TASK_EVENT
+    event_time: float = field(default_factory=time.time)
+    attempts: int = 0
+
+    def to_wire(self) -> dict:
+        return {
+            "Id": self.id,
+            "Subject": self.subject,
+            "EventType": self.event_type,
+            "EventTime": self.event_time,
+            "ContentType": self.content_type,
+            "Data": self.data.decode("utf-8", errors="surrogateescape"),
+        }
+
+    @classmethod
+    def from_wire(cls, rec: dict) -> "PushEvent":
+        return cls(
+            id=rec.get("Id", ""),
+            subject=rec.get("Subject", ""),
+            data=rec.get("Data", "").encode("utf-8", errors="surrogateescape"),
+            content_type=rec.get("ContentType", "application/json"),
+            event_type=rec.get("EventType", TASK_EVENT),
+            event_time=rec.get("EventTime", time.time()),
+        )
+
+    def to_headers(self) -> dict[str, str]:
+        """Binary-content-mode metadata (body ships raw as the HTTP body).
+
+        The subject is an endpoint path + query string, which may contain
+        non-ASCII — and aiohttp refuses non-latin-1 header values, so an
+        unencoded subject would fail EVERY delivery attempt until the TTL
+        dead-letters a task the structured envelope could deliver fine.
+        Percent-encode it (RFC 8187 spirit); ``from_headers`` decodes, so
+        the round trip is exact for every subject including ones that
+        already contain ``%``."""
+        from urllib.parse import quote
+        return {
+            HDR_EVENT_ID: self.id,
+            HDR_EVENT_SUBJECT: quote(self.subject, safe="/:?=&"),
+            HDR_EVENT_TYPE: self.event_type,
+            HDR_EVENT_TIME: repr(self.event_time),
+            "Content-Type": self.content_type or "application/octet-stream",
+        }
+
+    def headers_for_attempt(self, attempt: int) -> dict[str, str]:
+        """Delivery headers stamped with the attempt ordinal (1-based)."""
+        return {**self.to_headers(), HDR_EVENT_ATTEMPT: str(attempt)}
+
+    @classmethod
+    def from_headers(cls, headers, body: bytes) -> "PushEvent":
+        try:
+            event_time = float(headers.get(HDR_EVENT_TIME, ""))
+        except ValueError:
+            event_time = time.time()
+        try:
+            attempts = int(headers.get(HDR_EVENT_ATTEMPT, "0"))
+        except ValueError:
+            attempts = 0
+        from urllib.parse import unquote
+        return cls(
+            id=headers.get(HDR_EVENT_ID, ""),
+            subject=unquote(headers.get(HDR_EVENT_SUBJECT, "")),
+            data=body,
+            content_type=headers.get("Content-Type",
+                                     "application/octet-stream"),
+            event_type=headers.get(HDR_EVENT_TYPE, TASK_EVENT),
+            event_time=event_time,
+            attempts=attempts,
+        )
+
+
+class SubscriptionError(RuntimeError):
+    pass
+
+
+@dataclass
+class _Subscription:
+    name: str
+    url: str
+
+
+class PushTopic:
+    """Event topic with push delivery, retry/backoff, TTL, and handshake.
+
+    The delivery policy's defaults are an Event Grid subscription's: a TTL
+    of 5 minutes and 3 delivery attempts. ``retry_delay`` is the base of an
+    exponential backoff between attempts.
+
+    ``publish`` has the contract of ``InMemoryBroker.publish`` (callable
+    from any thread; delivery runs on the bound event loop), so the task
+    store takes either transport as its publisher hook.
+    """
+
+    def __init__(self, ttl_seconds: float = 300.0, max_attempts: int = 3,
+                 retry_delay: float = 10.0, window: int = 256,
+                 metrics: MetricsRegistry | None = None):
+        self.ttl_seconds = ttl_seconds
+        self.max_attempts = max_attempts
+        self.retry_delay = retry_delay
+        # In-flight delivery window per topic: deliveries run concurrently,
+        # and this bounds how many POSTs are on the wire at once. The
+        # session is unbounded (limit=0): the window is the cap, not a
+        # hidden 100-connection pool.
+        self._window = asyncio.Semaphore(max(1, window))
+        self.metrics = metrics or DEFAULT_REGISTRY
+        self._delivered = self.metrics.counter(
+            "ai4e_push_deliveries_total",
+            "Push-transport deliveries by outcome")
+        self._pending = self.metrics.gauge(
+            "ai4e_push_pending", "Push deliveries in flight")
+        self._subscriptions: list[_Subscription] = []
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._sessions = SessionHolder(limit=0)
+        self._tasks: set[asyncio.Task] = set()
+        self._dead_letter_handler = None
+        self._closed = False
+        # Events published before the loop is bound / the first subscription
+        # validates are buffered, not refused — the same contract as
+        # InMemoryBroker.publish (a gateway may accept a task in the window
+        # between serving and platform.start()).
+        self._backlog: list[PushEvent] = []
+        self._backlog_lock = threading.Lock()
+
+    def bind_loop(self, loop: asyncio.AbstractEventLoop | None = None) -> None:
+        self._loop = loop or asyncio.get_event_loop()
+
+    def set_dead_letter_handler(self, handler) -> None:
+        """Called with a ``PushEvent`` whose delivery budget/TTL is exhausted
+        — the platform fails the task so it never sits non-terminal."""
+        self._dead_letter_handler = handler
+
+    async def subscribe(self, name: str, url: str) -> None:
+        """Register a webhook subscriber after a validation handshake: POST a
+        validation event bearing a one-time code; the subscriber must echo it
+        back as ``{"validationResponse": code}`` (Event Grid's
+        ``SubscriptionValidationEvent`` contract)."""
+        code = secrets.token_hex(16)
+        event = PushEvent(id=code, subject="", data=b"",
+                          event_type=VALIDATION_EVENT)
+        envelope = [dict(event.to_wire(), ValidationCode=code)]
+        session = await self._sessions.get()
+        try:
+            async with session.post(url, json=envelope) as resp:
+                if resp.status != 200:
+                    raise SubscriptionError(
+                        f"validation handshake to {url} returned "
+                        f"{resp.status}")
+                payload = await resp.json()
+        except aiohttp.ClientError as exc:
+            raise SubscriptionError(
+                f"subscriber {url} unreachable: {exc}") from exc
+        if payload.get("validationResponse") != code:
+            raise SubscriptionError(
+                f"subscriber {url} echoed a bad validation code")
+        self._subscriptions.append(_Subscription(name=name, url=url))
+        log.info("push subscription %r -> %s validated", name, url)
+        self._flush_backlog()
+
+    def _flush_backlog(self) -> None:
+        """Deliver events buffered before the first subscription validated.
+        Runs on the event loop (subscribe is a coroutine)."""
+        with self._backlog_lock:
+            backlog, self._backlog = self._backlog, []
+        for event in backlog:
+            self._spawn(event)
+
+    # -- publish side (store publisher hook) --------------------------------
+
+    def publish(self, task) -> None:
+        if self._closed:
+            raise RuntimeError("push topic is closed")
+        event = PushEvent(
+            id=task.task_id, subject=task.endpoint, data=task.body,
+            content_type=getattr(task, "content_type", "application/json"))
+        loop = self._loop
+        with self._backlog_lock:
+            if loop is None or not self._subscriptions:
+                self._backlog.append(event)
+                return
+        try:
+            running = asyncio.get_running_loop()
+        except RuntimeError:
+            running = None
+        if loop is running:
+            self._spawn(event)
+        else:
+            loop.call_soon_threadsafe(self._spawn, event)
+
+    def _spawn(self, event: PushEvent) -> None:
+        t = asyncio.get_running_loop().create_task(self._deliver(event))
+        self._tasks.add(t)
+        t.add_done_callback(self._tasks.discard)
+        self._pending.inc()
+        t.add_done_callback(lambda _t: self._pending.dec())
+
+    async def _deliver(self, event: PushEvent) -> None:
+        """Push the event to every subscription (the platform makes one; a
+        fan-out works all the same), retrying each independently with
+        exponential backoff within the TTL."""
+        await asyncio.gather(*(self._deliver_to(sub, event)
+                               for sub in list(self._subscriptions)))
+
+    async def _deliver_to(self, sub: _Subscription, event: PushEvent) -> None:
+        deadline = event.event_time + self.ttl_seconds
+        attempts = 0
+        session = await self._sessions.get()
+        while True:
+            attempts += 1
+            try:
+                # Binary content mode for task events (headers + raw body);
+                # the structured envelope only when an event type needs the
+                # JSON shape (validation is sent by subscribe, not here).
+                async with self._window:
+                    async with session.post(
+                            sub.url, data=event.data,
+                            headers=event.headers_for_attempt(
+                                attempts)) as resp:
+                        status = resp.status
+                        await resp.read()
+                if 200 <= status < 300:
+                    self._delivered.inc(outcome="delivered",
+                                        subscription=sub.name)
+                    return
+            except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
+                log.warning("push to %s failed (%s); attempt %d",
+                            sub.url, exc, attempts)
+            if attempts >= self.max_attempts or time.time() >= deadline:
+                break
+            # Exponential backoff, clipped so we never sleep past the TTL.
+            delay = min(self.retry_delay * (2 ** (attempts - 1)),
+                        max(0.0, deadline - time.time()))
+            self._delivered.inc(outcome="retry", subscription=sub.name)
+            await asyncio.sleep(delay)
+            if time.time() >= deadline:
+                break
+        self._delivered.inc(outcome="dead_letter", subscription=sub.name)
+        event.attempts = attempts
+        if self._dead_letter_handler is not None:
+            try:
+                self._dead_letter_handler(event)
+            except Exception:  # noqa: BLE001 — dead-lettering must not throw
+                log.exception("push dead-letter handler failed for %s",
+                              event.id)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    @property
+    def pending(self) -> int:
+        return len(self._tasks)
+
+    async def drain(self, timeout: float = 10.0) -> None:
+        if self._tasks:
+            await asyncio.wait(list(self._tasks), timeout=timeout)
+
+    async def aclose(self) -> None:
+        self._closed = True
+        for t in list(self._tasks):
+            t.cancel()
+        if self._tasks:
+            await asyncio.gather(*self._tasks, return_exceptions=True)
+        await self._sessions.close()
+
+
+class WebhookDispatcher:
+    """The BackendWebhook function as an aiohttp app.
+
+    Routes: ``POST /api/events`` receives either a binary-content-mode event
+    (``X-AI4E-Event-*`` headers + raw body) or a JSON array of structured
+    event envelopes. A validation event is answered inline with
+    ``{"validationResponse": code}``. A task event is forwarded: the event
+    subject (the task's original endpoint) is rebased onto the registered
+    backend for its API prefix, then POSTed with the ``taskId`` header.
+    Backend saturation (429/503) comes back as 429 so the topic retries
+    with backoff; other backend failures are acknowledged (no retry) and
+    the task is failed, the queue dispatcher's permanent-failure rule.
+    """
+
+    def __init__(self, task_manager, metrics: MetricsRegistry | None = None,
+                 request_timeout: float = 300.0):
+        self.task_manager = task_manager
+        self.metrics = metrics or DEFAULT_REGISTRY
+        self._forwarded = self.metrics.counter(
+            "ai4e_webhook_forwards_total", "Webhook forwards by outcome")
+        # Spans land in this webhook's registry; exporter and sampling
+        # follow configure_tracer live.
+        from ..observability import Tracer
+        self.tracer = Tracer("webhook", metrics=self.metrics)
+        # queue path prefix -> weighted backend set (utils/backends.py)
+        self._routes: dict[str, list] = {}
+        # In-flight bounded by the topic's delivery window, not a hidden
+        # 100-connection client pool.
+        self._sessions = SessionHolder(timeout=request_timeout, limit=0)
+        self.app = web.Application(client_max_size=1024**3)
+        self.app.router.add_post("/api/events", self._handle)
+        self.app.router.add_get("/healthz", self._health)
+        self.app.on_cleanup.append(self._cleanup)
+
+    def add_route(self, api_prefix: str, backend_uri) -> None:
+        """Map an API path prefix to the backend it dispatches to. A
+        weighted list splits deliveries across hosts (a canary, as on the
+        queue dispatcher)."""
+        self._routes[endpoint_path(api_prefix)] = normalize_backends(
+            backend_uri)
+
+    def _target_for(self, subject: str) -> str | None:
+        """Rebase the event subject onto the registered backend: longest
+        registered prefix wins, then the shared ``rebase_endpoint`` rule
+        grafts the operation tail and query on — the queue dispatcher and
+        the webhook must target identically."""
+        from urllib.parse import urlparse
+        path = urlparse(subject).path
+        candidates = [p for p in self._routes
+                      if path == p or path.startswith(p.rstrip("/") + "/")]
+        if not candidates:
+            return None
+        base = max(candidates, key=len)
+        return rebase_endpoint(subject, base, pick_backend(self._routes[base]))
+
+    async def _handle(self, request: web.Request) -> web.Response:
+        if HDR_EVENT_TYPE in request.headers:
+            # Binary content mode: one TASK event, metadata in headers, body
+            # raw (no surrogateescape/JSON-escape round trip on binary
+            # payloads). The validation handshake stays on the structured
+            # envelope (subscribe() sends it that way).
+            event = PushEvent.from_headers(request.headers,
+                                           await request.read())
+            return web.Response(status=await self._forward(event))
+        try:
+            envelope = await request.json()
+        except json.JSONDecodeError:
+            return web.Response(status=400, text="bad event envelope")
+        if not isinstance(envelope, list):
+            envelope = [envelope]
+
+        worst_status = 200
+        validation_code = None
+        for rec in envelope:
+            if rec.get("EventType") == VALIDATION_EVENT:
+                # The handshake. Don't short-circuit:
+                # a mixed envelope's task events must still be forwarded, or
+                # the publisher would see 200 and never redeliver them.
+                validation_code = rec.get("ValidationCode", "")
+                continue
+            status = await self._forward(PushEvent.from_wire(rec))
+            worst_status = max(worst_status, status)
+        if worst_status == 200 and validation_code is not None:
+            return web.json_response({"validationResponse": validation_code})
+        return web.Response(status=worst_status)
+
+    async def _forward(self, event: PushEvent) -> int:
+        if event.attempts > 1 and await self.task_manager.is_terminal(
+                event.id):
+            # Terminal re-check, the queue dispatcher's duplicate
+            # suppression: a retried delivery can trail an execution whose
+            # response was lost, so re-forwarding would re-execute on the
+            # backend and the AWAITING/failed writes below would clobber
+            # the completion the client may already have read.
+            # First deliveries (attempts <= 1) skip the probe — no store
+            # round trip on the hot path; a duplicated PUBLISH of a
+            # finished task is still caught at the service shell's
+            # adoption guard, and every failure-path write below re-checks
+            # terminality itself.
+            self._forwarded.inc(outcome="duplicate")
+            return 200
+        target = self._target_for(event.subject)
+        if target is None:
+            self._forwarded.inc(outcome="unroutable")
+            if not await self.task_manager.is_terminal(event.id):
+                await self._try_update(
+                    event.id,
+                    f"failed - no backend route for {event.subject}",
+                    TaskStatus.FAILED)
+            return 200  # ack: retrying an unroutable event cannot help
+        from urllib.parse import urlparse
+        backend = urlparse(target).netloc  # canary observability dimension
+        tracer = self.tracer
+        session = await self._sessions.get()
+        try:
+            with tracer.span("webhook_dispatch", task_id=event.id) as span:
+                headers = {"taskId": event.id,
+                           "Content-Type": event.content_type,
+                           **tracer.headers()}
+                async with session.post(target, data=event.data,
+                                        headers=headers) as resp:
+                    status = resp.status
+                    await resp.read()
+                span.attrs["http_status"] = status
+        except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
+            # Backend unreachable: the topic retries (it may be starting).
+            log.warning("webhook backend %s unreachable: %s", target, exc)
+            self._forwarded.inc(outcome="unreachable", backend=backend)
+            return 429
+        if 200 <= status < 300:
+            self._forwarded.inc(outcome="delivered", backend=backend)
+            return 200
+        if status in BACKPRESSURE_CODES:
+            # Saturated backend: mark awaiting, pass 429 through so the
+            # topic's backoff schedule drives the retry. Cold path, so the
+            # terminal probe is affordable: an unconditional AWAITING write
+            # could clobber a completion.
+            self._forwarded.inc(outcome="backpressure", backend=backend)
+            if not await self.task_manager.is_terminal(event.id):
+                await self._try_update(event.id, AWAITING_STATUS,
+                                       TaskStatus.CREATED)
+            return 429
+        self._forwarded.inc(outcome="failed", backend=backend)
+        if not await self.task_manager.is_terminal(event.id):
+            await self._try_update(event.id,
+                                   f"failed - backend returned {status}",
+                                   TaskStatus.FAILED)
+        return 200  # permanent failure: ack, no redelivery
+
+    async def _try_update(self, task_id: str, status: str,
+                          backend: str) -> None:
+        try:
+            await self.task_manager.update_task_status(
+                task_id, status, backend_status=backend)
+        except Exception:  # noqa: BLE001
+            log.exception("could not update task %s to %r", task_id, status)
+
+    async def _health(self, _: web.Request) -> web.Response:
+        return web.json_response({"status": "healthy",
+                                  "routes": sorted(self._routes)})
+
+    async def _cleanup(self, _app) -> None:
+        await self._sessions.close()

@@ -1,5 +1,5 @@
 """Command line: ``python -m ai4e_tpu_torch
-control-plane|worker|redrive|trace``.
+control-plane|worker|reporter|redrive|trace``.
 
 Counterpart of ``ai4e_tpu/cli.py``; both read the same spec files and the
 same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
@@ -9,8 +9,16 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   process. It imports neither torch nor JAX. routes.json is
   ``{"apis": [{"prefix", "backend", "mode": "async"|"sync",
   "concurrency", "retry_delay", "max_body_bytes", "internal",
-  "autoscale"}]}``, ``autoscale`` being ``scaling.AutoscalePolicy``'s
-  fields.
+  "autoscale"}], "definitions": [...]}``, ``autoscale`` being
+  ``scaling.AutoscalePolicy``'s fields; a route's ``"backends": [{"uri",
+  "weight"}, ...]`` in place of ``backend`` is a weighted canary set
+  (``utils/backends.py``), and ``definitions`` are typed API definitions
+  (``gateway/registration.ApiDefinition``'s fields), published before the
+  ``apis``. ``AI4E_PLATFORM_TRANSPORT=push`` delivers through the push
+  topic and webhook instead of the queue (``_PUSH_TTL_SECONDS``,
+  ``_PUSH_MAX_ATTEMPTS``, ``_PUSH_WINDOW``), and refuses a route's
+  ``autoscale``, ``retry_delay`` and ``concurrency``; the startup line
+  names the transport.
 - ``worker --models models.json [--port P] [--device cuda|cpu]`` — model
   runtime, micro-batcher and service shell, on the card unless
   ``--device cpu``. models.json has ``service_name``, ``prefix``,
@@ -25,7 +33,13 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   a continuous-batching decode engine when ``AI4E_RUNTIME_DECODE_ENABLE``
   is on (``AI4E_RUNTIME_KV_SLOTS``, ``_KV_MAX_LEN``,
   ``_DECODE_PROMPT_BUCKETS``, ``_DECODE_MAX_PENDING``), and skipped with a
-  warning when it is off.
+  warning when it is off. ``AI4E_ROLLOUT_GENERATION`` (0: keep the
+  default) sets every model's rollout generation, and
+  ``AI4E_SERVICE_REPORTER_URI`` (with ``_CLUSTER``) reports each request
+  to a request reporter.
+- ``reporter [--port P]`` — the cross-replica in-flight request counter
+  (``metrics/reporter.py``; port 8085 by default). It imports neither
+  torch nor JAX.
 - ``redrive --store CONTROL_PLANE [--task-id ID | --contains TEXT]
   [--api-key KEY]`` — republish failed tasks with their original bodies
   (``POST /v1/taskstore/redrive``): one task, or every failed task whose
@@ -82,14 +96,6 @@ from .taskstore.task import TaskStatus
 
 log = logging.getLogger("ai4e_tpu_torch.cli")
 
-_UNPORTED_ROUTE_KEYS = {
-    "backends": "weighted canary backends (ROADMAP A18.8)",
-}
-_UNPORTED_ROUTES_SPEC_KEYS = {
-    "definitions": "typed API definitions (ROADMAP A18.8)",
-}
-
-
 def load_spec(path: str) -> dict:
     with open(path, encoding="utf-8") as f:
         return json.load(f)
@@ -123,9 +129,6 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
     from .scaling import AutoscalePolicy
     from .taskstore.http import make_app as make_taskstore_app
 
-    for key, what in _UNPORTED_ROUTES_SPEC_KEYS.items():
-        if routes.get(key):
-            raise ValueError(f"routes key {key!r} ({what}) is not ported yet")
     keys = gateway_api_keys(config)
     platform = LocalPlatform(config.to_platform_config())
     if keys is not None:
@@ -159,26 +162,32 @@ def build_control_plane(config: FrameworkConfig, routes: dict):
                        max_body_bytes=config.gateway.max_body_bytes,
                        max_result_bytes=config.gateway.max_result_bytes,
                        lifecycle=platform)
+    if routes.get("definitions"):
+        # Typed API definitions publish through the registration
+        # customizer; both spec styles may share one routes.json.
+        from .gateway.registration import (ApiDefinition,
+                                           register_definitions)
+        register_definitions(platform, [ApiDefinition.from_dict(r)
+                                        for r in routes["definitions"]])
     for api in routes.get("apis", []):
-        for key, what in _UNPORTED_ROUTE_KEYS.items():
-            if key in api:
-                raise ValueError(f"route key {key!r} ({what}) is not ported "
-                                 "yet")
         mode = api.get("mode", "async")
         autoscale = api.get("autoscale")
         autoscale = AutoscalePolicy(**autoscale) if autoscale else None
+        # A presence check, not truthiness: an empty "backends" must reach
+        # normalize_backends' error, not fall back to "backend".
+        backend = api["backends"] if "backends" in api else api["backend"]
         if mode == "sync":
-            platform.publish_sync_api(api["prefix"], api["backend"],
+            platform.publish_sync_api(api["prefix"], backend,
                                       max_body_bytes=api.get("max_body_bytes"))
         elif mode != "async":
             raise ValueError(f"route mode {mode!r}: expected async or sync")
         elif api.get("internal"):
             platform.register_internal_route(
-                api["backend"], retry_delay=api.get("retry_delay"),
+                backend, retry_delay=api.get("retry_delay"),
                 concurrency=api.get("concurrency"), autoscale=autoscale)
         else:
             platform.publish_async_api(
-                api["prefix"], api["backend"],
+                api["prefix"], backend,
                 retry_delay=api.get("retry_delay"),
                 concurrency=api.get("concurrency"), autoscale=autoscale,
                 max_body_bytes=api.get("max_body_bytes"))
@@ -217,6 +226,7 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     stats = getattr(platform.store, "journal_stats", None)
     journal = stats() if stats is not None else {}
     posture = "".join([
+        f", transport {platform.config.transport}",
         ", admission control ON" if platform.admission is not None else "",
         ", observability ON" if platform.observability is not None else "",
         (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
@@ -405,6 +415,12 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                          _declarative_handoff(pipeline_spec), batch))
 
     task_manager, store = _stores(models, config)
+    reporter = None
+    if config.service.reporter_uri:
+        # The cross-replica in-flight counter; fire-and-forget deltas.
+        from .metrics import ProcessingReporterClient
+        reporter = ProcessingReporterClient(config.service.reporter_uri,
+                                            cluster=config.service.cluster)
     metrics = MetricsRegistry()
     ladders = None
     if rt.ladder_derive:
@@ -438,8 +454,12 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                              hop_ledger=config.observability.hop_ledger,
                              drain_timeout_s=(config.rollout.drain_timeout_ms
                                               / 1000.0),
-                             admin_api_keys=admin_keys)
+                             admin_api_keys=admin_keys, reporter=reporter)
     for servable, sync_path, async_path, cap, handoff, batch in to_serve:
+        if config.rollout.generation:
+            # The deploy generation this process serves; 0 keeps the
+            # registry's default.
+            servable.generation = config.rollout.generation
         worker.serve_model(servable, sync_path=sync_path,
                            async_path=async_path,
                            maximum_concurrent_requests=cap,
@@ -543,7 +563,8 @@ async def serve(worker, batcher, host: str, port: int,
         await batcher.stop()
         for engine in worker.decode_engines:
             await engine.stop()
-        for client in (worker.service.task_manager, worker.store):
+        for client in (worker.service.reporter, worker.service.task_manager,
+                       worker.store):
             # The HTTP clients close a session; a standalone worker's own
             # store closes synchronously.
             close = getattr(client, "close", None)
@@ -566,6 +587,23 @@ async def run_worker(config: FrameworkConfig, models: dict,
     await serve(worker, batcher, config.service.host, config.service.port,
                 stop, drain_timeout=config.service.drain_timeout,
                 config=config)
+
+
+async def run_reporter(config: FrameworkConfig, port: int | None) -> None:
+    """The ``reporter`` verb: a standalone request reporter."""
+    from aiohttp import web
+
+    from .metrics import RequestReporterService
+
+    svc = RequestReporterService()
+    runner = web.AppRunner(svc.app)
+    await runner.setup()
+    await web.TCPSite(runner, config.service.host, port or 8085).start()
+    log.info("request reporter on %s:%s", config.service.host, port or 8085)
+    try:
+        await _wait_for_termination()
+    finally:
+        await runner.cleanup()
 
 
 def run_redrive(args) -> None:
@@ -683,6 +721,9 @@ def main(argv=None) -> None:
     wk.add_argument("--port", type=int, default=None)
     wk.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu")
+    rp = sub.add_parser("reporter",
+                        help="cross-replica in-flight request reporter")
+    rp.add_argument("--port", type=int, default=None)
     rd = sub.add_parser(
         "redrive",
         help="republish dead-lettered (or otherwise failed) tasks with "
@@ -743,6 +784,8 @@ def main(argv=None) -> None:
             config.service.port = args.port
         asyncio.run(run_worker(config, load_spec(args.models),
                                device=args.device))
+    elif args.component == "reporter":
+        asyncio.run(run_reporter(config, args.port))
 
 
 if __name__ == "__main__":

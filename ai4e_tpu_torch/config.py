@@ -32,21 +32,18 @@ _FALSE = frozenset({"0", "false", "no", "off", ""})
 OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
                             "AI4E_TASKSTORE_", "AI4E_RIG_")
 
-_PUSH = "the push transport (ROADMAP A18.3)"
 _RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
 _TENANCY = "tenancy (ROADMAP A18.10)"
 _SLO_LADDER = ("the SLO burn feed to the degradation ladder, which needs "
                "orchestration (ROADMAP A18.9)")
 _PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
-_REPORTER = "the request reporter (ROADMAP A18.14)"
-_WORKER = "the worker's rollout generations (ROADMAP A6.3)"
+_ROLLOUT = ("the rollout controller, which runs under the rig and "
+            "BackendHealth (ROADMAP A18.9, A19)")
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
 _MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
 UNPORTED: dict[tuple[str, str], str] = {
-    **{("AI4E_PLATFORM_", f): _PUSH for f in (
-        "transport", "push_ttl_seconds", "push_max_attempts", "push_window")},
     **{("AI4E_PLATFORM_", f): _RESILIENCE for f in (
         "resilience", "resilience_failure_threshold", "resilience_window",
         "resilience_error_rate", "resilience_recovery_seconds",
@@ -60,8 +57,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     **{("AI4E_PLATFORM_", f): _PIPELINE for f in (
         "pipeline", "pipeline_event_replay", "pipeline_stream_max_s",
         "pipeline_chunk_replay")},
-    ("AI4E_SERVICE_", "reporter_uri"): _REPORTER,
-    ("AI4E_SERVICE_", "cluster"): _REPORTER,
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
@@ -71,9 +66,9 @@ UNPORTED: dict[tuple[str, str], str] = {
     **{("AI4E_TENANCY_", f): _TENANCY for f in (
         "enabled", "tenants", "default_weight", "default_rps",
         "default_burst", "label_top_n", "goodput_target", "min_quantum")},
-    **{("AI4E_ROLLOUT_", f): _WORKER for f in (
+    **{("AI4E_ROLLOUT_", f): _ROLLOUT for f in (
         "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
-        "burn_slow_max", "generation")},
+        "burn_slow_max")},
     ("AI4E_ROLLOUT_", "drain_eject_ttl_s"): _RESILIENCE,
 }
 

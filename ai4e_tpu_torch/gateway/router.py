@@ -60,10 +60,17 @@ with ``X-Not-Primary`` and a Retry-After (the drain rate's with
 admission, else 2 s): task creation belongs to the primary; a
 journal-degraded store answers 503 with ``X-Shed-Reason:
 journal-degraded``. A cache hit on either falls through to that answer.
-Not ported (ROADMAP A18): tenancy (the middleware's tenant
-branch, A18.10), orchestration's brownout and resilient proxying, event
-streams and weighted backends (so every route is cacheable; JAX's canary
-routes are not).
+
+A route may name a weighted backend set (``utils/backends.py``, a canary
+split): the sync proxy picks a backend for each request, and an async
+route records the set's first backend as the task's endpoint (the
+dispatcher picks for each delivery). Such a route is never cacheable: the
+cache key hashes the shared endpoint path, not the chosen backend, so one
+backend's answer would be replayed to all of the split's traffic.
+
+Not ported (ROADMAP A18): tenancy (the middleware's tenant branch,
+A18.10), orchestration's brownout and resilient proxying (A18.9) and event
+streams (A18.12).
 """
 
 from __future__ import annotations
@@ -88,19 +95,26 @@ from ..taskstore import (APITask, InMemoryTaskStore, JournalDegradedError,
                          NotPrimaryError, TaskNotFound, TaskStatus,
                          endpoint_path)
 from ..taskstore.feed import ShardChangeFeed
+from ..utils.backends import normalize_backends, pick_backend
 from ..utils.http import SessionHolder, read_body_limited
 
 
 @dataclass
 class Route:
     """One published API: ``prefix`` is the public path; async routes
-    create tasks addressed to ``backend_uri``, sync routes proxy to it."""
+    create tasks addressed to ``backend_uri``, sync routes proxy to a
+    backend of ``backends``."""
 
     prefix: str
     mode: str  # "sync" | "async"
     backend_uri: str = ""
+    # The sync route's weighted backend set; [(backend_uri, 1.0)] for one.
+    backends: list = None
     # None = the gateway's cap at request time; 0 = explicitly unlimited.
     max_body_bytes: int | None = None
+    # Whether the result cache may serve and fill this route: False on a
+    # weighted set, whose backends may serve different model versions.
+    cacheable: bool = True
 
 
 class Gateway:
@@ -252,13 +266,17 @@ class Gateway:
         and every Retry-After computed from the observed drain rate."""
         self._admission = controller
 
-    def add_async_route(self, prefix: str, task_endpoint: str,
+    def add_async_route(self, prefix: str, task_endpoint,
                         max_body_bytes: int | None = None) -> None:
         """Register an async API: requests become tasks addressed to
-        ``task_endpoint``, the backend route the dispatcher POSTs to."""
+        ``task_endpoint``, the backend route the dispatcher POSTs to (a URI,
+        or a weighted set whose first backend is the recorded endpoint).
+        The route is cacheable only with one backend."""
+        backends = normalize_backends(task_endpoint)
         route = Route(prefix=prefix.rstrip("/"), mode="async",
-                      backend_uri=task_endpoint,
-                      max_body_bytes=max_body_bytes)
+                      backend_uri=backends[0][0],
+                      max_body_bytes=max_body_bytes,
+                      cacheable=len(backends) == 1)
         self.routes.append(route)
         if self._observability is not None:
             self._observability.map_route(endpoint_path(route.backend_uri),
@@ -267,11 +285,17 @@ class Gateway:
         self.app.router.add_post(route.prefix, handler)
         self.app.router.add_post(route.prefix + "/{tail:.*}", handler)
 
-    def add_sync_route(self, prefix: str, backend_uri: str,
+    def add_sync_route(self, prefix: str, backend_uri,
                        max_body_bytes: int | None = None) -> None:
+        """Register a sync API proxied to ``backend_uri`` (a URI, or a
+        weighted set picked from for each request); cacheable only with
+        one backend."""
+        backends = [(u.rstrip("/"), w)
+                    for u, w in normalize_backends(backend_uri)]
         route = Route(prefix=prefix.rstrip("/"), mode="sync",
-                      backend_uri=backend_uri.rstrip("/"),
-                      max_body_bytes=max_body_bytes)
+                      backend_uri=backends[0][0], backends=backends,
+                      max_body_bytes=max_body_bytes,
+                      cacheable=len(backends) == 1)
         self.routes.append(route)
         handler = self._make_sync_handler(route)
         for pattern in (route.prefix, route.prefix + "/{tail:.*}"):
@@ -322,7 +346,7 @@ class Gateway:
             # Result cache: a hit is served by a terminal task; an identical
             # request in flight gets the leader's record; a miss stamps the
             # key on the task, whose completion fills the cache.
-            cache = self._result_cache
+            cache = self._result_cache if route.cacheable else None
             cache_key = ""
             xcache = None
             if cache is not None:
@@ -547,7 +571,7 @@ class Gateway:
                 sync_scope = adm.scope(adm.SYNC_SCOPE)
             # Result cache on POSTs: a hit answers here; an identical
             # request already proxying makes this one its waiter.
-            cache = self._result_cache
+            cache = self._result_cache if route.cacheable else None
             key = None
             fut = None  # set when THIS request is the single-flight leader
             gen = 0  # the family's generation captured at leadership
@@ -605,7 +629,10 @@ class Gateway:
                        if k.lower() not in dropped}
             if sync_scope is not None:
                 headers.update(propagation_headers(deadline_at, priority))
-            target = route.backend_uri + (("/" + tail) if tail else "")
+            # A weighted pick for each request; one backend makes no RNG
+            # call.
+            target = (pick_backend(route.backends)
+                      + (("/" + tail) if tail else ""))
             if request.query_string:
                 target += "?" + request.query_string
             # Sync POSTs (inference requests, not health probes) feed the

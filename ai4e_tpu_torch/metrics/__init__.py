@@ -1,5 +1,8 @@
 from .registry import (DEFAULT_REGISTRY, Counter, Gauge, Histogram,
                        MetricsRegistry)
+from .reporter import (ProcessingCounters, ProcessingReporterClient,
+                       RequestReporterService)
 
 __all__ = ["DEFAULT_REGISTRY", "Counter", "Gauge", "Histogram",
-           "MetricsRegistry"]
+           "MetricsRegistry", "ProcessingCounters",
+           "ProcessingReporterClient", "RequestReporterService"]

@@ -3,7 +3,11 @@ event loop; ``PlatformConfig`` and ``LocalPlatform`` of
 ``ai4e_tpu/platform_assembly.py``, with the in-memory store (with
 ``result_dir``, large results offloaded to files) or the native C++ store
 (``native_store``), the in-memory broker (transport ``"queue"``) or the
-native one (``native_broker``), the reaper's terminal retention and, with
+native one (``native_broker``) or the push transport (transport
+``"push"``, ``broker/push.py``: a ``PushTopic`` delivering to a
+``WebhookDispatcher`` served on a port of its own, subscribed through the
+validation handshake at start, where a failed handshake raises
+``SubscriptionError``), the reaper's terminal retention and, with
 ``reaper_running_timeout``, its stuck-task rescue, the
 autoscaler on a route's one dispatcher (``scaling.AutoscaleController``),
 the queue-depth gauges (``observability.DepthLogger``, always on, as in
@@ -33,7 +37,9 @@ probes ``failover_interval`` apart, once it has synced. Promoted
 (``_on_promoted``), it starts the transport, publishes every unfinished
 task and runs a ``FencingProber`` against the old primary. A demoted
 primary (``demote_now``, ``POST /v1/taskstore/demote``) stops its
-transport and, given the new primary's URL, rejoins it as a standby.
+transport (on push it closes topic and webhook, cancelling the deliveries
+in flight, and a later promotion builds them anew) and, given the new
+primary's URL, rejoins it as a standby.
 ``advertise_url`` marks an HA pair: only then may an ``X-Store-Epoch``
 header demote a primary, and the prober offers it for the rejoin.
 
@@ -69,6 +75,7 @@ import logging
 from dataclasses import dataclass
 
 from .broker import DispatcherPool, InMemoryBroker
+from .broker.push import PushTopic, WebhookDispatcher
 from .broker.queue import shard_queue_name
 from .gateway import Gateway
 from .metrics import DEFAULT_REGISTRY, MetricsRegistry
@@ -78,6 +85,7 @@ from .observability import (DepthLogger, FlightRecorder,
 from .service import LocalTaskManager
 from .taskstore import InMemoryTaskStore, TaskStatus, endpoint_path
 from .taskstore.reaper import TaskReaper
+from .utils.backends import normalize_backends
 
 log = logging.getLogger("ai4e_tpu_torch.platform")
 
@@ -88,12 +96,17 @@ DEFAULT_TERMINAL_RETENTION_S = 900.0
 
 @dataclass
 class PlatformConfig:
+    transport: str = "queue"        # "queue" | "push"
     retry_delay: float = 60.0       # dispatcher backoff on 429/503
     max_delivery_count: int = 1440  # broker patience
     dispatcher_concurrency: int = 1
     lease_seconds: float = 300.0
     native_broker: bool = False     # C++ broker core (native/broker_core.cpp)
     native_store: bool = False      # C++ task-store core (native/taskstore_core.cpp)
+    # The push transport's delivery policy (an Event Grid subscription's).
+    push_ttl_seconds: float = 300.0
+    push_max_attempts: int = 3
+    push_window: int = 256          # concurrent in-flight deliveries
     # Seconds a task may sit in running before the reaper republishes it;
     # None: no rescue.
     reaper_running_timeout: float | None = None
@@ -236,30 +249,22 @@ class LocalPlatform:
             # Terminal transitions feed the drain rate (every shed's
             # Retry-After) and score goodput.
             self.admission.attach_store(self.store)
-        if self.config.native_broker:
-            from .broker.native import NativeBroker
-
-            self.broker = NativeBroker(
-                max_delivery_count=self.config.max_delivery_count,
-                lease_seconds=self.config.lease_seconds)
+        self.broker = None
+        self.dispatchers = None
+        self.topic = None
+        self.webhook = None
+        self._webhook_runner = None
+        if self.config.transport == "push":
+            # The routes are kept, so a demoted-then-promoted node can build
+            # the push transport anew (demote_now closes it).
+            self._push_routes: list[tuple[str, list]] = []
+            self._build_push()
+        elif self.config.transport == "queue":
+            self._build_queue()
         else:
-            self.broker = InMemoryBroker(
-                max_delivery_count=self.config.max_delivery_count,
-                lease_seconds=self.config.lease_seconds,
-                metrics=self.metrics,
-                # A sharded store: per-shard sub-queues, each drained by
-                # its own dispatchers.
-                shard_router=(self.store.shard_for
-                              if self.config.task_shards > 1 else None))
-        self.store.set_publisher(self.broker.publish)
-        self.dispatchers = DispatcherPool(
-            self.broker, self.task_manager,
-            retry_delay=self.config.retry_delay,
-            concurrency=self.config.dispatcher_concurrency,
-            observability=self.observability, admission=self.admission,
-            metrics=self.metrics, result_cache=self.result_cache,
-            result_store=(self.store if self.result_cache is not None
-                          else None))
+            raise ValueError(
+                f"unknown transport {self.config.transport!r}; "
+                "expected 'queue' or 'push'")
         self.gateway = Gateway(self.store, metrics=self.metrics)
         if self.result_cache is not None:
             self.gateway.set_result_cache(self.result_cache)
@@ -299,6 +304,58 @@ class LocalPlatform:
         # Strong refs to fire-and-forget terminal transitions: the event
         # loop holds tasks weakly.
         self._bg_tasks: set[asyncio.Task] = set()
+
+    def _build_queue(self) -> None:
+        """The queue transport: the broker (native or in-memory, by shard
+        sub-queue on a sharded store) as the store's publisher, and the
+        dispatcher pool that drains it."""
+        if self.config.native_broker:
+            from .broker.native import NativeBroker
+
+            self.broker = NativeBroker(
+                max_delivery_count=self.config.max_delivery_count,
+                lease_seconds=self.config.lease_seconds)
+        else:
+            self.broker = InMemoryBroker(
+                max_delivery_count=self.config.max_delivery_count,
+                lease_seconds=self.config.lease_seconds,
+                metrics=self.metrics,
+                # A sharded store: per-shard sub-queues, each drained by
+                # its own dispatchers.
+                shard_router=(self.store.shard_for
+                              if self.config.task_shards > 1 else None))
+        self.store.set_publisher(self.broker.publish)
+        self.dispatchers = DispatcherPool(
+            self.broker, self.task_manager,
+            retry_delay=self.config.retry_delay,
+            concurrency=self.config.dispatcher_concurrency,
+            observability=self.observability, admission=self.admission,
+            metrics=self.metrics, result_cache=self.result_cache,
+            result_store=(self.store if self.result_cache is not None
+                          else None))
+
+    def _build_push(self) -> None:
+        """(Re)build the push transport: topic, webhook and the recorded
+        routes, with the topic as the store's publisher (the sharded
+        facade's too). Called at assembly and again after a demotion closed
+        the previous topic, since ``PushTopic.aclose`` is terminal."""
+        self.topic = PushTopic(
+            ttl_seconds=self.config.push_ttl_seconds,
+            max_attempts=self.config.push_max_attempts,
+            retry_delay=self.config.retry_delay,
+            window=self.config.push_window,
+            metrics=self.metrics)
+        self.webhook = WebhookDispatcher(self.task_manager,
+                                         metrics=self.metrics)
+        for queue_name, backends in self._push_routes:
+            self.webhook.add_route(queue_name, backends)
+        self.store.set_publisher(self.topic.publish)
+
+    @property
+    def _publish(self):
+        """The transport's publish hook: the topic's or the broker's."""
+        return (self.topic.publish if self.config.transport == "push"
+                else self.broker.publish)
 
     def _build_store(self):
         """The sharded facade (``task_shards`` > 1), the Python store
@@ -379,31 +436,47 @@ class LocalPlatform:
                         self.config.result_offload_threshold
                         if backend else None))
 
-    def publish_async_api(self, public_prefix: str, backend_uri: str,
+    def publish_async_api(self, public_prefix: str, backend_uri,
                           retry_delay: float | None = None,
                           concurrency: int | None = None,
                           autoscale=None,
                           autoscale_interval: float = 5.0,
                           max_body_bytes: int | None = None) -> None:
-        """Register an async API end to end: gateway route + a dispatcher
-        for its queue. An ``AutoscalePolicy`` as ``autoscale`` attaches the
-        HPA-style control loop to the dispatcher's delivery fan-out."""
-        self.gateway.add_async_route(public_prefix, backend_uri,
+        """Register an async API end to end: gateway route + a transport
+        consumer for its queue. An ``AutoscalePolicy`` as ``autoscale``
+        attaches the HPA-style control loop to the dispatcher's delivery
+        fan-out. ``backend_uri`` may be a weighted backend list (a canary):
+        the recorded task endpoint is its first backend's, deliveries split
+        by the weights, and the route is not cacheable."""
+        backends = normalize_backends(backend_uri)
+        self.gateway.add_async_route(public_prefix, backends,
                                      max_body_bytes=max_body_bytes)
-        self.register_internal_route(backend_uri, retry_delay=retry_delay,
+        self.register_internal_route(backends, retry_delay=retry_delay,
                                      concurrency=concurrency,
                                      autoscale=autoscale,
                                      autoscale_interval=autoscale_interval)
 
-    def register_internal_route(self, backend_uri: str,
+    def register_internal_route(self, backend_uri,
                                 retry_delay: float | None = None,
                                 concurrency: int | None = None,
                                 autoscale=None,
                                 autoscale_interval: float = 5.0) -> None:
         """A transport consumer for a backend without a public route,
-        reached only by republished tasks; on a sharded store, one
+        reached only by republished tasks (a weighted list is a canary); on
+        the push transport a webhook route, on a sharded store one
         dispatcher for each shard's sub-queue."""
-        queue_name = endpoint_path(backend_uri)
+        backend_uri = normalize_backends(backend_uri)
+        queue_name = endpoint_path(backend_uri[0][0])
+        if self.config.transport == "push":
+            if (autoscale is not None or retry_delay is not None
+                    or concurrency is not None):
+                raise ValueError(
+                    "autoscale/retry_delay/concurrency are queue-transport "
+                    "knobs; push retry policy is topic-wide "
+                    "(PlatformConfig.retry_delay/push_max_attempts)")
+            self._push_routes.append((queue_name, backend_uri))
+            self.webhook.add_route(queue_name, backend_uri)
+            return
         self.broker.register_queue(queue_name)
         if self.config.task_shards > 1:
             if autoscale is not None:
@@ -446,7 +519,7 @@ class LocalPlatform:
             self.store, queue_name, DispatcherScaleTarget(dispatcher),
             policy=policy, interval=interval, metrics=self.metrics))
 
-    def publish_sync_api(self, public_prefix: str, backend_uri: str,
+    def publish_sync_api(self, public_prefix: str, backend_uri,
                          max_body_bytes: int | None = None) -> None:
         self.gateway.add_sync_route(public_prefix, backend_uri,
                                     max_body_bytes=max_body_bytes)
@@ -489,17 +562,50 @@ class LocalPlatform:
     async def _start_transport(self) -> None:
         loop = asyncio.get_running_loop()
         self._transport_running = True
+        if self.config.transport == "push":
+            if self.topic is None:
+                # A demotion closed the previous topic and webhook; a
+                # promotion builds them anew.
+                self._build_push()
+            await self._start_push(loop)
+            return
         self.broker.bind_loop(loop)
 
         def on_dead_letter(msg) -> None:
             # Fail the task so it never sits non-terminal once its message
             # is gone.
-            task = loop.create_task(self._fail_dead_letter(msg.task_id))
-            self._bg_tasks.add(task)
-            task.add_done_callback(self._bg_tasks.discard)
+            self._spawn_bg(loop, self._fail_dead_letter(msg.task_id))
 
         self.broker.set_dead_letter_handler(on_dead_letter)
         await self.dispatchers.start()
+
+    async def _start_push(self, loop: asyncio.AbstractEventLoop) -> None:
+        """Serve the webhook on a port of its own (the topic -> webhook leg
+        is a real HTTP hop), then subscribe the topic to it through the
+        validation handshake."""
+        from aiohttp import web
+
+        self.topic.bind_loop(loop)
+
+        def on_dead_letter(event) -> None:
+            self._spawn_bg(loop, self._fail_dead_letter(event.id))
+
+        self.topic.set_dead_letter_handler(on_dead_letter)
+        runner = web.AppRunner(self.webhook.app)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        self._webhook_runner = runner
+        port = runner.addresses[0][1]
+        await self.topic.subscribe(
+            "backend-webhook", f"http://127.0.0.1:{port}/api/events")
+
+    def _spawn_bg(self, loop: asyncio.AbstractEventLoop, coro) -> None:
+        """Background work held by a strong reference until done: the loop
+        holds tasks weakly, and a collected one would drop its terminal
+        transition."""
+        task = loop.create_task(coro)
+        self._bg_tasks.add(task)
+        task.add_done_callback(self._bg_tasks.discard)
 
     async def _start_primary_loops(self) -> None:
         """The loops only a primary runs beside its transport."""
@@ -518,9 +624,10 @@ class LocalPlatform:
         if not restored:
             return
         reseeded = 0
+        publish = self._publish
         for task in self.store.unfinished_tasks():
             if task.task_id in restored:
-                self.broker.publish(task)
+                publish(task)
                 reseeded += 1
         log.info("journal replayed %d tasks; re-seeded %d unfinished",
                  len(restored), reseeded)
@@ -539,8 +646,9 @@ class LocalPlatform:
             self.replicator = None
         await self._start_transport()
         await self._start_primary_loops()
+        publish = self._publish
         for task in self.store.unfinished_tasks():
-            self.broker.publish(task)
+            publish(task)
         if self.config.replicate_from:
             from .taskstore.replication import FencingProber
 
@@ -590,7 +698,19 @@ class LocalPlatform:
                 await self.reaper.stop()
             if self.slo is not None:
                 await self.slo.stop()
-            await self.dispatchers.stop()
+            if self.dispatchers is not None:
+                await self.dispatchers.stop()
+            if self.topic is not None:
+                # In-flight deliveries are cancelled: their tasks' writes
+                # would meet the store's fence, and the new primary's
+                # re-seed owns redelivery. aclose is terminal, so topic and
+                # webhook go: a promotion builds them anew
+                # (_start_transport -> _build_push).
+                await self.topic.aclose()
+                self.topic = None
+                self.webhook = None
+                self.store.set_publisher(None)
+                await self._close_webhook()
         if primary_url and self.replicator is None:
             self.config.replicate_from = primary_url
             self._start_standby(primary_url)
@@ -622,10 +742,21 @@ class LocalPlatform:
             if self.slo is not None:
                 await self.slo.stop()
             await self.depth_logger.stop()
-            await self.dispatchers.stop()
+            if self.dispatchers is not None:
+                await self.dispatchers.stop()
             if hasattr(self.store, "stop_replication"):
                 await self.store.stop_replication()
             self._transport_running = False
             self._started = False
+        # Push cleanup runs also when start() failed mid-way (a handshake
+        # error after the webhook's site was bound).
+        if self.topic is not None:
+            await self.topic.aclose()
+        await self._close_webhook()
         if hasattr(self.broker, "close"):
             self.broker.close()
+
+    async def _close_webhook(self) -> None:
+        if self._webhook_runner is not None:
+            await self._webhook_runner.cleanup()
+            self._webhook_runner = None

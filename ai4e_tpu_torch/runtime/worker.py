@@ -50,6 +50,15 @@ batch-API stack shares one ledger across its items, which the batcher
 stamps once a batch (JAX's batch API stamps nothing). A flush that fails
 is dropped: a timeline is lost, never a task.
 
+Each model's ``generation`` (``AI4E_ROLLOUT_GENERATION`` at start, or a
+reload's ``generation``) labels its inference outcomes,
+``ai4e_rollout_outcomes_total{generation,outcome}`` with ``ok``,
+``error``, ``expired``, ``saturated`` and ``draining``, and its latency,
+``ai4e_rollout_request_seconds{generation}``, on the sync and async
+paths where JAX's worker counts them; the label folds into ``other``
+after ``rollout.canary.GENERATION_LABEL_CAP`` values. With a ``reporter``
+each request reports to the cross-replica request reporter.
+
 Deadlines (admission, as in JAX): a request's ``X-Deadline-At`` (stamped
 by the dispatcher or the sync proxy) or ``X-Deadline-Ms`` (a direct
 caller) and ``X-Priority`` ride into the batcher or the decode engine. The
@@ -92,6 +101,7 @@ from ..admission.deadline import (SHED_REASON_HEADER, DeadlineExceeded,
 from ..checkpoint import CONVERTER_HINT, is_npz, load_params
 from ..metrics import MetricsRegistry
 from ..observability.ledger import CHUNK, RETRY, HopLedger
+from ..rollout.canary import generation_label
 from ..rollout.drain import DRAINING_HEADER, DrainingError, DrainState, \
     drain_worker
 from ..service import APIService
@@ -127,7 +137,7 @@ class InferenceWorker:
                  checkpoint_root: str | None = None,
                  hop_ledger: bool = False,
                  drain_timeout_s: float = 30.0,
-                 result_cache=None, admin_api_keys=None):
+                 result_cache=None, admin_api_keys=None, reporter=None):
         self.runtime = runtime
         self.batcher = batcher
         self.store = store
@@ -144,7 +154,8 @@ class InferenceWorker:
                                  if checkpoint_root else None)
         self.service = APIService(name, prefix=prefix,
                                   task_manager=task_manager, metrics=metrics,
-                                  executor_workers=executor_workers)
+                                  executor_workers=executor_workers,
+                                  reporter=reporter)
         self._served: dict[str, dict] = {}  # model -> endpoint listing
         # The decode engines ``serve_stream`` serves: the reload verb finds
         # LMs here (they never enter runtime.models), the drain and resume
@@ -156,6 +167,14 @@ class InferenceWorker:
         # One drain state for the batcher, the reload verb and admission.
         self.drain_state = DrainState()
         self._drain_timeout_s = drain_timeout_s
+        # Outcomes and latency by rollout generation: a canary's series
+        # beside the incumbent's.
+        self._rollout_outcomes = self.service.metrics.counter(
+            "ai4e_rollout_outcomes_total",
+            "Worker inference outcomes by rollout generation")
+        self._rollout_latency = self.service.metrics.histogram(
+            "ai4e_rollout_request_seconds",
+            "Worker inference latency by rollout generation")
         self._drain_gauge = self.service.metrics.gauge(
             "ai4e_rollout_drain_state",
             "Worker drain state (0 active, 1 draining, 2 drained)")
@@ -397,25 +416,40 @@ class InferenceWorker:
                     headers={SHED_REASON_HEADER:
                              shed_reason("worker", "deadline")})
             example = _servable.preprocess(body, content_type)
+            gen_label = generation_label(_servable.generation)
+            t0 = time.perf_counter()
             try:
                 result = await self.batcher.submit(
                     _name, np.asarray(example), priority=priority,
                     deadline_at=deadline_at)
             except BatcherSaturated:
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="saturated")
                 return web.Response(status=503,
                                     text="Inference queue saturated; retry.",
                                     headers={"Retry-After": "1"})
             except DrainingError:
                 # Raced the drain between admission and submit, or retired
                 # by it before the cut: retryable at a peer.
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="draining")
                 return web.Response(
                     status=503, text="Worker draining; retry a peer.",
                     headers={"Retry-After": "1", DRAINING_HEADER: "1"})
             except DeadlineExceeded as exc:
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="expired")
                 return web.Response(
                     status=504, text="Deadline exceeded while queued.",
                     headers={SHED_REASON_HEADER:
                              shed_reason(exc.hop, "deadline")})
+            except Exception:
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="error")
+                raise
+            self._rollout_outcomes.inc(generation=gen_label, outcome="ok")
+            self._rollout_latency.observe(time.perf_counter() - t0,
+                                          generation=gen_label)
             return _jsonable(result)
 
         @self.service.api_async_func(
@@ -439,6 +473,8 @@ class InferenceWorker:
             except Exception as exc:  # noqa: BLE001; ai4e: noqa[AIL005] — the error is recorded on the task record (failed - bad input)
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
+            gen_label = generation_label(_servable.generation)
+            t0 = time.perf_counter()
             try:
                 result = await self.batcher.submit(
                     _name, np.asarray(example), priority=priority,
@@ -446,6 +482,8 @@ class InferenceWorker:
             except DeadlineExceeded as exc:
                 # Expired while queued (the batcher counted it): the
                 # terminal transition only.
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="expired")
                 await self._flush_ledger(tm, taskId, buf)
                 await tm.update_task_status(
                     taskId, expired_status(exc.hop), TaskStatus.EXPIRED)
@@ -456,6 +494,8 @@ class InferenceWorker:
                 # replays the original one) instead of failing it. With no
                 # broker behind the store the exception propagates and the
                 # service shell fails the task.
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="saturated")
                 if not tm.redelivers:
                     raise
                 await _hand_back(tm, taskId, async_path)
@@ -463,6 +503,8 @@ class InferenceWorker:
             except DrainingError:
                 # Retired by a drain before the cut: the same hand-back,
                 # with the retry stamped and flushed while the task is live.
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="draining")
                 if buf is not None:
                     buf.stamp(RETRY, "worker", reason="draining")
                 await self._flush_ledger(tm, taskId, buf)
@@ -474,8 +516,13 @@ class InferenceWorker:
                 # The shell fails the task after this re-raise: flush first,
                 # while the task is live, so a failed request keeps its
                 # worker-side timeline.
+                self._rollout_outcomes.inc(generation=gen_label,
+                                           outcome="error")
                 await self._flush_ledger(tm, taskId, buf)
                 raise
+            self._rollout_outcomes.inc(generation=gen_label, outcome="ok")
+            self._rollout_latency.observe(time.perf_counter() - t0,
+                                          generation=gen_label)
             if pipeline_to is not None:
                 if handoff_wants_example:
                     # Handoffs consume the natural image; a wire-encoded

@@ -1,5 +1,5 @@
 """APIService — the in-container service shell, a copy of
-``ai4e_tpu/service/app.py`` without cross-replica reporting.
+``ai4e_tpu/service/app.py``.
 
 - ``api_sync_func`` / ``api_async_func`` register endpoints with
   per-endpoint concurrency caps and content-type and max-length limits; a
@@ -15,6 +15,9 @@
   already terminal;
 - ``GET {prefix}/`` is the health check, ``GET {prefix}/task/{id}`` the
   task status, ``GET /metrics`` the Prometheus exposition;
+- with a ``reporter`` (``metrics.ProcessingReporterClient``), each
+  admitted request reports +1 to the cross-replica request reporter and
+  -1 when it ends, fire-and-forget;
 - every sync request runs in a span parented by its inbound B3 headers,
   every async task's background execution in one keyed by its TaskId and
   parented by the headers of the request that delivered it (the
@@ -71,7 +74,7 @@ class APIService:
     def __init__(self, name: str, prefix: str = "",
                  task_manager: TaskManagerBase | None = None,
                  metrics: MetricsRegistry | None = None,
-                 executor_workers: int = 8):
+                 executor_workers: int = 8, reporter=None):
         self.name = name
         self.prefix = ("/" + prefix.strip("/")) if prefix.strip("/") else ""
         if task_manager is None:
@@ -81,6 +84,7 @@ class APIService:
         # Spans (named by endpoint path) land in this service's registry;
         # exporter and sampling follow configure_tracer live.
         self.tracer = Tracer(name, metrics=self.metrics)
+        self.reporter = reporter  # ProcessingReporterClient | None
         self.is_terminating = False
         self.endpoints: dict[str, EndpointSpec] = {}
         self.executor = ThreadPoolExecutor(max_workers=executor_workers,
@@ -158,10 +162,15 @@ class APIService:
     def _reserve(self, spec: EndpointSpec) -> None:
         spec.in_flight += 1
         self._inflight.inc(path=spec.api_path, service=self.name)
+        if self.reporter is not None:
+            # The cross-replica aggregated counter; fire-and-forget.
+            self.reporter.report(self.prefix + spec.api_path, increment=1)
 
     def _release(self, spec: EndpointSpec) -> None:
         spec.in_flight -= 1
         self._inflight.dec(path=spec.api_path, service=self.name)
+        if self.reporter is not None:
+            self.reporter.report(self.prefix + spec.api_path, decrement=1)
 
     def _make_handler(self, spec: EndpointSpec):
         async def handler(request: web.Request) -> web.Response:

@@ -1278,6 +1278,7 @@ async def drive_gateway(http, gateway: str, route: str, bodies: list[bytes],
             "task_ids": [task_id for _, _, task_id in runs],
             "metrics": (metrics_before, metrics_after),
             "async_requests_per_s": len(runs) / span,
+            "task_min_ms": latency_ms[0],
             "task_p50_ms": statistics.median(latency_ms),
             "task_p95_ms": float(np.percentile(latency_ms, 95)),
             "sync_p50_ms": statistics.median(sync_ms) if sync_ms else None}
@@ -5172,12 +5173,7 @@ async def drive_lm_gateway(gateway: str, worker: str, procs: dict,
 
 
 def dispatch_outcomes(metrics_text: str) -> dict:
-    out: dict = {}
-    for line in metrics_text.splitlines():
-        if line.startswith("ai4e_dispatch_total{"):
-            outcome = line.split('outcome="')[1].split('"')[0]
-            out[outcome] = out.get(outcome, 0) + float(line.rsplit(" ", 1)[1])
-    return out
+    return family_outcomes(metrics_text, "ai4e_dispatch_total")
 
 
 def phase_lm_control_plane(geo: dict, device: str = "cuda") -> dict:
@@ -8560,6 +8556,466 @@ def phase_17(handoff: dict, kernels: list[dict],
     return report
 
 
+# -- phase 18: the push transport, weighted canary backends, typed API
+# definitions, rollout generations and the request reporter ------------------
+
+PUSH_TURNS = ("queue", "push", "push", "queue")  # 18a, worker A alone
+N_CANARY_WAVES = 2           # 18b: waves of the 64 held-out tiles
+CANARY_WEIGHTS = (3, 1)      # 18b: A:B on the weighted async route
+N_CANARY_SYNC = 16           # 18b: on the 1:1 and the A:1, B:0 sync routes
+N_REPEATS = 3                # 18b: identical requests a route
+REPORTER_SETTLE_S = 10.0     # 18c: the reporter back at 0 within this
+REPORTER_CLUSTER = "h100"
+WK_ASYNC, WK_SYNC = "/v1/models/classify-async", "/v1/models/classify"
+CANARY_ASYNC, CANARY_SYNC = "/v1/canary/classify-async", "/v1/canary/classify"
+DRAINED_SYNC = "/v1/drained/classify"
+SINGLE_SYNC = "/v1/single/classify"  # registered through ``definitions``
+
+
+def family_outcomes(metrics_text: str, name: str) -> dict:
+    """``{outcome: count}`` of one counter family, summed over its other
+    labels."""
+    out: dict = {}
+    for line in metrics_text.splitlines():
+        if line.startswith(name + "{"):
+            outcome = line.split('outcome="')[1].split('"')[0]
+            out[outcome] = out.get(outcome, 0) + float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def push_routes(worker: str) -> dict:
+    """18a's routes.json: land cover's async and sync routes to worker A,
+    without ``autoscale`` or ``concurrency``, which push refuses with
+    JAX's text (the queue turns take the fan-out from the environment)."""
+    _, routes = cache_specs("", worker, ("landcover",))
+    for api in routes["apis"]:
+        api.pop("autoscale", None)
+        api.pop("concurrency", None)
+    return routes
+
+
+def canary_routes(a: str, b: str) -> dict:
+    """18b's routes.json: the weighted async route A:3 B:1, the sync routes
+    at 1:1 and at A:1 B:0, and a one-backend sync route to A registered
+    through ``definitions``."""
+    def pair(path: str, wa: float, wb: float) -> list:
+        return [{"uri": a + path, "weight": wa}, {"uri": b + path,
+                                                  "weight": wb}]
+    return {"apis": [
+        {"prefix": CANARY_ASYNC, "mode": "async",
+         "backends": pair(WK_ASYNC, *CANARY_WEIGHTS)},
+        {"prefix": CANARY_SYNC, "mode": "sync",
+         "backends": pair(WK_SYNC, 1, 1)},
+        {"prefix": DRAINED_SYNC, "mode": "sync",
+         "backends": pair(WK_SYNC, 1, 0)}],
+        "definitions": [{"organization": "single", "api": "classify",
+                         "backend_host": a, "backend_path": WK_SYNC,
+                         "mode": "sync"}]}
+
+
+async def push_turn_drive(gateway: str, worker: str, procs: dict, logs: dict,
+                          bodies: list[bytes]) -> dict:
+    """18a's client for one turn: the 64 tiles at once to the async route,
+    each long-polled, then the control plane's /metrics."""
+    import aiohttp
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"],
+                           logs["cp"])
+        await wait_healthy(http, worker + "/v1/models/", procs["wk"],
+                           logs["wk"])
+        out = await drive_gateway(http, gateway, LC_SYNC, bodies, 0, LC_DONE,
+                                  worker)
+        async with http.get(gateway + "/metrics") as r:
+            out["cp_metrics"] = await r.text()
+    return out
+
+
+def check_push_turn(handoff: dict, transport: str, run: dict, cp_log: str,
+                    want: np.ndarray) -> dict:
+    """18a's gates for one turn: every answer phase 10's, the startup line
+    naming the transport; on push every task delivered once and no dead
+    letter; on the queue no failed or dead-lettered delivery."""
+    pixels = lc_pixels(handoff)
+    for i, result in enumerate(run["results"]):
+        check_histogram(result, want[i], pixels)
+    posture = posture_line(cp_log)
+    if not posture.split("(", 1)[1].startswith(
+            f"2 routes, transport {transport}"):
+        raise AssertionError(f"18a: startup line {posture!r}")
+    cp = run["cp_metrics"]
+    before, after = (batch_sizes(t, "landcover") for t in run["metrics"])
+    out = {"transport": transport, "tasks": len(run["results"]),
+           "tasks_per_s": run["async_requests_per_s"],
+           "task_min_ms": run["task_min_ms"],
+           "task_p50_ms": run["task_p50_ms"],
+           "task_p95_ms": run["task_p95_ms"],
+           # The worker's batches in this turn, by size bucket.
+           "batches": {le: n - before.get(le, 0) for le, n in after.items()
+                       if n != before.get(le, 0)},
+           "startup": posture}
+    if transport == "push":
+        deliveries = family_outcomes(cp, "ai4e_push_deliveries_total")
+        forwards = family_outcomes(cp, "ai4e_webhook_forwards_total")
+        if (deliveries.get("delivered") != len(run["results"])
+                or deliveries.get("dead_letter")):
+            raise AssertionError(f"18a: push deliveries {deliveries}, "
+                                 f"webhook forwards {forwards}")
+        out.update(deliveries=deliveries, retries=deliveries.get("retry", 0),
+                   webhook_forwards=forwards,
+                   pending=metric_sum(cp, "ai4e_push_pending"))
+    else:
+        deliveries = dispatch_outcomes(cp)
+        if deliveries.get("failed") or deliveries.get("dead_letter"):
+            raise AssertionError(f"18a: queue deliveries {deliveries}")
+        out["deliveries"] = deliveries
+    return out
+
+
+def phase_push(handoff: dict, wk: dict, cp_port: int) -> dict:
+    """18a: land cover on worker A behind the port's control plane, a child
+    process, on the queue and the push transport in turns ``PUSH_TURNS``."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    routes = out_dir / "push_routes.json"
+    routes.write_text(json.dumps(push_routes(wk["A"]["url"])))
+    turns = []
+    for k, transport in enumerate(PUSH_TURNS):
+        t0 = time.perf_counter()
+        env = {**handoff["env"], "AI4E_PLATFORM_TRANSPORT": transport,
+               "AI4E_PLATFORM_DISPATCHER_CONCURRENCY": "4"}
+        logs = {"cp": out_dir / f"push_{k}_control_plane.log",
+                "wk": wk["A"]["log"]}
+        procs = {"cp": start_child(
+            ["control-plane", "--routes", str(routes), "--port",
+             str(cp_port)], logs["cp"], env), "wk": wk["A"]["proc"]}
+        try:
+            run = asyncio.run(push_turn_drive(wk["gateway"], wk["A"]["url"],
+                                              procs, logs, bodies))
+            stop_child(procs["cp"], logs["cp"], f"18a turn {k}")
+        finally:
+            if procs["cp"].poll() is None:
+                procs["cp"].kill()
+                procs["cp"].wait(timeout=30)
+        turn = check_push_turn(handoff, transport, run,
+                               logs["cp"].read_text(errors="replace"), want)
+        turn["seconds"] = time.perf_counter() - t0
+        log(f"push 18a turn {k}: {json.dumps(turn)}")
+        turns.append(turn)
+    arms = {}
+    for key in ("tasks_per_s", "task_p50_ms", "task_p95_ms"):
+        med = {t: statistics.median(x[key] for x in turns
+                                    if x["transport"] == t)
+               for t in ("queue", "push")}
+        arms[key] = {**med, "push_vs_queue": med["push"] / med["queue"]}
+    return {"turns": turns, "arms": arms}
+
+
+async def post_and_wait(http, gateway: str, route: str,
+                        body: bytes) -> dict:
+    """One async request through the gateway, long-polled to terminal: its
+    ``X-Cache`` header, task id, latency and result."""
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    t0 = time.perf_counter()
+    async with http.post(gateway + route, data=body, headers={
+            "Content-Type": "application/octet-stream"}) as r:
+        if r.status != 200:
+            raise AssertionError(f"async {route} {r.status}: "
+                                 f"{await r.text()}")
+        xcache = r.headers.get("X-Cache")
+        task_id = (await r.json())["TaskId"]
+    while True:
+        async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
+                            params={"wait": "60"}) as r:
+            record = await r.json()
+        if TaskStatus.canonical(record["Status"]) in TaskStatus.TERMINAL:
+            break
+    if record["Status"] != LC_DONE:
+        raise AssertionError(f"task {task_id}: {record}")
+    return {"xcache": xcache, "task_id": task_id,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "result": json.loads(await result_bytes(http, gateway, task_id))}
+
+
+async def sync_post(http, gateway: str, route: str, body: bytes) -> tuple:
+    async with http.post(gateway + route, data=body, headers={
+            "Content-Type": "application/octet-stream"}) as r:
+        if r.status != 200:
+            raise AssertionError(f"sync {route} {r.status}: "
+                                 f"{await r.text()}")
+        return r.headers.get("X-Cache"), await r.json()
+
+
+async def canary_drive(gateway: str, wk: dict, reporter: str, procs: dict,
+                       logs: dict, bodies: list[bytes]) -> dict:
+    """18b and 18c's client: the weighted async burst (the reporter sampled
+    meanwhile, then until it settles), the 1:1 and the drained sync
+    routes, and identical requests repeated on each route; both workers'
+    and the control plane's /metrics around each part."""
+    import aiohttp
+
+    async def metrics(url: str) -> str:
+        async with http.get(url + "/metrics") as r:
+            return await r.text()
+
+    async def snapshot() -> dict:
+        return {"A": await metrics(wk["A"]["url"]),
+                "B": await metrics(wk["B"]["url"]),
+                "cp": await metrics(gateway)}
+
+    async def current() -> int:
+        async with http.get(reporter + "/v1/processing", params={
+                "cluster": REPORTER_CLUSTER, "path": WK_ASYNC}) as r:
+            return (await r.json())["CurrentRequests"]
+
+    out: dict = {}
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", procs["cp"],
+                           logs["cp"])
+        samples: list[int] = []
+        stop = asyncio.Event()
+
+        async def sample() -> None:
+            while not stop.is_set():
+                samples.append(await current())
+                await asyncio.sleep(0.005)
+
+        before = await snapshot()
+        sampler = asyncio.get_running_loop().create_task(sample())
+        t0 = time.perf_counter()
+        runs = []
+        try:
+            for _ in range(N_CANARY_WAVES):
+                # A wave of 64 fits each worker's 64-request cap whatever
+                # the split, so no delivery is refused and re-picked.
+                runs += await asyncio.gather(*(post_and_wait(
+                    http, gateway, CANARY_ASYNC, b) for b in bodies))
+        finally:
+            stop.set()
+            await sampler
+        out["async_s"] = time.perf_counter() - t0
+        out["async"] = (before, await snapshot(), runs)
+        t_end, settled = time.monotonic(), None
+        while time.monotonic() < t_end + REPORTER_SETTLE_S:
+            if await current() == 0:
+                settled = time.monotonic() - t_end
+                break
+            await asyncio.sleep(0.02)
+        out["reporter"] = {"samples": samples, "settled_s": settled}
+        for key, route in (("sync", CANARY_SYNC), ("drained", DRAINED_SYNC)):
+            before = await snapshot()
+            answers = [await sync_post(http, gateway, route, b)
+                       for b in bodies[:N_CANARY_SYNC]]
+            out[key] = (before, await snapshot(), answers)
+        repeats = {}
+        for route in (SINGLE_SYNC, CANARY_SYNC):
+            repeats[route] = [(await sync_post(http, gateway, route,
+                                               bodies[0]))[0]
+                              for _ in range(N_REPEATS)]
+        repeats[CANARY_ASYNC] = [(await post_and_wait(
+            http, gateway, CANARY_ASYNC, bodies[0]))["xcache"]
+            for _ in range(N_REPEATS)]
+        out["repeats"] = repeats
+        async with http.get(reporter + "/metrics") as r:
+            out["reporter"]["metrics"] = [
+                line for line in (await r.text()).splitlines()
+                if line.startswith("ai4e_current_requests")]
+    return out
+
+
+def worker_ok(texts: tuple, worker: str, generation: str) -> float:
+    """A worker's ``ai4e_rollout_outcomes_total{outcome="ok"}`` delta for
+    ``generation`` between two snapshots."""
+    return metric_delta((texts[0][worker], texts[1][worker]),
+                        "ai4e_rollout_outcomes_total", generation=generation,
+                        outcome="ok")
+
+
+def check_canary(handoff: dict, run: dict, wk: dict, want: np.ndarray) -> dict:
+    """18b and 18c's gates."""
+    from urllib.parse import urlparse
+
+    pixels = lc_pixels(handoff)
+    before, after, runs = run["async"]
+    texts = (before, after)
+    a, b = worker_ok(texts, "A", "1"), worker_ok(texts, "B", "2")
+    n = len(runs)
+    for i, r in enumerate(runs):
+        check_histogram(r["result"], want[i % len(want)], pixels)
+    if a + b != n or min(a, b) < 1:
+        raise AssertionError(f"18b: A served {a}, B {b} of {n}")
+    p = CANARY_WEIGHTS[1] / sum(CANARY_WEIGHTS)
+    sigma = (n * p * (1 - p)) ** 0.5
+    if abs(b - n * p) > 4 * sigma:
+        raise AssertionError(f"18b: B served {b} of {n}, beyond 4 sigma "
+                             f"({sigma:.2f}) of {n * p}")
+    delivered = {tag: metric_delta(
+        (before["cp"], after["cp"]), "ai4e_dispatch_total",
+        outcome="delivered", backend=urlparse(wk[tag]["url"]).netloc)
+        for tag in ("A", "B")}
+    if delivered != {"A": a, "B": b}:
+        raise AssertionError(f"18b: the dispatcher delivered {delivered}, "
+                             f"the workers served A {a}, B {b}")
+    if any(r["xcache"] is not None for r in runs):
+        raise AssertionError("18b: the weighted async route answered from "
+                             "the cache")
+    out = {"async": {"tasks": n, "A": a, "B": b, "expected_B": n * p,
+                     "sigma": sigma, "z": (b - n * p) / sigma,
+                     "dispatch_delivered": delivered,
+                     "dispatch": family_outcomes(after["cp"],
+                                                 "ai4e_dispatch_total"),
+                     "tasks_per_s": n / run["async_s"],
+                     "task_p50_ms": statistics.median(r["ms"] for r in runs),
+                     "task_p95_ms": float(np.percentile(
+                         [r["ms"] for r in runs], 95))}}
+    for key in ("sync", "drained"):
+        before, after, answers = run[key]
+        texts = (before, after)
+        served = {"A": worker_ok(texts, "A", "1"),
+                  "B": worker_ok(texts, "B", "2")}
+        for i, (xcache, result) in enumerate(answers):
+            check_histogram(result, want[i], pixels)
+            if xcache is not None:
+                raise AssertionError(f"18b: {key} answered X-Cache {xcache}")
+        if sum(served.values()) != len(answers):
+            raise AssertionError(f"18b {key}: served {served}")
+        if key == "sync" and min(served.values()) < 1:
+            raise AssertionError(f"18b: the 1:1 route served {served}")
+        if key == "drained" and served["B"] != 0:
+            raise AssertionError(f"18b: B at weight 0 served {served}")
+        out[key] = served
+    repeats = run["repeats"]
+    if repeats != {SINGLE_SYNC: ["miss"] + ["hit"] * (N_REPEATS - 1),
+                   CANARY_SYNC: [None] * N_REPEATS,
+                   CANARY_ASYNC: [None] * N_REPEATS}:
+        raise AssertionError(f"18b: X-Cache on repeats {repeats}")
+    out["repeats_xcache"] = repeats
+    rep = run["reporter"]
+    peak = max(rep["samples"], default=0)
+    if peak < 1 or rep["settled_s"] is None:
+        raise AssertionError(f"18c: reporter peak {peak}, settled "
+                             f"{rep['settled_s']}")
+    out["reporter"] = {"peak": peak, "samples": len(rep["samples"]),
+                       "settled_s": rep["settled_s"],
+                       "gauge": rep["metrics"]}
+    return out
+
+
+def phase_canary(handoff: dict, wk: dict, cp_port: int) -> dict:
+    """18b and 18c: workers A (generation 1) and B (generation 2) behind
+    the port's control plane on the queue transport with the result cache
+    on, a child process fed ``canary_routes``; the reporter sampled during
+    the weighted burst."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    routes = out_dir / "canary_routes.json"
+    routes.write_text(json.dumps(canary_routes(wk["A"]["url"],
+                                               wk["B"]["url"])))
+    env = {**handoff["env"], "AI4E_PLATFORM_RESULT_CACHE": "1",
+           "AI4E_PLATFORM_DISPATCHER_CONCURRENCY": "4"}
+    logs = {"cp": out_dir / "canary_control_plane.log"}
+    procs = {"cp": start_child(["control-plane", "--routes", str(routes),
+                                "--port", str(cp_port)], logs["cp"], env)}
+    try:
+        run = asyncio.run(canary_drive(wk["gateway"], wk, wk["reporter"],
+                                       procs, logs, bodies))
+        stop_child(procs["cp"], logs["cp"], "18b control plane")
+    finally:
+        if procs["cp"].poll() is None:
+            procs["cp"].kill()
+            procs["cp"].wait(timeout=30)
+    out = check_canary(handoff, run, wk, want)
+    log(f"canary 18b: {json.dumps({k: v for k, v in out.items() if k != 'reporter'})}")
+    log(f"reporter 18c: {json.dumps(out['reporter'])}")
+    return out
+
+
+def phase_18(handoff: dict, kernels: list[dict],
+             device: str = "cuda") -> dict:
+    """Phase 18: land cover from phase 10's checkpoint on two workers,
+    generations 1 (A) and 2 (B), each reporting to a request reporter;
+    push against queue on A alone (a), the weighted canary routes and
+    ``definitions`` (b), the reporter's gauge (c). Every process is a
+    child of this one."""
+    log("phase 18: push transport, canary backends, definitions, reporter")
+    t0 = time.perf_counter()
+    out_dir = handoff["out_dir"]
+    cp_port, rp_port = free_port(), free_port()
+    reporter = f"http://127.0.0.1:{rp_port}"
+    wk = {"gateway": f"http://127.0.0.1:{cp_port}", "reporter": reporter}
+    models, _ = cache_specs(wk["gateway"], "", ("landcover",))
+    (out_dir / "canary_models.json").write_text(json.dumps(models))
+    procs = {"rp": start_child(["reporter", "--port", str(rp_port)],
+                               out_dir / "canary_reporter.log",
+                               handoff["env"])}
+    report: dict = {"seconds_by_part": {}}
+    try:
+        for tag, generation in (("A", 1), ("B", 2)):
+            port = free_port()
+            wk[tag] = {"url": f"http://127.0.0.1:{port}",
+                       "log": out_dir / f"canary_worker_{tag}.log"}
+            wk[tag]["proc"] = procs[tag] = start_child(
+                ["worker", "--models", str(out_dir / "canary_models.json"),
+                 "--host", "127.0.0.1", "--port", str(port), "--device",
+                 device], wk[tag]["log"],
+                {**handoff["env"],
+                 "AI4E_ROLLOUT_GENERATION": str(generation),
+                 "AI4E_SERVICE_REPORTER_URI": reporter,
+                 "AI4E_SERVICE_CLUSTER": REPORTER_CLUSTER})
+        asyncio.run(wait_all_healthy(
+            [(reporter + "/healthz", procs["rp"],
+              out_dir / "canary_reporter.log")]
+            + [(wk[t]["url"] + "/v1/models/", wk[t]["proc"], wk[t]["log"])
+               for t in ("A", "B")]))
+        report["workers_up_s"] = time.perf_counter() - t0
+        for part, run in (("18a", lambda: phase_push(handoff, wk, cp_port)),
+                          ("18bc", lambda: phase_canary(handoff, wk,
+                                                        cp_port))):
+            t = time.perf_counter()
+            report[part] = run()
+            report["seconds_by_part"][part] = time.perf_counter() - t
+        for tag in ("A", "B"):
+            stop_child(wk[tag]["proc"], wk[tag]["log"], f"18 worker {tag}")
+        stop_child(procs["rp"], out_dir / "canary_reporter.log",
+                   "18 reporter")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    report["seconds"] = time.perf_counter() - t0
+    launches = {tag: launches_by_model(
+        wk[tag]["log"].read_text(errors="replace")).get("landcover", {})
+        for tag in ("A", "B")}
+    rows = {k["name"]: k for k in kernels}
+    for name in ("normalize_image", "fused_seg_postprocess"):
+        counts = {tag: launches[tag].get(name, 0) for tag in ("A", "B")}
+        if device == "cuda" and min(counts.values()) < 1:
+            raise AssertionError(f"phase 18: {name} never launched in a "
+                                 f"worker: {launches}")
+        if name in rows:
+            rows[name]["launches_phase18"] = sum(counts.values())
+            rows[name]["launches_phase18_by_worker"] = counts
+    log(f"phase 18: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'workers_up_s': report['workers_up_s'], 'push_arms': report['18a']['arms'], 'launches': launches, 'card': CARD.get('smi')})}")
+    return report
+
+
+async def wait_all_healthy(targets: list[tuple]) -> None:
+    """Every ``(url, proc, log)`` answering 200, waited on together."""
+    import aiohttp
+
+    async with aiohttp.ClientSession() as http:
+        await asyncio.gather(*(wait_healthy(http, url, proc, log_path)
+                               for url, proc, log_path in targets))
+
+
 def detector_dct_sweep(trainings: int) -> None:
     """``python3 chip_smoke.py --detector-dct-sweep N``: the megadetector
     recipe trained N times on the card (seed 0 each time; cuDNN's
@@ -8627,6 +9083,7 @@ def main() -> None:
              .get("landcover/64", {}).get("replay_ms"))
     phase_16(deployed, kernels)
     phase_17(deployed, kernels)
+    phase_18(deployed, kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

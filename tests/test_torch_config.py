@@ -144,6 +144,23 @@ SERVED_SHARD_KNOBS = [
         "shard_tail_interval", "shard_feed_recent")]
 
 
+#: The push transport (ROADMAP A18.3), the request reporter (A18.14) and
+#: the worker's rollout generation (A6.3): the port serves them, so each
+#: set away from its default parses as JAX's does.
+SERVED_PUSH_REPORTER_KNOBS = [
+    ("AI4E_PLATFORM_", f) for f in (
+        "transport", "push_ttl_seconds", "push_max_attempts",
+        "push_window")] + [
+    ("AI4E_SERVICE_", f) for f in ("reporter_uri", "cluster")] + [
+    ("AI4E_ROLLOUT_", "generation")]
+
+#: The rollout controller's knobs, still refused under its item.
+CONTROLLER_KNOBS = [
+    ("AI4E_ROLLOUT_", f) for f in (
+        "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
+        "burn_slow_max")]
+
+
 def off_default_cases(keys, kind: str):
     """A ``kind`` case for each field in ``keys`` (``(env prefix,
     field)``), set away from its default, id'd by its variable; an
@@ -171,7 +188,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_AUTH_CACHE_KNOBS, "same"))
          + list(off_default_cases(SERVED_NATIVE_REAPER_KNOBS, "same"))
          + list(off_default_cases(SERVED_HA_KNOBS, "same"))
-         + list(off_default_cases(SERVED_SHARD_KNOBS, "same")))
+         + list(off_default_cases(SERVED_SHARD_KNOBS, "same"))
+         + list(off_default_cases(SERVED_PUSH_REPORTER_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -241,6 +259,10 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_TASK_SHARD_REPLICAS": "2"},
     {"AI4E_PLATFORM_SHARD_TAIL_INTERVAL": "0.05"},
     {"AI4E_PLATFORM_SHARD_FEED_RECENT": "512"},
+    {"AI4E_PLATFORM_TRANSPORT": "push"},
+    {"AI4E_PLATFORM_PUSH_TTL_SECONDS": "30"},
+    {"AI4E_PLATFORM_PUSH_MAX_ATTEMPTS": "7"},
+    {"AI4E_PLATFORM_PUSH_WINDOW": "16"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -262,10 +284,12 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_NATIVE_REAPER_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_HA_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_SHARD_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_PUSH_REPORTER_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
     assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
-    assert len(port_config.UNPORTED) == 52
+    assert len(SERVED_PUSH_REPORTER_KNOBS) == 7
+    assert len(port_config.UNPORTED) == 45
     assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
     with pytest.raises(port_config.ConfigError, match="A18.9"):
         port_config.FrameworkConfig.from_env(
@@ -285,3 +309,46 @@ def test_sections_and_fields_are_the_jax_package_s():
                     for f in dataclasses.fields(want)])
     assert (port_config.OUT_OF_BAND_ENV_PREFIXES
             == jax_config.OUT_OF_BAND_ENV_PREFIXES)
+
+
+@pytest.mark.parametrize("key", CONTROLLER_KNOBS,
+                         ids=lambda k: k[0] + k[1].upper())
+def test_controller_knobs_refuse_under_their_new_item(key):
+    """The rollout controller's five knobs stay refused, each naming the
+    rig and BackendHealth's items (A18.9, A19)."""
+    assert port_config.UNPORTED[key] == (
+        "the rollout controller, which runs under the rig and "
+        "BackendHealth (ROADMAP A18.9, A19)")
+
+
+def test_push_reporter_and_generation_reach_their_consumers():
+    """Each of the seven served knobs reaches what reads it: the platform's
+    transport and topic policy, the worker's reporter client and every
+    servable's generation."""
+    import asyncio
+
+    from ai4e_tpu_torch.cli import build_control_plane, build_worker
+
+    env = {"AI4E_PLATFORM_TRANSPORT": "push",
+           "AI4E_PLATFORM_PUSH_TTL_SECONDS": "30",
+           "AI4E_PLATFORM_PUSH_MAX_ATTEMPTS": "7",
+           "AI4E_PLATFORM_PUSH_WINDOW": "16",
+           "AI4E_PLATFORM_RETRY_DELAY": "0.5"}
+    platform = build_control_plane(port_config.FrameworkConfig.from_env(env),
+                                   {"apis": []})
+    topic = platform.topic
+    assert (platform.config.transport, platform.broker) == ("push", None)
+    assert (topic.ttl_seconds, topic.max_attempts, topic.retry_delay,
+            topic._window._value) == (30.0, 7, 0.5, 16)
+    spec = {"models": [{"family": "echo", "name": "echo"}]}
+    worker, _, _ = build_worker(spec, device="cpu",
+                                config=port_config.FrameworkConfig.from_env({
+                                    "AI4E_SERVICE_REPORTER_URI":
+                                        "http://rep:9000/",
+                                    "AI4E_SERVICE_CLUSTER": "h100",
+                                    "AI4E_ROLLOUT_GENERATION": "3"}))
+    reporter = worker.service.reporter
+    assert (reporter.reporter_uri, reporter.cluster) == ("http://rep:9000",
+                                                         "h100")
+    assert worker.runtime.models["echo"].generation == 3
+    asyncio.run(reporter.close())

@@ -281,10 +281,9 @@ class TestServing:
         assert "ai4e_device_phase_seconds" not in metrics
 
 
-#: Metric families of the JAX worker whose features the port lacks: the
-#: per-generation rollout series (A6.3's rollout generation).
-UNPORTED_METRICS = {"ai4e_rollout_outcomes_total",
-                    "ai4e_rollout_request_seconds"}
+#: Metric families of the JAX worker whose features the port lacks: none
+#: since the per-generation rollout series (A6.3) are ported.
+UNPORTED_METRICS: set = set()
 ECHO_SPEC = {"service_name": "w", "prefix": "v1/models", "models": [
     {"family": "echo", "name": "echo", "sync_path": "/e",
      "async_path": "/e-async"}]}
@@ -374,12 +373,15 @@ class TestUnported:
          r"wire='dct' needs dims divisible by 16, got 40x40"),
         (worker_of(landcover_spec(checkpoint="landcover")),
          r"is not a \.npz: .*scripts/orbax_to_npz\.py SRC DST\.npz"),
-        (control_plane_of({"backends": [{"uri": "http://w/v1/x",
-                                         "weight": 1}]}),
-         r"'backends' \(weighted canary backends \(ROADMAP A18.8"),
-        (control_plane_of({}, AI4E_PLATFORM_TRANSPORT="push"),
-         r"AI4E_PLATFORM_TRANSPORT='push': the push transport \(ROADMAP "
-         r"A18.3"),
+        # Weighted backends serve (ROADMAP A18.8); an empty set reaches
+        # normalize_backends' error (a presence check, as in JAX).
+        (control_plane_of({"backends": []}),
+         r"backend list is empty"),
+        # The push transport serves (ROADMAP A18.3); a queue-transport knob
+        # on its route is refused with JAX's text.
+        (control_plane_of({"concurrency": 2}, AI4E_PLATFORM_TRANSPORT="push"),
+         r"autoscale/retry_delay/concurrency are queue-transport knobs; "
+         r"push retry policy is topic-wide"),
         # The journal serves (ROADMAP A18.1); the native store, which
         # has none, refuses it with JAX's text.
         (control_plane_of({}, AI4E_PLATFORM_JOURNAL_PATH="/j.jsonl",
