@@ -13,8 +13,9 @@ Opt-in with ``PlatformConfig(admission=True)`` /
 - ``shedder``: the lowest priority refused first, with a computed
   backoff.
 
-The degradation ladder (orchestration) and the breaker's backoff hook
-(resilience) wait for ROADMAP A18.9.
+Under orchestration the controller consults the degradation ladder
+first (brownout refusals at both edges); under resilience a breaker that
+opens backs the dispatcher's limiter off at once.
 """
 
 from .controller import (AdmissionController, AdmissionScope, DecayingRate,

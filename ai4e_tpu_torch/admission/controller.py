@@ -1,7 +1,5 @@
 """Adaptive concurrency control; a copy of
-``ai4e_tpu/admission/controller.py`` without the degradation ladder
-(``set_ladder``, ``brownout_refusal``: orchestration, ROADMAP A18.9) and
-the per-route rate estimators the predictive scaler reads.
+``ai4e_tpu/admission/controller.py``.
 
 ``GradientLimiter`` is a latency-gradient AIMD limiter: it tracks the
 smallest observed RTT as the no-load baseline, compares the recent median
@@ -19,7 +17,10 @@ proxy; each dispatcher queue), applies limit changes to their targets (the
 proxy's cap, ``Dispatcher.set_concurrency``), estimates the platform's
 drain rate from the task store's terminal transitions (the Retry-After of
 every shed) and exports the ``ai4e_admission_*`` metrics, goodput among
-them.
+them. Under orchestration it consults the degradation ladder first
+(``set_ladder``: the async edge's and the sync proxy's brownout refusals)
+and feeds it the store's deadline outcomes, and its per-route arrival and
+drain rates feed the predictive scaler.
 """
 
 from __future__ import annotations
@@ -226,6 +227,15 @@ class AdmissionController:
         self._scopes: dict[str, AdmissionScope] = {}
         self._drain = DecayingRate(tau_s=drain_tau_s)
         self._arrivals = DecayingRate(tau_s=drain_tau_s)
+        self._tau_s = drain_tau_s
+        # Per-route arrival and drain rates (by endpoint path, made by the
+        # store listener): the predictive scaler scales one route, so it
+        # reads that route's imbalance, not the platform's.
+        self._route_arrivals: dict[str, DecayingRate] = {}
+        self._route_drains: dict[str, DecayingRate] = {}
+        # The degradation ladder (set_ladder); None: no brownout modes.
+        # Consulted first on every admission decision.
+        self._ladder = None
         self._shed_total = self.metrics.counter(
             "ai4e_admission_shed_total",
             "Requests refused under pressure, by hop/priority")
@@ -283,6 +293,47 @@ class AdmissionController:
         drained (``drain_retry_after``)."""
         return drain_retry_after(excess, self.drain_rate())
 
+    def arrival_rate(self, route: str | None = None) -> float:
+        """Decayed task-creation rate: ``route`` (an endpoint path) that
+        route's own, None the platform's (which updates the gauge)."""
+        if route is not None:
+            est = self._route_arrivals.get(route)
+            return est.rate() if est is not None else 0.0
+        rate = self._arrivals.rate()
+        self._arrival_gauge.set(rate)
+        return rate
+
+    def route_drain_rate(self, route: str) -> float:
+        """One route's decayed terminal-transition rate (``drain_rate``
+        stays the platform's: it feeds Retry-After)."""
+        est = self._route_drains.get(route)
+        return est.rate() if est is not None else 0.0
+
+    def _route_rate(self, table: dict, route: str) -> DecayingRate:
+        est = table.get(route)
+        if est is None:
+            est = table[route] = DecayingRate(tau_s=self._tau_s)
+        return est
+
+    # -- the degradation ladder ---------------------------------------------
+
+    def set_ladder(self, ladder) -> None:
+        """Attach (or clear with None) the degradation ladder: admission
+        decisions consult it first, and the store listener feeds it the
+        actual deadline outcomes."""
+        self._ladder = ladder
+
+    def brownout_refusal(self, priority: int) -> tuple[float, str] | None:
+        """``(retry_after_s, mode)`` when the ladder refuses this class now,
+        else None. The sync proxy calls this before ``try_acquire``; the
+        async edge gets it inside ``shed_async``."""
+        if self._ladder is None:
+            return None
+        mode = self._ladder.refuse(priority)
+        if mode is None:
+            return None
+        return self.retry_after_s(), mode
+
     # -- the async edge -----------------------------------------------------
 
     def shed_async(self, priority: int, backlog: int,
@@ -290,11 +341,16 @@ class AdmissionController:
         """The async edge's decision: None to admit, else
         ``(retry_after_s, why)``.
 
+        - brownout: a ladder mode refusing this class outranks the
+          per-request tests;
         - class pressure: the route's created backlog against this class's
           share of ``max_backlog``, lowest priority refused first;
         - deadline feasibility: with a deadline and an established drain
           rate, a predicted queue wait beyond the remaining budget means
           the task would expire in the queue, so it is refused now."""
+        brown = self.brownout_refusal(priority)
+        if brown is not None:
+            return brown[0], "brownout"
         retry_after = self.shedder.check(priority, backlog, self.max_backlog,
                                          drain_rate=self.drain_rate())
         if retry_after is not None:
@@ -311,8 +367,10 @@ class AdmissionController:
         """Subscribe to the task store's change feed: every terminal
         transition is a drain event for the Retry-After estimator, each
         creation an arrival, and a completed task scores goodput by
-        whether it beat its deadline (``no_deadline`` apart)."""
-        from ..taskstore import TaskStatus
+        whether it beat its deadline (``no_deadline`` apart). With the
+        ladder, a deadline-carrying task's outcome (late or expired is a
+        miss) is its evidence."""
+        from ..taskstore import TaskStatus, endpoint_path
 
         def on_task_change(task) -> None:
             status = task.canonical_status
@@ -322,11 +380,19 @@ class AdmissionController:
                     # creation (requeues carry other prose).
                     self._arrivals.on_event()
                     self._arrival_gauge.set(self._arrivals.rate())
+                    self._route_rate(self._route_arrivals,
+                                     endpoint_path(task.endpoint)).on_event()
                 return
             self.on_drain_event()
-            if status != TaskStatus.COMPLETED:
-                return
+            self._route_rate(self._route_drains,
+                             endpoint_path(task.endpoint)).on_event()
             deadline_at = getattr(task, "deadline_at", 0.0)
+            if status != TaskStatus.COMPLETED:
+                if (self._ladder is not None and deadline_at
+                        and status == TaskStatus.EXPIRED):
+                    # Expired on its deadline downstream: a miss.
+                    self._ladder.note(miss=True)
+                return
             if not deadline_at:
                 outcome = "no_deadline"
             elif time.time() <= deadline_at:
@@ -334,5 +400,7 @@ class AdmissionController:
             else:
                 outcome = "late"
             self._goodput_total.inc(outcome=outcome)
+            if self._ladder is not None and deadline_at:
+                self._ladder.note(miss=(outcome == "late"))
 
         store.add_listener(on_task_change)

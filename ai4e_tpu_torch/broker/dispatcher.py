@@ -34,10 +34,22 @@ the backend POST: a redelivery or requeue whose identical request already
 completed finishes here, ``completed - served from cache``, without
 reaching the card (``dispatch_total{outcome="cache_hit"}``).
 
-Not ported (ROADMAP A18): resilience and orchestration (their
-``duplicate``, ``retry``, ``failover``, ``placed`` and ``probe`` stamps,
-and the breaker's backoff of the admission limiter) and tenancy
-accounting.
+With the shared health model (``resilience/``) each delivery's backend
+is a health-aware pick (open and draining backends ejected), a connection
+error retries on a different backend of the set and a 5xx (other than
+503) retries too, both within ``max_attempts`` and the queue's retry
+budget, before falling back to redelivery; a 503 with ``X-Draining``
+ejects its backend for the drain TTL without counting against its
+breaker; a breaker that opens backs the queue's admission limiter off at
+once; and a message whose task is already terminal is completed off the
+broker without a POST (``duplicate``). With the orchestrator
+(``orchestration/``) the backend is the cheapest one predicted to finish
+within the message's remaining deadline, and delivered round trips feed
+its estimator. The ledger gets their ``placed``, ``probe``, ``retry``,
+``failover`` and ``duplicate`` stamps. ``rng`` seeds every pick and
+backoff.
+
+Not ported (ROADMAP A18.10): tenancy accounting.
 """
 
 from __future__ import annotations
@@ -95,7 +107,8 @@ class Dispatcher:
                  retry_delay: float = 60.0, concurrency: int = 1,
                  observability=None, admission=None,
                  metrics: MetricsRegistry | None = None,
-                 result_cache=None, result_store=None):
+                 result_cache=None, result_store=None, resilience=None,
+                 orchestration=None, rng=None):
         self.broker = broker
         self.queue_name = queue_name
         self.route_path = base_queue_name(queue_name)
@@ -118,6 +131,16 @@ class Dispatcher:
         # so the client's result fetch works as on the execute path.
         self.result_cache = result_cache
         self.result_store = result_store
+        # The shared health model: None keeps one attempt a delivery, a
+        # 5xx permanent and an unreachable backend redelivered.
+        self.resilience = resilience
+        # The orchestrator (needs resilience): None keeps the health
+        # model's pick.
+        self.orchestration = orchestration
+        self._retry_budget = (resilience.new_budget()
+                              if resilience is not None else None)
+        # Every pick and backoff draws from it (None: the module's).
+        self._rng = rng
         # Spans land in this dispatcher's registry; exporter and sampling
         # follow configure_tracer live.
         self.tracer = Tracer("dispatcher", metrics=self.metrics)
@@ -218,79 +241,190 @@ class Dispatcher:
             self.observability.stamp(
                 task_id, hop.ledger_event(event, "dispatcher", reason=reason))
 
+    def _target_for(self, msg: Message, exclude=()) -> tuple[str, str]:
+        """The delivery's backend, picked from the registered set (a
+        journal-restored task may carry a stale host): placed by the
+        orchestrator, else a health-aware pick, else a weighted one; and
+        the target with the endpoint's operation tail and query grafted
+        on. The base is the health model's key for the outcome."""
+        if self.orchestration is not None:
+            note = None
+            if self.observability is not None:
+                def note(outcome: str, uri: str, _tid=msg.task_id) -> None:
+                    # A probe keeps its own event, reason the probed host;
+                    # any other placement is ``placed``, "<outcome> <host>".
+                    host = urlparse(uri).netloc or uri
+                    self._stamp(_tid,
+                                hop.PROBE if outcome == "probe"
+                                else hop.PLACED,
+                                reason=(host if outcome == "probe"
+                                        else f"{outcome} {host}"))
+            base = self.orchestration.place(
+                self.backends, deadline_at=msg.deadline_at,
+                priority=msg.priority, rng=self._rng, exclude=exclude,
+                note=note)
+        elif self.resilience is not None:
+            base = self.resilience.pick(self.backends, self._rng,
+                                        exclude=exclude)
+        else:
+            base = pick_backend(self.backends, self._rng)
+        return base, rebase_endpoint(msg.endpoint, self.route_path, base)
+
+    def _record_outcome(self, base: str, status: int | None = None,
+                        failed: bool = False) -> None:
+        """One delivery outcome into the health model. A breaker that opens
+        here backs the queue's limiter off at once: a dead backend is
+        stronger evidence than a window of latency samples."""
+        if self.resilience is None:
+            return
+        opened = (self.resilience.record_failure(base) if failed
+                  else self.resilience.observe_status(base, status))
+        if opened and self.admission is not None:
+            self.admission.scope("dispatch:" + self.queue_name).backoff()
+
+    def _can_retry(self, attempt: int) -> bool:
+        """Another attempt within this delivery: attempts left and the
+        budget allows; past either, broker redelivery takes over."""
+        return (self.resilience is not None
+                and attempt < self.resilience.policy.max_attempts
+                and self._retry_budget.try_retry())
+
+    async def _retry_sleep(self, attempt: int) -> None:
+        policy = self.resilience.policy
+        await asyncio.sleep(backoff_s(attempt, policy.retry_base_s,
+                                      policy.retry_cap_s, self._rng))
+
     async def _dispatch_one(self, msg: Message) -> None:
         self._stamp(msg.task_id, hop.POPPED,
                     reason=f"delivery {msg.delivery_count}")
         if await self._drop_expired(msg):
             return
+        if self.resilience is not None and await self._suppress_duplicate(msg):
+            return
         if await self._complete_from_cache(msg):
             return
-        target = rebase_endpoint(msg.endpoint, self.route_path,
-                                 pick_backend(self.backends))
-        # The backend label splits each outcome by host, so a canary's
-        # failures do not vanish into the fleet's counter.
-        backend = urlparse(target).netloc
-        session = await self._sessions.get()
-        t0 = time.perf_counter()
-        try:
-            # One span per delivery attempt, the child of the publisher's
-            # span (the message's B3 headers); its own B3 headers parent
-            # the backend's endpoint span, so gateway -> dispatch ->
-            # execution is one trace.
-            with self.tracer.span("dispatch", task_id=msg.task_id,
-                                  headers=msg.trace_headers or None,
-                                  queue=self.queue_name,
-                                  attempt=msg.delivery_count) as span:
-                async with session.post(
-                        target, data=msg.body,
-                        headers={"taskId": msg.task_id,
-                                 "Content-Type": msg.content_type,
-                                 **self._admission_headers(msg),
-                                 **self.tracer.headers()}) as resp:
-                    status = resp.status
-                    await resp.read()
-                span.attrs["http_status"] = status
-                if not (200 <= status < 300
-                        or status in BACKPRESSURE_CODES):
-                    span.status = "error"
-                    span.error = f"backend returned {status}"
-        except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
-            # Unreachable backend: the pod may be restarting; the broker's
-            # patience bounds the retries.
-            log.warning("backend %s unreachable (%s); will redeliver",
-                        target, exc)
-            await self._backpressure(msg, backend=backend)
-            return
-        if 200 <= status < 300:
+        if self._retry_budget is not None:
+            self._retry_budget.on_request()
+        tried: list[str] = []
+        attempt = 0
+        while True:
+            attempt += 1
+            base, target = self._target_for(msg, exclude=tried)
+            # The backend label splits each outcome by host, so a canary's
+            # failures do not vanish into the fleet's counter.
+            backend = urlparse(target).netloc
+            session = await self._sessions.get()
+            t0 = time.perf_counter()
+            if self.orchestration is not None:
+                # Queue pressure for the estimator, released in the finally
+                # on every exit of this attempt.
+                self.orchestration.begin(base)
+            try:
+                # One span per delivery attempt, the child of the
+                # publisher's span (the message's B3 headers); its own B3
+                # headers parent the backend's endpoint span, so gateway
+                # -> dispatch -> execution is one trace.
+                with self.tracer.span("dispatch", task_id=msg.task_id,
+                                      headers=msg.trace_headers or None,
+                                      queue=self.queue_name,
+                                      attempt=msg.delivery_count) as span:
+                    async with session.post(
+                            target, data=msg.body,
+                            headers={"taskId": msg.task_id,
+                                     "Content-Type": msg.content_type,
+                                     **self._admission_headers(msg),
+                                     **self.tracer.headers()}) as resp:
+                        status = resp.status
+                        draining = resp.headers.get("X-Draining")
+                        await resp.read()
+                    span.attrs["http_status"] = status
+                    if not (200 <= status < 300
+                            or status in BACKPRESSURE_CODES):
+                        span.status = "error"
+                        span.error = f"backend returned {status}"
+            except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
+                self._record_outcome(base, failed=True)
+                if (self.resilience is not None
+                        and await self._suppress_duplicate(msg)):
+                    # The response was lost after the backend finished
+                    # the task: a retry would run it again.
+                    return
+                if self._can_retry(attempt):
+                    # Failover: the next pick excludes this backend (one
+                    # backend retries in place after the backoff).
+                    tried.append(base)
+                    self.resilience.note_failover("dispatcher")
+                    self._stamp(msg.task_id, hop.FAILOVER,
+                                reason=f"connect_error {backend}")
+                    await self._retry_sleep(attempt)
+                    continue
+                # Unreachable backend: the pod may be restarting; the
+                # broker's patience bounds the retries.
+                log.warning("backend %s unreachable (%s); will redeliver",
+                            target, exc)
+                await self._backpressure(msg, backend=backend)
+                return
+            finally:
+                if self.orchestration is not None:
+                    self.orchestration.end(base)
+            if draining and self.resilience is not None:
+                # The worker is leaving (a drain, not saturation): eject it
+                # for the TTL so the redelivery lands on a peer. The 503
+                # itself is neutral for its breaker.
+                self.resilience.mark_draining(base)
+            self._record_outcome(base, status=status)
+            if 200 <= status < 300:
+                self.broker.complete(msg)
+                self._stamp(msg.task_id, hop.DELIVERED, reason=backend)
+                self._dispatched.inc(outcome="delivered",
+                                     queue=self.queue_name, backend=backend)
+                if self.orchestration is not None:
+                    # The delivered round trip is the estimator's
+                    # service-time evidence.
+                    self.orchestration.observe(base,
+                                               time.perf_counter() - t0)
+                if self.admission is not None:
+                    # The delivered round trip feeds this queue's limiter:
+                    # when the worker congests these stretch, and the
+                    # fan-out narrows before the worker has to refuse.
+                    self.admission.scope(
+                        "dispatch:" + self.queue_name).observe(
+                        time.perf_counter() - t0, inflight=self._busy)
+                return
+            if status in BACKPRESSURE_CODES:
+                if self.admission is not None:
+                    # Explicit saturation outranks latency: shrink now.
+                    self.admission.scope(
+                        "dispatch:" + self.queue_name).backoff()
+                await self._backpressure(msg, backend=backend)
+                return
+            if self.resilience is not None and status >= 500:
+                # A transient server error under resilience: retry, on
+                # another backend when there is one, then redeliver. A 4xx
+                # stays permanent: the backend is healthy, the request not.
+                if self._can_retry(attempt):
+                    tried.append(base)
+                    self.resilience.note_retry("dispatcher")
+                    self._stamp(msg.task_id, hop.RETRY,
+                                reason=f"HTTP {status} {backend}")
+                    await self._retry_sleep(attempt)
+                    continue
+                await self._backpressure(msg, backend=backend)
+                return
+            # Permanent failure: complete the message and fail the task,
+            # unless a concurrent delivery finished it while this one was
+            # in flight.
             self.broker.complete(msg)
-            self._stamp(msg.task_id, hop.DELIVERED, reason=backend)
-            self._dispatched.inc(outcome="delivered", queue=self.queue_name,
+            if await self.task_manager.is_terminal(msg.task_id):
+                self._dispatched.inc(outcome="duplicate",
+                                     queue=self.queue_name, backend=backend)
+                return
+            self._dispatched.inc(outcome="failed", queue=self.queue_name,
                                  backend=backend)
-            if self.admission is not None:
-                # The delivered round trip feeds this queue's limiter:
-                # when the worker congests these stretch, and the fan-out
-                # narrows before the worker has to refuse.
-                self.admission.scope("dispatch:" + self.queue_name).observe(
-                    time.perf_counter() - t0, inflight=self._busy)
+            await self._try_update(msg.task_id,
+                                   f"failed - backend returned {status}",
+                                   TaskStatus.FAILED)
             return
-        if status in BACKPRESSURE_CODES:
-            if self.admission is not None:
-                # Explicit saturation outranks latency: shrink now.
-                self.admission.scope("dispatch:" + self.queue_name).backoff()
-            await self._backpressure(msg, backend=backend)
-            return
-        # Permanent failure: complete the message and fail the task, unless
-        # a concurrent delivery finished it while this one was in flight.
-        self.broker.complete(msg)
-        if await self.task_manager.is_terminal(msg.task_id):
-            self._dispatched.inc(outcome="duplicate", queue=self.queue_name,
-                                 backend=backend)
-            return
-        self._dispatched.inc(outcome="failed", queue=self.queue_name,
-                             backend=backend)
-        await self._try_update(msg.task_id,
-                               f"failed - backend returned {status}",
-                               TaskStatus.FAILED)
 
     def _admission_headers(self, msg: Message) -> dict:
         """The deadline and class onto the backend POST, for the worker's
@@ -376,14 +510,36 @@ class Dispatcher:
                                TaskStatus.COMPLETED)
         return True
 
+    async def _suppress_duplicate(self, msg: Message) -> bool:
+        """Under resilience: a message whose task is already terminal (a
+        lease-expiry redelivery racing a completion, a lost response after
+        the backend finished) is completed off the broker without a POST,
+        so the backend does not run it again and the client never sees a
+        second completion. On a sharded store the terminal probe reads the
+        owning shard and rides out a slot move as every store read does."""
+        if await self.task_manager.is_terminal(msg.task_id):
+            self.broker.complete(msg)
+            self._stamp(msg.task_id, hop.DUPLICATE,
+                        reason="redelivery of a terminal task")
+            self._dispatched.inc(outcome="duplicate", queue=self.queue_name,
+                                 backend="")
+            return True
+        return False
+
     def _redelivery_delay(self, msg: Message) -> float:
         """Jittered exponential backoff from the message's delivery count
         (base ``retry_delay``), capped at half the lease so a retry never
         outlives its own lease."""
         lease = float(getattr(self.broker, "lease_seconds", 300.0) or 300.0)
-        return backoff_s(msg.delivery_count, self.retry_delay, lease / 2.0)
+        return backoff_s(msg.delivery_count, self.retry_delay, lease / 2.0,
+                         self._rng)
 
     async def _backpressure(self, msg: Message, backend: str) -> None:
+        if self.resilience is not None and await self._suppress_duplicate(msg):
+            # The task turned terminal between the POST and this decision
+            # (the backend finished, then the response failed): the
+            # awaiting write below would reopen it.
+            return
         self._stamp(msg.task_id, hop.BACKPRESSURE, reason=backend)
         self._dispatched.inc(outcome="backpressure", queue=self.queue_name,
                              backend=backend)
@@ -419,7 +575,8 @@ class DispatcherPool:
                  retry_delay: float = 60.0, concurrency: int = 1,
                  observability=None, admission=None,
                  metrics: MetricsRegistry | None = None,
-                 result_cache=None, result_store=None):
+                 result_cache=None, result_store=None, resilience=None,
+                 orchestration=None):
         self.broker = broker
         self.task_manager = task_manager
         self.retry_delay = retry_delay
@@ -429,6 +586,8 @@ class DispatcherPool:
         self.admission = admission
         self.result_cache = result_cache
         self.result_store = result_store
+        self.resilience = resilience
+        self.orchestration = orchestration
         self.dispatchers: dict[str, Dispatcher] = {}
 
     def register(self, queue_name: str, backend_uri,
@@ -440,7 +599,8 @@ class DispatcherPool:
             concurrency=self.concurrency if concurrency is None else concurrency,
             observability=self.observability, admission=self.admission,
             metrics=self.metrics, result_cache=self.result_cache,
-            result_store=self.result_store)
+            result_store=self.result_store, resilience=self.resilience,
+            orchestration=self.orchestration)
         self.dispatchers[queue_name] = d
         return d
 

@@ -90,6 +90,7 @@ import json
 import logging
 import os
 import signal
+import threading
 
 from .config import ConfigError, FrameworkConfig
 from .taskstore.task import TaskStatus
@@ -219,7 +220,10 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     await platform.start()
     vitals = await start_vitals(config, platform.metrics)
     # Operators grep the startup line for posture: admission changes the
-    # public contract (sheds, expiry, computed Retry-After); sharding the
+    # public contract (sheds, expiry, computed Retry-After); resilience
+    # the failure semantics (breakers, retries, 5xx as transient);
+    # orchestration placement and overload (deadline- and cost-aware
+    # picks, the brownout ladder, predictive scaling); sharding the
     # durability and availability topology (per-shard journals and
     # failover); the journal's fsync policy what an acknowledgment means
     # against a machine crash, and its checksum what a replay costs.
@@ -228,6 +232,9 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     posture = "".join([
         f", transport {platform.config.transport}",
         ", admission control ON" if platform.admission is not None else "",
+        ", resilience ON" if platform.resilience is not None else "",
+        (", orchestration ON"
+         if platform.orchestration is not None else ""),
         ", observability ON" if platform.observability is not None else "",
         (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
          if platform.slo is not None else ""),
@@ -533,7 +540,9 @@ async def serve(worker, batcher, host: str, port: int,
     in-flight async tasks, stop the batcher and the decode engines, close
     the store clients and log each kernel's launches while serving (warmup
     excluded). ``config`` (default: every section at its defaults) may
-    start the vitals sampler."""
+    start the vitals sampler. In the main thread, SIGUSR1 logs the
+    launches so far, the same two lines with ``so far`` for ``while
+    serving``, so a process that will be killed can still be counted."""
     from aiohttp import web
 
     await batcher.start()
@@ -543,6 +552,17 @@ async def serve(worker, batcher, host: str, port: int,
     await runner.setup()
     before = kernel_launches()
     before_by_model = _launches_by_model(worker.runtime)
+
+    def log_launches(when: str) -> None:
+        log.info("kernel launches %s %s", when, json.dumps(
+            {k: n - before[k] for k, n in kernel_launches().items()}))
+        log.info("kernel launches by model %s %s", when, json.dumps(
+            _launches_by_model(worker.runtime, before_by_model)))
+
+    loop = asyncio.get_running_loop()
+    report = threading.current_thread() is threading.main_thread()
+    if report:
+        loop.add_signal_handler(signal.SIGUSR1, log_launches, "so far")
     vitals = None
     try:
         await web.TCPSite(runner, host, port).start()
@@ -571,10 +591,9 @@ async def serve(worker, batcher, host: str, port: int,
             if close is not None and inspect.isawaitable(done := close()):
                 await done
         await runner.cleanup()
-        log.info("kernel launches while serving %s", json.dumps(
-            {k: n - before[k] for k, n in kernel_launches().items()}))
-        log.info("kernel launches by model while serving %s", json.dumps(
-            _launches_by_model(worker.runtime, before_by_model)))
+        if report:
+            loop.remove_signal_handler(signal.SIGUSR1)
+        log_launches("while serving")
 
 
 async def run_worker(config: FrameworkConfig, models: dict,

@@ -32,28 +32,15 @@ _FALSE = frozenset({"0", "false", "no", "off", ""})
 OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
                             "AI4E_TASKSTORE_", "AI4E_RIG_")
 
-_RESILIENCE = "resilience and orchestration (ROADMAP A18.9)"
 _TENANCY = "tenancy (ROADMAP A18.10)"
-_SLO_LADDER = ("the SLO burn feed to the degradation ladder, which needs "
-               "orchestration (ROADMAP A18.9)")
 _PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
-_ROLLOUT = ("the rollout controller, which runs under the rig and "
-            "BackendHealth (ROADMAP A18.9, A19)")
+_ROLLOUT = ("the rollout controller, which only the rig drives "
+            "(ROADMAP A19)")
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
 _MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
 UNPORTED: dict[tuple[str, str], str] = {
-    **{("AI4E_PLATFORM_", f): _RESILIENCE for f in (
-        "resilience", "resilience_failure_threshold", "resilience_window",
-        "resilience_error_rate", "resilience_recovery_seconds",
-        "resilience_max_attempts", "resilience_retry_base_s",
-        "resilience_retry_budget_ratio", "orchestration",
-        "orchestration_confidence", "orchestration_window",
-        "orchestration_horizon_s", "orchestration_costs",
-        "orchestration_ladder_up", "orchestration_ladder_down",
-        "orchestration_ladder_hold_s", "orchestration_scale_horizon_s")},
-    ("AI4E_PLATFORM_", "slo_ladder"): _SLO_LADDER,
     **{("AI4E_PLATFORM_", f): _PIPELINE for f in (
         "pipeline", "pipeline_event_replay", "pipeline_stream_max_s",
         "pipeline_chunk_replay")},
@@ -69,7 +56,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     **{("AI4E_ROLLOUT_", f): _ROLLOUT for f in (
         "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
         "burn_slow_max")},
-    ("AI4E_ROLLOUT_", "drain_eject_ttl_s"): _RESILIENCE,
 }
 
 
@@ -410,10 +396,12 @@ class FrameworkConfig:
     def to_platform_config(self):
         """The ``PlatformConfig`` the control plane assembles from: the
         platform section's fields, the depth logger's intervals from the
-        observability section."""
+        observability section and the drain ejection's TTL from the
+        rollout section."""
         pc = self.platform.to_platform_config()
         pc.queue_depth_interval = self.observability.queue_depth_interval
         pc.process_depth_interval = self.observability.process_depth_interval
+        pc.rollout_drain_eject_ttl_s = self.rollout.drain_eject_ttl_s
         return pc
 
     def to_dict(self) -> dict:

@@ -68,9 +68,22 @@ dispatcher picks for each delivery). Such a route is never cacheable: the
 cache key hashes the shared endpoint path, not the chosen backend, so one
 backend's answer would be replayed to all of the split's traffic.
 
+With the shared health model (``set_resilience``) the sync proxy's pick is
+health-aware, a connection that never reached the backend fails over to
+another backend of the set within ``max_attempts`` and the proxy's retry
+budget (a timeout or a broken response answers 502: the backend may have
+run the request), every response's status feeds the breakers, and a
+response carrying ``X-Draining`` ejects its backend for the drain TTL.
+With the orchestrator (``set_orchestration``) an admitted POST is placed
+on the cheapest backend predicted to finish within its budget, its round
+trip feeding the estimator, and the degradation ladder's brownout refuses
+a class: the sync proxy answers 503 before its occupancy check and after
+the cache consult, so cache hits still answer; the async edge answers 429
+inside the pressure shed. Both carry ``X-Shed-Reason: brownout at <hop>``.
+``rng`` (the constructor's) seeds the proxy's picks and backoffs.
+
 Not ported (ROADMAP A18): tenancy (the middleware's tenant branch,
-A18.10), orchestration's brownout and resilient proxying (A18.9) and event
-streams (A18.12).
+A18.10) and event streams (A18.12).
 """
 
 from __future__ import annotations
@@ -89,6 +102,7 @@ from ..admission.deadline import (SHED_REASON_HEADER, expired,
 from ..metrics import DEFAULT_REGISTRY, MetricsRegistry
 from ..observability import Tracer
 from ..observability.ledger import ADMITTED, PUBLISHED, ledger_event
+from ..resilience.retry import backoff_s
 from ..rescache.keys import (CACHE_STATUS_HEADER, cache_bypass_requested,
                              request_key)
 from ..taskstore import (APITask, InMemoryTaskStore, JournalDegradedError,
@@ -122,7 +136,7 @@ class Gateway:
 
     def __init__(self, store: InMemoryTaskStore,
                  metrics: MetricsRegistry | None = None,
-                 max_body_bytes: int = 128 * 1024 * 1024):
+                 max_body_bytes: int = 128 * 1024 * 1024, rng=None):
         # Edge payload cap: an async POST over it is refused with 413 before
         # a task exists.
         self.max_body_bytes = max_body_bytes
@@ -140,6 +154,16 @@ class Gateway:
         # Admission controller (set_admission); None: no deadlines, no
         # shedding, an unbounded sync proxy.
         self._admission = None
+        # The shared health model (set_resilience) and its retry budget
+        # for the sync proxy; None: one attempt, 502 on a connection error.
+        self._resilience = None
+        self._sync_retry_budget = None
+        # The orchestrator (set_orchestration); None: health-aware picks
+        # and no brownout.
+        self._orchestration = None
+        # The sync proxy's picks and backoffs draw from it (None: the
+        # health model's own, else the module's).
+        self._rng = rng
         # Subscription keys (set_api_keys); None: open.
         self._api_keys = None
         # Per-key rate limiter and quota tracker; None: unlimited.
@@ -265,6 +289,22 @@ class Gateway:
         the backlog, the sync proxy run under the adaptive in-flight cap,
         and every Retry-After computed from the observed drain rate."""
         self._admission = controller
+
+    def set_resilience(self, health) -> None:
+        """Enable (or clear with None) resilient sync proxying: health-aware
+        picks, failover of a connection error to another backend on the
+        proxy's retry budget, every status into the shared breakers and
+        ``X-Draining`` into the drain ejection."""
+        self._resilience = health
+        self._sync_retry_budget = (health.new_budget()
+                                   if health is not None else None)
+
+    def set_orchestration(self, orchestrator) -> None:
+        """Enable (or clear with None) deadline- and cost-aware placement of
+        admitted sync POSTs, whose round trips feed the estimator; the
+        ladder's brownout refuses classes beside the adaptive cap. Needs
+        admission and resilience (the assembly enforces it)."""
+        self._orchestration = orchestrator
 
     def add_async_route(self, prefix: str, task_endpoint,
                         max_body_bytes: int | None = None) -> None:
@@ -629,12 +669,6 @@ class Gateway:
                        if k.lower() not in dropped}
             if sync_scope is not None:
                 headers.update(propagation_headers(deadline_at, priority))
-            # A weighted pick for each request; one backend makes no RNG
-            # call.
-            target = (pick_backend(route.backends)
-                      + (("/" + tail) if tail else ""))
-            if request.query_string:
-                target += "?" + request.query_string
             # Sync POSTs (inference requests, not health probes) feed the
             # hub's per-route e2e latency and outcome.
             observe = (self._observability.observe_sync
@@ -647,6 +681,24 @@ class Gateway:
             # would wedge every later identical request.
             try:
                 if sync_scope is not None:
+                    # A declared brownout refuses the class before any
+                    # occupancy math; cache hits answered above. Inside the
+                    # try, so a refused leader resolves its future.
+                    brown = adm.brownout_refusal(priority)
+                    if brown is not None:
+                        adm.note_shed("gateway_sync", priority)
+                        self._requests.inc(route=route.prefix,
+                                           outcome="shed")
+                        if self._observability is not None:
+                            self._observability.record_refusal(
+                                route.prefix, "brownout", priority=priority)
+                        return web.Response(
+                            status=503, text="Service degraded (brownout).",
+                            headers={"Retry-After":
+                                     str(max(1, math.ceil(brown[0]))),
+                                     SHED_REASON_HEADER:
+                                     shed_reason("gateway_sync",
+                                                 "brownout")})
                     retry_after = sync_scope.try_acquire(priority)
                     if retry_after is not None:
                         adm.note_shed("gateway_sync", priority)
@@ -668,41 +720,111 @@ class Gateway:
                         cache.count_miss()
                     elif bypassed:
                         cache.count_bypass()
-                session = await self._get_session()
-                async with session.request(request.method, target,
-                                           data=body,
-                                           headers=headers) as resp:
-                    payload = await resp.read()
-                    self._requests.inc(route=route.prefix,
-                                       outcome=str(resp.status))
-                    if observe is not None:
-                        observe(route.prefix, time.perf_counter() - t0,
-                                resp.status)
-                    if fut is not None:
-                        # Only a success fills, and only while the family's
-                        # generation is the one captured at leadership (a
-                        # reload mid-proxy makes this the old weights'
-                        # answer); the waiters get whatever it is.
-                        if resp.status == 200:
-                            cache.put(key, payload, resp.content_type,
-                                      if_generation=gen)
-                        fut.set_result((resp.status, payload,
-                                        resp.content_type))
-                    return web.Response(
-                        status=resp.status, body=payload,
-                        content_type=resp.content_type,
-                        # Leader: miss; opted out: bypass; a waiter whose
-                        # leader failed: none.
-                        headers=({CACHE_STATUS_HEADER: "miss"}
-                                 if fut is not None
-                                 else {CACHE_STATUS_HEADER: "bypass"}
-                                 if bypassed else None))
-            except aiohttp.ClientError as exc:
-                self._requests.inc(route=route.prefix, outcome="unreachable")
-                if observe is not None:
-                    observe(route.prefix, time.perf_counter() - t0, 502)
-                return web.Response(status=502,
-                                    text=f"Backend unreachable: {exc}")
+                res = self._resilience
+                # Placement for admitted POSTs only: a GET probe would
+                # teach the estimator a service time no inference sees.
+                orch = self._orchestration if sync_scope is not None else None
+                tried: list[str] = []
+                attempt = 0
+                if self._sync_retry_budget is not None:
+                    self._sync_retry_budget.on_request()
+                while True:
+                    attempt += 1
+                    # A pick for each request (one backend makes no RNG
+                    # call), health-aware under resilience, placed under
+                    # orchestration.
+                    if orch is not None:
+                        base = orch.place(route.backends,
+                                          deadline_at=deadline_at,
+                                          priority=priority, rng=self._rng,
+                                          exclude=tried)
+                    elif res is not None:
+                        base = res.pick(route.backends, self._rng,
+                                        exclude=tried)
+                    else:
+                        base = pick_backend(route.backends, self._rng)
+                    target = base + (("/" + tail) if tail else "")
+                    if request.query_string:
+                        target += "?" + request.query_string
+                    session = await self._get_session()
+                    attempt_t0 = time.perf_counter()
+                    if orch is not None:
+                        # Sync load counts as queue pressure too, released
+                        # in the finally.
+                        orch.begin(base)
+                    try:
+                        async with session.request(
+                                request.method, target, data=body,
+                                headers=headers) as resp:
+                            payload = await resp.read()
+                            if orch is not None and 200 <= resp.status < 300:
+                                orch.observe(
+                                    base, time.perf_counter() - attempt_t0)
+                            if res is not None:
+                                # A 5xx (not 503) is failure evidence; the
+                                # answer still goes to the client: the
+                                # backend ran the request.
+                                res.observe_status(base, resp.status)
+                                if resp.headers.get("X-Draining"):
+                                    res.mark_draining(base)
+                            self._requests.inc(route=route.prefix,
+                                               outcome=str(resp.status))
+                            if observe is not None:
+                                observe(route.prefix,
+                                        time.perf_counter() - t0,
+                                        resp.status)
+                            if fut is not None:
+                                # Only a success fills, and only while the
+                                # family's generation is the one captured
+                                # at leadership (a reload mid-proxy makes
+                                # this the old weights' answer); the
+                                # waiters get whatever it is.
+                                if resp.status == 200:
+                                    cache.put(key, payload,
+                                              resp.content_type,
+                                              if_generation=gen)
+                                fut.set_result((resp.status, payload,
+                                                resp.content_type))
+                            return web.Response(
+                                status=resp.status, body=payload,
+                                content_type=resp.content_type,
+                                # Leader: miss; opted out: bypass; a waiter
+                                # whose leader failed: none.
+                                headers=({CACHE_STATUS_HEADER: "miss"}
+                                         if fut is not None
+                                         else {CACHE_STATUS_HEADER: "bypass"}
+                                         if bypassed else None))
+                    except (aiohttp.ClientError,
+                            asyncio.TimeoutError) as exc:
+                        # Under resilience every transport failure is
+                        # breaker evidence, but only a connect failure
+                        # retries: the request never reached the backend.
+                        # A timeout or a broken response may have run it.
+                        # Without resilience a timeout propagates, as
+                        # before.
+                        if res is not None:
+                            res.record_failure(base)
+                            if (isinstance(exc, aiohttp.ClientConnectorError)
+                                    and attempt < res.policy.max_attempts
+                                    and self._sync_retry_budget.try_retry()):
+                                tried.append(base)
+                                res.note_failover("gateway_sync")
+                                await asyncio.sleep(backoff_s(
+                                    attempt, res.policy.retry_base_s,
+                                    res.policy.retry_cap_s, self._rng))
+                                continue
+                        elif isinstance(exc, asyncio.TimeoutError):
+                            raise
+                        self._requests.inc(route=route.prefix,
+                                           outcome="unreachable")
+                        if observe is not None:
+                            observe(route.prefix, time.perf_counter() - t0,
+                                    502)
+                        return web.Response(
+                            status=502, text=f"Backend unreachable: {exc}")
+                    finally:
+                        if orch is not None:
+                            orch.end(base)
             finally:
                 if acquired:
                     # Observe before the release, so the limiter's

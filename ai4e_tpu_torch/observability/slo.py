@@ -1,6 +1,5 @@
 """SLO objectives + multi-window burn-rate engine; a copy of
-``ai4e_tpu/observability/slo.py`` without the degradation-ladder feed
-(``slo_ladder``, which needs orchestration: ROADMAP A18.9).
+``ai4e_tpu/observability/slo.py``.
 
 The platform emits latency histograms and outcome counters; an operator
 still has to decide "is this fine". An SLO makes that decision a
@@ -10,7 +9,9 @@ own histograms/counters, and exports **burn rate** — how many times
 faster than sustainable the error budget is being spent — over a fast
 and a slow window (the classic multi-window multi-burn alert shape:
 page when BOTH burn, so a blip doesn't page and a slow leak doesn't
-hide).
+hide). With ``slo_ladder`` a sustained breach feeds the degradation
+ladder as further miss evidence, so the brownout reacts to SLO burn, not
+only to deadline-miss predictions.
 
 Objective grammar (``AI4E_PLATFORM_SLO_OBJECTIVES``)::
 
@@ -164,6 +165,7 @@ class SloEngine:
                     f"kind {o.kind!r}")
             self._snaps[key] = deque(maxlen=keep)
         self._task: asyncio.Task | None = None
+        self._ladder = None
         self._burn = self.metrics.gauge(
             "ai4e_slo_burn_rate",
             "Error-budget burn rate per objective and window "
@@ -174,6 +176,13 @@ class SloEngine:
         self._breaches = self.metrics.counter(
             "ai4e_slo_breaches_total",
             "Ticks on which fast AND slow windows both burned > 1")
+
+    def attach_ladder(self, ladder) -> None:
+        """Feed sustained breaches to the degradation ladder as miss
+        evidence (``slo_ladder``; the assembly wires it under
+        orchestration): each tick, an objective with traffic contributes
+        its tick's events, a miss when both windows burn."""
+        self._ladder = ladder
 
     # -- snapshot sources ----------------------------------------------------
 
@@ -234,6 +243,15 @@ class SloEngine:
             breached = burns["fast"] > 1.0 and burns["slow"] > 1.0
             if breached:
                 self._breaches.inc(route=obj.route, kind=obj.kind)
+            if self._ladder is not None:
+                # Evidence scaled to the tick's event count: one bare note
+                # a multi-second tick would decay below the ladder's
+                # min_rate floor and never move it. An idle route adds
+                # nothing.
+                prev_total = snaps[-2][2] if len(snaps) >= 2 else 0.0
+                tick_events = total - prev_total
+                if tick_events > 0:
+                    self._ladder.note(miss=breached, n=tick_events)
         return out
 
     # -- lifecycle (assembly-owned loop) ------------------------------------

@@ -53,13 +53,21 @@ broker puts each task on its shard's sub-queue (``{path}#s{i}``), and
 every route gets a dispatcher for each sub-queue, each with its own
 admission limiter. The replica tails start and stop with the platform; a
 restart re-seeds the unfinished tasks every shard's journal restored. As
-in JAX, the sharded store refuses the native cores, ``replicate_from`` and
-an ``autoscale`` route (which needs orchestration's sharded scaler,
-ROADMAP A18.9), and orchestration itself is refused by
-``config.check_ported``. As in JAX, the native store refuses
-``result_dir``, an explicit ``reaper_terminal_retention`` and
+in JAX, the sharded store refuses the native cores, ``replicate_from`` and,
+without orchestration, an ``autoscale`` route. As in JAX, the native store
+refuses ``result_dir``, an explicit ``reaper_terminal_retention`` and
 observability, and either native core refuses admission, each with JAX's
 text.
+
+With ``resilience`` one ``BackendHealth`` (breakers, retries with
+failover, drain ejection; ``resilience/``) serves the gateway's sync
+proxy and every dispatcher. With ``orchestration`` (which needs admission
+and resilience, JAX's refusal) one ``Orchestrator`` places their
+deliveries, its degradation ladder is admission's (``set_ladder``), with
+``slo_ladder`` (which needs SLO objectives and orchestration) the SLO
+engine feeds it, and an ``autoscale`` route scales on the predictive
+signal: on a sharded store through one ``ShardedAutoscaleController``
+reading each shard's store at every tick.
 
 ``PlatformConfig`` holds the fields ``LocalPlatform`` reads, with the JAX
 package's defaults; ``PlatformSection.to_platform_config`` fills it, after
@@ -176,6 +184,40 @@ class PlatformConfig:
     task_shard_replicas: int = 1
     shard_tail_interval: float = 0.25
     shard_feed_recent: int = 4096
+    # Resilient routing: a breaker a backend shared by the sync proxy and
+    # every dispatcher, in-delivery retries with failover on a retry
+    # budget, 5xx as transient and duplicate suppression. Off by default:
+    # on, a 5xx is retried and redelivered instead of failing the task.
+    resilience: bool = False
+    resilience_failure_threshold: int = 5   # consecutive failures to trip
+    resilience_window: int = 16             # rolling error-rate window
+    resilience_error_rate: float = 0.5      # window fraction that trips
+    resilience_recovery_seconds: float = 30.0  # open -> half-open cooldown
+    resilience_max_attempts: int = 3        # POST attempts a delivery
+    resilience_retry_base_s: float = 0.05   # first in-delivery retry delay
+    resilience_retry_budget_ratio: float = 0.2  # retries a request, steady
+    # Deadline-aware orchestration: placement on predicted completion
+    # within the deadline and on backend cost, the degradation ladder and
+    # predictive scaling. Off by default: on, backends are unequal and
+    # sustained predicted-miss pressure may brown the platform out class
+    # by class. Needs admission and resilience.
+    orchestration: bool = False
+    orchestration_confidence: float = 0.75   # p_within bar a backend clears
+    orchestration_window: int = 256          # RTT samples a backend
+    orchestration_horizon_s: float = 60.0    # sample decay horizon (s)
+    # "substring=cost,..." relative backend cost (first match wins,
+    # unmatched = 1.0).
+    orchestration_costs: str | None = None
+    orchestration_ladder_up: float = 0.3     # pressure that steps up
+    orchestration_ladder_down: float = 0.1   # pressure that steps down
+    orchestration_ladder_hold_s: float = 5.0  # sustain a step (hysteresis)
+    orchestration_scale_horizon_s: float = 10.0  # predictive projection
+    # SLO breaches as ladder evidence (needs slo_objectives and
+    # orchestration).
+    slo_ladder: bool = False
+    # How long a backend that answered X-Draining stays out of placement
+    # (AI4E_ROLLOUT_DRAIN_EJECT_TTL_S).
+    rollout_drain_eject_ttl_s: float = 30.0
 
 
 class LocalPlatform:
@@ -249,6 +291,58 @@ class LocalPlatform:
             # Terminal transitions feed the drain rate (every shed's
             # Retry-After) and score goodput.
             self.admission.attach_store(self.store)
+        self.resilience = None
+        if self.config.resilience:
+            # One health model: the sync proxy and every dispatcher record
+            # into and route around the same breakers.
+            from .resilience import BackendHealth, ResiliencePolicy
+
+            self.resilience = BackendHealth(
+                policy=ResiliencePolicy(
+                    failure_threshold=self.config.resilience_failure_threshold,
+                    window=self.config.resilience_window,
+                    error_rate=self.config.resilience_error_rate,
+                    recovery_seconds=self.config.resilience_recovery_seconds,
+                    max_attempts=self.config.resilience_max_attempts,
+                    retry_base_s=self.config.resilience_retry_base_s,
+                    retry_budget_ratio=(
+                        self.config.resilience_retry_budget_ratio),
+                    drain_eject_ttl_s=(
+                        self.config.rollout_drain_eject_ttl_s)),
+                metrics=self.metrics)
+        self.orchestration = None
+        if self.config.orchestration:
+            if self.admission is None or self.resilience is None:
+                raise ValueError(
+                    "orchestration=True requires admission=True and "
+                    "resilience=True (it composes their signals — "
+                    "docs/orchestration.md)")
+            from .orchestration import (Orchestrator, OrchestrationPolicy,
+                                        parse_costs)
+
+            self.orchestration = Orchestrator(
+                self.resilience,
+                policy=OrchestrationPolicy(
+                    confidence=self.config.orchestration_confidence,
+                    window=self.config.orchestration_window,
+                    horizon_s=self.config.orchestration_horizon_s,
+                    costs=parse_costs(self.config.orchestration_costs),
+                    ladder_up=self.config.orchestration_ladder_up,
+                    ladder_down=self.config.orchestration_ladder_down,
+                    ladder_hold_s=self.config.orchestration_ladder_hold_s,
+                    scale_horizon_s=(
+                        self.config.orchestration_scale_horizon_s)),
+                metrics=self.metrics)
+            # Admission consults the ladder on every decision, and its
+            # store listener feeds the ladder the late and expired tasks.
+            self.admission.set_ladder(self.orchestration.ladder)
+        if self.config.slo_ladder:
+            if self.slo is None or self.orchestration is None:
+                raise ValueError(
+                    "slo_ladder=True requires slo_objectives AND "
+                    "orchestration=True — it feeds SLO breaches to the "
+                    "degradation ladder (docs/observability.md)")
+            self.slo.attach_ladder(self.orchestration.ladder)
         self.broker = None
         self.dispatchers = None
         self.topic = None
@@ -272,6 +366,10 @@ class LocalPlatform:
             self.gateway.set_observability(self.observability)
         if self.admission is not None:
             self.gateway.set_admission(self.admission)
+        if self.resilience is not None:
+            self.gateway.set_resilience(self.resilience)
+        if self.orchestration is not None:
+            self.gateway.set_orchestration(self.orchestration)
         # None = AUTO: 15 minutes on the Python store, no eviction on the
         # native one (it has none); negative opts out.
         retention = self.config.reaper_terminal_retention
@@ -332,7 +430,8 @@ class LocalPlatform:
             observability=self.observability, admission=self.admission,
             metrics=self.metrics, result_cache=self.result_cache,
             result_store=(self.store if self.result_cache is not None
-                          else None))
+                          else None),
+            resilience=self.resilience, orchestration=self.orchestration)
 
     def _build_push(self) -> None:
         """(Re)build the push transport: topic, webhook and the recorded
@@ -479,7 +578,7 @@ class LocalPlatform:
             return
         self.broker.register_queue(queue_name)
         if self.config.task_shards > 1:
-            if autoscale is not None:
+            if autoscale is not None and self.orchestration is None:
                 # Orchestration's sharded scaler routes per-shard decisions
                 # through one actuator; without it, one autoscaler a
                 # sub-queue would be two control loops on one route.
@@ -499,7 +598,7 @@ class LocalPlatform:
                                                  concurrency=concurrency)
                        for qn in queue_names]
         if autoscale is not None:
-            self._attach_autoscaler(queue_name, dispatchers[0], autoscale,
+            self._attach_autoscaler(queue_names, dispatchers, autoscale,
                                     autoscale_interval)
         elif self.admission is not None:
             # Each queue's limiter (delivery RTTs, backpressure backoffs)
@@ -509,15 +608,60 @@ class LocalPlatform:
                 self.admission.add_target("dispatch:" + qn,
                                           dispatcher.set_concurrency)
 
-    def _attach_autoscaler(self, queue_name: str, dispatcher, policy,
-                           interval: float) -> None:
-        """HPA-style scaling of one route's dispatcher on its queue
-        pressure (``created`` + ``running`` in the task store)."""
-        from .scaling import AutoscaleController, DispatcherScaleTarget
+    def _attach_autoscaler(self, queue_names: list, dispatchers: list,
+                           policy, interval: float) -> None:
+        """HPA-style scaling of a route's dispatchers on its queue pressure
+        (``created`` + ``running`` in the task store). Under orchestration
+        the signal is predictive (``scaling.predictive_signal``, from this
+        route's arrival and drain rates), and a sharded route gets one
+        ``ShardedAutoscaleController``: a decision for each shard, one
+        actuator."""
+        from .scaling import (AutoscaleController, DispatcherScaleTarget,
+                              ShardedAutoscaleController, ShardScaleTarget,
+                              predictive_signal)
 
+        base_path = dispatchers[0].route_path
+        if len(dispatchers) > 1:
+            # Sharded (only under orchestration): each shard's own depth,
+            # the route's arrival and drain imbalance split evenly (the
+            # ring spreads task ids uniformly).
+            horizon = self.orchestration.policy.scale_horizon_s
+            n = len(dispatchers)
+
+            def shard_depth(i, p=base_path):
+                def depth() -> float:
+                    # Read at every tick: a shard failover swaps a promoted
+                    # replica in, and a captured store would be the dead
+                    # primary's.
+                    s = self.store.shard_stores()[i]
+                    return (s.set_len(p, "created")
+                            + s.set_len(p, "running"))
+                return depth
+
+            shards = [(qn, predictive_signal(
+                shard_depth(i),
+                lambda p=base_path, n=n: (
+                    self.admission.arrival_rate(route=p) / n),
+                lambda p=base_path, n=n: (
+                    self.admission.route_drain_rate(p) / n),
+                horizon)) for i, qn in enumerate(queue_names)]
+            self.autoscalers.append(ShardedAutoscaleController(
+                shards, ShardScaleTarget(dispatchers), policy=policy,
+                interval=interval, metrics=self.metrics))
+            return
+        signal = None
+        if self.orchestration is not None:
+            store = self.store
+            signal = predictive_signal(
+                lambda: (store.set_len(base_path, "created")
+                         + store.set_len(base_path, "running")),
+                lambda p=base_path: self.admission.arrival_rate(route=p),
+                lambda p=base_path: self.admission.route_drain_rate(p),
+                self.orchestration.policy.scale_horizon_s)
         self.autoscalers.append(AutoscaleController(
-            self.store, queue_name, DispatcherScaleTarget(dispatcher),
-            policy=policy, interval=interval, metrics=self.metrics))
+            self.store, queue_names[0], DispatcherScaleTarget(dispatchers[0]),
+            policy=policy, interval=interval, signal=signal,
+            metrics=self.metrics))
 
     def publish_sync_api(self, public_prefix: str, backend_uri,
                          max_body_bytes: int | None = None) -> None:

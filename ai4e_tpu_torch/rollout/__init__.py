@@ -1,3 +1,3 @@
-"""Rollout: the worker's drain and the generation label of its rollout
-series (counterpart of ``ai4e_tpu/rollout``; ``CanaryWeights`` and the
-rollout controller are not ported, ROADMAP A18.9 and A19)."""
+"""Rollout: the worker's drain, the generation label of its rollout
+series and the canary split (counterpart of ``ai4e_tpu/rollout``; the
+rollout controller is not ported, ROADMAP A19)."""

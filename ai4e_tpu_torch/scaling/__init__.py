@@ -1,5 +1,8 @@
 from .autoscaler import (AutoscaleController, AutoscalePolicy,
-                         DispatcherScaleTarget, HPADecider, ScaleTarget)
+                         DispatcherScaleTarget, HPADecider, ScaleTarget,
+                         ShardedAutoscaleController, ShardScaleTarget,
+                         predictive_signal)
 
 __all__ = ["AutoscaleController", "AutoscalePolicy", "DispatcherScaleTarget",
-           "HPADecider", "ScaleTarget"]
+           "HPADecider", "ScaleTarget", "ShardScaleTarget",
+           "ShardedAutoscaleController", "predictive_signal"]

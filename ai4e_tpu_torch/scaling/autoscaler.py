@@ -4,10 +4,11 @@ dispatcher per route: the HPA feedback loop, in the control plane.
 The signal is the task store's per-endpoint depth, tasks ``created`` plus
 tasks ``running``; the decision rule is the k8s HPA's (proportional, with
 a tolerance dead-band and a scale-down stabilisation window); the actuator
-is a ``ScaleTarget``, here the dispatcher's delivery-loop fan-out. Not
-ported: ``predictive_signal``, which reads orchestration's arrival and
-drain estimators, and the sharded controller with its ``ShardScaleTarget``,
-which runs only under orchestration (both ROADMAP A18.9).
+is a ``ScaleTarget``, here the dispatcher's delivery-loop fan-out. Under
+orchestration the signal is predictive (``predictive_signal``: the backlog
+projected from admission's arrival and drain rates), and a sharded route
+gets one ``ShardedAutoscaleController``: a decision for each shard's
+sub-queue, all applied through one actuator (``ShardScaleTarget``).
 """
 
 from __future__ import annotations
@@ -68,6 +69,22 @@ class HPADecider:
             raw = min(max(r for _, r in self._recommendations),
                       current_replicas)
         return raw
+
+
+def predictive_signal(depth_fn: Callable[[], float],
+                      arrival_rate_fn: Callable[[], float],
+                      drain_rate_fn: Callable[[], float],
+                      horizon_s: float = 10.0) -> Callable[[], float]:
+    """The backlog projected ``horizon_s`` ahead: ``depth + max(0, arrival
+    - drain) x horizon``. When arrivals outrun the drain the projection
+    grows before the depth does, so the HPA rule scales up ahead of the
+    queue wait that causes the first deadline miss. A draining queue
+    projects its depth only: scale-down damping is the decider's
+    stabilisation window. The rates are the admission controller's."""
+    def signal() -> float:
+        growth = max(0.0, float(arrival_rate_fn()) - float(drain_rate_fn()))
+        return float(depth_fn()) + growth * horizon_s
+    return signal
 
 
 class ScaleTarget(Protocol):
@@ -185,3 +202,68 @@ class AutoscaleController(_ControlLoop):
         self._replica_gauge.set(self.target.replicas,
                                 endpoint=self.endpoint_path)
         return desired
+
+
+class ShardScaleTarget:
+    """One actuator over a sharded route's per-shard dispatchers: the
+    sharded controller's decisions for each shard go through it, so each
+    dispatcher's concurrency has one writer. It is also a plain
+    ``ScaleTarget``: ``replicas`` and ``scale_to`` treat the shards as one
+    pool, split evenly with the remainder on the lowest shards."""
+
+    def __init__(self, dispatchers: list):
+        if not dispatchers:
+            raise ValueError("ShardScaleTarget needs at least one dispatcher")
+        self.dispatchers = list(dispatchers)
+
+    @property
+    def replicas(self) -> int:
+        return sum(d.concurrency for d in self.dispatchers)
+
+    def scale_to(self, n: int) -> None:
+        base, rem = divmod(max(0, n), len(self.dispatchers))
+        for i, d in enumerate(self.dispatchers):
+            d.set_concurrency(base + (1 if i < rem else 0))
+
+    def shard_replicas(self, i: int) -> int:
+        return self.dispatchers[i].concurrency
+
+    def scale_shard(self, i: int, n: int) -> None:
+        self.dispatchers[i].set_concurrency(max(0, n))
+
+
+class ShardedAutoscaleController(_ControlLoop):
+    """Per-shard scaling decisions through one actuator (a sharded
+    ``autoscale`` route, which the assembly accepts only under
+    orchestration). One control loop; for each sub-queue its own signal
+    and its own ``HPADecider`` (one hot shard must not pin a cold one's
+    loops up); the sub-queue is the endpoint label."""
+
+    def __init__(self, shards: list, target: ShardScaleTarget,
+                 policy: AutoscalePolicy | None = None,
+                 interval: float = 5.0,
+                 metrics: MetricsRegistry | None = None,
+                 clock: Callable[[], float] = time.monotonic):
+        # shards: [(sub_queue_name, signal_fn)], aligned with the target's
+        # dispatchers.
+        if len(shards) != len(target.dispatchers):
+            raise ValueError(
+                f"{len(shards)} shard signals for "
+                f"{len(target.dispatchers)} dispatchers")
+        self.shards = list(shards)
+        self._loop_name = (shards[0][0] if shards else "sharded")
+        self.target = target
+        self.policy = policy or AutoscalePolicy()
+        self.interval = interval
+        self.deciders = [HPADecider(self.policy, clock=clock)
+                         for _ in self.shards]
+        self._make_instruments(metrics)
+
+    def tick(self) -> None:
+        for i, (name, signal) in enumerate(self.shards):
+            self._apply_decision(
+                name, self.deciders[i], float(signal()),
+                self.target.shard_replicas(i),
+                lambda n, i=i: self.target.scale_shard(i, n))
+            self._replica_gauge.set(self.target.shard_replicas(i),
+                                    endpoint=name)

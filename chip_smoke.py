@@ -323,6 +323,35 @@ Phases, each of which raises on failure:
    completion on the killed shard. Normalize and argmax launched in the
    worker. It prints ``shards 17a turn``, ``shards 17b`` and ``phase 17``
    lines.
+18. the push transport, weighted canary backends, typed API definitions
+   and the request reporter, land cover from phase 10's checkpoint on
+   workers A (generation 1) and B (generation 2), each reporting to a
+   reporter: (a) control planes in turns queue, push, push, queue on A
+   alone; (b) one caching control plane fed weighted routes and a
+   ``definitions`` route; (c) the reporter sampled through (b)'s burst.
+   It prints ``push 18a turn``, ``canary 18b``, ``reporter 18c`` and
+   ``phase 18`` lines;
+19. resilience and orchestration, land cover from phase 10's checkpoint on
+   workers A and B (child processes; SIGUSR1 makes a worker log its
+   launches so far, so a killed start is counted too): (a) admission and
+   resilience on: B SIGKILLed mid-burst (every task completed with phase
+   10's answer, the reaper rescuing what B held; failovers, B's
+   ejections and its breaker's opening counted), B restarted (a probe
+   closes its breaker, B serves again), A SIGSTOPped for 2 s under sync
+   load, A drained under load (ejected, its breaker untouched, nothing
+   lost); (b) orchestration, the SLO ladder and the result cache on, A
+   the cheap tier: 5 ms deadlines climb the degradation ladder to
+   ``shed_default`` (background refused ``brownout at <hop>``, a cached
+   tile still answered), the idle platform steps it back to ``normal``,
+   each step's time from the control plane's log; deadline-free tasks
+   all placed on A; A killed, deadline tasks go to B; A restarted, one
+   ``probe`` stamp; (c) deploy/specs/routes.json as written on a 4-shard
+   store with orchestration (a ``ShardedAutoscaleController`` a
+   ``autoscale`` route) against the raw-depth scaler on one store, the
+   same backlog: the first scale-up, ``published``->``popped`` p50/p95,
+   no failed task. Normalize and argmax launched in every worker start
+   that served. It prints ``19a``, ``19b``, ``scale 19c`` and ``phase 19``
+   lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -9007,6 +9036,945 @@ def phase_18(handoff: dict, kernels: list[dict],
     return report
 
 
+# -- phase 19: resilience and orchestration -----------------------------------
+
+RES_ASYNC, RES_SYNC = "/v1/res/classify-async", "/v1/res/classify"
+ONE_SYNC = "/v1/one/classify"  # worker A alone: a cacheable route
+RES_RECOVERY_S = 2.0     # AI4E_PLATFORM_RESILIENCE_RECOVERY_SECONDS
+RES_THRESHOLD = 3        # AI4E_PLATFORM_RESILIENCE_FAILURE_THRESHOLD
+RES_DRAIN_TTL_S = 3.0    # AI4E_ROLLOUT_DRAIN_EJECT_TTL_S
+RES_RESCUE_S = 3         # AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT: B's adopted tasks
+RES_KILL_AFTER = 16      # 19a: tasks completed before B is killed
+N_RES_SYNC = 16          # 19a: sync requests after the kill
+RES_SYNC_WIDTH = 4       # ... in flight at a time (admission's initial cap: 8)
+N_STALL_SYNC = 8         # 19a: sync requests at once while A is stopped
+RES_STALL_S = 2.0        # 19a: how long A stays stopped
+N_DRAIN = 32             # 19a: tasks of the burst the drain meets, and again
+LADDER_HOLD_S = 0.5      # 19b: AI4E_PLATFORM_ORCHESTRATION_LADDER_HOLD_S
+N_PLACE = 32             # 19b: deadline-free tasks, all on the cheap tier
+N_DEADLINE = 16          # 19b: deadline-carrying tasks while A is down
+DEADLINE_MS = "10000"    # ... their budget
+TIGHT_MS = "5"           # 19b: the climb's deadline, 13c's (no tile makes it)
+TIGHT_EVERY_S = 0.3      # 19b: a tight task (two background requests at
+#                          shed_background and above) this often
+KNOCK_EVERY_S = 0.25     # 19b: the idle platform's requests on the way down
+LADDER_WAIT_S = 40.0     # 19b: the climb and the descent each end within this
+N_SCALE = 768            # 19c: the backlog (under the default class's
+#                          share of admission's 1024-task backlog, 870)
+SCALE_SUBMITTERS = 32
+SCALE_ROUNDS = 3         # 19c: backlogs sent until one meets a tick
+SCALE_TURNS = (("sharded_predictive", 4), ("raw_depth", 1))
+SCALE_TICK_WAIT_S = 12.0  # 19c: every autoscale route ticks within this
+LAUNCH_MARKER = "kernel launches by model so far "
+OCTET = {"Content-Type": "application/octet-stream"}
+
+
+def res_routes(a: str, b: str) -> dict:
+    """19a and 19b's routes.json: the async and the sync route over workers
+    A and B at 1:1, and a sync route to A alone (cacheable)."""
+    def pair(path: str) -> list:
+        return [{"uri": a + path, "weight": 1}, {"uri": b + path,
+                                                 "weight": 1}]
+    return {"apis": [
+        {"prefix": RES_ASYNC, "mode": "async", "backends": pair(WK_ASYNC)},
+        {"prefix": RES_SYNC, "mode": "sync", "backends": pair(WK_SYNC)},
+        {"prefix": ONE_SYNC, "mode": "sync", "backend": a + WK_SYNC}]}
+
+
+def start_res_worker(w: dict, env: dict, device: str) -> None:
+    """(Re)start worker ``w`` on its own port, each start with its own
+    log; the start's launches are counted from 0."""
+    w["starts"] = w.get("starts", 0) + 1
+    w["log"] = w["out_dir"] / f"res_worker_{w['tag']}{w['starts']}.log"
+    w["proc"] = start_child(
+        ["worker", "--models", str(w["models"]), "--host", "127.0.0.1",
+         "--port", str(w["port"]), "--device", device], w["log"], env)
+    w["mark"] = {}
+
+
+def launches_now(w: dict) -> dict:
+    """SIGUSR1 makes the worker log its launches so far: land cover's."""
+    import signal
+
+    seen = w["log"].read_text(errors="replace").count(LAUNCH_MARKER)
+    w["proc"].send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        lines = [line for line in
+                 w["log"].read_text(errors="replace").splitlines()
+                 if LAUNCH_MARKER in line]
+        if len(lines) > seen:
+            return json.loads(lines[-1].split(LAUNCH_MARKER, 1)[1]).get(
+                "landcover", {})
+        time.sleep(0.02)
+    raise AssertionError(f"worker {w['tag']} logged no launches:\n"
+                         f"{tail(w['log'])}")
+
+
+def take_launches(w: dict, part: str, book: dict) -> None:
+    """This start's launches since its last reading, into ``book[part]``
+    under the start's name (``A1``, ``B2``, ...)."""
+    now = launches_now(w)
+    book.setdefault(part, {})[f"{w['tag']}{w['starts']}"] = {
+        k: n - w["mark"].get(k, 0) for k, n in now.items()}
+    w["mark"] = now
+
+
+def kill_worker(w: dict, part: str, book: dict) -> None:
+    """Read the start's launches, then SIGKILL it."""
+    take_launches(w, part, book)
+    w["proc"].kill()
+    w["proc"].wait(timeout=30)
+
+
+async def res_task(http, gateway: str, route: str, body: bytes,
+                   headers: dict | None = None) -> dict:
+    """One async request: a refusal's status and ``X-Shed-Reason``, or the
+    task long-polled to terminal, with its result when it completed."""
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    t0 = time.perf_counter()
+    async with http.post(gateway + route, data=body,
+                         headers={**OCTET, **(headers or {})}) as r:
+        if r.status != 200:
+            return {"status": r.status, "shed": r.headers.get(
+                "X-Shed-Reason"), "ms": (time.perf_counter() - t0) * 1e3}
+        task_id = (await r.json())["TaskId"]
+    while True:
+        async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
+                            params={"wait": "60"}) as r:
+            record = await r.json()
+        if TaskStatus.canonical(record["Status"]) in TaskStatus.TERMINAL:
+            break
+    out = {"status": 200, "task_id": task_id, "record": record,
+           "ms": (time.perf_counter() - t0) * 1e3}
+    if record["Status"] == LC_DONE:
+        out["result"] = json.loads(await result_bytes(http, gateway,
+                                                      task_id))
+    return out
+
+
+async def res_sync(http, gateway: str, route: str, body: bytes,
+                   headers: dict | None = None) -> dict:
+    t0 = time.perf_counter()
+    async with http.post(gateway + route, data=body,
+                         headers={**OCTET, **(headers or {})}) as r:
+        out = {"status": r.status, "shed": r.headers.get("X-Shed-Reason"),
+               "xcache": r.headers.get("X-Cache")}
+        if r.status == 200:
+            out["result"] = await r.json()
+        else:
+            out["text"] = await r.text()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+async def ledger_of(http, gateway: str, task_id: str) -> list:
+    async with http.get(f"{gateway}/v1/taskmanagement/task/{task_id}",
+                        params={"ledger": "1"}) as r:
+        return (await r.json()).get("Ledger", [])
+
+
+async def metrics_of(http, url: str) -> str:
+    async with http.get(url + "/metrics") as r:
+        return await r.text()
+
+
+def check_served(runs: list[dict], want: np.ndarray, pixels: int,
+                 what: str) -> None:
+    """Every run answered with phase 10's histogram of its tile: run ``i``
+    sent tile ``i % len(want)``."""
+    for i, run in enumerate(runs):
+        if run.get("status") != 200 or "result" not in run:
+            raise AssertionError(f"{what}: request {i}: {run}")
+        check_histogram(run["result"], want[i % len(want)], pixels)
+
+
+def host_of(url: str) -> str:
+    return url.split("://", 1)[1]
+
+
+def stamps_by(ledgers: list[list], event: str) -> dict:
+    """``{reason: count}`` of one hop-ledger event over tasks' ledgers."""
+    out: dict = {}
+    for ledger in ledgers:
+        for stamp in ledger:
+            if stamp["e"] == event:
+                out[stamp.get("r")] = out.get(stamp.get("r"), 0) + 1
+    return out
+
+
+async def resilience_drive(gateway: str, wk: dict, cp: dict, bodies: list,
+                           want: np.ndarray, pixels: int, env: dict,
+                           device: str, book: dict) -> dict:
+    """19a's client: B killed mid-burst, B restarted, A stalled, A
+    drained; the control plane's /metrics around each part."""
+    import signal
+
+    import aiohttp
+
+    a, b = wk["A"], wk["B"]
+    ha, hb = host_of(a["url"]), host_of(b["url"])
+    out: dict = {}
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", cp["proc"], cp["log"])
+        m0 = await metrics_of(http, gateway)
+        # Failover: B dies under a burst; the sync route runs meanwhile.
+        finished = asyncio.Event()
+        count = [0]
+
+        async def one(i: int) -> dict:
+            run = await res_task(http, gateway, RES_ASYNC, bodies[i])
+            count[0] += 1
+            if count[0] >= RES_KILL_AFTER:
+                finished.set()
+            return run
+
+        t0 = time.perf_counter()
+        burst = [asyncio.ensure_future(one(i)) for i in range(len(bodies))]
+        await asyncio.wait_for(finished.wait(), 300)
+        await asyncio.to_thread(kill_worker, b, "19a", book)
+        killed_at = time.perf_counter() - t0
+        gate = asyncio.Semaphore(RES_SYNC_WIDTH)
+
+        async def gated(i: int) -> dict:
+            async with gate:
+                return await res_sync(http, gateway, RES_SYNC, bodies[i])
+
+        sync = await asyncio.gather(*(gated(i) for i in range(N_RES_SYNC)))
+        runs = await asyncio.gather(*burst)
+        burst_s = time.perf_counter() - t0
+        m1 = await metrics_of(http, gateway)
+        check_served(runs, want, pixels, "19a burst")
+        check_served(sync, want, pixels, "19a sync after the kill")
+        texts = (m0, m1)
+        out["failover"] = {
+            "tasks": len(runs), "killed_after_s": killed_at,
+            "burst_s": burst_s, "sync": len(sync),
+            "sync_p50_ms": pct([s["ms"] for s in sync], 50),
+            "failovers_dispatcher": metric_delta(
+                texts, "ai4e_resilience_failovers_total",
+                component="dispatcher"),
+            "failovers_gateway_sync": metric_delta(
+                texts, "ai4e_resilience_failovers_total",
+                component="gateway_sync"),
+            "retries": metric_delta(texts, "ai4e_resilience_retries_total"),
+            "ejections_B": metric_delta(
+                texts, "ai4e_resilience_ejections_total", backend=hb),
+            "opened_B": metric_delta(
+                texts, "ai4e_resilience_transitions_total", backend=hb,
+                state="open"),
+            "breaker_B": metric_sum(m1, "ai4e_resilience_breaker_state",
+                                    backend=hb),
+            "rescued": metric_delta(texts, "ai4e_reaper_actions_total",
+                                    outcome="requeued"),
+            "dispatch": {k: v for k, v in family_outcomes(
+                m1, "ai4e_dispatch_total").items()}}
+        f = out["failover"]
+        # A host's breakers (one a backend URI: the async and the sync
+        # path) share the gauge's label, so the transitions decide.
+        if f["opened_B"] < 1:
+            raise AssertionError(f"19a: B's breaker never opened: {f}")
+        if f["failovers_dispatcher"] + f["failovers_gateway_sync"] < 1:
+            raise AssertionError(f"19a: no failover: {f}")
+        # Recovery: B back on its port; after the cooldown one probe closes
+        # its breaker and B serves again.
+        t1 = time.perf_counter()
+        start_res_worker(b, env, device)
+        await wait_healthy(http, b["url"] + "/v1/models/", b["proc"],
+                           b["log"])
+        up_s = time.perf_counter() - t1
+        # Waves on both routes until a probe closed a breaker of B's and B
+        # took deliveries, then one more in which no pick routed around B:
+        # every breaker of B's admits traffic again.
+        waves, recovered, m_wave = 0, False, m1
+        while waves < 6:
+            waves += 1
+            wave = await asyncio.gather(*(res_task(
+                http, gateway, RES_ASYNC, bodies[i]) for i in range(16)))
+            sync_wave = await asyncio.gather(*(gated(i) for i in range(8)))
+            check_served(wave, want, pixels, "19a recovery")
+            check_served(sync_wave, want, pixels, "19a recovery, sync")
+            m2 = await metrics_of(http, gateway)
+            if recovered and metric_delta(
+                    (m_wave, m2), "ai4e_resilience_ejections_total",
+                    backend=hb) == 0:
+                break
+            recovered = (
+                metric_delta((m1, m2), "ai4e_resilience_probe_total",
+                             backend=hb, outcome="success") > 0
+                and metric_delta((m1, m2), "ai4e_dispatch_total",
+                                 outcome="delivered", backend=hb) > 0)
+            m_wave = m2
+        else:
+            raise AssertionError("19a: B was still routed around after "
+                                 f"{waves} waves")
+        texts = (m1, m2)
+        out["recovery"] = {
+            "restart_up_s": up_s, "waves": waves,
+            "probes_B": {o: metric_delta(texts, "ai4e_resilience_probe_total",
+                                         backend=hb, outcome=o)
+                         for o in ("success", "failure")},
+            "closed_B": metric_delta(texts,
+                                     "ai4e_resilience_transitions_total",
+                                     backend=hb, state="closed"),
+            "breaker_B": metric_sum(m2, "ai4e_resilience_breaker_state",
+                                    backend=hb),
+            "delivered_B": metric_delta(texts, "ai4e_dispatch_total",
+                                        outcome="delivered", backend=hb)}
+        r = out["recovery"]
+        if (r["probes_B"]["success"] < 1 or r["closed_B"] < 1
+                or r["delivered_B"] < 1):
+            raise AssertionError(f"19a: B did not recover: {r}")
+        # A stalled backend: SIGSTOP A under sync load, SIGCONT later.
+        os.kill(a["proc"].pid, signal.SIGSTOP)
+        t2 = time.perf_counter()
+        stalled = [asyncio.ensure_future(res_sync(http, gateway, RES_SYNC,
+                                                  bodies[i]))
+                   for i in range(N_STALL_SYNC)]
+        await asyncio.sleep(RES_STALL_S)
+        os.kill(a["proc"].pid, signal.SIGCONT)
+        stall_runs = await asyncio.gather(*stalled)
+        stall_s = time.perf_counter() - t2
+        m3 = await metrics_of(http, gateway)
+        check_served(stall_runs, want, pixels, "19a stall")
+        texts = (m2, m3)
+        waited = [s["ms"] for s in stall_runs
+                  if s["ms"] >= RES_STALL_S * 1e3 / 2]
+        out["stall"] = {
+            "sync": len(stall_runs), "seconds": stall_s,
+            "waited_for_A": len(waited),
+            "max_ms": max(s["ms"] for s in stall_runs),
+            "p50_ms": pct([s["ms"] for s in stall_runs], 50),
+            "failovers_gateway_sync": metric_delta(
+                texts, "ai4e_resilience_failovers_total",
+                component="gateway_sync"),
+            "opened_A": metric_delta(texts,
+                                     "ai4e_resilience_transitions_total",
+                                     backend=ha, state="open")}
+        # Drain: A leaves under load; it is ejected, its breaker untouched.
+        t3 = time.perf_counter()
+        drain_burst = [asyncio.ensure_future(res_task(
+            http, gateway, RES_ASYNC, bodies[i])) for i in range(N_DRAIN)]
+        await asyncio.sleep(0.05)
+        async with http.post(a["url"] + "/v1/models/worker/drain",
+                             json={"timeout_ms": 30000}) as resp:
+            drain_status, summary = resp.status, await resp.json()
+        after_drain = await asyncio.gather(*(res_task(
+            http, gateway, RES_ASYNC, bodies[i]) for i in range(N_DRAIN)))
+        drain_runs = await asyncio.gather(*drain_burst)
+        m4 = await metrics_of(http, gateway)
+        check_served(drain_runs, want, pixels, "19a drain")
+        check_served(after_drain, want, pixels, "19a after the drain")
+        texts = (m3, m4)
+        async with http.post(a["url"] + "/v1/models/worker/resume") as resp:
+            resumed = resp.status
+        out["drain"] = {
+            "tasks": len(drain_runs) + len(after_drain),
+            "seconds": time.perf_counter() - t3,
+            "drain_status": drain_status, "summary": summary,
+            "resume_status": resumed,
+            "drain_ejections_A": metric_delta(
+                texts, "ai4e_rollout_drain_ejections_total", backend=ha),
+            "opened_A": metric_delta(texts,
+                                     "ai4e_resilience_transitions_total",
+                                     backend=ha, state="open"),
+            "breaker_A": metric_sum(m4, "ai4e_resilience_breaker_state",
+                                    backend=ha),
+            "delivered": {tag: metric_delta(texts, "ai4e_dispatch_total",
+                                            outcome="delivered", backend=h)
+                          for tag, h in (("A", ha), ("B", hb))}}
+        d = out["drain"]
+        if (drain_status != 200 or resumed != 200
+                or d["drain_ejections_A"] < 1 or d["opened_A"] != 0
+                or d["breaker_A"] != 0):
+            raise AssertionError(f"19a drain: {d}")
+        out["dispatch"] = family_outcomes(m4, "ai4e_dispatch_total")
+        if out["dispatch"].get("failed") or out["dispatch"].get(
+                "dead_letter"):
+            raise AssertionError(f"19a: deliveries {out['dispatch']}")
+    return out
+
+
+def series_of(metrics_text: str, name: str) -> dict:
+    """``{"{labels}": value}`` of one family's samples."""
+    return {line[len(name):].rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+            for line in metrics_text.splitlines()
+            if line.startswith(name + "{")}
+
+
+def ladder_log(log_text: str) -> list:
+    """The control plane's logged ladder steps, each with its time in
+    seconds after the first: ``[(s, from, to, pressure)]``."""
+    import datetime
+
+    steps = []
+    for line in log_text.splitlines():
+        if "degradation ladder " not in line:
+            continue
+        stamp = datetime.datetime.strptime(line[:23],
+                                           "%Y-%m-%d %H:%M:%S,%f")
+        move = line.split("degradation ladder ", 1)[1]
+        frm, rest = move.split(" -> ", 1)
+        to, rest = rest.split(" (", 1)
+        pressure = float(rest.rsplit(" ", 1)[1].rstrip(")"))
+        steps.append((stamp.timestamp(), frm, to, pressure))
+    return [(t - steps[0][0], frm, to, p) for t, frm, to, p in steps]
+
+
+def ladder_level(metrics_text: str) -> int:
+    return int(metric_sum(metrics_text, "ai4e_orchestration_ladder_level"))
+
+
+async def orchestration_drive(gateway: str, wk: dict, cp: dict, bodies: list,
+                              want: np.ndarray, pixels: int, env: dict,
+                              device: str, book: dict) -> dict:
+    """19b's client: the ladder's climb under tight deadlines (background
+    refused, cache hits answered) and its descent on an idle platform,
+    first, while no other deadline evidence is in its rates; then
+    placement on the cheap tier, deadlines while A is down and A's probe
+    after its restart."""
+    import aiohttp
+
+    a, b = wk["A"], wk["B"]
+    ha, hb = host_of(a["url"]), host_of(b["url"])
+    out: dict = {}
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", cp["proc"], cp["log"])
+        # The cacheable route's fill, at level 0.
+        fill = await res_sync(http, gateway, ONE_SYNC, bodies[0])
+        check_served([fill], want, pixels, "19b cache fill")
+        m0 = await metrics_of(http, gateway)
+        # The climb: a tight task and a background pair every
+        # TIGHT_EVERY_S until the ladder reads shed_default.
+        t0 = time.perf_counter()
+        levels = [(0.0, ladder_level(m0))]
+        fired: list = []
+        background: list = []
+        while levels[-1][1] < 3:
+            if time.perf_counter() - t0 > LADDER_WAIT_S:
+                raise AssertionError(f"19b: the ladder climbed only to "
+                                     f"{levels}")
+            i = len(fired) % len(bodies)
+            fired.append(asyncio.ensure_future(res_task(
+                http, gateway, RES_ASYNC, bodies[i],
+                {"X-Deadline-Ms": TIGHT_MS, "X-Priority": "interactive"})))
+            if levels[-1][1] >= 2:
+                # Background work only where the ladder refuses it: an
+                # admitted task's outcome would be evidence too, and would
+                # stretch the descent.
+                background.append(asyncio.ensure_future(res_task(
+                    http, gateway, RES_ASYNC, bodies[i],
+                    {"X-Priority": "background"})))
+                background.append(asyncio.ensure_future(res_sync(
+                    http, gateway, ONE_SYNC, bodies[i],
+                    {"X-Priority": "background", "X-Cache-Bypass": "1"})))
+            await asyncio.sleep(TIGHT_EVERY_S)
+            level = ladder_level(await metrics_of(http, gateway))
+            if level != levels[-1][1]:
+                levels.append((time.perf_counter() - t0, level))
+        # At shed_default and above a cache hit still answers, a default
+        # request the cache cannot serve is refused.
+        hit = await res_sync(http, gateway, ONE_SYNC, bodies[0])
+        novel = await res_sync(http, gateway, ONE_SYNC, bodies[1])
+        hit_level = ladder_level(await metrics_of(http, gateway))
+        if hit["status"] != 200 or hit["xcache"] != "hit":
+            raise AssertionError(f"19b: the cache hit at level {hit_level} "
+                                 f"answered {hit}")
+        check_served([hit], want, pixels, "19b cache hit")
+        if novel["status"] != 503 or novel["shed"] != (
+                "brownout at gateway_sync"):
+            raise AssertionError(f"19b: a novel request at level "
+                                 f"{hit_level}: {novel}")
+        tight = await asyncio.gather(*fired)
+        bg = await asyncio.gather(*background)
+        statuses: dict = {}
+        for run in tight:
+            status = (run["record"]["Status"] if run["status"] == 200
+                      else f"{run['status']} {run['shed']}")
+            statuses[status] = statuses.get(status, 0) + 1
+        if any(s.startswith("failed") for s in statuses):
+            raise AssertionError(f"19b: tight tasks ended {statuses}")
+        refusals: dict = {}
+        for run in bg:
+            key = (f"{run['status']} {run['shed']}" if run["status"] != 200
+                   else "200")
+            refusals[key] = refusals.get(key, 0) + 1
+            if run["status"] == 200 and "result" not in run:
+                raise AssertionError(f"19b: background request {run}")
+        if not (refusals.get("429 brownout at gateway")
+                and refusals.get("503 brownout at gateway_sync")):
+            raise AssertionError(f"19b: background answers {refusals}")
+        # The descent: an idle platform, knocked on every KNOCK_EVERY_S.
+        t_top = time.perf_counter()
+        knocks: dict = {}
+        while levels[-1][1] > 0:
+            if time.perf_counter() - t_top > LADDER_WAIT_S:
+                raise AssertionError(f"19b: the ladder came down only to "
+                                     f"{levels}")
+            knock = await res_sync(http, gateway, ONE_SYNC, bodies[2], {
+                "X-Priority": "interactive", "X-Cache-Bypass": "1"})
+            key = str(knock["status"])
+            knocks[key] = knocks.get(key, 0) + 1
+            await asyncio.sleep(KNOCK_EVERY_S)
+            level = ladder_level(await metrics_of(http, gateway))
+            if level != levels[-1][1]:
+                levels.append((time.perf_counter() - t0, level))
+        m4 = await metrics_of(http, gateway)
+        texts = (m0, m4)
+        out["ladder"] = {
+            "transitions_s_level": levels,
+            "climb_s": next(t for t, lv in levels if lv >= 3),
+            "descent_s": levels[-1][0] - (t_top - t0),
+            "tight_tasks": statuses, "background": refusals,
+            "cache_hit_at_level": hit_level, "knocks": knocks,
+            "transitions": {f"{d} {m}": metric_sum(
+                m4, "ai4e_orchestration_ladder_transitions_total",
+                direction=d, mode=m)
+                for d in ("up", "down") for m in (
+                    "reroute_background", "shed_background", "shed_default",
+                    "shed_interactive", "normal")
+                if metric_sum(m4,
+                              "ai4e_orchestration_ladder_transitions_total",
+                              direction=d, mode=m)},
+            "brownout_refusals": series_of(
+                m4, "ai4e_orchestration_brownout_refusals_total"),
+            "placements": {o: metric_delta(
+                texts, "ai4e_orchestration_placements_total", outcome=o)
+                for o in ("confident", "fallback", "probe", "forced")},
+            "slo_breaches": metric_sum(m4, "ai4e_slo_breaches_total")}
+        ups = {m for m in ("reroute_background", "shed_background",
+                           "shed_default")
+               if out["ladder"]["transitions"].get(f"up {m}")}
+        if len(ups) != 3 or not out["ladder"]["transitions"].get(
+                "down normal"):
+            raise AssertionError(f"19b: ladder transitions "
+                                 f"{out['ladder']['transitions']}")
+        m0 = await metrics_of(http, gateway)
+        # Deadline-free work: the cheapest tier clears, so all of it on A.
+        runs = await asyncio.gather(*(res_task(http, gateway, RES_ASYNC,
+                                               bodies[i])
+                                      for i in range(N_PLACE)))
+        check_served(runs, want, pixels, "19b placement")
+        ledgers = await asyncio.gather(*(ledger_of(http, gateway,
+                                                   r["task_id"])
+                                         for r in runs))
+        m1 = await metrics_of(http, gateway)
+        placed = stamps_by(ledgers, "placed")
+        delivered = {tag: metric_delta((m0, m1), "ai4e_dispatch_total",
+                                       outcome="delivered", backend=h)
+                     for tag, h in (("A", ha), ("B", hb))}
+        out["placement"] = {"tasks": len(runs), "placed": placed,
+                            "delivered": delivered}
+        if placed != {f"confident {ha}": N_PLACE} or delivered["B"]:
+            raise AssertionError(f"19b placement: {out['placement']}")
+        # A stopped: deadline-carrying work goes to B.
+        await asyncio.to_thread(kill_worker, a, "19b", book)
+        runs = await asyncio.gather(*(res_task(
+            http, gateway, RES_ASYNC, bodies[i],
+            {"X-Deadline-Ms": DEADLINE_MS}) for i in range(N_DEADLINE)))
+        check_served(runs, want, pixels, "19b with A down")
+        ledgers = await asyncio.gather(*(ledger_of(http, gateway,
+                                                   r["task_id"])
+                                         for r in runs))
+        m2 = await metrics_of(http, gateway)
+        delivered = {tag: metric_delta((m1, m2), "ai4e_dispatch_total",
+                                       outcome="delivered", backend=h)
+                     for tag, h in (("A", ha), ("B", hb))}
+        out["a_down"] = {
+            "tasks": len(runs), "placed": stamps_by(ledgers, "placed"),
+            "failover": stamps_by(ledgers, "failover"),
+            "delivered": delivered,
+            "opened_A": metric_delta((m1, m2),
+                                     "ai4e_resilience_transitions_total",
+                                     backend=ha, state="open")}
+        if delivered != {"A": 0, "B": N_DEADLINE}:
+            raise AssertionError(f"19b with A down: {out['a_down']}")
+        # A back: after the cooldown its first placement is a probe.
+        t0 = time.perf_counter()
+        start_res_worker(a, env, device)
+        await wait_healthy(http, a["url"] + "/v1/models/", a["proc"],
+                           a["log"])
+        up_s = time.perf_counter() - t0
+        probes, waves = {}, 0
+        while not probes.get(ha) and waves < 4:
+            waves += 1
+            runs = await asyncio.gather(*(res_task(http, gateway, RES_ASYNC,
+                                                   bodies[i])
+                                          for i in range(8)))
+            check_served(runs, want, pixels, "19b probe")
+            ledgers = await asyncio.gather(*(ledger_of(
+                http, gateway, r["task_id"]) for r in runs))
+            probes = stamps_by(ledgers, "probe")
+        m3 = await metrics_of(http, gateway)
+        out["probe"] = {
+            "restart_up_s": up_s, "waves": waves, "probe_stamps": probes,
+            "placed": stamps_by(ledgers, "placed"),
+            "closed_A": metric_delta((m2, m3),
+                                     "ai4e_resilience_transitions_total",
+                                     backend=ha, state="closed"),
+            "breaker_A": metric_sum(m3, "ai4e_resilience_breaker_state",
+                                    backend=ha)}
+        if probes.get(ha) != 1 or out["probe"]["breaker_A"] != 0:
+            raise AssertionError(f"19b probe: {out['probe']}")
+    return out
+
+
+async def scale_turn_drive(gateway: str, cp: dict, bodies: list,
+                           want: np.ndarray, pixels: int, shards: int,
+                           rounds: int | None = None) -> dict:
+    """19c's client for one turn: once every autoscale route has ticked
+    (the idle routes at ``min_replicas``), ``N_SCALE`` land-cover tasks
+    submitted through the deploy spec's route, ``SCALE_SUBMITTERS`` at a
+    time, then each long-polled and its answer checked, in ``rounds``
+    rounds (None: until a round meets a tick that scales up, at most
+    ``SCALE_ROUNDS``); the autoscale gauges sampled every 0.25 s
+    throughout; the ``published`` -> ``popped`` delta of every fourth
+    task's ledger."""
+    import aiohttp
+
+    route = "/v1/landcover/classify-async"
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", cp["proc"], cp["log"])
+        samples: list = []
+        stop = asyncio.Event()
+        t0 = time.perf_counter()
+
+        async def sample() -> None:
+            while not stop.is_set():
+                text = await metrics_of(http, gateway)
+                lc = {line.split('endpoint="')[1].split('"')[0]:
+                      float(line.rsplit(" ", 1)[1])
+                      for line in text.splitlines()
+                      if line.startswith("ai4e_autoscale_replicas{")}
+                ups = metric_sum(text, "ai4e_autoscale_decisions_total",
+                                 direction="up")
+                samples.append((time.perf_counter() - t0, lc, ups))
+                await asyncio.sleep(0.25)
+
+        sampler = asyncio.get_running_loop().create_task(sample())
+        want_series = 4 * shards  # four autoscale routes, a series a shard
+        while not samples or len(samples[-1][1]) < want_series:
+            if time.perf_counter() - t0 > SCALE_TICK_WAIT_S:
+                raise AssertionError(f"19c x{shards}: autoscale series "
+                                     f"{samples[-1][1] if samples else {}}")
+            await asyncio.sleep(0.05)
+        first_tick_s = time.perf_counter() - t0
+        t_backlog = time.perf_counter()
+
+        async def backlog_round() -> tuple[list, float]:
+            """``N_SCALE`` tasks submitted, then each long-polled."""
+            from ai4e_tpu_torch.taskstore import TaskStatus
+
+            queue: asyncio.Queue = asyncio.Queue()
+            for i in range(N_SCALE):
+                queue.put_nowait(i)
+            created: dict = {}
+            t_round = time.perf_counter()
+
+            async def submitter() -> None:
+                while not queue.empty():
+                    i = queue.get_nowait()
+                    async with http.post(gateway + route,
+                                         data=bodies[i % len(bodies)],
+                                         headers=OCTET) as r:
+                        if r.status != 200:
+                            raise AssertionError(f"19c submit {r.status}: "
+                                                 f"{await r.text()}")
+                        created[i] = ((await r.json())["TaskId"],
+                                      time.perf_counter())
+
+            async def finish(i: int) -> dict:
+                task_id, t_sub = created[i]
+                while True:
+                    async with http.get(
+                            f"{gateway}/v1/taskmanagement/task/{task_id}",
+                            params={"wait": "60"}) as r:
+                        record = await r.json()
+                    if TaskStatus.canonical(record["Status"]) in \
+                            TaskStatus.TERMINAL:
+                        break
+                run = {"status": 200, "task_id": task_id, "record": record,
+                       "ms": (time.perf_counter() - t_sub) * 1e3}
+                if record["Status"] == LC_DONE:
+                    run["result"] = json.loads(await result_bytes(
+                        http, gateway, task_id))
+                return run
+
+            await asyncio.gather(*(submitter()
+                                   for _ in range(SCALE_SUBMITTERS)))
+            submitted = time.perf_counter() - t_round
+            return (list(await asyncio.gather(
+                *(finish(i) for i in range(N_SCALE)))), submitted)
+
+        # A round that drains between two ticks grows nothing: another
+        # round then, up to SCALE_ROUNDS.
+        order: list = []
+        submitted_s = []
+        while len(submitted_s) < (rounds or SCALE_ROUNDS):
+            runs, submitted = await backlog_round()
+            check_served(runs, want, pixels, f"19c x{shards}")
+            order += runs
+            submitted_s.append(submitted)
+            if rounds is None and samples[-1][2] > 0:
+                break
+        backlog_s = time.perf_counter() - t_backlog
+        stop.set()
+        await sampler
+        ledgers = await asyncio.gather(*(ledger_of(http, gateway,
+                                                   r["task_id"])
+                                         for r in order[::4]))
+        metrics_text = await metrics_of(http, gateway)
+    waits = []
+    for ledger in ledgers:
+        published = next((s["t"] for s in ledger if s["e"] == "published"),
+                         None)
+        popped = next((s["t"] for s in ledger if s["e"] == "popped"), None)
+        if published is not None and popped is not None:
+            waits.append((popped - published) * 1e3)
+    # The decisions before the backlog were the idle routes' scale-downs.
+    first_up = next((t - (t_backlog - t0) for t, _, ups in samples
+                     if ups > 0), None)
+    lc_series = {k: v for k, v in samples[-1][1].items()
+                 if k.startswith(LC_QUEUE)}
+    return {"tasks": len(order), "rounds": len(submitted_s),
+            "first_tick_s": first_tick_s, "submitted_s": submitted_s,
+            "backlog_s": backlog_s,
+            "tasks_per_s": len(order) / backlog_s,
+            "task_p50_ms": pct([r["ms"] for r in order], 50),
+            "task_p95_ms": pct([r["ms"] for r in order], 95),
+            "published_to_popped": pcts(waits),
+            "first_scale_up_s": first_up,
+            "landcover_replicas_peak": max(
+                (sum(v for k, v in lc.items() if k.startswith(LC_QUEUE))
+                 for _, lc, _ in samples), default=None),
+            "landcover_replicas_last": lc_series,
+            "autoscale_series": sorted(samples[-1][1]),
+            "decisions": {d: metric_sum(metrics_text,
+                                        "ai4e_autoscale_decisions_total",
+                                        direction=d)
+                          for d in ("up", "down")},
+            "dispatch": family_outcomes(metrics_text, "ai4e_dispatch_total")}
+
+
+def res_control_plane(out_dir: Path, tag: str, routes: dict, env: dict,
+                      cp_port: int) -> dict:
+    path = out_dir / f"{tag}_routes.json"
+    path.write_text(json.dumps(routes))
+    cp = {"log": out_dir / f"{tag}_control_plane.log"}
+    cp["proc"] = start_child(["control-plane", "--routes", str(path),
+                              "--port", str(cp_port)], cp["log"], env)
+    return cp
+
+
+def run_control_plane_part(cp: dict, what: str, drive) -> dict:
+    """Drive a sub-phase against its control plane, which must then stop
+    cleanly; killed if it did not."""
+    try:
+        out = asyncio.run(drive)
+        stop_child(cp["proc"], cp["log"], what)
+    finally:
+        if cp["proc"].poll() is None:
+            cp["proc"].kill()
+            cp["proc"].wait(timeout=30)
+    out["startup"] = posture_line(cp["log"].read_text(errors="replace"))
+    return out
+
+
+def phase_resilience(handoff: dict, wk: dict, cp_port: int, device: str,
+                     book: dict) -> dict:
+    """19a: admission and resilience on; workers A and B behind the async
+    and the sync route."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    env = {**handoff["env"], "AI4E_PLATFORM_ADMISSION": "1",
+           "AI4E_PLATFORM_RESILIENCE": "1",
+           "AI4E_PLATFORM_RESILIENCE_RECOVERY_SECONDS": str(RES_RECOVERY_S),
+           "AI4E_PLATFORM_RESILIENCE_FAILURE_THRESHOLD": str(RES_THRESHOLD),
+           "AI4E_ROLLOUT_DRAIN_EJECT_TTL_S": str(RES_DRAIN_TTL_S),
+           "AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT": str(RES_RESCUE_S),
+           "AI4E_PLATFORM_REAPER_INTERVAL": "1"}
+    cp = res_control_plane(out_dir, "resilience",
+                           res_routes(wk["A"]["url"], wk["B"]["url"]), env,
+                           cp_port)
+    out = run_control_plane_part(cp, "19a control plane", resilience_drive(
+        wk["gateway"], wk, cp, bodies, want, lc_pixels(handoff),
+        handoff["env"], device, book))
+    if "admission control ON, resilience ON" not in out["startup"]:
+        raise AssertionError(f"19a: startup line {out['startup']!r}")
+    return out
+
+
+def phase_orchestration(handoff: dict, wk: dict, cp_port: int, device: str,
+                        book: dict) -> dict:
+    """19b: admission, resilience, orchestration and the SLO ladder on; A
+    the cheap tier, B the dear one."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    ha, hb = host_of(wk["A"]["url"]), host_of(wk["B"]["url"])
+    env = {**handoff["env"], "AI4E_PLATFORM_ADMISSION": "1",
+           "AI4E_PLATFORM_RESILIENCE": "1",
+           "AI4E_PLATFORM_RESILIENCE_RECOVERY_SECONDS": str(RES_RECOVERY_S),
+           "AI4E_PLATFORM_RESILIENCE_FAILURE_THRESHOLD": str(RES_THRESHOLD),
+           "AI4E_PLATFORM_ORCHESTRATION": "1",
+           "AI4E_PLATFORM_ORCHESTRATION_COSTS": f"{ha}/=1,{hb}/=3",
+           "AI4E_PLATFORM_ORCHESTRATION_LADDER_HOLD_S": str(LADDER_HOLD_S),
+           "AI4E_PLATFORM_OBSERVABILITY": "1",
+           "AI4E_PLATFORM_SLO_OBJECTIVES": f"{RES_ASYNC}=goodput:99",
+           "AI4E_PLATFORM_SLO_TICK_S": "1",
+           "AI4E_PLATFORM_SLO_FAST_WINDOW_S": "2",
+           "AI4E_PLATFORM_SLO_SLOW_WINDOW_S": "6",
+           "AI4E_PLATFORM_SLO_LADDER": "1",
+           "AI4E_PLATFORM_RESULT_CACHE": "1",
+           "AI4E_PLATFORM_REAPER_RUNNING_TIMEOUT": str(RES_RESCUE_S),
+           "AI4E_PLATFORM_REAPER_INTERVAL": "1"}
+    cp = res_control_plane(out_dir, "orchestration",
+                           res_routes(wk["A"]["url"], wk["B"]["url"]), env,
+                           cp_port)
+    out = run_control_plane_part(cp, "19b control plane",
+                                 orchestration_drive(
+                                     wk["gateway"], wk, cp, bodies, want,
+                                     lc_pixels(handoff), handoff["env"],
+                                     device, book))
+    if "orchestration ON" not in out["startup"]:
+        raise AssertionError(f"19b: startup line {out['startup']!r}")
+    out["ladder"]["logged_steps"] = ladder_log(
+        cp["log"].read_text(errors="replace"))
+    return out
+
+
+def phase_sharded_scaler(handoff: dict, wk: dict, cp_port: int) -> dict:
+    """19c: deploy/specs/routes.json as written (backends on worker A) on a
+    4-shard store with orchestration, where its four ``autoscale`` routes
+    each run a ``ShardedAutoscaleController``, then on one store without
+    orchestration (the raw-depth scaler), the same backlog each turn: the
+    raw-depth turn sends as many rounds as the sharded one needed."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    _, routes = deploy_specs(wk["gateway"], wk["A"]["url"])
+    turns: dict = {}
+    for name, shards in SCALE_TURNS:
+        env = {**handoff["env"], "AI4E_PLATFORM_ADMISSION": "1",
+               "AI4E_PLATFORM_RESILIENCE": "1",
+               "AI4E_PLATFORM_OBSERVABILITY": "1"}
+        if shards > 1:
+            env.update({"AI4E_PLATFORM_TASK_SHARDS": str(shards),
+                        "AI4E_PLATFORM_ORCHESTRATION": "1"})
+        cp = res_control_plane(out_dir, f"scale_{name}", routes, env,
+                               cp_port)
+        t0 = time.perf_counter()
+        turn = run_control_plane_part(cp, f"19c {name} control plane",
+                                      scale_turn_drive(
+                                          wk["gateway"], cp, bodies, want,
+                                          lc_pixels(handoff), shards,
+                                          rounds=next(
+                                              (t["rounds"]
+                                               for t in turns.values()),
+                                              None)))
+        turn["seconds"] = time.perf_counter() - t0
+        series = turn["autoscale_series"]
+        bases = {s.split("#")[0] for s in series}
+        if len(bases) != 4 or len(series) != 4 * shards:
+            raise AssertionError(f"19c {name}: autoscale series {series}")
+        if (turn["dispatch"].get("failed")
+                or turn["dispatch"].get("dead_letter")):
+            raise AssertionError(f"19c {name}: deliveries "
+                                 f"{turn['dispatch']}")
+        if shards > 1 and turn["decisions"]["up"] < 1:
+            raise AssertionError(f"19c {name}: the loops never grew: {turn}")
+        log(f"scale 19c {name}: {json.dumps(turn)}")
+        turns[name] = turn
+    return turns
+
+
+#: The worker starts that serve in each sub-phase: each must launch both
+#: kernels there.
+SERVED_BY_PART = {"19a": ("A1", "B1", "B2"), "19b": ("A1", "A2", "B2"),
+                  "19c": ("A2",)}
+
+
+def phase_19(handoff: dict, kernels: list[dict],
+             device: str = "cuda") -> dict:
+    """Phase 19: land cover from phase 10's checkpoint on workers A and B,
+    behind the port's control plane with resilience (a), orchestration and
+    the SLO ladder (b), and the deploy spec's autoscale routes on a sharded
+    store (c). Every process is a child of this one."""
+    log("phase 19: resilience and orchestration")
+    t0 = time.perf_counter()
+    out_dir = handoff["out_dir"]
+    cp_port = free_port()
+    gateway = f"http://127.0.0.1:{cp_port}"
+    wk: dict = {"gateway": gateway}
+    models, _ = cache_specs(gateway, "", ("landcover",))
+    models_path = out_dir / "res_models.json"
+    models_path.write_text(json.dumps(models))
+    book: dict = {}
+    report: dict = {"seconds_by_part": {}}
+    try:
+        for tag in ("A", "B"):
+            port = free_port()
+            wk[tag] = {"tag": tag, "port": port, "out_dir": out_dir,
+                       "url": f"http://127.0.0.1:{port}",
+                       "models": models_path}
+            start_res_worker(wk[tag], handoff["env"], device)
+        asyncio.run(wait_all_healthy(
+            [(wk[t]["url"] + "/v1/models/", wk[t]["proc"], wk[t]["log"])
+             for t in ("A", "B")]))
+        report["workers_up_s"] = time.perf_counter() - t0
+        for part, run in (
+                ("19a", lambda: phase_resilience(handoff, wk, cp_port,
+                                                 device, book)),
+                ("19b", lambda: phase_orchestration(handoff, wk, cp_port,
+                                                    device, book)),
+                ("19c", lambda: phase_sharded_scaler(handoff, wk,
+                                                     cp_port))):
+            t = time.perf_counter()
+            report[part] = run()
+            report["seconds_by_part"][part] = time.perf_counter() - t
+            for tag in ("A", "B"):
+                take_launches(wk[tag], part, book)
+            if part != "19c":
+                log(f"{part}: {json.dumps(report[part])}")
+        for tag in ("A", "B"):
+            stop_child(wk[tag]["proc"], wk[tag]["log"], f"19 worker {tag}")
+    finally:
+        for tag in ("A", "B"):
+            proc = wk.get(tag, {}).get("proc")
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    report["seconds"] = time.perf_counter() - t0
+    report["launches"] = book
+    rows = {k["name"]: k for k in kernels}
+    for name in ("normalize_image", "fused_seg_postprocess"):
+        for part, starts in SERVED_BY_PART.items():
+            for start in starts:
+                n = book.get(part, {}).get(start, {}).get(name, 0)
+                if device == "cuda" and n < 1:
+                    raise AssertionError(f"phase 19 {part}: {name} never "
+                                         f"launched in worker {start}: "
+                                         f"{book}")
+        if name in rows:
+            rows[name]["launches_phase19_by_worker"] = {
+                part: {start: c.get(name, 0) for start, c in starts.items()}
+                for part, starts in book.items()}
+            rows[name]["launches_phase19"] = sum(
+                c.get(name, 0) for starts in book.values()
+                for c in starts.values())
+    scale = report["19c"]
+    log(f"phase 19: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'workers_up_s': report['workers_up_s'], 'ladder': report['19b']['ladder']['transitions_s_level'], 'first_scale_up_s': {k: v['first_scale_up_s'] for k, v in scale.items()}, 'published_to_popped': {k: v['published_to_popped'] for k, v in scale.items()}, 'launches': book, 'card': CARD.get('smi')})}")
+    return report
+
+
 async def wait_all_healthy(targets: list[tuple]) -> None:
     """Every ``(url, proc, log)`` answering 200, waited on together."""
     import aiohttp
@@ -9084,6 +10052,7 @@ def main() -> None:
     phase_16(deployed, kernels)
     phase_17(deployed, kernels)
     phase_18(deployed, kernels)
+    phase_19(deployed, kernels)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

@@ -298,13 +298,13 @@ def test_autoscaler_runs_with_the_platform():
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"AI4E_PLATFORM_TASK_SHARDS": "2"}, None),
-    ({"AI4E_PLATFORM_ORCHESTRATION": "1"}, "A18.9")],
+    ({"AI4E_PLATFORM_TASK_SHARDS": "2"}, "autoscale policies are"),
+    ({"AI4E_PLATFORM_ORCHESTRATION": "1"}, "requires admission=True")],
     ids=["sharded", "orchestrated"])
 def test_sharded_or_orchestrated_autoscale_names_its_item(env, item):
-    """Orchestration is refused naming its ROADMAP item; an ``autoscale``
-    route on a sharded platform (which runs without orchestration) with
-    the JAX package's own text."""
+    """An ``autoscale`` route on a sharded platform without orchestration,
+    and orchestration without admission and resilience, are refused with
+    the JAX package's own texts (orchestration itself is served now)."""
     from ai4e_tpu_torch.cli import build_control_plane
     from ai4e_tpu_torch.config import FrameworkConfig
 
@@ -313,16 +313,15 @@ def test_sharded_or_orchestrated_autoscale_names_its_item(env, item):
          "autoscale": {"max_replicas": 8}}]}
     with pytest.raises(ValueError, match=item) as got:
         build_control_plane(FrameworkConfig.from_env(env), routes)
-    if item is None:
-        from ai4e_tpu.config import FrameworkConfig as JaxConfig
-        from ai4e_tpu.platform_assembly import LocalPlatform as JaxPlatform
-        from ai4e_tpu.scaling import AutoscalePolicy as JaxPolicy
+    from ai4e_tpu.config import FrameworkConfig as JaxConfig
+    from ai4e_tpu.platform_assembly import LocalPlatform as JaxPlatform
+    from ai4e_tpu.scaling import AutoscalePolicy as JaxPolicy
 
+    with pytest.raises(ValueError) as want:
         jax_platform = JaxPlatform(
             JaxConfig.from_env(env).to_platform_config(),
             metrics=JaxRegistry())
-        with pytest.raises(ValueError) as want:
-            jax_platform.publish_async_api(
-                "/v1/pub/x", "http://w/v1/models/x",
-                autoscale=JaxPolicy(max_replicas=8))
-        assert str(got.value) == str(want.value)
+        jax_platform.publish_async_api(
+            "/v1/pub/x", "http://w/v1/models/x",
+            autoscale=JaxPolicy(max_replicas=8))
+    assert str(got.value) == str(want.value)

@@ -74,8 +74,8 @@ SERVED_RUNTIME_KNOBS = [
 
 
 #: The observability knobs (ROADMAP A18.11): the port serves them, so each
-#: set away from its default parses as JAX's does. ``slo_ladder`` stays an
-#: unported case (it feeds the orchestration ladder, A18.9).
+#: set away from its default parses as JAX's does. ``slo_ladder`` came with
+#: orchestration (A18.9, ``SERVED_RESILIENCE_KNOBS``).
 SERVED_OBSERVABILITY_KNOBS = [
     ("AI4E_OBSERVABILITY_", f) for f in (
         "trace_enabled", "trace_sample_rate", "trace_export_path",
@@ -154,6 +154,21 @@ SERVED_PUSH_REPORTER_KNOBS = [
     ("AI4E_SERVICE_", f) for f in ("reporter_uri", "cluster")] + [
     ("AI4E_ROLLOUT_", "generation")]
 
+#: Resilience and orchestration (ROADMAP A18.9): the port serves them, so
+#: each set away from its default parses as JAX's does.
+SERVED_RESILIENCE_KNOBS = [
+    ("AI4E_PLATFORM_", f) for f in (
+        "resilience", "resilience_failure_threshold", "resilience_window",
+        "resilience_error_rate", "resilience_recovery_seconds",
+        "resilience_max_attempts", "resilience_retry_base_s",
+        "resilience_retry_budget_ratio", "orchestration",
+        "orchestration_confidence", "orchestration_window",
+        "orchestration_horizon_s", "orchestration_costs",
+        "orchestration_ladder_up", "orchestration_ladder_down",
+        "orchestration_ladder_hold_s", "orchestration_scale_horizon_s",
+        "slo_ladder")] + [
+    ("AI4E_ROLLOUT_", "drain_eject_ttl_s")]
+
 #: The rollout controller's knobs, still refused under its item.
 CONTROLLER_KNOBS = [
     ("AI4E_ROLLOUT_", f) for f in (
@@ -189,7 +204,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_NATIVE_REAPER_KNOBS, "same"))
          + list(off_default_cases(SERVED_HA_KNOBS, "same"))
          + list(off_default_cases(SERVED_SHARD_KNOBS, "same"))
-         + list(off_default_cases(SERVED_PUSH_REPORTER_KNOBS, "same")))
+         + list(off_default_cases(SERVED_PUSH_REPORTER_KNOBS, "same"))
+         + list(off_default_cases(SERVED_RESILIENCE_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -263,6 +279,14 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_PUSH_TTL_SECONDS": "30"},
     {"AI4E_PLATFORM_PUSH_MAX_ATTEMPTS": "7"},
     {"AI4E_PLATFORM_PUSH_WINDOW": "16"},
+    {"AI4E_PLATFORM_RESILIENCE": "1"},
+    {"AI4E_PLATFORM_RESILIENCE_RECOVERY_SECONDS": "2"},
+    {"AI4E_PLATFORM_RESILIENCE_MAX_ATTEMPTS": "5"},
+    {"AI4E_PLATFORM_ORCHESTRATION": "1"},
+    {"AI4E_PLATFORM_ORCHESTRATION_COSTS": "a=1,b=3"},
+    {"AI4E_PLATFORM_ORCHESTRATION_LADDER_HOLD_S": "0.5"},
+    {"AI4E_PLATFORM_SLO_LADDER": "1"},
+    {"AI4E_ROLLOUT_DRAIN_EJECT_TTL_S": "4"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -275,8 +299,9 @@ def test_platform_config_is_jax_s(env):
 
 
 def test_seventeen_observability_knobs_left_the_unported_set():
-    """The served observability knobs are out of ``UNPORTED``; the SLO
-    ladder stays there, naming orchestration's item."""
+    """The served knobs are out of ``UNPORTED``, the SLO ladder and the
+    other eighteen of resilience and orchestration among them; 26 remain,
+    each naming its item."""
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
@@ -285,15 +310,17 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_HA_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_SHARD_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_PUSH_REPORTER_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_RESILIENCE_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
+    assert len(SERVED_RESILIENCE_KNOBS) == 19
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
     assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
     assert len(SERVED_PUSH_REPORTER_KNOBS) == 7
-    assert len(port_config.UNPORTED) == 45
-    assert "A18.9" in port_config.UNPORTED[("AI4E_PLATFORM_", "slo_ladder")]
-    with pytest.raises(port_config.ConfigError, match="A18.9"):
-        port_config.FrameworkConfig.from_env(
-            {"AI4E_PLATFORM_SLO_LADDER": "1"})
+    assert len(port_config.UNPORTED) == 26
+    assert not any("A18.9" in what for what in port_config.UNPORTED.values())
+    assert (port_config.FrameworkConfig.from_env(
+        {"AI4E_PLATFORM_SLO_LADDER": "1"}).to_platform_config().slo_ladder
+        is True)
 
 
 def test_sections_and_fields_are_the_jax_package_s():
@@ -315,10 +342,9 @@ def test_sections_and_fields_are_the_jax_package_s():
                          ids=lambda k: k[0] + k[1].upper())
 def test_controller_knobs_refuse_under_their_new_item(key):
     """The rollout controller's five knobs stay refused, each naming the
-    rig and BackendHealth's items (A18.9, A19)."""
+    rig's item, A19: nothing but the rig drives the controller."""
     assert port_config.UNPORTED[key] == (
-        "the rollout controller, which runs under the rig and "
-        "BackendHealth (ROADMAP A18.9, A19)")
+        "the rollout controller, which only the rig drives (ROADMAP A19)")
 
 
 def test_push_reporter_and_generation_reach_their_consumers():
