@@ -47,9 +47,8 @@ broker without a POST (``duplicate``). With the orchestrator
 within the message's remaining deadline, and delivered round trips feed
 its estimator. The ledger gets their ``placed``, ``probe``, ``retry``,
 ``failover`` and ``duplicate`` stamps. ``rng`` seeds every pick and
-backoff.
-
-Not ported (ROADMAP A18.10): tenancy accounting.
+backoff. With tenancy beside the orchestrator, each delivery charges the
+message's tenant the cost of the backend it ran on.
 """
 
 from __future__ import annotations
@@ -108,7 +107,7 @@ class Dispatcher:
                  observability=None, admission=None,
                  metrics: MetricsRegistry | None = None,
                  result_cache=None, result_store=None, resilience=None,
-                 orchestration=None, rng=None):
+                 orchestration=None, rng=None, tenancy=None):
         self.broker = broker
         self.queue_name = queue_name
         self.route_path = base_queue_name(queue_name)
@@ -122,6 +121,10 @@ class Dispatcher:
         self.metrics = metrics or DEFAULT_REGISTRY
         # Request-observability hub: None stamps nothing.
         self.observability = observability
+        # The tenancy facade: with the orchestrator, a delivery charges the
+        # message's tenant its backend's placement cost. None charges
+        # nothing.
+        self.tenancy = tenancy
         # Admission controller: None feeds no limiter. Deadline drops need
         # none: any message carrying a deadline is honoured.
         self.admission = admission
@@ -383,6 +386,11 @@ class Dispatcher:
                     # service-time evidence.
                     self.orchestration.observe(base,
                                                time.perf_counter() - t0)
+                    if self.tenancy is not None:
+                        # On the backend it ran on: a failover bills the
+                        # final host.
+                        self.tenancy.charge(msg.tenant,
+                                            self.orchestration.cost_of(base))
                 if self.admission is not None:
                     # The delivered round trip feeds this queue's limiter:
                     # when the worker congests these stretch, and the
@@ -576,7 +584,7 @@ class DispatcherPool:
                  observability=None, admission=None,
                  metrics: MetricsRegistry | None = None,
                  result_cache=None, result_store=None, resilience=None,
-                 orchestration=None):
+                 orchestration=None, tenancy=None):
         self.broker = broker
         self.task_manager = task_manager
         self.retry_delay = retry_delay
@@ -588,6 +596,7 @@ class DispatcherPool:
         self.result_store = result_store
         self.resilience = resilience
         self.orchestration = orchestration
+        self.tenancy = tenancy
         self.dispatchers: dict[str, Dispatcher] = {}
 
     def register(self, queue_name: str, backend_uri,
@@ -600,7 +609,7 @@ class DispatcherPool:
             observability=self.observability, admission=self.admission,
             metrics=self.metrics, result_cache=self.result_cache,
             result_store=self.result_store, resilience=self.resilience,
-            orchestration=self.orchestration)
+            orchestration=self.orchestration, tenancy=self.tenancy)
         self.dispatchers[queue_name] = d
         return d
 

@@ -1,5 +1,5 @@
 """Per-endpoint message queues with lease/redelivery semantics — a copy of
-``ai4e_tpu/broker/queue.py`` without the tenant lanes (ROADMAP A18.10):
+``ai4e_tpu/broker/queue.py``:
 
 - one logical queue per endpoint path; with a sharded task store
   (``shard_router``), one physical sub-queue per shard,
@@ -12,8 +12,12 @@
 - a message carries the B3 headers of the span its publisher ran in (the
   gateway's ``create_task``), which JAX's messages do not: the port's
   dispatch span continues the gateway's trace instead of starting one;
-- a message carries its task's deadline, priority class and result-cache
-  key, as JAX's do.
+- a message carries its task's deadline, priority class, result-cache
+  key and tenant, as JAX's do;
+- with a weighted-fair policy (``fair=``, ``tenancy/lanes.py``) every
+  queue, each shard's sub-queue included, parks its ready messages in one
+  lane per tenant served by deficit round-robin; without it a queue is the
+  single FIFO it always was.
 
 Event-loop only, except ``publish``, which any thread may call.
 """
@@ -74,9 +78,17 @@ class Message:
     # The task's result-cache key ("" when it has none or bypassed the
     # cache): the dispatcher completes a redelivery from the cache with it.
     cache_key: str = ""
+    # The task's tenant: the lane key of the weighted-fair dequeue ("" =
+    # the shared default lane).
+    tenant: str = ""
 
 
 DeadLetterHandler = Callable[[Message], None]
+
+# Deficit-round-robin cost of one message: every message costs the same
+# here (the dispatcher charges placement cost downstream), so a lane's
+# share of a contended queue converges to its weight over the sum.
+_DRR_COST = 1.0
 
 
 class EndpointQueue:
@@ -85,8 +97,11 @@ class EndpointQueue:
     def __init__(self, name: str, max_delivery_count: int = 1440,
                  lease_seconds: float = 300.0,
                  dead_letter_handler: DeadLetterHandler | None = None,
-                 metrics=None):
+                 metrics=None, fair=None):
         self.name = name
+        # The weighted-fair policy or None. When set, ready messages park
+        # in per-lane FIFOs and ``_ready`` stays empty.
+        self.fair = fair
         self.max_delivery_count = max_delivery_count
         self.lease_seconds = lease_seconds
         self.dead_letter_handler = dead_letter_handler
@@ -101,6 +116,12 @@ class EndpointQueue:
         self._waiters: deque[asyncio.Future] = deque()
         # Seqs of dead-lettered messages, so a late abandon tells the truth.
         self._dead_seqs: set[int] = set()
+        # DRR state (fair mode only): a lane key is in ``_ring`` iff it is
+        # in ``_lanes``; a lane's deficit is dropped when it empties, so an
+        # idle tenant banks no credit.
+        self._lanes: dict[str, deque[Message]] = {}
+        self._ring: deque[str] = deque()
+        self._deficit: dict[str, float] = {}
 
     def _dead_letter(self, msg: Message) -> None:
         self._dead_seqs.add(msg.seq)
@@ -127,15 +148,56 @@ class EndpointQueue:
         self._wake_one()
 
     def _requeue(self, msg: Message) -> None:
-        self._ready.append(msg)
+        if self.fair is not None:
+            key = self.fair.lane_of(msg)
+            lane = self._lanes.get(key)
+            if lane is None:
+                lane = self._lanes[key] = deque()
+                self._ring.append(key)
+            lane.append(msg)
+        else:
+            self._ready.append(msg)
         self._ready_seqs.add(msg.seq)
 
     def _pop_ready(self) -> Message | None:
+        if self.fair is not None:
+            return self._pop_fair()
         while self._ready:
             msg = self._ready.popleft()
             if msg.seq in self._ready_seqs:
                 return msg
         return None
+
+    def _pop_fair(self) -> Message | None:
+        """Deficit round-robin across the lanes: the head lane serves one
+        message while its deficit covers it, else takes its quantum (its
+        live weight, floored at ``min_quantum``) and rotates."""
+        while self._ring:
+            key = self._ring[0]
+            lane = self._lanes[key]
+            while lane and lane[0].seq not in self._ready_seqs:
+                lane.popleft()  # retracted
+            if not lane:
+                self._ring.popleft()
+                del self._lanes[key]
+                self._deficit.pop(key, None)
+                continue
+            credit = self._deficit.get(key, 0.0)
+            if credit >= _DRR_COST:
+                self._deficit[key] = credit - _DRR_COST
+                return lane.popleft()
+            self._deficit[key] = credit + self.fair.quantum(key)
+            self._ring.rotate(-1)
+        return None
+
+    def lane_depths(self) -> dict[str, int]:
+        """Ready depth per lane (fair mode; {} otherwise)."""
+        depths = {key: sum(1 for m in lane if m.seq in self._ready_seqs)
+                  for key, lane in self._lanes.items()}
+        return {key: n for key, n in depths.items() if n}
+
+    def deficits(self) -> dict[str, float]:
+        return dict(self._deficit)
 
     async def receive(self, timeout: float | None = None) -> Message | None:
         """Lease the next message; None on timeout."""
@@ -208,11 +270,14 @@ class InMemoryBroker:
 
     def __init__(self, max_delivery_count: int = 1440,
                  lease_seconds: float = 300.0, metrics=None,
-                 shard_router=None):
+                 shard_router=None, fair=None):
         self.max_delivery_count = max_delivery_count
         self.lease_seconds = lease_seconds
         self._metrics = metrics
         self._shard_router = shard_router
+        # The weighted-fair lane policy, handed to every queue, each
+        # shard's sub-queue included.
+        self._fair = fair
         self._queues: dict[str, EndpointQueue] = {}
         self._queues_lock = threading.Lock()
         self._seq = itertools.count(1)
@@ -240,8 +305,12 @@ class InMemoryBroker:
                 q = self._queues[name] = EndpointQueue(
                     name, self.max_delivery_count, self.lease_seconds,
                     dead_letter_handler=self._dead_letter_handler,
-                    metrics=self._metrics)
+                    metrics=self._metrics, fair=self._fair)
             return q
+
+    def queue_names(self) -> list[str]:
+        with self._queues_lock:
+            return sorted(self._queues)
 
     def resolve_queue_name(self, endpoint: str) -> str:
         """Longest registered queue path that prefixes the endpoint path;
@@ -269,7 +338,8 @@ class InMemoryBroker:
                       trace_headers=get_tracer().headers(),
                       cache_key=getattr(task, "cache_key", ""),
                       deadline_at=getattr(task, "deadline_at", 0.0),
-                      priority=getattr(task, "priority", 1))
+                      priority=getattr(task, "priority", 1),
+                      tenant=getattr(task, "tenant", ""))
         loop = self._loop
         try:
             running = asyncio.get_running_loop()

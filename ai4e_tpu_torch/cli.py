@@ -223,7 +223,8 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
     # public contract (sheds, expiry, computed Retry-After); resilience
     # the failure semantics (breakers, retries, 5xx as transient);
     # orchestration placement and overload (deadline- and cost-aware
-    # picks, the brownout ladder, predictive scaling); sharding the
+    # picks, the brownout ladder, predictive scaling); tenancy the
+    # contract a caller gets (its bucket, lane and series); sharding the
     # durability and availability topology (per-shard journals and
     # failover); the journal's fsync policy what an acknowledgment means
     # against a machine crash, and its checksum what a replay costs.
@@ -235,6 +236,8 @@ async def run_control_plane(config: FrameworkConfig, routes: dict) -> None:
         ", resilience ON" if platform.resilience is not None else "",
         (", orchestration ON"
          if platform.orchestration is not None else ""),
+        (f", tenancy ON ({len(platform.tenancy.registry.tenant_ids())}"
+         f" tenants)" if platform.tenancy is not None else ""),
         ", observability ON" if platform.observability is not None else "",
         (f", SLO engine ON ({len(platform.slo.objectives)} objectives)"
          if platform.slo is not None else ""),

@@ -32,8 +32,6 @@ _FALSE = frozenset({"0", "false", "no", "off", ""})
 OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
                             "AI4E_TASKSTORE_", "AI4E_RIG_")
 
-_TENANCY = "tenancy (ROADMAP A18.10)"
-_PIPELINE = "pipeline DAGs (ROADMAP A18.12)"
 _ROLLOUT = ("the rollout controller, which only the rig drives "
             "(ROADMAP A19)")
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
@@ -41,18 +39,12 @@ _MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
 UNPORTED: dict[tuple[str, str], str] = {
-    **{("AI4E_PLATFORM_", f): _PIPELINE for f in (
-        "pipeline", "pipeline_event_replay", "pipeline_stream_max_s",
-        "pipeline_chunk_replay")},
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
     **{("AI4E_RUNTIME_", f): _MESH for f in (
         "dp", "fsdp", "tp", "sp", "ep", "mesh_spec",
         "mesh_unhealthy_after")},
-    **{("AI4E_TENANCY_", f): _TENANCY for f in (
-        "enabled", "tenants", "default_weight", "default_rps",
-        "default_burst", "label_top_n", "goodput_target", "min_quantum")},
     **{("AI4E_ROLLOUT_", f): _ROLLOUT for f in (
         "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
         "burn_slow_max")},
@@ -396,11 +388,19 @@ class FrameworkConfig:
     def to_platform_config(self):
         """The ``PlatformConfig`` the control plane assembles from: the
         platform section's fields, the depth logger's intervals from the
-        observability section and the drain ejection's TTL from the
-        rollout section."""
+        observability section, the tenancy section's fields and the drain
+        ejection's TTL from the rollout section."""
         pc = self.platform.to_platform_config()
         pc.queue_depth_interval = self.observability.queue_depth_interval
         pc.process_depth_interval = self.observability.process_depth_interval
+        pc.tenancy = self.tenancy.enabled
+        pc.tenancy_tenants = self.tenancy.tenants
+        pc.tenancy_default_weight = self.tenancy.default_weight
+        pc.tenancy_default_rps = self.tenancy.default_rps
+        pc.tenancy_default_burst = self.tenancy.default_burst
+        pc.tenancy_label_top_n = self.tenancy.label_top_n
+        pc.tenancy_goodput_target = self.tenancy.goodput_target
+        pc.tenancy_min_quantum = self.tenancy.min_quantum
         pc.rollout_drain_eject_ttl_s = self.rollout.drain_eject_ttl_s
         return pc
 

@@ -14,6 +14,10 @@ Routes:
   with the terminal record; ``?ledger=1`` adds the task's hop-ledger
   timeline as ``Ledger`` (opt-in: without it the answer is
   byte-identical);
+- ``GET  /v1/taskmanagement/task/{taskId}/events`` -> the task's event
+  stream as Server-Sent Events (``status``, ``stage``, ``chunk``,
+  ``terminal``), once ``set_event_stream`` attached the hub
+  (``pipeline/events.py``); 404 for an unknown task;
 - ``GET  /v1/debug/flight`` -> the flight recorder's dump, once
   ``set_observability`` attached the hub;
 - ``GET  /metrics``, ``GET /healthz``.
@@ -26,7 +30,13 @@ surface riding this app included. A rate limiter and a quota tracker
 throttle everything but ``/v1/taskstore/*``, by the key when auth
 validated it and by the caller's address otherwise: the quota is peeked
 first (403 with the window's ``Retry-After``), then the rate (429 with
-``Retry-After``), then the quota unit is consumed.
+``Retry-After``), then the quota unit is consumed. With tenancy
+(``set_tenancy``, ``tenancy/``) the key then resolves to its tenant, once,
+into ``request["ai4e_tenant"]``; a request to a published route spends the
+tenant's token bucket (429 with ``X-Shed-Reason: tenant-quota at gateway``
+and a Retry-After composed with admission's drain), and the tenant rides
+the task it creates. Polls, streams and the task-store surface spend
+nothing.
 
 With the result cache (``set_result_cache``, ``rescache/``) an async
 request is looked up before a task exists: a hit is a real task record
@@ -82,8 +92,6 @@ the cache consult, so cache hits still answer; the async edge answers 429
 inside the pressure shed. Both carry ``X-Shed-Reason: brownout at <hop>``.
 ``rng`` (the constructor's) seeds the proxy's picks and backoffs.
 
-Not ported (ROADMAP A18): tenancy (the middleware's tenant branch,
-A18.10) and event streams (A18.12).
 """
 
 from __future__ import annotations
@@ -171,6 +179,12 @@ class Gateway:
         self._quota_tracker = None
         # Result cache (set_result_cache); None: every request executes.
         self._result_cache = None
+        # The tenancy facade (set_tenancy); None: nothing resolved, tasks
+        # stay tenantless.
+        self._tenancy = None
+        # The task event hub (set_event_stream); None: no /events route.
+        self._event_hub = None
+        self._event_stream_max_s = 300.0
         # Sync single flight: key -> (future of the leader's (status,
         # payload, content_type), or None when it errored; the family
         # generation the leader captured). Event-loop objects.
@@ -210,6 +224,106 @@ class Gateway:
             # stays as it was.
             self.app.router.add_get("/v1/debug/flight", self._flight_dump)
 
+    def set_event_stream(self, hub, max_stream_s: float = 300.0) -> None:
+        """Enable (or clear with None) the streaming task-event surface,
+        ``GET /v1/taskmanagement/task/{id}/events``: the task's events as
+        Server-Sent Events until its terminal event, ``?wait=`` or
+        ``max_stream_s``. The route is added with the first hub, so a
+        gateway without one keeps its route table."""
+        first = (self._event_hub is None and hub is not None
+                 and not getattr(self, "_events_route_added", False))
+        self._event_hub = hub
+        self._event_stream_max_s = max_stream_s
+        if first:
+            self._events_route_added = True
+            self.app.router.add_get(
+                "/v1/taskmanagement/task/{task_id}/events",
+                self._task_events)
+
+    async def _task_events(self, request: web.Request) -> web.StreamResponse:
+        """One task's events as SSE (``status``, ``stage``, ``chunk``,
+        ``terminal``). It subscribes, then reads the task again: the hub's
+        subscribe replays its buffer under its lock and every later
+        transition is published live, so a terminal event may come twice
+        at the seam and is never missed."""
+        from ..pipeline.events import TERMINAL, sse_encode
+
+        hub = self._event_hub
+        if hub is None:
+            return web.json_response(
+                {"error": "event streaming not enabled"}, status=404)
+        task_id = request.match_info["task_id"]
+        try:
+            task = self.store.get(task_id)
+        except TaskNotFound:
+            return web.Response(status=404, text="Task not found.")
+        cap = self._event_stream_max_s
+        try:
+            wait = min(float(request.query.get("wait", cap)), cap)
+        except ValueError:
+            return web.Response(status=400, text="Bad wait parameter.")
+        if not math.isfinite(wait):
+            # nan or inf would defeat the cap.
+            return web.Response(status=400, text="Bad wait parameter.")
+        # Reconnect resume: replay restarts strictly after the last event
+        # the client consumed (Last-Event-ID, or ?lastEventId=).
+        raw_last = (request.headers.get("Last-Event-ID")
+                    or request.query.get("lastEventId") or "0")
+        try:
+            after_seq = max(0, int(raw_last))
+        except ValueError:
+            return web.Response(status=400, text="Bad Last-Event-ID.")
+
+        resp = web.StreamResponse(headers={
+            "Content-Type": "text/event-stream",
+            "Cache-Control": "no-cache",
+            "X-Accel-Buffering": "no",
+        })
+        await resp.prepare(request)
+        self._requests.inc(route="task_events", outcome="stream")
+        stream = hub.subscribe(task_id, after_seq=after_seq)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + wait
+        try:
+            try:
+                task = self.store.get(task_id)
+            except TaskNotFound:
+                task = None
+            if task is not None:
+                await resp.write(sse_encode(
+                    {"seq": 0, "event": "status",
+                     "data": {"Status": task.status,
+                              "BackendStatus": task.backend_status}}))
+                if task.canonical_status in TaskStatus.TERMINAL:
+                    # A late subscriber still sees the run's buffered
+                    # stage and chunk events before the terminal one.
+                    for event in hub.replay(task_id, after_seq=after_seq):
+                        if event["event"] != TERMINAL:
+                            await resp.write(sse_encode(event))
+                    await resp.write(sse_encode(
+                        {"seq": 0, "event": TERMINAL,
+                         "data": task.to_dict()}))
+                    return resp
+            while True:
+                timeout = min(15.0, deadline - loop.time())
+                if timeout <= 0:
+                    break
+                try:
+                    event = await stream.next_event(timeout=timeout)
+                except asyncio.TimeoutError:
+                    # A heartbeat keeps proxies from timing out a long
+                    # stage.
+                    await resp.write(b": keep-alive\n\n")
+                    continue
+                if event is None:
+                    break
+                await resp.write(sse_encode(event))
+                if event["event"] == TERMINAL:
+                    break
+        finally:
+            await stream.aclose()
+        return resp
+
     def set_api_keys(self, keys: set[str] | None) -> None:
         """Enable (or clear) subscription-key auth on this app."""
         self._api_keys = set(keys) if keys else None
@@ -232,6 +346,14 @@ class Gateway:
         """Enable (or clear with None) the result cache and single-flight
         coalescing on published APIs (``rescache.ResultCache``)."""
         self._result_cache = cache
+
+    def set_tenancy(self, tenancy) -> None:
+        """Enable (or clear with None) multi-tenancy (``tenancy/``): the
+        key resolves to a tenant once, at this edge; a work-creating
+        request spends the tenant's token bucket; the tenant id rides the
+        task record for the broker's lanes, the dispatcher's charge and
+        the per-tenant series."""
+        self._tenancy = tenancy
 
     @web.middleware
     async def _auth_middleware(self, request: web.Request, handler):
@@ -280,7 +402,40 @@ class Gateway:
                                  str(max(1, math.ceil(retry_after)))})
             if self._quota_tracker is not None:
                 self._quota_tracker.allow(identity)  # consume the unit
+        if (self._tenancy is not None and not exempt
+                and not request.path.startswith("/v1/taskstore/")):
+            # Resolved once, here; downstream reads the id, never the key.
+            # Only work-creating requests spend the bucket: a slow backend
+            # must not bill its own tenant for the polls it causes.
+            tenant = self._tenancy.resolve(key)
+            request["ai4e_tenant"] = tenant.tenant_id
+            if self._published_route(request.path):
+                allowed, retry_after = self._tenancy.admit(tenant.tenant_id)
+                if not allowed:
+                    if self._admission is not None:
+                        # Back off for the slower of the tenant's refill
+                        # and the platform's drain.
+                        retry_after = max(retry_after,
+                                          self._admission.retry_after_s())
+                    self._tenancy.note_quota_shed(tenant.tenant_id)
+                    self._requests.inc(route="throttled",
+                                       outcome="tenant_429")
+                    return web.json_response(
+                        {"error": "tenant quota exceeded"}, status=429,
+                        headers={"Retry-After":
+                                 str(max(1, math.ceil(retry_after))),
+                                 SHED_REASON_HEADER:
+                                 shed_reason("gateway", "tenant-quota")})
+                self._tenancy.note_admitted(tenant.tenant_id)
         return await handler(request)
+
+    def _published_route(self, path: str) -> bool:
+        """Whether ``path`` targets a published API, the work-creating
+        surface the tenant bucket meters."""
+        for route in self.routes:
+            if path == route.prefix or path.startswith(route.prefix + "/"):
+                return True
+        return False
 
     def set_admission(self, controller) -> None:
         """Enable (or clear with None) admission control on the published
@@ -437,7 +592,8 @@ class Gateway:
                         endpoint=endpoint, body=body,
                         content_type=content_type, publish=True,
                         cache_key=cache_key, deadline_at=deadline_at,
-                        priority=task_priority))
+                        priority=task_priority,
+                        tenant=request.get("ai4e_tenant", "")))
                 except NotPrimaryError:
                     # A standby: task creation is on the primary. Clients
                     # with a replica list rotate on this header only.

@@ -69,6 +69,20 @@ engine feeds it, and an ``autoscale`` route scales on the predictive
 signal: on a sharded store through one ``ShardedAutoscaleController``
 reading each shard's store at every tick.
 
+With ``tenancy`` (``tenancy/``) subscription keys resolve to declared
+tenants at the gateway, whose work-creating requests spend a bucket a
+tenant; every broker queue, each shard's sub-queue included, serves its
+tenants' lanes by deficit round-robin; under orchestration each delivery
+charges its tenant the backend's cost; and the store's feed labels the
+per-tenant outcomes. With ``pipeline`` (``pipeline/``) ``register_pipeline``
+publishes a declared DAG whose root tasks a ``PipelineCoordinator``
+consumes from its entry queue (one a shard on a sharded store) and runs
+as stage sub-tasks through the ordinary dispatchers, and a
+``TaskEventHub`` on the store's feed serves the gateway's SSE route. The
+coordinator runs beside the transport only, so only a primary drives
+runs; a restarted or promoted one resumes them from its re-seed. Both
+refuse the push transport and the native cores, with JAX's texts.
+
 ``PlatformConfig`` holds the fields ``LocalPlatform`` reads, with the JAX
 package's defaults; ``PlatformSection.to_platform_config`` fills it, after
 ``config.check_ported`` has refused every knob this port does not serve.
@@ -90,7 +104,7 @@ from .metrics import DEFAULT_REGISTRY, MetricsRegistry
 from .observability import (DepthLogger, FlightRecorder,
                             RequestObservability, SloEngine,
                             parse_objectives)
-from .service import LocalTaskManager
+from .service import APIService, LocalTaskManager
 from .taskstore import InMemoryTaskStore, TaskStatus, endpoint_path
 from .taskstore.reaper import TaskReaper
 from .utils.backends import normalize_backends
@@ -215,6 +229,31 @@ class PlatformConfig:
     # SLO breaches as ladder evidence (needs slo_objectives and
     # orchestration).
     slo_ladder: bool = False
+    # Declared pipeline DAGs run under one TaskId, and the SSE event
+    # surface. Queue transport and the Python store and broker only.
+    pipeline: bool = False
+    # Events a late stream still replays, a stream's longest life (s), and
+    # the trailing chunk events kept before a `truncated` marker.
+    pipeline_event_replay: int = 256
+    pipeline_stream_max_s: float = 300.0
+    pipeline_chunk_replay: int = 128
+    # Multi-tenancy: keys resolve to tenants at the edge, a token bucket a
+    # tenant, weighted-fair lanes in every broker queue, the placement cost
+    # charged a tenant and per-tenant series under a bounded label. Queue
+    # transport and the Python store and broker only.
+    tenancy: bool = False
+    # "name=key1|key2[:weight[:rps[:burst]]]", comma-separated.
+    tenancy_tenants: str | None = None
+    # Defaults for omitted fields, and the default tenant's policy (rps 0 =
+    # unlimited).
+    tenancy_default_weight: float = 1.0
+    tenancy_default_rps: float = 0.0
+    tenancy_default_burst: float = 0.0
+    # The first N declared tenants keep their id as label, the rest "other".
+    tenancy_label_top_n: int = 8
+    tenancy_goodput_target: float = 0.99
+    # Floor on a lane's deficit-round-robin credit a ring visit.
+    tenancy_min_quantum: float = 0.05
     # How long a backend that answered X-Draining stays out of placement
     # (AI4E_ROLLOUT_DRAIN_EJECT_TTL_S).
     rollout_drain_eject_ttl_s: float = 30.0
@@ -343,6 +382,32 @@ class LocalPlatform:
                     "orchestration=True — it feeds SLO breaches to the "
                     "degradation ladder (docs/observability.md)")
             self.slo.attach_ladder(self.orchestration.ladder)
+        self.tenancy = None
+        if self.config.tenancy:
+            if self.config.transport != "queue":
+                raise ValueError(
+                    "tenancy=True requires the queue transport — the "
+                    "weighted-fair lanes live inside the broker's queues "
+                    "(docs/tenancy.md)")
+            if self.config.native_store or self.config.native_broker:
+                # The C structs have no tenant slot.
+                raise ValueError(
+                    "tenancy=True requires the Python store and broker "
+                    "(the native cores carry no tenant state)")
+            from .tenancy import Tenancy
+
+            self.tenancy = Tenancy.from_spec(
+                self.config.tenancy_tenants,
+                metrics=self.metrics,
+                default_weight=self.config.tenancy_default_weight,
+                default_rps=self.config.tenancy_default_rps,
+                default_burst=self.config.tenancy_default_burst,
+                label_top_n=self.config.tenancy_label_top_n,
+                goodput_target=self.config.tenancy_goodput_target,
+                min_quantum=self.config.tenancy_min_quantum)
+            # Terminal transitions label the per-tenant outcome and burn
+            # series, with or without the observability layer.
+            self.tenancy.attach_store(self.store)
         self.broker = None
         self.dispatchers = None
         self.topic = None
@@ -359,6 +424,10 @@ class LocalPlatform:
             raise ValueError(
                 f"unknown transport {self.config.transport!r}; "
                 "expected 'queue' or 'push'")
+        self.pipeline = None
+        self.task_events = None
+        if self.config.pipeline:
+            self._build_pipeline()
         self.gateway = Gateway(self.store, metrics=self.metrics)
         if self.result_cache is not None:
             self.gateway.set_result_cache(self.result_cache)
@@ -370,6 +439,12 @@ class LocalPlatform:
             self.gateway.set_resilience(self.resilience)
         if self.orchestration is not None:
             self.gateway.set_orchestration(self.orchestration)
+        if self.tenancy is not None:
+            self.gateway.set_tenancy(self.tenancy)
+        if self.task_events is not None:
+            self.gateway.set_event_stream(
+                self.task_events,
+                max_stream_s=self.config.pipeline_stream_max_s)
         # None = AUTO: 15 minutes on the Python store, no eviction on the
         # native one (it has none); negative opts out.
         retention = self.config.reaper_terminal_retention
@@ -392,6 +467,7 @@ class LocalPlatform:
             queue_interval=self.config.queue_depth_interval,
             process_interval=self.config.process_depth_interval)
         self.autoscalers: list = []
+        self.services: list[APIService] = []
         self._started = False
         self._transport_running = False
         # The HA machinery: the standby's replicator and watchdog, the
@@ -421,7 +497,10 @@ class LocalPlatform:
                 # A sharded store: per-shard sub-queues, each drained by
                 # its own dispatchers.
                 shard_router=(self.store.shard_for
-                              if self.config.task_shards > 1 else None))
+                              if self.config.task_shards > 1 else None),
+                # Tenancy: deficit-round-robin lanes in every queue.
+                fair=(self.tenancy.lanes
+                      if self.tenancy is not None else None))
         self.store.set_publisher(self.broker.publish)
         self.dispatchers = DispatcherPool(
             self.broker, self.task_manager,
@@ -431,7 +510,44 @@ class LocalPlatform:
             metrics=self.metrics, result_cache=self.result_cache,
             result_store=(self.store if self.result_cache is not None
                           else None),
-            resilience=self.resilience, orchestration=self.orchestration)
+            resilience=self.resilience, orchestration=self.orchestration,
+            tenancy=self.tenancy)
+
+    def _build_pipeline(self) -> None:
+        """The event hub on the store's feed and the coordinator, which
+        consumes each pipeline's entry queue (one a shard's sub-queue on
+        a sharded store)."""
+        if self.config.transport != "queue":
+            raise ValueError(
+                "pipeline=True requires the queue transport — the "
+                "coordinator consumes pipeline entry queues "
+                "(docs/pipelines.md)")
+        if self.config.native_store or self.config.native_broker:
+            raise ValueError(
+                "pipeline=True requires the Python store and broker "
+                "(the coordinator rides the store change feed and "
+                "stage sub-records)")
+        from .pipeline import PipelineCoordinator, TaskEventHub
+
+        self.task_events = TaskEventHub(
+            replay=self.config.pipeline_event_replay,
+            chunk_replay=self.config.pipeline_chunk_replay,
+            metrics=self.metrics)
+        # Every transition of a tracked task is a `status` event; a
+        # terminal one closes its streams.
+        self.task_events.attach_store(self.store)
+        queue_names = None
+        if self.config.task_shards > 1:
+            n = self.config.task_shards
+
+            def queue_names(path, _n=n):
+                return [shard_queue_name(path, i) for i in range(_n)]
+
+        self.pipeline = PipelineCoordinator(
+            self.store, self.broker, hub=self.task_events,
+            result_cache=self.result_cache, admission=self.admission,
+            observability=self.observability, metrics=self.metrics,
+            queue_names=queue_names)
 
     def _build_push(self) -> None:
         """(Re)build the push transport: topic, webhook and the recorded
@@ -534,6 +650,14 @@ class LocalPlatform:
                     result_offload_threshold=(
                         self.config.result_offload_threshold
                         if backend else None))
+
+    def make_service(self, name: str, prefix: str = "") -> APIService:
+        """A service shell on this platform's store (an in-process worker,
+        as JAX's pipeline tests build their stages)."""
+        svc = APIService(name, prefix=prefix,
+                         task_manager=self.task_manager, metrics=self.metrics)
+        self.services.append(svc)
+        return svc
 
     def publish_async_api(self, public_prefix: str, backend_uri,
                           retry_delay: float | None = None,
@@ -663,6 +787,19 @@ class LocalPlatform:
             policy=policy, interval=interval, signal=signal,
             metrics=self.metrics))
 
+    def register_pipeline(self, spec, max_body_bytes: int | None = None
+                          ) -> None:
+        """Publish a declared pipeline DAG (``pipeline.PipelineSpec``): a
+        gateway async route at ``spec.prefix`` whose tasks the coordinator
+        consumes. Each stage's endpoint still needs its transport consumer
+        (``register_internal_route`` or ``publish_async_api``)."""
+        if self.pipeline is None:
+            raise ValueError(
+                "register_pipeline requires PlatformConfig(pipeline=True)")
+        self.gateway.add_async_route(spec.prefix, spec.entry_path,
+                                     max_body_bytes=max_body_bytes)
+        self.pipeline.register(spec)
+
     def publish_sync_api(self, public_prefix: str, backend_uri,
                          max_body_bytes: int | None = None) -> None:
         self.gateway.add_sync_route(public_prefix, backend_uri,
@@ -722,6 +859,10 @@ class LocalPlatform:
 
         self.broker.set_dead_letter_handler(on_dead_letter)
         await self.dispatchers.start()
+        if self.pipeline is not None:
+            # With the transport only, never on a standby; its entry-queue
+            # loops run before the re-seed, which is the resume path.
+            await self.pipeline.start()
 
     async def _start_push(self, loop: asyncio.AbstractEventLoop) -> None:
         """Serve the webhook on a port of its own (the topic -> webhook leg
@@ -842,6 +983,10 @@ class LocalPlatform:
                 await self.reaper.stop()
             if self.slo is not None:
                 await self.slo.stop()
+            if self.pipeline is not None:
+                # Live runs are abandoned; the new primary's re-seed resumes
+                # them.
+                await self.pipeline.stop()
             if self.dispatchers is not None:
                 await self.dispatchers.stop()
             if self.topic is not None:
@@ -886,6 +1031,8 @@ class LocalPlatform:
             if self.slo is not None:
                 await self.slo.stop()
             await self.depth_logger.stop()
+            if self.pipeline is not None:
+                await self.pipeline.stop()
             if self.dispatchers is not None:
                 await self.dispatchers.stop()
             if hasattr(self.store, "stop_replication"):

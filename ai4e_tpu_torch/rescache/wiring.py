@@ -17,8 +17,10 @@ again.
 
 The pipeline hop bookkeeping (``hop_gens``) is JAX's fill rule for a
 composite task keyed under stage 1 whose later stages may reload
-mid-flight; it stays inert until the port runs pipeline DAGs (ROADMAP
-A18.12).
+mid-flight: each family a task hops to is recorded with its cache
+generation at the hop, and the fill proves none of them reloaded since.
+The pipeline coordinator's stage sub-tasks carry their own stage's key,
+so the stage cache fills through the same listener.
 """
 
 from __future__ import annotations

@@ -101,6 +101,7 @@ from ..admission.deadline import (SHED_REASON_HEADER, DeadlineExceeded,
 from ..checkpoint import CONVERTER_HINT, is_npz, load_params
 from ..metrics import MetricsRegistry
 from ..observability.ledger import CHUNK, RETRY, HopLedger
+from ..pipeline.spec import split_sub_task_id
 from ..rollout.canary import generation_label
 from ..rollout.drain import DRAINING_HEADER, DrainingError, DrainState, \
     drain_worker
@@ -710,8 +711,10 @@ class InferenceWorker:
         between steps, and each generated token goes to ``event_hub``
         (any object with ``track(task_id)`` and ``publish(task_id, event,
         data)``) as a ``chunk`` event under the request's TaskId, the
-        moment it exists. With ``event_hub=None``, as the CLI runs it,
-        the tokens are only stored at the end.
+        moment it exists; a pipeline stage's sub-task publishes under its root
+        TaskId, the one stream a client watches, labelled with the stage.
+        With ``event_hub=None``, as the CLI runs it, the tokens are only
+        stored at the end.
 
         Request body (JSON): ``{"prompt": [token ids], "max_new_tokens":
         N}`` (``"tokens"`` in place of ``"prompt"`` takes an upstream
@@ -777,15 +780,19 @@ class InferenceWorker:
             except (ValueError, json.JSONDecodeError) as exc:
                 await tm.fail_task(taskId, f"failed - bad input: {exc}")
                 return
+            publish_id = taskId
             if event_hub is not None:
+                root = split_sub_task_id(taskId)
+                if root is not None:
+                    publish_id = root[0]
                 # Chunks are kept before any subscriber attaches, so one
                 # that connects mid-stream replays the tokens so far.
-                event_hub.track(taskId)
+                event_hub.track(publish_id)
             await tm.update_task_status(taskId, f"running - {_name} decode")
 
             def on_token(index: int, token: int) -> None:
                 if event_hub is not None:
-                    event_hub.publish(taskId, CHUNK,
+                    event_hub.publish(publish_id, CHUNK,
                                       {"stage": _name, "index": index,
                                        "data": {"token": token}})
 

@@ -267,10 +267,9 @@ Phases, each of which raises on failure:
    10b, one ``.bin`` per result at or over the threshold (none for land
    cover) holding the bytes ``GET /v1/taskstore/result`` serves, the
    ledger's per-hop p50/p95 by turn, and the blobs gone after eviction;
-   (c) land cover (4 sync + 64 async) and longcontext (64 async) behind a
-   control plane on the C++ store and broker, then on the Python ones:
-   answers as phases 10b and 11, requests/s and task p50/p95, each
-   kernel launched; (d) land cover behind a control plane whose reaper
+   (c) land cover (4 sync + 64 async) behind a control plane on the C++
+   store and broker, then on the Python ones: answers as phase 10b,
+   requests/s and task p50/p95, each kernel launched; (d) land cover behind a control plane whose reaper
    rescues tasks running 3 s and whose broker dead-letters after 3
    deliveries: the worker SIGKILLed while every unfinished task is
    running, 8 tasks sent while it is down, its restart on the same port,
@@ -305,7 +304,7 @@ Phases, each of which raises on failure:
    ``AI4E_PLATFORM_TASK_SHARDS=4`` and one replica a shard (the route at
    routes.json's concurrency, an ``autoscale`` route being refused
    there), behind a 1-shard one, and behind a 4-shard one without
-   replicas, in turns 4, 1, 4 without, 4 without, 1, 4: 64 async tiles
+   replicas, one turn each: 64 async tiles
    with long polls each turn, every answer phase 10's, every task's
    ledger whole, the startup line naming the native CRC-32C; on 4 shards
    ``GET /v1/taskstore/shards`` with every shard at epoch 0, a task on
@@ -352,6 +351,25 @@ Phases, each of which raises on failure:
    no failed task. Normalize and argmax launched in every worker start
    that served. It prints ``19a``, ``19b``, ``scale 19c`` and ``phase 19``
    lines.
+20. tenancy and pipeline DAGs: (a) on phase 19's workers, a control plane
+   with admission, resilience, orchestration (A cheap) and tenancy
+   (``noisy`` weight 1, ``alpha`` 4, ``beta`` 1 at 5 rps, burst 5; label
+   top-2): noisy's 192 tiles, alpha's 32 just after, beta's 32, every
+   admitted task with phase 10's answer, alpha's p50 below noisy's, beta
+   refused past its bucket with 429 and ``tenant-quota at gateway``,
+   each label's outcomes and cost against its completions and its
+   deliveries by host; the same with tenancy off, alpha's p50 beside;
+   (b) the DAG ``survey`` (land cover and species, both sinks of the
+   original PNG) on a pipeline platform with the result cache in this
+   process, over 16 512² scenes: every root the multi-sink document,
+   each part its ``?stage=`` result and within the models' own routes'
+   answers, each task's SSE events in order (half attached at once,
+   half after completion), the repeat wave from the stage cache with no
+   launch, the bypass wave run again. The LM's token chunks (20c) run in
+   phase 12 as 12e: 32 stream tasks through a pipeline platform's
+   gateway, chunks equal to the stored tokens, a late replay truncated,
+   a one-stage DAG's chunks under its root id. It prints ``tenancy
+   20a``, ``dag 20b``, ``lm 12e`` and ``phase 20`` lines.
 
 The last two lines of output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -4927,8 +4945,136 @@ def phase_lm_in_process(geo: dict, device: str = "cuda") -> dict:
                     for i, (want, gaps) in zip(picks, ref))
         report[f"12b_{mode}"]["float64_equal_all_the_way"] = (
             f"{equal}/{len(picks)}")
+    t0 = time.perf_counter()
+    report["12e"] = asyncio.run(lm_chunks_drive(rt, geo, device))
+    report["12e"]["seconds"] = time.perf_counter() - t0
+    report["12e"]["phase12_ttft_ms_p50"] = (
+        report["12b_continuous"]["ttft_ms_p50"])
+    log(f"lm 12e: {json.dumps(report['12e'])}")
     del rt
     return report
+
+
+async def lm_chunks_drive(rt, geo: dict, device: str) -> dict:
+    """20c, run as 12e on 12b's engine and graphs: the LM served in this
+    process by an ``InferenceWorker`` whose ``event_hub`` is a pipeline
+    platform's hub. 32 stream tasks through the platform's gateway, each
+    watched on its SSE stream from its creation; one long task read after
+    its completion (a replay past ``pipeline_chunk_replay``); then a
+    one-stage DAG whose stage is the LM."""
+    import aiohttp
+    from aiohttp import web
+
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.ops import flash_attention as flash
+    from ai4e_tpu_torch.pipeline import PipelineSpec, StageSpec
+    from ai4e_tpu_torch.platform_assembly import (LocalPlatform,
+                                                  PlatformConfig)
+    from ai4e_tpu_torch.runtime.batcher import MicroBatcher
+    from ai4e_tpu_torch.runtime.decode import DecodeEngine
+    from ai4e_tpu_torch.runtime.registry import ModelRuntime
+    from ai4e_tpu_torch.runtime.worker import InferenceWorker
+
+    platform = LocalPlatform(PlatformConfig(pipeline=True, retry_delay=0.05,
+                                            dispatcher_concurrency=64),
+                             metrics=MetricsRegistry())
+    engine = DecodeEngine(rt, max_pending=2 * N_CHUNK_STREAMS,
+                          metrics=MetricsRegistry())
+    side = ModelRuntime(device)
+    worker = InferenceWorker(
+        "lmsvc", side, MicroBatcher(side, metrics=MetricsRegistry()),
+        task_manager=platform.task_manager, prefix="v1/lm",
+        metrics=MetricsRegistry(), store=platform.store)
+    worker.serve_stream(engine, event_hub=platform.task_events)
+    wk_port, gw_port = free_port(), free_port()
+    backend = f"http://127.0.0.1:{wk_port}{LM_BACKEND}"
+    gateway = f"http://127.0.0.1:{gw_port}"
+    platform.publish_async_api(LM_ROUTE, backend)
+    platform.register_pipeline(PipelineSpec("lmdag", "/v1/pipelines/lm", [
+        StageSpec("lm", backend)]))
+    runners = []
+    for app, port in ((worker.service.app, wk_port),
+                      (platform.gateway.app, gw_port)):
+        runner = web.AppRunner(app)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        runners.append(runner)
+    await engine.start()
+    await platform.start()
+    streams = [(p, CHUNK_NEW) for p, _ in lm_streams(
+        N_CHUNK_STREAMS, SEED + 12, geo["vocab_size"], long_share=0.0)]
+    # Whether the LM's prefill reaches the flash kernel: counted either way.
+    out: dict = {"flash_launches_before": flash.launches}
+    try:
+        async with aiohttp.ClientSession(
+                connector=aiohttp.TCPConnector(limit=0),
+                timeout=aiohttp.ClientTimeout(total=600)) as http:
+
+            async def one(path: str, prompt: list, new: int,
+                          late: bool = False) -> dict:
+                t0 = time.monotonic()
+                async with http.post(gateway + path, data=json.dumps(
+                        {"prompt": prompt, "max_new_tokens": new})) as r:
+                    task_id = (await r.json())["TaskId"]
+                url = f"{gateway}/v1/taskmanagement/task/{task_id}/events"
+                if late:
+                    await http_json(http, "GET", f"{gateway}/v1/task"
+                                    f"management/task/{task_id}",
+                                    params={"wait": "120"})
+                events = await sse_read(http, url)
+                stored = json.loads(platform.store.get_result(task_id)[0])
+                chunks = [e for e in events if e["event"] == "chunk"]
+                return {"id": task_id, "stored": stored["tokens"],
+                        "kinds": [e["event"] for e in events],
+                        "chunks": [(e["data"]["stage"], e["data"]["index"],
+                                    e["data"]["data"]["token"])
+                                   for e in chunks],
+                        "ttft_ms": ((chunks[0]["at"] - t0) * 1e3
+                                    if chunks else None)}
+
+            runs = await asyncio.gather(*(one(LM_ROUTE, p, n)
+                                          for p, n in streams))
+            for r in runs:
+                want = [("lm", i, t) for i, t in enumerate(r["stored"])]
+                if r["chunks"] != want:
+                    raise AssertionError(f"12e: chunks of {r['id']} "
+                                         f"{r['chunks'][:8]}... vs stored "
+                                         f"{r['stored'][:8]}...")
+                if r["kinds"][0] != "status" or r["kinds"][-1] != "terminal":
+                    raise AssertionError(f"12e: events {r['kinds']}")
+            late = await one(LM_ROUTE, streams[0][0], CHUNK_LONG_NEW,
+                             late=True)
+            n_late = len(late["stored"])
+            if n_late > 128:
+                kept = late["chunks"]
+                if ("truncated" not in late["kinds"]
+                        or [c[1] for c in kept] != list(range(n_late - 128,
+                                                              n_late))
+                        or [c[2] for c in kept] != late["stored"][-128:]):
+                    raise AssertionError(f"12e: late replay {late['kinds']}"
+                                         f" of {n_late} tokens")
+            dag = await one("/v1/pipelines/lm", streams[1][0], CHUNK_NEW)
+            if dag["chunks"] != [("lm", i, t)
+                                 for i, t in enumerate(dag["stored"])]:
+                raise AssertionError(f"12e: the DAG's chunks {dag}")
+            subscribers = platform.task_events.subscriber_count
+            if subscribers:
+                raise AssertionError(f"12e: {subscribers} subscribers left")
+    finally:
+        await platform.stop()
+        await engine.stop()
+        for runner in runners:
+            await runner.cleanup()
+    ttft = [r["ttft_ms"] for r in runs]
+    out.update({"streams": len(runs),
+                "tokens": sum(len(r["stored"]) for r in runs),
+                "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p95": pct(ttft, 95),
+                "late_tokens": n_late,
+                "late_replay": "truncated" in late["kinds"],
+                "dag_chunks": len(dag["chunks"]), "dag_root": dag["id"],
+                "flash_launches": flash.launches
+                - out.pop("flash_launches_before")})
+    return out
 
 
 # -- 12c: the worker in process, a reload and a drain mid-stream
@@ -5689,8 +5835,8 @@ def phase_wires_served(handoff: dict, device: str = "cuda") -> dict:
     """13b: the three image models behind the port's control plane, as
     deploy/specs writes them (rgb8) and with land cover on yuv420, species
     on dct and megadetector on yuv420 (its crops handed to species decode
-    on the host first), in turns (rgb8, wire, wire, rgb8), each turn its
-    own control plane and worker on the same requests."""
+    on the host first), in turns rgb8 then wire, each turn its own control
+    plane and worker on the same requests."""
     from ai4e_tpu_torch.train import make_checkpoints as mc
 
     out_dir = handoff["out_dir"]
@@ -5704,7 +5850,7 @@ def phase_wires_served(handoff: dict, device: str = "cuda") -> dict:
     report: dict = {"card": CARD.get("smi"), "wires": SERVED_WIRES,
                     "rgb8": [], "wire": []}
     histograms: dict = {"rgb8": [], "wire": []}
-    for turn, tag in enumerate(("rgb8", "wire", "wire", "rgb8")):
+    for turn, tag in enumerate(("rgb8", "wire")):
         wires = SERVED_WIRES if tag == "wire" else None
         cp_port, wk_port = free_port(), free_port()
         gateway, worker = (f"http://127.0.0.1:{cp_port}",
@@ -6840,7 +6986,6 @@ RESCUE_MAX_DELIVERY = 3    # 15d: AI4E_PLATFORM_MAX_DELIVERY_COUNT
 N_DEAD_LETTER = 8          # 15d: tasks sent while the worker is down
 RESCUE_TRIES = 8           # 15d: bursts tried until one is caught all running
 LC_DONE = "completed - class_histogram"
-SCORE_DONE = "completed - class_id, confidence"
 
 
 def decode_npy(body: bytes) -> np.ndarray:
@@ -7187,21 +7332,6 @@ def phase_offload(handoff: dict, device: str = "cuda") -> dict:
     return report
 
 
-def longcontext_held_out(handoff: dict, n: int) -> tuple:
-    """The trainer's held-out draws (seed + 1, batches of 16), as phases 6
-    and 11 take them."""
-    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
-
-    entry = next(m for m in handoff["models"]["models"]
-                 if m["name"] == "longcontext")
-    rng = np.random.default_rng(SEED + 1)
-    draws = [longcontext_batch(rng, 16, entry["seq_len"], entry["vocab_size"],
-                               entry["num_classes"])
-             for _ in range(-(-n // 16))]
-    seqs, labels = (np.concatenate(x)[:n] for x in zip(*draws))
-    return seqs.astype(np.uint16), labels, entry
-
-
 async def native_drive(gateway: str, worker: str, procs: dict, logs: dict,
                        work: dict) -> dict:
     import aiohttp
@@ -7220,28 +7350,22 @@ async def native_drive(gateway: str, worker: str, procs: dict, logs: dict,
         out["landcover"] = await drive_gateway(
             http, gateway, "/v1/landcover/classify", work["landcover"],
             N_DEPLOY_SYNC, LC_DONE, worker)
-        out["longcontext"] = await drive_gateway(
-            http, gateway, "/v1/longcontext/score", work["longcontext"], 0,
-            SCORE_DONE, worker)
     return out
 
 
 def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
-    """15c: land cover (4 sync + 64 async) and longcontext (64 async)
-    behind a control plane on the C++ store and broker, then on the Python
-    ones (two child processes each time), answers checked as phases 10b
-    and 11 check them."""
+    """15c: land cover (4 sync + 64 async) behind a control plane on the
+    C++ store and broker, then on the Python ones (two child processes
+    each time), answers checked as phase 10b checks them. Land cover's
+    pair alone: the whole script must stay inside its time limit."""
     from ai4e_tpu_torch.broker import native as broker_native
-    from ai4e_tpu_torch.cli import restore_checkpoint
-    from ai4e_tpu_torch.runtime.families import build_servable
     from ai4e_tpu_torch.taskstore import native as store_native
 
     t0 = time.perf_counter()
     built = [store_native.build_library(), broker_native.build_library()]
     build_s = time.perf_counter() - t0
     bodies, want = handoff["landcover"]
-    seqs, labels, entry = longcontext_held_out(handoff, N_DEPLOY_ASYNC)
-    work = {"landcover": bodies, "longcontext": [npy_bytes(s) for s in seqs]}
+    work = {"landcover": bodies}
     outs = {}
     for tag, extra in (("native", {"AI4E_PLATFORM_NATIVE_STORE": "1",
                                    "AI4E_PLATFORM_NATIVE_BROKER": "1"}),
@@ -7249,8 +7373,7 @@ def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
         cp_port, wk_port = free_port(), free_port()
         gateway, worker = (f"http://127.0.0.1:{cp_port}",
                            f"http://127.0.0.1:{wk_port}")
-        models, routes = cache_specs(gateway, worker,
-                                     ("landcover", "longcontext"))
+        models, routes = cache_specs(gateway, worker, ("landcover",))
         with control_plane_and_worker(
                 handoff["out_dir"], f"cores_{tag}", models, routes,
                 {**handoff["env"], **extra}, cp_port, wk_port,
@@ -7259,13 +7382,6 @@ def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
                                                  logs, work))
         outs[tag]["by_model"] = launches_by_model(
             logs["wk"].read_text(errors="replace"))
-    kwargs = {k: v for k, v in entry.items()
-              if k not in ("family", "sync_path", "async_path", "checkpoint",
-                           "name")}
-    lc = build_servable("seqformer", name="longcontext", **kwargs)
-    restore_checkpoint(lc, "longcontext", str(handoff["out_dir"]))
-    logits = reference_logits(lc, entry, seqs)
-    del lc
     report: dict = {"card": CARD.get("smi"), "build_s": build_s,
                     "libraries": [Path(p).name for p in built]}
     for tag, out in outs.items():
@@ -7276,30 +7392,17 @@ def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
                                  f"{out['store_probe']}")
         for i, result in enumerate(out["landcover"]["results"]):
             check_histogram(result, want[i], lc_pixels(handoff))
-        agree, _ = check_classes(out["longcontext"]["results"], logits)
-        hits = sum(r["class_id"] == y
-                   for r, y in zip(out["longcontext"]["results"], labels))
-        if hits < MIN_SERVED_ACC * len(labels):
-            raise AssertionError(f"15c {tag}: longcontext {hits}/"
-                                 f"{len(labels)} held-out right")
-        for model, kernel in (("landcover", "normalize_image"),
-                              ("landcover", "fused_seg_postprocess"),
-                              ("longcontext", "flash_attention")):
-            if device == "cuda" and out["by_model"].get(model, {}).get(kernel, 0) < 1:
+        for kernel in ("normalize_image", "fused_seg_postprocess"):
+            if device == "cuda" and out["by_model"].get(
+                    "landcover", {}).get(kernel, 0) < 1:
                 raise AssertionError(f"15c {tag}: {kernel} never launched "
-                                     f"for {model}")
-        report[tag] = {
-            m: {"requests_per_s": out[m]["async_requests_per_s"],
-                "task_p50_ms": out[m]["task_p50_ms"],
-                "task_p95_ms": out[m]["task_p95_ms"]}
-            for m in ("landcover", "longcontext")}
-        report[tag]["landcover"]["sync_p50_ms"] = \
-            out["landcover"]["sync_p50_ms"]
-        report[tag]["longcontext"]["classes_agree"] = \
-            f"{agree}/{len(labels)}"
-        report[tag]["longcontext"]["held_out_right"] = \
-            f"{hits}/{len(labels)}"
-        report[tag]["launches_by_model"] = out["by_model"]
+                                     f"for landcover")
+        report[tag] = {"landcover": {
+            "requests_per_s": out["landcover"]["async_requests_per_s"],
+            "task_p50_ms": out["landcover"]["task_p50_ms"],
+            "task_p95_ms": out["landcover"]["task_p95_ms"],
+            "sync_p50_ms": out["landcover"]["sync_p50_ms"]},
+            "launches_by_model": out["by_model"]}
     log(f"cores 15c: {json.dumps(report)}")
     return report
 
@@ -7979,11 +8082,65 @@ async def failover_drive(primary: str, standby: str, worker: str,
         out["final"] = {t["id"]: (t["i"], await http_json(
             http, "GET", f"{standby}/v1/taskmanagement/task/{t['id']}"))
             for t in out["tasks"]}
-        out["final_raw"] = {t["id"]: await result_bytes(http, standby,
-                                                        t["id"])
-                            for t in out["tasks"]}
+        out["final_raw"] = {}
+        missing = []
+        for t in out["tasks"]:
+            async with http.get(standby + "/v1/taskstore/result",
+                                params={"taskId": t["id"]}) as r:
+                status, raw = r.status, await r.read()
+            if status != 200:
+                await failover_missing_result(http, primary, standby, t,
+                                              status, old_metrics)
+                missing.append(t)
+                continue
+            out["final_raw"][t["id"]] = raw
+        # A completed task whose result the new primary lacks (C10, JAX's
+        # design as well: the worker's result client still wrote to the
+        # restarted, not yet fenced old primary): sent again, and the
+        # resubmission held to the same answer as every other task.
+        again = []
+        for t in missing:
+            new_id = await ha_submit(http, standby, bodies[t["i"]],
+                                     time.monotonic() + HA_DEADLINE_S)
+            again.append({"id": new_id, "i": t["i"], "was": t["id"]})
+        await asyncio.gather(*(ha_watch(http, [standby], t,
+                                        time.monotonic() + HA_DEADLINE_S)
+                               for t in again))
+        for t in again:
+            out["final"][t["id"]] = (t["i"], await http_json(
+                http, "GET", f"{standby}/v1/taskmanagement/task/{t['id']}"))
+            out["final_raw"][t["id"]] = t["raw"]
+            del out["final"][t["was"]]
+        out["results_lost_to_stale_primary"] = [t["was"] for t in again]
+        out["tasks"] = [t for t in out["tasks"] if t not in missing] + again
         out["attempt"] = attempt
     return out
+
+
+async def failover_missing_result(http, old: str, new: str, task: dict,
+                                  status: int, old_metrics: str) -> None:
+    """C10's evidence for a task whose result the new primary does not
+    answer: its record and ledger, both control planes' depths and the
+    stale primary's deliveries on the task's queue. Raises unless the
+    record is completed (the loss C10 names, which the caller resubmits)."""
+    record = await fetch_record(http, new, task["id"])
+    depths = {name: (await http_json(http, "GET",
+                                     url + "/v1/taskstore/depths"))[1]
+              for name, url in (("old", old), ("new", new))}
+    queue = (record.get("Endpoint") or LC_QUEUE) if isinstance(
+        record, dict) else LC_QUEUE
+    path = "/" + queue.split("://", 1)[-1].split("/", 1)[-1]
+    stale = [line for line in old_metrics.splitlines()
+             if line.startswith("ai4e_dispatch_total")
+             and (path in line or LC_QUEUE in line)]
+    log(f"failover 16b: the result of task {task['id']} (tile "
+        f"{task['i']}{', resubmitted for ' + task['was'] if 'was' in task else ''})"
+        f" answered {status}; record with ledger "
+        f"{json.dumps(record)}; depths {json.dumps(depths)}; the stale "
+        f"primary's deliveries {json.dumps(stale)}")
+    if not (isinstance(record, dict)
+            and str(record.get("Status", "")).startswith("completed")):
+        raise AssertionError(f"16b: result of {task['id']}: {status}")
 
 
 def phase_failover(handoff: dict, device: str = "cuda") -> dict:
@@ -8082,11 +8239,11 @@ def phase_16(handoff: dict, kernels: list[dict],
 # -- phase 17: the sharded task store ----------------------------------------
 
 SHARDS = 4
-# 17a's turns in mirrored order, (shards, replicas a shard): 4 shards with
-# their replicas, 1 shard, and 4 shards without replicas, which parts what
-# the sharding costs from what the replicas' absorbs cost.
-SHARD_TURNS = ((SHARDS, 1), (1, 0), (SHARDS, 0), (SHARDS, 0), (1, 0),
-               (SHARDS, 1))
+# 17a's turns, (shards, replicas a shard): 4 shards with their replicas,
+# 1 shard, and 4 shards without replicas, which parts what the sharding
+# costs from what the replicas' absorbs cost. One turn each: the whole
+# script must stay inside its time limit.
+SHARD_TURNS = ((SHARDS, 1), (1, 0), (SHARDS, 0))
 SHARD_DEADLINE_S = 120       # a part's tasks all terminal within this
 SHARD_CAUGHT_UP_S = 30       # 17a: replicas at their primaries' heads
 # 17b's long polls: a poll parked on a shard's feed when its slot moves
@@ -9094,6 +9251,11 @@ def start_res_worker(w: dict, env: dict, device: str) -> None:
 
 def launches_now(w: dict) -> dict:
     """SIGUSR1 makes the worker log its launches so far: land cover's."""
+    return launches_by_model_now(w).get("landcover", {})
+
+
+def launches_by_model_now(w: dict) -> dict:
+    """SIGUSR1: the worker's launches so far, by model."""
     import signal
 
     seen = w["log"].read_text(errors="replace").count(LAUNCH_MARKER)
@@ -9104,10 +9266,9 @@ def launches_now(w: dict) -> dict:
                  w["log"].read_text(errors="replace").splitlines()
                  if LAUNCH_MARKER in line]
         if len(lines) > seen:
-            return json.loads(lines[-1].split(LAUNCH_MARKER, 1)[1]).get(
-                "landcover", {})
+            return json.loads(lines[-1].split(LAUNCH_MARKER, 1)[1])
         time.sleep(0.02)
-    raise AssertionError(f"worker {w['tag']} logged no launches:\n"
+    raise AssertionError(f"worker {w.get('tag', '')} logged no launches:\n"
                          f"{tail(w['log'])}")
 
 
@@ -9903,11 +10064,12 @@ SERVED_BY_PART = {"19a": ("A1", "B1", "B2"), "19b": ("A1", "A2", "B2"),
 
 
 def phase_19(handoff: dict, kernels: list[dict],
-             device: str = "cuda") -> dict:
+             device: str = "cuda", keep_workers: bool = False) -> dict:
     """Phase 19: land cover from phase 10's checkpoint on workers A and B,
     behind the port's control plane with resilience (a), orchestration and
     the SLO ladder (b), and the deploy spec's autoscale routes on a sharded
-    store (c). Every process is a child of this one."""
+    store (c). Every process is a child of this one. ``keep_workers``
+    leaves A and B serving, under ``report["workers"]``, for phase 20a."""
     log("phase 19: resilience and orchestration")
     t0 = time.perf_counter()
     out_dir = handoff["out_dir"]
@@ -9944,14 +10106,13 @@ def phase_19(handoff: dict, kernels: list[dict],
                 take_launches(wk[tag], part, book)
             if part != "19c":
                 log(f"{part}: {json.dumps(report[part])}")
-        for tag in ("A", "B"):
-            stop_child(wk[tag]["proc"], wk[tag]["log"], f"19 worker {tag}")
-    finally:
-        for tag in ("A", "B"):
-            proc = wk.get(tag, {}).get("proc")
-            if proc is not None and proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
+        if not keep_workers:
+            stop_res_workers(wk)
+    except BaseException:
+        kill_res_workers(wk)
+        raise
+    if keep_workers:
+        report["workers"] = (wk, cp_port)
     report["seconds"] = time.perf_counter() - t0
     report["launches"] = book
     rows = {k["name"]: k for k in kernels}
@@ -9972,6 +10133,496 @@ def phase_19(handoff: dict, kernels: list[dict],
                 for c in starts.values())
     scale = report["19c"]
     log(f"phase 19: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'workers_up_s': report['workers_up_s'], 'ladder': report['19b']['ladder']['transitions_s_level'], 'first_scale_up_s': {k: v['first_scale_up_s'] for k, v in scale.items()}, 'published_to_popped': {k: v['published_to_popped'] for k, v in scale.items()}, 'launches': book, 'card': CARD.get('smi')})}")
+    return report
+
+
+def stop_res_workers(wk: dict) -> None:
+    for tag in ("A", "B"):
+        stop_child(wk[tag]["proc"], wk[tag]["log"], f"worker {tag}")
+
+
+def kill_res_workers(wk: dict) -> None:
+    for tag in ("A", "B"):
+        proc = wk.get(tag, {}).get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+# -- phase 20: tenancy, a declared DAG, and the LM's token chunks ------------
+
+#: 20a's tenants: ``name=key:weight[:rps:burst]`` (AI4E_TENANCY_TENANTS).
+TENANTS = "noisy=kn:1,alpha=ka:4,beta=kb:1:5:5"
+TENANT_KEYS = {"noisy": "kn", "alpha": "ka", "beta": "kb"}
+TENANT_BURST = {"noisy": 192, "alpha": 32, "beta": 32}
+BETA_RPS, BETA_BURST = 5.0, 5.0
+TENANT_TOP_N = 2          # AI4E_TENANCY_LABEL_TOP_N: beta reads "other"
+TENANT_LABEL = {"noisy": "noisy", "alpha": "alpha", "beta": "other"}
+ALPHA_AFTER_S = 0.05      # alpha's burst starts this long after noisy's
+N_SCENES, SCENE_PX = 16, 512   # 20b: PNG scenes, each fed to both stages
+DAG_STAGES = ("landcover", "species")
+SPECIES_SURE = 0.505      # top-1 above it: a top-two gap over 1e-2
+N_CHUNK_STREAMS = 32      # 20c (12e): stream tasks through the gateway
+CHUNK_NEW = 32            # 20c: tokens each asks for
+CHUNK_LONG_NEW = 160      # past pipeline_chunk_replay's default 128
+
+
+def tenant_costs(wk: dict) -> dict:
+    """Each worker's placement cost, by host (A the cheap tier)."""
+    return {host_of(wk["A"]["url"]): 1.0, host_of(wk["B"]["url"]): 3.0}
+
+
+async def tenancy_drive(gateway: str, cp: dict, bodies: list, want,
+                        pixels: int, tenancy_on: bool) -> dict:
+    """20a's client: noisy's tiles at once, alpha's just after, beta's at
+    once; every admitted task awaited by long poll and its answer checked;
+    then each completed task's ledger and the control plane's series."""
+    import aiohttp
+
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, gateway + "/healthz", cp["proc"],
+                           cp["log"])
+
+        async def one(tenant: str, i: int) -> dict:
+            t0 = time.monotonic()
+            headers = {**OCTET, "Ocp-Apim-Subscription-Key":
+                       TENANT_KEYS[tenant]}
+            async with http.post(gateway + RES_ASYNC,
+                                 data=bodies[i % len(bodies)],
+                                 headers=headers) as r:
+                if r.status == 429:
+                    return {"tenant": tenant, "status": 429, "t0": t0,
+                            "retry_after": r.headers.get("Retry-After"),
+                            "reason": r.headers.get("X-Shed-Reason")}
+                if r.status != 200:
+                    raise AssertionError(f"20a: {tenant} {r.status}: "
+                                         f"{await r.text()}")
+                task_id = (await r.json())["TaskId"]
+            while True:
+                async with http.get(
+                        f"{gateway}/v1/taskmanagement/task/{task_id}",
+                        params={"wait": "30"}) as r:
+                    record = await r.json()
+                if TaskStatus.canonical(record["Status"]) in \
+                        TaskStatus.TERMINAL:
+                    break
+            ms = (time.monotonic() - t0) * 1e3
+            if record["Status"] != LC_DONE:
+                raise AssertionError(f"20a: {tenant} task {task_id} "
+                                     f"{record['Status']}")
+            check_histogram(json.loads(await result_bytes(
+                http, gateway, task_id)), want[i % len(want)], pixels)
+            return {"tenant": tenant, "status": 200, "t0": t0, "ms": ms,
+                    "id": task_id}
+
+        runs = [asyncio.ensure_future(one("noisy", i))
+                for i in range(TENANT_BURST["noisy"])]
+        await asyncio.sleep(ALPHA_AFTER_S)
+        runs += [asyncio.ensure_future(one(t, i)) for t in ("alpha", "beta")
+                 for i in range(TENANT_BURST[t])]
+        done = await asyncio.gather(*runs)
+        ledgers = {d["id"]: (await fetch_record(http, gateway, d["id"]))
+                   .get("Ledger", []) for d in done if d["status"] == 200}
+        async with http.get(gateway + "/metrics") as r:
+            metrics = await r.text()
+    return {"done": done, "ledgers": ledgers, "metrics": metrics}
+
+
+def check_tenancy_run(run: dict, costs: dict, tenancy_on: bool) -> dict:
+    """20a's gates on one run; returns its record."""
+    done, metrics = run["done"], run["metrics"]
+    out: dict = {"tenancy": tenancy_on}
+    for tenant in TENANT_BURST:
+        mine = [d for d in done if d["tenant"] == tenant]
+        ok = [d["ms"] for d in mine if d["status"] == 200]
+        out[tenant] = {"sent": len(mine), "completed": len(ok),
+                       "refused": len(mine) - len(ok),
+                       "task_ms_p50": pct(ok, 50) if ok else None,
+                       "task_ms_p95": pct(ok, 95) if ok else None}
+    if not tenancy_on:
+        if any(d["status"] != 200 for d in done):
+            raise AssertionError("20a: a refusal with tenancy off")
+        return out
+    beta = [d for d in done if d["tenant"] == "beta"]
+    span = max(d["t0"] for d in beta) - min(d["t0"] for d in beta)
+    bound = BETA_BURST + BETA_RPS * span + 1
+    out["beta"]["admit_bound"] = bound
+    if out["beta"]["completed"] > bound:
+        raise AssertionError(f"20a: beta admitted {out['beta']} over "
+                             f"{bound}")
+    for d in beta:
+        if d["status"] == 429 and not (
+                int(d["retry_after"]) >= 1
+                and d["reason"] == "tenant-quota at gateway"):
+            raise AssertionError(f"20a: beta's refusal {d}")
+    if out["beta"]["refused"] < 1:
+        raise AssertionError("20a: beta was never refused")
+    if not out["alpha"]["task_ms_p50"] < out["noisy"]["task_ms_p50"]:
+        raise AssertionError(f"20a: alpha p50 {out['alpha']} not below "
+                             f"noisy's {out['noisy']}")
+    deliveries: dict = {}
+    for d in done:
+        for ev in run["ledgers"].get(d.get("id"), ()):
+            if ev.get("e") == "delivered":
+                label = TENANT_LABEL[d["tenant"]]
+                by = deliveries.setdefault(label, {})
+                by[ev["r"]] = by.get(ev["r"], 0) + 1
+    delivered = {}
+    for line in metrics.splitlines():
+        if (line.startswith("ai4e_dispatch_total")
+                and 'outcome="delivered"' in line):
+            host = line.split('backend="', 1)[1].split('"')[0]
+            delivered[host] = delivered.get(host, 0) + float(
+                line.rsplit(" ", 1)[1])
+    from_ledgers = {}
+    for by in deliveries.values():
+        for host, n in by.items():
+            from_ledgers[host] = from_ledgers.get(host, 0) + n
+    if from_ledgers != delivered:
+        raise AssertionError(f"20a: ledger deliveries {from_ledgers} vs "
+                             f"ai4e_dispatch_total {delivered}")
+    for tenant, label in TENANT_LABEL.items():
+        completed = sum(metric_sum(metrics, "ai4e_tenant_outcomes_total",
+                                   tenant=label, outcome=o)
+                        for o in ("ok", "late"))
+        if completed != out[tenant]["completed"]:
+            raise AssertionError(f"20a: {label} outcomes {completed} vs "
+                                 f"{out[tenant]['completed']} completed")
+        want_cost = sum(n * costs[h]
+                        for h, n in deliveries.get(label, {}).items())
+        got_cost = metric_sum(metrics, "ai4e_tenant_cost_total",
+                              tenant=label)
+        if abs(got_cost - want_cost) > 1e-6:
+            raise AssertionError(f"20a: {label} cost {got_cost} vs "
+                                 f"{want_cost} ({deliveries})")
+        out[tenant].update({"label": label, "cost": got_cost,
+                            "deliveries_by_host": deliveries.get(label, {})})
+    out["shed"] = {label: metric_sum(metrics, "ai4e_tenant_admissions_total",
+                                     tenant=label, decision="quota_shed")
+                   for label in TENANT_LABEL.values()}
+    return out
+
+
+def phase_tenancy(handoff: dict, wk: dict, cp_port: int) -> dict:
+    """20a: land cover on workers A (cheap) and B behind a control plane
+    with admission, resilience, orchestration and tenancy; the same burst
+    again with tenancy off."""
+    out_dir = handoff["out_dir"]
+    bodies, want = handoff["landcover"]
+    bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
+    costs = tenant_costs(wk)
+    base = {**handoff["env"], "AI4E_PLATFORM_ADMISSION": "1",
+            "AI4E_PLATFORM_RESILIENCE": "1",
+            "AI4E_PLATFORM_ORCHESTRATION": "1",
+            "AI4E_PLATFORM_ORCHESTRATION_COSTS": ",".join(
+                f"{h}/={c:g}" for h, c in costs.items()),
+            "AI4E_PLATFORM_OBSERVABILITY": "1"}
+    out = {}
+    for tag, on in (("tenancy_on", True), ("tenancy_off", False)):
+        env = dict(base)
+        if on:
+            env.update({"AI4E_TENANCY_ENABLED": "1",
+                        "AI4E_TENANCY_TENANTS": TENANTS,
+                        "AI4E_TENANCY_LABEL_TOP_N": str(TENANT_TOP_N)})
+        cp = res_control_plane(out_dir, tag, res_routes(
+            wk["A"]["url"], wk["B"]["url"]), env, cp_port)
+        t0 = time.perf_counter()
+        run = run_control_plane_part(cp, f"20a {tag} control plane",
+                                     tenancy_drive(wk["gateway"], cp, bodies,
+                                                   want, lc_pixels(handoff),
+                                                   on))
+        record = check_tenancy_run(run, costs, on)
+        record["seconds"] = time.perf_counter() - t0
+        if on != ("tenancy ON (3 tenants)" in run["startup"]):
+            raise AssertionError(f"20a: startup line {run['startup']!r}")
+        out[tag] = record
+        log(f"tenancy 20a {tag}: {json.dumps(record)}")
+    out["alpha_p50_ms"] = {tag: out[tag]["alpha"]["task_ms_p50"]
+                           for tag in ("tenancy_on", "tenancy_off")}
+    out["noisy_p50_ms"] = {tag: out[tag]["noisy"]["task_ms_p50"]
+                           for tag in ("tenancy_on", "tenancy_off")}
+    return out
+
+
+def dag_specs(gateway: str, worker: str) -> tuple[dict, dict]:
+    """Phase 10's deploy spec cut to land cover and species, and their
+    async routes without ``autoscale``."""
+    models, routes = deploy_specs(gateway, worker)
+    models["models"] = [m for m in models["models"]
+                        if m["name"] in DAG_STAGES]
+    routes["apis"] = [{k: v for k, v in a.items() if k != "autoscale"}
+                      for a in routes["apis"]
+                      if a.get("prefix") in (LC_ASYNC, SPECIES_ASYNC)]
+    return models, routes
+
+
+def scene_pngs(n: int, seed: int) -> list[bytes]:
+    """``n`` SCENE_PX-square RGB PNGs: smooth random fields, 8-pixel
+    blocks upsampled."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        blocks = rng.integers(0, 256, (SCENE_PX // 8, SCENE_PX // 8, 3),
+                              dtype=np.uint8)
+        img = Image.fromarray(blocks).resize((SCENE_PX, SCENE_PX),
+                                             Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, format="PNG")
+        out.append(buf.getvalue())
+    return out
+
+
+async def sse_read(http, url: str) -> list[dict]:
+    """One task's SSE events until ``terminal``."""
+    events, current = [], {}
+    async with http.get(url, params={"wait": "120"}) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: {r.status} {await r.text()}")
+        async for raw in r.content:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                current["event"] = line[len("event: "):]
+            elif line.startswith("data: "):
+                current["data"] = json.loads(line[len("data: "):])
+            elif line == "" and current:
+                current["at"] = time.monotonic()
+                events.append(current)
+                if current["event"] == "terminal":
+                    break
+                current = {}
+    return events
+
+
+async def dag_drive(gateway: str, w: dict, scenes: list[bytes]) -> dict:
+    """20b's client: each scene to each model's own route, then three
+    waves of the DAG: first (half the streams attached at once, half after
+    completion), repeated under another request key (the stage cache),
+    and with ``X-Cache-Bypass``."""
+    import aiohttp
+
+    png = {"Content-Type": "image/png"}
+    out: dict = {"direct": {}, "waves": {}}
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0),
+            timeout=aiohttp.ClientTimeout(total=600)) as http:
+        await wait_healthy(http, w["url"] + "/v1/models/", w["proc"],
+                           w["log"])
+
+        async def direct(route: str, body: bytes) -> dict:
+            async with http.post(gateway + route, data=body,
+                                 headers=png) as r:
+                task_id = (await r.json())["TaskId"]
+            await http_json(http, "GET", f"{gateway}/v1/taskmanagement/task/"
+                            f"{task_id}", params={"wait": "60"})
+            return json.loads(await result_bytes(http, gateway, task_id))
+
+        for name, route in zip(DAG_STAGES, (LC_ASYNC, SPECIES_ASYNC)):
+            out["direct"][name] = await asyncio.gather(
+                *(direct(route, s) for s in scenes))
+        for wave, (query, headers) in (
+                ("first", ("", {})), ("repeat", ("?uniq=repeat", {})),
+                ("bypass", ("", {"X-Cache-Bypass": "1"}))):
+            before = launches_by_model_now(w)
+            t0 = time.perf_counter()
+
+            async def one(i: int, body: bytes) -> dict:
+                async with http.post(gateway + DAG_PREFIX + query, data=body,
+                                     headers={**png, **headers}) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"20b: {r.status} "
+                                             f"{await r.text()}")
+                    root = (await r.json())["TaskId"]
+                url = f"{gateway}/v1/taskmanagement/task/{root}/events"
+                early = i % 2 == 0
+                stream = (asyncio.ensure_future(sse_read(http, url))
+                          if early else None)
+                _, record = await http_json(
+                    http, "GET", f"{gateway}/v1/taskmanagement/task/{root}",
+                    params={"wait": "60"})
+                events = await (stream if early else sse_read(http, url))
+                doc = json.loads(await result_bytes(http, gateway, root))
+                parts = {}
+                for name in DAG_STAGES:
+                    async with http.get(gateway + "/v1/taskstore/result",
+                                        params={"taskId": root,
+                                                "stage": name}) as r:
+                        parts[name] = (json.loads(await r.read())
+                                       if r.status == 200 else r.status)
+                return {"root": root, "status": record["Status"],
+                        "doc": doc, "parts": parts, "early": early,
+                        "events": [(e["event"], e.get("data", {}).get(
+                            "stage"), e.get("data", {}).get("state"))
+                            for e in events]}
+
+            roots = await asyncio.gather(*(one(i, s)
+                                           for i, s in enumerate(scenes)))
+            after = launches_by_model_now(w)
+            out["waves"][wave] = {
+                "roots": roots, "seconds": time.perf_counter() - t0,
+                "launches": {m: {k: n - before.get(m, {}).get(k, 0)
+                                 for k, n in c.items()}
+                             for m, c in after.items()}}
+    return out
+
+
+def check_dag(run: dict, pixels: int) -> dict:
+    """20b's gates; returns the record."""
+    out: dict = {}
+    direct = run["direct"]
+    for wave, rec in run["waves"].items():
+        executed = {"first": 2, "repeat": 0, "bypass": 2}[wave]
+        lc_diff, sp_agree, sp_conf = 0, 0, 0.0
+        for i, r in enumerate(rec["roots"]):
+            want_status = (f"completed - pipeline {DAG_NAME} ({executed} "
+                           f"executed, {2 - executed} cached)")
+            if r["status"] != want_status:
+                raise AssertionError(f"20b {wave}: {r['status']!r}, want "
+                                     f"{want_status!r}")
+            if r["doc"] != {"pipeline": DAG_NAME, "stages": r["parts"]}:
+                raise AssertionError(f"20b {wave}: join document "
+                                     f"{r['doc']} vs parts {r['parts']}")
+            lc, sp = r["parts"]["landcover"], r["parts"]["species"]
+            want_lc = direct["landcover"][i]["class_histogram"]
+            keys = set(lc["class_histogram"]) | set(want_lc)
+            diff = max(abs(lc["class_histogram"].get(k, 0)
+                           - want_lc.get(k, 0)) for k in keys)
+            if diff > COUNT_TOLERANCE * pixels:
+                raise AssertionError(f"20b {wave}: land cover {lc} vs its "
+                                     f"own route's {want_lc}")
+            lc_diff = max(lc_diff, diff)
+            want_sp = direct["species"][i]
+            same = sp["class_id"] == want_sp["class_id"]
+            if not same and want_sp["confidence"] > SPECIES_SURE:
+                raise AssertionError(f"20b {wave}: species {sp} vs its own "
+                                     f"route's {want_sp}")
+            sp_agree += same
+            sp_conf = max(sp_conf, abs(sp["confidence"]
+                                       - want_sp["confidence"]))
+            kinds = [e[0] for e in r["events"]]
+            done = sorted(e[1] for e in r["events"]
+                          if e[0] == "stage" and e[2] in ("completed",
+                                                          "cached"))
+            if (kinds[0] != "status" or kinds[-1] != "terminal"
+                    or done != sorted(DAG_STAGES)):
+                raise AssertionError(f"20b {wave}: events {r['events']}")
+        launched = {m: sum(c.values()) for m, c in rec["launches"].items()}
+        if wave == "repeat" and any(launched.values()):
+            raise AssertionError(f"20b: the stage cache's wave launched "
+                                 f"{rec['launches']}")
+        out[wave] = {"seconds": rec["seconds"], "launches": rec["launches"],
+                     "landcover_max_count_diff": lc_diff,
+                     "species_agree": f"{sp_agree}/{len(rec['roots'])}",
+                     "species_max_confidence_diff": sp_conf,
+                     "streams_early_late": [
+                         sum(r["early"] for r in rec["roots"]),
+                         sum(not r["early"] for r in rec["roots"])]}
+    return out
+
+
+SPECIES_ASYNC = "/v1/camera-trap/classify-species-async"
+DAG_NAME, DAG_PREFIX = "survey", "/v1/pipelines/survey"
+
+
+def phase_dag(handoff: dict, device: str = "cuda") -> dict:
+    """20b: the DAG ``survey`` (land cover and species, each an entry stage
+    and a sink fed the original PNG) on a pipeline platform with the result
+    cache in this process, the two models on one worker from phase 10's
+    deploy spec."""
+    from ai4e_tpu_torch.pipeline import PipelineSpec, StageSpec
+
+    out_dir = handoff["out_dir"]
+    cp_port, wk_port = free_port(), free_port()
+    gateway = f"http://127.0.0.1:{cp_port}"
+    w = {"url": f"http://127.0.0.1:{wk_port}",
+         "log": out_dir / "dag_worker.log"}
+    models, routes = dag_specs(gateway, w["url"])
+    models_path = out_dir / "dag_models.json"
+    models_path.write_text(json.dumps(models))
+    w["proc"] = start_child(
+        ["worker", "--models", str(models_path), "--host", "127.0.0.1",
+         "--port", str(wk_port), "--device", device], w["log"],
+        handoff["env"])
+    backends = {a["prefix"]: a["backend"] for a in routes["apis"]}
+    spec = PipelineSpec(DAG_NAME, DAG_PREFIX, [
+        StageSpec(name, backends[route], input="original")
+        for name, route in zip(DAG_STAGES, (LC_ASYNC, SPECIES_ASYNC))])
+    env = {**handoff["env"], "AI4E_PLATFORM_PIPELINE": "1",
+           "AI4E_PLATFORM_RESULT_CACHE": "1"}
+    try:
+        cp = ThreadedControlPlane(env, routes, cp_port)
+        cp.platform.register_pipeline(spec)
+        with cp:
+            run = asyncio.run(dag_drive(gateway, w,
+                                        scene_pngs(N_SCENES, SEED + 20)))
+            run["subscribers_after"] = cp.call(
+                lambda: cp.platform.task_events.subscriber_count)
+        stop_child(w["proc"], w["log"], "20b worker")
+    finally:
+        if w["proc"].poll() is None:
+            w["proc"].kill()
+            w["proc"].wait(timeout=30)
+    out = check_dag(run, lc_pixels(handoff))
+    if run["subscribers_after"]:
+        raise AssertionError(f"20b: {run['subscribers_after']} event "
+                             "subscribers left behind")
+    out["subscribers_after"] = run["subscribers_after"]
+    out["launches_by_model"] = launches_by_model(
+        w["log"].read_text(errors="replace"))
+    log(f"dag 20b: {json.dumps(out)}")
+    return out
+
+
+def phase_20(handoff: dict, kernels: list[dict], workers,
+             device: str = "cuda") -> dict:
+    """Phase 20: tenancy on phase 19's workers (a), then a declared DAG
+    with its event streams (b); the LM's token chunks ran as 12e."""
+    log("phase 20: tenancy and pipeline DAGs")
+    t0 = time.perf_counter()
+    wk, cp_port = workers
+    report: dict = {"seconds_by_part": {}}
+    book: dict = {}
+    try:
+        t = time.perf_counter()
+        for tag in ("A", "B"):
+            w = wk[tag]
+            w["mark"] = launches_now(w)
+        report["20a"] = phase_tenancy(handoff, wk, cp_port)
+        for tag in ("A", "B"):
+            take_launches(wk[tag], "20a", book)
+        report["seconds_by_part"]["20a"] = time.perf_counter() - t
+        stop_res_workers(wk)
+    except BaseException:
+        kill_res_workers(wk)
+        raise
+    t = time.perf_counter()
+    report["20b"] = phase_dag(handoff, device)
+    report["seconds_by_part"]["20b"] = time.perf_counter() - t
+    report["seconds"] = time.perf_counter() - t0
+    rows = {k["name"]: k for k in kernels}
+    lc_20b = report["20b"]["launches_by_model"].get("landcover", {})
+    sp_20b = report["20b"]["launches_by_model"].get("species", {})
+    counts = {"normalize_image": {"20a": sum(c.get("normalize_image", 0)
+                                             for c in book["20a"].values()),
+                                  "20b_landcover": lc_20b.get(
+                                      "normalize_image", 0),
+                                  "20b_species": sp_20b.get(
+                                      "normalize_image", 0)},
+              "fused_seg_postprocess": {
+                  "20a": sum(c.get("fused_seg_postprocess", 0)
+                             for c in book["20a"].values()),
+                  "20b_landcover": lc_20b.get("fused_seg_postprocess", 0)}}
+    for name, by in counts.items():
+        if device == "cuda" and min(by.values()) < 1:
+            raise AssertionError(f"phase 20: {name} never launched: {by}")
+        if name in rows:
+            rows[name]["launches_phase20"] = by
+    log(f"phase 20: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'alpha_p50_ms': report['20a']['alpha_p50_ms'], 'noisy_p50_ms': report['20a']['noisy_p50_ms'], 'launches': counts, 'card': CARD.get('smi')})}")
     return report
 
 
@@ -10052,7 +10703,8 @@ def main() -> None:
     phase_16(deployed, kernels)
     phase_17(deployed, kernels)
     phase_18(deployed, kernels)
-    phase_19(deployed, kernels)
+    workers = phase_19(deployed, kernels, keep_workers=True)["workers"]
+    phase_20(deployed, kernels, workers)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

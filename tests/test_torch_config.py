@@ -169,6 +169,17 @@ SERVED_RESILIENCE_KNOBS = [
         "slo_ladder")] + [
     ("AI4E_ROLLOUT_", "drain_eject_ttl_s")]
 
+#: Tenancy (ROADMAP A18.10) and pipeline DAGs (A18.12): served, so each
+#: set away from its default parses as JAX's does.
+SERVED_TENANCY_PIPELINE_KNOBS = [
+    ("AI4E_TENANCY_", f) for f in (
+        "enabled", "tenants", "default_weight", "default_rps",
+        "default_burst", "label_top_n", "goodput_target",
+        "min_quantum")] + [
+    ("AI4E_PLATFORM_", f) for f in (
+        "pipeline", "pipeline_event_replay", "pipeline_stream_max_s",
+        "pipeline_chunk_replay")]
+
 #: The rollout controller's knobs, still refused under its item.
 CONTROLLER_KNOBS = [
     ("AI4E_ROLLOUT_", f) for f in (
@@ -205,7 +216,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_HA_KNOBS, "same"))
          + list(off_default_cases(SERVED_SHARD_KNOBS, "same"))
          + list(off_default_cases(SERVED_PUSH_REPORTER_KNOBS, "same"))
-         + list(off_default_cases(SERVED_RESILIENCE_KNOBS, "same")))
+         + list(off_default_cases(SERVED_RESILIENCE_KNOBS, "same"))
+         + list(off_default_cases(SERVED_TENANCY_PIPELINE_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -287,6 +299,14 @@ def test_from_env_matches_jax(kind, env, item):
     {"AI4E_PLATFORM_ORCHESTRATION_LADDER_HOLD_S": "0.5"},
     {"AI4E_PLATFORM_SLO_LADDER": "1"},
     {"AI4E_ROLLOUT_DRAIN_EJECT_TTL_S": "4"},
+    {"AI4E_TENANCY_ENABLED": "1"},
+    {"AI4E_TENANCY_TENANTS": "alpha=k1|k2:4:50:100,beta=k3:1:5"},
+    {"AI4E_TENANCY_DEFAULT_RPS": "3"},
+    {"AI4E_TENANCY_LABEL_TOP_N": "2"},
+    {"AI4E_TENANCY_MIN_QUANTUM": "0.5"},
+    {"AI4E_PLATFORM_PIPELINE": "1"},
+    {"AI4E_PLATFORM_PIPELINE_CHUNK_REPLAY": "4"},
+    {"AI4E_PLATFORM_PIPELINE_STREAM_MAX_S": "2"},
 ], ids=lambda env: next(iter(env), "defaults"))
 def test_platform_config_is_jax_s(env):
     """``to_platform_config`` gives ``LocalPlatform`` the values the JAX
@@ -299,9 +319,9 @@ def test_platform_config_is_jax_s(env):
 
 
 def test_seventeen_observability_knobs_left_the_unported_set():
-    """The served knobs are out of ``UNPORTED``, the SLO ladder and the
-    other eighteen of resilience and orchestration among them; 26 remain,
-    each naming its item."""
+    """The served knobs are out of ``UNPORTED``, the SLO ladder, the other
+    eighteen of resilience and orchestration, and tenancy's eight and the
+    pipelines' four among them; 14 remain, each naming its item."""
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
@@ -311,13 +331,16 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_SHARD_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_PUSH_REPORTER_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_RESILIENCE_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_TENANCY_PIPELINE_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_RESILIENCE_KNOBS) == 19
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
     assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
     assert len(SERVED_PUSH_REPORTER_KNOBS) == 7
-    assert len(port_config.UNPORTED) == 26
-    assert not any("A18.9" in what for what in port_config.UNPORTED.values())
+    assert len(SERVED_TENANCY_PIPELINE_KNOBS) == 12
+    assert len(port_config.UNPORTED) == 14
+    assert not any(item in what for what in port_config.UNPORTED.values()
+                   for item in ("A18.9", "A18.10", "A18.12"))
     assert (port_config.FrameworkConfig.from_env(
         {"AI4E_PLATFORM_SLO_LADDER": "1"}).to_platform_config().slo_ladder
         is True)

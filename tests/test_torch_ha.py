@@ -560,3 +560,180 @@ def test_depth_logger_reports_role_and_epoch_like_jax(tmp_path):
         got[pkg] = lines
     assert got["port"] == got["jax"]
     assert got["port"][1] == ["ai4e_store_epoch 1.0", "ai4e_store_role 1.0"]
+
+
+# -- C10: a stale primary's re-seed against a result on the new primary --------
+
+
+class PackageControlPlane:
+    """One control plane of either package: the store surface on the
+    gateway's app, land cover's async route to ``backend``, served on a
+    TestServer whose port survives a kill and a restart."""
+
+    def __init__(self, ns, config, backend: str, port: int = 0):
+        self.platform = ns.pa.LocalPlatform(config, metrics=ns.Registry())
+        self.platform.publish_async_api("/v1/lc/classify-async", backend)
+        ns.http.make_app(self.platform.store, app=self.platform.gateway.app,
+                         lifecycle=self.platform)
+        self.server = TestServer(self.platform.gateway.app, port=port)
+
+    async def start(self):
+        await self.server.start_server()
+        await self.platform.start()
+        return self
+
+    @property
+    def url(self) -> str:
+        return str(self.server.make_url("")).rstrip("/")
+
+    async def kill(self):
+        await self.server.close()
+        await self.platform.stop()
+        self.platform.store.close()
+
+
+async def stale_reseed_replay(pkg: str, tmp_path, order: str) -> dict:
+    """The candidate of C10, replayed on one package: a task runs on the
+    worker when its primary is killed; the promoted standby re-seeds it and
+    the worker runs it again; the old primary restarts from its stale
+    config and re-seeds it too, once it completed on the new primary
+    (``order="completed"``) or while it still runs there
+    (``order="running"``). Every result read comes from the new primary."""
+    import aiohttp
+
+    if pkg == "jax":
+        from ai4e_tpu.service.app import APIService
+        from ai4e_tpu.service.task_manager import (HttpResultStore,
+                                                   HttpTaskManager)
+    else:
+        from ai4e_tpu_torch.service.app import APIService
+        from ai4e_tpu_torch.service.task_manager import (HttpResultStore,
+                                                         HttpTaskManager)
+    ns = NS[pkg]
+    gate = asyncio.Event()
+    runs: list[str] = []
+    holder: dict = {}
+
+    svc = APIService("lc", metrics=ns.Registry())
+    deliveries: list[str] = []
+
+    @aiohttp.web.middleware
+    async def count(request, handler):
+        deliveries.append(request.path)
+        return await handler(request)
+
+    svc.app.middlewares.append(count)
+
+    @svc.api_async_func("/v1/lc/classify")
+    async def classify(taskId, body, content_type):
+        runs.append(taskId)
+        tm = holder["tm"]
+        await tm.update_task_status(taskId, "running - lc")
+        await gate.wait()
+        await holder["results"].set_result(
+            taskId, json.dumps({"run": len(runs)}).encode())
+        await tm.complete_task(taskId, "completed - lc")
+
+    worker = TestServer(svc.app)
+    await worker.start_server()
+    backend = str(worker.make_url("/v1/lc/classify"))
+    cfg = dict(journal_path=str(tmp_path / f"{pkg}_primary.jsonl"),
+               failover_interval=0.1, retry_delay=0.05)
+    primary = await PackageControlPlane(ns, ns.pa.PlatformConfig(
+        advertise_url="http://placeholder", **cfg), backend).start()
+    primary_port = primary.server.port
+    primary.platform.config.advertise_url = primary.url
+    standby = await PackageControlPlane(ns, ns.pa.PlatformConfig(
+        journal_path=str(tmp_path / f"{pkg}_standby.jsonl"),
+        replicate_from=primary.url, failover_interval=0.1,
+        failover_down_after=3, retry_delay=0.05), backend).start()
+    standby.platform.config.advertise_url = standby.url
+    replicas = [primary.url, standby.url]
+    holder["tm"] = HttpTaskManager(replicas)
+    holder["results"] = HttpResultStore(replicas)
+    svc.task_manager = holder["tm"]
+    old = None
+    out: dict = {}
+    try:
+        async with aiohttp.ClientSession() as http:
+            async with http.post(primary.url + "/v1/lc/classify-async",
+                                 data=b"tile") as r:
+                task_id = (await r.json())["TaskId"]
+            await until(lambda: len(runs) == 1, "the first delivery")
+            await until(lambda: standby.platform.replicator.synced.is_set()
+                        and snapshot(standby.platform.store)
+                        == snapshot(primary.platform.store),
+                        "the standby's sync")
+            await primary.kill()
+            await until(standby.platform.watchdog.promoted.is_set,
+                        "the promotion")
+            await until(lambda: len(runs) == 2, "the new primary's re-seed")
+            if order == "completed":
+                gate.set()
+                await until(lambda: standby.platform.store.get_result(
+                    task_id) is not None and standby.platform.store.get(
+                    task_id).canonical_status == "completed",
+                    "the completion on the new primary")
+            # The new primary's fencing probe waits until the stale
+            # primary's delivery has run its course, which a probe interval
+            # would otherwise race.
+            prober = standby.platform.prober
+            await prober.stop()
+            old = await PackageControlPlane(ns, ns.pa.PlatformConfig(
+                advertise_url=f"http://127.0.0.1:{primary_port}", **cfg),
+                backend, port=primary_port).start()
+            await until(lambda: len(deliveries) == 3, "the stale re-seed")
+            if order == "running":
+                # The stale primary's delivery reaches the worker while the
+                # task still runs on the new primary: it runs a third time.
+                await until(lambda: len(runs) == 3, "the third run")
+                gate.set()
+            await until(lambda: standby.platform.store.get(
+                task_id).canonical_status == "completed"
+                and not svc._background, "every run's end")
+            prober._stopped.clear()
+            prober.start()
+            await until(lambda: old.platform.store.role == "follower"
+                        and old.platform.replicator is not None,
+                        "the fence")
+            await until(lambda: old.platform.replicator.synced.is_set()
+                        and snapshot(old.platform.store)
+                        == snapshot(standby.platform.store),
+                        "the old primary catching up")
+            async with http.get(standby.url + "/v1/taskstore/result",
+                                params={"taskId": task_id}) as r:
+                out["result_status"] = r.status
+            async with http.get(standby.url + "/v1/taskstore/task",
+                                params={"taskId": task_id}) as r:
+                out["status"] = (await r.json())["Status"]
+            out["runs"] = len(runs)
+        out["deliveries"] = len(deliveries)
+    finally:
+        gate.set()
+        await holder["tm"].close()
+        await holder["results"].close()
+        if old is not None:
+            await old.kill()
+        await standby.kill()
+        await worker.close()
+    return out
+
+
+@pytest.mark.parametrize("order", ["completed", "running"])
+def test_c10_stale_reseed_against_the_new_primary_s_result(order, tmp_path):
+    """C10's candidate on both packages. A task the stale primary re-seeds
+    after it completed on the new primary keeps its result: the worker's
+    adoption re-check skips it. One it re-seeds while the task still runs
+    there runs a third time, and its result is lost in both packages: the
+    worker's result client wrote nothing since the kill, so it still sticks
+    to the old primary's URL, where the restarted, not yet fenced store
+    takes the write, while the task manager's client, which rotated, puts
+    the completion on the new primary. JAX's design; the port keeps it."""
+    got = {pkg: run(stale_reseed_replay(pkg, tmp_path, order))
+           for pkg in ("jax", "port")}
+    assert got["port"] == got["jax"]
+    assert got["port"]["status"] == "completed - lc"
+    if order == "completed":
+        assert got["port"] == dict(got["port"], result_status=200, runs=2)
+    else:
+        assert got["port"] == dict(got["port"], result_status=204, runs=3)
