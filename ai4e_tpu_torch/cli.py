@@ -1,5 +1,5 @@
 """Command line: ``python -m ai4e_tpu_torch
-control-plane|worker|reporter|redrive|trace``.
+control-plane|worker|reporter|redrive|trace|top|timeline``.
 
 Counterpart of ``ai4e_tpu/cli.py``; both read the same spec files and the
 same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
@@ -50,6 +50,14 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   with per-hop deltas; ``trace [--task-id ID | --trace-id ID] [--list]
   [--export LOG]`` — span trees from the JSONL span log (default:
   ``AI4E_OBSERVABILITY_TRACE_EXPORT_PATH``). Neither imports torch.
+- ``top --targets name=url,... | --collector URL [--interval S]
+  [--once]`` — the fleet dashboard (``observability/top.py``): per
+  process req/s, goodput, SLO burn, loop lag, RSS. ``--once`` prints one
+  frame, its rates from two snapshots ``interval`` apart.
+- ``timeline --rig-dir DIR [--out PATH]`` — one Chrome-trace JSON of a
+  run (``observability/timeline.build_from_rig_dir``: ``ledgers.json``,
+  ``vitals.json``, ``rig.json``'s chaos times), written to
+  ``DIR/timeline.json`` by default. Neither builds a platform.
 
 Both services install ``AI4E_OBSERVABILITY_*``'s tracer settings at start
 (every span an INFO log line unless an export path or OTLP endpoint is
@@ -718,6 +726,27 @@ def run_trace(args) -> None:
     print(render_trace(selected))
 
 
+def run_timeline(args) -> None:
+    """The ``timeline`` verb: a run's directory to one trace file."""
+    from .observability.timeline import build_from_rig_dir
+
+    if not os.path.isdir(args.rig_dir):
+        raise SystemExit(f"timeline: {args.rig_dir} is not a directory "
+                         "(pass the run's artifact directory)")
+    if not any(os.path.exists(os.path.join(args.rig_dir, f))
+               for f in ("rig.json", "ledgers.json")):
+        raise SystemExit(f"timeline: {args.rig_dir} has neither rig.json "
+                         "nor ledgers.json: not a run's artifact directory")
+    doc = build_from_rig_dir(args.rig_dir)
+    out_path = args.out or os.path.join(args.rig_dir, "timeline.json")
+    with open(out_path, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh)
+    meta = doc["otherData"]
+    print(f"wrote {out_path}: {len(doc['traceEvents'])} events, "
+          f"{meta['tasks']} tasks, hops {meta['hops']}, "
+          f"{len(meta['procs'])} procs; load it at https://ui.perfetto.dev")
+
+
 async def _wait_for_termination() -> None:
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -783,7 +812,39 @@ def main(argv=None) -> None:
                     help="summarise recent traces instead of rendering")
     tr.add_argument("--limit", type=int, default=20,
                     help="--list: how many recent traces")
+    tp = sub.add_parser(
+        "top",
+        help="live fleet dashboard: per-process req/s, goodput, SLO burn, "
+             "event-loop lag, RSS from the federation snapshot")
+    tp.add_argument("--collector", default=None,
+                    help="poll a collector's /v1/debug/fleet")
+    tp.add_argument("--spec", default=None,
+                    help="a rig topology.json (refused: the rig is not "
+                         "ported, ROADMAP A19)")
+    tp.add_argument("--targets", default=None,
+                    help="ad-hoc name=url,name=url target list")
+    tp.add_argument("--interval", type=float, default=2.0)
+    tp.add_argument("--once", action="store_true",
+                    help="print one frame and exit (scriptable)")
+    tl = sub.add_parser(
+        "timeline",
+        help="export a run as one Chrome-trace/Perfetto JSON: hop "
+             "ledgers, device phases, chaos verbs, vitals curves")
+    tl.add_argument("--rig-dir", required=True,
+                    help="the run's directory (rig.json and the "
+                         "ledgers/vitals files beside it)")
+    tl.add_argument("--out", default=None,
+                    help="output path (default <rig-dir>/timeline.json)")
     args = parser.parse_args(argv)
+    if args.component == "top":
+        from .observability.top import run_top
+        raise SystemExit(asyncio.run(run_top(
+            collector=args.collector, spec=args.spec,
+            targets=args.targets, interval=args.interval,
+            once=args.once)))
+    if args.component == "timeline":
+        run_timeline(args)
+        return
     if args.component == "trace":
         run_trace(args)
         return

@@ -1,7 +1,8 @@
-"""Chrome-trace / Perfetto timeline export: ``build_chrome_trace`` of
-``ai4e_tpu/observability/timeline.py``, a pure function over hop-ledger
-timelines and vitals rings. The ``timeline`` verb, which reads a rig
-directory, is not ported (ROADMAP A18.11).
+"""Chrome-trace / Perfetto timeline export; a copy of
+``ai4e_tpu/observability/timeline.py``: ``build_chrome_trace``, a pure
+function over hop-ledger timelines and vitals rings, and
+``build_from_rig_dir``, the ``timeline`` verb's body, which reads a run's
+directory (``rig.json``, ``ledgers.json``, ``vitals.json``).
 
 Track mapping:
 
@@ -19,6 +20,8 @@ input gives byte-identical output to the JAX package's.
 """
 
 from __future__ import annotations
+
+import json
 
 
 _CHAOS_PID = 1
@@ -168,3 +171,28 @@ def build_chrome_trace(ledgers: dict[str, list[dict]],
                           "tasks": len(spans), "hops": hops,
                           "procs": sorted(proc_pid)}}
 
+
+def build_from_rig_dir(rig_dir: str) -> dict:
+    """Compose the timeline from a run's directory: ``ledgers.json``
+    (``{"Ledgers": {task_id: events}}``, a store's ``dump_ledgers``),
+    ``vitals.json``, and ``rig.json``'s chaos timeline and load-generator
+    sample curves. The ``timeline`` verb's one-call body."""
+    import os
+
+    def load(name: str, default):
+        path = os.path.join(rig_dir, name)
+        if not os.path.exists(path):
+            return default
+        with open(path, encoding="utf-8") as fh:
+            return json.load(fh)
+
+    rig = load("rig.json", {})
+    ledgers = load("ledgers.json", {}).get("Ledgers", {})
+    vitals = load("vitals.json", {})
+    samples = {}
+    for w in rig.get("verdict", {}).get("windows", ()):  # load curves
+        name = f"loadgen{w.get('loadgen', '?')}"
+        if w.get("samples"):
+            samples[name] = w["samples"]
+    return build_chrome_trace(ledgers, chaos=rig.get("chaos"),
+                              vitals=vitals, loadgen_samples=samples)

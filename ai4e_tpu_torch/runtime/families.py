@@ -146,6 +146,9 @@ def build_unet(name: str = "landcover", tile: int = 256,
     pixels, the card normalises them and reduces the logits to per-class
     counts (``ops.normalize_image`` -> ``UNet`` ->
     ``ops.fused_seg_postprocess``), so only B*C int32 counts come back.
+    ``fused_postprocess=False`` is JAX's unfused path: float32 tiles go
+    straight to the UNet, its logits come back, and the host computes the
+    class map and the histogram (no kernel runs).
     ``return_classmap`` adds the class map as a base64 PNG (then the uint8
     map comes back too). ``wire`` is the host->device encoding: ``rgb8``
     (raw uint8 pixels, 3 B/px), ``yuv420`` (1.5 B/px) or ``dct`` (0.375
@@ -158,10 +161,6 @@ def build_unet(name: str = "landcover", tile: int = 256,
     from ..ops import fused_seg_postprocess, normalize_image
 
     _check_wire(wire, fused_postprocess, "fused_postprocess")
-    if not fused_postprocess:
-        raise ValueError("fused_postprocess=False is not ported yet (a later "
-                         "slice of the PyTorch port)")
-
     model = create_unet(generator=torch.Generator().manual_seed(0),
                         num_classes=num_classes, widths=tuple(widths),
                         device="cpu")
@@ -183,6 +182,29 @@ def build_unet(name: str = "landcover", tile: int = 256,
     if wire != "rgb8":
         return _WIRES[wire](name, model, on_normalized, tile, tile,
                             postprocess, buckets, converters)
+
+    if not fused_postprocess:
+        # JAX's unfused path: float32 tiles in, the logits to the host, the
+        # class map and its histogram computed there.
+        from ..models import segment_logits_to_classes
+
+        def logits_postprocess(logits):
+            classes = segment_logits_to_classes(
+                torch.from_numpy(np.ascontiguousarray(logits))).numpy()
+            values, counts = np.unique(classes, return_counts=True)
+            result = {"class_histogram":
+                      {int(v): int(c) for v, c in zip(values, counts)}}
+            if return_classmap:
+                result["classmap_png"] = encode_classmap_png(classes)
+            return result
+
+        return ServableModel(
+            name=name, apply_fn=lambda module, batch: module(batch),
+            module=model, input_shape=(tile, tile, 3),
+            input_dtype=np.float32,
+            preprocess=_image_preprocess((tile, tile, 3)),
+            postprocess=logits_postprocess, batch_buckets=tuple(buckets),
+            **converters)
 
     return ServableModel(
         name=name,

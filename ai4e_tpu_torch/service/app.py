@@ -13,6 +13,12 @@
   background and return the task id at once;
 - any exception of a user function fails its task, unless the task is
   already terminal;
+- a delivery of a task this process is still running on the same endpoint
+  under the same store epoch (a lost response retried, a duplicated
+  message) is acknowledged without a second run, which would complete the
+  task twice (ROADMAP C11; JAX's shell runs it again). After a failover
+  (a higher ``X-Store-Epoch``) it runs again, as in JAX: the new primary
+  may lack what the first run wrote;
 - ``GET {prefix}/`` is the health check, ``GET {prefix}/task/{id}`` the
   task status, ``GET /metrics`` the Prometheus exposition;
 - with a ``reporter`` (``metrics.ProcessingReporterClient``), each
@@ -90,6 +96,9 @@ class APIService:
         self.executor = ThreadPoolExecutor(max_workers=executor_workers,
                                            thread_name_prefix=f"{name}-worker")
         self._background: set[asyncio.Task] = set()
+        # (api_path, task_id) -> the store epoch its run began under, for
+        # every async task running in this process.
+        self._running: dict[tuple[str, str], int] = {}
 
         self._inflight = self.metrics.gauge(
             "ai4e_inflight_requests", "In-flight requests per endpoint")
@@ -235,6 +244,11 @@ class APIService:
         task = await self.task_manager.add_task(
             endpoint=str(request.url), body=b"", task_id=incoming_task_id)
         task_id = task["TaskId"]
+        epoch = self._store_epoch()
+        if self._running.get((spec.api_path, task_id)) == epoch:
+            # Checked after the store read, which sees a failover's new
+            # epoch first.
+            return self._acknowledge(spec, task)
         if (incoming_task_id is not None
                 and TaskStatus.canonical(task.get("Status", ""))
                 in TaskStatus.TERMINAL):
@@ -242,9 +256,7 @@ class APIService:
             # task that already finished must not run again, or its
             # running/completed writes would clobber the terminal status a
             # client may already have read. 200 acknowledges the message.
-            self._release(spec)
-            self._http_total.inc(code="200", path=spec.api_path)
-            return web.json_response(task)
+            return self._acknowledge(spec, task)
 
         # The reserved slot is held until the background execution ends:
         # the cap covers running tasks, not just open connections.
@@ -252,8 +264,10 @@ class APIService:
             k: request.headers[k]
             for k in (TRACE_HEADER, SPAN_HEADER, PARENT_HEADER, SAMPLED_HEADER)
             if k in request.headers}
+        self._running[(spec.api_path, task_id)] = epoch
         bg = asyncio.get_running_loop().create_task(
-            self._execute_async(spec, task_id, kwargs, parent_headers))
+            self._execute_async(spec, task_id, kwargs, parent_headers,
+                                epoch))
         self._background.add(bg)
         bg.add_done_callback(self._background.discard)
 
@@ -262,8 +276,8 @@ class APIService:
                                   "Status": task.get("Status", "created")})
 
     async def _execute_async(self, spec: EndpointSpec, task_id: str,
-                             kwargs: dict,
-                             parent_headers: dict) -> None:
+                             kwargs: dict, parent_headers: dict,
+                             epoch: int = 0) -> None:
         t0 = time.perf_counter()
         try:
             # One span keyed by TaskId covers the whole background run.
@@ -281,8 +295,23 @@ class APIService:
             except Exception:  # noqa: BLE001 — logged; nothing else to do
                 log.exception("could not fail task %s", task_id)
         finally:
+            if self._running.get((spec.api_path, task_id)) == epoch:
+                del self._running[(spec.api_path, task_id)]
             self._release(spec)
             self._latency.observe(time.perf_counter() - t0, path=spec.api_path)
+
+    def _store_epoch(self) -> int:
+        """The highest epoch the task store has answered with (an HTTP
+        store client's ``store_epoch``; 0 for a store in this process)."""
+        return getattr(self.task_manager, "store_epoch", 0)
+
+    def _acknowledge(self, spec: EndpointSpec, task: dict) -> web.Response:
+        """200 for a delivery that must not run: the task already finished
+        (a redelivered message), or this process is running it now. Its
+        slot is released; the message is acknowledged."""
+        self._release(spec)
+        self._http_total.inc(code="200", path=spec.api_path)
+        return web.json_response(task)
 
     async def _invoke(self, func: Callable, **kwargs) -> Any:
         if asyncio.iscoroutinefunction(func):

@@ -49,8 +49,9 @@ owner raises ``NotOwnerError``. ``export_task_records`` and
 journal's full-record shape (journaled on the importer), and
 ``forget_tasks`` drops it from the old owner, journaled as ``Evict``
 records with ``KeepBlobs``, so no replay deletes blobs the new owner's
-pointers hold. ``dump_ledgers``, the rig's collection surface, stays with
-the rig.
+pointers hold. ``dump_ledgers`` reads every resident hop ledger out at
+once (a run's timeline export); the sharded store has no such fan-out, as
+in JAX, and ``GET /v1/rig/ledgers``, which serves it, stays with the rig.
 """
 
 from __future__ import annotations
@@ -373,6 +374,16 @@ class InMemoryTaskStore(StoreSideEffects):
         stamped (reads never raise)."""
         with self._lock:
             return list(self._ledgers.get(task_id, ()))
+
+    def dump_ledgers(self, limit: int = 5000) -> dict[str, list[dict]]:
+        """Every resident timeline, the newest ``limit`` by first stamp:
+        hop ledgers are memory-only, so a run's timeline export reads them
+        out before the process ends. Reads never raise."""
+        with self._lock:
+            items = list(self._ledgers.items())
+        if limit >= 0:
+            items = items[-limit:] if limit else []
+        return {tid: list(evs) for tid, evs in items}
 
     # -- results -----------------------------------------------------------
 

@@ -143,7 +143,7 @@ Phases, each of which raises on failure:
    the batch API (accuracy at least 0.85 and within 2 of 64 of the
    trainer's eval), the trainer's 32 eval scenes through ``detect-async``
    (served detection accuracy within 2 objects of the trainer's, the
-   crops handed to species under one TaskId), then a backlog of 3,000
+   crops handed to species under one TaskId), then a backlog of 1,500
    land-cover tasks, during which the control plane's
    ``ai4e_autoscale_replicas`` for the route must rise above its starting
    4 with decisions counted and no task failed; normalize must launch in
@@ -259,16 +259,15 @@ Phases, each of which raises on failure:
    when one does), and
    the bucket-64 replay of both timed in turns beside phase 7a's; (b)
    the three image models of the deploy spec behind the control plane
-   (two child processes, the observability layer on), without a result
-   directory, with ``AI4E_PLATFORM_RESULT_DIR`` and
-   ``AI4E_SERVICE_RESULT_DIR`` on one directory at the default 1 MiB
-   threshold, and at 96 B with a 15 s terminal retention: 64 async
-   land-cover tiles and 16 camera-trap scenes each turn, answers as phase
-   10b, one ``.bin`` per result at or over the threshold (none for land
-   cover) holding the bytes ``GET /v1/taskstore/result`` serves, the
-   ledger's per-hop p50/p95 by turn, and the blobs gone after eviction;
-   (c) land cover (4 sync + 64 async) behind a control plane on the C++
-   store and broker, then on the Python ones: answers as phase 10b,
+   (two child processes, the observability layer on), with
+   ``AI4E_PLATFORM_RESULT_DIR`` and ``AI4E_SERVICE_RESULT_DIR`` on one
+   directory at 96 B with a 15 s terminal retention: 64 async land-cover
+   tiles and 16 camera-trap scenes, answers as phase 10b, one ``.bin``
+   per result at or over the threshold (none for land cover) holding the
+   bytes ``GET /v1/taskstore/result`` serves, the ledger's per-hop
+   p50/p95, and the blobs gone after eviction; (c) land cover (4 sync +
+   64 async) behind a control plane on the C++ store and broker, then on
+   the Python ones, in front of one worker: answers as phase 10b,
    requests/s and task p50/p95, each kernel launched; (d) land cover behind a control plane whose reaper
    rescues tasks running 3 s and whose broker dead-letters after 3
    deliveries: the worker SIGKILLed while every unfinished task is
@@ -325,8 +324,7 @@ Phases, each of which raises on failure:
 18. the push transport, weighted canary backends, typed API definitions
    and the request reporter, land cover from phase 10's checkpoint on
    workers A (generation 1) and B (generation 2), each reporting to a
-   reporter: (a) control planes in turns queue, push, push, queue on A
-   alone; (b) one caching control plane fed weighted routes and a
+   reporter: (a) control planes in turns queue, push on A alone; (b) one caching control plane fed weighted routes and a
    ``definitions`` route; (c) the reporter sampled through (b)'s burst.
    It prints ``push 18a turn``, ``canary 18b``, ``reporter 18c`` and
    ``phase 18`` lines;
@@ -369,7 +367,21 @@ Phases, each of which raises on failure:
    phase 12 as 12e: 32 stream tasks through a pipeline platform's
    gateway, chunks equal to the stored tokens, a late replay truncated,
    a one-stage DAG's chunks under its root id. It prints ``tenancy
-   20a``, ``dag 20b``, ``lm 12e`` and ``phase 20`` lines.
+   20a``, ``dag 20b``, ``lm 12e`` and ``phase 20`` lines;
+21. chaos, the load client, the fleet view and the timeline, on phase
+   19's workers A and B, in this process: (a) 64 held-out tiles through
+   ``tests/test_chaos.py``'s platform config at worker A, a clean turn,
+   then one under seeded 5xx, lost responses, refused connections,
+   latency and duplicate publishes with the dispatcher killed and
+   restarted: zero invariant violations, every answer within
+   ``C8_CARD_BOUND`` of the clean turn's, normalize and argmax launched;
+   (b) the port's open loop (48 tiles/s) and closed loop (16 in flight)
+   on a clean platform; (c) a ``FleetCollector`` over the control plane
+   and both workers and ``top --once`` as a child process naming all
+   three with a request rate on A; (d) ``timeline`` as a child process
+   over (a)'s ledgers and chaos times, one slice a task and both
+   instants. It prints ``chaos 21a``, ``load 21b``, ``fleet 21c``,
+   ``timeline 21d`` and ``phase 21`` lines.
 
 Every process the script starts is stopped before it ends: each phase
 stops its own children, SIGTERM ends the run through those same paths, and
@@ -3513,7 +3525,8 @@ IMAGE_RECIPES = ("landcover", "landcover128", "megadetector", "species",
                  "species_fine")
 N_DEPLOY_SYNC = 4       # land-cover sync requests before the async ones
 N_DEPLOY_ASYNC = 64     # held-out land-cover tiles and species images
-N_BACKLOG = 3000        # land-cover tasks: two autoscaler ticks' backlog
+N_BACKLOG = 1500        # land-cover tasks: an autoscaler tick's backlog,
+#                         more than 5 s of draining on the fastest host
 BACKLOG_SUBMITTERS = 128
 BACKLOG_TILES = 16      # distinct tiles the backlog cycles through
 DEPLOY_SLACK = 2        # of 64 images, or objects: served against trained
@@ -7322,18 +7335,20 @@ def check_offload_answers(handoff: dict, out: dict, tag: str) -> None:
 
 def phase_offload(handoff: dict, device: str = "cuda") -> dict:
     """15b: the three image models of the deploy spec behind the control
-    plane (two child processes, the observability layer on) without a
-    result directory, and with one at ``OFFLOAD_LOW`` bytes and a short
-    terminal retention; the same 64 land-cover tiles and 16 camera-trap
-    scenes each turn. (At the default 1 MiB no result of these models
-    reaches the directory: ``tests/test_torch_offload.py`` holds that.)"""
+    plane (two child processes, the observability layer on) with a result
+    directory at ``OFFLOAD_LOW`` bytes and a short terminal retention; 64
+    land-cover tiles and 16 camera-trap scenes. (At the default 1 MiB no
+    result of these models reaches the directory:
+    ``tests/test_torch_offload.py`` holds that. No turn without a
+    directory runs beside it, for the script's time: the offload's cost
+    stayed inside the spread between such turns.)"""
     from urllib.parse import quote
 
     result_dir = handoff["out_dir"] / "results" / "low"
     result_dir.mkdir(parents=True, exist_ok=True)
     for p in result_dir.iterdir():
         p.unlink()
-    turns = {"off": ({}, None), "low": ({
+    turns = {"low": ({
         "AI4E_PLATFORM_RESULT_DIR": str(result_dir),
         "AI4E_SERVICE_RESULT_DIR": str(result_dir),
         "AI4E_PLATFORM_RESULT_OFFLOAD_THRESHOLD": str(OFFLOAD_LOW),
@@ -7431,33 +7446,57 @@ async def native_drive(gateway: str, worker: str, procs: dict, logs: dict,
 
 def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
     """15c: land cover (4 sync + 64 async) behind a control plane on the
-    C++ store and broker, then on the Python ones (two child processes
-    each time), answers checked as phase 10b checks them. Land cover's
-    pair alone: the whole script must stay inside its time limit."""
+    C++ store and broker, then on the Python ones, each a child process on
+    one port in front of one land-cover worker (a child process too),
+    answers checked as phase 10b checks them. Land cover alone, one worker:
+    the whole script must stay inside its time limit."""
     from ai4e_tpu_torch.broker import native as broker_native
     from ai4e_tpu_torch.taskstore import native as store_native
 
     t0 = time.perf_counter()
     built = [store_native.build_library(), broker_native.build_library()]
     build_s = time.perf_counter() - t0
+    out_dir = handoff["out_dir"]
     bodies, want = handoff["landcover"]
     work = {"landcover": bodies}
+    cp_port = free_port()
+    gateway = f"http://127.0.0.1:{cp_port}"
+    w = {"tag": "cores", "port": free_port(), "out_dir": out_dir,
+         "models": out_dir / "cores_models.json"}
+    w["url"] = f"http://127.0.0.1:{w['port']}"
+    models, routes = cache_specs(gateway, w["url"], ("landcover",))
+    w["models"].write_text(json.dumps(models))
+    routes_path = out_dir / "cores_routes.json"
+    routes_path.write_text(json.dumps(routes))
     outs = {}
-    for tag, extra in (("native", {"AI4E_PLATFORM_NATIVE_STORE": "1",
-                                   "AI4E_PLATFORM_NATIVE_BROKER": "1"}),
-                       ("python", {})):
-        cp_port, wk_port = free_port(), free_port()
-        gateway, worker = (f"http://127.0.0.1:{cp_port}",
-                           f"http://127.0.0.1:{wk_port}")
-        models, routes = cache_specs(gateway, worker, ("landcover",))
-        with control_plane_and_worker(
-                handoff["out_dir"], f"cores_{tag}", models, routes,
-                {**handoff["env"], **extra}, cp_port, wk_port,
-                device) as (procs, logs):
-            outs[tag] = asyncio.run(native_drive(gateway, worker, procs,
-                                                 logs, work))
-        outs[tag]["by_model"] = launches_by_model(
-            logs["wk"].read_text(errors="replace"))
+    start_res_worker(w, handoff["env"], device)
+    try:
+        asyncio.run(wait_all_healthy([(w["url"] + "/v1/models/", w["proc"],
+                                       w["log"])]))
+        w["mark"] = launches_now(w)
+        for tag, extra in (("native", {"AI4E_PLATFORM_NATIVE_STORE": "1",
+                                       "AI4E_PLATFORM_NATIVE_BROKER": "1"}),
+                           ("python", {})):
+            logs = {"cp": out_dir / f"cores_{tag}_control_plane.log",
+                    "wk": w["log"]}
+            procs = {"cp": start_child(
+                ["control-plane", "--routes", str(routes_path), "--port",
+                 str(cp_port)], logs["cp"], {**handoff["env"], **extra}),
+                "wk": w["proc"]}
+            try:
+                outs[tag] = asyncio.run(native_drive(gateway, w["url"],
+                                                     procs, logs, work))
+                stop_child(procs["cp"], logs["cp"], f"15c {tag} control plane")
+            finally:
+                if procs["cp"].poll() is None:
+                    procs["cp"].kill()
+                    procs["cp"].wait(timeout=30)
+            outs[tag]["by_model"] = {"landcover": launches_delta(w)}
+        stop_child(w["proc"], w["log"], "15c worker")
+    finally:
+        if w["proc"].poll() is None:
+            w["proc"].kill()
+            w["proc"].wait(timeout=30)
     report: dict = {"card": CARD.get("smi"), "build_s": build_s,
                     "libraries": [Path(p).name for p in built]}
     for tag, out in outs.items():
@@ -8076,6 +8115,17 @@ async def failover_drive(primary: str, standby: str, worker: str,
             await asyncio.sleep(0.02)
         out["kill_to_promotion_s"] = time.monotonic() - t_kill
         await asyncio.gather(*watchers)
+        # A task the primary answered before the kill may never have
+        # reached the standby (replication is asynchronous): lost to lag.
+        answered_then_lost = 0
+        for t in tasks:
+            if "raw" in t and not t.get("lost"):
+                async with http.get(f"{standby}/v1/taskmanagement/task/"
+                                    f"{t['id']}") as r:
+                    if r.status == 404:
+                        t["lost"] = True
+                        answered_then_lost += 1
+        out["answered_before_kill_then_lost"] = answered_then_lost
         # Tasks the standby never received: the client sends them again.
         lost = [t for t in tasks if t.get("lost")]
         again = []
@@ -8496,19 +8546,22 @@ def phase_shard_pair(handoff: dict, wk: dict, cp_port: int) -> dict:
 
 class ThreadedControlPlane:
     """The port's control plane, built by its own ``build_control_plane``
-    from ``env`` and ``routes``, served on an event loop of its own in a
-    thread of this process (17b reaches into its store); started on entry,
-    stopped and its store closed on exit."""
+    from ``env`` and ``routes`` (or ``platform``, assembled by the caller
+    with the task store's HTTP surface on its gateway), served on an event
+    loop of its own in a thread of this process (17b reaches into its
+    store); started on entry, stopped and its store closed on exit."""
 
-    def __init__(self, env: dict, routes: dict, port: int):
+    def __init__(self, env: dict, routes: dict, port: int, platform=None):
         import threading
 
         from ai4e_tpu_torch.cli import build_control_plane
         from ai4e_tpu_torch.config import FrameworkConfig
 
-        config = FrameworkConfig.from_env(env)
-        config.gateway.host, config.gateway.port = "127.0.0.1", port
-        self.platform = build_control_plane(config, routes)
+        if platform is None:
+            config = FrameworkConfig.from_env(env)
+            config.gateway.host, config.gateway.port = "127.0.0.1", port
+            platform = build_control_plane(config, routes)
+        self.platform = platform
         self.port = port
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever,
@@ -8521,6 +8574,10 @@ class ThreadedControlPlane:
             return fn(*args)
         return asyncio.run_coroutine_threadsafe(on_loop(),
                                                 self.loop).result(60)
+
+    def run(self, coro):
+        """Await ``coro`` on the control plane's loop."""
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(60)
 
     async def _start(self) -> None:
         from aiohttp import web
@@ -8821,7 +8878,7 @@ def phase_17(handoff: dict, kernels: list[dict],
 # -- phase 18: the push transport, weighted canary backends, typed API
 # definitions, rollout generations and the request reporter ------------------
 
-PUSH_TURNS = ("queue", "push", "push", "queue")  # 18a, worker A alone
+PUSH_TURNS = ("queue", "push")  # 18a, worker A alone
 N_CANARY_WAVES = 2           # 18b: waves of the 64 held-out tiles
 CANARY_WEIGHTS = (3, 1)      # 18b: A:B on the weighted async route
 N_CANARY_SYNC = 16           # 18b: on the 1:1 and the A:1, B:0 sync routes
@@ -9351,10 +9408,16 @@ def launches_by_model_now(w: dict) -> dict:
 def take_launches(w: dict, part: str, book: dict) -> None:
     """This start's launches since its last reading, into ``book[part]``
     under the start's name (``A1``, ``B2``, ...)."""
+    book.setdefault(part, {})[f"{w['tag']}{w['starts']}"] = \
+        launches_delta(w)
+
+
+def launches_delta(w: dict) -> dict:
+    """Worker ``w``'s launches since its mark, by kernel; moves the mark."""
     now = launches_now(w)
-    book.setdefault(part, {})[f"{w['tag']}{w['starts']}"] = {
-        k: n - w["mark"].get(k, 0) for k, n in now.items()}
+    out = {k: n - w["mark"].get(k, 0) for k, n in now.items()}
     w["mark"] = now
+    return out
 
 
 def kill_worker(w: dict, part: str, book: dict) -> None:
@@ -10657,7 +10720,8 @@ def phase_dag(handoff: dict, device: str = "cuda") -> dict:
 def phase_20(handoff: dict, kernels: list[dict], workers,
              device: str = "cuda") -> dict:
     """Phase 20: tenancy on phase 19's workers (a), then a declared DAG
-    with its event streams (b); the LM's token chunks ran as 12e."""
+    with its event streams (b); the LM's token chunks ran as 12e. Workers
+    A and B go on serving for phase 21; any failure kills them."""
     log("phase 20: tenancy and pipeline DAGs")
     t0 = time.perf_counter()
     wk, cp_port = workers
@@ -10672,13 +10736,12 @@ def phase_20(handoff: dict, kernels: list[dict], workers,
         for tag in ("A", "B"):
             take_launches(wk[tag], "20a", book)
         report["seconds_by_part"]["20a"] = time.perf_counter() - t
-        stop_res_workers(wk)
+        t = time.perf_counter()
+        report["20b"] = phase_dag(handoff, device)
+        report["seconds_by_part"]["20b"] = time.perf_counter() - t
     except BaseException:
         kill_res_workers(wk)
         raise
-    t = time.perf_counter()
-    report["20b"] = phase_dag(handoff, device)
-    report["seconds_by_part"]["20b"] = time.perf_counter() - t
     report["seconds"] = time.perf_counter() - t0
     rows = {k["name"]: k for k in kernels}
     lc_20b = report["20b"]["launches_by_model"].get("landcover", {})
@@ -10699,6 +10762,403 @@ def phase_20(handoff: dict, kernels: list[dict], workers,
         if name in rows:
             rows[name]["launches_phase20"] = by
     log(f"phase 20: {json.dumps({'seconds': report['seconds'], 'seconds_by_part': report['seconds_by_part'], 'alpha_p50_ms': report['20a']['alpha_p50_ms'], 'noisy_p50_ms': report['20a']['noisy_p50_ms'], 'launches': counts, 'card': CARD.get('smi')})}")
+    return report
+
+
+# -- phase 21: chaos, the load client, the fleet view, the timeline ----------
+
+CHAOS_ROUTE = "/v1/chaos/classify-async"
+LOAD_ROUTE = "/v1/load/classify-async"
+CHAOS_SEED = 20260803     # tests/test_chaos.py's AI4E_CHAOS_SEED default
+N_CHAOS = 64              # 21a: held-out tiles a turn, as 15a
+CHAOS_KILL_AFTER = 24     # 21a: tasks sent before the dispatcher is killed
+CHAOS_DOWN_S = 1.0        # 21a: the dispatcher is down this long
+OPEN_RATE, OPEN_S, OPEN_RAMP_S = 48.0, 4.0, 1.0   # 21b: the open loop
+CLOSED_WIDTH, CLOSED_S, CLOSED_RAMP_S = 16, 3.0, 0.5  # 21b: the closed loop
+CLOSED_DEADLINE_S = 1.0   # 21b: the closed loop's goodput budget
+FLEET_INTERVAL_S = 1.0    # 21c: the collector's and top's interval
+FLEET_RATE = 16.0         # 21c: the open loop that keeps A busy meanwhile
+
+
+def chaos_platform(backend: str):
+    """21a's control plane: ``tests/test_chaos.py``'s scenario config, the
+    task store's HTTP surface on its gateway (workers A and B write their
+    tasks there), one async route at ``backend``."""
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.platform_assembly import LocalPlatform, PlatformConfig
+    from ai4e_tpu_torch.taskstore.http import make_app
+
+    platform = LocalPlatform(PlatformConfig(
+        resilience=True, retry_delay=0.01, lease_seconds=2.0,
+        resilience_retry_base_s=0.001, resilience_failure_threshold=3,
+        resilience_recovery_seconds=0.1, observability=True),
+        metrics=MetricsRegistry())
+    make_app(platform.store, app=platform.gateway.app, lifecycle=platform)
+    platform.publish_async_api(CHAOS_ROUTE, backend)
+    return platform
+
+
+def clean_platform(backends: list[str]):
+    """21b and 21c's control plane: the defaults but a short redelivery
+    delay, one async route over ``backends`` at equal weights."""
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.platform_assembly import LocalPlatform, PlatformConfig
+    from ai4e_tpu_torch.taskstore.http import make_app
+
+    platform = LocalPlatform(PlatformConfig(
+        retry_delay=TOPOLOGY_RETRY_DELAY), metrics=MetricsRegistry())
+    make_app(platform.store, app=platform.gateway.app, lifecycle=platform)
+    platform.publish_async_api(LOAD_ROUTE, [(b, 1.0) for b in backends])
+    return platform
+
+
+async def chaos_turn(gateway: str, bodies: list[bytes], checker,
+                     outage=None) -> list[dict]:
+    """One turn of 21a: every tile posted (``outage()`` starts the
+    dispatcher's outage after the first ``CHAOS_KILL_AFTER`` and returns
+    its end, awaited once every tile is posted), each task long-polled to
+    terminal and its result read."""
+    import aiohttp
+
+    from ai4e_tpu_torch.taskstore import TaskStatus
+
+    async with aiohttp.ClientSession() as http:
+        ids = []
+        restarted = None
+        for i, body in enumerate(bodies):
+            if outage is not None and i == CHAOS_KILL_AFTER:
+                restarted = await outage()
+            async with http.post(gateway + CHAOS_ROUTE, data=body,
+                                 headers=OCTET) as r:
+                if r.status != 200:
+                    raise AssertionError(f"21a: POST {r.status}: "
+                                         f"{await r.text()}")
+                ids.append((await r.json())["TaskId"])
+            checker.note_accepted(ids[-1])
+        if restarted is not None:
+            await restarted
+
+        async def watch(task_id: str) -> dict:
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                async with http.get(
+                        f"{gateway}/v1/taskmanagement/task/{task_id}",
+                        params={"wait": "30"}) as r:
+                    record = await r.json()
+                if TaskStatus.canonical(record["Status"]) \
+                        in TaskStatus.TERMINAL:
+                    break
+            else:
+                raise AssertionError(f"21a: task {task_id} never finished")
+            if record["Status"] != LC_DONE:
+                raise AssertionError(f"21a: task {task_id}: {record}")
+            return {"task_id": task_id, "result": json.loads(
+                await result_bytes(http, gateway, task_id))}
+
+        return list(await asyncio.gather(*(watch(t) for t in ids)))
+
+
+def counted_outcomes(metrics, name: str) -> dict:
+    out: dict = {}
+    for _kind, _name, labels, value in metrics.counter(name, "").collect():
+        key = labels.get("outcome", "")
+        out[key] = out.get(key, 0) + value
+    return out
+
+
+def phase_chaos(handoff: dict, wk: dict, cp_port: int,
+                device: str) -> tuple[dict, dict]:
+    """21a: 64 held-out tiles through ``chaos_platform`` at worker A, a
+    clean turn, then a turn under ``tests/test_chaos.py``'s faults (5xx,
+    lost responses, duplicate publishes) plus refused connections and added
+    latency, with the dispatcher killed and restarted. Every turn held to
+    the port's ``InvariantChecker``; every faulted answer equal to the
+    clean turn's within ``C8_CARD_BOUND``. Returns the report and what
+    21d exports (ledgers and chaos times)."""
+    from ai4e_tpu_torch.chaos import (FaultInjector, InvariantChecker,
+                                      kill_dispatcher, restart_dispatcher,
+                                      wrap_platform_http,
+                                      wrap_publish_duplicates)
+
+    bodies = handoff["landcover"][0][-N_CHAOS:]
+    pixels = lc_pixels(handoff)
+    gateway = wk["gateway"]
+    platform = chaos_platform(wk["A"]["url"] + WK_ASYNC)
+    flight = platform.observability.flight
+    checker = InvariantChecker(flight=flight,
+                               dump_dir=str(handoff["out_dir"] / "phase21"))
+    checker.attach(platform.store)
+    (queue,) = platform.dispatchers.dispatchers
+    injector = FaultInjector(seed=CHAOS_SEED)
+    injector.add_rule(error_rate=0.2, error_status=500, drop_rate=0.05,
+                      connect_error_rate=0.05, latency_rate=0.1,
+                      latency_s=0.05)
+    injector.add_rule(backend=WK_ASYNC, duplicate_rate=0.1)
+    chaos: list[dict] = []
+    report: dict = {"card": CARD.get("smi"), "tiles": len(bodies)}
+    with ThreadedControlPlane({}, {}, cp_port, platform=platform) as cp:
+        w = wk["A"]
+        w["mark"] = launches_now(w)
+        t = time.perf_counter()
+        clean = asyncio.run(chaos_turn(gateway, bodies, checker))
+        report["clean_s"] = time.perf_counter() - t
+        report["launches_clean"] = launches_delta(w)
+        cp.call(wrap_platform_http, platform, injector)
+        cp.call(wrap_publish_duplicates, platform, injector)
+
+        async def outage():
+            # The tiles after the kill queue while no dispatcher drains.
+            await asyncio.to_thread(cp.run, kill_dispatcher(platform, queue))
+            chaos.append({"verb": "kill_dispatcher", "t": time.time(),
+                          "queue": queue, "ok": True})
+
+            async def restart() -> None:
+                await asyncio.sleep(CHAOS_DOWN_S)
+                await asyncio.to_thread(cp.run,
+                                        restart_dispatcher(platform, queue))
+                chaos.append({"verb": "restart_dispatcher",
+                              "t": time.time(), "queue": queue, "ok": True})
+
+            return asyncio.ensure_future(restart())
+
+        before = cp.call(counted_outcomes, platform.metrics,
+                         "ai4e_dispatch_total")
+        t = time.perf_counter()
+        faulted = asyncio.run(chaos_turn(gateway, bodies, checker, outage))
+        report["faulted_s"] = time.perf_counter() - t
+        report["launches_faulted"] = launches_delta(w)
+        after = cp.call(counted_outcomes, platform.metrics,
+                        "ai4e_dispatch_total")
+        time.sleep(0.3)  # duplicate messages drain through suppression
+        cp.call(checker.assert_ok)
+        report["invariants"] = checker.summary()
+        report["violations"] = len(checker.violations())
+        ledgers = cp.call(platform.store.dump_ledgers)
+    report["faults"] = injector.counts()
+    report["dispatch_outcomes"] = {k: after.get(k, 0) - before.get(k, 0)
+                                   for k in after
+                                   if after.get(k, 0) - before.get(k, 0)}
+    report["deliveries"] = report["dispatch_outcomes"].get("delivered", 0)
+    worst = 0
+    for c, f in zip(clean, faulted):
+        a = {int(k): v for k, v in c["result"]["class_histogram"].items()}
+        b = {int(k): v for k, v in f["result"]["class_histogram"].items()}
+        if set(f["result"]) != {"class_histogram"} \
+                or sum(a.values()) != pixels or sum(b.values()) != pixels:
+            raise AssertionError(f"21a: {c['result']} and {f['result']} "
+                                 f"against {pixels} px")
+        worst = max([worst] + [abs(a.get(k, 0) - b.get(k, 0))
+                               for k in set(a) | set(b)])
+    report["max_count_diff_vs_clean"] = worst
+    report["bound_px"] = C8_CARD_BOUND * pixels
+    if worst > C8_CARD_BOUND * pixels:
+        raise AssertionError(f"21a: a faulted answer moved {worst} px from "
+                             f"the clean turn's: {report}")
+    launches = report["launches_faulted"]
+    report["launches_per_task"] = {k: n / len(bodies)
+                                   for k, n in launches.items()}
+    if device == "cuda":
+        for kernel in ("normalize_image", "fused_seg_postprocess"):
+            if launches.get(kernel, 0) < 1:
+                raise AssertionError(f"21a: {kernel} never launched in "
+                                     f"worker A's faulted turn: {report}")
+    if not report["faults"].get("error") or not report["faults"].get("drop"):
+        raise AssertionError(f"21a: the injector injected {report['faults']}")
+    log(f"chaos 21a: {json.dumps(report)}")
+    return report, {"ledgers": ledgers, "chaos": chaos,
+                    "tasks": [r["task_id"] for r in clean + faulted]}
+
+
+def load_summary(window: dict) -> dict:
+    keys = ("target_rate", "offered", "offered_rate", "achieved_rate",
+            "completed", "failed", "expired", "goodput", "late",
+            "p50_latency_ms", "p95_latency_ms", "p99_latency_ms",
+            "client_errors", "duration_s")
+    return {k: window[k] for k in keys if k in window}
+
+
+async def load_turns(gateway: str, body: bytes) -> dict:
+    """21b: the port's open loop, then its closed loop, on land cover."""
+    import aiohttp
+
+    from ai4e_tpu_torch.utils.loadclient import run_closed_loop, run_open_loop
+
+    def status(task_id: str) -> str:
+        return f"{gateway}/v1/taskmanagement/task/{task_id}"
+
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0)) as http:
+        open_w = await run_open_loop(
+            http, post_url=gateway + LOAD_ROUTE, payload=body,
+            headers=OCTET, rate=OPEN_RATE, status_url_for=status,
+            duration=OPEN_S, ramp=OPEN_RAMP_S, task_timeout=60.0)
+        closed_w = await run_closed_loop(
+            http, post_url=gateway + LOAD_ROUTE, payload=body,
+            headers=OCTET, mode="async", status_url_for=status,
+            concurrency=CLOSED_WIDTH, duration=CLOSED_S,
+            ramp=CLOSED_RAMP_S, task_timeout=60.0,
+            deadline_s=CLOSED_DEADLINE_S)
+    return {"open": load_summary(open_w), "closed": load_summary(closed_w)}
+
+
+async def fleet_view(handoff: dict, wk: dict, body: bytes) -> dict:
+    """21c: an in-process ``FleetCollector`` over the control plane and
+    workers A and B for two intervals, and ``top --once`` as a child
+    process, both while a light open loop keeps the workers busy."""
+    import aiohttp
+
+    from ai4e_tpu_torch.metrics import MetricsRegistry
+    from ai4e_tpu_torch.observability.federation import FleetCollector
+    from ai4e_tpu_torch.observability.top import render_top
+    from ai4e_tpu_torch.utils.loadclient import run_open_loop
+
+    gateway = wk["gateway"]
+    targets = {"cp": gateway, "a": wk["A"]["url"], "b": wk["B"]["url"]}
+    collector = FleetCollector(targets, interval_s=FLEET_INTERVAL_S,
+                               metrics=MetricsRegistry())
+    def status(task_id: str) -> str:
+        return f"{gateway}/v1/taskmanagement/task/{task_id}"
+
+    top_log = handoff["out_dir"] / "phase21" / "top.log"
+    async with aiohttp.ClientSession(
+            connector=aiohttp.TCPConnector(limit=0)) as http:
+        load = asyncio.ensure_future(run_open_loop(
+            http, post_url=gateway + LOAD_ROUTE, payload=body,
+            headers=OCTET, rate=FLEET_RATE, status_url_for=status,
+            duration=2 * FLEET_INTERVAL_S + 2.0, ramp=0.5,
+            task_timeout=60.0))
+        await asyncio.sleep(0.5)
+        with open(top_log, "wb") as out:
+            top = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "ai4e_tpu_torch", "top", "--once",
+                "--interval", str(FLEET_INTERVAL_S), "--targets",
+                ",".join(f"{k}={v}" for k, v in targets.items()),
+                cwd=ROOT, env=handoff["env"], stdout=out,
+                stderr=asyncio.subprocess.STDOUT)
+        await collector.scrape_once()
+        first = collector.snapshot()
+        await asyncio.sleep(FLEET_INTERVAL_S)
+        await collector.scrape_once()
+        second = collector.snapshot()
+        try:
+            rc = await asyncio.wait_for(top.wait(), 60)
+        finally:
+            if top.returncode is None:
+                top.kill()
+                await top.wait()
+        await load
+    frame = render_top(second, first)
+    log(f"fleet 21c frame:\n{frame}")
+    text = top_log.read_text(errors="replace")
+    log(f"fleet 21c top --once:\n{text}")
+    rows = {line.split()[0]: line.split() for line in text.splitlines()
+            if line.split() and line.split()[0] in targets}
+    out = {"top_rc": rc, "top_rows": sorted(rows),
+           "ups": {k: v["up"] for k, v in second["per_proc"].items()},
+           "requests_total": {k: v["requests_total"]
+                              for k, v in second["per_proc"].items()},
+           "conservation_ok": second["conservation"]["ok"]}
+    if rc != 0 or set(rows) != set(targets):
+        raise AssertionError(f"21c: top exited {rc}, rows {sorted(rows)}:"
+                             f"\n{text}")
+    out["top_rate_a"] = float(rows["a"][3])
+    if out["top_rate_a"] <= 0:
+        raise AssertionError(f"21c: top shows no requests on A:\n{text}")
+    if not all(out["ups"].values()) or not second["conservation"]["ok"]:
+        raise AssertionError(f"21c: fleet {second}")
+    if second["per_proc"]["a"]["requests_total"] \
+            <= first["per_proc"]["a"]["requests_total"]:
+        raise AssertionError(f"21c: A served nothing between the scrapes: "
+                             f"{first} {second}")
+    return out
+
+
+def phase_timeline(handoff: dict, export: dict) -> dict:
+    """21d: 21a's ledgers (``dump_ledgers``) and its chaos times as a run's
+    directory, then ``python -m ai4e_tpu_torch timeline`` over it: one
+    task slice per 21a task, the two chaos instants."""
+    rig_dir = handoff["out_dir"] / "phase21"
+    (rig_dir / "ledgers.json").write_text(json.dumps(
+        {"Ledgers": export["ledgers"]}))
+    (rig_dir / "rig.json").write_text(json.dumps({"chaos": export["chaos"]}))
+    done = subprocess.run(
+        [sys.executable, "-m", "ai4e_tpu_torch", "timeline", "--rig-dir",
+         str(rig_dir)], cwd=ROOT, env=handoff["env"], capture_output=True,
+        text=True, timeout=120)
+    if done.returncode != 0:
+        raise AssertionError(f"21d: timeline exited {done.returncode}:\n"
+                             f"{done.stdout}{done.stderr}")
+    doc = json.loads((rig_dir / "timeline.json").read_text())
+    slices = {ev["args"]["task_id"] for ev in doc["traceEvents"]
+              if ev["ph"] == "X" and ev["pid"] == 2}
+    instants = sorted(ev["name"] for ev in doc["traceEvents"]
+                      if ev["ph"] == "i" and ev["pid"] == 1)
+    out = {"events": len(doc["traceEvents"]), "task_slices": len(slices),
+           "tasks": len(export["tasks"]), "chaos_instants": instants,
+           "hops": doc["otherData"]["hops"], "said": done.stdout.strip()}
+    if slices != set(export["tasks"]) or instants != [
+            "kill_dispatcher", "restart_dispatcher"]:
+        raise AssertionError(f"21d: {out}")
+    return out
+
+
+def phase_21(handoff: dict, kernels: list[dict], workers,
+             device: str = "cuda") -> dict:
+    """Phase 21 on phase 19's workers A and B, in this process: chaos on
+    the card (a), the port's load client (b), the fleet view (c) and the
+    timeline export (d). Starts no worker; stops A and B at its end, or
+    kills them on any failure."""
+    log("phase 21: chaos, the load client, the fleet view, the timeline")
+    t0 = time.perf_counter()
+    wk, cp_port = workers
+    (handoff["out_dir"] / "phase21").mkdir(parents=True, exist_ok=True)
+    report: dict = {"seconds_by_part": {}, "card": CARD.get("smi")}
+    body = handoff["landcover"][0][-1]
+    try:
+        t = time.perf_counter()
+        report["21a"], export = phase_chaos(handoff, wk, cp_port, device)
+        report["seconds_by_part"]["21a"] = time.perf_counter() - t
+        platform = clean_platform([wk[tag]["url"] + WK_ASYNC
+                                   for tag in ("A", "B")])
+        with ThreadedControlPlane({}, {}, cp_port, platform=platform):
+            for tag in ("A", "B"):
+                wk[tag]["mark"] = launches_now(wk[tag])
+            t = time.perf_counter()
+            report["21b"] = asyncio.run(load_turns(wk["gateway"], body))
+            report["21b"]["launches"] = {
+                tag: launches_delta(wk[tag]) for tag in ("A", "B")}
+            report["seconds_by_part"]["21b"] = time.perf_counter() - t
+            log(f"load 21b: {json.dumps(report['21b'])}")
+            t = time.perf_counter()
+            report["21c"] = asyncio.run(fleet_view(handoff, wk, body))
+            report["seconds_by_part"]["21c"] = time.perf_counter() - t
+            log(f"fleet 21c: {json.dumps(report['21c'])}")
+        t = time.perf_counter()
+        report["21d"] = phase_timeline(handoff, export)
+        report["seconds_by_part"]["21d"] = time.perf_counter() - t
+        log(f"timeline 21d: {json.dumps(report['21d'])}")
+        stop_res_workers(wk)
+    except BaseException:
+        kill_res_workers(wk)
+        raise
+    report["seconds"] = time.perf_counter() - t0
+    rows = {k["name"]: k for k in kernels}
+    for name in ("normalize_image", "fused_seg_postprocess"):
+        if name in rows:
+            rows[name]["launches_phase21"] = {
+                "21a_clean": report["21a"]["launches_clean"].get(name, 0),
+                "21a_faulted": report["21a"]["launches_faulted"].get(name, 0),
+                "21b": sum(c.get(name, 0)
+                           for c in report["21b"]["launches"].values())}
+    summary = {"seconds": report["seconds"],
+               "seconds_by_part": report["seconds_by_part"],
+               "faults": report["21a"]["faults"],
+               "deliveries": report["21a"]["deliveries"],
+               "launches_per_task": report["21a"]["launches_per_task"],
+               "open": report["21b"]["open"],
+               "closed": report["21b"]["closed"],
+               "card": CARD.get("smi")}
+    log(f"phase 21: {json.dumps(summary)}")
     return report
 
 
@@ -10771,7 +11231,7 @@ def main() -> None:
 
 
 def run_phases(seconds: dict[str, float]) -> list[dict]:
-    """Phases 2-20 in order, each one's wall seconds into ``seconds``;
+    """Phases 2-21 in order, each one's wall seconds into ``seconds``;
     returns the kernels' records."""
     def timed(name: str, fn, *args, **kwargs):
         t = time.perf_counter()
@@ -10809,7 +11269,12 @@ def run_phases(seconds: dict[str, float]) -> list[dict]:
     timed("18", phase_18, deployed, kernels)
     workers = timed("19", phase_19, deployed, kernels,
                     keep_workers=True)["workers"]
-    timed("20", phase_20, deployed, kernels, workers)
+    try:
+        timed("20", phase_20, deployed, kernels, workers)
+        timed("21", phase_21, deployed, kernels, workers)
+    except BaseException:
+        kill_res_workers(workers[0])
+        raise
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

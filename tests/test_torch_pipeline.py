@@ -3,8 +3,8 @@ held against the JAX package's.
 
 ``tests/test_pipeline_dag.py`` and ``tests/test_pipeline_coordinator.py``
 run on the port (``port_suite``), the SDK's ``iter_task_events`` against
-the port's gateway among them. The coordinator test that drives
-``utils/loadclient.py`` waits for that module (ROADMAP A19). Then the same
+the port's gateway among them; the coordinator test that drives
+``utils/loadclient.py`` runs in ``test_torch_loadclient.py``. Then the same
 specs and runs go through both packages: validation errors word for word,
 sub-task ids and carved deadlines, the join and multi-sink documents byte
 for byte, quorum, the rerun through the stage cache and its bypass, the
@@ -36,7 +36,7 @@ from tests.test_torch_tenancy import port_module, port_suite
 globals().update(port_suite("test_pipeline_dag"))
 globals().update(port_suite(
     "test_pipeline_coordinator",
-    # Drives utils/loadclient.py, which the port gets with A19.
+    # Its load-client half runs in test_torch_loadclient.py.
     leave_out=("TestStreamingClients",)))
 
 _port_harness = port_module("test_pipeline_coordinator")

@@ -12,10 +12,14 @@
   ``test_torch_seqformer.py``; a mismatched tree is refused by both and
   serving is unchanged;
 - a reload racing a stream of batches: every batch's answer is the old
-  weights' or the new weights', never a mix.
+  weights' or the new weights', never a mix;
+- land cover's unfused path (float32 tiles, logits to the host) against
+  JAX's: histograms within 1% of the pixels per class, and a compressed
+  wire refused by both.
 """
 
 import asyncio
+import io
 import threading
 
 import jax
@@ -349,3 +353,59 @@ class TestReload:
             assert np.array_equal(got, want_old) or np.array_equal(
                 got, want_new)
         assert pserv.params_version == 8
+
+
+class TestUnfusedLandcover:
+    """``build_unet(fused_postprocess=False)``: JAX's unfused path (float32
+    tiles in, the logits to the host, the class map and histogram there),
+    on flax weights converted to the port."""
+
+    def test_histograms_match_jax(self):
+        kw = dict(UNET, fused_postprocess=False, buckets=(4,))
+        jrt, jserv = jax_runtime("unet", **kw)
+        prt, pserv = port_runtime("unet", params=numpy_tree(jserv.params),
+                                  **kw)
+        assert pserv.input_dtype == np.float32
+        tiles = np.random.default_rng(11).random((4, TILE, TILE, 3),
+                                                 dtype=np.float32)
+        bodies = []
+        for tile in tiles:
+            buf = io.BytesIO()
+            np.save(buf, tile)
+            bodies.append(buf.getvalue())
+        x = np.stack([pserv.preprocess(b, "application/octet-stream")
+                      for b in bodies])
+        np.testing.assert_array_equal(x, np.stack([
+            jserv.preprocess(b, "application/octet-stream") for b in bodies]))
+        port_logits = prt.run_batch(pserv.name, x)
+        jax_logits = np.asarray(jrt.run_batch(jserv.name, x))
+        assert port_logits.shape == jax_logits.shape == (4, TILE, TILE, 4)
+        for p_row, j_row in zip(port_logits, jax_logits):
+            got = pserv.postprocess(p_row)["class_histogram"]
+            want = jserv.postprocess(j_row)["class_histogram"]
+            assert sum(got.values()) == sum(want.values()) == PIXELS
+            # test_torch_worker's bound: each class within 1% of the pixels.
+            for c in set(got) | set(want):
+                assert abs(got.get(c, 0) - want.get(c, 0)) <= 0.01 * PIXELS, (
+                    got, want)
+            # The host's map is the argmax of the port's own logits.
+            exact = np.unique(p_row.argmax(-1), return_counts=True)
+            assert got == {int(v): int(n) for v, n in zip(*exact)}
+
+    def test_classmap_png_rides_the_unfused_path(self):
+        _, pserv = port_runtime("unet", fused_postprocess=False,
+                                return_classmap=True, **UNET)
+        logits = np.zeros((TILE, TILE, 4), np.float32)
+        logits[..., 2] = 1.0
+        out = pserv.postprocess(logits)
+        assert out["class_histogram"] == {2: PIXELS}
+        assert out["classmap_png"]
+
+    @pytest.mark.parametrize("wire", ["yuv420", "dct"])
+    def test_a_compressed_wire_is_refused_by_both(self, wire):
+        kw = dict(UNET, fused_postprocess=False, wire=wire)
+        with pytest.raises(ValueError) as got:
+            build_servable("unet", **kw)
+        with pytest.raises(ValueError) as want:
+            jax_build("unet", **kw)
+        assert str(got.value) == str(want.value)
