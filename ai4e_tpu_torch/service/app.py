@@ -13,12 +13,13 @@
   background and return the task id at once;
 - any exception of a user function fails its task, unless the task is
   already terminal;
-- a delivery of a task this process is still running on the same endpoint
-  under the same store epoch (a lost response retried, a duplicated
-  message) is acknowledged without a second run, which would complete the
-  task twice (ROADMAP C11; JAX's shell runs it again). After a failover
-  (a higher ``X-Store-Epoch``) it runs again, as in JAX: the new primary
-  may lack what the first run wrote;
+- a delivery of a task this process is running on the same endpoint under
+  the same store epoch (a lost response retried, a duplicated message,
+  also two delivered at once) is acknowledged without a second run, which
+  would complete the task twice (ROADMAP C11; JAX's shell runs it again).
+  After a failover (a higher ``X-Store-Epoch``) it runs again, as in JAX:
+  the new primary may lack what the first run wrote. A delivery to another
+  worker still runs it again, as in JAX;
 - ``GET {prefix}/`` is the health check, ``GET {prefix}/task/{id}`` the
   task status, ``GET /metrics`` the Prometheus exposition;
 - with a ``reporter`` (``metrics.ProcessingReporterClient``), each
@@ -96,9 +97,9 @@ class APIService:
         self.executor = ThreadPoolExecutor(max_workers=executor_workers,
                                            thread_name_prefix=f"{name}-worker")
         self._background: set[asyncio.Task] = set()
-        # (api_path, task_id) -> the store epoch its run began under, for
-        # every async task running in this process.
-        self._running: dict[tuple[str, str], int] = {}
+        # (api_path, task_id, store epoch) of every async run in flight in
+        # this process.
+        self._running: set[tuple[str, str, int]] = set()
 
         self._inflight = self.metrics.gauge(
             "ai4e_inflight_requests", "In-flight requests per endpoint")
@@ -244,10 +245,12 @@ class APIService:
         task = await self.task_manager.add_task(
             endpoint=str(request.url), body=b"", task_id=incoming_task_id)
         task_id = task["TaskId"]
+        # Nothing awaits from this check to the run's registration below,
+        # so of two deliveries read at once the second sees the first's
+        # run. The epoch is read after the store read, which sees a
+        # failover's new epoch first.
         epoch = self._store_epoch()
-        if self._running.get((spec.api_path, task_id)) == epoch:
-            # Checked after the store read, which sees a failover's new
-            # epoch first.
+        if (spec.api_path, task_id, epoch) in self._running:
             return self._acknowledge(spec, task)
         if (incoming_task_id is not None
                 and TaskStatus.canonical(task.get("Status", ""))
@@ -264,7 +267,7 @@ class APIService:
             k: request.headers[k]
             for k in (TRACE_HEADER, SPAN_HEADER, PARENT_HEADER, SAMPLED_HEADER)
             if k in request.headers}
-        self._running[(spec.api_path, task_id)] = epoch
+        self._running.add((spec.api_path, task_id, epoch))
         bg = asyncio.get_running_loop().create_task(
             self._execute_async(spec, task_id, kwargs, parent_headers,
                                 epoch))
@@ -277,7 +280,7 @@ class APIService:
 
     async def _execute_async(self, spec: EndpointSpec, task_id: str,
                              kwargs: dict, parent_headers: dict,
-                             epoch: int = 0) -> None:
+                             epoch: int) -> None:
         t0 = time.perf_counter()
         try:
             # One span keyed by TaskId covers the whole background run.
@@ -295,8 +298,7 @@ class APIService:
             except Exception:  # noqa: BLE001 — logged; nothing else to do
                 log.exception("could not fail task %s", task_id)
         finally:
-            if self._running.get((spec.api_path, task_id)) == epoch:
-                del self._running[(spec.api_path, task_id)]
+            self._running.discard((spec.api_path, task_id, epoch))
             self._release(spec)
             self._latency.observe(time.perf_counter() - t0, path=spec.api_path)
 
@@ -307,8 +309,9 @@ class APIService:
 
     def _acknowledge(self, spec: EndpointSpec, task: dict) -> web.Response:
         """200 for a delivery that must not run: the task already finished
-        (a redelivered message), or this process is running it now. Its
-        slot is released; the message is acknowledged."""
+        (a redelivered message), or this process is running it now under
+        the same store epoch. Its slot is released; the message is
+        acknowledged."""
         self._release(spec)
         self._http_total.inc(code="200", path=spec.api_path)
         return web.json_response(task)

@@ -289,7 +289,9 @@ Phases, each of which raises on failure:
    the pair: 64 tiles, the primary SIGKILLed mid-burst, the standby
    promoted and the worker's store client rotated to it without a
    restart, every task completed with phase 10's answer and each task
-   the standby never received (404 there) counted and resubmitted; the
+   the standby never received (404 there) counted and resubmitted (one
+   answered before the kill only if its first record in the primary's
+   journal ends past the bytes the standby had absorbed); the
    kill to the promotion and to the first completion, the replication
    lag before the kill; then the old primary restarted from its stale
    config: fenced to the new epoch by the new primary's prober, rejoined
@@ -373,8 +375,9 @@ Phases, each of which raises on failure:
    ``tests/test_chaos.py``'s platform config at worker A, a clean turn,
    then one under seeded 5xx, lost responses, refused connections,
    latency and duplicate publishes with the dispatcher killed and
-   restarted: zero invariant violations, every answer within
-   ``C8_CARD_BOUND`` of the clean turn's, normalize and argmax launched;
+   restarted: 5xx, lost responses and duplicate publishes each drawn,
+   zero invariant violations, every answer within ``C8_CARD_BOUND`` of
+   the clean turn's, normalize and argmax launched;
    (b) the port's open loop (48 tiles/s) and closed loop (16 in flight)
    on a clean platform; (c) a ``FleetCollector`` over the control plane
    and both workers and ``top --once`` as a child process naming all
@@ -8044,12 +8047,27 @@ async def role_of(http, base: str) -> dict:
     return role
 
 
+def journal_first_record_ends(path: Path, task_ids: list[str]) -> dict:
+    """For each task, the byte offset in the journal at ``path`` where the
+    first line naming it ends (None: no line names it)."""
+    ends: dict = dict.fromkeys(task_ids)
+    offset = 0
+    with open(path, "rb") as f:
+        for line in f:
+            offset += len(line)
+            for tid in task_ids:
+                if ends[tid] is None and tid.encode() in line:
+                    ends[tid] = offset
+    return ends
+
+
 async def failover_drive(primary: str, standby: str, worker: str,
                          procs: dict, logs: dict, restart_old,
-                         bodies: list[bytes]) -> dict:
+                         bodies: list[bytes], primary_journal: Path) -> dict:
     """16b's client: a burst to the primary, the primary SIGKILLed
     mid-burst, every task awaited at the standby (resubmitted there when it
-    never arrived), then the old primary restarted and fenced."""
+    never arrived), then the old primary restarted and fenced.
+    ``primary_journal`` is the primary's journal, read after the kill."""
     import aiohttp
     import signal
 
@@ -8116,16 +8134,32 @@ async def failover_drive(primary: str, standby: str, worker: str,
         out["kill_to_promotion_s"] = time.monotonic() - t_kill
         await asyncio.gather(*watchers)
         # A task the primary answered before the kill may never have
-        # reached the standby (replication is asynchronous): lost to lag.
-        answered_then_lost = 0
+        # reached the standby (replication is asynchronous): lost to lag,
+        # but only if its first journal record ends past the bytes the
+        # standby had absorbed before the kill. One the standby had
+        # absorbed, or the primary never journaled, is a fault.
+        answered_then_lost = []
         for t in tasks:
             if "raw" in t and not t.get("lost"):
                 async with http.get(f"{standby}/v1/taskmanagement/task/"
                                     f"{t['id']}") as r:
                     if r.status == 404:
-                        t["lost"] = True
-                        answered_then_lost += 1
-        out["answered_before_kill_then_lost"] = answered_then_lost
+                        answered_then_lost.append(t)
+        ends = journal_first_record_ends(
+            primary_journal, [t["id"] for t in answered_then_lost])
+        absorbed = out["offset_bytes_before_kill"]
+        unexplained = {tid: end for tid, end in ends.items()
+                       if end is None or end <= absorbed}
+        if unexplained:
+            raise AssertionError(
+                f"16b: tasks answered before the kill and unknown to the new "
+                f"primary, whose first journal record ends at or before the "
+                f"{absorbed} bytes the standby had absorbed (None: never "
+                f"journaled): {unexplained}")
+        for t in answered_then_lost:
+            t["lost"] = True
+        out["answered_before_kill_then_lost"] = len(answered_then_lost)
+        out["answered_then_lost_record_ends"] = sorted(ends.values())
         # Tasks the standby never received: the client sends them again.
         lost = [t for t in tasks if t.get("lost")]
         again = []
@@ -8304,7 +8338,8 @@ def phase_failover(handoff: dict, device: str = "cuda") -> dict:
 
         run = asyncio.run(failover_drive(urls["primary"], urls["standby"],
                                          urls["wk"], procs, logs,
-                                         restart_old, bodies))
+                                         restart_old, bodies,
+                                         out_dir / "ha_primary.jsonl"))
     pixels = lc_pixels(handoff)
     for task_id, (i, (status, record)) in run.pop("final").items():
         if status != 200 or record["Status"] != LC_DONE:
@@ -10890,10 +10925,11 @@ def phase_chaos(handoff: dict, wk: dict, cp_port: int,
     checker.attach(platform.store)
     (queue,) = platform.dispatchers.dispatchers
     injector = FaultInjector(seed=CHAOS_SEED)
+    # One rule for both surfaces: the first rule that matches decides, and
+    # a catch-all first would shadow a queue rule after it.
     injector.add_rule(error_rate=0.2, error_status=500, drop_rate=0.05,
                       connect_error_rate=0.05, latency_rate=0.1,
-                      latency_s=0.05)
-    injector.add_rule(backend=WK_ASYNC, duplicate_rate=0.1)
+                      latency_s=0.05, duplicate_rate=0.1)
     chaos: list[dict] = []
     report: dict = {"card": CARD.get("smi"), "tiles": len(bodies)}
     with ThreadedControlPlane({}, {}, cp_port, platform=platform) as cp:
@@ -10962,7 +10998,8 @@ def phase_chaos(handoff: dict, wk: dict, cp_port: int,
             if launches.get(kernel, 0) < 1:
                 raise AssertionError(f"21a: {kernel} never launched in "
                                      f"worker A's faulted turn: {report}")
-    if not report["faults"].get("error") or not report["faults"].get("drop"):
+    if not all(report["faults"].get(kind)
+               for kind in ("error", "drop", "duplicate")):
         raise AssertionError(f"21a: the injector injected {report['faults']}")
     log(f"chaos 21a: {json.dumps(report)}")
     return report, {"ledgers": ledgers, "chaos": chaos,

@@ -251,10 +251,11 @@ def free_port() -> int:
 @pytest.mark.parametrize("seed", [3, 20260803])
 def test_port_worker_completes_each_task_once_under_lost_responses(seed):
     """The port's echo worker behind ``test_chaos.py``'s platform, lost
-    responses on a third of the deliveries: each lost response retries
-    while the worker's first run is in flight, and the worker must not
-    run (and complete) the task again. Zero invariant violations, every
-    answer its own request's."""
+    responses on a third of the deliveries and a fifth of the publishes
+    duplicated: each lost response retries while the worker's first run is
+    in flight, a duplicated publish may arrive beside the first, and the
+    worker must not run (and complete) the task again. Zero invariant
+    violations, every answer its own request's."""
     from ai4e_tpu_torch.cli import build_worker
     from ai4e_tpu_torch.taskstore.http import make_app
 
@@ -281,8 +282,10 @@ def test_port_worker_completes_each_task_once_under_lost_responses(seed):
         platform.publish_async_api(
             "/v1/pub/run", f"http://127.0.0.1:{wk.port}/v1/echo/run-async")
         injector = port_chaos.FaultInjector(seed=seed)
-        injector.add_rule(error_rate=0.2, error_status=500, drop_rate=0.3)
-        injector.add_rule(backend="/v1/echo/", duplicate_rate=0.2)
+        # One rule for both surfaces: the first rule that matches decides,
+        # and a catch-all first would shadow a queue rule after it.
+        injector.add_rule(error_rate=0.2, error_status=500, drop_rate=0.3,
+                          duplicate_rate=0.2)
         port_chaos.wrap_platform_http(platform, injector)
         port_chaos.wrap_publish_duplicates(platform, injector)
         cp = TestServer(platform.gateway.app, port=cp_port)
@@ -313,6 +316,93 @@ def test_port_worker_completes_each_task_once_under_lost_responses(seed):
         return injector.counts(), set(checker.terminal.values()), answers
 
     counts, outcomes, answers = run(main())
-    assert counts.get("drop", 0) > 0
+    assert counts.get("drop", 0) > 0 and counts.get("duplicate", 0) > 0
     assert outcomes == {"completed"}
     assert answers == [{"echo": [float(i)] * 4} for i in range(24)]
+
+
+# How many runs one shell makes of two deliveries of one task: both at once,
+# the second while the first runs, the second under a failover's new store
+# epoch while the first runs, the second after the first completed.
+SHELL_RUNS = {"jax": {"concurrent": 2, "in_flight": 2, "new_epoch": 2,
+                      "after": 1},
+              "port": {"concurrent": 1, "in_flight": 1, "new_epoch": 2,
+                       "after": 1}}
+
+
+@pytest.mark.parametrize("arrival", list(SHELL_RUNS["port"]))
+@pytest.mark.parametrize("pkg", list(SHELL_RUNS))
+def test_shell_runs_of_a_second_delivery(pkg, arrival):
+    """C11 in the service shell, against JAX's: a second delivery of a task
+    the port's shell is adopting or running under the same store epoch is
+    acknowledged without a run; one under a new epoch runs again, as in
+    JAX. The store's reads take 50 ms, so two deliveries sent together both
+    read before either runs."""
+    if pkg == "jax":
+        from ai4e_tpu.service import APIService, LocalTaskManager
+        from ai4e_tpu.taskstore import APITask, InMemoryTaskStore
+    else:
+        from ai4e_tpu_torch.service import APIService, LocalTaskManager
+        from ai4e_tpu_torch.taskstore import APITask, InMemoryTaskStore
+
+    class SlowReads(LocalTaskManager):
+        async def get_task_status(self, task_id):
+            await asyncio.sleep(0.05)
+            return await super().get_task_status(task_id)
+
+    store = InMemoryTaskStore()
+    tm = SlowReads(store)
+    svc = APIService("svc", prefix="v1/test", task_manager=tm)
+    runs: list[str] = []
+    gate = asyncio.Event()
+
+    @svc.api_async_func("/run")
+    async def run_ep(taskId, body, content_type):
+        runs.append(taskId)
+        await gate.wait()
+        await tm.complete_task(taskId, "completed - ok")
+
+    async def main():
+        task = store.upsert(APITask(endpoint="/v1/test/run", body=b""))
+        completions = []
+        store.add_listener(lambda t: completions.append(t.canonical_status)
+                           if t.canonical_status == "completed" else None)
+        client = TestClient(TestServer(svc.app))
+        await client.start_server()
+
+        async def deliver():
+            resp = await client.post("/v1/test/run", data=b"{}",
+                                     headers={"taskId": task.task_id})
+            return resp.status
+
+        async def until(pred):
+            for _ in range(200):
+                if pred():
+                    return
+                await asyncio.sleep(0.01)
+            raise AssertionError("timed out")
+
+        try:
+            if arrival == "concurrent":
+                statuses = await asyncio.gather(deliver(), deliver())
+                await asyncio.sleep(0.1)
+                gate.set()
+            else:
+                statuses = [await deliver()]
+                await until(lambda: runs)
+                if arrival == "new_epoch":
+                    tm.store_epoch = 1
+                if arrival == "after":
+                    gate.set()
+                    await until(lambda: completions)
+                statuses.append(await deliver())
+                gate.set()
+            await until(lambda: not svc._background)
+        finally:
+            await client.close()
+        return statuses, len(runs), store.get(task.task_id).status
+
+    statuses, n_runs, status = run(main())
+    assert statuses == [200, 200]
+    assert n_runs == SHELL_RUNS[pkg][arrival]
+    assert status == "completed - ok"
