@@ -36,7 +36,15 @@ same ``AI4E_*`` variables (``config.FrameworkConfig.from_env``):
   warning when it is off. ``AI4E_ROLLOUT_GENERATION`` (0: keep the
   default) sets every model's rollout generation, and
   ``AI4E_SERVICE_REPORTER_URI`` (with ``_CLUSTER``) reports each request
-  to a request reporter.
+  to a request reporter. With ``WORLD_SIZE`` > 1 (and ``RANK``,
+  ``MASTER_ADDR``, ``MASTER_PORT``) the worker is one rank of a mesh:
+  rank 0 serves and every other rank mirrors its batches
+  (``parallel/multihost.py``) until rank 0 stops; the mesh is
+  ``AI4E_RUNTIME_MESH_SPEC`` (``dp=2``, ``sp=2``, ``dp=2,tp=2``: the
+  serving plane's grammar, served through a ``MeshEndpoint``, health
+  threshold ``AI4E_RUNTIME_MESH_UNHEALTHY_AFTER``) or the axis sizes
+  ``AI4E_RUNTIME_DP``/``_FSDP``/``_TP``/``_SP``/``_EP``, never both, and by
+  default every rank on dp.
 - ``reporter [--port P]`` — the cross-replica in-flight request counter
   (``metrics/reporter.py``; port 8085 by default). It imports neither
   torch nor JAX.
@@ -375,6 +383,48 @@ def _stores(models: dict, config: FrameworkConfig):
     return HttpTaskManager(base, api_key=key), results
 
 
+def _mesh_from_config(rt, device_type: str):
+    """The serving mesh from the runtime section, one of two sources:
+
+    - ``AI4E_RUNTIME_MESH_SPEC``, the serving-mesh grammar (``dp=8``,
+      ``dp=2,tp=2``; ``runtime/mesh/spec.py``), checked against the ranks
+      present (``MeshSpecError`` where it needs more or fewer);
+    - the axis sizes ``AI4E_RUNTIME_DP/FSDP/TP/SP/EP`` (dp 0: whatever the
+      others leave of the ranks).
+
+    Both set raises. Neither: every rank on dp, or None for one process."""
+    from .parallel.sharding import MeshSpec, make_mesh, process_count
+    from .runtime.mesh.spec import parse_mesh_spec
+
+    layout = parse_mesh_spec(rt.mesh_spec)
+    axes = dict(fsdp=rt.fsdp, tp=rt.tp, sp=rt.sp, ep=rt.ep)
+    axes_set = rt.dp > 0 or any(v > 1 for v in axes.values())
+    if layout is not None:
+        if axes_set:
+            raise ValueError(
+                "AI4E_RUNTIME_MESH_SPEC and the AI4E_RUNTIME_DP/FSDP/TP/"
+                "SP/EP axis knobs are mutually exclusive — the spec IS "
+                "the serving mesh; unset the axis knobs")
+        from .runtime.mesh.placement import mesh_for_layout
+        return mesh_for_layout(layout, device_type)
+    ranks = process_count()
+    if not axes_set:
+        return make_mesh(device_type=device_type) if ranks > 1 else None
+    denom = max(1, rt.fsdp) * max(1, rt.tp) * max(1, rt.sp) * max(1, rt.ep)
+    if rt.dp <= 0:
+        if ranks % denom:
+            raise ValueError(
+                f"{ranks} ranks not divisible by fsdp*tp*sp*ep={denom} "
+                f"(AI4E_RUNTIME_* axis sizes)")
+        dp = ranks // denom
+    else:
+        dp = rt.dp
+    spec = MeshSpec(dp=dp, **{k: max(1, v) for k, v in axes.items()})
+    if spec.size == 1 and ranks == 1:
+        return None
+    return make_mesh(spec, device_type=device_type)
+
+
 def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                  max_pending: int | None = None,
                  config: FrameworkConfig | None = None,
@@ -396,8 +446,19 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     ``AI4E_RUNTIME_DECODE_ENABLE``, each gets a ``PagedDecodeRuntime`` on
     the model runtime's device, lock, stream and graph pool, warmed (its
     graphs captured) at boot, and a ``DecodeEngine`` behind
-    ``worker.serve_stream``."""
+    ``worker.serve_stream``.
+
+    With ``WORLD_SIZE`` > 1 this process first joins the process group
+    (``init_distributed``; a card a rank where there are enough, else the
+    rank's share of one), builds the mesh (``_mesh_from_config``), gives
+    it to every family, and wraps the runtime in a ``MultihostRuntime``
+    (rank 0 serves, the others call ``follower_loop``); with
+    ``AI4E_RUNTIME_MESH_SPEC`` the outermost wrapper is a ``MeshEndpoint``
+    whose coordinator watches the ranks' poison reports. Every rank builds
+    the same models and warms the same buckets in the same order."""
     from .metrics import MetricsRegistry
+    from .parallel.sharding import (init_distributed, process_count,
+                                    process_index, rank_device)
     from .runtime.batcher import MicroBatcher
     from .runtime.families import build_servable
     from .runtime.ladder import LadderManager
@@ -408,7 +469,11 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
     # The admin verbs are an operator's: the front door's keys gate them.
     admin_keys = gateway_api_keys(config)
     rt = config.runtime
-    runtime = ModelRuntime(device=device)
+    init_distributed(device if device is not None else "cuda")
+    device = rank_device(device)
+    runtime = ModelRuntime(device=device,
+                           mesh=_mesh_from_config(rt, device.type))
+    ranks = process_count()
     to_serve = []
     lm_specs = []
     for spec in models.get("models", []):
@@ -425,6 +490,9 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
         batch = spec.pop("batch", None)  # true | {serve_batch kwargs}
         checkpoint = spec.pop("checkpoint", None)
         pipeline_spec = spec.pop("pipeline_to", None)
+        # Families with mesh-aware compute (sp, ep, tp) take the mesh; the
+        # rest ignore it.
+        spec.setdefault("mesh", runtime.mesh)
         servable = build_servable(family, **spec)
         if checkpoint:
             restore_checkpoint(servable, checkpoint, rt.checkpoint_dir)
@@ -441,14 +509,21 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
                                             cluster=config.service.cluster)
     metrics = MetricsRegistry()
     ladders = None
-    if rt.ladder_derive:
+    if rt.ladder_derive and ranks > 1 and process_index():
+        # Followers mirror the primary's batches, new buckets included: a
+        # deriver of their own would desync the broadcast order.
+        log.info("ladder derivation: follower %d defers to the mesh "
+                 "primary's derived ladder", process_index())
+    elif rt.ladder_derive:
         ladders = LadderManager(
             runtime, window_s=rt.ladder_window_s,
             max_programs=rt.ladder_max_programs, period_s=rt.ladder_period_s,
             dwell_s=rt.ladder_dwell_s, metrics=metrics,
             persist_path=(rt.ladder_path or os.path.join(
                 rt.compile_cache_dir, "ladders.json")))
-        restored = ladders.restore()
+        # A restored ladder would warm buckets the followers do not: over
+        # more than one rank the primary derives afresh.
+        restored = ladders.restore() if ranks == 1 else None
         if restored:
             log.info("restored derived ladders for %s", sorted(restored))
     runtime.warmup()
@@ -485,6 +560,40 @@ def build_worker(models: dict, device=None, max_wait_ms: float | None = None,
         if batch:
             worker.serve_batch(servable,
                                **(batch if isinstance(batch, dict) else {}))
+    if ranks > 1:
+        # Rank 0's batcher runs every batch through the broadcast, so each
+        # rank enters the same model calls.
+        from .parallel.multihost import MultihostRuntime
+        mh = MultihostRuntime(runtime)
+        worker.runtime = batcher.runtime = mh
+        if ladders is not None:
+            ladders.runtime = mh
+        if lm_specs:
+            raise ValueError("seqformer-lm streaming decode serves on one "
+                             "device; it does not run over a mesh of "
+                             f"{ranks} ranks")
+    from .runtime.mesh import parse_mesh_spec
+    layout = parse_mesh_spec(rt.mesh_spec)
+    if layout is not None:
+        # The serving plane's endpoint: the layout checked against the live
+        # mesh, poison accounting into the coordinator's follower-health
+        # state machine, per-rank phases into hop ledgers. Outermost: it
+        # must see the multihost runtime's poison gathers.
+        from .runtime.mesh import EndpointHealth, MeshCoordinator, MeshEndpoint
+        health = EndpointHealth()
+        coordinator = MeshCoordinator(
+            layout, health=health, process_count=ranks,
+            process_index=process_index(),
+            unhealthy_after=rt.mesh_unhealthy_after)
+        inner = worker.runtime
+        if hasattr(inner, "poison_listener"):
+            coordinator.attach(inner)
+        endpoint = MeshEndpoint(inner, layout, health=health,
+                                coordinator=coordinator)
+        worker.runtime = batcher.runtime = endpoint
+        log.info("mesh serving plane ON: %s (tier %s, %d ranks, rank %d)",
+                 layout.describe()["spec"], layout.tier_label, layout.size,
+                 process_index())
     if lm_specs and not rt.decode_enable:
         log.warning("models spec names %d seqformer-lm servable(s) but "
                     "AI4E_RUNTIME_DECODE_ENABLE is off — not serving them",
@@ -609,14 +718,35 @@ async def serve(worker, batcher, host: str, port: int,
 
 async def run_worker(config: FrameworkConfig, models: dict,
                      device=None) -> None:
+    from .parallel.sharding import process_count, process_index
+
     worker, batcher, _ = build_worker(models, device=device, config=config)
+    if process_count() > 1 and process_index():
+        # A follower rank: no HTTP surface; mirror the primary's batches
+        # until its shutdown sentinel.
+        log.info("follower %d/%d: entering mirror loop", process_index(),
+                 process_count())
+        await asyncio.to_thread(worker.runtime.follower_loop)
+        _leave_process_group()
+        return
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    await serve(worker, batcher, config.service.host, config.service.port,
-                stop, drain_timeout=config.service.drain_timeout,
-                config=config)
+    try:
+        await serve(worker, batcher, config.service.host, config.service.port,
+                    stop, drain_timeout=config.service.drain_timeout,
+                    config=config)
+    finally:
+        if process_count() > 1:
+            worker.runtime.shutdown_followers()
+            _leave_process_group()
+
+
+def _leave_process_group() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 async def run_reporter(config: FrameworkConfig, port: int | None) -> None:

@@ -35,16 +35,12 @@ OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
 _ROLLOUT = ("the rollout controller, which only the rig drives "
             "(ROADMAP A19)")
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
-_MESH = "the parallel plane (ROADMAP A15)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
 UNPORTED: dict[tuple[str, str], str] = {
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
-    **{("AI4E_RUNTIME_", f): _MESH for f in (
-        "dp", "fsdp", "tp", "sp", "ep", "mesh_spec",
-        "mesh_unhealthy_after")},
     **{("AI4E_ROLLOUT_", f): _ROLLOUT for f in (
         "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
         "burn_slow_max")},

@@ -26,8 +26,18 @@ same arithmetic:
 
 Nothing on the served path synchronises with the host (no ``.item()``, no
 boolean-mask indexing, no ``F.one_hot``, whose range check reads the
-device), so a bucket captures in a CUDA graph. Expert sharding over a mesh
-(``MOE_EP_RULES``, kept as data) is the parallel plane, ROADMAP A15.
+device), so a bucket captures in a CUDA graph.
+
+Expert parallelism (``ep``): ``MOE_EP_RULES`` split ``up`` and ``down``
+over the mesh's ``ep`` axis (``parallel.sharding.shard_module_``), so ep
+rank r holds experts [r E/ep, (r+1) E/ep). The router and attention
+replicate. Each rank computes only its experts' tokens and zeros for the
+rest, and the combine adds the ranks' outputs over ep
+(``comm.all_reduce_sum``, one (B, S, D) float32 activation a layer, as
+XLA's psum): every token has exactly one nonzero term, so the sum is the
+single device's value exactly. Under ring or Ulysses attention the
+sequence shards over ``sp`` as the SeqFormer's does (``sequence_chunk``,
+``mean_pool``).
 """
 
 from __future__ import annotations
@@ -39,13 +49,16 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel import comm
 from ..parallel.ring_attention import reference_attention
+from ..parallel.sharding import axis_group, axis_index, axis_size
 from .layers import (TRUNCATED_STD, Dense, Embed, LayerNorm, flax_normal_,
                      gelu)
-from .seqformer import SeqAttention, attention_for, init_flax_like_
+from .seqformer import (SeqAttention, attention_for, init_flax_like_,
+                        mean_pool, sequence_chunk, sequence_mesh)
 
-#: Param-path rules of the JAX package's expert sharding (ROADMAP A15):
-#: expert-major tensors over the mesh's ``ep`` axis.
+#: Param-path rules of the JAX package's expert sharding: expert-major
+#: tensors over the mesh's ``ep`` axis.
 MOE_EP_RULES = {"moe/up": ("ep", None, None), "moe/down": ("ep", None, None)}
 DISPATCHES = ("dense", "capacity")
 
@@ -86,10 +99,11 @@ class MoEFFN(nn.Module):
     def __init__(self, dim: int, num_experts: int, mlp_ratio: int = 4,
                  dispatch: str = "dense", capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, ep_mesh=None):
         super().__init__()
         hidden = dim * mlp_ratio
         self.num_experts, self.dtype = num_experts, dtype
+        self.ep_mesh = ep_mesh
         self.dispatch, self.capacity_factor = dispatch, capacity_factor
         self.router = Dense(dim, num_experts, dtype=torch.float32)
         pdt = param_dtype or dtype
@@ -103,17 +117,31 @@ class MoEFFN(nn.Module):
         top_gate = gates.amax(dim=-1)
         top = gates.argmax(dim=-1)  # the first index among ties
         up, down = self.up.to(self.dtype), self.down.to(self.dtype)
+        # This rank's experts [first, first + local): all of them off ep.
+        local = up.shape[0]
+        first = 0
+        if self.ep_mesh is not None:
+            if local == self.num_experts:
+                raise RuntimeError("an ep-meshed MoE layer holds all its "
+                                   "experts: shard the module first "
+                                   "(parallel.sharding.shard_module_)")
+            first = axis_index(self.ep_mesh, "ep") * local
+        mine = (top >= first) & (top < first + local)
+        expert = torch.where(mine, top - first, 0)
         if self.dispatch == "capacity":
-            y = self._capacity_dispatch(x, top, top_gate, up, down)
+            y = self._capacity_dispatch(x, top, top_gate, up, down, expert,
+                                        mine)
         elif self.dispatch == "dense":
             h = gelu(torch.einsum("bsd,edh->bseh", x.to(self.dtype), up))
             out = torch.einsum("bseh,ehd->bsed", h, down)
-            y = out.gather(2, top[..., None, None].expand(
+            y = out.gather(2, expert[..., None, None].expand(
                 *top.shape, 1, out.shape[-1])).squeeze(2).float()
-            y = y * top_gate[..., None]
+            y = torch.where(mine[..., None], y * top_gate[..., None], 0.0)
         else:
             raise ValueError(f"unknown MoE dispatch {self.dispatch!r}; "
                              "expected 'dense' or 'capacity'")
+        if self.ep_mesh is not None:
+            y = comm.all_reduce_sum(y, axis_group(self.ep_mesh, "ep"))
         return y.to(x.dtype), top
 
     def capacity(self, seq_len: int) -> tuple[int, int]:
@@ -122,22 +150,27 @@ class MoEFFN(nn.Module):
         return sg, max(1, math.ceil(sg / self.num_experts
                                     * self.capacity_factor))
 
-    def _capacity_dispatch(self, x, top, top_gate, up, down):
+    def _capacity_dispatch(self, x, top, top_gate, up, down, expert, mine):
+        """``expert``: each token's expert among this rank's ``mine``."""
         b, s, d = x.shape
         e = self.num_experts
+        local = up.shape[0]
         sg, cap = self.capacity(s)
         g = b * s // sg
-        top = top.reshape(g, sg)
+        top, expert = top.reshape(g, sg), expert.reshape(g, sg)
         slot = capacity_slots(top, e, cap)
+        # Another rank's token takes the extra slot too: no expert here
+        # computes it.
+        slot = torch.where(mine.reshape(g, sg), slot, cap)
         group = torch.arange(g, device=x.device)[:, None].expand(g, sg)
         # Scatter each token to (expert, group, slot); a dropped token
         # lands in the extra slot ``cap``, which no expert computes.
-        xe = x.new_zeros((e, g, cap + 1, d), dtype=self.dtype)
-        xe[top, group, slot] = x.reshape(g, sg, d).to(self.dtype)
-        xe = xe[:, :, :cap].reshape(e, g * cap, d)
-        oe = torch.bmm(gelu(torch.bmm(xe, up)), down).view(e, g, cap, d)
+        xe = x.new_zeros((local, g, cap + 1, d), dtype=self.dtype)
+        xe[expert, group, slot] = x.reshape(g, sg, d).to(self.dtype)
+        xe = xe[:, :, :cap].reshape(local, g * cap, d)
+        oe = torch.bmm(gelu(torch.bmm(xe, up)), down).view(local, g, cap, d)
         kept = slot < cap
-        y = oe[top, group, slot.clamp(max=cap - 1)].float()
+        y = oe[expert, group, slot.clamp(max=cap - 1)].float()
         y = torch.where(kept[..., None], y * top_gate.reshape(g, sg, 1), 0.0)
         return y.reshape(b, s, d)
 
@@ -147,7 +180,7 @@ class MoEBlock(nn.Module):
                  attn_fn: Callable, dispatch: str = "dense",
                  capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, ep_mesh=None):
         super().__init__()
         self.ln1 = LayerNorm(dim)
         self.attn = SeqAttention(dim, heads, attn_fn, dtype=dtype,
@@ -155,7 +188,7 @@ class MoEBlock(nn.Module):
         self.ln2 = LayerNorm(dim)
         self.moe = MoEFFN(dim, num_experts, dispatch=dispatch,
                           capacity_factor=capacity_factor, dtype=dtype,
-                          param_dtype=param_dtype)
+                          param_dtype=param_dtype, ep_mesh=ep_mesh)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = x + self.attn(self.ln1(x))
@@ -175,10 +208,11 @@ class MoEClassifier(nn.Module):
                  dispatch: str = "dense", capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.bfloat16,
                  vocab_size: int | None = None,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, ep_mesh=None,
+                 seq_mesh=None):
         super().__init__()
         attn_fn = attn_fn or reference_attention
-        self.dtype = dtype
+        self.dtype, self.seq_len, self.seq_mesh = dtype, seq_len, seq_mesh
         if vocab_size is not None:
             self.embed = Embed(vocab_size, dim, dtype=dtype,
                                param_dtype=param_dtype)
@@ -190,7 +224,8 @@ class MoEClassifier(nn.Module):
         self.blocks = nn.ModuleList(
             MoEBlock(dim, heads, num_experts, attn_fn, dispatch=dispatch,
                      capacity_factor=capacity_factor, dtype=dtype,
-                     param_dtype=param_dtype) for _ in range(depth))
+                     param_dtype=param_dtype, ep_mesh=ep_mesh)
+            for _ in range(depth))
         self.norm = LayerNorm(dim)
         self.head = Dense(dim, num_classes, dtype=torch.float32)
 
@@ -206,11 +241,11 @@ class MoEClassifier(nn.Module):
                 block.moe.capacity_factor = capacity_factor
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.embed(x) + self.pos_emb.to(self.dtype)
+        x, pos = sequence_chunk(x, self.pos_emb, self.seq_mesh)
+        h = self.embed(x) + pos.to(self.dtype)
         for block in self.blocks:
             h, _ = block(h)
-        pooled = h.float().mean(dim=1).to(h.dtype)  # float32 sum, as jnp.mean
-        return self.head(self.norm(pooled))
+        return self.head(self.norm(mean_pool(h, self.seq_mesh, self.seq_len)))
 
 
 def init_moe_flax_like_(model: MoEClassifier,
@@ -238,10 +273,16 @@ def create_moe(generator: torch.Generator | None = None,
     ``generator`` (default: seed 0), then moved to ``device`` (default
     ``cuda``). ``dispatch``: ``dense`` or ``capacity`` (see ``MoEFFN``);
     ``vocab_size`` switches the input to (B, S) token ids;
-    ``param_dtype=torch.float32`` keeps float32 masters for training. A
-    device ``mesh`` (expert sharding) raises: ROADMAP A15."""
+    ``param_dtype=torch.float32`` keeps float32 masters for training. Over
+    a ``mesh`` with ep > 1 the experts shard over ep: the model is built
+    whole and ``shard_module_(model, mesh, MOE_EP_RULES)`` (the runtime's
+    ``register``) keeps this rank's experts; ``num_experts`` must divide
+    by ep."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
+    ep = axis_size(mesh, "ep")
+    if num_experts % ep:
+        raise ValueError(f"num_experts {num_experts} not divisible by ep={ep}")
     attn_fn = attention_for(mesh, attention)
     device = resolve_device(device)
     if generator is None:
@@ -250,6 +291,8 @@ def create_moe(generator: torch.Generator | None = None,
         seq_len=seq_len, input_dim=input_dim, dim=dim, depth=depth,
         heads=heads, num_experts=num_experts, num_classes=num_classes,
         attn_fn=attn_fn, dispatch=dispatch, capacity_factor=capacity_factor,
-        dtype=dtype, vocab_size=vocab_size, param_dtype=param_dtype)
+        dtype=dtype, vocab_size=vocab_size, param_dtype=param_dtype,
+        ep_mesh=mesh if ep > 1 else None,
+        seq_mesh=sequence_mesh(mesh, attention))
     init_moe_flax_like_(model, generator)
     return model.to(device).eval()

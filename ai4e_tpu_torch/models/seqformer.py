@@ -22,10 +22,19 @@ every call, as flax does; the state_dict keys are the same, so a trained
 float32 state_dict loads into the served model with one rounding.
 
 Attention is injected as a plain function of (q, k, v), each (B, H, S, D):
-``attention_for`` gives the hand-written flash kernel (``ops.flash_attention``)
-or plain full attention. q/k/v are strided views of the fused qkv projection
-and the kernel writes its output in (B, S, H, D) order, so neither side of
-the attention call copies.
+``attention_for`` gives the hand-written flash kernel (``ops.flash_attention``),
+plain full attention, or, over a mesh whose ``sp`` axis is larger than one,
+ring or Ulysses attention (``parallel/ring_attention.py``). q/k/v are strided
+views of the fused qkv projection and the kernel writes its output in (B, S,
+H, D) order, so neither side of the attention call copies.
+
+Sequence parallelism: with ring or Ulysses attention (``seq_mesh``) each sp
+rank embeds and runs only its contiguous chunk of the sequence (its slice
+of ``pos_emb`` too); every layer but attention is per token, and the mean
+pool sums the rank's tokens in float32, adds the chunks' sums over the sp
+axis (``comm.all_reduce_sum``) and divides by S, so every rank of the axis
+ends with the same logits. JAX reaches the same function by XLA's
+resharding around its shard_map.
 
 ``SeqFormerLM`` is the causal token LM of the streaming path
 (``runtime/kvcache.py``), in float32 as in JAX, with two entry points:
@@ -49,11 +58,38 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
-from ..parallel.ring_attention import PARALLEL_PLANE, reference_attention
+from ..parallel import comm
+from ..parallel.ring_attention import (reference_attention, ring_attention,
+                                       ulysses_attention)
+from ..parallel.sharding import axis_group, axis_index, axis_size
 from .layers import (TRUNCATED_STD, Dense, Embed, LayerNorm, flax_normal_,
                      gelu)
 
 STRATEGIES = ("auto", "ring", "ulysses", "flash", "full")
+#: Strategies that shard the sequence over the mesh's sp axis.
+SEQUENCE_PARALLEL = ("ring", "ulysses")
+
+
+def sequence_chunk(x: torch.Tensor, pos: torch.Tensor, seq_mesh):
+    """This sp rank's chunk of the (B, S, ...) input and of the (1, S, dim)
+    positions (both whole without ``seq_mesh``)."""
+    if seq_mesh is None:
+        return x, pos
+    n = axis_size(seq_mesh, "sp")
+    chunk = x.shape[1] // n
+    start = axis_index(seq_mesh, "sp") * chunk
+    return x[:, start:start + chunk], pos[:, start:start + chunk]
+
+
+def mean_pool(h: torch.Tensor, seq_mesh, seq_len: int) -> torch.Tensor:
+    """``h.mean(axis=1)`` as jnp takes it (a float32 sum, the result in
+    h's type); over ``seq_mesh`` the chunks' float32 sums are added over the
+    sp axis first."""
+    if seq_mesh is None:
+        return h.float().mean(dim=1).to(h.dtype)
+    total = comm.all_reduce_sum(h.float().sum(dim=1),
+                                axis_group(seq_mesh, "sp"))
+    return (total / seq_len).to(h.dtype)
 
 
 class SeqAttention(nn.Module):
@@ -105,10 +141,10 @@ class SeqFormer(nn.Module):
                  attn_fn: Callable | None = None,
                  dtype: torch.dtype = torch.bfloat16,
                  vocab_size: int | None = None,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, seq_mesh=None):
         super().__init__()
         attn_fn = attn_fn or reference_attention
-        self.dtype = dtype
+        self.dtype, self.seq_len, self.seq_mesh = dtype, seq_len, seq_mesh
         if vocab_size is not None:
             self.embed = Embed(vocab_size, dim, dtype=dtype,
                                param_dtype=param_dtype)
@@ -124,11 +160,11 @@ class SeqFormer(nn.Module):
         self.head = Dense(dim, num_classes, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.embed(x) + self.pos_emb.to(self.dtype)
+        x, pos = sequence_chunk(x, self.pos_emb, self.seq_mesh)
+        h = self.embed(x) + pos.to(self.dtype)
         for block in self.blocks:
             h = block(h)
-        pooled = h.float().mean(dim=1).to(h.dtype)  # float32 sum, as jnp.mean
-        return self.head(self.norm(pooled))
+        return self.head(self.norm(mean_pool(h, self.seq_mesh, self.seq_len)))
 
 
 def init_flax_like_(model: nn.Module, generator: torch.Generator) -> None:
@@ -153,22 +189,41 @@ def init_flax_like_(model: nn.Module, generator: torch.Generator) -> None:
         flax_normal_(model.pos_emb, 0.02, generator, truncated=False)
 
 
-def attention_for(mesh=None, strategy: str = "auto",
-                  causal: bool = False) -> Callable:
-    """The attention function for a strategy: ``auto`` and ``flash`` give
-    the fused flash kernel, ``full`` plain materialised attention (the
-    correctness oracle). ``ring``/``ulysses`` and any device mesh belong to
-    the parallel plane and raise."""
+def resolve_strategy(mesh=None, strategy: str = "auto") -> str:
+    """The strategy ``attention_for`` runs: ``auto`` is ring where the
+    mesh's sp axis is larger than one and flash otherwise; ``ring`` and
+    ``ulysses`` need such a mesh."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown attention strategy {strategy!r}; "
                          f"valid: {STRATEGIES}")
-    if mesh is not None:
-        raise NotImplementedError(f"serving over a device mesh {PARALLEL_PLANE}")
-    if strategy in ("ring", "ulysses"):
-        raise NotImplementedError(f"{strategy} attention {PARALLEL_PLANE}")
+    sp = axis_size(mesh, "sp")
+    if strategy == "auto":
+        return "ring" if sp > 1 else "flash"
+    if strategy in SEQUENCE_PARALLEL and sp <= 1:
+        raise ValueError(f"{strategy} attention needs a mesh with sp > 1")
+    return strategy
+
+
+def attention_for(mesh=None, strategy: str = "auto",
+                  causal: bool = False) -> Callable:
+    """The attention function for a strategy (``resolve_strategy``):
+    ``flash`` the fused flash kernel and ``full`` plain materialised
+    attention (the correctness oracle), both single-device; ``ring`` and
+    ``ulysses`` the sequence-parallel paths over ``mesh``'s sp axis."""
+    strategy = resolve_strategy(mesh, strategy)
     if strategy == "full":
         return partial(reference_attention, causal=causal)
-    return partial(flash_attention, causal=causal)
+    if strategy == "flash":
+        return partial(flash_attention, causal=causal)
+    fn = {"ring": ring_attention, "ulysses": ulysses_attention}[strategy]
+    return partial(fn, mesh=mesh, causal=causal)
+
+
+def sequence_mesh(mesh, strategy: str):
+    """The mesh a model shards its sequence over: ``mesh`` under ring or
+    Ulysses attention, else None. The sequence must divide the sp axis."""
+    return mesh if resolve_strategy(mesh, strategy) in SEQUENCE_PARALLEL \
+        else None
 
 
 def create_seqformer(generator: torch.Generator | None = None,
@@ -191,7 +246,8 @@ def create_seqformer(generator: torch.Generator | None = None,
     model = SeqFormer(seq_len=seq_len, input_dim=input_dim, dim=dim,
                       depth=depth, heads=heads, num_classes=num_classes,
                       attn_fn=attn_fn, dtype=dtype, vocab_size=vocab_size,
-                      param_dtype=param_dtype)
+                      param_dtype=param_dtype,
+                      seq_mesh=sequence_mesh(mesh, attention))
     init_flax_like_(model, generator)
     return model.to(device).eval()
 

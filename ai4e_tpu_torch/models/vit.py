@@ -23,7 +23,18 @@
 - pooling sums in float32 and returns bfloat16; the head is a float32
   Dense with a bias.
 
-``TP_RULES`` (tensor-parallel sharding, ROADMAP A15) is kept as data.
+Tensor parallelism (``tp``), the megatron split that ``TP_RULES`` (data,
+the JAX package's) declares: ``qkv`` and ``mlp/up`` split their output
+columns over tp, ``out`` and ``mlp/down`` their input rows
+(``parallel.sharding.shard_module_``; the fused qkv splits q, k and v
+alike, ``SPLIT_GROUPS``, so tp rank r holds heads [r H/tp, (r+1) H/tp) of
+each, and ``mlp/up``'s replicated bias is sliced to the rank's columns in
+``forward``). A tp rank attends over its heads and runs its quarter of the
+MLP; each row-split product is taken in float32 (the rounding to bfloat16
+waits for the sum, as on one device), added over tp
+(``comm.all_reduce_sum``, one (B, N, dim) activation) and then rounded and
+given its bias: one all-reduce on the residual after attention and one
+after the MLP, each block.
 """
 
 from __future__ import annotations
@@ -35,10 +46,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel import comm
+from ..parallel.sharding import axis_group, axis_index, axis_size
 from .layers import TRUNCATED_STD, Dense, LayerNorm, flax_normal_, gelu
 from .unet import same_pads
 
-#: Param-path rules of the JAX package's tensor parallelism (ROADMAP A15).
+#: Param-path rules of the JAX package's tensor parallelism.
 TP_RULES = {
     "attn/qkv/kernel": (None, "tp"),
     "attn/out/kernel": ("tp", None),
@@ -58,45 +71,73 @@ def softmax_bf16(x: torch.Tensor) -> torch.Tensor:
     return e.div_(e.float().sum(dim=-1, keepdim=True).to(x.dtype))
 
 
+def row_parallel(dense: Dense, x: torch.Tensor, tp_mesh) -> torch.Tensor:
+    """A Dense whose input rows are split over tp: this rank's product in
+    float32, summed over the axis, then rounded to the layer's type and
+    given its (replicated) bias."""
+    part = torch.matmul(x.float(), dense.weight.float().t())
+    y = comm.all_reduce_sum(part, axis_group(tp_mesh, "tp")).to(dense.dtype)
+    return y if dense.bias is None else y + dense.bias.to(dense.dtype)
+
+
+def _check_split(full: int, local: int, tp_mesh) -> None:
+    if tp_mesh is not None and full == local:
+        raise RuntimeError("a tp-meshed ViT holds whole weights: shard the "
+                           "module first (parallel.sharding.shard_module_)")
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, heads: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, tp_mesh=None):
         super().__init__()
-        self.dim, self.heads = dim, heads
+        self.dim, self.heads, self.tp_mesh = dim, heads, tp_mesh
         self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
+        self.qkv.SPLIT_GROUPS = {"weight": 3}  # q, k and v split alike
         self.out = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
         hd = self.dim // self.heads
-        qkv = self.qkv(x).view(b, n, 3, self.heads, hd)
+        heads = self.qkv.weight.shape[0] // (3 * hd)  # this rank's
+        _check_split(self.heads, heads, self.tp_mesh)
+        qkv = self.qkv(x).view(b, n, 3, heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         # JAX casts the weak-typed python scale to the scores' type.
         scale = float(torch.tensor(hd ** -0.5, dtype=q.dtype))
         attn = softmax_bf16((q @ k.transpose(-1, -2)) * scale)
-        out = (attn @ v).transpose(1, 2).reshape(b, n, self.dim)
-        return self.out(out)
+        out = (attn @ v).transpose(1, 2).reshape(b, n, heads * hd)
+        if self.tp_mesh is None:
+            return self.out(out)
+        return row_parallel(self.out, out, self.tp_mesh)
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, expansion: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, tp_mesh=None):
         super().__init__()
+        self.tp_mesh = tp_mesh
         self.up = Dense(dim, dim * expansion, dtype=dtype)
         self.down = Dense(dim * expansion, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(gelu(self.up(x)))
+        if self.tp_mesh is None:
+            return self.down(gelu(self.up(x)))
+        up = self.up
+        cols = up.weight.shape[0]
+        _check_split(up.bias.shape[0], cols, self.tp_mesh)
+        bias = up.bias.narrow(0, axis_index(self.tp_mesh, "tp") * cols, cols)
+        h = F.linear(x.to(up.dtype), up.weight.to(up.dtype)) + bias.to(up.dtype)
+        return row_parallel(self.down, gelu(h), self.tp_mesh)
 
 
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, tp_mesh=None):
         super().__init__()
         self.ln1 = LayerNorm(dim, dtype=dtype)
-        self.attn = Attention(dim, heads, dtype)
+        self.attn = Attention(dim, heads, dtype, tp_mesh)
         self.ln2 = LayerNorm(dim, dtype=dtype)
-        self.mlp = Mlp(dim, dtype=dtype)
+        self.mlp = Mlp(dim, dtype=dtype, tp_mesh=tp_mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
@@ -109,13 +150,14 @@ class ViT(nn.Module):
 
     def __init__(self, num_classes: int = 1000, patch: int = 16,
                  dim: int = 384, depth: int = 6, heads: int = 6,
-                 image_size: int = 224, dtype: torch.dtype = torch.bfloat16):
+                 image_size: int = 224, dtype: torch.dtype = torch.bfloat16,
+                 tp_mesh=None):
         super().__init__()
         self.patch, self.dtype = patch, dtype
         grid = -(-image_size // patch)
         self.embed = nn.Conv2d(3, dim, patch, stride=patch, dtype=dtype)
         self.pos_embed = nn.Parameter(torch.zeros((1, grid * grid, dim)))
-        self.blocks = nn.ModuleList(Block(dim, heads, dtype)
+        self.blocks = nn.ModuleList(Block(dim, heads, dtype, tp_mesh)
                                     for _ in range(depth))
         self.norm = LayerNorm(dim, dtype=dtype)
         self.head = Dense(dim, num_classes, dtype=torch.float32)
@@ -168,14 +210,21 @@ def create_vit(generator: torch.Generator | None = None,
                num_classes: int = 1000, image_size: int = 224,
                patch: int = 16, dim: int = 384, depth: int = 6,
                heads: int = 6, dtype: torch.dtype = torch.bfloat16,
-               device=None) -> ViT:
+               device=None, mesh=None) -> ViT:
     """A ViT with flax-like random weights drawn on the CPU from
     ``generator`` (default: seed 0), then moved to ``device`` (default
-    ``cuda``)."""
+    ``cuda``). Over a ``mesh`` with tp > 1 the blocks split by heads and
+    MLP columns: the model is built whole and ``shard_module_(model, mesh,
+    TP_RULES)`` (the runtime's ``register``) keeps this rank's shards;
+    ``heads`` must divide by tp."""
+    tp = axis_size(mesh, "tp")
+    if heads % tp:
+        raise ValueError(f"heads {heads} not divisible by tp={tp}")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = ViT(num_classes=num_classes, patch=patch, dim=dim, depth=depth,
-                heads=heads, image_size=image_size, dtype=dtype)
+                heads=heads, image_size=image_size, dtype=dtype,
+                tp_mesh=mesh if tp > 1 else None)
     init_vit_flax_like_(model, generator)
     return model.to(device).eval()

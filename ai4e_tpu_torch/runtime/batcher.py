@@ -532,7 +532,7 @@ class MicroBatcher:
             return out, time.perf_counter()
 
         try:
-            (outputs, _, phases), t_return = await loop.run_in_executor(
+            (outputs, poisoned, phases), t_return = await loop.run_in_executor(
                 self._executor, run)
         except Exception as exc:  # noqa: BLE001 — a device failure fails the batch
             log.exception("batch execution failed for %s", model_name)
@@ -546,11 +546,18 @@ class MicroBatcher:
                     self._exec_pending.pop(token, None)
         if self.measure_phases:
             self._note_phases(model_name, t_return, phases, batch, token)
+        # A mesh's per-rank phases (the primary's staging of each
+        # follower's rows, the SPMD execute), keyed by rank in the reason.
+        drain = getattr(self.runtime, "drain_process_phases", None)
+        for label, rank, dur in (drain() if drain is not None else ()):
+            for ledger in _batch_ledgers(batch):
+                ledger.stamp(label, "device", reason=f"proc={rank}",
+                             ms=dur * 1e3)
         self._batch_latency.observe(time.perf_counter() - t0, model=model_name)
         self._batch_size_hist.observe(n, model=model_name)
         self._h2d_bytes.inc(padded.nbytes, model=model_name)
         self._d2h_bytes.inc(_tree_nbytes(outputs), model=model_name)
-        await self._deliver(loop, servable, batch, outputs)
+        await self._deliver(loop, servable, batch, outputs, poisoned)
 
     async def _execute_pipelined(self, loop, model_name: str, servable,
                                  batch: list[_Pending], n: int,
@@ -601,10 +608,21 @@ class MicroBatcher:
         await self._deliver(loop, servable, batch, outputs)
 
     async def _deliver(self, loop, servable, batch: list[_Pending],
-                       outputs) -> None:
+                       outputs, poisoned: frozenset = frozenset()) -> None:
         """Postprocess on the executor, not the event loop (a heavy one,
         PNG-encoding 64 class maps, would stall every other request), and
-        only for examples whose futures are not done (cancelled)."""
+        only for examples whose futures are not done (cancelled). Rows a
+        degraded mesh rank invalidated (``poisoned``) fail with
+        ``RowPoisoned`` instead, so the worker redelivers their tasks."""
+        if poisoned:
+            from .mesh.redelivery import RowPoisoned
+            log.error("batch for %s: %d of %d rows poisoned by a degraded "
+                      "rank; failing those tasks", servable.name,
+                      sum(1 for i in range(len(batch)) if i in poisoned),
+                      len(batch))
+            for i, p in enumerate(batch):
+                if i in poisoned and not p.future.done():
+                    p.future.set_exception(RowPoisoned())
         wanted = [i for i, p in enumerate(batch) if not p.future.done()]
 
         def _fan_out() -> list:

@@ -487,8 +487,9 @@ def build_seqformer(name: str = "longcontext", seq_len: int = 4096,
       fail that task at preprocess.
 
     The response is ``{"class_id", "confidence"}``. The weights are random,
-    drawn from seed 0, until a checkpoint is restored. A device ``mesh``
-    (ring/Ulysses sequence parallelism) raises: ROADMAP A15."""
+    drawn from seed 0, until a checkpoint is restored. Over a device
+    ``mesh`` whose sp axis is larger than one, ``auto`` (and ``ring`` or
+    ``ulysses``) shards the sequence over sp."""
     from ..convert import (seqformer_flax_from_state_dict,
                            seqformer_state_dict_from_flax)
     from ..models import create_seqformer
@@ -527,10 +528,11 @@ def build_moe(name: str = "moe", seq_len: int = 1024, input_dim: int = 64,
     (S,) integer token ids; else (S, input_dim) float32 features).
     ``dispatch="capacity"`` serves the GShard-style static-capacity path.
     The response is ``{"class_id", "confidence"}``. The weights are random,
-    drawn from seed 0, until a checkpoint is restored. A device ``mesh``
-    (expert sharding) raises: ROADMAP A15."""
+    drawn from seed 0, until a checkpoint is restored. Over a device
+    ``mesh`` the runtime shards the experts over ep by ``MOE_EP_RULES``."""
     from ..convert import moe_flax_from_state_dict, moe_state_dict_from_flax
     from ..models import create_moe
+    from ..models.moe import MOE_EP_RULES
 
     model = create_moe(
         generator=torch.Generator().manual_seed(0), seq_len=seq_len,
@@ -548,25 +550,27 @@ def build_moe(name: str = "moe", seq_len: int = 1024, input_dim: int = 64,
         batch_buckets=tuple(buckets),
         state_dict_from_flax=moe_state_dict_from_flax,
         flax_from_state_dict=moe_flax_from_state_dict,
-        **stack_kwargs)
+        param_sharding_rules=MOE_EP_RULES, **stack_kwargs)
 
 
 def build_vit(name: str = "vit", image_size: int = 224, patch: int = 16,
               dim: int = 384, depth: int = 12, heads: int = 6,
-              num_classes: int = 1000, buckets=IMAGE_BUCKETS, **_
+              num_classes: int = 1000, buckets=IMAGE_BUCKETS, mesh=None, **_
               ) -> ServableModel:
     """Image classification with a ViT on float32 (H, W, 3) npy images in
     [0, 1] (or ``image/*`` bodies, decoded and resized): the JAX package
     builds no uint8 path for this family. The response is ``{"class_id"}``.
     The weights are random, drawn from seed 0, until a checkpoint is
-    restored."""
+    restored. Over a device ``mesh`` with tp > 1 the runtime splits the
+    blocks by ``TP_RULES`` (the megatron split)."""
     from ..convert import vit_flax_from_state_dict, vit_state_dict_from_flax
     from ..models import create_vit
+    from ..models.vit import TP_RULES
 
     model = create_vit(generator=torch.Generator().manual_seed(0),
                        num_classes=num_classes, image_size=image_size,
                        patch=patch, dim=dim, depth=depth, heads=heads,
-                       device="cpu")
+                       device="cpu", mesh=mesh)
 
     def postprocess(logits):
         return {"class_id": int(np.argmax(np.asarray(logits)))}
@@ -577,7 +581,8 @@ def build_vit(name: str = "vit", image_size: int = 224, patch: int = 16,
         preprocess=_image_preprocess((image_size, image_size, 3)),
         postprocess=postprocess, batch_buckets=tuple(buckets),
         state_dict_from_flax=vit_state_dict_from_flax,
-        flax_from_state_dict=vit_flax_from_state_dict)
+        flax_from_state_dict=vit_flax_from_state_dict,
+        param_sharding_rules=TP_RULES)
 
 
 FAMILIES = {

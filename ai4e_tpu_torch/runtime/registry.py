@@ -29,6 +29,21 @@ lock, so every batch runs wholly on the old weights or wholly on the new
 ones, and the graphs, which captured the tensors' addresses, replay the new
 values.
 
+Over a device mesh of more than one rank (``mesh``, a ``DeviceMesh`` from
+``parallel.sharding``; one rank a device) the runtime is one rank's part of
+an SPMD program, as JAX's runtime is on a multi-process slice:
+``register`` keeps the rank's shard of every parameter the servable's
+``param_sharding_rules`` split (``shard_module_``) and rounds the buckets
+up to the data axes' multiple (``data_axis_size``); ``run_rows`` runs this
+rank's rows of a bucket (its data coordinate's share) and gathers every
+data coordinate's outputs, so each rank returns the whole batch's;
+``run_batch_phases`` on a whole batch runs the rank's rows of it (every
+rank enters it with the same batch: warmup). The models call their
+collectives inside ``apply_fn``, and a collective over gloo cannot be
+captured, so a meshed bucket runs eagerly on the execute stream: no CUDA
+graphs. The multi-process serving path (``parallel.multihost``) drives
+``run_rows`` on every rank.
+
 ``cudnn.allow_tf32`` is switched off on the card: the head conv is float32
 in the reference, and cuDNN would otherwise run it in TF32 (about three
 decimal digits), which can flip the argmax of close logits. Likewise for
@@ -114,6 +129,10 @@ class ServableModel:
     stack_adapter: Callable | None = None
     stack_validator: Callable | None = None
     example_decoder: Callable | None = None
+    #: Partition rules over the flax params tree (``spec_for_param``'s
+    #: forms) that a mesh shards the module's parameters by; None:
+    #: replicated.
+    param_sharding_rules: Any = None
 
     def bucket_for(self, n: int) -> int:
         for b in self.batch_buckets:
@@ -160,6 +179,21 @@ def _clone(out):
     return out.clone()
 
 
+def _gather_rows(mesh, out):
+    """Every data coordinate's host outputs (an array or a dict of arrays,
+    this rank's rows first axis), concatenated in data-coordinate order:
+    gathered over the process group from one rank of each coordinate (the
+    ranks of one coordinate hold the same outputs)."""
+    from ..parallel import comm
+    from ..parallel.sharding import data_axis_size, process_count
+
+    if isinstance(out, dict):
+        return {k: _gather_rows(mesh, v) for k, v in out.items()}
+    per_coord = process_count() // data_axis_size(mesh)
+    parts = comm.all_gather_host(out)
+    return np.concatenate(parts[::per_coord])
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
@@ -183,9 +217,15 @@ class ModelRuntime:
     """Owns the device, the registered modules and their graphs; runs padded
     batches."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, mesh=None):
+        from ..parallel.sharding import process_count
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
+        self.mesh = mesh
+        # One rank's part of an SPMD program: eager buckets, sharded params.
+        self._meshed = mesh is not None and process_count() > 1
+        # model -> {state_dict key: (spec, order, groups)} of split params.
+        self._split: dict[str, dict] = {}
         if self._cuda:
             torch.backends.cudnn.allow_tf32 = False
             # Load-bearing beyond the head conv: the dct wire's IDCT
@@ -218,8 +258,30 @@ class ModelRuntime:
         it for its own prefills, steps, captures and copies."""
         return self._device_lock
 
+    @property
+    def data_axis_size(self) -> int:
+        """Data coordinates (dp x fsdp) a batch splits over: 1 off a mesh."""
+        from ..parallel.sharding import data_axis_size
+        return data_axis_size(self.mesh)
+
     def register(self, servable: ServableModel) -> ServableModel:
-        """Move the module to the device, channels-last, inference mode."""
+        """Move the module to the device, channels-last, inference mode.
+        Over a mesh of more than one rank, first keep this rank's shard of
+        each parameter ``param_sharding_rules`` split, and round the
+        buckets up to multiples of the data axes' size."""
+        from ..parallel.sharding import pad_to_multiple, shard_module_
+        if self._meshed:
+            if (servable.param_sharding_rules is not None
+                    and servable.flax_from_state_dict is not None):
+                # The served tree, whole, for reload's comparison.
+                self._flax_specs[servable.name] = flax_spec(
+                    servable.flax_from_state_dict(
+                        servable.module.state_dict()))
+            self._split[servable.name] = shard_module_(
+                servable.module, self.mesh, servable.param_sharding_rules)
+            servable.batch_buckets = tuple(sorted({
+                pad_to_multiple(b, self.data_axis_size)
+                for b in servable.batch_buckets}))
         servable.module = servable.module.to(
             device=self.device, memory_format=torch.channels_last).eval()
         servable.module.requires_grad_(False)
@@ -240,7 +302,8 @@ class ModelRuntime:
             times[name] = time.perf_counter() - t0
             log.info("warmup %s: %d buckets in %.1fs%s", name,
                      len(servable.batch_buckets), times[name],
-                     " (CUDA graphs captured)" if self._cuda else "")
+                     " (CUDA graphs captured)" if self._cuda and not self._meshed
+                     else "")
         return times
 
     def _prepare(self, name: str, bucket: int) -> None:
@@ -303,6 +366,11 @@ class ModelRuntime:
                 f"checkpoint tree does not match the served model: "
                 f"served {served} vs reload {offered}")
         new_sd = servable.state_dict_from_flax(new_params)
+        if self._split.get(name):
+            from ..parallel.sharding import local_shard
+            for key, (spec, order, groups) in self._split[name].items():
+                new_sd[key] = local_shard(new_sd[key], spec, self.mesh,
+                                          order=order, groups=groups)
         staged = {k: new_sd[k].to(device=self.device, dtype=t.dtype)
                   for k, t in module_sd.items()}
         if self._cuda:
@@ -339,7 +407,15 @@ class ModelRuntime:
         - ``d2h``: the outputs copied back (counts-only land-cover: B*C
           int32).
 
-        Returns ``(host_outputs, poisoned_rows, {phase: seconds})``."""
+        Returns ``(host_outputs, poisoned_rows, {phase: seconds})``. Over
+        a mesh, every rank passes the same whole batch and runs its rows
+        of it (``run_rows``)."""
+        if self._meshed:
+            from ..parallel.sharding import row_range
+            start, stop = row_range(self.mesh, int(batch.shape[0]))
+            out, phases = self.run_rows(name, batch[start:stop],
+                                        int(batch.shape[0]))
+            return out, frozenset(), phases
         servable = self.models[name]
         key = (name, int(batch.shape[0]))
         phases: dict[str, float] = {}
@@ -375,6 +451,40 @@ class ModelRuntime:
             phases["d2h"] = time.perf_counter() - t0
         return host_out, frozenset(), phases
 
+    def run_rows(self, name: str, rows: np.ndarray, bucket: int
+                 ) -> tuple[object, dict[str, float]]:
+        """Over a mesh: run this rank's ``rows`` of a ``bucket``-row batch
+        (its data coordinate's share, ``row_range``) eagerly on the execute
+        stream, the model's collectives inside, then gather every data
+        coordinate's outputs over the process group. Every rank of the
+        mesh must enter it for the same (model, bucket) in the same order.
+        Returns ``(host_outputs of all bucket rows, {phase: seconds})``,
+        phases ``h2d``, ``execute`` (``compile`` on the shape's first run)
+        and ``d2h`` (the copy back and the gather)."""
+        servable = self.models[name]
+        key = (name, int(bucket))
+        phases: dict[str, float] = {}
+        with self._device_lock, self._on_exec_stream():
+            first = key not in self._executed_shapes
+            t0 = time.perf_counter()
+            # Rows fetched from the shard feed are a read-only buffer.
+            dev = torch.from_numpy(np.require(rows, requirements="CW"))
+            if self._cuda:
+                dev = dev.pin_memory().to(self.device, non_blocking=True)
+                self._sync()
+            phases["h2d"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                out = servable.apply_fn(servable.module, dev)
+            self._sync()
+            phases["compile" if first else "execute"] = (
+                time.perf_counter() - t0)
+            self._executed_shapes.add(key)
+            t0 = time.perf_counter()
+            host_out = _gather_rows(self.mesh, self._fetch(out))
+            phases["d2h"] = time.perf_counter() - t0
+        return host_out, phases
+
     # -- split-phase surface (the double-buffered batcher) -------------------
     #
     # The three steps of run_batch_phases as separate blocking calls, each
@@ -384,7 +494,7 @@ class ModelRuntime:
     # batch N's replay, and batch N's fetch overlaps batch N+1's replay.
 
     def supports_split_phases(self) -> bool:
-        return True
+        return not self._meshed
 
     def host_buffer(self, shape: tuple[int, ...], dtype) -> np.ndarray:
         """A host array for staging batches: on the card in pinned memory,

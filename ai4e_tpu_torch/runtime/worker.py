@@ -110,6 +110,7 @@ from ..service.task_manager import TaskManagerBase
 from ..taskstore import TaskStatus
 from .batcher import BatcherSaturated, MicroBatcher
 from .decode import DecodeSaturated
+from .mesh.redelivery import RowPoisoned, redeliver_poisoned
 from .registry import ModelRuntime, ServableModel
 
 log = logging.getLogger("ai4e_tpu_torch.worker")
@@ -351,6 +352,11 @@ class InferenceWorker:
             self.drain_state.end_reload()
 
     async def _list_models(self, _request) -> web.Response:
+        # A mesh endpoint's validated layout and live health, the same on
+        # every model it serves: how clients and the orchestrator see the
+        # shape and cost tier a worker serves.
+        mesh_desc = (self.runtime.describe()
+                     if hasattr(self.runtime, "layout") else None)
         out = [{
             "name": name, "version": s.version,
             "params_version": s.params_version,
@@ -360,6 +366,7 @@ class InferenceWorker:
             "input_dtype": str(np.dtype(s.input_dtype)),
             "batch_buckets": list(s.batch_buckets),
             "endpoints": self._served.get(name, {}),
+            **({"mesh": mesh_desc} if mesh_desc is not None else {}),
         } for name, s in self.runtime.models.items()]
         return web.json_response({"models": out})
 
@@ -397,6 +404,12 @@ class InferenceWorker:
             # (delay and redeliver) engages; a draining worker first.
             if self.drain_state.is_draining:
                 return DRAINING_REFUSAL
+            # A mesh endpoint with a dead rank cannot answer correctly:
+            # 500, a breaker failure that ejects it (a 503 would read as
+            # saturation, which peers share).
+            health = getattr(self.runtime, "health", None)
+            if health is not None and not health.healthy:
+                return 500, f"Mesh endpoint unhealthy: {health.reason}"
             if self.batcher.pending_count >= self.batcher.max_pending:
                 return 503, "Inference queue saturated; retry later.", {
                     "Retry-After": "1"}
@@ -437,6 +450,13 @@ class InferenceWorker:
                 return web.Response(
                     status=503, text="Worker draining; retry a peer.",
                     headers={"Retry-After": "1", DRAINING_HEADER: "1"})
+            except RowPoisoned:
+                # No task to redeliver: an honest retryable error, never
+                # the zeros shard's "result".
+                return web.Response(
+                    status=503,
+                    text="Result invalidated by a degraded mesh host; retry.",
+                    headers={"Retry-After": "1"})
             except DeadlineExceeded as exc:
                 self._rollout_outcomes.inc(generation=gen_label,
                                            outcome="expired")
@@ -512,6 +532,15 @@ class InferenceWorker:
                 if not tm.redelivers:
                     raise
                 await _hand_back(tm, taskId, async_path)
+                return
+            except RowPoisoned:
+                # A degraded mesh rank invalidated this row (the batch's
+                # others completed): redeliver the task, unless a
+                # concurrent path already finished it.
+                if buf is not None:
+                    buf.stamp(RETRY, "worker", reason="poisoned-row")
+                await self._flush_ledger(tm, taskId, buf)
+                await redeliver_poisoned(tm, taskId, async_path)
                 return
             except Exception:
                 # The shell fails the task after this re-raise: flush first,

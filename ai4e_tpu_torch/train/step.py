@@ -3,9 +3,9 @@
 ``Trainer`` owns a model and its optimizer and runs one step per call: the
 forward, the loss, autograd's backward (which, for the SeqFormer with flash
 attention on the card, launches the hand-written dK/dV and dQ kernels) and
-the optimizer's update. The JAX package shards params and the batch over a
-device mesh; that is the parallel plane (ROADMAP A15), and a ``mesh`` or
-``tp_rules`` raises here.
+the optimizer's update. The JAX package can also shard params and the batch
+over a device mesh; training over a mesh is not ported yet (ROADMAP
+A15.1), and a ``mesh`` or ``tp_rules`` raises here.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..parallel.ring_attention import PARALLEL_PLANE
+
+#: Why a mesh raises here.
+MESH_TRAINING = "is not ported yet (ROADMAP A15.1: training over a mesh)"
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -67,7 +69,7 @@ class Trainer:
                  device=None, mesh=None, tp_rules: dict | None = None):
         if mesh is not None or tp_rules is not None:
             raise NotImplementedError(
-                f"training over a device mesh {PARALLEL_PLANE}")
+                f"training over a device mesh {MESH_TRAINING}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":  # as ModelRuntime: XLA's precision
             torch.backends.cudnn.allow_tf32 = False

@@ -72,6 +72,12 @@ SERVED_RUNTIME_KNOBS = [
         "ladder_dwell_s", "ladder_path", "compile_cache_dir")] + [
     ("AI4E_ROLLOUT_", "drain_timeout_ms")]
 
+#: The parallel plane's knobs (ROADMAP A15): the mesh spec, the five axis
+#: sizes and the mesh endpoint's health threshold parse as JAX's do.
+SERVED_MESH_KNOBS = [
+    ("AI4E_RUNTIME_", f) for f in (
+        "dp", "fsdp", "tp", "sp", "ep", "mesh_spec", "mesh_unhealthy_after")]
+
 
 #: The observability knobs (ROADMAP A18.11): the port serves them, so each
 #: set away from its default parses as JAX's does. ``slo_ladder`` came with
@@ -217,7 +223,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_SHARD_KNOBS, "same"))
          + list(off_default_cases(SERVED_PUSH_REPORTER_KNOBS, "same"))
          + list(off_default_cases(SERVED_RESILIENCE_KNOBS, "same"))
-         + list(off_default_cases(SERVED_TENANCY_PIPELINE_KNOBS, "same")))
+         + list(off_default_cases(SERVED_TENANCY_PIPELINE_KNOBS, "same"))
+         + list(off_default_cases(SERVED_MESH_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -320,8 +327,9 @@ def test_platform_config_is_jax_s(env):
 
 def test_seventeen_observability_knobs_left_the_unported_set():
     """The served knobs are out of ``UNPORTED``, the SLO ladder, the other
-    eighteen of resilience and orchestration, and tenancy's eight and the
-    pipelines' four among them; 14 remain, each naming its item."""
+    eighteen of resilience and orchestration, tenancy's eight and the
+    pipelines' four, and the parallel plane's seven among them; 7 remain,
+    each naming its item."""
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
@@ -332,15 +340,17 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_PUSH_REPORTER_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_RESILIENCE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_TENANCY_PIPELINE_KNOBS) & set(port_config.UNPORTED)
+    assert not set(SERVED_MESH_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_RESILIENCE_KNOBS) == 19
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
     assert len(SERVED_NATIVE_REAPER_KNOBS) == 8
     assert len(SERVED_PUSH_REPORTER_KNOBS) == 7
     assert len(SERVED_TENANCY_PIPELINE_KNOBS) == 12
-    assert len(port_config.UNPORTED) == 14
+    assert len(SERVED_MESH_KNOBS) == 7
+    assert len(port_config.UNPORTED) == 7
     assert not any(item in what for what in port_config.UNPORTED.values()
-                   for item in ("A18.9", "A18.10", "A18.12"))
+                   for item in ("A18.9", "A18.10", "A18.12", "A15"))
     assert (port_config.FrameworkConfig.from_env(
         {"AI4E_PLATFORM_SLO_LADDER": "1"}).to_platform_config().slo_ladder
         is True)

@@ -127,8 +127,12 @@ def test_reference_agrees_with_flash():
 
 @pytest.mark.parametrize("fn", [ring_attention, ulysses_attention])
 def test_sequence_parallel_strategies_name_their_roadmap_item(fn):
-    with pytest.raises(NotImplementedError, match="A15"):
-        fn(None, None, None)
+    """Ported with the parallel plane (ROADMAP A15): they shard over a
+    device mesh, and without one they refuse (tests/test_torch_parallel.py
+    holds them against JAX's over gloo ranks)."""
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="needs a device mesh"):
+        fn(q, q, q, None)
 
 
 # Gradient tolerance: float32 within 1e-5 (measured <= 2.2e-6 against

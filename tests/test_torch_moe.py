@@ -408,8 +408,15 @@ class TestServable:
             assert str(g.value) == str(w.value)
 
     def test_mesh_raises_naming_a15(self):
-        with pytest.raises(NotImplementedError, match="A15"):
-            build_moe(**MOE_KW, mesh=object())
+        """Expert sharding is ported (ROADMAP A15, held against JAX's in
+        tests/test_torch_mesh_serving.py); a mesh whose ep axis does not
+        divide the experts is refused, as JAX's ``create_moe`` refuses it."""
+        class EpMesh:  # a stand-in DeviceMesh: ep=3, every other axis 1
+            def size(self, dim=None):
+                return 3 if dim == 2 else 1
+
+        with pytest.raises(ValueError, match="not divisible by ep=3"):
+            build_moe(**MOE_KW, mesh=EpMesh())
 
     def test_answers_over_http_equal_jax_s_worker(self):
         """One sync request each through JAX's worker and the port's on

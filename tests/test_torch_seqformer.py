@@ -222,6 +222,13 @@ class TestTraps:
         assert unet_gelu is layers.gelu
 
 
+class OneRankMesh:
+    """A stand-in for a one-rank ``DeviceMesh``: every axis of size 1."""
+
+    def size(self, dim=None):
+        return 1
+
+
 class TestAttentionFor:
     @pytest.mark.parametrize("strategy,fn", [
         ("auto", "flash_attention"), ("flash", "flash_attention"),
@@ -231,12 +238,18 @@ class TestAttentionFor:
         assert attn.func.__name__ == fn and attn.keywords == {"causal": True}
 
     @pytest.mark.parametrize("mesh,strategy", [
-        (None, "ring"), (None, "ulysses"), (object(), "auto")],
+        (None, "ring"), (None, "ulysses"), (OneRankMesh(), "ring")],
         ids=["ring", "ulysses", "mesh"])
     def test_sequence_parallel_raises_naming_a15(self, mesh, strategy):
-        with pytest.raises(NotImplementedError, match="A15"):
+        """The parallel plane (ROADMAP A15) is ported: ring and Ulysses
+        serve over a mesh whose sp axis is larger than one
+        (tests/test_torch_mesh_serving.py), and refuse anything else, as
+        JAX's ``attention_for`` does."""
+        with pytest.raises(ValueError, match="needs a mesh with sp > 1"):
+            jax_attention_for(None, strategy)
+        with pytest.raises(ValueError, match="needs a mesh with sp > 1"):
             attention_for(mesh, strategy)
-        with pytest.raises(NotImplementedError, match="A15"):
+        with pytest.raises(ValueError, match="needs a mesh with sp > 1"):
             create_seqformer(mesh=mesh, attention=strategy, device="cpu",
                              seq_len=8, dim=16, heads=1, depth=1)
 
