@@ -107,7 +107,8 @@ class Dispatcher:
                  observability=None, admission=None,
                  metrics: MetricsRegistry | None = None,
                  result_cache=None, result_store=None, resilience=None,
-                 orchestration=None, rng=None, tenancy=None):
+                 orchestration=None, rng=None, tenancy=None,
+                 request_timeout: float = REQUEST_TIMEOUT_S):
         self.broker = broker
         self.queue_name = queue_name
         self.route_path = base_queue_name(queue_name)
@@ -161,7 +162,9 @@ class Dispatcher:
         # admission limiter's Little's-law clamp compares its limit with.
         self._busy = 0
         # In-flight POSTs are bounded by the delivery loops.
-        self._sessions = SessionHolder(timeout=REQUEST_TIMEOUT_S, limit=0)
+        # A backend POST's bound (the rig's dispatchers take 30 s).
+        self.request_timeout = request_timeout
+        self._sessions = SessionHolder(timeout=request_timeout, limit=0)
 
     async def start(self) -> None:
         self._stop.clear()

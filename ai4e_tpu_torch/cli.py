@@ -949,8 +949,7 @@ def main(argv=None) -> None:
     tp.add_argument("--collector", default=None,
                     help="poll a collector's /v1/debug/fleet")
     tp.add_argument("--spec", default=None,
-                    help="a rig topology.json (refused: the rig is not "
-                         "ported, ROADMAP A19)")
+                    help="scrape a rig topology.json's roles directly")
     tp.add_argument("--targets", default=None,
                     help="ad-hoc name=url,name=url target list")
     tp.add_argument("--interval", type=float, default=2.0)

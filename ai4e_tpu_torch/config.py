@@ -32,8 +32,6 @@ _FALSE = frozenset({"0", "false", "no", "off", ""})
 OUT_OF_BAND_ENV_PREFIXES = ("AI4E_FAULT_", "AI4E_CHAOS_", "AI4E_FEED_",
                             "AI4E_TASKSTORE_", "AI4E_RIG_")
 
-_ROLLOUT = ("the rollout controller, which only the rig drives "
-            "(ROADMAP A19)")
 _DONATE = "batch donation, an XLA buffer option (ROADMAP A4)"
 
 #: ``(env prefix, field) -> what it turns on (its ROADMAP item)``.
@@ -41,9 +39,6 @@ UNPORTED: dict[tuple[str, str], str] = {
     ("AI4E_RUNTIME_", "platform"):
         "JAX's platform pin (the port's device is the --device flag)",
     ("AI4E_RUNTIME_", "donate_batch"): _DONATE,
-    **{("AI4E_ROLLOUT_", f): _ROLLOUT for f in (
-        "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
-        "burn_slow_max")},
 }
 
 

@@ -97,6 +97,7 @@ inside the pressure shed. Both carry ``X-Shed-Reason: brownout at <hop>``.
 from __future__ import annotations
 
 import asyncio
+import inspect
 import math
 import time
 from dataclasses import dataclass
@@ -120,6 +121,16 @@ from ..taskstore.feed import ShardChangeFeed
 from ..utils.backends import normalize_backends, pick_backend
 from ..utils.http import SessionHolder, read_body_limited
 
+
+
+async def _aresult(value):
+    """Await ``value`` when the store verb came from an async client (the
+    rig's ring-routed wire store, ``rig/wire.py``), pass it through when
+    it came from the in-process store: one Gateway class serves both, as
+    in JAX's (``ai4e_tpu/gateway/router.py`` ``_aresult``)."""
+    if inspect.isawaitable(value):
+        return await value
+    return value
 
 @dataclass
 class Route:
@@ -254,7 +265,7 @@ class Gateway:
                 {"error": "event streaming not enabled"}, status=404)
         task_id = request.match_info["task_id"]
         try:
-            task = self.store.get(task_id)
+            task = await _aresult(self.store.get(task_id))
         except TaskNotFound:
             return web.Response(status=404, text="Task not found.")
         cap = self._event_stream_max_s
@@ -286,7 +297,7 @@ class Gateway:
         deadline = loop.time() + wait
         try:
             try:
-                task = self.store.get(task_id)
+                task = await _aresult(self.store.get(task_id))
             except TaskNotFound:
                 task = None
             if task is not None:
@@ -560,14 +571,15 @@ class Gateway:
                                                  else "coalesced" if leader
                                                  else "miss")
                     if found is not None:
-                        answer = self._serve_cached_task(
+                        answer = await self._serve_cached_task(
                             route, endpoint, body, content_type, key, found)
                         if answer is not None:
                             cache.count_hit()
                             return answer
                     if leader is not None:
                         try:
-                            record = self.store.get(leader)
+                            record = await _aresult(
+                                self.store.get(leader))
                         except TaskNotFound:
                             # Leader evicted mid-flight: execute fresh.
                             cache.release_inflight(key, leader)
@@ -588,12 +600,12 @@ class Gateway:
             with self.tracer.span("create_task", route=route.prefix,
                                   headers=request.headers) as span:
                 try:
-                    task = self.store.upsert(APITask(
+                    task = await _aresult(self.store.upsert(APITask(
                         endpoint=endpoint, body=body,
                         content_type=content_type, publish=True,
                         cache_key=cache_key, deadline_at=deadline_at,
                         priority=task_priority,
-                        tenant=request.get("ai4e_tenant", "")))
+                        tenant=request.get("ai4e_tenant", ""))))
                 except NotPrimaryError:
                     # A standby: task creation is on the primary. Clients
                     # with a replica list rotate on this header only.
@@ -625,7 +637,7 @@ class Gateway:
                 # returned above).
                 (cache.count_miss if xcache == "miss"
                  else cache.count_bypass)()
-            stored = self.store.get(task.task_id)
+            stored = await _aresult(self.store.get(task.task_id))
             if self._observability is not None:
                 # The store published the task inside upsert, so it is on
                 # the transport by now.
@@ -668,9 +680,9 @@ class Gateway:
             return "2"
         return str(max(1, math.ceil(self._admission.retry_after_s())))
 
-    def _serve_cached_task(self, route: Route, endpoint: str, body: bytes,
-                           content_type: str, key: str,
-                           found: tuple) -> web.Response | None:
+    async def _serve_cached_task(self, route: Route, endpoint: str,
+                                 body: bytes, content_type: str, key: str,
+                                 found: tuple) -> web.Response | None:
         """Answer an async cache hit with a real task record, already
         terminal and never published, whose result is the cached payload:
         the client polls and fetches as for a miss. ``durable=False``: the
@@ -679,15 +691,16 @@ class Gateway:
         a degraded journal): the create path answers their 503."""
         payload, ctype = found
         try:
-            task = self.store.upsert(APITask(
+            task = await _aresult(self.store.upsert(APITask(
                 endpoint=endpoint, body=body, content_type=content_type,
                 status="completed - served from cache",
                 backend_status=TaskStatus.COMPLETED,
-                publish=False, cache_key=key, durable=False))
+                publish=False, cache_key=key, durable=False)))
         except (NotPrimaryError, JournalDegradedError):
             return None
         try:
-            self.store.set_result(task.task_id, payload, ctype)
+            await _aresult(self.store.set_result(task.task_id, payload,
+                                                 ctype))
         except TaskNotFound:
             pass  # reaped already (zero retention); the record answered
         except JournalDegradedError:
@@ -1006,7 +1019,7 @@ class Gateway:
         hop-ledger timeline."""
         task_id = request.match_info["task_id"]
         try:
-            task = self.store.get(task_id)
+            task = await _aresult(self.store.get(task_id))
         except TaskNotFound:
             return web.Response(status=404, text="Task not found.")
         wait = 0.0
@@ -1026,14 +1039,15 @@ class Gateway:
                 task = record
             else:
                 try:
-                    task = self.store.get(task_id)
+                    task = await _aresult(self.store.get(task_id))
                 except TaskNotFound:
                     return web.Response(status=404, text="Task not found.")
         payload = task.to_dict()
         if request.query.get("ledger", "") not in ("", "0", "false"):
             # The native store carries no timeline.
             getter = getattr(self.store, "get_ledger", None)
-            payload["Ledger"] = getter(task_id) if getter else []
+            payload["Ledger"] = (await _aresult(getter(task_id))
+                                 if getter else [])
         return web.json_response(payload)
 
     def _feed_for(self, task_id: str) -> ShardChangeFeed:

@@ -1,7 +1,9 @@
 """Request-observability hub — the hop ledger, the flight recorder and the
 per-route request telemetry the SLO engine reads; a copy of
-``ai4e_tpu/observability/hub.py`` for the port's one, in-process task
-store.
+``ai4e_tpu/observability/hub.py``. Its store is the control plane's own,
+or the rig's ring-routed wire store (``rig/wire.py``), whose ledger verbs
+are coroutines: a stamp then goes out fire-and-forget, and a flight
+entry is recorded without the remote timeline.
 
 One object per control plane (``PlatformConfig(observability=True)``),
 shared by the gateway and every dispatcher. Everything here is
@@ -42,6 +44,13 @@ log = logging.getLogger("ai4e_tpu_torch.observability")
 # terminal transition simply records no e2e sample.
 _MAX_TRACKED = 65536
 
+# In-flight fire-and-forget wire-stamp bound: against a wedged or
+# failing-over shard each append coroutine can live through seconds of
+# retries, and an uncapped create_task() on the serving hot path would
+# accumulate live tasks/sockets without bound. Beyond the cap the stamp
+# is DROPPED — the same fail-open contract as every other ledger path.
+_MAX_WIRE_STAMPS = 1024
+
 
 class RequestObservability:
     def __init__(self, store, metrics: MetricsRegistry | None = None,
@@ -50,6 +59,10 @@ class RequestObservability:
         self.metrics = metrics or DEFAULT_REGISTRY
         self.flight = flight
         self._lock = threading.Lock()
+        # Strong refs to in-flight fire-and-forget wire stamps (the loop
+        # holds tasks weakly) — populated only when the store's
+        # append_ledger is a coroutine function (the rig's ring client).
+        self._wire_stamps: set = set()
         # task_id -> (created epoch seconds, route label, endpoint path)
         self._created: dict[str, tuple[float, str, str]] = {}
         # backend endpoint path -> published gateway prefix (map_route,
@@ -71,7 +84,8 @@ class RequestObservability:
             "failed (tasks) and ok/failed/shed (sync)")
         self._ledger_events = self.metrics.counter(
             "ai4e_ledger_events_total", "Hop-ledger events stamped, by event")
-        store.add_listener(self._on_task_change)
+        if hasattr(store, "add_listener"):
+            store.add_listener(self._on_task_change)
 
     # -- route labeling ------------------------------------------------------
 
@@ -105,11 +119,27 @@ class RequestObservability:
         if not events:
             return
         try:
-            self.store.append_ledger(task_id, list(events))
+            result = self.store.append_ledger(task_id, list(events))
         except Exception:  # noqa: BLE001 — observability is fail-open: an evicted task drops its stamp, serving is untouched
             log.debug("ledger stamp dropped for task %s", task_id,
                       exc_info=True)
             return
+        if hasattr(result, "__await__"):
+            # The wire store: a stamp never blocks the serving path it
+            # documents, and the wire client treats every failure as a
+            # droppable 0.
+            import asyncio
+            try:
+                loop = asyncio.get_running_loop()
+            except RuntimeError:
+                result.close()  # no loop (teardown): drop the stamp
+                return
+            if len(self._wire_stamps) >= _MAX_WIRE_STAMPS:
+                result.close()  # shard wedged: drop, never accumulate
+                return
+            task = loop.create_task(result)
+            self._wire_stamps.add(task)
+            task.add_done_callback(self._wire_stamps.discard)
         for ev in events:
             self._ledger_events.inc(event=ev.get("e", "?"))
 
@@ -176,9 +206,21 @@ class RequestObservability:
             outcome = status  # failed | expired
         self._outcomes.inc(route=route, outcome=outcome)
         if self.flight is not None:
+            events = []
+            getter = getattr(self.store, "get_ledger", None)
+            if getter is not None:
+                try:
+                    events = getter(task.task_id)
+                except Exception:  # noqa: BLE001; ai4e: noqa[AIL005] — fail-open: a racing eviction loses the timeline, not the recording
+                    events = []
+                if hasattr(events, "__await__"):
+                    # Wire store: this listener is synchronous; record
+                    # the entry without the remote timeline (the shard
+                    # node's own flight recorder keeps the full one).
+                    events.close()
+                    events = []
             self.flight.record(task.task_id, route, status=task.status,
-                               duration_ms=duration_ms,
-                               events=self.store.get_ledger(task.task_id),
+                               duration_ms=duration_ms, events=events,
                                priority=getattr(task, "priority", None))
 
     # -- request shapes without a task record --------------------------------

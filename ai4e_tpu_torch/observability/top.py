@@ -1,10 +1,10 @@
 """``python -m ai4e_tpu_torch top``: a terminal dashboard over the fleet
 snapshot; a copy of ``ai4e_tpu/observability/top.py``.
 
-Sources: ``--collector URL`` (a running collector's ``/v1/debug/fleet``)
-or ``--targets name=url,name=url`` (an in-process ``FleetCollector``).
-JAX's ``--spec topology.json`` reads a rig topology, which the port does
-not have yet (ROADMAP A19's rig).
+Sources: ``--collector URL`` (a running collector's ``/v1/debug/fleet``),
+``--spec topology.json`` (a rig topology's roles scraped by an in-process
+``FleetCollector``, no collector role needed) or ``--targets
+name=url,name=url`` (an ad-hoc list, view only).
 
 Per process: up, requests/s (the delta between two snapshots), task
 goodput % (ok over terminal outcomes), max SLO burn, event-loop lag, RSS,
@@ -98,10 +98,6 @@ async def run_top(collector: str | None = None,
 
     out = out or (lambda s: print(s, flush=True))
     own = None
-    if spec:
-        print("top: --spec reads a rig topology; the rig is not ported "
-              "(ROADMAP A19): pass --targets name=url,...", file=sys.stderr)
-        return 2
     if collector:
         url = collector.rstrip("/") + "/v1/debug/fleet"
 
@@ -110,27 +106,34 @@ async def run_top(collector: str | None = None,
             if snap is None:
                 raise OSError(f"no fleet snapshot at {url}")
             return snap
-    elif targets:
+    elif spec or targets:
         from .federation import FleetCollector
-        try:
-            target_map = dict(pair.split("=", 1)
-                              for pair in targets.split(",") if pair)
-        except ValueError:
-            print("top: --targets wants name=url,name=url "
-                  f"(got {targets!r})", file=sys.stderr)
-            return 2
-        # Ad-hoc targets: the surface is unknown (sync traffic and
-        # admission refusals feed outcomes with no admissions), so the
-        # conservation check's inputs are not sound: view only.
-        own = FleetCollector(target_map, interval_s=interval,
-                             conservation=False)
+        if spec:
+            from ..rig.topology import Topology
+            topo = Topology.load(spec)
+            target_map = {n: u for n, u in topo.metrics_urls().items()
+                          if n != "collector"}
+            own = FleetCollector(target_map, interval_s=interval)
+        else:
+            try:
+                target_map = dict(pair.split("=", 1)
+                                  for pair in targets.split(",") if pair)
+            except ValueError:
+                print("top: --targets wants name=url,name=url "
+                      f"(got {targets!r})", file=sys.stderr)
+                return 2
+            # Ad-hoc targets: the surface is unknown (sync traffic and
+            # admission refusals feed outcomes with no admissions), so
+            # the conservation check's inputs are not sound: view only.
+            own = FleetCollector(target_map, interval_s=interval,
+                                 conservation=False)
 
         async def fetch() -> dict:
             await own.scrape_once()
             return own.snapshot()
     else:
-        print("top: pass --collector URL or --targets name=url,...",
-              file=sys.stderr)
+        print("top: pass --collector URL, --spec topology.json, or "
+              "--targets name=url,...", file=sys.stderr)
         return 2
 
     prev = None

@@ -61,6 +61,14 @@ def read_rss_bytes(pid: int | None = None,
         return -1.0
 
 
+def read_rss_mb(pid: int | None = None,
+                proc_root: str = PROC_ROOT) -> float:
+    """RSS in MiB (one decimal) — the soak engine's historical unit;
+    -1.0 = process died (its loop keys on the sign)."""
+    rss = read_rss_bytes(pid, proc_root=proc_root)
+    return -1.0 if rss < 0 else round(rss / (1024.0 * 1024.0), 1)
+
+
 def read_cpu_seconds(pid: int | None = None,
                      proc_root: str = PROC_ROOT) -> float:
     """utime+stime of the process in seconds (``/proc/<pid>/stat``
@@ -87,6 +95,26 @@ def read_fd_count(pid: int | None = None,
         return len(os.listdir(f"{proc_root}/{who}/fd"))
     except OSError:
         return -1
+
+
+def proc_fd_links(pid: int | str,
+                  proc_root: str = PROC_ROOT) -> list[tuple[str, str]]:
+    """``(fd, readlink target)`` pairs for one process — the primitive
+    the supervisor's socket-inode forensics walks (a target like
+    ``socket:[12345]`` identifies a listener). Unreadable fds are
+    skipped; an unreadable process yields an empty list."""
+    fd_dir = f"{proc_root}/{pid}/fd"
+    out: list[tuple[str, str]] = []
+    try:
+        fds = os.listdir(fd_dir)
+    except OSError:
+        return out
+    for fd in fds:
+        try:
+            out.append((fd, os.readlink(os.path.join(fd_dir, fd))))
+        except OSError:
+            continue
+    return out
 
 
 def read_host_cpu_ticks(proc_root: str = PROC_ROOT) -> dict | None:

@@ -178,8 +178,9 @@ class _HttpStoreClient:
     ``base_url`` may be one URL or a list, the control plane's replica set
     (primary first). On a connection failure or a 503 carrying
     ``X-Not-Primary`` the client rotates to the next replica and retries,
-    sticking with whichever answered, for ``FAILOVER_CYCLES`` passes over
-    the set ``FAILOVER_DELAY_S`` apart. A plain 503 goes back to the
+    sticking with whichever answered, for ``failover_cycles`` passes over
+    the set ``failover_delay`` seconds apart (``FAILOVER_CYCLES`` and
+    ``FAILOVER_DELAY_S`` by default). A plain 503 goes back to the
     caller. The highest ``X-Store-Epoch`` seen is echoed on every
     request. ``api_key`` rides as a default ``Ocp-Apim-Subscription-Key``
     header on every request: a control plane with subscription keys keys
@@ -187,25 +188,34 @@ class _HttpStoreClient:
     workers)."""
 
     def __init__(self, base_url: str | list[str],
-                 api_key: str | None = None):
+                 api_key: str | None = None,
+                 failover_cycles: int = FAILOVER_CYCLES,
+                 failover_delay: float = FAILOVER_DELAY_S):
         urls = [base_url] if isinstance(base_url, str) else list(base_url)
         if not urls:
             raise ValueError("at least one task-store URL is required")
         self._endpoints = [u.rstrip("/") for u in urls]
         self.base_url = self._endpoints[0]
+        # The replica set's patience (cycles x delay); the rig's wire
+        # broker takes a shorter one, as in JAX.
+        self._failover_cycles = failover_cycles
+        self._failover_delay = failover_delay
         self._holder = SessionHolder(
             headers={"Ocp-Apim-Subscription-Key": api_key} if api_key
             else None)
         self.store_epoch = 0
 
+    async def _get_session(self) -> aiohttp.ClientSession:
+        return await self._holder.get()
+
     async def _request(self, method: str, path: str, **kwargs
                        ) -> tuple[aiohttp.ClientResponse, bytes]:
         """One store round trip with replica failover; returns
         ``(response, body)``, the body read inside the request context."""
-        session = await self._holder.get()
+        session = await self._get_session()
         last_exc: Exception | None = None
         single = len(self._endpoints) == 1
-        cycles = 1 if single else FAILOVER_CYCLES
+        cycles = 1 if single else self._failover_cycles
         for cycle in range(cycles):
             ordered = ([self.base_url]
                        + [e for e in self._endpoints if e != self.base_url])
@@ -235,7 +245,7 @@ class _HttpStoreClient:
                     last_exc = exc
                     continue
             if cycle + 1 < cycles:
-                await asyncio.sleep(FAILOVER_DELAY_S)
+                await asyncio.sleep(self._failover_delay)
         assert last_exc is not None
         raise last_exc
 

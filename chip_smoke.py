@@ -123,9 +123,10 @@ Phases, each of which raises on failure:
    held to an eager apply where its top-two gap exceeds 1e-2, each
    bucket's replay bit-equal to eager, timed;
 10. the deploy spec as written, from the port's own checkpoints: (a) the
-   five image recipes (``landcover``: UNet 64/128/256/512 at tile 64;
-   ``landcover128``; ``megadetector`` at 512 px, 300 steps; ``species`` at
-   224 px; ``species_fine`` at 64 px, 500 steps) trained on the card, each to
+   spec's three image recipes (``landcover``: UNet 64/128/256/512 at tile
+   64; ``megadetector`` at 512 px, 300 steps; ``species`` at 224 px; the
+   two the spec does not serve, ``landcover128`` and ``species_fine``, are
+   no longer trained here) trained on the card, each to
    ``make_checkpoints.MIN_EVAL`` (0.85) or the phase raises, with its step
    ms split into forward, backward and optimizer, its peak memory, eval
    and the host's share of the loop spent drawing batches, saved by
@@ -402,7 +403,20 @@ Phases, each of which raises on failure:
    and 32 async requests through the gateway against one device's
    answers, ``/v1/models``' mesh entry, the follower out on the shutdown
    sentinel. It prints ``mesh 22a``, ``mesh 22c``, ``mesh 22b`` and
-   ``mesh`` lines and adds the ring's launches and ms to the flash row.
+   ``mesh`` lines and adds the ring's launches and ms to the flash row;
+23. the multi-process rig (no model, no kernel: its worker is the CPU
+   echo worker, as in JAX's), ``python -m ai4e_tpu_torch.rig up`` as a
+   child process on a block of 100 free ports, each run under its own
+   wall-clock limit: (a) 2 gateways, 2 shards with a replica each, one
+   dispatcher, worker and loadgen, seed 20260803, 8 s of load with the
+   seeded chaos timeline (gateway kill, dispatcher kill, ``move_slot``,
+   shard-primary SIGKILL), the verdict ``ok`` with every fault fired,
+   and one ``top --once --spec`` frame naming every role while the fleet
+   is up; (b) ``make upgrade``'s bad-canary rollout (``--no-chaos
+   --rollout bad-canary --rollout-steps 25,50,100``): rolled back before
+   the canary's share passes 50%, ``rollback`` stamps on the marker
+   task's ledger, the rollout gate ok. It prints ``rig 23a``, ``rig 23b``
+   and ``rig`` lines.
 
 Every process the script starts is stopped before it ends: each phase
 stops its own children, SIGTERM ends the run through those same paths, and
@@ -3542,8 +3556,9 @@ def phase_moe_vit(kernels: list[dict]) -> dict:
 
 # -- phase 10: the deploy spec as written, from the port's own checkpoints --
 
-IMAGE_RECIPES = ("landcover", "landcover128", "megadetector", "species",
-                 "species_fine")
+# The image recipes deploy/specs/models.json serves; ``landcover128`` and
+# ``species_fine`` (not in the spec) were cut for time.
+IMAGE_RECIPES = ("landcover", "megadetector", "species")
 N_DEPLOY_SYNC = 4       # land-cover sync requests before the async ones
 N_DEPLOY_ASYNC = 64     # held-out land-cover tiles and species images
 N_BACKLOG = 1500        # land-cover tasks: an autoscaler tick's backlog,
@@ -3626,7 +3641,7 @@ def check_manifest_against_spec(out_dir: Path) -> dict:
 
 
 def phase_deploy_train() -> dict:
-    """10a: the five image recipes on the card at their production sizes
+    """10a: the spec's image recipes on the card at their production sizes
     (``FULL_OVERRIDES``, else the recipe defaults), each held to
     ``MIN_EVAL`` by ``make_checkpoint`` and saved into
     ``build/chip_smoke`` beside phases 6 and 9's ``.npz`` with its
@@ -7767,11 +7782,17 @@ async def ha_submit(http, base: str, body: bytes, deadline: float) -> str:
 
 
 async def ha_watch(http, bases: list[str], task: dict,
-                   deadline: float) -> None:
+                   deadline: float, outage: str | None = None) -> None:
     """Long-poll ``task["id"]`` at ``bases[0]`` to terminal, moving down
     ``bases`` when one refuses the connection (a single base is retried:
     it restarts); on completion its result is read at once. A 404 marks
-    the task ``lost`` (the replica that answers never received it)."""
+    the task ``lost`` (the replica that answers never received it).
+    ``outage`` (16a: the control plane's ``host:port``) accepts one path
+    without a result, C12's: the worker's store write was refused while
+    the control plane was down and its service shell then failed the task
+    on the restarted one (``failed: Cannot connect to host <outage> ...``,
+    ``tests/test_torch_restart.py``); the task's record goes to
+    ``task["outage_failed"]`` for its caller to resubmit."""
     import aiohttp
 
     from ai4e_tpu_torch.taskstore import TaskStatus
@@ -7810,6 +7831,10 @@ async def ha_watch(http, bases: list[str], task: dict,
                                     f"{task['id']}", params={"ledger": "1"},
                                     timeout=poll) as r:
                     record_now = await r.text()
+                if outage is not None and task["status"].startswith(
+                        f"failed: Cannot connect to host {outage} "):
+                    task["outage_failed"] = record_now
+                    return
                 raise AssertionError(f"result of {task['id']} at {base}: "
                                      f"{missing}; the task now: "
                                      f"{record_now[:4000]}")
@@ -7824,13 +7849,15 @@ async def ha_watch(http, bases: list[str], task: dict,
 
 
 async def ha_burst(http, base: str, bodies: list[bytes], first: int,
-                   bases: list[str], deadline: float):
+                   bases: list[str], deadline: float,
+                   outage: str | None = None):
     """The bodies at once to ``base``; returns each task's dict and the
-    watchers polling them."""
+    watchers polling them (``outage``: ``ha_watch``'s)."""
     ids = await asyncio.gather(*(ha_submit(http, base, b, deadline)
                                  for b in bodies))
     tasks = [{"id": t, "i": first + i} for i, t in enumerate(ids)]
-    watchers = [asyncio.create_task(ha_watch(http, bases, t, deadline))
+    watchers = [asyncio.create_task(ha_watch(http, bases, t, deadline,
+                                             outage))
                 for t in tasks]
     return tasks, watchers
 
@@ -7892,10 +7919,11 @@ async def restart_drive(gateway: str, worker: str, procs: dict, logs: dict,
         await wait_healthy(http, worker + "/v1/models/", procs["wk"],
                            logs["wk"])
         deadline = time.monotonic() + HA_DEADLINE_S
+        outage = gateway.split("//", 1)[1]
         tasks, watchers = [], []
         for attempt in range(HA_TRIES):
             burst, ws = await ha_burst(http, gateway, bodies, 0, [gateway],
-                                       deadline)
+                                       deadline, outage)
             tasks += burst
             watchers += ws
             if await ha_catch(http, gateway, burst):
@@ -7915,12 +7943,27 @@ async def restart_drive(gateway: str, worker: str, procs: dict, logs: dict,
                            logs["cp"])
         back_s = time.monotonic() - t_kill
         await asyncio.gather(*watchers)
+        resubmitted = []
+        for t in tasks:
+            record = t.pop("outage_failed", None)
+            if record is None:
+                continue
+            # C12: failed by its worker's refused store write; the same
+            # body again, now held like every other task.
+            log(f"16a: {t['id']} failed by a store write refused during "
+                f"the restart (C12), resubmitted; the task: {record[:2000]}")
+            resubmitted.append(t["id"])
+            t.pop("status")
+            t["id"] = await ha_submit(http, gateway, bodies[t["i"]],
+                                      deadline)
+            await ha_watch(http, [gateway], t, deadline)
         reread = {t: await result_bytes(http, gateway, t) for t in before}
         async with http.get(gateway + "/metrics") as r:
             cp_metrics = await r.text()
     after = [t["done_at"] - t_kill for t in tasks if t["done_at"] > t_kill]
     return {"tasks": tasks, "before": before, "reread": reread,
             "offline": offline, "attempt": attempt,
+            "resubmitted_after_refused_write": resubmitted,
             "kill_to_healthy_s": back_s,
             "kill_to_first_completion_s": min(after) if after else None,
             "cp_metrics": cp_metrics}
@@ -11602,6 +11645,250 @@ def phase_22(kernels: list[dict]) -> dict:
     return report
 
 
+# -- phase 23: the multi-process rig -------------------------------------
+
+
+RIG_SEED = 20260803
+# make rig offers 1,500/s; the card's host achieved 161/s of that under
+# the chaos timeline, so 23a offers make upgrade's 300/s.
+RIG_RATE_23A = 300.0
+RIG_DURATION_23A = 8.0  # build_timeline's shortest window
+# A loadgen's wait for its last tasks' answers. Each run on the card sat
+# out this timeout for a few answers (on the CPU none did; a long poll
+# whose task's slot moves mid-wait answers only at its own wait, in both
+# packages); the verdict reads the journals, which the driver drains
+# itself.
+RIG_TASK_TIMEOUT_23A = 5.0
+# The shortest load window whose bad canary rolls back while the load
+# still runs (the rollout starts a second into it).
+RIG_DURATION_23B = 4.0
+RIG_WALL_S = 150.0      # each run's hard limit, boot and drain included
+RIG_FAULTS = ["kill_gateway", "kill_dispatcher", "move_slot",
+              "kill_shard_primary"]
+
+
+def rig_base_port(span: int = 100) -> int:
+    """A base port whose whole block of ``span`` is free now, below the
+    ephemeral range (every server this script starts elsewhere binds port
+    0, so takes an ephemeral one): the rig's supervisor SIGKILLs whatever
+    holds one of its ports, and no process of another phase holds one of
+    these."""
+    import random
+
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(20000, 32000 - span) // span * span
+        free = True
+        for port in range(base, base + span):
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    free = False
+                    break
+        if free:
+            return base
+    raise AssertionError("23: no free block of 100 ports")
+
+
+def stop_rig(proc: subprocess.Popen) -> list[tuple[int, str]]:
+    """SIGKILL the rig's driver and every process of the rig below this
+    one (the supervisor's children lead sessions of their own; this
+    script, their subreaper, adopts them when the driver dies first)."""
+    import signal
+
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+    left = [(pid, cmd) for pid, cmd in descendants()
+            if "ai4e_tpu_torch.rig" in cmd]
+    for pid, _ in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    return left
+
+
+def rig_top_frame(proc: subprocess.Popen, spec: Path, env: dict,
+                  deadline: float) -> dict:
+    """Once the rig's balancer answers, one ``top --once --spec`` frame
+    from a child process: its exit code, the roles it names and its
+    fleet line."""
+    import urllib.request
+
+    while not spec.exists():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError("23a: the rig wrote no topology")
+        time.sleep(0.1)
+    topo = json.loads(spec.read_text())
+    balancer = (f"http://{topo['host']}:"
+                f"{topo['base_port']}/healthz")
+    while True:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise AssertionError("23a: the rig's balancer never answered")
+        try:
+            with urllib.request.urlopen(balancer, timeout=2) as r:
+                if r.status == 200:
+                    break
+        except OSError:
+            pass
+        time.sleep(0.1)
+    out = subprocess.run(
+        [sys.executable, "-m", "ai4e_tpu_torch", "top", "--once",
+         "--interval", "1", "--spec", str(spec)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=30)
+    lines = out.stdout.splitlines()
+    return {"rc": out.returncode, "fleet": lines[0] if lines else "",
+            "names": sorted(line.split()[0] for line in lines[2:]
+                            if line.split()),
+            "stderr": out.stderr[-2000:]}
+
+
+def rig_up(name: str, flags: list[str], out_dir: Path,
+           top: bool = False) -> dict:
+    """One ``python -m ai4e_tpu_torch.rig up`` run as a child process under
+    ``RIG_WALL_S``; returns its exit code, its ``rig.json``, the seconds
+    it took and (``top``) the ``top --spec`` frame taken while it ran."""
+    import shutil
+
+    work = out_dir / f"rig_{name}"
+    shutil.rmtree(work, ignore_errors=True)
+    base = rig_base_port()
+    env = dict(os.environ)
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    argv = [sys.executable, "-m", "ai4e_tpu_torch.rig", "up", *flags,
+            "--seed", str(RIG_SEED), "--base-port", str(base),
+            "--workdir", str(work / "work"), "--out", str(work / "artifact")]
+    log_path = out_dir / f"rig_{name}.log"
+    t0 = time.monotonic()
+    deadline = t0 + RIG_WALL_S
+    with open(log_path, "wb") as out:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+    frame = None
+    try:
+        if top:
+            frame = rig_top_frame(proc, work / "work" / "topology.json", env,
+                                  deadline)
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"23{name}: the rig ran past {RIG_WALL_S} "
+                                 f"s:\n{tail(log_path)}") from None
+    finally:
+        left = stop_rig(proc)
+        if left:
+            log(f"rig 23{name}: stopped what the rig left running: {left}")
+    seconds = time.monotonic() - t0
+    artifact = work / "artifact" / "rig.json"
+    if rc != 0 or not artifact.exists():
+        raise AssertionError(f"23{name}: the rig exited {rc}:\n"
+                             f"{tail(log_path)}")
+    return {"rc": rc, "result": json.loads(artifact.read_text()),
+            "seconds": seconds, "frame": frame, "base_port": base,
+            "artifact": work / "artifact"}
+
+
+def phase_23() -> dict:
+    """23a the chaos rig and one ``top --spec`` frame; 23b the bad-canary
+    rollout."""
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    topo_flags = ["--gateways", "2", "--shards", "2", "--replicas", "1",
+                  "--dispatchers", "1", "--workers", "1", "--loadgens", "1"]
+    a = rig_up("a", topo_flags + [
+        "--rate", f"{RIG_RATE_23A:g}", "--duration", f"{RIG_DURATION_23A:g}",
+        "--ramp", "2", "--task-timeout", f"{RIG_TASK_TIMEOUT_23A:g}"],
+        out_dir, top=True)
+    result, verdict = a["result"], a["result"]["verdict"]
+    fired = [(e["verb"], e.get("ok")) for e in result["chaos"]]
+    if not (result["ok"] and verdict["ok"]):
+        raise AssertionError(f"23a: the verdict is not ok: "
+                             f"{json.dumps(verdict)[:4000]}")
+    if fired != [(verb, True) for verb in RIG_FAULTS]:
+        raise AssertionError(f"23a: the faults fired {fired}")
+    if not verdict["accepted"] or verdict["terminal"] < verdict["accepted"]:
+        raise AssertionError(f"23a: {verdict['accepted']} accepted, "
+                             f"{verdict['terminal']} terminal")
+    frame = a["frame"]
+    from ai4e_tpu_torch.rig.topology import Topology
+
+    want = {n for n in Topology.load(str(
+        a["artifact"].parent / "work" / "topology.json")).metrics_urls()
+        if n != "collector"}
+    if frame["rc"] != 0 or not want <= set(frame["names"]):
+        raise AssertionError(f"23a: top --spec: {frame}")
+    windows = [w["window"] for w in verdict["windows"] if w.get("window")]
+    load_end = max(w["samples"][-1]["t"] for w in verdict["windows"]
+                   if w.get("samples"))
+    report_a = {
+        "seconds": a["seconds"],
+        "load_ends_s_after_start": load_end - result["started_at"],
+        "finished_s_after_start": result["finished_at"]
+        - result["started_at"], "faults": fired,
+        "accepted": verdict["accepted"], "terminal": verdict["terminal"],
+        "duplicates": verdict["duplicates"],
+        "violations": verdict["violation_count"],
+        "offered_rate": sum(w["offered_rate"] for w in windows),
+        "achieved_rate": sum(w["achieved_rate"] for w in windows),
+        "per_shard": {s: {k: m[k] for k in ("accepted", "terminal",
+                                            "promoted", "epochs")}
+                      for s, m in verdict["per_shard"].items()},
+        "conservation_ok": verdict["conservation"].get("ok"),
+        "top_fleet_line": frame["fleet"], "top_names": frame["names"]}
+    log(f"rig 23a: {json.dumps(report_a)}")
+
+    b = rig_up("b", ["--gateways", "2", "--shards", "1", "--replicas", "1",
+                     "--dispatchers", "1", "--workers", "2",
+                     "--loadgens", "2", "--rate", "300",
+                     "--duration", f"{RIG_DURATION_23B:g}", "--ramp", "2",
+                     "--task-timeout", "45", "--no-chaos",
+                     "--rollout", "bad-canary",
+                     "--rollout-steps", "25,50,100", "--rollout-hold-s", "3",
+                     "--rollout-drain-timeout-ms", "4000"], out_dir)
+    result, verdict = b["result"], b["result"]["verdict"]
+    rollout = result.get("rollout") or {}
+    weights = rollout.get("weight_history") or []
+    if not (result["ok"] and verdict["ok"]
+            and rollout.get("gate", {}).get("ok")):
+        raise AssertionError(f"23b: {json.dumps(rollout)[:3000]}; verdict "
+                             f"{json.dumps(verdict)[:2000]}")
+    if rollout.get("outcome") != "rolled_back" or not weights or \
+            max(weights) >= 50.0:
+        raise AssertionError(f"23b: the bad canary was not rolled back "
+                             f"below 50%: {rollout.get('outcome')} {weights}")
+    ledgers = json.loads((b["artifact"] / "ledgers.json").read_text())
+    marker = ledgers["Ledgers"].get(rollout.get("marker_task") or "", [])
+    stamped = [ev.get("r", "") for ev in marker if ev.get("e") == "rollback"]
+    if not stamped:
+        raise AssertionError(f"23b: no rollback stamp on the marker task "
+                             f"{rollout.get('marker_task')}: {marker}")
+    events = rollout.get("events") or []
+    rolled_at = next(e["t"] for e in events if e["event"] == "rollback")
+    report_b = {
+        "seconds": b["seconds"], "duration_s": RIG_DURATION_23B,
+        "outcome": rollout["outcome"], "rollback_step_pct": max(weights),
+        "reason": rollout.get("reason"), "upgraded": rollout.get("upgraded"),
+        "reverted": rollout.get("reverted"),
+        "rollback_s_after_start": rolled_at - result["started_at"],
+        "load_ends_s_after_start": max(
+            w["samples"][-1]["t"] for w in verdict["windows"]
+            if w.get("samples")) - result["started_at"],
+        "rollback_stamps": stamped,
+        "accepted": verdict["accepted"], "terminal": verdict["terminal"],
+        "violations": verdict["violation_count"]}
+    log(f"rig 23b: {json.dumps(report_b)}")
+    report = {"events_fired": len(fired), "accepted": report_a["accepted"],
+              "terminal": report_a["terminal"],
+              "violations": report_a["violations"] + report_b["violations"],
+              "rollback_step_pct": report_b["rollback_step_pct"],
+              "seconds": time.perf_counter() - t0,
+              "seconds_23a": a["seconds"], "seconds_23b": b["seconds"],
+              "card": CARD.get("smi")}
+    log(f"rig: {json.dumps(report)}")
+    return report
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--detector-dct-sweep"]:
         detector_dct_sweep(int(sys.argv[2]))
@@ -11629,7 +11916,7 @@ def main() -> None:
 
 
 def run_phases(seconds: dict[str, float]) -> list[dict]:
-    """Phases 2-22 in order, each one's wall seconds into ``seconds``;
+    """Phases 2-23 in order, each one's wall seconds into ``seconds``;
     returns the kernels' records."""
     def timed(name: str, fn, *args, **kwargs):
         t = time.perf_counter()
@@ -11674,6 +11961,7 @@ def run_phases(seconds: dict[str, float]) -> list[dict]:
         kill_res_workers(workers[0])
         raise
     timed("22", phase_22, kernels)
+    timed("23", phase_23)
     for k in kernels:
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]

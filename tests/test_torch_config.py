@@ -186,7 +186,7 @@ SERVED_TENANCY_PIPELINE_KNOBS = [
         "pipeline", "pipeline_event_replay", "pipeline_stream_max_s",
         "pipeline_chunk_replay")]
 
-#: The rollout controller's knobs, still refused under its item.
+#: The rollout controller's knobs, served through ``RolloutPolicy``.
 CONTROLLER_KNOBS = [
     ("AI4E_ROLLOUT_", f) for f in (
         "canary_steps", "step_hold_s", "guard_tick_s", "burn_fast_max",
@@ -224,7 +224,8 @@ CASES = ([pytest.param("same", env, None, id=f"same-{i}")
          + list(off_default_cases(SERVED_PUSH_REPORTER_KNOBS, "same"))
          + list(off_default_cases(SERVED_RESILIENCE_KNOBS, "same"))
          + list(off_default_cases(SERVED_TENANCY_PIPELINE_KNOBS, "same"))
-         + list(off_default_cases(SERVED_MESH_KNOBS, "same")))
+         + list(off_default_cases(SERVED_MESH_KNOBS, "same"))
+         + list(off_default_cases(CONTROLLER_KNOBS, "same")))
 
 
 @pytest.mark.parametrize("kind,env,item", CASES)
@@ -328,8 +329,8 @@ def test_platform_config_is_jax_s(env):
 def test_seventeen_observability_knobs_left_the_unported_set():
     """The served knobs are out of ``UNPORTED``, the SLO ladder, the other
     eighteen of resilience and orchestration, tenancy's eight and the
-    pipelines' four, and the parallel plane's seven among them; 7 remain,
-    each naming its item."""
+    pipelines' four, the parallel plane's seven and the rollout
+    controller's five among them; 2 remain, each naming why."""
     assert not set(SERVED_OBSERVABILITY_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_DECODE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_ADMISSION_KNOBS) & set(port_config.UNPORTED)
@@ -341,6 +342,7 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert not set(SERVED_RESILIENCE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_TENANCY_PIPELINE_KNOBS) & set(port_config.UNPORTED)
     assert not set(SERVED_MESH_KNOBS) & set(port_config.UNPORTED)
+    assert not set(CONTROLLER_KNOBS) & set(port_config.UNPORTED)
     assert len(SERVED_OBSERVABILITY_KNOBS) == 17
     assert len(SERVED_RESILIENCE_KNOBS) == 19
     assert len(SERVED_AUTH_CACHE_KNOBS) == 11
@@ -348,9 +350,12 @@ def test_seventeen_observability_knobs_left_the_unported_set():
     assert len(SERVED_PUSH_REPORTER_KNOBS) == 7
     assert len(SERVED_TENANCY_PIPELINE_KNOBS) == 12
     assert len(SERVED_MESH_KNOBS) == 7
-    assert len(port_config.UNPORTED) == 7
+    assert len(CONTROLLER_KNOBS) == 5
+    assert len(port_config.UNPORTED) == 2
+    assert set(port_config.UNPORTED) == {("AI4E_RUNTIME_", "platform"),
+                                         ("AI4E_RUNTIME_", "donate_batch")}
     assert not any(item in what for what in port_config.UNPORTED.values()
-                   for item in ("A18.9", "A18.10", "A18.12", "A15"))
+                   for item in ("A18.9", "A18.10", "A18.12", "A15", "A19"))
     assert (port_config.FrameworkConfig.from_env(
         {"AI4E_PLATFORM_SLO_LADDER": "1"}).to_platform_config().slo_ladder
         is True)
@@ -374,10 +379,25 @@ def test_sections_and_fields_are_the_jax_package_s():
 @pytest.mark.parametrize("key", CONTROLLER_KNOBS,
                          ids=lambda k: k[0] + k[1].upper())
 def test_controller_knobs_refuse_under_their_new_item(key):
-    """The rollout controller's five knobs stay refused, each naming the
-    rig's item, A19: nothing but the rig drives the controller."""
-    assert port_config.UNPORTED[key] == (
-        "the rollout controller, which only the rig drives (ROADMAP A19)")
+    """The rollout controller's five knobs, refused until the rig came
+    (A19), now reach ``RolloutPolicy.from_config`` as in JAX: the same
+    value, off its default, lands in the same policy field."""
+    from ai4e_tpu.rollout.controller import RolloutPolicy as JaxPolicy
+    from ai4e_tpu_torch.rollout import RolloutPolicy as PortPolicy
+
+    assert key not in port_config.UNPORTED
+    section = typing.get_type_hints(port_config.FrameworkConfig)["rollout"]
+    f = next(f for f in dataclasses.fields(section) if f.name == key[1])
+    raw = ("10,60,100" if key[1] == "canary_steps"
+           else off_default(f, typing.get_type_hints(section)[f.name]))
+    env = {key[0] + key[1].upper(): raw}
+    want = JaxPolicy.from_config(jax_config.FrameworkConfig.from_env(
+        env).rollout)
+    got = PortPolicy.from_config(port_config.FrameworkConfig.from_env(
+        env).rollout)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert getattr(got, key[1]) != f.default
+    assert got.steps == want.steps
 
 
 def test_push_reporter_and_generation_reach_their_consumers():

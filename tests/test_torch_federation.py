@@ -1,9 +1,9 @@
 """The port's fleet federation and ``top`` (``ai4e_tpu_torch/observability/
 federation.py``, ``top.py``) held against the JAX package's.
 
-``tests/test_federation.py`` runs on the port (``port_suite``) but for its
-one case that imports the rig's ``scrape_and_merge``, which waits for the
-rig (ROADMAP A19). Then both packages on the same inputs: parsed and
+``tests/test_federation.py`` runs whole on the port (``port_suite``), its
+case on the rig's ``scrape_and_merge`` too. Then both packages on the
+same inputs: parsed and
 merged series of the same exposition pages (the port's own control plane
 and worker registries among them), the collector's snapshot JSON and
 merged exposition over one fake fleet, and ``render_top``'s frame for the
@@ -17,6 +17,7 @@ from __future__ import annotations
 import asyncio
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -30,8 +31,6 @@ from ai4e_tpu_torch.metrics import MetricsRegistry as PortRegistry
 from tests.test_torch_tenancy import port_suite
 
 _suite = port_suite("test_federation")
-# Imports ai4e_tpu.rig.verdict: the rig is not ported (ROADMAP A19).
-del _suite["TestParseMerge"].test_verdict_scrape_and_merge_delegates
 globals().update(_suite)
 _MetricsServer = sys.modules["_port_test_federation"]._MetricsServer
 GW_PAGE = sys.modules["_port_test_federation"].GW_PAGE
@@ -218,8 +217,9 @@ class CountingServer(_MetricsServer):
 def test_top_verb_once_prints_a_frame_with_rates():
     """``python -m ai4e_tpu_torch top --once`` over a fleet whose gateway
     counts up between the two scrapes: one frame naming each process, a
-    request rate on the gateway, exit 0. ``--spec`` and no source refuse
-    with 2."""
+    request rate on the gateway, exit 0. ``--spec`` reads a rig topology:
+    one frame naming each of its roles (none listening here, so each is
+    down), exit 0. No source refuses with 2."""
     gw = CountingServer(GW_PAGE)
     store = _MetricsServer(STORE_PAGE)
     try:
@@ -236,8 +236,32 @@ def test_top_verb_once_prints_a_frame_with_rates():
             if line.split() and line.split()[0] in ("gateway0", "store0")}
     assert set(rows) == {"gateway0", "store0"}
     assert float(rows["gateway0"][3]) > 0
-    for argv in (["--spec", "topology.json"], []):
-        refused = subprocess.run(
-            [sys.executable, "-m", "ai4e_tpu_torch", "top", "--once", *argv],
+    from ai4e_tpu_torch.rig.topology import Topology
+
+    with tempfile.TemporaryDirectory() as workdir:
+        topo = Topology(gateways=2, shards=1, replicas=1, dispatchers=1,
+                        workers=1, loadgens=1, chaos=False,
+                        base_port=free_closed_port(), workdir=workdir)
+        topo.save(topo.spec_path())
+        spec = subprocess.run(
+            [sys.executable, "-m", "ai4e_tpu_torch", "top", "--once",
+             "--interval", "0.2", "--spec", topo.spec_path()],
             cwd=ROOT, capture_output=True, text=True, timeout=60)
-        assert refused.returncode == 2, refused.stderr
+    assert spec.returncode == 0, spec.stderr
+    named = {line.split()[0] for line in spec.stdout.splitlines()
+             if line.split()}
+    assert set(topo.metrics_urls()) - {"collector"} <= named, spec.stdout
+    refused = subprocess.run(
+        [sys.executable, "-m", "ai4e_tpu_torch", "top", "--once"],
+        cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert refused.returncode == 2, refused.stderr
+
+
+def free_closed_port() -> int:
+    """A base port for a topology nothing serves: a port just freed, with
+    the whole layout above it (up to +99) refusing connections."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1] - 100
