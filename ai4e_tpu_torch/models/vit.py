@@ -32,9 +32,14 @@ each, and ``mlp/up``'s replicated bias is sliced to the rank's columns in
 ``forward``). A tp rank attends over its heads and runs its quarter of the
 MLP; each row-split product is taken in float32 (the rounding to bfloat16
 waits for the sum, as on one device), added over tp
-(``comm.all_reduce_sum``, one (B, N, dim) activation) and then rounded and
+(``comm.reduce_from``, one (B, N, dim) activation) and then rounded and
 given its bias: one all-reduce on the residual after attention and one
-after the MLP, each block.
+after the MLP, each block. Under autograd (``train.Trainer`` over a mesh)
+the column-split ``qkv`` and ``mlp/up`` take their input through
+``comm.copy_to``, whose backward adds the ranks' input gradients over tp,
+and so does ``mlp/up``'s bias before it is sliced (each rank's gradient
+of it is nonzero on its own columns only): every replicated parameter
+then gets the same gradient on every tp rank, one device's.
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ def row_parallel(dense: Dense, x: torch.Tensor, tp_mesh) -> torch.Tensor:
     float32, summed over the axis, then rounded to the layer's type and
     given its (replicated) bias."""
     part = torch.matmul(x.float(), dense.weight.float().t())
-    y = comm.all_reduce_sum(part, axis_group(tp_mesh, "tp")).to(dense.dtype)
+    y = comm.reduce_from(part, axis_group(tp_mesh, "tp")).to(dense.dtype)
     return y if dense.bias is None else y + dense.bias.to(dense.dtype)
 
 
@@ -100,6 +105,8 @@ class Attention(nn.Module):
         hd = self.dim // self.heads
         heads = self.qkv.weight.shape[0] // (3 * hd)  # this rank's
         _check_split(self.heads, heads, self.tp_mesh)
+        if self.tp_mesh is not None:
+            x = comm.copy_to(x, axis_group(self.tp_mesh, "tp"))
         qkv = self.qkv(x).view(b, n, 3, heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         # JAX casts the weak-typed python scale to the scores' type.
@@ -125,7 +132,9 @@ class Mlp(nn.Module):
         up = self.up
         cols = up.weight.shape[0]
         _check_split(up.bias.shape[0], cols, self.tp_mesh)
-        bias = up.bias.narrow(0, axis_index(self.tp_mesh, "tp") * cols, cols)
+        group = axis_group(self.tp_mesh, "tp")
+        x, bias = comm.copy_to(x, group), comm.copy_to(up.bias, group)
+        bias = bias.narrow(0, axis_index(self.tp_mesh, "tp") * cols, cols)
         h = F.linear(x.to(up.dtype), up.weight.to(up.dtype)) + bias.to(up.dtype)
         return row_parallel(self.down, gelu(h), self.tp_mesh)
 

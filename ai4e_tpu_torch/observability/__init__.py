@@ -2,12 +2,10 @@
 tracing keyed by TaskId (B3 headers across the gateway → dispatcher →
 worker hops, spans as metrics, JSONL and OTLP exporters), the per-task hop
 ledger, the tail-sampled flight recorder, the SLO burn-rate engine, the
-queue-depth gauges and the per-process vitals.
-
-Not ported yet (ROADMAP A18.11): ``top`` and ``federation.py`` (they read
-a fleet collector) and the ``timeline`` verb over a rig directory.
-Nothing here imports torch at module level: the control plane never
-loads it.
+queue-depth gauges and the per-process vitals, the fleet collector
+(``federation.py``), ``top`` and the ``timeline`` verb, over a rig
+directory too. Nothing here imports torch at module level: the control
+plane never loads it.
 """
 
 from .depth_logger import DepthLogger

@@ -17,6 +17,15 @@ The port's models and runtimes call these and nothing of
 calling thread (a staged collective waits for its copies, so its time is
 whole; an NCCL one is enqueued and its time is the enqueue).
 
+Training adds four collectives with an explicit backward, each a
+``torch.autograd.Function`` (``copy_to``, ``reduce_from``), or run outside
+autograd (``reduce_gradients_``, ``gather_along_spec``): a megatron tp
+layer takes its replicated input through ``copy_to`` (identity forward,
+sum over the group backward) and hands its row-split partial product to
+``reduce_from`` (sum forward, identity backward); the trainer averages its
+gradients over the data axes in one flat buffer a step; a checkpoint
+gathers whole parameters and optimizer moments from their shards.
+
 Control traffic — the multihost runtime's descriptor broadcast, its poison
 gather, the outputs' gather — rides CPU tensors on the default group
 (gloo either way).
@@ -160,3 +169,110 @@ def broadcast_host(arr: np.ndarray, src: int = 0) -> np.ndarray:
     dist.broadcast(buf, src)
     _count(0, 0, t0)
     return buf.numpy()
+
+
+def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's ``x`` (same shape and dtype on every rank of
+    ``group``), in the group's rank order, on ``x``'s device."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    staged = _staged(x)
+    send = _to_host(x) if staged else x.contiguous()
+    out = [torch.empty_like(send) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, send, group=group)
+    if staged:
+        out = [o.to(x.device, non_blocking=True) for o in out]
+    _count((1 + len(out)) * x.nbytes if staged else 0,
+           1 + len(out) if staged else 0, t0)
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``group`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over ``group`` forward; the gradient as it is backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, replicated over ``group``, entering a layer whose ranks each
+    take a part of it: its gradient is the sum of the ranks' (the input
+    of a column-split Dense)."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``group``, under autograd:
+    every rank's part gets the whole gradient (a row-split Dense)."""
+    return _ReduceFrom.apply(x, group)
+
+
+def reduce_gradients_(tensors: list[torch.Tensor], group,
+                      scale: float = 1.0) -> None:
+    """Sum ``tensors`` over ``group`` and multiply by ``scale``, in place,
+    with one all-reduce a dtype: the tensors are flattened into one buffer
+    (so a staged collective costs one round trip through host memory, not
+    one a tensor) and copied back."""
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        flat = all_reduce_sum(flat, group)
+        if scale != 1.0:
+            flat.mul_(scale)
+        offset = 0
+        for t in same:
+            n = t.numel()
+            t.copy_(flat[offset:offset + n].view_as(t))
+            offset += n
+
+
+def gather_along_spec(local: torch.Tensor, spec: tuple, mesh,
+                      order: tuple[int, ...] | None = None,
+                      groups: int = 1) -> torch.Tensor:
+    """The whole tensor of which ``local`` is this rank's
+    ``sharding.local_shard(whole, spec, mesh, order=order, groups=groups)``:
+    each split dimension gathered over its axes' group and put back in the
+    axes' index order, group by group (``SPLIT_GROUPS``). A collective:
+    every rank of the mesh calls it with its own shard."""
+    from .sharding import _axes, axes_group, axis_index, axis_size
+
+    whole = local
+    for i in reversed(range(len(spec))):
+        axes = _axes(spec[i])
+        parts = axis_size(mesh, *axes) if axes else 1
+        if parts == 1:
+            continue
+        dim = order[i] if order is not None else i
+        group = axes_group(mesh, *axes)
+        shards = all_gather(whole, group)
+        ranks = _ranks(group)
+        by_index = sorted(zip((axis_index(mesh, *axes, rank=r)
+                               for r in ranks), range(len(ranks))))
+        shape = tuple(whole.shape)
+        size = shape[dim]
+        grouped = shape[:dim] + (groups, size // groups) + shape[dim + 1:]
+        whole = torch.cat([shards[j].reshape(grouped) for _, j in by_index],
+                          dim=dim + 1)
+        whole = whole.reshape(shape[:dim] + (size * parts,) + shape[dim + 1:])
+    return whole

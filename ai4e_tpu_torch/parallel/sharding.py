@@ -198,6 +198,39 @@ def axis_group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
+def axes_group(mesh, *axes: str):
+    """The process group of this rank's ranks along the product of
+    ``axes`` (the first outermost); ``None`` where that product is 1. A
+    group over one axis of size > 1 is the mesh's own; one over several is
+    made anew with ``new_group``, a collective call (every rank builds
+    every line of the product, in the same order): callers keep it."""
+    import torch.distributed as dist
+
+    live = [a for a in axes if axis_size(mesh, a) > 1]
+    if not live:
+        return None
+    if len(live) == 1:
+        return axis_group(mesh, live[0])
+    mine = None
+    lines: dict[tuple, list[int]] = {}
+    for rank in range(process_count()):
+        coords = rank_coords(mesh, rank)
+        rest = tuple(coords[a] for a in MESH_AXES if a not in live)
+        lines.setdefault(rest, []).append(rank)
+    for ranks in lines.values():
+        ranks.sort(key=lambda r: axis_index(mesh, *live, rank=r))
+        group = dist.new_group(ranks)
+        if process_index() in ranks:
+            mine = group
+    return mine
+
+
+def data_group(mesh):
+    """The group a data-parallel gradient is averaged over: dp x fsdp
+    (``None`` where both are 1)."""
+    return axes_group(mesh, *BATCH_AXES)
+
+
 def data_axis_size(mesh) -> int:
     return axis_size(mesh, *BATCH_AXES)
 
@@ -370,7 +403,10 @@ def shard_module_(module: torch.nn.Module, mesh, tp_rules=None) -> dict:
     through ``flax_view``), in place. A submodule's ``SPLIT_GROUPS``
     (``{parameter name: groups}``) splits a fused parameter group by group.
     Returns ``{state_dict key: (spec, order, groups)}`` of the split
-    parameters (``local_shard``'s arguments for a new value of one)."""
+    parameters (``local_shard``'s arguments for a new value of one;
+    ``shard_tensors`` and ``unshard_tensors`` take it). The shards are
+    frozen (``requires_grad=False``), as serving wants them; ``Trainer``
+    makes its model's parameters trainable after sharding it."""
     split = {}
     for name, (path, order) in flax_view(module).items():
         param = module.get_parameter(name)
@@ -388,6 +424,35 @@ def shard_module_(module: torch.nn.Module, mesh, tp_rules=None) -> dict:
         setattr(owner, leaf, torch.nn.Parameter(local, requires_grad=False))
         split[name] = (spec, order, groups)
     return split
+
+
+def shard_tensors(tensors: dict, mesh, split: dict) -> dict:
+    """This rank's shard of every whole tensor of ``tensors`` that
+    ``split`` (``shard_module_``'s result, keyed by state_dict key) names;
+    the others as they are."""
+    out = {}
+    for key, t in tensors.items():
+        if key in split:
+            spec, order, groups = split[key]
+            t = local_shard(t, spec, mesh, order=order, groups=groups)
+        out[key] = t
+    return out
+
+
+def unshard_tensors(tensors: dict, mesh, split: dict) -> dict:
+    """The inverse of ``shard_tensors``: the whole tensor of every local
+    shard that ``split`` names, gathered over its axes
+    (``comm.gather_along_spec``, a collective: every rank calls it with
+    the same keys in the same order); the others as they are."""
+    from .comm import gather_along_spec
+
+    out = {}
+    for key, t in tensors.items():
+        if key in split:
+            spec, order, groups = split[key]
+            t = gather_along_spec(t, spec, mesh, order=order, groups=groups)
+        out[key] = t
+    return out
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:

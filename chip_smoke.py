@@ -402,8 +402,23 @@ Phases, each of which raises on failure:
    cuda``, ``AI4E_RUNTIME_MESH_SPEC=sp=2``) as child processes, 4 sync
    and 32 async requests through the gateway against one device's
    answers, ``/v1/models``' mesh entry, the follower out on the shutdown
-   sentinel. It prints ``mesh 22a``, ``mesh 22c``, ``mesh 22b`` and
-   ``mesh`` lines and adds the ring's launches and ms to the flash row;
+   sentinel; (d) training over the mesh, in the same two ranks after
+   (c): ViT-S/16 with a float32 body at tp=2, three steps on one seeded
+   batch, losses within ``MESH_TRAIN_RTOL`` of one device's ``Trainer``
+   in rank 0, the second below the first, the qkv and out shards and
+   their AdamW moments half-width; longcontext at its deployed width
+   (bf16 body, float32 masters, flash) at dp=2, three steps on 8 seeded
+   sequences (4 a rank), parameters bit-equal on both ranks after every
+   step (sha256), losses within ``LC_TRAIN_RTOL`` of one device's on the
+   whole batch, the flash forward and backward launched depth times a
+   rank a step; the ViT saved by ``save_trainer`` after its third step
+   (rank 0 writes ``build/chip_smoke/mesh_ckpt/3``), a fourth step in the
+   ranks, then this process resumes the checkpoint into a one-device
+   ``Trainer`` on the card: step 3, params and moments bit-equal to the
+   gathered ones, the next loss within ``MESH_TRAIN_RTOL`` of the ranks'
+   fourth. It prints ``mesh 22a``, ``mesh 22c``, ``mesh 22d``, ``mesh
+   22b`` and ``mesh`` lines and adds the ring's launches and ms and (d)'s
+   launches a step to the flash rows;
 23. the multi-process rig (no model, no kernel: its worker is the CPU
    echo worker, as in JAX's), ``python -m ai4e_tpu_torch.rig up`` as a
    child process on a block of 100 free ports, each run under its own
@@ -431,9 +446,11 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import hashlib
 import io
 import json
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -11420,6 +11437,209 @@ def mesh_model_turn(family: str, spec, kwargs: dict, batch: np.ndarray,
             "collective_s_a_batch": moved["seconds"]}
 
 
+N_MESH_TRAIN_STEPS = 3    # 22d: steps a turn; (iii) saves after the last
+MESH_TRAIN_RTOL = 1e-4    # 22d (i), (iii): float32 ViT at tp = 2 vs one device
+# 22d (ii): the bf16-bodied longcontext at dp = 2 against one device on
+# the whole batch: a loss within one bfloat16 ulp (2^-8) relative. Two
+# ranks sum a weight gradient's rows in two bf16 products and add them in
+# float32, one device in one product, so the updates differ by bf16
+# roundings of the gradients.
+LC_TRAIN_RTOL = 2.0 ** -8
+
+
+def params_digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests are equal
+    bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).cpu()
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_vit_config() -> dict:
+    """22d (i): ViT-S/16 (the served ``vit`` entry's widths) with a
+    float32 body."""
+    return dict(num_classes=1000, image_size=224, patch=16, dim=384,
+                depth=6, heads=6, dtype=torch.float32)
+
+
+def vit_train_batch(config: dict) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(SEED + 23)
+    size = config["image_size"]
+    return (rng.random((N_MESH_IMAGES, size, size, 3), dtype=np.float32),
+            rng.integers(0, config["num_classes"], N_MESH_IMAGES)
+            .astype(np.int32))
+
+
+def step_report(report: dict) -> dict:
+    """A meshed ``train_step_phases`` report with its step ms."""
+    return dict(report, step_ms=sum(report[k] for k in
+                                    ("forward", "backward", "optimizer")))
+
+
+def mesh_train_vit(rank: int, out_dir: str, device: str = "cuda") -> dict:
+    """22d (i) and the ranks' half of (iii): the ViT at tp = 2, three
+    steps on one batch, held against one device's ``Trainer`` in rank 0;
+    ``save_trainer`` after step 3 (rank 0 writes), then a fourth step."""
+    from ai4e_tpu_torch.checkpoint import CheckpointManager, save_trainer
+    from ai4e_tpu_torch.models.vit import TP_RULES, create_vit
+    from ai4e_tpu_torch.parallel.sharding import MeshSpec, make_mesh
+    from ai4e_tpu_torch.train import Trainer
+
+    config = mesh_vit_config()
+    mesh = make_mesh(MeshSpec(tp=2), device_type=torch.device(device).type)
+    x, y = vit_train_batch(config)
+    model = create_vit(torch.Generator().manual_seed(SEED), mesh=mesh,
+                       device=device, **config)
+    trainer = Trainer(model, device=device, mesh=mesh, tp_rules=TP_RULES)
+    losses, reports = [], []
+    for _ in range(N_MESH_TRAIN_STEPS):
+        loss, report = trainer.train_step_phases(x, y)
+        losses.append(loss)
+        reports.append(step_report(report))
+    params, state = trainer.gather_state()
+    gathered = {"params": {k: params_digest([t]) for k, t in params.items()},
+                "opt_state": {f"{sk}/{k}": params_digest([t])
+                              for sk, by_name in state.items()
+                              for k, t in by_name.items()}}
+    del params, state
+    saved = save_trainer(CheckpointManager(os.path.join(out_dir,
+                                                        "mesh_ckpt")),
+                         trainer, N_MESH_TRAIN_STEPS)
+    if not saved:
+        raise AssertionError("22d: save_trainer wrote nothing at step "
+                             f"{N_MESH_TRAIN_STEPS}")
+    fourth = trainer.train_step(x, y)
+    shapes = {k: list(p.shape) for k, p in trainer.params.items()
+              if k.startswith("blocks.0.attn.")}
+    moments = {k: list(t.shape) for k, t in
+               trainer.opt_state["exp_avg"].items() if k in shapes}
+    dim = config["dim"]
+    want = {"blocks.0.attn.qkv.weight": [3 * dim // 2, dim],
+            "blocks.0.attn.out.weight": [dim, dim // 2]}
+    for key, shape in want.items():
+        if shapes[key] != shape or moments[key] != shape:
+            raise AssertionError(f"22d: {key} local {shapes[key]}, moments "
+                                 f"{moments[key]}, want {shape}")
+    del trainer, model
+    out = {"losses": losses, "fourth_loss": fourth, "reports": reports,
+           "local_shapes": shapes, "moment_shapes": moments,
+           "gathered_digests": gathered}
+    if rank == 0:
+        single = Trainer(create_vit(torch.Generator().manual_seed(SEED),
+                                    device=device, **config), device=device)
+        want_losses = [single.train_step(x, y)
+                       for _ in range(N_MESH_TRAIN_STEPS)]
+        del single
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        if not gap <= MESH_TRAIN_RTOL:
+            raise AssertionError(f"22d (i): tp=2 losses {losses} against one "
+                                 f"device's {want_losses}: relative gap {gap}")
+        out.update(single_losses=want_losses, max_relative_gap=gap)
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"22d (i): the second loss {losses[1]} is not "
+                             f"below the first {losses[0]}")
+    return out
+
+
+def mesh_train_longcontext(rank: int, device: str = "cuda") -> dict:
+    """22d (ii): longcontext at its deployed width (float32 masters, bf16
+    body, flash) at dp = 2, three steps on 8 seeded sequences (4 a rank):
+    each rank's flash forward and backward launches a step, its parameter
+    digest after each step, and one device's losses on the whole batch in
+    rank 0."""
+    from ai4e_tpu_torch.models import create_seqformer
+    from ai4e_tpu_torch.ops import flash_attention as fa
+    from ai4e_tpu_torch.parallel.sharding import MeshSpec, make_mesh
+    from ai4e_tpu_torch.train import Trainer
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+
+    config = longcontext_config()
+    mesh = make_mesh(MeshSpec(dp=2), device_type=torch.device(device).type)
+    x, y = longcontext_batch(np.random.default_rng(SEED + 24), N_MESH_SEQS,
+                             config["seq_len"], config["vocab_size"],
+                             config["num_classes"])
+
+    def model():
+        return create_seqformer(torch.Generator().manual_seed(SEED),
+                                **config, attention="flash",
+                                param_dtype=torch.float32, device=device)
+
+    trainer = Trainer(model(), device=device, mesh=mesh)
+    losses, reports, digests, launches = [], [], [], []
+    for _ in range(N_MESH_TRAIN_STEPS):
+        fa.launches = fa.bwd_launches = 0
+        loss, report = trainer.train_step_phases(x, y)
+        launches.append({"flash_attention": fa.launches,
+                         "flash_attention_bwd": fa.bwd_launches})
+        losses.append(loss)
+        reports.append(step_report(report))
+        digests.append(params_digest(trainer.params.values()))
+    if device == "cuda":
+        for n in launches:
+            if set(n.values()) != {config["depth"]}:
+                raise AssertionError(f"22d (ii): rank {rank} launched {n} in "
+                                     f"a step, want {config['depth']} each")
+    del trainer
+    out = {"losses": losses, "reports": reports, "param_digests": digests,
+           "launches_a_step": launches, "rows": N_MESH_SEQS // 2}
+    if rank == 0:
+        single = Trainer(model(), device=device)
+        want = [single.train_step(x, y) for _ in range(N_MESH_TRAIN_STEPS)]
+        del single
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        if not gap <= LC_TRAIN_RTOL:
+            raise AssertionError(f"22d (ii): dp=2 losses {losses} against one "
+                                 f"device's {want}: relative gap {gap}")
+        out.update(single_losses=want, max_relative_gap=gap)
+    return out
+
+
+def mesh_resume_check(ranks: list[dict], out_dir: Path,
+                      device: str = "cuda") -> dict:
+    """22d (iii) in this process: (i)'s checkpoint, saved at tp = 2,
+    resumed into a fresh one-device ``Trainer``: step 3, params and
+    moments bit-equal to the gathered ones, and its next loss within
+    (i)'s tolerance of the ranks' fourth."""
+    from ai4e_tpu_torch.checkpoint import CheckpointManager, resume_trainer
+    from ai4e_tpu_torch.models.vit import create_vit
+    from ai4e_tpu_torch.train import Trainer
+
+    config = mesh_vit_config()
+    trainer = Trainer(create_vit(torch.Generator().manual_seed(SEED + 1),
+                                 device=device, **config), device=device)
+    t0 = time.perf_counter()
+    step = resume_trainer(CheckpointManager(str(out_dir / "mesh_ckpt")),
+                          trainer)
+    resume_s = time.perf_counter() - t0
+    if step != N_MESH_TRAIN_STEPS:
+        raise AssertionError(f"22d (iii): resumed step {step}")
+    want = ranks[0]["train_vit"]["gathered_digests"]
+    got = {"params": {k: params_digest([t])
+                      for k, t in trainer.params.items()},
+           "opt_state": {f"{sk}/{k}": params_digest([t])
+                         for sk, by_name in trainer.opt_state.items()
+                         for k, t in by_name.items()}}
+    for part in ("params", "opt_state"):
+        differ = sorted(k for k in want[part] if got[part].get(k)
+                        != want[part][k])
+        if differ or set(got[part]) != set(want[part]):
+            raise AssertionError(f"22d (iii): resumed {part} differ from "
+                                 f"the gathered ones: {differ[:5]}")
+    x, y = vit_train_batch(config)
+    loss = trainer.train_step(x, y)
+    fourth = [r["train_vit"]["fourth_loss"] for r in ranks]
+    gap = max(abs(loss - f) / abs(f) for f in fourth)
+    if not gap <= MESH_TRAIN_RTOL:
+        raise AssertionError(f"22d (iii): resumed loss {loss} against the "
+                             f"ranks' fourth {fourth}: relative gap {gap}")
+    return {"step": step, "resume_s": resume_s, "next_loss": loss,
+            "ranks_fourth": fourth, "max_relative_gap": gap,
+            "params_bit_equal": len(want["params"]),
+            "moments_bit_equal": len(want["opt_state"])}
+
+
 def mesh_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     """One rank of 22a and 22c (``chip_smoke.py --mesh-rank``)."""
     import torch.distributed as dist
@@ -11452,6 +11672,10 @@ def mesh_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     report["vit_tp2"] = mesh_model_turn(
         "vit", MeshSpec(tp=2), {"name": "vit", "buckets": [N_MESH_IMAGES]},
         rng.random((N_MESH_IMAGES, 224, 224, 3), dtype=np.float32), rank)
+    t0 = time.perf_counter()
+    report["train_vit"] = mesh_train_vit(rank, out_dir)
+    report["train_longcontext"] = mesh_train_longcontext(rank)
+    report["train_s"] = time.perf_counter() - t0
     Path(out_dir, f"mesh_rank{rank}.json").write_text(json.dumps(report))
     dist.destroy_process_group()
 
@@ -11606,16 +11830,67 @@ def phase_mesh_worker() -> dict:
     return report
 
 
+def phase_22d(ranks: list[dict], out_dir: Path, kernels: list[dict],
+              device: str = "cuda") -> dict:
+    """22d's gates that need both ranks' reports: (ii)'s parameters
+    bit-equal on the two ranks after every step and (iii)'s resume in this
+    process; prints the ``mesh 22d`` line and adds (ii)'s launches to the
+    flash rows of the kernels line."""
+    lc = [r["train_longcontext"] for r in ranks]
+    if lc[0]["param_digests"] != lc[1]["param_digests"]:
+        raise AssertionError("22d (ii): the ranks' parameters differ after "
+                             f"a step: {[x['param_digests'] for x in lc]}")
+    if lc[0]["losses"] != lc[1]["losses"]:
+        raise AssertionError(f"22d (ii): the ranks' losses differ: "
+                             f"{[x['losses'] for x in lc]}")
+    resume = mesh_resume_check(ranks, out_dir, device)
+    vit = [r["train_vit"] for r in ranks]
+    report = {
+        "card": CARD.get("smi"),
+        "vit_tp2": {
+            "losses": vit[0]["losses"], "single_losses":
+                vit[0]["single_losses"],
+            "max_relative_gap": vit[0]["max_relative_gap"],
+            "tolerance": MESH_TRAIN_RTOL,
+            "local_shapes": vit[0]["local_shapes"],
+            "moment_shapes": vit[0]["moment_shapes"],
+            "steps": {f"rank{r['rank']}": r["train_vit"]["reports"]
+                      for r in ranks}},
+        "longcontext_dp2": {
+            "losses": lc[0]["losses"], "single_losses":
+                lc[0]["single_losses"],
+            "max_relative_gap": lc[0]["max_relative_gap"],
+            "tolerance": LC_TRAIN_RTOL,
+            "params_bit_equal_after_steps": len(lc[0]["param_digests"]),
+            "launches_a_step": {f"rank{r['rank']}":
+                                r["train_longcontext"]["launches_a_step"]
+                                for r in ranks},
+            "steps": {f"rank{r['rank']}": r["train_longcontext"]["reports"]
+                      for r in ranks}},
+        "resume": resume,
+        "ranks_s": max(r["train_s"] for r in ranks)}
+    log(f"mesh 22d: {json.dumps(report)}")
+    for k in kernels:
+        if k["name"] in ("flash_attention", "flash_attention_bwd"):
+            k["mesh_dp2_train_launches_a_step"] = {
+                f"rank{r['rank']}": [n[k["name"]] for n in
+                                     r["train_longcontext"]["launches_a_step"]]
+                for r in ranks}
+    return report
+
+
 def phase_22(kernels: list[dict]) -> dict:
     """The parallel plane on one card: 22a ring and Ulysses, 22c the MoE at
-    ep = 2 and the ViT at tp = 2, in two gloo ranks; 22b a two-rank sp = 2
-    longcontext worker behind the control plane."""
+    ep = 2 and the ViT at tp = 2, 22d training at tp = 2 and dp = 2, in
+    two gloo ranks, and 22d's resume on one device in this process; 22b a
+    two-rank sp = 2 longcontext worker behind the control plane."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(out_dir / "mesh_ckpt", ignore_errors=True)
     t0 = time.perf_counter()
     ranks = run_mesh_ranks(out_dir)
     rank_s = time.perf_counter() - t0
@@ -11625,7 +11900,8 @@ def phase_22(kernels: list[dict]) -> dict:
         log(f"mesh 22c rank {r['rank']}: moe {json.dumps(r['moe_ep2'])}; "
             f"vit {json.dumps(r['vit_tp2'])}; longcontext "
             f"{json.dumps(r['longcontext_sp2'])}")
-    t0 = time.perf_counter()
+    trained = phase_22d(ranks, out_dir, kernels)
+    resume_done = time.perf_counter()
     served = phase_mesh_worker()
     log(f"mesh 22b: {json.dumps(served)}")
     flash = next(k for k in kernels if k["name"] == "flash_attention")
@@ -11635,8 +11911,10 @@ def phase_22(kernels: list[dict]) -> dict:
         for r in ranks}
     flash["mesh_sp2_ms"] = {turn: v["ms_a_call"]
                             for turn, v in ranks[0]["attention"].items()}
-    report = {"ranks_s": rank_s, "worker_s": time.perf_counter() - t0,
-              "card": CARD["smi"],
+    report = {"ranks_s": rank_s,
+              "worker_s": time.perf_counter() - resume_done,
+              "card": CARD["smi"], "train_ranks_s": trained["ranks_s"],
+              "resume_s": trained["resume"]["resume_s"],
               "eager_against_replay_ms": {
                   turn: (ranks[0][turn]["eager_ms"],
                          ranks[0][turn]["single_replay_ms"])

@@ -167,9 +167,88 @@ def endpoint() -> None:
     worker.runtime.shutdown_followers()
 
 
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def train_model(run: dict, mesh):
+    """The run's model (float32) on the test's converted flax weights, and
+    the rules its trainer shards it by."""
+    from ai4e_tpu_torch import convert
+    from ai4e_tpu_torch.models.seqformer import SeqFormer, attention_for
+    from ai4e_tpu_torch.models.vit import TP_RULES, ViT
+    tp = mesh_shape(mesh)["tp"]
+    params = unflatten(run["params"] + "/")
+    if run["model"] == "vit":
+        model = ViT(**run["kwargs"], dtype=torch.float32,
+                    tp_mesh=mesh if tp > 1 else None)
+        model.load_state_dict(convert.vit_state_dict_from_flax(params))
+        return model, TP_RULES if tp > 1 else None
+    model = SeqFormer(**run["kwargs"], dtype=torch.float32,
+                      attn_fn=attention_for(None, "flash"))
+    model.load_state_dict(convert.seqformer_state_dict_from_flax(params))
+    return model, None
+
+
+def train() -> None:
+    """Each of ``case["train"]``'s runs: a ``Trainer`` over its mesh for
+    its steps on one batch, recording losses, local shapes, each step's
+    parameter and gradient digests and, where the run saves, the gathered
+    state (rank 0) and a ``save_trainer`` checkpoint after that step; then
+    the refusal of each mesh in ``case["refused"]``."""
+    from ai4e_tpu_torch.checkpoint import CheckpointManager, save_trainer
+    from ai4e_tpu_torch.train import Trainer
+
+    for run in case["train"]:
+        name = run["name"]
+        mesh = make_mesh(MeshSpec(**run["mesh"]), device_type="cpu")
+        model, rules = train_model(run, mesh)
+        trainer = Trainer(model, device="cpu", mesh=mesh, tp_rules=rules,
+                          remat=run.get("remat", False))
+        images, labels = inputs[run["batch"]], inputs[run["labels"]]
+        rec = info.setdefault(name, {"losses": [], "params": [], "grads": [],
+                                     "reports": []})
+        rec["coords"] = rank_coords(mesh)
+        rec["split"] = sorted(trainer.split)
+        for step in range(1, run["steps"] + 1):
+            loss, report = trainer.train_step_phases(images, labels)
+            rec["losses"].append(loss)
+            rec["reports"].append(report)
+            rec["params"].append({k: digest(p) for k, p in
+                                  trainer.params.items()})
+            rec["grads"].append({k: digest(p.grad) for k, p in
+                                 trainer.model.named_parameters()})
+            if step == run.get("save_after"):
+                params, state = trainer.gather_state()
+                mgr = CheckpointManager(os.path.join(out_dir, name))
+                rec["saved"] = save_trainer(mgr, trainer, step)
+                if rank == 0:
+                    for key, t in params.items():
+                        out[f"{name}/params/{key}"] = t.numpy().copy()
+                    for sk, by_name in state.items():
+                        for key, t in by_name.items():
+                            out[f"{name}/opt/{sk}/{key}"] = t.numpy().copy()
+        if run.get("odd_batch"):
+            try:
+                trainer.train_step(images[:3], labels[:3])
+            except ValueError as exc:
+                rec["odd_batch"] = str(exc)
+        rec["shapes"] = {k: list(p.shape) for k, p in trainer.params.items()}
+        rec["moment_shapes"] = {
+            k: list(t.shape) for k, t in trainer.opt_state["exp_avg"].items()}
+    for spec in case.get("refused", []):
+        mesh = make_mesh(MeshSpec(**spec), device_type="cpu")
+        try:
+            Trainer(torch.nn.Linear(2, 2), device="cpu", mesh=mesh)
+        except NotImplementedError as exc:
+            info.setdefault("refused", []).append(str(exc))
+
+
 init_distributed("cpu")
 assert dist.get_world_size() == world
-{"parallel": parallel, "models": models}[scenario]()
+{"parallel": parallel, "models": models, "train": train}[scenario]()
 np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
     json.dump(info, fh)

@@ -271,12 +271,6 @@ class TestTrainerAgainstJax:
         for name, w in want.items():
             assert torch.equal(got[name], w), name
 
-    def test_mesh_and_tp_rules_name_the_parallel_plane(self):
-        model = SeqFormer(seq_len=8, input_dim=4, dim=16, depth=1, heads=1)
-        for kwargs in ({"mesh": object()}, {"tp_rules": {}}):
-            with pytest.raises(NotImplementedError, match="A15"):
-                Trainer(model, device="cpu", **kwargs)
-
 
 class TestRecipe:
     def test_longcontext_batch_is_jax_s(self):
