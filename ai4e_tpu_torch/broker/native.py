@@ -155,6 +155,9 @@ class NativeBroker:
         self._registered.add(name)
         self._lib.bc_register_queue(self._handle, name.encode())
 
+    def queue_names(self) -> list[str]:
+        return sorted(self._registered)
+
     def depths(self) -> dict[str, int]:
         return {n: self._lib.bc_depth(self._handle, n.encode())
                 for n in sorted(self._registered)}

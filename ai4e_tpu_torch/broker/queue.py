@@ -136,6 +136,11 @@ class EndpointQueue:
     def __len__(self) -> int:
         return len(self._ready_seqs)
 
+    @property
+    def in_flight(self) -> int:
+        """Messages received and not yet completed or abandoned."""
+        return len(self._leased)
+
     def _wake_one(self) -> None:
         while self._waiters:
             fut = self._waiters.popleft()
@@ -311,6 +316,11 @@ class InMemoryBroker:
     def queue_names(self) -> list[str]:
         with self._queues_lock:
             return sorted(self._queues)
+
+    def depths(self) -> dict[str, int]:
+        """Each queue's ready messages, by name."""
+        with self._queues_lock:
+            return {name: len(q) for name, q in self._queues.items()}
 
     def resolve_queue_name(self, endpoint: str) -> str:
         """Longest registered queue path that prefixes the endpoint path;

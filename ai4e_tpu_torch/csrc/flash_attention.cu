@@ -1480,17 +1480,6 @@ extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
   }
 }
 
-// Dynamic shared memory of one CTA of the bf16 forward at head dim `d`, in
-// bytes (0 for a head dim it does not take): for reports.
-extern "C" int ai4e_flash_attention_fwd_smem(int d) {
-  switch (d) {
-    case 16: return (int)FwdSmem<16>::kBytes;
-    case 32: return (int)FwdSmem<32>::kBytes;
-    case 64: return (int)FwdSmem<64>::kBytes;
-    case 128: return (int)FwdSmem<128>::kBytes;
-    default: return 0;
-  }
-}
 
 // C entry point of the backward, bound with ctypes. q/k/v/out/dout and the
 // gradients dq/dk/dv are device arrays of float32 (`bf16` == 0) or bfloat16
@@ -1547,14 +1536,66 @@ extern "C" int ai4e_flash_attention_bwd(
   }
 }
 
-// Dynamic shared memory of one CTA of the fused bf16 backward at head dim
-// `d`, in bytes (0 for a head dim it does not take): for reports.
-extern "C" int ai4e_flash_attention_bwd_smem(int d) {
+namespace {
+
+// `out` = {dynamic shared memory a CTA as launched, static shared memory,
+// registers a thread, local (spill) bytes a thread, threads a CTA as
+// launched} of `kernel`.
+template <typename Kernel>
+cudaError_t kernel_attrs(Kernel* kernel, size_t dynamic, int threads,
+                         int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = (int)dynamic;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = threads;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t flash_attrs(int which, int* out) {
+  switch (which) {
+    case 0: return kernel_attrs(flash_fwd_wgmma<D>, FwdSmem<D>::kBytes,
+                                kFwdThreads, out);
+    case 1: return kernel_attrs(flash_fwd_f32<D>, F32Tiles<D>::kBytes,
+                                kThreads, out);
+    case 2: return kernel_attrs(flash_bwd_wgmma<D, false>,
+                                BwdSmem<D>::kBytes, kBwdThreads, out);
+    case 3: return kernel_attrs(flash_bwd_wgmma<D, true>,
+                                BwdSmem<D>::kBytes, kBwdThreads, out);
+    case 4: return kernel_attrs(flash_bwd_prep<true, D>, 0, kThreads, out);
+    case 5: return kernel_attrs(flash_bwd_prep<false, D>, 0, kThreads, out);
+    case 6: return kernel_attrs(flash_bwd_dq_convert<D>, 0, 256, out);
+    case 7: return kernel_attrs(flash_bwd_dkv_f32<D>, F32BwdTiles<D>::kBytes,
+                                kThreads, out);
+    case 8: return kernel_attrs(flash_bwd_dq_f32<D>, F32BwdTiles<D>::kBytes,
+                                kThreads, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The attributes of one kernel of this file at head dim `d`, for the
+// validation harness (ops/validate.py): `which` 0 the bf16 forward, 1 the
+// float32 forward, 2 and 3 the fused bf16 backward (dQ's adds in any
+// order, ordered), 4 and 5 the preparation pass (bf16, float32), 6 the dQ
+// conversion, 7 and 8 the float32 dK/dV and dQ kernels. Writes 5 ints to
+// `out`: dynamic shared memory a CTA as launched, static shared memory,
+// registers a thread, local (spill) bytes a thread, threads a CTA as
+// launched. Returns a cudaError_t (0 on success).
+extern "C" int ai4e_flash_attention_attrs(int which, int d, int device,
+                                          int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
   switch (d) {
-    case 16: return (int)BwdSmem<16>::kBytes;
-    case 32: return (int)BwdSmem<32>::kBytes;
-    case 64: return (int)BwdSmem<64>::kBytes;
-    case 128: return (int)BwdSmem<128>::kBytes;
-    default: return 0;
+    case 16: return (int)flash_attrs<16>(which, out);
+    case 32: return (int)flash_attrs<32>(which, out);
+    case 64: return (int)flash_attrs<64>(which, out);
+    case 128: return (int)flash_attrs<128>(which, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

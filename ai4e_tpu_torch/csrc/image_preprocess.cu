@@ -146,3 +146,20 @@ extern "C" int ai4e_normalize_u8(const void* in, void* out, long long n, int c,
       (int)(n % 4), c, affine);
   return (int)cudaGetLastError();
 }
+
+// The attributes of normalize_u8_kernel, for the validation harness
+// (ops/validate.py). Writes 5 ints to `out`: dynamic shared memory a CTA as
+// launched (none), static shared memory, registers a thread, local (spill)
+// bytes a thread, threads a CTA. Returns a cudaError_t (0 on success).
+extern "C" int ai4e_normalize_u8_attrs(int device, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, normalize_u8_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = 0;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = kThreads;
+  return 0;
+}

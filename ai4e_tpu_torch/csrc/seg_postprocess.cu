@@ -161,3 +161,31 @@ extern "C" int ai4e_seg_postprocess(const void* logits, void* classmap,
              : launch<float>(logits, classmap, counts, batch, hw, c, s);
   return (int)err;
 }
+
+// The attributes of the kernel that `ai4e_seg_postprocess` launches for `c`
+// classes of float32 (`bf16` == 0) or bfloat16 logits, for the validation
+// harness (ops/validate.py). Writes 5 ints to `out`: dynamic shared memory
+// a CTA as launched (the block's histogram), static shared memory,
+// registers a thread, local (spill) bytes a thread, threads a CTA. Returns
+// a cudaError_t (0 on success).
+extern "C" int ai4e_seg_postprocess_attrs(int c, int bf16, int device,
+                                          int* out) {
+  if (c < 1 || c > 255) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (c == 4) {
+    err = bf16 ? cudaFuncGetAttributes(&a, seg_postprocess_kernel<uint16_t, 4>)
+               : cudaFuncGetAttributes(&a, seg_postprocess_kernel<float, 4>);
+  } else {
+    err = bf16 ? cudaFuncGetAttributes(&a, seg_postprocess_kernel<uint16_t, 0>)
+               : cudaFuncGetAttributes(&a, seg_postprocess_kernel<float, 0>);
+  }
+  if (err != cudaSuccess) return (int)err;
+  out[0] = c * (int)sizeof(int);
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = kThreads;
+  return 0;
+}

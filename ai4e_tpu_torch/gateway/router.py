@@ -1078,3 +1078,7 @@ class Gateway:
 
     async def _cleanup(self, _app) -> None:
         await self._sessions.close()
+
+    def run(self, host: str = "0.0.0.0", port: int = 8080) -> None:
+        """Serve the gateway's app until SIGINT or SIGTERM."""
+        web.run_app(self.app, host=host, port=port)

@@ -1,8 +1,8 @@
 from .registry import (DEFAULT_REGISTRY, Counter, Gauge, Histogram,
-                       MetricsRegistry)
+                       MetricsRegistry, Timer)
 from .reporter import (ProcessingCounters, ProcessingReporterClient,
                        RequestReporterService)
 
 __all__ = ["DEFAULT_REGISTRY", "Counter", "Gauge", "Histogram",
            "MetricsRegistry", "ProcessingCounters",
-           "ProcessingReporterClient", "RequestReporterService"]
+           "ProcessingReporterClient", "RequestReporterService", "Timer"]

@@ -93,6 +93,22 @@ class Histogram:
                     break
             self._sums[key] += value
 
+    def quantile(self, q: float, **labels: str) -> float:
+        """The ``q`` quantile, approximated by the upper edge of the bucket
+        in which it falls (0.0 before any observation)."""
+        key = _label_key(labels)
+        with self._lock:
+            counts = self._counts.get(key)
+            if not counts:
+                return 0.0
+            target = q * sum(counts)
+            run = 0
+            for i, c in enumerate(counts):
+                run += c
+                if run >= target:
+                    return self.buckets[i]
+            return self.buckets[-1]
+
     def collect(self):
         with self._lock:
             out = []
@@ -104,6 +120,22 @@ class Histogram:
                     data["exemplars"] = dict(exemplars)
                 out.append(("histogram", self.name, dict(key), data))
             return out
+
+
+class Timer:
+    """A ``with`` block's wall seconds observed into ``hist`` under
+    ``labels``."""
+
+    def __init__(self, hist: Histogram, **labels: str):
+        self.hist, self.labels = hist, labels
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.hist.observe(time.perf_counter() - self._t0, **self.labels)
+        return False
 
 
 class MetricsRegistry:

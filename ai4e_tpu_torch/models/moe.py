@@ -33,9 +33,14 @@ over the mesh's ``ep`` axis (``parallel.sharding.shard_module_``), so ep
 rank r holds experts [r E/ep, (r+1) E/ep). The router and attention
 replicate. Each rank computes only its experts' tokens and zeros for the
 rest, and the combine adds the ranks' outputs over ep
-(``comm.all_reduce_sum``, one (B, S, D) float32 activation a layer, as
+(``comm.reduce_from``, one (B, S, D) float32 activation a layer, as
 XLA's psum): every token has exactly one nonzero term, so the sum is the
-single device's value exactly. Under ring or Ulysses attention the
+single device's value exactly. In training the layer's input enters
+through ``comm.copy_to``, so the gradient into the attention and the
+residual stream sums every rank's experts (one more all-reduce a layer,
+backward only); a rank's router gradient reaches only its own experts'
+gates, and the trainer sums it over ep (``partial_grad_axes``); the
+experts' gradients stay on their rank. Under ring or Ulysses attention the
 sequence shards over ``sp`` as the SeqFormer's does (``sequence_chunk``,
 ``mean_pool``).
 """
@@ -55,7 +60,8 @@ from ..parallel.sharding import axis_group, axis_index, axis_size
 from .layers import (TRUNCATED_STD, Dense, Embed, LayerNorm, flax_normal_,
                      gelu)
 from .seqformer import (SeqAttention, attention_for, init_flax_like_,
-                        mean_pool, sequence_chunk, sequence_mesh)
+                        mean_pool, sequence_chunk, sequence_mesh,
+                        sequence_partial)
 
 #: Param-path rules of the JAX package's expert sharding: expert-major
 #: tensors over the mesh's ``ep`` axis.
@@ -113,6 +119,8 @@ class MoEFFN(nn.Module):
                                              dtype=pdt))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.ep_mesh is not None:  # x's gradient: every rank's experts'
+            x = comm.copy_to(x, axis_group(self.ep_mesh, "ep"))
         gates = torch.softmax(self.router(x.float()), dim=-1)  # (B, S, E)
         top_gate = gates.amax(dim=-1)
         top = gates.argmax(dim=-1)  # the first index among ties
@@ -141,7 +149,7 @@ class MoEFFN(nn.Module):
             raise ValueError(f"unknown MoE dispatch {self.dispatch!r}; "
                              "expected 'dense' or 'capacity'")
         if self.ep_mesh is not None:
-            y = comm.all_reduce_sum(y, axis_group(self.ep_mesh, "ep"))
+            y = comm.reduce_from(y, axis_group(self.ep_mesh, "ep"))
         return y.to(x.dtype), top
 
     def capacity(self, seq_len: int) -> tuple[int, int]:
@@ -246,6 +254,18 @@ class MoEClassifier(nn.Module):
         for block in self.blocks:
             h, _ = block(h)
         return self.head(self.norm(mean_pool(h, self.seq_mesh, self.seq_len)))
+
+    def partial_grad_axes(self) -> dict[str, tuple[str, ...]]:
+        """The mesh axes over which each parameter's gradient on a rank is
+        only that rank's part (``Trainer`` sums it over them): under
+        sequence parallelism every parameter before the pool; over ep each
+        router, whose gates reach only this rank's experts."""
+        axes = dict(sequence_partial(self))
+        if self.blocks[0].moe.ep_mesh is not None:
+            for name, _ in self.named_parameters():
+                if ".moe.router." in name:
+                    axes[name] = axes.get(name, ()) + ("ep",)
+        return axes
 
 
 def init_moe_flax_like_(model: MoEClassifier,

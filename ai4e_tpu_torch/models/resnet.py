@@ -179,3 +179,17 @@ def create_resnet(generator: torch.Generator | None = None,
                    width=width, dtype=dtype, param_dtype=param_dtype)
     init_flax_like_(model, generator)
     return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def create_resnet50(generator: torch.Generator | None = None,
+                    num_classes: int = 1000,
+                    dtype: torch.dtype = torch.bfloat16, device=None,
+                    param_dtype: torch.dtype | None = None) -> ResNet:
+    """ResNet-50 (stages 3, 4, 6, 3 at width 64), the JAX package's
+    ``create_resnet50``: flax-like random weights from ``generator``
+    (default: seed 0) on ``device`` (default ``cuda``). JAX's returns the
+    module and its variables; here the module holds them, and it takes any
+    image size."""
+    return create_resnet(generator, stage_sizes=(3, 4, 6, 3),
+                         num_classes=num_classes, width=64, dtype=dtype,
+                         device=device, param_dtype=param_dtype)

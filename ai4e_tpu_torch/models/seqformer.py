@@ -32,9 +32,11 @@ Sequence parallelism: with ring or Ulysses attention (``seq_mesh``) each sp
 rank embeds and runs only its contiguous chunk of the sequence (its slice
 of ``pos_emb`` too); every layer but attention is per token, and the mean
 pool sums the rank's tokens in float32, adds the chunks' sums over the sp
-axis (``comm.all_reduce_sum``) and divides by S, so every rank of the axis
+axis (``comm.reduce_from``) and divides by S, so every rank of the axis
 ends with the same logits. JAX reaches the same function by XLA's
-resharding around its shard_map.
+resharding around its shard_map. In training a rank's gradients of the
+layers before the pool hold only its chunk's part (``partial_grad_axes``),
+and the trainer sums them over sp.
 
 ``SeqFormerLM`` is the causal token LM of the streaming path
 (``runtime/kvcache.py``), in float32 as in JAX, with two entry points:
@@ -84,11 +86,12 @@ def sequence_chunk(x: torch.Tensor, pos: torch.Tensor, seq_mesh):
 def mean_pool(h: torch.Tensor, seq_mesh, seq_len: int) -> torch.Tensor:
     """``h.mean(axis=1)`` as jnp takes it (a float32 sum, the result in
     h's type); over ``seq_mesh`` the chunks' float32 sums are added over the
-    sp axis first."""
+    sp axis first (``comm.reduce_from``: under autograd each rank's chunk
+    gets the whole gradient of the sum)."""
     if seq_mesh is None:
         return h.float().mean(dim=1).to(h.dtype)
-    total = comm.all_reduce_sum(h.float().sum(dim=1),
-                                axis_group(seq_mesh, "sp"))
+    total = comm.reduce_from(h.float().sum(dim=1),
+                             axis_group(seq_mesh, "sp"))
     return (total / seq_len).to(h.dtype)
 
 
@@ -165,6 +168,23 @@ class SeqFormer(nn.Module):
         for block in self.blocks:
             h = block(h)
         return self.head(self.norm(mean_pool(h, self.seq_mesh, self.seq_len)))
+
+    def partial_grad_axes(self) -> dict[str, tuple[str, ...]]:
+        """The mesh axes over which each parameter's gradient on a rank is
+        only that rank's part (``Trainer`` sums it over them): under
+        sequence parallelism every parameter before the pool, since a rank
+        runs only its chunk of the sequence."""
+        return sequence_partial(self)
+
+
+def sequence_partial(model: nn.Module) -> dict[str, tuple[str, ...]]:
+    """``partial_grad_axes`` of a sequence classifier whose ``norm`` and
+    ``head`` follow the pool: ``("sp",)`` for every other parameter where
+    the model shards its sequence, else nothing."""
+    if model.seq_mesh is None:
+        return {}
+    return {name: ("sp",) for name, _ in model.named_parameters()
+            if not name.startswith(("norm.", "head."))}
 
 
 def init_flax_like_(model: nn.Module, generator: torch.Generator) -> None:

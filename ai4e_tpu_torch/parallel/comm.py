@@ -17,13 +17,16 @@ The port's models and runtimes call these and nothing of
 calling thread (a staged collective waits for its copies, so its time is
 whole; an NCCL one is enqueued and its time is the enqueue).
 
-Training adds four collectives with an explicit backward, each a
-``torch.autograd.Function`` (``copy_to``, ``reduce_from``), or run outside
-autograd (``reduce_gradients_``, ``gather_along_spec``): a megatron tp
-layer takes its replicated input through ``copy_to`` (identity forward,
-sum over the group backward) and hands its row-split partial product to
-``reduce_from`` (sum forward, identity backward); the trainer averages its
-gradients over the data axes in one flat buffer a step; a checkpoint
+Training adds collectives with an explicit backward, each a
+``torch.autograd.Function`` (``copy_to``, ``reduce_from``, ``all_to_all``
+under autograd), or run outside autograd (``reduce_gradients_``,
+``gather_along_spec``): a megatron tp layer, and the MoE layer over ep,
+takes its replicated input through ``copy_to`` (identity forward, sum over
+the group backward) and hands its partial output to ``reduce_from`` (sum
+forward, identity backward), as does the SeqFormer's pool over sp;
+Ulysses' exchange takes the inverse exchange backward; the trainer sums
+the gradients a rank holds only a part of over sp or ep and averages every
+gradient over the data axes, one flat buffer a group a step; a checkpoint
 gathers whole parameters and optimizer moments from their shards.
 
 Control traffic — the multihost runtime's descriptor broadcast, its poison
@@ -117,7 +120,15 @@ def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``all_to_all_single`` over ``group``: chunk i of ``x``'s dim 0 goes
-    to the group's rank i; the result's chunk i came from rank i."""
+    to the group's rank i; the result's chunk i came from rank i. Under
+    autograd (``_AllToAll``) the gradient takes the inverse exchange, the
+    same call on the result's gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, group)
+    return _all_to_all(x, group)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -186,6 +197,21 @@ def all_gather(x: torch.Tensor, group) -> list[torch.Tensor]:
     _count((1 + len(out)) * x.nbytes if staged else 0,
            1 + len(out) if staged else 0, t0)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` forward; backward, the inverse exchange: equal chunks
+    make the exchange its own inverse (rank j's chunk i went to rank i's
+    chunk j)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
 
 
 class _CopyTo(torch.autograd.Function):

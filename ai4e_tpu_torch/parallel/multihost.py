@@ -196,6 +196,19 @@ class MultihostRuntime:
     def __getattr__(self, name: str):
         return getattr(self.runtime, name)
 
+    # Pass-throughs, so that the batcher treats this as a ModelRuntime.
+    @property
+    def models(self):
+        return self.runtime.models
+
+    @property
+    def mesh(self):
+        return self.runtime.mesh
+
+    @property
+    def data_axis_size(self) -> int:
+        return self.runtime.data_axis_size
+
     def supports_split_phases(self) -> bool:
         return process_count() == 1 and self.runtime.supports_split_phases()
 

@@ -18,10 +18,16 @@ of the output.
   and all-false for a later rank's. So a causal ring runs the own chunk
   causal, the earlier chunks full, and skips the later ones: rank r
   launches the flash forward r + 1 times a call, n times when not causal.
+  Under autograd the ring is ``_RingAttention``: its backward runs the
+  flash backward once a block the forward ran, from the merged output and
+  logsumexp, with each block's dk and dv travelling the ring with it back
+  to the rank that owns the block.
 - **Ulysses** (``ulysses_attention``): one ``all_to_all`` turns the
   sequence chunk into a head chunk (B, H/n, S, D), the flash forward
   attends over the whole sequence on 1/n of the heads, and a second turns
-  it back. It needs ``H % n == 0``.
+  it back. It needs ``H % n == 0``. It trains through the exchanges'
+  autograd form (``comm.all_to_all``: the inverse exchange backward) and
+  the flash attention's own.
 
 ``reference_attention`` is the plain single-device oracle.
 """
@@ -65,17 +71,37 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    axis_name: str = "sp") -> torch.Tensor:
     """Sequence-parallel attention over ``mesh``'s ``axis_name``: q/k/v are
     this rank's chunks (B, H, S/n, D), chunk i on the axis's rank i; the
-    result is this rank's chunk of the output, in q's dtype."""
+    result is this rank's chunk of the output, in q's dtype.
+    Differentiable in q, k and v (``_RingAttention``)."""
     _need_mesh(mesh, "ring")
     n = axis_size(mesh, axis_name)
     me = axis_index(mesh, axis_name)
     group = axis_group(mesh, axis_name)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _RingAttention.apply(q, k, v, n, me, group, causal)
+    return _ring_forward(q, k, v, n, me, group, causal)[0]
+
+
+def _ring_blocks(n: int, me: int, causal: bool):
+    """``(step, src, causal block)`` of each hop: the chunk this rank holds
+    after ``step`` hops is rank ``src``'s; ``causal block`` is None for a
+    chunk a causal ring skips (a later rank's)."""
+    for step in range(n):
+        src = (me - step) % n
+        yield step, src, (None if causal and src > me
+                          else causal and src == me)
+
+
+def _ring_forward(q, k, v, n: int, me: int, group, causal: bool):
+    """The ring's output in q's dtype and its float32 logsumexp (B, H,
+    S/n): one flash forward a block with ``return_lse``, merged by the
+    logsumexp in float32."""
     kv = torch.stack((k, v))  # one message a hop
     out = lse = None
-    for step in range(n):
-        src = (me - step) % n  # whose chunk this rank holds after `step` hops
-        if not (causal and src > me):
-            o_blk, lse_blk = _flash(q, kv[0], kv[1], causal and src == me)
+    for step, _, block_causal in _ring_blocks(n, me, causal):
+        if block_causal is not None:
+            o_blk, lse_blk = _flash(q, kv[0], kv[1], block_causal)
             o_blk = o_blk.float()
             if out is None:
                 out, lse = o_blk, lse_blk
@@ -86,7 +112,62 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lse = new
         if step + 1 < n:
             kv = comm.ring_shift(kv, group)
-    return out.to(q.dtype)
+    return out.to(q.dtype), lse.contiguous()
+
+
+def _shift_with_grads(kv: torch.Tensor, dkv: torch.Tensor, group):
+    """One hop of a K/V block and its float32 gradient sums, as one
+    message (their bytes side by side)."""
+    a = kv.contiguous().reshape(-1).view(torch.uint8)
+    b = dkv.reshape(-1).view(torch.uint8)
+    both = comm.ring_shift(torch.cat((a, b)), group)
+    return (both[:a.numel()].view(kv.dtype).view(kv.shape),
+            both[a.numel():].view(dkv.dtype).view(dkv.shape))
+
+
+class _RingAttention(torch.autograd.Function):
+    """The ring under autograd. Forward: ``_ring_forward``, saving q, k, v,
+    the merged output and the merged lse. Backward: each block's softmax
+    is the merged one restricted to its keys, ``exp(s_blk - lse)``, and
+    Delta = rowsum(dO * O) is the merged output's; so each block the
+    forward ran takes one ``flash_attention_bwd(q, k_blk, v_blk, out, lse,
+    do, causal and src == me)`` (the fused kernel on the card; its
+    preparation pass computes Delta from ``out`` and ``do``, the same for
+    every block), and the blocks a causal ring skipped are skipped again.
+    dq adds up on the rank; each block's dk and dv add up in float32 as
+    the block travels the ring again, and one last hop hands them to the
+    rank that owns it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n, me, group, causal):
+        out, lse = _ring_forward(q, k, v, n, me, group, causal)
+        ctx.ring = (n, me, group, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from ..ops.flash_attention import flash_attention_bwd
+
+        q, k, v, out, lse = ctx.saved_tensors
+        n, me, group, causal = ctx.ring
+        do = do.to(q.dtype)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        kv = torch.stack((k, v))
+        dkv = torch.zeros(kv.shape, dtype=torch.float32, device=q.device)
+        for step, _, block_causal in _ring_blocks(n, me, causal):
+            if block_causal is not None:
+                dq_b, dk_b, dv_b = flash_attention_bwd(
+                    q, kv[0], kv[1], out, lse, do, block_causal)
+                dq += dq_b
+                dkv[0] += dk_b
+                dkv[1] += dv_b
+            if step + 1 < n:
+                kv, dkv = _shift_with_grads(kv, dkv, group)
+        if n > 1:  # the block now held is the next rank's: hand it over
+            dkv = comm.ring_shift(dkv, group)
+        return (dq.to(q.dtype), dkv[0].to(k.dtype), dkv[1].to(v.dtype),
+                None, None, None, None)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

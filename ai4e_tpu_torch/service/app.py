@@ -353,9 +353,29 @@ class APIService:
 
     # -- lifecycle ---------------------------------------------------------
 
+    def begin_draining(self) -> None:
+        """Refuse new requests (503 + ``X-Draining``) from now on; the
+        tasks in flight run on."""
+        log.warning("draining: refusing new requests")
+        self.is_terminating = True
+
     async def drain(self, timeout: float = 30.0) -> None:
         """Refuse new work, then wait for in-flight async tasks."""
         self.is_terminating = True
         if self._background:
             await asyncio.wait(self._background, timeout=timeout)
         self.executor.shutdown(wait=False)
+
+    def run(self, host: str = "0.0.0.0", port: int = 8081,
+            drain_timeout: float = 30.0) -> None:
+        """Serve until SIGINT or SIGTERM: aiohttp's runner owns the signal
+        and the shutdown, and the app's ``on_shutdown`` hook drains the
+        tasks in flight (``drain(drain_timeout)``) before the process
+        exits."""
+
+        async def _on_shutdown(_app) -> None:
+            await self.drain(drain_timeout)
+
+        self.app.on_shutdown.append(_on_shutdown)
+        web.run_app(self.app, host=host, port=port,
+                    shutdown_timeout=drain_timeout)

@@ -18,6 +18,7 @@ import asyncio
 import inspect
 import json
 import logging
+from urllib.parse import urlparse
 
 import aiohttp
 
@@ -429,3 +430,13 @@ class DirectResultStore:
             res = close()
             if inspect.isawaitable(res):
                 await res
+
+
+def next_endpoint_from(current_endpoint: str, version: str, organization: str,
+                       api: str) -> str:
+    """The next pipeline stage's endpoint from the current one:
+    ``scheme://host/{version}/{organization}/{api}``, or the path alone
+    where ``current_endpoint`` has no scheme."""
+    parsed = urlparse(current_endpoint)
+    base = f"{parsed.scheme}://{parsed.netloc}" if parsed.scheme else ""
+    return f"{base}/{version}/{organization}/{api}"

@@ -207,6 +207,13 @@ class NativeTaskStore(StoreSideEffects):
             raise TaskNotFound(task_id)
         return task
 
+    def get_original_body(self, task_id: str) -> bytes:
+        """The body the task was created with (b"" for none or an unknown
+        task)."""
+        blob = self._consume(self._lib.tsc_get_original(
+            self._handle, task_id.encode()))
+        return blob.body if blob is not None else b""
+
     # -- results -------------------------------------------------------------
 
     def set_result(self, task_id: str, result: bytes,
@@ -269,6 +276,10 @@ class NativeTaskStore(StoreSideEffects):
             if tid:
                 bucket[status] += 1
         return out
+
+    def snapshot(self) -> list[APITask]:
+        """Every task the store holds."""
+        return [self.get(tid) for _, _, tid in self._sets_rows() if tid]
 
     def unfinished_tasks(self) -> list[APITask]:
         """Tasks not yet terminal, each with its original body restored."""

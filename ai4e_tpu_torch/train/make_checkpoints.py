@@ -127,6 +127,14 @@ def detector_batch(rng: np.random.Generator, batch: int, size: int):
     return np.clip(img, 0, 1), targets
 
 
+def detector_batches(seed: int, batch: int, size: int, steps: int):
+    """``train_megadetector``'s training batches, in order: ``steps`` draws
+    of ``detector_batch`` from one generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        yield detector_batch(rng, batch, size)
+
+
 def species_batch(rng: np.random.Generator, batch: int, size: int):
     """8 classes = 4 coat colours x 2 stripe orientations."""
     cls = rng.integers(0, 8, batch)
@@ -385,15 +393,25 @@ def train_megadetector(steps: int = 150, image_size: int = 128,
     ``seed + 1`` (about 48 objects: one batch's dozen swings the gate on
     numerics alone). ``kwargs`` carries ``image_size``: the detector serves
     at the size it trained at."""
+    return train_megadetector_on(
+        detector_batches(seed, batch, image_size, steps), steps,
+        image_size, batch, seed, widths, device)
+
+
+def train_megadetector_on(batches, steps: int = 150, image_size: int = 128,
+                          batch: int = 8, seed: int = 0,
+                          widths=(64, 128, 256), device=None) -> dict:
+    """``train_megadetector`` on the training batches ``batches`` (an
+    iterator): its own are ``detector_batches(seed, batch, image_size,
+    steps)``, which a caller may draw ahead elsewhere, so that the host's
+    512 px scenes need not hold up the steps."""
     from ..models import create_detector, decode_detections
 
     device = resolve_device(device)
     model = create_detector(generator=torch.Generator().manual_seed(seed),
                             widths=tuple(widths), param_dtype=torch.float32,
                             device=device)
-    rng = np.random.default_rng(seed)
-    record = _train(model, "megadetector", steps,
-                    lambda: detector_batch(rng, batch, image_size),
+    record = _train(model, "megadetector", steps, lambda: next(batches),
                     centernet_loss, 5e-4, device)
     eval_rng = np.random.default_rng(seed + 1)
     hits = total = 0
@@ -642,6 +660,16 @@ FAST = {"landcover": {"steps": 60}, "landcover128": {"steps": 60},
                         "heads": 2, "vocab_size": 512, "batch": 16},
         "moe": {"steps": 160, "seq_len": 128, "dim": 32, "heads": 1,
                 "num_experts": 4, "vocab_size": 256, "batch": 16}}
+
+
+def train_full(name: str, out_dir: str, **overrides) -> dict:
+    """Train ``name`` at its deployed size (``FULL_OVERRIDES``) and record
+    it in ``out_dir/MANIFEST.json``, the one entry point for a servable
+    checkpoint outside CI (the serving side reads ``image_size`` from the
+    manifest). ``overrides`` (``device``, ``steps``, ``min_eval``, ...) go
+    over the table's; returns the manifest entry."""
+    return make_checkpoint(name, out_dir,
+                           **{**FULL_OVERRIDES.get(name, {}), **overrides})
 
 
 def main(argv=None) -> None:

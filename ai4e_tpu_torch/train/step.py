@@ -21,9 +21,19 @@ the collectives written out where XLA inserts them:
   flat buffer a step, the loss riding in it): for a loss that is a mean
   over equal per-row terms, as ``cross_entropy_loss`` and
   ``segmentation_loss`` are, that is the gradient of the mean over the
-  global batch, and the returned loss is that mean on every rank.
-
-sp and ep meshes do not train (ROADMAP A15.2).
+  global batch, and the returned loss is that mean on every rank;
+- over sp and ep the rows are the same on every rank (the data axes are
+  dp x fsdp alone, as JAX's ``P(("dp", "fsdp"))``), and some replicated
+  parameters get on a rank only that rank's part of their gradient: an sp
+  rank ran only its chunk of the sequence, an ep rank's router gates
+  reached only its own experts. The model names them
+  (``partial_grad_axes``: the SeqFormer and the MoE classifier), and
+  before the data average each such axis takes one all-reduce of one flat
+  buffer a step: those gradients summed, every other replicated
+  parameter's taken from the axis's rank 0 (the others add zeros), so a
+  replicated parameter stays bit-equal on every rank even where a kernel
+  adds in any order (the flash backward's dQ). Parameters split over the
+  axis (the experts over ep) keep their own gradients.
 """
 
 from __future__ import annotations
@@ -39,13 +49,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..parallel import comm
-from ..parallel.sharding import (data_axis_size, data_group, mesh_shape,
+from ..parallel.sharding import (_axes, axis_group, axis_index,
+                                 data_axis_size, data_group, mesh_shape,
                                  rank_device, row_range, shard_module_,
                                  shard_tensors, unshard_tensors)
 
-#: Why an sp or ep mesh raises here.
-SP_EP_TRAINING = ("is not ported (ROADMAP A15.2: training under sp and ep; "
-                  "JAX's tests cover neither)")
+#: Replicated mesh axes on which a rank may hold part of a gradient.
+MODEL_AXES = ("sp", "ep")
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -98,11 +108,6 @@ class Trainer:
     def __init__(self, model: nn.Module, loss_fn: Callable = cross_entropy_loss,
                  optimizer: Callable | None = None, remat: bool = False,
                  device=None, mesh=None, tp_rules: dict | None = None):
-        shape = mesh_shape(mesh)
-        if shape["sp"] > 1 or shape["ep"] > 1:
-            raise NotImplementedError(
-                f"training over a mesh with sp={shape['sp']}, "
-                f"ep={shape['ep']} {SP_EP_TRAINING}")
         if tp_rules is not None and mesh is None:
             raise ValueError("tp_rules shard over a mesh: pass mesh=")
         self.mesh = mesh
@@ -122,6 +127,16 @@ class Trainer:
         self.optimizer = (optimizer or adamw)(self.model.parameters())
         self._data_group = data_group(mesh) if mesh is not None else None
         self._data_size = data_axis_size(mesh)
+        partial = getattr(model, "partial_grad_axes", dict)()
+        shape = mesh_shape(mesh)
+        #: ``(axis, group, this rank is the axis's 0, {param: summed})``
+        #: of each replicated axis of size > 1 (``_sync_model_axes``).
+        self._model_axes = [
+            (axis, axis_group(mesh, axis), axis_index(mesh, axis) == 0,
+             {name: axis in partial.get(name, ())
+              for name, _ in self.model.named_parameters()
+              if axis not in self._split_axes(name)})
+            for axis in MODEL_AXES if shape[axis] > 1]
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         if self.remat:
@@ -150,6 +165,7 @@ class Trainer:
         marks.append(self._mark())
         loss.backward()
         loss = loss.detach()
+        self._sync_model_axes()
         if self._data_group is not None:
             loss = self._average_gradients(loss)
         marks.append(self._mark())
@@ -162,6 +178,27 @@ class Trainer:
             after = comm.counters()
             report.update({f"comm_{k}": after[k] - before[k] for k in after})
         return value, report
+
+    def _split_axes(self, name: str) -> set[str]:
+        """The mesh axes parameter ``name`` is split over."""
+        spec = self.split.get(name, ((),))[0]
+        return {a for entry in spec if entry for a in _axes(entry)}
+
+    def _sync_model_axes(self) -> None:
+        """Over each replicated axis of size > 1, one all-reduce: the
+        gradients a rank holds a part of summed, every other replicated
+        one set to the axis's rank 0's (the other ranks add zeros)."""
+        params = dict(self.model.named_parameters())
+        for _, group, first, summed in self._model_axes:
+            grads = []
+            for name, is_summed in summed.items():
+                p = params[name]
+                if p.grad is None:  # unused here: a zero, as on every rank
+                    p.grad = torch.zeros_like(p)
+                if not (is_summed or first):
+                    p.grad.zero_()
+                grads.append(p.grad)
+            comm.reduce_gradients_(grads, group)
 
     def _average_gradients(self, loss: torch.Tensor) -> torch.Tensor:
         """Average every gradient and ``loss`` over the data axes in one

@@ -15,7 +15,12 @@ Phases, each of which raises on failure:
    also held and timed on the served model's own layout, strided views of
    a fused (B, S, 3, H, D) projection, and timed with lse at the training
    shape; its registers, spills and shared memory come from the build
-   log;
+   log. First the kernel harness (``ops.validate.validate_kernels``):
+   every kernel, the flash backward too, against a float64 oracle at the
+   JAX harness's shapes, each shared-memory mirror equal to the kernel's
+   own report at every head dim, registers x threads within an SM; a
+   row that is not ok fails the phase, and it prints a ``validate: {...}``
+   line (each kernel row of the kernels line carries its rows);
 4. end to end: the land-cover worker of ``deploy/specs/models.json`` (tile
    256, widths 64..512, buckets 1/16/64, random weights from seed 0) built
    and served by the same ``build_worker``/``serve`` code that
@@ -124,9 +129,12 @@ Phases, each of which raises on failure:
    bucket's replay bit-equal to eager, timed;
 10. the deploy spec as written, from the port's own checkpoints: (a) the
    spec's three image recipes (``landcover``: UNet 64/128/256/512 at tile
-   64; ``megadetector`` at 512 px, 300 steps; ``species`` at 224 px; the
-   two the spec does not serve, ``landcover128`` and ``species_fine``, are
-   no longer trained here) trained on the card, each to
+   64; ``megadetector`` at 512 px, 300 steps, its batches the recipe's
+   own draws made ahead by a child process from the build on
+   (``DetectorBatchesAhead``, ``train_megadetector_on``); ``species`` at
+   224 px; the two the spec
+   does not serve, ``landcover128`` and ``species_fine``, are no longer
+   trained here) trained on the card, each to
    ``make_checkpoints.MIN_EVAL`` (0.85) or the phase raises, with its step
    ms split into forward, backward and optimizer, its peak memory, eval
    and the host's share of the loop spent drawing batches, saved by
@@ -268,9 +276,11 @@ Phases, each of which raises on failure:
    per result at or over the threshold (none for land cover) holding the
    bytes ``GET /v1/taskstore/result`` serves, the ledger's per-hop
    p50/p95, and the blobs gone after eviction; (c) land cover (4 sync +
-   64 async) behind a control plane on the C++ store and broker, then on
-   the Python ones, in front of one worker: answers as phase 10b,
-   requests/s and task p50/p95, each kernel launched; (d) land cover behind a control plane whose reaper
+   64 async) behind a control plane on the C++ store and broker (the turn
+   on the Python ones beside it was cut for the script's time), in front
+   of one
+   worker: answers as phase 10b, requests/s and task p50/p95, each kernel
+   launched; (d) land cover behind a control plane whose reaper
    rescues tasks running 3 s and whose broker dead-letters after 3
    deliveries: the worker SIGKILLed while every unfinished task is
    running, 8 tasks sent while it is down, its restart on the same port,
@@ -348,9 +358,10 @@ Phases, each of which raises on failure:
    all placed on A; A killed, deadline tasks go to B; A restarted, one
    ``probe`` stamp; (c) deploy/specs/routes.json as written on a 4-shard
    store with orchestration (a ``ShardedAutoscaleController`` a
-   ``autoscale`` route) against the raw-depth scaler on one store, the
-   same backlog: the first scale-up, ``published``->``popped`` p50/p95,
-   no failed task. Normalize and argmax launched in every worker start
+   ``autoscale`` route), a backlog until one meets a tick (the raw-depth
+   turn on one store beside it was cut for the script's time): the first
+   scale-up,
+   ``published``->``popped`` p50/p95, no failed task. Normalize and argmax launched in every worker start
    that served. It prints ``19a``, ``19b``, ``scale 19c`` and ``phase 19``
    lines.
 20. tenancy and pipeline DAGs: (a) on phase 19's workers, a control plane
@@ -416,9 +427,19 @@ Phases, each of which raises on failure:
    ranks, then this process resumes the checkpoint into a one-device
    ``Trainer`` on the card: step 3, params and moments bit-equal to the
    gathered ones, the next loss within ``MESH_TRAIN_RTOL`` of the ranks'
-   fourth. It prints ``mesh 22a``, ``mesh 22c``, ``mesh 22d``, ``mesh
-   22b`` and ``mesh`` lines and adds the ring's launches and ms and (d)'s
-   launches a step to the flash rows;
+   fourth; (e) training under sp and ep, in the same two ranks after
+   (d): longcontext at its deployed width at sp = 2, three steps with ring
+   and three with Ulysses attention on 8 seeded sequences (the whole
+   batch on each rank), and the deployed MoE (capacity dispatch) at
+   ep = 2, three steps on 16, every turn and its reference under the
+   deterministic flag: the replicated parameters bit-equal on both
+   ranks after every step, losses within ``SP_TRAIN_RTOL`` (longcontext)
+   and ``EP_TRAIN_RTOL`` (the MoE) of one device's on the whole batch,
+   each rank's flash forward and backward launches and collectives a step
+   as predicted (``SP_EP_LAUNCHES``, ``SP_EP_CALLS``), host-copy bytes and
+   step ms recorded. It prints ``mesh 22a``, ``mesh 22c``, ``mesh 22d``,
+   ``mesh 22e``, ``mesh 22b`` and ``mesh`` lines and adds the ring's
+   launches and ms and (d)'s and (e)'s launches a step to the flash rows;
 23. the multi-process rig (no model, no kernel: its worker is the CPU
    echo worker, as in JAX's), ``python -m ai4e_tpu_torch.rig up`` as a
    child process on a block of 100 free ports, each run under its own
@@ -431,13 +452,31 @@ Phases, each of which raises on failure:
    --rollout bad-canary --rollout-steps 25,50,100``): rolled back before
    the canary's share passes 50%, ``rollback`` stamps on the marker
    task's ledger, the rollout gate ok. It prints ``rig 23a``, ``rig 23b``
-   and ``rig`` lines.
+   and ``rig`` lines;
+24. the examples on the port (``python -m ai4e_tpu_torch.examples.<name>``)
+   as child processes, the three parts at once: (a) the echo service, one
+   sync and one async request, then SIGTERM and exit 0; (b) one task
+   through the async platform to ``completed``, then the load generator
+   against it for 2 s (no failed task, no client error); (c) the
+   streaming pipeline's two LMs on the card: both stages' chunks, each
+   before its stage's completion, then the terminal line. It prints an
+   ``examples`` line.
+
+Phases 2-6 run alone, so the kernels are timed on an otherwise idle card.
+Then two streams of phases share the card: this process runs 7-11, 13, 15
+and 16, while a child process (``SECOND_STREAM``) runs 5b, 12, 22, 23
+and 24, and then, once phase 10 hands its checkpoints
+over, 14 and 17-21. Its lines come through this process's output, and a
+failure in either stream fails the script. Device times read in phases
+7-24 are read beside the other stream's work.
 
 Every process the script starts is stopped before it ends: each phase
 stops its own children, SIGTERM ends the run through those same paths, and
-the script, the subreaper of its descendants, SIGKILLs and reaps whatever
-is still below it at the end and prints it. A ``seconds: {...}`` line gives
-each phase's wall seconds and the whole script's. The last two lines of
+the script and the second stream, each the subreaper of its descendants,
+SIGKILL and reap whatever is still below them at the end and print it. A
+``seconds: {...}`` line gives each phase's wall seconds, the second
+stream's phases and the whole script's; each phase's end also goes to
+standard error with the seconds since the start. The last two lines of
 output are the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -455,6 +494,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -492,8 +532,13 @@ MIN_SERVED_ACC = 0.5  # eight times chance (1/16)
 CARD: dict = {}  # the card's nvidia-smi name and power limit (phase 1)
 
 
+LOG_LOCK = threading.Lock()  # log() runs in the second stream's echo too
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    with LOG_LOCK:
+        sys.stdout.write(msg + "\n")
+        sys.stdout.flush()
 
 
 # -- timing --------------------------------------------------------------
@@ -623,10 +668,42 @@ def check_seg(shape, dtype, with_classmap, gen, plant=False) -> float:
     return 0.0
 
 
+#: ``validate_kernels()``'s rows that each kernel of the kernels line
+#: carries (phase 3's harness).
+VALIDATED = {"normalize_image": ("normalize_image",),
+             "fused_seg_postprocess": ("segmentation_argmax",),
+             "flash_attention": ("flash_attention", "flash_attention_bf16"),
+             "flash_attention_bwd": ("flash_attention_bwd",
+                                     "flash_attention_bwd_bf16")}
+VALIDATE: dict = {}  # phase 3's validate_kernels() result
+
+
+def phase_validate() -> dict:
+    """The kernel harness (``ops.validate.validate_kernels``): every kernel
+    against a float64 oracle at the JAX harness's shapes, each
+    shared-memory mirror against the kernel's own report, registers x
+    threads within an SM. Prints the ``validate`` line; raises unless
+    every row is ok."""
+    from ai4e_tpu_torch.ops.validate import validate_kernels
+
+    t0 = time.perf_counter()
+    result = validate_kernels()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"validate: {json.dumps(result)}")
+    bad = [k for k, v in result.items() if isinstance(v, dict)
+           and v.get("ok") is False]
+    bad += [k for k, v in result["smem_mirrors"].items() if not v["ok"]]
+    if bad or not result["all_ok"]:
+        raise AssertionError(f"validate: not ok: {bad}")
+    VALIDATE.update(result)
+    return result
+
+
 def phase_kernels() -> list[dict]:
     from ai4e_tpu_torch.ops import image_preprocess as ip
     from ai4e_tpu_torch.ops import seg_postprocess as sp
 
+    phase_validate()
     gen = torch.Generator().manual_seed(SEED)
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
     norm_err = max(
@@ -746,22 +823,18 @@ def check_flash(q, k, v, causal: bool, what: str) -> tuple[float, float]:
     return err, lse_err
 
 
-def flash_kernel_report(kernel: str = "flash_fwd_wgmma",
-                        smem_entry: str = "fwd_smem") -> dict:
+def flash_kernel_report(kernel: str = "flash_fwd_wgmma") -> dict:
     """A Hopper flash kernel (``kernel``) at each head dim, from ``nvcc
     -Xptxas -v``: registers a thread (the launch bound's cap; the consumer
     warpgroups raise theirs with setmaxnreg) and spill bytes, beside its
-    dynamic shared memory a CTA (``ai4e_flash_attention_<smem_entry>``).
-    A second instantiation on a bool (the backward's ordered dQ) reports
-    under its head dim's ``"ordered"``."""
-    import ctypes
+    dynamic shared memory a CTA (the kernel's own report,
+    ``ops.validate.flash_attrs``). A second instantiation on a bool (the
+    backward's ordered dQ) reports under its head dim's ``"ordered"``."""
     import re
 
     from ai4e_tpu_torch.ops import _native
+    from ai4e_tpu_torch.ops.validate import flash_attrs
 
-    smem = getattr(_native.load("flash_attention"),
-                   f"ai4e_flash_attention_{smem_entry}")
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     report, cur = {}, None
     for line in _native.build_log("flash_attention").splitlines():
         if "Compiling entry function" in line:
@@ -773,7 +846,8 @@ def flash_kernel_report(kernel: str = "flash_fwd_wgmma",
                 if found.group(2) == "1":
                     cur = cur.setdefault("ordered", {})
                 else:
-                    cur["smem_bytes"] = smem(d)
+                    cur["smem_bytes"] = flash_attrs(
+                        kernel, d)["dynamic_smem_bytes"]
         elif cur is not None and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill", line)
             cur["spill_bytes"] = int(stores) + int(loads)
@@ -2039,7 +2113,7 @@ def phase_flash_bwd_timing(errs: tuple[float, float],
         "dkv_max_abs_err": errs[0],
         "dq_max_abs_err": errs[1],
         "launches": launches["flash_attention_bwd"],
-        "ptxas": flash_kernel_report("flash_bwd_wgmma", "bwd_smem"),
+        "ptxas": flash_kernel_report("flash_bwd_wgmma"),
     }
     entry["tflops"] = flops / entry["ms"] / 1e9
     entry["fused_kernel_tflops"] = flops / entry["fused_kernel_ms"] / 1e9
@@ -2594,7 +2668,7 @@ def phase_runtime(e2e: dict, trained_npz: str) -> dict:
     reload = phase_reload(trained_npz)
     record = {"card": CARD["smi"], "graphs": graphs, **served,
               "reload": reload}
-    print(f"runtime: {json.dumps(record)}", flush=True)
+    log(f"runtime: {json.dumps(record)}")
     return record
 
 
@@ -3672,8 +3746,15 @@ def phase_deploy_train() -> dict:
     report, results = {}, {}
     for name in IMAGE_RECIPES:
         overrides = mc.FULL_OVERRIDES.get(name, {})
+        ahead = DETECTOR_AHEAD[0] if (name == "megadetector"
+                                      and DETECTOR_AHEAD) else None
         t0 = time.perf_counter()
-        result = mc.RECIPES[name](device="cuda", **overrides)
+        if ahead is not None:
+            result = mc.train_megadetector_on(ahead, device="cuda",
+                                              **overrides)
+            ahead.close()
+        else:
+            result = mc.RECIPES[name](device="cuda", **overrides)
         wall_s = time.perf_counter() - t0
         losses = result["losses"]
         if not np.all(np.isfinite(losses)):
@@ -3696,6 +3777,8 @@ def phase_deploy_train() -> dict:
             recipe_wall_s=wall_s)
         if "eval_objects" in result:
             record["eval_objects"] = result["eval_objects"]
+        if ahead is not None:
+            record["batches_drawn_ahead_s"] = t0 - ahead.started
         log(f"deploy 10a: {name} {json.dumps(record)}")
         # Raises below MIN_EVAL: the gate is not lowered.
         entry = mc.make_checkpoint(name, str(out_dir), result=result)
@@ -3711,6 +3794,80 @@ def phase_deploy_train() -> dict:
     log(f"deploy 10a: landcover step by kernel "
         f"{json.dumps(report['landcover_step_kernels'])}")
     return {"report": report, "results": results, "dir": out_dir}
+
+
+def write_detector_batches(seed: int, batch: int, size: int,
+                           steps: int) -> None:
+    """The megadetector recipe's training batches
+    (``make_checkpoints.detector_batches``), in order, pickled to standard
+    output: ``chip_smoke.py --detector-batches SEED BATCH SIZE STEPS``, the
+    child process of ``DetectorBatchesAhead``."""
+    import pickle
+
+    from ai4e_tpu_torch.train.make_checkpoints import detector_batches
+
+    out = sys.stdout.buffer
+    for item in detector_batches(seed, batch, size, steps):
+        pickle.dump(item, out, protocol=pickle.HIGHEST_PROTOCOL)
+    out.flush()
+
+
+class DetectorBatchesAhead:
+    """Phase 10a's megadetector batches at ``FULL_OVERRIDES``' size, drawn
+    ahead by a child process from the recipe's own seed (the same arrays,
+    in the same order): the 512 px scenes cost the host about 0.2 s each,
+    most of the recipe's time on an H100's host (PERF.md section 6), and
+    the child draws them while phases 3-9 run, on one host core and no
+    card; a thread of this
+    process reads them off its pipe as they come, and the recipe trains
+    on them (``train_megadetector_on``). Started after the build."""
+
+    def __init__(self, seed: int = 0, batch: int = 8):
+        import queue
+        import threading
+
+        from ai4e_tpu_torch.train import make_checkpoints as mc
+
+        full = mc.FULL_OVERRIDES["megadetector"]
+        self.steps = full["steps"]
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--detector-batches",
+             str(seed), str(batch), str(full["image_size"]), str(self.steps)],
+            cwd=ROOT, stdout=subprocess.PIPE)
+        self.started = time.perf_counter()
+        self.batches: queue.Queue = queue.Queue()
+        self.taken = 0
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        import pickle
+
+        try:
+            for _ in range(self.steps):
+                self.batches.put(pickle.load(self.proc.stdout))
+        except Exception as exc:  # handed to the consumer, which raises
+            self.batches.put(exc)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.taken == self.steps:
+            raise StopIteration
+        self.taken += 1
+        item = self.batches.get(timeout=600)
+        if isinstance(item, Exception):
+            raise RuntimeError("the megadetector's batches ended early: "
+                               f"child exit {self.proc.poll()}") from item
+        return item
+
+    def close(self) -> None:
+        if self.proc.wait(timeout=60) != 0:
+            raise AssertionError(f"the megadetector's batch child exited "
+                                 f"{self.proc.returncode}")
+
+
+DETECTOR_AHEAD: list = []  # run_phases' DetectorBatchesAhead, if started
 
 
 def deploy_specs(store_url: str, worker_url: str) -> tuple[dict, dict]:
@@ -7470,9 +7627,17 @@ async def native_drive(gateway: str, worker: str, procs: dict, logs: dict,
     return out
 
 
+#: 15c's turns: the control plane's env for each. The turn on the Python
+#: store and broker beside the C++ ones (a comparison, unresolved in
+#: PERF.md section 7; every other phase runs the Python cores) was cut for
+#: the script's time.
+CORE_TURNS = (("native", {"AI4E_PLATFORM_NATIVE_STORE": "1",
+                          "AI4E_PLATFORM_NATIVE_BROKER": "1"}),)
+
+
 def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
-    """15c: land cover (4 sync + 64 async) behind a control plane on the
-    C++ store and broker, then on the Python ones, each a child process on
+    """15c: land cover (4 sync + 64 async) behind a control plane on each
+    of ``CORE_TURNS``' cores (the C++ store and broker), a child process on
     one port in front of one land-cover worker (a child process too),
     answers checked as phase 10b checks them. Land cover alone, one worker:
     the whole script must stay inside its time limit."""
@@ -7500,9 +7665,7 @@ def phase_native_cores(handoff: dict, device: str = "cuda") -> dict:
         asyncio.run(wait_all_healthy([(w["url"] + "/v1/models/", w["proc"],
                                        w["log"])]))
         w["mark"] = launches_now(w)
-        for tag, extra in (("native", {"AI4E_PLATFORM_NATIVE_STORE": "1",
-                                       "AI4E_PLATFORM_NATIVE_BROKER": "1"}),
-                           ("python", {})):
+        for tag, extra in CORE_TURNS:
             logs = {"cp": out_dir / f"cores_{tag}_control_plane.log",
                     "wk": w["log"]}
             procs = {"cp": start_child(
@@ -7746,7 +7909,7 @@ def phase_15(handoff: dict, kernels: list[dict], replay_7a_ms=None,
     report["seconds"] = time.perf_counter() - t0
     by_run = {"15b " + tag: counts
               for tag, counts in report["15b"]["launches_by_model"].items()}
-    for tag in ("native", "python"):
+    for tag, _ in CORE_TURNS:
         by_run["15c " + tag] = report["15c"][tag]["launches_by_model"]
     by_run["15d after restart"] = \
         report["15d"]["launches_by_model_after_restart"]
@@ -9450,7 +9613,10 @@ N_SCALE = 768            # 19c: the backlog (under the default class's
 #                          share of admission's 1024-task backlog, 870)
 SCALE_SUBMITTERS = 32
 SCALE_ROUNDS = 3         # 19c: backlogs sent until one meets a tick
-SCALE_TURNS = (("sharded_predictive", 4), ("raw_depth", 1))
+#: 19c's turns. The raw-depth turn on one store (a comparison: the
+#: scalers tied at the first tick, PERF.md section 7) was cut for the
+#: script's time; its gates are the sharded turn's.
+SCALE_TURNS = (("sharded_predictive", 4),)
 SCALE_TICK_WAIT_S = 12.0  # 19c: every autoscale route ticks within this
 LAUNCH_MARKER = "kernel launches by model so far "
 OCTET = {"Content-Type": "application/octet-stream"}
@@ -10251,9 +10417,10 @@ def phase_orchestration(handoff: dict, wk: dict, cp_port: int, device: str,
 def phase_sharded_scaler(handoff: dict, wk: dict, cp_port: int) -> dict:
     """19c: deploy/specs/routes.json as written (backends on worker A) on a
     4-shard store with orchestration, where its four ``autoscale`` routes
-    each run a ``ShardedAutoscaleController``, then on one store without
-    orchestration (the raw-depth scaler), the same backlog each turn: the
-    raw-depth turn sends as many rounds as the sharded one needed."""
+    each run a ``ShardedAutoscaleController``, a backlog sent until one
+    meets a tick; with a second turn in ``SCALE_TURNS`` (one store without
+    orchestration: the raw-depth scaler) the same backlog, as many rounds
+    as the first turn needed."""
     out_dir = handoff["out_dir"]
     bodies, want = handoff["landcover"]
     bodies, want = bodies[-N_DEPLOY_ASYNC:], want[-N_DEPLOY_ASYNC:]
@@ -11596,6 +11763,171 @@ def mesh_train_longcontext(rank: int, device: str = "cuda") -> dict:
     return out
 
 
+#: 22e: the losses of a meshed run against one device's on the whole
+#: batch, relative. longcontext at sp = 2 merges its two flash blocks by
+#: their logsumexp and rounds each block's output to bf16 before the
+#: merge, where one device's flash rounds once over all keys; the MoE at
+#: ep = 2 computes the same products. Every turn runs, with its
+#: one-device reference, under ``torch.use_deterministic_algorithms(True)``:
+#: by default the flash backward's dQ adds land in any order, and one
+#: device's own repeats part by 7.9e-5 (the MoE) in three steps on an
+#: H100, the MoE gate's own size, and longcontext's Ulysses turn, whose
+#: products are one device's, read 5.5e-4 from it; ordered, the MoE's two
+#: runs' losses were bit-equal (PERF.md section 6).
+SP_TRAIN_RTOL, EP_TRAIN_RTOL = 1e-3, 1e-4
+N_MOE_TRAIN_SEQS = 16  # 22e: train_moe's batch
+#: 22e: flash forward and backward launches a rank a step, predicted: the
+#: ring runs both chunks of a layer (not causal), Ulysses one call a layer
+#: on the whole sequence, the MoE's attention one call a layer.
+SP_EP_LAUNCHES = {"longcontext_ring": 2 * 4, "longcontext_ulysses": 4,
+                  "moe_ep2": 2}
+#: 22e: collectives a rank a step, predicted: ring 4 hops forward, 8
+#: backward, the pool and the gradient sum; Ulysses 8 exchanges each way,
+#: the pool and the sum; the MoE 2 combines, 2 input sums backward and the
+#: router's sum.
+SP_EP_CALLS = {"longcontext_ring": 14, "longcontext_ulysses": 18,
+               "moe_ep2": 5}
+
+
+def mesh_train_sp_ep(rank: int, device: str = "cuda") -> dict:
+    """22e: longcontext at sp = 2 (three steps with ring, three with
+    Ulysses attention) and the deployed MoE (capacity dispatch) at ep = 2
+    (three steps), float32 masters, each on one seeded batch: each step's
+    loss, report (collectives, host-copy bytes, ms), flash launches and
+    the digest of the replicated parameters; then, on rank 0, one
+    device's losses on the whole batch."""
+    from ai4e_tpu_torch.models import create_moe, create_seqformer
+    from ai4e_tpu_torch.models.moe import MOE_EP_RULES
+    from ai4e_tpu_torch.ops import flash_attention as fa
+    from ai4e_tpu_torch.parallel.sharding import MeshSpec, make_mesh
+    from ai4e_tpu_torch.train import Trainer
+    from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
+
+    lc = longcontext_config()
+    moe = {k: v for k, v in moe_model().items()
+           if k in ("seq_len", "input_dim", "dim", "depth", "heads",
+                    "num_experts", "num_classes", "vocab_size", "dispatch",
+                    "capacity_factor")}
+    batches = {
+        "longcontext": longcontext_batch(np.random.default_rng(SEED + 25),
+                                         N_MESH_SEQS, lc["seq_len"],
+                                         lc["vocab_size"],
+                                         lc["num_classes"]),
+        "moe": longcontext_batch(np.random.default_rng(SEED + 26),
+                                 N_MOE_TRAIN_SEQS, moe["seq_len"],
+                                 moe["vocab_size"], moe["num_classes"])}
+
+    def model(turn: str, mesh=None):
+        gen = torch.Generator().manual_seed(SEED)
+        if turn == "moe_ep2":
+            return create_moe(gen, **moe, mesh=mesh, attention="flash",
+                              param_dtype=torch.float32, device=device)
+        attention = turn.split("_")[1] if mesh is not None else "flash"
+        return create_seqformer(gen, **lc, mesh=mesh, attention=attention,
+                                param_dtype=torch.float32, device=device)
+
+    turns = {"longcontext_ring": (MeshSpec(sp=2), "longcontext"),
+             "longcontext_ulysses": (MeshSpec(sp=2), "longcontext"),
+             "moe_ep2": (MeshSpec(ep=2), "moe")}
+    out = {}
+    for turn, (spec, data) in turns.items():
+        mesh = make_mesh(spec, device_type=torch.device(device).type)
+        trainer = Trainer(model(turn, mesh), device=device, mesh=mesh,
+                          tp_rules=MOE_EP_RULES if turn == "moe_ep2"
+                          else None)
+        replicated = [k for k in trainer.params if k not in trainer.split]
+        x, y = batches[data]
+        rec = {"losses": [], "reports": [], "launches_a_step": [],
+               "replicated_digests": [], "replicated": len(replicated),
+               "split": sorted(trainer.split)}
+        for _ in range(N_MESH_TRAIN_STEPS):
+            fa.launches = fa.bwd_launches = 0
+            with deterministic_algorithms():
+                loss, report = trainer.train_step_phases(x, y)
+            rec["launches_a_step"].append(
+                {"flash_attention": fa.launches,
+                 "flash_attention_bwd": fa.bwd_launches})
+            rec["losses"].append(loss)
+            rec["reports"].append(step_report(report))
+            rec["replicated_digests"].append(params_digest(
+                trainer.params[k] for k in replicated))
+        del trainer
+        out[turn] = rec
+    if rank == 0:
+        for turn, (_, data) in turns.items():
+            single = Trainer(model(turn), device=device)
+            x, y = batches[data]
+            with deterministic_algorithms():
+                out[turn]["single_losses"] = [
+                    single.train_step(x, y)
+                    for _ in range(N_MESH_TRAIN_STEPS)]
+            del single
+    return out
+
+
+def phase_22e(ranks: list[dict], kernels: list[dict],
+              device: str = "cuda") -> dict:
+    """22e's gates: replicated parameters bit-equal on the two ranks after
+    every step; losses within ``SP_TRAIN_RTOL`` (longcontext) or
+    ``EP_TRAIN_RTOL`` (the MoE) of one device's on the whole batch; each
+    rank's flash forward and backward launches a step and its collectives
+    a step as predicted (``SP_EP_LAUNCHES``, ``SP_EP_CALLS``). Prints the
+    ``mesh 22e`` line and adds the launches to the flash rows."""
+    report = {"card": CARD.get("smi"), "ranks_s": ranks[0]["train_sp_ep_s"]}
+    for turn in SP_EP_LAUNCHES:
+        recs = [r["train_sp_ep"][turn] for r in ranks]
+        if recs[0]["replicated_digests"] != recs[1]["replicated_digests"]:
+            raise AssertionError(f"22e {turn}: the ranks' replicated "
+                                 "parameters differ after a step")
+        if recs[0]["losses"] != recs[1]["losses"]:
+            raise AssertionError(f"22e {turn}: the ranks' losses differ: "
+                                 f"{[r['losses'] for r in recs]}")
+        want = recs[0]["single_losses"]
+        tol = EP_TRAIN_RTOL if turn == "moe_ep2" else SP_TRAIN_RTOL
+        gap = max(abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"],
+                                                       want))
+        if not gap <= tol:
+            raise AssertionError(f"22e {turn}: losses {recs[0]['losses']} "
+                                 f"against one device's {want}: relative "
+                                 f"gap {gap} over {tol}")
+        for r, rec in zip(ranks, recs):
+            for n, step in zip(rec["launches_a_step"], rec["reports"]):
+                if device == "cuda" and set(n.values()) != {
+                        SP_EP_LAUNCHES[turn]}:
+                    raise AssertionError(
+                        f"22e {turn}: rank {r['rank']} launched {n} in a "
+                        f"step, predicted {SP_EP_LAUNCHES[turn]} each")
+                if step["comm_calls"] != SP_EP_CALLS[turn]:
+                    raise AssertionError(
+                        f"22e {turn}: rank {r['rank']} ran "
+                        f"{step['comm_calls']} collectives in a step, "
+                        f"predicted {SP_EP_CALLS[turn]}")
+        report[turn] = {
+            "losses": recs[0]["losses"], "single_losses": want,
+            "max_relative_gap": gap, "tolerance": tol,
+            "replicated_bit_equal_after_steps":
+                len(recs[0]["replicated_digests"]),
+            "replicated_params": recs[0]["replicated"],
+            "split": recs[0]["split"],
+            "launches_a_step": {f"rank{r['rank']}":
+                                r["train_sp_ep"][turn]["launches_a_step"]
+                                for r in ranks},
+            "steps": {f"rank{r['rank']}": [
+                {k: step[k] for k in ("step_ms", "comm_calls",
+                                      "comm_host_copy_bytes",
+                                      "comm_seconds")}
+                for step in r["train_sp_ep"][turn]["reports"]]
+                for r in ranks}}
+    log(f"mesh 22e: {json.dumps(report)}")
+    for k in kernels:
+        if k["name"] in ("flash_attention", "flash_attention_bwd"):
+            k["mesh_sp_ep_train_launches_a_step"] = {
+                turn: [n[k["name"]] for n in
+                       ranks[0]["train_sp_ep"][turn]["launches_a_step"]]
+                for turn in SP_EP_LAUNCHES}
+    return report
+
+
 def mesh_resume_check(ranks: list[dict], out_dir: Path,
                       device: str = "cuda") -> dict:
     """22d (iii) in this process: (i)'s checkpoint, saved at tp = 2,
@@ -11676,6 +12008,9 @@ def mesh_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     report["train_vit"] = mesh_train_vit(rank, out_dir)
     report["train_longcontext"] = mesh_train_longcontext(rank)
     report["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["train_sp_ep"] = mesh_train_sp_ep(rank)
+    report["train_sp_ep_s"] = time.perf_counter() - t0
     Path(out_dir, f"mesh_rank{rank}.json").write_text(json.dumps(report))
     dist.destroy_process_group()
 
@@ -11901,6 +12236,7 @@ def phase_22(kernels: list[dict]) -> dict:
             f"vit {json.dumps(r['vit_tp2'])}; longcontext "
             f"{json.dumps(r['longcontext_sp2'])}")
     trained = phase_22d(ranks, out_dir, kernels)
+    sp_ep = phase_22e(ranks, kernels)
     resume_done = time.perf_counter()
     served = phase_mesh_worker()
     log(f"mesh 22b: {json.dumps(served)}")
@@ -11914,6 +12250,7 @@ def phase_22(kernels: list[dict]) -> dict:
     report = {"ranks_s": rank_s,
               "worker_s": time.perf_counter() - resume_done,
               "card": CARD["smi"], "train_ranks_s": trained["ranks_s"],
+              "sp_ep_ranks_s": sp_ep["ranks_s"],
               "resume_s": trained["resume"]["resume_s"],
               "eager_against_replay_ms": {
                   turn: (ranks[0][turn]["eager_ms"],
@@ -12167,12 +12504,229 @@ def phase_23() -> dict:
     return report
 
 
+# -- phase 24: the examples on the port -------------------------------------
+
+EXAMPLE_WAIT_S = 60.0     # a child's server answers, a task completes
+EXAMPLE_RUN_S = 180.0     # a child that runs to its end does so within this
+LOADGEN_S = 2.0           # 24b: the load generator's window, 2 in flight:
+#                           the example's backend scores two at a time
+
+
+def example_env() -> dict:
+    env = dict(os.environ)
+    env.update(PYTHONPATH=str(ROOT) + os.pathsep + env.get("PYTHONPATH", ""))
+    return env
+
+
+def example_cmd(name: str, *args: str) -> list[str]:
+    return [sys.executable, "-m", f"ai4e_tpu_torch.examples.{name}", *args]
+
+
+def start_example(name: str, args: list[str], log_path: Path
+                  ) -> subprocess.Popen:
+    with open(log_path, "wb") as out:
+        return subprocess.Popen(example_cmd(name, *args), cwd=ROOT,
+                                env=example_env(), stdout=out,
+                                stderr=subprocess.STDOUT)
+
+
+def example_json(url: str, body: bytes | None = None) -> dict:
+    """GET ``url``, or POST ``body`` to it; the JSON answer (a status
+    other than 200 raises)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 method="POST" if body is not None else "GET")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def wait_listening(url: str, proc: subprocess.Popen, log_path: Path) -> None:
+    import urllib.error
+    import urllib.request
+
+    deadline = time.monotonic() + EXAMPLE_WAIT_S
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"{url}: the example exited "
+                                 f"{proc.returncode}:\n{tail(log_path)}")
+        try:
+            urllib.request.urlopen(url, timeout=2).close()
+            return
+        except urllib.error.HTTPError:
+            return  # it answers
+        except OSError:
+            time.sleep(0.2)
+    raise AssertionError(f"{url} not up in {EXAMPLE_WAIT_S} s:\n"
+                         f"{tail(log_path)}")
+
+
+def wait_status(url: str, want: str) -> dict:
+    deadline = time.monotonic() + EXAMPLE_WAIT_S
+    while time.monotonic() < deadline:
+        status = example_json(url)
+        if status["Status"].startswith(("completed", "failed")):
+            if status["Status"] != want:
+                raise AssertionError(f"{url}: {status['Status']!r}, want "
+                                     f"{want!r}")
+            return status
+        time.sleep(0.05)
+    raise AssertionError(f"{url}: not {want!r} in {EXAMPLE_WAIT_S} s")
+
+
+def stop_example(proc: subprocess.Popen, log_path: Path) -> int:
+    """SIGTERM and wait: the exit code."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError(f"the example did not stop:\n{tail(log_path)}")
+
+
+def phase_echo_example(out_dir: Path) -> dict:
+    """24a: the echo service, one sync and one async request, then
+    SIGTERM: ``APIService.run``'s drain and exit 0."""
+    port = free_port()
+    log_path = out_dir / "example_echo.log"
+    proc = start_example("echo_service", [str(port)], log_path)
+    base = f"http://127.0.0.1:{port}/v1/echo"
+    try:
+        wait_listening(f"{base}/", proc, log_path)
+        t0 = time.perf_counter()
+        sync = example_json(f"{base}/echo", b'{"hello":"world"}')
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        if sync != {"echo": '{"hello":"world"}'}:
+            raise AssertionError(f"24a: echo answered {sync}")
+        t0 = time.perf_counter()
+        task = example_json(f"{base}/echo-async", b'{"x":1}')
+        done = wait_status(f"{base}/task/{task['TaskId']}",
+                           "completed - echoed 7 bytes")
+        task_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        code = stop_example(proc, log_path)
+    if code != 0:
+        raise AssertionError(f"24a: echo exited {code} on SIGTERM:\n"
+                             f"{tail(log_path)}")
+    return {"sync": sync, "sync_ms": sync_ms, "task": done["Status"],
+            "task_ms": task_ms, "exit": code}
+
+
+def phase_platform_example(out_dir: Path) -> dict:
+    """24b: one task through the async platform to ``completed``, then the
+    load generator against it for ``LOADGEN_S``."""
+    gw, be = free_port(), free_port()
+    log_path = out_dir / "example_async_platform.log"
+    proc = start_example("async_platform", [str(gw), str(be)], log_path)
+    base = f"http://127.0.0.1:{gw}"
+    try:
+        wait_listening(f"{base}/healthz", proc, log_path)
+        t0 = time.perf_counter()
+        task = example_json(f"{base}/v1/camera-trap/detect", b"\xff" * 1000)
+        done = wait_status(f"{base}/v1/taskmanagement/task/{task['TaskId']}",
+                           "completed - scored 1000 bytes")
+        task_ms = (time.perf_counter() - t0) * 1e3
+        payload = out_dir / "example_payload.bin"
+        payload.write_bytes(b"\x01" * 1000)
+        run = subprocess.run(
+            example_cmd("loadgen", "--gateway", base, "--path",
+                        "/v1/camera-trap/detect", "--payload", str(payload),
+                        "--concurrency", "2", "--duration", str(LOADGEN_S),
+                        "--ramp", "0.5", "--task-timeout", "30"),
+            cwd=ROOT, env=example_env(), capture_output=True, text=True,
+            timeout=EXAMPLE_RUN_S)
+        if run.returncode != 0:
+            raise AssertionError(f"24b: loadgen exited {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        load = json.loads(run.stdout.strip().splitlines()[-1])
+    finally:
+        stop_example(proc, log_path)
+    if load["completed"] < 1 or load["failed"] or load["client_errors"]:
+        raise AssertionError(f"24b: loadgen {load}")
+    return {"task": done["Status"], "task_ms": task_ms,
+            "loadgen": {k: load[k] for k in load if k not in ("metric",)}}
+
+
+def phase_stream_example(out_dir: Path) -> dict:
+    """24c: the streaming pipeline on the card: both stages' chunks, each
+    stage's completion, then the terminal line, in that order."""
+    t0 = time.perf_counter()
+    run = subprocess.run(example_cmd("streaming_pipeline"), cwd=ROOT,
+                         env=example_env(), capture_output=True, text=True,
+                         timeout=EXAMPLE_RUN_S)
+    (out_dir / "example_streaming_pipeline.log").write_text(
+        run.stdout + run.stderr)
+    if run.returncode != 0:
+        raise AssertionError(f"24c: exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    order, chunks = [], {}
+    for line in run.stdout.splitlines():
+        if line.startswith("  chunk  ["):
+            stage = line.split("[")[1].split("]")[0]
+            chunks[stage] = chunks.get(stage, 0) + 1
+            what = f"chunk {stage}"
+        elif line.startswith(("  stage  [", "terminal:")):
+            what = line.strip()
+        else:
+            continue
+        if not order or order[-1] != what:
+            order.append(what)
+    want = ["chunk transcribe", "stage  [transcribe] completed",
+            "chunk summarize", "stage  [summarize] completed"]
+    seen = [w for w in order if w in want]
+    if seen != want or not order[-1].startswith("terminal: completed"):
+        raise AssertionError(f"24c: events in the order {order}")
+    return {"chunks": chunks, "events": order,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_24() -> dict:
+    """The port's examples (``ai4e_tpu_torch/examples``) as child
+    processes: 24a the echo service, 24b the async platform and the load
+    generator against it, 24c the streaming pipeline's two LMs on the
+    card. Prints the ``examples`` line."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report = {"card": CARD.get("smi")}
+
+    def timed_part(fn) -> dict:
+        t0 = time.perf_counter()
+        out = fn(out_dir)
+        out["s"] = time.perf_counter() - t0
+        return out
+
+    # The three parts share nothing but the card, which only 24c uses:
+    # they run at once, each one's processes its own.
+    parts = {"24a_echo": phase_echo_example,
+             "24b_platform": phase_platform_example,
+             "24c_stream": phase_stream_example}
+    with ThreadPoolExecutor(len(parts)) as pool:
+        futures = {part: pool.submit(timed_part, fn)
+                   for part, fn in parts.items()}
+        for part, future in futures.items():
+            report[part] = future.result()
+    log(f"examples: {json.dumps(report)}")
+    return report
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--detector-dct-sweep"]:
         detector_dct_sweep(int(sys.argv[2]))
         return
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank_main(*map(int, sys.argv[2:5]), sys.argv[5])
+        return
+    if sys.argv[1:2] == ["--detector-batches"]:
+        write_detector_batches(*map(int, sys.argv[2:6]))
+        return
+    if sys.argv[1:2] == ["--second-stream"]:
+        second_stream_main(json.loads(sys.argv[2]))
         return
     import signal
 
@@ -12182,68 +12736,220 @@ def main() -> None:
     adopt_orphans()
     seconds: dict[str, float] = {}
     try:
-        kernels = run_phases(seconds)
+        kernels = run_phases(seconds, t0)
     finally:
         left = stop_leftovers()
         if left:
             log(f"processes still running at the end, stopped: {left}")
-    log(f"seconds: {json.dumps({'phases': seconds, 'whole': time.perf_counter() - t0})}")
+    log(f"seconds: {json.dumps({'phases': seconds, 'second_stream': list(SECOND_STREAM), 'whole': time.perf_counter() - t0})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-def run_phases(seconds: dict[str, float]) -> list[dict]:
-    """Phases 2-23 in order, each one's wall seconds into ``seconds``;
-    returns the kernels' records."""
+def timed_into(seconds: dict[str, float], t0: float, stream: str):
+    """``timed(name, fn, *args)``: ``fn(*args)`` with its wall seconds
+    into ``seconds[name]``; each phase's end also goes to standard error
+    with the seconds since ``t0``, so a run stopped from outside shows
+    how far each stream got."""
     def timed(name: str, fn, *args, **kwargs):
         t = time.perf_counter()
         try:
             return fn(*args, **kwargs)
         finally:
-            seconds[name] = time.perf_counter() - t
+            now = time.perf_counter()
+            seconds[name] = now - t
+            print(f"chip_smoke {stream}: phase {name} ended after "
+                  f"{now - t:.1f} s, {now - t0:.1f} s into the run",
+                  file=sys.stderr, flush=True)
+    return timed
 
+
+#: The phases of the second stream, in its order: those before the
+#: ``None`` share nothing with the first stream's but the card; those
+#: after it serve phase 10's checkpoints (``SecondStream.hand_over``).
+SECOND_STREAM = ("topology", "lm", "22", "23", "24", None,
+                 "cache", "17", "18", "19", "20", "21")
+
+
+def run_phases(seconds: dict[str, float], t0: float) -> list[dict]:
+    """Phases 2-24, each one's wall seconds into ``seconds``; returns the
+    kernels' records. Phases 2-6 run alone (the kernels are timed on an
+    otherwise idle card), then ``SECOND_STREAM`` runs in a child process
+    beside the rest."""
+    timed = timed_into(seconds, t0, "first stream")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in float32
     timed("build", phase_build)
+    DETECTOR_AHEAD.append(DetectorBatchesAhead())
     log("kernels: parity against the plain versions on the card")
     kernels = timed("kernels", lambda: phase_kernels() + [phase_flash()])
     e2e = timed("end_to_end", phase_end_to_end)
     lc = timed("longcontext", phase_longcontext)
     for k in kernels:
         k["launches"] = {**e2e["launches"], **lc["launches"]}[k["name"]]
-    topology = timed("topology", phase_topology)
-    for k in kernels:
-        k["launches_separate_processes"] = (
-            topology["launches_while_serving"][k["name"]])
     bwd, trained_npz = timed("train", phase_train_then_serve)
     kernels += bwd
-    runtime = timed("runtime", phase_runtime, e2e, trained_npz)
-    timed("camera_trap", phase_camera_trap, kernels)
-    timed("moe_vit", phase_moe_vit, kernels)
-    _, deployed = timed("deploy", phase_deploy, kernels)
-    timed("observability", phase_observability, deployed, kernels)
-    timed("lm", phase_lm)
-    timed("wires", phase_wires, deployed, kernels)
-    timed("cache", phase_cache, deployed, kernels)
-    timed("15", phase_15, deployed, kernels, runtime["graphs"]["buckets"]
-          .get("landcover/64", {}).get("replay_ms"))
-    timed("16", phase_16, deployed, kernels)
-    timed("17", phase_17, deployed, kernels)
-    timed("18", phase_18, deployed, kernels)
-    workers = timed("19", phase_19, deployed, kernels,
-                    keep_workers=True)["workers"]
+    second = SecondStream([k["name"] for k in kernels],
+                          time.time() - (time.perf_counter() - t0))
     try:
-        timed("20", phase_20, deployed, kernels, workers)
-        timed("21", phase_21, deployed, kernels, workers)
-    except BaseException:
-        kill_res_workers(workers[0])
-        raise
-    timed("22", phase_22, kernels)
-    timed("23", phase_23)
+        runtime = timed("runtime", phase_runtime, e2e, trained_npz)
+        second.check()
+        timed("camera_trap", phase_camera_trap, kernels)
+        second.check()
+        timed("moe_vit", phase_moe_vit, kernels)
+        second.check()
+        _, deployed = timed("deploy", phase_deploy, kernels)
+        second.hand_over(deployed)
+        timed("observability", phase_observability, deployed, kernels)
+        second.check()
+        timed("wires", phase_wires, deployed, kernels)
+        second.check()
+        timed("15", phase_15, deployed, kernels, runtime["graphs"]["buckets"]
+              .get("landcover/64", {}).get("replay_ms"))
+        second.check()
+        timed("16", phase_16, deployed, kernels)
+        done = second.join()
+    finally:
+        second.stop()
+    seconds.update(done["seconds"])
+    rows = {r["name"]: r for r in done["rows"]}
     for k in kernels:
+        k.update(rows[k["name"]])
         # The same numbers under the names the port's docs use.
         k["kernel_ms"], k["max_err"] = k["ms"], k["max_abs_err"]
+        k["validate"] = {row: VALIDATE[row] for row in VALIDATED[k["name"]]}
     return kernels
+
+
+class SecondStream:
+    """``SECOND_STREAM``'s phases in a child process
+    (``chip_smoke.py --second-stream``), started once the kernels are timed:
+    most of a phase's wall time is its processes starting and its host
+    driving them, so two streams of phases on the one card take about
+    half the wall time of one. Its lines come through this process's
+    ``log``; its kernel rows and seconds come back in a JSON file."""
+
+    def __init__(self, names: list[str], started: float):
+        out_dir = ROOT / "build" / "chip_smoke"
+        self.handoff = out_dir / "second_stream_handoff.pkl"
+        self.result = out_dir / "second_stream_result.json"
+        for path in (self.handoff, self.result):
+            path.unlink(missing_ok=True)
+        arg = json.dumps({"names": names, "card": CARD.get("smi"),
+                          "started": started,
+                          "handoff": str(self.handoff),
+                          "result": str(self.result)})
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--second-stream",
+             arg], cwd=ROOT, stdout=subprocess.PIPE)
+        self.echo = threading.Thread(target=self._echo, daemon=True)
+        self.echo.start()
+
+    def _echo(self) -> None:
+        for line in self.proc.stdout:
+            log(line.decode(errors="replace").rstrip("\n"))
+
+    def check(self) -> None:
+        """Raise if the stream has failed (its own error is above)."""
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            raise AssertionError(f"the second stream exited {rc}")
+
+    def hand_over(self, deployed: dict) -> None:
+        """Phase 10's handoff, for the stream's later phases."""
+        import pickle
+
+        tmp = self.handoff.with_suffix(".tmp")
+        tmp.write_bytes(pickle.dumps(deployed))
+        os.replace(tmp, self.handoff)
+
+    def join(self) -> dict:
+        rc = self.proc.wait(timeout=SECOND_STREAM_WAIT_S)
+        self.echo.join(timeout=30)
+        if rc != 0:
+            raise AssertionError(f"the second stream exited {rc}")
+        return json.loads(self.result.read_text())
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+SECOND_STREAM_WAIT_S = 900.0  # the first stream's end to the second's
+
+
+def second_stream_main(arg: dict) -> None:
+    """The child process of ``SecondStream``: ``SECOND_STREAM``'s phases
+    in order, the later ones once phase 10's handoff is there; then the
+    kernel rows (only the keys its phases set) and its phases' seconds
+    into the result file. The subreaper of its own descendants, as the
+    script is."""
+    import pickle
+    import signal
+
+    t0 = time.perf_counter() - (time.time() - arg["started"])
+    signal.signal(signal.SIGTERM, on_sigterm)
+    adopt_orphans()
+    parent = os.getppid()
+    CARD["smi"] = arg["card"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds: dict[str, float] = {}
+    timed = timed_into(seconds, t0, "second stream")
+    kernels = [{"name": name} for name in arg["names"]]
+    handoff = Path(arg["handoff"])
+    deployed = workers = None
+    try:
+        for name in SECOND_STREAM:
+            if name is None:
+                deadline = time.monotonic() + SECOND_STREAM_WAIT_S
+                while not handoff.exists():
+                    if os.getppid() != parent:
+                        raise SystemExit("the script ended first")
+                    if time.monotonic() > deadline:
+                        raise AssertionError("phase 10's handoff never came")
+                    time.sleep(0.2)
+                deployed = pickle.loads(handoff.read_bytes())
+            elif name == "topology":
+                topology = timed(name, phase_topology)
+                for k in kernels:
+                    if k["name"] in topology["launches_while_serving"]:
+                        k["launches_separate_processes"] = (
+                            topology["launches_while_serving"][k["name"]])
+            elif name == "lm":
+                timed(name, phase_lm)
+            elif name == "22":
+                timed(name, phase_22, kernels)
+            elif name == "23":
+                timed(name, phase_23)
+            elif name == "24":
+                timed(name, phase_24)
+            elif name == "cache":
+                timed(name, phase_cache, deployed, kernels)
+            elif name in ("17", "18"):
+                timed(name, {"17": phase_17, "18": phase_18}[name],
+                      deployed, kernels)
+            elif name == "19":
+                workers = timed(name, phase_19, deployed, kernels,
+                                keep_workers=True)["workers"]
+            elif name in ("20", "21"):
+                try:
+                    timed(name, {"20": phase_20, "21": phase_21}[name],
+                          deployed, kernels, workers)
+                except BaseException:
+                    kill_res_workers(workers[0])
+                    raise
+            else:
+                raise AssertionError(f"no phase {name}")
+    finally:
+        left = stop_leftovers()
+        if left:
+            log(f"second stream: processes still running at its end, "
+                f"stopped: {left}")
+    tmp = Path(arg["result"]).with_suffix(".tmp")
+    tmp.write_text(json.dumps({"seconds": seconds, "rows": kernels}))
+    os.replace(tmp, arg["result"])
+
 
 if __name__ == "__main__":
     main()

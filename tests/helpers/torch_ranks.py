@@ -175,21 +175,61 @@ def digest(t: torch.Tensor) -> str:
 
 def train_model(run: dict, mesh):
     """The run's model (float32) on the test's converted flax weights, and
-    the rules its trainer shards it by."""
+    the rules its trainer shards it by. A SeqFormer or MoE run's
+    ``attention`` (default ``flash``) may be ``ring`` or ``ulysses`` over
+    the mesh's sp; a MoE run shards its experts over the mesh's ep. With
+    ``drop_partial`` the model names no partial gradients, so the trainer
+    sums nothing over sp or ep (the tests' mutation)."""
     from ai4e_tpu_torch import convert
-    from ai4e_tpu_torch.models.seqformer import SeqFormer, attention_for
+    from ai4e_tpu_torch.models.moe import MOE_EP_RULES, MoEClassifier
+    from ai4e_tpu_torch.models.seqformer import (SeqFormer, attention_for,
+                                                 sequence_mesh)
     from ai4e_tpu_torch.models.vit import TP_RULES, ViT
-    tp = mesh_shape(mesh)["tp"]
+    shape = mesh_shape(mesh)
     params = unflatten(run["params"] + "/")
     if run["model"] == "vit":
         model = ViT(**run["kwargs"], dtype=torch.float32,
-                    tp_mesh=mesh if tp > 1 else None)
+                    tp_mesh=mesh if shape["tp"] > 1 else None)
         model.load_state_dict(convert.vit_state_dict_from_flax(params))
-        return model, TP_RULES if tp > 1 else None
-    model = SeqFormer(**run["kwargs"], dtype=torch.float32,
-                      attn_fn=attention_for(None, "flash"))
-    model.load_state_dict(convert.seqformer_state_dict_from_flax(params))
-    return model, None
+        return model, TP_RULES if shape["tp"] > 1 else None
+    attention = run.get("attention", "flash")
+    common = dict(dtype=torch.float32, attn_fn=attention_for(mesh, attention),
+                  seq_mesh=sequence_mesh(mesh, attention))
+    if run["model"] == "moe":
+        model = MoEClassifier(**run["kwargs"], **common,
+                              ep_mesh=mesh if shape["ep"] > 1 else None)
+        model.load_state_dict(convert.moe_state_dict_from_flax(params))
+        rules = MOE_EP_RULES if shape["ep"] > 1 else None
+    else:
+        model = SeqFormer(**run["kwargs"], **common)
+        model.load_state_dict(convert.seqformer_state_dict_from_flax(params))
+        rules = None
+    if run.get("drop_partial"):
+        model.partial_grad_axes = dict
+    return model, rules
+
+
+def resume_check(run: dict, mesh, mgr, trainer, rec: dict) -> None:
+    """A fresh trainer of the run resumed from ``mgr``: its step, whether
+    its parameters and moments equal ``trainer``'s bit for bit, and the
+    next step's loss of each."""
+    from ai4e_tpu_torch.checkpoint import resume_trainer
+    from ai4e_tpu_torch.train import Trainer
+    from ai4e_tpu_torch.train.step import adamw
+
+    model, rules = train_model(run, mesh)
+    fresh = Trainer(model, device="cpu", mesh=mesh, tp_rules=rules,
+                    optimizer=lambda p: adamw(p, lr=run["lr"]))
+    rec["resumed_step"] = resume_trainer(mgr, fresh)
+    rec["resumed_equal"] = (
+        {k: digest(t) for k, t in fresh.params.items()}
+        == {k: digest(t) for k, t in trainer.params.items()}
+        and all({k: digest(t) for k, t in fresh.opt_state[sk].items()}
+                == {k: digest(t) for k, t in trainer.opt_state[sk].items()}
+                for sk in ("exp_avg", "exp_avg_sq")))
+    images, labels = inputs[run["batch"]], inputs[run["labels"]]
+    rec["next_losses"] = [trainer.train_step(images, labels),
+                          fresh.train_step(images, labels)]
 
 
 def train() -> None:
@@ -200,13 +240,16 @@ def train() -> None:
     the refusal of each mesh in ``case["refused"]``."""
     from ai4e_tpu_torch.checkpoint import CheckpointManager, save_trainer
     from ai4e_tpu_torch.train import Trainer
+    from ai4e_tpu_torch.train.step import adamw
 
     for run in case["train"]:
         name = run["name"]
         mesh = make_mesh(MeshSpec(**run["mesh"]), device_type="cpu")
         model, rules = train_model(run, mesh)
+        optimizer = (None if "lr" not in run
+                     else lambda p, lr=run["lr"]: adamw(p, lr=lr))
         trainer = Trainer(model, device="cpu", mesh=mesh, tp_rules=rules,
-                          remat=run.get("remat", False))
+                          remat=run.get("remat", False), optimizer=optimizer)
         images, labels = inputs[run["batch"]], inputs[run["labels"]]
         rec = info.setdefault(name, {"losses": [], "params": [], "grads": [],
                                      "reports": []})
@@ -230,6 +273,8 @@ def train() -> None:
                     for sk, by_name in state.items():
                         for key, t in by_name.items():
                             out[f"{name}/opt/{sk}/{key}"] = t.numpy().copy()
+                if run.get("resume"):
+                    resume_check(run, mesh, mgr, trainer, rec)
         if run.get("odd_batch"):
             try:
                 trainer.train_step(images[:3], labels[:3])

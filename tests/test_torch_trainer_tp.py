@@ -310,9 +310,11 @@ class TestSeqFormerDataParallel:
 class TestRefusedMeshes:
     @pytest.mark.parametrize("index,axis", [(0, "sp=2"), (1, "ep=2")])
     def test_sp_and_ep_name_a15_2(self, world2, index, axis):
+        """A15.2 is done: an sp or ep mesh trains
+        (``tests/test_torch_trainer_sp_ep.py``), so neither mesh of
+        ``case["refused"]`` raises any more."""
         for _, info in world2:
-            assert "A15.2" in info["refused"][index]
-            assert axis in info["refused"][index]
+            assert "refused" not in info, (axis, info.get("refused"))
 
     def test_tp_rules_without_a_mesh_raise(self):
         with pytest.raises(ValueError, match="mesh"):
