@@ -5,6 +5,15 @@
 // strides with unit stride on D -> out in q's dtype, written through its own
 // B/H/S strides, plus the float32 (B, H, S_q) logsumexp when asked for.
 //
+// Head dims: every kernel is instantiated at D = 16, 32, 64, 128 and 256
+// (the tiles' width) and runs any head dim d up to it (`tile_d` picks the
+// narrowest that holds d): the bf16 tensor maps' inner extent is d, so TMA
+// reads the columns past d as zero, which leave every score and Delta
+// unchanged and make the output and gradient columns past d zero; the
+// float32 kernels mask them; every store stops at d. d is a whole number
+// of 16-byte chunks (ops/flash_attention.py pads other rows). Grids are
+// one-dimensional, B*H a factor of blockIdx.x, so B*H has no 65,535 limit.
+//
 // Forward. Replaces the TPU kernel `_flash_kernel` in
 // ai4e_tpu/ops/pallas/flash_attention.py:73 (driven by `_forward_call` and
 // `flash_attention`). Its arithmetic is kept: scores in float32 scaled by
@@ -49,6 +58,10 @@
 // pre-scaled q would not be exact in bf16, and the TPU scaled an exact
 // float32 copy. TMA zero-fills rows past S, so keys past S_k are still
 // masked explicitly. Not yet done: a persistent grid.
+//
+// At D = 256 (`FwdTile`) a consumer's O accumulator is 128 registers a
+// thread, so a K/V tile holds 64 keys, P.V runs as two N = 128 products, and
+// the epilogue stages O in the Q tile's rows.
 //
 // float32 inputs take a plain CUDA-core kernel (32-row tiles, one FMA chain
 // per score) that repeats the TPU's float32 products exactly: it is not on the
@@ -123,6 +136,9 @@
 // 84,008 / 133,160 at D = 16 / 32 / 64). scripts/flash_backward_variants.py
 // times it in turns against other csrc/ copies and ablated ones.
 //
+// At D = 256 the fused kernel is `flash_bwd_wgmma_wide` (see there): 64 keys
+// a CTA, the two consumers splitting dK, dV and dQ's columns.
+//
 // float32 inputs take the same preparation pass, then plain CUDA-core
 // kernels (dK/dV over 32-key CTAs, dQ over 32-row CTAs) that repeat the
 // TPU's float32 products: for the tests, not on the trained path.
@@ -148,7 +164,10 @@ struct Params {
   float* lse;  // (B, H, S_q) contiguous, or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
-  int heads, s_q, s_k, causal;
+  // d: the operands' head dim, at most the instantiation's D (the tiles'
+  // width), a multiple of 8 in bf16 and of 4 in float32; columns past it
+  // read as zero and are not written.
+  int heads, s_q, s_k, d, causal;
   float scale;
 };
 
@@ -169,7 +188,6 @@ struct Swizzled {
 // -- bfloat16 forward: TMA, wgmma, warp specialisation ----------------------
 
 constexpr int kFwdBlockM = 128;  // query rows per CTA, 64 per consumer
-constexpr int kFwdBlockN = 128;  // keys per tile
 constexpr int kFwdStages = 2;    // K/V ring depth
 constexpr int kFwdThreads = 384; // producer warpgroup + two consumers
 // setmaxnreg: 128 * 40 + 256 * 232 = 65536, the SM's register file.
@@ -178,15 +196,33 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // turn to issue its products (see the consumer loop).
 constexpr int kTurn = 3;
 
+// The bf16 forward's tiles at head dim D. Up to D = 128 a K/V tile holds
+// 128 keys and each consumer stages its O for the epilogue in a tile of its
+// own. At D = 256 a consumer's O accumulator alone is 128 float32 registers
+// a thread (64 rows x 256), so a K/V tile holds 64 keys (S then takes 32
+// registers, P 16), P.V runs as two N = 128 products, and O is staged in
+// the consumer's own 64 rows of the Q tile, which no product reads once its
+// key loop is done: Q (64 KB) and two stages of K and V (128 KB) then fill
+// the shared memory.
+template <int D>
+struct FwdTile {
+  static constexpr int kBlockN = D > 128 ? 64 : 128;  // keys a K/V tile
+  static constexpr int kOParts = D > 128 ? 2 : 1;     // P.V products a tile
+  static constexpr int kOCols = D / kOParts;          // columns of each
+  static constexpr bool kStageInQ = D > 128;
+};
+
 // The CTA's shared memory, in bytes from a 1024-aligned base: Q, the K and
-// V rings (each tile as TMA boxes, see hopper.cuh), two 64-row output
-// staging tiles padded by 16 bytes a row, then the mbarriers.
+// V rings (each tile as TMA boxes, see hopper.cuh), up to D = 128 two
+// 64-row output staging tiles padded by 16 bytes a row, then the mbarriers.
 template <int D>
 struct FwdSmem {
   static constexpr int kQBytes = kFwdBlockM * D * 2;
-  static constexpr int kKVBytes = kFwdBlockN * D * 2;  // one stage of K or V
-  static constexpr int kOStride = D + 8;                // bf16 a staging row
-  static constexpr int kOBytes = 64 * kOStride * 2;
+  // One stage of K or V.
+  static constexpr int kKVBytes = FwdTile<D>::kBlockN * D * 2;
+  static constexpr int kOStride = D + 8;  // bf16 a staging row
+  static constexpr int kOBytes =
+      FwdTile<D>::kStageInQ ? 0 : 64 * kOStride * 2;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kFwdStages * kKVBytes;
@@ -243,28 +279,40 @@ __device__ __forceinline__ void load_boxes(uint32_t dst, const CUtensorMap* map,
 }
 
 // S = Q.K^T for one consumer's 64 rows (from row0 of the Q tile) and the
-// 128 keys of a K tile, issued and committed as one wgmma group.
+// keys of a K tile, issued and committed as one wgmma group.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kFwdBlockN / 2],
+__device__ __forceinline__ void issue_qk(float (&s)[FwdTile<D>::kBlockN / 2],
                                          uint32_t q_tile, int row0,
                                          uint32_t k_tile) {
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
-    hopper::wgmma_ss<0, 0>(s, kmajor_desc<D>(q_tile, kFwdBlockM, row0, kc),
-                           kmajor_desc<D>(k_tile, kFwdBlockN, 0, kc), kc > 0);
+    hopper::wgmma_ss<0, 0>(
+        s, kmajor_desc<D>(q_tile, kFwdBlockM, row0, kc),
+        kmajor_desc<D>(k_tile, FwdTile<D>::kBlockN, 0, kc), kc > 0);
   }
   hopper::wgmma_commit();
 }
 
 // O += P.V, P (bf16) from registers, V MN-major from shared memory, issued
-// and committed as one wgmma group.
+// and committed as one wgmma group: O's column block `part` (kOCols wide)
+// reads V from its first box on.
 template <int D>
 __device__ __forceinline__ void issue_pv(
-    float (&o)[D / 2], const uint32_t (&a)[kFwdBlockN / 16][4],
-    uint32_t v_tile) {
+    float (&o)[FwdTile<D>::kOParts][FwdTile<D>::kOCols / 2],
+    const uint32_t (&a)[FwdTile<D>::kBlockN / 16][4], uint32_t v_tile) {
+  using T = FwdTile<D>;
+  using S = Swizzled<D>;
 #pragma unroll
-  for (int kc = 0; kc < kFwdBlockN / 16; ++kc) {
-    hopper::wgmma_rs<1>(o, a[kc], mnmajor_desc<D>(v_tile, kFwdBlockN, kc), 1);
+  for (int kc = 0; kc < T::kBlockN / 16; ++kc) {
+#pragma unroll
+    for (int part = 0; part < T::kOParts; ++part) {
+      hopper::wgmma_rs<1>(
+          o[part], a[kc],
+          mnmajor_desc<D>(v_tile + part * (T::kOCols / S::kBoxCols) *
+                                       T::kBlockN * S::kSwizzle,
+                          T::kBlockN, kc),
+          1);
+    }
   }
   hopper::wgmma_commit();
 }
@@ -275,14 +323,15 @@ __device__ __forceinline__ void issue_pv(
 // maxima m2 are kept in the base-2 domain, max(score) * scale * log2(e), so
 // P = 2^(score * scale2 - m2) is one FMA and one ex2; corr is the factor
 // the running sums (done here) and O (done by the caller) are scaled by.
-__device__ __forceinline__ void online_softmax(float (&s)[kFwdBlockN / 2],
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2],
                                                float (&m2)[2], float (&l)[2],
                                                float (&corr)[2], float scale2,
                                                bool mask, int k0, int s_k,
                                                int causal, int row_a, int t) {
   if (mask) {
 #pragma unroll
-    for (int i = 0; i < kFwdBlockN / 2; ++i) {
+    for (int i = 0; i < N / 2; ++i) {
       const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
       if (key >= s_k || (causal && key > row_a + 8 * ((i >> 1) & 1))) {
         s[i] = kNegInf;
@@ -293,7 +342,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kFwdBlockN / 2],
   // exactly the maximum of the scaled ones.
   float m_new[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int i = 0; i < kFwdBlockN / 2; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s[i]);
   }
 #pragma unroll
@@ -306,7 +355,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kFwdBlockN / 2],
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < kFwdBlockN / 2; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     s[i] = hopper::ex2(fmaf(s[i], scale2, -m2[(i >> 1) & 1]));
     l[(i >> 1) & 1] += s[i];
   }
@@ -331,6 +380,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ Params p,
                 const __grid_constant__ FwdMaps maps) {
   using S = FwdSmem<D>;
+  using T = FwdTile<D>;
+  constexpr int kBlockN = T::kBlockN;
   extern __shared__ __align__(16) uint8_t fwd_smem[];
   const uint32_t raw = hopper::smem_addr(fwd_smem);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -348,11 +399,14 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     return base + S::kV + (it % kFwdStages) * S::kKVBytes;
   };
 
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kFwdBlockM;
-  int n_tiles = (p.s_k + kFwdBlockN - 1) / kFwdBlockN;
+  // One grid dimension: (b*h, query tile), query tiles fastest, so B*H
+  // has no 65,535 limit.
+  const int n_qt = (p.s_q + kFwdBlockM - 1) / kFwdBlockM;
+  const int bh = blockIdx.x / n_qt, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = (blockIdx.x % n_qt) * kFwdBlockM;
+  int n_tiles = (p.s_k + kBlockN - 1) / kBlockN;
   if (p.causal) {
-    n_tiles = min(n_tiles, (q0 + kFwdBlockM - 1) / kFwdBlockN + 1);
+    n_tiles = min(n_tiles, (q0 + kFwdBlockM - 1) / kBlockN + 1);
   }
 
   if (threadIdx.x == 0) {
@@ -380,12 +434,12 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
         const uint32_t parity = ((it / kFwdStages) & 1) ^ 1;
         hopper::mbar_wait(k_empty(st), parity);
         hopper::mbar_expect_tx(k_full(st), S::kKVBytes);
-        load_boxes<D>(k_tile(it), &maps.k, maps.k_sel, k_full(st),
-                      kFwdBlockN, it * kFwdBlockN, h, b);
+        load_boxes<D>(k_tile(it), &maps.k, maps.k_sel, k_full(st), kBlockN,
+                      it * kBlockN, h, b);
         hopper::mbar_wait(v_empty(st), parity);
         hopper::mbar_expect_tx(v_full(st), S::kKVBytes);
-        load_boxes<D>(v_tile(it), &maps.v, maps.v_sel, v_full(st),
-                      kFwdBlockN, it * kFwdBlockN, h, b);
+        load_boxes<D>(v_tile(it), &maps.v, maps.v_sel, v_full(st), kBlockN,
+                      it * kBlockN, h, b);
       }
     }
   } else {
@@ -402,18 +456,27 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     const int row_a = q0 + 64 * c + 16 * warp + g;
     const uint32_t q_tile = base + S::kQ;
 
-    float o[D / 2];
+    float o[T::kOParts][T::kOCols / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int part = 0; part < T::kOParts; ++part) {
+#pragma unroll
+      for (int i = 0; i < T::kOCols / 2; ++i) o[part][i] = 0.f;
+    }
     const float scale2 = p.scale * kLog2e;  // see online_softmax
     float m2[2] = {kNegInf, kNegInf};
     float l_row[2] = {0.f, 0.f};  // this lane's share until the epilogue
-    float s[kFwdBlockN / 2];
-    uint32_t a[kFwdBlockN / 16][4];  // P of the previous tile, bf16
+    float s[kBlockN / 2];
+    uint32_t a[kBlockN / 16][4];  // P of the previous tile, bf16
     float corr[2];
     auto mask = [&](int it) {
-      return (it + 1) * kFwdBlockN > p.s_k ||
-             (p.causal && (it + 1) * kFwdBlockN - 1 > q0 + 64 * c);
+      return (it + 1) * kBlockN > p.s_k ||
+             (p.causal && (it + 1) * kBlockN - 1 > q0 + 64 * c);
+    };
+    auto fence_o = [&]() {
+#pragma unroll
+      for (int part = 0; part < T::kOParts; ++part) {
+        hopper::fence_operand(o[part]);
+      }
     };
 
     const int other = 1 - c;
@@ -427,9 +490,9 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     hopper::wgmma_wait<0>();
     hopper::fence_operand(s);
     if (lane == 0) hopper::mbar_arrive(k_empty(0));
-    online_softmax(s, m2, l_row, corr, scale2, mask(0), 0, p.s_k, p.causal,
-                   row_a, t);
-    pack_frag<kFwdBlockN>(a, s);
+    online_softmax<kBlockN>(s, m2, l_row, corr, scale2, mask(0), 0, p.s_k,
+                            p.causal, row_a, t);
+    pack_frag<kBlockN>(a, s);
     for (int it = 1; it < n_tiles; ++it) {
       const int st = it % kFwdStages, prev = (it - 1) % kFwdStages;
       hopper::mbar_wait(k_full(st), (it / kFwdStages) & 1);
@@ -442,15 +505,20 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
       hopper::wgmma_wait<1>();  // S(it) is in; P(it-1).V(it-1) may run on
       hopper::fence_operand(s);
       if (lane == 0) hopper::mbar_arrive(k_empty(st));
-      online_softmax(s, m2, l_row, corr, scale2, mask(it), it * kFwdBlockN,
-                     p.s_k, p.causal, row_a, t);
+      online_softmax<kBlockN>(s, m2, l_row, corr, scale2, mask(it),
+                              it * kBlockN, p.s_k, p.causal, row_a, t);
       hopper::wgmma_wait<0>();
-      hopper::fence_operand(o);
+      fence_o();
       hopper::fence_operand(a);
       if (lane == 0) hopper::mbar_arrive(v_empty(prev));
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-      pack_frag<kFwdBlockN>(a, s);
+      for (int part = 0; part < T::kOParts; ++part) {
+#pragma unroll
+        for (int i = 0; i < T::kOCols / 2; ++i) {
+          o[part][i] *= corr[(i >> 1) & 1];
+        }
+      }
+      pack_frag<kBlockN>(a, s);
     }
     const int last = n_tiles - 1;
     hopper::mbar_wait(v_full(last % kFwdStages), (last / kFwdStages) & 1);
@@ -461,14 +529,29 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     // everything by then, and each barrier sees as many arrivals as syncs.
     if (c == 0) hopper::named_barrier_arrive(kTurn + other, 256);
     hopper::wgmma_wait<0>();
-    hopper::fence_operand(o);
+    fence_o();
     if (lane == 0) hopper::mbar_arrive(v_empty(last % kFwdStages));
     const float m_row[2] = {m2[0] / kLog2e, m2[1] / kLog2e};  // natural log
 
-    // Epilogue: out = O / max(l, 1e-30) in bf16 through this warpgroup's
-    // staging tile, then 16-byte row chunks to global memory.
-    uint16_t* stage =
-        reinterpret_cast<uint16_t*>(smem + S::kO + c * S::kOBytes);
+    // Epilogue: out = O / max(l, 1e-30) in bf16 through shared memory, then
+    // 16-byte row chunks to global memory, the chunks past d left out. Up
+    // to D = 128 the staging tile is this warpgroup's own, rows padded by
+    // 16 bytes; at D = 256 it is this consumer's 64 rows of the Q tile,
+    // swizzled as TMA loaded them (row r's 16-byte chunk j of a box at
+    // chunk j ^ (r % 8)), so a warp's 4-byte stores fall in 32 banks.
+    auto chunk_at = [&](int local, int chunk) -> uint8_t* {
+      if constexpr (T::kStageInQ) {
+        using W = Swizzled<D>;
+        constexpr int kPerBox = W::kSwizzle / 16;  // chunks a box row
+        const int row = 64 * c + local;
+        return smem + S::kQ + (chunk / kPerBox) * kFwdBlockM * W::kSwizzle +
+               row * W::kSwizzle + (((chunk % kPerBox) ^ (row % 8)) << 4);
+      } else {
+        return smem + S::kO + c * S::kOBytes +
+               (local * S::kOStride + chunk * 8) * 2;
+      }
+    };
+    constexpr int kPartChunks = T::kOCols / 8;  // 8-column chunks a part
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l_row[r] += __shfl_xor_sync(0xffffffffu, l_row[r], 1);
@@ -477,9 +560,10 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
       const int local = 16 * warp + g + 8 * r;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        uint16_t* pair = stage + local * S::kOStride + 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(pair) =
-            pack_bf16(o[4 * j + 2 * r] / l, o[4 * j + 2 * r + 1] / l);
+        const int part = j / kPartChunks, jj = j % kPartChunks;
+        *reinterpret_cast<uint32_t*>(chunk_at(local, j) + 4 * t) =
+            pack_bf16(o[part][4 * jj + 2 * r] / l,
+                      o[part][4 * jj + 2 * r + 1] / l);
       }
       const int row = row_a + 8 * r;
       if (p.lse != nullptr && t == 0 && row < p.s_q) {
@@ -492,10 +576,9 @@ flash_fwd_wgmma(const __grid_constant__ Params p,
     for (int i = tid; i < 64 * kChunks; i += 128) {
       const int local = i / kChunks, chunk = i % kChunks;
       const int row = q0 + 64 * c + local;
-      if (row < p.s_q) {
-        const uint16_t* from = stage + local * S::kOStride + chunk * 8;
+      if (row < p.s_q && chunk * 8 < p.d) {
         *reinterpret_cast<uint4*>(out + row * p.o_ss + chunk * 8) =
-            *reinterpret_cast<const uint4*>(from);
+            *reinterpret_cast<const uint4*>(chunk_at(local, chunk));
       }
     }
   }
@@ -524,8 +607,10 @@ flash_fwd_f32(const Params p) {
   float* v_s = k_s + kF32Block * kStride;  // [32][D]
   float* p_s = v_s + kF32Block * D;        // [32][33]
 
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kF32Block;
+  // One grid dimension: (b*h, 32-row tile), tiles fastest.
+  const int n_qt = (p.s_q + kF32Block - 1) / kF32Block;
+  const int bh = blockIdx.x / n_qt, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = (blockIdx.x % n_qt) * kF32Block;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -535,7 +620,9 @@ flash_fwd_f32(const Params p) {
   for (int i = threadIdx.x; i < kF32Block * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     // The TPU kernel scales q before the product: q * scale, then q . k.
-    q_s[rr * kStride + d] = q0 + rr < p.s_q ? q[(q0 + rr) * p.q_ss + d] * p.scale : 0.f;
+    q_s[rr * kStride + d] = q0 + rr < p.s_q && d < p.d
+                                ? q[(q0 + rr) * p.q_ss + d] * p.scale
+                                : 0.f;
   }
 
   int n_tiles = (p.s_k + kF32Block - 1) / kF32Block;
@@ -550,7 +637,7 @@ flash_fwd_f32(const Params p) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = threadIdx.x; i < kF32Block * D; i += kThreads) {
       const int j = i / D, d = i % D;
-      const bool valid = k0 + j < p.s_k;
+      const bool valid = k0 + j < p.s_k && d < p.d;
       k_s[j * kStride + d] = valid ? k[(k0 + j) * p.k_ss + d] : 0.f;
       v_s[j * D + d] = valid ? v[(k0 + j) * p.v_ss + d] : 0.f;
     }
@@ -601,7 +688,9 @@ flash_fwd_f32(const Params p) {
     float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
     const float lc = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) o[quarter + 4 * i] = acc[i] / lc;
+    for (int i = 0; i < D / 4; ++i) {
+      if (quarter + 4 * i < p.d) o[quarter + 4 * i] = acc[i] / lc;
+    }
     if (p.lse != nullptr && quarter == 0) {
       p.lse[(long long)bh * p.s_q + row] = m + logf(lc);
     }
@@ -631,7 +720,8 @@ struct BwdParams {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long do_sb, do_sh, do_ss, o_sb, o_sh, o_ss;
   long long dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss;
-  int batch, heads, s_q, s_k, s_pad, causal;
+  // d: the operands' head dim, as in Params.
+  int batch, heads, s_q, s_k, s_pad, d, causal;
   float scale;
 };
 
@@ -681,32 +771,39 @@ constexpr int kSemsPerTile = 2;
 // The input pass of the backward, one CTA of 128 threads per (b*h, 64-row
 // tile): Delta = rowsum(dO * O) in float32 (as `bwd_delta`) and lse *
 // log2(e), zero past S_q, and for bf16 the tile of the dQ accumulator set to
-// zero, with its counters when dQ is ordered. A row is read in 16-byte
-// chunks by kLanes adjacent lanes.
+// zero, with its counters when dQ is ordered. A row of D columns is read in
+// 16-byte chunks by kLanes adjacent lanes, kLanes chunks at a time; chunks
+// past d are not read.
 template <bool kBf16, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_prep(const BwdParams p) {
   constexpr int kElem = kBf16 ? 2 : 4;  // bytes an element
-  constexpr int kLanes = D * kElem / 16;
+  constexpr int kChunks = D * kElem / 16;
+  constexpr int kLanes = kChunks < 32 ? kChunks : 32;
   constexpr int kRows = 32 / kLanes;    // rows a warp reads at once
   const int n_qt = p.s_pad / kBwdBlockM;
   const int bh = blockIdx.x / n_qt, it = blockIdx.x % n_qt;
   const int b = bh / p.heads, h = bh % p.heads;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long col = (lane % kLanes) * (16 / kElem);
   const char* dout = static_cast<const char*>(p.dout) +
-                     (b * p.do_sb + h * p.do_sh + col) * kElem;
+                     (b * p.do_sb + h * p.do_sh) * kElem;
   const char* out = static_cast<const char*>(p.out) +
-                    (b * p.o_sb + h * p.o_sh + col) * kElem;
+                    (b * p.o_sb + h * p.o_sh) * kElem;
   // 64 is a multiple of kWarps * kRows: every lane runs the same rounds.
   for (int r = warp * kRows + lane / kLanes; r < kBwdBlockM;
        r += kWarps * kRows) {
     const int row = it * kBwdBlockM + r;
     float acc = 0.f;
-    if (row < p.s_q) {
-      acc = dot16<kBf16>(
-          *reinterpret_cast<const uint4*>(dout + row * p.do_ss * kElem),
-          *reinterpret_cast<const uint4*>(out + row * p.o_ss * kElem));
+#pragma unroll
+    for (int chunk = lane % kLanes; chunk < kChunks; chunk += kLanes) {
+      const long long col = chunk * (16 / kElem);
+      if (row < p.s_q && col < p.d) {
+        acc += dot16<kBf16>(
+            *reinterpret_cast<const uint4*>(
+                dout + (row * p.do_ss + col) * kElem),
+            *reinterpret_cast<const uint4*>(
+                out + (row * p.o_ss + col) * kElem));
+      }
     }
 #pragma unroll
     for (int off = kLanes / 2; off > 0; off /= 2) {
@@ -800,18 +897,20 @@ __device__ __forceinline__ uint64_t ds_desc(uint32_t tile, int kc) {
 
 // Rows row_a and row_a + 8 of a consumer's m64nD float32 accumulator
 // (hopper.cuh's layout), times `scale`, as bf16 into rows of `out` (row
-// stride `ss`); rows at or past `rows` are left out.
+// stride `ss`); rows at or past `rows` and columns at or past `cols` (a
+// multiple of 8) are left out.
 template <int D>
 __device__ __forceinline__ void store_rows(uint16_t* out, long long ss,
                                            const float (&acc)[D / 2],
-                                           int row_a, int rows, int t,
-                                           float scale) {
+                                           int row_a, int rows, int cols,
+                                           int t, float scale) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int row = row_a + 8 * rr;
     if (row >= rows) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= cols) break;
       *reinterpret_cast<uint32_t*>(out + row * ss + 8 * j + 2 * t) =
           pack_bf16(acc[4 * j + 2 * rr] * scale,
                     acc[4 * j + 2 * rr + 1] * scale);
@@ -1114,34 +1213,317 @@ flash_bwd_wgmma(const __grid_constant__ BwdParams p,
     if (tid == 0) hopper::bulk_wait<0>();
 
     store_rows<D>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb + h * p.dk_sh,
-                  p.dk_ss, dk, key_a, p.s_k, t, p.scale);
+                  p.dk_ss, dk, key_a, p.s_k, p.d, t, p.scale);
     store_rows<D>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb + h * p.dv_sh,
-                  p.dv_ss, dv, key_a, p.s_k, t, 1.f);
+                  p.dv_ss, dv, key_a, p.s_k, p.d, t, 1.f);
   }
 }
 
-// dq = D**-0.5 * the accumulator, rounded to bf16 and written through dq's
-// strides, one thread per 8 columns of a row (one 16-byte store). For each
-// (b*h, 64-row tile) the accumulator holds kDqSplit column blocks of
-// kDqCols, each as its consumer stored it: float4 j * 128 + thread is that
-// thread's dq[4j .. 4j + 3] (rows 16w + g and 16w + g + 8, columns 8j + 2t
-// and 8j + 2t + 1; hopper.cuh).
+// -- backward, bfloat16, D > 128 ---------------------------------------------
+
+// The fused kernel at D = 256 ("wide"). At 64 keys a consumer, dK and dV
+// would take 128 + 128 float32 registers a thread, over the 240 a consumer
+// has; and K and V at 128 keys with two stages of Q and dO would take
+// 256 KB of shared memory. So a CTA owns 64 keys, and its two consumer
+// warpgroups split the D columns: consumer c keeps dK and dV of columns
+// [c D/2, (c + 1) D/2) for all 64 keys (64 + 64 registers), and both
+// compute the same S^T = K.Q^T and dP^T = V.dO^T over all D (the price of
+// the split: those two of the five products run twice, 1.4 times the
+// flops; sharing them through shared memory would make the consumers wait
+// on each other). Each consumer then adds dV += P^T.dO and dK += dS^T.Q
+// for its columns, writes its dS^T to a tile of its own, and computes
+// dQ = dS.K for its columns, 64 at a time, added into the float32
+// accumulator from registers by vector reductions in L2 (no shared
+// staging tile: it would not fit). Ordered (`kOrdered`), consumer c of key
+// tile kt adds a query tile's dQ once that tile's counter c reads kt, and
+// adds one to it once its adds are visible. Smem: K and V (32 KB each), two
+// stages of Q and dO (128 KB), two dS^T tiles (16 KB), lse and Delta.
+constexpr int kWideBlockN = 64;  // keys a CTA of the wide kernel
+
+template <int D>
+struct BwdWideSmem : Swizzled<D> {
+  static constexpr int kCols = D / 2;  // dK/dV/dQ columns a consumer owns
+  static constexpr int kKVBytes = kWideBlockN * D * 2;          // K or V
+  static constexpr int kQBytes = kBwdBlockM * D * 2;            // Q or dO
+  static constexpr int kDsBytes = kWideBlockN * kBwdBlockM * 2;  // dS^T
+  static constexpr int kRowBytes = kBwdBlockM * 4;              // lse or Delta
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKVBytes;
+  static constexpr int kQ = kV + kKVBytes;
+  static constexpr int kDO = kQ + kBwdStages * kQBytes;
+  static constexpr int kDS = kDO + kBwdStages * kQBytes;
+  static constexpr int kLse = kDS + 2 * kDsBytes;
+  static constexpr int kDelta = kLse + kBwdStages * kRowBytes;
+  static constexpr int kBar = kDelta + kBwdStages * kRowBytes;
+  static constexpr int kBars = 1 + 2 * kBwdStages;  // kv_full, full, empty
+  static constexpr size_t kBytes = kBar + kBars * 8 + 1024;  // + alignment
+};
+
+template <int D, bool kOrdered>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_wgmma_wide(const __grid_constant__ BwdParams p,
+                     const __grid_constant__ BwdMaps maps) {
+  using S = BwdWideSmem<D>;
+  constexpr int kCols = S::kCols;
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  const uint32_t raw = hopper::smem_addr(wide_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const smem = wide_smem + (base - raw);
+  const uint32_t bars = base + S::kBar, kv_full = bars;
+  auto full = [=](int st) { return bars + 8 * (1 + st); };
+  auto empty = [=](int st) { return bars + 8 * (1 + kBwdStages + st); };
+
+  // This CTA's (b*h, key tile), in flash_bwd_wgmma's order.
+  const int n_kt = (p.s_k + kWideBlockN - 1) / kWideBlockN;
+  const int n_bh = p.batch * p.heads;
+  const bool kt_outer = p.causal || kOrdered;
+  const int kt = kt_outer ? blockIdx.x / n_bh : blockIdx.x % n_kt;
+  const int bh = kt_outer ? blockIdx.x % n_bh : blockIdx.x / n_kt;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int k0 = kt * kWideBlockN;
+  const int n_qt = p.s_pad / kBwdBlockM;
+  const int it0 = p.causal ? k0 / kBwdBlockM : 0;
+  const bool descend = kOrdered && p.causal;
+  const int n_tiles = n_qt - it0;
+  auto tile_of = [=](int n) { return descend ? n_qt - 1 - n : it0 + n; };
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int st = 0; st < kBwdStages; ++st) {
+      hopper::mbar_init(full(st), 1);
+      hopper::mbar_init(empty(st), 8);  // lane 0 of each consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread loads K and V, then keeps the Q/dO ring full.
+    hopper::setmaxnreg_dec<kBwdProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(kv_full, 2 * S::kKVBytes);
+      load_boxes<D>(base + S::kK, &maps.k, maps.k_sel, kv_full, kWideBlockN,
+                    k0, h, b);
+      load_boxes<D>(base + S::kV, &maps.v, maps.v_sel, kv_full, kWideBlockN,
+                    k0, h, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int it = tile_of(n), st = n % kBwdStages;
+        hopper::mbar_wait(empty(st), ((n / kBwdStages) & 1) ^ 1);
+        const int q0 = it * kBwdBlockM;
+        hopper::mbar_expect_tx(full(st),
+                               2 * S::kQBytes + 2 * S::kRowBytes);
+        load_boxes<D>(base + S::kQ + st * S::kQBytes, &maps.q, maps.q_sel,
+                      full(st), kBwdBlockM, q0, h, b);
+        load_boxes<D>(base + S::kDO + st * S::kQBytes, &maps.dout,
+                      maps.do_sel, full(st), kBwdBlockM, q0, h, b);
+        const long long row = (long long)bh * p.s_pad + q0;
+        hopper::bulk_load(base + S::kLse + st * S::kRowBytes, p.lse2 + row,
+                          S::kRowBytes, full(st));
+        hopper::bulk_load(base + S::kDelta + st * S::kRowBytes,
+                          p.delta + row, S::kRowBytes, full(st));
+      }
+    }
+  } else {
+    // Consumer c: all 64 keys as the M dimension of S^T, dP^T, dV and dK;
+    // this thread holds keys key_a and key_a + 8 and, of each query tile,
+    // the queries 8j + 2t and 8j + 2t + 1 (hopper.cuh). Its columns start
+    // at box `box0` of the K, V, Q and dO tiles.
+    hopper::setmaxnreg_inc<kBwdConsumerRegs>();
+    const int c = wg - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int local_a = 16 * warp + g;  // row in the K/V/dS^T tiles
+    const int key_a = k0 + local_a;
+    const uint32_t k_tile = base + S::kK, v_tile = base + S::kV;
+    const uint32_t ds_tile = base + S::kDS + c * S::kDsBytes;
+    const int box0 = c * kCols / S::kBoxCols;
+    const float scale2 = p.scale * kLog2e;  // P = 2^(s * scale2 - lse2)
+
+    float dv[kCols / 2], dk[kCols / 2];
+#pragma unroll
+    for (int i = 0; i < kCols / 2; ++i) dv[i] = dk[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int n = 0; n < n_tiles; ++n) {
+      const int it = tile_of(n), st = n % kBwdStages;
+      const int q0 = it * kBwdBlockM;
+      const uint32_t q_tile = base + S::kQ + st * S::kQBytes;
+      const uint32_t do_tile = base + S::kDO + st * S::kQBytes;
+      hopper::mbar_wait(full(st), (n / kBwdStages) & 1);
+      float s[kBwdBlockM / 2], dp[kBwdBlockM / 2];
+      uint32_t a_p[kBwdBlockM / 16][4], a_ds[kBwdBlockM / 16][4];
+
+      // S^T = K.Q^T and dP^T = V.dO^T over all D, as two wgmma groups.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        hopper::wgmma_ss<0, 0>(
+            s, kmajor_desc<D>(k_tile, kWideBlockN, 0, kc),
+            kmajor_desc<D>(q_tile, kBwdBlockM, 0, kc), kc > 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        hopper::wgmma_ss<0, 0>(
+            dp, kmajor_desc<D>(v_tile, kWideBlockN, 0, kc),
+            kmajor_desc<D>(do_tile, kBwdBlockM, 0, kc), kc > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_operand(s);
+
+      // P^T = 2^(s * scale2 - lse2), masked to 0.
+      const float* lse2 = reinterpret_cast<const float*>(
+          smem + S::kLse + st * S::kRowBytes);
+      const float* delta = reinterpret_cast<const float*>(
+          smem + S::kDelta + st * S::kRowBytes);
+      const bool mask = q0 + kBwdBlockM > p.s_q ||
+                        k0 + kWideBlockN > p.s_k ||
+                        (p.causal && k0 + kWideBlockN - 1 > q0);
+#pragma unroll
+      for (int j = 0; j < kBwdBlockM / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          float x = hopper::ex2(fmaf(s[i], scale2, (e & 1) ? -l2.y : -l2.x));
+          if (mask) {
+            const int key = key_a + 8 * (e >> 1);
+            const int row = q0 + 8 * j + 2 * t + (e & 1);
+            if (row >= p.s_q || key >= p.s_k || (p.causal && key > row)) {
+              x = 0.f;
+            }
+          }
+          s[i] = x;
+        }
+      }
+      pack_frag<kBwdBlockM>(a_p, s);
+
+      // dV[:, this consumer's columns] += P^T.dO, P^T from registers.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBwdBlockM / 16; ++kc) {
+        hopper::wgmma_rs<1>(
+            dv, a_p[kc],
+            mnmajor_desc<D>(do_tile + box0 * kBwdBlockM * S::kSwizzle,
+                            kBwdBlockM, kc),
+            1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // dP^T is in; dV may run on
+      hopper::fence_operand(dp);
+
+      // dS^T = P^T (dP^T - Delta), to registers and this consumer's dS^T
+      // tile, whose last reader (the previous tile's dQ) is done.
+#pragma unroll
+      for (int j = 0; j < kBwdBlockM / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          dp[i] = s[i] * (dp[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      pack_frag<kBwdBlockM>(a_ds, dp);
+      store_ds(smem + S::kDS + c * S::kDsBytes, a_ds, local_a, g, t);
+      hopper::fence_proxy_async();
+
+      // dK[:, this consumer's columns] += dS^T.Q, dS^T from registers.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBwdBlockM / 16; ++kc) {
+        hopper::wgmma_rs<1>(
+            dk, a_ds[kc],
+            mnmajor_desc<D>(q_tile + box0 * kBwdBlockM * S::kSwizzle,
+                            kBwdBlockM, kc),
+            1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dv);
+      hopper::fence_operand(dk);
+      hopper::fence_operand(a_p);
+      hopper::fence_operand(a_ds);
+      // This stage's Q, dO, lse and Delta are read; dQ reads K and dS^T.
+      if (lane == 0) hopper::mbar_arrive(empty(st));
+      hopper::named_barrier_sync(1 + c, 128);  // the whole dS^T is in
+
+      // dQ (64 queries x 64 columns from block box0 + half) = dS.K, dS
+      // read MN-major from the dS^T tile (tnspA), K MN-major; added into
+      // the accumulator's column block from registers, float4 j * 128 +
+      // tid = dq[4j .. 4j + 3], as flash_bwd_dq_convert reads it.
+      float* const acc = p.dq_acc + ((long long)bh * p.s_pad + q0) * D;
+      int* const sem =
+          kOrdered ? p.dq_sem + ((long long)bh * n_qt + it) * kSemsPerTile + c
+                   : nullptr;
+#pragma unroll
+      for (int half = 0; half < kCols / 64; ++half) {
+        float dq[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < kWideBlockN / 16; ++kc) {
+          hopper::wgmma_ss<1, 1>(
+              dq, ds_desc(ds_tile, kc),
+              mnmajor_desc<D>(k_tile + (box0 + half) * kWideBlockN *
+                                           S::kSwizzle,
+                              kWideBlockN, kc),
+              kc > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(dq);
+        if (kOrdered && half == 0) {
+          // Key tiles below kt have added into this query tile.
+          if (tid == 0) hopper::sem_wait_eq(sem, kt);
+          hopper::named_barrier_sync(3 + c, 128);
+        }
+        float* const blk = acc + (box0 + half) * kBwdBlockM * 64;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          hopper::red_add_v4(blk + (j * 128 + tid) * 4,
+                             make_float4(dq[4 * j], dq[4 * j + 1],
+                                         dq[4 * j + 2], dq[4 * j + 3]));
+        }
+      }
+      if (kOrdered) {
+        __threadfence();  // this thread's adds, before the counter moves
+        hopper::named_barrier_sync(3 + c, 128);
+        if (tid == 0) hopper::sem_release_inc(sem);
+      }
+    }
+
+    const int cols = p.d - c * kCols;
+    store_rows<kCols>(static_cast<uint16_t*>(p.dk) + b * p.dk_sb +
+                          h * p.dk_sh + c * kCols,
+                      p.dk_ss, dk, key_a, p.s_k, cols, t, p.scale);
+    store_rows<kCols>(static_cast<uint16_t*>(p.dv) + b * p.dv_sb +
+                          h * p.dv_sh + c * kCols,
+                      p.dv_ss, dv, key_a, p.s_k, cols, t, 1.f);
+  }
+}
+
+// dq = scale * the accumulator, rounded to bf16 and written through dq's
+// strides, one thread per 8 of the d columns of a row (one 16-byte store).
+// For each (b*h, 64-row tile) the accumulator holds D / kCols column blocks
+// of kCols = min(D, 64), each as its warpgroup stored it: float4 j * 128 +
+// thread is that thread's dq[4j .. 4j + 3] (rows 16w + g and 16w + g + 8,
+// columns 8j + 2t and 8j + 2t + 1; hopper.cuh).
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_dq_convert(const BwdParams p) {
-  using S = BwdSmem<D>;
-  constexpr int kChunks = D / 8;
+  constexpr int kCols = D < 64 ? D : 64;
+  const int chunks = p.d / 8;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)p.batch * p.heads * p.s_q * kChunks) return;
-  const int col = (int)(i % kChunks) * 8;
-  const long long rows = i / kChunks;
+  if (i >= (long long)p.batch * p.heads * p.s_q * chunks) return;
+  const int col = (int)(i % chunks) * 8;
+  const long long rows = i / chunks;
   const int row = (int)(rows % p.s_q), bh = (int)(rows / p.s_q);
   const int b = bh / p.heads, h = bh % p.heads;
   const int r = row % kBwdBlockM;
-  const int c = col / S::kDqCols, j = (col % S::kDqCols) / 8;
+  const int c = col / kCols, j = (col % kCols) / 8;
   const int thread = (r / 16) * 32 + (r % 8) * 4;  // lane t = 0 of the row
   const float* from = p.dq_acc + ((long long)bh * p.s_pad + row - r) * D +
-                      c * kBwdBlockM * S::kDqCols + (j * 128 + thread) * 4 +
+                      c * kBwdBlockM * kCols + (j * 128 + thread) * 4 +
                       (r % 16) / 8 * 2;
   uint4 packed;
   uint32_t* words = reinterpret_cast<uint32_t*>(&packed);
@@ -1170,10 +1552,11 @@ struct F32BwdTiles {
 template <int D>
 __device__ __forceinline__ void load_f32_tile(float* tile, const float* base,
                                               long long ss, int row0,
-                                              int rows) {
+                                              int rows, int cols) {
   for (int i = threadIdx.x; i < kF32Block * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    tile[r * (D + 1) + d] = row0 + r < rows ? base[(row0 + r) * ss + d] : 0.f;
+    tile[r * (D + 1) + d] =
+        row0 + r < rows && d < cols ? base[(row0 + r) * ss + d] : 0.f;
   }
 }
 
@@ -1194,8 +1577,9 @@ flash_bwd_dkv_f32(const BwdParams p) {
   float* p_s = dl_s + kF32Block;  // [32][33]: P^T of the tile
   float* ds_s = p_s + kF32Block * kP;
 
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int k0 = blockIdx.x * kF32Block;
+  const int n_kt = (p.s_k + kF32Block - 1) / kF32Block;
+  const int bh = blockIdx.x / n_kt, b = bh / p.heads, h = bh % p.heads;
+  const int k0 = (blockIdx.x % n_kt) * kF32Block;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -1203,8 +1587,8 @@ flash_bwd_dkv_f32(const BwdParams p) {
   const int r = threadIdx.x / 4, quarter = threadIdx.x % 4;
   const int key = k0 + r;
 
-  load_f32_tile<D>(k_s, k, p.k_ss, k0, p.s_k);
-  load_f32_tile<D>(v_s, v, p.v_ss, k0, p.s_k);
+  load_f32_tile<D>(k_s, k, p.k_ss, k0, p.s_k, p.d);
+  load_f32_tile<D>(v_s, v, p.v_ss, k0, p.s_k, p.d);
   float dk[D / 4], dv[D / 4];
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
@@ -1213,8 +1597,8 @@ flash_bwd_dkv_f32(const BwdParams p) {
   for (int it = p.causal ? k0 / kF32Block : 0; it < n_tiles; ++it) {
     const int q0 = it * kF32Block;
     __syncthreads();  // the previous tile's readers are done
-    load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
-    load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
+    load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q, p.d);
+    load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q, p.d);
     load_rows(lse_s, p.lse + (long long)bh * p.s_q, q0, p.s_q, kF32Block);
     load_rows(dl_s, p.delta + (long long)bh * p.s_pad, q0, p.s_q, kF32Block);
     __syncthreads();
@@ -1250,8 +1634,10 @@ flash_bwd_dkv_f32(const BwdParams p) {
     float* dvp = static_cast<float*>(p.dv) + b * p.dv_sb + h * p.dv_sh + key * p.dv_ss;
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) {
-      dkp[quarter + 4 * i] = dk[i] * p.scale;
-      dvp[quarter + 4 * i] = dv[i];
+      if (quarter + 4 * i < p.d) {
+        dkp[quarter + 4 * i] = dk[i] * p.scale;
+        dvp[quarter + 4 * i] = dv[i];
+      }
     }
   }
 }
@@ -1270,8 +1656,9 @@ flash_bwd_dq_f32(const BwdParams p) {
   float* v_s = k_s + T::kRow;
   float* ds_s = v_s + T::kRow;  // [32][33]: dS of the tile
 
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int q0 = blockIdx.x * kF32Block;
+  const int n_qt = (p.s_q + kF32Block - 1) / kF32Block;
+  const int bh = blockIdx.x / n_qt, b = bh / p.heads, h = bh % p.heads;
+  const int q0 = (blockIdx.x % n_qt) * kF32Block;
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -1282,8 +1669,8 @@ flash_bwd_dq_f32(const BwdParams p) {
   const float lse_r = valid ? p.lse[(long long)bh * p.s_q + row] : 0.f;
   const float dl_r = valid ? p.delta[(long long)bh * p.s_pad + row] : 0.f;
 
-  load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q);
-  load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q);
+  load_f32_tile<D>(q_s, q, p.q_ss, q0, p.s_q, p.d);
+  load_f32_tile<D>(do_s, dout, p.do_ss, q0, p.s_q, p.d);
   float dq[D / 4];
 #pragma unroll
   for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
@@ -1293,8 +1680,8 @@ flash_bwd_dq_f32(const BwdParams p) {
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kF32Block;
     __syncthreads();
-    load_f32_tile<D>(k_s, k, p.k_ss, k0, p.s_k);
-    load_f32_tile<D>(v_s, v, p.v_ss, k0, p.s_k);
+    load_f32_tile<D>(k_s, k, p.k_ss, k0, p.s_k, p.d);
+    load_f32_tile<D>(v_s, v, p.v_ss, k0, p.s_k, p.d);
     __syncthreads();
 
 #pragma unroll
@@ -1322,9 +1709,15 @@ flash_bwd_dq_f32(const BwdParams p) {
   if (valid) {
     float* dqp = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + row * p.dq_ss;
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) dqp[quarter + 4 * i] = dq[i] * p.scale;
+    for (int i = 0; i < D / 4; ++i) {
+      if (quarter + 4 * i < p.d) dqp[quarter + 4 * i] = dq[i] * p.scale;
+    }
   }
 }
+
+// Launches of the kernels above take one grid dimension, at most
+// kMaxGrid CTAs: B*H is a factor of it, with no 65,535 limit of its own.
+constexpr long long kMaxGrid = 0x7fffffff;
 
 template <typename Kernel, typename P>
 cudaError_t launch(Kernel kernel, size_t smem, int block_rows, int rows,
@@ -1332,29 +1725,32 @@ cudaError_t launch(Kernel kernel, size_t smem, int block_rows, int rows,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((rows + block_rows - 1) / block_rows),
-                  (unsigned)batch_heads);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  const long long grid =
+      (long long)((rows + block_rows - 1) / block_rows) * batch_heads;
+  if (grid > kMaxGrid) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The bf16 forward: q/k/v tensor maps built here, per call, from the
-// pointers and strides in `p`; 384 threads and FwdSmem<D> bytes a CTA.
+// pointers and strides in `p` (columns past p.d read as zero); 384 threads
+// and FwdSmem<D> bytes a CTA.
 template <int D>
 cudaError_t launch_fwd_bf16(const Params& p, int batch, int batch_heads,
                             cudaStream_t stream) {
+  constexpr int kBlockN = FwdTile<D>::kBlockN;
   FwdMaps maps;
   cudaError_t err = hopper::make_operand_map(
-      &maps.q, p.q, D, p.s_q, p.heads, batch, p.q_sb, p.q_sh, p.q_ss,
+      &maps.q, p.q, p.d, D, p.s_q, p.heads, batch, p.q_sb, p.q_sh, p.q_ss,
       kFwdBlockM, &maps.q_sel);
   if (err == cudaSuccess) {
-    err = hopper::make_operand_map(&maps.k, p.k, D, p.s_k, p.heads, batch,
-                                   p.k_sb, p.k_sh, p.k_ss, kFwdBlockN,
+    err = hopper::make_operand_map(&maps.k, p.k, p.d, D, p.s_k, p.heads,
+                                   batch, p.k_sb, p.k_sh, p.k_ss, kBlockN,
                                    &maps.k_sel);
   }
   if (err == cudaSuccess) {
-    err = hopper::make_operand_map(&maps.v, p.v, D, p.s_k, p.heads, batch,
-                                   p.v_sb, p.v_sh, p.v_ss, kFwdBlockN,
+    err = hopper::make_operand_map(&maps.v, p.v, p.d, D, p.s_k, p.heads,
+                                   batch, p.v_sb, p.v_sh, p.v_ss, kBlockN,
                                    &maps.v_sel);
   }
   if (err != cudaSuccess) return err;
@@ -1363,9 +1759,10 @@ cudaError_t launch_fwd_bf16(const Params& p, int batch, int batch_heads,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((p.s_q + kFwdBlockM - 1) / kFwdBlockM),
-                  (unsigned)batch_heads);
-  flash_fwd_wgmma<D><<<grid, kFwdThreads, smem, stream>>>(p, maps);
+  const long long grid =
+      (long long)((p.s_q + kFwdBlockM - 1) / kFwdBlockM) * batch_heads;
+  if (grid > kMaxGrid) return cudaErrorInvalidValue;
+  flash_fwd_wgmma<D><<<(unsigned)grid, kFwdThreads, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
@@ -1377,65 +1774,97 @@ cudaError_t launch_d(const Params& p, int batch, int batch_heads, bool bf16,
                 batch_heads, stream);
 }
 
+// The fused bf16 backward at D: flash_bwd_wgmma up to D = 128, the wide
+// kernel above it; its keys a CTA and shared memory a CTA.
+template <int D, bool kOrdered>
+auto bwd_kernel() {
+  if constexpr (D > 128) {
+    return flash_bwd_wgmma_wide<D, kOrdered>;
+  } else {
+    return flash_bwd_wgmma<D, kOrdered>;
+  }
+}
+template <int D>
+constexpr int bwd_block_n() { return D > 128 ? kWideBlockN : kBwdBlockN; }
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  if constexpr (D > 128) {
+    return BwdWideSmem<D>::kBytes;
+  } else {
+    return BwdSmem<D>::kBytes;
+  }
+}
+
 // The backward: flash_bwd_prep, then for bf16 the fused kernel (q/k/v/dout
 // tensor maps built here, per call, from the pointers and strides in `p`;
-// 384 threads and BwdSmem<D> bytes a CTA, one CTA per (b*h, 128 keys)) and
-// the dQ conversion; for float32 the two CUDA-core kernels (32 keys, then
-// 32 query rows a CTA).
+// 384 threads a CTA, one CTA per (b*h, bwd_block_n<D>() keys)) and the dQ
+// conversion; for float32 the two CUDA-core kernels (32 keys, then 32 query
+// rows a CTA).
 template <int D>
 cudaError_t launch_bwd(const BwdParams& p, bool bf16, cudaStream_t stream) {
-  const int n_bh = p.batch * p.heads;
-  const unsigned prep_grid = (unsigned)n_bh * (unsigned)(p.s_pad / kBwdBlockM);
+  const long long n_bh = (long long)p.batch * p.heads;
+  const long long prep_grid = n_bh * (p.s_pad / kBwdBlockM);
+  if (prep_grid > kMaxGrid) return cudaErrorInvalidValue;
   if (bf16) {
-    flash_bwd_prep<true, D><<<prep_grid, kThreads, 0, stream>>>(p);
+    flash_bwd_prep<true, D><<<(unsigned)prep_grid, kThreads, 0, stream>>>(p);
   } else {
-    flash_bwd_prep<false, D><<<prep_grid, kThreads, 0, stream>>>(p);
+    flash_bwd_prep<false, D><<<(unsigned)prep_grid, kThreads, 0, stream>>>(p);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (!bf16) {
     err = launch(flash_bwd_dkv_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
-                 p.s_k, p, n_bh, stream);
+                 p.s_k, p, (int)n_bh, stream);
     if (err != cudaSuccess) return err;
     return launch(flash_bwd_dq_f32<D>, F32BwdTiles<D>::kBytes, kF32Block,
-                  p.s_q, p, n_bh, stream);
+                  p.s_q, p, (int)n_bh, stream);
   }
+  constexpr int kBlockN = bwd_block_n<D>();
   BwdMaps maps;
-  err = hopper::make_operand_map(&maps.q, p.q, D, p.s_q, p.heads, p.batch,
-                                 p.q_sb, p.q_sh, p.q_ss, kBwdBlockM,
+  err = hopper::make_operand_map(&maps.q, p.q, p.d, D, p.s_q, p.heads,
+                                 p.batch, p.q_sb, p.q_sh, p.q_ss, kBwdBlockM,
                                  &maps.q_sel);
   if (err == cudaSuccess) {
-    err = hopper::make_operand_map(&maps.dout, p.dout, D, p.s_q, p.heads,
-                                   p.batch, p.do_sb, p.do_sh, p.do_ss,
-                                   kBwdBlockM, &maps.do_sel);
+    err = hopper::make_operand_map(&maps.dout, p.dout, p.d, D, p.s_q,
+                                   p.heads, p.batch, p.do_sb, p.do_sh,
+                                   p.do_ss, kBwdBlockM, &maps.do_sel);
   }
   if (err == cudaSuccess) {
-    err = hopper::make_operand_map(&maps.k, p.k, D, p.s_k, p.heads, p.batch,
-                                   p.k_sb, p.k_sh, p.k_ss, kBwdBlockN,
+    err = hopper::make_operand_map(&maps.k, p.k, p.d, D, p.s_k, p.heads,
+                                   p.batch, p.k_sb, p.k_sh, p.k_ss, kBlockN,
                                    &maps.k_sel);
   }
   if (err == cudaSuccess) {
-    err = hopper::make_operand_map(&maps.v, p.v, D, p.s_k, p.heads, p.batch,
-                                   p.v_sb, p.v_sh, p.v_ss, kBwdBlockN,
+    err = hopper::make_operand_map(&maps.v, p.v, p.d, D, p.s_k, p.heads,
+                                   p.batch, p.v_sb, p.v_sh, p.v_ss, kBlockN,
                                    &maps.v_sel);
   }
   if (err != cudaSuccess) return err;
-  const size_t smem = BwdSmem<D>::kBytes;
-  auto* const kernel = p.dq_sem != nullptr ? flash_bwd_wgmma<D, true>
-                                           : flash_bwd_wgmma<D, false>;
+  const size_t smem = bwd_smem_bytes<D>();
+  auto* const kernel = p.dq_sem != nullptr ? bwd_kernel<D, true>()
+                                           : bwd_kernel<D, false>();
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const unsigned grid =
-      (unsigned)n_bh * (unsigned)((p.s_k + kBwdBlockN - 1) / kBwdBlockN);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(p, maps);
+  const long long grid = n_bh * ((p.s_k + kBlockN - 1) / kBlockN);
+  if (grid > kMaxGrid) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, kBwdThreads, smem, stream>>>(p, maps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long threads = (long long)n_bh * p.s_q * (D / 8);
+  const long long threads = n_bh * p.s_q * (p.d / 8);
+  if ((threads + 255) / 256 > kMaxGrid) return cudaErrorInvalidValue;
   flash_bwd_dq_convert<D><<<(unsigned)((threads + 255) / 256), 256, 0,
                             stream>>>(p);
   return cudaGetLastError();
+}
+
+// The instantiation that runs head dim d: the narrowest of 16, 32, 64, 128
+// and 256 that holds it (0: none). Its tiles are that wide; the columns
+// past d read as zero (flash_attention.py names the shapes it pads).
+int tile_d(int d) {
+  return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+                   : d <= 128 ? 128 : d <= 256 ? 256 : 0;
 }
 
 }  // namespace
@@ -1443,19 +1872,22 @@ cudaError_t launch_bwd(const BwdParams& p, bool bf16, cudaStream_t stream) {
 // C entry point, bound with ctypes. q/k/v/out are device arrays of float32
 // (`bf16` == 0) or bfloat16 (`bf16` == 1) with unit stride on D; `strides`
 // holds 12 element strides: (B, H, S) of q, k, v and out, in that order.
-// Pointers and strides must keep every row 16-byte aligned. `lse` is a
-// contiguous float32 (B, H, S_q) device array or null; `scale` is D**-0.5;
+// Pointers and strides must keep every row 16-byte aligned, and d is at
+// most 256, a multiple of 8 in bf16 and of 4 in float32 (rows of whole
+// 16-byte chunks). `lse` is a contiguous float32 (B, H, S_q) device array
+// or null; `scale` is the softmax scale (D**-0.5 of the model's head dim);
 // `stream` is the caller's cudaStream_t. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue if the driver refuses a bf16
-// operand's tensor map.
+// the launch, or cudaErrorInvalidValue for a shape the kernels do not take
+// or a bf16 operand's tensor map the driver refuses.
 extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* out, float* lse,
                                         int batch, int heads, int s_q, int s_k,
                                         int d, const long long* strides,
                                         float scale, int causal, int bf16,
                                         void* stream, int device) {
-  if (batch < 0 || heads < 1 || s_q < 0 || s_k < 1 ||
-      (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
+  const int tile = tile_d(d);
+  if (batch < 0 || heads < 1 || s_q < 0 || s_k < 1 || tile == 0 ||
+      d % (bf16 ? 8 : 4) != 0 || (causal && s_q != s_k)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -1467,30 +1899,32 @@ extern "C" int ai4e_flash_attention_fwd(const void* q, const void* k,
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];
   p.o_sb = strides[9]; p.o_sh = strides[10]; p.o_ss = strides[11];
-  p.heads = heads; p.s_q = s_q; p.s_k = s_k; p.causal = causal;
+  p.heads = heads; p.s_q = s_q; p.s_k = s_k; p.d = d; p.causal = causal;
   p.scale = scale;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int bh = batch * heads;
-  switch (d) {
-    case 16: return (int)launch_d<16>(p, batch, bh, bf16 != 0, s);
-    case 32: return (int)launch_d<32>(p, batch, bh, bf16 != 0, s);
-    case 64: return (int)launch_d<64>(p, batch, bh, bf16 != 0, s);
-    case 128: return (int)launch_d<128>(p, batch, bh, bf16 != 0, s);
-    default: return (int)cudaErrorInvalidValue;
+  const long long bh = (long long)batch * heads;
+  if (bh > kMaxGrid) return (int)cudaErrorInvalidValue;
+  switch (tile) {
+    case 16: return (int)launch_d<16>(p, batch, (int)bh, bf16 != 0, s);
+    case 32: return (int)launch_d<32>(p, batch, (int)bh, bf16 != 0, s);
+    case 64: return (int)launch_d<64>(p, batch, (int)bh, bf16 != 0, s);
+    case 128: return (int)launch_d<128>(p, batch, (int)bh, bf16 != 0, s);
+    default: return (int)launch_d<256>(p, batch, (int)bh, bf16 != 0, s);
   }
 }
 
 
 // C entry point of the backward, bound with ctypes. q/k/v/out/dout and the
 // gradients dq/dk/dv are device arrays of float32 (`bf16` == 0) or bfloat16
-// (`bf16` == 1) with unit stride on D, every row 16-byte aligned; `lse` is
-// the forward's contiguous float32 (B, H, S_q) logsumexp. `strides` holds
-// 24 element strides: (B, H, S) of q, k, v, dout, out, dq, dk and dv, in that
-// order. `work` is float32 device scratch that the kernels fill: B * H *
-// s_pad * (2 + D) floats for bf16, B * H * s_pad * 2 for float32, s_pad =
-// S_q rounded up to a multiple of 64; `ordered` (bf16 only) adds the dQ
-// adds' counters, B * H * s_pad / 32 int32 after those, and makes dq the
-// same bit for bit from call to call. `scale` is D**-0.5. Returns
+// (`bf16` == 1) with unit stride on D, every row 16-byte aligned, d as for
+// the forward; `lse` is the forward's contiguous float32 (B, H, S_q)
+// logsumexp. `strides` holds 24 element strides: (B, H, S) of q, k, v,
+// dout, out, dq, dk and dv, in that order. `work` is float32 device scratch
+// that the kernels fill: B * H * s_pad * (2 + T) floats for bf16, B * H *
+// s_pad * 2 for float32, s_pad = S_q rounded up to a multiple of 64 and T
+// the instantiation's head dim (tile_d(d)); `ordered` (bf16 only) adds the
+// dQ adds' counters, B * H * s_pad / 32 int32 after those, and makes dq the
+// same bit for bit from call to call. `scale` is the softmax scale. Returns
 // cudaGetLastError() after the last launch, or cudaErrorInvalidValue for a
 // shape the kernels do not take or a tensor map the driver refuses.
 extern "C" int ai4e_flash_attention_bwd(
@@ -1499,8 +1933,10 @@ extern "C" int ai4e_flash_attention_bwd(
     void* dv, int batch, int heads, int s_q, int s_k, int d,
     const long long* strides, float scale, int causal, int bf16, int ordered,
     void* stream, int device) {
-  if (batch < 1 || heads < 1 || s_q < 1 || s_k < 1 ||
-      (long long)batch * heads > 65535 || (causal && s_q != s_k)) {
+  const int tile = tile_d(d);
+  if (batch < 1 || heads < 1 || s_q < 1 || s_k < 1 || tile == 0 ||
+      d % (bf16 ? 8 : 4) != 0 || (long long)batch * heads > kMaxGrid ||
+      (causal && s_q != s_k)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -1516,7 +1952,7 @@ extern "C" int ai4e_flash_attention_bwd(
   p.dq_sb = strides[15]; p.dq_sh = strides[16]; p.dq_ss = strides[17];
   p.dk_sb = strides[18]; p.dk_sh = strides[19]; p.dk_ss = strides[20];
   p.dv_sb = strides[21]; p.dv_sh = strides[22]; p.dv_ss = strides[23];
-  p.batch = batch; p.heads = heads; p.s_q = s_q; p.s_k = s_k;
+  p.batch = batch; p.heads = heads; p.s_q = s_q; p.s_k = s_k; p.d = d;
   p.s_pad = (s_q + kBwdBlockM - 1) / kBwdBlockM * kBwdBlockM;
   p.causal = causal; p.scale = scale;
   const long long rows = (long long)batch * heads * p.s_pad;
@@ -1524,15 +1960,15 @@ extern "C" int ai4e_flash_attention_bwd(
   p.delta = work + rows;
   p.dq_acc = bf16 ? work + 2 * rows : nullptr;
   p.dq_sem = bf16 && ordered
-                 ? reinterpret_cast<int*>(work + (2 + (long long)d) * rows)
+                 ? reinterpret_cast<int*>(work + (2 + (long long)tile) * rows)
                  : nullptr;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (d) {
+  switch (tile) {
     case 16: return (int)launch_bwd<16>(p, bf16 != 0, s);
     case 32: return (int)launch_bwd<32>(p, bf16 != 0, s);
     case 64: return (int)launch_bwd<64>(p, bf16 != 0, s);
     case 128: return (int)launch_bwd<128>(p, bf16 != 0, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch_bwd<256>(p, bf16 != 0, s);
   }
 }
 
@@ -1562,10 +1998,10 @@ cudaError_t flash_attrs(int which, int* out) {
                                 kFwdThreads, out);
     case 1: return kernel_attrs(flash_fwd_f32<D>, F32Tiles<D>::kBytes,
                                 kThreads, out);
-    case 2: return kernel_attrs(flash_bwd_wgmma<D, false>,
-                                BwdSmem<D>::kBytes, kBwdThreads, out);
-    case 3: return kernel_attrs(flash_bwd_wgmma<D, true>,
-                                BwdSmem<D>::kBytes, kBwdThreads, out);
+    case 2: return kernel_attrs(bwd_kernel<D, false>(), bwd_smem_bytes<D>(),
+                                kBwdThreads, out);
+    case 3: return kernel_attrs(bwd_kernel<D, true>(), bwd_smem_bytes<D>(),
+                                kBwdThreads, out);
     case 4: return kernel_attrs(flash_bwd_prep<true, D>, 0, kThreads, out);
     case 5: return kernel_attrs(flash_bwd_prep<false, D>, 0, kThreads, out);
     case 6: return kernel_attrs(flash_bwd_dq_convert<D>, 0, 256, out);
@@ -1579,14 +2015,15 @@ cudaError_t flash_attrs(int which, int* out) {
 
 }  // namespace
 
-// The attributes of one kernel of this file at head dim `d`, for the
-// validation harness (ops/validate.py): `which` 0 the bf16 forward, 1 the
-// float32 forward, 2 and 3 the fused bf16 backward (dQ's adds in any
-// order, ordered), 4 and 5 the preparation pass (bf16, float32), 6 the dQ
-// conversion, 7 and 8 the float32 dK/dV and dQ kernels. Writes 5 ints to
-// `out`: dynamic shared memory a CTA as launched, static shared memory,
-// registers a thread, local (spill) bytes a thread, threads a CTA as
-// launched. Returns a cudaError_t (0 on success).
+// The attributes of one kernel of this file at instantiation `d` (16, 32,
+// 64, 128 or 256), for the validation harness (ops/validate.py): `which` 0
+// the bf16 forward, 1 the float32 forward, 2 and 3 the fused bf16 backward
+// (dQ's adds in any order, ordered; at d = 256 the wide kernel), 4 and 5
+// the preparation pass (bf16, float32), 6 the dQ conversion, 7 and 8 the
+// float32 dK/dV and dQ kernels. Writes 5 ints to `out`: dynamic shared
+// memory a CTA as launched, static shared memory, registers a thread, local
+// (spill) bytes a thread, threads a CTA as launched. Returns a cudaError_t
+// (0 on success).
 extern "C" int ai4e_flash_attention_attrs(int which, int d, int device,
                                           int* out) {
   cudaError_t err = cudaSetDevice(device);
@@ -1596,6 +2033,7 @@ extern "C" int ai4e_flash_attention_attrs(int which, int d, int device,
     case 32: return (int)flash_attrs<32>(which, out);
     case 64: return (int)flash_attrs<64>(which, out);
     case 128: return (int)flash_attrs<128>(which, out);
+    case 256: return (int)flash_attrs<256>(which, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

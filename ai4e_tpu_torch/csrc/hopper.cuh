@@ -66,14 +66,15 @@ constexpr int kCoordS = 0, kCoordH = 1, kCoordB = 2, kCoordZero = 3;
 // A rank-4 map of one bf16 (B, H, S, D) operand with element strides
 // (sb, sh, ss) and unit stride on D: dimension 0 is D, then S, H and B in
 // increasing stride order (H or B of extent 1 or stride 0 becomes a last
-// dimension of extent 1, read at coordinate 0). Box: min(D, 64) columns of
-// `box_rows` rows, swizzled at twice that many bytes; rows past S read as
-// zero. Returns cudaErrorInvalidValue if the driver refuses the map, and
-// writes the coordinate selector (see `coord`) to `sel`.
+// dimension of extent 1, read at coordinate 0). Box: min(d_tile, 64)
+// columns of `box_rows` rows, swizzled at twice that many bytes, for a
+// kernel whose tiles are d_tile >= d columns wide; rows past S and columns
+// past d read as zero. Returns cudaErrorInvalidValue if the driver refuses
+// the map, and writes the coordinate selector (see `coord`) to `sel`.
 inline cudaError_t make_operand_map(CUtensorMap* map, const void* base, int d,
-                                    int s, int heads, int batch, long long sb,
-                                    long long sh, long long ss, int box_rows,
-                                    int* sel) {
+                                    int d_tile, int s, int heads, int batch,
+                                    long long sb, long long sh, long long ss,
+                                    int box_rows, int* sel) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   struct Dim { cuuint64_t stride, extent; int which; };
@@ -93,7 +94,7 @@ inline cudaError_t make_operand_map(CUtensorMap* map, const void* base, int d,
       const Dim t = real[j]; real[j] = real[j - 1]; real[j - 1] = t;
     }
   }
-  const int w = d < 64 ? d : 64;
+  const int w = d_tile < 64 ? d_tile : 64;
   cuuint64_t extent[4] = {(cuuint64_t)d, 1, 1, 1};
   cuuint64_t stride[3];
   cuuint32_t box[4] = {(cuuint32_t)w, 1, 1, 1};
@@ -225,6 +226,13 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// dst[0..3] += v in device memory (16-byte aligned), atomically per
+// element and done in L2, with no value back: one vector reduction on
+// sm_90.
+__device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
 }
 
 // A counter in device memory that orders work across CTAs. One thread

@@ -22,7 +22,12 @@
 // stride in words is a multiple of C: a thread's channel phase (4w mod C)
 // never changes, and its four scales and biases are loaded once into
 // registers. That makes every C from 1 to kMaxChannels as fast as any
-// other, so the kernel is not specialised on C. The stores are streaming
+// other, so the kernel is not specialised on C. A wider C (the 13 bands of
+// a Sentinel-2 tile, say) takes `normalize_u8_wide_kernel`: the same loop,
+// with the scales and biases staged in dynamic shared memory from a device
+// array of 2C floats instead of the kernel's parameters, which hold
+// kMaxChannels of each (the path above keeps its 64 bytes of static shared
+// memory and its launch). The stores are streaming
 // (`__stcs`, evict first): the output is written once here and is as
 // large as L2 at bucket 64 (0.028 against 0.032 ms with plain stores,
 // timed in turns on an H100 80GB HBM3 at 700 W). The last n % 4 elements
@@ -49,19 +54,13 @@ struct ChannelAffine {
   float bias[kMaxChannels];
 };
 
-__global__ void __launch_bounds__(kThreads)
-normalize_u8_kernel(const uint32_t* __restrict__ in, float4* __restrict__ out,
-                    long long n_words, const uint8_t* __restrict__ tail_in,
-                    float* __restrict__ tail_out, int n_tail, int c,
-                    ChannelAffine affine) {
-  __shared__ float scale[kMaxChannels];
-  __shared__ float bias[kMaxChannels];
-  if ((int)threadIdx.x < c) {
-    scale[threadIdx.x] = affine.scale[threadIdx.x];
-    bias[threadIdx.x] = affine.bias[threadIdx.x];
-  }
-  __syncthreads();
-
+// The walk over the words (the file's header), each channel's scale and
+// bias read from shared memory.
+__device__ __forceinline__ void normalize_words(
+    const uint32_t* __restrict__ in, float4* __restrict__ out,
+    long long n_words, const uint8_t* __restrict__ tail_in,
+    float* __restrict__ tail_out, int n_tail, int c, const float* scale,
+    const float* bias) {
   const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kThreads;  // C | stride
   if (g < n_tail) {  // elements past the last whole word
@@ -99,6 +98,37 @@ normalize_u8_kernel(const uint32_t* __restrict__ in, float4* __restrict__ out,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+normalize_u8_kernel(const uint32_t* __restrict__ in, float4* __restrict__ out,
+                    long long n_words, const uint8_t* __restrict__ tail_in,
+                    float* __restrict__ tail_out, int n_tail, int c,
+                    ChannelAffine affine) {
+  __shared__ float scale[kMaxChannels];
+  __shared__ float bias[kMaxChannels];
+  if ((int)threadIdx.x < c) {
+    scale[threadIdx.x] = affine.scale[threadIdx.x];
+    bias[threadIdx.x] = affine.bias[threadIdx.x];
+  }
+  __syncthreads();
+  normalize_words(in, out, n_words, tail_in, tail_out, n_tail, c, scale,
+                  bias);
+}
+
+// Any C: `affine` is a device array of C scales, then C biases, staged in
+// 2C floats of dynamic shared memory.
+__global__ void __launch_bounds__(kThreads)
+normalize_u8_wide_kernel(const uint32_t* __restrict__ in,
+                         float4* __restrict__ out, long long n_words,
+                         const uint8_t* __restrict__ tail_in,
+                         float* __restrict__ tail_out, int n_tail, int c,
+                         const float* __restrict__ affine) {
+  extern __shared__ float staged[];  // scale[c], then bias[c]
+  for (int i = threadIdx.x; i < 2 * c; i += kThreads) staged[i] = affine[i];
+  __syncthreads();
+  normalize_words(in, out, n_words, tail_in, tail_out, n_tail, c, staged,
+                  staged + c);
+}
+
 }  // namespace
 
 // CTAs of normalize_u8_kernel resident at once on `device`, to `ctas`: the
@@ -118,12 +148,13 @@ extern "C" int ai4e_normalize_u8_resident(int device, int* ctas) {
   return (int)err;
 }
 
-// C entry point, bound with ctypes. `in` and `out` are device pointers, `in`
-// 4-byte and `out` 16-byte aligned, both contiguous, n elements; `scale`
-// and `bias` are host arrays of `c` floats; `grid` is the number of CTAs of
-// 256 threads, a multiple of `c` (`launch_plan` in ops/image_preprocess.py);
-// `stream` is the caller's cudaStream_t. Returns cudaGetLastError() after
-// the launch (0 on success).
+// C entry point, bound with ctypes, for 1 <= c <= 8 channels. `in` and
+// `out` are device pointers, `in` 4-byte and `out` 16-byte aligned, both
+// contiguous, n elements; `scale` and `bias` are host arrays of `c` floats;
+// `grid` is the number of CTAs of 256 threads, a multiple of `c`
+// (`launch_plan` in ops/image_preprocess.py); `stream` is the caller's
+// cudaStream_t. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int ai4e_normalize_u8(const void* in, void* out, long long n, int c,
                                  const float* scale, const float* bias,
                                  long long grid, void* stream, int device) {
@@ -141,6 +172,32 @@ extern "C" int ai4e_normalize_u8(const void* in, void* out, long long n, int c,
   }
   const long long n_words = n / 4;
   normalize_u8_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (float4*)out, n_words,
+      (const uint8_t*)in + 4 * n_words, (float*)out + 4 * n_words,
+      (int)(n % 4), c, affine);
+  return (int)cudaGetLastError();
+}
+
+// C entry point for any c >= 1 channels: as `ai4e_normalize_u8`, with
+// `affine` a device array of the c scales, then the c biases.
+extern "C" int ai4e_normalize_u8_wide(const void* in, void* out, long long n,
+                                      int c, const float* affine,
+                                      long long grid, void* stream,
+                                      int device) {
+  if (c < 1 || grid < 1 || grid % c != 0 || grid > 0x7fffffff) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  const size_t smem = 2 * (size_t)c * sizeof(float);
+  err = cudaFuncSetAttribute(normalize_u8_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_words = n / 4;
+  normalize_u8_wide_kernel<<<(unsigned)grid, kThreads, smem,
+                             (cudaStream_t)stream>>>(
       (const uint32_t*)in, (float4*)out, n_words,
       (const uint8_t*)in + 4 * n_words, (float*)out + 4 * n_words,
       (int)(n % 4), c, affine);

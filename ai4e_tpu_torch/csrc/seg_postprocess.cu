@@ -23,7 +23,8 @@
 // pixels in registers, a warp sums those with shuffles, a block sums its
 // warps in shared memory, and the block adds its C totals to the zeroed
 // (B, C) output with one atomic each. A block covers pixels of one image only
-// (grid = (blocks per image, B)), so no count crosses images. The TPU kernel's
+// (a one-dimensional grid of B x blocks per image, the image outer, so B has
+// no 65,535 limit), so no count crosses images. The TPU kernel's
 // transpose to (B, C, H, W) existed for its 128-lane axis and is not needed:
 // the logits are read in NHWC as the UNet head writes them.
 
@@ -58,27 +59,29 @@ __device__ __forceinline__ void load4(const uint16_t* p, float v[4]) {
 }
 
 // kC > 0: the class count is a compile-time constant and each thread keeps
-// its counts in registers. kC == 0: any class count `c` up to 255, counted
-// with shared-memory atomics (no vector load, no register counts).
+// its counts in registers. kC == 0: any class count `c` up to 256 (class
+// 255 is the uint8 map's last), counted with shared-memory atomics (no
+// vector load, no register counts).
 template <typename T, int kC>
 __global__ void __launch_bounds__(kThreads)
 seg_postprocess_kernel(const T* __restrict__ logits,
                        uint8_t* __restrict__ classmap,
-                       int* __restrict__ counts, int hw, int c) {
+                       int* __restrict__ counts, int hw, int c,
+                       int per_image) {
   extern __shared__ int block_hist[];
   const int nc = kC > 0 ? kC : c;
   for (int k = threadIdx.x; k < nc; k += blockDim.x) block_hist[k] = 0;
   __syncthreads();
 
-  const int b = blockIdx.y;
+  const int b = blockIdx.x / per_image, block = blockIdx.x % per_image;
   const T* image = logits + (size_t)b * hw * nc;
   uint8_t* map = classmap == nullptr ? nullptr : classmap + (size_t)b * hw;
   int local[kC > 0 ? kC : 1] = {};
 
   // The loop bound is block-uniform, so every lane of a warp runs the same
   // iterations and reaches the shuffles below together.
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x; base < hw; base += stride) {
+  const int stride = per_image * blockDim.x;
+  for (int base = block * blockDim.x; base < hw; base += stride) {
     const int p = base + threadIdx.x;
     if (p >= hw) continue;
     const T* px = image + (size_t)p * nc;
@@ -128,14 +131,16 @@ template <typename T>
 cudaError_t launch(const void* logits, void* classmap, void* counts, int batch,
                    int hw, int c, cudaStream_t stream) {
   const int per_block = kThreads * kPixelsPerThread;
-  const dim3 grid((unsigned)((hw + per_block - 1) / per_block), (unsigned)batch);
+  const int per_image = (hw + per_block - 1) / per_block;
+  const long long grid = (long long)per_image * batch;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
   const size_t shared = (size_t)c * sizeof(int);
   if (c == 4) {
-    seg_postprocess_kernel<T, 4><<<grid, kThreads, shared, stream>>>(
-        (const T*)logits, (uint8_t*)classmap, (int*)counts, hw, c);
+    seg_postprocess_kernel<T, 4><<<(unsigned)grid, kThreads, shared, stream>>>(
+        (const T*)logits, (uint8_t*)classmap, (int*)counts, hw, c, per_image);
   } else {
-    seg_postprocess_kernel<T, 0><<<grid, kThreads, shared, stream>>>(
-        (const T*)logits, (uint8_t*)classmap, (int*)counts, hw, c);
+    seg_postprocess_kernel<T, 0><<<(unsigned)grid, kThreads, shared, stream>>>(
+        (const T*)logits, (uint8_t*)classmap, (int*)counts, hw, c, per_image);
   }
   return cudaGetLastError();
 }
@@ -150,7 +155,7 @@ cudaError_t launch(const void* logits, void* classmap, void* counts, int batch,
 extern "C" int ai4e_seg_postprocess(const void* logits, void* classmap,
                                     void* counts, int batch, int hw, int c,
                                     int bf16, void* stream, int device) {
-  if (c < 1 || c > 255 || batch < 0 || batch > 65535 || hw < 0) {
+  if (c < 1 || c > 256 || batch < 0 || hw < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -170,7 +175,7 @@ extern "C" int ai4e_seg_postprocess(const void* logits, void* classmap,
 // a cudaError_t (0 on success).
 extern "C" int ai4e_seg_postprocess_attrs(int c, int bf16, int device,
                                           int* out) {
-  if (c < 1 || c > 255) return (int)cudaErrorInvalidValue;
+  if (c < 1 || c > 256) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

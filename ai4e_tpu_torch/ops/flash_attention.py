@@ -22,6 +22,17 @@ The kernel reads q/k/v through their own B/H/S strides, so the
 copy, and it writes the output in ``(B, S, H, D)`` memory order, returned as
 a ``(B, H, S, D)`` view: the transpose back to ``(B, S, H*D)`` for the out
 projection is then free too.
+
+Head dims: every D from 1 to ``MAX_HEAD_DIM`` = 256, as JAX's kernel takes
+them. The kernels are instantiated at ``HEAD_DIMS``; a D between two runs
+at the next one up, with the columns past D read as zero (the TMA tensor
+maps' inner extent is the true D) and left out of every store, and the
+softmax scale stays D**-0.5 of the true D. The kernels move rows as 16-byte
+chunks, so a D that is not a multiple of 8 in bfloat16 (of 4 in float32)
+makes the wrapper copy q, k and v (and, in the backward, out and do) into a
+zero-padded tensor of the next multiple first, and slice the results back:
+``padded_copies`` counts those calls. The kernel still runs. A D above 256
+is refused: wgmma's N is at most 256.
 """
 
 from __future__ import annotations
@@ -38,9 +49,13 @@ from . import _native
 #: conversion).
 launches = 0
 bwd_launches = 0
+#: Of those, calls (forward or backward) whose operands were copied to a
+#: zero-padded head dim first (see the module's docstring).
+padded_copies = 0
 
 NEG_INF = -1e30  # the TPU kernel's mask value and initial running max
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's instantiations
+MAX_HEAD_DIM = 256  # the largest head dim taken
 BWD_BLOCK_M = 64  # the backward's query tile: its scratch rows are padded to it
 BWD_SEMS_PER_TILE = 2  # int32 counters of the ordered dQ a query tile
 #: How far the kernel's output may lie from ``flash_attention_plain``'s on
@@ -237,9 +252,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.dtype == k.dtype == v.dtype):
         raise ValueError(f"expected float32 or bfloat16 q/k/v of one dtype, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not supported; supported: "
-                         f"{HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is not supported: the kernels take "
+                         f"1 to {MAX_HEAD_DIM}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q/k/v need unit stride on D")
     if not q.device == k.device == v.device:
@@ -256,6 +271,29 @@ def _check_rows(tensors) -> None:
                              f"and B/H/S strides")
 
 
+def instantiation(d: int) -> int:
+    """The kernel instantiation that runs head dim ``d``: the narrowest of
+    ``HEAD_DIMS`` that holds it (``tile_d`` in the CUDA source)."""
+    return next(t for t in HEAD_DIMS if t >= d)
+
+
+def row_multiple(dtype: torch.dtype) -> int:
+    """Elements of a 16-byte chunk: a head dim the kernels take without a
+    padded copy is a multiple of it."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
+def _pad_d(tensors, d: int):
+    """``tensors`` zero-padded on D to the next multiple of
+    ``row_multiple`` (contiguous copies), or as they are if ``d`` already
+    is one; and whether they were copied."""
+    step = row_multiple(tensors[0].dtype)
+    if d % step == 0:
+        return tensors, False
+    pad = -d % step
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in tensors), True
+
+
 def _bshd_like(t: torch.Tensor, s: int) -> torch.Tensor:
     """An empty (B, H, s, D) tensor of t's dtype in (B, S, H, D) memory
     order."""
@@ -266,11 +304,11 @@ def _bshd_like(t: torch.Tensor, s: int) -> torch.Tensor:
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, return_lse: bool):
-    global launches
-    b, h, s_q, d = q.shape
+    global launches, padded_copies
+    b, h, s_q, d_true = q.shape
     s_k = k.shape[2]
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
+    (q, k, v), padded = _pad_d((q, k, v), d_true)
+    d = q.shape[3]
     _check_rows((("q", q), ("k", k), ("v", v)))
     out = _bshd_like(q, s_q)
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
@@ -280,19 +318,20 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _entry("fwd")(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(),
                         lse.data_ptr() if lse is not None else None, b, h,
-                        s_q, s_k, d, strides, d ** -0.5, int(causal),
+                        s_q, s_k, d, strides, d_true ** -0.5, int(causal),
                         int(q.dtype == torch.bfloat16),
                         torch.cuda.current_stream(q.device).cuda_stream,
                         q.device.index or 0)
     _native.check(err, "flash_attention kernel")
     launches += 1
+    if padded:
+        padded_copies += 1
+        out = out[..., :d_true]
     return (out, lse) if return_lse else out
 
 
 def _check_bwd_cuda(q, k, v, out, lse, do) -> None:
     b, h, s_q, _ = q.shape
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel grid's 65535")
     for name, t in (("do", do), ("out", out)):
         if t.dtype != q.dtype or t.shape != q.shape or t.stride(3) != 1:
             raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} "
@@ -312,22 +351,28 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pass (Delta = rowsum(do * out) in float32, lse * log2(e), both padded to
     a multiple of ``BWD_BLOCK_M`` rows) and then, for bfloat16, the fused
     kernel (dK and dV in registers, dQ added into a float32 accumulator
-    that the preparation pass zeroed) and the dQ conversion; for float32,
-    the dK/dV and dQ CUDA-core kernels. The scratch (``work``) is allocated
+    that the preparation pass zeroed; above D = 128 the wide kernel, whose
+    consumers split the columns) and the dQ conversion; for float32, the
+    dK/dV and dQ CUDA-core kernels. The scratch (``work``) is allocated
     here. Under ``torch.use_deterministic_algorithms(True)`` the fused
     kernel orders its dQ adds (``ordered_dq``), so dq, like dk and dv, is
-    the same bit for bit from call to call."""
-    global bwd_launches
-    _check_bwd_cuda(q, k, v, out, lse, do)
-    b, h, s_q, d = q.shape
+    the same bit for bit from call to call. A head dim that is not a whole
+    number of 16-byte chunks is padded first (``padded_copies``)."""
+    global bwd_launches, padded_copies
+    b, h, s_q, d_true = q.shape
     s_k = k.shape[2]
+    (q, k, v, out, do), padded = _pad_d((q, k, v, out, do), d_true)
+    _check_bwd_cuda(q, k, v, out, lse, do)
+    d = q.shape[3]
     bf16 = q.dtype == torch.bfloat16
     ordered = ordered_dq(q.dtype, torch.are_deterministic_algorithms_enabled())
     s_pad = -(-s_q // BWD_BLOCK_M) * BWD_BLOCK_M
-    # lse * log2(e) and Delta; for bf16 also the (B, H, s_pad, D) dQ
-    # accumulator, and when ordered its int32 counters.
+    # lse * log2(e) and Delta; for bf16 also the (B, H, s_pad, T) dQ
+    # accumulator, T the instantiation's head dim, and when ordered its
+    # int32 counters.
     sems = b * h * (s_pad // BWD_BLOCK_M) * BWD_SEMS_PER_TILE if ordered else 0
-    work = torch.empty(b * h * s_pad * (2 + (d if bf16 else 0)) + sems,
+    acc = instantiation(d) if bf16 else 0
+    work = torch.empty(b * h * s_pad * (2 + acc) + sems,
                        dtype=torch.float32, device=q.device)
     dq, dk, dv = _bshd_like(q, s_q), _bshd_like(k, s_k), _bshd_like(v, s_k)
     strides = (ctypes.c_longlong * 24)(
@@ -337,11 +382,14 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _entry("bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k, d, strides, d ** -0.5,
-        int(causal), int(bf16), int(ordered),
+        dk.data_ptr(), dv.data_ptr(), b, h, s_q, s_k, d, strides,
+        d_true ** -0.5, int(causal), int(bf16), int(ordered),
         torch.cuda.current_stream(q.device).cuda_stream, q.device.index or 0)
     _native.check(err, "flash_attention backward kernels")
     bwd_launches += 1
+    if padded:
+        padded_copies += 1
+        return dq[..., :d_true], dk[..., :d_true], dv[..., :d_true]
     return dq, dk, dv
 
 

@@ -6,6 +6,11 @@ copy is a quarter of a float32 batch. On a CUDA tensor ``normalize_image``
 launches the hand-written kernel in ``csrc/image_preprocess.cu``; on a CPU
 tensor it runs the plain PyTorch version below, which the tests hold against
 the JAX package and ``chip_smoke.py`` holds the kernel against.
+
+Any channel count: up to ``MAX_FAST_CHANNELS`` the per-channel scale and
+bias travel in the kernel's parameters; a wider C (13 Sentinel-2 bands,
+say) launches the same walk with them staged in shared memory from a small
+device array (``ai4e_normalize_u8_wide``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from . import _native
 #: Kernel launches on CUDA tensors since import (or since a caller reset it).
 launches = 0
 
-_MAX_CHANNELS = 8  # kMaxChannels in csrc/image_preprocess.cu
+MAX_FAST_CHANNELS = 8  # kMaxChannels in csrc/image_preprocess.cu
 THREADS = 256  # kThreads: threads of a CTA
 
 
@@ -80,28 +85,49 @@ def _normalize_cuda(images: torch.Tensor, scale: np.ndarray,
                     bias: np.ndarray) -> torch.Tensor:
     global launches
     c = images.shape[-1]
-    if c > _MAX_CHANNELS:
-        raise ValueError(f"the CUDA kernel takes at most {_MAX_CHANNELS} "
-                         f"channels, got {c}")
     images = images.contiguous()
     if images.data_ptr() % 16:
         images = images.clone()  # fresh allocations are 16-byte aligned
     out = torch.empty(images.shape, dtype=torch.float32, device=images.device)
     device = images.device.index or 0
     grid, _, _ = launch_plan(images.numel(), c, _resident(device))
-    scale_c = (ctypes.c_float * c)(*scale.tolist())
-    bias_c = (ctypes.c_float * c)(*bias.tolist())
-    err = _entry()(images.data_ptr(), out.data_ptr(), images.numel(), c,
-                   scale_c, bias_c, grid,
-                   torch.cuda.current_stream(images.device).cuda_stream,
-                   device)
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    if c <= MAX_FAST_CHANNELS:
+        scale_c = (ctypes.c_float * c)(*scale.tolist())
+        bias_c = (ctypes.c_float * c)(*bias.tolist())
+        err = _entry()(images.data_ptr(), out.data_ptr(), images.numel(), c,
+                       scale_c, bias_c, grid, stream, device)
+    else:
+        affine = _device_affine(scale, bias, images.device)
+        err = _wide_entry()(images.data_ptr(), out.data_ptr(),
+                            images.numel(), c, affine.data_ptr(), grid,
+                            stream, device)
     _native.check(err, "normalize_image kernel")
     launches += 1
     return out
 
 
 _fn = None
+_wide_fn = None
 _resident_ctas: dict[int, int] = {}
+#: The wide kernel's scales and biases on the card, by (device, values):
+#: copied once, so a call does not wait on a host-to-device copy.
+_affines: dict = {}
+_MAX_AFFINES = 64
+
+
+def _device_affine(scale: np.ndarray, bias: np.ndarray,
+                   device: torch.device) -> torch.Tensor:
+    """The c scales, then the c biases, as one float32 tensor on
+    ``device``, kept for the next call with the same values."""
+    key = (str(device), scale.tobytes(), bias.tobytes())
+    affine = _affines.get(key)
+    if affine is None:
+        if len(_affines) >= _MAX_AFFINES:
+            _affines.clear()
+        affine = _affines[key] = torch.from_numpy(
+            np.concatenate([scale, bias])).to(device)
+    return affine
 
 
 def _entry():
@@ -115,6 +141,18 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _wide_entry():
+    global _wide_fn
+    if _wide_fn is None:
+        fn = _native.load("image_preprocess").ai4e_normalize_u8_wide
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        _wide_fn = fn
+    return _wide_fn
 
 
 def _resident(device: int) -> int:

@@ -72,9 +72,9 @@ def _check_logits(logits: torch.Tensor) -> None:
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"expected float32 or bfloat16 logits, got "
                          f"{logits.dtype}")
-    if not 1 <= logits.shape[-1] <= 255:
-        raise ValueError(f"class count must be in [1, 255] for a uint8 map, "
-                         f"got {logits.shape[-1]}")
+    if not 1 <= logits.shape[-1] <= 256:
+        raise ValueError(f"class count must be in [1, 256] for a uint8 map "
+                         f"(classes 0 to 255), got {logits.shape[-1]}")
 
 
 def _fused_cuda(logits: torch.Tensor, with_classmap: bool) -> dict:
@@ -84,8 +84,6 @@ def _fused_cuda(logits: torch.Tensor, with_classmap: bool) -> dict:
         raise ValueError("logits must be contiguous (B, H, W, C)")
     if logits.data_ptr() % 16:
         raise ValueError("logits must be 16-byte aligned")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel grid's 65535")
     counts = torch.zeros((b, c), dtype=torch.int32, device=logits.device)
     classmap = (torch.empty((b, h, w), dtype=torch.uint8, device=logits.device)
                 if with_classmap else None)

@@ -18,7 +18,8 @@ for the TPU and fit its VMEM. JAX's VMEM budget becomes a Hopper budget:
   ``REGISTERS_PER_SM`` fails: not even one CTA would fit.
 
 Beyond JAX's harness it holds the flash attention in bfloat16, as the port
-serves it, and the flash backward (dq, dk, dv). On the CPU the same checks
+serves it, and the flash backward (dq, dk, dv), each also at one head of
+256 (``FLASH_WIDE_SHAPE``, the D = 256 instantiation). On the CPU the same checks
 run the plain versions (the counterpart of JAX's ``interpret=True``): that
 covers the harness's own logic, and the launch attributes are ``None``.
 """
@@ -37,8 +38,10 @@ from . import flash_attention as fa
 SMEM_LIMIT_BYTES = 232_448
 #: 32-bit registers an SM holds.
 REGISTERS_PER_SM = 65_536
-#: The harness's shapes, JAX's (``validate.py:44-113``).
+#: The harness's shapes, JAX's (``validate.py:44-113``), and beyond JAX's
+#: the port's widest flash instantiation, one head of 256 (bfloat16 only).
 FLASH_SHAPE = (2, 4, 512, 64)
+FLASH_WIDE_SHAPE = (2, 1, 512, 256)
 ARGMAX_SHAPE = (2, 256, 256, 4)
 NORMALIZE_SHAPE = (2, 256, 256, 3)
 MEAN, STD = (0.45, 0.45, 0.4), (0.22, 0.22, 0.25)
@@ -46,9 +49,12 @@ MEAN, STD = (0.45, 0.45, 0.4), (0.22, 0.22, 0.25)
 #: argmax's share of equal pixels, normalize max abs error.
 FLASH_F32_TOL, ARGMAX_MIN_SHARE, NORMALIZE_TOL = 1e-4, 0.9999, 1e-5
 
-# Each kernel's geometry, as csrc/flash_attention.cu sets it.
+# Each kernel's geometry, as csrc/flash_attention.cu sets it: above D = 128
+# the forward's K/V tiles hold 64 keys and its O is staged in Q's buffer,
+# and the backward's wide kernel owns 64 keys a CTA.
 _FWD_BLOCK, _FWD_STAGES = 128, 2
 _BWD_BLOCK_M, _BWD_BLOCK_N, _BWD_STAGES = 64, 128, 2
+_WIDE_D, _WIDE_BLOCK_N = 128, 64  # D above _WIDE_D: the wide tiles
 _F32_BLOCK = 32
 _MAX_CHANNELS = 8  # csrc/image_preprocess.cu's kMaxChannels
 _ALIGN = 1024      # the dynamic buffer's base is aligned up to 1024 B
@@ -62,38 +68,49 @@ FLASH_KERNELS = {"flash_fwd_wgmma": 0, "flash_fwd_f32": 1,
 
 
 def flash_attention_smem_bytes(d: int, dtype=torch.bfloat16) -> int:
-    """Dynamic shared memory a CTA of the flash forward takes at head dim
-    ``d``. bfloat16 (``FwdSmem``): Q, two stages of K and of V, two 64-row
-    output staging tiles of D + 8 columns, nine mbarriers, 1 KiB of
-    alignment. float32 (``F32Tiles``): K and V tiles of D + 1 columns, a Q
-    tile and a 32 x 33 score tile."""
+    """Dynamic shared memory a CTA of the flash forward takes at the
+    instantiation ``d``. bfloat16 (``FwdSmem``): Q, two stages of K and of V
+    (128 keys a tile; 64 above D = 128), up to D = 128 two 64-row output
+    staging tiles of D + 8 columns (above it O is staged in Q's buffer),
+    nine mbarriers, 1 KiB of alignment. float32 (``F32Tiles``): K and V
+    tiles of D + 1 columns, a Q tile and a 32 x 33 score tile."""
     if dtype == torch.float32:
         return (2 * _F32_BLOCK * (d + 1) + _F32_BLOCK * d
                 + _F32_BLOCK * (_F32_BLOCK + 1)) * 4
+    wide = d > _WIDE_D
     q = _FWD_BLOCK * d * 2
-    kv = _FWD_BLOCK * d * 2
-    o = 64 * (d + 8) * 2
+    kv = (_WIDE_BLOCK_N if wide else _FWD_BLOCK) * d * 2
+    o = 0 if wide else 64 * (d + 8) * 2
     bars = 1 + 4 * _FWD_STAGES
     return q + 2 * _FWD_STAGES * kv + 2 * o + bars * 8 + _ALIGN
 
 
 def flash_attention_bwd_smem_bytes(d: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory a CTA of the flash backward's main kernel
-    takes at head dim ``d``. bfloat16, the fused kernel (``BwdSmem``): K and
-    V (128 keys), two stages of Q and of dO (64 rows), two dS^T tiles, two
-    float32 dQ tiles, two stages of lse and of Delta, five mbarriers, 1 KiB
-    of alignment. float32, the dK/dV and dQ kernels (``F32BwdTiles``): four
-    32-row tiles of D + 1 columns, lse and Delta, two 32 x 33 tiles."""
+    takes at the instantiation ``d``. bfloat16, the fused kernel
+    (``BwdSmem``): K and V (128 keys), two stages of Q and of dO (64 rows),
+    two dS^T tiles, two float32 dQ tiles, two stages of lse and of Delta,
+    five mbarriers, 1 KiB of alignment; above D = 128 the wide kernel
+    (``BwdWideSmem``): K and V of 64 keys, the same Q and dO ring, one
+    64 x 64 dS^T tile a consumer, no dQ tile (its adds go from registers),
+    lse, Delta, mbarriers and alignment. float32, the dK/dV and dQ kernels
+    (``F32BwdTiles``): four 32-row tiles of D + 1 columns, lse and Delta,
+    two 32 x 33 tiles."""
     if dtype == torch.float32:
         return (4 * _F32_BLOCK * (d + 1) + 2 * _F32_BLOCK
                 + 2 * _F32_BLOCK * (_F32_BLOCK + 1)) * 4
-    split = 2 if d == 128 else 1  # dQ's columns split between consumers
-    kv = _BWD_BLOCK_N * d * 2
-    qdo = _BWD_BLOCK_M * d * 2
-    ds = _BWD_BLOCK_N * _BWD_BLOCK_M * 2
-    dq = _BWD_BLOCK_M * (d // split) * 4
     rows = _BWD_BLOCK_M * 4
     bars = 1 + 2 * _BWD_STAGES
+    qdo = _BWD_BLOCK_M * d * 2
+    if d > _WIDE_D:
+        kv = _WIDE_BLOCK_N * d * 2
+        ds = _WIDE_BLOCK_N * _BWD_BLOCK_M * 2
+        return (2 * kv + 2 * _BWD_STAGES * qdo + 2 * ds
+                + 2 * _BWD_STAGES * rows + bars * 8 + _ALIGN)
+    split = 2 if d == 128 else 1  # dQ's columns split between consumers
+    kv = _BWD_BLOCK_N * d * 2
+    ds = _BWD_BLOCK_N * _BWD_BLOCK_M * 2
+    dq = _BWD_BLOCK_M * (d // split) * 4
     return (2 * kv + 2 * _BWD_STAGES * qdo + 2 * ds + 2 * dq
             + 2 * _BWD_STAGES * rows + bars * 8 + _ALIGN)
 
@@ -104,10 +121,12 @@ def segmentation_argmax_smem_bytes(c: int) -> int:
     return c * 4
 
 
-def normalize_image_smem_bytes() -> int:
-    """Shared memory a CTA of the normalize takes: the per-channel scale
-    and bias, ``kMaxChannels`` floats each (static)."""
-    return 2 * _MAX_CHANNELS * 4
+def normalize_image_smem_bytes(c: int = 3) -> int:
+    """Shared memory a CTA of the normalize takes for ``c`` channels: the
+    per-channel scale and bias, ``kMaxChannels`` floats each (static), or
+    above ``kMaxChannels`` channels ``c`` floats each (dynamic, the wide
+    kernel)."""
+    return 2 * max(c, _MAX_CHANNELS) * 4
 
 
 # -- the kernels' own reports (on the card) -----------------------------------
@@ -216,6 +235,63 @@ def _entry(ok: bool, err: float, attrs: dict | None, smem: int,
     return result
 
 
+def _flash_rows(rng, shape, dtypes, device, card, suffix: str) -> dict:
+    """The flash forward and backward rows at ``shape`` for each of
+    ``dtypes``: ``flash_attention``, ``flash_attention_bwd``, with
+    ``_bf16`` for bfloat16 and then ``suffix``."""
+    rows: dict = {}
+    on_card = card is not None
+    b, h, s, d = shape
+    q, k, v, do = (rng.standard_normal((b, h, s, d)).astype(np.float32)
+                   for _ in range(4))
+    tag = {torch.float32: "", torch.bfloat16: "_bf16"}
+    for dtype in dtypes:
+        qt, kt, vt = (torch.from_numpy(a).to(dtype).to(device)
+                      for a in (q, k, v))
+        with torch.no_grad():
+            got = fa.flash_attention(qt, kt, vt)
+            want = _attention64(qt, kt, vt)
+        err = (got.double() - want).abs()
+        if dtype == torch.float32:
+            ok = float(err.max()) < FLASH_F32_TOL
+        else:
+            ok = bool((err <= fa.tolerance(want.to(dtype))).all())
+        err = float(err.max())
+        kernel = "flash_fwd_f32" if dtype == torch.float32 else \
+            "flash_fwd_wgmma"
+        rows[f"flash_attention{tag[dtype]}{suffix}"] = _entry(
+            ok, err, flash_attrs(kernel, d, card) if on_card else None,
+            flash_attention_smem_bytes(d, dtype))
+
+    # The backward against float64 autograd of full attention, from the
+    # forward's own output and logsumexp.
+    kernels = {torch.float32: ("flash_bwd_prep_f32", "flash_bwd_dkv_f32",
+                               "flash_bwd_dq_f32"),
+               torch.bfloat16: ("flash_bwd_prep_bf16", "flash_bwd_wgmma",
+                                "flash_bwd_wgmma_ordered",
+                                "flash_bwd_dq_convert")}
+    for dtype in dtypes:
+        qt, kt, vt, dot = (torch.from_numpy(a).to(dtype).to(device)
+                           for a in (q, k, v, do))
+        with torch.no_grad():
+            out, lse = fa.flash_attention(qt, kt, vt, return_lse=True)
+            grads = fa.flash_attention_bwd(qt, kt, vt, out, lse, dot)
+        want = _attention_grads64(qt, kt, vt, dot)
+        ok, err = True, 0.0
+        for got, w in zip(grads, want):
+            diff = (got.double() - w).abs()
+            ok = ok and bool((diff <= fa.grad_tolerance(w.to(dtype))).all())
+            err = max(err, float(diff.max()))
+        reports = ({n: flash_attrs(n, d, card) for n in kernels[dtype]}
+                   if on_card else None)
+        main = "flash_bwd_dkv_f32" if dtype == torch.float32 else \
+            "flash_bwd_wgmma"
+        rows[f"flash_attention_bwd{tag[dtype]}{suffix}"] = _entry(
+            ok, err, reports[main] if reports else None,
+            flash_attention_bwd_smem_bytes(d, dtype), reports)
+    return rows
+
+
 def validate_kernels(device=None) -> dict:
     """Run each kernel against its float64 oracle on ``device`` (default
     ``cuda``; ``"cpu"`` runs the plain versions); returns one dict per
@@ -232,56 +308,13 @@ def validate_kernels(device=None) -> dict:
     rng = np.random.default_rng(0)
 
     # Flash attention against softmax(QK^T)V in float64: float32 as JAX
-    # runs it, bfloat16 as the port serves it.
-    b, h, s, d = FLASH_SHAPE
-    q, k, v = (rng.standard_normal((b, h, s, d)).astype(np.float32)
-               for _ in range(3))
-    do = rng.standard_normal((b, h, s, d)).astype(np.float32)
-    for name, dtype in (("flash_attention", torch.float32),
-                        ("flash_attention_bf16", torch.bfloat16)):
-        qt, kt, vt = (torch.from_numpy(a).to(dtype).to(device)
-                      for a in (q, k, v))
-        with torch.no_grad():
-            got = fa.flash_attention(qt, kt, vt)
-            want = _attention64(qt, kt, vt)
-        err = (got.double() - want).abs()
-        if dtype == torch.float32:
-            ok = float(err.max()) < FLASH_F32_TOL
-        else:
-            ok = bool((err <= fa.tolerance(want.to(dtype))).all())
-        err = float(err.max())
-        kernel = "flash_fwd_f32" if dtype == torch.float32 else \
-            "flash_fwd_wgmma"
-        results[name] = _entry(
-            ok, err, flash_attrs(kernel, d, card) if on_card else None,
-            flash_attention_smem_bytes(d, dtype))
-
-    # The backward against float64 autograd of full attention, from the
-    # forward's own output and logsumexp.
-    for name, dtype, kernels in (
-            ("flash_attention_bwd", torch.float32,
-             ("flash_bwd_prep_f32", "flash_bwd_dkv_f32", "flash_bwd_dq_f32")),
-            ("flash_attention_bwd_bf16", torch.bfloat16,
-             ("flash_bwd_prep_bf16", "flash_bwd_wgmma",
-              "flash_bwd_wgmma_ordered", "flash_bwd_dq_convert"))):
-        qt, kt, vt, dot = (torch.from_numpy(a).to(dtype).to(device)
-                           for a in (q, k, v, do))
-        with torch.no_grad():
-            out, lse = fa.flash_attention(qt, kt, vt, return_lse=True)
-            grads = fa.flash_attention_bwd(qt, kt, vt, out, lse, dot)
-        want = _attention_grads64(qt, kt, vt, dot)
-        ok, err = True, 0.0
-        for got, w in zip(grads, want):
-            diff = (got.double() - w).abs()
-            ok = ok and bool((diff <= fa.grad_tolerance(w.to(dtype))).all())
-            err = max(err, float(diff.max()))
-        reports = ({k: flash_attrs(k, d, card) for k in kernels}
-                   if on_card else None)
-        main = "flash_bwd_dkv_f32" if dtype == torch.float32 else \
-            "flash_bwd_wgmma"
-        results[name] = _entry(ok, err, reports[main] if reports else None,
-                               flash_attention_bwd_smem_bytes(d, dtype),
-                               reports)
+    # runs it, bfloat16 as the port serves it; then bfloat16 at D = 256,
+    # drawn from a generator of its own.
+    results.update(_flash_rows(rng, FLASH_SHAPE,
+                               (torch.float32, torch.bfloat16), device,
+                               card, ""))
+    results.update(_flash_rows(np.random.default_rng(1), FLASH_WIDE_SHAPE,
+                               (torch.bfloat16,), device, card, "_d256"))
 
     # The argmax against numpy's on the land-cover shape (float ties may
     # differ: a share of equal pixels, as JAX's).

@@ -672,9 +672,11 @@ def check_seg(shape, dtype, with_classmap, gen, plant=False) -> float:
 #: carries (phase 3's harness).
 VALIDATED = {"normalize_image": ("normalize_image",),
              "fused_seg_postprocess": ("segmentation_argmax",),
-             "flash_attention": ("flash_attention", "flash_attention_bf16"),
+             "flash_attention": ("flash_attention", "flash_attention_bf16",
+                                 "flash_attention_bf16_d256"),
              "flash_attention_bwd": ("flash_attention_bwd",
-                                     "flash_attention_bwd_bf16")}
+                                     "flash_attention_bwd_bf16",
+                                     "flash_attention_bwd_bf16_d256")}
 VALIDATE: dict = {}  # phase 3's validate_kernels() result
 
 
@@ -829,16 +831,19 @@ def flash_kernel_report(kernel: str = "flash_fwd_wgmma") -> dict:
     warpgroups raise theirs with setmaxnreg) and spill bytes, beside its
     dynamic shared memory a CTA (the kernel's own report,
     ``ops.validate.flash_attrs``). A second instantiation on a bool (the
-    backward's ordered dQ) reports under its head dim's ``"ordered"``."""
+    backward's ordered dQ) reports under its head dim's ``"ordered"``; the
+    backward at D = 256 is ``flash_bwd_wgmma_wide``."""
     import re
 
     from ai4e_tpu_torch.ops import _native
+    from ai4e_tpu_torch.ops.flash_attention import HEAD_DIMS
     from ai4e_tpu_torch.ops.validate import flash_attrs
 
     report, cur = {}, None
     for line in _native.build_log("flash_attention").splitlines():
         if "Compiling entry function" in line:
-            found = re.search(kernel + r"ILi(\d+)E(?:Lb([01])E)?", line)
+            found = re.search(kernel + r"(?:_wide)?ILi(\d+)E(?:Lb([01])E)?",
+                              line)
             cur = None
             if found:
                 d = int(found.group(1))
@@ -854,7 +859,7 @@ def flash_kernel_report(kernel: str = "flash_fwd_wgmma") -> dict:
         elif cur is not None and "registers" in line:
             cur["registers"] = int(re.search(r"Used (\d+) registers",
                                              line).group(1))
-    if sorted(report) != [16, 32, 64, 128]:
+    if sorted(report) != list(HEAD_DIMS):
         raise AssertionError(f"{kernel} missing from the build log: "
                              f"{sorted(report)}")
     return report
@@ -1882,15 +1887,16 @@ def longcontext_config() -> dict:
     return {k: longcontext_spec()["models"][0][k] for k in keys}
 
 
-def phase_model_grad() -> dict:
-    """The full-width SeqFormer (float32 masters, bf16 body) on one
-    training batch: every parameter's gradient through the flash kernels
-    against the same through plain full attention."""
+def phase_model_grad(config: dict | None = None) -> dict:
+    """The full-width SeqFormer (float32 masters, bf16 body; ``config``,
+    by default the deployed longcontext) on one training batch: every
+    parameter's gradient through the flash kernels against the same through
+    plain full attention."""
     from ai4e_tpu_torch.models import create_seqformer
     from ai4e_tpu_torch.train.make_checkpoints import longcontext_batch
     from ai4e_tpu_torch.train.step import cross_entropy_loss
 
-    config = longcontext_config()
+    config = config or longcontext_config()
     toks, labels = longcontext_batch(np.random.default_rng(SEED), 8,
                                      config["seq_len"], config["vocab_size"],
                                      config["num_classes"])
@@ -1916,8 +1922,9 @@ def phase_model_grad() -> dict:
     if not worst <= MODEL_GRAD_RTOL:
         raise AssertionError(f"model gradient {worst_name}: flash vs full "
                              f"relative gap {worst} > {MODEL_GRAD_RTOL}")
-    log(f"train: model gradients, flash against full attention on one "
-        f"batch: worst relative gap {worst:.3g} ({worst_name}; tolerance "
+    log(f"train: model gradients (heads {config['heads']}), flash against "
+        f"full attention on one batch: worst relative gap {worst:.3g} "
+        f"({worst_name}; tolerance "
         f"{MODEL_GRAD_RTOL}), loss {losses['flash']:.6f} vs "
         f"{losses['full']:.6f}")
     return {"worst_relative_gap": worst, "worst_param": worst_name,
@@ -2141,6 +2148,289 @@ def phase_train_then_serve() -> tuple[list[dict], str]:
     served = phase_serve_trained(train["result"])
     return (phase_flash_bwd_timing(errs, train["record"]["launches"]),
             served["npz"])
+
+
+# -- phase 6b: every head dim, the grid limits, the wide normalize -----------
+
+HEAD_DIM_CASES = (256, 96, 80, 8, 136)  # 136: a TMA box wholly past D
+WIDE_FWD = (64, 1, 4096, 256)   # FLASH_SERVED's flops at one head of 256
+WIDE_BWD = (8, 1, 4096, 256)    # BWD_TRAIN's flops at one head of 256
+PADDED_D = (8, 2, 4096, 96)     # a D the kernels run at their 128 tiles
+BH_PAST_GRID = (1640, 40, 24, 32)  # B*H = 65,600, past grid y's 65,535
+SEG_PAST_GRID = (65_600, 4, 4, 4)  # a batch past grid y's 65,535
+SEG_ALL_CLASSES = (2, 64, 64, 256)  # class 255, the uint8 map's last
+WIDE_NORMALIZE = (8, 256, 256, 13)  # a Sentinel-2 tile's 13 bands
+N_HEADS1_SYNC = 4
+N_HEADS1_ASYNC = 16
+N_HEADS1_STEPS = 3
+
+
+def heads1_spec() -> dict:
+    """The deployed longcontext with one head of 256 instead of two of
+    128: S 4096, dim 256, depth 4, vocab 32768, buckets 1/16/64, graphs
+    as deployed."""
+    spec = longcontext_spec()
+    spec["models"][0]["heads"] = 1
+    return spec
+
+
+def check_flash_no_lse(q, k, v, causal: bool, what: str) -> float:
+    """The forward without lse (the served call) against the plain
+    version; returns the max abs error."""
+    from ai4e_tpu_torch.ops.flash_attention import flash_attention
+
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_plain_chunked(q, k, v, causal)
+    torch.cuda.synchronize()
+    err, of_tol = flash_err(got, want)
+    if got.shape != want.shape or not of_tol <= 1:
+        raise AssertionError(f"flash {what} without lse: {tuple(got.shape)}, "
+                             f"max abs err {err} ({of_tol:.3g} of the "
+                             f"tolerance)")
+    return err
+
+
+def phase_head_dims_parity() -> dict:
+    """Each flash kernel against its plain version at D = 256, 96, 80, 8
+    and 136 (a box of zeros): the forward with and without lse and the
+    backward, in both types, causal and not, at a ragged S, and the bf16
+    backward's ordered mode; a cross shape at each D; then B*H = 65,600."""
+    from ai4e_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+
+    def tensors(b, h, s_q, s_k, d, dtype):
+        return tuple(torch.randn((b, h, s, d), generator=gen, device="cuda")
+                     .to(dtype) for s in (s_q, s_k, s_k, s_q))
+
+    fwd, bwd = [], []
+    for d in HEAD_DIM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            for causal in (False, True):
+                q, k, v, do = tensors(2, 3, 333, 333, d, dtype)
+                what = f"(2, 3, 333, {d}) {name} causal={causal}"
+                fwd.append(check_flash(q, k, v, causal, what)[0])
+                fwd.append(check_flash_no_lse(q, k, v, causal, what))
+                bwd.append(check_flash_bwd(q, k, v, do, causal, what))
+                if dtype == torch.bfloat16:
+                    check_flash_bwd_ordered(q, k, v, do, causal, what)
+            q, k, v, do = tensors(2, 2, 192, 320, d, dtype)
+            what = f"cross 192x320 d{d} {name}"
+            fwd.append(check_flash(q, k, v, False, what)[0])
+            bwd.append(check_flash_bwd(q, k, v, do, False, what))
+    b, h, s, d = BH_PAST_GRID
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = tensors(b, h, s, s, d, dtype)
+        what = f"B*H = {b * h} {BH_PAST_GRID} {str(dtype)[6:]}"
+        fwd.append(check_flash(q, k, v, True, what)[0])
+        bwd.append(check_flash_bwd(q, k, v, do, True, what))
+    return {"fwd_max_abs_err": max(fwd),
+            "bwd_max_abs_err": max(max(e) for e in bwd)}
+
+
+def phase_image_limits() -> dict:
+    """The seg postprocess at a batch past 65,535 and at 256 classes, and
+    normalize at 13 channels (the wide path), each against its plain
+    version, exact; normalize timed beside a copy_ yardstick."""
+    from ai4e_tpu_torch.ops import image_preprocess as ip
+
+    gen = torch.Generator().manual_seed(SEED + 29)
+    for shape in (SEG_PAST_GRID, SEG_ALL_CLASSES):
+        for with_map in (False, True):
+            check_seg(shape, torch.float32, with_map, gen)
+    c = WIDE_NORMALIZE[-1]
+    mean = tuple(np.linspace(0.1, 0.7, c))
+    std = tuple(np.linspace(0.15, 0.4, c))
+    check_normalize(WIDE_NORMALIZE, mean, std, gen)
+    check_normalize((2, 31, 29, c), mean, std, gen, misaligned=True)
+    x = torch.randint(0, 256, WIDE_NORMALIZE, dtype=torch.uint8,
+                      generator=gen).cuda()
+    n = x.numel()
+    bound, by = bound_ms(n * 1 + n * 4, 2 * n)
+    scale, bias = ip.channel_affine(mean, std, c)
+    out = {"shape": list(WIDE_NORMALIZE),
+           "ms": device_ms(lambda: ip.normalize_image(x, mean, std)),
+           "plain_ms": device_ms(
+               lambda: ip.normalize_image_plain(x, scale, bias)),
+           "copy_yardstick_ms": device_ms(lambda: torch.empty(
+               x.shape, dtype=torch.float32, device=x.device).copy_(x)),
+           "bound_ms": bound, "bound_by": by}
+    log(f"  normalize {WIDE_NORMALIZE}: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, copy_ {out['copy_yardstick_ms']:.4f} ms, "
+        f"bound {bound:.4f} ms ({by})")
+    return out
+
+
+def phase_heads1_served() -> dict:
+    """The deployed longcontext at one head of 256, built by
+    ``cli.build_worker`` (its graphs captured at buckets 1/16/64) and
+    served over HTTP: 4 sync and 16 async requests, each answer against the
+    same weights with plain full attention, the served layer-0 flash
+    against its plain version, and the flash launches counted."""
+    from ai4e_tpu_torch.cli import build_worker
+    from ai4e_tpu_torch.ops import flash_attention
+
+    spec = heads1_spec()
+    config = spec["models"][0]
+    worker, batcher, _ = build_worker(spec, device="cuda")
+    servable = worker.runtime.models["longcontext"]
+    if servable.module.blocks[0].attn.heads != 1:
+        raise AssertionError("the served model does not have one head")
+    rng = np.random.default_rng(SEED + 28)
+    seqs = rng.integers(0, config["vocab_size"],
+                        (N_HEADS1_SYNC + N_HEADS1_ASYNC, config["seq_len"]),
+                        dtype=np.uint16)
+    out = asyncio.run(drive(
+        worker, batcher, free_port(), [npy_bytes(s) for s in seqs],
+        N_HEADS1_SYNC,
+        (config["sync_path"], config["async_path"],
+         "completed - class_id, confidence"),
+        {"flash_attention": flash_attention}))
+    served_err = check_served_attention(servable, seqs)
+    agree = check_scores(out["sync_results"] + out["async_results"],
+                         reference_logits(servable, config, seqs))
+    batches = sum(int(float(line.rsplit(" ", 1)[1]))
+                  for line in out["metrics"].splitlines()
+                  if line.startswith("ai4e_batch_size_count"))
+    launches = out["launches"]["flash_attention"]
+    if launches < config["depth"] * batches:
+        raise AssertionError(f"flash launched {launches} times for {batches} "
+                             f"batches of depth {config['depth']}")
+    served = {"requests": N_HEADS1_SYNC + N_HEADS1_ASYNC,
+              "batches": batches,
+              "classes_agree_with_full_attention":
+                  f"{agree}/{N_HEADS1_SYNC + N_HEADS1_ASYNC}",
+              "served_layer0_flash_err": served_err,
+              "sync_p50_ms": statistics.median(out["sync_ms"]),
+              "launches": out["launches"]}
+    log(f"heads 1: served {json.dumps(served)}")
+    return served
+
+
+def phase_heads1_train() -> dict:
+    """The one-head longcontext's gradients through the flash kernels
+    against plain full attention on one batch, then three
+    ``train_longcontext(heads=1)`` steps at batch 8, their launches counted
+    from 0."""
+    from ai4e_tpu_torch.ops import flash_attention as fa
+    from ai4e_tpu_torch.train.make_checkpoints import train_longcontext
+
+    config = {**longcontext_config(), "heads": 1}
+    grads = phase_model_grad(config)
+    fa.launches = fa.bwd_launches = 0
+    result = train_longcontext(steps=N_HEADS1_STEPS, batch=8, heads=1,
+                               device="cuda")
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches}
+    for name, n in launches.items():
+        if n < config["depth"] * N_HEADS1_STEPS:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{N_HEADS1_STEPS} steps of depth "
+                                 f"{config['depth']}")
+    if not all(np.isfinite(result["losses"])):
+        raise AssertionError(f"training loss is not finite: "
+                             f"{result['losses']}")
+    train = {"gradients": grads, "losses": result["losses"],
+             "step_ms": [sum(ph.values()) for ph in result["phases_ms"]],
+             "launches": launches}
+    log(f"heads 1: trained {json.dumps(train)}")
+    return train
+
+
+def wide_timing() -> dict:
+    """The flash kernels at one head of 256 and at the padded D = 96, each
+    beside its plain version and SDPA (a yardstick the port never calls):
+    the forward at WIDE_FWD (FLASH_SERVED's flops), the backward's whole
+    call at WIDE_BWD (BWD_TRAIN's), and both at PADDED_D."""
+    import torch.nn.functional as F
+
+    from ai4e_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rows = {}
+    for tag, fwd_shape, bwd_shape in (("d256", WIDE_FWD, WIDE_BWD),
+                                      ("d96", PADDED_D, PADDED_D)):
+        b, h, s, d = fwd_shape
+        q, k, v = (torch.randn(fwd_shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        flops = 4 * b * h * s * s * d
+        bound, by = bound_ms(4 * q.numel() * 2, flops, BF16_OPS_PER_S)
+        fwd = {"shape": list(fwd_shape),
+               "ms": device_ms(lambda: fa.flash_attention(q, k, v)),
+               "plain_ms": device_ms(lambda: flash_plain_chunked(q, k, v),
+                                     reps=5),
+               "library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v)),
+               "bound_ms": bound, "bound_by": by}
+        fwd["tflops"] = flops / fwd["ms"] / 1e9
+        b, h, s, d = bwd_shape
+        q, k, v, do = (torch.randn(bwd_shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+        flops = 2 * 5 * b * h * s * s * d
+        bound, by = bound_ms(8 * b * h * s * d * 2 + b * h * s * 4, flops,
+                             BF16_OPS_PER_S)
+
+        def call():
+            return fa.flash_attention_bwd(q, k, v, out, lse, do)
+
+        bwd = {"shape": list(bwd_shape),
+               "ms": device_ms(call),
+               "fused_kernel_ms": kernel_device_ms(
+                   call, ("flash_bwd_wgmma",))["flash_bwd_wgmma"],
+               "plain_ms": device_ms(lambda: flash_bwd_plain_chunked(
+                   q, k, v, out, lse, do), reps=5),
+               "library_ms": device_ms(lambda: torch.autograd.grad(
+                   sdpa_out, (qg, kg, vg), do, retain_graph=True)),
+               "bound_ms": bound, "bound_by": by}
+        with deterministic_algorithms():
+            bwd["deterministic_ms"] = device_ms(call)
+        bwd["tflops"] = flops / bwd["ms"] / 1e9
+        rows[tag] = {"fwd": fwd, "bwd": bwd}
+        for part, row in (("forward", fwd), ("backward", bwd)):
+            log(f"  flash {part} {tuple(row['shape'])} bf16: kernel "
+                f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
+                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del q, k, v, do, out, lse, qg, kg, vg, sdpa_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_head_dims() -> dict:
+    """Phase 6b: the flash kernels at every head dim JAX's takes, the grid
+    limits JAX does not have, normalize at any channel count, and the
+    deployed longcontext at one head of 256, served and trained; the new
+    shapes timed on the otherwise idle card."""
+    log("head dims: the flash kernels past D = 128 and between the "
+        "instantiations, the grid limits, normalize at 13 channels")
+    parity = phase_head_dims_parity()
+    image = phase_image_limits()
+    served = phase_heads1_served()
+    train = phase_heads1_train()
+    timing = wide_timing()
+    return {"parity": parity, "normalize_wide": image, "served": served,
+            "train": train, "timing": timing}
+
+
+def head_dim_rows(kernels: list[dict], result: dict) -> None:
+    """Phase 6b's numbers onto the kernels line's rows."""
+    launches = {name: result["served"]["launches"].get(name, 0)
+                + result["train"]["launches"].get(name, 0)
+                for name in ("flash_attention", "flash_attention_bwd")}
+    part = {"flash_attention": "fwd", "flash_attention_bwd": "bwd"}
+    for k in kernels:
+        if k["name"] == "normalize_image":
+            k["wide_channels"] = result["normalize_wide"]
+        elif k["name"] in part:
+            k["launches_heads1"] = launches[k["name"]]
+            for tag, rows in result["timing"].items():
+                k[tag] = rows[part[k["name"]]]
+            k["head_dims_max_abs_err"] = result["parity"][
+                f"{part[k['name']]}_max_abs_err"]
 
 
 # -- phase 7: the runtime ---------------------------------------------------
@@ -12789,6 +13079,7 @@ def run_phases(seconds: dict[str, float], t0: float) -> list[dict]:
         k["launches"] = {**e2e["launches"], **lc["launches"]}[k["name"]]
     bwd, trained_npz = timed("train", phase_train_then_serve)
     kernels += bwd
+    head_dim_rows(kernels, timed("head_dims", phase_head_dims))
     second = SecondStream([k["name"] for k in kernels],
                           time.time() - (time.perf_counter() - t0))
     try:

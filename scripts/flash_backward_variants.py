@@ -64,10 +64,10 @@ from ai4e_tpu_torch.ops import flash_attention as fa  # noqa: E402
 TRAIN = (8, 2, 4096, 128)
 CSRC = ROOT / "ai4e_tpu_torch" / "csrc"
 ABLATIONS = {
-    "no_reduce": ("""        hopper::bulk_reduce_add(
-            p.dq_acc + ((long long)bh * p.s_pad + q0) * D +
-                dq_box * kBwdBlockM * S::kDqCols,
-            base + S::kDQ + c * S::kDqBytes, S::kDqBytes);
+    "no_reduce": ("""          hopper::bulk_reduce_add(
+              p.dq_acc + ((long long)bh * p.s_pad + q0) * D +
+                  dq_box * kBwdBlockM * S::kDqCols,
+              base + S::kDQ + c * S::kDqBytes, S::kDqBytes);
 """, ""),
     "no_ex2": ("float x = hopper::ex2(fmaf(s[i], scale2, "
                "(e & 1) ? -l2.y : -l2.x));",

@@ -48,13 +48,12 @@ SERVED = (64, 2, 4096, 128)
 TRAIN_BATCH = 8
 CSRC = ROOT / "ai4e_tpu_torch" / "csrc"
 ABLATIONS = {
-    "no_softmax": ("      online_softmax(s, m2, l_row, corr, scale2, mask(it), "
-                   "it * kFwdBlockN,\n                     p.s_k, p.causal, "
-                   "row_a, t);\n", ""),
+    "no_softmax": ("      online_softmax<kBlockN>(s, m2, l_row, corr, scale2, "
+                   "mask(it),\n                              it * kBlockN, "
+                   "p.s_k, p.causal, row_a, t);\n", ""),
     "no_ex2": ("    s[i] = hopper::ex2(fmaf(s[i], scale2, -m2[(i >> 1) & 1]));",
                "    s[i] = fmaf(s[i], scale2, -m2[(i >> 1) & 1]);"),
-    "no_rescale": ("      for (int i = 0; i < D / 2; ++i) o[i] *= "
-                   "corr[(i >> 1) & 1];\n", ""),
+    "no_rescale": ("          o[part][i] *= corr[(i >> 1) & 1];\n", ""),
 }
 
 

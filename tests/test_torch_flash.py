@@ -47,6 +47,18 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-3}
 LSE_ATOL = 1e-5
 
 
+# Head dims between and past the kernels' instantiations (16, 32, 64, 128,
+# 256), causal and not: D = 8 (JAX's own SeqFormer test, dim 32 over 4
+# heads), 48, 80 (a ragged S), 96, and 256 (the longcontext width at one
+# head).
+HEAD_DIM_CASES = [(s, s, d, causal) for s, d in ((64, 8), (128, 48),
+                                                 (100, 80), (128, 96),
+                                                 (128, 256))
+                  for causal in (False, True)]
+HEAD_DIM_IDS = [f"s{s}-d{d}{'-causal' if causal else ''}"
+                for s, _, d, causal in HEAD_DIM_CASES]
+
+
 def qkv(b, h, s_q, s_k, d, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, h, s_q, d)).astype(np.float32),
@@ -76,8 +88,9 @@ def jax_lse(q, k, v, causal, dtype):
     (128, 128, 64, False),
     (128, 128, 64, True),
     (64, 192, 32, False),  # cross attention, S_q != S_k (never causal)
+    *HEAD_DIM_CASES,
 ], ids=["prime-d16", "prime-d16-causal", "s256-d32", "s256-d32-causal",
-        "s128-d64", "s128-d64-causal", "cross-d32"])
+        "s128-d64", "s128-d64-causal", "cross-d32", *HEAD_DIM_IDS])
 def test_flash_matches_jax(dtype, s_q, s_k, d, causal):
     q, k, v = qkv(2, 3, s_q, s_k, d, seed=s_q + d)
     want = np.asarray(jax_flash(*(jnp.asarray(a, dtype) for a in (q, k, v)),
@@ -149,8 +162,9 @@ GRAD_TOL = {"float32": dict(rtol=0, atol=1e-5),
     (256, 256, 32, True),
     (128, 128, 64, False),
     (64, 192, 32, False),  # cross attention
+    *HEAD_DIM_CASES,
 ], ids=["prime-d16", "prime-d16-causal", "s256-d32-causal", "s128-d64",
-        "cross-d32"])
+        "cross-d32", *HEAD_DIM_IDS])
 def test_flash_gradients_match_jax(dtype, s_q, s_k, d, causal):
     """``jax.vjp`` through the TPU package's flash attention (its Pallas
     backward kernels in interpret mode) against ``torch.autograd.grad``

@@ -94,7 +94,7 @@ class TestWrappers:
     @pytest.mark.parametrize("bad,match", [
         (torch.zeros((2, 8, 8), dtype=torch.float32), "expected"),
         (torch.zeros((1, 8, 8, 4), dtype=torch.int32), "float32 or bfloat16"),
-        (torch.zeros((1, 8, 8, 256)), "class count"),
+        (torch.zeros((1, 8, 8, 257)), "class count"),
     ], ids=["rank", "dtype", "classes"])
     def test_rejects_bad_logits(self, bad, match):
         with pytest.raises(ValueError, match=match):
@@ -107,6 +107,22 @@ class TestWrappers:
         assert (image_preprocess.launches, seg_postprocess.launches) == before
         if not torch.cuda.is_available():
             assert before == (0, 0)
+
+
+    def test_wide_affine_is_copied_to_the_device_once(self):
+        """Past 8 channels the kernel reads its scales and biases from a
+        device array: one per (device, values), kept for later calls."""
+        scale, bias = image_preprocess.channel_affine(
+            tuple(np.linspace(0.1, 0.7, 13)), tuple(np.linspace(0.15, 0.4, 13)),
+            13)
+        first = image_preprocess._device_affine(scale, bias,
+                                                torch.device("cpu"))
+        assert first.dtype == torch.float32 and first.shape == (26,)
+        assert torch.equal(first, torch.from_numpy(np.r_[scale, bias]))
+        assert image_preprocess._device_affine(
+            scale, bias, torch.device("cpu")) is first
+        assert image_preprocess._device_affine(
+            scale * 2, bias, torch.device("cpu")) is not first
 
 
 class TestNormalizeLaunchPlan:
@@ -158,10 +174,34 @@ class TestFlashWrapper:
         if not torch.cuda.is_available():
             assert before == 0
 
-    @pytest.mark.parametrize("d", [8, 48, 256])
+    @pytest.mark.parametrize("d", [257, 264, 512])
     def test_rejects_unsupported_head_dim(self, d):
-        with pytest.raises(ValueError, match="head dim"):
+        """Every D from 1 to 256 is taken (tests/test_torch_flash.py holds
+        them against JAX's); past 256 the kernels refuse, naming the
+        limit."""
+        with pytest.raises(ValueError, match="head dim .* 1 to 256"):
             flash_attention(*random_qkv(1, 1, 8, 8, d, 0))
+
+    @pytest.mark.parametrize("d,tile", [(1, 16), (8, 16), (16, 16),
+                                        (17, 32), (48, 64), (80, 128),
+                                        (96, 128), (129, 256), (256, 256)])
+    def test_instantiation_is_the_narrowest_that_holds_d(self, d, tile):
+        assert flash_module.instantiation(d) == tile
+
+    @pytest.mark.parametrize("dtype,d,padded", [
+        (torch.bfloat16, 8, 8), (torch.bfloat16, 13, 16),
+        (torch.bfloat16, 250, 256), (torch.float32, 4, 4),
+        (torch.float32, 5, 8), (torch.float32, 97, 100)])
+    def test_rows_are_padded_to_whole_16_byte_chunks(self, dtype, d, padded):
+        """A D that is not a whole number of 16-byte chunks is copied to a
+        zero-padded tensor for the kernels; the values are kept."""
+        q, k, v = (t.to(dtype) for t in random_qkv(1, 2, 5, 5, d, d))
+        (pq, pk, pv), copied = flash_module._pad_d((q, k, v), d)
+        assert copied == (padded != d)
+        for src, got in zip((q, k, v), (pq, pk, pv)):
+            assert got.shape[-1] == padded and got.dtype == dtype
+            assert torch.equal(got[..., :d], src)
+            assert not got[..., d:].any()
 
     def test_rejects_non_unit_d_stride(self):
         q, k, v = random_qkv(1, 1, 16, 16, 32, 0)
@@ -290,6 +330,31 @@ class TestKernelsOnCard:
         for key in want:
             assert torch.equal(got[key], want[key]), key
 
+    @pytest.mark.parametrize("shape", [(65_600, 4, 4, 4), (2, 40, 56, 256)],
+                             ids=["batch-past-grid-y", "256-classes"])
+    def test_seg_kernel_past_the_old_limits(self, cuda, shape):
+        logits = torch.from_numpy(planted_logits(shape, 6)).to(cuda)
+        got = fused_seg_postprocess(logits)
+        want = seg_postprocess.fused_seg_postprocess_plain(logits)
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+
+    @pytest.mark.parametrize("c", [9, 13, 64])
+    def test_normalize_wide_channels(self, cuda, c):
+        """Past kMaxChannels the scales and biases are staged in shared
+        memory: still bit for bit."""
+        shape = (3, 37, 29, c)
+        x = torch.from_numpy(np.random.default_rng(c).integers(
+            0, 256, shape, np.uint8)).to(cuda)
+        mean_std = (tuple(np.linspace(0.1, 0.7, c)),
+                    tuple(np.linspace(0.15, 0.4, c)))
+        before = image_preprocess.launches
+        got = normalize_image(x, *mean_std)
+        assert image_preprocess.launches == before + 1
+        scale, bias = image_preprocess.channel_affine(*mean_std, c)
+        assert torch.equal(
+            got, image_preprocess.normalize_image_plain(x, scale, bias))
+
     def test_unaligned_logits_are_refused(self, cuda):
         flat = torch.zeros(4 * 8 * 8 * 4 + 1, device=cuda)
         with pytest.raises(ValueError, match="aligned"):
@@ -316,10 +381,34 @@ class TestFlashKernelOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-    @pytest.mark.parametrize("d", [16, 32, 64, 128])
+    @pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 80, 96, 128, 136, 256])
     def test_ragged_matches_plain(self, cuda, dtype, causal, d):
         q, k, v = (t.to(dtype).to(cuda) for t in random_qkv(2, 3, 1000, 1000, d, d))
         self.check(q, k, v, causal)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [1, 5, 13, 250])
+    def test_padded_head_dims(self, cuda, dtype, d):
+        """A D of part of a 16-byte chunk runs on a zero-padded copy and
+        is sliced back."""
+        q, k, v = (t.to(dtype).to(cuda) for t in random_qkv(2, 2, 130, 130, d, d))
+        before = flash_module.padded_copies
+        got, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        assert flash_module.padded_copies == before + 1
+        want, want_lse = flash_module.flash_attention_plain(
+            q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert bool(((got.float() - want.float()).abs()
+                     <= flash_module.tolerance(want)).all())
+        assert float((lse - want_lse).abs().max()) <= flash_module.LSE_ATOL
+
+    def test_batch_heads_past_the_grid_y_limit(self, cuda):
+        """B*H = 65,600: the kernels take B*H in their one grid
+        dimension."""
+        q, k, v = (t.to(torch.bfloat16).to(cuda)
+                   for t in random_qkv(1640, 40, 24, 24, 32, 4))
+        self.check(q, k, v, causal=True)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_cross_attention(self, cuda, dtype):
@@ -500,7 +589,7 @@ class TestFlashBackwardOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-    @pytest.mark.parametrize("d", [16, 32, 64, 128])
+    @pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 80, 96, 128, 136, 256])
     def test_ragged_matches_plain(self, cuda, dtype, causal, d):
         q, k, v, do = (t.to(dtype).to(cuda) for t in
                        random_qkv(2, 3, 1000, 1000, d, d) + random_qkv(
@@ -546,6 +635,22 @@ class TestFlashBackwardOnCard:
         for i, w in enumerate(want):
             err = (got[:, :, i].transpose(1, 2).float() - w.float()).abs()
             assert bool((err <= flash_module.grad_tolerance(w)).all()), i
+
+    def test_padded_head_dim_and_batch_heads_past_the_grid(self, cuda):
+        """D = 13 in bf16 (a padded copy) and B*H = 65,600."""
+        for shape in ((2, 2, 130, 13), (1640, 40, 24, 32)):
+            q, k, v, do = (t.to(torch.bfloat16).to(cuda) for t in
+                           random_qkv(*shape[:3], shape[2], shape[3], 5)
+                           + random_qkv(*shape[:3], shape[2], shape[3], 6)[:1])
+            out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+            got = flash_module.flash_attention_bwd(q, k, v, out, lse, do, True)
+            want = flash_module.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                          do, True)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.shape == w.shape
+                assert bool(((g.float() - w.float()).abs()
+                             <= flash_module.grad_tolerance(w)).all())
 
     def test_moe_training_shape(self, cuda):
         """``train_moe``'s backward, (16, 1, 1024, 128) bf16."""

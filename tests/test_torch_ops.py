@@ -29,7 +29,9 @@ class TestNormalizeImage:
         ((2, 256, 256, 3), (None, None)),
         ((2, 256, 256, 3), IMAGENET),
         ((3, 250, 250, 3), IMAGENET),
-    ], ids=["default", "imagenet", "ragged"])
+        ((2, 64, 48, 13), (tuple(np.linspace(0.1, 0.7, 13)),
+                           tuple(np.linspace(0.15, 0.4, 13)))),
+    ], ids=["default", "imagenet", "ragged", "sentinel2-13-bands"])
     def test_matches_jax(self, shape, mean_std):
         """Same affine in float32 on both sides; 1e-6 absolute allows one
         rounding of difference where XLA contracts the multiply-add."""
@@ -58,6 +60,19 @@ class TestSegPostprocess:
             assert got["classmap"].dtype == torch.uint8
             np.testing.assert_array_equal(got["classmap"].numpy(),
                                           np.asarray(want["classmap"]))
+
+    def test_256_classes_map_class_255(self):
+        """C = 256: the uint8 map holds class 255, as JAX's does."""
+        logits = np.random.default_rng(3).standard_normal(
+            (2, 16, 24, 256)).astype(np.float32)
+        logits[0, 0, 0, 255] = 1e3  # class 255 wins here
+        got = fused_seg_postprocess(torch.from_numpy(logits))
+        want = jax_fused(jnp.asarray(logits))
+        assert int(got["classmap"][0, 0, 0]) == 255
+        np.testing.assert_array_equal(got["classmap"].numpy(),
+                                      np.asarray(want["classmap"]))
+        np.testing.assert_array_equal(got["counts"].numpy(),
+                                      np.asarray(want["counts"]))
 
     def test_argmax_and_histogram_match_jax(self):
         logits = planted_logits((2, 64, 96, 7), seed=2)

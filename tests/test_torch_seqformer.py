@@ -25,13 +25,16 @@ from test_torch_worker import npy, poll, serving
 from ai4e_tpu.models.seqformer import SeqFormer as FlaxSeqFormer
 from ai4e_tpu.models.seqformer import attention_for as jax_attention_for
 from ai4e_tpu.models.seqformer import create_seqformer as jax_create
+from ai4e_tpu.parallel import MeshSpec, make_mesh
 from ai4e_tpu.runtime.families import build_seqformer as jax_build_seqformer
+from ai4e_tpu.train import step as jax_step
 from ai4e_tpu_torch import convert
 from ai4e_tpu_torch.cli import build_worker
 from ai4e_tpu_torch.models import SeqFormer, attention_for, create_seqformer
 from ai4e_tpu_torch.models import layers
 from ai4e_tpu_torch.models.unet import gelu as unet_gelu
 from ai4e_tpu_torch.runtime.families import build_seqformer
+from ai4e_tpu_torch.train import Trainer
 
 torch.set_num_threads(2)
 
@@ -298,6 +301,80 @@ class TestParity:
                                  x, dtype, DEPLOYED["vocab_size"], config)
         np.testing.assert_allclose(got, want, rtol=0, atol=atol)
         assert got.argmax() == want.argmax()
+
+
+# Head dims off the old instantiations: JAX's own SeqFormer test geometry
+# (tests/test_seqformer.py: dim 32 over 4 heads, D = 8, on 16 features)
+# and the longcontext width at one head of 256 (D = 256), depth 1, S 64, on
+# tokens.
+HEAD_DIM_GEOMETRIES = {
+    "jax-test-d8": (dict(seq_len=256, input_dim=16, dim=32, depth=2, heads=4,
+                         num_classes=8), None),
+    "one-head-d256": (dict(seq_len=64, input_dim=64, dim=256, depth=1,
+                           heads=1), VOCAB),
+}
+
+
+def head_dim_batch(geometry: str, n: int, seed: int):
+    """Inputs (token ids or features) and labels for a geometry."""
+    config, vocab = HEAD_DIM_GEOMETRIES[geometry]
+    rng = np.random.default_rng(seed)
+    x = (tokens(n, config["seq_len"], vocab, seed) if vocab else
+         rng.standard_normal((n, config["seq_len"], config["input_dim"]))
+         .astype(np.float32))
+    y = rng.integers(0, config.get("num_classes", 16), n).astype(np.int32)
+    return x, y
+
+
+class TestHeadDims:
+    """The SeqFormer at head dims the port's flash kernels did not take
+    before, against JAX's on converted weights (its flash in interpret
+    mode, the port's plain version on the CPU)."""
+
+    @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                            (torch.bfloat16, 5e-2)],
+                             ids=["float32", "bfloat16"])
+    @pytest.mark.parametrize("geometry", list(HEAD_DIM_GEOMETRIES))
+    def test_logits_match_jax(self, geometry, dtype, atol):
+        """Logits within the tolerances of TestParity (float32 1e-4,
+        bfloat16 5e-2). Measured against logits of scale 2: D = 8 3.9e-7
+        and 2.4e-7, D = 256 6.6e-7 and 3.0e-3."""
+        config, vocab = HEAD_DIM_GEOMETRIES[geometry]
+        x, _ = head_dim_batch(geometry, 4, 11)
+        got, want = forward_both(flax_params(vocab, config), x, dtype, vocab,
+                                 config)
+        assert got.shape == want.shape == (4, config.get("num_classes", 16))
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+    @pytest.mark.parametrize("geometry", list(HEAD_DIM_GEOMETRIES))
+    def test_one_trainer_step_matches_jax(self, geometry):
+        """``ai4e_tpu.train.step.Trainer`` on a one-device CPU mesh and the
+        port's ``Trainer``, float32, one step of the default adamw from the
+        same converted weights on the same batch: the loss within 1e-4 and
+        every parameter within 1e-5, as tests/test_torch_train.py holds
+        three steps at D = 32 (measured: losses equal; parameters 3.7e-8
+        at D = 8, 7.2e-6 at D = 256)."""
+        config, vocab = HEAD_DIM_GEOMETRIES[geometry]
+        params = flax_params(vocab, config)
+        x, y = head_dim_batch(geometry, 4, 12)
+        model = FlaxSeqFormer(**config, vocab_size=vocab, dtype=jnp.float32,
+                              attn_fn=jax_attention_for(None, "flash"))
+        mesh = make_mesh(MeshSpec(), devices=jax.devices()[:1])
+        jax_tr = jax_step.Trainer(model.apply,
+                                  jax.tree.map(jnp.asarray, params), mesh)
+        want_loss = jax_tr.train_step(x, y)
+        want = convert.seqformer_state_dict_from_flax(
+            jax.tree.map(np.asarray, jax_tr.params))
+        port = SeqFormer(**config, vocab_size=vocab, dtype=torch.float32,
+                         param_dtype=torch.float32,
+                         attn_fn=attention_for(None, "flash"))
+        port.load_state_dict(convert.seqformer_state_dict_from_flax(params))
+        got_loss = Trainer(port, device="cpu").train_step(x, y)
+        np.testing.assert_allclose(got_loss, want_loss, rtol=0, atol=1e-4)
+        got = port.state_dict()
+        for name, w in want.items():
+            np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(),
+                                       rtol=0, atol=1e-5, err_msg=name)
 
 
 def seqformer_spec(**overrides) -> dict:

@@ -22,7 +22,8 @@ from ai4e_tpu_torch.ops.flash_attention import HEAD_DIMS
 
 JAX_KERNELS = ("flash_attention", "segmentation_argmax", "normalize_image")
 PORT_ONLY = ("flash_attention_bf16", "flash_attention_bwd",
-             "flash_attention_bwd_bf16")
+             "flash_attention_bwd_bf16", "flash_attention_bf16_d256",
+             "flash_attention_bwd_bf16_d256")
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +81,11 @@ def test_the_flash_rows_report_the_mirrors(port):
         validate.flash_attention_smem_bytes(d)
     assert port["flash_attention_bwd_bf16"]["smem_bytes"] == \
         validate.flash_attention_bwd_smem_bytes(d)
+    wide = validate.FLASH_WIDE_SHAPE[-1]
+    assert port["flash_attention_bf16_d256"]["smem_bytes"] == \
+        validate.flash_attention_smem_bytes(wide)
+    assert port["flash_attention_bwd_bf16_d256"]["smem_bytes"] == \
+        validate.flash_attention_bwd_smem_bytes(wide)
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
@@ -93,9 +99,9 @@ def test_smem_mirrors_fit_an_h100_block(d, dtype):
 def test_the_fused_backward_s_mirror_is_the_kernel_s_layout():
     """csrc/flash_attention.cu states the fused backward's bytes a CTA
     (``-Xptxas -v``): 59,432 / 84,008 / 133,160 / 198,696 at D = 16 / 32 /
-    64 / 128."""
+    64 / 128, and the wide kernel's 215,080 at D = 256."""
     assert [validate.flash_attention_bwd_smem_bytes(d) for d in HEAD_DIMS] \
-        == [59_432, 84_008, 133_160, 198_696]
+        == [59_432, 84_008, 133_160, 198_696, 215_080]
 
 
 def test_the_mirrors_on_the_cpu_have_no_kernel_report(port):
@@ -109,6 +115,13 @@ def test_the_mirrors_on_the_cpu_have_no_kernel_report(port):
 def test_argmax_and_normalize_mirrors(c):
     assert validate.segmentation_argmax_smem_bytes(c) == 4 * c
     assert validate.normalize_image_smem_bytes() == 64
+
+
+@pytest.mark.parametrize("c,smem", [(1, 64), (8, 64), (13, 104), (256, 2048)])
+def test_normalize_mirror_past_eight_channels(c, smem):
+    """Up to 8 channels the static 2 x 8 floats; past them the wide
+    kernel's 2 x C floats of dynamic shared memory."""
+    assert validate.normalize_image_smem_bytes(c) == smem
 
 
 def test_launch_ok_refuses_a_register_file_overrun():
